@@ -1,0 +1,101 @@
+"""Parameter initializers appended as startup-program ops (counterpart of
+paddle_tpu/fluid/initializer.py; the ops they append draw from the
+executor's torch.Generator, see ops/tensor_ops.py)."""
+
+from __future__ import annotations
+
+import math
+
+
+class Initializer:
+    def __call__(self, var, block):
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self._value = value
+
+    def __call__(self, var, block):
+        block.append_op("fill_constant", outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "value": self._value,
+                               "dtype": var.dtype})
+
+
+class Uniform(Initializer):
+    def __init__(self, low=-1.0, high=1.0, seed=0):
+        self._low, self._high, self._seed = low, high, seed
+
+    def __call__(self, var, block):
+        block.append_op("uniform_random", outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "min": self._low,
+                               "max": self._high, "dtype": var.dtype,
+                               "seed": self._seed})
+
+
+class Normal(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self._mean, self._std, self._seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op("gaussian_random", outputs={"Out": [var.name]},
+                        attrs={"shape": list(var.shape), "mean": self._mean,
+                               "std": self._std, "dtype": var.dtype,
+                               "seed": self._seed})
+
+
+def _fan_in_out(var):
+    shape = var.shape
+    if len(shape) == 0:
+        return 1, 1
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    receptive = 1
+    for s in shape[2:]:
+        receptive *= s
+    fan_in = shape[1] * receptive if len(shape) > 2 else shape[0]
+    fan_out = shape[0] * receptive if len(shape) > 2 else shape[1]
+    return fan_in, fan_out
+
+
+class Xavier(Initializer):
+    """reference initializer.py XavierInitializer (Glorot)."""
+
+    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+        self._uniform, self._fan_in, self._fan_out, self._seed = (
+            uniform, fan_in, fan_out, seed)
+
+    def __call__(self, var, block):
+        fi, fo = _fan_in_out(var)
+        fi = self._fan_in if self._fan_in is not None else fi
+        fo = self._fan_out if self._fan_out is not None else fo
+        if self._uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            Uniform(-limit, limit, self._seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            Normal(0.0, std, self._seed)(var, block)
+
+
+class MSRA(Initializer):
+    """reference initializer.py MSRAInitializer (He init)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self._uniform, self._fan_in, self._seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var)
+        fi = self._fan_in if self._fan_in is not None else fi
+        if self._uniform:
+            limit = math.sqrt(6.0 / fi)
+            Uniform(-limit, limit, self._seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fi)
+            Normal(0.0, std, self._seed)(var, block)
+
+
+ConstantInitializer = Constant
+UniformInitializer = Uniform
+NormalInitializer = Normal
+XavierInitializer = Xavier
+MSRAInitializer = MSRA

@@ -1,0 +1,6 @@
+"""fluid.layers — the layer functions this slice ports."""
+
+from . import nn, io
+from .nn import (fc, softmax, elementwise_add, conv2d, pool2d,  # noqa: F401
+                 batch_norm)
+from .io import data  # noqa: F401
