@@ -1,32 +1,55 @@
 #!/usr/bin/env python3
-"""Serve ResNet-50 through the PyTorch/CUDA port on one GPU and hold every
-hand-written kernel against its plain PyTorch version.
+"""Serve and train ResNet-50 through the PyTorch/CUDA port on one GPU and
+hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases, each of which exits non-zero on a failed check:
 
-1. build   — compile csrc/conv_affine.cu with nvcc; print the card's name
-             and power limit, the torch and nvcc versions, and the TF32
-             switches (both off: every float32 reference is full float32).
-2. kernels — every distinct fused conv shape of ResNet-50 at batch 8, in
-             float32 and bfloat16, with and without relu: the kernel against
-             ``conv_affine_torch``. Then, at batch 32 in float32, the time of
-             the kernel wrapper, of the plain version and of one cuDNN call
-             computing the same function (a yardstick the port never calls),
-             beside the least time the card could take.
-3. serving — ResNet-50 (224x224x3, 1000 classes, softmax fetch) built with
-             the port's front end, random weights from the seed, BN
-             statistics overwritten so the folded affine is not trivial;
-             fuse_conv_bn, save_inference_model, InferenceEngine, warmup;
-             requests of batch 1, 3, 8, 32 and 40 (the last one chunks),
-             each compared with the same bundle served under
-             kernel_tier=torch. Each forward must launch conv_affine 49
-             times and route 4 convs to the plain op chain.
+1. build    — compile every csrc/*.cu with nvcc, all at once; print the
+              card's name and power limit, the torch and nvcc versions, and
+              the TF32 switches (both off: every float32 reference is full
+              float32).
+2. kernels  — every distinct fused conv shape of ResNet-50 at batch 8, in
+              float32 and bfloat16, with and without relu: conv_affine,
+              conv_bn_train and conv_bn_bwd against their plain versions;
+              momentum_arena against its plain version over ResNet-50's
+              trainable parameters, nesterov off and on, bitwise. Then, at
+              batch 32 in float32, the training kernels' outputs against
+              their plain versions again, and each kernel's time per
+              forward or step, its plain version's, one PyTorch library
+              call computing the same function (a yardstick the port never
+              calls) and the least time the card could take.
+3. serving  — ResNet-50 (224x224x3, 1000 classes, softmax fetch) built with
+              the port's front end, random weights from the seed, BN
+              statistics overwritten so the folded affine is not trivial;
+              fuse_conv_bn, save_inference_model, InferenceEngine, warmup;
+              requests of batch 1, 3, 8, 32 and 40 (the last one chunks),
+              each compared with the same bundle served under
+              kernel_tier=torch. Each forward must launch conv_affine 49
+              times and route 4 convs to the plain op chain.
+4. training — ResNet-50 with mean(softmax_with_cross_entropy), fuse_conv_bn
+              and Momentum(0.0125, 0.9, fused=True) at batch 32 (bench.py:217
+              with its batch-256 rate of 0.1 scaled to batch 32), seeded
+              weights; 5 steps on one fixed feed under kernel_tier=auto and
+              under kernel_tier=torch, each from a copy of the startup
+              state. Each step must launch conv_bn_train and conv_bn_bwd 49
+              times each and momentum_arena once, and route 4 + 4 convs to
+              the plain chain. The step-1 loss must match the plain route,
+              and each parameter's step-1 gradient (each running
+              statistic's change) must lie within a limit set by its own
+              float32 floor, measured in the run by plain-route steps on
+              the batch in permuted orders; a step with a planted fault in
+              conv_bn_bwd must break those limits; the loss must fall over
+              the 5 steps. Prints ms per step, images/s and peak memory for
+              both routes, the relu outputs that change side between the
+              routes, the losses at bench.py's lr 0.1, and a profile of one
+              step.
 
-The last two lines of output are a JSON line listing each kernel's numbers
-and ``{"ok": true, "device": {...}}``.
+The last three lines of output are a JSON line listing each kernel's
+numbers, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,9 +76,43 @@ PEAK_BYTES = 3.35e12
 # room for a few steps and no more.
 REL_LIMIT = {"float32": 1e-4, "bfloat16": 2e-2}
 
+# relu masks in the kernel-vs-plain checks: where the plain pre-activation
+# lies within this share of its largest magnitude of 0, dy is set to 0, so
+# that neither version's mask there is decided by a rounding (the two sum
+# the conv in different orders; a pre-activation within one rounding of 0
+# may take the other side of the relu, which moves dbias by a whole dy term)
+MASK_MARGIN = 1e-3
+
+# phase 4, kernel route vs plain route on step 1. Loss: both compute the
+# same float32 function with sums in other orders through 53 conv+BN
+# layers, which moves the loss by float32 roundings (~1e-7 relative), so
+# 1e-4 is loose for that and tight for a wrong kernel.
+# Parameters: each trainable parameter's step-1 gradient and each running
+# statistic's step-1 change, ‖Δ‖₂/‖ref‖₂, within FLOOR_FACTOR times that
+# parameter's own float32 floor, and never below REL_MIN (for a floor of
+# 0). The floor is the largest such spread between the plain route and the
+# plain route on the same batch in FLOOR_ORDERS permuted orders, the same
+# function summed in other orders. It lies far above float32's rounding:
+# ResNet-50 with batch statistics amplifies a rounding through its layers,
+# and a relu output within a rounding of 0 takes either side whichever
+# route runs. The check's reach is shown in every run: a kernel-route step
+# whose conv_bn_bwd scales one layer's dw and another's dscale by PLANTED,
+# at the layers whose limits are loosest, must exceed the limits, and a
+# plain-route step in a further order is printed against them.
+LOSS_LIMIT, FLOOR_FACTOR, FLOOR_ORDERS, REL_MIN = 1e-4, 2.0, 3, 1e-5
+PLANTED = 0.875
+
 IMAGE, CLASSES = 224, 1000
 REQUESTS = (1, 3, 8, 32, 40)
 KERNEL_CONVS, PLAIN_CONVS = 49, 4
+TRAIN_BATCH, TRAIN_STEPS = 32, 5
+# bench.py:217 trains with lr 0.1 at its default batch of 256; at batch 32
+# that rate makes the loss on one fixed feed climb after step 2 on both
+# routes alike (phase 4 prints it), so phase 4 takes the linear-scaling
+# rate 0.1 * 32 / 256
+BENCH_LR = 0.1
+TRAIN_LR = BENCH_LR * TRAIN_BATCH / 256
+KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena")
 
 
 def fail(msg):
@@ -311,7 +368,7 @@ def phase_serving(torch, fluid, seed, card):
         replies[n], = engine.infer({"img": feeds[n]})
         lat[n] = (time.perf_counter() - t0) * 1e3
         forwards += -(-n // engine.max_batch)
-    launches = cbk.launches
+    launches = cbk.launches["conv_affine"]
     fallbacks = tier.fallback_counts().get("conv_bn", 0)
     log(f"main path: {forwards} forwards, conv_affine launches {launches}, "
         f"plain-routed fused convs {fallbacks}")
@@ -358,22 +415,23 @@ def phase_serving(torch, fluid, seed, card):
         log(f"bucket 32, kernel_tier={tier_name}: {ms:.2f} ms per request, "
             f"{32e3 / ms:.1f} images/s | {card}")
     log(f"engine stats: {json.dumps(engine.stats())}")
-    profile_requests(torch, engine, x32, card)
+    profile(torch, lambda: engine.infer(x32), "bucket-32 request", card)
     return launches
 
 
-def profile_requests(torch, engine, feed, card, reps=3):
-    """Where a bucket-32 request's time goes: device time by kernel from
-    torch.profiler over ``reps`` requests, and the device's busy share of
-    the host wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    engine.infer(feed)
+def profile(torch, fn, title, card, reps=3):
+    """Where the time of ``fn`` goes: device time by kernel from
+    torch.profiler over ``reps`` calls, and the device's busy share of the
+    host wall time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.infer(feed)
+            fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = []
     for ev in prof.key_averages():
@@ -388,12 +446,511 @@ def profile_requests(torch, engine, feed, card, reps=3):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"\n== profile: bucket-32 request, {reps} requests | {card} ==")
-    log(f"wall {wall_ms:.2f} ms per request, device busy {busy:.2f} ms "
+    log(f"\n== profile: {title}, {reps} calls | {card} ==")
+    log(f"wall {wall_ms:.2f} ms per call, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), idle "
         f"{100 * (1 - busy / wall_ms):.1f}%")
-    for ms, count, name in rows[:12]:
+    for ms, count, name in rows[:14]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+
+
+EPS = 1e-5
+
+
+def build_resnet50_train(fluid, seed):
+    """bench.py:217 build(fuse=True) at its published widths: ResNet-50,
+    mean(softmax_with_cross_entropy), fuse_conv_bn, then
+    Momentum(TRAIN_LR, 0.9, fused=True).minimize."""
+    from paddle_tpu_torch.testing.models import resnet
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[IMAGE, IMAGE, 3])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            resnet(img, CLASSES), label))
+        n_fused = fluid.fuse_conv_bn(main)
+        if n_fused != KERNEL_CONVS + PLAIN_CONVS:
+            fail(f"fuse_conv_bn fused {n_fused} chains, want 53")
+        fluid.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9,
+                                 fused=True).minimize(loss, startup)
+    return main, startup, loss
+
+
+def bn_work(x, w, strides, paddings, itemsize, backward):
+    """(operations, bytes) of one conv_bn_train or conv_bn_bwd call. The
+    forward: one conv (2·M·Cout·K) and ~6 operations per output element
+    (statistics, normalize, relu); x and w read, y written. The backward:
+    three GEMMs of the conv's size (z, dw, dx) and ~12 operations per
+    output element; x, w and dy read, dx and dw (float32) written."""
+    n, h, wd, cin = x
+    cout, _, kh, kw = w
+    ho = (h + 2 * paddings[0] - kh) // strides[0] + 1
+    wo = (wd + 2 * paddings[1] - kw) // strides[1] + 1
+    m = n * ho * wo
+    gemm = 2 * m * cout * kh * kw * cin
+    xb, wb, yb = n * h * wd * cin * itemsize, cout * cin * kh * kw * 4, \
+        m * cout * itemsize
+    if backward:
+        return 3 * gemm + 12 * m * cout, 2 * xb + wb + yb + wb + 4 * cout * 4
+    return gemm + 6 * m * cout, xb + wb + yb + 4 * cout * 4
+
+
+def bound_ms(ops, nbytes, dtype="float32"):
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_train_kernels(torch, fluid, seed):
+    """conv_bn_train, conv_bn_bwd and momentum_arena against their plain
+    versions, then their times per training step at batch 32 in float32.
+    Returns {kernel: numbers for the kernels line}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    main, _, _ = build_resnet50_train(fluid, seed)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def operands(x_shape, w_shape, dtype):
+        cout, cin, kh, kw = w_shape
+        return (randn(x_shape).to(dtype),
+                randn(w_shape, (2.0 / (cin * kh * kw)) ** 0.5),
+                torch.rand(cout, generator=gen, device=dev) + 0.5,
+                randn((cout,), 0.1))
+
+    shapes8 = fused_conv_shapes(fluid, main, 8)
+    geoms = sorted({k[:4] for k in shapes8 if cbk.supported(
+        k[0], k[1], k[2], k[3], k[4], k[5], "NHWC", "float32")},
+        key=lambda g: (-g[0][1], g[1][1], g[1][0], g[2]))
+    log(f"\n== phase 2: conv_bn_train / conv_bn_bwd vs their plain "
+        f"versions, {len(geoms)} distinct shapes, batch 8 ==")
+    out = {k: {"max_abs_err": 0.0} for k in
+           ("conv_bn_train", "conv_bn_bwd", "momentum_arena")}
+    errs = {}
+
+    def check(kernel, names, got, ref, what, dname):
+        for name, g, r in zip(names, got, ref):
+            if g.shape != r.shape or g.dtype != r.dtype:
+                fail(f"{kernel} {what} {name}: got {tuple(g.shape)}/"
+                     f"{g.dtype}, want {tuple(r.shape)}/{r.dtype}")
+            d = (g.float() - r.float()).abs().max().item()
+            rel = d / max(r.float().abs().max().item(), 1e-30)
+            if dname == "float32":
+                out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"],
+                                                 d)
+            key = (kernel, what[0], what[1], dname)
+            errs[key] = max(errs.get(key, 0.0), rel)
+            if not rel <= REL_LIMIT[dname]:
+                fail(f"{kernel} {what} {dname} {name}: rel err {rel:.3e} > "
+                     f"{REL_LIMIT[dname]:.0e}")
+
+    def masked_dy(x, w, scale, bias, strides, paddings, act):
+        """A random dy, zero where a relu's plain pre-activation lies within
+        MASK_MARGIN of 0 (see MASK_MARGIN)."""
+        y = cbk.conv_bn_train_torch(x, w, scale, bias, EPS, strides,
+                                    paddings, "")[0]
+        dy = randn(y.shape)
+        if act == "relu":
+            pre = y.float().abs()
+            dy = dy * (pre > MASK_MARGIN * pre.max())
+        return dy.to(x.dtype)
+
+    def check_pair(x, w, scale, bias, dy, strides, paddings, act, dname):
+        """Both training kernels against their plain versions on one set
+        of operands; returns the plain forward's (mean, var)."""
+        what = (tuple(x.shape), tuple(w.shape), strides)
+        args = (EPS, strides, paddings, act)
+        got = cbk.conv_bn_train(x, w, scale, bias, *args)
+        torch.cuda.synchronize()
+        ref = cbk.conv_bn_train_torch(x, w, scale, bias, *args)
+        check("conv_bn_train", ("y", "mean", "var"), got, ref, what, dname)
+        mean, var = ref[1], ref[2]
+        got = cbk.conv_bn_bwd(x, w, dy, scale, bias, mean, var, *args)
+        torch.cuda.synchronize()
+        ref = cbk.conv_bn_bwd_torch(x, w, dy, scale, bias, mean, var, *args)
+        check("conv_bn_bwd", ("dx", "dw", "dscale", "dbias"), got, ref,
+              what, dname)
+        return mean, var
+
+    for x_shape, w_shape, strides, paddings in geoms:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for act in ("", "relu"):
+                x, w, scale, bias = operands(x_shape, w_shape, dtype)
+                dy = masked_dy(x, w, scale, bias, strides, paddings, act)
+                check_pair(x, w, scale, bias, dy, strides, paddings, act,
+                           dname)
+
+    params = [p for p in main.global_block().all_parameters() if p.trainable]
+    log(f"\n== phase 2: momentum_arena vs momentum_arena_torch over "
+        f"ResNet-50's {len(params)} trainable parameters "
+        f"({sum(_numel(p.shape) for p in params)} elements), bitwise ==")
+    ps = [randn(p.shape) for p in params]
+    gs = [randn(p.shape) for p in params]
+    vs = [randn(p.shape) for p in params]
+    lr = torch.full((), 0.1, device=dev)
+    for nesterov in (False, True):
+        want_p, want_v = opk.momentum_arena_torch(ps, gs, vs, lr, 0.9,
+                                                  nesterov)
+        got_p, got_v = opk.momentum_arena([p.clone() for p in ps], gs,
+                                          [v.clone() for v in vs], lr, 0.9,
+                                          nesterov)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got_p + got_v, want_p + want_v)):
+            diff = max((a - b).abs().max().item() for a, b in
+                       zip(got_p + got_v, want_p + want_v))
+            fail(f"momentum_arena (nesterov={nesterov}) differs from "
+                 f"momentum_arena_torch: max abs {diff:.3e}, want bitwise")
+        log(f"nesterov={nesterov}: bitwise equal")
+
+    log(f"\n== conv_bn_train / conv_bn_bwd at batch {TRAIN_BATCH}, "
+        "float32, per shape: outputs against the plain versions, then "
+        "times ==")
+    log("  x[N,H,W,C] w[O,I,kh,kw] s act n/step | rel_err f32@8 bf16@8 "
+        f"f32@{TRAIN_BATCH} (train; bwd) | kernel_ms plain_ms library_ms "
+        "bound_ms, forward; backward")
+    for k in ("conv_bn_train", "conv_bn_bwd"):
+        out[k].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      ops=0, bytes=0)
+    shapes32 = fused_conv_shapes(fluid, main, TRAIN_BATCH)
+    for key, count in sorted(shapes32.items(),
+                             key=lambda kv: (-kv[0][0][1], kv[0][1][1],
+                                             kv[0][1][0], kv[0][2])):
+        x_shape, w_shape, strides, paddings, _, _, act = key
+        if not cbk.supported(x_shape, w_shape, strides, paddings, (1, 1), 1,
+                             "NHWC", "float32"):
+            continue
+        x, w, scale, bias = operands(x_shape, w_shape, torch.float32)
+        args = (EPS, strides, paddings, act)
+        dy = masked_dy(x, w, scale, bias, strides, paddings, act)
+        mean, var = check_pair(x, w, scale, bias, dy, strides, paddings, act,
+                               "float32")
+        rm = torch.zeros_like(scale)
+        rv = torch.ones_like(scale)
+        leaves = [t.detach().requires_grad_(True) for t in
+                  (x.permute(0, 3, 1, 2), w, scale, bias)]
+
+        def composite(xn, wn, sc, bi):
+            y = F.batch_norm(F.conv2d(xn, wn, stride=strides,
+                                      padding=paddings),
+                             rm, rv, sc, bi, training=True, eps=EPS)
+            return F.relu(y) if act == "relu" else y
+
+        with torch.enable_grad():
+            y_lib = composite(*leaves)
+        dy_n = dy.permute(0, 3, 1, 2)
+        rows = {}
+        for kname, kfn, pfn, lfn in (
+                ("conv_bn_train",
+                 lambda: cbk.conv_bn_train(x, w, scale, bias, *args),
+                 lambda: cbk.conv_bn_train_torch(x, w, scale, bias, *args),
+                 lambda: composite(*[t.detach() for t in leaves])),
+                ("conv_bn_bwd",
+                 lambda: cbk.conv_bn_bwd(x, w, dy, scale, bias, mean, var,
+                                         *args),
+                 lambda: cbk.conv_bn_bwd_torch(x, w, dy, scale, bias, mean,
+                                               var, *args),
+                 lambda: torch.autograd.grad(y_lib, leaves, dy_n,
+                                             retain_graph=True))):
+            ops, nbytes = bn_work(x_shape, w_shape, strides, paddings, 4,
+                                  kname == "conv_bn_bwd")
+            b_ms, _by = bound_ms(ops, nbytes)
+            rows[kname] = (time_ms(kfn, torch), time_ms(pfn, torch),
+                           time_ms(lfn, torch), b_ms)
+            t = out[kname]
+            for field, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                rows[kname]):
+                t[field] += count * v
+            t["ops"] += count * ops
+            t["bytes"] += count * nbytes
+        x8 = (8,) + x_shape[1:]
+        e = [errs.get((k, xs, w_shape, d), 0.0)
+             for k in ("conv_bn_train", "conv_bn_bwd")
+             for xs, d in ((x8, "float32"), (x8, "bfloat16"),
+                           (x_shape, "float32"))]
+        log(f"  {list(x_shape)} {list(w_shape)} {strides[0]} "
+            f"{act or '-':4} {count} | {e[0]:.1e} {e[1]:.1e} {e[2]:.1e}; "
+            f"{e[3]:.1e} {e[4]:.1e} {e[5]:.1e} | " + "; ".join(
+                " ".join(f"{v:.4f}" for v in rows[k])
+                for k in ("conv_bn_train", "conv_bn_bwd")))
+    for k in ("conv_bn_train", "conv_bn_bwd"):
+        t = out[k]
+        t["bound_by"] = bound_ms(t["ops"], t["bytes"])[1]
+        log(f"  per step at batch {TRAIN_BATCH} (49 convs), {k}: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, cuDNN "
+            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s achieved)")
+
+    nelem = sum(p.numel() for p in ps)
+    sgd_params = [torch.nn.Parameter(p.clone()) for p in ps]
+    for p, g in zip(sgd_params, gs):
+        p.grad = g
+    sgd = torch.optim.SGD(sgd_params, lr=0.1, momentum=0.9, fused=True)
+    t = out["momentum_arena"]
+    t["ms"] = time_ms(lambda: opk.momentum_arena(ps, gs, vs, lr, 0.9, False),
+                      torch)
+    t["plain_ms"] = time_ms(lambda: opk.momentum_arena_torch(
+        ps, gs, vs, lr, 0.9, False), torch)
+    t["library_ms"] = time_ms(sgd.step, torch)
+    t["bound_ms"], t["bound_by"] = bound_ms(0, 20 * nelem)
+    log(f"momentum_arena per step ({len(ps)} tensors, {nelem} elements): "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"SGD(fused=True) {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def phase_training(torch, fluid, seed, card):
+    """Train ResNet-50 5 steps on one feed under both routes and hold step 1
+    of the kernel route to the plain route parameter by parameter; returns
+    the launches of each training kernel on the kernel route."""
+    import re
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.conv_ops import conv_attrs
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    log(f"\n== phase 4: ResNet-50 training, batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps on one feed ==")
+    main, startup, loss = build_resnet50_train(fluid, seed)
+    block = main.global_block()
+    types = {}
+    for op in block.ops:
+        types[op.type] = types.get(op.type, 0) + 1
+    log("program: " + ", ".join(f"{k}x{v}" for k, v in sorted(types.items())))
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+
+    def fresh():
+        scope = fluid.Scope()
+        for name in init.local_names():
+            v = init.find_var(name)
+            if torch.is_tensor(v):
+                scope.set(name, v.clone())
+        return scope
+
+    rng = np.random.RandomState(seed)
+    feed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
+            .astype("float32"),
+            "label": rng.randint(0, CLASSES, (TRAIN_BATCH, 1))
+            .astype("int64")}
+    update, = [op for op in block.ops if op.type == "fused_momentum"]
+    grads = dict(zip(update.input("Params"), update.input("Grads")))
+    stats = [p.name for p in block.all_parameters() if p.name not in grads]
+
+    def run(route, scope, fd, fetch=()):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            return exe.run(main, feed=fd, fetch_list=[loss] + list(fetch),
+                           scope=scope, return_numpy=False)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+
+    def readings(vals, scope):
+        """Step 1 per parameter: each trainable parameter's gradient (from
+        ``vals``, fetched after the loss) and each running statistic's
+        change."""
+        out = dict(zip(grads, vals[1:]))
+        for n in stats:
+            out[n] = scope.find_var(n).double() - init.find_var(n).double()
+        return out
+
+    def spread(got, ref):
+        return {n: ((got[n].double() - ref[n].double()).norm()
+                    / ref[n].double().norm().clamp_min(1e-30)).item()
+                for n in ref}
+
+    want = {"auto": (KERNEL_CONVS, KERNEL_CONVS, 1, 2 * PLAIN_CONVS),
+            "torch": (0, 0, 0, 0)}
+    res = {}
+    for route in ("auto", "torch"):
+        scope = fresh()
+        losses, ms, total = [], [], [0, 0, 0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            cbk.reset_launches()
+            opk.reset_launches()
+            tier.reset_fallback_counts()
+            t0 = time.perf_counter()
+            vals = run(route, scope, feed, grads.values() if step == 0
+                       else ())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = (cbk.launches["conv_bn_train"],
+                      cbk.launches["conv_bn_bwd"],
+                      opk.launches["momentum_arena"],
+                      tier.fallback_counts().get("conv_bn", 0))
+            if counts != want[route]:
+                fail(f"kernel_tier={route} step {step + 1}: launches "
+                     f"conv_bn_train/conv_bn_bwd/momentum_arena and "
+                     f"plain-routed convs {counts}, want {want[route]}")
+            for i in range(3):
+                total[i] += counts[i]
+            lv = vals[0]
+            if lv.shape != () or not torch.isfinite(lv).item():
+                fail(f"kernel_tier={route} step {step + 1}: loss {lv}")
+            losses.append(lv.item())
+            if step == 0:
+                step1 = readings(vals, scope)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = sum(ms[1:]) / len(ms[1:])
+        res[route] = dict(losses=losses, step1=step1, total=total)
+        log(f"kernel_tier={route}: losses "
+            + " ".join(f"{v:.6f}" for v in losses)
+            + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+            + f" | steady {steady:.2f} ms/step, "
+            f"{TRAIN_BATCH * 1e3 / steady:.1f} images/s | peak memory "
+            f"{peak:.2f} GiB | {card}")
+
+    # the float32 floor: plain-route steps on the batch in other orders;
+    # the last order is held out and only printed against the limits
+    ref = res["torch"]["step1"]
+    floors = []
+    for j in range(FLOOR_ORDERS + 1):
+        perm = np.random.RandomState(seed + 1 + j).permutation(TRAIN_BATCH)
+        scope = fresh()
+        vals = run("torch", scope, {k: v[perm] for k, v in feed.items()},
+                   grads.values())
+        floors.append(spread(readings(vals, scope), ref))
+    held_out = floors.pop()
+    floor = {n: max(f[n] for f in floors) for n in ref}
+    limit = {n: max(REL_MIN, FLOOR_FACTOR * floor[n]) for n in ref}
+    got = spread(res["auto"]["step1"], ref)
+
+    def median(vals):
+        vals = sorted(vals)
+        return vals[len(vals) // 2]
+
+    dl = abs(res["auto"]["losses"][0] - res["torch"]["losses"][0]) \
+        / abs(res["torch"]["losses"][0])
+    log(f"step 1, kernel vs plain route: loss rel diff {dl:.3e} (limit "
+        f"{LOSS_LIMIT:.0e}); per parameter, the gradient of {len(grads)} "
+        f"and the running-statistic change of {len(stats)}, ‖Δ‖₂/‖ref‖₂ "
+        f"against {FLOOR_FACTOR}x its float32 floor (plain route, batch in "
+        f"{FLOOR_ORDERS} other orders):")
+    log("  kind           n | kernel vs plain: median, worst/limit | "
+        "floor median | held-out order: worst/limit")
+    kinds = {}
+    for n in ref:
+        kinds.setdefault(re.sub(r"_\d+\.", ".", n), []).append(n)
+    for kind, names in sorted(kinds.items()):
+        log(f"  {kind:12} {len(names):3d} | "
+            f"{median(got[n] for n in names):.3e}, "
+            f"{max(got[n] / limit[n] for n in names):.3f} | "
+            f"{median(floor[n] for n in names):.3e} | "
+            f"{max(held_out[n] / limit[n] for n in names):.3f}")
+    worst = max(ref, key=lambda n: got[n] / limit[n])
+    held = max(ref, key=lambda n: held_out[n] / limit[n])
+    log(f"  worst: {worst} {got[worst]:.3e} (limit {limit[worst]:.3e}); "
+        f"held-out order's worst: {held} {held_out[held]:.3e} (limit "
+        f"{limit[held]:.3e})")
+    problems = []
+    if not dl <= LOSS_LIMIT:
+        problems.append(f"step-1 loss differs from the plain route by "
+                        f"{dl:.3e}")
+    over = [n for n in ref if not got[n] <= limit[n]]
+    if over:
+        problems.append(f"{len(over)} parameters differ from the plain "
+                        f"route at step 1 beyond their limits, worst "
+                        f"{worst} {got[worst]:.3e} > {limit[worst]:.3e}")
+
+    # the check's own test: a kernel-route step whose conv_bn_bwd scales
+    # one layer's dw and another layer's dscale by PLANTED, at the layers
+    # whose limits are loosest, must exceed those limits
+    launched = []      # (filter, scale) of each conv_bn_bwd launch, in order
+    for op in block.ops:
+        if op.type != "fused_conv2d_bn_grad":
+            continue
+        x = (TRAIN_BATCH,) + tuple(block.var(op.input("Input")[0]).shape[1:])
+        w = tuple(block.var(op.input("Filter")[0]).shape)
+        if cbk.supported(x, w, *conv_attrs(op.attr), "NHWC", "float32"):
+            launched.append((op.input("Filter")[0], op.input("Scale")[0]))
+    at_dw = max(range(len(launched)), key=lambda i: limit[launched[i][0]])
+    at_ds = max(range(len(launched)), key=lambda i: limit[launched[i][1]])
+    real, calls = cbk.conv_bn_bwd, [0]
+
+    def planted(*args):
+        dx, dw, dscale, dbias = real(*args)
+        dw = dw * PLANTED if calls[0] == at_dw else dw
+        dscale = dscale * PLANTED if calls[0] == at_ds else dscale
+        calls[0] += 1
+        return dx, dw, dscale, dbias
+
+    cbk.conv_bn_bwd = planted
+    try:
+        scope = fresh()
+        bad = spread(readings(run("auto", scope, feed, grads.values()),
+                              scope), ref)
+    finally:
+        cbk.conv_bn_bwd = real
+    if calls[0] != len(launched):
+        problems.append(f"the planted step made {calls[0]} conv_bn_bwd "
+                        f"calls, want {len(launched)}")
+    for what, i, name in (("dw", at_dw, launched[at_dw][0]),
+                          ("dscale", at_ds, launched[at_ds][1])):
+        log(f"planted fault: {what} x{PLANTED} at conv_bn_bwd launch "
+            f"{i + 1} ({name}): ‖Δ‖₂/‖ref‖₂ {bad[name]:.3e}, limit "
+            f"{limit[name]:.3e}")
+        if not bad[name] > limit[name]:
+            problems.append(f"the parameter check does not see {what} "
+                            f"x{PLANTED} at {name}")
+
+    # bench.py's own rate, and how many relu outputs change side at step 1
+    lr_name = update.input("LearningRate")[0]
+    relus = [op.output("Output")[0] for op in block.ops
+             if op.type == "fused_conv2d_bn" and op.attr("act") == "relu"]
+    relus += [op.output("Out")[0] for op in block.ops if op.type == "relu"]
+    fast = {}
+    for route in ("auto", "torch"):
+        scope = fresh()
+        scope.set(lr_name, torch.full_like(init.find_var(lr_name), BENCH_LR))
+        vals = run(route, scope, feed, relus)
+        masks = [v > 0 for v in vals[1:]]
+        losses = [vals[0].item()] + [run(route, scope, feed)[0].item()
+                                     for _ in range(TRAIN_STEPS - 1)]
+        fast[route] = (losses, masks)
+    flips = sum(int((a != b).sum().item()) for a, b in
+                zip(fast["auto"][1], fast["torch"][1]))
+    log(f"step 1: {flips} of {sum(m.numel() for m in masks)} relu outputs "
+        f"are positive on one route and not on the other")
+    log(f"at bench.py's lr {BENCH_LR} (its batch 256): losses, kernel route "
+        + " ".join(f"{v:.4f}" for v in fast["auto"][0]) + "; plain route "
+        + " ".join(f"{v:.4f}" for v in fast["torch"][0]))
+    del fast, masks
+
+    for route in ("auto", "torch"):
+        losses = res[route]["losses"]
+        if not losses[-1] < losses[0]:
+            problems.append(f"kernel_tier={route}: loss did not fall over "
+                            f"{TRAIN_STEPS} steps on one feed: {losses}")
+    if problems:
+        fail("; ".join(problems))
+    scope = fresh()
+    profile(torch, lambda: run("auto", scope, feed),
+            f"one training step, batch {TRAIN_BATCH}, kernel route", card,
+            reps=2)
+    return dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
+                    res["auto"]["total"]))
 
 
 def main():
@@ -422,25 +979,37 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    for name, (secs, out) in build.build(["conv_affine"]).items():
+    for name, (secs, out) in build.build(KERNELS).items():
         log(f"built {name} in {secs:.2f} s")
         for line in out.splitlines():
             if "ptxas info" in line and ("Used" in line or "spill" in line):
                 log(f"  {line.strip()}")
 
     totals = phase_kernels(torch, fluid, args.seed)
+    train_totals = phase_train_kernels(torch, fluid, args.seed)
     launches = phase_serving(torch, fluid, args.seed, card)
+    train_launches = phase_training(torch, fluid, args.seed, card)
 
-    kernels = [{
-        "name": "conv_affine", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/conv_affine.cu",
-        "replaces": "paddle_tpu/ops/pallas/conv_bn.py:261",
-        "launches": launches,
-        "max_abs_err": totals["max_abs_err"],
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"], "bound_by": totals["bound_by"],
-        "library_ms": totals["library_ms"],
-    }]
+    def entry(name, source, replaces, n, t):
+        return {"name": name, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{source}",
+                "replaces": f"paddle_tpu/ops/pallas/{replaces}",
+                "launches": n, "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    kernels = [
+        entry("conv_affine", "conv_affine.cu", "conv_bn.py:261", launches,
+              totals),
+        entry("conv_bn_train", "conv_bn_train.cu", "conv_bn.py:191",
+              train_launches["conv_bn_train"], train_totals["conv_bn_train"]),
+        entry("conv_bn_bwd", "conv_bn_bwd.cu", "conv_bn.py:379",
+              train_launches["conv_bn_bwd"], train_totals["conv_bn_bwd"]),
+        entry("momentum_arena", "optimizer_arena.cu", "optimizer.py:111",
+              train_launches["momentum_arena"],
+              train_totals["momentum_arena"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

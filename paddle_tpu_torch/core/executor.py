@@ -7,7 +7,15 @@ PyTorch runs eagerly, so this executor is the reference's eager interpreter
 ``Executor.run`` :568/:607-614) and nothing else.
 
 State contract: persistable variables live in a Scope between runs as torch
-tensors on the executor's device. Temporaries live in a per-run dict.
+tensors on the executor's device. Temporaries live in a per-run dict. Every
+op output whose name the scope holds, or that the program declares
+persistable, is written back after the run: an optimizer op's ParamOut
+names its Param, so the updated parameter replaces it in the scope.
+
+The op loop runs under ``torch.no_grad()``: gradients are ops of the
+program (``fluid.backward``), not autograd tape. A grad lowering that asks
+autograd for a vector-Jacobian product enables it locally
+(``ops/common.py::vjp``).
 """
 
 from __future__ import annotations
@@ -81,10 +89,18 @@ class ExecContext:
                 f"op {self.op.type}: variable {name!r} used before definition")
         return self.env[name]
 
+    def inputs(self, slot):
+        """Every value of a variadic slot (sum, fused_momentum), in order."""
+        return [self._read(n) for n in self.op.input(slot)]
+
     def set_output(self, slot, value):
         names = self.op.output(slot)
         if names:
             self.env[names[0]] = value
+
+    def set_outputs(self, slot, values):
+        for n, v in zip(self.op.output(slot), values):
+            self.env[n] = v
 
     def attr(self, name, default=None):
         return self.op.attrs.get(name, default)

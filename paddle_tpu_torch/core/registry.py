@@ -1,16 +1,27 @@
-"""Operator registry: per-op-type forward lowering and shape inference
-(counterpart of paddle_tpu/core/registry.py, forward lowerings only).
+"""Operator registry: per-op-type forward lowering, shape inference and
+grad maker (counterpart of paddle_tpu/core/registry.py).
 
 Every op has ONE ``forward(ctx)`` written on torch tensors. Hot ops route
-through the kernel tier (``ops/cuda``) inside their forward. Grad makers come
-with the training slice; ``OpSpec`` is kept so the grad-maker contract has
-its type when they do.
+through the kernel tier (``ops/cuda``) inside their forward. A grad maker
+turns a forward op into the grad op specs ``fluid.backward.append_backward``
+appends, the contract of the reference's GradOpDescMaker.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+
+# the gradient-variable suffix (fluid.framework.grad_var_name)
+GRAD_SUFFIX = "@GRAD"
+
+
+def G(names):
+    """Names -> their gradient-variable names (reference ops/common.py)."""
+    if isinstance(names, str):
+        return names + GRAD_SUFFIX
+    return [n + GRAD_SUFFIX for n in names]
 
 
 @dataclasses.dataclass
@@ -29,15 +40,20 @@ class OpInfo:
     forward: Callable
     # infer_shape(op, block) -> None; annotates output vars at build time
     infer_shape: Optional[Callable] = None
+    # grad(op) -> list[OpSpec]; None means the op has no gradient
+    grad: Optional[Callable] = None
+    # outputs alias an input (optimizer ops write ParamOut == Param)
+    in_place: bool = False
 
 
 _REGISTRY: dict[str, OpInfo] = {}
 
 
-def register_op(type, *, infer_shape=None):
+def register_op(type, *, infer_shape=None, grad=None, in_place=False):
     """Decorator registering ``forward`` for an op type::
 
-        @register_op("relu", infer_shape=same_shape("X", "Out"))
+        @register_op("relu", infer_shape=same_shape("X", "Out"),
+                     grad=relu_grad_maker)
         def relu(ctx):
             ctx.set_output("Out", torch.clamp_min(ctx.input("X"), 0))
     """
@@ -45,7 +61,8 @@ def register_op(type, *, infer_shape=None):
         if type in _REGISTRY:
             raise KeyError(f"op {type!r} registered twice")
         _REGISTRY[type] = OpInfo(type=type, forward=fn,
-                                 infer_shape=infer_shape)
+                                 infer_shape=infer_shape, grad=grad,
+                                 in_place=in_place)
         return fn
     return deco
 

@@ -10,15 +10,12 @@
 // y [N, Ho, Wo, Cout] in x's dtype. Taps are 1x1 or 3x3 at stride 1 with any
 // padding, or 1x1 at stride 2 with no padding.
 //
-// Design: an implicit GEMM. M = N*Ho*Wo output pixels, N = Cout, and the
-// K = kh*kw*Cin reduction walks tap by tap, BK input channels at a time.
-// Each block computes a BM x BN output tile; per K step it stages a BM x BK
-// tile of x (gathered straight from the NHWC input: padding is a masked
-// load, stride 2 is read in place) and a BK x BN tile of the tap's weights
-// through shared memory, and every thread accumulates a 4 x 4 sub-tile in
-// float32 registers. The epilogue rounds the sum to the input dtype, applies
-// z * a + b in float32, the optional relu, and stores in the input dtype, so
-// the conv output never goes to device memory before the affine.
+// Design: the implicit GEMM of conv_tile.cuh (64 x 64 output tile per
+// block, 4 x 4 float32 accumulators per thread). The epilogue rounds the sum
+// to the input dtype, applies z * a + b in float32 (explicit round-to-nearest
+// ops, so the compiler does not contract them into an FMA the plain version
+// does not do), the optional relu, and stores in the input dtype, so the
+// conv output never goes to device memory before the affine.
 //
 // Bound on the H100: these shapes do 2*M*Cout*K operations over a few bytes
 // each, so at float32 on the CUDA cores (67 TFLOP/s) the kernel is bound by
@@ -29,128 +26,26 @@
 // The C entry returns cudaGetLastError() after the launch; the caller
 // allocates y and passes its stream. The kernel allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;       // output pixels per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 16;       // input channels per K step
-constexpr int THREADS = 256; // 16 x 16 threads, each owning a 4 x 4 sub-tile
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using namespace convtile;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_affine_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                    const float* __restrict__ a, const float* __restrict__ b,
-                   T* __restrict__ y, int N, int H, int W, int Cin, int Cout,
-                   int kh, int kw, int stride, int ph, int pw, int Ho, int Wo,
-                   int relu) {
-  // As is [k][pixel] so the compute loop reads 4 consecutive pixels as one
-  // float4; the +4 keeps rows 16-byte aligned and halves store conflicts.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
+                   T* __restrict__ y, ConvGeom g, int relu) {
+  __shared__ TileSmem sm;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const long long M = (long long)N * Ho * Wo;
-
-  // A loader: channel ka of pixels ra + 16*i. Consecutive threads read
-  // consecutive channels of one pixel.
-  const int ka = tid % BK;
-  const int ra = tid / BK;
-  int img[4], ih0[4], iw0[4];
-  bool mvalid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ra + 16 * i;
-    mvalid[i] = m < M;
-    const long long mm = mvalid[i] ? m : 0;
-    const int ow = (int)(mm % Wo);
-    const long long t = mm / Wo;
-    const int oh = (int)(t % Ho);
-    img[i] = (int)(t / Ho);
-    ih0[i] = oh * stride - ph;
-    iw0[i] = ow * stride - pw;
-  }
-
-  // B loader: output channel nb of K rows kb + 4*i (coalesced along Cout).
-  const int nb = tid % BN;
-  const int kb = tid / BN;
-
-  // compute role: pixels ty*4 .. +3, channels tx*4 .. +3 of the tile
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const long long M = (long long)g.N * g.Ho * g.Wo;
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  conv_mainloop<T>(x, wt, g, m0, n0, sm, acc);
 
-  for (int tap = 0; tap < kh * kw; ++tap) {
-    const int r = tap / kw;
-    const int s = tap % kw;
-    long long rowoff[4];
-    bool rvalid[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ih = ih0[i] + r;
-      const int iw = iw0[i] + s;
-      rvalid[i] = mvalid[i] && ih >= 0 && ih < H && iw >= 0 && iw < W;
-      rowoff[i] = rvalid[i] ? (((long long)img[i] * H + ih) * W + iw) * Cin
-                            : 0;
-    }
-    const T* wtap = wt + (long long)tap * Cin * Cout;
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-      const int ca = c0 + ka;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        As[ka][ra + 16 * i] =
-            (rvalid[i] && ca < Cin) ? to_f32(x[rowoff[i] + ca]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int k = kb + 4 * i;
-        const int c = c0 + k;
-        const int n = n0 + nb;
-        Bs[k][nb] = (c < Cin && n < Cout)
-                        ? to_f32(wtap[(long long)c * Cout + n])
-                        : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // epilogue: round to the input dtype, z*a + b in float32 (explicit
-  // round-to-nearest ops, so the compiler does not contract them into an
-  // FMA the plain version does not do), relu, store in the input dtype
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long m = m0 + ty * 4 + i;
@@ -158,11 +53,10 @@ conv_affine_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n >= Cout) continue;
-      const float z = to_f32(from_f32<T>(acc[i][j]));
-      float v = __fadd_rn(__fmul_rn(z, a[n]), b[n]);
+      if (n >= g.Cout) continue;
+      float v = affine(round_to<T>(acc[i][j]), a[n], b[n]);
       if (relu) v = fmaxf(v, 0.f);
-      y[m * Cout + n] = from_f32<T>(v);
+      y[m * g.Cout + n] = from_f32<T>(v);
     }
   }
 }
@@ -176,28 +70,22 @@ int conv_affine(const void* x, const void* wt, const float* a, const float* b,
                 void* y, int dtype, int N, int H, int W, int Cin, int Cout,
                 int kh, int kw, int stride, int ph, int pw, int Ho, int Wo,
                 int relu, void* stream) {
-  const long long M = (long long)N * Ho * Wo;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
+  const ConvGeom g{N, H, W, Cin, Cout, kh, kw, stride, ph, pw, Ho, Wo};
+  const dim3 grid = tile_grid(g);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     conv_affine_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt), a, b,
-        static_cast<float*>(y), N, H, W, Cin, Cout, kh, kw, stride, ph, pw,
-        Ho, Wo, relu);
+        static_cast<float*>(y), g, relu);
   } else if (dtype == 1) {
     conv_affine_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(wt), a, b,
-        static_cast<__nv_bfloat16*>(y), N, H, W, Cin, Cout, kh, kw, stride,
-        ph, pw, Ho, Wo, relu);
+        static_cast<__nv_bfloat16*>(y), g, relu);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-const char* conv_affine_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-"""paddle_tpu_torch.fluid — the user API of this slice (counterpart of
+"""paddle_tpu_torch.fluid — the user API ported so far (counterpart of
 paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
-initializer, io, fuse_conv_bn, places, Scope and flags."""
+initializer, io, fuse_conv_bn, backward, optimizer, places, Scope and
+flags."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -15,6 +16,9 @@ from .. import ops as _ops  # noqa: F401  (registers all op lowerings)
 from . import layers
 from . import initializer
 from . import io
+from . import backward
+from . import optimizer
+from .backward import append_backward
 from .param_attr import ParamAttr
 from .fusion import fuse_conv_bn
 
@@ -23,6 +27,6 @@ __all__ = [
     "default_main_program", "default_startup_program", "switch_main_program",
     "switch_startup_program", "unique_name", "reset_unique_name",
     "Executor", "CPUPlace", "CUDAPlace", "Scope", "global_scope",
-    "set_flags", "get_flag", "layers", "initializer", "io",
-    "ParamAttr", "fuse_conv_bn",
+    "set_flags", "get_flag", "layers", "initializer", "io", "backward",
+    "optimizer", "append_backward", "ParamAttr", "fuse_conv_bn",
 ]

@@ -17,9 +17,8 @@ import json
 
 import numpy as np
 
+from ..core.registry import GRAD_SUFFIX
 from ..core.types import VarType, convert_dtype
-
-GRAD_SUFFIX = "@GRAD"
 
 
 def grad_var_name(name: str) -> str:

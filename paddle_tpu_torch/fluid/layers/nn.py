@@ -1,7 +1,8 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/fluid/layers/nn.py), only those ResNet serving builds: fc,
-softmax, elementwise_add, conv2d, pool2d and batch_norm. Each appends the
-same ops, with the same attrs and names, as its reference counterpart."""
+paddle_tpu/fluid/layers/nn.py), those ResNet training builds: fc, softmax,
+softmax_with_cross_entropy, mean, elementwise_add, conv2d, pool2d and
+batch_norm. Each appends the same ops, with the same attrs and names, as its
+reference counterpart."""
 
 from __future__ import annotations
 
@@ -45,6 +46,29 @@ def softmax(input, name=None):
     out = helper.create_tmp_variable(input.dtype, shape=input.shape,
                                      lod_level=input.lod_level)
     helper.append_op("softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    """Per-row loss of shape [N, 1] (reference nn.py:106)."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_tmp_variable(logits.dtype, shape=logits.shape)
+    loss = helper.create_tmp_variable(
+        logits.dtype, shape=tuple(logits.shape[:-1]) + (1,))
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name], "Label": [label.name]},
+                     outputs={"Softmax": [softmax_out.name],
+                              "Loss": [loss.name]},
+                     attrs={"soft_label": soft_label})
+    return loss
+
+
+def mean(x, name=None):
+    """Mean over all elements, a scalar (reference nn.py:142)."""
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=())
+    helper.append_op("mean", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]})
     return out
 
@@ -164,5 +188,5 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
-__all__ = ["fc", "softmax", "elementwise_add", "conv2d", "pool2d",
-           "batch_norm"]
+__all__ = ["fc", "softmax", "softmax_with_cross_entropy", "mean",
+           "elementwise_add", "conv2d", "pool2d", "batch_norm"]

@@ -1,10 +1,17 @@
-"""Convolution and pooling ops (counterpart of paddle_tpu/ops/conv_ops.py).
+"""Convolution and pooling ops and their grads (counterpart of
+paddle_tpu/ops/conv_ops.py).
 
 A conv is ``torch.nn.functional.conv2d`` at the program's layout: NHWC
 tensors are viewed as channels-last NCHW, so no copy is made on the way in
 or out. The filter is OIHW in both layouts. Pooling keeps the reference's
 geometry exactly: max pads with -inf, avg is exclusive of padding, and a
 ceil-mode output gets the reference's extra bottom/right padding.
+
+The grads are vector-Jacobian products of those same forwards, as the
+reference's are ``jax.vjp`` of its forwards (reference :175, :473): the
+conv's through autograd's conv backward, the pool's through autograd. A max
+pool sends each window's gradient to the window's first maximum, which is
+also what the reference's default ``select_and_scatter`` lowering does.
 """
 
 from __future__ import annotations
@@ -12,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.registry import register_op, infer_output
+from ..core.registry import register_op, infer_output, OpSpec, G
+from .common import vjp
 
 
 def _pair(v):
@@ -67,12 +75,49 @@ def conv2d_infer(op, block):
     infer_output(op, block, "Output", shape, dtype=x.dtype)
 
 
-@register_op("conv2d", infer_shape=conv2d_infer)
+def conv2d_backward(x, w, dy, strides, paddings, dilations, groups,
+                    df="NCHW"):
+    """(dx, dw) of :func:`conv2d_compute` against ``dy`` (the reference's
+    ``jax.vjp`` of its conv): the conv2d_grad op's arithmetic, shared with
+    fused_conv2d_bn's plain route so the fused and unfused programs agree
+    bitwise. It is autograd's own conv backward, called without the forward
+    autograd would run first. dx comes back in x's dtype, dw in w's."""
+    if df == "NHWC":
+        x, dy = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.to(x.dtype), x, w.to(x.dtype), None, list(strides),
+        list(paddings), list(dilations), False, [0, 0], groups,
+        [True, True, False])
+    if df == "NHWC":
+        dx = dx.permute(0, 2, 3, 1).contiguous()
+    return dx, dw.to(w.dtype)
+
+
+def _conv2d_grad_maker(op):
+    return [OpSpec("conv2d_grad",
+                   {"Input": op.input("Input"), "Filter": op.input("Filter"),
+                    "Output@GRAD": G(op.output("Output"))},
+                   {"Input@GRAD": G(op.input("Input")),
+                    "Filter@GRAD": G(op.input("Filter"))},
+                   dict(op.attrs))]
+
+
+@register_op("conv2d", infer_shape=conv2d_infer, grad=_conv2d_grad_maker)
 def conv2d(ctx):
     strides, paddings, dilations, groups = conv_attrs(ctx.attr)
     ctx.set_output("Output", conv2d_compute(
         ctx.input("Input"), ctx.input("Filter"), strides, paddings,
         dilations, groups, conv_df(ctx.attr)))
+
+
+@register_op("conv2d_grad")
+def conv2d_grad(ctx):
+    strides, paddings, dilations, groups = conv_attrs(ctx.attr)
+    dx, dw = conv2d_backward(ctx.input("Input"), ctx.input("Filter"),
+                             ctx.input("Output@GRAD"), strides, paddings,
+                             dilations, groups, conv_df(ctx.attr))
+    ctx.set_output("Input@GRAD", dx)
+    ctx.set_output("Filter@GRAD", dw)
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +203,17 @@ def _pool2d_infer(op, block):
     infer_output(op, block, "Out", shape, dtype=x.dtype)
 
 
-@register_op("pool2d", infer_shape=_pool2d_infer)
+@register_op("pool2d", infer_shape=_pool2d_infer, grad=lambda op: [OpSpec(
+    "pool2d_grad", {"X": op.input("X"), "Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))}, dict(op.attrs))])
 def pool2d(ctx):
     ctx.set_output("Out", pool2d_compute(ctx.input("X"),
                                          *_pool2d_attrs(ctx.attr)))
+
+
+@register_op("pool2d_grad")
+def pool2d_grad(ctx):
+    args = _pool2d_attrs(ctx.attr)
+    dx, = vjp(lambda a: pool2d_compute(a, *args), (ctx.input("X"),),
+              ctx.input("Out@GRAD"))
+    ctx.set_output("X@GRAD", dx)

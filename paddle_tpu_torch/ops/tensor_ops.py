@@ -1,5 +1,6 @@
-"""Startup creation ops (counterpart of paddle_tpu/ops/tensor_ops.py:32,
-:63, :72).
+"""Creation ops and the variadic sum (counterpart of
+paddle_tpu/ops/tensor_ops.py): fill_constant, fill_zeros_like,
+uniform_random, gaussian_random and sum.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
+from ..core.registry import register_op, same_shape
 from ..core.types import torch_dtype
 
 
@@ -19,6 +20,13 @@ def fill_constant(ctx):
     ctx.set_output("Out", torch.full(
         tuple(ctx.attr("shape", [])), ctx.attr("value", 0.0),
         dtype=torch_dtype(ctx.attr("dtype", "float32")), device=ctx.device))
+
+
+@register_op("fill_zeros_like", infer_shape=same_shape("X", "Out"))
+def fill_zeros_like(ctx):
+    """Zeros shaped like X (reference :52): the grad of a forward output no
+    grad op produced."""
+    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
 
 
 @register_op("uniform_random")
@@ -37,3 +45,16 @@ def gaussian_random(ctx):
                       dtype=torch.float32, device=ctx.device)
     ctx.set_output("Out", (mean + std * out).to(
         torch_dtype(ctx.attr("dtype", "float32"))))
+
+
+@register_op("sum")
+def sum_op(ctx):
+    """Variadic dense sum, added left to right (reference :298): the
+    backward's rename-and-sum of repeated gradients. Its grad maker (an
+    assign per input) is not ported: no ported program differentiates a
+    sum."""
+    vs = ctx.inputs("X")
+    out = vs[0]
+    for v in vs[1:]:
+        out = out + v
+    ctx.set_output("Out", out)

@@ -208,7 +208,8 @@ class InferenceEngine:
             "dispatches": sum(s["dispatches"] for s in per_bucket.values()),
             "warmed": self._warmed,
             "kernel_tier": kernel_tier.resolve_tier(self.device),
-            "kernel_launches": {"conv_affine": conv_bn.launches},
+            "kernel_launches": {
+                "conv_affine": conv_bn.launches["conv_affine"]},
             "fallbacks": kernel_tier.fallback_counts(),
         }
 

@@ -138,7 +138,7 @@ def test_kernel_route_raises_instead_of_falling_back():
     w5 = torch.empty((6, 4, 5, 5), device="meta")
     with pytest.raises(ValueError, match="unsupported shape"):
         cbk.conv_affine(x, w5, a, b, (1, 1), (2, 2), "relu")
-    assert cbk.launches == 0
+    assert cbk.launches["conv_affine"] == 0
 
 
 @pytest.mark.cuda
@@ -152,10 +152,10 @@ def test_kernel_matches_plain_on_card(k, stride, pad, dtype):
     x, w, a, b = (torch.from_numpy(t).cuda() for t in _operands(k, cin=40,
                                                                  cout=72))
     x = x.to(getattr(torch, dtype))
-    before = cbk.launches
+    before = cbk.launches["conv_affine"]
     got = cbk.conv_affine(x, w, a, b, (stride, stride), (pad, pad), "relu")
     torch.cuda.synchronize()
-    assert cbk.launches == before + 1
+    assert cbk.launches["conv_affine"] == before + 1
     want = cbk.conv_affine_torch(x, w, a, b, (stride, stride), (pad, pad),
                                  "relu")
     np.testing.assert_allclose(got.float().cpu().numpy(),

@@ -1,6 +1,6 @@
 """The port stands alone: no module of paddle_tpu_torch/, nor chip_smoke.py,
-imports jax or the reference package, and the kernel tier never catches a
-build or launch failure.
+imports jax or the reference package, and the kernel
+tier never catches a build or launch failure.
 
 Checked on the source (AST), not on ``sys.modules``: the test process
 imports jax anyway, through the reference package.
