@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Serve and train ResNet-50 through the PyTorch/CUDA port on one GPU and
-hold every hand-written kernel against its plain PyTorch version.
+"""Serve and train ResNet-50 and train the LSTM text classifier through the
+PyTorch/CUDA port on one GPU, and hold every hand-written kernel against
+its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -112,7 +113,37 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 5
 # rate 0.1 * 32 / 256
 BENCH_LR = 0.1
 TRAIN_LR = BENCH_LR * TRAIN_BATCH / 256
-KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena")
+KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena",
+           "lstm_seq")
+
+# phases 5-6: bench.py:239's lane (benchmark/README.md:115-127)
+SEQ_BATCH, SEQ_LEN, SEQ_HIDDEN, SEQ_VOCAB, SEQ_EMB = 64, 100, 512, 30000, 128
+SEQ_LR, SEQ_STEPS = 2e-3, 5
+# lstm_seq vs lstm_seq_torch, ‖Δ‖∞/‖ref‖∞: the kernel sums the same exact
+# bf16 x bf16 products in float32 (in another order) and applies the same
+# sigmoid and tanh, so the carries agree to float32 roundings compounded
+# over 100 steps; 1e-5 is loose for that and tight for a wrong kernel
+LSTM_FWD_LIMIT = 1e-5
+# lstm_seq_bwd vs lstm_seq_bwd_torch: each step's dW_t and the product part
+# of dh_{t-1} are rounded to bfloat16 (the reference's vjp does so). A
+# float32 rounding of difference before them carries an element across a
+# bf16 rounding boundary now and then, which moves it by one bf16 step,
+# 2^-8 = 3.9e-3 of itself, and a moved dh travels back through the steps
+# before it. So ‖Δ‖∞/‖ref‖∞ may reach a few bf16 steps of the largest
+# element (1e-2 allows ~2.5), while such elements stay rare, which
+# ‖Δ‖₂/‖ref‖₂ ≤ 2e-3 holds
+LSTM_BWD_LIMIT, LSTM_BWD_L2_LIMIT = 1e-2, 2e-3
+# phase 6, the kernel route's step 1 against the same program with the two
+# LSTM wrappers swapped for their plain versions. Loss, relative: the
+# forward kernel agrees with its plain version to float32 roundings
+# (phase 5), and nothing else differs. Gradients, ‖Δ‖₂/‖ref‖₂ per
+# parameter: every gradient at or below an LSTM carries the LSTM
+# backward's rare bf16 rounding moves, which phase 5 holds to
+# LSTM_BWD_L2_LIMIT on each output; a permuted batch on the plain route
+# moves far fewer of them (it reorders only the batch sums of dW), so it
+# is no floor for this check. A step whose lstm_seq_bwd scales one dW by
+# PLANTED must exceed the limit
+TEXTCLS_LOSS_LIMIT, TEXTCLS_GRAD_LIMIT = 1e-5, LSTM_BWD_L2_LIMIT
 
 
 def fail(msg):
@@ -953,6 +984,398 @@ def phase_training(torch, fluid, seed, card):
                     res["auto"]["total"]))
 
 
+def build_textcls(fluid, seed):
+    """bench.py:239 build_lstm_textcls at its published widths, with
+    Adam(SEQ_LR, fused=True)."""
+    from paddle_tpu_torch.testing.models import lstm_textcls
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data("words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        prob = lstm_textcls(words, vocab=SEQ_VOCAB, emb=SEQ_EMB,
+                            hidden=SEQ_HIDDEN)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+        fluid.optimizer.Adam(learning_rate=SEQ_LR, fused=True).minimize(
+            loss, startup)
+    return main, startup, loss
+
+
+def lstm_operands(torch, gen, dev, lens):
+    """x, alive, w, h0, c0, dhs, dcs at phase 5's shape; w at the scale
+    of the model's Xavier init, the cotangents zero where alive is 0."""
+    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+    alive = (torch.arange(L, device=dev)[:, None] < lens[None, :]) \
+        .float()[..., None].contiguous()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return (randn(L, b, 4 * H), alive, randn(H, 4 * H, scale=0.05),
+            randn(b, H), randn(b, H), (randn(L, b, H) * alive).contiguous(),
+            (randn(L, b, H) * alive).contiguous())
+
+
+def rel_errs(got, ref):
+    """(‖Δ‖∞/‖ref‖∞, ‖Δ‖₂/‖ref‖₂, ‖Δ‖∞)."""
+    d = (got.double() - ref.double())
+    return (d.abs().max().item() / max(ref.abs().max().item(), 1e-30),
+            (d.norm() / ref.double().norm().clamp_min(1e-30)).item(),
+            d.abs().max().item())
+
+
+def phase_rnn_kernels(torch, fluid, seed, card):
+    """lstm_seq, lstm_seq_bwd and adam_arena against their plain versions
+    at the lane's shapes, then their times. Returns {kernel: numbers for
+    the kernels line}."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+    lens = torch.randint(1, L + 1, (b,), generator=gen, device=dev)
+    lens[: b // 4] = L
+    x, alive, w, h0, c0, dhs, dcs = lstm_operands(torch, gen, dev, lens)
+    log(f"\n== phase 5: lstm_seq / lstm_seq_bwd vs their plain versions, "
+        f"b {b}, L {L}, H {H}, lengths {int(lens.min())}..{int(lens.max())} "
+        f"({int((lens == L).sum())} full) ==")
+    out = {}
+    hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
+    torch.cuda.synchronize()
+    ref = rnn.lstm_seq_torch(x, alive, w, h0, c0)
+    worst = 0.0
+    for name, g, r in zip(("hs", "cs"), (hs, cs), ref):
+        inf, l2, d = rel_errs(g, r)
+        worst = max(worst, d)
+        log(f"  lstm_seq {name}: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+            f"{LSTM_FWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e}")
+        if not inf <= LSTM_FWD_LIMIT:
+            fail(f"lstm_seq {name} differs from lstm_seq_torch: {inf:.3e}")
+    out["lstm_seq"] = {"max_abs_err": worst}
+    # the backward from the plain carries, so that it is held alone
+    got = rnn.lstm_seq_bwd(x, alive, w, h0, c0, *ref, dhs, dcs)
+    torch.cuda.synchronize()
+    want = rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, *ref, dhs, dcs)
+    worst = 0.0
+    for name, g, r in zip(("dx", "dw", "dh0", "dc0"), got, want):
+        inf, l2, d = rel_errs(g, r)
+        worst = max(worst, d)
+        log(f"  lstm_seq_bwd {name}: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+            f"{LSTM_BWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e} (limit "
+            f"{LSTM_BWD_L2_LIMIT:.0e})")
+        if not (inf <= LSTM_BWD_LIMIT and l2 <= LSTM_BWD_L2_LIMIT):
+            fail(f"lstm_seq_bwd {name} differs from lstm_seq_bwd_torch: "
+                 f"{inf:.3e} / {l2:.3e}")
+    out["lstm_seq_bwd"] = {"max_abs_err": worst}
+
+    main, _, _ = build_textcls(fluid, seed)
+    params = [p for p in main.global_block().all_parameters() if p.trainable]
+    nelem = sum(_numel(p.shape) for p in params)
+    log(f"\n== phase 5: adam_arena vs adam_arena_torch over the text "
+        f"classifier's {len(params)} trainable tensors ({nelem} elements), "
+        f"bitwise ==")
+    ps = [torch.randn(p.shape, generator=gen, device=dev) * 0.05
+          for p in params]
+    gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+          for p in params]
+    state = {route: ([p.clone() for p in ps],
+                     [torch.zeros_like(p) for p in ps],
+                     [torch.zeros_like(p) for p in ps])
+             for route in ("kernel", "plain")}
+    lr = torch.full((1,), SEQ_LR, device=dev)
+    pows = [torch.full((1,), 0.9, device=dev),
+            torch.full((1,), 0.999, device=dev)]
+    for step in (1, 2, 3):
+        args = (lr, *pows, 0.9, 0.999, 1e-8)
+        k = state["kernel"]
+        opk.adam_arena(k[0], gs, k[1], k[2], *args)
+        state["plain"] = opk.adam_arena_torch(*state["plain"][:1], gs,
+                                              *state["plain"][1:], *args)
+        torch.cuda.synchronize()
+        pairs = [(a, r) for ks, rs in zip(state["kernel"], state["plain"])
+                 for a, r in zip(ks, rs)]
+        if step in (1, 3):
+            if not all(torch.equal(a, r) for a, r in pairs):
+                diff = max((a - r).abs().max().item() for a, r in pairs)
+                fail(f"adam_arena differs from adam_arena_torch at step "
+                     f"{step}: max abs {diff:.3e}, want bitwise")
+            log(f"step {step}: bitwise equal (params and both moments)")
+        pows = [pows[0] * 0.9 + 0.0, pows[1] * 0.999 + 0.0]
+    out["adam_arena"] = {"max_abs_err": 0.0}
+
+    log(f"\n== phase 5: times at the lane's shapes | {card} ==")
+    lstm = torch.nn.LSTM(H, H).to(dev)
+    xin = torch.randn(L, b, H, generator=gen, device=dev, requires_grad=True)
+    with torch.enable_grad():
+        y_lib, _ = lstm(xin)
+    dy = torch.randn(y_lib.shape, generator=gen, device=dev)
+    lib_leaves = [xin] + list(lstm.parameters())
+
+    def lib_fwd():
+        with torch.no_grad():
+            lstm(xin)
+
+    # operations of one lstm_seq: the gate product (bf16 operands) and
+    # ~30 per cell; bytes: x, alive, w, h0, c0 read, hs and cs written
+    gemm = 2 * L * b * H * 4 * H
+    fwd_bytes = 4 * (L * b * 4 * H + L * b + 4 * H * H + 2 * b * H
+                     + 2 * L * b * H)
+    t_ops = gemm / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = fwd_bytes / PEAK_BYTES * 1e3
+    out["lstm_seq"].update(
+        ms=time_ms(lambda: rnn.lstm_seq(x, alive, w, h0, c0), torch),
+        plain_ms=time_ms(lambda: rnn.lstm_seq_torch(x, alive, w, h0, c0),
+                         torch),
+        library_ms=time_ms(lib_fwd, torch),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # the backward: the gate product again (bf16 operands), then dW and dh
+    # (float32 dgates against bf16 values: float32 operations); bytes: the
+    # forward's inputs and carries and the cotangents read, dx, dw, dh0
+    # and dc0 written
+    t_ops = (gemm / PEAK_FLOPS["bfloat16"]
+             + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3
+    bwd_bytes = 4 * (2 * L * b * 4 * H + L * b + 2 * 4 * H * H + 4 * b * H
+                     + 4 * L * b * H)
+    t_bytes = bwd_bytes / PEAK_BYTES * 1e3
+    out["lstm_seq_bwd"].update(
+        ms=time_ms(lambda: rnn.lstm_seq_bwd(x, alive, w, h0, c0, *ref, dhs,
+                                            dcs), torch),
+        plain_ms=time_ms(lambda: rnn.lstm_seq_bwd_torch(
+            x, alive, w, h0, c0, *ref, dhs, dcs), torch),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            y_lib, lib_leaves, dy, retain_graph=True), torch),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    serial = time_ms(lambda: rnn.barrier_chain(H // 4, L, dev), torch)
+    for k in ("lstm_seq", "lstm_seq_bwd"):
+        t = out[k]
+        log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, torch.nn.LSTM {t['library_ms']:.4f} "
+            f"ms (with the input GEMM), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), serial floor {serial:.4f} ms ({L} grid "
+            f"barriers over {H // 4} blocks)")
+
+    adam_ps = [torch.nn.Parameter(p.clone()) for p in ps]
+    for p, g in zip(adam_ps, gs):
+        p.grad = g
+    adam = torch.optim.Adam(adam_ps, lr=SEQ_LR, fused=True)
+    k = state["kernel"]
+    t = out["adam_arena"]
+    t["ms"] = time_ms(lambda: opk.adam_arena(k[0], gs, k[1], k[2], lr,
+                                             *pows, 0.9, 0.999, 1e-8), torch)
+    t["plain_ms"] = time_ms(lambda: opk.adam_arena_torch(
+        k[0], gs, k[1], k[2], lr, *pows, 0.9, 0.999, 1e-8), torch)
+    t["library_ms"] = time_ms(adam.step, torch)
+    t["bound_ms"], t["bound_by"] = bound_ms(0, 28 * nelem)
+    log(f"adam_arena per step ({len(ps)} tensors, {nelem} elements): kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, Adam(fused=True) "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']})")
+    return out
+
+
+def textcls_feeds(fluid, seed, ragged):
+    """One batch of SEQ_BATCH sequences fed as the lane feeds it
+    (pack_sequences): length SEQ_LEN, or lengths 1..SEQ_LEN (some full)."""
+    import numpy as np
+    rng = np.random.RandomState(seed + (7 if ragged else 5))
+    lens = np.full(SEQ_BATCH, SEQ_LEN)
+    if ragged:
+        lens = rng.randint(1, SEQ_LEN + 1, SEQ_BATCH)
+        lens[:4] = SEQ_LEN
+        lens[4] = 1
+    seqs = [rng.randint(0, SEQ_VOCAB, (int(n), 1)).astype("int64")
+            for n in lens]
+    return {"words": fluid.pack_sequences(seqs),
+            "label": rng.randint(0, 2, (SEQ_BATCH, 1)).astype("int64")}
+
+
+def phase_textcls(torch, fluid, seed, card):
+    """Train the text classifier 5 steps on one feed under both routes and
+    hold step 1 of the kernel route to the plain-version route parameter
+    by parameter; returns the launches of each kernel on the kernel
+    route."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    log(f"\n== phase 6: LSTM text classifier, batch {SEQ_BATCH}, length "
+        f"{SEQ_LEN}, {SEQ_STEPS} steps on one feed ==")
+    main, startup, loss = build_textcls(fluid, seed)
+    block = main.global_block()
+    types = {}
+    for op in block.ops:
+        types[op.type] = types.get(op.type, 0) + 1
+    log("program: " + ", ".join(f"{k}x{v}" for k, v in sorted(types.items())))
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+
+    def fresh():
+        scope = fluid.Scope()
+        for name in init.local_names():
+            v = init.find_var(name)
+            if torch.is_tensor(v):
+                scope.set(name, v.clone())
+        return scope
+
+    feed = textcls_feeds(fluid, seed, ragged=False)
+    ragged = textcls_feeds(fluid, seed, ragged=True)
+    update, = [op for op in block.ops if op.type == "fused_adam"]
+    grads = dict(zip(update.input("Params"), update.input("Grads")))
+
+    def run(route, scope, fd, fetch=()):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            return exe.run(main, feed=fd, fetch_list=[loss] + list(fetch),
+                           scope=scope, return_numpy=False)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+
+    def step1(route, fd):
+        """(loss, {param: gradient}) of one step from the startup state."""
+        vals = run(route, fresh(), fd, grads.values())
+        return vals[0].item(), dict(zip(grads, vals[1:]))
+
+    def spread(got, ref):
+        return {n: ((got[n].double() - ref[n].double()).norm()
+                    / ref[n].double().norm().clamp_min(1e-30)).item()
+                for n in ref}
+
+    want = {"auto": (2, 2, 1, 0), "torch": (0, 0, 0, 0)}
+    res = {}
+    for route in ("auto", "torch"):
+        scope = fresh()
+        losses, ms, total = [], [], [0, 0, 0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(SEQ_STEPS):
+            rnn.reset_launches()
+            opk.reset_launches()
+            tier.reset_fallback_counts()
+            t0 = time.perf_counter()
+            vals = run(route, scope, feed, grads.values() if step == 0
+                       else ())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"],
+                      opk.launches["adam_arena"],
+                      tier.fallback_counts().get("lstm", 0))
+            if counts != want[route]:
+                fail(f"kernel_tier={route} step {step + 1}: launches "
+                     f"lstm_seq/lstm_seq_bwd/adam_arena and plain-routed "
+                     f"LSTMs {counts}, want {want[route]}")
+            for i in range(3):
+                total[i] += counts[i]
+            lv = vals[0]
+            if lv.shape != () or not torch.isfinite(lv).item():
+                fail(f"kernel_tier={route} step {step + 1}: loss {lv}")
+            losses.append(lv.item())
+            if step == 0:
+                first = dict(zip(grads, vals[1:]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = sum(ms[1:]) / len(ms[1:])
+        res[route] = dict(losses=losses, step1=first, total=total)
+        log(f"kernel_tier={route}: losses "
+            + " ".join(f"{v:.6f}" for v in losses)
+            + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+            + f" | steady {steady:.2f} ms/step, "
+            f"{SEQ_BATCH * 1e3 / steady:.1f} sequences/s | peak memory "
+            f"{peak:.2f} GiB | {card}")
+
+    # the reference: the same program with the two LSTM wrappers swapped
+    # for their plain versions, as the planted fault below swaps one
+    real = (rnn.lstm_seq, rnn.lstm_seq_bwd)
+    rnn.lstm_seq, rnn.lstm_seq_bwd = rnn.lstm_seq_torch, rnn.lstm_seq_bwd_torch
+    try:
+        refs = {"fixed": step1("auto", feed), "ragged": step1("auto", ragged)}
+    finally:
+        rnn.lstm_seq, rnn.lstm_seq_bwd = real
+
+    problems = []
+
+    def check(title, loss_got, got, name):
+        ref_loss, ref = refs[name]
+        dl = abs(loss_got - ref_loss) / abs(ref_loss)
+        sp = spread(got, ref)
+        log(f"{title}: loss rel diff {dl:.3e} (limit "
+            f"{TEXTCLS_LOSS_LIMIT:.0e}); gradients ‖Δ‖₂/‖ref‖₂ (limit "
+            f"{TEXTCLS_GRAD_LIMIT:.0e}): "
+            + ", ".join(f"{n} {v:.3e}" for n, v in sp.items()))
+        if not dl <= TEXTCLS_LOSS_LIMIT:
+            problems.append(f"{title}: loss differs by {dl:.3e}")
+        over = [n for n in grads if not sp[n] <= TEXTCLS_GRAD_LIMIT]
+        if over:
+            problems.append(f"{title}: {over} beyond the limit")
+
+    check("step 1, fixed feed, kernel vs plain versions",
+          res["auto"]["losses"][0], res["auto"]["step1"], "fixed")
+    lv, rg = step1("auto", ragged)
+    if not np.isfinite(lv) or not all(torch.isfinite(g).all().item()
+                                      for g in rg.values()):
+        problems.append(f"the ragged step is not finite (loss {lv})")
+    check(f"step 1, ragged feed (lengths {int(ragged['words'].lens.min())}"
+          f"..{int(ragged['words'].lens.max())}), kernel vs plain versions",
+          lv, rg, "ragged")
+
+    # the check's own test: dW x PLANTED in the last lstm_seq_bwd launch of
+    # the step (the first LSTM layer's)
+    weights = [op.input("Weight")[0] for op in block.ops
+               if op.type == "lstm_grad"]
+    at = len(weights) - 1
+    calls = [0]
+
+    def planted(*args):
+        dx, dw, dh0, dc0 = real[1](*args)
+        dw = dw * PLANTED if calls[0] == at else dw
+        calls[0] += 1
+        return dx, dw, dh0, dc0
+
+    rnn.lstm_seq_bwd = planted
+    try:
+        bad = spread(step1("auto", feed)[1], refs["fixed"][1])
+    finally:
+        rnn.lstm_seq_bwd = real[1]
+    name = weights[at]
+    log(f"planted fault: dW x{PLANTED} at lstm_seq_bwd launch {at + 1} "
+        f"({name}): ‖Δ‖₂/‖ref‖₂ {bad[name]:.3e}, limit "
+        f"{TEXTCLS_GRAD_LIMIT:.0e}")
+    if calls[0] != len(weights):
+        problems.append(f"the planted step made {calls[0]} lstm_seq_bwd "
+                        f"calls, want {len(weights)}")
+    if not bad[name] > TEXTCLS_GRAD_LIMIT:
+        problems.append(f"the gradient check does not see dW x{PLANTED} "
+                        f"at {name}")
+
+    # the torch route computes the recurrent product in float32, without
+    # the bf16 rounding: another function, so its distance is printed only
+    dist = spread(res["torch"]["step1"], refs["fixed"][1])
+    dl = abs(res["torch"]["losses"][0] - refs["fixed"][0]) \
+        / abs(refs["fixed"][0])
+    log("distance of the torch route (float32 recurrent product) from the "
+        f"kernel route's reference at step 1: loss {dl:.3e}; ‖Δ‖₂/‖ref‖₂ "
+        + ", ".join(f"{n} {v:.2e}" for n, v in dist.items()))
+    for route in ("auto", "torch"):
+        losses = res[route]["losses"]
+        if not losses[-1] < losses[0]:
+            problems.append(f"kernel_tier={route}: loss did not fall over "
+                            f"{SEQ_STEPS} steps on one feed: {losses}")
+    if problems:
+        fail("; ".join(problems))
+    scope = fresh()
+    profile(torch, lambda: run("auto", scope, feed),
+            f"one training step, batch {SEQ_BATCH}, kernel route", card,
+            reps=3)
+    return dict(zip(("lstm_seq", "lstm_seq_bwd", "adam_arena"),
+                    res["auto"]["total"]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -989,6 +1412,8 @@ def main():
     train_totals = phase_train_kernels(torch, fluid, args.seed)
     launches = phase_serving(torch, fluid, args.seed, card)
     train_launches = phase_training(torch, fluid, args.seed, card)
+    rnn_totals = phase_rnn_kernels(torch, fluid, args.seed, card)
+    rnn_launches = phase_textcls(torch, fluid, args.seed, card)
 
     def entry(name, source, replaces, n, t):
         return {"name": name, "route": "cuda",
@@ -1009,6 +1434,12 @@ def main():
         entry("momentum_arena", "optimizer_arena.cu", "optimizer.py:111",
               train_launches["momentum_arena"],
               train_totals["momentum_arena"]),
+        entry("lstm_seq", "lstm_seq.cu", "rnn.py:124",
+              rnn_launches["lstm_seq"], rnn_totals["lstm_seq"]),
+        entry("lstm_seq_bwd", "lstm_seq.cu", "rnn.py:133",
+              rnn_launches["lstm_seq_bwd"], rnn_totals["lstm_seq_bwd"]),
+        entry("adam_arena", "optimizer_arena.cu", "optimizer.py:129",
+              rnn_launches["adam_arena"], rnn_totals["adam_arena"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,6 +25,7 @@ import torch
 
 from . import registry
 from .block_walk import free_reads, written_names
+from .lod import LoDArray, flat_to_lodarray, pack_sequences
 from .scope import global_scope
 from .types import torch_dtype
 
@@ -88,6 +89,9 @@ class ExecContext:
             raise KeyError(
                 f"op {self.op.type}: variable {name!r} used before definition")
         return self.env[name]
+
+    def has_input(self, slot):
+        return bool(self.op.input(slot))
 
     def inputs(self, slot):
         """Every value of a variadic slot (sum, fused_momentum), in order."""
@@ -154,21 +158,49 @@ class Executor:
         return [self._fetch_value(env[n], return_numpy) for n in fetch_names]
 
     def _prepare_feed(self, block, feed):
-        """Dense feeds only: numpy arrays (or tensors) cast to the declared
-        var dtype and moved to the executor's device."""
+        """Feeds cast to the declared var dtype and moved to the executor's
+        device (reference :863-907). Dense: a numpy array or tensor. LoD: a
+        ``LoDArray``, the reference's ``(flat, lod offsets)`` tuple, or a
+        list of per-sequence arrays fed to a ``lod_level > 0`` var."""
         out = {}
         for name, value in feed.items():
-            t = value if isinstance(value, torch.Tensor) \
-                else torch.from_numpy(np.ascontiguousarray(value))
-            if block.has_var(name) and block.var(name).dtype is not None:
-                t = t.to(torch_dtype(block.var(name).dtype))
-            out[name] = t.to(self.device)
+            var = block.var(name) if block.has_var(name) else None
+            if isinstance(value, tuple) and len(value) == 2 \
+                    and not np.isscalar(value[0]):
+                value = flat_to_lodarray(value[0], value[1])
+            elif isinstance(value, list) and value and var is not None \
+                    and var.lod_level > 0 \
+                    and isinstance(value[0], (np.ndarray, list)):
+                value = pack_sequences([np.asarray(s) for s in value])
+            if isinstance(value, LoDArray):
+                out[name] = LoDArray(self._dense(value.data, var),
+                                     self._to_device(value.lens)
+                                     .to(torch.int32))
+            else:
+                out[name] = self._dense(value, var)
         return out
+
+    def _to_device(self, value):
+        t = value if isinstance(value, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(value))
+        return t.to(self.device)
+
+    def _dense(self, value, var):
+        t = self._to_device(value)
+        if var is not None and var.dtype is not None:
+            t = t.to(torch_dtype(var.dtype))
+        return t
 
     @staticmethod
     def _fetch_value(v, return_numpy):
+        """A tensor, or a LoDArray (reference :924 hands it to the caller,
+        who unpacks it with ``lodarray_to_flat``); numpy on the host unless
+        ``return_numpy`` is False."""
         if not return_numpy:
             return v
+        if isinstance(v, LoDArray):
+            return LoDArray(Executor._fetch_value(v.data, True),
+                            v.lens.cpu().numpy())
         v = v.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()  # numpy has no bfloat16 without ml_dtypes

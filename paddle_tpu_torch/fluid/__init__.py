@@ -1,7 +1,7 @@
 """paddle_tpu_torch.fluid — the user API ported so far (counterpart of
 paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
-initializer, io, fuse_conv_bn, backward, optimizer, places, Scope and
-flags."""
+initializer, io, fuse_conv_bn, backward, optimizer, places, Scope, flags
+and the LoD feed helpers."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -11,6 +11,8 @@ from .framework import (Program, Block, Operator, Variable, Parameter,
 from ..core.executor import Executor, CPUPlace, CUDAPlace
 from ..core.flags import set_flags, get_flag
 from ..core.scope import Scope, global_scope
+from ..core.lod import (LoDArray, pack_sequences, flat_to_lodarray,
+                        lodarray_to_flat)
 from .. import ops as _ops  # noqa: F401  (registers all op lowerings)
 
 from . import layers
@@ -29,4 +31,5 @@ __all__ = [
     "Executor", "CPUPlace", "CUDAPlace", "Scope", "global_scope",
     "set_flags", "get_flag", "layers", "initializer", "io", "backward",
     "optimizer", "append_backward", "ParamAttr", "fuse_conv_bn",
+    "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
 ]

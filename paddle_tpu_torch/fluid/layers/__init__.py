@@ -1,6 +1,9 @@
-"""fluid.layers — the layer functions this slice ports."""
+"""fluid.layers — the layer functions ported so far."""
 
-from . import nn, io
-from .nn import (fc, softmax, elementwise_add, conv2d, pool2d,  # noqa: F401
-                 batch_norm, softmax_with_cross_entropy, mean)
+from . import nn, io, sequence
+from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
+                 elementwise_add, conv2d, pool2d, batch_norm,
+                 softmax_with_cross_entropy, mean)
 from .io import data  # noqa: F401
+from .sequence import (dynamic_lstm, sequence_pool,  # noqa: F401
+                       sequence_last_step)

@@ -1,5 +1,6 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/fluid/layers/nn.py), those ResNet training builds: fc, softmax,
+paddle_tpu/fluid/layers/nn.py), those ResNet training and the LSTM text
+classifier build: fc, embedding, softmax, cross_entropy,
 softmax_with_cross_entropy, mean, elementwise_add, conv2d, pool2d and
 batch_norm. Each appends the same ops, with the same attrs and names, as its
 reference counterpart."""
@@ -10,7 +11,7 @@ import numpy as np
 
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
-from ..initializer import Constant, Normal
+from ..initializer import Constant, Normal, Xavier
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -39,6 +40,39 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     pre_act = helper.append_bias_op(mul_results[0],
                                     dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, padding_idx=None,
+              param_attr=None, dtype="float32"):
+    """Embedding lookup (reference nn.py:52): a lookup_table op over a
+    [vocab, dim] parameter; the output keeps the ids' LoD."""
+    helper = LayerHelper("embedding")
+    w = helper.create_parameter(param_attr, shape=tuple(size), dtype=dtype,
+                                default_initializer=Xavier())
+    out_shape = None
+    if input.shape is not None:
+        out_shape = tuple(input.shape[:-1] or input.shape) + (size[1],)
+    out = helper.create_tmp_variable(dtype, shape=out_shape,
+                                     lod_level=input.lod_level)
+    helper.append_op("lookup_table",
+                     inputs={"W": [w.name], "Ids": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"is_sparse": is_sparse,
+                            "padding_idx": padding_idx})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    """Per-row loss −log p[label] of shape [N, 1] on probabilities
+    (reference nn.py:94)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(
+        input.dtype, shape=tuple(input.shape[:-1]) + (1,))
+    helper.append_op("cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label})
+    return out
 
 
 def softmax(input, name=None):
@@ -188,5 +222,6 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
-__all__ = ["fc", "softmax", "softmax_with_cross_entropy", "mean",
-           "elementwise_add", "conv2d", "pool2d", "batch_norm"]
+__all__ = ["fc", "embedding", "softmax", "cross_entropy",
+           "softmax_with_cross_entropy", "mean", "elementwise_add", "conv2d",
+           "pool2d", "batch_norm"]

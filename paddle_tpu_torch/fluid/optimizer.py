@@ -4,10 +4,11 @@ same program, with persistable accumulators initialized in the startup
 program. Learning-rate and accumulator variables take the reference's
 names, so state copied between the packages by name lines up.
 
-Ported: the ``Optimizer`` base and ``Momentum`` (one ``momentum`` op per
-parameter, or with ``fused=True`` ONE ``fused_momentum`` op whose dense
-float32 set runs as a single arena kernel launch on the card). Gradient
-clipping and regularization are not ported yet and raise when configured.
+Ported: the ``Optimizer`` base, ``Momentum`` and ``Adam`` (reference
+:139, :172), each either one update op per parameter or, with
+``fused=True``, ONE ``fused_*`` op whose dense float32 set runs as a
+single arena kernel launch on the card. Gradient clipping and
+regularization are not ported yet and raise when configured.
 """
 
 from __future__ import annotations
@@ -139,4 +140,72 @@ class Momentum(Optimizer):
 
 MomentumOptimizer = Momentum
 
-__all__ = ["Optimizer", "Momentum", "MomentumOptimizer"]
+
+class Adam(Optimizer):
+    """Adam (reference optimizer.py:172): per parameter, moment1, moment2
+    and a beta1_pow/beta2_pow pair updated by ``scale`` ops after the
+    update; fused, one shared beta-power pair (every parameter shares the
+    step count, so the numerics are the per-parameter form's)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
+    def _beta_pows(self, param, startup, suffix=""):
+        return [self._add_accumulator(f"beta{k}_pow{suffix}", param, startup,
+                                      fill_value=beta, shape=(1,))
+                for k, beta in ((1, self._beta1), (2, self._beta2))]
+
+    def _append_pow_updates(self, block, b1p, b2p):
+        """The beta powers' step (reference _finish_update, optimizer.py
+        :441-463): each scaled by its beta."""
+        for v, beta in ((b1p, self._beta1), (b2p, self._beta2)):
+            block.append_op("scale", inputs={"X": [v.name]},
+                            outputs={"Out": [v.name]},
+                            attrs={"scale": beta})
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        m1 = self._add_accumulator("moment1", p, startup)
+        m2 = self._add_accumulator("moment2", p, startup)
+        b1p, b2p = self._beta_pows(p, startup)
+        block.append_op(
+            "adam",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "Moment1": [m1.name], "Moment2": [m2.name],
+                    "Beta1Pow": [b1p.name], "Beta2Pow": [b2p.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "Moment1Out": [m1.name],
+                     "Moment2Out": [m2.name]},
+            attrs=self._attrs())
+        self._append_pow_updates(block, b1p, b2p)
+
+    def _append_fused_op(self, block, params_grads, startup):
+        ps = [p.name for p, _ in params_grads]
+        gs = [g.name for _, g in params_grads]
+        m1s = [self._add_accumulator("moment1", p, startup).name
+               for p, _ in params_grads]
+        m2s = [self._add_accumulator("moment2", p, startup).name
+               for p, _ in params_grads]
+        b1p, b2p = self._beta_pows(params_grads[0][0], startup, "_fused")
+        block.append_op(
+            "fused_adam",
+            inputs={"Params": ps, "Grads": gs, "Moment1s": m1s,
+                    "Moment2s": m2s, "Beta1Pow": [b1p.name],
+                    "Beta2Pow": [b2p.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamsOut": ps, "Moment1sOut": m1s,
+                     "Moment2sOut": m2s},
+            attrs=self._attrs())
+        self._append_pow_updates(block, b1p, b2p)
+
+
+AdamOptimizer = Adam
+
+__all__ = ["Optimizer", "Momentum", "MomentumOptimizer", "Adam",
+           "AdamOptimizer"]

@@ -2,4 +2,5 @@
 this package registers every ported op."""
 
 from . import (activation, conv_ops, elementwise, fused_ops,  # noqa: F401
-               loss, matmul, norm_ops, optimizer_ops, reduce, tensor_ops)
+               loss, matmul, nn_ops, norm_ops, optimizer_ops, reduce,
+               rnn_ops, sequence_ops, tensor_ops)

@@ -5,6 +5,20 @@ from __future__ import annotations
 
 import torch
 
+from ..core.lod import LoDArray
+
+
+def data_of(v):
+    """A LoDArray's padded data, any other value as it is: what a
+    LoD-transparent op computes on (reference common.py ``data_of``)."""
+    return v.data if isinstance(v, LoDArray) else v
+
+
+def like(ref, value):
+    """``value`` with ``ref``'s lengths when ``ref`` is a LoDArray, else
+    ``value`` (reference common.py ``like``)."""
+    return LoDArray(value, ref.lens) if isinstance(ref, LoDArray) else value
+
 
 def collapse_to(v, target_shape, lead_axis):
     """Sum ``v`` down to ``target_shape``, which was broadcast into it
@@ -25,8 +39,12 @@ def vjp(fn, primals, cotangent):
     """The vector-Jacobian product of ``fn`` at ``primals`` against
     ``cotangent`` (the reference's ``jax.vjp`` calls), through autograd,
     which is enabled here only: the executor's op loop runs under
-    ``torch.no_grad()``. The cotangent is cast to the output's dtype."""
+    ``torch.no_grad()``. ``fn`` returns one tensor or a tuple of them, and
+    ``cotangent`` matches; each cotangent is cast to its output's dtype."""
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(True) for p in primals]
         out = fn(*leaves)
+        if isinstance(out, tuple):
+            return torch.autograd.grad(
+                out, leaves, [c.to(o.dtype) for o, c in zip(out, cotangent)])
         return torch.autograd.grad(out, leaves, cotangent.to(out.dtype))

@@ -14,6 +14,11 @@ Tier selection (the ``kernel_tier`` flag):
 * ``torch`` — the plain op chain everywhere: the reference the card-side
   checks compare the kernels against.
 
+Kernel families (the names ``use_kernel`` and ``fallback_counts`` use):
+``conv_bn`` (``conv_bn.py``: conv_affine, conv_bn_train, conv_bn_bwd),
+``optimizer`` (``optimizer.py``: momentum_arena, adam_arena) and ``lstm``
+(``rnn.py``: lstm_seq and its backward).
+
 Routing contract: a shape outside a kernel's ``supported()`` set is routed
 to the plain op chain by design and counted in :func:`fallback_counts`. A
 supported shape on a CUDA tensor launches the kernel or raises — there is no

@@ -1,6 +1,8 @@
 """Creation ops and the variadic sum (counterpart of
 paddle_tpu/ops/tensor_ops.py): fill_constant, fill_zeros_like,
-uniform_random, gaussian_random and sum.
+uniform_random, gaussian_random, sum and scale. fill_zeros_like, sum and
+scale are LoD-transparent: a LoDArray input keeps its lengths, so the
+padded positions of a LoD gradient stay masked downstream.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -13,6 +15,7 @@ import torch
 
 from ..core.registry import register_op, same_shape
 from ..core.types import torch_dtype
+from .common import data_of, like
 
 
 @register_op("fill_constant")
@@ -26,7 +29,8 @@ def fill_constant(ctx):
 def fill_zeros_like(ctx):
     """Zeros shaped like X (reference :52): the grad of a forward output no
     grad op produced."""
-    ctx.set_output("Out", torch.zeros_like(ctx.input("X")))
+    x = ctx.input("X")
+    ctx.set_output("Out", like(x, torch.zeros_like(data_of(x))))
 
 
 @register_op("uniform_random")
@@ -49,12 +53,22 @@ def gaussian_random(ctx):
 
 @register_op("sum")
 def sum_op(ctx):
-    """Variadic dense sum, added left to right (reference :298): the
+    """Variadic sum, added left to right (reference :298): the
     backward's rename-and-sum of repeated gradients. Its grad maker (an
     assign per input) is not ported: no ported program differentiates a
     sum."""
     vs = ctx.inputs("X")
-    out = vs[0]
+    out = data_of(vs[0])
     for v in vs[1:]:
-        out = out + v
-    ctx.set_output("Out", out)
+        out = out + data_of(v)
+    ctx.set_output("Out", like(vs[0], out))
+
+
+@register_op("scale", infer_shape=same_shape("X", "Out"))
+def scale(ctx):
+    """Out = X·scale + bias (reference :108): the beta-power update that
+    Adam appends after its update op. Its grad maker (a scale of the output
+    grad) is not ported: no ported program differentiates a scale."""
+    x = ctx.input("X")
+    ctx.set_output("Out", like(x, data_of(x) * ctx.attr("scale", 1.0)
+                             + ctx.attr("bias", 0.0)))

@@ -1,6 +1,10 @@
-"""ResNet in NHWC, as bench.py:175-214 builds ResNet-50, with the stage
-depths and base width as parameters so tests can build a narrow net and
-chip_smoke.py the published one (``counts=(3, 4, 6, 3)``, ``base=64``).
+"""The models the port's slices run, with their widths as parameters so
+tests can build a narrow net and chip_smoke.py the published one:
+
+* ``resnet``: ResNet in NHWC, as bench.py:175-214 builds ResNet-50
+  (``counts=(3, 4, 6, 3)``, ``base=64``);
+* ``lstm_textcls``: the LSTM text classifier of bench.py:239
+  (vocab 30000, emb 128, hidden 512, 2 LSTM layers, 2 classes).
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -46,3 +50,20 @@ def resnet(img, class_dim, counts=(3, 4, 6, 3), base=64, layers=None):
     pool = layers.pool2d(input=pool, pool_size=7, pool_type="avg",
                          global_pooling=True, data_format="NHWC")
     return layers.fc(input=pool, size=class_dim, act=None)
+
+
+def lstm_textcls(words, class_dim=2, vocab=30000, emb=128, hidden=512,
+                 lstm_num=2, layers=None):
+    """bench.py:239 build_lstm_textcls's network over an int64 ``words``
+    sequence (lod_level 1): embedding(vocab, emb), then ``lstm_num`` x
+    (fc of width 4·hidden + dynamic_lstm), the last step of each sequence,
+    and an fc with softmax over ``class_dim`` classes. Returns the
+    probabilities var."""
+    if layers is None:
+        from ..fluid import layers
+    net = layers.embedding(words, size=(vocab, emb))
+    for _ in range(lstm_num):
+        proj = layers.fc(net, hidden * 4)
+        net, _ = layers.dynamic_lstm(proj, size=hidden * 4)
+    last = layers.sequence_last_step(net)
+    return layers.fc(last, class_dim, act="softmax")

@@ -213,8 +213,14 @@ def test_backward_raises_for_an_op_without_grad_maker():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup):
         x = tfluid.layers.data("x", shape=[4])
-        prob = tfluid.layers.softmax(tfluid.layers.fc(x, 3))
-        loss = tfluid.layers.mean(prob)
+        h = tfluid.layers.fc(x, 3)
+        scaled = main.global_block().create_var(name="scaled", shape=h.shape,
+                                                dtype="float32")
+        # scale (Adam's beta-power update) registers no grad maker
+        main.global_block().append_op("scale", inputs={"X": [h.name]},
+                                      outputs={"Out": ["scaled"]},
+                                      attrs={"scale": 2.0})
+        loss = tfluid.layers.mean(scaled)
         with pytest.raises(RuntimeError, match="no grad"):
             tfluid.append_backward(loss)
 
