@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Serve and train ResNet-50 and train the LSTM text classifier through the
-PyTorch/CUDA port on one GPU, and hold every hand-written kernel against
-its plain PyTorch version.
+"""Serve and train ResNet-50, train the LSTM and GRU text classifiers and
+the CTC acoustic model through the PyTorch/CUDA port on one GPU, and hold
+every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -47,6 +47,27 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               both routes, the relu outputs that change side between the
               routes, the losses at bench.py's lr 0.1, and a profile of one
               step.
+5. lstm     — lstm_seq and lstm_seq_bwd (b 64, L 100, H 512, ragged) and
+              adam_arena (bitwise) against their plain versions; times.
+6. textcls  — bench.py:239's LSTM text classifier at its published widths,
+              5 steps on both routes: 2 + 2 + 1 launches and 0 plain-routed
+              LSTMs per step; step 1 on a fixed and a ragged feed held to
+              the same program with the LSTM wrappers' plain versions; a
+              planted dW fault must be caught; the loss must fall.
+7. gru, ctc — gru_seq and gru_seq_bwd at the lane's shape (ragged), also
+              measured against the same recipe in float64; ctc_alpha and
+              ctc_loss_bwd at the CTC model's shape; times, bounds, the
+              GRU's serial floor and F.ctc_loss as a yardstick.
+8. gru cls  — bench.py:320's GRU text classifier as phase 6 runs the LSTM
+              one: 2 + 2 + 1 launches and 0 plain-routed GRUs per step.
+9. ctc      — tests/book/test_ocr_ctc.py's CTC acoustic model at
+              DeepSpeech2's widths (161 features, hidden 512, 28 + 1
+              classes, 64 utterances of 100-200 frames), 5 steps on both
+              routes: 1 launch each of gru_seq, gru_seq_bwd, ctc_alpha,
+              ctc_loss_bwd and adam_arena per step; step 1 held to the
+              plain versions; a planted dlogits fault must be caught; then
+              greedy decoding through main.clone(for_test=True) and
+              edit_distance.
 
 The last three lines of output are a JSON line listing each kernel's
 numbers, the card's name and power limit, and
@@ -114,7 +135,7 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 5
 BENCH_LR = 0.1
 TRAIN_LR = BENCH_LR * TRAIN_BATCH / 256
 KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena",
-           "lstm_seq")
+           "lstm_seq", "gru_seq", "ctc")
 
 # phases 5-6: bench.py:239's lane (benchmark/README.md:115-127)
 SEQ_BATCH, SEQ_LEN, SEQ_HIDDEN, SEQ_VOCAB, SEQ_EMB = 64, 100, 512, 30000, 128
@@ -144,6 +165,47 @@ LSTM_BWD_LIMIT, LSTM_BWD_L2_LIMIT = 1e-2, 2e-3
 # is no floor for this check. A step whose lstm_seq_bwd scales one dW by
 # PLANTED must exceed the limit
 TEXTCLS_LOSS_LIMIT, TEXTCLS_GRAD_LIMIT = 1e-5, LSTM_BWD_L2_LIMIT
+
+# phases 7-9: bench.py:320's GRU lane at phases 5-6's widths, and the CTC
+# acoustic model of tests/book/test_ocr_ctc.py:38-50 at DeepSpeech2's
+# widths: 161 features (a linear spectrogram of 20 ms windows at a 10 ms
+# stride, 16 kHz), the lane's hidden 512, 28 characters (26 letters, space,
+# apostrophe) plus the blank; 64 utterances of 100-200 frames (1-2 s) with
+# labels of ⌈frames/8⌉..⌊frames/4⌋ characters. Adam at the lanes' 2e-3: at
+# the book test's 0.01, which it takes at hidden 24, the loss swings on a
+# fixed batch at these widths (402 -> 137 -> 636 -> 283 -> 242 on both
+# routes, an H100 run)
+CTC_BATCH, CTC_FEAT, CTC_HIDDEN, CTC_CLASSES = 64, 161, 512, 28
+CTC_FRAMES, CTC_LR = (100, 200), 2e-3
+# gru_seq vs gru_seq_torch. Unlike the LSTM's, a GRU step rounds a product
+# of its own sums to bf16 inside the step (bf16(r ⊙ h) · W_c): where the
+# two sum r's product in another float32 order, r moves by a float32 step
+# now and then, that moves bf16(r ⊙ h) across a rounding boundary by 2^-8
+# of itself, and the candidate of every unit moves with it; later steps
+# carry it on. So the carries agree to a few such moves, ‖Δ‖∞/‖ref‖∞ ≤ 1e-2
+# and ‖Δ‖₂/‖ref‖₂ ≤ 2e-3 (PERF.md §6 gives the H100 readings at L 100),
+# and neither is nearer the truth: each version's ‖Δ‖∞ to the same recipe
+# in float64 must be within GRU_F64_RATIO of the other's
+GRU_FWD_LIMIT, GRU_FWD_L2_LIMIT, GRU_F64_RATIO = 1e-2, 2e-3, 2.0
+# gru_seq_bwd vs gru_seq_bwd_torch: the LSTM backward's reasoning, with
+# four bf16 roundings a step where the LSTM has two (both dh products and
+# both parts of dW_t), so twice its ‖Δ‖₂ allowance
+GRU_BWD_LIMIT, GRU_BWD_L2_LIMIT = 1e-2, 4e-3
+# ctc_alpha vs ctc_alpha_torch: the same operations in the same order
+# (logaddexp as max + log1p(exp(-|d|)), each rounded), so equal to float32
+# roundings of exp and log1p at most. ctc_loss_bwd vs ctc_loss_bwd_torch:
+# the kernel adds each state's three cotangents and scatters the emission
+# cotangents onto the classes in its own order, autograd in another, and
+# the difference travels back through up to 200 steps of logaddexp
+# weights: float32 roundings only, 1e-4 of the largest element
+CTC_FWD_LIMIT, CTC_BWD_LIMIT = 1e-5, 1e-4
+# phases 8-9, the kernel route's step 1 against the same program with the
+# GRU (and CTC) wrappers swapped for their plain versions. Both GRU
+# kernels differ from their plain versions by bf16 rounding moves (above),
+# the forward's now moving the activations too, so the loss may move by
+# ~1e-5 and each gradient ‖Δ‖₂/‖ref‖₂ by a few 1e-3; 1e-4 and 1e-2 allow
+# that, and a gradient scaled by PLANTED moves by 0.125, 12x the limit
+GRU_TRAIN_LOSS_LIMIT, GRU_TRAIN_GRAD_LIMIT = 1e-4, 1e-2
 
 
 def fail(msg):
@@ -748,6 +810,30 @@ def _numel(shape):
     return n
 
 
+def copy_scope(fluid, torch, src):
+    """A scope holding a copy of every tensor of ``src``."""
+    scope = fluid.Scope()
+    for name in src.local_names():
+        v = src.find_var(name)
+        if torch.is_tensor(v):
+            scope.set(name, v.clone())
+    return scope
+
+
+def op_counts(block):
+    types = {}
+    for op in block.ops:
+        types[op.type] = types.get(op.type, 0) + 1
+    return ", ".join(f"{k}x{v}" for k, v in sorted(types.items()))
+
+
+def spread(got, ref):
+    """{name: ‖got − ref‖₂ / ‖ref‖₂}."""
+    return {n: ((got[n].double() - ref[n].double()).norm()
+                / ref[n].double().norm().clamp_min(1e-30)).item()
+            for n in ref}
+
+
 def phase_training(torch, fluid, seed, card):
     """Train ResNet-50 5 steps on one feed under both routes and hold step 1
     of the kernel route to the plain route parameter by parameter; returns
@@ -763,21 +849,13 @@ def phase_training(torch, fluid, seed, card):
         f"{TRAIN_STEPS} steps on one feed ==")
     main, startup, loss = build_resnet50_train(fluid, seed)
     block = main.global_block()
-    types = {}
-    for op in block.ops:
-        types[op.type] = types.get(op.type, 0) + 1
-    log("program: " + ", ".join(f"{k}x{v}" for k, v in sorted(types.items())))
+    log("program: " + op_counts(block))
     exe = fluid.Executor()
     init = fluid.Scope()
     exe.run(startup, scope=init)
 
     def fresh():
-        scope = fluid.Scope()
-        for name in init.local_names():
-            v = init.find_var(name)
-            if torch.is_tensor(v):
-                scope.set(name, v.clone())
-        return scope
+        return copy_scope(fluid, torch, init)
 
     rng = np.random.RandomState(seed)
     feed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
@@ -804,11 +882,6 @@ def phase_training(torch, fluid, seed, card):
         for n in stats:
             out[n] = scope.find_var(n).double() - init.find_var(n).double()
         return out
-
-    def spread(got, ref):
-        return {n: ((got[n].double() - ref[n].double()).norm()
-                    / ref[n].double().norm().clamp_min(1e-30)).item()
-                for n in ref}
 
     want = {"auto": (KERNEL_CONVS, KERNEL_CONVS, 1, 2 * PLAIN_CONVS),
             "torch": (0, 0, 0, 0)}
@@ -984,10 +1057,12 @@ def phase_training(torch, fluid, seed, card):
                     res["auto"]["total"]))
 
 
-def build_textcls(fluid, seed):
-    """bench.py:239 build_lstm_textcls at its published widths, with
+def build_textcls(fluid, seed, cell="lstm"):
+    """bench.py:239 build_lstm_textcls (``cell="lstm"``) or bench.py:320
+    build_gru_textcls (``"gru"``) at the published widths, with
     Adam(SEQ_LR, fused=True)."""
-    from paddle_tpu_torch.testing.models import lstm_textcls
+    from paddle_tpu_torch.testing import models
+    net = {"lstm": models.lstm_textcls, "gru": models.gru_textcls}[cell]
     fluid.reset_unique_name()
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed
@@ -995,8 +1070,7 @@ def build_textcls(fluid, seed):
         words = fluid.layers.data("words", shape=[1], dtype="int64",
                                   lod_level=1)
         label = fluid.layers.data("label", shape=[1], dtype="int64")
-        prob = lstm_textcls(words, vocab=SEQ_VOCAB, emb=SEQ_EMB,
-                            hidden=SEQ_HIDDEN)
+        prob = net(words, vocab=SEQ_VOCAB, emb=SEQ_EMB, hidden=SEQ_HIDDEN)
         loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
         fluid.optimizer.Adam(learning_rate=SEQ_LR, fused=True).minimize(
             loss, startup)
@@ -1195,40 +1269,30 @@ def textcls_feeds(fluid, seed, ragged):
             "label": rng.randint(0, 2, (SEQ_BATCH, 1)).astype("int64")}
 
 
-def phase_textcls(torch, fluid, seed, card):
-    """Train the text classifier 5 steps on one feed under both routes and
-    hold step 1 of the kernel route to the plain-version route parameter
-    by parameter; returns the launches of each kernel on the kernel
-    route."""
+def train_phase(torch, fluid, card, spec):
+    """Train ``spec["main"]`` SEQ_STEPS steps on the first of
+    ``spec["feeds"]`` under both routes, each step's kernel launches and
+    plain-routed ops counted against ``spec["want"]``; hold step 1 of the
+    kernel route, on every feed, to the same program with the kernel
+    wrappers swapped for their plain versions (``spec["swaps"]``) within
+    ``spec["loss_limit"]`` and ``spec["grad_limit"]``; a planted fault
+    (``spec["plant"]``) must break the gradient limit; the loss must fall on
+    both routes. Prints ms per step, sequences/s and peak memory of both
+    routes and a profile of a kernel-route step. Returns (the launch
+    totals of the kernel route by counter, its trained scope, the
+    executor)."""
     import numpy as np
-    from paddle_tpu_torch.ops import cuda as tier
-    from paddle_tpu_torch.ops.cuda import optimizer as opk
-    from paddle_tpu_torch.ops.cuda import rnn
-
-    log(f"\n== phase 6: LSTM text classifier, batch {SEQ_BATCH}, length "
-        f"{SEQ_LEN}, {SEQ_STEPS} steps on one feed ==")
-    main, startup, loss = build_textcls(fluid, seed)
+    title, main, loss = spec["title"], spec["main"], spec["loss"]
     block = main.global_block()
-    types = {}
-    for op in block.ops:
-        types[op.type] = types.get(op.type, 0) + 1
-    log("program: " + ", ".join(f"{k}x{v}" for k, v in sorted(types.items())))
+    log("program: " + op_counts(block))
     exe = fluid.Executor()
     init = fluid.Scope()
-    exe.run(startup, scope=init)
-
-    def fresh():
-        scope = fluid.Scope()
-        for name in init.local_names():
-            v = init.find_var(name)
-            if torch.is_tensor(v):
-                scope.set(name, v.clone())
-        return scope
-
-    feed = textcls_feeds(fluid, seed, ragged=False)
-    ragged = textcls_feeds(fluid, seed, ragged=True)
+    exe.run(spec["startup"], scope=init)
     update, = [op for op in block.ops if op.type == "fused_adam"]
     grads = dict(zip(update.input("Params"), update.input("Grads")))
+    feeds = spec["feeds"]
+    train_name, train_feed = feeds[0]
+    labels = [c[0] for c in spec["counters"]]
 
     def run(route, scope, fd, fetch=()):
         fluid.set_flags({"kernel_tier": route})
@@ -1240,140 +1304,497 @@ def phase_textcls(torch, fluid, seed, card):
 
     def step1(route, fd):
         """(loss, {param: gradient}) of one step from the startup state."""
-        vals = run(route, fresh(), fd, grads.values())
+        vals = run(route, copy_scope(fluid, torch, init), fd, grads.values())
         return vals[0].item(), dict(zip(grads, vals[1:]))
 
-    def spread(got, ref):
-        return {n: ((got[n].double() - ref[n].double()).norm()
-                    / ref[n].double().norm().clamp_min(1e-30)).item()
-                for n in ref}
-
-    want = {"auto": (2, 2, 1, 0), "torch": (0, 0, 0, 0)}
+    want = {"auto": spec["want"], "torch": (0,) * len(labels)}
     res = {}
     for route in ("auto", "torch"):
-        scope = fresh()
-        losses, ms, total = [], [], [0, 0, 0]
+        scope = copy_scope(fluid, torch, init)
+        losses, ms, total = [], [], [0] * len(labels)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for step in range(SEQ_STEPS):
-            rnn.reset_launches()
-            opk.reset_launches()
-            tier.reset_fallback_counts()
+            for reset in spec["resets"]:
+                reset()
             t0 = time.perf_counter()
-            vals = run(route, scope, feed, grads.values() if step == 0
+            vals = run(route, scope, train_feed, grads.values() if step == 0
                        else ())
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            counts = (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"],
-                      opk.launches["adam_arena"],
-                      tier.fallback_counts().get("lstm", 0))
+            counts = tuple(get() for _, get in spec["counters"])
             if counts != want[route]:
-                fail(f"kernel_tier={route} step {step + 1}: launches "
-                     f"lstm_seq/lstm_seq_bwd/adam_arena and plain-routed "
-                     f"LSTMs {counts}, want {want[route]}")
-            for i in range(3):
-                total[i] += counts[i]
+                fail(f"{title}, kernel_tier={route} step {step + 1}: "
+                     f"{'/'.join(labels)} {counts}, want {want[route]}")
+            total = [a + c for a, c in zip(total, counts)]
             lv = vals[0]
             if lv.shape != () or not torch.isfinite(lv).item():
-                fail(f"kernel_tier={route} step {step + 1}: loss {lv}")
+                fail(f"{title}, kernel_tier={route} step {step + 1}: loss "
+                     f"{lv}")
             losses.append(lv.item())
             if step == 0:
                 first = dict(zip(grads, vals[1:]))
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steady = sum(ms[1:]) / len(ms[1:])
-        res[route] = dict(losses=losses, step1=first, total=total)
+        res[route] = dict(losses=losses, step1=first, total=total,
+                          scope=scope)
         log(f"kernel_tier={route}: losses "
             + " ".join(f"{v:.6f}" for v in losses)
             + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
             + f" | steady {steady:.2f} ms/step, "
-            f"{SEQ_BATCH * 1e3 / steady:.1f} sequences/s | peak memory "
+            f"{spec['batch'] * 1e3 / steady:.1f} sequences/s | peak memory "
             f"{peak:.2f} GiB | {card}")
 
-    # the reference: the same program with the two LSTM wrappers swapped
-    # for their plain versions, as the planted fault below swaps one
-    real = (rnn.lstm_seq, rnn.lstm_seq_bwd)
-    rnn.lstm_seq, rnn.lstm_seq_bwd = rnn.lstm_seq_torch, rnn.lstm_seq_bwd_torch
+    # the reference: the same program with the kernel wrappers swapped for
+    # their plain versions, as the planted fault below swaps one
+    real = [(m, a, getattr(m, a)) for m, a, _ in spec["swaps"]]
+    for m, a, plain in spec["swaps"]:
+        setattr(m, a, plain)
     try:
-        refs = {"fixed": step1("auto", feed), "ragged": step1("auto", ragged)}
+        refs = {name: step1("auto", fd) for name, fd in feeds}
     finally:
-        rnn.lstm_seq, rnn.lstm_seq_bwd = real
+        for m, a, fn in real:
+            setattr(m, a, fn)
 
     problems = []
+    loss_limit, grad_limit = spec["loss_limit"], spec["grad_limit"]
 
-    def check(title, loss_got, got, name):
+    def check(name, loss_got, got):
         ref_loss, ref = refs[name]
         dl = abs(loss_got - ref_loss) / abs(ref_loss)
         sp = spread(got, ref)
-        log(f"{title}: loss rel diff {dl:.3e} (limit "
-            f"{TEXTCLS_LOSS_LIMIT:.0e}); gradients ‖Δ‖₂/‖ref‖₂ (limit "
-            f"{TEXTCLS_GRAD_LIMIT:.0e}): "
+        log(f"step 1, {name} feed, kernel vs plain versions: loss rel diff "
+            f"{dl:.3e} (limit {loss_limit:.0e}); gradients ‖Δ‖₂/‖ref‖₂ "
+            f"(limit {grad_limit:.0e}): "
             + ", ".join(f"{n} {v:.3e}" for n, v in sp.items()))
-        if not dl <= TEXTCLS_LOSS_LIMIT:
-            problems.append(f"{title}: loss differs by {dl:.3e}")
-        over = [n for n in grads if not sp[n] <= TEXTCLS_GRAD_LIMIT]
+        if not dl <= loss_limit:
+            problems.append(f"{title}, {name} feed: loss differs by "
+                            f"{dl:.3e}")
+        over = [n for n in grads if not sp[n] <= grad_limit]
         if over:
-            problems.append(f"{title}: {over} beyond the limit")
+            problems.append(f"{title}, {name} feed: {over} beyond the "
+                            f"limit")
 
-    check("step 1, fixed feed, kernel vs plain versions",
-          res["auto"]["losses"][0], res["auto"]["step1"], "fixed")
-    lv, rg = step1("auto", ragged)
-    if not np.isfinite(lv) or not all(torch.isfinite(g).all().item()
-                                      for g in rg.values()):
-        problems.append(f"the ragged step is not finite (loss {lv})")
-    check(f"step 1, ragged feed (lengths {int(ragged['words'].lens.min())}"
-          f"..{int(ragged['words'].lens.max())}), kernel vs plain versions",
-          lv, rg, "ragged")
+    check(train_name, res["auto"]["losses"][0], res["auto"]["step1"])
+    for name, fd in feeds[1:]:
+        lv, got = step1("auto", fd)
+        if not np.isfinite(lv) or not all(torch.isfinite(g).all().item()
+                                          for g in got.values()):
+            problems.append(f"{title}: the {name} step is not finite "
+                            f"(loss {lv})")
+        check(name, lv, got)
 
-    # the check's own test: dW x PLANTED in the last lstm_seq_bwd launch of
-    # the step (the first LSTM layer's)
-    weights = [op.input("Weight")[0] for op in block.ops
-               if op.type == "lstm_grad"]
-    at = len(weights) - 1
-    calls = [0]
+    # the check's own test: one output of one kernel launch x PLANTED
+    plant = spec["plant"]
+    module, attr, at = plant["module"], plant["attr"], plant["at"]
+    good, calls = getattr(module, attr), [0]
 
     def planted(*args):
-        dx, dw, dh0, dc0 = real[1](*args)
-        dw = dw * PLANTED if calls[0] == at else dw
+        out = good(*args)
+        if calls[0] == at:
+            if plant["index"] is None:
+                out = out * PLANTED
+            else:
+                out = tuple(o * PLANTED if i == plant["index"] else o
+                            for i, o in enumerate(out))
         calls[0] += 1
-        return dx, dw, dh0, dc0
+        return out
 
-    rnn.lstm_seq_bwd = planted
+    setattr(module, attr, planted)
     try:
-        bad = spread(step1("auto", feed)[1], refs["fixed"][1])
+        bad = spread(step1("auto", train_feed)[1], refs[train_name][1])
     finally:
-        rnn.lstm_seq_bwd = real[1]
-    name = weights[at]
-    log(f"planted fault: dW x{PLANTED} at lstm_seq_bwd launch {at + 1} "
-        f"({name}): ‖Δ‖₂/‖ref‖₂ {bad[name]:.3e}, limit "
-        f"{TEXTCLS_GRAD_LIMIT:.0e}")
-    if calls[0] != len(weights):
-        problems.append(f"the planted step made {calls[0]} lstm_seq_bwd "
-                        f"calls, want {len(weights)}")
-    if not bad[name] > TEXTCLS_GRAD_LIMIT:
-        problems.append(f"the gradient check does not see dW x{PLANTED} "
-                        f"at {name}")
+        setattr(module, attr, good)
+    name = plant["param"]
+    log(f"planted fault: {plant['what']} x{PLANTED} at {attr} launch "
+        f"{at + 1}: {name} ‖Δ‖₂/‖ref‖₂ {bad[name]:.3e}, limit "
+        f"{grad_limit:.0e}")
+    if calls[0] != plant["calls"]:
+        problems.append(f"{title}: the planted step made {calls[0]} {attr} "
+                        f"calls, want {plant['calls']}")
+    if not bad[name] > grad_limit:
+        problems.append(f"{title}: the gradient check does not see "
+                        f"{plant['what']} x{PLANTED} at {name}")
 
-    # the torch route computes the recurrent product in float32, without
-    # the bf16 rounding: another function, so its distance is printed only
-    dist = spread(res["torch"]["step1"], refs["fixed"][1])
-    dl = abs(res["torch"]["losses"][0] - refs["fixed"][0]) \
-        / abs(refs["fixed"][0])
-    log("distance of the torch route (float32 recurrent product) from the "
-        f"kernel route's reference at step 1: loss {dl:.3e}; ‖Δ‖₂/‖ref‖₂ "
+    # the torch route runs the float32 scans, without the kernels' bf16
+    # roundings: another function, so its distance is printed only
+    dist = spread(res["torch"]["step1"], refs[train_name][1])
+    dl = abs(res["torch"]["losses"][0] - refs[train_name][0]) \
+        / abs(refs[train_name][0])
+    log("distance of the torch route (float32 scans) from the kernel "
+        f"route's reference at step 1: loss {dl:.3e}; ‖Δ‖₂/‖ref‖₂ "
         + ", ".join(f"{n} {v:.2e}" for n, v in dist.items()))
     for route in ("auto", "torch"):
         losses = res[route]["losses"]
         if not losses[-1] < losses[0]:
-            problems.append(f"kernel_tier={route}: loss did not fall over "
-                            f"{SEQ_STEPS} steps on one feed: {losses}")
+            problems.append(f"{title}, kernel_tier={route}: loss did not "
+                            f"fall over {SEQ_STEPS} steps on one feed: "
+                            f"{losses}")
     if problems:
         fail("; ".join(problems))
-    scope = fresh()
-    profile(torch, lambda: run("auto", scope, feed),
-            f"one training step, batch {SEQ_BATCH}, kernel route", card,
-            reps=3)
-    return dict(zip(("lstm_seq", "lstm_seq_bwd", "adam_arena"),
-                    res["auto"]["total"]))
+    scope = copy_scope(fluid, torch, init)
+    profile(torch, lambda: run("auto", scope, train_feed),
+            f"{title}: one training step, batch {spec['batch']}, kernel "
+            "route", card, reps=3)
+    return dict(zip(labels, res["auto"]["total"])), res["auto"]["scope"], exe
+
+
+def phase_textcls(torch, fluid, seed, card, cell="lstm"):
+    """Train the LSTM (phase 6) or GRU (phase 8) text classifier 5 steps on
+    one feed under both routes and hold step 1 of the kernel route to the
+    plain-version route parameter by parameter; returns the launches of
+    each kernel on the kernel route."""
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    name = {"lstm": "LSTM", "gru": "GRU"}[cell]
+    fwd, bwd = f"{cell}_seq", f"{cell}_seq_bwd"
+    log(f"\n== phase {6 if cell == 'lstm' else 8}: {name} text classifier, "
+        f"batch {SEQ_BATCH}, length {SEQ_LEN}, {SEQ_STEPS} steps on one "
+        f"feed ==")
+    main, startup, loss = build_textcls(fluid, seed, cell)
+    weights = [op.input("Weight")[0] for op in main.global_block().ops
+               if op.type == f"{cell}_grad"]
+    loss_limit, grad_limit = {
+        "lstm": (TEXTCLS_LOSS_LIMIT, TEXTCLS_GRAD_LIMIT),
+        "gru": (GRU_TRAIN_LOSS_LIMIT, GRU_TRAIN_GRAD_LIMIT)}[cell]
+    totals, _, _ = train_phase(torch, fluid, card, dict(
+        title=f"{name} text classifier", main=main, startup=startup,
+        loss=loss, batch=SEQ_BATCH,
+        feeds=[("fixed", textcls_feeds(fluid, seed, ragged=False)),
+               ("ragged", textcls_feeds(fluid, seed, ragged=True))],
+        counters=[(fwd, lambda: rnn.launches[fwd]),
+                  (bwd, lambda: rnn.launches[bwd]),
+                  ("adam_arena", lambda: opk.launches["adam_arena"]),
+                  (f"plain-routed {name}s",
+                   lambda: tier.fallback_counts().get(cell, 0))],
+        resets=[rnn.reset_launches, opk.reset_launches,
+                tier.reset_fallback_counts],
+        want=(2, 2, 1, 0),
+        swaps=[(rnn, fwd, getattr(rnn, f"{fwd}_torch")),
+               (rnn, bwd, getattr(rnn, f"{bwd}_torch"))],
+        # dW x PLANTED in the last backward launch of the step (the first
+        # layer's)
+        plant=dict(module=rnn, attr=bwd, index=1, at=len(weights) - 1,
+                   calls=len(weights), param=weights[-1], what="dW"),
+        loss_limit=loss_limit, grad_limit=grad_limit))
+    return totals
+
+
+def gru_operands(torch, gen, dev, lens):
+    """x, alive, w, h0, dhs at phase 7's shape; w at the scale of the
+    model's Xavier init, the cotangents zero where alive is 0."""
+    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+    alive = (torch.arange(L, device=dev)[:, None] < lens[None, :]) \
+        .float()[..., None].contiguous()
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return (randn(L, b, 3 * H), alive, randn(H, 3 * H, scale=0.05),
+            randn(b, H), (randn(L, b, H) * alive).contiguous())
+
+
+def gru_float64(torch, x, alive, w, h0):
+    """The GRU forward's recipe (bf16(h)·bf16(w), bf16(r⊙h)·bf16(w_c)) in
+    float64: the yardstick both float32 versions are measured against."""
+    def bf16(t):
+        return t.float().bfloat16().double()
+
+    H = h0.shape[-1]
+    wb = bf16(w)
+    x, alive, h = x.double(), alive.double(), h0.double()
+    out = []
+    for t in range(x.shape[0]):
+        ur = bf16(h) @ wb[:, :2 * H]
+        u = torch.sigmoid(x[t][:, :H] + ur[:, :H])
+        r = torch.sigmoid(x[t][:, H:2 * H] + ur[:, H:])
+        c = torch.tanh(x[t][:, 2 * H:] + bf16(r * h) @ wb[:, 2 * H:])
+        h = alive[t] * (u * c + (1 - u) * h) + (1 - alive[t]) * h
+        out.append(h)
+    return torch.stack(out)
+
+
+def ctc_feed(fluid, seed):
+    """One batch of CTC_BATCH utterances of CTC_FRAMES frames of
+    CTC_FEAT features (one at the longest), each with a label of
+    ⌈frames/8⌉..⌊frames/4⌋ characters of CTC_CLASSES."""
+    import numpy as np
+    rng = np.random.RandomState(seed + 11)
+    frames = rng.randint(CTC_FRAMES[0], CTC_FRAMES[1] + 1, CTC_BATCH)
+    frames[0] = CTC_FRAMES[1]
+    ulens = [rng.randint(-(-int(f) // 8), int(f) // 4 + 1) for f in frames]
+    feats = [rng.normal(0, 1, (int(f), CTC_FEAT)).astype("float32")
+             for f in frames]
+    labels = [rng.randint(1, CTC_CLASSES + 1, (u, 1)).astype("int64")
+              for u in ulens]
+    return {"feat": fluid.pack_sequences(feats),
+            "label": fluid.pack_sequences(labels)}
+
+
+def phase_seq_kernels(torch, fluid, seed, card):
+    """gru_seq, gru_seq_bwd, ctc_alpha and ctc_loss_bwd against their plain
+    versions at the lane's and the CTC model's shapes, then their times.
+    Returns {kernel: numbers for the kernels line}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import ctc
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+    lens = torch.randint(1, L + 1, (b,), generator=gen, device=dev)
+    lens[: b // 4] = L
+    x, alive, w, h0, dhs = gru_operands(torch, gen, dev, lens)
+    log(f"\n== phase 7: gru_seq / gru_seq_bwd vs their plain versions, "
+        f"b {b}, L {L}, H {H}, lengths {int(lens.min())}..{int(lens.max())} "
+        f"({int((lens == L).sum())} full) ==")
+    out = {}
+    hs = rnn.gru_seq(x, alive, w, h0)
+    torch.cuda.synchronize()
+    ref = rnn.gru_seq_torch(x, alive, w, h0)
+    inf, l2, d = rel_errs(hs, ref)
+    exact = gru_float64(torch, x, alive, w, h0)
+    k64 = (hs.double() - exact).abs().max().item()
+    p64 = (ref.double() - exact).abs().max().item()
+    log(f"  gru_seq hs: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit {GRU_FWD_LIMIT:.0e}), "
+        f"‖Δ‖₂/‖ref‖₂ {l2:.3e} (limit {GRU_FWD_L2_LIMIT:.0e}); ‖Δ‖∞ to the "
+        f"float64 recipe: kernel {k64:.3e}, plain {p64:.3e} (limit "
+        f"{GRU_F64_RATIO}x the plain's)")
+    if not (inf <= GRU_FWD_LIMIT and l2 <= GRU_FWD_L2_LIMIT
+            and k64 <= GRU_F64_RATIO * p64):
+        fail(f"gru_seq differs from gru_seq_torch: {inf:.3e} / {l2:.3e}; "
+             f"to float64 {k64:.3e} vs {p64:.3e}")
+    out["gru_seq"] = {"max_abs_err": d}
+    # the backward from the plain carries, so that it is held alone
+    got = rnn.gru_seq_bwd(x, alive, w, h0, ref, dhs)
+    torch.cuda.synchronize()
+    want = rnn.gru_seq_bwd_torch(x, alive, w, h0, ref, dhs)
+    worst = 0.0
+    for name, g, r in zip(("dx", "dw", "dh0"), got, want):
+        inf, l2, d = rel_errs(g, r)
+        worst = max(worst, d)
+        log(f"  gru_seq_bwd {name}: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+            f"{GRU_BWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e} (limit "
+            f"{GRU_BWD_L2_LIMIT:.0e})")
+        if not (inf <= GRU_BWD_LIMIT and l2 <= GRU_BWD_L2_LIMIT):
+            fail(f"gru_seq_bwd {name} differs from gru_seq_bwd_torch: "
+                 f"{inf:.3e} / {l2:.3e}")
+    out["gru_seq_bwd"] = {"max_abs_err": worst}
+
+    fd = ctc_feed(fluid, seed)
+    xl = fd["feat"].lens.to(dev)
+    yl = fd["label"].lens.to(dev)
+    labels = fd["label"].data[..., 0].to(dev)
+    T, C = int(xl.max()), CTC_CLASSES + 1
+    logits = torch.randn((CTC_BATCH, T, C), generator=gen, device=dev)
+    dloss = torch.randn((CTC_BATCH,), generator=gen, device=dev)
+    logp = torch.log_softmax(logits, -1)
+    inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
+    sp = inputs[0].shape[-1]
+    log(f"\n== phase 7: ctc_alpha / ctc_loss_bwd vs their plain versions, "
+        f"b {CTC_BATCH}, T {T}, C {C}, Sp {sp}, frames "
+        f"{int(xl.min())}..{T}, labels {int(yl.min())}..{int(yl.max())} ==")
+    loss = ctc.ctc_alpha(*inputs, xl, yl)
+    torch.cuda.synchronize()
+    want = ctc.ctc_alpha_torch(*inputs, xl, yl)
+    inf, l2, d = rel_errs(loss, want)
+    lib = F.ctc_loss(logp.transpose(0, 1), labels, xl, yl, blank=0,
+                     reduction="none")
+    lib_rel = ((lib - want[:, 0]).abs() / want[:, 0].abs()).max().item()
+    log(f"  ctc_alpha loss: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+        f"{CTC_FWD_LIMIT:.0e}); F.ctc_loss against the plain version: max "
+        f"rel diff {lib_rel:.3e} (printed only: another summation)")
+    if not inf <= CTC_FWD_LIMIT:
+        fail(f"ctc_alpha differs from ctc_alpha_torch: {inf:.3e}")
+    out["ctc_alpha"] = {"max_abs_err": d}
+    got = ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss)
+    torch.cuda.synchronize()
+    want = ctc.ctc_loss_bwd_torch(logp, xl, labels, yl, 0, dloss)
+    inf, l2, d = rel_errs(got, want)
+    log(f"  ctc_loss_bwd dlogits: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+        f"{CTC_BWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e}")
+    if not inf <= CTC_BWD_LIMIT:
+        fail(f"ctc_loss_bwd differs from ctc_loss_bwd_torch: {inf:.3e}")
+    out["ctc_loss_bwd"] = {"max_abs_err": d}
+
+    log(f"\n== phase 7: times at the lane's and the CTC model's shapes | "
+        f"{card} ==")
+    # operations of one gru_seq: the gate products (bf16 operands) and ~30
+    # per cell; bytes: x, alive, w, h0 read, hs written
+    gemm = 2 * L * b * H * 3 * H
+    fwd_bytes = 4 * (L * b * 3 * H + L * b + 3 * H * H + b * H + L * b * H)
+    t_ops = gemm / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = fwd_bytes / PEAK_BYTES * 1e3
+    out["gru_seq"].update(
+        ms=time_ms(lambda: rnn.gru_seq(x, alive, w, h0), torch),
+        plain_ms=time_ms(lambda: rnn.gru_seq_torch(x, alive, w, h0), torch),
+        library_ms=None, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # the backward: the gate products again (bf16 operands), then the two
+    # dh products and dW (float32 dgates against bf16 values); bytes: the
+    # forward's inputs, its carries and their cotangents read, dx, dw and
+    # dh0 written
+    t_ops = (gemm / PEAK_FLOPS["bfloat16"]
+             + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3
+    bwd_bytes = 4 * (2 * L * b * 3 * H + L * b + 2 * 3 * H * H + 2 * b * H
+                     + 2 * L * b * H)
+    t_bytes = bwd_bytes / PEAK_BYTES * 1e3
+    out["gru_seq_bwd"].update(
+        ms=time_ms(lambda: rnn.gru_seq_bwd(x, alive, w, h0, ref, dhs),
+                   torch),
+        plain_ms=time_ms(lambda: rnn.gru_seq_bwd_torch(
+            x, alive, w, h0, ref, dhs), torch),
+        library_ms=None, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    serial = time_ms(lambda: rnn.barrier_chain(H // 4, 2 * L, dev), torch)
+    for k in ("gru_seq", "gru_seq_bwd"):
+        t = out[k]
+        log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library none (torch.nn.GRU applies r "
+            f"after the recurrent product, cuDNN's formula: another "
+            f"function), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"serial floor {serial:.4f} ms ({2 * L} grid barriers over "
+            f"{H // 4} blocks)")
+
+    # CTC work that this batch's lengths need, not the padded T: ~16
+    # operations per label position and step of the recurrence (two
+    # logaddexp and the emission's add). The forward reads e at the steps
+    # t = 1..x_len-1 of each row (alpha0 stands for t = 0), alpha0 and the
+    # two masks, final0 and the lengths, and writes the loss
+    steps = int((xl - 1).clamp_min(0).sum())
+    frames = int(xl.sum())
+    t_ops = 16 * steps * sp / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = 4 * (steps * sp + CTC_BATCH * (3 * sp + 4)) / PEAK_BYTES * 1e3
+    lg_leaf = logits.detach().requires_grad_(True)
+    with torch.enable_grad():
+        lib_loss = F.ctc_loss(torch.log_softmax(lg_leaf, -1).transpose(0, 1),
+                              labels, xl, yl, blank=0, reduction="none")
+    lib_ct = dloss.clone()
+    out["ctc_alpha"].update(
+        ms=time_ms(lambda: ctc.ctc_alpha(*inputs, xl, yl), torch),
+        plain_ms=time_ms(lambda: ctc.ctc_alpha_torch(*inputs, xl, yl),
+                         torch),
+        library_ms=time_ms(lambda: F.ctc_loss(
+            logp.transpose(0, 1), labels, xl, yl, blank=0,
+            reduction="none"), torch),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # the backward: the recurrence again, ~30 operations per position and
+    # step of the scan's adjoint, and per frame one add per label position
+    # (the emissions' cotangents onto their classes) and ~3 per class (the
+    # log-softmax's backward). It reads logp at the rows' frames, the labels
+    # (int64), the lengths and dloss, and writes all of dlogits [b, T, C]
+    # (zeros past each row's frames)
+    t_ops = ((16 + 30) * steps * sp + frames * (sp + 3 * C)) \
+        / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = (4 * (frames * C + CTC_BATCH * T * C + 3 * CTC_BATCH)
+               + 8 * labels.numel()) / PEAK_BYTES * 1e3
+    out["ctc_loss_bwd"].update(
+        ms=time_ms(lambda: ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss),
+                   torch),
+        plain_ms=time_ms(lambda: ctc.ctc_loss_bwd_torch(
+            logp, xl, labels, yl, 0, dloss), torch),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_loss, lg_leaf, lib_ct, retain_graph=True), torch),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    for k, lib_name in (("ctc_alpha", "F.ctc_loss"),
+                        ("ctc_loss_bwd", "F.ctc_loss backward, with the "
+                         "log-softmax's")):
+        t = out[k]
+        log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return out
+
+
+def build_ctc_acoustic(fluid, seed):
+    """tests/book/test_ocr_ctc.py:38-50 at phase 9's widths, with
+    Adam(CTC_LR, fused=True). Returns (main, startup, loss, logits)."""
+    from paddle_tpu_torch.testing.models import ctc_acoustic
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        feat = fluid.layers.data("feat", shape=[CTC_FEAT], lod_level=1)
+        label = fluid.layers.data("label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        logits, loss = ctc_acoustic(feat, label, CTC_CLASSES, CTC_HIDDEN)
+        fluid.optimizer.Adam(learning_rate=CTC_LR, fused=True).minimize(
+            loss, startup)
+    return main, startup, loss, logits
+
+
+def phase_ctc(torch, fluid, seed, card):
+    """Train the CTC acoustic model 5 steps on one batch under both routes
+    and hold step 1 of the kernel route to the plain-version route; then
+    greedy-decode the batch through ``main.clone(for_test=True)`` and print
+    the normalized edit distance. Returns the launches of each kernel on
+    the kernel route."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import ctc
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    log(f"\n== phase 9: CTC acoustic model, batch {CTC_BATCH}, "
+        f"{CTC_FRAMES[0]}..{CTC_FRAMES[1]} frames of {CTC_FEAT} features, "
+        f"hidden {CTC_HIDDEN}, {CTC_CLASSES} + 1 classes, {SEQ_STEPS} steps "
+        f"on one batch ==")
+    main, startup, loss, logits = build_ctc_acoustic(fluid, seed)
+    fd = ctc_feed(fluid, seed)
+    gru_w, = [op.input("Weight")[0] for op in main.global_block().ops
+              if op.type == "gru_grad"]
+    totals, trained, exe = train_phase(torch, fluid, card, dict(
+        title="CTC acoustic model", main=main, startup=startup, loss=loss,
+        batch=CTC_BATCH, feeds=[("utterances", fd)],
+        counters=[("gru_seq", lambda: rnn.launches["gru_seq"]),
+                  ("gru_seq_bwd", lambda: rnn.launches["gru_seq_bwd"]),
+                  ("ctc_alpha", lambda: ctc.launches["ctc_alpha"]),
+                  ("ctc_loss_bwd", lambda: ctc.launches["ctc_loss_bwd"]),
+                  ("adam_arena", lambda: opk.launches["adam_arena"]),
+                  ("plain-routed GRUs",
+                   lambda: tier.fallback_counts().get("gru", 0)),
+                  ("plain-routed CTCs",
+                   lambda: tier.fallback_counts().get("ctc", 0))],
+        resets=[rnn.reset_launches, ctc.reset_launches, opk.reset_launches,
+                tier.reset_fallback_counts],
+        want=(1, 1, 1, 1, 1, 0, 0),
+        swaps=[(rnn, "gru_seq", rnn.gru_seq_torch),
+               (rnn, "gru_seq_bwd", rnn.gru_seq_bwd_torch),
+               (ctc, "ctc_alpha", ctc.ctc_alpha_torch),
+               (ctc, "ctc_loss_bwd", ctc.ctc_loss_bwd_torch)],
+        # dlogits x PLANTED in the step's one ctc_loss_bwd launch: every
+        # gradient below the loss moves by it
+        plant=dict(module=ctc, attr="ctc_loss_bwd", index=None, at=0,
+                   calls=1, param=gru_w, what="dlogits"),
+        loss_limit=GRU_TRAIN_LOSS_LIMIT, grad_limit=GRU_TRAIN_GRAD_LIMIT))
+
+    # decode the batch as tests/book/test_ocr_ctc.py decodes its test batch
+    infer = main.clone(for_test=True)
+    eval_prog, eval_start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(eval_prog, eval_start):
+        lg = fluid.layers.data("lg", shape=[CTC_CLASSES + 1], lod_level=1)
+        lb = fluid.layers.data("lb", shape=[1], dtype="int64", lod_level=1)
+        decoded = fluid.layers.ctc_greedy_decoder(input=lg, blank=0)
+        dist, _ = fluid.layers.edit_distance(input=decoded, label=lb,
+                                             normalized=True)
+    scope = copy_scope(fluid, torch, trained)
+    lg_out, = exe.run(infer, feed=fd, fetch_list=[logits], scope=scope,
+                      return_numpy=False)
+    dec, d = exe.run(eval_prog, feed={"lg": lg_out, "lb": fd["label"]},
+                     fetch_list=[decoded, dist], scope=scope)
+    if d.shape != (CTC_BATCH, 1) or not np.isfinite(d).all():
+        fail(f"edit_distance gave {d.shape}, finite={np.isfinite(d).all()}")
+    log(f"greedy decoding after {SEQ_STEPS} steps: decoded lengths "
+        f"{int(dec.lens.min())}..{int(dec.lens.max())} (labels "
+        f"{int(fd['label'].lens.min())}..{int(fd['label'].lens.max())}); "
+        f"mean normalized edit distance {float(d.mean()):.4f}")
+    return totals
+
 
 
 def main():
@@ -1414,32 +1835,46 @@ def main():
     train_launches = phase_training(torch, fluid, args.seed, card)
     rnn_totals = phase_rnn_kernels(torch, fluid, args.seed, card)
     rnn_launches = phase_textcls(torch, fluid, args.seed, card)
+    seq_totals = phase_seq_kernels(torch, fluid, args.seed, card)
+    gru_launches = phase_textcls(torch, fluid, args.seed, card, "gru")
+    ctc_launches = phase_ctc(torch, fluid, args.seed, card)
 
     def entry(name, source, replaces, n, t):
         return {"name": name, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
-                "replaces": f"paddle_tpu/ops/pallas/{replaces}",
+                "replaces": f"paddle_tpu/ops/{replaces}",
                 "launches": n, "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"]}
 
     kernels = [
-        entry("conv_affine", "conv_affine.cu", "conv_bn.py:261", launches,
-              totals),
-        entry("conv_bn_train", "conv_bn_train.cu", "conv_bn.py:191",
+        entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
+              launches, totals),
+        entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
               train_launches["conv_bn_train"], train_totals["conv_bn_train"]),
-        entry("conv_bn_bwd", "conv_bn_bwd.cu", "conv_bn.py:379",
+        entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
               train_launches["conv_bn_bwd"], train_totals["conv_bn_bwd"]),
-        entry("momentum_arena", "optimizer_arena.cu", "optimizer.py:111",
-              train_launches["momentum_arena"],
+        entry("momentum_arena", "optimizer_arena.cu",
+              "pallas/optimizer.py:111", train_launches["momentum_arena"],
               train_totals["momentum_arena"]),
-        entry("lstm_seq", "lstm_seq.cu", "rnn.py:124",
+        entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"], rnn_totals["lstm_seq"]),
-        entry("lstm_seq_bwd", "lstm_seq.cu", "rnn.py:133",
+        entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"], rnn_totals["lstm_seq_bwd"]),
-        entry("adam_arena", "optimizer_arena.cu", "optimizer.py:129",
-              rnn_launches["adam_arena"], rnn_totals["adam_arena"]),
+        entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
+              rnn_launches["adam_arena"] + gru_launches["adam_arena"]
+              + ctc_launches["adam_arena"], rnn_totals["adam_arena"]),
+        entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
+              gru_launches["gru_seq"] + ctc_launches["gru_seq"],
+              seq_totals["gru_seq"]),
+        entry("gru_seq_bwd", "gru_seq.cu", "pallas/rnn.py:242",
+              gru_launches["gru_seq_bwd"] + ctc_launches["gru_seq_bwd"],
+              seq_totals["gru_seq_bwd"]),
+        entry("ctc_alpha", "ctc.cu", "pallas/ctc.py:66",
+              ctc_launches["ctc_alpha"], seq_totals["ctc_alpha"]),
+        entry("ctc_loss_bwd", "ctc.cu", "ctc_ops.py:155",
+              ctc_launches["ctc_loss_bwd"], seq_totals["ctc_loss_bwd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -51,51 +51,20 @@
 // The C entries return cudaGetLastError() after the launch (0 = success);
 // the caller allocates every output and passes its stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cooperative_groups.h>
+#include "seq_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int UNITS = 4;          // hidden units per block
+using namespace seq;
+
 constexpr int COLS = 4 * UNITS;   // gate columns per block
-constexpr int THREADS = 256;      // = BMAX * UNITS: one cell per thread
-constexpr int BMAX = 64;          // batch rows a block holds
 constexpr int KSPLIT = 4;         // the gate product's split of H
 constexpr int BSPLIT = 16;        // phase B's split of 4H
-constexpr int PART = KSPLIT * BMAX * COLS;   // == BSPLIT * BMAX * UNITS
-constexpr int MAX_H = 8 * THREADS / 4;       // dW: 8 rows of W per thread
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// as torch.sigmoid computes it on the card: 1 / (1 + exp(-v))
-__device__ __forceinline__ float sigm(float v) {
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
-}
-
-// global column of local column lc (gate lc / UNITS of unit j0 + lc % UNITS)
-__device__ __forceinline__ int gcol(int lc, int j0, int H) {
-  return (lc / UNITS) * H + j0 + lc % UNITS;
-}
-
-// src [b, H] (float32, rows of h) -> dst [BMAX][hp], rounded to bf16 when
-// `to_bf16`; rows >= b are left as they are (zero)
-__device__ void stage_rows(float* dst, int hp, const float* src, int b,
-                           int H, int ld, bool to_bf16) {
-  const int q = H / 4;
-  for (int i = threadIdx.x; i < b * q; i += THREADS) {
-    const int r = i / q, k = (i % q) * 4;
-    float4 v = __ldcg(reinterpret_cast<const float4*>(src + r * ld + k));
-    if (to_bf16) {
-      v.x = bf16r(v.x); v.y = bf16r(v.y); v.z = bf16r(v.z); v.w = bf16r(v.w);
-    }
-    *reinterpret_cast<float4*>(dst + r * hp + k) = v;
-  }
-}
+static_assert(PART == KSPLIT * BMAX * COLS && PART == BSPLIT * BMAX * UNITS,
+              "the partial sums of both products fill PART");
+static_assert(8 * THREADS / 4 >= MAX_H, "dW: 8 rows of W per 4 threads");
 
 // gates_s[row][lc] = x_t[row][gcol(lc)] + sum_k hs_s[row][k] * w_s[k][lc]
 // for the block's 16 columns. Thread groups s = 0..3 sum k in
@@ -155,12 +124,6 @@ __device__ void gate_preact(const float* hs_s, int hp, const float* w_s,
   __syncthreads();
 }
 
-__device__ __forceinline__ void stage_w_cols(float* w_s, const float* w,
-                                             int H, int j0) {
-  for (int i = threadIdx.x; i < H * COLS; i += THREADS)
-    w_s[i] = bf16r(w[(i / COLS) * 4 * H + gcol(i % COLS, j0, H)]);
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
                 const float* __restrict__ w, const float* __restrict__ h0,
@@ -179,7 +142,7 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
   cg::grid_group grid = cg::this_grid();
 
   for (int i = tid; i < BMAX * hp; i += THREADS) hs_s[i] = 0.f;
-  stage_w_cols(w_s, w, H, j0);
+  stage_w_cols<4>(w_s, w, H, j0);
   float h = 0.f, c = 0.f;
   if (mine) {
     h = h0[row * H + j0 + jj];
@@ -241,7 +204,7 @@ lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
 
   for (int i = tid; i < BMAX * hp; i += THREADS) hs_s[i] = 0.f;
   for (int i = tid; i < BMAX * COLS; i += THREADS) dg_s[i] = 0.f;
-  stage_w_cols(w_s, w, H, j0);
+  stage_w_cols<4>(w_s, w, H, j0);
   for (int i = tid; i < UNITS * H4; i += THREADS)
     wr_s[i] = bf16r(w[(j0 + i / H4) * H4 + i % H4]);
   float dwacc[8][4];
@@ -391,36 +354,6 @@ __global__ void barrier_chain_kernel(int steps) {
   for (int i = 0; i < steps; ++i) grid.sync();
 }
 
-bool shape_ok(int L, int b, int H) {
-  return L >= 1 && b >= 1 && b <= BMAX && H % 16 == 0 && H >= 16 &&
-         H <= MAX_H;
-}
-
-size_t fwd_smem(int H) {
-  return sizeof(float) *
-         ((size_t)BMAX * (H + 4) + (size_t)H * COLS + PART + BMAX * COLS);
-}
-
-size_t bwd_smem(int H) {
-  return sizeof(float) * ((size_t)BMAX * (H + 4) + (size_t)H * COLS +
-                          (size_t)UNITS * 4 * H + PART + 2 * BMAX * COLS);
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, int blocks, size_t smem, void** args,
-           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that cannot be
-  // resident all at once
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                    dim3(blocks), dim3(THREADS), args, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -432,7 +365,7 @@ int lstm_seq_fwd(const float* x, const float* alive, const float* w,
                  int L, int b, int H, void* stream) {
   if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
   void* args[] = {&x, &alive, &w, &h0, &c0, &hs, &cs, &L, &b, &H};
-  return launch(lstm_fwd_kernel, H / UNITS, fwd_smem(H), args, stream);
+  return launch(lstm_fwd_kernel, H / UNITS, fwd_smem<4>(H), args, stream);
 }
 
 // the forward's inputs and outputs, and the carries' cotangents dhs, dcs
@@ -445,7 +378,7 @@ int lstm_seq_bwd(const float* x, const float* alive, const float* w,
   if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
   void* args[] = {&x,   &alive, &w,  &h0,  &c0,  &hs, &cs, &dhs, &dcs,
                   &dx,  &dw,    &dh0, &dc0, &L,  &b,  &H};
-  return launch(lstm_bwd_kernel, H / UNITS, bwd_smem(H), args, stream);
+  return launch(lstm_bwd_kernel, H / UNITS, bwd_smem<4>(H), args, stream);
 }
 
 // an empty cooperative kernel of `blocks` blocks crossing `steps` grid
@@ -453,10 +386,6 @@ int lstm_seq_bwd(const float* x, const float* alive, const float* w,
 int grid_barrier_chain(int blocks, int steps, void* stream) {
   void* args[] = {&steps};
   return launch(barrier_chain_kernel, blocks, 0, args, stream);
-}
-
-const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

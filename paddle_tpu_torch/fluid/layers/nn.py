@@ -1,9 +1,10 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/fluid/layers/nn.py), those ResNet training and the LSTM text
-classifier build: fc, embedding, softmax, cross_entropy,
-softmax_with_cross_entropy, mean, elementwise_add, conv2d, pool2d and
-batch_norm. Each appends the same ops, with the same attrs and names, as its
-reference counterpart."""
+paddle_tpu/fluid/layers/nn.py), those ResNet training, the text
+classifiers and the CTC acoustic model build: fc, embedding, softmax,
+cross_entropy, softmax_with_cross_entropy, mean, elementwise_add, conv2d,
+pool2d, batch_norm, topk, warpctc, ctc_greedy_decoder and edit_distance.
+Each appends the same ops, with the same attrs and names, as its reference
+counterpart."""
 
 from __future__ import annotations
 
@@ -222,6 +223,65 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def topk(input, k):
+    """The k largest values of the last axis and their int64 indices
+    (reference nn.py:484)."""
+    helper = LayerHelper("top_k")
+    values = helper.create_tmp_variable(input.dtype,
+                                        shape=tuple(input.shape[:-1]) + (k,))
+    indices = helper.create_tmp_variable(
+        "int64", shape=tuple(input.shape[:-1]) + (k,))
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name],
+                              "Indices": [indices.name]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss [b, 1] over ragged logits and labels (reference nn.py
+    warpctc)."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_tmp_variable(input.dtype)
+    helper.append_op("warpctc",
+                     inputs={"Logits": [input.name], "Label": [label.name]},
+                     outputs={"Loss": [loss.name]},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def ctc_greedy_decoder(input, blank):
+    """Arg-max per step, then merge repeats and drop blanks (reference
+    nn.py ctc_greedy_decoder: top_k + ctc_align)."""
+    helper = LayerHelper("ctc_greedy_decoder")
+    _, indices = topk(input, k=1)
+    out = helper.create_tmp_variable("int64", lod_level=1)
+    helper.append_op("ctc_align", inputs={"Input": [indices.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"blank": blank, "merge_repeated": True})
+    return out
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None):
+    """Levenshtein distance of each decoded sequence to its label
+    (reference nn.py edit_distance); returns (distances [b, 1], the
+    sequence count)."""
+    if ignored_tokens:
+        raise NotImplementedError(
+            "edit_distance(ignored_tokens=...) needs sequence_erase, which "
+            "is not ported")
+    helper = LayerHelper("edit_distance")
+    out = helper.create_tmp_variable("float32")
+    seq_num = helper.create_tmp_variable("int64")
+    helper.append_op("edit_distance",
+                     inputs={"Hyps": [input.name], "Refs": [label.name]},
+                     outputs={"Out": [out.name],
+                              "SequenceNum": [seq_num.name]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
 __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "elementwise_add", "conv2d",
-           "pool2d", "batch_norm"]
+           "pool2d", "batch_norm", "topk", "warpctc", "ctc_greedy_decoder",
+           "edit_distance"]

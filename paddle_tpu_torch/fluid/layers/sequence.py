@@ -1,8 +1,9 @@
 """Sequence and recurrent layer functions (counterpart of
 paddle_tpu/fluid/layers/sequence.py): ``dynamic_lstm`` (reference :16),
-``sequence_pool`` and ``sequence_last_step`` (reference :107). The ops
-run over padded LoDArrays (``ops/rnn_ops.py``, ``ops/sequence_ops.py``).
-dynamic_gru and the other sequence layers wait for a later slice."""
+``dynamic_gru`` (reference :46), ``sequence_pool`` and
+``sequence_last_step`` (reference :107). The ops run over padded
+LoDArrays (``ops/rnn_ops.py``, ``ops/sequence_ops.py``). The other
+sequence layers wait for a later slice."""
 
 from __future__ import annotations
 
@@ -41,6 +42,30 @@ def dynamic_lstm(input, size, param_attr=None, bias_attr=None,
     return hidden_out, cell_out
 
 
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None, dtype="float32"):
+    """``input`` is the projected pre-activation [*, 3·size] (an fc of
+    width 3·size first, as in the reference); ``size`` is the hidden width.
+    Returns the hidden sequence, with the input's LoD."""
+    helper = LayerHelper("gru")
+    weight = helper.create_parameter(param_attr, shape=(size, 3 * size),
+                                     dtype=dtype)
+    bias = helper.create_parameter(ParamAttr.to_attr(bias_attr),
+                                   shape=(1, 3 * size), dtype=dtype,
+                                   is_bias=True)
+    hidden = helper.create_tmp_variable(dtype, lod_level=input.lod_level)
+    inputs = {"Input": [input.name], "Weight": [weight.name],
+              "Bias": [bias.name]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0.name]
+    helper.append_op(
+        "gru", inputs=inputs, outputs={"Hidden": [hidden.name]},
+        attrs={"is_reverse": is_reverse, "gate_activation": gate_activation,
+               "activation": candidate_activation})
+    return hidden
+
+
 def sequence_pool(input, pool_type):
     helper = LayerHelper("sequence_pool")
     out = helper.create_tmp_variable(input.dtype, lod_level=0)
@@ -54,4 +79,5 @@ def sequence_last_step(input):
     return sequence_pool(input, "last")
 
 
-__all__ = ["dynamic_lstm", "sequence_pool", "sequence_last_step"]
+__all__ = ["dynamic_lstm", "dynamic_gru", "sequence_pool",
+           "sequence_last_step"]

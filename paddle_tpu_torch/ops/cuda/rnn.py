@@ -1,6 +1,7 @@
-"""The whole-sequence LSTM and its backward, one launch each (counterpart of
-paddle_tpu/ops/pallas/rnn.py::lstm_seq_pallas, forward ``:84`` and the
-custom_vjp backward ``:133``).
+"""The whole-sequence LSTM and GRU and their backwards, one launch each
+(counterpart of paddle_tpu/ops/pallas/rnn.py: ``lstm_seq_pallas``, forward
+``:84`` and the custom_vjp backward ``:133``; ``gru_seq_pallas``, forward
+``:195`` and the custom_vjp backward ``:242``).
 
 ``lstm_seq(x, alive, w, h0, c0)`` runs the recurrence over x [L, b, 4H]
 (the projected inputs plus bias, gate columns [i, f, c, o]) with the
@@ -21,6 +22,18 @@ kernel; see the source for the design); on CPU tensors they run
 CPU tests hold against the reference. :class:`LstmSeq` is the
 ``torch.autograd.Function`` that pairs them, saving the reference's
 residuals ``(x, alive, w, h0, c0, hs, cs)``.
+
+``gru_seq(x, alive, w, h0)`` is the GRU's counterpart over x [L, b, 3H]
+(gate columns [u, r, c]) and w [H, 3H]: ``ur = bf16(h_{t-1}) · bf16(w_ur)``,
+``c = tanh(x_c + bf16(r ⊙ h_{t-1}) · bf16(w_c))``, ``h = u·c + (1-u)·h_{t-1}``;
+it returns the carries hs [L, b, H]. ``gru_seq_bwd`` returns (dx, dw, dh0)
+with the four bf16 roundings of the reference's vjp (``jax.make_jaxpr`` of
+``_gru_step_jnp``'s vjp): both products of the backward,
+``dpre_c · W_cᵀ`` and ``[dpre_u | dpre_r] · W_urᵀ``, and both parts of
+each step's dW_t are rounded to bfloat16 before they are added in
+float32. Both launch ``csrc/gru_seq.cu`` on CUDA tensors and run
+``gru_seq_torch`` / ``gru_seq_bwd_torch`` on CPU tensors; :class:`GruSeq`
+pairs them with the residuals ``(x, alive, w, h0, hs)``.
 """
 
 from __future__ import annotations
@@ -32,12 +45,13 @@ import torch
 from . import build as _build
 
 # kernel launches since the last reset; only a launch adds
-launches = {"lstm_seq": 0, "lstm_seq_bwd": 0}
+launches = {"lstm_seq": 0, "lstm_seq_bwd": 0, "gru_seq": 0,
+            "gru_seq_bwd": 0}
 
-# the kernel's limits (csrc/lstm_seq.cu): one block per 4 hidden units and
-# every batch row; each block holds up to 217 KB of shared memory, so one
-# block fits an SM, and all H/4 blocks must be resident at once (128 of the
-# H100's 132 SMs at H 512)
+# the kernels' limits (csrc/lstm_seq.cu, csrc/gru_seq.cu): one block per 4
+# hidden units and every batch row; each block holds up to 217 KB of shared
+# memory, so one block fits an SM, and all H/4 blocks must be resident at
+# once (128 of the H100's 132 SMs at H 512)
 MAX_BATCH, MAX_HIDDEN, HIDDEN_MULTIPLE = 64, 512, 16
 
 
@@ -132,19 +146,23 @@ def lstm_seq_bwd_torch(x, alive, w, h0, c0, hs, cs, dhs, dcs):
 
 
 def _check(name, tensors, dev):
-    for tname, t, shape in tensors:
-        if t.dtype != torch.float32 or t.device != dev \
+    """Each (tname, tensor, shape[, dtype]) must be a contiguous tensor of
+    that shape and dtype (float32 unless given) on ``dev``."""
+    for tname, t, shape, *dtype in tensors:
+        dtype = dtype[0] if dtype else torch.float32
+        if t.dtype != dtype or t.device != dev \
                 or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(
-                f"{name}: {tname} must be a contiguous float32 tensor of "
+                f"{name}: {tname} must be a contiguous "
+                f"{str(dtype).removeprefix('torch.')} tensor of "
                 f"shape {shape} on {dev}, got {tuple(t.shape)} {t.dtype} "
                 f"on {t.device}")
 
 
-def _dims(name, x, w):
-    L, b, h4 = x.shape
-    hdim = h4 // 4
-    if h4 != 4 * hdim or tuple(w.shape) != (hdim, h4) \
+def _dims(name, x, w, gates=4):
+    L, b, hg = x.shape
+    hdim = hg // gates
+    if hg != gates * hdim or tuple(w.shape) != (hdim, hg) \
             or not supported(b, hdim, x.dtype):
         raise ValueError(
             f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} are outside "
@@ -223,6 +241,134 @@ def barrier_chain(blocks, steps, device):
     _raise_on(lib, err, "grid_barrier_chain")
 
 
+def gru_seq_torch(x, alive, w, h0):
+    """Plain version of the GRU forward: the reference's ``_gru_seq_kernel``
+    step (rnn.py:166-192) in a loop over time. Returns hs [L, b, H]."""
+    hdim = h0.shape[-1]
+    wb = _bf16(w)
+    h = h0
+    hs = []
+    for t in range(x.shape[0]):
+        a, xt = alive[t], x[t]
+        ur = torch.matmul(_bf16(h), wb[:, :2 * hdim])
+        u = torch.sigmoid(xt[:, :hdim] + ur[:, :hdim])
+        r = torch.sigmoid(xt[:, hdim:2 * hdim] + ur[:, hdim:])
+        c = torch.tanh(xt[:, 2 * hdim:]
+                       + torch.matmul(_bf16(r * h), wb[:, 2 * hdim:]))
+        hn = u * c + (1.0 - u) * h
+        h = a * hn + (1 - a) * h
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def gru_seq_bwd_torch(x, alive, w, h0, hs, dhs):
+    """Plain version of the GRU backward: the reference's reverse scan of
+    per-step vjps (rnn.py:242-257), written out in the operation order of
+    the vjp's jaxpr, gates recomputed from the saved carries. Returns
+    (dx, dw, dh0)."""
+    hdim = h0.shape[-1]
+    wb = _bf16(w)
+    w_ur, w_c = wb[:, :2 * hdim], wb[:, 2 * hdim:]
+    h_prevs = torch.cat([h0[None], hs[:-1]])
+    dh = torch.zeros_like(h0)
+    dw = torch.zeros_like(w)
+    dx = torch.empty_like(x)
+    for t in reversed(range(x.shape[0])):
+        a, xt, hp = alive[t], x[t], h_prevs[t]
+        hb = _bf16(hp)
+        ur = torch.matmul(hb, w_ur)
+        u = torch.sigmoid(xt[:, :hdim] + ur[:, :hdim])
+        r = torch.sigmoid(xt[:, hdim:2 * hdim] + ur[:, hdim:])
+        rh = _bf16(r * hp)
+        c = torch.tanh(xt[:, 2 * hdim:] + torch.matmul(rh, w_c))
+        e = dh + dhs[t]
+        bl = a * e
+        bn = (1 - a) * e + (1 - u) * bl
+        du = bl * c - bl * hp
+        bt = (u * bl) * (1 - c)
+        dpc = bt + bt * c
+        cd = _bf16(torch.matmul(dpc, w_c.T))
+        dpr = (cd * hp) * (r * (1 - r))
+        dpu = du * (u * (1 - u))
+        dur = torch.cat([dpu, dpr], dim=-1)
+        dx[t] = torch.cat([dur, dpc], dim=-1)
+        dw = dw + torch.cat([_bf16(torch.matmul(hb.T, dur)),
+                             _bf16(torch.matmul(rh.T, dpc))], dim=-1)
+        dh = (bn + r * cd) + _bf16(torch.matmul(dur, w_ur.T))
+    return dx, dw, dh
+
+
+def gru_seq(x, alive, w, h0):
+    """hs [L, b, H]: the kernel on CUDA tensors, one cooperative launch;
+    the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return gru_seq_torch(x, alive, w, h0)
+    L, b, hdim = _dims("gru_seq", x, w, 3)
+    _check("gru_seq", [("x", x, (L, b, 3 * hdim)),
+                       ("alive", alive, (L, b, 1)),
+                       ("w", w, (hdim, 3 * hdim)), ("h0", h0, (b, hdim))],
+           x.device)
+    hs = torch.empty((L, b, hdim), device=x.device)
+    rh = torch.empty((b, hdim), device=x.device)    # bf16(r ⊙ h_{t-1})
+    lib = _gru_lib()
+    with torch.cuda.device(x.device):
+        err = lib.gru_seq_fwd(
+            x.data_ptr(), alive.data_ptr(), w.data_ptr(), h0.data_ptr(),
+            hs.data_ptr(), rh.data_ptr(), L, b, hdim,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "gru_seq")
+    launches["gru_seq"] += 1
+    return hs
+
+
+def gru_seq_bwd(x, alive, w, h0, hs, dhs):
+    """(dx, dw, dh0): the kernel on CUDA tensors, one cooperative launch
+    walking time in reverse; the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return gru_seq_bwd_torch(x, alive, w, h0, hs, dhs)
+    L, b, hdim = _dims("gru_seq_bwd", x, w, 3)
+    seq = (L, b, hdim)
+    _check("gru_seq_bwd", [("x", x, (L, b, 3 * hdim)),
+                           ("alive", alive, (L, b, 1)),
+                           ("w", w, (hdim, 3 * hdim)),
+                           ("h0", h0, (b, hdim)), ("hs", hs, seq),
+                           ("dhs", dhs, seq)], x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    dh0 = torch.empty_like(h0)
+    rh = torch.empty(seq, device=x.device)    # every step's bf16(r ⊙ h)
+    lib = _gru_lib()
+    with torch.cuda.device(x.device):
+        err = lib.gru_seq_bwd(
+            x.data_ptr(), alive.data_ptr(), w.data_ptr(), h0.data_ptr(),
+            hs.data_ptr(), dhs.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            dh0.data_ptr(), rh.data_ptr(), L, b, hdim,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "gru_seq_bwd")
+    launches["gru_seq_bwd"] += 1
+    return dx, dw, dh0
+
+
+class GruSeq(torch.autograd.Function):
+    """``gru_seq`` with ``gru_seq_bwd`` as its backward: the reference's
+    ``jax.custom_vjp`` pair (rnn.py:232-260). Given the carries ``hs`` of a
+    forward that already ran, ``forward`` returns them instead of
+    launching again. The residuals are the reference's
+    ``(x, alive, w, h0, hs)``."""
+
+    @staticmethod
+    def forward(ctx, x, alive, w, h0, hs=None):
+        if hs is None:
+            hs = gru_seq(x, alive, w, h0)
+        ctx.save_for_backward(x, alive, w, h0, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        dx, dw, dh0 = gru_seq_bwd(*ctx.saved_tensors, dhs.contiguous())
+        return dx, None, dw, dh0, None
+
+
 class LstmSeq(torch.autograd.Function):
     """``lstm_seq`` with ``lstm_seq_bwd`` as its backward: the reference's
     ``jax.custom_vjp`` pair (rnn.py:123-159). ``forward(x, alive, w, h0,
@@ -255,6 +401,19 @@ def _lib():
         lib.lstm_seq_bwd.restype = i
         lib.grid_barrier_chain.argtypes = [i, i, p]
         lib.grid_barrier_chain.restype = i
+        lib.kernel_error_string.argtypes = [i]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _gru_lib():
+    lib = _build.load("gru_seq")
+    if lib.gru_seq_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gru_seq_fwd.argtypes = [p] * 6 + [i, i, i, p]
+        lib.gru_seq_fwd.restype = i
+        lib.gru_seq_bwd.argtypes = [p] * 10 + [i, i, i, p]
+        lib.gru_seq_bwd.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

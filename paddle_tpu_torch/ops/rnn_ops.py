@@ -1,17 +1,18 @@
-"""The dynamic LSTM op and its grad (counterpart of
-paddle_tpu/ops/rnn_ops.py: ``lstm`` :187, ``lstm_grad`` :205, with
-``_reverse_padded`` :47, ``_lstm_scan`` :60 and ``_lstm_compute`` :128).
+"""The dynamic LSTM and GRU ops and their grads (counterpart of
+paddle_tpu/ops/rnn_ops.py: ``lstm`` :187, ``lstm_grad`` :205, ``gru`` :320
+and ``gru_grad`` :334, with ``_reverse_padded`` :47, ``_lstm_scan`` :60,
+``_lstm_compute`` :128 and ``_gru_compute`` :251).
 
-The op runs over a padded LoDArray [b, L, 4H] (the projected inputs; gate
-columns [i, f, c, o]) with a length mask. Standard activations and no
-peepholes take the kernel route (``ops/cuda/rnn.py``: the whole sequence
-in one launch, bf16 recurrent product); everything else, and every call
-under ``kernel_tier=torch``, the float32 scan, one step at a time. The
-grad op differentiates the same function: on the kernel route through
-``LstmSeq`` without a second forward launch (the raw carries are rebuilt
+Each op runs over a padded LoDArray [b, L, gH] (the projected inputs; gate
+columns [i, f, c, o] for the LSTM, [u, r, c] for the GRU) with a length
+mask. Standard activations (and, for the LSTM, no peepholes) take the
+kernel route (``ops/cuda/rnn.py``: the whole sequence in one launch, bf16
+recurrent products); everything else, and every call under
+``kernel_tier=torch``, the float32 scan, one step at a time. The grad ops
+differentiate the same function: on the kernel route through ``LstmSeq``
+or ``GruSeq`` without a second forward launch (the raw carries are rebuilt
 from the forward's outputs), on the scan route by autograd through the
-recomputed scan, as the reference's ``jax.vjp`` does. dynamic_gru waits
-for the Seq2Seq slice.
+recomputed scan, as the reference's ``jax.vjp`` does.
 """
 
 from __future__ import annotations
@@ -231,3 +232,105 @@ def lstm_grad(ctx):
     for slot in ("H0", "C0"):
         if slot in grads:
             ctx.set_output(slot + "@GRAD", grads[slot])
+
+
+def _gru_compute(x, lens, w, bias, h0, attrs, hidden=None):
+    """hidden [b, L, H] of the op (reference :251-304); ``hidden`` is the
+    op's own output when the grad op re-traces the forward."""
+    b, L, h3 = x.shape
+    hdim = h3 // 3
+    if bias is not None:
+        x = x + bias[None, None, :]
+    if h0 is None:
+        h0 = torch.zeros((b, hdim), dtype=x.dtype, device=x.device)
+    gate_act = attrs.get("gate_activation", "sigmoid")
+    cand_act = attrs.get("activation", "tanh")
+    rev = attrs.get("is_reverse", False)
+    if rev:
+        x = _reverse_padded(x, lens)
+        if hidden is not None:
+            hidden = _reverse_padded(hidden, lens)
+    supported = ((gate_act, cand_act) == ("sigmoid", "tanh")
+                 and rnnk.supported(b, hdim, x.dtype, x.device))
+    if use_kernel("gru", supported, x.device):
+        xt = x.transpose(0, 1).contiguous()                  # [L, b, 3H]
+        pos = torch.arange(L, device=x.device)
+        alive = (pos[:, None] < lens[None, :]).to(x.dtype)[..., None]
+        carries = () if hidden is None else (
+            _raw_carries(hidden, lens, h0),)
+        hs = rnnk.GruSeq.apply(xt, alive, w.contiguous(), h0.contiguous(),
+                               *carries)
+        hs = (hs * alive).transpose(0, 1)
+    else:
+        ga, ca = _act(gate_act), _act(cand_act)
+        wu, wr, wc = w[:, :hdim], w[:, hdim:2 * hdim], w[:, 2 * hdim:]
+        h_prev = h0
+        out = []
+        for t in range(L):
+            xt = x[:, t]
+            alive = (t < lens)[:, None].to(x.dtype)
+            r = ga(xt[:, hdim:2 * hdim] + torch.matmul(h_prev, wr))
+            rc = torch.matmul(r * h_prev, wc)
+            u = ga(xt[:, :hdim] + torch.matmul(h_prev, wu))
+            c = ca(xt[:, 2 * hdim:] + rc)
+            h = u * c + (1.0 - u) * h_prev
+            h_prev = alive * h + (1 - alive) * h_prev
+            out.append(h_prev * alive)
+        hs = torch.stack(out, 1)
+    return _reverse_padded(hs, lens) if rev else hs
+
+
+def _gru_grad_maker(op):
+    """The reference's grad inputs (:307-316) plus the forward's Hidden,
+    from which the kernel route rebuilds its saved carries."""
+    inputs = {"Input": op.input("Input"), "Weight": op.input("Weight"),
+              "Hidden": op.output("Hidden"),
+              "Hidden@GRAD": G(op.output("Hidden"))}
+    outputs = {"Input@GRAD": G(op.input("Input")),
+               "Weight@GRAD": G(op.input("Weight"))}
+    for slot in ("Bias", "H0"):
+        if op.input(slot):
+            inputs[slot] = op.input(slot)
+            outputs[slot + "@GRAD"] = G(op.input(slot))
+    return [OpSpec("gru_grad", inputs, outputs, dict(op.attrs))]
+
+
+@register_op("gru", infer_shape=_rnn_infer(("Hidden",)), grad=_gru_grad_maker)
+def gru(ctx):
+    _, x, lens = _seq_input(ctx)
+    bias = _optional(ctx, "Bias")
+    hs = _gru_compute(x, lens, ctx.input("Weight"),
+                      None if bias is None else bias.reshape(-1),
+                      _optional(ctx, "H0"), ctx.op.attrs)
+    ctx.set_output("Hidden", LoDArray(hs, lens))
+
+
+@register_op("gru_grad")
+def gru_grad(ctx):
+    """The vector-Jacobian product of ``_gru_compute`` with respect to
+    every forward input the op consumed (reference :334-365)."""
+    xv, x, lens = _seq_input(ctx)
+    operands = {"Input": x, "Weight": ctx.input("Weight")}
+    for slot in ("Bias", "H0"):
+        v = _optional(ctx, slot)
+        if v is not None:
+            operands[slot] = v.reshape(-1) if slot == "Bias" else v
+    names = list(operands)
+    hidden = data_of(ctx.input("Hidden"))
+    attrs = dict(ctx.op.attrs)
+
+    def f(*args):
+        kw = dict(zip(names, args))
+        return _gru_compute(kw["Input"], lens, kw["Weight"], kw.get("Bias"),
+                            kw.get("H0"), attrs, hidden)
+
+    grads = dict(zip(names, vjp(f, list(operands.values()),
+                                data_of(ctx.input("Hidden@GRAD")))))
+    dx = grads["Input"]
+    ctx.set_output("Input@GRAD",
+                   LoDArray(dx, lens) if isinstance(xv, LoDArray) else dx)
+    ctx.set_output("Weight@GRAD", grads["Weight"])
+    if "Bias" in grads:
+        ctx.set_output("Bias@GRAD", grads["Bias"].reshape(1, -1))
+    if "H0" in grads:
+        ctx.set_output("H0@GRAD", grads["H0"])

@@ -1,8 +1,9 @@
-"""Creation ops and the variadic sum (counterpart of
+"""Creation ops, the variadic sum and top_k (counterpart of
 paddle_tpu/ops/tensor_ops.py): fill_constant, fill_zeros_like,
-uniform_random, gaussian_random, sum and scale. fill_zeros_like, sum and
-scale are LoD-transparent: a LoDArray input keeps its lengths, so the
-padded positions of a LoD gradient stay masked downstream.
+uniform_random, gaussian_random, sum, scale and top_k. fill_zeros_like,
+sum, scale and top_k are LoD-transparent: a LoDArray input keeps its
+lengths, so the padded positions of a LoD gradient stay masked
+downstream.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -72,3 +73,23 @@ def scale(ctx):
     x = ctx.input("X")
     ctx.set_output("Out", like(x, data_of(x) * ctx.attr("scale", 1.0)
                              + ctx.attr("bias", 0.0)))
+
+
+@register_op("top_k")
+def top_k(ctx):
+    """The k largest entries of the last axis and their int64 indices
+    (reference :395), in descending order, the lower index first among
+    equal values (as jax.lax.top_k). Float32 is ordered as XLA's sort
+    orders it, by the IEEE total order (-0.0 below +0.0). Out and Indices
+    keep X's LoD: the ctc_greedy_decoder path takes the arg-max of ragged
+    logits."""
+    xin = ctx.input("X")
+    x = data_of(xin)
+    key = x
+    if x.dtype == torch.float32:
+        bits = x.view(torch.int32)
+        key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=-1, descending=True,
+                     stable=True).indices[..., :ctx.attr("k", 1)]
+    ctx.set_output("Out", like(xin, torch.gather(x, -1, idx)))
+    ctx.set_output("Indices", like(xin, idx))

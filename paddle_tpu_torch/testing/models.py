@@ -4,7 +4,12 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``resnet``: ResNet in NHWC, as bench.py:175-214 builds ResNet-50
   (``counts=(3, 4, 6, 3)``, ``base=64``);
 * ``lstm_textcls``: the LSTM text classifier of bench.py:239
-  (vocab 30000, emb 128, hidden 512, 2 LSTM layers, 2 classes).
+  (vocab 30000, emb 128, hidden 512, 2 LSTM layers, 2 classes);
+* ``gru_textcls``: its GRU twin, bench.py:320 (the same widths, 2 GRU
+  layers);
+* ``ctc_acoustic``: the CTC acoustic model of tests/book/test_ocr_ctc.py
+  (fc(3H) -> dynamic_gru(H) -> fc(classes + 1) -> warpctc(blank 0) ->
+  mean).
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -67,3 +72,34 @@ def lstm_textcls(words, class_dim=2, vocab=30000, emb=128, hidden=512,
         net, _ = layers.dynamic_lstm(proj, size=hidden * 4)
     last = layers.sequence_last_step(net)
     return layers.fc(last, class_dim, act="softmax")
+
+
+def gru_textcls(words, class_dim=2, vocab=30000, emb=128, hidden=512,
+                gru_num=2, layers=None):
+    """bench.py:320 build_gru_textcls's network: embedding(vocab, emb),
+    then ``gru_num`` x (fc of width 3·hidden + dynamic_gru), the last step
+    of each sequence, and an fc with softmax over ``class_dim`` classes.
+    Returns the probabilities var."""
+    if layers is None:
+        from ..fluid import layers
+    net = layers.embedding(words, size=(vocab, emb))
+    for _ in range(gru_num):
+        proj = layers.fc(net, hidden * 3)
+        net = layers.dynamic_gru(proj, size=hidden)
+    last = layers.sequence_last_step(net)
+    return layers.fc(last, class_dim, act="softmax")
+
+
+def ctc_acoustic(feat, label, num_classes, hidden, layers=None):
+    """tests/book/test_ocr_ctc.py:38-50's network over a float ``feat``
+    sequence and an int64 ``label`` sequence (both lod_level 1): fc of
+    width 3·hidden, dynamic_gru(hidden), an fc to ``num_classes`` + 1
+    logits (class 0 is the blank), and the mean CTC loss. Returns
+    (logits, loss)."""
+    if layers is None:
+        from ..fluid import layers
+    proj = layers.fc(input=feat, size=hidden * 3, act=None)
+    rnn = layers.dynamic_gru(input=proj, size=hidden)
+    logits = layers.fc(input=rnn, size=num_classes + 1, act=None)
+    loss = layers.mean(layers.warpctc(input=logits, label=label, blank=0))
+    return logits, loss

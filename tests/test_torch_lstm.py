@@ -103,7 +103,7 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     rnn.reset_launches()
     hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
     grads = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
-    assert rnn.launches == {"lstm_seq": 0, "lstm_seq_bwd": 0}
+    assert rnn.launches["lstm_seq"] == rnn.launches["lstm_seq_bwd"] == 0
     want_hs, want_cs = rnn.lstm_seq_torch(x, alive, w, h0, c0)
     assert torch.equal(hs, want_hs) and torch.equal(cs, want_cs)
     for g, w_ in zip(grads, rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, hs,
@@ -266,7 +266,7 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
     grads = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
     torch.cuda.synchronize()
-    assert rnn.launches == {"lstm_seq": 1, "lstm_seq_bwd": 1}
+    assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (1, 1)
     want = rnn.lstm_seq_torch(x, alive, w, h0, c0)
     for g, w_ in zip((hs, cs), want):
         assert ((g - w_).abs().max() / w_.abs().max()).item() <= 1e-3
