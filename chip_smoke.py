@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Serve and train ResNet-50, train the LSTM and GRU text classifiers and
-the CTC acoustic model through the PyTorch/CUDA port on one GPU, and hold
-every hand-written kernel against its plain PyTorch version.
+"""Serve and train ResNet-50, train the LSTM and GRU text classifiers, the
+CTC acoustic model and the word2vec N-gram model through the PyTorch/CUDA
+port on one GPU, and hold every hand-written kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -68,6 +69,27 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               plain versions; a planted dlogits fault must be caught; then
               greedy decoding through main.clone(for_test=True) and
               edit_distance.
+10. sparse   — embedding_sgd against its plain version, bitwise, at
+              word2vec's table (2073 x 32, 128 Zipf-skewed ids with
+              duplicates and sentinel entries) and at a CTR-scale table
+              (a Criteo batch of 4096: one Zipf-drawn value of each of the
+              26 categorical fields from the field's own vocabulary,
+              hashed into one 1 000 000 x 64 table, 106 496 ids); an
+              all-sentinel call is the identity and untouched rows stay
+              bitwise; sgd_arena against its plain version, bitwise, over
+              word2vec's dense parameters and ResNet-50's. Times, unique
+              rows, bounds, and w.index_add_ and SGD(fused=True).step as
+              yardsticks.
+11. word2vec — tests/book/test_word2vec.py's N-gram model at the reference
+              book test's widths (dict 2073, 4 context words, embedding 32,
+              hidden 256, batch 32) with is_sparse=True and
+              SGD(0.001, fused=True), Zipf-skewed ids and seeded weights;
+              5 steps on one batch on both routes: 1 embedding_sgd and 1
+              sgd_arena launch and 0 plain-routed updates per step; step 1
+              bitwise the same program with the plain-version wrappers,
+              within float32 roundings of the unmerged scatter route; rows
+              absent from the batch unchanged; a planted lr fault in
+              embedding_sgd must be caught; the loss must fall.
 
 The last three lines of output are a JSON line listing each kernel's
 numbers, the card's name and power limit, and
@@ -135,7 +157,7 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 5
 BENCH_LR = 0.1
 TRAIN_LR = BENCH_LR * TRAIN_BATCH / 256
 KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena",
-           "lstm_seq", "gru_seq", "ctc")
+           "lstm_seq", "gru_seq", "ctc", "embedding_sgd")
 
 # phases 5-6: bench.py:239's lane (benchmark/README.md:115-127)
 SEQ_BATCH, SEQ_LEN, SEQ_HIDDEN, SEQ_VOCAB, SEQ_EMB = 64, 100, 512, 30000, 128
@@ -206,6 +228,38 @@ CTC_FWD_LIMIT, CTC_BWD_LIMIT = 1e-5, 1e-4
 # ~1e-5 and each gradient ‖Δ‖₂/‖ref‖₂ by a few 1e-3; 1e-4 and 1e-2 allow
 # that, and a gradient scaled by PLANTED moves by 0.125, 12x the limit
 GRU_TRAIN_LOSS_LIMIT, GRU_TRAIN_GRAD_LIMIT = 1e-4, 1e-2
+
+# phases 10-11: tests/book/test_word2vec.py's N-gram model at the reference
+# book test's published widths: a dictionary of 2073 words (PTB at
+# imikolov.build_dict()'s min_word_freq 50), N 5 (4 context words),
+# embedding 32, hidden 256, batch 32, SGD(0.001), is_sparse=True
+W2V_DICT, W2V_N, W2V_EMB, W2V_HIDDEN, W2V_BATCH = 2073, 5, 32, 256, 32
+W2V_LR, W2V_STEPS = 1e-3, 5
+# phase 11 holds step 1 of the kernel route bitwise to the same program
+# with the plain-version wrappers (both kernels are bitwise their plain
+# versions, phase 10), and to the unmerged-scatter route within (longest
+# run + 1) float32 steps of the table's largest value. On an NVIDIA H100
+# 80GB HBM3 at 700.00 W (--seed 0): bitwise; 0.0 steps from the scatter
+# route (limit 21, a run of 20); lr x0.875 planted in the step's
+# embedding_sgd launch moved shared_w by 111.0 steps
+# word ids, and each categorical field's values, are drawn with
+# rank-frequency 1/rank^ZIPF_S. An assumption: Zipf's law puts word
+# frequencies near exponent 1, and no source at hand gives the Criteo
+# fields' value frequencies
+ZIPF_S = 1.1
+# phase 10's word2vec-shaped call: one step's 4 x 32 entries, W2V_SENTINELS
+# of them sentinels (as padded LoD positions give)
+W2V_SENTINELS = 8
+# phase 10's CTR-scale call: a Criteo display-ads batch of 4096 examples,
+# one value of each of its 26 categorical fields, drawn from that field's
+# own vocabulary and hashed with the field's index into one table of
+# 1 000 000 rows of 64 float32. The vocabularies' sizes are the Kaggle
+# data's distinct values per field (C1..C26), as TorchRec's DLRM example
+# passes them in --num_embeddings_per_feature
+CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
+                 93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
+                 2173, 4, 7046547, 18, 15, 286181, 105, 142572)
+CTR_BATCH, CTR_ROWS, CTR_DIM = 4096, 1_000_000, 64
 
 
 def fail(msg):
@@ -1796,6 +1850,358 @@ def phase_ctc(torch, fluid, seed, card):
     return totals
 
 
+def zipf_ranks(rng, n, size):
+    """``size`` ranks in [0, n) with rank-frequency 1/rank^ZIPF_S."""
+    import numpy as np
+    p = 1.0 / np.arange(1, n + 1) ** ZIPF_S
+    return rng.choice(n, size=size, p=p / p.sum())
+
+
+def zipf_ids(rng, n, size):
+    """``size`` ids of ``n`` with rank-frequency 1/rank^ZIPF_S, the ranks
+    mapped to ids by a seeded permutation."""
+    ranks = zipf_ranks(rng, n, size)
+    return rng.permutation(n)[ranks]
+
+
+def ctr_ids(rng):
+    """Phase 10's CTR batch: CTR_BATCH examples, each with one value per
+    Criteo field drawn by rank from that field's vocabulary, hashed
+    (splitmix64 of field and value) into CTR_ROWS rows; field-major, as
+    the sum of the fields' gradients orders them."""
+    import numpy as np
+    salt = np.uint64(rng.randint(1 << 31))
+    out = []
+    for f, vocab in enumerate(CRITEO_VOCABS):
+        z = (np.uint64(f) << np.uint64(32)) \
+            | zipf_ranks(rng, vocab, CTR_BATCH).astype(np.uint64)
+        z = z ^ salt
+        z = z + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        z = z ^ (z >> np.uint64(31))
+        out.append((z % np.uint64(CTR_ROWS)).astype(np.int64))
+    return np.concatenate(out)
+
+
+def build_word2vec(fluid, seed):
+    """tests/book/test_word2vec.py at phase 11's widths, with
+    SGD(W2V_LR, fused=True). Returns (main, startup, loss)."""
+    from paddle_tpu_torch.testing.models import ngram_lm
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        words = [fluid.layers.data(f"w{i}", shape=[1], dtype="int64")
+                 for i in range(W2V_N - 1)]
+        nextw = fluid.layers.data("nextw", shape=[1], dtype="int64")
+        predict = ngram_lm(words, W2V_DICT, W2V_EMB, W2V_HIDDEN)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(predict, nextw))
+        fluid.optimizer.SGD(learning_rate=W2V_LR, fused=True).minimize(
+            loss, startup)
+    return main, startup, loss
+
+
+def word2vec_feed(seed):
+    """One batch of W2V_BATCH N-grams of Zipf-skewed word ids."""
+    import numpy as np
+    grams = zipf_ids(np.random.RandomState(seed + 11), W2V_DICT,
+                     (W2V_BATCH, W2V_N)).astype("int64")
+    feed = {f"w{i}": grams[:, i:i + 1] for i in range(W2V_N - 1)}
+    feed["nextw"] = grams[:, W2V_N - 1:]
+    return feed
+
+
+def phase_sparse_kernels(torch, fluid, seed, card):
+    """embedding_sgd and sgd_arena against their plain versions, bitwise,
+    then their times. Returns {kernel: numbers for the kernels line}, at
+    word2vec's shapes (the main path's)."""
+    import numpy as np
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    rng = np.random.RandomState(seed + 10)
+    lr = torch.full((1,), W2V_LR, device=dev)
+    out = {}
+    log(f"\n== phase 10: embedding_sgd vs embedding_sgd_torch, bitwise, "
+        f"then times | {card} ==")
+    n_w2v = (W2V_N - 1) * W2V_BATCH
+    w2v_rows = zipf_ids(rng, W2V_DICT, n_w2v)
+    w2v_rows[rng.choice(n_w2v, W2V_SENTINELS, replace=False)] = W2V_DICT
+    cases = [("word2vec", W2V_DICT, W2V_EMB, w2v_rows),
+             ("CTR", CTR_ROWS, CTR_DIM, ctr_ids(rng))]
+    for name, v, d, rows_np in cases:
+        rows = torch.from_numpy(rows_np.astype("int64")).to(dev)
+        real = rows_np[rows_np < v]
+        uniq, counts = np.unique(real, return_counts=True)
+        n, u = len(rows_np), len(uniq)
+        w = torch.randn((v, d), generator=gen, device=dev) * 0.05
+        vals = torch.randn((n, d), generator=gen, device=dev) * 1e-3
+        want = embk.embedding_sgd_torch(w, rows, vals, lr)
+        got = embk.embedding_sgd(w.clone(), rows, vals, lr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            diff = (got - want).abs().max().item()
+            fail(f"embedding_sgd at {name}'s shape differs from "
+                 f"embedding_sgd_torch: max abs {diff:.3e}, want bitwise")
+        untouched = torch.ones(v, dtype=torch.bool, device=dev)
+        untouched[torch.from_numpy(uniq).to(dev)] = False
+        if not torch.equal(got[untouched], w[untouched]):
+            fail(f"embedding_sgd at {name}'s shape changed rows no entry "
+                 "names")
+        same = embk.embedding_sgd(w.clone(), torch.full_like(rows, v),
+                                  vals, lr)
+        torch.cuda.synchronize()
+        if not torch.equal(same, w):
+            fail(f"embedding_sgd at {name}'s shape: an all-sentinel call "
+                 "changed the table")
+        log(f"{name}: table [{v}, {d}], {n} entries ({n - len(real)} "
+            f"sentinels), {u} unique rows, longest run {counts.max()}: "
+            "bitwise equal; all-sentinel call the identity; untouched rows "
+            "unchanged")
+        lib_w = w.clone()
+        lib_rows = torch.from_numpy(real.astype("int64")).to(dev)
+        lib_vals = vals[torch.from_numpy(
+            np.flatnonzero(rows_np < v)).to(dev)].contiguous()
+        t = dict(max_abs_err=0.0,
+                 ms=time_ms(lambda: embk.embedding_sgd(got, rows, vals, lr),
+                            torch),
+                 plain_ms=time_ms(lambda: embk.embedding_sgd_torch(
+                     w, rows, vals, lr), torch),
+                 library_ms=time_ms(lambda: lib_w.index_add_(
+                     0, lib_rows, lib_vals, alpha=-W2V_LR), torch))
+        # bytes: each unique row read and written, each entry's values and
+        # row index read
+        t["bound_ms"], t["bound_by"] = bound_ms(0, 8 * u * d + 4 * n * d
+                                                + 8 * n)
+        log(f"embedding_sgd at {name}'s shape per call: kernel "
+            f"{t['ms']:.4f} ms (its sort included), plain "
+            f"{t['plain_ms']:.4f} ms, w.index_add_ on the unmerged entries "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+        if name == "word2vec":
+            out["embedding_sgd"] = t
+        del w, got, want, same, lib_w
+
+    main, _, _ = build_word2vec(fluid, seed)
+    rmain, _, _ = build_resnet50_train(fluid, seed)
+    for name, prog in (("word2vec", main), ("ResNet-50", rmain)):
+        params = [p for p in prog.global_block().all_parameters()
+                  if p.trainable and p.name != "shared_w"]
+        nelem = sum(_numel(p.shape) for p in params)
+        ps = [torch.randn(p.shape, generator=gen, device=dev) * 0.05
+              for p in params]
+        gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+              for p in params]
+        want = opk.sgd_arena_torch(ps, gs, lr)
+        got = opk.sgd_arena([p.clone() for p in ps], gs, lr)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+            fail(f"sgd_arena over {name}'s parameters differs from "
+                 f"sgd_arena_torch: max abs {diff:.3e}, want bitwise")
+        lib_ps = [torch.nn.Parameter(p.clone()) for p in ps]
+        for p, g in zip(lib_ps, gs):
+            p.grad = g
+        sgd = torch.optim.SGD(lib_ps, lr=W2V_LR, fused=True)
+        t = dict(max_abs_err=0.0,
+                 ms=time_ms(lambda: opk.sgd_arena(got, gs, lr), torch),
+                 plain_ms=time_ms(lambda: opk.sgd_arena_torch(ps, gs, lr),
+                                  torch),
+                 library_ms=time_ms(sgd.step, torch))
+        t["bound_ms"], t["bound_by"] = bound_ms(0, 12 * nelem)
+        log(f"sgd_arena over {name}'s {len(ps)} dense tensors ({nelem} "
+            f"elements): bitwise equal; per step kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, SGD(fused=True) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+        if name == "word2vec":
+            out["sgd_arena"] = t
+    return out
+
+
+def phase_word2vec(torch, fluid, seed, card):
+    """Train the word2vec N-gram model 5 steps on one batch under both
+    routes; hold step 1 of the kernel route to the same program with the
+    plain-version wrappers (bitwise) and to the plain route (float32
+    roundings of the unmerged scatter); returns the launches of each
+    kernel on the kernel route."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    log(f"\n== phase 11: word2vec N-gram model, dict {W2V_DICT}, "
+        f"{W2V_N - 1} context words, embedding {W2V_EMB}, hidden "
+        f"{W2V_HIDDEN}, batch {W2V_BATCH}, SGD({W2V_LR}, fused=True), "
+        f"{W2V_STEPS} steps on one batch ==")
+    main, startup, loss = build_word2vec(fluid, seed)
+    block = main.global_block()
+    log("program: " + op_counts(block))
+    update, = [op for op in block.ops if op.type == "fused_sgd"]
+    params = update.input("Params")
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = word2vec_feed(seed)
+    ids = np.concatenate([feed[f"w{i}"].ravel() for i in range(W2V_N - 1)])
+    uniq, counts = np.unique(ids, return_counts=True)
+    log(f"batch: {len(ids)} context ids, {len(uniq)} distinct, the most "
+        f"frequent {counts.max()} times")
+
+    def run(route, scope):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+        return out[0]
+
+    def state(scope):
+        return {n: scope.find_var(n).clone() for n in params}
+
+    counters = (("embedding_sgd", lambda: embk.launches["embedding_sgd"]),
+                ("sgd_arena", lambda: opk.launches["sgd_arena"]),
+                ("plain-routed tables",
+                 lambda: tier.fallback_counts().get("embedding_sgd", 0)),
+                ("plain-routed arenas",
+                 lambda: tier.fallback_counts().get("optimizer", 0)))
+    labels = [c[0] for c in counters]
+    want = {"auto": (1, 1, 0, 0), "torch": (0, 0, 0, 0)}
+    res = {}
+    for route in ("auto", "torch"):
+        scope = copy_scope(fluid, torch, init)
+        losses, ms, total = [], [], [0] * len(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(W2V_STEPS):
+            embk.reset_launches()
+            opk.reset_launches()
+            tier.reset_fallback_counts()
+            t0 = time.perf_counter()
+            lv = run(route, scope)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = tuple(get() for _, get in counters)
+            if got != want[route]:
+                fail(f"word2vec, kernel_tier={route} step {step + 1}: "
+                     f"{'/'.join(labels)} {got}, want {want[route]}")
+            total = [a + c for a, c in zip(total, got)]
+            if lv.shape != () or not torch.isfinite(lv).item():
+                fail(f"word2vec, kernel_tier={route} step {step + 1}: loss "
+                     f"{lv}")
+            losses.append(lv.item())
+            if step == 0:
+                first = state(scope)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = sum(ms[1:]) / len(ms[1:])
+        res[route] = dict(losses=losses, step1=first, total=total,
+                          scope=scope)
+        log(f"kernel_tier={route}: losses "
+            + " ".join(f"{v:.7f}" for v in losses)
+            + " | ms/step " + " ".join(f"{v:.2f}" for v in ms)
+            + f" | steady {steady:.3f} ms/step, "
+            f"{W2V_BATCH * 1e3 / steady:.1f} sequences/s | peak memory "
+            f"{peak:.3f} GiB | {card}")
+
+    # the reference: the same program with both wrappers swapped for their
+    # plain versions
+    swaps = ((embk, "embedding_sgd", embk.embedding_sgd_torch),
+             (opk, "sgd_arena", opk.sgd_arena_torch))
+    real = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, plain in swaps:
+        setattr(m, a, plain)
+    try:
+        ref_scope = copy_scope(fluid, torch, init)
+        ref_loss = run("auto", ref_scope).item()
+        ref = state(ref_scope)
+    finally:
+        for m, a, fn in real:
+            setattr(m, a, fn)
+
+    problems = []
+    kernel = res["auto"]
+    w0 = init.find_var("shared_w")
+    # one float32 step at the table's largest magnitude: every rounding of
+    # the two routes' updates happens at or below it
+    ulp = (torch.nextafter(w0.abs().max(), torch.tensor(float("inf"),
+                                                        device=w0.device))
+           - w0.abs().max()).item()
+    diffs = {n: (kernel["step1"][n] - ref[n]).abs().max().item()
+             for n in params}
+    log(f"step 1, kernel route vs plain-version wrappers: loss "
+        f"{kernel['losses'][0]!r} vs {ref_loss!r}; max |Δ| per parameter "
+        "(limit 0, bitwise): "
+        + ", ".join(f"{n} {v:.3e}" for n, v in diffs.items()))
+    if kernel["losses"][0] != ref_loss or any(diffs.values()):
+        problems.append("word2vec step 1 is not bitwise the plain-version "
+                        "wrappers' step")
+    # the plain route adds each entry's −lr·v to its row one at a time (a
+    # rounding at the row's magnitude per entry) where the kernel subtracts
+    # lr times their sum once: up to (longest run + 1) float32 steps apart;
+    # the dense parameters take the same expression on both routes
+    limit = (counts.max() + 1) * ulp
+    plain = res["torch"]["step1"]
+    dw = (kernel["step1"]["shared_w"] - plain["shared_w"]).abs().max().item()
+    dense = max((kernel["step1"][n] - plain[n]).abs().max().item()
+                for n in params if n != "shared_w")
+    log(f"step 1, kernel route vs kernel_tier=torch (unmerged scatter): "
+        f"shared_w max |Δ| {dw:.3e} = {dw / ulp:.1f} float32 steps of "
+        f"max|w| (limit {counts.max() + 1}); dense parameters max |Δ| "
+        f"{dense:.3e} (limit 0)")
+    if not dw <= limit or dense != 0:
+        problems.append("word2vec step 1 on the kernel route is beyond the "
+                        "limits against the plain route")
+    fed = torch.zeros(W2V_DICT, dtype=torch.bool, device=w0.device)
+    fed[torch.from_numpy(uniq).to(w0.device)] = True
+    trained = kernel["scope"].find_var("shared_w")
+    if not torch.equal(trained[~fed], w0[~fed]):
+        problems.append("word2vec: table rows absent from the batch moved")
+    moved = (trained[fed] - w0[fed]).abs().max().item()
+    log(f"after {W2V_STEPS} steps: the {int((~fed).sum())} table rows "
+        f"absent from the batch unchanged: "
+        f"{torch.equal(trained[~fed], w0[~fed])}; max |Δ| of the "
+        f"{len(uniq)} fed rows {moved:.3e}")
+
+    # the check's own test: lr x PLANTED in the step's embedding_sgd launch
+    good, calls = embk.embedding_sgd, [0]
+
+    def planted(w, rows, vals, lr):
+        calls[0] += 1
+        return good(w, rows, vals, lr * PLANTED if calls[0] == 1 else lr)
+
+    embk.embedding_sgd = planted
+    try:
+        bad_scope = copy_scope(fluid, torch, init)
+        run("auto", bad_scope)
+        bad = (bad_scope.find_var("shared_w") - ref["shared_w"]).abs().max() \
+            .item()
+    finally:
+        embk.embedding_sgd = good
+    log(f"planted fault: lr x{PLANTED} in the step's embedding_sgd launch: "
+        f"shared_w max |Δ| {bad:.3e} = {bad / ulp:.1f} float32 steps "
+        "(limit 0)")
+    if calls[0] != 1 or not bad > 0:
+        problems.append("word2vec: the bitwise check does not see a planted "
+                        f"lr x{PLANTED} in embedding_sgd ({calls[0]} calls)")
+    for route in ("auto", "torch"):
+        losses = res[route]["losses"]
+        if not losses[-1] < losses[0]:
+            problems.append(f"word2vec, kernel_tier={route}: loss did not "
+                            f"fall over {W2V_STEPS} steps: {losses}")
+    if problems:
+        fail("; ".join(problems))
+    for route, title in (("auto", "kernel route"), ("torch", "plain route")):
+        scope = copy_scope(fluid, torch, init)
+        profile(torch, lambda: run(route, scope),
+                f"word2vec: one training step, batch {W2V_BATCH}, {title}",
+                card, reps=5)
+    return dict(zip(labels, kernel["total"]))
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1838,6 +2244,8 @@ def main():
     seq_totals = phase_seq_kernels(torch, fluid, args.seed, card)
     gru_launches = phase_textcls(torch, fluid, args.seed, card, "gru")
     ctc_launches = phase_ctc(torch, fluid, args.seed, card)
+    sparse_totals = phase_sparse_kernels(torch, fluid, args.seed, card)
+    w2v_launches = phase_word2vec(torch, fluid, args.seed, card)
 
     def entry(name, source, replaces, n, t):
         return {"name": name, "route": "cuda",
@@ -1875,6 +2283,10 @@ def main():
               ctc_launches["ctc_alpha"], seq_totals["ctc_alpha"]),
         entry("ctc_loss_bwd", "ctc.cu", "ctc_ops.py:155",
               ctc_launches["ctc_loss_bwd"], seq_totals["ctc_loss_bwd"]),
+        entry("sgd_arena", "optimizer_arena.cu", "pallas/optimizer.py:92",
+              w2v_launches["sgd_arena"], sparse_totals["sgd_arena"]),
+        entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
+              w2v_launches["embedding_sgd"], sparse_totals["embedding_sgd"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

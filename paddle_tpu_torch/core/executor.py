@@ -7,10 +7,12 @@ PyTorch runs eagerly, so this executor is the reference's eager interpreter
 ``Executor.run`` :568/:607-614) and nothing else.
 
 State contract: persistable variables live in a Scope between runs as torch
-tensors on the executor's device. Temporaries live in a per-run dict. Every
-op output whose name the scope holds, or that the program declares
-persistable, is written back after the run: an optimizer op's ParamOut
-names its Param, so the updated parameter replaces it in the scope.
+tensors on the executor's device. Temporaries live in a per-run dict; one
+may also be a LoDArray or a SparseRows (an ``is_sparse`` embedding's
+gradient), and the scope holds either as it is. Every op output whose name
+the scope holds, or that the program declares persistable, is written back
+after the run: an optimizer op's ParamOut names its Param, so the updated
+parameter replaces it in the scope.
 
 The op loop runs under ``torch.no_grad()``: gradients are ops of the
 program (``fluid.backward``), not autograd tape. A grad lowering that asks
@@ -27,6 +29,7 @@ from . import registry
 from .block_walk import free_reads, written_names
 from .lod import LoDArray, flat_to_lodarray, pack_sequences
 from .scope import global_scope
+from .sparse import SparseRows
 from .types import torch_dtype
 
 # scope slot of the startup initializers' torch.Generator
@@ -195,8 +198,10 @@ class Executor:
     def _fetch_value(v, return_numpy):
         """A tensor, or a LoDArray (reference :924 hands it to the caller,
         who unpacks it with ``lodarray_to_flat``); numpy on the host unless
-        ``return_numpy`` is False."""
-        if not return_numpy:
+        ``return_numpy`` is False. A SparseRows comes back as itself, its
+        tensors where they lie (reference :923-926; ``to_dense`` densifies
+        it)."""
+        if not return_numpy or isinstance(v, SparseRows):
             return v
         if isinstance(v, LoDArray):
             return LoDArray(Executor._fetch_value(v.data, True),

@@ -1,7 +1,8 @@
-// optimizer_arena: the momentum and the Adam update of every dense float32
+// optimizer_arena: the SGD, momentum and Adam updates of every dense float32
 // parameter, ONE launch each, for Hopper (sm_90a).
 //
-// Replaces paddle_tpu/ops/pallas/optimizer.py::momentum_arena_pallas
+// Replaces paddle_tpu/ops/pallas/optimizer.py::sgd_arena_pallas
+// (_arena_call with _sgd_kernel): p' = p - lr * g; momentum_arena_pallas
 // (_arena_call with _momentum_kernel): v' = mu * v + g, then
 // p' = p - lr * v', or with nesterov p' = p - (g + mu * v') * lr; and
 // adam_arena_pallas (_arena_call with _adam_kernel):
@@ -21,15 +22,16 @@
 //
 // Numerics: explicit round-to-nearest multiplies and adds, so no FMA
 // contraction separates the kernel from the per-parameter PyTorch
-// expressions (ops/cuda/optimizer.py::momentum_arena_torch and
-// adam_arena_torch, which evaluate them one PyTorch op at a time: every
+// expressions (ops/cuda/optimizer.py::sgd_arena_torch, momentum_arena_torch
+// and adam_arena_torch, which evaluate them one PyTorch op at a time: every
 // operation rounded once, sqrt and division IEEE-rounded); the kernel and
 // its plain version agree bitwise. lr and the beta powers are read from
 // their device tensors, so the step never waits on the host.
 //
-// Bound on the H100: bytes. Momentum reads p, g, v and writes p, v: 20
-// bytes per parameter element; Adam reads p, g, m1, m2 and writes p, m1,
-// m2: 28 bytes per element; against 3.35 TB/s.
+// Bound on the H100: bytes. SGD reads p, g and writes p: 12 bytes per
+// parameter element; momentum reads p, g, v and writes p, v: 20 bytes;
+// Adam reads p, g, m1, m2 and writes p, m1, m2: 28 bytes; against
+// 3.35 TB/s.
 //
 // The C entry returns cudaGetLastError() after the launch; the caller
 // uploads the table and passes its stream. The kernel allocates nothing.
@@ -40,7 +42,8 @@ namespace {
 
 constexpr int CHUNK = 4096;   // elements per block (ops/cuda/optimizer.py)
 constexpr int THREADS = 256;
-constexpr int MOMENTUM_ROW = 5;   // p, g, v, numel, first chunk (int64)
+constexpr int SGD_ROW = 4;        // p, g, numel, first chunk (int64)
+constexpr int MOMENTUM_ROW = 5;   // p, g, v, numel, first chunk
 constexpr int ADAM_ROW = 6;       // p, g, m1, m2, numel, first chunk
 
 // This block's chunk: its table row (found by a binary search over the
@@ -66,6 +69,17 @@ __device__ Span find_span(const long long* table, int rows) {
   const long long numel = row[ROW - 2];
   const long long start = (chunk - row[ROW - 1]) * CHUNK;
   return {row, start, start + CHUNK < numel ? start + CHUNK : numel};
+}
+
+__global__ void __launch_bounds__(THREADS)
+sgd_arena_kernel(const long long* __restrict__ table, int rows,
+                 const float* __restrict__ lr) {
+  const Span s = find_span<SGD_ROW>(table, rows);
+  float* p = reinterpret_cast<float*>(s.row[0]);
+  const float* g = reinterpret_cast<const float*>(s.row[1]);
+  const float lrv = *lr;
+  for (long long i = s.start + threadIdx.x; i < s.end; i += THREADS)
+    p[i] = __fsub_rn(p[i], __fmul_rn(lrv, g[i]));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -120,9 +134,19 @@ adam_arena_kernel(const long long* __restrict__ table, int rows,
 
 extern "C" {
 
+// table: [rows, 4] int64 (p, g, numel, first chunk) on the device; chunks:
+// the total number of CHUNK blocks over all rows; lr: one float32 on the
+// device. Returns cudaGetLastError() (0 = success).
+int sgd_arena(const long long* table, int rows, int chunks, const float* lr,
+              void* stream) {
+  if (rows < 1 || chunks < 1) return (int)cudaErrorInvalidValue;
+  sgd_arena_kernel<<<chunks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, rows, lr);
+  return (int)cudaGetLastError();
+}
+
 // table: [rows, 5] int64 (p, g, v, numel, first chunk) on the device;
-// chunks: the total number of CHUNK blocks over all rows; lr: one float32
-// on the device. Returns cudaGetLastError() (0 = success).
+// otherwise as sgd_arena. Returns cudaGetLastError().
 int momentum_arena(const long long* table, int rows, int chunks,
                    const float* lr, float mu, int nesterov, void* stream) {
   if (rows < 1 || chunks < 1) return (int)cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 """Neural-network layer functions (counterpart of
 paddle_tpu/fluid/layers/nn.py), those ResNet training, the text
-classifiers and the CTC acoustic model build: fc, embedding, softmax,
-cross_entropy, softmax_with_cross_entropy, mean, elementwise_add, conv2d,
-pool2d, batch_norm, topk, warpctc, ctc_greedy_decoder and edit_distance.
+classifiers, the CTC acoustic model and the word2vec N-gram model build:
+fc, embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
+elementwise_add, elementwise_sub, square, conv2d, pool2d, batch_norm,
+topk, warpctc, ctc_greedy_decoder and edit_distance.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -108,13 +109,32 @@ def mean(x, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None):
-    helper = LayerHelper("elementwise_add", act=act)
+def _elementwise(op_type, x, y, axis, act):
+    helper = LayerHelper(op_type, act=act)
     out = helper.create_tmp_variable(x.dtype, shape=x.shape,
                                      lod_level=x.lod_level)
-    helper.append_op("elementwise_add", inputs={"X": [x.name], "Y": [y.name]},
+    helper.append_op(op_type, inputs={"X": [x.name], "Y": [y.name]},
                      outputs={"Out": [out.name]}, attrs={"axis": axis})
     return helper.append_activation(out)
+
+
+def elementwise_add(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_add", x, y, axis, act)
+
+
+def elementwise_sub(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_sub", x, y, axis, act)
+
+
+def square(x, name=None):
+    """x² elementwise (the reference's generated unary layer,
+    layers/ops.py)."""
+    helper = LayerHelper("square", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    helper.append_op("square", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def _pair(v):
@@ -282,6 +302,7 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None):
 
 
 __all__ = ["fc", "embedding", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "mean", "elementwise_add", "conv2d",
+           "softmax_with_cross_entropy", "mean", "elementwise_add",
+           "elementwise_sub", "square", "conv2d",
            "pool2d", "batch_norm", "topk", "warpctc", "ctc_greedy_decoder",
            "edit_distance"]

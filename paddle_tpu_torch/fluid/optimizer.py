@@ -4,10 +4,11 @@ same program, with persistable accumulators initialized in the startup
 program. Learning-rate and accumulator variables take the reference's
 names, so state copied between the packages by name lines up.
 
-Ported: the ``Optimizer`` base, ``Momentum`` and ``Adam`` (reference
-:139, :172), each either one update op per parameter or, with
-``fused=True``, ONE ``fused_*`` op whose dense float32 set runs as a
-single arena kernel launch on the card. Gradient clipping and
+Ported: the ``Optimizer`` base, ``SGD``, ``Momentum`` and ``Adam``
+(reference :119, :139, :172), each either one update op per parameter or,
+with ``fused=True``, ONE ``fused_*`` op whose dense float32 set runs as a
+single arena kernel launch on the card (a sparse gradient keeps its own
+update inside that op). Gradient clipping and
 regularization are not ported yet and raise when configured.
 """
 
@@ -102,6 +103,30 @@ class Optimizer:
             for pg in params_grads:
                 self._append_optimize_op(block, pg, startup)
         return params_grads
+
+
+class SGD(Optimizer):
+    """p -= lr·g (reference optimizer.py:119); an ``is_sparse`` embedding's
+    table takes the sparse branch, which updates only the rows the batch
+    looked up."""
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        block.append_op("sgd",
+                        inputs={"Param": [p.name], "Grad": [g.name],
+                                "LearningRate": [self._lr_var.name]},
+                        outputs={"ParamOut": [p.name]})
+
+    def _append_fused_op(self, block, params_grads, startup):
+        ps = [p.name for p, _ in params_grads]
+        gs = [g.name for _, g in params_grads]
+        block.append_op("fused_sgd",
+                        inputs={"Params": ps, "Grads": gs,
+                                "LearningRate": [self._lr_var.name]},
+                        outputs={"ParamsOut": ps})
+
+
+SGDOptimizer = SGD
 
 
 class Momentum(Optimizer):
@@ -207,5 +232,5 @@ class Adam(Optimizer):
 
 AdamOptimizer = Adam
 
-__all__ = ["Optimizer", "Momentum", "MomentumOptimizer", "Adam",
-           "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer"]

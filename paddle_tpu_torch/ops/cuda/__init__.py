@@ -16,9 +16,10 @@ Tier selection (the ``kernel_tier`` flag):
 
 Kernel families (the names ``use_kernel`` and ``fallback_counts`` use):
 ``conv_bn`` (``conv_bn.py``: conv_affine, conv_bn_train, conv_bn_bwd),
-``optimizer`` (``optimizer.py``: momentum_arena, adam_arena), ``lstm`` and
-``gru`` (``rnn.py``: lstm_seq, gru_seq and their backwards) and ``ctc``
-(``ctc.py``: ctc_alpha and ctc_loss_bwd).
+``optimizer`` (``optimizer.py``: sgd_arena, momentum_arena, adam_arena),
+``embedding_sgd`` (``embedding.py``: the sparse SGD step of an embedding
+table), ``lstm`` and ``gru`` (``rnn.py``: lstm_seq, gru_seq and their
+backwards) and ``ctc`` (``ctc.py``: ctc_alpha and ctc_loss_bwd).
 
 Routing contract: a shape outside a kernel's ``supported()`` set is routed
 to the plain op chain by design and counted in :func:`fallback_counts`. A

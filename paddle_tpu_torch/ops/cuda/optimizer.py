@@ -1,8 +1,9 @@
-"""The momentum and Adam updates over every dense float32 parameter in one
-launch each (counterpart of paddle_tpu/ops/pallas/optimizer.py:
-``momentum_arena_pallas`` :111 and ``adam_arena_pallas`` :129, both wired
-through ``_arena_call`` :65).
+"""The SGD, momentum and Adam updates over every dense float32 parameter in
+one launch each (counterpart of paddle_tpu/ops/pallas/optimizer.py:
+``sgd_arena_pallas`` :92, ``momentum_arena_pallas`` :111 and
+``adam_arena_pallas`` :129, all wired through ``_arena_call`` :65).
 
+``sgd_arena(ps, gs, lr)`` applies ``p' = p − lr·g`` to each parameter.
 ``momentum_arena(ps, gs, vs, lr, mu, nesterov)`` applies, to each
 parameter p with gradient g and velocity v, ``v' = mu·v + g`` and
 ``p' = p − lr·v'`` (nesterov: ``p' = p − (g + mu·v')·lr``).
@@ -15,8 +16,9 @@ On CUDA tensors each launches ``csrc/optimizer_arena.cu`` once for the
 whole list and updates the parameters and their state IN PLACE, returning
 the same tensors; the reference is functional and concatenates the state
 into one flat arena first, which the kernels do not need. On CPU tensors
-they run the per-parameter expression (``momentum_arena_torch``,
-``adam_arena_torch``), which returns new tensors.
+they run the per-parameter expression (``sgd_arena_torch``,
+``momentum_arena_torch``, ``adam_arena_torch``), which returns new
+tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from . import build as _build
 
 # kernel launches since the last reset; only a launch adds
-launches = {"momentum_arena": 0, "adam_arena": 0}
+launches = {"sgd_arena": 0, "momentum_arena": 0, "adam_arena": 0}
 
 # elements per block of the kernels (csrc/optimizer_arena.cu CHUNK)
 _CHUNK = 4096
@@ -37,6 +39,12 @@ _CHUNK = 4096
 def reset_launches():
     for k in launches:
         launches[k] = 0
+
+
+def _sgd_dense(p, g, lr):
+    """One parameter's update (reference optimizer_ops.py::_sgd_dense),
+    shared verbatim with the per-parameter ``sgd`` op."""
+    return p - lr * g
 
 
 def _momentum_dense(p, g, v, lr, mu, nesterov):
@@ -62,6 +70,12 @@ def adam_lr(lr, beta1_pow, beta2_pow):
     """The bias-corrected rate ``lr·sqrt(1 − β2^t)/(1 − β1^t)`` (reference
     optimizer_ops.py:148, :435), on the device."""
     return lr * torch.sqrt(1 - beta2_pow) / (1 - beta1_pow)
+
+
+def sgd_arena_torch(ps, gs, lr):
+    """Plain version: the per-parameter expression over each parameter.
+    Returns the new params."""
+    return [_sgd_dense(p, g, lr) for p, g in zip(ps, gs)]
 
 
 def momentum_arena_torch(ps, gs, vs, lr, mu, nesterov):
@@ -120,6 +134,22 @@ def _raise_on(lib, err, name):
                            f"({lib.kernel_error_string(err).decode()})")
 
 
+def sgd_arena(ps, gs, lr):
+    """The SGD update of every parameter in ``ps``; ``lr`` is the float32
+    learning-rate tensor (read on the device, no host sync). Returns the
+    params."""
+    if ps and ps[0].device.type == "cpu":
+        return sgd_arena_torch(ps, gs, lr)
+    table, rows, chunks, dev = _table("sgd_arena", ps, [gs], [lr])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.sgd_arena(table.data_ptr(), rows, chunks, lr.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "sgd_arena")
+    launches["sgd_arena"] += 1
+    return list(ps)
+
+
 def momentum_arena(ps, gs, vs, lr, mu, nesterov):
     """The momentum update of every parameter in ``ps``; ``lr`` is the
     float32 learning-rate tensor (read on the device, no host sync), ``mu``
@@ -165,8 +195,10 @@ def adam_arena(ps, gs, m1s, m2s, lr, beta1_pow, beta2_pow, b1, b2, eps):
 
 def _lib():
     lib = _build.load("optimizer_arena")
-    if lib.momentum_arena.argtypes is None:
+    if lib.sgd_arena.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sgd_arena.argtypes = [p, i, i, p, p]
+        lib.sgd_arena.restype = i
         lib.momentum_arena.argtypes = [p, i, i, p, f, i, p]
         lib.momentum_arena.restype = i
         lib.adam_arena.argtypes = [p, i, i, p, p, p, f, f, f, f, f, p]

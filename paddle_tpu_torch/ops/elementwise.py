@@ -1,7 +1,9 @@
 """Elementwise binary ops with the reference's axis-broadcast rule
-(counterpart of paddle_tpu/ops/elementwise.py): elementwise_add and its
-grad (reference :69, :100), LoD-transparent (reference :97, :108): a
-LoDArray operand keeps its lengths in the result and in its gradient."""
+(counterpart of paddle_tpu/ops/elementwise.py): elementwise_add and
+elementwise_sub and their grads, from one table of forward and grad
+expressions as the reference's ``_FWD`` and ``_GRADS`` (:37-64);
+LoD-transparent (reference :97, :108): a LoDArray operand keeps its
+lengths in the result and in its gradient."""
 
 from __future__ import annotations
 
@@ -37,24 +39,46 @@ def _grad_maker(op):
                    attrs=dict(op.attrs))]
 
 
-@register_op("elementwise_add", infer_shape=same_shape("X", "Out"),
-             grad=_grad_maker)
-def elementwise_add(ctx):
-    xv, yv = ctx.input("X"), ctx.input("Y")
-    x, y = data_of(xv), data_of(yv)
-    yb, _ = _align(x, y, ctx.attr("axis", -1), isinstance(xv, LoDArray),
-                   isinstance(yv, LoDArray))
-    ctx.set_output("Out", like(xv, x + yb))
+_FWD = {
+    "elementwise_add": lambda x, y: x + y,
+    "elementwise_sub": lambda x, y: x - y,
+}
+
+# d(Out)/dX and d(Out)/dY applied to dOut, before Y's broadcast is summed
+_GRADS = {
+    "elementwise_add": (lambda d: d, lambda d: d),
+    "elementwise_sub": (lambda d: d, lambda d: -d),
+}
 
 
-@register_op("elementwise_add_grad")
-def elementwise_add_grad(ctx):
-    """dX = dOut; dY = dOut summed over the dims Y was broadcast along."""
-    xv, yv = ctx.input("X"), ctx.input("Y")
-    x, y = data_of(xv), data_of(yv)
-    d = data_of(ctx.input("Out@GRAD"))
-    _, axis = _align(x, y, ctx.attr("axis", -1), isinstance(xv, LoDArray),
-                     isinstance(yv, LoDArray))
-    dy = collapse_to(d, y.shape, axis) if y.shape != x.shape else d
-    ctx.set_output("X@GRAD", like(xv, d.to(x.dtype)))
-    ctx.set_output("Y@GRAD", like(yv, dy.to(y.dtype)))
+def _register(op_type):
+    fwd = _FWD[op_type]
+    dx_fn, dy_fn = _GRADS[op_type]
+
+    @register_op(op_type, infer_shape=same_shape("X", "Out"),
+                 grad=_grad_maker)
+    def forward(ctx):
+        xv, yv = ctx.input("X"), ctx.input("Y")
+        x, y = data_of(xv), data_of(yv)
+        yb, _ = _align(x, y, ctx.attr("axis", -1), isinstance(xv, LoDArray),
+                       isinstance(yv, LoDArray))
+        ctx.set_output("Out", like(xv, fwd(x, yb)))
+
+    @register_op(op_type + "_grad")
+    def backward(ctx):
+        """dX = dx_fn(dOut); dY = dy_fn(dOut) summed over the dims Y was
+        broadcast along."""
+        xv, yv = ctx.input("X"), ctx.input("Y")
+        x, y = data_of(xv), data_of(yv)
+        d = data_of(ctx.input("Out@GRAD"))
+        _, axis = _align(x, y, ctx.attr("axis", -1),
+                         isinstance(xv, LoDArray), isinstance(yv, LoDArray))
+        dy = dy_fn(d)
+        if y.shape != x.shape:
+            dy = collapse_to(dy, y.shape, axis)
+        ctx.set_output("X@GRAD", like(xv, dx_fn(d).to(x.dtype)))
+        ctx.set_output("Y@GRAD", like(yv, dy.to(y.dtype)))
+
+
+for _t in _FWD:
+    _register(_t)

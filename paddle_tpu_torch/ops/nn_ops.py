@@ -1,6 +1,8 @@
 """The embedding lookup (counterpart of paddle_tpu/ops/nn_ops.py):
-``lookup_table`` (reference :47) and its dense gradient (reference :65).
-The sparse (``is_sparse``) gradient waits for ``core/sparse.py``."""
+``lookup_table`` (reference :47) and its gradient (reference :65), dense,
+or with ``is_sparse`` a ``SparseRows`` (``core/sparse.py``) that the
+optimizers' sparse branches consume without forming the [vocab, dim]
+gradient."""
 
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import torch
 
 from ..core.lod import LoDArray
 from ..core.registry import register_op, OpSpec, G
+from ..core.sparse import add_rows, sparse_rows_from_grad
 from .common import data_of, like
 
 
@@ -37,23 +40,26 @@ def lookup_table(ctx):
 
 @register_op("lookup_table_grad")
 def lookup_table_grad(ctx):
-    """W@GRAD as a dense [vocab, dim] scatter-add of Out@GRAD's rows; the
-    padded positions of a LoD gradient are masked out first (reference
-    :77-78). ``index_put_`` with ``accumulate=True`` sums duplicate ids in
-    a fixed order on either device (a sort-based kernel on CUDA), so the
-    gradient is the same on every run, where ``index_add_`` on CUDA sums
-    them with atomics in an order that changes from run to run."""
-    if ctx.attr("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True needs the SparseRows gradient "
-            "(reference core/sparse.py), which is not ported yet")
+    """W@GRAD from Out@GRAD's rows; the padded positions of a LoD gradient
+    are masked out first (reference :77-78). Dense: a [vocab, dim]
+    scatter-add (``core/sparse.py::add_rows``: duplicate ids summed in the
+    ids' order on either device, the same on every run). With
+    ``is_sparse``: a SparseRows of one entry per id, padded LoD positions
+    sent to the sentinel row ``vocab`` (reference :82-90)."""
     w = ctx.input("W")
     ids = _ids(ctx.input("Ids"))
     d_v = ctx.input("Out@GRAD")
     d = data_of(d_v)
     if isinstance(d_v, LoDArray):
         d = d * d_v.mask(d.dtype).reshape(d.shape[:2] + (1,) * (d.ndim - 2))
-    dw = torch.zeros_like(w).index_put_(
-        (ids.reshape(-1),), d.reshape(-1, w.shape[-1]).to(w.dtype),
-        accumulate=True)
-    ctx.set_output("W@GRAD", dw)
+    flat_ids = ids.reshape(-1)
+    flat_d = d.reshape(-1, w.shape[-1]).to(w.dtype)
+    if ctx.attr("is_sparse", False):
+        if isinstance(d_v, LoDArray):
+            valid = d_v.mask(torch.bool).reshape(-1)
+            flat_ids = torch.where(valid, flat_ids,
+                                   torch.full_like(flat_ids, w.shape[0]))
+        ctx.set_output("W@GRAD",
+                       sparse_rows_from_grad(flat_ids, flat_d, w.shape[0]))
+        return
+    ctx.set_output("W@GRAD", add_rows(torch.zeros_like(w), flat_ids, flat_d))

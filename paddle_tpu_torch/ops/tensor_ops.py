@@ -1,9 +1,9 @@
-"""Creation ops, the variadic sum and top_k (counterpart of
+"""Creation ops, concat, the variadic sum and top_k (counterpart of
 paddle_tpu/ops/tensor_ops.py): fill_constant, fill_zeros_like,
-uniform_random, gaussian_random, sum, scale and top_k. fill_zeros_like,
-sum, scale and top_k are LoD-transparent: a LoDArray input keeps its
-lengths, so the padded positions of a LoD gradient stay masked
-downstream.
+uniform_random, gaussian_random, concat and its grad, sum, scale and
+top_k. fill_zeros_like, concat, sum, scale and top_k are LoD-transparent:
+a LoDArray input keeps its lengths, so the padded positions of a LoD
+gradient stay masked downstream. ``sum`` also adds SparseRows gradients.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op, same_shape
+from ..core.lod import LoDArray
+from ..core.registry import register_op, same_shape, OpSpec, G
+from ..core.sparse import SparseRows, is_sparse
 from ..core.types import torch_dtype
 from .common import data_of, like
 
@@ -52,13 +54,57 @@ def gaussian_random(ctx):
         torch_dtype(ctx.attr("dtype", "float32"))))
 
 
+def _concat_axis(ctx, vs):
+    """LoD inputs see the reference's flat [rows, feat] axis numbering; the
+    padded [b, T, feat] layout shifts positive axes by one (reference
+    :249)."""
+    axis = ctx.attr("axis", 0)
+    if any(isinstance(v, LoDArray) for v in vs) and axis >= 0:
+        if axis == 0:
+            raise ValueError("concat along the LoD rows axis is not "
+                             "supported; use sequence_concat")
+        axis += 1
+    return axis
+
+
+@register_op("concat", grad=lambda op: [OpSpec(
+    "concat_grad",
+    {"X": op.input("X"), "Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))}, dict(op.attrs))])
+def concat(ctx):
+    """The inputs joined along ``axis`` (reference :262)."""
+    vs = ctx.inputs("X")
+    out = torch.cat([data_of(v) for v in vs], dim=_concat_axis(ctx, vs))
+    ctx.set_output("Out", like(vs[0], out))
+
+
+@register_op("concat_grad")
+def concat_grad(ctx):
+    """Out@GRAD split back into the inputs' widths (reference :272)."""
+    vs = ctx.inputs("X")
+    axis = _concat_axis(ctx, vs)
+    d = data_of(ctx.input("Out@GRAD"))
+    parts = torch.split(d, [data_of(v).shape[axis] for v in vs], dim=axis)
+    ctx.set_outputs("X@GRAD", [like(v, p.contiguous())
+                               for v, p in zip(vs, parts)])
+
+
 @register_op("sum")
 def sum_op(ctx):
     """Variadic sum, added left to right (reference :298): the
-    backward's rename-and-sum of repeated gradients. Its grad maker (an
-    assign per input) is not ported: no ported program differentiates a
-    sum."""
+    backward's rename-and-sum of repeated gradients. All-SparseRows inputs
+    concatenate their entries in input order (the reference's sum over
+    SelectedRows appends rows); a mix of dense and sparse densifies the
+    sparse terms (reference :319-330). Its grad maker (an assign per input)
+    is not ported: no ported program differentiates a sum."""
     vs = ctx.inputs("X")
+    if any(is_sparse(v) for v in vs):
+        if all(is_sparse(v) for v in vs):
+            ctx.set_output("Out", SparseRows(
+                torch.cat([v.rows for v in vs]),
+                torch.cat([v.values for v in vs]), vs[0].nrows))
+            return
+        vs = [v.to_dense() if is_sparse(v) else v for v in vs]
     out = data_of(vs[0])
     for v in vs[1:]:
         out = out + data_of(v)

@@ -10,6 +10,9 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``ctc_acoustic``: the CTC acoustic model of tests/book/test_ocr_ctc.py
   (fc(3H) -> dynamic_gru(H) -> fc(classes + 1) -> warpctc(blank 0) ->
   mean).
+* ``ngram_lm``: the word2vec N-gram language model of
+  tests/book/test_word2vec.py (context words looking up one shared table
+  -> concat -> fc(sigmoid) -> fc(softmax over the vocabulary)).
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -103,3 +106,22 @@ def ctc_acoustic(feat, label, num_classes, hidden, layers=None):
     logits = layers.fc(input=rnn, size=num_classes + 1, act=None)
     loss = layers.mean(layers.warpctc(input=logits, label=label, blank=0))
     return logits, loss
+
+
+def ngram_lm(words, dict_size, emb=32, hidden=256, is_sparse=True,
+             layers=None):
+    """tests/book/test_word2vec.py:22-31's network over the int64 context
+    word vars ``words`` (each [batch, 1]): every word looks up the one
+    table ``shared_w`` [dict_size, emb] (a sparse gradient with
+    ``is_sparse``), the embeddings are joined, an fc of width ``hidden``
+    with sigmoid and an fc with softmax over the vocabulary follow. The
+    book's published widths are emb 32, hidden 256 over 4 context words.
+    Returns the probabilities var."""
+    if layers is None:
+        from ..fluid import layers
+    embs = [layers.embedding(input=w, size=[dict_size, emb],
+                             is_sparse=is_sparse, param_attr="shared_w")
+            for w in words]
+    concat = layers.concat(input=embs, axis=1)
+    hidden1 = layers.fc(input=concat, size=hidden, act="sigmoid")
+    return layers.fc(input=hidden1, size=dict_size, act="softmax")

@@ -51,13 +51,14 @@ def test_every_kernel_source_is_bound_built_and_checked():
     """Each csrc/*.cu is named by a wrapper module under ops/cuda/ (which
     loads it through build.load) and is in chip_smoke.py's build list, so
     the card-side run builds and checks every kernel the port has:
-    conv_affine, conv_bn_train, conv_bn_bwd, optimizer_arena (momentum and
-    Adam), lstm_seq and gru_seq (forward and backward) and ctc (the alpha
-    recurrence and its backward)."""
+    conv_affine, conv_bn_train, conv_bn_bwd, optimizer_arena (SGD,
+    momentum and Adam), lstm_seq and gru_seq (forward and backward), ctc
+    (the alpha recurrence and its backward) and embedding_sgd."""
     sources = sorted(p.stem for p in
                      (REPO / "paddle_tpu_torch" / "csrc").glob("*.cu"))
     assert sources == ["conv_affine", "conv_bn_bwd", "conv_bn_train", "ctc",
-                       "gru_seq", "lstm_seq", "optimizer_arena"]
+                       "embedding_sgd", "gru_seq", "lstm_seq",
+                       "optimizer_arena"]
     wrappers = "\n".join(
         p.read_text() for p in
         (REPO / "paddle_tpu_torch" / "ops" / "cuda").glob("*.py"))

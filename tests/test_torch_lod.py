@@ -203,6 +203,35 @@ def test_sequence_pool_last_and_grad():
     np.testing.assert_array_equal(dx.lens, LENS)
 
 
+def test_sequence_pool_sum_and_grad():
+    """SUM adds each row's valid steps (0 for an empty row); the grad
+    broadcasts the output grad over the valid steps, zeros past them."""
+    rng = np.random.RandomState(8)
+    x = Lod(_padded(rng, 3))
+    out, = _both("sequence_pool", {"X": ["x"]}, {"Out": ["out"]},
+                 {"pooltype": "SUM"}, {"x": x})
+    np.testing.assert_allclose(out, x.data.sum(axis=1), **TOL)
+    dout = rng.normal(0, 1, out.shape).astype("float32")
+    dx, = _both("sequence_pool_grad", {"X": ["x"], "Out@GRAD": ["dout"]},
+                {"X@GRAD": ["dx"]}, {"pooltype": "SUM"},
+                {"x": x, "dout": dout})
+    mask = np.arange(dx.data.shape[1])[None, :] < LENS[:, None]
+    np.testing.assert_array_equal(dx.data, dout[:, None] * mask[..., None])
+
+
+def test_concat_lod_and_grad():
+    """concat of LoD inputs along the reference's feature axis 1 (the
+    padded layout's axis 2), and the grad split back, lengths kept."""
+    rng = np.random.RandomState(9)
+    feeds = {"a": Lod(_padded(rng, 3)), "b": Lod(_padded(rng, 2))}
+    out, = _both("concat", {"X": ["a", "b"]}, {"Out": ["out"]}, {"axis": 1},
+                 feeds)
+    assert out.data.shape[-1] == 5
+    d = Lod(_padded(rng, 5))
+    _both("concat_grad", {"X": ["a", "b"], "Out@GRAD": ["d"]},
+          {"X@GRAD": ["da", "db"]}, {"axis": 1}, {**feeds, "d": d})
+
+
 @pytest.mark.parametrize("soft_label", [False, True])
 def test_cross_entropy_and_softmax_grads(soft_label):
     """softmax -> cross_entropy and back, the classifier's loss head."""

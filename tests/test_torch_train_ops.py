@@ -119,6 +119,46 @@ def test_relu_and_grad():
           {"X@GRAD": ["dx"]}, {}, {"out": out, "d": _f32(rng, 4, 6)})
 
 
+@pytest.mark.parametrize("yshape,axis", [((5, 10), -1), ((10,), 1)],
+                         ids=["same_shape", "fc_bias_axis1"])
+def test_elementwise_sub_and_grad(yshape, axis):
+    rng = _rng(14)
+    feeds = {"x": _f32(rng, 5, 10), "y": _f32(rng, *yshape)}
+    out, = _both("elementwise_sub", {"X": ["x"], "Y": ["y"]},
+                 {"Out": ["out"]}, {"axis": axis}, feeds)
+    _both("elementwise_sub_grad",
+          {"X": ["x"], "Y": ["y"], "Out": ["out"], "Out@GRAD": ["d"]},
+          {"X@GRAD": ["dx"], "Y@GRAD": ["dy"]}, {"axis": axis},
+          {**feeds, "out": out, "d": _f32(rng, 5, 10)})
+
+
+@pytest.mark.parametrize("act,ref", [("sigmoid", "Out"), ("square", "X")])
+def test_activation_and_grad(act, ref):
+    """The activation table's other entries; each grad reads Out or X as
+    the reference's grad functor does."""
+    rng = _rng(15)
+    x = _f32(rng, 4, 6)
+    out, = _both(act, {"X": ["x"]}, {"Out": ["out"]}, {}, {"x": x})
+    refs = {"Out": ("out", out), "X": ("x", x)}
+    name, value = refs[ref]
+    _both(act + "_grad", {ref: [name], "Out@GRAD": ["d"]},
+          {"X@GRAD": ["dx"]}, {}, {name: value, "d": _f32(rng, 4, 6)})
+
+
+def test_concat_and_grad():
+    """The word2vec model's concat of its 4 context embeddings (axis 1)
+    and the grad's split."""
+    rng = _rng(16)
+    feeds = {f"e{i}": _f32(rng, 5, 3) for i in range(4)}
+    names = sorted(feeds)
+    out, = _both("concat", {"X": names}, {"Out": ["out"]}, {"axis": 1},
+                 feeds)
+    assert out.shape == (5, 12)
+    _both("concat_grad", {"X": names, "Out@GRAD": ["d"]},
+          {"X@GRAD": [n + "@G" for n in names]}, {"axis": 1},
+          {**feeds, "d": _f32(rng, 5, 12)})
+
+
 def test_mul_and_grad():
     rng = _rng(6)
     feeds = {"x": _f32(rng, 4, 2, 1, 3), "y": _f32(rng, 6, 5)}
