@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Serve and train ResNet-50, train the LSTM and GRU text classifiers, the
-CTC acoustic model and the word2vec N-gram model through the PyTorch/CUDA
-port on one GPU, and hold every hand-written kernel against its plain
-PyTorch version.
+CTC acoustic model and the word2vec N-gram model, and serve a decoder LM
+through the generation engine, with the PyTorch/CUDA port on one GPU, and
+hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -90,6 +90,29 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               within float32 roundings of the unmerged scatter route; rows
               absent from the batch unchanged; a planted lr fault in
               embedding_sgd must be caught; the loss must fall.
+12. paged    — paged_attention against its plain version (atol 1e-5, rtol
+              1e-4) at the generation lane's decode shape (8 slots, 4 heads
+              of 32, blocks of 8, tables of 16: ragged lengths, idle rows,
+              a multiple of the block size and a full table), at
+              tests/test_paged_attention_pallas.py's three shapes, and at
+              a Llama-2-7B decode (32 slots, 32 heads of 128, blocks of 16,
+              contexts drawn 1..4096 over a fragmented arena); idle rows
+              exact zeros; a planted scale x0.875 must break the limit.
+              Times, bytes, bounds, and the gather +
+              scaled_dot_product_attention as a yardstick.
+13. generate — the decoder LM of bench.py:1931's generation lane (vocab
+              64, emb 128, 4 heads, 4 layers, seeded weights) built with
+              the port's front end, saved, loaded into GenerationEngine
+              (8 slots, blocks of 8, 256 blocks, max_len 128) and warmed;
+              the lane's 8 clients x 3 requests (252 greedy tokens)
+              through ContinuousBatcher, continuous and gang, on the kernel
+              route and under kernel_tier=torch: 4 paged_attention
+              launches and 0 fallbacks per decode dispatch, the same
+              tokens on both routes, in both modes and one request at a
+              time, decode logits within 1e-4 of the largest; a
+              prefix-cached and a chunked pass equal to cold. Tokens/s,
+              decode ms per step, TTFT p50/p99, continuous vs gang, peak
+              memory and a profile of one decode step for both routes.
 
 The last three lines of output are a JSON line listing each kernel's
 numbers, the card's name and power limit, and
@@ -157,7 +180,7 @@ TRAIN_BATCH, TRAIN_STEPS = 32, 5
 BENCH_LR = 0.1
 TRAIN_LR = BENCH_LR * TRAIN_BATCH / 256
 KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena",
-           "lstm_seq", "gru_seq", "ctc", "embedding_sgd")
+           "lstm_seq", "gru_seq", "ctc", "embedding_sgd", "paged_attention")
 
 # phases 5-6: bench.py:239's lane (benchmark/README.md:115-127)
 SEQ_BATCH, SEQ_LEN, SEQ_HIDDEN, SEQ_VOCAB, SEQ_EMB = 64, 100, 512, 30000, 128
@@ -260,6 +283,36 @@ CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
                  93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
                  2173, 4, 7046547, 18, 15, 286181, 105, 142572)
 CTR_BATCH, CTR_ROWS, CTR_DIM = 4096, 1_000_000, 64
+
+# phases 12-13: the geometry and traffic of the reference's generation lane
+# (bench.py:1931 run_generation_serving_lane): a decoder LM of vocab 64,
+# emb 128, 4 heads (head dim 32), 4 layers, positions up to 256, weights
+# seeded from 11; the engine at 8 decode slots, KV blocks of 8 tokens, 256
+# blocks, max_len 128, one prefill bucket of 8; 8 clients of 3 requests
+# each, prompt [1 + i, 2 + j, 3] and GEN_LENS[(3i + 5j) % 8] new tokens,
+# greedy, no EOS: 252 tokens
+GEN_VOCAB, GEN_EMB, GEN_HEADS, GEN_LAYERS, GEN_MAX_POS = 64, 128, 4, 4, 256
+GEN_MAX_SEQS, GEN_BLOCK, GEN_BLOCKS, GEN_MAX_LEN = 8, 8, 256, 128
+GEN_SEED, GEN_CLIENTS, GEN_PER_CLIENT = 11, 8, 3
+GEN_LENS = (4, 4, 4, 4, 6, 6, 28, 28)
+# the kernel against its plain version: the reference test's own tolerance
+# for the Pallas kernel against its twin (the online softmax re-associates
+# the float32 sums)
+PA_ATOL, PA_RTOL = 1e-5, 1e-4
+# phase 12's decode shape users run beside the lane's tiny one: Llama-2-7B's
+# attention (32 heads of 128, Touvron et al. 2023, Table 1's family) over
+# its 4096-token context, vLLM's default KV block of 16 tokens; 32 slots,
+# each context drawn 1..4096, 2 of them idle
+PA_SLOTS, PA_HEADS, PA_DIM, PA_BLOCK, PA_CTX = 32, 32, 128, 16, 4096
+# phase 13, the kernel route's decode logits against kernel_tier=torch's on
+# the same request: both run the same PyTorch ops but for the attend, which
+# the kernel sums in another order (float32 roundings, phase 12); 4 layers
+# with layer norms carry that to the logits, far below 1e-4 of the largest
+GEN_LOGIT_LIMIT = 1e-4
+# phase 13's prefix-cached and chunked passes: 8 requests of a shared
+# 16-token system prompt (2 blocks) and a 4-token user suffix, 6 new
+# tokens each, prefill buckets of 8 and 32; chunks of 4 tokens
+GEN_SYSTEM, GEN_SUFFIX, GEN_PREFIX_NEW, GEN_CHUNK = 16, 4, 6, 4
 
 
 def fail(msg):
@@ -2203,6 +2256,407 @@ def phase_word2vec(torch, fluid, seed, card):
     return dict(zip(labels, kernel["total"]))
 
 
+def paged_operands(torch, gen, rng, s, h, d, bs, p, lens, spare):
+    """One decode attend's operands on the card: q [s, h, d], K and V
+    arenas of sum(ceil(len / bs)) + ``spare`` blocks, and each slot's blocks
+    drawn without repeats from a random permutation of the arena (a
+    fragmented arena, as an engine's free list leaves it); table entries
+    past a slot's blocks are 0, as the engine pads them."""
+    import numpy as np
+    lens = np.asarray(lens, np.int64)
+    nblk = -(-lens // bs)
+    nb = int(nblk.sum()) + spare
+    perm = rng.permutation(nb)
+    bt = np.zeros((s, p), np.int32)
+    o = 0
+    for i in range(s):
+        bt[i, :nblk[i]] = perm[o:o + nblk[i]]
+        o += nblk[i]
+    dev = torch.device("cuda", 0)
+    qh = torch.randn((s, h, d), generator=gen, device=dev)
+    kc = torch.randn((nb, bs, h, d), generator=gen, device=dev)
+    vc = torch.randn((nb, bs, h, d), generator=gen, device=dev)
+    return (qh, kc, vc, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+
+
+def paged_check(torch, pak, args, planted=False):
+    """paged_attention_cuda against paged_attention_torch on ``args``:
+    (max |Δ|, within atol + rtol·|plain| everywhere, inactive rows exact
+    zeros). ``planted`` feeds the kernel q x PLANTED, which scales every
+    score by PLANTED as a wrong scale would."""
+    want = pak.paged_attention_torch(*args)
+    got = pak.paged_attention_cuda(
+        *((args[0] * PLANTED,) + tuple(args[1:]) if planted else args))
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    within = bool((err <= PA_ATOL + PA_RTOL * want.abs()).all())
+    zeros = bool((got[args[4] == 0] == 0).all())
+    return err.max().item(), within, zeros
+
+
+def paged_library(torch, qh, kc, vc, bt, cl):
+    """The yardstick, never on the path: the gather of every table row's
+    context (index_select) and F.scaled_dot_product_attention under the
+    length mask (idle rows see position 0, so nothing is NaN)."""
+    import torch.nn.functional as F
+    nb, bs, h, d = kc.shape
+    s, p = bt.shape
+    idx = (bt.long()[:, :, None] * bs
+           + torch.arange(bs, device=bt.device)).reshape(-1)
+    k = kc.view(nb * bs, h, d).index_select(0, idx).view(s, p * bs, h, d)
+    v = vc.view(nb * bs, h, d).index_select(0, idx).view(s, p * bs, h, d)
+    live = torch.arange(p * bs, device=bt.device)[None, :] \
+        < cl.clamp(min=1)[:, None]
+    return F.scaled_dot_product_attention(
+        qh[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=live[:, None, None, :])
+
+
+def paged_bytes(args):
+    """Bytes the function must move: each live K and V row read once, q
+    read and out written (block tables and lengths aside)."""
+    qh, _, _, _, cl = args
+    s, h, d = qh.shape
+    return 2 * int(cl.sum().item()) * h * d * 4 + 2 * s * h * d * 4
+
+
+def phase_paged_kernels(torch, fluid, seed, card):
+    """paged_attention against its plain version at the lane's geometry,
+    the reference test's three shapes and a Llama-2-7B decode shape; a
+    planted scale fault; times, bounds and the library yardstick. Returns
+    the numbers for the kernels line, at the lane's geometry (the main
+    path's)."""
+    import numpy as np
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    rng = np.random.RandomState(seed + 12)
+    log(f"\n== phase 12: paged_attention vs paged_attention_torch "
+        f"(atol {PA_ATOL}, rtol {PA_RTOL}), then times | {card} ==")
+    p_lane = GEN_MAX_LEN // GEN_BLOCK
+    # ragged, 2 idle rows, a multiple of the block size, and a full table
+    lane_lens = [0, 1, 5, GEN_BLOCK, 23, 31, p_lane * GEN_BLOCK, 0]
+    used = sum(-(-n // GEN_BLOCK) for n in lane_lens)
+    lane = paged_operands(torch, gen, rng, GEN_MAX_SEQS, GEN_HEADS,
+                          GEN_EMB // GEN_HEADS, GEN_BLOCK, p_lane,
+                          lane_lens, GEN_BLOCKS - used)
+    cases = [("lane", lane)]
+    # tests/test_paged_attention_pallas.py:97's shapes, drawn as it draws
+    # them (tables with repeats, lengths 0..P·bs)
+    for i, (s, h, d, nb, bs, p) in enumerate(
+            [(4, 2, 8, 8, 4, 2), (8, 4, 16, 32, 8, 4), (2, 1, 4, 4, 2, 2)]):
+        r = np.random.RandomState(seed + i)
+        arrs = [r.normal(0, 1, (s, h, d)), r.normal(0, 1, (nb, bs, h, d)),
+                r.normal(0, 1, (nb, bs, h, d))]
+        arrs = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+        bt = torch.from_numpy(r.randint(0, nb, (s, p)).astype(np.int32))
+        cl = torch.from_numpy(r.randint(0, p * bs + 1, s).astype(np.int32))
+        cases.append((f"reference shape {i}", (*arrs, bt.to(dev),
+                                               cl.to(dev))))
+    big_lens = rng.randint(1, PA_CTX + 1, PA_SLOTS)
+    big_lens[rng.choice(PA_SLOTS, 2, replace=False)] = 0
+    big = paged_operands(torch, gen, rng, PA_SLOTS, PA_HEADS, PA_DIM,
+                         PA_BLOCK, PA_CTX // PA_BLOCK, big_lens, 64)
+    cases.append(("Llama-2-7B decode", big))
+    problems = []
+    for name, args in cases:
+        err, within, zeros = paged_check(torch, pak, args)
+        qh, kc, _, bt, cl = args
+        log(f"{name}: q {tuple(qh.shape)}, arena {tuple(kc.shape)}, "
+            f"tables {tuple(bt.shape)}, lengths sum {int(cl.sum())} "
+            f"(max {int(cl.max())}, {int((cl == 0).sum())} idle): max |Δ| "
+            f"{err:.3e}, within the limit {within}, idle rows zero {zeros}")
+        if not (within and zeros):
+            problems.append(f"paged_attention at {name}")
+    # the check's own test: the scale x PLANTED
+    for name, args in (("lane", lane), ("Llama-2-7B decode", big)):
+        err, within, _ = paged_check(torch, pak, args, planted=True)
+        log(f"planted fault at {name}: scale x{PLANTED}: max |Δ| "
+            f"{err:.3e}, within the limit {within}")
+        if within:
+            problems.append(f"the check does not see scale x{PLANTED} at "
+                            f"{name}")
+    if problems:
+        fail("; ".join(problems))
+    out = {}
+    for name, args in (("lane", lane), ("Llama-2-7B decode", big)):
+        nbytes = paged_bytes(args)
+        t = dict(max_abs_err=paged_check(torch, pak, args)[0],
+                 ms=time_ms(lambda: pak.paged_attention_cuda(*args), torch),
+                 plain_ms=time_ms(lambda: pak.paged_attention_torch(*args),
+                                  torch),
+                 library_ms=time_ms(lambda: paged_library(torch, *args),
+                                    torch))
+        # operations: q·k and the weighted v sum, 4 flops per element of
+        # the live context, against float32's peak
+        ops = 4 * int(args[4].sum().item()) * args[0].shape[1] \
+            * args[0].shape[2]
+        t["bound_ms"], t["bound_by"] = bound_ms(ops, nbytes)
+        log(f"paged_attention at {name} per call: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, gather + "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {nbytes} bytes); "
+            f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+        if name == "lane":
+            out["paged_attention"] = t
+    del big, cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_lane(eng, continuous):
+    """The lane's traffic through a ContinuousBatcher over ``eng``: one
+    thread per client, each sending its requests one after another and
+    draining each stream. Returns the tokens per (client, request), the
+    TTFTs (submit to first token, seconds), the wall time and the
+    batcher's step count."""
+    import threading
+    from paddle_tpu_torch.serving import ContinuousBatcher
+
+    want = [[GEN_LENS[(3 * i + 5 * j) % len(GEN_LENS)]
+             for j in range(GEN_PER_CLIENT)] for i in range(GEN_CLIENTS)]
+    toks = [[None] * GEN_PER_CLIENT for _ in range(GEN_CLIENTS)]
+    ttft, errs = [], []
+    batcher = ContinuousBatcher(eng, continuous=continuous)
+    barrier = threading.Barrier(GEN_CLIENTS + 1)
+
+    def client(i):
+        barrier.wait()
+        try:
+            for j, n in enumerate(want[i]):
+                t0 = time.perf_counter()
+                got = []
+                for t in batcher.submit([1 + i, 2 + j, 3], n):
+                    if not got:
+                        ttft.append(time.perf_counter() - t0)
+                    got.append(t)
+                toks[i][j] = got
+        except Exception as e:
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(GEN_CLIENTS)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    steps = batcher.stats()["steps"]
+    if not batcher.close():
+        fail("generation: the ContinuousBatcher's worker did not stop")
+    if errs:
+        fail(f"generation lane clients failed: {errs[:2]}")
+    counts = [[len(t) for t in per] for per in toks]
+    if counts != want:
+        fail(f"generation lane token counts {counts}, want {want}")
+    return dict(tokens=toks, ttft=ttft, elapsed=elapsed, steps=steps)
+
+
+def gen_drain(eng, prompt, n, sampling=None):
+    handle, toks, fin = eng.start(prompt, n, sampling)
+    toks = list(toks)
+    while not fin:
+        for h, ts, f in eng.step():
+            if h is handle:
+                toks += ts
+                fin = f
+    return toks
+
+
+def phase_generation(torch, fluid, seed, card):
+    """Serve the decoder LM at the lane's geometry through GenerationEngine
+    and ContinuousBatcher on the kernel route and under
+    kernel_tier=torch. Returns the kernel's launches on the main path (the
+    kernel route's continuous lane)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.testing.models import export_tiny_lm
+
+    n_tokens = sum(GEN_LENS[(3 * i + 5 * j) % len(GEN_LENS)]
+                   for i in range(GEN_CLIENTS)
+                   for j in range(GEN_PER_CLIENT))
+    log(f"\n== phase 13: decoder LM (vocab {GEN_VOCAB}, emb {GEN_EMB}, "
+        f"{GEN_HEADS} heads, {GEN_LAYERS} layers) served through "
+        f"GenerationEngine + ContinuousBatcher: {GEN_CLIENTS} clients x "
+        f"{GEN_PER_CLIENT} requests, {n_tokens} tokens, greedy | {card} ==")
+    d = tempfile.mkdtemp(prefix="chip-smoke-lm-")
+    fluid.reset_unique_name()
+    main, _, _ = export_tiny_lm(d, vocab=GEN_VOCAB, emb=GEN_EMB,
+                                heads=GEN_HEADS, n_layers=GEN_LAYERS,
+                                max_pos=GEN_MAX_POS, seed=GEN_SEED + seed)
+    log("program: " + op_counts(main.global_block()))
+    geom = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN)
+
+    def engine(**kw):
+        eng = GenerationEngine(d, **{**geom, "prefill_buckets": (8,), **kw})
+        warmed = eng.warmup()
+        if eng.device.type != "cuda":
+            fail(f"GenerationEngine runs on {eng.device}, want the card")
+        return eng, warmed
+
+    res, problems = {}, []
+    for route in ("auto", "torch"):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            eng, warmed = engine()
+            want_launch = GEN_LAYERS if route == "auto" else 0
+            for continuous in (True, False):
+                decodes0 = eng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+                    "dispatches"]
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                arena = list(eng.cache.k) + list(eng.cache.v)
+                pak.reset_launches()
+                tier.reset_fallback_counts()
+                lane = gen_lane(eng, continuous)
+                torch.cuda.synchronize()
+                if any(a is not b for a, b in
+                       zip(arena, list(eng.cache.k) + list(eng.cache.v))):
+                    problems.append(f"kernel_tier={route}: the arena was "
+                                    "copied, not updated in place")
+                launches = pak.launches["paged_attention"]
+                fallbacks = tier.fallback_counts()
+                decodes = eng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+                    "dispatches"] - decodes0
+                lane.update(launches=launches, decodes=decodes,
+                            peak=(torch.cuda.max_memory_allocated() - base)
+                            / 2 ** 20)
+                mem = eng.stats()["memory"]
+                resident = (mem["arena_bytes"] + mem["param_bytes"]) \
+                    / 2 ** 20
+                mode = "continuous" if continuous else "gang"
+                res[(route, mode)] = lane
+                ttft = np.asarray(lane["ttft"]) * 1e3
+                log(f"kernel_tier={route}, {mode}: {n_tokens} tokens in "
+                    f"{lane['elapsed'] * 1e3:.1f} ms, "
+                    f"{n_tokens / lane['elapsed']:.1f} tokens/s; "
+                    f"{decodes} decode dispatches "
+                    f"({lane['elapsed'] * 1e3 / decodes:.3f} ms of wall time "
+                    f"each, prefills included), TTFT p50 {np.percentile(ttft, 50):.2f} "
+                    f"p99 {np.percentile(ttft, 99):.2f} ms; paged_attention "
+                    f"launches {launches}, fallbacks {fallbacks}; peak "
+                    f"memory above the engine's {resident:.1f} MiB (arena "
+                    f"and parameters) {lane['peak']:.1f} MiB")
+                if launches != want_launch * decodes or fallbacks:
+                    problems.append(
+                        f"kernel_tier={route} {mode}: {launches} "
+                        f"paged_attention launches over {decodes} decode "
+                        f"dispatches (want {want_launch} each), fallbacks "
+                        f"{fallbacks}")
+            # decode logits of one request, for the cross-route check
+            seen = []
+            real = eng._sample
+
+            def sample(seq, logits, seen=seen, real=real):
+                seen.append(np.array(logits))
+                return real(seq, logits)
+
+            eng._sample = sample
+            gen_drain(eng, [1, 2, 3], 28)
+            eng._sample = real
+            res[(route, "logits")] = np.stack(seen)
+            # one decode step with every slot busy: its time and profile
+            for i in range(GEN_MAX_SEQS):
+                eng.start([1 + i, 2, 3], GEN_MAX_LEN - 3)
+            profile(torch, eng.step, f"one decode step, {GEN_MAX_SEQS} "
+                    f"slots busy, kernel_tier={route}", card, reps=5)
+            ms = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[(route, "step_ms")] = float(np.mean(ms))
+            log(f"kernel_tier={route}: decode step with {GEN_MAX_SEQS} slots "
+                f"busy {np.mean(ms):.3f} ms (min {np.min(ms):.3f}, 20 "
+                f"steps, host clock with a sync)")
+            for h in list(eng._slots):
+                if h is not None:
+                    eng.abort(h)
+            if route == "auto":
+                # continuous = sequential on the kernel route
+                cont = res[(route, "continuous")]["tokens"]
+                seq_toks = [[gen_drain(eng, [1 + i, 2 + j, 3], len(t))
+                             for j, t in enumerate(per)]
+                            for i, per in enumerate(cont)]
+                res["sequential"] = seq_toks
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+
+    kc, kg = res[("auto", "continuous")], res[("auto", "gang")]
+    tc = res[("torch", "continuous")]
+    same_routes = kc["tokens"] == tc["tokens"]
+    gang_same = kg["tokens"] == kc["tokens"]
+    seq_same = res["sequential"] == kc["tokens"]
+    lg_k, lg_t = res[("auto", "logits")], res[("torch", "logits")]
+    dlog = float(np.abs(lg_k - lg_t).max() / np.abs(lg_t).max())
+    log(f"greedy tokens: kernel route = kernel_tier=torch {same_routes}; "
+        f"gang = continuous {gang_same}; continuous = sequential "
+        f"{seq_same}; decode logits of a 28-token request, max |Δ| / "
+        f"max |logit| {dlog:.3e} (limit {GEN_LOGIT_LIMIT})")
+    if not (same_routes and gang_same and seq_same):
+        problems.append("generation token streams differ between routes "
+                        "or scheduling modes")
+    if not dlog <= GEN_LOGIT_LIMIT:
+        problems.append(f"decode logits differ between routes by {dlog:.3e}"
+                        " of the largest")
+    for route in ("auto", "torch"):
+        c, g = res[(route, "continuous")], res[(route, "gang")]
+        log(f"kernel_tier={route}: continuous {c['elapsed'] * 1e3:.1f} ms "
+            f"({c['decodes']} decode dispatches) vs gang "
+            f"{g['elapsed'] * 1e3:.1f} ms ({g['decodes']}): "
+            f"{g['elapsed'] / c['elapsed']:.2f}x")
+
+    # cached prefix and chunked prefill against cold, on the kernel route
+    system = [(5 + 3 * t) % GEN_VOCAB for t in range(GEN_SYSTEM)]
+    prompts = [system + [(1 + i + t) % GEN_VOCAB for t in range(GEN_SUFFIX)]
+               for i in range(GEN_MAX_SEQS)]
+
+    def batch(eng):
+        from paddle_tpu_torch.serving import ContinuousBatcher
+        b = ContinuousBatcher(eng)
+        streams = [b.submit(p, GEN_PREFIX_NEW) for p in prompts]
+        out = [list(s) for s in streams]
+        if not b.close():
+            fail("generation: the ContinuousBatcher's worker did not stop")
+        return out
+
+    pak.reset_launches()
+    tier.reset_fallback_counts()
+    cold = batch(engine(prefill_buckets=(8, 32))[0])
+    cached_eng, warmed = engine(prefill_buckets=(8, 32),
+                                prefix_cache_blocks=64)
+    primed = batch(cached_eng)
+    hits0 = cached_eng.cache.prefix_hits
+    cached = batch(cached_eng)
+    hits = cached_eng.cache.prefix_hits - hits0
+    chunk_eng, _ = engine(prefill_buckets=(8, 32), prefill_chunk=GEN_CHUNK)
+    chunked = batch(chunk_eng)
+    log(f"{len(prompts)} prompts of a {GEN_SYSTEM}-token system prompt + "
+        f"{GEN_SUFFIX} tokens, {GEN_PREFIX_NEW} new each: cached-prefix "
+        f"engine warmed {warmed} (phase, bucket) pairs; cold pass on it = "
+        f"cold {primed == cold}; cached pass ({hits} prefix blocks "
+        f"attached) = cold {cached == cold}; chunked (chunks of "
+        f"{GEN_CHUNK}, {chunk_eng.stats()['phases']['chunk']}) = cold "
+        f"{chunked == cold}; fallbacks {tier.fallback_counts()}")
+    if not (primed == cold and cached == cold and chunked == cold) \
+            or hits == 0 or tier.fallback_counts():
+        problems.append("prefix-cached or chunked token streams differ from "
+                        "cold ones (or nothing was attached)")
+    if problems:
+        fail("; ".join(problems))
+    return kc["launches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2246,6 +2700,8 @@ def main():
     ctc_launches = phase_ctc(torch, fluid, args.seed, card)
     sparse_totals = phase_sparse_kernels(torch, fluid, args.seed, card)
     w2v_launches = phase_word2vec(torch, fluid, args.seed, card)
+    paged_totals = phase_paged_kernels(torch, fluid, args.seed, card)
+    gen_launches = phase_generation(torch, fluid, args.seed, card)
 
     def entry(name, source, replaces, n, t):
         return {"name": name, "route": "cuda",
@@ -2287,6 +2743,9 @@ def main():
               w2v_launches["sgd_arena"], sparse_totals["sgd_arena"]),
         entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
               w2v_launches["embedding_sgd"], sparse_totals["embedding_sgd"]),
+        entry("paged_attention", "paged_attention.cu",
+              "pallas/paged_attention.py:100", gen_launches,
+              paged_totals["paged_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,7 +3,9 @@ paddle_tpu/fluid/layers/nn.py), those ResNet training, the text
 classifiers, the CTC acoustic model and the word2vec N-gram model build:
 fc, embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
 elementwise_add, elementwise_sub, square, conv2d, pool2d, batch_norm,
-topk, warpctc, ctc_greedy_decoder and edit_distance.
+topk, warpctc, ctc_greedy_decoder and edit_distance; and those the
+decoder LM of the generation slice builds: layer_norm and
+causal_self_attention.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -243,6 +245,53 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out)
 
 
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """Layer normalization over the dims from ``begin_norm_axis`` on
+    (reference nn.py:414), with a learned scale and shift of that many
+    elements."""
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    norm_dim = int(np.prod(input.shape[begin_norm_axis:]))
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(ParamAttr.to_attr(param_attr),
+                                    shape=(norm_dim,), dtype=input.dtype,
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(ParamAttr.to_attr(bias_attr),
+                                    shape=(norm_dim,), dtype=input.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b.name]
+    mean = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    var = helper.create_tmp_variable(input.dtype, stop_gradient=True)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("layer_norm", inputs=inputs,
+                     outputs={"Y": [out.name], "Mean": [mean.name],
+                              "Variance": [var.name]},
+                     attrs={"begin_norm_axis": begin_norm_axis,
+                            "epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def causal_self_attention(q, k, v, num_heads, name=None):
+    """Causal multi-head self-attention over dense [batch, seq, hidden]
+    Q/K/V, already projected (reference nn.py:968). One op per transformer
+    layer: the site the generation engine (serving/generate) rewrites into
+    its prefill and paged-decode ops over the KV arena."""
+    if q.shape and q.shape[-1] is not None and q.shape[-1] % num_heads:
+        raise ValueError(
+            f"hidden size {q.shape[-1]} must divide num_heads {num_heads}")
+    helper = LayerHelper("causal_self_attention", name=name)
+    out = helper.create_tmp_variable(q.dtype, shape=q.shape)
+    helper.append_op("causal_self_attention",
+                     inputs={"Q": [q.name], "K": [k.name], "V": [v.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"num_heads": int(num_heads)})
+    return out
+
+
 def topk(input, k):
     """The k largest values of the last axis and their int64 indices
     (reference nn.py:484)."""
@@ -305,4 +354,4 @@ __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "elementwise_add",
            "elementwise_sub", "square", "conv2d",
            "pool2d", "batch_norm", "topk", "warpctc", "ctc_greedy_decoder",
-           "edit_distance"]
+           "edit_distance", "layer_norm", "causal_self_attention"]

@@ -19,7 +19,9 @@ Kernel families (the names ``use_kernel`` and ``fallback_counts`` use):
 ``optimizer`` (``optimizer.py``: sgd_arena, momentum_arena, adam_arena),
 ``embedding_sgd`` (``embedding.py``: the sparse SGD step of an embedding
 table), ``lstm`` and ``gru`` (``rnn.py``: lstm_seq, gru_seq and their
-backwards) and ``ctc`` (``ctc.py``: ctc_alpha and ctc_loss_bwd).
+backwards), ``ctc`` (``ctc.py``: ctc_alpha and ctc_loss_bwd) and
+``paged_attention`` (``paged_attention.py``: the generation decode step's
+ragged attention through the paged KV arena).
 
 Routing contract: a shape outside a kernel's ``supported()`` set is routed
 to the plain op chain by design and counted in :func:`fallback_counts`. A

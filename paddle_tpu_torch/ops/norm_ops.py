@@ -1,5 +1,7 @@
 """batch_norm and its grad (counterpart of paddle_tpu/ops/norm_ops.py
-:118, with ``bn_forward_math`` :71 and ``bn_backward_math`` :144).
+:118, with ``bn_forward_math`` :71 and ``bn_backward_math`` :144), and the
+layer_norm forward (reference :193 ``_ln_compute``, :235; its grad is not
+ported yet).
 
 ``bn_forward_math`` and ``bn_backward_math`` are shared with
 fused_conv2d_bn's plain route (ops/fused_ops.py), so a fused program and the
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op, infer_output, OpSpec, G
+from .common import data_of
 
 
 def _bn_infer(op, block):
@@ -130,3 +133,48 @@ def batch_norm_grad(ctx):
     ctx.set_output("X@GRAD", dx)
     ctx.set_output("Scale@GRAD", dscale)
     ctx.set_output("Bias@GRAD", dbias)
+
+
+def _ln_compute(x, scale, bias, begin_norm_axis, eps):
+    """layer_norm over the dims from ``begin_norm_axis`` on: the biased
+    variance, ``(x - mean) * rsqrt(var + eps)``, then the scale and the
+    bias. Returns (y, mean [lead], variance [lead])."""
+    shape = x.shape
+    lead = 1
+    for s in shape[:begin_norm_axis]:
+        lead *= s
+    flat = x.reshape(lead, -1)
+    mean = torch.mean(flat, dim=1, keepdim=True)
+    var = torch.var(flat, dim=1, keepdim=True, correction=0)
+    y = (flat - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.reshape(1, -1)
+    if bias is not None:
+        y = y + bias.reshape(1, -1)
+    return y.reshape(shape), mean.reshape(lead), var.reshape(lead)
+
+
+def _ln_infer(op, block):
+    x = block.var(op.input("X")[0])
+    if x.shape is None:
+        return
+    lead = 1
+    for s in x.shape[:op.attrs.get("begin_norm_axis", 1)]:
+        lead *= s
+    infer_output(op, block, "Y", x.shape, dtype=x.dtype)
+    for slot in ("Mean", "Variance"):
+        if op.output(slot):
+            infer_output(op, block, slot, (lead,), dtype=x.dtype)
+
+
+@register_op("layer_norm", infer_shape=_ln_infer)
+def layer_norm(ctx):
+    x = data_of(ctx.input("X"))
+    scale = data_of(ctx.input("Scale")) if ctx.has_input("Scale") else None
+    bias = data_of(ctx.input("Bias")) if ctx.has_input("Bias") else None
+    y, mean, var = _ln_compute(x, scale, bias,
+                               ctx.attr("begin_norm_axis", 1),
+                               ctx.attr("epsilon", 1e-5))
+    ctx.set_output("Y", y)
+    ctx.set_output("Mean", mean)
+    ctx.set_output("Variance", var)

@@ -13,6 +13,9 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``ngram_lm``: the word2vec N-gram language model of
   tests/book/test_word2vec.py (context words looking up one shared table
   -> concat -> fc(sigmoid) -> fc(softmax over the vocabulary)).
+* ``build_tiny_lm`` / ``export_tiny_lm``: the decoder-only LM the
+  generation engine serves (paddle_tpu/testing/models.py:129, :165), with
+  the reference's defaults, op order and parameter names.
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -125,3 +128,53 @@ def ngram_lm(words, dict_size, emb=32, hidden=256, is_sparse=True,
     concat = layers.concat(input=embs, axis=1)
     hidden1 = layers.fc(input=concat, size=hidden, act="sigmoid")
     return layers.fc(input=hidden1, size=dict_size, act="softmax")
+
+
+def build_tiny_lm(vocab=32, emb=16, heads=2, n_layers=2, max_pos=256,
+                  seed=7):
+    """Decoder-only LM (reference testing/models.py:129): token + learned
+    position embeddings, ``n_layers`` blocks (fc q/k/v ->
+    causal_self_attention -> residual + layer_norm -> fc(2·emb, relu) ->
+    fc(emb) -> residual + layer_norm), a vocab logits head. Feeds
+    ``tokens`` / ``positions`` [b, seq, 1] int64, fetches logits [b, seq,
+    vocab]. Returns (main, startup, logits_var)."""
+    from .. import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    layers = fluid.layers
+    with fluid.program_guard(main, startup):
+        tokens = layers.data("tokens", shape=[-1, 1], dtype="int64")
+        positions = layers.data("positions", shape=[-1, 1], dtype="int64")
+        x = layers.elementwise_add(
+            layers.embedding(tokens, size=[vocab, emb]),
+            layers.embedding(positions, size=[max_pos, emb]))
+        for _ in range(n_layers):
+            q = layers.fc(x, size=emb, num_flatten_dims=2)
+            k = layers.fc(x, size=emb, num_flatten_dims=2)
+            v = layers.fc(x, size=emb, num_flatten_dims=2)
+            a = layers.causal_self_attention(q, k, v, num_heads=heads)
+            x = layers.layer_norm(layers.elementwise_add(x, a),
+                                  begin_norm_axis=2)
+            h = layers.fc(x, size=emb * 2, num_flatten_dims=2, act="relu")
+            h = layers.fc(h, size=emb, num_flatten_dims=2)
+            x = layers.layer_norm(layers.elementwise_add(x, h),
+                                  begin_norm_axis=2)
+        logits = layers.fc(x, size=vocab, num_flatten_dims=2)
+    return main, startup, logits
+
+
+def export_tiny_lm(dirname, scope=None, place=None, **kw):
+    """Build, initialize (on ``place``: the card unless ``CPUPlace()``)
+    and ``save_inference_model`` a tiny LM bundle at ``dirname`` (reference
+    testing/models.py:165). Returns (main, scope holding its parameters,
+    logits_var)."""
+    from .. import fluid
+
+    main, startup, logits = build_tiny_lm(**kw)
+    exe = fluid.Executor(place)
+    scope = scope or fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.io.save_inference_model(dirname, ["tokens", "positions"],
+                                  [logits], exe, main, scope=scope)
+    return main, scope, logits

@@ -53,12 +53,13 @@ def test_every_kernel_source_is_bound_built_and_checked():
     the card-side run builds and checks every kernel the port has:
     conv_affine, conv_bn_train, conv_bn_bwd, optimizer_arena (SGD,
     momentum and Adam), lstm_seq and gru_seq (forward and backward), ctc
-    (the alpha recurrence and its backward) and embedding_sgd."""
+    (the alpha recurrence and its backward), embedding_sgd and
+    paged_attention."""
     sources = sorted(p.stem for p in
                      (REPO / "paddle_tpu_torch" / "csrc").glob("*.cu"))
     assert sources == ["conv_affine", "conv_bn_bwd", "conv_bn_train", "ctc",
                        "embedding_sgd", "gru_seq", "lstm_seq",
-                       "optimizer_arena"]
+                       "optimizer_arena", "paged_attention"]
     wrappers = "\n".join(
         p.read_text() for p in
         (REPO / "paddle_tpu_torch" / "ops" / "cuda").glob("*.py"))
