@@ -71,15 +71,21 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               edit_distance.
 10. sparse   — embedding_sgd against its plain version, bitwise, at
               word2vec's table (2073 x 32, 128 Zipf-skewed ids with
-              duplicates and sentinel entries) and at a CTR-scale table
-              (a Criteo batch of 4096: one Zipf-drawn value of each of the
-              26 categorical fields from the field's own vocabulary,
-              hashed into one 1 000 000 x 64 table, 106 496 ids); an
-              all-sentinel call is the identity and untouched rows stay
-              bitwise; sgd_arena against its plain version, bitwise, over
-              word2vec's dense parameters and ResNet-50's. Times, unique
-              rows, bounds, and w.index_add_ and SGD(fused=True).step as
-              yardsticks.
+              duplicates and sentinel entries: the one-launch path), at a
+              CTR-scale table (a Criteo batch of 4096: one Zipf-drawn
+              value of each of the 26 categorical fields from the field's
+              own vocabulary, hashed into one 1 000 000 x 64 table,
+              106 496 ids: the library-sort path) and in a hot-run case
+              (5 000 entries of one id among 20 000 others, sentinels and
+              negative ids, into the same table); an all-sentinel call is
+              the identity and untouched rows stay bitwise; sgd_arena
+              against its plain version, bitwise, over word2vec's dense
+              parameters and ResNet-50's. Per call: the time, the host's
+              enqueue, and the profiler's device time of the kernel and of
+              the rest (the sort); unique rows, bounds, and w.index_add_
+              and SGD(fused=True).step as yardsticks; then 5 samples of
+              the call and of its yardstick, timed in turns, for the
+              spread of single samples.
 11. word2vec — tests/book/test_word2vec.py's N-gram model at the reference
               book test's widths (dict 2073, 4 context words, embedding 32,
               hidden 256, batch 32) with is_sparse=True and
@@ -283,6 +289,10 @@ CRITEO_VOCABS = (1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3,
                  93145, 5683, 8351593, 3194, 27, 14992, 5461306, 10, 5652,
                  2173, 4, 7046547, 18, 15, 286181, 105, 142572)
 CTR_BATCH, CTR_ROWS, CTR_DIM = 4096, 1_000_000, 64
+# phase 10's hot-run call into the CTR table: one id repeated HOT_RUN times
+# (a run of dozens of the kernel's staging chunks) among HOT_OTHERS uniform
+# ids, with sentinel and negative entries
+HOT_RUN, HOT_OTHERS = 5000, 20000
 
 # phases 12-13: the geometry and traffic of the reference's generation lane
 # (bench.py:1931 run_generation_serving_lane): a decoder LM of vocab 64,
@@ -1965,10 +1975,85 @@ def word2vec_feed(seed):
     return feed
 
 
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn`` by kernel name, {name: ms}, from
+    torch.profiler over ``reps`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            out[ev.key] = out.get(ev.key, 0.0) + dev_us / 1e3 / reps
+    return out
+
+
+def turns_ms(torch, fa, fb, rounds=5):
+    """time_ms of ``fa`` and ``fb`` in turns (a b b a a b ...): the samples
+    of each, in order, so the spread of single samples shows beside the
+    one the kernels line keeps."""
+    a, b = [], []
+    for i in range(rounds):
+        for f, out in ((fa, a), (fb, b)) if i % 2 == 0 else ((fb, b), (fa, a)):
+            out.append(time_ms(f, torch))
+    return a, b
+
+
+def samples(xs):
+    """``xs`` (ms) for a log line: the samples, then min / median / max."""
+    m = sorted(xs)
+    return (f"[{', '.join(f'{x:.4f}' for x in xs)}] (min {m[0]:.4f}, "
+            f"median {m[len(m) // 2]:.4f}, max {m[-1]:.4f})")
+
+
+def host_ms(torch, fn, reps=50):
+    """Host time per call of ``fn``: the wall time of ``reps`` calls that
+    only enqueue their work (no sync between them), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def split_device(times, kernel):
+    """(ms of the kernels whose name holds ``kernel``, ms of the rest, the
+    rest's names by time)."""
+    mine = sum(v for k, v in times.items() if kernel in k)
+    rest = sorted(((v, k) for k, v in times.items() if kernel not in k),
+                  reverse=True)
+    return mine, sum(v for v, _ in rest), [k[:60] for _, k in rest[:4]]
+
+
+def hot_ids(rng):
+    """Phase 10's hot-run call: HOT_RUN entries of one row among
+    HOT_OTHERS uniform rows of the CTR table, with sentinel and negative
+    entries, shuffled."""
+    import numpy as np
+    rows = np.concatenate([np.full(HOT_RUN, 7), rng.randint(
+        0, CTR_ROWS, HOT_OTHERS), [CTR_ROWS, CTR_ROWS + 5, -1, -3] * 16])
+    return rng.permutation(rows)
+
+
 def phase_sparse_kernels(torch, fluid, seed, card):
     """embedding_sgd and sgd_arena against their plain versions, bitwise,
-    then their times. Returns {kernel: numbers for the kernels line}, at
-    word2vec's shapes (the main path's)."""
+    then their times: per call (time_ms, one sample each, as the kernels
+    line of every phase takes it), the host's enqueue, and the device time
+    of the kernel and of the rest (the library sort) from the profiler;
+    then the kernel and its library yardstick timed again in turns, 5
+    samples each, for the spread. Returns {kernel: numbers for the kernels
+    line}, at word2vec's shapes (the main path's)."""
     import numpy as np
     from paddle_tpu_torch.ops.cuda import embedding as embk
     from paddle_tpu_torch.ops.cuda import optimizer as opk
@@ -1985,10 +2070,11 @@ def phase_sparse_kernels(torch, fluid, seed, card):
     w2v_rows = zipf_ids(rng, W2V_DICT, n_w2v)
     w2v_rows[rng.choice(n_w2v, W2V_SENTINELS, replace=False)] = W2V_DICT
     cases = [("word2vec", W2V_DICT, W2V_EMB, w2v_rows),
-             ("CTR", CTR_ROWS, CTR_DIM, ctr_ids(rng))]
+             ("CTR", CTR_ROWS, CTR_DIM, ctr_ids(rng)),
+             ("hot run", CTR_ROWS, CTR_DIM, hot_ids(rng))]
     for name, v, d, rows_np in cases:
         rows = torch.from_numpy(rows_np.astype("int64")).to(dev)
-        real = rows_np[rows_np < v]
+        real = rows_np[(rows_np >= 0) & (rows_np < v)]
         uniq, counts = np.unique(real, return_counts=True)
         n, u = len(rows_np), len(uniq)
         w = torch.randn((v, d), generator=gen, device=dev) * 0.05
@@ -2011,30 +2097,42 @@ def phase_sparse_kernels(torch, fluid, seed, card):
         if not torch.equal(same, w):
             fail(f"embedding_sgd at {name}'s shape: an all-sentinel call "
                  "changed the table")
+        path = embk.sort_path(n, v)
         log(f"{name}: table [{v}, {d}], {n} entries ({n - len(real)} "
-            f"sentinels), {u} unique rows, longest run {counts.max()}: "
-            "bitwise equal; all-sentinel call the identity; untouched rows "
-            "unchanged")
+            f"sentinels or negative), {u} unique rows, longest run "
+            f"{counts.max()}, path {path}: bitwise equal; all-sentinel call "
+            "the identity; untouched rows unchanged")
+        keep = torch.from_numpy(np.flatnonzero((rows_np >= 0)
+                                               & (rows_np < v))).to(dev)
         lib_w = w.clone()
-        lib_rows = torch.from_numpy(real.astype("int64")).to(dev)
-        lib_vals = vals[torch.from_numpy(
-            np.flatnonzero(rows_np < v)).to(dev)].contiguous()
-        t = dict(max_abs_err=0.0,
-                 ms=time_ms(lambda: embk.embedding_sgd(got, rows, vals, lr),
-                            torch),
+        lib_rows, lib_vals = rows[keep], vals[keep].contiguous()
+
+        def call():
+            embk.embedding_sgd(got, rows, vals, lr)
+
+        def lib():
+            lib_w.index_add_(0, lib_rows, lib_vals, alpha=-W2V_LR)
+
+        t = dict(max_abs_err=0.0, ms=time_ms(call, torch),
                  plain_ms=time_ms(lambda: embk.embedding_sgd_torch(
                      w, rows, vals, lr), torch),
-                 library_ms=time_ms(lambda: lib_w.index_add_(
-                     0, lib_rows, lib_vals, alpha=-W2V_LR), torch))
+                 library_ms=time_ms(lib, torch))
         # bytes: each unique row read and written, each entry's values and
         # row index read
         t["bound_ms"], t["bound_by"] = bound_ms(0, 8 * u * d + 4 * n * d
                                                 + 8 * n)
-        log(f"embedding_sgd at {name}'s shape per call: kernel "
-            f"{t['ms']:.4f} ms (its sort included), plain "
-            f"{t['plain_ms']:.4f} ms, w.index_add_ on the unmerged entries "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']})")
+        kern, rest, names = split_device(device_ms(torch, call),
+                                         "embedding_sgd")
+        lib_dev = sum(device_ms(torch, lib).values())
+        log(f"embedding_sgd at {name}'s shape per call: {t['ms']:.4f} ms "
+            f"(host enqueue {host_ms(torch, call):.4f} ms; device: kernel "
+            f"{kern:.4f} ms, sort and keys {rest:.4f} ms {names}), plain "
+            f"{t['plain_ms']:.4f} ms, w.index_add_ on the kept entries "
+            f"{t['library_ms']:.4f} ms (device {lib_dev:.4f} ms), bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}) | {card}")
+        ka, la = turns_ms(torch, call, lib)
+        log(f"embedding_sgd at {name}'s shape, in turns with index_add_: "
+            f"per call {samples(ka)} ms; index_add_ {samples(la)} ms")
         if name == "word2vec":
             out["embedding_sgd"] = t
         del w, got, want, same, lib_w
@@ -2050,8 +2148,10 @@ def phase_sparse_kernels(torch, fluid, seed, card):
         gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3
               for p in params]
         want = opk.sgd_arena_torch(ps, gs, lr)
+        before = opk.launches["sgd_arena"]
         got = opk.sgd_arena([p.clone() for p in ps], gs, lr)
         torch.cuda.synchronize()
+        n_launch = opk.launches["sgd_arena"] - before
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             diff = max((a - b).abs().max().item() for a, b in zip(got, want))
             fail(f"sgd_arena over {name}'s parameters differs from "
@@ -2060,17 +2160,29 @@ def phase_sparse_kernels(torch, fluid, seed, card):
         for p, g in zip(lib_ps, gs):
             p.grad = g
         sgd = torch.optim.SGD(lib_ps, lr=W2V_LR, fused=True)
-        t = dict(max_abs_err=0.0,
-                 ms=time_ms(lambda: opk.sgd_arena(got, gs, lr), torch),
+
+        def call():
+            opk.sgd_arena(got, gs, lr)
+
+        t = dict(max_abs_err=0.0, ms=time_ms(call, torch),
                  plain_ms=time_ms(lambda: opk.sgd_arena_torch(ps, gs, lr),
                                   torch),
                  library_ms=time_ms(sgd.step, torch))
         t["bound_ms"], t["bound_by"] = bound_ms(0, 12 * nelem)
+        kern, _, _ = split_device(device_ms(torch, call), "sgd_arena")
+        lib_dev = sum(device_ms(torch, sgd.step).values())
         log(f"sgd_arena over {name}'s {len(ps)} dense tensors ({nelem} "
-            f"elements): bitwise equal; per step kernel {t['ms']:.4f} ms, "
+            f"elements): bitwise equal, {n_launch} launch(es); per step "
+            f"{t['ms']:.4f} ms (host enqueue {host_ms(torch, call):.4f} ms, "
+            f"kernel device {kern:.4f} ms = "
+            f"{t['bound_ms'] / kern if kern else 0:.1%} of the bound), "
             f"plain {t['plain_ms']:.4f} ms, SGD(fused=True) "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']})")
+            f"{t['library_ms']:.4f} ms (host enqueue "
+            f"{host_ms(torch, sgd.step):.4f} ms, device {lib_dev:.4f} ms), "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}) | {card}")
+        ka, la = turns_ms(torch, call, sgd.step)
+        log(f"sgd_arena over {name}'s set, in turns with SGD(fused=True): "
+            f"per step {samples(ka)} ms; SGD(fused=True) {samples(la)} ms")
         if name == "word2vec":
             out["sgd_arena"] = t
     return out

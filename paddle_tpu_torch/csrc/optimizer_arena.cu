@@ -1,5 +1,6 @@
 // optimizer_arena: the SGD, momentum and Adam updates of every dense float32
-// parameter, ONE launch each, for Hopper (sm_90a).
+// parameter, one launch each (more only for a list longer than one launch's
+// table holds), for Hopper (sm_90a).
 //
 // Replaces paddle_tpu/ops/pallas/optimizer.py::sgd_arena_pallas
 // (_arena_call with _sgd_kernel): p' = p - lr * g; momentum_arena_pallas
@@ -14,11 +15,27 @@
 //
 // The Pallas kernel needs one flat operand, so the reference concatenates
 // params, grads and velocities into arenas (flatten_arena) and slices the
-// results back out (split_arena). Here one launch walks a device table of
+// results back out (split_arena). Here a launch walks a table of
 // (p, g, state..., numel, first chunk) rows, one per parameter, and updates
-// p and its state IN PLACE: the same function with no concatenation or split copies. Each
-// block takes one CHUNK of one parameter, found by a binary search over the
-// rows' first chunks.
+// p and its state IN PLACE: the same function with no concatenation or
+// split copies. The table travels in the launch's parameter space (a
+// __grid_constant__ struct of TABLE_BYTES, which needs CUDA 12.1 or later:
+// sm_90 takes 32 764 bytes of kernel parameters from there), filled by the
+// C entry from the caller's host columns, so a call uploads nothing and
+// allocates nothing. A CHUNK of a parameter is found by a binary search
+// over the rows' first chunks, read from the parameter space.
+//
+// Bound on the H100: bytes. SGD reads p, g and writes p: 12 bytes per
+// parameter element; momentum reads p, g, v and writes p, v: 20 bytes;
+// Adam reads p, g, m1, m2 and writes p, m1, m2: 28 bytes; against
+// 3.35 TB/s. sgd_arena is shaped for it: a grid of CTAS_PER_SM CTAs an SM
+// strides over the chunks, and each thread issues its UNROLL float4 loads
+// of g and of p together before it computes and stores (p and g are
+// __restrict__, so no load waits on an earlier store); a chunk whose p and
+// g are not equally aligned to 16 bytes, and the scalar head and tail of
+// one whose base or end is not, take scalar loads. momentum_arena and
+// adam_arena keep one block a chunk and one scalar element a thread at a
+// time.
 //
 // Numerics: explicit round-to-nearest multiplies and adds, so no FMA
 // contraction separates the kernel from the per-parameter PyTorch
@@ -28,35 +45,45 @@
 // its plain version agree bitwise. lr and the beta powers are read from
 // their device tensors, so the step never waits on the host.
 //
-// Bound on the H100: bytes. SGD reads p, g and writes p: 12 bytes per
-// parameter element; momentum reads p, g, v and writes p, v: 20 bytes;
-// Adam reads p, g, m1, m2 and writes p, m1, m2: 28 bytes; against
-// 3.35 TB/s.
-//
-// The C entry returns cudaGetLastError() after the launch; the caller
-// uploads the table and passes its stream. The kernel allocates nothing.
+// The C entries return cudaGetLastError() after the launch. The kernels
+// allocate nothing.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int CHUNK = 4096;   // elements per block (ops/cuda/optimizer.py)
+constexpr int CHUNK = 4096;   // elements a chunk (ops/cuda/optimizer.py)
 constexpr int THREADS = 256;
+constexpr int UNROLL = CHUNK / 4 / THREADS;  // float4 pieces a thread
+constexpr int CTAS_PER_SM = 4;
 constexpr int SGD_ROW = 4;        // p, g, numel, first chunk (int64)
 constexpr int MOMENTUM_ROW = 5;   // p, g, v, numel, first chunk
 constexpr int ADAM_ROW = 6;       // p, g, m1, m2, numel, first chunk
+// kernel parameter space: 32 764 bytes from CUDA 12.1 on sm_70 and later;
+// the other arguments take under 64
+#if CUDART_VERSION < 12010
+#error "optimizer_arena.cu needs CUDA 12.1 or later (32 KB kernel parameters)"
+#endif
+constexpr int TABLE_BYTES = 32640;
 
-// This block's chunk: its table row (found by a binary search over the
-// rows' first chunks) and its element range [start, end) in the row's
-// parameter.
+// A launch's table: up to ROWS rows of ROW int64, by value.
+template <int ROW>
+struct Table {
+  static constexpr int ROWS = TABLE_BYTES / (8 * ROW);
+  long long v[ROWS * ROW];
+};
+
+// A chunk's table row (found by a binary search over the rows' first
+// chunks) and its element range [start, end) in the row's parameter.
 struct Span {
   const long long* row;
   long long start, end;
 };
 
 template <int ROW>
-__device__ Span find_span(const long long* table, int rows) {
-  const long long chunk = blockIdx.x;
+__device__ Span find_span(const long long* table, int rows,
+                          long long chunk) {
   int lo = 0, hi = rows - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
@@ -71,21 +98,64 @@ __device__ Span find_span(const long long* table, int rows) {
   return {row, start, start + CHUNK < numel ? start + CHUNK : numel};
 }
 
-__global__ void __launch_bounds__(THREADS)
-sgd_arena_kernel(const long long* __restrict__ table, int rows,
-                 const float* __restrict__ lr) {
-  const Span s = find_span<SGD_ROW>(table, rows);
-  float* p = reinterpret_cast<float*>(s.row[0]);
-  const float* g = reinterpret_cast<const float*>(s.row[1]);
-  const float lrv = *lr;
-  for (long long i = s.start + threadIdx.x; i < s.end; i += THREADS)
+__device__ void sgd_chunk(float* __restrict__ p, const float* __restrict__ g,
+                          long long start, long long end, float lrv) {
+  const int t = threadIdx.x;
+  // the float4 body [b0, b1): from the first 16-byte boundary, whole
+  // float4s; empty when p and g are not equally aligned
+  long long b0 = start, b1 = start;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(p + start);
+  if (((pa ^ reinterpret_cast<uintptr_t>(g + start)) & 15) == 0) {
+    const long long head = static_cast<long long>((16 - (pa & 15)) & 15) / 4;
+    b0 = start + head < end ? start + head : end;
+    b1 = b0 + ((end - b0) & ~3LL);
+  }
+  for (long long i = start + t; i < b0; i += THREADS)
     p[i] = __fsub_rn(p[i], __fmul_rn(lrv, g[i]));
+  for (long long i = b1 + t; i < end; i += THREADS)
+    p[i] = __fsub_rn(p[i], __fmul_rn(lrv, g[i]));
+  const int n4 = static_cast<int>((b1 - b0) >> 2);
+  float4* __restrict__ p4 = reinterpret_cast<float4*>(p + b0);
+  const float4* __restrict__ g4 = reinterpret_cast<const float4*>(g + b0);
+  float4 pv[UNROLL], gv[UNROLL];
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int i = t + u * THREADS;
+    if (i < n4) {
+      gv[u] = g4[i];
+      pv[u] = p4[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) {
+    const int i = t + u * THREADS;
+    if (i < n4) {
+      float4 r;
+      r.x = __fsub_rn(pv[u].x, __fmul_rn(lrv, gv[u].x));
+      r.y = __fsub_rn(pv[u].y, __fmul_rn(lrv, gv[u].y));
+      r.z = __fsub_rn(pv[u].z, __fmul_rn(lrv, gv[u].z));
+      r.w = __fsub_rn(pv[u].w, __fmul_rn(lrv, gv[u].w));
+      p4[i] = r;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
-momentum_arena_kernel(const long long* __restrict__ table, int rows,
-                      const float* __restrict__ lr, float mu, int nesterov) {
-  const Span s = find_span<MOMENTUM_ROW>(table, rows);
+sgd_arena_kernel(const __grid_constant__ Table<SGD_ROW> table, int rows,
+                 int chunks, const float* __restrict__ lr) {
+  const float lrv = *lr;
+  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const Span s = find_span<SGD_ROW>(table.v, rows, chunk);
+    sgd_chunk(reinterpret_cast<float*>(s.row[0]),
+              reinterpret_cast<const float*>(s.row[1]), s.start, s.end, lrv);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+momentum_arena_kernel(const __grid_constant__ Table<MOMENTUM_ROW> table,
+                      int rows, const float* __restrict__ lr, float mu,
+                      int nesterov) {
+  const Span s = find_span<MOMENTUM_ROW>(table.v, rows, blockIdx.x);
   float* p = reinterpret_cast<float*>(s.row[0]);
   const float* g = reinterpret_cast<const float*>(s.row[1]);
   float* v = reinterpret_cast<float*>(s.row[2]);
@@ -103,12 +173,12 @@ momentum_arena_kernel(const long long* __restrict__ table, int rows,
 }
 
 __global__ void __launch_bounds__(THREADS)
-adam_arena_kernel(const long long* __restrict__ table, int rows,
+adam_arena_kernel(const __grid_constant__ Table<ADAM_ROW> table, int rows,
                   const float* __restrict__ lr,
                   const float* __restrict__ beta1_pow,
                   const float* __restrict__ beta2_pow, float b1, float c1,
                   float b2, float c2, float eps) {
-  const Span s = find_span<ADAM_ROW>(table, rows);
+  const Span s = find_span<ADAM_ROW>(table.v, rows, blockIdx.x);
   float* p = reinterpret_cast<float*>(s.row[0]);
   const float* g = reinterpret_cast<const float*>(s.row[1]);
   float* m1 = reinterpret_cast<float*>(s.row[2]);
@@ -130,43 +200,81 @@ adam_arena_kernel(const long long* __restrict__ table, int rows,
   }
 }
 
+// Launch `launch(table)` with the table's n rows of ROW filled from the
+// caller's ROW columns of n (cols[k * n + r] is row r's k-th entry).
+// Returns cudaGetLastError().
+template <int ROW, class F>
+int with_table(const long long* cols, int n, F launch) {
+  using T = Table<ROW>;
+  if (n < 1 || n > T::ROWS) return (int)cudaErrorInvalidValue;
+  T t;
+  for (int r = 0; r < n; ++r)
+    for (int k = 0; k < ROW; ++k) t.v[r * ROW + k] = cols[k * n + r];
+  launch(t);
+  return (int)cudaGetLastError();
+}
+
+int sm_count() {
+  static int counts[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
+
 }  // namespace
 
 extern "C" {
 
-// table: [rows, 4] int64 (p, g, numel, first chunk) on the device; chunks:
-// the total number of CHUNK blocks over all rows; lr: one float32 on the
-// device. Returns cudaGetLastError() (0 = success).
+// The most rows one launch's table holds, for rows of `width` int64.
+int arena_max_rows(int width) {
+  return width > 0 ? TABLE_BYTES / (8 * width) : 0;
+}
+
+// table: [4, rows] int64 columns (p, g, numel, first chunk) in host memory,
+// laid out as rows in the launch; chunks: the number of CHUNK pieces over
+// all rows; lr: one float32 on the device. Returns cudaGetLastError()
+// (0 = success).
 int sgd_arena(const long long* table, int rows, int chunks, const float* lr,
               void* stream) {
-  if (rows < 1 || chunks < 1) return (int)cudaErrorInvalidValue;
-  sgd_arena_kernel<<<chunks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, rows, lr);
-  return (int)cudaGetLastError();
+  if (chunks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int max_grid = sm_count() * CTAS_PER_SM;
+  const int grid = chunks < max_grid ? chunks : max_grid;
+  return with_table<SGD_ROW>(table, rows, [&](const Table<SGD_ROW>& t) {
+    sgd_arena_kernel<<<grid, THREADS, 0, s>>>(t, rows, chunks, lr);
+  });
 }
 
-// table: [rows, 5] int64 (p, g, v, numel, first chunk) on the device;
-// otherwise as sgd_arena. Returns cudaGetLastError().
+// table: [5, rows] int64 columns (p, g, v, numel, first chunk) in host
+// memory; otherwise as sgd_arena. Returns cudaGetLastError().
 int momentum_arena(const long long* table, int rows, int chunks,
                    const float* lr, float mu, int nesterov, void* stream) {
-  if (rows < 1 || chunks < 1) return (int)cudaErrorInvalidValue;
-  momentum_arena_kernel<<<chunks, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      table, rows, lr, mu, nesterov);
-  return (int)cudaGetLastError();
+  if (chunks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_table<MOMENTUM_ROW>(
+      table, rows, [&](const Table<MOMENTUM_ROW>& t) {
+        momentum_arena_kernel<<<chunks, THREADS, 0, s>>>(t, rows, lr, mu,
+                                                         nesterov);
+      });
 }
 
-// table: [rows, 6] int64 (p, g, m1, m2, numel, first chunk) on the device;
-// lr, beta1_pow, beta2_pow: one float32 each on the device; c1 = 1 - b1 and
+// table: [6, rows] int64 columns (p, g, m1, m2, numel, first chunk) in host
+// memory; lr, beta1_pow, beta2_pow: one float32 each on the device; c1 = 1 - b1 and
 // c2 = 1 - b2 as the caller rounded them. Returns cudaGetLastError().
 int adam_arena(const long long* table, int rows, int chunks, const float* lr,
                const float* beta1_pow, const float* beta2_pow, float b1,
                float c1, float b2, float c2, float eps, void* stream) {
-  if (rows < 1 || chunks < 1) return (int)cudaErrorInvalidValue;
-  adam_arena_kernel<<<chunks, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      table, rows, lr, beta1_pow, beta2_pow, b1, c1, b2, c2, eps);
-  return (int)cudaGetLastError();
+  if (chunks < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_table<ADAM_ROW>(table, rows, [&](const Table<ADAM_ROW>& t) {
+    adam_arena_kernel<<<chunks, THREADS, 0, s>>>(
+        t, rows, lr, beta1_pow, beta2_pow, b1, c1, b2, c2, eps);
+  });
 }
 
 const char* kernel_error_string(int err) {

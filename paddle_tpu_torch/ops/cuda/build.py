@@ -1,4 +1,5 @@
-"""Builds the hand-written CUDA kernels and loads them with ctypes.
+"""Builds the hand-written CUDA kernels, loads them with ctypes, and calls
+their C entries on PyTorch's current stream.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface under ``build/torch_kernels/`` at the repository root (a
@@ -23,6 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_RAW_STREAM = []
 
 
 def _nvcc():
@@ -81,3 +83,25 @@ def load(name) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def _raw_stream(index):
+    """The cudaStream_t of device ``index``'s current stream, as an int."""
+    if not _RAW_STREAM:
+        import torch
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        _RAW_STREAM.append(raw if raw is not None else
+                           lambda i: torch.cuda.current_stream(i).cuda_stream)
+    return _RAW_STREAM[0](index)
+
+
+def call_on(dev, fn, *args):
+    """``fn(*args, stream)``: a C entry that launches on ``stream``, called
+    with ``dev``'s current stream and ``dev`` the current device (made so
+    only where it is not already). Returns what ``fn`` returns."""
+    import torch
+    cur = torch.cuda.current_device()
+    if dev.index is None or dev.index == cur:
+        return fn(*args, _raw_stream(cur))
+    with torch.cuda.device(dev.index):
+        return fn(*args, _raw_stream(dev.index))

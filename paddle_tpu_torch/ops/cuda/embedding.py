@@ -11,9 +11,14 @@ the float32 learning rate. For each unique row r it applies
 the entries' order: the reference's sparse SGD branch under its Pallas
 tier (merge, then the row update). Every other row stays bitwise as it was.
 
-On CUDA tensors it sorts the rows stably and launches
-``csrc/embedding_sgd.cu`` once, which sums each run of equal rows and
-updates the table IN PLACE, returning ``w``; nothing waits on the host.
+On CUDA tensors it updates the table IN PLACE and returns ``w``; nothing
+waits on the host. A call of at most ``FUSED_MAX`` entries is one launch of
+``csrc/embedding_sgd.cu``'s ``embedding_sgd_fused``, which sorts the entries
+itself; a larger one is one call of ``embedding_sgd_sorted``, which sorts
+the rows stably with the toolkit's radix sort (4-byte keys where the table
+has fewer than 2**32 - 1 rows) in a workspace the wrapper allocates, then
+launches the update. Either sums each run of equal rows in entry order and
+writes the row once (``sort_path`` picks the path).
 On CPU tensors it runs the plain version, ``embedding_sgd_torch``, the
 same function in PyTorch ops (``core/sparse.py::merge_rows``, then the
 row update), which returns a new table. ``embedding_sgd_scatter`` is the
@@ -61,12 +66,27 @@ def embedding_sgd_scatter(w, rows, vals, lr):
     return scatter_rows(w, rows, -lr * vals.to(w.dtype), accumulate=True)
 
 
+# the one-launch path's entry limit (csrc/embedding_sgd.cu FUSED_MAX)
+FUSED_MAX = 1024
+
+
+def sort_path(n, nrows):
+    """Where ``n`` entries into an ``nrows``-row table are sorted: "fused"
+    (in the one launch, n <= FUSED_MAX), "keys32" (the library radix sort
+    of 4-byte keys, the rows clamped to [-1, nrows] plus 1, where nrows <
+    2**32 - 1) or "keys64" (the same with 8-byte keys)."""
+    if n <= FUSED_MAX and nrows < 2 ** 53:
+        return "fused"
+    return "keys32" if nrows < 2 ** 32 - 1 else "keys64"
+
+
 def _vec(w, vals):
-    """Columns per lane: float2 loads from D 64, when D and both base
-    pointers allow them."""
-    d = w.shape[1]
-    if d >= 64 and d % 2 == 0 and w.data_ptr() % 8 == 0 \
-            and vals.data_ptr() % 8 == 0:
+    """Columns a copy or a lane's load takes: 4 (16-byte pieces) where D
+    and the values' base pointer allow them, else 2, else 1."""
+    d, ptr = w.shape[1], vals.data_ptr()
+    if d % 4 == 0 and ptr % 16 == 0:
+        return 4
+    if d % 2 == 0 and ptr % 8 == 0:
         return 2
     return 1
 
@@ -91,28 +111,58 @@ def embedding_sgd(w, rows, vals, lr):
             and lr.numel() == 1 and lr.device == dev):
         raise ValueError("embedding_sgd: the learning rate must be a "
                          f"one-element float32 tensor on {dev}")
-    if rows.shape[0] == 0:
-        return w
-    srows, order = torch.sort(rows, stable=True)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.embedding_sgd(
-            w.data_ptr(), w.shape[0], w.shape[1], srows.data_ptr(),
-            order.data_ptr(), vals.data_ptr(), rows.shape[0], lr.data_ptr(),
-            _vec(w, vals), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"embedding_sgd launch failed: CUDA error {err} "
-                           f"({lib.kernel_error_string(err).decode()})")
-    launches["embedding_sgd"] += 1
+    n = rows.shape[0]
+    if n:
+        _launch(w, rows, vals, lr, sort_path(n, w.shape[0]))
     return w
 
 
-def _lib():
-    lib = _build.load("embedding_sgd")
-    if lib.embedding_sgd.argtypes is None:
+def _launch(w, rows, vals, lr, path):
+    """One kernel launch for the checked operands, sorted as ``path``
+    says (``sort_path``)."""
+    fused, sorted_, workspace, error_string = _entries()
+    v, d = w.shape
+    n = rows.shape[0]
+    if path == "fused":
+        err = _build.call_on(w.device, fused, w.data_ptr(), v, d,
+                             rows.data_ptr(), vals.data_ptr(), n,
+                             lr.data_ptr(), _vec(w, vals))
+    else:
+        key_bytes = 4 if path == "keys32" else 8
+        nbytes = workspace(n, v, key_bytes)
+        if nbytes <= 0:
+            raise ValueError(f"embedding_sgd: {n} entries into {v} rows "
+                             "are past the sorted path's limits")
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=w.device)
+        err = _build.call_on(w.device, sorted_, w.data_ptr(), v, d,
+                             rows.data_ptr(), key_bytes, vals.data_ptr(), n,
+                             lr.data_ptr(), _vec(w, vals), buf.data_ptr(),
+                             nbytes)
+    if err != 0:
+        raise RuntimeError(f"embedding_sgd launch failed: CUDA error {err} "
+                           f"({error_string(err).decode()})")
+    launches["embedding_sgd"] += 1
+
+
+_ENTRIES = []
+
+
+def _entries():
+    """The C entries (fused, sorted, workspace size, error string), typed
+    once."""
+    if not _ENTRIES:
+        lib = _build.load("embedding_sgd")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.embedding_sgd.argtypes = [p, ll, i, p, p, p, ll, p, i, p]
-        lib.embedding_sgd.restype = i
+        lib.embedding_sgd_fused.argtypes = [p, ll, i, p, p, ll, p, i, p]
+        lib.embedding_sgd_fused.restype = i
+        lib.embedding_sgd_sorted.argtypes = [p, ll, i, p, i, p, ll, p, i, p,
+                                             ll, p]
+        lib.embedding_sgd_sorted.restype = i
+        lib.embedding_sgd_workspace.argtypes = [ll, ll, i]
+        lib.embedding_sgd_workspace.restype = ll
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+        _ENTRIES.extend([lib.embedding_sgd_fused, lib.embedding_sgd_sorted,
+                         lib.embedding_sgd_workspace,
+                         lib.kernel_error_string])
+    return _ENTRIES

@@ -13,9 +13,12 @@ applies ``m1' = b1·m1 + (1−b1)·g``, ``m2' = b2·m2 + (1−b2)·g·g`` and
 ``lr_eff = lr·sqrt(1 − beta2_pow) / (1 − beta1_pow)``.
 
 On CUDA tensors each launches ``csrc/optimizer_arena.cu`` once for the
-whole list and updates the parameters and their state IN PLACE, returning
-the same tensors; the reference is functional and concatenates the state
-into one flat arena first, which the kernels do not need. On CPU tensors
+whole list (once per ``arena_max_rows`` parameters of a longer one) and
+updates the parameters and their state IN PLACE, returning the same
+tensors; the reference is functional and concatenates the state into one
+flat arena first, which the kernels do not need. The wrapper packs the
+parameters' pointers into a host table (``pack_table``) that the C entry
+hands to the launch by value: no upload, no allocation. On CPU tensors
 they run the per-parameter expression (``sgd_arena_torch``,
 ``momentum_arena_torch``, ``adam_arena_torch``), which returns new
 tensors.
@@ -24,6 +27,9 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+from array import array
+from itertools import accumulate, chain
+from operator import attrgetter
 
 import torch
 
@@ -34,6 +40,9 @@ launches = {"sgd_arena": 0, "momentum_arena": 0, "adam_arena": 0}
 
 # elements per block of the kernels (csrc/optimizer_arena.cu CHUNK)
 _CHUNK = 4096
+_CHUNK_UP = (_CHUNK - 1).__add__
+_T, _DTYPE = torch.Tensor, attrgetter("dtype")
+_F32 = frozenset({torch.float32})
 
 
 def reset_launches():
@@ -96,11 +105,47 @@ def adam_arena_torch(ps, gs, m1s, m2s, lr, beta1_pow, beta2_pow, b1, b2,
     return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
 
 
-def _table(name, ps, state, scalars):
-    """The device table of (p, g, state..., numel, first chunk) rows, one
-    per parameter, and the total chunk count. Every tensor must be a
-    contiguous float32 tensor of its parameter's shape on the scalars'
-    device."""
+def _gather(name, lists, dev):
+    """Check every tensor of ``lists`` (the params, then the grads and each
+    state list), a column at a time: each a contiguous float32 tensor of
+    its param's shape on ``dev``. Returns (pointer columns, numels), lists
+    of ints."""
+    di = dev.index if dev.type == "cuda" else -1
+    ps = lists[0]
+    for ts in lists:
+        if not _F32.issuperset(map(_DTYPE, ts)) \
+                or not {di}.issuperset(map(_T.get_device, ts)) \
+                or not all(map(_T.is_contiguous, ts)) \
+                or ts is not ps and not all(map(_T.is_same_size, ts, ps)):
+            raise ValueError(
+                f"{name}: each param, grad and state tensor must be a "
+                f"contiguous float32 tensor of its param's shape on {dev}")
+    return ([list(map(_T.data_ptr, ts)) for ts in lists],
+            list(map(_T.numel, ps)))
+
+
+def pack_table(columns, numels, max_rows):
+    """The host tables of the launches, one for each ``max_rows`` rows:
+    [(table, rows, chunks)]. A table is a flat array('q') of columns, row
+    count apart: each pointer column, then the numels, then the first
+    chunks (the prefix sum of the parameters' CHUNK pieces, from 0 in each
+    launch); the C entry lays them out as rows in the launch."""
+    counts = list(map(_CHUNK.__rfloordiv__, map(_CHUNK_UP, numels)))
+    parts = []
+    for r0 in range(0, len(numels), max_rows):
+        r1 = r0 + max_rows
+        firsts = list(accumulate(counts[r0:r1], initial=0))
+        chunks = firsts.pop()
+        table = array("q", chain(*(c[r0:r1] for c in columns),
+                                 numels[r0:r1], firsts))
+        parts.append((table, len(firsts), chunks))
+    return parts
+
+
+def _run(name, entry, ps, state, scalars, *args):
+    """Check and pack the list, then launch the C entry ``entry``
+    (table, rows, chunks, scalar pointers..., *args, stream) once per
+    ``pack_table`` table that has work; count the launches."""
     if not ps or any(len(s) != len(ps) for s in state):
         raise ValueError(f"{name}: needs equal, non-empty lists of params, "
                          "grads and state")
@@ -109,29 +154,19 @@ def _table(name, ps, state, scalars):
         if s.dtype != torch.float32 or s.numel() != 1 or s.device != dev:
             raise ValueError(f"{name}: the learning rate (and beta powers) "
                              f"must be one-element float32 tensors on {dev}")
-    rows, chunks = [], 0
-    for i, p in enumerate(ps):
-        ts = [p] + [s[i] for s in state]
-        for t in ts:
-            if t.dtype != torch.float32 or t.device != dev \
-                    or not t.is_contiguous() or t.shape != p.shape:
-                raise ValueError(
-                    f"{name}: each param, grad and state tensor must be a "
-                    f"contiguous float32 tensor of its param's shape on "
-                    f"{dev}")
-        rows.append([t.data_ptr() for t in ts] + [p.numel(), chunks])
-        chunks += -(-p.numel() // _CHUNK)
-    # the table goes up through pinned memory, so the copy does not wait
-    # for the work queued before it
-    table = torch.tensor(rows, dtype=torch.int64).pin_memory() \
-        .to(dev, non_blocking=True)
-    return table, len(rows), chunks, dev
-
-
-def _raise_on(lib, err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.kernel_error_string(err).decode()})")
+    columns, numels = _gather(name, [ps] + state, dev)
+    lib = _lib()
+    args = [s.data_ptr() for s in scalars] + list(args)
+    for table, n, c in pack_table(columns, numels, _max_rows(len(state) + 3)):
+        if c == 0:
+            continue
+        err = _build.call_on(dev, getattr(lib, entry),
+                             table.buffer_info()[0], n, c, *args)
+        if err != 0:
+            raise RuntimeError(
+                f"{name} launch failed: CUDA error {err} "
+                f"({lib.kernel_error_string(err).decode()})")
+        launches[name] += 1
 
 
 def sgd_arena(ps, gs, lr):
@@ -140,13 +175,7 @@ def sgd_arena(ps, gs, lr):
     params."""
     if ps and ps[0].device.type == "cpu":
         return sgd_arena_torch(ps, gs, lr)
-    table, rows, chunks, dev = _table("sgd_arena", ps, [gs], [lr])
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.sgd_arena(table.data_ptr(), rows, chunks, lr.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "sgd_arena")
-    launches["sgd_arena"] += 1
+    _run("sgd_arena", "sgd_arena", ps, [gs], [lr])
     return list(ps)
 
 
@@ -156,15 +185,8 @@ def momentum_arena(ps, gs, vs, lr, mu, nesterov):
     a Python float. Returns (params, velocities)."""
     if ps and ps[0].device.type == "cpu":
         return momentum_arena_torch(ps, gs, vs, lr, mu, nesterov)
-    table, rows, chunks, dev = _table("momentum_arena", ps, [gs, vs], [lr])
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.momentum_arena(
-            table.data_ptr(), rows, chunks, lr.data_ptr(),
-            ctypes.c_float(mu), int(bool(nesterov)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "momentum_arena")
-    launches["momentum_arena"] += 1
+    _run("momentum_arena", "momentum_arena", ps, [gs, vs], [lr],
+         ctypes.c_float(mu), int(bool(nesterov)))
     return list(ps), list(vs)
 
 
@@ -176,26 +198,33 @@ def adam_arena(ps, gs, m1s, m2s, lr, beta1_pow, beta2_pow, b1, b2, eps):
     if ps and ps[0].device.type == "cpu":
         return adam_arena_torch(ps, gs, m1s, m2s, lr, beta1_pow, beta2_pow,
                                 b1, b2, eps)
-    table, rows, chunks, dev = _table("adam_arena", ps, [gs, m1s, m2s],
-                                      [lr, beta1_pow, beta2_pow])
-    lib = _lib()
     f = ctypes.c_float
-    with torch.cuda.device(dev):
-        # (1 - b1) and (1 - b2) formed in double and rounded once, as the
-        # per-parameter expression forms them
-        err = lib.adam_arena(
-            table.data_ptr(), rows, chunks, lr.data_ptr(),
-            beta1_pow.data_ptr(), beta2_pow.data_ptr(), f(b1), f(1 - b1),
-            f(b2), f(1 - b2), f(eps),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "adam_arena")
-    launches["adam_arena"] += 1
+    # (1 - b1) and (1 - b2) formed in double and rounded once, as the
+    # per-parameter expression forms them
+    _run("adam_arena", "adam_arena", ps, [gs, m1s, m2s],
+         [lr, beta1_pow, beta2_pow], f(b1), f(1 - b1), f(b2), f(1 - b2),
+         f(eps))
     return list(ps), list(m1s), list(m2s)
 
 
+_MAX_ROWS = {}
+
+
+def _max_rows(width):
+    """The most rows of ``width`` int64 one launch's table holds (the C
+    entry's parameter-space limit)."""
+    n = _MAX_ROWS.get(width)
+    if n is None:
+        n = _MAX_ROWS[width] = _lib().arena_max_rows(width)
+    return n
+
+
+_LIB = []
+
+
 def _lib():
-    lib = _build.load("optimizer_arena")
-    if lib.sgd_arena.argtypes is None:
+    if not _LIB:
+        lib = _build.load("optimizer_arena")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sgd_arena.argtypes = [p, i, i, p, p]
         lib.sgd_arena.restype = i
@@ -203,6 +232,9 @@ def _lib():
         lib.momentum_arena.restype = i
         lib.adam_arena.argtypes = [p, i, i, p, p, p, f, f, f, f, f, p]
         lib.adam_arena.restype = i
+        lib.arena_max_rows.argtypes = [i]
+        lib.arena_max_rows.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+        _LIB.append(lib)
+    return _LIB[0]

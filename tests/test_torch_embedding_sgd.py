@@ -344,3 +344,135 @@ def test_sgd_arena_kernel_is_bitwise_the_plain_version_on_card():
     assert opk.launches["sgd_arena"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n, nrows, want", [
+    (embk.FUSED_MAX - 1, 2073, "fused"),
+    (embk.FUSED_MAX, 2073, "fused"),
+    (embk.FUSED_MAX + 1, 2073, "keys32"),
+    (1, 1, "fused"),
+    (embk.FUSED_MAX + 1, 2 ** 32 - 2, "keys32"),
+    (embk.FUSED_MAX + 1, 2 ** 32 - 1, "keys64"),
+    (128, 2 ** 53, "keys64"),
+])
+def test_sort_path_at_the_one_launch_limit(n, nrows, want):
+    """One launch that sorts in-CTA up to FUSED_MAX entries; above it the
+    library sort, of 4-byte keys while every row plus 1 fits one."""
+    assert embk.sort_path(n, nrows) == want
+
+
+@pytest.mark.parametrize("n", [embk.FUSED_MAX - 1, embk.FUSED_MAX,
+                               embk.FUSED_MAX + 1])
+def test_wrapper_takes_the_path_sort_path_names(n, monkeypatch):
+    """The wrapper hands checked operands to one launch on the path
+    ``sort_path`` picks, at the one-launch limit and either side of it;
+    an empty call launches nothing."""
+    seen = []
+    monkeypatch.setattr(embk, "_launch", lambda *a: seen.append(a[-1]))
+    meta = dict(device="meta")
+    w = torch.empty((2073, 32), **meta)
+    rows = torch.empty((n,), dtype=torch.int64, **meta)
+    lr = torch.empty((1,), **meta)
+    assert embk.embedding_sgd(w, rows, torch.empty((n, 32), **meta),
+                              lr) is w
+    assert seen == [embk.sort_path(n, 2073)]
+    embk.embedding_sgd(w, rows[:0], torch.empty((0, 32), **meta), lr)
+    assert seen == [embk.sort_path(n, 2073)]
+
+
+@pytest.mark.parametrize("d, ptr, want", [
+    (32, 0, 4), (64, 0, 4), (64, 8, 2), (64, 4, 1), (96, 8, 2), (128, 0, 4),
+    (130, 0, 2), (33, 0, 1), (6, 0, 2), (6, 4, 1)])
+def test_columns_per_copy(d, ptr, want):
+    """16-byte copies and loads where D and the values' base allow them,
+    else 8-byte, else 4-byte."""
+    class Fake:
+        shape = (10, d)
+
+        def data_ptr(self):
+            return 4096 + ptr
+
+    assert embk._vec(Fake(), Fake()) == want
+
+
+def _hot_rows(rng, v, n_hot, n_other, hot=7):
+    """n_hot entries of row ``hot`` spread among n_other Zipf-skewed rows,
+    sentinels (v, v + 5) and negative rows (-1, -3) among them, all
+    shuffled: the hot run outlasts many staging chunks and crosses
+    several slices once sorted."""
+    other = np.minimum(rng.zipf(1.2, n_other) - 1, v - 1)
+    rows = np.concatenate([np.full(n_hot, hot), other,
+                           [v, v + 5, -1, -3] * 16])
+    return rng.permutation(rows)
+
+
+def _check_bitwise(w, rows, vals, lr, path=None):
+    """The kernel (on ``path``, or the wrapper's choice) against the plain
+    version: bitwise, in place, one launch."""
+    want = embk.embedding_sgd_torch(w, rows, vals, lr)
+    got = w.clone()
+    before = embk.launches["embedding_sgd"]
+    if path is None:
+        assert embk.embedding_sgd(got, rows, vals, lr) is got
+    else:
+        embk._launch(got, rows, vals, lr, path)
+    torch.cuda.synchronize()
+    assert embk.launches["embedding_sgd"] == before + 1
+    assert torch.equal(got, want)
+
+
+def _cuda_operands(rng, v, d, rows):
+    w = torch.from_numpy(rng.normal(0, 1, (v, d)).astype("float32")).cuda()
+    vals = torch.from_numpy(rng.normal(0, 1, (len(rows), d))
+                            .astype("float32")).cuda()
+    return (w, torch.from_numpy(np.asarray(rows, "int64")).cuda(), vals,
+            torch.tensor([0.05], device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 33])
+def test_hot_run_is_bitwise_the_plain_version_on_card(d):
+    """A 5 000-entry run of one row (dozens of staging chunks, many
+    slices) among short runs, sentinels and negative rows."""
+    _need_card()
+    rng = np.random.RandomState(9)
+    rows = _hot_rows(rng, 500, 5000, 3000)
+    _check_bitwise(*_cuda_operands(rng, 500, d, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [200, 255, 256, 257, 600])
+def test_runs_across_slices_are_bitwise_on_card(run):
+    """Runs of equal length, so that their heads and ends fall at every
+    offset of the 256-entry slices, some spanning whole slices."""
+    _need_card()
+    rng = np.random.RandomState(run)
+    rows = rng.permutation(np.repeat(np.arange(0, 40, 3), run))
+    _check_bitwise(*_cuda_operands(rng, 64, 64, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [embk.FUSED_MAX - 1, embk.FUSED_MAX,
+                               embk.FUSED_MAX + 1])
+@pytest.mark.parametrize("d", [32, 64, 128, 33])
+def test_one_launch_limit_is_bitwise_on_card(n, d):
+    """At the one-launch limit and either side of it, with a run long
+    enough for the whole CTA, sentinels and negative rows."""
+    _need_card()
+    rng = np.random.RandomState(n + d)
+    rows = _hot_rows(rng, 300, 100, n - 164)
+    assert len(rows) == n
+    _check_bitwise(*_cuda_operands(rng, 300, d, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "keys32", "keys64"])
+@pytest.mark.parametrize("d", [32, 64, 128, 33, 300, 1100])
+def test_every_path_is_bitwise_on_card(path, d):
+    """The same entries through each sort path, one launch each; at D 300
+    a thread adds two columns of a staged run, and D 1100 is past the
+    staged rows' limit, so its long run is one warp's."""
+    _need_card()
+    rng = np.random.RandomState(d)
+    rows = _hot_rows(rng, 200, 300, 500)
+    _check_bitwise(*_cuda_operands(rng, 200, d, rows), path=path)

@@ -137,3 +137,203 @@ def test_fused_momentum_sends_the_float32_set_to_the_arena(monkeypatch):
         assert out[i].dtype == np.dtype(dtypes[i])
         np.testing.assert_array_equal(out[i], want_p.numpy())
         np.testing.assert_array_equal(out[len(dtypes) + i], want_v.numpy())
+
+
+def test_pack_table_rows_and_chunk_prefix():
+    """Columns (pointers..., numels, first chunks) from fake pointers, the
+    first chunks the prefix of each parameter's CHUNK pieces; an empty
+    parameter takes none."""
+    c = opk._CHUNK
+    numels = [15, c, c + 1, 0, 2 * c]
+    ps, gs, vs = ([base + i for i in range(5)] for base in (1000, 2000, 3000))
+    [(table, rows, chunks)] = opk.pack_table([ps, gs], numels, 5)
+    assert (rows, chunks) == (5, 1 + 1 + 2 + 0 + 2)
+    assert table.itemsize == 8 and table.typecode == "q"
+    assert list(table) == [1000, 1001, 1002, 1003, 1004,
+                           2000, 2001, 2002, 2003, 2004,
+                           15, c, c + 1, 0, 2 * c,
+                           0, 1, 2, 4, 4]
+    [(table, rows, chunks)] = opk.pack_table([ps, gs, vs], numels, 1000)
+    assert (rows, chunks) == (5, 6)
+    assert list(table[10:]) == [3000, 3001, 3002, 3003, 3004,
+                                15, c, c + 1, 0, 2 * c, 0, 1, 2, 4, 4]
+
+
+@pytest.mark.parametrize("rows", [4, 31, 161])
+def test_pack_table_layout_at_word2vec_to_resnet50_lengths(rows):
+    """At a list as short as word2vec's and as long as ResNet-50's, the
+    table is the columns hand-computed here one parameter at a time."""
+    c = opk._CHUNK
+    rng = np.random.RandomState(rows)
+    numels = rng.choice([0, 1, c - 1, c, c + 1, 5 * c + 7], rows).tolist()
+    cols = [[(k + 1) * 10 ** 9 + 256 * i for i in range(rows)]
+            for k in range(3)]
+    firsts, first = [], 0
+    for n in numels:
+        firsts.append(first)
+        first += -(-n // c)
+    [(table, got_rows, chunks)] = opk.pack_table(cols, numels, rows)
+    assert (got_rows, chunks) == (rows, first)
+    assert list(table) == cols[0] + cols[1] + cols[2] + numels + firsts
+
+
+@pytest.mark.parametrize("bad", ["float16", "shape", "device", "strided"])
+def test_gather_rejects_in_the_same_pass(bad):
+    """Every param, grad and state tensor is checked; the pointers and
+    sizes of a good list come back column by column."""
+    ps = [torch.zeros(7), torch.zeros(3, 5)]
+    gs = [torch.ones(7), torch.ones(3, 5)]
+    cpu = torch.device("cpu")
+    cols, numels = opk._gather("sgd_arena", [ps, gs], cpu)
+    assert cols == [[t.data_ptr() for t in ps], [t.data_ptr() for t in gs]]
+    assert numels == [7, 15]
+    if bad == "device":
+        # CPU tensors against a card's device
+        cpu = torch.device("cuda", 0)
+    else:
+        gs[1] = {"float16": torch.ones(3, 5, dtype=torch.float16),
+                 "shape": torch.ones(5, 3),
+                 "strided": torch.ones(5, 3).t()}[bad]
+    with pytest.raises(ValueError, match="contiguous float32"):
+        opk._gather("sgd_arena", [ps, gs], cpu)
+
+
+@pytest.mark.parametrize("limit, want", [
+    (10 ** 6, [(5, 7)]),
+    (3 * 32, [(3, 4), (2, 3)]),
+    (2 * 32 + 31, [(2, 2), (2, 3), (1, 2)]),
+    (32, [(1, 1), (1, 1), (1, 2), (1, 1), (1, 2)]),
+])
+def test_split_table_at_a_byte_limit(limit, want):
+    """Each launch holds the rows its parameter space fits (32 bytes an SGD
+    row): the list's next rows, its first chunks counting from 0 and its
+    chunk count its own."""
+    c = opk._CHUNK
+    numels = [5, c, c + 1, c, 2 * c]
+    parts = opk.pack_table([[100 + i for i in range(5)],
+                            [200 + i for i in range(5)]], numels, limit // 32)
+    assert [(n, nch) for _, n, nch in parts] == want
+    r0 = 0
+    for table, n, nch in parts:
+        rows = range(r0, r0 + n)
+        firsts = list(table[3 * n:])
+        assert list(table[:3 * n]) == [100 + r for r in rows] \
+            + [200 + r for r in rows] + [numels[r] for r in rows]
+        assert firsts[0] == 0
+        ends = firsts[1:] + [nch]
+        assert [e - f for f, e in zip(firsts, ends)] == \
+            [-(-numels[r] // c) for r in rows]
+        r0 += n
+    assert r0 == len(numels)
+
+
+def _resnet50_shapes():
+    """ResNet-50's trainable parameter shapes as bench.py builds it (161
+    tensors, 25 557 032 elements after fuse_conv_bn)."""
+    import paddle_tpu_torch.fluid as tfluid
+    from paddle_tpu_torch.testing.models import resnet
+    tfluid.reset_unique_name()
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        img = tfluid.layers.data("img", shape=[224, 224, 3])
+        label = tfluid.layers.data("label", shape=[1], dtype="int64")
+        loss = tfluid.layers.mean(tfluid.layers.softmax_with_cross_entropy(
+            resnet(img, 1000), label))
+        tfluid.fuse_conv_bn(main)
+        tfluid.optimizer.SGD(0.1, fused=True).minimize(loss, startup)
+    return [tuple(p.shape) for p in main.global_block().all_parameters()
+            if p.trainable]
+
+
+def _sgd_on_card(shapes, seed, views=None):
+    """sgd_arena against its plain version over tensors of ``shapes``
+    (``views(i, shape)`` may give a tensor another base), bitwise; returns
+    the launches it took."""
+    rng = np.random.RandomState(seed)
+
+    def make(i, s):
+        a = torch.from_numpy(rng.normal(0, 1, s).astype("float32")).cuda()
+        return views(i, a) if views else a
+
+    ps = [make(i, s) for i, s in enumerate(shapes)]
+    gs = [make(i, s) for i, s in enumerate(shapes)]
+    lr = torch.tensor([0.05], device="cuda")
+    want = opk.sgd_arena_torch(ps, gs, lr)
+    before = opk.launches["sgd_arena"]
+    got = opk.sgd_arena([p.clone() if not views else views(0, p.clone())
+                         for p in ps], gs, lr)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return opk.launches["sgd_arena"] - before
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
+                    "tests/test_torch_optimizer_arena.py on the GPU machine)")
+
+
+@pytest.mark.cuda
+def test_sgd_arena_resnet50_set_is_bitwise_on_card():
+    _need_card()
+    shapes = _resnet50_shapes()
+    assert len(shapes) == 161
+    assert sum(int(np.prod(s)) for s in shapes) == 25_557_032
+    assert _sgd_on_card(shapes, 11) == 1
+
+
+@pytest.mark.cuda
+def test_sgd_arena_odd_sizes_and_unaligned_views_on_card():
+    """Sizes that are no multiple of 4, and views whose base is not 16-byte
+    aligned: p and g offset alike (a scalar head, then float4s) and p
+    offset alone (scalar throughout)."""
+    _need_card()
+    shapes = [(1,), (3,), (5, 7), (4097,), (8191,), (3, 3, 3, 3), (4096,),
+              (12289,)]
+    assert _sgd_on_card(shapes, 12) == 1
+
+    def shifted(i, a):
+        # copy a into a buffer at a 1-element (4-byte) offset
+        buf = torch.empty(a.numel() + 3, device=a.device)
+        v = buf[1:1 + a.numel()].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 == 4
+        return v
+
+    assert _sgd_on_card(shapes, 13, shifted) == 1
+    rng = np.random.RandomState(14)
+    ps = [torch.from_numpy(rng.normal(0, 1, s).astype("float32")).cuda()
+          for s in shapes]
+    gs = [shifted(0, torch.from_numpy(rng.normal(0, 1, s).astype("float32"))
+                  .cuda()) for s in shapes]
+    lr = torch.tensor([0.05], device="cuda")
+    want = opk.sgd_arena_torch(ps, gs, lr)
+    got = opk.sgd_arena([p.clone() for p in ps], gs, lr)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_arena_list_past_one_table_takes_more_launches_on_card():
+    """A list longer than one launch's parameter-space table: as many
+    launches as tables, bitwise."""
+    _need_card()
+    n = opk._max_rows(4) + 7
+    shapes = [(1 + i % 37,) for i in range(n)]
+    assert _sgd_on_card(shapes, 15) == 2
+    rng = np.random.RandomState(16)
+    m = opk._max_rows(5) + 3
+    ps, gs, vs = ([torch.from_numpy(rng.normal(0, 1, (1 + i % 29,))
+                                    .astype("float32")).cuda()
+                   for i in range(m)] for _ in range(3))
+    lr = torch.tensor(LR, device="cuda")
+    want_p, want_v = opk.momentum_arena_torch(ps, gs, vs, lr, MU, False)
+    before = opk.launches["momentum_arena"]
+    got_p, got_v = opk.momentum_arena([p.clone() for p in ps], gs,
+                                      [v.clone() for v in vs], lr, MU, False)
+    torch.cuda.synchronize()
+    assert opk.launches["momentum_arena"] == before + 2
+    for g, w in zip(got_p + got_v, want_p + want_v):
+        assert torch.equal(g, w)
