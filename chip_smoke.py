@@ -10,9 +10,10 @@ Run from the root of a checkout, on a machine with an NVIDIA H100 and the
 CUDA toolkit. Phases, each of which exits non-zero on a failed check:
 
 1. build    — compile every csrc/*.cu with nvcc, all at once; print the
-              card's name and power limit, the torch and nvcc versions, and
-              the TF32 switches (both off: every float32 reference is full
-              float32).
+              card's name and power limit, the torch and nvcc versions, the
+              TF32 switches (both off: every float32 reference is full
+              float32), and per kernel its registers and spills (all of the
+              training conv kernels', the others' that spill).
 2. kernels  — every distinct fused conv shape of ResNet-50 at batch 8, in
               float32 and bfloat16, with and without relu: conv_affine,
               conv_bn_train and conv_bn_bwd against their plain versions;
@@ -22,7 +23,12 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               their plain versions again, and each kernel's time per
               forward or step, its plain version's, one PyTorch library
               call computing the same function (a yardstick the port never
-              calls) and the least time the card could take.
+              calls) and the least time the card could take: for the
+              training conv kernels their GEMMs at the rate of the
+              tensor-core instruction they run (3xTF32 in float32), beside
+              the CUDA-core bound (every operation at float32's rate), with
+              the GEMM TFLOP/s achieved and the error margins against
+              REL_LIMIT.
 3. serving  — ResNet-50 (224x224x3, 1000 classes, softmax fetch) built with
               the port's front end, random weights from the seed, BN
               statistics overwritten so the folded affine is not trivial;
@@ -136,9 +142,13 @@ import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA
-# cores, bfloat16 on the tensor cores, and device memory bandwidth.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# cores, bfloat16 and TF32 on the tensor cores, and device memory
+# bandwidth. "tf32x3" is float32 products run as 3xTF32 (three TF32
+# products each, csrc/conv_mma.cuh): a third of TF32's 495.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
+# the instruction the training conv kernels' GEMMs run, per operand type
+MMA_ROUTE = {"float32": "tf32x3", "bfloat16": "bfloat16"}
 
 # max ‖kernel − plain‖∞ / ‖plain‖∞. float32: both sum the same float32
 # products, in another order; with K ≤ 4608 terms that moves a sum by far
@@ -341,6 +351,33 @@ def card_line():
     if r.returncode != 0:
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(out):
+    """One line per kernel from nvcc's -Xptxas=-v log: its name (demangled
+    by c++filt where the toolkit's machine has it), registers, and spill
+    stores and loads (ptxas prints them on separate lines)."""
+    rows, name, spill = [], None, ""
+    for line in out.splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line:
+            spill = line
+        elif "ptxas info" in line and "Used" in line and name:
+            rows.append((name, line.split(":", 1)[1].strip(), spill))
+            name, spill = None, ""
+    names = [r[0] for r in rows]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if len(names) != len(rows):
+        names = [r[0] for r in rows]
+    return [f"{n.replace('(anonymous namespace)::', '')[:110]}: {used}; "
+            f"{spill}" for n, (_, used, spill) in zip(names, rows)]
 
 
 def time_ms(fn, torch, target_ms=30.0):
@@ -629,7 +666,17 @@ def phase_serving(torch, fluid, seed, card):
     return launches
 
 
-def profile(torch, fn, title, card, reps=3):
+# the launches of each training conv kernel's C entry, by kernel name
+# (float32: phase 4's route)
+CONV_BN_LAUNCHES = {
+    "conv_bn_train": ("taps_kernel<float, false>", "conv_stats_kernel",
+                      "stats_finalize_kernel", "bn_apply_kernel"),
+    "conv_bn_bwd": ("taps_kernel<float, true>", "fold_kernel",
+                    "recompute_kernel", "grad_finalize_kernel", "dz_kernel",
+                    "dw_gemm_kernel", "dw_reduce_kernel", "dx_kernel")}
+
+
+def profile(torch, fn, title, card, reps=3, groups=None):
     """Where the time of ``fn`` goes: device time by kernel from
     torch.profiler over ``reps`` calls, and the device's busy share of the
     host wall time."""
@@ -662,6 +709,10 @@ def profile(torch, fn, title, card, reps=3):
         f"{100 * (1 - busy / wall_ms):.1f}%")
     for ms, count, name in rows[:14]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    for label, names in (groups or {}).items():
+        ms = sum(r[0] for r in rows if any(n in r[2] for n in names))
+        log(f"  {label}: {ms:.3f} ms of device time per call, "
+            f"{100 * ms / busy:.1f}% of busy")
 
 
 EPS = 1e-5
@@ -689,11 +740,12 @@ def build_resnet50_train(fluid, seed):
 
 
 def bn_work(x, w, strides, paddings, itemsize, backward):
-    """(operations, bytes) of one conv_bn_train or conv_bn_bwd call. The
-    forward: one conv (2·M·Cout·K) and ~6 operations per output element
-    (statistics, normalize, relu); x and w read, y written. The backward:
-    three GEMMs of the conv's size (z, dw, dx) and ~12 operations per
-    output element; x, w and dy read, dx and dw (float32) written."""
+    """(GEMM operations, elementwise operations, bytes) of one
+    conv_bn_train or conv_bn_bwd call. The forward: one conv (2·M·Cout·K)
+    and ~6 operations per output element (statistics, normalize, relu); x
+    and w read, y written. The backward: three GEMMs of the conv's size (z,
+    dw, dx) and ~12 operations per output element; x, w and dy read, dx and
+    dw (float32) written."""
     n, h, wd, cin = x
     cout, _, kh, kw = w
     ho = (h + 2 * paddings[0] - kh) // strides[0] + 1
@@ -703,8 +755,8 @@ def bn_work(x, w, strides, paddings, itemsize, backward):
     xb, wb, yb = n * h * wd * cin * itemsize, cout * cin * kh * kw * 4, \
         m * cout * itemsize
     if backward:
-        return 3 * gemm + 12 * m * cout, 2 * xb + wb + yb + wb + 4 * cout * 4
-    return gemm + 6 * m * cout, xb + wb + yb + 4 * cout * 4
+        return 3 * gemm, 12 * m * cout, 2 * xb + wb + yb + wb + 4 * cout * 4
+    return gemm, 6 * m * cout, xb + wb + yb + 4 * cout * 4
 
 
 def bound_ms(ops, nbytes, dtype="float32"):
@@ -712,6 +764,20 @@ def bound_ms(ops, nbytes, dtype="float32"):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def bn_bound_ms(gemm, elem, nbytes, dtype="float32"):
+    """The training conv kernels' bound: the GEMMs at the rate of the
+    instruction they run (MMA_ROUTE: 3xTF32 for float32) plus the
+    elementwise operations at float32's CUDA-core rate, against the bytes.
+    Returns (ms, bound_by, the CUDA-core bound: every operation at
+    float32's 67 TFLOP/s, the bound of the kernels' earlier fmaf loop)."""
+    t_ops = (gemm / PEAK_FLOPS[MMA_ROUTE[dtype]]
+             + elem / PEAK_FLOPS["float32"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            bound_ms(gemm + elem, nbytes, dtype)[0])
 
 
 def phase_train_kernels(torch, fluid, seed):
@@ -762,6 +828,10 @@ def phase_train_kernels(torch, fluid, seed):
             if not rel <= REL_LIMIT[dname]:
                 fail(f"{kernel} {what} {dname} {name}: rel err {rel:.3e} > "
                      f"{REL_LIMIT[dname]:.0e}")
+
+    def errs_max(kernel, dname):
+        return max(v for key, v in errs.items()
+                   if key[0] == kernel and key[3] == dname)
 
     def masked_dy(x, w, scale, bias, strides, paddings, act):
         """A random dy, zero where a relu's plain pre-activation lies within
@@ -828,10 +898,10 @@ def phase_train_kernels(torch, fluid, seed):
         "times ==")
     log("  x[N,H,W,C] w[O,I,kh,kw] s act n/step | rel_err f32@8 bf16@8 "
         f"f32@{TRAIN_BATCH} (train; bwd) | kernel_ms plain_ms library_ms "
-        "bound_ms, forward; backward")
+        "bound_ms cuda_core_bound_ms, forward; backward")
     for k in ("conv_bn_train", "conv_bn_bwd"):
         out[k].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                      ops=0, bytes=0)
+                      old_bound_ms=0.0, gemm=0, elem=0, bytes=0)
     shapes32 = fused_conv_shapes(fluid, main, TRAIN_BATCH)
     for key, count in sorted(shapes32.items(),
                              key=lambda kv: (-kv[0][0][1], kv[0][1][1],
@@ -872,16 +942,17 @@ def phase_train_kernels(torch, fluid, seed):
                                                var, *args),
                  lambda: torch.autograd.grad(y_lib, leaves, dy_n,
                                              retain_graph=True))):
-            ops, nbytes = bn_work(x_shape, w_shape, strides, paddings, 4,
-                                  kname == "conv_bn_bwd")
-            b_ms, _by = bound_ms(ops, nbytes)
+            gemm, elem, nbytes = bn_work(x_shape, w_shape, strides,
+                                         paddings, 4, kname == "conv_bn_bwd")
+            b_ms, _by, old_ms = bn_bound_ms(gemm, elem, nbytes)
             rows[kname] = (time_ms(kfn, torch), time_ms(pfn, torch),
-                           time_ms(lfn, torch), b_ms)
+                           time_ms(lfn, torch), b_ms, old_ms)
             t = out[kname]
-            for field, v in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
-                                rows[kname]):
+            for field, v in zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "old_bound_ms"), rows[kname]):
                 t[field] += count * v
-            t["ops"] += count * ops
+            t["gemm"] += count * gemm
+            t["elem"] += count * elem
             t["bytes"] += count * nbytes
         x8 = (8,) + x_shape[1:]
         e = [errs.get((k, xs, w_shape, d), 0.0)
@@ -895,11 +966,20 @@ def phase_train_kernels(torch, fluid, seed):
                 for k in ("conv_bn_train", "conv_bn_bwd")))
     for k in ("conv_bn_train", "conv_bn_bwd"):
         t = out[k]
-        t["bound_by"] = bound_ms(t["ops"], t["bytes"])[1]
+        t["bound_by"] = bn_bound_ms(t["gemm"], t["elem"], t["bytes"])[1]
         log(f"  per step at batch {TRAIN_BATCH} (49 convs), {k}: kernel "
             f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, cuDNN "
-            f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
-            f"({t['ops'] / t['ms'] / 1e9:.1f} TFLOP/s achieved)")
+            f"{t['library_ms']:.3f} ms ({t['ms'] / t['library_ms']:.2f}x), "
+            f"bound {t['bound_ms']:.3f} ms at the 3xTF32 GEMM rate "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}% of it reached; the "
+            f"CUDA-core bound: {t['old_bound_ms']:.3f} ms), "
+            f"{t['gemm'] / t['ms'] / 1e9:.1f} TFLOP/s of GEMM achieved")
+        e32, e16 = errs_max(k, "float32"), errs_max(k, "bfloat16")
+        log(f"  {k}: max float32 rel err {e32:.3e}, bfloat16 {e16:.3e} "
+            f"(limits {REL_LIMIT['float32']:.0e}, "
+            f"{REL_LIMIT['bfloat16']:.0e}: margins "
+            f"{REL_LIMIT['float32'] / max(e32, 1e-30):.0f}x, "
+            f"{REL_LIMIT['bfloat16'] / max(e16, 1e-30):.0f}x)")
 
     nelem = sum(p.numel() for p in ps)
     sgd_params = [torch.nn.Parameter(p.clone()) for p in ps]
@@ -1169,7 +1249,7 @@ def phase_training(torch, fluid, seed, card):
     scope = fresh()
     profile(torch, lambda: run("auto", scope, feed),
             f"one training step, batch {TRAIN_BATCH}, kernel route", card,
-            reps=2)
+            reps=2, groups=CONV_BN_LAUNCHES)
     return dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
                     res["auto"]["total"]))
 
@@ -2796,10 +2876,13 @@ def main():
     log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     for name, (secs, out) in build.build(KERNELS).items():
-        log(f"built {name} in {secs:.2f} s")
-        for line in out.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"  {line.strip()}")
+        lines = ptxas_summary(out)
+        spilled = [ln for ln in lines if " 0 bytes spill stores" not in ln]
+        log(f"built {name} in {secs:.2f} s: {len(lines)} kernels, "
+            f"{len(spilled)} with spills")
+        for line in (lines if name in ("conv_bn_train", "conv_bn_bwd")
+                     else spilled):
+            log(f"  {line}")
 
     totals = phase_kernels(torch, fluid, args.seed)
     train_totals = phase_train_kernels(torch, fluid, args.seed)

@@ -13,15 +13,17 @@
 // 1x1 or 3x3 at stride 1 with any padding, or 1x1 at stride 2 unpadded.
 //
 // Design. The Pallas kernel runs the conv twice to keep z out of device
-// memory, a trade made for the TPU's HBM. On the H100 the float32 conv on
-// the CUDA cores costs far more than writing z and reading it back (for the
-// 1x1 64->256 conv at 56x56, batch 32: ~3.3 GFLOP against ~2 x 103 MB), so z
-// is computed once, in three launches:
-//   1. conv_stats: the implicit GEMM of conv_tile.cuh; the epilogue stores
-//      z (rounded to x's dtype) into y and writes, per block of 64 pixels
-//      and per channel, the block mean and the sum of squared deviations
-//      from it (two passes over the tile in registers) into part
-//      [2, blocks_m, Cout]. No atomics: every run sums in the same order.
+// memory, a trade made for the TPU's HBM. On the H100 the two cost about
+// the same (for the 1x1 64->256 conv at 56x56, batch 32: a second conv is
+// ~3.3 GFLOP, 20 us at the 3xTF32 peak and a few times that at the rate
+// mma.sync reaches, and re-reads x; the z round trip is ~2 x 103 MB, ~61 us
+// at 3.35 TB/s), so z is computed once, in three launches:
+//   1. conv_stats: the implicit GEMM of conv_mma.cuh; the epilogue stores
+//      z (rounded to x's dtype) into y and writes, per block of BM pixels
+//      (64 or 128, pick_tile) and per channel, the block mean and the sum
+//      of squared deviations from it (two passes over the tile in
+//      registers) into part [2, blocks_m, Cout]. No atomics: every run sums
+//      in the same order.
 //   2. stats_finalize: per channel, Chan's pairwise merge of the block
 //      (count, mean, M2) partials in float64, in a fixed order; the biased
 //      variance M2 / n is clamped at 0. This is the two-pass variance's
@@ -29,68 +31,93 @@
 //      folds a and b (conv_tile.cuh bn_fold, shared with the backward).
 //   3. bn_apply: y = act(z * a + b) in place, in x's dtype.
 //
-// Bound on the H100: the conv's 2*M*Cout*K operations on the CUDA cores
-// (67 TFLOP/s float32) dominate; the z round trip adds ~2 bytes of traffic
-// per output byte. No tensor cores yet (wgmma, TMA and pipelining are later
-// work).
+// Bound on the H100: the conv's 2*M*Cout*K operations dominate; the z
+// round trip adds ~2 bytes of traffic per output byte. They run on the
+// tensor cores through conv_mma.cuh's mainloop (3xTF32 mma.sync for
+// float32, bf16 mma.sync for bfloat16, a cp.async ring), so the bound is
+// the GEMM's operations at the 3xTF32 rate (495 / 3 TFLOP/s) or the bf16
+// rate (989), plus the elementwise work at float32's 67 TFLOP/s. wgmma and
+// TMA are later work (conv_mma.cuh says why).
 //
 // The C entry returns cudaGetLastError() after the launches; the caller
 // allocates every buffer and passes its stream.
 
 #include <algorithm>
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
-using namespace convtile;
+using convtile::affine;
+using convtile::bn_fold;
+using convtile::ConvGeom;
+using convtile::Fold;
+using convtile::from_f32;
+using convtile::LANES;
+using convtile::round_to;
+using convtile::to_f32;
+using namespace convmma;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// z of the tile into y (x's dtype) and, per channel, the tile's mean and
+// its sum of squared deviations from it over the valid rows into part
+// [2, blocks_m, Cout]: rows in (mt, half) order, then lanes, then warps
+template <typename T, class TL>
+__global__ void __launch_bounds__(TL::THREADS, MIN_BLOCKS)
 conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                   T* __restrict__ z, float* __restrict__ part, ConvGeom g) {
-  __shared__ TileSmem sm;
-  __shared__ float red[16][BN];
-  __shared__ float bmean[BN];
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long m0 = (long long)blockIdx.x * TL::BM;
+  const int n0 = blockIdx.y * TL::BN;
   const long long M = (long long)g.N * g.Ho * g.Wo;
-  float acc[4][4];
-  conv_mainloop<T>(x, wt, g, m0, n0, sm, acc);
+  float acc[TL::MT][TL::NT][4];
+  conv_tile<T, TL>(x, wt, g, m0, n0, smem, acc);
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  bool keep[4];
-  float zr[4][4];
+  const Frag<TL> f;
+  float* red = reinterpret_cast<float*>(smem);  // WARPS_M x BN
+  float* bmean = red + TL::WARPS_M * TL::BN;     // BN
+  const bool even = g.Cout % 2 == 0;
+  float s[TL::NT][2] = {};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    keep[i] = m < M;
+  for (int mt = 0; mt < TL::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      zr[i][j] = round_to<T>(acc[i][j]);
-      if (keep[i] && n < g.Cout) z[m * g.Cout + n] = from_f32<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + f.row(mt, 2 * h);
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < TL::NT; ++nt) {
+        const int n = n0 + f.col(nt, 0);
+        store_row2<T>(z + m * g.Cout + n, acc[mt][nt][2 * h],
+                      acc[mt][nt][2 * h + 1], pair_count(n, g.Cout), even);
+        s[nt][0] = __fadd_rn(s[nt][0], round_to<T>(acc[mt][nt][2 * h]));
+        s[nt][1] = __fadd_rn(s[nt][1], round_to<T>(acc[mt][nt][2 * h + 1]));
+      }
     }
-  }
-  const float rows = (float)(M - m0 < BM ? M - m0 : BM);
-  const float s = tile_channel_sum(zr, keep, red);
-  if (threadIdx.x < BN) bmean[threadIdx.x] = __fdiv_rn(s, rows);
+  const long long left = M - m0;
+  const float rows = (float)(left < TL::BM ? left : TL::BM);
+  const float tot = column_sum<TL>(s, f, red);
+  if (threadIdx.x < TL::BN) bmean[threadIdx.x] = __fdiv_rn(tot, rows);
   __syncthreads();
-  float d2[4][4];
+  float q[TL::NT][2] = {};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < TL::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float d = __fsub_rn(zr[i][j], bmean[tx * 4 + j]);
-      d2[i][j] = __fmul_rn(d, d);
+    for (int h = 0; h < 2; ++h) {
+      if (m0 + f.row(mt, 2 * h) >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < TL::NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float d = __fsub_rn(round_to<T>(acc[mt][nt][2 * h + j]),
+                                    bmean[f.col(nt, j)]);
+          q[nt][j] = __fadd_rn(q[nt][j], __fmul_rn(d, d));
+        }
     }
-  const float q = tile_channel_sum(d2, keep, red);
+  const float m2 = column_sum<TL>(q, f, red);
   const int n = n0 + threadIdx.x;
-  if (threadIdx.x < BN && n < g.Cout) {
+  if (threadIdx.x < TL::BN && n < g.Cout) {
     const long long blocks_m = gridDim.x;
     part[(long long)blockIdx.x * g.Cout + n] = bmean[threadIdx.x];
-    part[(blocks_m + blockIdx.x) * g.Cout + n] = q;
+    part[(blocks_m + blockIdx.x) * g.Cout + n] = m2;
   }
 }
 
@@ -115,7 +142,7 @@ __device__ __forceinline__ void chan_merge(double& n, double& mean,
 // one block per 32 channels; lane l of a channel merges blocks l, l+LANES,
 // ... in order, then lane 0 merges the lane results in order
 __global__ void __launch_bounds__(32 * LANES)
-stats_finalize_kernel(const float* __restrict__ part, int blocks_m,
+stats_finalize_kernel(const float* __restrict__ part, int blocks_m, int bm,
                       long long M, int Cout, const float* __restrict__ scale,
                       const float* __restrict__ bias, float eps,
                       float* __restrict__ stats, float* __restrict__ ab) {
@@ -126,8 +153,8 @@ stats_finalize_kernel(const float* __restrict__ part, int blocks_m,
   double n = 0.0, mean = 0.0, m2 = 0.0;
   if (c < Cout) {
     for (int b = lane; b < blocks_m; b += LANES) {
-      const long long left = M - (long long)b * BM;
-      const double nb = (double)(left < BM ? left : BM);
+      const long long left = M - (long long)b * bm;
+      const double nb = (double)(left < bm ? left : bm);
       chan_merge(n, mean, m2, nb, part[(long long)b * Cout + c],
                  part[((long long)blocks_m + b) * Cout + c]);
     }
@@ -140,7 +167,8 @@ stats_finalize_kernel(const float* __restrict__ part, int blocks_m,
     for (int l = 1; l < LANES; ++l)
       chan_merge(n, mean, m2, sn[l][cl], smean[l][cl], sm2[l][cl]);
     const float mf = (float)mean;
-    const float vf = fmaxf((float)(m2 / n), 0.f);
+    const float vq = (float)(m2 / n);
+    const float vf = vq < 0.f ? 0.f : vq;  // a NaN stays NaN
     stats[c] = mf;
     stats[Cout + c] = vf;
     const Fold f = bn_fold(scale[c], bias[c], mf, vf, eps);
@@ -149,36 +177,73 @@ stats_finalize_kernel(const float* __restrict__ part, int blocks_m,
   }
 }
 
+// max(v, 0) that keeps a NaN, as the plain version's clamp does (fmaxf
+// would return 0)
+__device__ __forceinline__ float relu_of(float v) {
+  return v < 0.f ? 0.f : v;
+}
+
+// y = act(z * a + b) in place; four channels a thread where Cout % 4 == 0
 template <typename T>
 __global__ void __launch_bounds__(256)
 bn_apply_kernel(T* __restrict__ y, const float* __restrict__ ab,
                 long long total, int Cout, int relu) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if (Cout % 4 == 0) {
+    for (long long i = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+         i < total; i += 4 * stride) {
+      const int c = (int)(i % Cout);
+      float v[4];
+      load4(y + i, v);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[k] = affine(v[k], ab[c + k], ab[Cout + c + k]);
+        if (relu) v[k] = relu_of(v[k]);
+      }
+      store4(y + i, v);
+    }
+    return;
+  }
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+       i < total; i += stride) {
     const int c = (int)(i % Cout);
     float v = affine(to_f32(y[i]), ab[c], ab[Cout + c]);
-    if (relu) v = fmaxf(v, 0.f);
+    if (relu) v = relu_of(v);
     y[i] = from_f32<T>(v);
   }
 }
 
 template <typename T>
-int launch(const void* x, const void* wt, const float* scale,
+int launch(const void* x, const float* w, void* wt, const float* scale,
            const float* bias, void* y, float* part, float* stats, float* ab,
            const ConvGeom& g, int relu, float eps, cudaStream_t st) {
-  const dim3 grid = tile_grid(g);
   const long long M = (long long)g.N * g.Ho * g.Wo;
-  conv_stats_kernel<T><<<grid, THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wt),
-      static_cast<T*>(y), part, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t e0 =
+      launch_taps<T, false>(w, static_cast<T*>(wt), nullptr, g, st);
+  if (e0 != cudaSuccess) return (int)e0;
+  const TilePick tile = pick_tile(M, g.Cout, vec_ok<T>(g.Cin, g.Cout));
+  int blocks_m = 0;
+  int err = with_tile<T, true>(tile, [&](auto tl) -> int {
+    using TL = decltype(tl);
+    constexpr int smem = conv_smem_bytes<TL>();
+    const cudaError_t e = allow_smem(conv_stats_kernel<T, TL>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
+                    (unsigned)((g.Cout + TL::BN - 1) / TL::BN));
+    blocks_m = (int)grid.x;
+    conv_stats_kernel<T, TL><<<grid, TL::THREADS, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wt),
+        static_cast<T*>(y), part, g);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
   stats_finalize_kernel<<<(g.Cout + 31) / 32, 32 * LANES, 0, st>>>(
-      part, (int)grid.x, M, g.Cout, scale, bias, eps, stats, ab);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      part, blocks_m, tile.bm, M, g.Cout, scale, bias, eps, stats, ab);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const long long total = M * g.Cout;
-  const long long blocks = std::min((total + 255) / 256, 132LL * 32);
+  const long long per = g.Cout % 4 == 0 ? 4 : 1;  // elements a thread
+  const long long blocks = std::min((total / per + 255) / 256, 132LL * 32);
   bn_apply_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
       static_cast<T*>(y), ab, total, g.Cout, relu);
   return (int)cudaGetLastError();
@@ -188,11 +253,26 @@ int launch(const void* x, const void* wt, const float* scale,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. part is [2, blocks_m, Cout] float32
-// scratch (blocks_m = ceil(N*Ho*Wo / 64)), stats [2, Cout] (mean, var) and
-// ab [2, Cout] (the folded affine) are float32 outputs. Returns the first
-// launch error (0 = success).
-int conv_bn_train(const void* x, const void* wt, const float* scale,
+// sizes[0] = the floats of conv_bn_train's part scratch for this geometry
+// (2 x blocks_m x Cout, blocks_m the row blocks of pick_tile's tile).
+// Returns 0, or an error for an unknown dtype.
+int conv_bn_train_scratch(int dtype, int N, int H, int W, int Cin, int Cout,
+                          int kh, int kw, int stride, int ph, int pw, int Ho,
+                          int Wo, long long* sizes) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool vec = dtype == 0 ? convmma::vec_ok<float>(Cin, Cout)
+                              : convmma::vec_ok<__nv_bfloat16>(Cin, Cout);
+  sizes[0] = 2 * Cout *
+             convmma::conv_blocks_m((long long)N * Ho * Wo, Cout, vec);
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = bfloat16. w is the OIHW float32 filter; wt
+// [kh*kw, Cin, Cout] in x's dtype (16-byte aligned) and part (float32,
+// conv_bn_train_scratch's size) are scratch; stats [2, Cout] (mean, var)
+// and ab [2, Cout] (the folded affine) are float32 outputs. Returns the
+// first launch error (0 = success).
+int conv_bn_train(const void* x, const float* w, void* wt, const float* scale,
                   const float* bias, void* y, float* part, float* stats,
                   float* ab, int dtype, int N, int H, int W, int Cin,
                   int Cout, int kh, int kw, int stride, int ph, int pw,
@@ -200,11 +280,11 @@ int conv_bn_train(const void* x, const void* wt, const float* scale,
   const ConvGeom g{N, H, W, Cin, Cout, kh, kw, stride, ph, pw, Ho, Wo};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, wt, scale, bias, y, part, stats, ab, g, relu,
+    return launch<float>(x, w, wt, scale, bias, y, part, stats, ab, g, relu,
                          eps, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wt, scale, bias, y, part, stats, ab, g,
-                                 relu, eps, st);
+    return launch<__nv_bfloat16>(x, w, wt, scale, bias, y, part, stats, ab,
+                                 g, relu, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

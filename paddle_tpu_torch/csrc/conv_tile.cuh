@@ -1,6 +1,8 @@
-// conv_tile.cuh: the implicit-GEMM conv mainloop and helpers shared by the
-// conv + batch-norm kernels (conv_affine.cu, conv_bn_train.cu,
-// conv_bn_bwd.cu), for Hopper (sm_90a).
+// conv_tile.cuh: the CUDA-core implicit-GEMM conv mainloop of conv_affine.cu
+// (serving), and the helpers the conv + batch-norm kernels share
+// (conv_affine.cu, conv_bn_train.cu, conv_bn_bwd.cu), for Hopper (sm_90a).
+// The training kernels run their GEMMs on conv_mma.cuh's tensor-core loop;
+// moving conv_affine onto it is queued.
 //
 // One block computes a BM x BN tile of the conv output over NHWC x:
 // M = N*Ho*Wo output pixels by N = Cout channels, with the K = kh*kw*Cin
@@ -8,9 +10,7 @@
 // block stages a BK x BM tile of x (gathered straight from the NHWC input:
 // padding is a masked load, stride 2 is read in place) and a BK x BN tile of
 // the tap's weights through shared memory, and every thread accumulates a
-// 4 x 4 sub-tile in float32 registers with fmaf, in one fixed order. The
-// training forward and backward both recompute z through this one loop, so
-// the backward sees bitwise the z (and so the relu mask) of the forward.
+// 4 x 4 sub-tile in float32 registers with fmaf, in one fixed order.
 //
 // Every kernel allocates nothing: callers pass every buffer and the stream.
 
@@ -25,7 +25,7 @@ constexpr int BM = 64;        // output pixels per block
 constexpr int BN = 64;        // output channels per block
 constexpr int BK = 16;        // input channels per K step
 constexpr int THREADS = 256;  // 16 x 16 threads, each owning a 4 x 4 sub-tile
-constexpr int LANES = 32;     // per-channel lanes of the cross-block merges
+constexpr int LANES = 32;     // lanes per channel of the cross-block merges
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -146,32 +146,6 @@ __device__ __forceinline__ void conv_mainloop(const T* __restrict__ x,
       __syncthreads();
     }
   }
-}
-
-// Per-channel sum over the tile's rows, in one fixed order: each thread adds
-// its 4 rows (those with keep[i]), then threads 0..BN-1 add the 16 row
-// groups in order. red is BN x 16 floats of shared memory. Returns the sum
-// for channel n0 + threadIdx.x in threads 0..BN-1 (undefined elsewhere).
-__device__ __forceinline__ float tile_channel_sum(const float (&v)[4][4],
-                                                  const bool (&keep)[4],
-                                                  float (*red)[BN]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (keep[i]) s = __fadd_rn(s, v[i][j]);
-    red[ty][tx * 4 + j] = s;
-  }
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < BN) {
-    for (int t = 0; t < 16; ++t) s = __fadd_rn(s, red[t][threadIdx.x]);
-  }
-  __syncthreads();
-  return s;
 }
 
 // The folded batch-norm affine of a channel's statistics, with explicit

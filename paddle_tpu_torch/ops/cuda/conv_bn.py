@@ -26,6 +26,7 @@ the same 49 of 53 conv+bn chains as the reference, in both directions.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +38,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per wrapper since the last reset; only a launch adds
 launches = {"conv_affine": 0, "conv_bn_train": 0, "conv_bn_bwd": 0}
-
-# the kernels' implicit-GEMM tile (csrc/conv_tile.cuh: BM pixels per block)
-_BM = 64
-
 
 def reset_launches():
     for k in launches:
@@ -262,31 +259,71 @@ def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act):
     _check("conv_bn_train", x, w, strides, paddings, act,
            {"scale": scale, "bias": bias})
     scale, bias = scale.contiguous(), bias.contiguous()
-    wt = _taps(w, x.dtype)
+    x, w32 = _aligned(x), _filter32(w)
     g = _geometry(x, w, strides, paddings)
-    n, cout, ho, wo = g[0], g[4], g[10], g[11]
-    blocks_m = -(-(n * ho * wo) // _BM)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, blocks_m, cout), **f32)
-    stats = torch.empty((2, cout), **f32)   # mean, var
-    ab = torch.empty((2, cout), **f32)      # the folded affine
+    n, cin, cout, kh, kw, ho, wo = g[0], g[3], g[4], g[5], g[6], g[10], g[11]
     lib = _lib("conv_bn_train")
-    with torch.cuda.device(x.device):
-        err = lib.conv_bn_train(
-            x.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), part.data_ptr(), stats.data_ptr(), ab.data_ptr(),
-            _DTYPE_CODES[x.dtype], *g, int(act == "relu"),
-            ctypes.c_float(eps), torch.cuda.current_stream().cuda_stream)
+    (part_n,) = _scratch_sizes("conv_bn_train", _DTYPE_CODES[x.dtype],
+                               tuple(g))
+    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    # scratch: the filter in the kernels' layout, and per-block partial
+    # statistics + the folded affine
+    wt, _keep_t = _scratch(x.dtype, x.device, kh * kw * cin * cout)
+    (part, ab), _keep_f = _scratch(torch.float32, x.device, part_n,
+                                   2 * cout)
+    err = _build.call_on(
+        x.device, lib.conv_bn_train, x.data_ptr(), w32.data_ptr(), wt,
+        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), part,
+        stats.data_ptr(), ab, _DTYPE_CODES[x.dtype], *g,
+        int(act == "relu"), ctypes.c_float(eps))
     _raise_on(lib, "conv_bn_train", err)
     launches["conv_bn_train"] += 1
     return y, stats[0], stats[1]
 
 
-def _dw_splits(tiles, m, sms):
-    """How many pixel ranges the dw GEMM splits its K = N·Ho·Wo reduction
-    into: enough blocks for two per SM, each range at least 16 pixels."""
-    return max(1, min(-(-2 * sms // tiles), -(-m // 256)))
+@functools.lru_cache(maxsize=1024)
+def _scratch_sizes(name, dtype_code, g, *extra):
+    """The float32 scratch sizes (in elements) that the C entry ``name``
+    needs for geometry ``g``: its ``<name>_scratch`` function says, from the
+    tile it picks (csrc/conv_mma.cuh)."""
+    fn = getattr(_lib(name), f"{name}_scratch")
+    sizes = (ctypes.c_longlong * 2)()
+    err = fn(dtype_code, *g, *extra, ctypes.addressof(sizes))
+    if err != 0:
+        raise ValueError(f"{name}: no scratch plan for geometry {g} "
+                         f"{extra} (error {err})")
+    return tuple(sizes[:_SCRATCH_PARTS[name]])
+
+
+def _filter32(w):
+    """The OIHW filter as contiguous float32, the C entries' input (they
+    lay it out per tap in x's dtype themselves)."""
+    if w.dtype == torch.float32 and w.is_contiguous():
+        return w
+    return w.float().contiguous()
+
+
+def _scratch(dtype, device, *sizes):
+    """One buffer of ``dtype`` holding ``sizes`` elements in turn, each
+    part starting on 16 bytes. Returns (the parts' addresses, the buffer,
+    which the caller keeps until its launches are enqueued); a single size
+    gives its address alone."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    step = 16 // item
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // step) * step
+    buf = torch.empty(total, dtype=dtype, device=device)
+    ptrs = [buf.data_ptr() + o * item for o in offs]
+    return (ptrs[0] if len(ptrs) == 1 else ptrs), buf
+
+
+def _aligned(t):
+    """``t``, or a copy where its data does not start on 16 bytes: the
+    kernels copy 16 bytes at a time where the channel counts allow it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def conv_bn_bwd(x, w, dy, scale, bias, mean, var, eps, strides, paddings,
@@ -310,50 +347,58 @@ def conv_bn_bwd(x, w, dy, scale, bias, mean, var, eps, strides, paddings,
             or dy.device != x.device:
         raise ValueError(f"conv_bn_bwd: dy must be {x.dtype} "
                          f"[{n}, {ho}, {wo}, {cout}] on {x.device}")
-    dy = dy.contiguous()
+    x, dy, w32 = _aligned(x), _aligned(dy.contiguous()), _filter32(w)
     scale, bias, mean, var = (t.contiguous() for t in (scale, bias, mean,
                                                         var))
-    wt = _taps(w, x.dtype)
-    # dx is the conv of dz with the filter rotated 180° and transposed per
-    # tap: [kh*kw, Cout, Cin] with tap (r, s) holding w[:, :, kh-1-r, kw-1-s]
-    wrot = w.flip(2, 3).permute(2, 3, 0, 1).reshape(kh * kw, cout, cin) \
-        .to(x.dtype).contiguous()
     lib = _lib("conv_bn_bwd")
     m = n * ho * wo
-    blocks_m = -(-m // _BM)
     taps = kh * kw
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = _dw_splits(taps * -(-cin // _BM) * -(-cout // _BM), m, sms)
+    sms = _sm_count(x.device)
+    part_n, dw_part_n = _scratch_sizes("conv_bn_bwd", _DTYPE_CODES[x.dtype],
+                                       tuple(g), sms)
     f32 = dict(dtype=torch.float32, device=x.device)
-    zbuf = torch.empty((m, cout), dtype=x.dtype, device=x.device)
-    aux = torch.empty((4, cout), **f32)       # a, b, inv, scale·inv/m
-    part = torch.empty((2, blocks_m, cout), **f32)
     grads = torch.empty((2, cout), **f32)     # dscale, dbias
-    dw_part = torch.empty((splits, taps, cin, cout), **f32)
     dw = torch.empty((cout, cin, kh, kw), **f32)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.conv_bn_bwd(
-            x.data_ptr(), wt.data_ptr(), wrot.data_ptr(), dy.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-            var.data_ptr(), zbuf.data_ptr(), aux.data_ptr(),
-            part.data_ptr(), grads.data_ptr(), dw_part.data_ptr(),
-            dw.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], *g,
-            int(act == "relu"), ctypes.c_float(eps), splits,
-            torch.cuda.current_stream().cuda_stream)
+    # scratch: the filter per tap (the conv's B), rotated and transposed
+    # per tap (dx's B) and z, later dz, in x's dtype; a, b, inv and
+    # scale·inv/m per channel, per-block partial sums and dw's per-range
+    # partials in float32
+    (wt, wrot, zbuf), _keep_t = _scratch(x.dtype, x.device,
+                                         taps * cin * cout, taps * cin * cout,
+                                         m * cout)
+    (aux, part, dw_part), _keep_f = _scratch(
+        torch.float32, x.device, 4 * cout, part_n, dw_part_n)
+    err = _build.call_on(
+        x.device, lib.conv_bn_bwd, x.data_ptr(), w32.data_ptr(), wt, wrot,
+        dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), zbuf, aux, part, grads.data_ptr(), dw_part,
+        dw.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], *g,
+        int(act == "relu"), ctypes.c_float(eps), sms)
     _raise_on(lib, "conv_bn_bwd", err)
     launches["conv_bn_bwd"] += 1
     return dx, dw, grads[0], grads[1]
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 # C signatures: pointers, then the dtype code, the 12 geometry ints and the
-# relu flag, then (for the training kernels) eps and extras, then the stream
+# relu flag, then (for the training kernels) eps and the SM count, then the
+# stream; the training kernels' scratch functions take the dtype code, the
+# geometry, the SM count (the backward) and an array for the sizes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "conv_affine": [_P] * 5 + [_I] * 14 + [_P],
-    "conv_bn_train": [_P] * 8 + [_I] * 14 + [_F, _P],
-    "conv_bn_bwd": [_P] * 15 + [_I] * 14 + [_F, _I, _P],
+    "conv_bn_train": [_P] * 9 + [_I] * 14 + [_F, _P],
+    "conv_bn_bwd": [_P] * 16 + [_I] * 14 + [_F, _I, _P],
+    "conv_bn_train_scratch": [_I] * 13 + [_P],
+    "conv_bn_bwd_scratch": [_I] * 14 + [_P],
 }
+# how many sizes each scratch function writes
+_SCRATCH_PARTS = {"conv_bn_train": 1, "conv_bn_bwd": 2}
 
 
 def _lib(name):
@@ -362,6 +407,10 @@ def _lib(name):
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
+        if name in _SCRATCH_PARTS:
+            scratch = getattr(lib, f"{name}_scratch")
+            scratch.argtypes = _ARGTYPES[f"{name}_scratch"]
+            scratch.restype = _I
         lib.kernel_error_string.argtypes = [_I]
         lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

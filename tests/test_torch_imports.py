@@ -1,6 +1,6 @@
-"""The port stands alone: no module of paddle_tpu_torch/, nor chip_smoke.py,
-imports jax or the reference package, and the kernel
-tier never catches a build or launch failure.
+"""The port stands alone: no module of paddle_tpu_torch/, nor chip_smoke.py
+and the measurement scripts beside it, imports jax or the reference
+package, and the kernel tier never catches a build or launch failure.
 
 Checked on the source (AST), not on ``sys.modules``: the test process
 imports jax anyway, through the reference package.
@@ -13,7 +13,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / name for name in ("chip_smoke.py", "loop_stats.py",
+                                "conv_bn_accuracy.py")]
 
 
 def _imported_modules(path):
