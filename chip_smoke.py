@@ -13,22 +13,22 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               card's name and power limit, the torch and nvcc versions, the
               TF32 switches (both off: every float32 reference is full
               float32), and per kernel its registers and spills (all of the
-              training conv kernels', the others' that spill).
+              conv kernels', the others' that spill).
 2. kernels  — every distinct fused conv shape of ResNet-50 at batch 8, in
               float32 and bfloat16, with and without relu: conv_affine,
               conv_bn_train and conv_bn_bwd against their plain versions;
               momentum_arena against its plain version over ResNet-50's
-              trainable parameters, nesterov off and on, bitwise. Then, at
-              batch 32 in float32, the training kernels' outputs against
+              trainable parameters, nesterov off and on, bitwise. Then, in float32, conv_affine at batches 32, 8 and
+              1 and the training kernels at batch 32: the outputs against
               their plain versions again, and each kernel's time per
               forward or step, its plain version's, one PyTorch library
               call computing the same function (a yardstick the port never
-              calls) and the least time the card could take: for the
-              training conv kernels their GEMMs at the rate of the
-              tensor-core instruction they run (3xTF32 in float32), beside
-              the CUDA-core bound (every operation at float32's rate), with
-              the GEMM TFLOP/s achieved and the error margins against
-              REL_LIMIT.
+              calls) and the least time the card could take: the conv
+              kernels' GEMMs at the rate of the tensor-core instruction
+              they run (3xTF32 in float32), beside the CUDA-core bound
+              (every operation at float32's rate), with conv_affine's K
+              ranges per shape, the GEMM TFLOP/s achieved and the error
+              margins against REL_LIMIT.
 3. serving  — ResNet-50 (224x224x3, 1000 classes, softmax fetch) built with
               the port's front end, random weights from the seed, BN
               statistics overwritten so the folded affine is not trivial;
@@ -36,7 +36,10 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               requests of batch 1, 3, 8, 32 and 40 (the last one chunks),
               each compared with the same bundle served under
               kernel_tier=torch. Each forward must launch conv_affine 49
-              times and route 4 convs to the plain op chain.
+              times and route 4 convs to the plain op chain. Latency per
+              request size (median of LAT_REPS requests) and bucket-32
+              images/s on both routes, and a profile of one bucket-32
+              request with conv_affine's share.
 4. training — ResNet-50 with mean(softmax_with_cross_entropy), fuse_conv_bn
               and Momentum(0.0125, 0.9, fused=True) at batch 32 (bench.py:217
               with its batch-256 rate of 0.1 scaled to batch 32), seeded
@@ -187,7 +190,13 @@ PLANTED = 0.875
 
 IMAGE, CLASSES = 224, 1000
 REQUESTS = (1, 3, 8, 32, 40)
+# phase 3 times this many more requests of each size on each route
+LAT_REPS = 7
 KERNEL_CONVS, PLAIN_CONVS = 49, 4
+# phase 2 times conv_affine per forward at these batches: the largest
+# serving bucket (core/flags.py), and two small ones, whose grids fill few
+# of the card's SMs
+AFFINE_BATCHES = (32, 8, 1)
 TRAIN_BATCH, TRAIN_STEPS = 32, 5
 # bench.py:217 trains with lr 0.1 at its default batch of 256; at batch 32
 # that rate makes the loss on one fixed feed climb after step 2 on both
@@ -430,23 +439,24 @@ def fused_conv_shapes(fluid, main, batch):
 
 
 def conv_work(x, w, strides, paddings, itemsize):
-    """(operations, bytes) of one conv_affine call: the multiply-adds and
-    the affine, and each input read once and the output written once."""
+    """(GEMM operations, elementwise operations, bytes) of one conv_affine
+    call: the conv's multiply-adds, the affine's two operations per output
+    element, and each input read once and the output written once."""
     n, h, wd, cin = x
     cout, _, kh, kw = w
     ho = (h + 2 * paddings[0] - kh) // strides[0] + 1
     wo = (wd + 2 * paddings[1] - kw) // strides[1] + 1
     m = n * ho * wo
-    ops = 2 * m * cout * kh * kw * cin + 2 * m * cout
     nbytes = (n * h * wd * cin * itemsize + cout * cin * kh * kw * 4
               + 2 * cout * 4 + m * cout * itemsize)
-    return ops, nbytes
+    return 2 * m * cout * kh * kw * cin, 2 * m * cout, nbytes
 
 
 def phase_kernels(torch, fluid, seed):
-    """Kernel vs plain on every distinct ResNet-50 fused shape, then times.
-    Returns the per-forward sums for the kernels line."""
-    import torch.nn.functional as F
+    """conv_affine against its plain version on every distinct ResNet-50
+    fused shape at batch 8, both dtypes and acts; then its times per
+    forward at each of AFFINE_BATCHES. Returns the batch-32 sums for the
+    kernels line."""
     from paddle_tpu_torch.ops.cuda import conv_bn as cbk
 
     main, _, _ = build_resnet50(fluid, seed)
@@ -507,12 +517,46 @@ def phase_kernels(torch, fluid, seed):
                          f"{dname} act={act!r}: rel err {rel:.3e} > "
                          f"{REL_LIMIT[dname]:.0e}")
 
-    log("\n== conv_affine times, batch 32, float32, per shape ==")
-    log("  x[N,H,W,C] w[O,I,kh,kw] s act n/fwd | rel_err f32 bf16 | "
-        "kernel_ms plain_ms library_ms bound_ms bound_by")
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "ops": 0, "bytes": 0}
-    for key, count in sorted(fused_conv_shapes(fluid, main, 32).items(),
+    totals = {}
+    for batch in AFFINE_BATCHES:
+        totals[batch] = t = affine_times(torch, fluid, main, batch, operands,
+                                         errs)
+        log(f"  per forward at batch {batch} (49 convs): kernel "
+            f"{t['ms']:.3f} ms (device {t['device_ms']:.3f}, host enqueue "
+            f"{t['host_ms']:.3f}), plain {t['plain_ms']:.3f} ms, cuDNN "
+            f"{t['library_ms']:.3f} ms ({t['ms'] / t['library_ms']:.2f}x), "
+            f"bound {t['bound_ms']:.3f} ms at the 3xTF32 GEMM rate "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}% of it reached; the "
+            f"CUDA-core bound: {t['old_bound_ms']:.3f} ms), "
+            f"{t['gemm'] / t['ms'] / 1e9:.1f} TFLOP/s of GEMM achieved")
+    e32 = max(v for k, v in errs.items() if k[3] == "float32")
+    e16 = max(v for k, v in errs.items() if k[3] == "bfloat16")
+    log(f"  conv_affine: max float32 rel err {e32:.3e}, bfloat16 {e16:.3e} "
+        f"at batch 8 (limits {REL_LIMIT['float32']:.0e}, "
+        f"{REL_LIMIT['bfloat16']:.0e}: margins "
+        f"{REL_LIMIT['float32'] / max(e32, 1e-30):.0f}x, "
+        f"{REL_LIMIT['bfloat16'] / max(e16, 1e-30):.0f}x)")
+    total = totals[32]
+    total["max_abs_err"] = max(max_abs, total["max_abs_err"])
+    return total
+
+
+def affine_times(torch, fluid, main, batch, operands, errs):
+    """conv_affine at ``batch`` in float32 over ResNet-50's kernel-routed
+    shapes: each shape's output against the plain version (a failure past
+    REL_LIMIT), then the kernel's, the plain version's and cuDNN's times,
+    summed per forward with the bounds."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+
+    log(f"\n== conv_affine times, batch {batch}, float32, per shape ==")
+    log("  x[N,H,W,C] w[O,I,kh,kw] s act n/fwd | rel_err f32@8 "
+        f"bf16@8 f32@{batch} | kernel_ms (device_ms host_ms) plain_ms "
+        "library_ms bound_ms cuda_core_bound_ms")
+    total = {"ms": 0.0, "device_ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+             "library_ms": 0.0, "bound_ms": 0.0, "old_bound_ms": 0.0,
+             "gemm": 0, "elem": 0, "bytes": 0, "max_abs_err": 0.0}
+    for key, count in sorted(fused_conv_shapes(fluid, main, batch).items(),
                              key=lambda kv: (-kv[0][0][1], kv[0][1][1],
                                              kv[0][1][0], kv[0][2])):
         x_shape, w_shape, strides, paddings, _, _, act = key
@@ -520,8 +564,24 @@ def phase_kernels(torch, fluid, seed):
                              "NHWC", "float32"):
             continue
         x, w, a, b = operands(x_shape, w_shape, torch.float32)
-        k_ms = time_ms(lambda: cbk.conv_affine(x, w, a, b, strides,
-                                               paddings, act), torch)
+        y = cbk.conv_affine(x, w, a, b, strides, paddings, act)
+        torch.cuda.synchronize()
+        ref = cbk.conv_affine_torch(x, w, a, b, strides, paddings, act)
+        d = (y - ref).abs().max().item()
+        rel = d / max(ref.abs().max().item(), 1e-30)
+        total["max_abs_err"] = max(total["max_abs_err"], d)
+        if not rel <= REL_LIMIT["float32"]:
+            fail(f"conv_affine x{x_shape} w{w_shape} s{strides} float32 "
+                 f"act={act!r}: rel err {rel:.3e} > "
+                 f"{REL_LIMIT['float32']:.0e}")
+        def kernel():
+            return cbk.conv_affine(x, w, a, b, strides, paddings, act)
+
+        k_ms = time_ms(kernel, torch)
+        # the call's device time (every launch of its C entry) and its
+        # host enqueue: where the host is slower, time_ms reads the host
+        d_ms = sum(device_ms(torch, kernel, reps=10).values())
+        h_ms = host_ms(torch, kernel, reps=20)
         p_ms = time_ms(lambda: cbk.conv_affine_torch(x, w, a, b, strides,
                                                      paddings, act), torch)
         xn = x.permute(0, 3, 1, 2)          # NCHW view, channels-last
@@ -532,30 +592,24 @@ def phase_kernels(torch, fluid, seed):
             return torch.relu(y) if act == "relu" else y
 
         l_ms = time_ms(library, torch)
-        ops, nbytes = conv_work(x_shape, w_shape, strides, paddings, 4)
-        t_ops = ops / PEAK_FLOPS["float32"] * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        bound = max(t_ops, t_bytes)
-        by = "operations" if t_ops >= t_bytes else "bytes"
+        gemm, elem, nbytes = conv_work(x_shape, w_shape, strides, paddings,
+                                       4)
+        bound, _by, old_bound = bn_bound_ms(gemm, elem, nbytes)
         e32 = errs[(x_shape[1:], w_shape, strides, "float32")]
         e16 = errs[(x_shape[1:], w_shape, strides, "bfloat16")]
         log(f"  {list(x_shape)} {list(w_shape)} {strides[0]} "
-            f"{act or '-':4} {count} | {e32:.2e} {e16:.2e} | "
-            f"{k_ms:.4f} {p_ms:.4f} {l_ms:.4f} {bound:.4f} {by}")
-        total["ms"] += count * k_ms
-        total["plain_ms"] += count * p_ms
-        total["library_ms"] += count * l_ms
-        total["bound_ms"] += count * bound
-        total["ops"] += count * ops
-        total["bytes"] += count * nbytes
-    t_ops = total["ops"] / PEAK_FLOPS["float32"]
-    t_bytes = total["bytes"] / PEAK_BYTES
-    total["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    total["max_abs_err"] = max_abs
-    log(f"  per forward at batch 32 (49 convs): kernel {total['ms']:.3f} ms, "
-        f"plain {total['plain_ms']:.3f} ms, cuDNN {total['library_ms']:.3f} "
-        f"ms, bound {total['bound_ms']:.3f} ms "
-        f"({total['ops'] / total['ms'] / 1e9:.1f} TFLOP/s achieved)")
+            f"{act or '-':4} {count} | "
+            f"{e32:.2e} {e16:.2e} {rel:.2e} | {k_ms:.4f} ({d_ms:.4f} "
+            f"{h_ms:.4f}) {p_ms:.4f} {l_ms:.4f} {bound:.4f} "
+            f"{old_bound:.4f}")
+        for field, v in (("ms", k_ms), ("device_ms", d_ms),
+                         ("host_ms", h_ms), ("plain_ms", p_ms),
+                         ("library_ms", l_ms), ("bound_ms", bound),
+                         ("old_bound_ms", old_bound), ("gemm", gemm),
+                         ("elem", elem), ("bytes", nbytes)):
+            total[field] += count * v
+    total["bound_by"] = bn_bound_ms(total["gemm"], total["elem"],
+                                    total["bytes"])[1]
     return total
 
 
@@ -647,6 +701,28 @@ def phase_serving(torch, fluid, seed, card):
             fail(f"batch {n}: reply differs from the plain route "
                  f"(rel {rel:.3e}, argmax equal {same})")
 
+    # latency per request size: LAT_REPS more requests of each size on
+    # both routes, in turns, for the spread of the host-set numbers
+    lat = {(n, t): [] for n in REQUESTS for t in ("auto", "torch")}
+    for _ in range(LAT_REPS):
+        for n in REQUESTS:
+            for tier_name, eng in (("auto", engine), ("torch", ref_engine)):
+                fluid.set_flags({"kernel_tier": tier_name})
+                try:
+                    t0 = time.perf_counter()
+                    eng.infer({"img": feeds[n]})
+                    lat[n, tier_name].append(
+                        (time.perf_counter() - t0) * 1e3)
+                finally:
+                    fluid.set_flags({"kernel_tier": "auto"})
+    for n in REQUESTS:
+        log(f"batch {n:3d} latency over {LAT_REPS} requests, median (min-"
+            "max) ms: " + ", ".join(
+                f"kernel_tier={t} {sorted(v)[len(v) // 2]:.2f} "
+                f"({min(v):.2f}-{max(v):.2f})"
+                for t in ("auto", "torch") for v in [lat[n, t]])
+            + f" | {card}")
+
     x32 = {"img": feeds[32]}
     for tier_name, eng in (("auto", engine), ("torch", ref_engine)):
         fluid.set_flags({"kernel_tier": tier_name})
@@ -662,10 +738,15 @@ def phase_serving(torch, fluid, seed, card):
         log(f"bucket 32, kernel_tier={tier_name}: {ms:.2f} ms per request, "
             f"{32e3 / ms:.1f} images/s | {card}")
     log(f"engine stats: {json.dumps(engine.stats())}")
-    profile(torch, lambda: engine.infer(x32), "bucket-32 request", card)
+    profile(torch, lambda: engine.infer(x32), "bucket-32 request", card,
+            groups=CONV_AFFINE_LAUNCHES)
     return launches
 
 
+# the launches of conv_affine's C entry (float32: phase 3's route): the
+# filter layout and the conv
+CONV_AFFINE_LAUNCHES = {
+    "conv_affine": ("taps_kernel<float, false>", "conv_affine_kernel")}
 # the launches of each training conv kernel's C entry, by kernel name
 # (float32: phase 4's route)
 CONV_BN_LAUNCHES = {
@@ -2880,8 +2961,8 @@ def main():
         spilled = [ln for ln in lines if " 0 bytes spill stores" not in ln]
         log(f"built {name} in {secs:.2f} s: {len(lines)} kernels, "
             f"{len(spilled)} with spills")
-        for line in (lines if name in ("conv_bn_train", "conv_bn_bwd")
-                     else spilled):
+        for line in (lines if name in ("conv_affine", "conv_bn_train",
+                                       "conv_bn_bwd") else spilled):
             log(f"  {line}")
 
     totals = phase_kernels(torch, fluid, args.seed)

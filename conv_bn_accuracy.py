@@ -1,13 +1,15 @@
-"""How far the training conv kernels and their plain versions each lie from
-the exact result: conv_bn_train (y, mean, var) and conv_bn_bwd (dx, dw,
-dscale, dbias) against a float64 computation of the same function.
+"""How far the conv kernels and their plain versions each lie from the
+exact result: conv_affine (y), conv_bn_train (y, mean, var) and
+conv_bn_bwd (dx, dw, dscale, dbias) against a float64 computation of the
+same function.
 
     python3 conv_bn_accuracy.py
 
 Run from the root of a checkout on a machine with a card; a measurement
 tool beside chip_smoke.py, not part of the port's package. The shapes are
 tests/test_torch_conv_bn_train.py's card test (Cin 40, Cout 72, 12x12,
-batch 3, seed 2, its three geometries) and four ResNet-50 layers at batch
+batch 3, seed 2, its three geometries; conv_affine takes scale and bias
+as its a and b) and four ResNet-50 layers at batch
 32. Per shape and output it prints max |got - exact| for the kernel and
 the plain version, max |exact|, and for each the worst ratio
 |got - exact| / (atol + rtol·|exact|) under the card test's float32
@@ -53,8 +55,9 @@ def operands(n, hw, cin, cout, k, stride, pad, seed):
 
 
 def exact(x, w, scale, bias, dy, mean, var, stride, pad):
-    """float64: the forward (y without a relu, the batch mean and biased
-    variance) and the backward at the given (mean, var), no relu."""
+    """float64: conv_affine's y = conv(x, w) * scale + bias, the forward
+    (y without a relu, the batch mean and biased variance) and the
+    backward at the given (mean, var), no relu."""
     x, w, dy = x.double(), w.double(), dy.double()
     xn = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
     wn = w.detach().requires_grad_(True)
@@ -73,7 +76,8 @@ def exact(x, w, scale, bias, dy, mean, var, stride, pad):
     dz = (scale.double() * inv / m) * (m * d - db - xh * ds)
     gx, gw = torch.autograd.grad(zn, (xn, wn),
                                  dz.reshape(z.shape).permute(0, 3, 1, 2))
-    return ((y.reshape(z.shape), fmean, fvar),
+    affine = z * scale.double() + bias.double()
+    return ((affine,), (y.reshape(z.shape), fmean, fvar),
             (gx.permute(0, 2, 3, 1), gw, ds, db))
 
 
@@ -100,6 +104,8 @@ def main():
                                  operands(n, hw, cin, cout, k, stride, pad,
                                           seed=2))
         st, pd = (stride, stride), (pad, pad)
+        aff_k = (cbk.conv_affine(x, w, scale, bias, st, pd, ""),)
+        aff_p = (cbk.conv_affine_torch(x, w, scale, bias, st, pd, ""),)
         fwd_k = cbk.conv_bn_train(x, w, scale, bias, EPS, st, pd, "")
         fwd_p = cbk.conv_bn_train_torch(x, w, scale, bias, EPS, st, pd, "")
         mean, var = fwd_p[1], fwd_p[2]
@@ -108,10 +114,13 @@ def main():
         bwd_p = cbk.conv_bn_bwd_torch(x, w, dy, scale, bias, mean, var, EPS,
                                       st, pd, "")
         torch.cuda.synchronize()
-        fwd_e, bwd_e = exact(x, w, scale, bias, dy, mean, var, stride, pad)
-        names = ("y", "mean", "var", "dx", "dw", "dscale", "dbias")
-        for out, gk, gp, e in zip(names, fwd_k + bwd_k, fwd_p + bwd_p,
-                                  fwd_e + bwd_e):
+        aff_e, fwd_e, bwd_e = exact(x, w, scale, bias, dy, mean, var,
+                                    stride, pad)
+        names = ("conv_affine y", "y", "mean", "var", "dx", "dw", "dscale",
+                 "dbias")
+        for out, gk, gp, e in zip(names, aff_k + fwd_k + bwd_k,
+                                  aff_p + fwd_p + bwd_p,
+                                  aff_e + fwd_e + bwd_e):
             ek, rk = reading(gk, e)
             ep, rp = reading(gp, e)
             print(f"{name} | {out} | {ek:.3e} {rk:.3f} | {ep:.3e} "

@@ -1,5 +1,5 @@
 """What bounds the conv mainloop on the card: the ``mma.sync`` peak rates
-and the instruction mix of each training conv kernel's main loop.
+and the instruction mix of each conv kernel's main loop.
 
     python3 loop_stats.py
 
@@ -11,10 +11,10 @@ package. Prints the card's name and power limit, then:
   ``m16n8k16``, in TFLOP/s (8 warps a block, 16 independent accumulators a
   thread, 528 blocks): the ceiling of any ``mma.sync`` mainloop, 3xTF32
   reaching at most a third of the TF32 figure;
-* for each float32 conv kernel of ``csrc/conv_bn_train.cu`` and
-  ``csrc/conv_bn_bwd.cu``, the instructions of its main loop (the backward
-  branch whose body holds the HMMAs) by opcode, from ``cuobjdump -sass`` of
-  the build, with the count per HMMA.
+* for each float32 conv kernel of ``csrc/conv_affine.cu``,
+  ``csrc/conv_bn_train.cu`` and ``csrc/conv_bn_bwd.cu``, the instructions
+  of its main loop (the backward branch whose body holds the HMMAs) by
+  opcode, from ``cuobjdump -sass`` of the build, with the count per HMMA.
 
 Builds go to ``build/torch_kernels/loop_stats/``. Nothing runs at import.
 """
@@ -89,7 +89,8 @@ int main() {
 
 OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 # a float32 conv kernel's mangled name: its name, BM, BN and VEC
-KERNEL = re.compile(r"(conv_stats_kernel|recompute_kernel|dw_gemm_kernel|"
+KERNEL = re.compile(r"(conv_affine_kernel|"
+                    r"conv_stats_kernel|recompute_kernel|dw_gemm_kernel|"
                     r"dx_kernel)IfN7convmma4TileIfLi(\d+)ELi(\d+)ELb\dELb(\d)")
 
 
@@ -143,7 +144,7 @@ def main():
     work = build.BUILD_DIR / "loop_stats"
     work.mkdir(parents=True, exist_ok=True)
     print(mma_peak(work), end="")
-    for name in ("conv_bn_train", "conv_bn_bwd"):
+    for name in ("conv_affine", "conv_bn_train", "conv_bn_bwd"):
         for kernel, mix in loop_mix(name, work).items():
             tile = KERNEL.search(kernel)
             if tile is None:

@@ -5,87 +5,199 @@
 // _conv_affine_kernel): y = act(round_to_input_dtype(conv(x, w)) * a + b),
 // a = scale * rsqrt(var + eps) and b = bias - mean * a folded by the caller.
 //
-// Shapes: x [N, H, W, Cin] NHWC, float32 or bfloat16; wt [kh*kw, Cin, Cout]
-// (the OIHW filter laid out per tap, in x's dtype); a, b [Cout] float32;
-// y [N, Ho, Wo, Cout] in x's dtype. Taps are 1x1 or 3x3 at stride 1 with any
-// padding, or 1x1 at stride 2 with no padding.
+// Shapes: x [N, H, W, Cin] NHWC, float32 or bfloat16; w the OIHW float32
+// filter, laid out per tap as wt [kh*kw, Cin, Cout] in x's dtype inside the
+// C entry (conv_mma.cuh taps_kernel); a, b [Cout] float32; y [N, Ho, Wo,
+// Cout] in x's dtype. Taps are 1x1 or 3x3 at stride 1 with any padding, or
+// 1x1 at stride 2 with no padding.
 //
-// Design: the implicit GEMM of conv_tile.cuh (64 x 64 output tile per
-// block, 4 x 4 float32 accumulators per thread). The epilogue rounds the sum
-// to the input dtype, applies z * a + b in float32 (explicit round-to-nearest
-// ops, so the compiler does not contract them into an FMA the plain version
-// does not do), the optional relu, and stores in the input dtype, so the
-// conv output never goes to device memory before the affine.
+// Design: the implicit GEMM of conv_mma.cuh (3xTF32 mma.sync for float32,
+// bf16 mma.sync for bfloat16, a cp.async ring, the tile pick_tile chooses
+// from the geometry), then one pass over the accumulator fragments: round
+// the sum to x's dtype, z * a + b in float32 (explicit round-to-nearest
+// ops, so the compiler does not contract them into an FMA the plain
+// version does not do), the relu (NaN-keeping, relu_of), and a store in
+// x's dtype, two channels at a time; a and b of the block's columns are
+// staged once in shared memory. The conv output never goes to device
+// memory before the affine.
 //
-// Bound on the H100: these shapes do 2*M*Cout*K operations over a few bytes
-// each, so at float32 on the CUDA cores (67 TFLOP/s) the kernel is bound by
-// operations, not by the 3.35 TB/s of device memory. This first version uses
-// no tensor cores (no wgmma, no TMA, no pipelining) and so stays far from
-// the 989 TFLOP/s bfloat16 tensor-core rate; those come in a later version.
+// Infinities. 3xTF32 splits an infinite operand into hi = Inf and lo =
+// NaN, so every sum an infinity reaches comes out NaN from the tensor
+// cores, where the plain version's float32 sum gives +-Inf (and NaN only
+// for Inf - Inf, Inf * 0 or a NaN operand). In float32 a block whose tile
+// holds a NaN after the epilogue therefore sums each such element again,
+// one product at a time in K order (direct_sum, which stops at the first
+// NaN), and stores that instead. Finite tiles pay one test per element;
+// bfloat16's products are exact and carry an infinity as the plain
+// version's do.
 //
-// The C entry returns cudaGetLastError() after the launch; the caller
-// allocates y and passes its stream. The kernel allocates nothing.
+// Determinism: a block sums its whole K walk in one fixed order, with no
+// atomics, so two calls on one card are bitwise equal. K is not split
+// where the grid is small (the serving buckets 1-8 give 4-52 blocks for
+// 132 SMs on most layers): a split into float32 partials and a second
+// kernel that adds them cut the device time of a batch-1 forward 2.5x
+// on an H100 but made no request faster (batch 1 and 8 slower), because
+// the host, not the device, sets the latency there and the extra launch
+// is host time (PERF.md section 6).
+//
+// Bound on the H100: the conv's 2*M*Cout*K operations, run on the tensor
+// cores, at the 3xTF32 rate (495 / 3 TFLOP/s) for float32 or the bf16 rate
+// (989), plus the epilogue's few operations per output element at 67 on
+// the CUDA cores; x, the filter and y move far fewer bytes than that takes
+// at 3.35 TB/s. wgmma and TMA are later work (conv_mma.cuh says why).
+//
+// The C entry returns the first launch error; the caller allocates every
+// buffer and passes its stream. The kernels allocate nothing.
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
-using namespace convtile;
+using convtile::affine;
+using convtile::ConvGeom;
+using convtile::from_f32;
+using convtile::relu_of;
+using convtile::round_to;
+using namespace convmma;
 
+// y of one accumulated sum: act(round_to<T>(acc) * a + b)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ float epilogue(float acc, float a, float b,
+                                          int relu) {
+  const float v = affine(round_to<T>(acc), a, b);
+  return relu ? relu_of(v) : v;
+}
+
+// The conv sum of output element (m, n) one product at a time in K order
+// (taps, then channels), each padded tap's zero times the filter as the
+// plain version's padded input gives; stops at the first NaN. Only where
+// the tensor cores gave NaN (see the header): a rare, slow path.
+template <typename T>
+__device__ float direct_sum(const T* __restrict__ x, const T* __restrict__ wt,
+                            const ConvGeom& g, long long m, int n) {
+  const int wo = (int)(m % g.Wo);
+  const long long q = m / g.Wo;
+  const int ho = (int)(q % g.Ho);
+  const long long img = q / g.Ho;
+  float s = 0.f;
+  for (int i = 0; i < g.kh; ++i)
+    for (int j = 0; j < g.kw; ++j) {
+      const int hi = ho * g.stride - g.ph + i, wi = wo * g.stride - g.pw + j;
+      const bool in = hi >= 0 && hi < g.H && wi >= 0 && wi < g.W;
+      const long long xr = ((img * g.H + hi) * g.W + wi) * g.Cin;
+      const long long wr = (long long)(i * g.kw + j) * g.Cin * g.Cout + n;
+      for (int c = 0; c < g.Cin; ++c) {
+        const float xv = in ? convtile::to_f32(x[xr + c]) : 0.f;
+        s = __fadd_rn(s, __fmul_rn(xv, convtile::to_f32(
+                                           wt[wr + (long long)c * g.Cout])));
+        if (isnan(s)) return s;
+      }
+    }
+  return s;
+}
+
+// float32 needs direct_sum where the tensor cores gave NaN (the header)
+template <typename T>
+constexpr bool REDO_NAN = sizeof(T) == 4;
+
+// y of the tile: the conv, then the epilogue (see the header)
+template <typename T, class TL>
+__global__ void __launch_bounds__(TL::THREADS, MIN_BLOCKS)
 conv_affine_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                    const float* __restrict__ a, const float* __restrict__ b,
                    T* __restrict__ y, ConvGeom g, int relu) {
-  __shared__ TileSmem sm;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long m0 = (long long)blockIdx.x * TL::BM;
+  const int n0 = blockIdx.y * TL::BN;
   const long long M = (long long)g.N * g.Ho * g.Wo;
-  float acc[4][4];
-  conv_mainloop<T>(x, wt, g, m0, n0, sm, acc);
+  float acc[TL::MT][TL::NT][4];
+  conv_tile<T, TL>(x, wt, g, m0, n0, smem, acc);
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  // the ring is free once conv_tile returns: a, b of the block's columns
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = sa + TL::BN;
+  if (threadIdx.x < TL::BN) {
+    const int n = n0 + threadIdx.x;
+    sa[threadIdx.x] = n < g.Cout ? a[n] : 0.f;
+    sb[threadIdx.x] = n < g.Cout ? b[n] : 0.f;
+  }
+  __syncthreads();
+  const Frag<TL> f;
+  const bool even = g.Cout % 2 == 0;
+  bool seen_nan = false;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  for (int mt = 0; mt < TL::MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= g.Cout) continue;
-      float v = affine(round_to<T>(acc[i][j]), a[n], b[n]);
-      if (relu) v = fmaxf(v, 0.f);
-      y[m * g.Cout + n] = from_f32<T>(v);
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + f.row(mt, 2 * h);
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < TL::NT; ++nt) {
+        const int c = f.col(nt, 0);
+        const int n = n0 + c;
+        const float v0 = epilogue<T>(acc[mt][nt][2 * h], sa[c], sb[c], relu);
+        const float v1 = epilogue<T>(acc[mt][nt][2 * h + 1], sa[c + 1],
+                                     sb[c + 1], relu);
+        if (REDO_NAN<T>) seen_nan |= isnan(v0) | isnan(v1);
+        store_row2<T>(y + m * g.Cout + n, v0, v1, pair_count(n, g.Cout),
+                      even);
+      }
+    }
+  // the rare path: the block's stores are visible to it after the barrier
+  if constexpr (REDO_NAN<T>) {
+    if (!__syncthreads_or(seen_nan)) return;
+    for (int i = threadIdx.x; i < TL::BM * TL::BN; i += TL::THREADS) {
+      const long long m = m0 + i / TL::BN;
+      const int c = i % TL::BN, n = n0 + c;
+      if (m >= M || n >= g.Cout) continue;
+      T* p = y + m * g.Cout + n;
+      if (isnan(convtile::to_f32(*p)))
+        *p = from_f32<T>(epilogue<T>(direct_sum(x, wt, g, m, n), sa[c],
+                                     sb[c], relu));
     }
   }
+}
+
+template <typename T>
+int launch(const void* x, const float* w, void* wt, const float* a,
+           const float* b, void* y, const ConvGeom& g, int relu,
+           cudaStream_t st) {
+  const cudaError_t e0 =
+      launch_taps<T, false>(w, static_cast<T*>(wt), nullptr, g, st);
+  if (e0 != cudaSuccess) return (int)e0;
+  const long long M = (long long)g.N * g.Ho * g.Wo;
+  const TilePick tile = pick_tile(M, g.Cout, vec_ok<T>(g.Cin, g.Cout));
+  return with_tile<T, true>(tile, [&](auto tl) -> int {
+    using TL = decltype(tl);
+    constexpr int smem = conv_smem_bytes<TL>();
+    const cudaError_t e = allow_smem(conv_affine_kernel<T, TL>, smem);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
+                    (unsigned)((g.Cout + TL::BN - 1) / TL::BN));
+    conv_affine_kernel<T, TL><<<grid, TL::THREADS, smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(wt), a, b,
+        static_cast<T*>(y), g, relu);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (0 = success).
-int conv_affine(const void* x, const void* wt, const float* a, const float* b,
-                void* y, int dtype, int N, int H, int W, int Cin, int Cout,
-                int kh, int kw, int stride, int ph, int pw, int Ho, int Wo,
-                int relu, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. w is the OIHW float32 filter; wt
+// [kh*kw, Cin, Cout] in x's dtype (16-byte aligned) is scratch. Returns
+// the first launch error (0 = success).
+int conv_affine(const void* x, const float* w, void* wt, const float* a,
+                const float* b, void* y, int dtype, int N, int H, int W,
+                int Cin, int Cout, int kh, int kw, int stride, int ph,
+                int pw, int Ho, int Wo, int relu, void* stream) {
   const ConvGeom g{N, H, W, Cin, Cout, kh, kw, stride, ph, pw, Ho, Wo};
-  const dim3 grid = tile_grid(g);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    conv_affine_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt), a, b,
-        static_cast<float*>(y), g, relu);
-  } else if (dtype == 1) {
-    conv_affine_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wt), a, b,
-        static_cast<__nv_bfloat16*>(y), g, relu);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return launch<float>(x, w, wt, a, b, y, g, relu, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, w, wt, a, b, y, g, relu, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

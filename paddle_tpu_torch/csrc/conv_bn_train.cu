@@ -54,6 +54,7 @@ using convtile::ConvGeom;
 using convtile::Fold;
 using convtile::from_f32;
 using convtile::LANES;
+using convtile::relu_of;
 using convtile::round_to;
 using convtile::to_f32;
 using namespace convmma;
@@ -175,12 +176,6 @@ stats_finalize_kernel(const float* __restrict__ part, int blocks_m, int bm,
     ab[c] = f.a;
     ab[Cout + c] = f.b;
   }
-}
-
-// max(v, 0) that keeps a NaN, as the plain version's clamp does (fmaxf
-// would return 0)
-__device__ __forceinline__ float relu_of(float v) {
-  return v < 0.f ? 0.f : v;
 }
 
 // y = act(z * a + b) in place; four channels a thread where Cout % 4 == 0

@@ -1,8 +1,7 @@
-// conv_mma.cuh: the tensor-core implicit-GEMM mainloop of the training
-// conv + batch-norm kernels (conv_bn_train.cu, conv_bn_bwd.cu), for Hopper
-// (sm_90a). conv_affine.cu keeps the CUDA-core loop of conv_tile.cuh; the
-// helpers both share (to_f32, round_to, ConvGeom, bn_fold, affine) live
-// there.
+// conv_mma.cuh: the tensor-core implicit-GEMM mainloop of the conv +
+// batch-norm kernels (conv_affine.cu, conv_bn_train.cu, conv_bn_bwd.cu),
+// for Hopper (sm_90a). The helpers they share beside it (to_f32, round_to,
+// ConvGeom, bn_fold, affine, relu_of) live in conv_tile.cuh.
 //
 // One block of 8 warps computes a BM x BN tile of a GEMM whose K dimension
 // is walked BK = 32 elements at a time through a ring of STAGES shared-memory

@@ -202,13 +202,6 @@ def _check(name, x, w, strides, paddings, act, vectors):
             raise ValueError(f"{name}: {vname} must be float32 [Cout]")
 
 
-def _taps(w, dtype):
-    """OIHW -> [kh*kw, Cin, Cout] in ``dtype``: the kernels' B operand."""
-    cout, cin, kh, kw = w.shape
-    return w.permute(2, 3, 1, 0).reshape(kh * kw, cin, cout) \
-        .to(dtype).contiguous()
-
-
 def _geometry(x, w, strides, paddings):
     n, h, wd, cin = (int(d) for d in x.shape)
     cout, _, kh, kw = (int(d) for d in w.shape)
@@ -233,16 +226,17 @@ def conv_affine(x, w, a, b, strides, paddings, act):
         return conv_affine_torch(x, w, a, b, strides, paddings, act)
     _check("conv_affine", x, w, strides, paddings, act, {"a": a, "b": b})
     a, b = a.contiguous(), b.contiguous()
-    wt = _taps(w, x.dtype)
+    x, w32 = _aligned(x), _filter32(w)
     g = _geometry(x, w, strides, paddings)
-    y = torch.empty((g[0], g[10], g[11], g[4]), dtype=x.dtype,
-                    device=x.device)
+    n, cin, cout, kh, kw, ho, wo = g[0], g[3], g[4], g[5], g[6], g[10], g[11]
     lib = _lib("conv_affine")
-    with torch.cuda.device(x.device):
-        err = lib.conv_affine(
-            x.data_ptr(), wt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            y.data_ptr(), _DTYPE_CODES[x.dtype], *g, int(act == "relu"),
-            torch.cuda.current_stream().cuda_stream)
+    y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    # scratch: the filter in the kernel's layout
+    wt, _keep = _scratch(x.dtype, x.device, kh * kw * cin * cout)
+    err = _build.call_on(
+        x.device, lib.conv_affine, x.data_ptr(), w32.data_ptr(), wt,
+        a.data_ptr(), b.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], *g,
+        int(act == "relu"))
     _raise_on(lib, "conv_affine", err)
     launches["conv_affine"] += 1
     return y
@@ -391,7 +385,7 @@ def _sm_count(dev):
 # geometry, the SM count (the backward) and an array for the sizes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "conv_affine": [_P] * 5 + [_I] * 14 + [_P],
+    "conv_affine": [_P] * 6 + [_I] * 14 + [_P],
     "conv_bn_train": [_P] * 9 + [_I] * 14 + [_F, _P],
     "conv_bn_bwd": [_P] * 16 + [_I] * 14 + [_F, _I, _P],
     "conv_bn_train_scratch": [_I] * 13 + [_P],

@@ -576,6 +576,11 @@ def test_loop_stats_reads_the_main_loop_from_sass():
     tile = loop_stats.KERNEL.search(name)
     assert (tile[1], tile[2], tile[3], tile[4]) == ("conv_stats_kernel",
                                                      "128", "64", "1")
+    serving = ("_ZN49_GLOBAL__N__8_16_conv_affine_cu_3b18conv_affine_kernel"
+               "IfN7convmma4TileIfLi64ELi128ELb1ELb0EEEEEvPKT_")
+    tile = loop_stats.KERNEL.search(serving)
+    assert (tile[1], tile[2], tile[3], tile[4]) == ("conv_affine_kernel",
+                                                     "64", "128", "0")
 
 
 @pytest.mark.parametrize("dtype,item", [(torch.float32, 4),
