@@ -58,7 +58,10 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               routes, the losses at bench.py's lr 0.1, and a profile of one
               step.
 5. lstm     — lstm_seq and lstm_seq_bwd (b 64, L 100, H 512, ragged) and
-              adam_arena (bitwise) against their plain versions; times.
+              adam_arena (bitwise) against their plain versions; times,
+              lstm_seq_bwd also at the CTC model's 200 frames, and its
+              three stages' shares (prologue, chain, epilogue) from the
+              kernel's own clocks.
 6. textcls  — bench.py:239's LSTM text classifier at its published widths,
               5 steps on both routes: 2 + 2 + 1 launches and 0 plain-routed
               LSTMs per step; step 1 on a fixed and a ragged feed held to
@@ -67,7 +70,8 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
 7. gru, ctc — gru_seq and gru_seq_bwd at the lane's shape (ragged), also
               measured against the same recipe in float64; ctc_alpha and
               ctc_loss_bwd at the CTC model's shape; times, bounds, the
-              GRU's serial floor and F.ctc_loss as a yardstick.
+              GRU's serial floor and F.ctc_loss as a yardstick;
+              gru_seq_bwd also at 200 frames, with its stages' shares.
 8. gru cls  — bench.py:320's GRU text classifier as phase 6 runs the LSTM
               one: 2 + 2 + 1 launches and 0 plain-routed GRUs per step.
 9. ctc      — tests/book/test_ocr_ctc.py's CTC acoustic model at
@@ -1355,10 +1359,34 @@ def build_textcls(fluid, seed, cell="lstm"):
     return main, startup, loss
 
 
-def lstm_operands(torch, gen, dev, lens):
-    """x, alive, w, h0, c0, dhs, dcs at phase 5's shape; w at the scale
-    of the model's Xavier init, the cotangents zero where alive is 0."""
-    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+def bwd_ops_ms(gemm):
+    """(the least time of a recurrent backward's products on the tensor
+    cores, at the CUDA cores' rate): one bf16 GEMM of ``gemm`` operations
+    (the recomputed gates) and two of float32 dgates against bf16 W (dW and
+    the dh products), three bf16 products each on the tensor cores."""
+    bf16 = PEAK_FLOPS["bfloat16"]
+    return ((gemm + 2 * 3 * gemm) / bf16 * 1e3,
+            (gemm / bf16 + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3)
+
+
+def bwd_stages(torch, rnn, name, fn, ms):
+    """Launch the backward ``fn`` once and print its three stages' shares
+    of block 0's clock (the kernel's stage clocks) and their ms at ``ms``
+    a launch."""
+    fn()
+    torch.cuda.synchronize()
+    c = rnn.stage_clocks[name].cpu().double()
+    share = ((c[1:] - c[:-1]) / (c[3] - c[0])).tolist()
+    log(f"  {name} stages of one launch (block 0's clock): "
+        + ", ".join(f"{n} {100 * v:.1f}% ({v * ms:.4f} ms)" for n, v in zip(
+            ("prologue", "chain", "epilogue"), share)))
+
+
+def lstm_operands(torch, gen, dev, lens, L=SEQ_LEN):
+    """x, alive, w, h0, c0, dhs, dcs at phase 5's shape (L steps); w at the
+    scale of the model's Xavier init, the cotangents zero where alive is
+    0."""
+    b, H = SEQ_BATCH, SEQ_HIDDEN
     alive = (torch.arange(L, device=dev)[:, None] < lens[None, :]) \
         .float()[..., None].contiguous()
 
@@ -1486,17 +1514,20 @@ def phase_rnn_kernels(torch, fluid, seed, card):
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     # the backward: the gate product again (bf16 operands), then dW and dh
-    # (float32 dgates against bf16 values: float32 operations); bytes: the
-    # forward's inputs and carries and the cotangents read, dx, dw, dh0
-    # and dc0 written
-    t_ops = (gemm / PEAK_FLOPS["bfloat16"]
-             + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3
+    # (float32 dgates against bf16 values, exact on the tensor cores as
+    # three bf16 products each, csrc/seq_mma.cuh; the CUDA-core bound, at
+    # float32's rate, beside it); bytes: the forward's inputs and carries
+    # and the cotangents read, dx, dw, dh0 and dc0 written
+    t_ops, t_core = bwd_ops_ms(gemm)
     bwd_bytes = 4 * (2 * L * b * 4 * H + L * b + 2 * 4 * H * H + 4 * b * H
                      + 4 * L * b * H)
     t_bytes = bwd_bytes / PEAK_BYTES * 1e3
+
+    def bwd():
+        return rnn.lstm_seq_bwd(x, alive, w, h0, c0, *ref, dhs, dcs)
+
     out["lstm_seq_bwd"].update(
-        ms=time_ms(lambda: rnn.lstm_seq_bwd(x, alive, w, h0, c0, *ref, dhs,
-                                            dcs), torch),
+        ms=time_ms(bwd, torch),
         plain_ms=time_ms(lambda: rnn.lstm_seq_bwd_torch(
             x, alive, w, h0, c0, *ref, dhs, dcs), torch),
         library_ms=time_ms(lambda: torch.autograd.grad(
@@ -1509,8 +1540,24 @@ def phase_rnn_kernels(torch, fluid, seed, card):
         log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, torch.nn.LSTM {t['library_ms']:.4f} "
             f"ms (with the input GEMM), bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), serial floor {serial:.4f} ms ({L} grid "
-            f"barriers over {H // 4} blocks)")
+            f"({t['bound_by']}"
+            + (f"; CUDA-core bound {t_core:.4f} ms" if k.endswith("bwd")
+               else "")
+            + f"), serial floor {serial:.4f} ms ({L} grid barriers over "
+            f"{H // 4} blocks)")
+    bwd_stages(torch, rnn, "lstm_seq_bwd", bwd, out["lstm_seq_bwd"]["ms"])
+    x2, a2, _, _, _, dh2, dc2 = lstm_operands(
+        torch, gen, dev, torch.full((b,), CTC_FRAMES[1], device=dev),
+        CTC_FRAMES[1])
+    h2, c2 = rnn.lstm_seq(x2, a2, w, h0, c0)
+
+    def long():
+        return rnn.lstm_seq_bwd(x2, a2, w, h0, c0, h2, c2, dh2, dc2)
+
+    ms = time_ms(long, torch)
+    log(f"lstm_seq_bwd at the CTC model's {CTC_FRAMES[1]} frames (b {b}, "
+        f"H {H}): {ms:.4f} ms a launch")
+    bwd_stages(torch, rnn, "lstm_seq_bwd", long, ms)
 
     adam_ps = [torch.nn.Parameter(p.clone()) for p in ps]
     for p, g in zip(adam_ps, gs):
@@ -1760,10 +1807,10 @@ def phase_textcls(torch, fluid, seed, card, cell="lstm"):
     return totals
 
 
-def gru_operands(torch, gen, dev, lens):
-    """x, alive, w, h0, dhs at phase 7's shape; w at the scale of the
-    model's Xavier init, the cotangents zero where alive is 0."""
-    L, b, H = SEQ_LEN, SEQ_BATCH, SEQ_HIDDEN
+def gru_operands(torch, gen, dev, lens, L=SEQ_LEN):
+    """x, alive, w, h0, dhs at phase 7's shape (L steps); w at the scale of
+    the model's Xavier init, the cotangents zero where alive is 0."""
+    b, H = SEQ_BATCH, SEQ_HIDDEN
     alive = (torch.arange(L, device=dev)[:, None] < lens[None, :]) \
         .float()[..., None].contiguous()
 
@@ -1912,17 +1959,20 @@ def phase_seq_kernels(torch, fluid, seed, card):
         library_ms=None, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     # the backward: the gate products again (bf16 operands), then the two
-    # dh products and dW (float32 dgates against bf16 values); bytes: the
-    # forward's inputs, its carries and their cotangents read, dx, dw and
-    # dh0 written
-    t_ops = (gemm / PEAK_FLOPS["bfloat16"]
-             + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3
+    # dh products and dW (float32 dgates against bf16 values, three bf16
+    # products each on the tensor cores; the CUDA-core bound beside);
+    # bytes: the forward's inputs, its carries and their cotangents read,
+    # dx, dw and dh0 written
+    t_ops, t_core = bwd_ops_ms(gemm)
     bwd_bytes = 4 * (2 * L * b * 3 * H + L * b + 2 * 3 * H * H + 2 * b * H
                      + 2 * L * b * H)
     t_bytes = bwd_bytes / PEAK_BYTES * 1e3
+
+    def bwd():
+        return rnn.gru_seq_bwd(x, alive, w, h0, ref, dhs)
+
     out["gru_seq_bwd"].update(
-        ms=time_ms(lambda: rnn.gru_seq_bwd(x, alive, w, h0, ref, dhs),
-                   torch),
+        ms=time_ms(bwd, torch),
         plain_ms=time_ms(lambda: rnn.gru_seq_bwd_torch(
             x, alive, w, h0, ref, dhs), torch),
         library_ms=None, bound_ms=max(t_ops, t_bytes),
@@ -1933,9 +1983,24 @@ def phase_seq_kernels(torch, fluid, seed, card):
         log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library none (torch.nn.GRU applies r "
             f"after the recurrent product, cuDNN's formula: another "
-            f"function), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-            f"serial floor {serial:.4f} ms ({2 * L} grid barriers over "
-            f"{H // 4} blocks)")
+            f"function), bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
+            + (f"; CUDA-core bound {t_core:.4f} ms" if k.endswith("bwd")
+               else "")
+            + f"), serial floor {serial:.4f} ms ({2 * L} grid barriers "
+            f"over {H // 4} blocks)")
+    bwd_stages(torch, rnn, "gru_seq_bwd", bwd, out["gru_seq_bwd"]["ms"])
+    x2, a2, _, _, dh2 = gru_operands(
+        torch, gen, dev, torch.full((b,), CTC_FRAMES[1], device=dev),
+        CTC_FRAMES[1])
+    h2 = rnn.gru_seq(x2, a2, w, h0)
+
+    def long():
+        return rnn.gru_seq_bwd(x2, a2, w, h0, h2, dh2)
+
+    ms = time_ms(long, torch)
+    log(f"gru_seq_bwd at the CTC model's {CTC_FRAMES[1]} frames (b {b}, "
+        f"H {H}): {ms:.4f} ms a launch")
+    bwd_stages(torch, rnn, "gru_seq_bwd", long, ms)
 
     # CTC work that this batch's lengths need, not the padded T: ~16
     # operations per label position and step of the recurrence (two

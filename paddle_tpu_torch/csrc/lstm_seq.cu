@@ -19,7 +19,7 @@
 // in float32.
 //
 // Design. W in bf16 is 2 MiB at H 512 and cannot sit in one SM, so the
-// kernel is a persistent COOPERATIVE grid: block j owns hidden units
+// forward is a persistent COOPERATIVE grid: block j owns hidden units
 // 4j..4j+3 and their 16 gate columns (i, f, c, o of each), keeps its column
 // slice of W (bf16-rounded, as float32: 32 KB) in shared memory for all L
 // steps, and does the cell math of its units itself, so only h crosses
@@ -30,28 +30,48 @@
 // updates its carries and writes them; then a grid-wide barrier
 // (cooperative_groups grid sync) publishes h_t.
 //
-// The backward walks t from L-1 to 0 on the same partition. Phase A:
-// recompute the block's gates from h_{t-1} through the same code as the
-// forward (bitwise the forward's gates), form dgates for its columns,
-// write them (they are dx_t), and add its columns of h_{t-1}^T . dgates_t,
-// rounded to bf16, to a float32 dW held in registers (no atomics). Barrier.
-// Phase B: dh_{t-1} for its own units needs every block's dgates_t, so the
-// block reads all of dx_t [b, 4H] back (from L2) in four chunks and
-// multiplies by its rows of W (a second resident slice, 32 KB). The next
-// step's phase A writes dx_{t-1}, which no block reads before the next
-// barrier, so one barrier per step suffices.
+// The backward runs three stages in one cooperative launch of the same
+// H/4 blocks, separated by grid barriers, and keeps only what depends on
+// the carries' cotangents on the serial chain (csrc/seq_mma.cuh holds the
+// tensor-core code):
+// - Prologue, no barrier between steps: every step's gates at once, one
+//   GEMM over the L*b rows [h0; hs[:-1]] (bf16 x bf16 on mma.sync, exact
+//   products), activated and written into dx, which the chain overwrites
+//   with dgates. They are not the forward's gates bit for bit (another
+//   float32 order); the plain version recomputes them in its own order
+//   too.
+// - Chain, t = L-1 .. 0, one grid barrier a step. Batch rows are
+//   independent, so a chain block owns UB units (32, or 16 where H is not
+//   a multiple of 32) of RB = 256/UB batch rows, holds its units' rows of
+//   W in shared memory (bf16, 128 KB at H 512) and does its cells' math
+//   from the gates in dx. It writes its dgates_t into dx_t; after the
+//   barrier it reads its rows' dgates_t of every unit (64 KB at b 64, H
+//   512, from the 16 blocks of its row group; the second half of the
+//   columns in flight while the first half's products run) and forms its
+//   cells' dh product bf16(dgates_t . W^T) on the tensor cores: dgates
+//   split into three bf16 parts, each 16-column k-step a fresh
+//   accumulator, the k-steps summed per warp in increasing order and the 8
+//   warps' sums in warp order. On the H100 this exchange took 1.2 us a
+//   step where a broadcast of all dgates (the first version's, 512 KB a
+//   block) took 9 and column-split partials 12 (PERF.md §6).
+// - Epilogue: dW = sum_t bf16(bf16(h_{t-1})^T . dgates_t), t descending,
+//   tiled 64 x 128 over W across the grid, K = b a step.
+// The grid barrier of step 0 publishes every dgates the epilogue reads, so
+// the chain needs no barrier of its own after it. Every sum has a fixed
+// order and no atomics: every run is bitwise the same.
 //
 // Bound on the H100 at b 64, L 100, H 512: neither bytes nor operations.
-// A layer's forward is 13.4 GFLOP (0.2 ms at 67 TFLOP/s on the CUDA cores)
-// and moves ~40 MB; but its 100 steps are a dependent chain, one grid
-// barrier each, so the serial floor (L barriers) bounds it from below.
-// This first version runs the products on the CUDA cores in float32;
-// tensor-core tiles (mma / wgmma on the bf16 operands) are later work.
+// A layer's forward is 13.4 GFLOP (0.2 ms at 67 TFLOP/s on the CUDA cores,
+// 0.014 ms at the bf16 tensor-core peak) and moves ~40 MB; but its 100
+// steps are a dependent chain, one grid barrier each, so the serial floor
+// (L barriers) bounds it from below. The forward still runs its products
+// on the CUDA cores in float32.
 //
 // The C entries return cudaGetLastError() after the launch (0 = success);
 // the caller allocates every output and passes its stream.
 
 #include "seq_common.cuh"
+#include "seq_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,10 +81,8 @@ using namespace seq;
 
 constexpr int COLS = 4 * UNITS;   // gate columns per block
 constexpr int KSPLIT = 4;         // the gate product's split of H
-constexpr int BSPLIT = 16;        // phase B's split of 4H
-static_assert(PART == KSPLIT * BMAX * COLS && PART == BSPLIT * BMAX * UNITS,
-              "the partial sums of both products fill PART");
-static_assert(8 * THREADS / 4 >= MAX_H, "dW: 8 rows of W per 4 threads");
+static_assert(PART == KSPLIT * BMAX * COLS,
+              "the gate product's partial sums fill PART");
 
 // gates_s[row][lc] = x_t[row][gcol(lc)] + sum_k hs_s[row][k] * w_s[k][lc]
 // for the block's 16 columns. Thread groups s = 0..3 sum k in
@@ -175,178 +193,124 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
   }
 }
 
+// the activations of the recomputed gates, by column: i, f, o sigmoid,
+// the candidate tanh
+struct LstmAct {
+  int H;
+  __device__ float operator()(int col, float v) const {
+    return col >= 2 * H && col < 3 * H ? tanhf(v) : sigm(v);
+  }
+};
+
+// what a chain thread reads for its cell at step t: the gates (from the
+// prologue, in dx), c_{t-1}, the carries' cotangents and alive
+struct LstmIn {
+  float i, f, u, o, cp, dh, dc, a;
+};
+
+__device__ __forceinline__ LstmIn lstm_in(const float* dx, const float* c0,
+                                          const float* cs, const float* dhs,
+                                          const float* dcs,
+                                          const float* alive, int t, int b,
+                                          int H, int row, int j) {
+  const size_t o = ((size_t)t * b + row) * H + j;
+  const float* g = dx + ((size_t)t * b + row) * 4 * H + j;
+  return {__ldcg(g), __ldcg(g + H), __ldcg(g + 2 * H), __ldcg(g + 3 * H),
+          t == 0 ? c0[row * H + j] : cs[o - (size_t)b * H], dhs[o], dcs[o],
+          alive[t * b + row]};
+}
+
+// UB units x RB = THREADS / UB batch rows a chain block (module comment)
+template <int UB>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
                 const float* __restrict__ w, const float* __restrict__ h0,
                 const float* __restrict__ c0, const float* __restrict__ hs,
                 const float* __restrict__ cs, const float* __restrict__ dhs,
                 const float* __restrict__ dcs, float* dx, float* dw,
-                float* dh0, float* dc0, int L, int b, int H) {
+                float* dh0, float* dc0, long long* stamps, int L, int b,
+                int H) {
+  using namespace seqmma;
+  constexpr int RB = THREADS / UB, MT = UB / 16, NT = RB / 8;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int hp = H + 4, H4 = 4 * H;
-  float* hs_s = smem;                  // [BMAX][hp]  bf16(h_{t-1}); then
-                                       //             a chunk of dgates_t
-  float* w_s = hs_s + BMAX * hp;       // [H][COLS]   bf16(w) columns
-  float* wr_s = w_s + H * COLS;        // [UNITS][4H] bf16(w) rows
-  float* part = wr_s + UNITS * H4;     // [PART]      partial sums
-  float* gates_s = part + PART;        // [BMAX][COLS]
-  float* dg_s = gates_s + BMAX * COLS; // [BMAX][COLS] dgates_t, own columns
-  const int tid = threadIdx.x, j0 = blockIdx.x * UNITS;
-  const int row = tid / UNITS, jj = tid % UNITS;
-  const bool mine = row < b;
-  // dW: this thread's 8 rows k of W and the 4 units of gate gq
-  const int kg = tid / 4, gq = tid % 4;
-  const bool dw_mine = kg * 8 < H;
-  // phase B: rows rg*4..+3, column quads ksb, ksb+BSPLIT, ...
-  const int rg = tid % 16, ksb = tid / 16;
+  uint16_t* sm = reinterpret_cast<uint16_t*>(smem4);
+  const int H4 = 4 * H, tid = threadIdx.x;
   cg::grid_group grid = cg::this_grid();
+  stamp(stamps, 0);
 
-  for (int i = tid; i < BMAX * hp; i += THREADS) hs_s[i] = 0.f;
-  for (int i = tid; i < BMAX * COLS; i += THREADS) dg_s[i] = 0.f;
-  stage_w_cols<4>(w_s, w, H, j0);
-  for (int i = tid; i < UNITS * H4; i += THREADS)
-    wr_s[i] = bf16r(w[(j0 + i / H4) * H4 + i % H4]);
-  float dwacc[8][4];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) dwacc[kk][u] = 0.f;
+  // ---- prologue: every step's gates, activated, into dx ----
+  gate_gemm(h0, hs, b, L * b, w, x, dx, H4, 0, H4, H, LstmAct{H}, sm);
+  grid.sync();
+  stamp(stamps, 1);
+
+  // ---- chain: t = L-1 .. 0 on batch-row groups ----
+  const int U = H / UB;
+  const bool active = blockIdx.x < U * ((b + RB - 1) / RB);
+  const int j0 = (blockIdx.x % U) * UB, r0 = (blockIdx.x / U) * RB;
+  const int row = r0 + tid / UB, j = j0 + tid % UB;
+  const bool mine = active && row < b;
+  const int wp = H4 + PAD, xp = xpitch(4, H);
+  uint16_t* ws = sm;                                    // [UB][wp]
+  float* xs = reinterpret_cast<float*>(ws + UB * wp);   // [RB][xp]
+  float* part = xs + RB * xp;                           // [WARPS][UB * RB]
+  __syncthreads();
+  if (active) stage_w_rows(ws, wp, w + (size_t)j0 * H4, UB, H4);
+  __syncthreads();
   float dh = 0.f, dc = 0.f;   // cotangents of the carries after step t
-
+  LstmIn in{};
+  if (mine) in = lstm_in(dx, c0, cs, dhs, dcs, alive, L - 1, b, H, row, j);
   for (int t = L - 1; t >= 0; --t) {
-    // ---- phase A: this block's dgates_t and its columns of dW ----
-    __syncthreads();
-    stage_rows(hs_s, hp, t == 0 ? h0 : hs + (size_t)(t - 1) * b * H, b, H,
-               H, true);
-    __syncthreads();
-    gate_preact(hs_s, hp, w_s, part, gates_s, x + (size_t)t * b * H4, b, H,
-                j0);
     float bo = 0.f;
     if (mine) {
-      const size_t o = ((size_t)t * b + row) * H + j0 + jj;
-      const float* gr = gates_s + row * COLS;
-      const float a = alive[t * b + row];
-      const float cp = t == 0 ? c0[row * H + j0 + jj] : cs[o - (size_t)b * H];
-      const float ig = sigm(gr[jj]);
-      const float fg = sigm(gr[UNITS + jj]);
-      const float u = tanhf(gr[2 * UNITS + jj]);
-      const float og = sigm(gr[3 * UNITS + jj]);
-      const float tc =
-          tanhf(__fadd_rn(__fmul_rn(fg, cp), __fmul_rn(ig, u)));
-      const float dht = __fadd_rn(dh, dhs[o]);
-      const float dct = __fadd_rn(dc, dcs[o]);
-      const float na = __fsub_rn(1.f, a);
+      const float tc = tanhf(
+          __fadd_rn(__fmul_rn(in.f, in.cp), __fmul_rn(in.i, in.u)));
+      const float dht = __fadd_rn(dh, in.dh);
+      const float dct = __fadd_rn(dc, in.dc);
+      const float a = in.a, na = __fsub_rn(1.f, a);
       const float bp = __fmul_rn(a, dht);
-      const float bs = __fmul_rn(__fmul_rn(og, bp), __fsub_rn(1.f, tc));
+      const float bs = __fmul_rn(__fmul_rn(in.o, bp), __fsub_rn(1.f, tc));
       const float dcn = __fadd_rn(__fadd_rn(__fmul_rn(a, dct), bs),
                                   __fmul_rn(bs, tc));
-      const float dcand = __fmul_rn(__fmul_rn(ig, dcn), __fsub_rn(1.f, u));
-      float dg[4];
-      dg[0] = __fmul_rn(__fmul_rn(dcn, u),
-                        __fmul_rn(ig, __fsub_rn(1.f, ig)));
-      dg[1] = __fmul_rn(__fmul_rn(dcn, cp),
-                        __fmul_rn(fg, __fsub_rn(1.f, fg)));
-      dg[2] = __fadd_rn(dcand, __fmul_rn(dcand, u));
-      dg[3] = __fmul_rn(__fmul_rn(bp, tc),
-                        __fmul_rn(og, __fsub_rn(1.f, og)));
-      float* dxr = dx + ((size_t)t * b + row) * H4 + j0 + jj;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dxr[g * H] = dg[g];
-        dg_s[row * COLS + g * UNITS + jj] = dg[g];
-      }
+      const float dcand =
+          __fmul_rn(__fmul_rn(in.i, dcn), __fsub_rn(1.f, in.u));
+      float* dxr = dx + ((size_t)t * b + row) * H4 + j;
+      __stcg(dxr, __fmul_rn(__fmul_rn(dcn, in.u),
+                            __fmul_rn(in.i, __fsub_rn(1.f, in.i))));
+      __stcg(dxr + H, __fmul_rn(__fmul_rn(dcn, in.cp),
+                                __fmul_rn(in.f, __fsub_rn(1.f, in.f))));
+      __stcg(dxr + 2 * H, __fadd_rn(dcand, __fmul_rn(dcand, in.u)));
+      __stcg(dxr + 3 * H, __fmul_rn(__fmul_rn(bp, tc),
+                                    __fmul_rn(in.o, __fsub_rn(1.f, in.o))));
       bo = __fmul_rn(na, dht);
-      dc = __fadd_rn(__fmul_rn(na, dct), __fmul_rn(fg, dcn));
-    }
-    __syncthreads();
-    if (dw_mine) {
-      float tmp[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) tmp[kk][u] = 0.f;
-      for (int r = 0; r < b; ++r) {
-        const float4 ha =
-            *reinterpret_cast<const float4*>(hs_s + r * hp + kg * 8);
-        const float4 hb =
-            *reinterpret_cast<const float4*>(hs_s + r * hp + kg * 8 + 4);
-        const float4 dv =
-            *reinterpret_cast<const float4*>(dg_s + r * COLS + gq * 4);
-        const float hv[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
-        const float d4[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            tmp[kk][u] = fmaf(hv[kk], d4[u], tmp[kk][u]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          dwacc[kk][u] = __fadd_rn(dwacc[kk][u], bf16r(tmp[kk][u]));
+      dc = __fadd_rn(__fmul_rn(na, dct), __fmul_rn(in.f, dcn));
     }
     grid.sync();   // every block's dgates_t (= dx_t) is written
-
-    // ---- phase B: dh_{t-1} of this block's units, all of dgates_t ----
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
-    for (int ch = 0; ch < 4; ++ch) {
-      __syncthreads();
-      stage_rows(hs_s, hp, dx + (size_t)t * b * H4 + ch * H, b, H, H4,
-                 false);
-      __syncthreads();
-      for (int qd = ksb; qd < H / 4; qd += BSPLIT) {
-        float dv[4][4], wv[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              hs_s + (rg * 4 + r) * hp + qd * 4);
-          dv[r][0] = v.x; dv[r][1] = v.y; dv[r][2] = v.z; dv[r][3] = v.w;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              wr_s + u * H4 + ch * H + qd * 4);
-          wv[u][0] = v.x; wv[u][1] = v.y; wv[u][2] = v.z; wv[u][3] = v.w;
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-              acc[r][u] = fmaf(dv[r][e], wv[u][e], acc[r][u]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        part[ksb * BMAX * UNITS + (rg * 4 + r) * UNITS + u] = acc[r][u];
-    __syncthreads();
-    if (mine) {
-      float mm = part[row * UNITS + jj];
-      for (int k = 1; k < BSPLIT; ++k)
-        mm = __fadd_rn(mm, part[k * BMAX * UNITS + row * UNITS + jj]);
-      dh = __fadd_rn(bo, bf16r(mm));
+    // step t-1's inputs, in flight during the product (a load before the
+    // barrier would hold its fence)
+    if (mine && t > 0)
+      in = lstm_in(dx, c0, cs, dhs, dcs, alive, t - 1, b, H, row, j);
+    if (active) {
+      // the columns in two parts, the first a multiple of 128 (8 k-steps:
+      // every warp's k-steps keep the order of one pass over all columns)
+      float sum[MT][NT][4] = {};
+      chain_staged<MT, NT>(ws, wp, xs, xp, dx + ((size_t)t * b + r0) * H4,
+                           H4, b - r0, 0, H4 / 256 * 128, H4, sum);
+      const float mm = chain_reduce<MT, NT>(sum, part, tid % UB, tid / UB);
+      if (mine) dh = __fadd_rn(bo, bf16r(mm));
     }
   }
   if (mine) {
-    dh0[row * H + j0 + jj] = dh;
-    dc0[row * H + j0 + jj] = dc;
+    dh0[row * H + j] = dh;
+    dc0[row * H + j] = dc;
   }
-  if (dw_mine) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        dw[(size_t)(kg * 8 + kk) * H4 + gq * H + j0 + u] = dwacc[kk][u];
-  }
+  stamp(stamps, 2);
+
+  // ---- epilogue: dW = sum_t bf16(bf16(h_{t-1})^T . dgates_t) ----
+  const int mtiles = (H + TM - 1) / TM, ntiles = (H4 + TN - 1) / TN;
+  for (int idx = blockIdx.x; idx < mtiles * ntiles; idx += gridDim.x)
+    dw_tile_b(h0, hs, 1, dx, dw, H4, 0, H4, H, L, b, (idx % mtiles) * TM,
+              (idx / mtiles) * TN, sm);
+  stamp(stamps, 3);
 }
 
 __global__ void barrier_chain_kernel(int steps) {
@@ -369,16 +333,21 @@ int lstm_seq_fwd(const float* x, const float* alive, const float* w,
 }
 
 // the forward's inputs and outputs, and the carries' cotangents dhs, dcs
-// [L, b, H] in; dx [L, b, 4H], dw [H, 4H], dh0, dc0 [b, H] out.
+// [L, b, H] in; dx [L, b, 4H], dw [H, 4H], dh0, dc0 [b, H] out; stamps [4]
+// (int64) out: block 0's clock at the stage boundaries.
 int lstm_seq_bwd(const float* x, const float* alive, const float* w,
                  const float* h0, const float* c0, const float* hs,
                  const float* cs, const float* dhs, const float* dcs,
-                 float* dx, float* dw, float* dh0, float* dc0, int L, int b,
-                 int H, void* stream) {
+                 float* dx, float* dw, float* dh0, float* dc0,
+                 long long* stamps, int L, int b, int H, void* stream) {
   if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
-  void* args[] = {&x,   &alive, &w,  &h0,  &c0,  &hs, &cs, &dhs, &dcs,
-                  &dx,  &dw,    &dh0, &dc0, &L,  &b,  &H};
-  return launch(lstm_bwd_kernel, H / UNITS, bwd_smem<4>(H), args, stream);
+  void* args[] = {&x,  &alive, &w,   &h0,  &c0,     &hs, &cs, &dhs, &dcs,
+                  &dx, &dw,    &dh0, &dc0, &stamps, &L,  &b,  &H};
+  const int ub = H % 32 == 0 ? 32 : 16;
+  const size_t smem = seqmma::bwd_smem(4, H, b, ub);
+  return ub == 32
+             ? launch(lstm_bwd_kernel<32>, H / UNITS, smem, args, stream)
+             : launch(lstm_bwd_kernel<16>, H / UNITS, smem, args, stream);
 }
 
 // an empty cooperative kernel of `blocks` blocks crossing `steps` grid

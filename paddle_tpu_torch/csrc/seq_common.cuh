@@ -72,15 +72,6 @@ size_t fwd_smem(int H) {
          ((size_t)BMAX * (H + 4) + (size_t)H * COLS + PART + BMAX * COLS);
 }
 
-// the backward's: the forward's, the block's rows of W [UNITS][GATES * H]
-// and a second tile [BMAX][COLS] (dgates of its columns)
-template <int GATES>
-size_t bwd_smem(int H) {
-  constexpr size_t COLS = GATES * UNITS;
-  return fwd_smem<GATES>(H) +
-         sizeof(float) * ((size_t)UNITS * GATES * H + BMAX * COLS);
-}
-
 template <typename Kernel>
 int launch(Kernel kernel, int blocks, size_t smem, void** args,
            void* stream) {

@@ -16,8 +16,10 @@ step's ``dW_t = h_{t-1}ᵀ·dgates_t`` and the product part of
 ``dh_{t-1} = dgates_t·Wᵀ`` are rounded to bfloat16 before they are added
 in float32.
 
-On CUDA tensors both launch ``csrc/lstm_seq.cu`` (a persistent cooperative
-kernel; see the source for the design); on CPU tensors they run
+On CUDA tensors both launch ``csrc/lstm_seq.cu`` (persistent cooperative
+kernels; see the source for the design: the backward recomputes every
+step's gates in one tensor-core GEMM, runs only the cotangents' chain step
+by step, and forms dW in a last tensor-core pass); on CPU tensors they run
 ``lstm_seq_torch`` / ``lstm_seq_bwd_torch``, the plain versions, which the
 CPU tests hold against the reference. :class:`LstmSeq` is the
 ``torch.autograd.Function`` that pairs them, saving the reference's
@@ -48,10 +50,16 @@ from . import build as _build
 launches = {"lstm_seq": 0, "lstm_seq_bwd": 0, "gru_seq": 0,
             "gru_seq_bwd": 0}
 
-# the kernels' limits (csrc/lstm_seq.cu, csrc/gru_seq.cu): one block per 4
-# hidden units and every batch row; each block holds up to 217 KB of shared
-# memory, so one block fits an SM, and all H/4 blocks must be resident at
-# once (128 of the H100's 132 SMs at H 512)
+# the backwards' last launch's stage clocks: int64 [4] on the card, block
+# 0's clock64 at the start, after the prologue, after the chain and after
+# its epilogue (chip_smoke.py prints the stages' shares)
+stage_clocks = {"lstm_seq_bwd": None, "gru_seq_bwd": None}
+
+# the kernels' limits (csrc/lstm_seq.cu, csrc/gru_seq.cu): H/4 blocks, each
+# holding up to 204 KB of shared memory, so one block fits an SM, and all
+# of them must be resident at once (128 of the H100's 132 SMs at H 512);
+# a forward block owns 4 hidden units of every batch row (at most 64), a
+# backward chain block 16 or 32 units of 16 or 8 rows
 MAX_BATCH, MAX_HIDDEN, HIDDEN_MULTIPLE = 64, 512, 16
 
 
@@ -217,16 +225,18 @@ def lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs):
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
     dc0 = torch.empty_like(c0)
+    clocks = torch.empty(4, dtype=torch.int64, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.lstm_seq_bwd(
             x.data_ptr(), alive.data_ptr(), w.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
             dcs.data_ptr(), dx.data_ptr(), dw.data_ptr(), dh0.data_ptr(),
-            dc0.data_ptr(), L, b, hdim,
+            dc0.data_ptr(), clocks.data_ptr(), L, b, hdim,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "lstm_seq_bwd")
     launches["lstm_seq_bwd"] += 1
+    stage_clocks["lstm_seq_bwd"] = clocks
     return dx, dw, dh0, dc0
 
 
@@ -337,15 +347,17 @@ def gru_seq_bwd(x, alive, w, h0, hs, dhs):
     dw = torch.empty_like(w)
     dh0 = torch.empty_like(h0)
     rh = torch.empty(seq, device=x.device)    # every step's bf16(r ⊙ h)
+    clocks = torch.empty(4, dtype=torch.int64, device=x.device)
     lib = _gru_lib()
     with torch.cuda.device(x.device):
         err = lib.gru_seq_bwd(
             x.data_ptr(), alive.data_ptr(), w.data_ptr(), h0.data_ptr(),
             hs.data_ptr(), dhs.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-            dh0.data_ptr(), rh.data_ptr(), L, b, hdim,
+            dh0.data_ptr(), rh.data_ptr(), clocks.data_ptr(), L, b, hdim,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "gru_seq_bwd")
     launches["gru_seq_bwd"] += 1
+    stage_clocks["gru_seq_bwd"] = clocks
     return dx, dw, dh0
 
 
@@ -397,7 +409,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_seq_fwd.argtypes = [p] * 7 + [i, i, i, p]
         lib.lstm_seq_fwd.restype = i
-        lib.lstm_seq_bwd.argtypes = [p] * 13 + [i, i, i, p]
+        lib.lstm_seq_bwd.argtypes = [p] * 14 + [i, i, i, p]
         lib.lstm_seq_bwd.restype = i
         lib.grid_barrier_chain.argtypes = [i, i, p]
         lib.grid_barrier_chain.restype = i
@@ -412,7 +424,7 @@ def _gru_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gru_seq_fwd.argtypes = [p] * 6 + [i, i, i, p]
         lib.gru_seq_fwd.restype = i
-        lib.gru_seq_bwd.argtypes = [p] * 10 + [i, i, i, p]
+        lib.gru_seq_bwd.argtypes = [p] * 11 + [i, i, i, p]
         lib.gru_seq_bwd.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p

@@ -104,6 +104,96 @@ def test_plain_versions_match_the_pallas_kernel_and_its_vjp(seed):
     _assert_flips(dh0, want[2], dh_step, "dh0")
 
 
+def _tc_product(a_parts, w_parts):
+    """sum_i a_i . w_iᵀ ([b, K_i] . [H, K_i]ᵀ) as csrc/seq_mma.cuh's chain
+    sums it: each 16-column k-step one tensor-core sum of exact products
+    (here float64, rounded to float32 once), each of the 8 warps adding
+    its k-steps w, w + 8, ... of every part in turn in float32, then the
+    warps' sums added in warp order."""
+    terms = []
+    for a, w in zip(a_parts, w_parts):
+        steps = a.shape[-1] // 16
+        terms.append((a.double().reshape(a.shape[0], 1, steps, 16)
+                      * w.double().reshape(1, w.shape[0], steps, 16))
+                     .sum(-1).float())
+    total = None
+    for warp in range(8):
+        acc = torch.zeros(terms[0].shape[:2])
+        for t in terms:
+            for step in range(warp, t.shape[-1], 8):
+                acc = acc + t[..., step]
+        total = acc if total is None else total + acc
+    return total
+
+
+def _dw_steps(a, d):
+    """sum over t descending of bf16(a_tᵀ . d_t), each a fresh
+    tensor-core sum over the batch (float64 here, rounded to float32)."""
+    dw = torch.zeros(a.shape[-1], d.shape[-1])
+    for t in reversed(range(a.shape[0])):
+        dw = dw + rnn._bf16((a[t].double().T @ d[t].double()).float())
+    return dw
+
+
+def _kernel_model_bwd(x, alive, w, h0, hs, dhs):
+    """csrc/gru_seq.cu's backward, decomposed as the kernel decomposes it,
+    in plain torch: the prologue's u and r of every step in one GEMM, then
+    bf16(r ⊙ h_{t-1}) and c in a second; the chain's cell math
+    (gru_seq_bwd_torch's operation order) with cd and the dh product
+    summed as _tc_product sums them (dpre_u's k-steps before dpre_r's);
+    the epilogue's dW in _dw_steps' order."""
+    steps, b, h3 = x.shape
+    hdim = h3 // 3
+    wb = rnn._bf16(w)
+    h_prevs = torch.cat([h0[None], hs[:-1]])
+    hb = rnn._bf16(h_prevs)
+    ur = x[..., :2 * hdim] + (hb.reshape(-1, hdim) @ wb[:, :2 * hdim]) \
+        .reshape(steps, b, 2 * hdim)
+    us, rs = torch.sigmoid(ur).split(hdim, -1)
+    rh = rnn._bf16(rs * h_prevs)
+    cs = torch.tanh(x[..., 2 * hdim:] + (rh.reshape(-1, hdim)
+                                         @ wb[:, 2 * hdim:]).reshape(
+                                             steps, b, hdim))
+    w_u, w_r, w_c = (wb[:, k * hdim:(k + 1) * hdim] for k in range(3))
+    dh = torch.zeros_like(h0)
+    dx = torch.empty_like(x)
+    for t in reversed(range(steps)):
+        a, hp, u, r, c = alive[t], h_prevs[t], us[t], rs[t], cs[t]
+        e = dh + dhs[t]
+        bl = a * e
+        bn = (1 - a) * e + (1 - u) * bl
+        du = bl * c - bl * hp
+        bt = (u * bl) * (1 - c)
+        dpc = bt + bt * c
+        cd = rnn._bf16(_tc_product([dpc], [w_c]))
+        dpr = (cd * hp) * (r * (1 - r))
+        dpu = du * (u * (1 - u))
+        dx[t] = torch.cat([dpu, dpr, dpc], dim=-1)
+        dh = (bn + r * cd) + rnn._bf16(_tc_product([dpu, dpr], [w_u, w_r]))
+    dw = torch.cat([_dw_steps(hb, dx[..., :2 * hdim]),
+                    _dw_steps(rh, dx[..., 2 * hdim:])], dim=-1)
+    return dx, dw, dh
+
+
+@pytest.mark.parametrize("seed", [0, 14])
+def test_kernel_decomposition_matches_the_reference_vjp(seed):
+    """The backward kernel's summation structure (prologue GEMMs, chain
+    sums by k-step and warp, per-step bf16 dW in t-descending order) stays
+    within the tolerances the plain version is held to against the
+    reference's custom vjp (_gru_seq_bwd)."""
+    x, alive, w, h0, dhs = _operands(seed)
+    hs, vjp = jax.vjp(lambda x, w, h0: gru_seq_pallas(x, jnp.asarray(alive),
+                                                      w, h0), x, w, h0)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dhs))]
+    t = [torch.from_numpy(a) for a in (x, alive, w, h0)]
+    dx, dw, dh0 = (g.numpy() for g in _kernel_model_bwd(
+        *t, torch.from_numpy(np.array(hs)), torch.from_numpy(dhs)))
+    np.testing.assert_allclose(dx, want[0], **GRAD_TOL, err_msg="dx")
+    dw_step, dh_step = _bf16_steps(w, max(np.abs(h0).max(), 1.0), dx)
+    _assert_flips(dw, want[1], dw_step, "dw")
+    _assert_flips(dh0, want[2], dh_step, "dh0")
+
+
 def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     x, alive, w, h0, dhs = (torch.from_numpy(a) for a in _operands(1))
     rnn.reset_launches()
@@ -238,15 +328,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         rnn.gru_seq(x, alive, w.T.contiguous().T, h)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(7, 3, 16), (20, 64, 512)])
-def test_kernels_match_the_plain_versions_on_card(shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
-                    "tests/test_torch_gru.py on the GPU machine)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    steps, b, hdim = shape
-    rng = np.random.RandomState(5)
+# (L, b, H) on the card: the first two, then the backward's hard cases: one
+# step; one batch row and 33 (not a multiple of the 8- or 16-row groups of
+# the chain or of the mma tiles); H 80 and 208 (not multiples of 32: 16
+# units a chain block, grids of 20 and 52 blocks); the CTC model's 200
+# frames at the lane's widths
+CARD_SHAPES = [(7, 3, 16), (20, 64, 512), (1, 64, 512), (20, 1, 512),
+               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512)]
+
+
+def _card_operands(steps, b, hdim, seed=5):
+    rng = np.random.RandomState(seed)
     lens = rng.randint(0, steps + 1, b)
     lens[0] = steps
     alive = (np.arange(steps)[:, None] < lens[None, :]) \
@@ -254,20 +346,97 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     arrs = [rng.normal(0, 1, (steps, b, 3 * hdim)), alive,
             rng.normal(0, 0.05, (hdim, 3 * hdim)), rng.normal(0, 1, (b, hdim)),
             rng.normal(0, 1, (steps, b, hdim)) * alive]
-    x, alive, w, h0, dhs = (torch.tensor(a, dtype=torch.float32,
-                                         device="cuda") for a in arrs)
+    return [torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in arrs]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
+                    "tests/test_torch_gru.py on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernels_match_the_plain_versions_on_card(shape):
+    _need_card()
+    x, alive, w, h0, dhs = _card_operands(*shape)
     rnn.reset_launches()
     hs = rnn.gru_seq(x, alive, w, h0)
     grads = rnn.gru_seq_bwd(x, alive, w, h0, hs, dhs)
+    again = rnn.gru_seq_bwd(x, alive, w, h0, hs, dhs)
     torch.cuda.synchronize()
-    assert (rnn.launches["gru_seq"], rnn.launches["gru_seq_bwd"]) == (1, 1)
+    assert (rnn.launches["gru_seq"], rnn.launches["gru_seq_bwd"]) == (1, 2)
     # the limits chip_smoke.py phase 7 states with their reasons: the two
     # versions sum in other float32 orders, and the bf16 roundings inside
     # each step (of h, of r ⊙ h, and four in the backward) turn a float32
-    # step of difference into a bf16 step now and then
-    for g, w_, l2 in ((hs, rnn.gru_seq_torch(x, alive, w, h0), 2e-3),) + \
-            tuple((g, w_, 4e-3) for g, w_ in zip(
-                grads, rnn.gru_seq_bwd_torch(x, alive, w, h0, hs, dhs))):
+    # step of difference into a bf16 step now and then; the backward is
+    # bitwise the same on a second launch
+    for g, g2, w_, l2 in ((hs, hs, rnn.gru_seq_torch(x, alive, w, h0),
+                           2e-3),) + \
+            tuple((g, g2, w_, 4e-3) for g, g2, w_ in zip(
+                grads, again,
+                rnn.gru_seq_bwd_torch(x, alive, w, h0, hs, dhs))):
+        assert torch.equal(g, g2)
         d = g - w_
         assert (d.abs().max() / w_.abs().max()).item() <= 1e-2
         assert (d.norm() / w_.norm()).item() <= l2
+
+
+def _planted(t, where, bits):
+    """A copy of float32 ``t`` with the bit patterns ``bits`` at the
+    indices ``where`` (set through an int32 view on the CPU, so that no
+    conversion on the card replaces a NaN's payload)."""
+    c = t.cpu().clone()
+    for idx, v in zip(where, bits):
+        c.view(torch.int32)[idx] = v
+    return c.to(t.device)
+
+
+def _bits(v):
+    return int(np.array(v, np.float32).view(np.int32))
+
+
+# NaN (the card's 0x7fffffff, its negative, and 0x7f800001, whose payload
+# lies only in the low 16 bits), ±Inf and ±3.4e38 planted in the carry's
+# cotangent: all at the first step, whose dpre reach dx_0, dh0 and the dW
+# columns of their units only, and a NaN and -Inf at later steps, which
+# spread through every earlier step of their rows
+NAN_PLANTS = {
+    "first": [((0, 1, 3), 0x7FFFFFFF), ((0, 2, 40), -1),
+              ((0, 4, 100), 0x7F800001), ((0, 5, 7), 0x7F800000),
+              ((0, 6, 9), _bits(-np.inf)), ((0, 8, 200), _bits(3.4e38)),
+              ((0, 9, 300), _bits(-3.4e38))],
+    "later": [((19, 0, 11), 0x7F800001), ((10, 3, 50), _bits(-np.inf))],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plants", sorted(NAN_PLANTS))
+def test_seq_bwd_propagate_nan_and_inf_on_card(plants):
+    """NaN and ±Inf in dhs reach dx, dw and dh0 where they reach
+    gru_seq_bwd_torch's: NaN at the same positions, the same infinities;
+    the finite rest within the card test's 1e-2. The kernel's products
+    split each float32 dpre into three bf16 parts, which must carry an
+    infinity and a NaN whole."""
+    _need_card()
+    x, alive, w, h0, dhs = _card_operands(20, 16, 512, seed=6)
+    alive = torch.ones_like(alive)
+    dhs = _planted(dhs, [p for p, _ in NAN_PLANTS[plants]],
+                   [v for _, v in NAN_PLANTS[plants]])
+    hs = rnn.gru_seq_torch(x, alive, w, h0)
+    got = rnn.gru_seq_bwd(x, alive, w, h0, hs, dhs)
+    want = rnn.gru_seq_bwd_torch(x, alive, w, h0, hs, dhs)
+    torch.cuda.synchronize()
+    for name, g, w_ in zip(("dx", "dw", "dh0"), got, want):
+        nan = torch.isnan(w_)
+        assert torch.equal(torch.isnan(g), nan), name
+        inf = torch.isinf(w_)
+        assert torch.equal(torch.isinf(g), inf), name
+        assert torch.equal(g[inf], w_[inf]), name
+        fin = ~(nan | inf)
+        if fin.any():   # a NaN at a later step reaches every dW element
+            d = (g[fin] - w_[fin]).abs().max() / w_[fin].abs().max()
+            assert d.item() <= 1e-2, name
+    assert bool(torch.isfinite(got[1]).any()) == (plants == "first")

@@ -97,6 +97,94 @@ def test_plain_versions_match_the_pallas_kernel_and_its_vjp():
     _assert_dw(got[1], want[1], max(np.abs(h0).max(), 1.0), got[0])
 
 
+def _tc_product(a_parts, w_parts):
+    """sum_i a_i . w_iᵀ ([b, K_i] . [H, K_i]ᵀ) as csrc/seq_mma.cuh's chain
+    sums it: each 16-column k-step one tensor-core sum of exact products
+    (here float64, rounded to float32 once), each of the 8 warps adding
+    its k-steps w, w + 8, ... of every part in turn in float32, then the
+    warps' sums added in warp order."""
+    terms = []
+    for a, w in zip(a_parts, w_parts):
+        steps = a.shape[-1] // 16
+        terms.append((a.double().reshape(a.shape[0], 1, steps, 16)
+                      * w.double().reshape(1, w.shape[0], steps, 16))
+                     .sum(-1).float())
+    total = None
+    for warp in range(8):
+        acc = torch.zeros(terms[0].shape[:2])
+        for t in terms:
+            for step in range(warp, t.shape[-1], 8):
+                acc = acc + t[..., step]
+        total = acc if total is None else total + acc
+    return total
+
+
+def _dw_steps(a, d):
+    """sum over t descending of bf16(a_tᵀ . d_t), each a fresh
+    tensor-core sum over the batch (float64 here, rounded to float32)."""
+    dw = torch.zeros(a.shape[-1], d.shape[-1])
+    for t in reversed(range(a.shape[0])):
+        dw = dw + rnn._bf16((a[t].double().T @ d[t].double()).float())
+    return dw
+
+
+def _kernel_model_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs):
+    """csrc/lstm_seq.cu's backward, decomposed as the kernel decomposes
+    it, in plain torch: the prologue's gates of every step in one GEMM,
+    the chain's cell math (lstm_seq_bwd_torch's operation order) with the
+    dh product summed as _tc_product sums it, and the epilogue's dW in
+    _dw_steps' order."""
+    steps, b, h4 = x.shape
+    hdim = h4 // 4
+    wb = rnn._bf16(w)
+    hb = rnn._bf16(torch.cat([h0[None], hs[:-1]]))
+    c_prevs = torch.cat([c0[None], cs[:-1]])
+    g = x + (hb.reshape(-1, hdim) @ wb).reshape(steps, b, h4)
+    act = torch.cat([torch.sigmoid(g[..., :2 * hdim]),
+                     torch.tanh(g[..., 2 * hdim:3 * hdim]),
+                     torch.sigmoid(g[..., 3 * hdim:])], -1)
+    dh, dc = torch.zeros_like(h0), torch.zeros_like(c0)
+    dx = torch.empty_like(x)
+    for t in reversed(range(steps)):
+        i, f, u, o = act[t].split(hdim, -1)
+        a, cp = alive[t], c_prevs[t]
+        tc = torch.tanh(f * cp + i * u)
+        dh_t, dc_t = dh + dhs[t], dc + dcs[t]
+        bp = a * dh_t
+        bs = (o * bp) * (1 - tc)
+        dcn = (a * dc_t + bs) + bs * tc
+        d_cand = (i * dcn) * (1 - u)
+        dx[t] = torch.cat([(dcn * u) * (i * (1 - i)),
+                           (dcn * cp) * (f * (1 - f)),
+                           d_cand + d_cand * u,
+                           (bp * tc) * (o * (1 - o))], dim=-1)
+        dh = (1 - a) * dh_t + rnn._bf16(_tc_product([dx[t]], [wb]))
+        dc = (1 - a) * dc_t + f * dcn
+    return dx, _dw_steps(hb, dx), dh, dc
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_decomposition_matches_the_reference_vjp(seed):
+    """The backward kernel's summation structure (prologue GEMM, chain
+    sums by k-step and warp, per-step bf16 dW in t-descending order) stays
+    within the tolerances the plain version is held to against the
+    reference's custom vjp (_lstm_seq_bwd)."""
+    x, alive, w, h0, c0, dhs, dcs = _operands(seed)
+    (hs, cs), vjp = jax.vjp(
+        lambda x, w, h0, c0: lstm_seq_pallas(x, jnp.asarray(alive), w, h0,
+                                             c0), x, w, h0, c0)
+    want = [np.asarray(g) for g in vjp((jnp.asarray(dhs),
+                                        jnp.asarray(dcs)))]
+    t = [torch.from_numpy(a) for a in (x, alive, w, h0, c0)]
+    got = [g.numpy() for g in _kernel_model_bwd(
+        *t, torch.from_numpy(np.array(hs)), torch.from_numpy(np.array(cs)),
+        torch.from_numpy(dhs), torch.from_numpy(dcs))]
+    for name, g, w_ in zip(("dx", "dh0", "dc0"), got[:1] + got[2:],
+                           want[:1] + want[2:]):
+        np.testing.assert_allclose(g, w_, **GRAD_TOL, err_msg=name)
+    _assert_dw(got[1], want[1], max(np.abs(h0).max(), 1.0), got[0])
+
+
 def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     x, alive, w, h0, c0, dhs, dcs = (torch.from_numpy(a)
                                      for a in _operands(1))
@@ -241,15 +329,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         rnn.lstm_seq(x, alive, w.T.contiguous().T, h, h)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(7, 3, 16), (20, 64, 512)])
-def test_kernels_match_the_plain_versions_on_card(shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
-                    "tests/test_torch_lstm.py on the GPU machine)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    steps, b, hdim = shape
-    rng = np.random.RandomState(5)
+# (L, b, H) on the card: the first two, then the backward's hard cases: one
+# step; one batch row and 33 (not a multiple of the 8- or 16-row groups of
+# the chain or of the mma tiles); H 80 and 208 (not multiples of 32: 16
+# units a chain block, grids of 20 and 52 blocks); the CTC model's 200
+# frames at the lane's widths
+CARD_SHAPES = [(7, 3, 16), (20, 64, 512), (1, 64, 512), (20, 1, 512),
+               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512)]
+
+
+def _card_operands(steps, b, hdim, seed=5):
+    rng = np.random.RandomState(seed)
     lens = rng.randint(0, steps + 1, b)
     lens[0] = steps
     alive = (np.arange(steps)[:, None] < lens[None, :]) \
@@ -259,17 +349,100 @@ def test_kernels_match_the_plain_versions_on_card(shape):
             rng.normal(0, 1, (b, hdim)),
             rng.normal(0, 1, (steps, b, hdim)) * alive,
             rng.normal(0, 1, (steps, b, hdim)) * alive]
-    x, alive, w, h0, c0, dhs, dcs = (torch.tensor(a, dtype=torch.float32,
-                                                  device="cuda")
-                                     for a in arrs)
+    return [torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in arrs]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
+                    "tests/test_torch_lstm.py on the GPU machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_kernels_match_the_plain_versions_on_card(shape):
+    """The forward within 1e-3 of its plain version; the backward, from
+    the kernel's carries, within chip_smoke.py phase 5's limits (1e-2 of
+    the largest element, 2e-3 in ‖Δ‖₂: the bf16 roundings of dW_t and of
+    the dh product move by a bf16 step now and then) and bitwise the same
+    on a second launch."""
+    _need_card()
+    x, alive, w, h0, c0, dhs, dcs = _card_operands(*shape)
     rnn.reset_launches()
     hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
     grads = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
+    again = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
     torch.cuda.synchronize()
-    assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (1, 1)
+    assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (1, 2)
     want = rnn.lstm_seq_torch(x, alive, w, h0, c0)
     for g, w_ in zip((hs, cs), want):
         assert ((g - w_).abs().max() / w_.abs().max()).item() <= 1e-3
     want = rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, hs, cs, dhs, dcs)
-    for g, w_ in zip(grads, want):
-        assert ((g - w_).abs().max() / w_.abs().max()).item() <= 1e-2
+    for name, g, g2, w_ in zip(("dx", "dw", "dh0", "dc0"), grads, again,
+                               want):
+        assert torch.equal(g, g2), name
+        d = g - w_
+        assert ((d.abs().max() / w_.abs().max()).item() <= 1e-2), name
+        assert (d.norm() / w_.norm()).item() <= 2e-3, name
+
+
+def _planted(t, where, bits):
+    """A copy of float32 ``t`` with the bit patterns ``bits`` at the
+    indices ``where`` (set through an int32 view on the CPU, so that no
+    conversion on the card replaces a NaN's payload)."""
+    c = t.cpu().clone()
+    for idx, v in zip(where, bits):
+        c.view(torch.int32)[idx] = v
+    return c.to(t.device)
+
+
+def _bits(v):
+    return int(np.array(v, np.float32).view(np.int32))
+
+
+# NaN (the card's 0x7fffffff, its negative, and 0x7f800001, whose payload
+# lies only in the low 16 bits), ±Inf and ±3.4e38 planted in the carries'
+# cotangents: all at the first step, whose dgates reach dx_0, dh0 and the
+# dW columns of their units only, and a NaN and -Inf at later steps, which
+# spread through every earlier step of their rows
+NAN_PLANTS = {
+    "first": [((0, 1, 3), 0x7FFFFFFF), ((0, 2, 40), -1),
+              ((0, 4, 100), 0x7F800001), ((0, 5, 7), 0x7F800000),
+              ((0, 6, 9), _bits(-np.inf)), ((0, 8, 200), _bits(3.4e38)),
+              ((0, 9, 300), _bits(-3.4e38))],
+    "later": [((19, 0, 11), 0x7F800001), ((10, 3, 50), _bits(-np.inf))],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plants", sorted(NAN_PLANTS))
+def test_seq_bwd_propagate_nan_and_inf_on_card(plants):
+    """NaN and ±Inf in dhs and dcs reach dx, dw, dh0 and dc0 where they
+    reach lstm_seq_bwd_torch's: NaN at the same positions, the same
+    infinities; the finite rest within the card test's 1e-2. The kernel's
+    products split each float32 dgates into three bf16 parts, which must
+    carry an infinity and a NaN whole."""
+    _need_card()
+    x, alive, w, h0, c0, dhs, dcs = _card_operands(20, 16, 512, seed=6)
+    alive = torch.ones_like(alive)
+    where = [p for p, _ in NAN_PLANTS[plants]]
+    bits = [v for _, v in NAN_PLANTS[plants]]
+    dhs = _planted(dhs, where, bits)
+    dcs = _planted(dcs, where[::2], bits[::2])
+    hs, cs = rnn.lstm_seq_torch(x, alive, w, h0, c0)
+    got = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
+    want = rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, hs, cs, dhs, dcs)
+    torch.cuda.synchronize()
+    for name, g, w_ in zip(("dx", "dw", "dh0", "dc0"), got, want):
+        nan = torch.isnan(w_)
+        assert torch.equal(torch.isnan(g), nan), name
+        inf = torch.isinf(w_)
+        assert torch.equal(torch.isinf(g), inf), name
+        assert torch.equal(g[inf], w_[inf]), name
+        fin = ~(nan | inf)
+        if fin.any():   # a NaN at a later step reaches every dW element
+            d = (g[fin] - w_[fin]).abs().max() / w_[fin].abs().max()
+            assert d.item() <= 1e-2, name
+    assert bool(torch.isfinite(got[1]).any()) == (plants == "first")
