@@ -215,9 +215,13 @@ KERNELS = ("conv_affine", "conv_bn_train", "conv_bn_bwd", "optimizer_arena",
 SEQ_BATCH, SEQ_LEN, SEQ_HIDDEN, SEQ_VOCAB, SEQ_EMB = 64, 100, 512, 30000, 128
 SEQ_LR, SEQ_STEPS = 2e-3, 5
 # lstm_seq vs lstm_seq_torch, ‖Δ‖∞/‖ref‖∞: the kernel sums the same exact
-# bf16 x bf16 products in float32 (in another order) and applies the same
-# sigmoid and tanh, so the carries agree to float32 roundings compounded
-# over 100 steps; 1e-5 is loose for that and tight for a wrong kernel
+# bf16 x bf16 products in float32 in the order that has matched the plain
+# version's matmul bit for bit on the H100 (csrc/lstm_seq.cu), and applies
+# the same sigmoid and tanh; 1e-5 is tight for a wrong kernel. It is not
+# loose enough for another summation order: a float32 step of difference
+# in h_{t-1} moves bf16(h_{t-1}) by 2^-8 of itself now and then, and every
+# gate of its row with it (`seq_split.py --parts lstmtc` measures a
+# tensor-core order against it)
 LSTM_FWD_LIMIT = 1e-5
 # lstm_seq_bwd vs lstm_seq_bwd_torch: each step's dW_t and the product part
 # of dh_{t-1} are rounded to bfloat16 (the reference's vjp does so). A
@@ -1554,9 +1558,10 @@ def phase_rnn_kernels(torch, fluid, seed, card):
     def long():
         return rnn.lstm_seq_bwd(x2, a2, w, h0, c0, h2, c2, dh2, dc2)
 
+    ms_f = time_ms(lambda: rnn.lstm_seq(x2, a2, w, h0, c0), torch)
     ms = time_ms(long, torch)
-    log(f"lstm_seq_bwd at the CTC model's {CTC_FRAMES[1]} frames (b {b}, "
-        f"H {H}): {ms:.4f} ms a launch")
+    log(f"at the CTC model's {CTC_FRAMES[1]} frames (b {b}, H {H}): "
+        f"lstm_seq {ms_f:.4f} ms, lstm_seq_bwd {ms:.4f} ms a launch")
     bwd_stages(torch, rnn, "lstm_seq_bwd", long, ms)
 
     adam_ps = [torch.nn.Parameter(p.clone()) for p in ps]
@@ -1997,9 +2002,10 @@ def phase_seq_kernels(torch, fluid, seed, card):
     def long():
         return rnn.gru_seq_bwd(x2, a2, w, h0, h2, dh2)
 
+    ms_f = time_ms(lambda: rnn.gru_seq(x2, a2, w, h0), torch)
     ms = time_ms(long, torch)
-    log(f"gru_seq_bwd at the CTC model's {CTC_FRAMES[1]} frames (b {b}, "
-        f"H {H}): {ms:.4f} ms a launch")
+    log(f"at the CTC model's {CTC_FRAMES[1]} frames (b {b}, H {H}): "
+        f"gru_seq {ms_f:.4f} ms, gru_seq_bwd {ms:.4f} ms a launch")
     bwd_stages(torch, rnn, "gru_seq_bwd", long, ms)
 
     # CTC work that this batch's lengths need, not the padded T: ~16

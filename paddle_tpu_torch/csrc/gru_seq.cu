@@ -21,16 +21,26 @@
 // bf16(r*h_{t-1})^T . dpre_c) are rounded to bfloat16 before they are
 // added in float32.
 //
-// Design. The forward takes the cooperative, persistent partition of
-// lstm_seq.cu's forward: block j owns hidden units 4j..4j+3 and their 12
-// gate columns (u, r, c of each), keeps that column slice of W
-// (bf16-rounded, as float32: 24 KB at H 512) in shared memory for all L
-// steps and does its units' cell math itself.
-// Unlike the LSTM, a GRU step needs TWO grid-wide barriers: the candidate's
-// product bf16(r*h_{t-1}) . W_c needs r of every unit, so each step
-// computes u and r of its own units, publishes bf16(r*h_{t-1}) (a [b, H]
-// scratch), crosses a barrier, computes c and h, publishes h (into hs) and
-// crosses the second barrier.
+// Design. The forward runs on the batch-row groups of lstm_seq.cu's
+// backward chain: a block owns UB units of RB = 256/UB batch rows in a
+// cooperative grid of H/4 blocks and keeps its units' u, r and c columns
+// of W resident in shared memory as bf16 (96 KB at H 512). Unlike the
+// LSTM, a GRU step needs TWO grid barriers: the candidate's product
+// bf16(r*h_{t-1}) . W_c needs r of every unit. So each step a block stages
+// its rows of h_{t-1} (16 KB at RB 8) as bf16, forms u and r of its cells
+// on the tensor cores (csrc/seq_mma.cuh; four warps, each a 16 x 8 tile: u
+// and r of 8 units by 8 rows), publishes bf16(r*h_{t-1}) of its cells into
+// the rh scratch (bf16 [b, H]), crosses a barrier, stages its rows' rh of
+// every unit (8 KB), forms c (each tile the c columns of the
+// same 8 units, twice: a lane keeps its two cells through both halves),
+// then h, writes h_t and crosses the second barrier. Each product is 32
+// k-steps at H 512, each a fresh accumulator added in increasing k. That
+// order is not the plain version's, so its carries differ by bf16(r*h)
+// rounding moves (within chip_smoke.py's GRU limits, as the first
+// version's did). The first version staged all 64 rows twice a step
+// (128 KB each) and formed the products on the CUDA cores in float32: 18.5
+// us a step, this one 6.6, against a 2.2-us floor of two barriers
+// (PERF.md §6).
 //
 // The backward has the same two dependencies in reverse. It runs the
 // three stages of lstm_seq.cu's backward in one cooperative launch
@@ -56,11 +66,12 @@
 //   and dW_c = sum_t bf16(rh_t^T . dpre_c), t descending, tiled over W.
 //
 // Bound on the H100 at b 64, L 100, H 512: neither bytes nor operations.
-// A layer's forward is 10 GFLOP (the products, 0.15 ms at 67 TFLOP/s on
-// the CUDA cores) and moves ~45 MB; but its 100 steps are a dependent
-// chain of 200 grid barriers, whose serial floor bounds it from below.
-// The forward still runs its products on the CUDA cores in float32, in a
-// fixed summation order (every run is bitwise the same).
+// A layer's forward is 10 GFLOP (0.01 ms at the bf16 tensor-core peak) and
+// moves ~45 MB; but its 100 steps are a dependent chain of 200 grid
+// barriers, whose serial floor (~0.22 ms) bounds it from below, and the
+// latency of each half-step (a barrier, a row read, 32 dependent k-step
+// sums) sets its time. Every sum has a fixed order and no atomics: every
+// run is bitwise the same.
 //
 // The C entries return cudaGetLastError() after the launch (0 = success);
 // the caller allocates every output and scratch and passes its stream.
@@ -74,117 +85,111 @@ namespace {
 
 using namespace seq;
 
-constexpr int COLS = 3 * UNITS;   // gate columns per block: u, r, c
-static_assert(PART == 8 * BMAX * 8 && PART == 16 * BMAX * UNITS,
-              "the column products' partial sums fill PART");
-
-// gates_s[row][c0 + c] = x_t[row][gcol(c0 + c)] + sum_k a_s[row][k] *
-// w_s[k][c0 + c] for the NC local columns from c0. Each thread sums a
-// 4-row x 4-column tile over the K quads s, s + KS, s + 2KS, ... in
-// increasing order; the KS partial sums are then added in order.
-template <int NC>
-__device__ void col_product(const float* a_s, int hp, const float* w_s,
-                            int c0, float* part, float* gates_s,
-                            const float* xt, int b, int H, int j0) {
-  constexpr int CQ = NC / 4;           // column quads
-  constexpr int TILES = 16 * CQ;       // 4 x 4 tiles of the 64 x NC block
-  constexpr int KS = THREADS / TILES;  // the split of K
-  const int tid = threadIdx.x;
-  const int s = tid / TILES, q = tid % TILES, rg = q / CQ, cq = q % CQ;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  const float* arow = a_s + rg * 4 * hp;
-  for (int qd = s; qd < H / 4; qd += KS) {
-    const int k = qd * 4;
-    float av[4][4], wv[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(arow + r * hp + k);
-      av[r][0] = v.x; av[r][1] = v.y; av[r][2] = v.z; av[r][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          w_s + (k + kk) * COLS + c0 + cq * 4);
-      wv[kk][0] = v.x; wv[kk][1] = v.y; wv[kk][2] = v.z; wv[kk][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[r][c] = fmaf(av[r][kk], wv[kk][c], acc[r][c]);
+// the A tile rows of unit u's gates: u and r in tile u / 8 (rows u % 8 and
+// 8 + u % 8), so that lane l of the tile's warp holds u and r of unit
+// 8 (u / 8) + l / 4 at batch rows 2 (l % 4) and 2 (l % 4) + 1; c in row
+// 2 UB + u
+template <int UB>
+struct GruTile {
+  __device__ int operator()(int u, int g) const {
+    return g < 2 ? 16 * (u / 8) + u % 8 + 8 * g : 2 * UB + u;
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      part[(s * BMAX + rg * 4 + r) * NC + cq * 4 + c] = acc[r][c];
-  __syncthreads();
-  for (int o = tid; o < BMAX * NC; o += THREADS) {
-    const int row = o / NC, c = o % NC;
-    if (row < b) {
-      float mm = part[o];
-      for (int k = 1; k < KS; ++k) mm = __fadd_rn(mm, part[k * BMAX * NC + o]);
-      gates_s[row * COLS + c0 + c] =
-          __fadd_rn(xt[row * 3 * H + gcol(c0 + c, j0, H)], mm);
-    }
-  }
-  __syncthreads();
-}
+};
 
+// UB units x RB = THREADS / UB batch rows a block (module comment)
+template <int UB>
 __global__ void __launch_bounds__(THREADS, 1)
 gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
                const float* __restrict__ w, const float* __restrict__ h0,
-               float* hs, float* rh, int L, int b, int H) {
+               float* hs, uint16_t* rh, int L, int b, int H) {
+  using namespace seqmma;
+  constexpr int RB = THREADS / UB, NT = RB / 8;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int hp = H + 4, H3 = 3 * H;
-  float* a_s = smem;                  // [BMAX][hp]  bf16(h_{t-1}), then
-                                      //             bf16(r * h_{t-1})
-  float* w_s = a_s + BMAX * hp;       // [H][COLS]   bf16(w) columns
-  float* part = w_s + H * COLS;       // [PART]      partial sums
-  float* gates_s = part + PART;       // [BMAX][COLS]
-  const int tid = threadIdx.x, j0 = blockIdx.x * UNITS;
-  const int row = tid / UNITS, jj = tid % UNITS;
-  const bool mine = row < b;
+  const int wp = H + PAD, U = H / UB, H3 = 3 * H;
+  uint16_t* ws = reinterpret_cast<uint16_t*>(smem4);   // [3 UB][wp] W^T
+  uint16_t* hb = ws + 3 * UB * wp;   // [RB][wp] bf16(h), then bf16(r * h)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mq = warp / NT, nt = warp % NT;
+  const bool active = blockIdx.x < U * ((b + RB - 1) / RB);
+  const int j0 = (blockIdx.x % U) * UB, r0 = (blockIdx.x / U) * RB;
+  const int rows = min(RB, b - r0);
+  // warps 0-3 form the tiles; a lane's two cells: unit j, batch rows
+  // row and row + 1
+  const bool tiler = active && warp < 4;
+  const int j = j0 + 8 * mq + (lane >> 2);
+  const int row = r0 + 8 * nt + 2 * (lane & 3);
+  const bool mine[2] = {tiler && row < b, tiler && row + 1 < b};
+  const uint16_t* a_ur = ws + (16 * mq + ((lane >> 3) & 1) * 8 +
+                               (lane & 7)) * wp + (lane >> 4) * 8;
+  const uint16_t* a_c = ws + (2 * UB + 8 * mq + (lane & 7)) * wp +
+                        (lane >> 4) * 8;
+  const uint16_t* bq = hb + (8 * nt + (lane & 7)) * wp + (lane >> 3) * 8;
   cg::grid_group grid = cg::this_grid();
 
-  for (int i = tid; i < BMAX * hp; i += THREADS) a_s[i] = 0.f;
-  stage_w_cols<3>(w_s, w, H, j0);
-  float h = mine ? h0[row * H + j0 + jj] : 0.f;
+  if (active) {
+    for (int i = tid; i < RB * wp; i += THREADS) hb[i] = 0;
+    stage_w_tiles(ws, wp, w, 3, H, j0, UB, GruTile<UB>{});
+  }
+  __syncthreads();
+  float h[2] = {};
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    if (mine[e]) h[e] = h0[(row + e) * H + j];
   for (int t = 0; t < L; ++t) {
-    const float* xt = x + (size_t)t * b * H3;
-    __syncthreads();
-    stage_rows(a_s, hp, t == 0 ? h0 : hs + (size_t)(t - 1) * b * H, b, H,
-               H, true);
-    __syncthreads();
-    col_product<2 * UNITS>(a_s, hp, w_s, 0, part, gates_s, xt, b, H, j0);
-    float u = 0.f;
-    if (mine) {
-      const float* gr = gates_s + row * COLS;
-      u = sigm(gr[jj]);
-      const float r = sigm(gr[UNITS + jj]);
-      rh[row * H + j0 + jj] = bf16r(__fmul_rn(r, h));
+    float u[2] = {}, xv[2][3] = {}, av[2] = {};
+    if (active) {
+      stage_h_rows(hb, wp, t == 0 ? h0 + r0 * H
+                                  : hs + ((size_t)(t - 1) * b + r0) * H,
+                   rows, H);
+      __syncthreads();
+      // the cells' x_t of u and r, in flight during the product (issued
+      // after the rows' loads, which the product waits for)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (mine[e]) {
+          const float* xr = x + ((size_t)t * b + row + e) * H3 + j;
+          xv[e][0] = __ldg(xr);
+          xv[e][1] = __ldg(xr + H);
+        }
+      if (tiler) {
+        float sum[4] = {};
+        fwd_product(a_ur, bq, H / 16, sum);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (mine[e]) {
+            u[e] = sigm(__fadd_rn(xv[e][0], sum[e]));
+            const float r = sigm(__fadd_rn(xv[e][1], sum[2 + e]));
+            rh[(row + e) * H + j] = bf16_bits(__fmul_rn(r, h[e]));
+          }
+      }
     }
-    grid.sync();   // every unit's bf16(r * h_{t-1}) is written
-    stage_rows(a_s, hp, rh, b, H, H, false);
-    __syncthreads();
-    col_product<UNITS>(a_s, hp, w_s, 2 * UNITS, part, gates_s, xt, b, H,
-                       j0);
-    if (mine) {
-      const float c = tanhf(gates_s[row * COLS + 2 * UNITS + jj]);
-      const float a = alive[t * b + row];
-      const float hn = __fadd_rn(__fmul_rn(u, c),
-                                 __fmul_rn(__fsub_rn(1.f, u), h));
-      h = __fadd_rn(__fmul_rn(a, hn), __fmul_rn(__fsub_rn(1.f, a), h));
-      hs[((size_t)t * b + row) * H + j0 + jj] = h;
+    grid.sync();   // bf16(r * h_{t-1}) of every unit is written
+    if (active) {
+      stage_bf16_rows(hb, wp, rh + r0 * H, rows, H);
+      __syncthreads();
+      // and of c, with alive, in flight during the second product
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (mine[e]) {
+          xv[e][2] = __ldg(x + ((size_t)t * b + row + e) * H3 + 2 * H + j);
+          av[e] = __ldg(alive + t * b + row + e);
+        }
+      if (tiler) {
+        float sum[4] = {};
+        fwd_product(a_c, bq, H / 16, sum);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (mine[e]) {
+            const float c = tanhf(__fadd_rn(xv[e][2], sum[e]));
+            const float hn = __fadd_rn(__fmul_rn(u[e], c),
+                                       __fmul_rn(__fsub_rn(1.f, u[e]), h[e]));
+            h[e] = __fadd_rn(__fmul_rn(av[e], hn),
+                             __fmul_rn(__fsub_rn(1.f, av[e]), h[e]));
+            hs[((size_t)t * b + row + e) * H + j] = h[e];
+          }
+      }
     }
-    grid.sync();   // every unit's h_t is written
+    grid.sync();   // h_t of every unit is written
   }
 }
 
@@ -342,13 +347,18 @@ gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
 extern "C" {
 
 // x [L, b, 3H], alive [L, b, 1], w [H, 3H], h0 [b, H] in; hs [L, b, H]
-// out; rh [b, H] scratch; all float32, contiguous, on the current device.
+// out; all float32; rh [b, H] bf16 scratch (bf16(r * h_{t-1})); all
+// contiguous, on the current device.
 int gru_seq_fwd(const float* x, const float* alive, const float* w,
-                const float* h0, float* hs, float* rh, int L, int b, int H,
-                void* stream) {
+                const float* h0, float* hs, uint16_t* rh, int L, int b,
+                int H, void* stream) {
   if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
   void* args[] = {&x, &alive, &w, &h0, &hs, &rh, &L, &b, &H};
-  return launch(gru_fwd_kernel, H / UNITS, fwd_smem<3>(H), args, stream);
+  const int ub = H % 32 == 0 ? 32 : 16;
+  const size_t smem = seqmma::tile_fwd_smem(3, H, ub);
+  return ub == 32
+             ? launch(gru_fwd_kernel<32>, H / UNITS, smem, args, stream)
+             : launch(gru_fwd_kernel<16>, H / UNITS, smem, args, stream);
 }
 
 // the forward's inputs, its carries hs and their cotangents dhs [L, b, H]

@@ -28,7 +28,14 @@
 // (four thread groups each sum a quarter of H in increasing k, the quarters
 // then added in order: a fixed order, so every run is bitwise the same),
 // updates its carries and writes them; then a grid-wide barrier
-// (cooperative_groups grid sync) publishes h_t.
+// (cooperative_groups grid sync) publishes h_t. The GRU forward runs on
+// batch-row groups with its products on the tensor cores (gru_seq.cu);
+// this one keeps the first design because chip_smoke.py holds its carries
+// to the plain version's within 1e-5, which its order has met (bitwise,
+// in every H100 run so far) and a tensor-core order does not: a float32
+// step of difference in h_{t-1} moves bf16(h_{t-1}) by 2^-8 of itself now
+// and then, and every gate of its row with it (seq_split.py --parts
+// lstmtc builds and measures such a forward).
 //
 // The backward runs three stages in one cooperative launch of the same
 // H/4 blocks, separated by grid barriers, and keeps only what depends on

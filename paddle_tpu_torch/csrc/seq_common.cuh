@@ -1,9 +1,11 @@
 // seq_common: what the whole-sequence recurrent kernels (lstm_seq.cu,
-// gru_seq.cu) share: their cooperative partition (block j owns hidden units
-// 4j..4j+3 and their GATES gate columns), the bf16 rounding and sigmoid
-// they compute with, the staging of rows and of a block's columns of W into
-// shared memory, their shape limits and shared-memory sizes, and the
-// cooperative launch. Each .cu includes it into its own library.
+// gru_seq.cu) share: their cooperative grid (one block per 4 hidden units,
+// all resident at once), the bf16 rounding and sigmoid they compute with,
+// their shape limits and the cooperative launch; and the LSTM forward's
+// partition (block j owns hidden units 4j..4j+3 and their GATES gate
+// columns of every batch row), with its staging of rows and of a block's
+// columns of W into shared memory and its shared-memory size. Each .cu
+// includes it into its own library.
 
 #pragma once
 

@@ -1,12 +1,16 @@
-// seq_mma: the tensor-core stages of the whole-sequence backwards
-// (lstm_seq.cu, gru_seq.cu): the prologue's GEMM that recomputes every
+// seq_mma: the tensor-core code of the whole-sequence recurrent kernels
+// (lstm_seq.cu, gru_seq.cu), all on `mma.sync` m16n8k16 bf16 with float32
+// accumulation: the GRU forward's gate tiles on batch-row groups, and the
+// backwards' three stages: the prologue's GEMM that recomputes every
 // step's gates at once, the chain's product dgates_t . W^T on a batch-row
-// group, and the epilogue's dW = sum_t bf16(A_t^T . D_t), all on
-// `mma.sync` m16n8k16 bf16 with float32 accumulation.
+// group, and the epilogue's dW = sum_t bf16(A_t^T . D_t).
 //
 // Exactness. bf16 x bf16 products are exact in float32, so the gate
-// products, whose operands are bf16(h) and bf16(W) as the reference rounds
-// them, run as they are. A float32 operand (dgates) is split into three
+// products, whose operands are bf16(h) (or bf16(r * h)) and bf16(W) as the
+// reference rounds them, run as they are: each 16-deep k-step a fresh
+// accumulator, the k-steps' sums added in increasing k on the CUDA cores,
+// so that only the float32 summation order differs from the plain
+// version's. A float32 operand (dgates) is split into three
 // bf16 parts, hi + mid + lo, by truncation: hi keeps the top 8 significant
 // bits, mid the next 8 of the exact remainder, lo the last 8, so the three
 // add up to it exactly (but where the last remainder is subnormal, |v| <
@@ -102,6 +106,12 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const uint16_t* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], const uint16_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
 __device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const uint16_t* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
@@ -161,6 +171,131 @@ __device__ __forceinline__ void batched(int total, Load load, Store store) {
     for (int u = 0; u < U; ++u)
       if (base + u * THREADS < total) store(base + u * THREADS, v[u]);
   }
+}
+
+// ---- forward (the GRU's) --------------------------------------------------
+//
+// A forward block owns UB units (32, or 16 where H is not a multiple of 32)
+// of RB = THREADS / UB batch rows, as a backward chain block does. It holds
+// its units' gate columns of W as bf16 rows of ws (W^T: K = H columns, a
+// pitch of H + PAD), staged once a launch, and each step stages its rows of
+// h_{t-1} as bf16 rows of hb, read from L2 (the blocks of its row group
+// wrote them in this launch). A warp forms one 16 x 8 tile of the gates:
+// 16 gate columns (rows of ws, in the order the kernel's tile map puts
+// them) by 8 batch rows, over all H: per 16-deep k-step a fresh
+// tensor-core sum, added to the float32 total in increasing k.
+
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// ws[tile(u, g)][k] = bf16(w[k][g H + j0 + u]) for u < ub, g < G: the
+// block's gate columns of w [H, G H] as rows of ws, tile(u, g) the row a
+// column takes in the warps' tiles
+template <typename Tile>
+__device__ void stage_w_tiles(uint16_t* ws, int wp, const float* w, int G,
+                              int H, int j0, int ub, Tile tile) {
+  const int q = ub / 4, per_k = G * q;
+  batched<8>(
+      H * per_k,
+      [&](int i) {
+        const int k = i / per_k, g = (i % per_k) / q;
+        return __ldg(reinterpret_cast<const float4*>(
+            w + (size_t)k * G * H + g * H + j0 + 4 * (i % q)));
+      },
+      [&](int i, float4 v) {
+        const int k = i / per_k, g = (i % per_k) / q, u = 4 * (i % q);
+        ws[tile(u, g) * wp + k] = bf16_bits(v.x);
+        ws[tile(u + 1, g) * wp + k] = bf16_bits(v.y);
+        ws[tile(u + 2, g) * wp + k] = bf16_bits(v.z);
+        ws[tile(u + 3, g) * wp + k] = bf16_bits(v.w);
+      });
+}
+
+// hb[r][k] = bf16(src[r][k]) for r < rows, k < H: rows of the carries,
+// H floats apart, that other blocks wrote in this launch (read from L2)
+__device__ __forceinline__ void stage_h_rows(uint16_t* hb, int hp,
+                                             const float* src, int rows,
+                                             int H) {
+  const int q = H / 4;
+  batched<8>(
+      rows * q,
+      [&](int i) {
+        return __ldcg(reinterpret_cast<const float4*>(src + (size_t)(i / q) *
+                                                      H) + i % q);
+      },
+      [&](int i, float4 v) {
+        *reinterpret_cast<uint2*>(hb + (i / q) * hp + (i % q) * 4) = pack4(v);
+      });
+}
+
+// hb[r][k] = src[r][k] for r < rows, k < H: bf16 rows, H apart, that other
+// blocks wrote in this launch (read from L2, 16 bytes at a time)
+__device__ __forceinline__ void stage_bf16_rows(uint16_t* hb, int hp,
+                                                const uint16_t* src,
+                                                int rows, int H) {
+  const int q = H / 8;
+  batched<8>(
+      rows * q,
+      [&](int i) {
+        return __ldcg(reinterpret_cast<const float4*>(src + (size_t)(i / q) *
+                                                      H) + i % q);
+      },
+      [&](int i, float4 v) {
+        *reinterpret_cast<float4*>(hb + (i / q) * hp + (i % q) * 8) = v;
+      });
+}
+
+// sum += G k-steps from the lane's rows `a` (of the A tile: 16 gate
+// columns) and `bq` (of the B tile: 8 batch rows), each a fresh
+// tensor-core sum, added in increasing k; G is 1 or even
+template <int G>
+__device__ __forceinline__ void fwd_group(const uint16_t* a,
+                                          const uint16_t* bq,
+                                          float (&sum)[4]) {
+  uint32_t af[G][4], bf[(G + 1) / 2][4];
+  float c[G][4];
+  if (G == 1) {
+    uint32_t b2[2];
+    ldsm2(b2, bq);
+    bf[0][0] = b2[0];
+    bf[0][1] = b2[1];
+  } else {
+#pragma unroll
+    for (int i = 0; i < G / 2; ++i) ldsm4(bf[i], bq + 32 * i);
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    ldsm4(af[i], a + 16 * i);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = 0.f;
+    mma16816(c[i], af[i], bf[i / 2][(i % 2) * 2], bf[i / 2][(i % 2) * 2 + 1]);
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[e] = __fadd_rn(sum[e], c[i][e]);
+}
+
+// the tile's gate sums over all ks = H / 16 k-steps, in increasing k:
+// sum[0], sum[1] at A row g (lane / 4) and batch rows 2 (lane % 4) and
+// 2 (lane % 4) + 1, sum[2], sum[3] at A row g + 8 and the same rows.
+// `a` points at this lane's ldmatrix row of the A tile (its row
+// ((lane >> 3) & 1) * 8 + (lane & 7), column (lane >> 4) * 8), `bq` at its
+// row of the B tile (row lane & 7, column (lane >> 3) * 8).
+__device__ __forceinline__ void fwd_product(const uint16_t* a,
+                                            const uint16_t* bq, int ks,
+                                            float (&sum)[4]) {
+  int s = 0;
+  for (; s + 8 <= ks; s += 8) fwd_group<8>(a + 16 * s, bq + 16 * s, sum);
+  for (; s + 2 <= ks; s += 2) fwd_group<2>(a + 16 * s, bq + 16 * s, sum);
+  if (s < ks) fwd_group<1>(a + 16 * s, bq + 16 * s, sum);
+}
+
+// the forward's shared memory: G gate columns of its UB units and its RB
+// rows of h, bf16 rows of H + PAD
+inline size_t tile_fwd_smem(int gates, int H, int ub) {
+  return 2 * (size_t)(gates * ub + THREADS / ub) * (H + PAD);
 }
 
 // ---- prologue ----------------------------------------------------------

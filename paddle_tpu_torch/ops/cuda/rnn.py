@@ -17,9 +17,11 @@ step's ``dW_t = h_{t-1}ᵀ·dgates_t`` and the product part of
 in float32.
 
 On CUDA tensors both launch ``csrc/lstm_seq.cu`` (persistent cooperative
-kernels; see the source for the design: the backward recomputes every
-step's gates in one tensor-core GEMM, runs only the cotangents' chain step
-by step, and forms dW in a last tensor-core pass); on CPU tensors they run
+kernels; see the source for the design: the forward sums each step's gate
+products on the CUDA cores in the plain version's float32 order; the
+backward recomputes every step's gates in one tensor-core GEMM, runs only
+the cotangents' chain step by step on batch-row groups, and forms dW in a
+last tensor-core pass); on CPU tensors they run
 ``lstm_seq_torch`` / ``lstm_seq_bwd_torch``, the plain versions, which the
 CPU tests hold against the reference. :class:`LstmSeq` is the
 ``torch.autograd.Function`` that pairs them, saving the reference's
@@ -33,7 +35,9 @@ with the four bf16 roundings of the reference's vjp (``jax.make_jaxpr`` of
 ``_gru_step_jnp``'s vjp): both products of the backward,
 ``dpre_c · W_cᵀ`` and ``[dpre_u | dpre_r] · W_urᵀ``, and both parts of
 each step's dW_t are rounded to bfloat16 before they are added in
-float32. Both launch ``csrc/gru_seq.cu`` on CUDA tensors and run
+float32. Both launch ``csrc/gru_seq.cu`` on CUDA tensors (the forward
+forms its gates on batch-row groups with ``mma.sync``, the backward as the
+LSTM's) and run
 ``gru_seq_torch`` / ``gru_seq_bwd_torch`` on CPU tensors; :class:`GruSeq`
 pairs them with the residuals ``(x, alive, w, h0, hs)``.
 """
@@ -58,8 +62,9 @@ stage_clocks = {"lstm_seq_bwd": None, "gru_seq_bwd": None}
 # the kernels' limits (csrc/lstm_seq.cu, csrc/gru_seq.cu): H/4 blocks, each
 # holding up to 204 KB of shared memory, so one block fits an SM, and all
 # of them must be resident at once (128 of the H100's 132 SMs at H 512);
-# a forward block owns 4 hidden units of every batch row (at most 64), a
-# backward chain block 16 or 32 units of 16 or 8 rows
+# an LSTM forward block owns 4 hidden units of every batch row (at most
+# 64), a GRU forward block and a backward chain block 32 units of 8 rows,
+# or 16 of 16 where H is not a multiple of 32, so the grid holds 64 rows
 MAX_BATCH, MAX_HIDDEN, HIDDEN_MULTIPLE = 64, 512, 16
 
 
@@ -319,7 +324,8 @@ def gru_seq(x, alive, w, h0):
                        ("w", w, (hdim, 3 * hdim)), ("h0", h0, (b, hdim))],
            x.device)
     hs = torch.empty((L, b, hdim), device=x.device)
-    rh = torch.empty((b, hdim), device=x.device)    # bf16(r ⊙ h_{t-1})
+    rh = torch.empty((b, hdim), dtype=torch.bfloat16,
+                     device=x.device)                # bf16(r ⊙ h_{t-1})
     lib = _gru_lib()
     with torch.cuda.device(x.device):
         err = lib.gru_seq_fwd(

@@ -104,6 +104,56 @@ def test_plain_versions_match_the_pallas_kernel_and_its_vjp(seed):
     _assert_flips(dh0, want[2], dh_step, "dh0")
 
 
+def _fwd_product(a, w):
+    """a [b, K] . w [K, N] as csrc/seq_mma.cuh's forward tile sums it: each
+    16-deep k-step one tensor-core sum of exact bf16 x bf16 products (here
+    float64, rounded to float32 once), the k-steps added in increasing k in
+    float32."""
+    steps = a.shape[-1] // 16
+    parts = (a.double().reshape(a.shape[0], steps, 16, 1)
+             * w.double().reshape(1, steps, 16, w.shape[-1])).sum(2).float()
+    total = torch.zeros(a.shape[0], w.shape[-1])
+    for s in range(steps):
+        total = total + parts[:, s]
+    return total
+
+
+def _kernel_model_fwd(x, alive, w, h0):
+    """csrc/gru_seq.cu's forward, decomposed as the kernel sums it, in
+    plain torch: u and r from _fwd_product of bf16(h_{t-1}), x added after
+    the product; bf16(r ⊙ h_{t-1}) rounded; c from its _fwd_product; then
+    gru_seq_torch's operation order."""
+    hdim = h0.shape[-1]
+    wb = rnn._bf16(w)
+    h = h0
+    hs = []
+    for t in range(x.shape[0]):
+        a, xt = alive[t], x[t]
+        ur = _fwd_product(rnn._bf16(h), wb[:, :2 * hdim])
+        u = torch.sigmoid(xt[:, :hdim] + ur[:, :hdim])
+        r = torch.sigmoid(xt[:, hdim:2 * hdim] + ur[:, hdim:])
+        c = torch.tanh(xt[:, 2 * hdim:]
+                       + _fwd_product(rnn._bf16(r * h), wb[:, 2 * hdim:]))
+        hn = u * c + (1.0 - u) * h
+        h = a * hn + (1 - a) * h
+        hs.append(h)
+    return torch.stack(hs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_kernel_decomposition_matches_the_pallas_kernel(seed):
+    """The forward kernel's summation order (a fresh tensor-core sum per
+    16-deep k-step, the k-steps added in increasing k, x added after each
+    product, bf16(r ⊙ h) rounded between the two) stays within the
+    tolerance the plain version is held to against the reference's Pallas
+    kernel."""
+    x, alive, w, h0, _ = _operands(seed)
+    hs = gru_seq_pallas(x, jnp.asarray(alive), w, h0)
+    got = _kernel_model_fwd(*(torch.from_numpy(a) for a in (x, alive, w,
+                                                             h0)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(hs), **FWD_TOL)
+
+
 def _tc_product(a_parts, w_parts):
     """sum_i a_i . w_iᵀ ([b, K_i] . [H, K_i]ᵀ) as csrc/seq_mma.cuh's chain
     sums it: each 16-column k-step one tensor-core sum of exact products
@@ -328,13 +378,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         rnn.gru_seq(x, alive, w.T.contiguous().T, h)
 
 
-# (L, b, H) on the card: the first two, then the backward's hard cases: one
-# step; one batch row and 33 (not a multiple of the 8- or 16-row groups of
-# the chain or of the mma tiles); H 80 and 208 (not multiples of 32: 16
-# units a chain block, grids of 20 and 52 blocks); the CTC model's 200
-# frames at the lane's widths
+# (L, b, H) on the card: the first two, then the hard cases of both
+# directions: one step; one batch row and 33 (not a multiple of the 8- or
+# 16-row groups or of the mma tiles); H 80, 208 and 496 (not multiples of
+# 32: 16 units a block, grids of 20, 52 and 124 blocks); the CTC model's
+# 200 frames at the lane's widths
 CARD_SHAPES = [(7, 3, 16), (20, 64, 512), (1, 64, 512), (20, 1, 512),
-               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512)]
+               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512),
+               (20, 64, 496)]
 
 
 def _card_operands(steps, b, hdim, seed=5):
@@ -364,16 +415,17 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     x, alive, w, h0, dhs = _card_operands(*shape)
     rnn.reset_launches()
     hs = rnn.gru_seq(x, alive, w, h0)
+    hs2 = rnn.gru_seq(x, alive, w, h0)
     grads = rnn.gru_seq_bwd(x, alive, w, h0, hs, dhs)
     again = rnn.gru_seq_bwd(x, alive, w, h0, hs, dhs)
     torch.cuda.synchronize()
-    assert (rnn.launches["gru_seq"], rnn.launches["gru_seq_bwd"]) == (1, 2)
+    assert (rnn.launches["gru_seq"], rnn.launches["gru_seq_bwd"]) == (2, 2)
     # the limits chip_smoke.py phase 7 states with their reasons: the two
     # versions sum in other float32 orders, and the bf16 roundings inside
     # each step (of h, of r ⊙ h, and four in the backward) turn a float32
-    # step of difference into a bf16 step now and then; the backward is
-    # bitwise the same on a second launch
-    for g, g2, w_, l2 in ((hs, hs, rnn.gru_seq_torch(x, alive, w, h0),
+    # step of difference into a bf16 step now and then; both directions
+    # are bitwise the same on a second launch
+    for g, g2, w_, l2 in ((hs, hs2, rnn.gru_seq_torch(x, alive, w, h0),
                            2e-3),) + \
             tuple((g, g2, w_, 4e-3) for g, g2, w_ in zip(
                 grads, again,
@@ -440,3 +492,48 @@ def test_seq_bwd_propagate_nan_and_inf_on_card(plants):
             d = (g[fin] - w_[fin]).abs().max() / w_[fin].abs().max()
             assert d.item() <= 1e-2, name
     assert bool(torch.isfinite(got[1]).any()) == (plants == "first")
+
+
+# NaN (0x7fffffff, 0xffffffff, and 0x7f800001, a signalling NaN whose
+# payload lies only in the low 16 bits, which a truncation to bf16 would
+# turn into Inf), ±Inf and ±3.4e38 (which rounds to a bf16 infinity)
+# planted in the forward's inputs: in x (t, row, column; each gate) and in
+# h0 (row, unit), each in a row of its own. A NaN in x reaches its cell at
+# step t (through r, its rh too, and so its row's candidates) and its whole
+# row from then on; a NaN or infinity in h0 its whole row at step 0
+GRU_FWD_PLANTS = {
+    "x": [((0, 1, 0), 0x7FFFFFFF), ((5, 2, 1), -1), ((7, 3, 2), 0x7F800001),
+          ((2, 4, 2), _bits(np.inf)), ((3, 5, 0), _bits(-np.inf)),
+          ((4, 6, 1), _bits(3.4e38)), ((6, 7, 2), _bits(-3.4e38))],
+    "h0": [((8, 11), 0x7F800001), ((9, 50), _bits(np.inf)),
+           ((10, 60), _bits(3.4e38)), ((11, 70), _bits(-np.inf))],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hdim", [512, 496])
+def test_seq_fwd_propagate_nan_and_inf_on_card(hdim):
+    """NaN and ±Inf in x and h0 reach hs where they reach gru_seq_torch's:
+    NaN at the same positions, the same infinities; the finite rest within
+    the card test's 1e-2. bf16(h) and bf16(r ⊙ h) must keep a NaN (a
+    signalling one too) and round 3.4e38 up to Inf as torch does, and the
+    tensor-core products must meet them as the plain products do."""
+    _need_card()
+    x, alive, w, h0, _ = _card_operands(20, 16, hdim, seed=7)
+    # the x plants' third index is a gate (u, r, c) of unit 40 + 7 gate
+    where = [(t, r, g * hdim + 40 + 7 * g) for (t, r, g), _ in
+             GRU_FWD_PLANTS["x"]]
+    x = _planted(x, where, [v for _, v in GRU_FWD_PLANTS["x"]])
+    h0 = _planted(h0, *zip(*GRU_FWD_PLANTS["h0"]))
+    got = rnn.gru_seq(x, alive, w, h0)
+    want = rnn.gru_seq_torch(x, alive, w, h0)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan.any()
+    assert torch.equal(torch.isnan(got), nan)
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = ~(nan | inf)
+    d = (got[fin] - want[fin]).abs().max() / want[fin].abs().max()
+    assert d.item() <= 1e-2

@@ -97,6 +97,49 @@ def test_plain_versions_match_the_pallas_kernel_and_its_vjp():
     _assert_dw(got[1], want[1], max(np.abs(h0).max(), 1.0), got[0])
 
 
+def _fwd_product(a, w):
+    """a [b, K] . w [K, N] as csrc/lstm_seq.cu's forward sums it: four
+    quarters of K, each the exact bf16 x bf16 products added one by one in
+    increasing k from 0 in float32, the quarters then added in order."""
+    q = a.shape[-1] // 4
+    quarters = []
+    for s in range(4):
+        acc = torch.zeros(a.shape[0], w.shape[-1])
+        for k in range(s * q, (s + 1) * q):
+            acc = acc + a[:, k:k + 1] * w[k]
+        quarters.append(acc)
+    return ((quarters[0] + quarters[1]) + quarters[2]) + quarters[3]
+
+
+def _kernel_model_fwd(x, alive, w, h0, c0):
+    """csrc/lstm_seq.cu's forward, decomposed as the kernel sums it, in
+    plain torch: each step's gate product by _fwd_product, x_t added after
+    it, then the reference's cell (lstm_seq_torch's operation order)."""
+    wb = rnn._bf16(w)
+    h, c = h0, c0
+    hs, cs = [], []
+    for t in range(x.shape[0]):
+        h, c = rnn._cell(x[t] + _fwd_product(rnn._bf16(h), wb), c, h,
+                         alive[t])
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_kernel_decomposition_matches_the_pallas_kernel(seed):
+    """The forward kernel's summation order (four quarters of H, each
+    added product by product in increasing k, the quarters in order, x_t
+    added after the product) stays within the tolerance the plain version
+    is held to against the reference's Pallas kernel."""
+    x, alive, w, h0, c0, _, _ = _operands(seed)
+    hs, cs = lstm_seq_pallas(x, jnp.asarray(alive), w, h0, c0)
+    got = _kernel_model_fwd(*(torch.from_numpy(a)
+                              for a in (x, alive, w, h0, c0)))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(hs), **FWD_TOL)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(cs), **FWD_TOL)
+
+
 def _tc_product(a_parts, w_parts):
     """sum_i a_i . w_iᵀ ([b, K_i] . [H, K_i]ᵀ) as csrc/seq_mma.cuh's chain
     sums it: each 16-column k-step one tensor-core sum of exact products
@@ -329,13 +372,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         rnn.lstm_seq(x, alive, w.T.contiguous().T, h, h)
 
 
-# (L, b, H) on the card: the first two, then the backward's hard cases: one
-# step; one batch row and 33 (not a multiple of the 8- or 16-row groups of
-# the chain or of the mma tiles); H 80 and 208 (not multiples of 32: 16
-# units a chain block, grids of 20 and 52 blocks); the CTC model's 200
-# frames at the lane's widths
+# (L, b, H) on the card: the first two, then the hard cases of both
+# directions: one step; one batch row and 33 (not a multiple of the 8- or
+# 16-row groups or of the mma tiles); H 80, 208 and 496 (not multiples of
+# 32: 16 units a block, grids of 20, 52 and 124 blocks); the CTC model's
+# 200 frames at the lane's widths
 CARD_SHAPES = [(7, 3, 16), (20, 64, 512), (1, 64, 512), (20, 1, 512),
-               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512)]
+               (20, 33, 512), (20, 64, 80), (20, 33, 208), (200, 64, 512),
+               (20, 64, 496)]
 
 
 def _card_operands(steps, b, hdim, seed=5):
@@ -366,16 +410,18 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     """The forward within 1e-3 of its plain version; the backward, from
     the kernel's carries, within chip_smoke.py phase 5's limits (1e-2 of
     the largest element, 2e-3 in ‖Δ‖₂: the bf16 roundings of dW_t and of
-    the dh product move by a bf16 step now and then) and bitwise the same
-    on a second launch."""
+    the dh product move by a bf16 step now and then); both bitwise the
+    same on a second launch."""
     _need_card()
     x, alive, w, h0, c0, dhs, dcs = _card_operands(*shape)
     rnn.reset_launches()
     hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
+    hs2, cs2 = rnn.lstm_seq(x, alive, w, h0, c0)
     grads = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
     again = rnn.lstm_seq_bwd(x, alive, w, h0, c0, hs, cs, dhs, dcs)
     torch.cuda.synchronize()
-    assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (1, 2)
+    assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (2, 2)
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
     want = rnn.lstm_seq_torch(x, alive, w, h0, c0)
     for g, w_ in zip((hs, cs), want):
         assert ((g - w_).abs().max() / w_.abs().max()).item() <= 1e-3
@@ -446,3 +492,57 @@ def test_seq_bwd_propagate_nan_and_inf_on_card(plants):
             d = (g[fin] - w_[fin]).abs().max() / w_[fin].abs().max()
             assert d.item() <= 1e-2, name
     assert bool(torch.isfinite(got[1]).any()) == (plants == "first")
+
+
+# NaN (0x7fffffff, 0xffffffff, and 0x7f800001, a signalling NaN whose
+# payload lies only in the low 16 bits, which a truncation to bf16 would
+# turn into Inf), ±Inf and ±3.4e38 (which rounds to a bf16 infinity)
+# planted in the forward's inputs: in x (t, row, column; each gate), in h0
+# and c0 (row, unit), each in a row of its own. A NaN in x reaches its
+# cell at step t and its whole row from t + 1 on (through the product); a
+# NaN or infinity in h0 its whole row at step 0; one in c0 its cell, then
+# its row
+def _fwd_plants(hdim, gates):
+    col = [k * hdim for k in range(gates)]
+    return {
+        "x": [((0, 1, col[0] + 3), 0x7FFFFFFF),
+              ((5, 2, col[1] + 40), -1),
+              ((7, 3, col[gates - 1] + 100), 0x7F800001),
+              ((2, 4, col[gates - 1] + 7), _bits(np.inf)),
+              ((3, 5, col[0] + 9), _bits(-np.inf)),
+              ((4, 6, col[1] + 200), _bits(3.4e38)),
+              ((6, 7, col[gates - 2] + 300), _bits(-3.4e38))],
+        "h0": [((8, 11), 0x7F800001), ((9, 50), _bits(np.inf)),
+               ((10, 60), _bits(3.4e38)), ((11, 70), _bits(-np.inf))],
+        "c0": [((12, 5), _bits(np.inf)), ((13, 6), 0x7FFFFFFF),
+               ((14, 7), _bits(-3.4e38))],
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hdim", [512, 496])
+def test_seq_fwd_propagate_nan_and_inf_on_card(hdim):
+    """NaN and ±Inf in x, h0 and c0 reach hs and cs where they reach
+    lstm_seq_torch's: NaN at the same positions, the same infinities; the
+    finite rest within the card test's 1e-3. bf16(h) must keep a NaN (a
+    signalling one too) and round 3.4e38 up to Inf as torch does, and the
+    kernel's products must meet them as the plain product does."""
+    _need_card()
+    x, alive, w, h0, c0, _, _ = _card_operands(20, 16, hdim, seed=7)
+    plants = _fwd_plants(hdim, 4)
+    x = _planted(x, *zip(*plants["x"]))
+    h0 = _planted(h0, *zip(*plants["h0"]))
+    c0 = _planted(c0, *zip(*plants["c0"]))
+    got = rnn.lstm_seq(x, alive, w, h0, c0)
+    want = rnn.lstm_seq_torch(x, alive, w, h0, c0)
+    torch.cuda.synchronize()
+    for name, g, w_ in zip(("hs", "cs"), got, want):
+        nan = torch.isnan(w_)
+        assert nan.any(), name
+        assert torch.equal(torch.isnan(g), nan), name
+        inf = torch.isinf(w_)
+        assert torch.equal(torch.isinf(g), inf), name
+        assert torch.equal(g[inf], w_[inf]), name
+        fin = ~(nan | inf)
+        d = (g[fin] - w_[fin]).abs().max() / w_[fin].abs().max()
+        assert d.item() <= 1e-3, name
