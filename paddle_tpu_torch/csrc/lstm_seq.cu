@@ -19,23 +19,34 @@
 // in float32.
 //
 // Design. W in bf16 is 2 MiB at H 512 and cannot sit in one SM, so the
-// forward is a persistent COOPERATIVE grid: block j owns hidden units
-// 4j..4j+3 and their 16 gate columns (i, f, c, o of each), keeps its column
-// slice of W (bf16-rounded, as float32: 32 KB) in shared memory for all L
-// steps, and does the cell math of its units itself, so only h crosses
-// blocks. Each step a block stages h_{t-1} (all H, from the hs it and the
-// other blocks wrote) into shared memory, computes its 64 x 16 gate tile
-// (four thread groups each sum a quarter of H in increasing k, the quarters
-// then added in order: a fixed order, so every run is bitwise the same),
-// updates its carries and writes them; then a grid-wide barrier
-// (cooperative_groups grid sync) publishes h_t. The GRU forward runs on
-// batch-row groups with its products on the tensor cores (gru_seq.cu);
-// this one keeps the first design because chip_smoke.py holds its carries
-// to the plain version's within 1e-5, which its order has met (bitwise,
-// in every H100 run so far) and a tensor-core order does not: a float32
+// forward is a persistent COOPERATIVE grid of H/4 blocks, one grid barrier
+// a step. Batch rows are independent, so a block owns UB hidden units (32,
+// or 16 where H is not a multiple of 32) of RB = 256/UB batch rows (the
+// GRU forward's batch-row groups, gru_seq.cu), keeps its units' 4 UB gate
+// columns of W in shared memory as bf16 rows (W^T, 128 KB at H 512) for
+// all L steps, and each step stages only its rows of h_{t-1} as bf16 (16
+// KB at RB 8), read from the L2, where the blocks of its row group wrote
+// them. Each of its 8 warps forms one 16 x 8 tile of the block's [4 UB,
+// RB] gate tile (16 gate columns in gate-major order by 8 rows) on the
+// tensor cores (csrc/seq_mma.cuh: `mma.sync` m16n8k16 bf16, a fresh
+// float32 accumulator each 16-deep k-step, the k-steps added in
+// increasing k on the CUDA cores) into shared memory; then a thread a
+// cell adds x_t and does the cell math and the alive blend, and writes
+// h_t, c_t. Every sum has a fixed order and no atomics: every run is
+// bitwise the same. The first version (4 units of all 64 rows a block,
+// staging all of h and summing on the CUDA cores) took 13.3 us a step,
+// 1.29 ms a launch at b 64, L 100, H 512 (PERF.md §6).
+//
+// Accuracy. The products are exact (bf16 x bf16 in float32), so the
+// kernel differs from the plain version (torch.matmul, whatever order the
+// library sums in) only in the float32 order of the sums; but a float32
 // step of difference in h_{t-1} moves bf16(h_{t-1}) by 2^-8 of itself now
-// and then, and every gate of its row with it (seq_split.py --parts
-// lstmtc builds and measures such a forward).
+// and then, and every gate of its row with it, and later steps carry it
+// on. So the carries are held as the GRU's are (chip_smoke.py phase 5):
+// within 1e-2 of the largest element and 2e-3 in ||d||_2 of the plain
+// version's, and no further from the same recipe in float64 than twice
+// the plain version's distance. Neither order is nearer the truth: both
+// round the same exact products' sums once per add.
 //
 // The backward runs three stages in one cooperative launch of the same
 // H/4 blocks, separated by grid barriers, and keeps only what depends on
@@ -47,10 +58,9 @@
 //   with dgates. They are not the forward's gates bit for bit (another
 //   float32 order); the plain version recomputes them in its own order
 //   too.
-// - Chain, t = L-1 .. 0, one grid barrier a step. Batch rows are
-//   independent, so a chain block owns UB units (32, or 16 where H is not
-//   a multiple of 32) of RB = 256/UB batch rows, holds its units' rows of
-//   W in shared memory (bf16, 128 KB at H 512) and does its cells' math
+// - Chain, t = L-1 .. 0, one grid barrier a step, on the forward's
+//   batch-row groups: a chain block holds its UB units' rows of W in
+//   shared memory (bf16, 128 KB at H 512) and does its cells' math
 //   from the gates in dx. It writes its dgates_t into dx_t; after the
 //   barrier it reads its rows' dgates_t of every unit (64 KB at b 64, H
 //   512, from the 16 blocks of its row group; the second half of the
@@ -68,11 +78,11 @@
 // order and no atomics: every run is bitwise the same.
 //
 // Bound on the H100 at b 64, L 100, H 512: neither bytes nor operations.
-// A layer's forward is 13.4 GFLOP (0.2 ms at 67 TFLOP/s on the CUDA cores,
-// 0.014 ms at the bf16 tensor-core peak) and moves ~40 MB; but its 100
-// steps are a dependent chain, one grid barrier each, so the serial floor
-// (L barriers) bounds it from below. The forward still runs its products
-// on the CUDA cores in float32.
+// A layer's forward is 13.4 GFLOP (0.014 ms at the bf16 tensor-core peak)
+// and moves ~40 MB; but its 100 steps are a dependent chain, one grid
+// barrier each, so the serial floor (L barriers, ~0.11 ms) bounds it from
+// below, and the latency of a step (a barrier, a row read, 32 dependent
+// k-step sums, the cell math) sets its time.
 //
 // The C entries return cudaGetLastError() after the launch (0 = success);
 // the caller allocates every output and passes its stream.
@@ -86,117 +96,92 @@ namespace {
 
 using namespace seq;
 
-constexpr int COLS = 4 * UNITS;   // gate columns per block
-constexpr int KSPLIT = 4;         // the gate product's split of H
-static_assert(PART == KSPLIT * BMAX * COLS,
-              "the gate product's partial sums fill PART");
+// the A tile row of unit u's gate g: gate-major, so that warp m's tile
+// holds gate (16 m) / UB of units 16 m % UB .. + 15
+template <int UB>
+struct LstmTile {
+  __device__ int operator()(int u, int g) const { return g * UB + u; }
+};
 
-// gates_s[row][lc] = x_t[row][gcol(lc)] + sum_k hs_s[row][k] * w_s[k][lc]
-// for the block's 16 columns. Thread groups s = 0..3 sum k in
-// [s*H/4, (s+1)*H/4) in increasing order, each thread a 4-row x 4-column
-// tile; the four partial sums are then added in order s = 0, 1, 2, 3.
-__device__ void gate_preact(const float* hs_s, int hp, const float* w_s,
-                            float* part, float* gates_s, const float* xt,
-                            int b, int H, int j0) {
-  const int tid = threadIdx.x;
-  const int s = tid / 64, q = tid % 64, rg = q / 4, cq = q % 4;
-  const int ks = H / KSPLIT;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  const float* hrow = hs_s + rg * 4 * hp;
-  for (int k = s * ks; k < (s + 1) * ks; k += 4) {
-    float hv[4][4], wv[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(hrow + r * hp + k);
-      hv[r][0] = v.x; hv[r][1] = v.y; hv[r][2] = v.z; hv[r][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          w_s + (k + kk) * COLS + cq * 4);
-      wv[kk][0] = v.x; wv[kk][1] = v.y; wv[kk][2] = v.z; wv[kk][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[r][c] = fmaf(hv[r][kk], wv[kk][c], acc[r][c]);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      part[s * BMAX * COLS + (rg * 4 + r) * COLS + cq * 4 + c] = acc[r][c];
-  __syncthreads();
-  for (int o = tid; o < BMAX * COLS; o += THREADS) {
-    const int row = o / COLS, lc = o % COLS;
-    float g = 0.f;
-    if (row < b) {
-      const float mm = __fadd_rn(
-          __fadd_rn(__fadd_rn(part[o], part[BMAX * COLS + o]),
-                    part[2 * BMAX * COLS + o]),
-          part[3 * BMAX * COLS + o]);
-      g = __fadd_rn(xt[row * 4 * H + gcol(lc, j0, H)], mm);
-    }
-    gates_s[o] = g;
-  }
-  __syncthreads();
-}
-
+// UB units x RB = THREADS / UB batch rows a block (module comment)
+template <int UB>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ alive,
                 const float* __restrict__ w, const float* __restrict__ h0,
                 const float* __restrict__ c0, float* hs, float* cs, int L,
                 int b, int H) {
+  using namespace seqmma;
+  constexpr int RB = THREADS / UB, NT = RB / 8, COLS = 4 * UB;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int hp = H + 4;
-  float* hs_s = smem;                      // [BMAX][hp]  bf16(h_{t-1})
-  float* w_s = hs_s + BMAX * hp;           // [H][COLS]   bf16(w) columns
-  float* part = w_s + H * COLS;            // [PART]      partial sums
-  float* gates_s = part + PART;            // [BMAX][COLS]
-  const int tid = threadIdx.x, j0 = blockIdx.x * UNITS;
-  const int row = tid / UNITS, jj = tid % UNITS;
-  const bool mine = row < b;
+  const int wp = H + PAD, U = H / UB, H4 = 4 * H;
+  uint16_t* ws = reinterpret_cast<uint16_t*>(smem4);    // [COLS][wp] W^T
+  uint16_t* hb = ws + COLS * wp;                        // [RB][wp] bf16(h)
+  float* gs = reinterpret_cast<float*>(hb + RB * wp);   // [RB][COLS] sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mt = warp / NT, nt = warp % NT;
+  const bool active = blockIdx.x < U * ((b + RB - 1) / RB);
+  const int j0 = (blockIdx.x % U) * UB, r0 = (blockIdx.x / U) * RB;
+  const int rows = min(RB, b - r0);
+  // a thread's cell: unit j, batch row `row`
+  const int u = tid % UB, row = r0 + tid / UB, j = j0 + u;
+  const bool mine = active && row < b;
+  const uint16_t* a = ws + (16 * mt + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                               wp + (lane >> 4) * 8;
+  const uint16_t* bq = hb + (8 * nt + (lane & 7)) * wp + (lane >> 3) * 8;
+  // where the lane's four sums go: gate columns gc and gc + 8 of batch
+  // rows br and br + 1
+  const int gc = 16 * mt + (lane >> 2), br = 8 * nt + 2 * (lane & 3);
   cg::grid_group grid = cg::this_grid();
 
-  for (int i = tid; i < BMAX * hp; i += THREADS) hs_s[i] = 0.f;
-  stage_w_cols<4>(w_s, w, H, j0);
+  if (active) {
+    for (int i = tid; i < RB * wp; i += THREADS) hb[i] = 0;
+    stage_w_tiles(ws, wp, w, 4, H, j0, UB, LstmTile<UB>{});
+  }
+  __syncthreads();
   float h = 0.f, c = 0.f;
   if (mine) {
-    h = h0[row * H + j0 + jj];
-    c = c0[row * H + j0 + jj];
+    h = h0[row * H + j];
+    c = c0[row * H + j];
   }
   for (int t = 0; t < L; ++t) {
-    __syncthreads();
-    stage_rows(hs_s, hp, t == 0 ? h0 : hs + (size_t)(t - 1) * b * H, b, H,
-               H, true);
-    __syncthreads();
-    gate_preact(hs_s, hp, w_s, part, gates_s, x + (size_t)t * b * 4 * H, b,
-                H, j0);
-    if (mine) {
-      const float* gr = gates_s + row * COLS;
-      const float a = alive[t * b + row];
-      const float ig = sigm(gr[jj]);
-      const float fg = sigm(gr[UNITS + jj]);
-      const float cand = tanhf(gr[2 * UNITS + jj]);
-      const float og = sigm(gr[3 * UNITS + jj]);
-      const float cn = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, cand));
-      const float hn = __fmul_rn(og, tanhf(cn));
-      const float na = __fsub_rn(1.f, a);
-      h = __fadd_rn(__fmul_rn(a, hn), __fmul_rn(na, h));
-      c = __fadd_rn(__fmul_rn(a, cn), __fmul_rn(na, c));
-      const size_t o = ((size_t)t * b + row) * H + j0 + jj;
-      hs[o] = h;
-      cs[o] = c;
+    if (active) {
+      stage_h_rows(hb, wp, t == 0 ? h0 + r0 * H
+                                  : hs + ((size_t)(t - 1) * b + r0) * H,
+                   rows, H);
+      __syncthreads();
+      // the cell's x_t and alive, in flight during the product (issued
+      // after the rows' loads, which the product waits for)
+      float xv[4] = {}, av = 0.f;
+      if (mine) {
+        const float* xr = x + ((size_t)t * b + row) * H4 + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xv[g] = __ldg(xr + g * H);
+        av = __ldg(alive + t * b + row);
+      }
+      float sum[4] = {};
+      fwd_product(a, bq, H / 16, sum);
+      gs[br * COLS + gc] = sum[0];
+      gs[(br + 1) * COLS + gc] = sum[1];
+      gs[br * COLS + gc + 8] = sum[2];
+      gs[(br + 1) * COLS + gc + 8] = sum[3];
+      __syncthreads();
+      if (mine) {
+        const float* gr = gs + (tid / UB) * COLS + u;
+        const float ig = sigm(__fadd_rn(xv[0], gr[0]));
+        const float fg = sigm(__fadd_rn(xv[1], gr[UB]));
+        const float cand = tanhf(__fadd_rn(xv[2], gr[2 * UB]));
+        const float og = sigm(__fadd_rn(xv[3], gr[3 * UB]));
+        const float cn = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, cand));
+        const float hn = __fmul_rn(og, tanhf(cn));
+        const float na = __fsub_rn(1.f, av);
+        h = __fadd_rn(__fmul_rn(av, hn), __fmul_rn(na, h));
+        c = __fadd_rn(__fmul_rn(av, cn), __fmul_rn(na, c));
+        const size_t o = ((size_t)t * b + row) * H + j;
+        hs[o] = h;
+        cs[o] = c;
+      }
     }
-    grid.sync();
+    grid.sync();   // h_t of every unit is written
   }
 }
 
@@ -336,7 +321,13 @@ int lstm_seq_fwd(const float* x, const float* alive, const float* w,
                  int L, int b, int H, void* stream) {
   if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
   void* args[] = {&x, &alive, &w, &h0, &c0, &hs, &cs, &L, &b, &H};
-  return launch(lstm_fwd_kernel, H / UNITS, fwd_smem<4>(H), args, stream);
+  const int ub = H % 32 == 0 ? 32 : 16;
+  // W's columns and the rows of h (bf16), then the gate tile (float32)
+  const size_t smem =
+      seqmma::tile_fwd_smem(4, H, ub) + sizeof(float) * 4 * THREADS;
+  return ub == 32
+             ? launch(lstm_fwd_kernel<32>, H / UNITS, smem, args, stream)
+             : launch(lstm_fwd_kernel<16>, H / UNITS, smem, args, stream);
 }
 
 // the forward's inputs and outputs, and the carries' cotangents dhs, dcs

@@ -1,6 +1,6 @@
 // seq_mma: the tensor-core code of the whole-sequence recurrent kernels
 // (lstm_seq.cu, gru_seq.cu), all on `mma.sync` m16n8k16 bf16 with float32
-// accumulation: the GRU forward's gate tiles on batch-row groups, and the
+// accumulation: the forwards' gate tiles on batch-row groups, and the
 // backwards' three stages: the prologue's GEMM that recomputes every
 // step's gates at once, the chain's product dgates_t . W^T on a batch-row
 // group, and the epilogue's dW = sum_t bf16(A_t^T . D_t).
@@ -173,7 +173,7 @@ __device__ __forceinline__ void batched(int total, Load load, Store store) {
   }
 }
 
-// ---- forward (the GRU's) --------------------------------------------------
+// ---- forwards ------------------------------------------------------------
 //
 // A forward block owns UB units (32, or 16 where H is not a multiple of 32)
 // of RB = THREADS / UB batch rows, as a backward chain block does. It holds

@@ -23,8 +23,12 @@ short for its labels every state stays at -1e30, logaddexp's weights
 exp(x − out) are 1, and the reference's gradient grows threefold per step;
 the kernel follows the scan's arithmetic and gives the same.
 
-On CUDA tensors both launch ``csrc/ctc.cu`` (one block per batch row); on
-CPU tensors they run ``ctc_alpha_torch`` / ``ctc_loss_bwd_torch``.
+On CUDA tensors both launch ``csrc/ctc.cu`` (one block per batch row; the
+backward keeps only the recurrence and the cotangents' products on one
+warp's serial chain, the other warps gathering emissions and forming the
+adjoint's weights a chunk of steps ahead, and scatters the emissions'
+cotangents onto the classes after the chain); on CPU tensors they run
+``ctc_alpha_torch`` / ``ctc_loss_bwd_torch``.
 :class:`CtcLoss` is the ``torch.autograd.Function`` that pairs them.
 """
 
@@ -43,8 +47,14 @@ NEG = -1e30
 # kernel launches since the last reset; only a launch adds
 launches = {"ctc_alpha": 0, "ctc_loss_bwd": 0}
 
-# the kernels' limits (csrc/ctc.cu): one block per row holds eight [Sp]
-# vectors and the [C] row of dlogp in shared memory (under 48 KB)
+# the backward's last launch's stage clocks: int64 [4] on the card, block
+# 0's clock64 at the start, after the recompute, after the adjoint and
+# after the emission epilogue (chip_smoke.py prints the stages' shares)
+stage_clocks = {"ctc_loss_bwd": None}
+
+# the kernels' limits (csrc/ctc.cu): one block per row holds nine [Sp]
+# vectors, the class lists and chunks of up to 96 KB in shared memory
+# (under 150 KB); the backward's chain keeps up to 8 states a thread
 MAX_S, MAX_CLASSES = 1024, 1024
 
 
@@ -241,9 +251,10 @@ def ctc_alpha(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens):
 
 def ctc_loss_bwd(logp, x_lens, labels, y_lens, blank, dloss):
     """dlogits [b, T, C]: the kernel on CUDA tensors (one block per row:
-    the extended labels, masks and alpha0 formed in the kernel, alpha
-    recomputed into a [b, T, Sp] scratch, the scan's adjoint walked back in
-    time, dlogp scattered from the label positions and taken through the
+    the extended labels, masks and alpha0 formed in the kernel, alpha and
+    the adjoint's weights recomputed into a scratch, the scan's adjoint
+    walked back in time, the emissions' cotangents written over alpha,
+    then scattered from the label positions and taken through the
     log-softmax); the plain version on CPU tensors."""
     if logp.device.type == "cpu":
         return ctc_loss_bwd_torch(logp, x_lens, labels, y_lens, blank, dloss)
@@ -262,17 +273,37 @@ def ctc_loss_bwd(logp, x_lens, labels, y_lens, blank, dloss):
                             ("x_lens", x_lens, (b,), i32),
                             ("y_lens", y_lens, (b,), i32)], logp.device)
     dlogits = torch.empty_like(logp)
-    alpha = torch.empty((b, T, sp), device=logp.device)
     lib = _lib()
+    # every step's alpha (then its emissions' cotangent) and the adjoint's
+    # weights, per row
+    scratch = torch.empty((b, lib.ctc_bwd_scratch(T, sp)), device=logp.device)
+    clocks = torch.empty(4, dtype=torch.int64, device=logp.device)
     with torch.cuda.device(logp.device):
         err = lib.ctc_loss_bwd(
             logp.data_ptr(), labels.data_ptr(), x_lens.data_ptr(),
-            y_lens.data_ptr(), dloss.data_ptr(), alpha.data_ptr(),
-            dlogits.data_ptr(), b, T, sp, C, U, blank,
+            y_lens.data_ptr(), dloss.data_ptr(), scratch.data_ptr(),
+            dlogits.data_ptr(), clocks.data_ptr(), b, T, sp, C, U, blank,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "ctc_loss_bwd")
     launches["ctc_loss_bwd"] += 1
+    stage_clocks["ctc_loss_bwd"] = clocks
     return dlogits
+
+
+def chain_floor(frames, device):
+    """Launch one warp that runs the backward's serial chain alone: 2 ×
+    ``frames`` dependent steps (the recompute's two logaddexp and add, the
+    adjoint's products, a neighbour's value and adds), the floor of one
+    row's backward on this card (measured by chip_smoke.py; not on the
+    path)."""
+    vals = torch.tensor([-3.0, -1.5, 0.5, 0.75], device=device)
+    out = torch.empty(2, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.ctc_chain_floor(vals.data_ptr(), out.data_ptr(), frames,
+                                  torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "ctc_chain_floor")
+    return out
 
 
 class CtcLoss(torch.autograd.Function):
@@ -303,8 +334,12 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ctc_alpha_fwd.argtypes = [p] * 8 + [i, i, i, p]
         lib.ctc_alpha_fwd.restype = i
-        lib.ctc_loss_bwd.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.ctc_loss_bwd.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.ctc_loss_bwd.restype = i
+        lib.ctc_chain_floor.argtypes = [p, p, i, p]
+        lib.ctc_chain_floor.restype = i
+        lib.ctc_bwd_scratch.argtypes = [i, i]
+        lib.ctc_bwd_scratch.restype = ctypes.c_longlong
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,11 +17,11 @@ step's ``dW_t = h_{t-1}ᵀ·dgates_t`` and the product part of
 in float32.
 
 On CUDA tensors both launch ``csrc/lstm_seq.cu`` (persistent cooperative
-kernels; see the source for the design: the forward sums each step's gate
-products on the CUDA cores in the plain version's float32 order; the
-backward recomputes every step's gates in one tensor-core GEMM, runs only
-the cotangents' chain step by step on batch-row groups, and forms dW in a
-last tensor-core pass); on CPU tensors they run
+kernels; see the source for the design: the forward forms each step's
+gates on batch-row groups with ``mma.sync``, W's columns resident in bf16;
+the backward recomputes every step's gates in one tensor-core GEMM, runs
+only the cotangents' chain step by step on batch-row groups, and forms dW
+in a last tensor-core pass); on CPU tensors they run
 ``lstm_seq_torch`` / ``lstm_seq_bwd_torch``, the plain versions, which the
 CPU tests hold against the reference. :class:`LstmSeq` is the
 ``torch.autograd.Function`` that pairs them, saving the reference's
@@ -62,8 +62,7 @@ stage_clocks = {"lstm_seq_bwd": None, "gru_seq_bwd": None}
 # the kernels' limits (csrc/lstm_seq.cu, csrc/gru_seq.cu): H/4 blocks, each
 # holding up to 204 KB of shared memory, so one block fits an SM, and all
 # of them must be resident at once (128 of the H100's 132 SMs at H 512);
-# an LSTM forward block owns 4 hidden units of every batch row (at most
-# 64), a GRU forward block and a backward chain block 32 units of 8 rows,
+# a forward block and a backward chain block own 32 units of 8 batch rows,
 # or 16 of 16 where H is not a multiple of 32, so the grid holds 64 rows
 MAX_BATCH, MAX_HIDDEN, HIDDEN_MULTIPLE = 64, 512, 16
 

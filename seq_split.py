@@ -1,9 +1,9 @@
 """Where one step of the recurrent kernels goes on the card, what the
 exchanges and barriers a design could use cost alone, and another tree's
-kernels against this checkout's.
+recurrent and CTC kernels against this checkout's.
 
     python3 seq_split.py --tree DIR [--parts split,bwdsplit,exchange,
-                                     compare,barrier,lstmtc,steps]
+                                     compare,barrier,latency,steps]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
 card; a measurement tool beside chip_smoke.py, not part of the port's
@@ -11,14 +11,14 @@ package. Prints the card's name and power limit, then, by part (default
 ``split,compare``):
 
 * ``split``: for ``lstm_fwd_kernel`` and ``gru_fwd_kernel`` of ``--tree``
-  (the first versions, or the batch-row GRU forward after commit 2db8ad5;
-  the anchors pick which), the cycles of each phase of
-  one step (staging, products, reductions, cell math, barriers), averaged
-  over blocks and steps at b 64, L 100, H 512: the kernel is copied, a
-  ``clock64`` stamp (with a block barrier) is inserted at each phase's end
-  at fixed anchors of its source, and the copies build under
-  ``build/torch_kernels/seq_split/``. The launch's time with and without
-  the stamps shows what they cost.
+  (the first versions, or the batch-row forwards: the GRU's after commit
+  2db8ad5, the LSTM's after 9139a45; the anchors pick which), the cycles
+  of each phase of one step (staging, products, reductions, cell math,
+  barriers), averaged over blocks and steps at b 64, L 100, H 512: the
+  kernel is copied, a ``clock64`` stamp (with a block barrier) is
+  inserted at each phase's end at fixed anchors of its source, and the
+  copies build under ``build/torch_kernels/seq_split/``. The launch's
+  time with and without the stamps shows what they cost.
 * ``bwdsplit``: the same for ``lstm_bwd_kernel`` and ``gru_bwd_kernel`` of
   the first version (up to commit 6225d18).
 * ``exchange``: what a step's exchange costs alone (no products), over
@@ -35,16 +35,18 @@ package. Prints the card's name and power limit, then, by part (default
   7dfac6d on) against this checkout's, launch for launch at b 64, H 512,
   L 100 and 200, timed in turns (tree, this, this, tree), and this
   checkout's backward stage shares (prologue, chain, epilogue) from its
-  kernels' clocks.
+  kernels' clocks; then ``ctc_alpha`` and ``ctc_loss_bwd`` the same way at
+  the CTC model's b 64, C 29 and T 100 and 200 (labels of
+  ⌈frames/8⌉..⌊frames/4⌋ characters), the loss and dlogits of the two
+  trees compared bitwise, and this checkout's backward stage shares
+  (recompute, adjoint, epilogue).
 * ``barrier``: this checkout's GRU forward as it is (grid barriers)
   against a copy whose steps wait only for the blocks of their row group,
   in turns (grid, group, group, grid), the carries compared bitwise.
-* ``lstmtc``: this checkout's LSTM forward against a forward on the GRU's
-  batch-row groups and tensor-core tiles (``LSTM_TC_SRC``, built into a
-  copy of ``lstm_seq.cu``), on chip_smoke.py phase 5's operands at L 100
-  and 200: each one's distance to the plain version and to the float64
-  recipe, which of chip_smoke.py's criteria the tensor-core one meets, a
-  bitwise repeat, and both launches' times in turns.
+* ``latency``: a step of the CTC backward's serial chain alone, in
+  cycles (``LATENCY_SRC``): a shared-memory round trip under a 128-thread
+  barrier, two logaddexp a step on one thread, on 128 threads a state a
+  thread, and on one warp four states a lane.
 * ``steps``: chip_smoke.py's phases 6, 8 and 9 (the LSTM and GRU
   classifiers and the CTC model, trained on both routes) run from
   ``--tree`` and from this checkout, ten runs each in alternating pairs,
@@ -286,16 +288,16 @@ ROW_GRU_PATCH = [
      "  for (int t = 0; t < L; ++t) {\n"),
     ("                   rows, H);\n      __syncthreads();\n",
      "                   rows, H);\n      STAMP(1);\n"),
-    ("            rhg[(row + e) * H + j] = bf16_bits(__fmul_rn(r, h[e]));\n"
+    ("            rh[(row + e) * H + j] = bf16_bits(__fmul_rn(r, h[e]));\n"
      "          }\n      }\n    }\n"
      "    grid.sync();   // bf16(r * h_{t-1}) of every unit is written\n",
-     "            rhg[(row + e) * H + j] = bf16_bits(__fmul_rn(r, h[e]));\n"
+     "            rh[(row + e) * H + j] = bf16_bits(__fmul_rn(r, h[e]));\n"
      "          }\n      }\n      STAMP(2);\n    }\n"
      "    grid.sync();   // bf16(r * h_{t-1}) of every unit is written\n"
      "    STAMP(3);\n"),
-    ("      stage_bf16_rows(hb, wp, rhg + r0 * H, rows, H);\n"
+    ("      stage_bf16_rows(hb, wp, rh + r0 * H, rows, H);\n"
      "      __syncthreads();\n",
-     "      stage_bf16_rows(hb, wp, rhg + r0 * H, rows, H);\n"
+     "      stage_bf16_rows(hb, wp, rh + r0 * H, rows, H);\n"
      "      STAMP(4);\n"),
     ("            hs[((size_t)t * b + row + e) * H + j] = h[e];\n"
      "          }\n      }\n    }\n"
@@ -310,8 +312,29 @@ ROW_GRU_PHASES = {1: "stage bf16(h_{t-1}), 16 KB",
                   5: "x loads, c product (4 warps), h math, hs out",
                   6: "grid barrier 2"}
 
+# the batch-row LSTM forward (after commit 9139a45): a block owns UB units
+# of RB rows, forms its gate tile on the tensor cores and stages only its
+# rows of h_{t-1}
+ROW_LSTM_PATCH = [
+    ("    c = c0[row * H + j];\n  }\n  for (int t = 0; t < L; ++t) {\n",
+     "    c = c0[row * H + j];\n  }\n  STAMP_START();\n"
+     "  for (int t = 0; t < L; ++t) {\n"),
+    ("                   rows, H);\n      __syncthreads();\n",
+     "                   rows, H);\n      STAMP(1);\n"),
+    ("      gs[(br + 1) * COLS + gc + 8] = sum[3];\n      __syncthreads();\n",
+     "      gs[(br + 1) * COLS + gc + 8] = sum[3];\n      STAMP(2);\n"),
+    ("        cs[o] = c;\n      }\n    }\n"
+     "    grid.sync();   // h_t of every unit is written\n",
+     "        cs[o] = c;\n      }\n      STAMP(3);\n    }\n"
+     "    grid.sync();   // h_t of every unit is written\n    STAMP(4);\n"),
+]
+ROW_LSTM_PHASES = {1: "stage bf16(h_{t-1}), 16 KB",
+                   2: "x loads, gate tile product (8 warps), sums out",
+                   3: "cell math, hs/cs out", 4: "grid barrier"}
+
 # the split of each forward: the first version's, then the batch-row one's
-FWD_LSTM_PATCHES = [(FWD_LSTM_PATCH, FWD_LSTM_PHASES)]
+FWD_LSTM_PATCHES = [(FWD_LSTM_PATCH, FWD_LSTM_PHASES),
+                    (ROW_LSTM_PATCH, ROW_LSTM_PHASES)]
 FWD_GRU_PATCHES = [(FWD_GRU_PATCH, FWD_GRU_PHASES),
                    (ROW_GRU_PATCH, ROW_GRU_PHASES)]
 
@@ -331,116 +354,72 @@ ROWBAR_GRU_PATCH = [
       "    if (active) rg_sync(rg_c, rg_base + (unsigned)U * ++rg_n);\n")
      for what in ("bf16(r * h_{t-1})", "h_t")]
 
-# a forward of the LSTM on the GRU forward's batch-row groups and tensor-core
-# tiles (csrc/seq_mma.cuh), for the measurement only: block b owns UB units
-# (32, or 16 where H is not a multiple of 32) of RB = 256 / UB batch rows
-# and holds its units' four gate columns of W as bf16 rows of ws; each step
-# it stages its rows of bf16(h_{t-1}), and each of its 8 warps forms one
-# 16 x 8 tile of the [4 UB, RB] gate tile (16 columns in gate-major order
-# by 8 rows: a fresh tensor-core sum per 16-deep k-step, added in
-# increasing k) into shared memory; then a thread a cell adds x_t and does
-# lstm_seq.cu's cell math; one grid barrier a step
-LSTM_TC_SRC = r"""
-namespace lstmtc {
-using namespace seq;
-using namespace seqmma;
-namespace cg = cooperative_groups;
-
-template <int UB>
-struct Tile {
-  __device__ int operator()(int u, int g) const { return g * UB + u; }
-};
-
-template <int UB>
-__global__ void __launch_bounds__(THREADS, 1)
-lstm_fwd_tc(const float* __restrict__ x, const float* __restrict__ alive,
-            const float* __restrict__ w, const float* __restrict__ h0,
-            const float* __restrict__ c0, float* hs, float* cs, int L,
-            int b, int H) {
-  constexpr int RB = THREADS / UB, NT = RB / 8, COLS = 4 * UB;
-  extern __shared__ float4 smem4[];
-  const int wp = H + PAD, U = H / UB, H4 = 4 * H;
-  uint16_t* ws = reinterpret_cast<uint16_t*>(smem4);    // [COLS][wp] W^T
-  uint16_t* hb = ws + COLS * wp;                        // [RB][wp] bf16(h)
-  float* gs = reinterpret_cast<float*>(hb + RB * wp);   // [RB][COLS] sums
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int mt = warp / NT, nt = warp % NT;
-  const bool active = blockIdx.x < U * ((b + RB - 1) / RB);
-  const int j0 = (blockIdx.x % U) * UB, r0 = (blockIdx.x / U) * RB;
-  const int rows = min(RB, b - r0);
-  const int u = tid % UB, row = r0 + tid / UB, j = j0 + u;
-  const bool mine = active && row < b;
-  const uint16_t* a = ws + (16 * mt + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                               wp + (lane >> 4) * 8;
-  const uint16_t* bq = hb + (8 * nt + (lane & 7)) * wp + (lane >> 3) * 8;
-  // where the lane's four sums go: gate columns gc and gc + 8 of batch
-  // rows br and br + 1
-  const int gc = 16 * mt + (lane >> 2), br = 8 * nt + 2 * (lane & 3);
-  cg::grid_group grid = cg::this_grid();
-
-  if (active) {
-    for (int i = tid; i < RB * wp; i += THREADS) hb[i] = 0;
-    stage_w_tiles(ws, wp, w, 4, H, j0, UB, Tile<UB>{});
+# what a step of the CTC backward's serial chain costs alone, in cycles:
+# mode 0, 128 threads each reading its row's neighbour after a store and a
+# 128-thread named barrier; 1, two logaddexp and an add a step on one
+# thread, in registers; 2, the same on 128 threads, a state a thread, the
+# neighbours through a shared row and the barrier; 3, on one warp, four
+# states a lane, __syncwarp a step
+LATENCY_SRC = r"""
+#include <cuda_runtime.h>
+constexpr float NEG = -1e30f;
+__device__ __forceinline__ float lae(float a, float b) {
+  const float d = __fsub_rn(a, b);
+  if (isnan(d)) return __fadd_rn(a, b);
+  return __fadd_rn(fmaxf(a, b), log1pf(expf(-fabsf(d))));
+}
+__global__ void latency(float* out, const float* in, int mode, int steps,
+                        long long* cycles) {
+  __shared__ float a[2][512];
+  __shared__ float x[512];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 512; i += blockDim.x) {
+    a[0][i] = a[1][i] = x[i] = in[i];
   }
   __syncthreads();
-  float h = 0.f, c = 0.f;
-  if (mine) {
-    h = h0[row * H + j];
-    c = c0[row * H + j];
-  }
-  for (int t = 0; t < L; ++t) {
-    if (active) {
-      stage_h_rows(hb, wp, t == 0 ? h0 + r0 * H
-                                  : hs + ((size_t)(t - 1) * b + r0) * H,
-                   rows, H);
-      __syncthreads();
-      float xv[4] = {}, av = 0.f;
-      if (mine) {
-        const float* xr = x + ((size_t)t * b + row) * H4 + j;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) xv[g] = __ldg(xr + g * H);
-        av = __ldg(alive + t * b + row);
-      }
-      float sum[4] = {};
-      fwd_product(a, bq, H / 16, sum);
-      gs[br * COLS + gc] = sum[0];
-      gs[(br + 1) * COLS + gc] = sum[1];
-      gs[br * COLS + gc + 8] = sum[2];
-      gs[(br + 1) * COLS + gc + 8] = sum[3];
-      __syncthreads();
-      if (mine) {
-        const float* gr = gs + (tid / UB) * COLS + u;
-        const float ig = sigm(__fadd_rn(xv[0], gr[0]));
-        const float fg = sigm(__fadd_rn(xv[1], gr[UB]));
-        const float cand = tanhf(__fadd_rn(xv[2], gr[2 * UB]));
-        const float og = sigm(__fadd_rn(xv[3], gr[3 * UB]));
-        const float cn = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, cand));
-        const float hn = __fmul_rn(og, tanhf(cn));
-        const float na = __fsub_rn(1.f, av);
-        h = __fadd_rn(__fmul_rn(av, hn), __fmul_rn(na, h));
-        c = __fadd_rn(__fmul_rn(av, cn), __fmul_rn(na, c));
-        const size_t o = ((size_t)t * b + row) * H + j;
-        hs[o] = h;
-        cs[o] = c;
-      }
+  float acc = 0.f;
+  const long long t0 = clock64();
+  if (mode == 0) {
+    for (int t = 0; t < steps; ++t) {
+      const float v = __fmul_rn(a[t & 1][tid], 1.0001f);
+      a[t & 1][tid] = v;
+      asm volatile("bar.sync 1, 128;" ::: "memory");
+      a[(t + 1) & 1][tid] =
+          __fadd_rn(v, __fmul_rn(a[t & 1][(tid + 1) % 128], 1e-9f));
     }
-    grid.sync();   // h_t of every unit is written
+  } else if (mode == 1) {
+    float v = in[tid];
+    const float e = in[tid + 1], e1 = in[tid + 2];
+    for (int t = 0; t < steps; ++t) v = __fadd_rn(lae(lae(v, e), e1), in[3]);
+    acc = v;
+  } else {
+    const int per = mode == 2 ? 1 : 4, width = mode == 2 ? 128 : 32;
+    int cur = 0;
+    for (int t = 0; t < steps; ++t) {
+      const float* p = a[cur];
+      float* n = a[1 - cur];
+      for (int k = 0; k < per; ++k) {
+        const int s = tid + k * width;
+        const float a1 = s >= 1 ? p[s - 1] : NEG;
+        const float a2 = s >= 2 ? p[s - 2] : NEG;
+        n[s] = __fadd_rn(lae(lae(p[s], a1), a2), x[s]);
+      }
+      if (mode == 2)
+        asm volatile("bar.sync 1, 128;" ::: "memory");
+      else
+        __syncwarp();
+      cur ^= 1;
+    }
   }
+  const long long t1 = clock64();
+  if (tid == 0) cycles[mode] = t1 - t0;
+  out[tid] = acc + a[0][tid];
 }
-
-}  // namespace lstmtc
-
-extern "C" int lstm_seq_fwd_tc(const float* x, const float* alive,
-                               const float* w, const float* h0,
-                               const float* c0, float* hs, float* cs, int L,
-                               int b, int H, void* stream) {
-  using namespace lstmtc;
-  if (!shape_ok(L, b, H)) return (int)cudaErrorInvalidValue;
-  void* args[] = {&x, &alive, &w, &h0, &c0, &hs, &cs, &L, &b, &H};
-  const int ub = H % 32 == 0 ? 32 : 16;
-  const size_t smem = tile_fwd_smem(4, H, ub) + sizeof(float) * 4 * THREADS;
-  return ub == 32 ? launch(lstm_fwd_tc<32>, H / UNITS, smem, args, stream)
-                  : launch(lstm_fwd_tc<16>, H / UNITS, smem, args, stream);
+extern "C" int run_latency(float* out, const float* in, int mode, int steps,
+                           long long* cycles) {
+  latency<<<1, mode == 1 ? 1 : (mode == 3 ? 32 : 128)>>>(out, in, mode,
+                                                         steps, cycles);
+  return (int)cudaDeviceSynchronize();
 }
 """
 
@@ -796,10 +775,11 @@ def main():
         exchange(torch, L)
     if "compare" in parts:
         compare(torch, args.tree, b, H)
+        compare_ctc(torch, args.tree, b)
     if "barrier" in parts:
         barrier(torch, b, H)
-    if "lstmtc" in parts:
-        lstmtc(torch)
+    if "latency" in parts:
+        latency(torch)
 
 
 def fwd_split(torch, tree, ghz, L, b, H):
@@ -927,6 +907,139 @@ def compare(torch, tree, b, H):
             print(line)
 
 
+def ctc_operands(torch, T, seed, b=64, classes=29):
+    """The CTC backward's inputs at the CTC model's shape: frames
+    T/2..T (one row at T), labels of ⌈frames/8⌉..⌊frames/4⌋ characters in
+    1..classes-1 (0 the blank), logp the log-softmax of normal logits, a
+    normal loss cotangent."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    xl = torch.randint(T // 2, T + 1, (b,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    xl[0] = T
+    lo, hi = (xl + 7) // 8, xl // 4
+    yl = (lo + (torch.rand(b, generator=gen, device=dev)
+                * (hi - lo + 1).float()).long().clamp_max(
+                    (hi - lo).long())).int()
+    labels = torch.randint(1, classes, (b, int(yl.max())), generator=gen,
+                           device=dev)
+    logp = torch.log_softmax(torch.randn(b, T, classes, generator=gen,
+                                         device=dev), -1)
+    return logp, labels, xl, yl, torch.randn(b, generator=gen, device=dev)
+
+
+def compare_ctc(torch, tree, b):
+    """The tree's ctc_alpha and ctc_loss_bwd against this checkout's,
+    launch for launch at b, C 29 and T 100 and 200, in turns (tree, this,
+    this, tree), the loss and dlogits compared bitwise; then this
+    checkout's backward stage shares. A tree whose backward takes no stage
+    clocks (before this checkout's redesign) is called without them."""
+    from paddle_tpu_torch.ops.cuda import ctc
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    here = Path.cwd()
+    lib, clocked = {}, {}
+    for who, root in (("tree", tree), ("this", here)):
+        src = (root / "paddle_tpu_torch" / "csrc" / "ctc.cu").read_text()
+        clocked[who] = "long long* stamps" in src
+    built = libs([(who, *prepared(root, "ctc", f"ctc_{who}"))
+                  for who, root in (("tree", tree), ("this", here))])
+    for who, lb in built.items():
+        lb.ctc_alpha_fwd.argtypes = [p] * 8 + [i, i, i, p]
+        if clocked[who]:
+            lb.ctc_bwd_scratch.argtypes = [i, i]
+            lb.ctc_bwd_scratch.restype = ctypes.c_longlong
+        lb.ctc_loss_bwd.argtypes = [p] * (8 if clocked[who] else 7) \
+            + [i] * 6 + [p]
+        lib[who] = lb
+    stream = torch.cuda.current_stream().cuda_stream
+    for T in (100, 200):
+        logp, labels, xl, yl, dloss = ctc_operands(torch, T, 3, b)
+        C, U = logp.shape[-1], labels.shape[1]
+        sp = ctc.label_positions(U)
+        inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
+        scratch = {who: torch.empty(
+            b, lib[who].ctc_bwd_scratch(T, sp) if clocked[who] else T * sp,
+            device=logp.device) for who in lib}
+        clocks = torch.empty(4, dtype=torch.int64, device=logp.device)
+        outs = {}
+
+        def fwd(who, loss):
+            err = lib[who].ctc_alpha_fwd(
+                *(t.data_ptr() for t in inputs + (xl, yl, loss)), b, T, sp,
+                stream)
+            if err:
+                sys.exit(f"{who} ctc_alpha_fwd failed: {err}")
+
+        def bwd(who, dlogits):
+            ptrs = [t.data_ptr() for t in (logp, labels, xl, yl, dloss,
+                                           scratch[who], dlogits)]
+            if clocked[who]:
+                ptrs.append(clocks.data_ptr())
+            err = lib[who].ctc_loss_bwd(*ptrs, b, T, sp, C, U, 0, stream)
+            if err:
+                sys.exit(f"{who} ctc_loss_bwd failed: {err}")
+
+        for who in ("tree", "this"):
+            outs[who] = (torch.empty(b, 1, device=logp.device),
+                         torch.empty_like(logp))
+            fwd(who, outs[who][0])
+            bwd(who, outs[who][1])
+        torch.cuda.synchronize()
+        same = [torch.equal(outs["tree"][k], outs["this"][k])
+                for k in range(2)]
+        d = (outs["this"][1] - outs["tree"][1]).abs().max().item()
+        print(f"\nCTC, b {b}, T {T}, C {C}, Sp {sp}, frames "
+              f"{int(xl.min())}..{T}, labels {int(yl.min())}..{U}: this "
+              f"checkout against the tree: loss "
+              f"{'bitwise equal' if same[0] else 'DIFFERS'}, dlogits "
+              f"{'bitwise equal' if same[1] else f'DIFFER (max |Δ| {d:.3e})'}")
+        for name, fn, k in (("ctc_alpha", fwd, 0), ("ctc_loss_bwd", bwd, 1)):
+            t = [time_ms(torch, lambda who=who: fn(who, outs[who][k]))
+                 for who in ("tree", "this", "this", "tree")]
+            line = (f"{name}: tree {t[0]:.4f} / {t[3]:.4f} ms, this "
+                    f"checkout {t[1]:.4f} / {t[2]:.4f} ms a launch")
+            if k == 1:
+                bwd("this", outs["this"][1])
+                c = clocks.cpu().double()
+                share = (c[1:] - c[:-1]) / (c[3] - c[0])
+                line += (f"; stages of this one: recompute "
+                         f"{100 * share[0]:.1f}%, adjoint "
+                         f"{100 * share[1]:.1f}%, epilogue "
+                         f"{100 * share[2]:.1f}%")
+            print(line)
+
+
+def latency(torch):
+    """LATENCY_SRC's four modes, 1000 steps each (after a run to warm up):
+    the cycles of one step of each."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    d = OUT / "latency"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "latency.cu").write_text(LATENCY_SRC)
+    nvcc_all([(d / "latency.cu", d / "liblatency.so")])
+    lib = ctypes.CDLL(str(d / "liblatency.so"))
+    lib.run_latency.argtypes = [p, p, i, i, p]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    inp = torch.randn(1024, generator=gen, device="cuda") * 3 - 5
+    out = torch.empty(1024, device="cuda")
+    cycles = torch.zeros(4, dtype=torch.int64, device="cuda")
+    print("\na step of the CTC backward's chain alone (cycles, 1000 steps):")
+    for mode, name in enumerate((
+            "128 threads: shared round trip + a 128-thread barrier",
+            "1 thread: two logaddexp and an add, in registers",
+            "128 threads: the same a state a thread, barrier",
+            "1 warp: the same four states a lane, __syncwarp")):
+        for _ in range(2):
+            err = lib.run_latency(out.data_ptr(), inp.data_ptr(), mode, 1000,
+                                  cycles.data_ptr())
+            if err:
+                sys.exit(f"latency mode {mode} failed: {err}")
+        print(f"  {name:<56} {cycles[mode].item() / 1000:8.1f}")
+
+
 def barrier(torch, b, H):
     """This checkout's GRU forward with grid barriers against row-group
     barriers, in turns (grid, group, group, grid), at L 100 and 200; the
@@ -955,107 +1068,6 @@ def barrier(torch, b, H):
               f"row-group barriers {t[1]:.4f} / {t[2]:.4f} ms a launch")
 
 
-def lstm_float64(torch, x, alive, w, h0, c0):
-    """The LSTM forward's recipe (bf16(h)·bf16(w), then the cell) in
-    float64: the yardstick both float32 versions are measured against."""
-    def bf16(t):
-        return t.float().bfloat16().double()
-
-    H = h0.shape[-1]
-    wb = bf16(w)
-    x, alive = x.double(), alive.double()
-    h, c = h0.double(), c0.double()
-    hs, cs = [], []
-    for t in range(x.shape[0]):
-        g = x[t] + bf16(h) @ wb
-        i, f = torch.sigmoid(g[:, :H]), torch.sigmoid(g[:, H:2 * H])
-        cand, o = torch.tanh(g[:, 2 * H:3 * H]), torch.sigmoid(g[:, 3 * H:])
-        cn = f * c + i * cand
-        hn = o * torch.tanh(cn)
-        h = alive[t] * hn + (1 - alive[t]) * h
-        c = alive[t] * cn + (1 - alive[t]) * c
-        hs.append(h)
-        cs.append(c)
-    return torch.stack(hs), torch.stack(cs)
-
-
-def lstmtc(torch):
-    """This checkout's lstm_seq forward against LSTM_TC_SRC's tensor-core
-    forward on chip_smoke.py phase 5's operands (b 64, H 512, ragged
-    lengths) at L 100 and 200: each one's distance to the plain version
-    (lstm_seq_torch) and to the float64 recipe, what chip_smoke.py's LSTM
-    limit and the GRU's criteria would say of the tensor-core one, whether
-    it repeats bitwise, and both launches' times in turns (kernel, tc, tc,
-    kernel)."""
-    import chip_smoke as cs
-    from paddle_tpu_torch.ops.cuda import rnn
-
-    here = Path.cwd()
-    lib = libs([("kernel", *prepared(here, "lstm_seq", "this")),
-                ("tc", *prepared(here, "lstm_seq", "lstmtc", (),
-                                 LSTM_TC_SRC))])
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib["kernel"].lstm_seq_fwd.argtypes = [p] * 7 + [i, i, i, p]
-    lib["tc"].lstm_seq_fwd_tc.argtypes = [p] * 7 + [i, i, i, p]
-    entry = {"kernel": lib["kernel"].lstm_seq_fwd,
-             "tc": lib["tc"].lstm_seq_fwd_tc}
-    dev = torch.device("cuda", 0)
-    stream = torch.cuda.current_stream().cuda_stream
-    b, H = cs.SEQ_BATCH, cs.SEQ_HIDDEN
-    for L in (cs.SEQ_LEN, cs.CTC_FRAMES[1]):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(2)   # phase 5's operands (seed 0)
-        lens = torch.randint(1, L + 1, (b,), generator=gen, device=dev)
-        lens[: b // 4] = L
-        x, alive, w, h0, c0, _, _ = cs.lstm_operands(torch, gen, dev, lens,
-                                                     L)
-        outs = {}
-
-        def run(who, hs, cs_):
-            err = entry[who](*(t.data_ptr() for t in (x, alive, w, h0, c0,
-                                                      hs, cs_)),
-                             L, b, H, stream)
-            if err:
-                sys.exit(f"{who} forward launch failed: {err}")
-
-        for who in ("kernel", "tc", "tc"):
-            hs, cs_ = (torch.empty(L, b, H, device=dev) for _ in range(2))
-            run(who, hs, cs_)
-            outs.setdefault(who, []).append((hs, cs_))
-        torch.cuda.synchronize()
-        plain = rnn.lstm_seq_torch(x, alive, w, h0, c0)
-        exact = lstm_float64(torch, x, alive, w, h0, c0)
-        print(f"\nlstm_seq forwards, b {b}, L {L}, H {H}, lengths "
-              f"{int(lens.min())}..{int(lens.max())}:")
-        to64 = {}
-        for who, pair in (("plain", plain), ("kernel", outs["kernel"][0]),
-                          ("tc", outs["tc"][0])):
-            to64[who] = [(g.double() - e).abs().max().item()
-                         for g, e in zip(pair, exact)]
-            errs = [cs.rel_errs(g, r) for g, r in zip(pair, plain)]
-            print(f"  {who:<6} hs, cs against the plain version: ‖Δ‖∞/‖ref‖∞ "
-                  f"{errs[0][0]:.3e}, {errs[1][0]:.3e}; ‖Δ‖₂/‖ref‖₂ "
-                  f"{errs[0][1]:.3e}, {errs[1][1]:.3e}; ‖Δ‖∞ to float64 "
-                  f"{to64[who][0]:.3e}, {to64[who][1]:.3e}")
-        tc = [cs.rel_errs(g, r) for g, r in zip(outs["tc"][0], plain)]
-        lstm_ok = all(e[0] <= cs.LSTM_FWD_LIMIT for e in tc)
-        gru_ok = all(e[0] <= cs.GRU_FWD_LIMIT and e[1] <= cs.GRU_FWD_L2_LIMIT
-                     and to64["tc"][k] <= cs.GRU_F64_RATIO * to64["plain"][k]
-                     for k, e in enumerate(tc))
-        same = all(torch.equal(a, r) for a, r in zip(*outs["tc"]))
-        print(f"  tc: within LSTM_FWD_LIMIT {cs.LSTM_FWD_LIMIT:.0e}: "
-              f"{'yes' if lstm_ok else 'no'}; within the GRU's criteria "
-              f"({cs.GRU_FWD_LIMIT:.0e}, {cs.GRU_FWD_L2_LIMIT:.0e} in ‖Δ‖₂, "
-              f"{cs.GRU_F64_RATIO}x the plain's distance to float64): "
-              f"{'yes' if gru_ok else 'no'}; a second launch "
-              f"{'bitwise equal' if same else 'DIFFERS'}")
-        hs, cs_ = outs["kernel"][0]
-        t = [time_ms(torch, lambda who=who: run(who, hs, cs_))
-             for who in ("kernel", "tc", "tc", "kernel")]
-        print(f"  lstm_seq: kernel {t[0]:.4f} / {t[3]:.4f} ms, tensor-core "
-              f"forward {t[1]:.4f} / {t[2]:.4f} ms a launch")
-
-
 STEPS_SCRIPT = r"""
 import re, sys, torch
 import chip_smoke as cs
@@ -1069,7 +1081,7 @@ cs.phase_textcls(torch, fluid, 0, card)
 cs.phase_textcls(torch, fluid, 0, card, "gru")
 cs.phase_ctc(torch, fluid, 0, card)
 for m in lines:
-    if m.startswith("kernel_tier=") or m.startswith("== phase"):
+    if m.startswith(("kernel_tier=", "== phase", "wall ")):
         print(m.strip())
 """
 
@@ -1083,9 +1095,12 @@ def steps(tree):
     """chip_smoke.py's phases 6, 8, 9 from `tree` and from this checkout,
     PAIRS runs each, a process a run, in alternating pairs (tree, this;
     this, tree; ...); prints each run's steady ms a step and peak memory on
-    both routes, then for each phase the kernel route's times by pair and
-    the verdict: met where this checkout is faster in every pair, not met
-    where it is faster in at most half of them, unresolved between."""
+    both routes and the profiled kernel-route step's device-busy ms, then
+    for each phase the kernel route's times by pair and the verdict: met
+    where this checkout is faster in every pair, not met where it is
+    faster in at most half of them, unresolved between; and the same for
+    the device-busy ms (the host sets the step time; the device time is
+    what the kernels move)."""
     here = Path.cwd()
     order = []
     for k in range(PAIRS):
@@ -1098,10 +1113,12 @@ def steps(tree):
             sys.exit(f"phases 6, 8, 9 failed in {root}:\n{res.stdout}"
                      f"{res.stderr[-4000:]}")
         print(f"\nphases 6, 8, 9 from {label} ({root}):")
-        kernel_ms = []
+        kernel_ms, busy_ms = [], []
         for line in res.stdout.splitlines():
             m = re.search(r"^kernel_tier=(\w+).*steady ([\d.]+) ms/step.*"
                           r"peak memory ([\d.]+) GiB", line)
+            b = re.search(r"^wall ([\d.]+) ms per call, device busy "
+                          r"([\d.]+) ms", line)
             if line.startswith("=="):
                 print("  " + line)
             elif m:
@@ -1109,19 +1126,25 @@ def steps(tree):
                       f"{m[3]} GiB")
                 if m[1] == "auto":
                     kernel_ms.append(float(m[2]))
-        runs[label].append(kernel_ms)
-    print(f"\nkernel route, ms a step, {PAIRS} pairs (tree / this):")
-    for k, phase in enumerate(("phase 6 (LSTM)", "phase 8 (GRU)",
-                               "phase 9 (CTC)")):
-        got = [(a[k], b[k]) for a, b in zip(runs["tree"], runs["this"])]
-        wins = sum(b < a for a, b in got)
-        verdict = ("met" if wins == len(got) else
-                   "not met" if 2 * wins <= len(got) else "unresolved")
-        med = [sorted(v)[len(v) // 2] for v in zip(*got)]
-        print(f"  {phase}: " + ", ".join(f"{a:.2f} / {b:.2f}"
-                                        for a, b in got)
-              + f"; medians {med[0]:.2f} / {med[1]:.2f}; this faster in "
-              f"{wins} of {len(got)}: {verdict}")
+            elif b:
+                print(f"    profiled kernel-route step: wall {b[1]} ms, "
+                      f"device busy {b[2]} ms")
+                busy_ms.append(float(b[2]))
+        runs[label].append((kernel_ms, busy_ms))
+    for what, i in (("ms a step", 0), ("device-busy ms a step", 1)):
+        print(f"\nkernel route, {what}, {PAIRS} pairs (tree / this):")
+        for k, phase in enumerate(("phase 6 (LSTM)", "phase 8 (GRU)",
+                                   "phase 9 (CTC)")):
+            got = [(a[i][k], b[i][k])
+                   for a, b in zip(runs["tree"], runs["this"])]
+            wins = sum(b < a for a, b in got)
+            verdict = ("met" if wins == len(got) else
+                       "not met" if 2 * wins <= len(got) else "unresolved")
+            med = [sorted(v)[len(v) // 2] for v in zip(*got)]
+            print(f"  {phase}: " + ", ".join(f"{a:.2f} / {b:.2f}"
+                                            for a, b in got)
+                  + f"; medians {med[0]:.2f} / {med[1]:.2f}; this faster "
+                  f"in {wins} of {len(got)}: {verdict}")
 
 
 if __name__ == "__main__":

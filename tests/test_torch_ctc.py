@@ -231,12 +231,20 @@ def test_greedy_decoding_ops_match_reference():
     assert int(np.asarray(got[5])[0]) == len(X_LENS)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(6, 7, 6, 3), (64, 200, 29, 50)])
-def test_kernels_match_the_plain_versions_on_card(shape):
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
                     "tests/test_torch_ctc.py on the GPU machine)")
+
+
+# (b, frames, classes, max label length) on the card: the test batch's
+# size, the CTC model's (b 64, T 200, Sp 104), and a long utterance whose
+# [T, Sp] (1000 x 408) is far beyond a block's shared memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 7, 6, 3), (64, 200, 29, 50),
+                                   (4, 1000, 29, 200)])
+def test_kernels_match_the_plain_versions_on_card(shape):
+    _need_card()
     b, frames, classes, max_u = shape
     rng = np.random.RandomState(6)
     x_lens = rng.randint(2, frames + 1, b).astype(np.int32)
@@ -267,3 +275,198 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     rows = finite[:, 0]
     err = (dlogits - want)[rows].abs().max() / want[rows].abs().max()
     assert err.item() <= 1e-4
+
+
+def _bits(v):
+    return int(np.array(v, np.float32).view(np.int32))
+
+
+def _planted_batch():
+    """logp [10, 50, 6], labels, x_lens, y_lens and dloss on the CPU, with
+    NaN and ±Inf planted in logp and in dloss, each plant in a row of its
+    own: a label's class (mid-row, near the row's last frame, and two
+    frames before it, where it cannot reach the final states), a class no
+    label has, the blank, a frame past the row's length; NaN and ±Inf in
+    dloss."""
+    b, frames, classes = 10, 50, 6
+    rng = np.random.RandomState(8)
+    x_lens = np.array([40, 50, 50, 50, 30, 50, 50, 45, 50, 44], np.int32)
+    y_lens = np.array([4, 5, 3, 5, 4, 5, 5, 4, 5, 5], np.int32)
+    labels = rng.randint(1, classes - 1, (b, 5))   # class 5 is no label's
+    logits = rng.normal(0, 1, (b, frames, classes))
+    dloss = rng.normal(0, 1, b)
+    logp = torch.log_softmax(torch.tensor(logits, dtype=torch.float32), -1)
+    plants = [((0, 20, int(labels[0, 1])), 0x7FFFFFFF),
+              ((1, 5, 0), _bits(np.inf)),
+              ((2, 7, int(labels[2, 0])), _bits(-np.inf)),
+              ((3, 3, classes - 1), 0x7F800001),
+              ((4, 40, int(labels[4, 0])), -1),
+              ((7, 44, int(labels[7, 3])), 0x7FFFFFFF),
+              ((8, 30, int(labels[8, 2])), _bits(np.inf)),
+              ((9, 41, int(labels[9, 0])), 0x7FFFFFFF)]
+    for idx, v in plants:
+        logp.view(torch.int32)[idx] = v
+    dl = torch.tensor(dloss, dtype=torch.float32)
+    dl.view(torch.int32)[5] = 0x7FFFFFFF
+    dl.view(torch.int32)[6] = _bits(np.inf)
+    dl.view(torch.int32)[7] = _bits(-np.inf)
+    return (logp, torch.tensor(x_lens), torch.tensor(labels),
+            torch.tensor(y_lens), dl)
+
+
+def _finite_batch():
+    """A batch of finite inputs with the rows the kernel treats apart: the
+    full length, one frame, no label, a row too short for its labels."""
+    rng = np.random.RandomState(3)
+    b, frames, classes = 6, 30, 7
+    x_lens = np.array([30, 20, 1, 25, 4, 30], np.int32)
+    y_lens = np.array([5, 3, 0, 6, 4, 2], np.int32)
+    logp = torch.log_softmax(torch.tensor(
+        rng.normal(0, 1, (b, frames, classes)), dtype=torch.float32), -1)
+    return (logp, torch.tensor(x_lens),
+            torch.tensor(rng.randint(1, classes, (b, 6))),
+            torch.tensor(y_lens),
+            torch.tensor(rng.normal(0, 1, b), dtype=torch.float32))
+
+
+def _assert_same_pattern(got, want, tol):
+    """NaN at the same positions, the same infinities, the finite rest
+    within ``tol`` of the largest finite element."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = ~(nan | inf)
+    d = (got[fin] - want[fin]).abs().max() / want[fin].abs().max()
+    assert d.item() <= tol
+
+
+def _lae(a, b):
+    d = np.float32(a - b)
+    if np.isnan(d):
+        return np.float32(a + b)
+    return np.float32(max(a, b)) + np.float32(np.log1p(np.exp(-abs(d))))
+
+
+def _rinf(v):
+    return np.float32(0) if v == np.inf else v
+
+
+def _kernel_model_row(lp, lab, xlen, ylen, dloss, sp):
+    """One row of csrc/ctc.cu's backward, decomposed as the kernel computes
+    it, in float32 numpy scalars: alpha over the real steps 1..tr; the
+    adjoint from tb (tr + 1 where steps follow, from a cotangent of 0)
+    down to 1, each alpha_t's cotangent completed with its final's terms
+    (the loss's at the selected final, 0 * weight at the others), the
+    weights with +inf read as 0; the emissions' cotangents scattered onto
+    the classes in increasing s, the classes summed in increasing c; past
+    tr, 0 - exp(logp) * 0."""
+    f32, neg = np.float32, np.float32(-1e30)
+    frames, classes = lp.shape
+    last, final_on = 2 * ylen, 1 <= xlen <= frames
+    tr = 0 if xlen < 1 else min(xlen, frames) - 1
+    out = f32(0) - np.exp(lp) * f32(0)
+    z = [lab[s >> 1] if s & 1 and s < 2 * len(lab) + 1 else 0
+         for s in range(sp)]
+    valid = [s <= last for s in range(sp)]
+    skip = [bool(s & 1 and s >= 2 and z[s] != z[s - 2]) for s in range(sp)]
+    alpha = np.full((frames, sp), neg, np.float32)
+    alpha[0, 0] = lp[0, z[0]]
+    if ylen > 0:
+        alpha[0, 1] = lp[0, z[1]]
+    for t in range(1, tr + 1):
+        a = alpha[t - 1]
+        for s in range(sp):
+            m = _lae(_lae(a[s], a[s - 1] if s >= 1 else neg),
+                     a[s - 2] if skip[s] else neg)
+            alpha[t, s] = f32(m + lp[t, z[s]]) if valid[s] else neg
+    g, de = np.zeros(sp, np.float32), np.zeros((frames, sp), np.float32)
+
+    def finals(t):
+        al, am = alpha[t, last], alpha[t, last - 1] if ylen > 0 else neg
+        rf = _rinf(_lae(al, am))
+        real = final_on and t == tr
+        for e, x in enumerate((al, am)[:2 if ylen > 0 else 1]):
+            w = f32(np.exp(f32(_rinf(x) - rf)))
+            if real:
+                g[last - e] = f32(g[last - e] + f32(f32(-dloss) * w))
+            if not real or tr < frames - 1:
+                g[last - e] = f32(g[last - e] + f32(f32(0) * w))
+
+    for t in range(tr + 1 if tr < frames - 1 else tr, 0, -1):
+        if t <= tr:
+            finals(t)
+        a = alpha[t - 1]
+        g0, g1, g2 = (np.zeros(sp, np.float32) for _ in range(3))
+        for s in range(sp):
+            a1 = a[s - 1] if s >= 1 else neg
+            a2 = a[s - 2] if skip[s] else neg
+            inner = _lae(a[s], a1)
+            merged = _lae(inner, a2)
+            gn = g[s] if valid[s] else f32(0)
+            gi = f32(gn * np.exp(f32(_rinf(inner) - _rinf(merged))))
+            if t <= tr:
+                de[t, s] = gn
+            g0[s] = f32(gi * np.exp(f32(_rinf(a[s]) - _rinf(inner))))
+            if s >= 1:
+                g1[s] = f32(gi * np.exp(f32(_rinf(a1) - _rinf(inner))))
+            if skip[s]:
+                g2[s] = f32(gn * np.exp(f32(_rinf(a2) - _rinf(merged))))
+        for s in range(sp):
+            v = g0[s]
+            if s + 1 < sp:
+                v = f32(v + g1[s + 1])
+            if s + 2 < sp:
+                v = f32(v + g2[s + 2])
+            g[s] = v
+    finals(0)
+    de[0, :2] = [g[0], g[1] if ylen > 0 else 0]
+    for t in range(tr + 1):
+        dl = np.zeros(classes, np.float32)
+        for s in range(sp):
+            if z[s] < classes:
+                dl[z[s]] = f32(dl[z[s]] + de[t, s])
+        tot = f32(0)
+        for c in range(classes):
+            tot = f32(tot + dl[c])
+        out[t] = (dl - (np.exp(lp[t]) * tot).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("batch", ["finite", "planted"])
+def test_backward_kernel_decomposition_matches_the_plain_version(batch):
+    """The backward kernel's decomposition (csrc/ctc.cu, modelled per row by
+    _kernel_model_row) gives the plain version's dlogits (autograd of the
+    scan), NaN and ±Inf included: within GRAD_TOL's atol of the largest
+    finite element."""
+    logp, xl, labels, yl, dloss = {"finite": _finite_batch,
+                                   "planted": _planted_batch}[batch]()
+    want = ctc.ctc_loss_bwd_torch(logp, xl, labels, yl, 0, dloss)
+    sp = ctc.label_positions(labels.shape[1])
+    with np.errstate(all="ignore"):
+        got = torch.from_numpy(np.stack([
+            _kernel_model_row(logp[r].numpy(), labels[r, :].tolist(),
+                              int(xl[r]), int(yl[r]), dloss[r].numpy(), sp)
+            for r in range(logp.shape[0])]))
+    if batch == "planted":
+        assert torch.isnan(want).any() and torch.isinf(want).any()
+    _assert_same_pattern(got, want, GRAD_TOL["atol"])
+
+
+@pytest.mark.cuda
+def test_loss_bwd_propagates_nan_and_inf_on_card():
+    """NaN and ±Inf planted in logp and in dloss (_planted_batch) reach
+    dlogits where they reach ctc_loss_bwd_torch's (autograd of the scan:
+    its weights read +inf as 0, and the finals it does not select and the
+    steps after a row's frames add 0 * weight): NaN at the same positions,
+    the same infinities, the finite rest within phase 7's 1e-4 of the
+    largest."""
+    _need_card()
+    dev = torch.device("cuda")
+    logp, xl, labels, yl, dloss = (t.to(dev) for t in _planted_batch())
+    got = ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss)
+    want = ctc.ctc_loss_bwd_torch(logp, xl, labels, yl, 0, dloss)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    _assert_same_pattern(got, want, 1e-4)

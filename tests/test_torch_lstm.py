@@ -98,17 +98,17 @@ def test_plain_versions_match_the_pallas_kernel_and_its_vjp():
 
 
 def _fwd_product(a, w):
-    """a [b, K] . w [K, N] as csrc/lstm_seq.cu's forward sums it: four
-    quarters of K, each the exact bf16 x bf16 products added one by one in
-    increasing k from 0 in float32, the quarters then added in order."""
-    q = a.shape[-1] // 4
-    quarters = []
-    for s in range(4):
-        acc = torch.zeros(a.shape[0], w.shape[-1])
-        for k in range(s * q, (s + 1) * q):
-            acc = acc + a[:, k:k + 1] * w[k]
-        quarters.append(acc)
-    return ((quarters[0] + quarters[1]) + quarters[2]) + quarters[3]
+    """a [b, K] . w [K, N] as csrc/lstm_seq.cu's forward sums it (the gate
+    tiles of csrc/seq_mma.cuh): each 16-deep k-step one tensor-core sum of
+    exact bf16 x bf16 products (here float64, rounded to float32 once), the
+    k-steps added in increasing k in float32."""
+    steps = a.shape[-1] // 16
+    parts = (a.double().reshape(a.shape[0], steps, 16, 1)
+             * w.double().reshape(1, steps, 16, w.shape[-1])).sum(2).float()
+    total = torch.zeros(a.shape[0], w.shape[-1])
+    for s in range(steps):
+        total = total + parts[:, s]
+    return total
 
 
 def _kernel_model_fwd(x, alive, w, h0, c0):
@@ -128,10 +128,10 @@ def _kernel_model_fwd(x, alive, w, h0, c0):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_forward_kernel_decomposition_matches_the_pallas_kernel(seed):
-    """The forward kernel's summation order (four quarters of H, each
-    added product by product in increasing k, the quarters in order, x_t
-    added after the product) stays within the tolerance the plain version
-    is held to against the reference's Pallas kernel."""
+    """The forward kernel's summation order (a fresh tensor-core sum per
+    16-deep k-step, the k-steps added in increasing k, x_t added after the
+    product) stays within the tolerance the plain version is held to
+    against the reference's Pallas kernel."""
     x, alive, w, h0, c0, _, _ = _operands(seed)
     hs, cs = lstm_seq_pallas(x, jnp.asarray(alive), w, h0, c0)
     got = _kernel_model_fwd(*(torch.from_numpy(a)
@@ -404,14 +404,39 @@ def _need_card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _float64_fwd(x, alive, w, h0, c0):
+    """The forward's recipe (bf16(h)·bf16(w), then the cell) in float64."""
+    def bf16(t):
+        return t.float().bfloat16().double()
+
+    hdim = h0.shape[-1]
+    wb = bf16(w)
+    x, alive = x.double(), alive.double()
+    h, c = h0.double(), c0.double()
+    hs, cs = [], []
+    for t in range(x.shape[0]):
+        g = x[t] + bf16(h) @ wb
+        i, f, u, o = g.split(hdim, -1)
+        cn = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(u)
+        hn = torch.sigmoid(o) * torch.tanh(cn)
+        h = alive[t] * hn + (1 - alive[t]) * h
+        c = alive[t] * cn + (1 - alive[t]) * c
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_kernels_match_the_plain_versions_on_card(shape):
-    """The forward within 1e-3 of its plain version; the backward, from
-    the kernel's carries, within chip_smoke.py phase 5's limits (1e-2 of
-    the largest element, 2e-3 in ‖Δ‖₂: the bf16 roundings of dW_t and of
-    the dh product move by a bf16 step now and then); both bitwise the
-    same on a second launch."""
+    """The forward's hs and cs within chip_smoke.py phase 5's criteria (1e-2
+    of the largest element and 2e-3 in ‖Δ‖₂ of the plain version's, and
+    within 2x the plain version's distance to the float64 recipe: the two
+    sum in other float32 orders, and bf16(h_{t-1}) moves by a bf16 step now
+    and then); the backward, from the kernel's carries, within phase 5's
+    limits (1e-2 of the largest element, 2e-3 in ‖Δ‖₂: the bf16 roundings
+    of dW_t and of the dh product move by a bf16 step now and then); both
+    bitwise the same on a second launch."""
     _need_card()
     x, alive, w, h0, c0, dhs, dcs = _card_operands(*shape)
     rnn.reset_launches()
@@ -423,8 +448,14 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     assert (rnn.launches["lstm_seq"], rnn.launches["lstm_seq_bwd"]) == (2, 2)
     assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
     want = rnn.lstm_seq_torch(x, alive, w, h0, c0)
-    for g, w_ in zip((hs, cs), want):
-        assert ((g - w_).abs().max() / w_.abs().max()).item() <= 1e-3
+    exact = _float64_fwd(x, alive, w, h0, c0)
+    for name, g, w_, e in zip(("hs", "cs"), (hs, cs), want, exact):
+        d = g - w_
+        assert (d.abs().max() / w_.abs().max()).item() <= 1e-2, name
+        assert (d.norm() / w_.norm()).item() <= 2e-3, name
+        k64 = (g.double() - e).abs().max().item()
+        p64 = (w_.double() - e).abs().max().item()
+        assert k64 <= 2 * p64, (name, k64, p64)
     want = rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, hs, cs, dhs, dcs)
     for name, g, g2, w_ in zip(("dx", "dw", "dh0", "dc0"), grads, again,
                                want):
