@@ -18,7 +18,11 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               float32 and bfloat16, with and without relu: conv_affine,
               conv_bn_train and conv_bn_bwd against their plain versions;
               momentum_arena against its plain version over ResNet-50's
-              trainable parameters, nesterov off and on, bitwise. Then, in float32, conv_affine at batches 32, 8 and
+              trainable parameters, nesterov off and on, bitwise, then
+              its call split: time, host enqueue, the host pass alone
+              (kept tables and packing anew), the kernel's device time,
+              and 5 samples in turns with SGD(momentum=0.9, fused=True).
+              Then, in float32, conv_affine at batches 32, 8 and
               1 and the training kernels at batch 32: the outputs against
               their plain versions again, and each kernel's time per
               forward or step, its plain version's, one PyTorch library
@@ -113,11 +117,15 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               1e-4) at the generation lane's decode shape (8 slots, 4 heads
               of 32, blocks of 8, tables of 16: ragged lengths, idle rows,
               a multiple of the block size and a full table), at
-              tests/test_paged_attention_pallas.py's three shapes, and at
-              a Llama-2-7B decode (32 slots, 32 heads of 128, blocks of 16,
-              contexts drawn 1..4096 over a fragmented arena); idle rows
-              exact zeros; a planted scale x0.875 must break the limit.
-              Times, bytes, bounds, and the gather +
+              tests/test_paged_attention_pallas.py's three shapes, at
+              lengths on, before and after the split path's partition
+              boundaries (D 128, 36 and 33), and at two Llama-2-7B decodes
+              (32 slots, 32 heads of 128, blocks of 16, over a fragmented
+              arena: contexts drawn 1..4096, and every slot at 4096, ~4.3
+              GB of arena); idle rows exact zeros; a planted scale x0.875
+              must break the limit. At the lane and both Llama shapes:
+              times, GB/s, bounds, nsplit and PART, launches and device
+              kernels a call, and the gather +
               scaled_dot_product_attention as a yardstick.
 13. generate — the decoder LM of bench.py:1931's generation lane (vocab
               64, emb 128, 4 heads, 4 layers, seeded weights) built with
@@ -1088,16 +1096,57 @@ def phase_train_kernels(torch, fluid, seed):
         p.grad = g
     sgd = torch.optim.SGD(sgd_params, lr=0.1, momentum=0.9, fused=True)
     t = out["momentum_arena"]
-    t["ms"] = time_ms(lambda: opk.momentum_arena(ps, gs, vs, lr, 0.9, False),
-                      torch)
+
+    def call():
+        opk.momentum_arena(ps, gs, vs, lr, 0.9, False)
+
+    t["ms"] = time_ms(call, torch)
     t["plain_ms"] = time_ms(lambda: opk.momentum_arena_torch(
         ps, gs, vs, lr, 0.9, False), torch)
     t["library_ms"] = time_ms(sgd.step, torch)
     t["bound_ms"], t["bound_by"] = bound_ms(0, 20 * nelem)
+    # the call's split: the kernel's device time (profiler) against the
+    # call's, and the wrapper's host pass alone (kept tables, the grads'
+    # column refilled)
+    t["kernel_device_ms"], _, _ = split_device(device_ms(torch, call),
+                                               "momentum_arena")
+    lib_dev = sum(device_ms(torch, sgd.step).values())
+    host = host_pass_ms(opk, "momentum_arena", ps, gs, [vs])
     log(f"momentum_arena per step ({len(ps)} tensors, {nelem} elements): "
-        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"SGD(fused=True) {t['library_ms']:.4f} ms, bound "
-        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        f"call {t['ms']:.4f} ms (host enqueue {host_ms(torch, call):.4f} "
+        f"ms; host pass alone {host['kept']:.4f} ms kept, "
+        f"{host['packed']:.4f} ms packing anew; kernel device "
+        f"{t['kernel_device_ms']:.4f} ms = "
+        f"{t['bound_ms'] / max(t['kernel_device_ms'], 1e-9):.1%} of the "
+        f"bound), plain "
+        f"{t['plain_ms']:.4f} ms, SGD(momentum=0.9, fused=True) "
+        f"{t['library_ms']:.4f} ms (host enqueue "
+        f"{host_ms(torch, sgd.step):.4f} ms, device {lib_dev:.4f} ms), "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    ka, la = turns_ms(torch, call, sgd.step)
+    log(f"momentum_arena in turns with SGD(momentum=0.9, fused=True): per "
+        f"step {samples(ka)} ms; SGD {samples(la)} ms")
+    return out
+
+
+def host_pass_ms(opk, name, ps, gs, state, reps=50):
+    """The arena wrapper's host pass alone (``opk._tables``: the checks and
+    the launch tables, no launch), ms a call on the host clock: with the
+    list's tables kept, and packing anew every call."""
+    dev = ps[0].device
+
+    def tables(fresh):
+        if fresh:
+            opk._PACKED.pop(name, None)
+        opk._tables(name, ps, gs, state, dev, opk._max_rows)
+
+    out = {}
+    for key, fresh in (("kept", False), ("packed", True)):
+        tables(fresh)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tables(fresh)
+        out[key] = (time.perf_counter() - t0) * 1e3 / reps
     return out
 
 
@@ -1202,6 +1251,13 @@ def phase_training(torch, fluid, seed, card):
                       cbk.launches["conv_bn_bwd"],
                       opk.launches["momentum_arena"],
                       tier.fallback_counts().get("conv_bn", 0))
+            # the executor hands the same params and velocities back every
+            # step, so only the first step packs momentum_arena's table
+            if route == "auto" and step > 0 \
+                    and opk.packs["momentum_arena"] != 0:
+                fail(f"step {step + 1}: momentum_arena packed its table "
+                     f"again ({opk.packs['momentum_arena']}): the params or "
+                     "velocities came back as other tensors")
             if counts != want[route]:
                 fail(f"kernel_tier={route} step {step + 1}: launches "
                      f"conv_bn_train/conv_bn_bwd/momentum_arena and "
@@ -1636,16 +1692,21 @@ def phase_rnn_kernels(torch, fluid, seed, card):
     adam = torch.optim.Adam(adam_ps, lr=SEQ_LR, fused=True)
     k = state["kernel"]
     t = out["adam_arena"]
-    t["ms"] = time_ms(lambda: opk.adam_arena(k[0], gs, k[1], k[2], lr,
-                                             *pows, 0.9, 0.999, 1e-8), torch)
+
+    def call():
+        opk.adam_arena(k[0], gs, k[1], k[2], lr, *pows, 0.9, 0.999, 1e-8)
+
+    t["ms"] = time_ms(call, torch)
     t["plain_ms"] = time_ms(lambda: opk.adam_arena_torch(
         k[0], gs, k[1], k[2], lr, *pows, 0.9, 0.999, 1e-8), torch)
     t["library_ms"] = time_ms(adam.step, torch)
     t["bound_ms"], t["bound_by"] = bound_ms(0, 28 * nelem)
-    log(f"adam_arena per step ({len(ps)} tensors, {nelem} elements): kernel "
-        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, Adam(fused=True) "
-        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"({t['bound_by']})")
+    kern, _, _ = split_device(device_ms(torch, call), "adam_arena")
+    log(f"adam_arena per step ({len(ps)} tensors, {nelem} elements): call "
+        f"{t['ms']:.4f} ms (host enqueue {host_ms(torch, call):.4f} ms, "
+        f"kernel device {kern:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+        f"Adam(fused=True) {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     return out
 
 
@@ -2742,10 +2803,12 @@ def paged_bytes(args):
 
 def phase_paged_kernels(torch, fluid, seed, card):
     """paged_attention against its plain version at the lane's geometry,
-    the reference test's three shapes and a Llama-2-7B decode shape; a
-    planted scale fault; times, bounds and the library yardstick. Returns
-    the numbers for the kernels line, at the lane's geometry (the main
-    path's)."""
+    the reference test's three shapes, shapes whose lengths fall on and
+    around partition boundaries, and two Llama-2-7B decode shapes (random
+    contexts, and every slot at 4096); a planted scale fault; times,
+    bounds and the library yardstick. Returns the numbers for the kernels
+    line: the lane's geometry (the main path's), with the Llama shapes'
+    times and bounds under their own keys."""
     import numpy as np
     from paddle_tpu_torch.ops.cuda import paged_attention as pak
 
@@ -2775,19 +2838,33 @@ def phase_paged_kernels(torch, fluid, seed, card):
         cl = torch.from_numpy(r.randint(0, p * bs + 1, s).astype(np.int32))
         cases.append((f"reference shape {i}", (*arrs, bt.to(dev),
                                                cl.to(dev))))
+    # lengths on, just before and just after partition boundaries, one
+    # position, an idle slot, and slots whose later table entries'
+    # partitions lie wholly past their length (Llama's heads and blocks,
+    # 8 slots); then an odd head dim (scalar loads) at the same lengths
+    p_big = PA_CTX // PA_BLOCK
+    part = pak.part_blocks(PA_BLOCK) * PA_BLOCK
+    edge_lens = [part, 2 * part, part - 1, part + 1, 1, 0, 3 * part + 5,
+                 PA_CTX]
+    for d in (PA_DIM, 36, 33):
+        cases.append((f"partition edges, D {d}", paged_operands(
+            torch, gen, rng, len(edge_lens), 8, d, PA_BLOCK, p_big,
+            edge_lens, 16)))
     big_lens = rng.randint(1, PA_CTX + 1, PA_SLOTS)
     big_lens[rng.choice(PA_SLOTS, 2, replace=False)] = 0
     big = paged_operands(torch, gen, rng, PA_SLOTS, PA_HEADS, PA_DIM,
-                         PA_BLOCK, PA_CTX // PA_BLOCK, big_lens, 64)
+                         PA_BLOCK, p_big, big_lens, 64)
     cases.append(("Llama-2-7B decode", big))
     problems = []
     for name, args in cases:
         err, within, zeros = paged_check(torch, pak, args)
         qh, kc, _, bt, cl = args
         log(f"{name}: q {tuple(qh.shape)}, arena {tuple(kc.shape)}, "
-            f"tables {tuple(bt.shape)}, lengths sum {int(cl.sum())} "
-            f"(max {int(cl.max())}, {int((cl == 0).sum())} idle): max |Δ| "
-            f"{err:.3e}, within the limit {within}, idle rows zero {zeros}")
+            f"tables {tuple(bt.shape)} (nsplit "
+            f"{pak.paged_attention_nsplit(bt.shape[1], kc.shape[1])}), "
+            f"lengths sum {int(cl.sum())} (max {int(cl.max())}, "
+            f"{int((cl == 0).sum())} idle): max |Δ| {err:.3e}, within the "
+            f"limit {within}, idle rows zero {zeros}")
         if not (within and zeros):
             problems.append(f"paged_attention at {name}")
     # the check's own test: the scale x PLANTED
@@ -2800,30 +2877,85 @@ def phase_paged_kernels(torch, fluid, seed, card):
                             f"{name}")
     if problems:
         fail("; ".join(problems))
+    del cases
     out = {}
-    for name, args in (("lane", lane), ("Llama-2-7B decode", big)):
-        nbytes = paged_bytes(args)
-        t = dict(max_abs_err=paged_check(torch, pak, args)[0],
-                 ms=time_ms(lambda: pak.paged_attention_cuda(*args), torch),
-                 plain_ms=time_ms(lambda: pak.paged_attention_torch(*args),
-                                  torch),
-                 library_ms=time_ms(lambda: paged_library(torch, *args),
-                                    torch))
-        # operations: q·k and the weighted v sum, 4 flops per element of
-        # the live context, against float32's peak
-        ops = 4 * int(args[4].sum().item()) * args[0].shape[1] \
-            * args[0].shape[2]
-        t["bound_ms"], t["bound_by"] = bound_ms(ops, nbytes)
-        log(f"paged_attention at {name} per call: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, gather + "
-            f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {nbytes} bytes); "
-            f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
-        if name == "lane":
-            out["paged_attention"] = t
-    del big, cases
+    lane_t = paged_times(torch, pak, "lane", lane)
+    big_t = paged_times(torch, pak, "Llama-2-7B decode", big)
+    del big
     torch.cuda.empty_cache()
+    # every slot at the full context: ~4.3 GB of arena, no ragged tail, so
+    # its time against the random lengths' separates the tail from each
+    # CTA's bandwidth
+    full = paged_operands(torch, gen, rng, PA_SLOTS, PA_HEADS, PA_DIM,
+                          PA_BLOCK, p_big, [PA_CTX] * PA_SLOTS, 64)
+    err, within, _ = paged_check(torch, pak, full)
+    log(f"Llama-2-7B decode, all {PA_SLOTS} slots at {PA_CTX}: arena "
+        f"{tuple(full[1].shape)} x 2: max |Δ| {err:.3e}, within the limit "
+        f"{within}")
+    if not within:
+        fail(f"paged_attention at {PA_SLOTS} slots of {PA_CTX}")
+    err, within, _ = paged_check(torch, pak, full, planted=True)
+    log(f"planted fault at {PA_SLOTS} slots of {PA_CTX}: scale "
+        f"x{PLANTED}: max |Δ| {err:.3e}, within the limit {within}")
+    if within:
+        fail(f"the check does not see scale x{PLANTED} at {PA_SLOTS} slots "
+             f"of {PA_CTX}")
+    full_t = paged_times(torch, pak, f"all {PA_CTX}", full)
+    del full
+    torch.cuda.empty_cache()
+    out["paged_attention"] = dict(
+        lane_t, llama_ms=big_t["ms"], llama_bound_ms=big_t["bound_ms"],
+        llama_4096_ms=full_t["ms"], llama_4096_bound_ms=full_t["bound_ms"])
     return out
+
+
+def kernel_name(key):
+    """A profiler key's kernel name without its namespace, template
+    arguments and parameters: "paged_attention_kernel"."""
+    import re
+    m = re.search(r"(\w+)(<[^()]*>)?\(", key)
+    return m.group(1) if m else key[:40]
+
+
+def paged_times(torch, pak, name, args):
+    """One shape's numbers: the kernel's time (time_ms), its plain
+    version's and the library yardstick's, the bound, the achieved GB/s,
+    nsplit and PART, wrapper launches and device kernels a call (profiler),
+    logged; returns the kernels line's keys."""
+    nbytes = paged_bytes(args)
+
+    def call():
+        pak.paged_attention_cuda(*args)
+
+    t = dict(max_abs_err=paged_check(torch, pak, args)[0],
+             ms=time_ms(call, torch),
+             plain_ms=time_ms(lambda: pak.paged_attention_torch(*args),
+                              torch),
+             library_ms=time_ms(lambda: paged_library(torch, *args), torch))
+    # operations: q·k and the weighted v sum, 4 flops per element of the
+    # live context, against float32's peak
+    ops = 4 * int(args[4].sum().item()) * args[0].shape[1] \
+        * args[0].shape[2]
+    t["bound_ms"], t["bound_by"] = bound_ms(ops, nbytes)
+    bs, p = args[1].shape[1], args[3].shape[1]
+    before = pak.launches["paged_attention"]
+    call()
+    torch.cuda.synchronize()
+    wrapper = pak.launches["paged_attention"] - before
+    kernels = {kernel_name(k): v for k, v in
+               device_ms(torch, call, reps=10).items()
+               if "paged_attention" in k}
+    log(f"paged_attention at {name} per call: kernel {t['ms']:.4f} ms "
+        f"({nbytes / t['ms'] / 1e6:.1f} GB/s, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound), plain "
+        f"{t['plain_ms']:.4f} ms, gather + scaled_dot_product_attention "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}, {nbytes} bytes); nsplit "
+        f"{pak.paged_attention_nsplit(p, bs)}, PART {pak.PART} (partitions "
+        f"of {pak.part_blocks(bs) * bs} positions); {wrapper} wrapper "
+        f"launch(es) and {len(kernels)} device kernel(s) a call: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in kernels.items()))
+    return t
 
 
 def gen_lane(eng, continuous):
@@ -3125,14 +3257,14 @@ def main():
     paged_totals = phase_paged_kernels(torch, fluid, args.seed, card)
     gen_launches = phase_generation(torch, fluid, args.seed, card)
 
-    def entry(name, source, replaces, n, t):
+    def entry(name, source, replaces, n, t, extra=()):
         return {"name": name, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
                 "replaces": f"paddle_tpu/ops/{replaces}",
                 "launches": n, "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_ms"], **{k: t[k] for k in extra}}
 
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
@@ -3143,7 +3275,7 @@ def main():
               train_launches["conv_bn_bwd"], train_totals["conv_bn_bwd"]),
         entry("momentum_arena", "optimizer_arena.cu",
               "pallas/optimizer.py:111", train_launches["momentum_arena"],
-              train_totals["momentum_arena"]),
+              train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"], rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
@@ -3167,7 +3299,9 @@ def main():
               w2v_launches["embedding_sgd"], sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100", gen_launches,
-              paged_totals["paged_attention"]),
+              paged_totals["paged_attention"],
+              ("llama_ms", "llama_bound_ms", "llama_4096_ms",
+               "llama_4096_bound_ms")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -28,14 +28,14 @@
 // Bound on the H100: bytes. SGD reads p, g and writes p: 12 bytes per
 // parameter element; momentum reads p, g, v and writes p, v: 20 bytes;
 // Adam reads p, g, m1, m2 and writes p, m1, m2: 28 bytes; against
-// 3.35 TB/s. sgd_arena is shaped for it: a grid of CTAS_PER_SM CTAs an SM
-// strides over the chunks, and each thread issues its UNROLL float4 loads
-// of g and of p together before it computes and stores (p and g are
-// __restrict__, so no load waits on an earlier store); a chunk whose p and
-// g are not equally aligned to 16 bytes, and the scalar head and tail of
-// one whose base or end is not, take scalar loads. momentum_arena and
-// adam_arena keep one block a chunk and one scalar element a thread at a
-// time.
+// 3.35 TB/s. sgd_arena and momentum_arena are shaped for it, on one chunk
+// walker (arena_chunk): a grid of CTAS_PER_SM CTAs an SM strides over the
+// chunks, and each thread issues its UNROLL float4 loads of every array (p
+// and g; p, v and g) together before it computes and stores (the pointers
+// are __restrict__, so no load waits on an earlier store); a chunk whose
+// arrays are not equally aligned to 16 bytes, and the scalar head and tail
+// of one whose base or end is not, take scalar loads. adam_arena keeps one
+// block a chunk and one scalar element a thread at a time.
 //
 // Numerics: explicit round-to-nearest multiplies and adds, so no FMA
 // contraction separates the kernel from the per-parameter PyTorch
@@ -98,44 +98,90 @@ __device__ Span find_span(const long long* table, int rows,
   return {row, start, start + CHUNK < numel ? start + CHUNK : numel};
 }
 
-__device__ void sgd_chunk(float* __restrict__ p, const float* __restrict__ g,
-                          long long start, long long end, float lrv) {
+// x[k] = a[k][i] for the N arrays, op(x), and the first NW arrays stored
+// back: one element.
+template <int N, int NW, class Op>
+__device__ __forceinline__ void update_one(float* const (&a)[N], long long i,
+                                           Op op) {
+  float x[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = a[k][i];
+  op(x);
+#pragma unroll
+  for (int k = 0; k < NW; ++k) a[k][i] = x[k];
+}
+
+// op on each of the four lanes of the N float4s r, in place.
+template <int N, class Op>
+__device__ __forceinline__ void update_four(float4 (&r)[N], Op op) {
+  float x[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = r[k].x;
+  op(x);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k].x = x[k];
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = r[k].y;
+  op(x);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k].y = x[k];
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = r[k].z;
+  op(x);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k].z = x[k];
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = r[k].w;
+  op(x);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r[k].w = x[k];
+}
+
+// The elements [start, end) of N arrays (the first NW written back, the
+// rest read only), each element mapped by op: the float4 body [b0, b1)
+// from the first 16-byte boundary, whole float4s, empty when the arrays
+// are not all equally aligned; scalar loads for the head and the tail.
+// Each thread issues all its UNROLL float4 loads of every array before
+// any math or store.
+template <int N, int NW, class Op>
+__device__ __forceinline__ void arena_chunk(float* const (&a)[N],
+                                            long long start, long long end,
+                                            Op op) {
   const int t = threadIdx.x;
-  // the float4 body [b0, b1): from the first 16-byte boundary, whole
-  // float4s; empty when p and g are not equally aligned
   long long b0 = start, b1 = start;
-  const uintptr_t pa = reinterpret_cast<uintptr_t>(p + start);
-  if (((pa ^ reinterpret_cast<uintptr_t>(g + start)) & 15) == 0) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a[0] + start);
+  uintptr_t skew = 0;
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    skew |= pa ^ reinterpret_cast<uintptr_t>(a[k] + start);
+  if ((skew & 15) == 0) {
     const long long head = static_cast<long long>((16 - (pa & 15)) & 15) / 4;
     b0 = start + head < end ? start + head : end;
     b1 = b0 + ((end - b0) & ~3LL);
   }
   for (long long i = start + t; i < b0; i += THREADS)
-    p[i] = __fsub_rn(p[i], __fmul_rn(lrv, g[i]));
+    update_one<N, NW>(a, i, op);
   for (long long i = b1 + t; i < end; i += THREADS)
-    p[i] = __fsub_rn(p[i], __fmul_rn(lrv, g[i]));
+    update_one<N, NW>(a, i, op);
   const int n4 = static_cast<int>((b1 - b0) >> 2);
-  float4* __restrict__ p4 = reinterpret_cast<float4*>(p + b0);
-  const float4* __restrict__ g4 = reinterpret_cast<const float4*>(g + b0);
-  float4 pv[UNROLL], gv[UNROLL];
+  float4 r[UNROLL][N];
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const int i = t + u * THREADS;
     if (i < n4) {
-      gv[u] = g4[i];
-      pv[u] = p4[i];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        r[u][k] = reinterpret_cast<const float4*>(a[k] + b0)[i];
     }
   }
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const int i = t + u * THREADS;
     if (i < n4) {
-      float4 r;
-      r.x = __fsub_rn(pv[u].x, __fmul_rn(lrv, gv[u].x));
-      r.y = __fsub_rn(pv[u].y, __fmul_rn(lrv, gv[u].y));
-      r.z = __fsub_rn(pv[u].z, __fmul_rn(lrv, gv[u].z));
-      r.w = __fsub_rn(pv[u].w, __fmul_rn(lrv, gv[u].w));
-      p4[i] = r;
+      update_four<N>(r[u], op);
+#pragma unroll
+      for (int k = 0; k < NW; ++k)
+        reinterpret_cast<float4*>(a[k] + b0)[i] = r[u][k];
     }
   }
 }
@@ -144,31 +190,41 @@ __global__ void __launch_bounds__(THREADS)
 sgd_arena_kernel(const __grid_constant__ Table<SGD_ROW> table, int rows,
                  int chunks, const float* __restrict__ lr) {
   const float lrv = *lr;
+  // x = {p, g}
+  const auto op = [lrv](float (&x)[2]) {
+    x[0] = __fsub_rn(x[0], __fmul_rn(lrv, x[1]));
+  };
   for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
     const Span s = find_span<SGD_ROW>(table.v, rows, chunk);
-    sgd_chunk(reinterpret_cast<float*>(s.row[0]),
-              reinterpret_cast<const float*>(s.row[1]), s.start, s.end, lrv);
+    float* __restrict__ p = reinterpret_cast<float*>(s.row[0]);
+    float* __restrict__ g = reinterpret_cast<float*>(s.row[1]);
+    float* const a[2] = {p, g};
+    arena_chunk<2, 1>(a, s.start, s.end, op);
   }
 }
 
 __global__ void __launch_bounds__(THREADS)
 momentum_arena_kernel(const __grid_constant__ Table<MOMENTUM_ROW> table,
-                      int rows, const float* __restrict__ lr, float mu,
-                      int nesterov) {
-  const Span s = find_span<MOMENTUM_ROW>(table.v, rows, blockIdx.x);
-  float* p = reinterpret_cast<float*>(s.row[0]);
-  const float* g = reinterpret_cast<const float*>(s.row[1]);
-  float* v = reinterpret_cast<float*>(s.row[2]);
-  const long long start = s.start, end = s.end;
+                      int rows, int chunks, const float* __restrict__ lr,
+                      float mu, int nesterov) {
   const float lrv = *lr;
-  for (long long i = start + threadIdx.x; i < end; i += THREADS) {
-    const float gi = g[i];
-    const float vn = __fadd_rn(__fmul_rn(mu, v[i]), gi);
+  // x = {p, v, g}
+  const auto op = [lrv, mu, nesterov](float (&x)[3]) {
+    const float gi = x[2];
+    const float vn = __fadd_rn(__fmul_rn(mu, x[1]), gi);
     const float step =
         nesterov ? __fmul_rn(__fadd_rn(gi, __fmul_rn(mu, vn)), lrv)
                  : __fmul_rn(lrv, vn);
-    v[i] = vn;
-    p[i] = __fsub_rn(p[i], step);
+    x[1] = vn;
+    x[0] = __fsub_rn(x[0], step);
+  };
+  for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
+    const Span s = find_span<MOMENTUM_ROW>(table.v, rows, chunk);
+    float* __restrict__ p = reinterpret_cast<float*>(s.row[0]);
+    float* __restrict__ g = reinterpret_cast<float*>(s.row[1]);
+    float* __restrict__ v = reinterpret_cast<float*>(s.row[2]);
+    float* const a[3] = {p, v, g};
+    arena_chunk<3, 2>(a, s.start, s.end, op);
   }
 }
 
@@ -256,10 +312,12 @@ int momentum_arena(const long long* table, int rows, int chunks,
                    const float* lr, float mu, int nesterov, void* stream) {
   if (chunks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int max_grid = sm_count() * CTAS_PER_SM;
+  const int grid = chunks < max_grid ? chunks : max_grid;
   return with_table<MOMENTUM_ROW>(
       table, rows, [&](const Table<MOMENTUM_ROW>& t) {
-        momentum_arena_kernel<<<chunks, THREADS, 0, s>>>(t, rows, lr, mu,
-                                                         nesterov);
+        momentum_arena_kernel<<<grid, THREADS, 0, s>>>(t, rows, chunks, lr,
+                                                       mu, nesterov);
       });
 }
 

@@ -18,18 +18,23 @@ updates the parameters and their state IN PLACE, returning the same
 tensors; the reference is functional and concatenates the state into one
 flat arena first, which the kernels do not need. The wrapper packs the
 parameters' pointers into a host table (``pack_table``) that the C entry
-hands to the launch by value: no upload, no allocation. On CPU tensors
-they run the per-parameter expression (``sgd_arena_torch``,
-``momentum_arena_torch``, ``adam_arena_torch``), which returns new
-tensors.
+hands to the launch by value: no upload, no allocation. The params and
+state tensors come back as the same objects every step (the update writes
+them in place, and the executor hands the scope's tensors back), so their
+checked columns are kept (``_tables``, weak references only) while the same
+objects come back at the same addresses and sizes; the grads are checked
+and their column filled on every call. On CPU tensors they run the
+per-parameter expression (``sgd_arena_torch``, ``momentum_arena_torch``,
+``adam_arena_torch``), which returns new tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from array import array
 from itertools import accumulate, chain
-from operator import attrgetter
+from operator import attrgetter, is_
 
 import torch
 
@@ -37,17 +42,22 @@ from . import build as _build
 
 # kernel launches since the last reset; only a launch adds
 launches = {"sgd_arena": 0, "momentum_arena": 0, "adam_arena": 0}
+# host tables packed since the last reset (a call whose params or state
+# are not the kept ones packs anew); only a pack adds
+packs = {"sgd_arena": 0, "momentum_arena": 0, "adam_arena": 0}
 
 # elements per block of the kernels (csrc/optimizer_arena.cu CHUNK)
 _CHUNK = 4096
 _CHUNK_UP = (_CHUNK - 1).__add__
-_T, _DTYPE = torch.Tensor, attrgetter("dtype")
+_T, _DTYPE, _SHAPE = torch.Tensor, attrgetter("dtype"), attrgetter("shape")
 _F32 = frozenset({torch.float32})
+_DEREF = weakref.ref.__call__
 
 
 def reset_launches():
     for k in launches:
         launches[k] = 0
+        packs[k] = 0
 
 
 def _sgd_dense(p, g, lr):
@@ -105,23 +115,95 @@ def adam_arena_torch(ps, gs, m1s, m2s, lr, beta1_pow, beta2_pow, b1, b2,
     return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
 
 
+def _fits(ts, shapes, di):
+    """Every tensor of ``ts`` a contiguous float32 tensor of its shape in
+    ``shapes`` on device index ``di`` (-1: the CPU)."""
+    return _F32.issuperset(map(_DTYPE, ts)) \
+        and {di}.issuperset(map(_T.get_device, ts)) \
+        and all(map(_T.is_contiguous, ts)) \
+        and list(map(_SHAPE, ts)) == shapes
+
+
+def _device_index(dev):
+    return dev.index if dev.type == "cuda" else -1
+
+
 def _gather(name, lists, dev):
     """Check every tensor of ``lists`` (the params, then the grads and each
-    state list), a column at a time: each a contiguous float32 tensor of
-    its param's shape on ``dev``. Returns (pointer columns, numels), lists
-    of ints."""
-    di = dev.index if dev.type == "cuda" else -1
+    state list) in one pass over them all: each a contiguous float32
+    tensor of its param's shape on ``dev``. Returns (pointer columns,
+    numels), lists of ints."""
     ps = lists[0]
-    for ts in lists:
-        if not _F32.issuperset(map(_DTYPE, ts)) \
-                or not {di}.issuperset(map(_T.get_device, ts)) \
-                or not all(map(_T.is_contiguous, ts)) \
-                or ts is not ps and not all(map(_T.is_same_size, ts, ps)):
-            raise ValueError(
-                f"{name}: each param, grad and state tensor must be a "
-                f"contiguous float32 tensor of its param's shape on {dev}")
-    return ([list(map(_T.data_ptr, ts)) for ts in lists],
+    flat = list(chain(*lists))
+    if not _fits(flat, list(map(_SHAPE, ps)) * len(lists),
+                 _device_index(dev)):
+        raise ValueError(
+            f"{name}: each param, grad and state tensor must be a "
+            f"contiguous float32 tensor of its param's shape on {dev}")
+    ptrs = list(map(_T.data_ptr, flat))
+    n = len(ps)
+    return ([ptrs[k * n:(k + 1) * n] for k in range(len(lists))],
             list(map(_T.numel, ps)))
+
+
+class _Packed:
+    """A list's checked launch tables (``pack_table``), kept with weak
+    references to its params and state tensors, their pointers and numels
+    and the params' shapes; each call copies the tables and fills the
+    copies' grads column, so concurrent callers share nothing mutable."""
+
+    __slots__ = ("refs", "ptrs", "numels", "shapes", "tables", "starts")
+
+    def __init__(self, kept, columns, numels, max_rows):
+        self.refs = [list(map(weakref.ref, ts)) for ts in kept]
+        self.ptrs = [columns[0]] + columns[2:]
+        self.numels = numels
+        self.shapes = list(map(_SHAPE, kept[0]))
+        self.tables = pack_table(columns, numels, max_rows)
+        # each table's first row in the list
+        self.starts = list(range(0, len(numels), max_rows))
+
+    def holds(self, kept):
+        """The same objects at the same addresses and sizes: each kept
+        tensor alive and ``is`` the one in ``kept``, with the data pointer
+        and numel it was packed with."""
+        return all(len(ts) == len(refs)
+                   and all(map(is_, ts, map(_DEREF, refs)))
+                   and list(map(_T.data_ptr, ts)) == ptrs
+                   and list(map(_T.numel, ts)) == self.numels
+                   for ts, refs, ptrs in zip(kept, self.refs, self.ptrs))
+
+
+# the last list each arena packed: {name: _Packed}
+_PACKED = {}
+
+
+def _tables(name, ps, gs, state, dev, max_rows):
+    """The launch tables of (params ``ps``, grads ``gs``, state lists
+    ``state``) on ``dev``: [(table, rows, chunks)] as ``pack_table`` gives
+    them, for ``max_rows(width)`` rows of ``width`` int64 a launch. The
+    params' and state columns are checked and packed once and kept while
+    the same objects come back at the same addresses and sizes; the grads
+    are checked against the kept shapes and their column filled on every
+    call. Anything else (another list, a replaced or resized tensor, a
+    grad that does not fit) takes the full check (``_gather``), which
+    raises ValueError on what the kernel cannot take, and packs anew."""
+    kept = [ps, *state]
+    e = _PACKED.get(name)
+    if e is not None and e.holds(kept) \
+            and _fits(gs, e.shapes, _device_index(dev)):
+        gp = array("q", list(map(_T.data_ptr, gs)))
+        tables = []
+        for (kept_table, n, c), r0 in zip(e.tables, e.starts):
+            table = kept_table[:]
+            table[n:2 * n] = gp[r0:r0 + n]
+            tables.append((table, n, c))
+        return tables
+    columns, numels = _gather(name, [ps, gs, *state], dev)
+    e = _PACKED[name] = _Packed(kept, columns, numels,
+                                max_rows(len(columns) + 2))
+    packs[name] += 1
+    return e.tables
 
 
 def pack_table(columns, numels, max_rows):
@@ -154,10 +236,10 @@ def _run(name, entry, ps, state, scalars, *args):
         if s.dtype != torch.float32 or s.numel() != 1 or s.device != dev:
             raise ValueError(f"{name}: the learning rate (and beta powers) "
                              f"must be one-element float32 tensors on {dev}")
-    columns, numels = _gather(name, [ps] + state, dev)
+    tables = _tables(name, ps, state[0], state[1:], dev, _max_rows)
     lib = _lib()
     args = [s.data_ptr() for s in scalars] + list(args)
-    for table, n, c in pack_table(columns, numels, _max_rows(len(state) + 3)):
+    for table, n, c in tables:
         if c == 0:
             continue
         err = _build.call_on(dev, getattr(lib, entry),

@@ -7,12 +7,18 @@ kernel ``_paged_attn_kernel`` :53, predicate :43, twin
 attention for every slot, qh [S, H, D] against the arenas kc/vc
 [num_blocks, block_size, H, D] through block tables bt [S, P] and context
 lengths ctx_lens [S]; returns [S, H, D], zeros where ctx_lens is 0. On CUDA
-tensors it launches ``csrc/paged_attention.cu`` once: one CTA per (slot,
-head) walks the slot's live positions through its table with an online
-softmax, never gathering the context. On CPU tensors it runs the plain
-version, ``paged_attention_torch``: the reference twin's gather of the
-[S, P * block_size, H, D] context, a softmax masked at -1e9 past each
-slot's length, and inactive rows zeroed.
+tensors it calls ``csrc/paged_attention.cu`` once: each slot's table is cut
+into ``paged_attention_nsplit(P, block_size)`` partitions of
+``part_blocks(block_size)`` blocks (about ``PART`` positions), one CTA per
+(slot, head, partition) walks its live positions with an online softmax,
+never gathering the context; with more than one partition a second small
+kernel merges the partitions' states in partition order (flash-decoding),
+through a float32 workspace this wrapper allocates. On CPU tensors it runs
+the plain version, ``paged_attention_torch``: the reference twin's gather
+of the [S, P * block_size, H, D] context, a softmax masked at -1e9 past
+each slot's length, and inactive rows zeroed.
+``paged_attention_split_torch`` models the kernel's decomposition (the
+partitions' states, then the merge) on the CPU for the tests.
 """
 
 from __future__ import annotations
@@ -32,6 +38,12 @@ launches = {"paged_attention": 0}
 _BUDGET_BYTES = 4 * 1024 * 1024
 # the kernel keeps ceil(D / 32) <= 8 elements per lane
 MAX_HEAD_DIM = 256
+# positions a partition holds, rounded down to whole KV blocks (at least
+# one): of 128, 256 and 512, 256 took the least time at the Llama-2-7B
+# decode shape with random contexts on the H100 (decode_arena.py --parts
+# part; PERF.md); the serving lane's tables (16 blocks of 8) fit one
+# partition, so it takes the single-pass path
+PART = 256
 
 
 def reset_launches():
@@ -49,6 +61,19 @@ def paged_attention_supported(qh, kc, bt):
     per_step = 4 * (2 * bs * h * d + 2 * h * d + h * d)
     return bt.shape[1] >= 1 and per_step <= _BUDGET_BYTES \
         and d <= MAX_HEAD_DIM
+
+
+def part_blocks(bs):
+    """KV blocks a partition holds: ``PART`` positions rounded down to
+    whole blocks, at least one."""
+    return max(1, PART // bs)
+
+
+def paged_attention_nsplit(p, bs):
+    """Partitions a slot's table of ``p`` blocks of ``bs`` positions is cut
+    into, from the static shapes alone (no sync on the lengths):
+    ceil(p / part_blocks(bs)). 1 takes the single-pass path."""
+    return -(-p // part_blocks(bs))
 
 
 def paged_attention_torch(qh, kc, vc, bt, ctx_lens):
@@ -70,6 +95,47 @@ def paged_attention_torch(qh, kc, vc, bt, ctx_lens):
     scores = torch.where(live[:, None, :], scores, -1e9)
     pw = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhc,bchd->bhd", pw, vctx)
+    return torch.where((cl > 0)[:, None, None], out, 0.0)
+
+
+def paged_attention_split_torch(qh, kc, vc, bt, ctx_lens, part):
+    """Plain model of the kernel's decomposition, for the tests: the
+    context cut into partitions of ``part`` positions; per partition its
+    running max m, normalizer l and unnormalized weighted sum acc (m = -inf,
+    l = 0 where the partition holds no live position); then the merge in
+    partition order, ``sum_i exp(m_i - M) acc_i / sum_i exp(m_i - M) l_i``
+    with M the largest m_i; zeros for rows with ctx_len == 0."""
+    nb, bs = kc.shape[0], kc.shape[1]
+    s, p = bt.shape
+    c = p * bs
+    nsplit = -(-c // part)
+    pos = torch.arange(bs, dtype=torch.int64, device=bt.device)
+    idx = (bt.long()[:, :, None] * bs + pos[None, None, :]).reshape(s, -1)
+    kctx = kc.reshape((nb * bs,) + kc.shape[2:])[idx]       # [s, C, H, D]
+    vctx = vc.reshape((nb * bs,) + vc.shape[2:])[idx]
+    d = qh.shape[-1]
+    scores = torch.einsum("bhd,bchd->bhc", qh, kctx) * (d ** -0.5)
+    cl = ctx_lens.long().clamp(max=c)
+    live = torch.arange(c, device=bt.device)[None, :] < cl[:, None]
+    scores = torch.where(live[:, None, :], scores, -torch.inf)
+    ms, ls, accs = [], [], []
+    for i in range(nsplit):
+        sc = scores[:, :, i * part:(i + 1) * part]            # [s, H, n]
+        m = sc.amax(-1)
+        w = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(w.sum(-1))
+        accs.append(torch.einsum("bhn,bnhd->bhd", w,
+                                 vctx[:, i * part:(i + 1) * part]))
+    big = torch.stack(ms).amax(0)
+    big = torch.where(torch.isinf(big), 0.0, big)
+    num = torch.zeros_like(qh)
+    den = torch.zeros_like(big)
+    for m, l, acc in zip(ms, ls, accs):
+        f = torch.exp(m - big)
+        num = num + f[..., None] * acc
+        den = den + f * l
+    out = num / torch.where(den > 0, den, 1.0)[..., None]
     return torch.where((cl > 0)[:, None, None], out, 0.0)
 
 
@@ -95,12 +161,17 @@ def paged_attention_cuda(qh, kc, vc, bt, ctx_lens):
     out = torch.empty_like(qh)
     if s == 0:
         return out
+    bs, p = kc.shape[1], bt.shape[1]
+    nsplit = paged_attention_nsplit(p, bs)
+    # the partitions' (m, l) pairs and accumulators; none for one partition
+    ws = torch.empty(s * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=dev) if nsplit > 1 else None
     lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.paged_attention(
-            qh.data_ptr(), kc.data_ptr(), vc.data_ptr(), bt.data_ptr(),
-            ctx_lens.data_ptr(), out.data_ptr(), s, h, d, kc.shape[1],
-            bt.shape[1], d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    err = _build.call_on(
+        dev, lib.paged_attention, qh.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), bt.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, s, h, d, bs, p,
+        part_blocks(bs), d ** -0.5)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error "
                            f"{err} ({lib.kernel_error_string(err).decode()})")
@@ -112,8 +183,8 @@ def _lib():
     lib = _build.load("paged_attention")
     if lib.paged_attention.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                        ctypes.c_float, p]
+        lib.paged_attention.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, ctypes.c_float, p]
         lib.paged_attention.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p

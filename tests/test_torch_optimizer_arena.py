@@ -337,3 +337,168 @@ def test_arena_list_past_one_table_takes_more_launches_on_card():
     assert opk.launches["momentum_arena"] == before + 2
     for g, w in zip(got_p + got_v, want_p + want_v):
         assert torch.equal(g, w)
+
+
+def ROWS(width):
+    """A launch's rows for the kept-table tests: all of a short list."""
+    return 100
+
+
+def _cpu_lists(seed=5, shapes=((7,), (3, 5), (4, 4))):
+    rng = np.random.RandomState(seed)
+    return [[torch.from_numpy(rng.normal(0, 1, s).astype("float32"))
+             for s in shapes] for _ in range(3)]
+
+
+def _columns(table, n):
+    return [list(table[k * n:(k + 1) * n]) for k in range(len(table) // n)]
+
+
+@pytest.fixture
+def packed():
+    opk._PACKED.clear()
+    opk.reset_launches()
+    yield
+    opk._PACKED.clear()
+    opk.reset_launches()
+
+
+def test_kept_tables_refill_only_the_grads(packed):
+    """The same params and velocities come back: packed once; each call's
+    grads fill their column, the rest of the table as packed."""
+    ps, gs, vs = _cpu_lists()
+    cpu = torch.device("cpu")
+    [(t1, n, c)] = opk._tables("momentum_arena", ps, gs, [vs], cpu, ROWS)
+    want = _columns(t1, n)
+    gs2 = [g.clone() for g in gs]
+    [(t2, _, c2)] = opk._tables("momentum_arena", list(ps), gs2, [list(vs)],
+                                cpu, ROWS)
+    assert opk.packs["momentum_arena"] == 1 and c2 == c
+    got = _columns(t2, n)
+    assert got[1] == [g.data_ptr() for g in gs2]
+    assert got[:1] + got[2:] == want[:1] + want[2:]
+    cols, numels = opk._gather("momentum_arena", [ps, gs2, vs], cpu)
+    assert got == cols + [numels, want[-1]]
+
+
+@pytest.mark.parametrize("swap", ["view", "strided", "float16", "moved",
+                                  "grad_view", "grad_strided", "shorter"])
+def test_kept_tables_never_serve_a_replaced_tensor(packed, swap):
+    """A kept list whose tensor is swapped for a view of another shape, a
+    strided or float16 tensor, or moved to new storage in place, and grads
+    of another shape or layout, repack or raise the wrapper's ValueError:
+    never the stale table."""
+    ps, gs, vs = _cpu_lists()
+    cpu = torch.device("cpu")
+    opk._tables("momentum_arena", ps, gs, [vs], cpu, ROWS)
+    ps, gs, vs = list(ps), list(gs), list(vs)
+    raises = True
+    if swap == "view":
+        # the same storage as another shape; with grads of that shape the
+        # list repacks
+        ps[1] = ps[1].view(5, 3)
+        vs[1] = vs[1].view(5, 3)
+        gs[1] = gs[1].view(5, 3)
+        raises = False
+    elif swap == "strided":
+        ps[2] = ps[2].t()
+        gs[2] = gs[2].t().contiguous()
+        vs[2] = vs[2].t().contiguous()
+    elif swap == "float16":
+        vs[0] = vs[0].half()
+    elif swap == "moved":
+        ps[0].set_(torch.zeros(7))
+        raises = False
+    elif swap == "grad_view":
+        gs[1] = gs[1].view(5, 3)
+    elif swap == "grad_strided":
+        gs[2] = gs[2].t()
+    elif swap == "shorter":
+        ps, gs, vs = ps[:2], gs[:2], vs[:2]
+        raises = False
+    if raises:
+        with pytest.raises(ValueError, match="contiguous float32"):
+            opk._tables("momentum_arena", ps, gs, [vs], cpu, ROWS)
+        return
+    [(table, n, c)] = opk._tables("momentum_arena", ps, gs, [vs], cpu, ROWS)
+    assert opk.packs["momentum_arena"] == 2
+    cols, numels = opk._gather("momentum_arena", [ps, gs, vs], cpu)
+    assert _columns(table, n)[:-1] == cols + [numels]
+
+
+@pytest.mark.parametrize("bad", ["float16", "shape", "device", "strided"])
+def test_kept_tables_reject_in_the_same_pass(packed, bad):
+    """After a list is kept, every bad grad or state still raises the
+    wrapper's ValueError (the cases of test_gather_rejects_in_the_same_pass,
+    through the kept tables)."""
+    ps, gs, vs = _cpu_lists()
+    cpu = torch.device("cpu")
+    opk._tables("sgd_arena", ps, gs, [], cpu, ROWS)
+    opk._tables("sgd_arena", ps, gs, [], cpu, ROWS)
+    assert opk.packs["sgd_arena"] == 1
+    if bad == "device":
+        cpu = torch.device("cuda", 0)
+    else:
+        gs = list(gs)
+        gs[1] = {"float16": torch.ones(3, 5, dtype=torch.float16),
+                 "shape": torch.ones(5, 3),
+                 "strided": torch.ones(5, 3).t()}[bad]
+    with pytest.raises(ValueError, match="contiguous float32"):
+        opk._tables("sgd_arena", ps, gs, [], cpu, ROWS)
+
+
+def test_kept_tables_hold_no_reference(packed):
+    """A freed parameter list leaves nothing alive behind: the kept table
+    holds weak references, and a new list of the same length repacks."""
+    import gc
+    import weakref
+    ps, gs, vs = _cpu_lists()
+    cpu = torch.device("cpu")
+    opk._tables("momentum_arena", ps, gs, [vs], cpu, ROWS)
+    refs = [weakref.ref(t) for t in ps + vs]
+    del ps, vs
+    gc.collect()
+    assert all(r() is None for r in refs)
+    ps2, _, vs2 = _cpu_lists(6)
+    opk._tables("momentum_arena", ps2, gs, [vs2], cpu, ROWS)
+    assert opk.packs["momentum_arena"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_momentum_arena_odd_sizes_and_unaligned_views_on_card(nesterov):
+    """momentum_arena bitwise its plain version at sizes that are no
+    multiple of 4 and on views whose base is not 16-byte aligned: p, g
+    and v offset alike (a scalar head, then float4s) and g offset alone
+    (scalar throughout); one launch each."""
+    _need_card()
+    shapes = [(1,), (3,), (5, 7), (4097,), (8191,), (3, 3, 3, 3), (4096,),
+              (12289,)]
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 3, device=a.device)
+        v = buf[1:1 + a.numel()].view(a.shape)
+        v.copy_(a)
+        assert v.data_ptr() % 16 == 4
+        return v
+
+    lr = torch.tensor(LR, device="cuda")
+    for seed, (fp, fg, fv) in enumerate([(None, None, None),
+                                         (shifted, shifted, shifted),
+                                         (None, shifted, None)]):
+        rng = np.random.RandomState(30 + seed)
+        ps, gs, vs = ([torch.from_numpy(rng.normal(0, 1, s)
+                                        .astype("float32")).cuda()
+                       for s in shapes] for _ in range(3))
+        keep = lambda f, t: f(t) if f else t  # noqa: E731
+        gs = [keep(fg, g) for g in gs]
+        want_p, want_v = opk.momentum_arena_torch(ps, gs, vs, lr, MU,
+                                                  nesterov)
+        before = opk.launches["momentum_arena"]
+        got_p, got_v = opk.momentum_arena(
+            [keep(fp, p.clone()) for p in ps], gs,
+            [keep(fv, v.clone()) for v in vs], lr, MU, nesterov)
+        torch.cuda.synchronize()
+        assert opk.launches["momentum_arena"] == before + 1
+        for g, w in zip(got_p + got_v, want_p + want_v):
+            assert torch.equal(g, w)

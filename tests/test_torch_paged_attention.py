@@ -272,3 +272,133 @@ def test_kernel_matches_plain_version_on_card(shape):
     assert pak.launches["paged_attention"] == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
     assert torch.all(got[cl == 0] == 0)
+
+
+# the split model's cases: (s, h, d, nb, bs, p, part) with P·bs spanning 1,
+# 2 and 5 partitions of ``part`` positions, and lengths 1, on a partition
+# boundary, P·bs, idle, and short enough that later partitions lie wholly
+# past them
+SPLIT_SHAPES = [(6, 2, 8, 12, 4, 2, 8), (6, 2, 8, 16, 4, 4, 8),
+                (6, 3, 12, 40, 4, 10, 8), (6, 1, 5, 24, 2, 10, 4)]
+
+
+def _split_case(seed, s, h, d, nb, bs, p, part):
+    arrs = list(_shape_case(seed, s, h, d, nb, bs, p))
+    c = p * bs
+    arrs[4] = np.minimum(np.array([1, part, 2 * part, c, 0, 3]), c) \
+        .astype(np.int32)[:s]
+    return arrs
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("fn", ["split", "paged_attention_cuda"])
+def test_split_model_and_wrapper_match_reference_twins(shape, fn):
+    """The kernel's decomposition (per-partition max, normalizer and
+    weighted sum, merged in partition order) and the wrapper's CPU route
+    against ``paged_attention_jnp`` and the interpret-mode Pallas kernel at
+    the reference's tolerance; idle rows exact zeros."""
+    arrs = _split_case(3, *shape)
+    part = shape[-1]
+    targs = [torch.from_numpy(a) for a in arrs]
+    if fn == "split":
+        got = pak.paged_attention_split_torch(*targs, part).numpy()
+    else:
+        got = pak.paged_attention_cuda(*targs).numpy()
+    jargs = [jnp.asarray(a) for a in arrs]
+    for ref in (paged_attention_jnp, paged_attention_pallas):
+        np.testing.assert_allclose(got, np.asarray(ref(*jargs)), **TOL,
+                                   err_msg=f"{fn} vs {ref.__name__}")
+    assert np.all(got[arrs[4] == 0] == 0.0)
+
+
+@pytest.mark.parametrize("part", [1, 3, 8, 1000])
+def test_split_model_matches_plain_version_at_any_partition(part):
+    """Any partition size gives the plain version's result to float32
+    roundings, a partition of one position and one past the table too."""
+    arrs = _split_case(4, 6, 2, 8, 16, 4, 4, 8)
+    targs = [torch.from_numpy(a) for a in arrs]
+    np.testing.assert_allclose(
+        pak.paged_attention_split_torch(*targs, part).numpy(),
+        pak.paged_attention_torch(*targs).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("p, bs, want", [
+    (16, 8, 1),        # the serving lane's tables: the single-pass path
+    (256, 16, 16),     # Llama-2-7B's 4096 positions in blocks of 16
+    (1, 1, 1), (257, 1, 2), (3, 1024, 3), (33, 8, 2)])
+def test_nsplit_is_a_function_of_the_static_shapes(p, bs, want):
+    """The wrapper's partition count from (P, block_size) alone, no
+    lengths: ceil(P / part_blocks) with part_blocks = PART // bs whole
+    blocks (at least one)."""
+    assert pak.PART == 256
+    assert pak.paged_attention_nsplit(p, bs) == want
+    assert pak.part_blocks(bs) == max(1, 256 // bs)
+
+
+def _card_case(seed, s, h, d, bs, p, lens, spare=8):
+    """Tensors on the card: a fragmented arena of the slots' blocks plus
+    ``spare``, tables padded with block 0, lengths ``lens``."""
+    rng = np.random.RandomState(seed)
+    lens = np.asarray(lens, np.int64)
+    nblk = -(-lens // bs)
+    nb = int(nblk.sum()) + spare
+    perm = rng.permutation(nb)
+    bt = np.zeros((s, p), np.int32)
+    o = 0
+    for i in range(s):
+        bt[i, :nblk[i]] = perm[o:o + nblk[i]]
+        o += nblk[i]
+    arrs = [rng.normal(0, 1, (s, h, d)), rng.normal(0, 1, (nb, bs, h, d)),
+            rng.normal(0, 1, (nb, bs, h, d))]
+    return [torch.from_numpy(a.astype(np.float32)).cuda() for a in arrs] \
+        + [torch.from_numpy(bt).cuda(),
+           torch.from_numpy(lens.astype(np.int32)).cuda()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 33, 40])
+def test_split_path_matches_plain_version_on_card(d):
+    """The split path (4096 positions in blocks of 16: nsplit 16) at D 128
+    and odd head dims (scalar and float4 loads), contexts up to 4096 with
+    lengths on and off partition boundaries and an idle slot, against the
+    plain version at the reference tolerance; one wrapper launch a call."""
+    _need_card()
+    bs, p = 16, 256
+    assert pak.paged_attention_nsplit(p, bs) > 1
+    part = pak.part_blocks(bs) * bs
+    lens = [4096, 1, part, part + 1, 3 * part - 1, 0, 2500, 4095]
+    args = _card_case(21, len(lens), 4, d, bs, p, lens)
+    want = pak.paged_attention_torch(*args)
+    before = pak.launches["paged_attention"]
+    got = pak.paged_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert pak.launches["paged_attention"] == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    assert torch.all(got[args[4] == 0] == 0)
+
+
+@pytest.mark.cuda
+def test_slot_output_independent_of_the_batch_on_card():
+    """Slot 0's output is the same bits when the other slots' queries,
+    lengths and tables change, when the batch grows, and on a repeat call:
+    no sum depends on another slot or on the order CTAs finish."""
+    _need_card()
+    bs, p = 16, 256
+    lens = [3001, 17, 4096, 0, 600]
+    a = _card_case(22, len(lens), 4, 128, bs, p, lens)
+    first = pak.paged_attention_cuda(*a)
+    again = pak.paged_attention_cuda(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    b = [t.clone() for t in a]
+    b[0][1:] = torch.randn_like(b[0][1:])
+    b[4][1:] = torch.tensor([4096, 1, 2048, 5], dtype=torch.int32,
+                            device="cuda")
+    b[3][1:] = torch.flip(b[3][1:], dims=(0,))
+    other = pak.paged_attention_cuda(*b)
+    grown = pak.paged_attention_cuda(
+        torch.cat([a[0], a[0]]), a[1], a[2], torch.cat([a[3], a[3]]),
+        torch.cat([a[4], a[4].flip(0)]))
+    torch.cuda.synchronize()
+    assert torch.equal(other[0], first[0])
+    assert torch.equal(grown[0], first[0])
