@@ -72,10 +72,14 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               the same program with the LSTM wrappers' plain versions; a
               planted dW fault must be caught; the loss must fall.
 7. gru, ctc — gru_seq and gru_seq_bwd at the lane's shape (ragged), also
-              measured against the same recipe in float64; ctc_alpha and
-              ctc_loss_bwd at the CTC model's shape; times, bounds, the
-              GRU's serial floor and F.ctc_loss as a yardstick;
-              gru_seq_bwd also at 200 frames, with its stages' shares.
+              measured against the same recipe in float64; ctc_alpha (from
+              logp and the labels) and ctc_loss_bwd at the CTC model's
+              shape, a planted fault in the forward (its skip mask
+              ignored) that must be caught; times, bounds, the serial
+              floors, both CTC kernels' stage shares, the first forward's
+              torch glue (ctc_inputs) alone, and F.ctc_loss as a
+              yardstick; gru_seq_bwd also at 200 frames, with its stages'
+              shares.
 8. gru cls  — bench.py:320's GRU text classifier as phase 6 runs the LSTM
               one: 2 + 2 + 1 launches and 0 plain-routed GRUs per step.
 9. ctc      — tests/book/test_ocr_ctc.py's CTC acoustic model at
@@ -149,6 +153,7 @@ numbers, the card's name and power limit, and
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -289,7 +294,7 @@ GRU_FWD_LIMIT, GRU_FWD_L2_LIMIT, GRU_F64_RATIO = 1e-2, 2e-3, 2.0
 # four bf16 roundings a step where the LSTM has two (both dh products and
 # both parts of dW_t), so twice its ‖Δ‖₂ allowance
 GRU_BWD_LIMIT, GRU_BWD_L2_LIMIT = 1e-2, 4e-3
-# ctc_alpha vs ctc_alpha_torch: the same operations in the same order
+# ctc_alpha vs ctc_loss_fwd_torch: the same operations in the same order
 # (logaddexp as max + log1p(exp(-|d|)), each rounded), so equal to float32
 # roundings of exp and log1p at most. ctc_loss_bwd vs ctc_loss_bwd_torch:
 # the kernel adds each state's three cotangents and scatters the emission
@@ -297,6 +302,16 @@ GRU_BWD_LIMIT, GRU_BWD_L2_LIMIT = 1e-2, 4e-3
 # the difference travels back through up to 200 steps of logaddexp
 # weights: float32 roundings only, 1e-4 of the largest element
 CTC_FWD_LIMIT, CTC_BWD_LIMIT = 1e-5, 1e-4
+# phase 7's planted fault: csrc/ctc.cu's forward with its skip mask
+# ignored, an (anchor, replacement) pair on a copy of the source; phase 1
+# builds it beside the real kernels and keeps (source, library) here
+CTC_PLANT = (
+    "  chain_registers<K>(av, valid, skip, a0, sv, cs, CHAIN, sp);\n"
+    "  __syncthreads();\n  stamp(stamps, 1);\n",
+    "  chain_registers<K>(av, valid, skip, a0, sv, cs, CHAIN, sp);\n"
+    "  for (int k = 0; k < K; ++k) skip[k] = false;\n"
+    "  __syncthreads();\n  stamp(stamps, 1);\n")
+PLANTED_CTC = []
 # phases 8-9, the kernel route's step 1 against the same program with the
 # GRU (and CTC) wrappers swapped for their plain versions. Both GRU
 # kernels differ from their plain versions by bf16 rounding moves (above),
@@ -787,8 +802,8 @@ CONV_BN_LAUNCHES = {
 
 def profile(torch, fn, title, card, reps=3, groups=None):
     """Where the time of ``fn`` goes: device time by kernel from
-    torch.profiler over ``reps`` calls, and the device's busy share of the
-    host wall time."""
+    torch.profiler over ``reps`` calls, the device's busy share of the
+    host wall time, and the device kernels (launches and copies) a call."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -815,7 +830,8 @@ def profile(torch, fn, title, card, reps=3, groups=None):
     log(f"\n== profile: {title}, {reps} calls | {card} ==")
     log(f"wall {wall_ms:.2f} ms per call, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%), idle "
-        f"{100 * (1 - busy / wall_ms):.1f}%")
+        f"{100 * (1 - busy / wall_ms):.1f}%, "
+        f"{sum(r[1] for r in rows)} device kernels and copies per call")
     for ms, count, name in rows[:14]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}")
     for label, names in (groups or {}).items():
@@ -1441,10 +1457,10 @@ def bwd_ops_ms(gemm):
             (gemm / bf16 + 2 * gemm / PEAK_FLOPS["float32"]) * 1e3)
 
 
-def bwd_stages(torch, module, name, fn, ms,
-               stages=("prologue", "chain", "epilogue")):
-    """Launch the backward ``fn`` once and print its three stages' shares
-    of block 0's clock (the kernel's stage clocks, in ``module``) and their
+def kernel_stages(torch, module, name, fn, ms,
+                  stages=("prologue", "chain", "epilogue")):
+    """Launch ``fn`` once and print its kernel's three stages' shares of
+    block 0's clock (the kernel's stage clocks, in ``module``) and their
     ms at ``ms`` a launch."""
     fn()
     torch.cuda.synchronize()
@@ -1671,7 +1687,7 @@ def phase_rnn_kernels(torch, fluid, seed, card):
                else "")
             + f"), serial floor {serial:.4f} ms ({L} grid barriers over "
             f"{H // 4} blocks)")
-    bwd_stages(torch, rnn, "lstm_seq_bwd", bwd, out["lstm_seq_bwd"]["ms"])
+    kernel_stages(torch, rnn, "lstm_seq_bwd", bwd, out["lstm_seq_bwd"]["ms"])
     x2, a2, _, _, _, dh2, dc2 = lstm_operands(
         torch, gen, dev, torch.full((b,), CTC_FRAMES[1], device=dev),
         CTC_FRAMES[1])
@@ -1684,7 +1700,7 @@ def phase_rnn_kernels(torch, fluid, seed, card):
     ms = time_ms(long, torch)
     log(f"at the CTC model's {CTC_FRAMES[1]} frames (b {b}, H {H}): "
         f"lstm_seq {ms_f:.4f} ms, lstm_seq_bwd {ms:.4f} ms a launch")
-    bwd_stages(torch, rnn, "lstm_seq_bwd", long, ms)
+    kernel_stages(torch, rnn, "lstm_seq_bwd", long, ms)
 
     adam_ps = [torch.nn.Parameter(p.clone()) for p in ps]
     for p, g in zip(adam_ps, gs):
@@ -2049,24 +2065,38 @@ def phase_seq_kernels(torch, fluid, seed, card):
     logits = torch.randn((CTC_BATCH, T, C), generator=gen, device=dev)
     dloss = torch.randn((CTC_BATCH,), generator=gen, device=dev)
     logp = torch.log_softmax(logits, -1)
-    inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
-    sp = inputs[0].shape[-1]
+    sp = ctc.label_positions(labels.shape[1])
     log(f"\n== phase 7: ctc_alpha / ctc_loss_bwd vs their plain versions, "
         f"b {CTC_BATCH}, T {T}, C {C}, Sp {sp}, frames "
         f"{int(xl.min())}..{T}, labels {int(yl.min())}..{int(yl.max())} ==")
-    loss = ctc.ctc_alpha(*inputs, xl, yl)
+    loss = ctc.ctc_alpha(logp, xl, labels, yl, 0)
     torch.cuda.synchronize()
-    want = ctc.ctc_alpha_torch(*inputs, xl, yl)
+    want = ctc.ctc_loss_fwd_torch(logp, xl, labels, yl, 0)
     inf, l2, d = rel_errs(loss, want)
     lib = F.ctc_loss(logp.transpose(0, 1), labels, xl, yl, blank=0,
                      reduction="none")
     lib_rel = ((lib - want[:, 0]).abs() / want[:, 0].abs()).max().item()
     log(f"  ctc_alpha loss: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
-        f"{CTC_FWD_LIMIT:.0e}); F.ctc_loss against the plain version: max "
-        f"rel diff {lib_rel:.3e} (printed only: another summation)")
+        f"{CTC_FWD_LIMIT:.0e}; bitwise {torch.equal(loss, want)}); "
+        f"F.ctc_loss against the plain version: max rel diff {lib_rel:.3e} "
+        f"(printed only: another summation)")
     if not inf <= CTC_FWD_LIMIT:
-        fail(f"ctc_alpha differs from ctc_alpha_torch: {inf:.3e}")
+        fail(f"ctc_alpha differs from ctc_loss_fwd_torch: {inf:.3e}")
     out["ctc_alpha"] = {"max_abs_err": d}
+    # the check's own test: the forward built with its skip mask ignored
+    # (phase 1 built it from a copy of csrc/ctc.cu) must break the limit
+    good = ctc._lib
+    bad_lib = ctc._bind(ctypes.CDLL(str(PLANTED_CTC[1])))
+    ctc._lib = lambda: bad_lib
+    try:
+        bad = rel_errs(ctc.ctc_alpha(logp, xl, labels, yl, 0), want)[0]
+    finally:
+        ctc._lib = good
+    log(f"  planted fault: the forward's skip mask ignored: ‖Δ‖∞/‖ref‖∞ "
+        f"{bad:.3e}, limit {CTC_FWD_LIMIT:.0e}")
+    if not bad > CTC_FWD_LIMIT:
+        fail(f"the ctc_alpha check does not see the skip mask ignored "
+             f"({bad:.3e})")
     got = ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss)
     torch.cuda.synchronize()
     want = ctc.ctc_loss_bwd_torch(logp, xl, labels, yl, 0, dloss)
@@ -2120,7 +2150,7 @@ def phase_seq_kernels(torch, fluid, seed, card):
                else "")
             + f"), serial floor {serial:.4f} ms ({2 * L} grid barriers "
             f"over {H // 4} blocks)")
-    bwd_stages(torch, rnn, "gru_seq_bwd", bwd, out["gru_seq_bwd"]["ms"])
+    kernel_stages(torch, rnn, "gru_seq_bwd", bwd, out["gru_seq_bwd"]["ms"])
     x2, a2, _, _, dh2 = gru_operands(
         torch, gen, dev, torch.full((b,), CTC_FRAMES[1], device=dev),
         CTC_FRAMES[1])
@@ -2133,31 +2163,42 @@ def phase_seq_kernels(torch, fluid, seed, card):
     ms = time_ms(long, torch)
     log(f"at the CTC model's {CTC_FRAMES[1]} frames (b {b}, H {H}): "
         f"gru_seq {ms_f:.4f} ms, gru_seq_bwd {ms:.4f} ms a launch")
-    bwd_stages(torch, rnn, "gru_seq_bwd", long, ms)
+    kernel_stages(torch, rnn, "gru_seq_bwd", long, ms)
 
     # CTC work that this batch's lengths need, not the padded T: ~16
-    # operations per label position and step of the recurrence (two
-    # logaddexp and the emission's add). The forward reads e at the steps
-    # t = 1..x_len-1 of each row (alpha0 stands for t = 0), alpha0 and the
-    # two masks, final0 and the lengths, and writes the loss
+    # operations per valid label position (2 U' + 1 in a row) and step of
+    # the recurrence (two logaddexp and the emission's add). The forward
+    # reads logp at the classes of a row's labels and the blank over its
+    # frames, the labels (int64) and the lengths, and writes the loss
     steps = int((xl - 1).clamp_min(0).sum())
     frames = int(xl.sum())
-    t_ops = 16 * steps * sp / PEAK_FLOPS["float32"] * 1e3
-    t_bytes = 4 * (steps * sp + CTC_BATCH * (3 * sp + 4)) / PEAK_BYTES * 1e3
+    classes = sum(len({0, *row[:n].tolist()}) * int(f) for row, n, f in
+                  zip(labels.cpu(), yl.cpu().tolist(), xl.cpu()))
+    t_ops = 16 * int(((xl - 1).clamp_min(0) * (2 * yl + 1)).sum()) \
+        / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = (4 * classes + 8 * int(yl.sum()) + 12 * CTC_BATCH) \
+        / PEAK_BYTES * 1e3
     lg_leaf = logits.detach().requires_grad_(True)
     with torch.enable_grad():
         lib_loss = F.ctc_loss(torch.log_softmax(lg_leaf, -1).transpose(0, 1),
                               labels, xl, yl, blank=0, reduction="none")
     lib_ct = dloss.clone()
+
+    def fwd():
+        return ctc.ctc_alpha(logp, xl, labels, yl, 0)
+
     out["ctc_alpha"].update(
-        ms=time_ms(lambda: ctc.ctc_alpha(*inputs, xl, yl), torch),
-        plain_ms=time_ms(lambda: ctc.ctc_alpha_torch(*inputs, xl, yl),
-                         torch),
+        ms=time_ms(fwd, torch),
+        plain_ms=time_ms(lambda: ctc.ctc_loss_fwd_torch(logp, xl, labels, yl,
+                                                        0), torch),
         library_ms=time_ms(lambda: F.ctc_loss(
             logp.transpose(0, 1), labels, xl, yl, blank=0,
             reduction="none"), torch),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # the first forward's torch glue (the Pallas kernel's inputs), which
+    # ran before its kernel on every call up to PR 13
+    glue_ms = time_ms(lambda: ctc.ctc_inputs(logp, labels, yl, xl, 0), torch)
     # the backward: the recurrence again, ~30 operations per position and
     # step of the scan's adjoint, and per frame one add per label position
     # (the emissions' cotangents onto their classes) and ~3 per class (the
@@ -2177,22 +2218,30 @@ def phase_seq_kernels(torch, fluid, seed, card):
             lib_loss, lg_leaf, lib_ct, retain_graph=True), torch),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
-    # the backward's serial floor: one warp running its 2 T dependent
-    # steps alone (the launch's own cost included)
-    serial = time_ms(lambda: ctc.chain_floor(T, dev), torch)
+    # the serial floors: one warp running the forward's T dependent steps
+    # alone, and the backward's 2 T (the launch's own cost included)
+    floors = {"ctc_alpha": (time_ms(lambda: ctc.chain_floor(
+        T, dev, backward=False), torch), T),
+        "ctc_loss_bwd": (time_ms(lambda: ctc.chain_floor(T, dev), torch),
+                         2 * T)}
     for k, lib_name in (("ctc_alpha", "F.ctc_loss"),
                         ("ctc_loss_bwd", "F.ctc_loss backward, with the "
                          "log-softmax's")):
         t = out[k]
-        log(f"{k} per launch: kernel {t['ms']:.4f} ms, plain "
+        log(f"{k} per call: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, {lib_name} {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
-            + (f", serial floor {serial:.4f} ms ({2 * T} dependent steps on "
-               f"one warp)" if k == "ctc_loss_bwd" else ""))
-    bwd_stages(torch, ctc, "ctc_loss_bwd",
-               lambda: ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss),
-               out["ctc_loss_bwd"]["ms"], ("recompute", "adjoint",
-                                           "epilogue"))
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), serial floor "
+            f"{floors[k][0]:.4f} ms ({floors[k][1]} dependent steps on one "
+            f"warp)")
+    log(f"the first forward's torch glue (ctc_inputs: the extended labels, "
+        f"masks, alpha0, final0 and e [b, T, Sp]) alone: {glue_ms:.4f} ms "
+        f"a call")
+    kernel_stages(torch, ctc, "ctc_alpha", fwd, out["ctc_alpha"]["ms"],
+                  ("prologue", "chain", "loss"))
+    kernel_stages(torch, ctc, "ctc_loss_bwd",
+                  lambda: ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss),
+                  out["ctc_loss_bwd"]["ms"], ("recompute", "adjoint",
+                                              "epilogue"))
     return out
 
 
@@ -2250,7 +2299,7 @@ def phase_ctc(torch, fluid, seed, card):
         want=(1, 1, 1, 1, 1, 0, 0),
         swaps=[(rnn, "gru_seq", rnn.gru_seq_torch),
                (rnn, "gru_seq_bwd", rnn.gru_seq_bwd_torch),
-               (ctc, "ctc_alpha", ctc.ctc_alpha_torch),
+               (ctc, "ctc_alpha", ctc.ctc_loss_fwd_torch),
                (ctc, "ctc_loss_bwd", ctc.ctc_loss_bwd_torch)],
         # dlogits x PLANTED in the step's one ctc_loss_bwd launch: every
         # gradient below the loss moves by it
@@ -3208,6 +3257,25 @@ def phase_generation(torch, fluid, seed, card):
     return kc["launches"]
 
 
+def start_planted_ctc(build):
+    """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
+    the build directory; records (source, library) in PLANTED_CTC and
+    returns the process."""
+    src = (build.CSRC / "ctc.cu").read_text()
+    anchor, repl = CTC_PLANT
+    if src.count(anchor) != 1:
+        fail(f"csrc/ctc.cu holds the planted fault's anchor "
+             f"{src.count(anchor)} times, not once")
+    d = build.BUILD_DIR / "planted"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "ctc.cu").write_text(src.replace(anchor, repl))
+    PLANTED_CTC[:] = [d / "ctc.cu", d / "libctc.so"]
+    return subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o", str(PLANTED_CTC[1]),
+         str(PLANTED_CTC[0])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3234,7 +3302,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
-    for name, (secs, out) in build.build(KERNELS).items():
+    planted = start_planted_ctc(build)
+    try:
+        built = build.build(KERNELS)
+    finally:
+        planted_log = planted.communicate()[0]
+    for name, (secs, out) in built.items():
         lines = ptxas_summary(out)
         spilled = [ln for ln in lines if " 0 bytes spill stores" not in ln]
         log(f"built {name} in {secs:.2f} s: {len(lines)} kernels, "
@@ -3242,6 +3315,10 @@ def main():
         for line in (lines if name in ("conv_affine", "conv_bn_train",
                                        "conv_bn_bwd") else spilled):
             log(f"  {line}")
+    if planted.returncode != 0:
+        fail(f"nvcc failed on the planted copy of ctc.cu:\n{planted_log}")
+    log(f"built the planted ctc.cu (the forward's skip mask ignored) at "
+        f"{PLANTED_CTC[1]}")
 
     totals = phase_kernels(torch, fluid, args.seed)
     train_totals = phase_train_kernels(torch, fluid, args.seed)

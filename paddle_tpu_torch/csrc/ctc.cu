@@ -6,19 +6,20 @@
 // T steps, as warp-ctc keeps it in shared memory) and the backward the
 // reference takes as jax.vjp of its scan (ops/ctc_ops.py:155).
 //
-// Forward, per row (e [T, Sp] are the log-probabilities at the
-// blank-interleaved labels, -1e30 in the padding):
+// Forward, per row, from logp [T, C] and the labels alone (the Pallas
+// kernel takes e, the masks and alpha_0 from XLA code around it; here they
+// are formed in shared memory, as the backward forms them):
 //   alpha_t[s] = valid[s] ? lae(lae(a[s], a[s-1]), skip[s] ? a[s-2] : NEG)
-//                           + e[t][s] : NEG      (a = alpha_{t-1})
+//                           + logp[t][z[s]] : NEG      (a = alpha_{t-1})
 // for t = 1 .. x_len-1, and loss = -lae(alpha[2U'], alpha[2U'-1]) at
-// t = x_len-1 (U' the row's label length; final0 when x_len is 1). lae is
-// jnp.logaddexp written as the reference computes it: max(a, b) +
-// log1p(exp(-|a - b|)), a + b where a - b is nan, every operation rounded
-// explicitly.
+// t = x_len-1 (U' the row's label length); 1e30 (-NEG) where x_len is
+// outside 1..T, where the scan selects no final. lae is jnp.logaddexp
+// written as the reference computes it: max(a, b) + log1p(exp(-|a - b|)),
+// a + b where a - b is nan, every operation rounded explicitly.
 //
 // Backward, per row, from logp and the labels alone: the extended labels,
-// the masks and alpha_0 are formed in shared memory (the forward takes them
-// from torch glue, as the Pallas kernel does), alpha_0..alpha_{x_len-1} are
+// the masks and alpha_0 are formed in shared memory as the forward forms
+// them, alpha_0..alpha_{x_len-1} are
 // recomputed through the forward's code, then the scan's adjoint is walked
 // back from the loss: logaddexp's gradient is jax's custom jvp,
 // g*exp(x - out) for each operand, so the backward is autograd of the scan
@@ -34,12 +35,26 @@
 // weights (logaddexp's custom jvp): the kernel does the same, so that a
 // NaN or an infinity reaches the elements it reaches in the reference.
 //
-// Design of the backward. One block of 8 warps per row. Only what depends
-// on the step before it stays on the serial chain, which runs on the
-// first warps, a state a thread (up to Sp 128; K states a thread beyond),
-// each thread's states and masks in registers, one named barrier of the
-// chain's threads a step; the other warps produce, and a block barrier
-// separates chunks of steps:
+// Design of both. One block of 8 warps per row. Only what depends on the
+// step before it stays on the serial chain, which runs on the first warps,
+// a state a thread (up to Sp 128; K states a thread beyond), each thread's
+// states and masks in registers, one named barrier of the chain's threads
+// a step (chain_step, which both kernels call); the other warps produce,
+// and a block barrier separates chunks of steps.
+//
+// The forward is the backward's stage (a) without the weights: the chain
+// takes alpha_1 .. alpha_tr, exchanging a[s-1] and a[s-2] through two rows
+// of shared memory, while the producers gather the emissions logp[t][z[s]]
+// a chunk of steps ahead (eight loads of a thread in flight), so that no
+// load from device memory is on the chain; then one thread takes the loss
+// from alpha_tr's row. It replaces the first version, which ran every step
+// behind a block barrier on 256 threads, read each step's emissions from a
+// materialised e [b, T, Sp] on the chain, and took e, the masks, alpha_0
+// and the final of one-frame rows from a dozen torch launches before it
+// (0.1088 ms for the kernel alone at b 64, T 200, C 29, Sp 104 on the
+// H100); its loss is bitwise the first version's.
+//
+// The backward's stages:
 // (a) the recompute: alpha_t from alpha_{t-1} (a ring of two chunks in
 //     shared memory) and the emissions logp[t][z[s]], which the
 //     producers gather a chunk ahead; the chain also forms step t's
@@ -70,10 +85,11 @@
 //
 // Bound on the H100: neither bytes nor operations. The CTC model's batch
 // (b 64, T <= 200, Sp 104, C 29) reads ~5 MB and runs ~10^7 exp/log1p;
-// each row is a chain of 2 x_len dependent steps (the recompute's two
-// logaddexp, the adjoint's products and adds), whose latency bounds it
-// (ctc_chain_floor runs that chain alone). One block per row runs the rows
-// in parallel on 64 SMs.
+// each row is a chain of x_len dependent steps in the forward (two
+// logaddexp and the emission's add) and 2 x_len in the backward (the
+// recompute's, then the adjoint's products and adds), whose latency bounds
+// them (ctc_chain_floor runs either chain alone). One block per row runs
+// the rows in parallel on 64 SMs.
 //
 // The C entries return cudaGetLastError() after the launch (0 = success);
 // the caller allocates every output and scratch and passes its stream.
@@ -91,19 +107,6 @@ __device__ __forceinline__ float lae(float a, float b) {
   return __fadd_rn(fmaxf(a, b), log1pf(expf(-fabsf(d))));
 }
 
-// one step of the recurrence: n[s] from a = alpha_{t-1}; emit(s) is the
-// row's log-probability at label position s, read only where s is valid
-template <typename Emit>
-__device__ void alpha_step(const float* a, float* n, const float* cs,
-                           const float* sv, int sp, Emit emit) {
-  for (int s = threadIdx.x; s < sp; s += THREADS) {
-    const float a1 = s >= 1 ? a[s - 1] : NEG;
-    const float a2 = (s >= 2 && cs[s] > 0.f) ? a[s - 2] : NEG;
-    const float m = lae(lae(a[s], a1), a2);
-    n[s] = sv[s] > 0.f ? __fadd_rn(m, emit(s)) : NEG;
-  }
-}
-
 // +inf read as 0, as logaddexp's custom jvp reads its operands and output
 __device__ __forceinline__ float rinf(float v) {
   return v == INFINITY ? 0.f : v;
@@ -114,44 +117,9 @@ __device__ __forceinline__ float final_of(const float* a, int ylen) {
   return lae(a[last], ylen > 0 ? a[last - 1] : NEG);
 }
 
-__global__ void __launch_bounds__(THREADS)
-ctc_alpha_kernel(const float* __restrict__ e,
-                 const float* __restrict__ alpha0,
-                 const float* __restrict__ final0,
-                 const float* __restrict__ can_skip,
-                 const float* __restrict__ s_valid,
-                 const int* __restrict__ x_lens,
-                 const int* __restrict__ y_lens, float* loss, int T,
-                 int sp) {
-  extern __shared__ float smem[];
-  float* al = smem;                    // [2][sp] alpha, double-buffered
-  const int row = blockIdx.x;
-  const float* er = e + (size_t)row * T * sp;
-  const float* cs = can_skip + (size_t)row * sp;
-  const float* sv = s_valid + (size_t)row * sp;
-  const int xlen = x_lens[row], ylen = y_lens[row];
-  for (int s = threadIdx.x; s < sp; s += THREADS)
-    al[s] = alpha0[(size_t)row * sp + s];
-  __syncthreads();
-  int cur = 0;
-  const int tend = min(T, xlen);
-  for (int t = 1; t < tend; ++t) {
-    alpha_step(al + cur * sp, al + (1 - cur) * sp, cs, sv, sp,
-               [&](int s) { return er[(size_t)t * sp + s]; });
-    __syncthreads();
-    cur = 1 - cur;
-  }
-  if (threadIdx.x == 0) {
-    // the scan sets final at t = x_len - 1 when 1 <= t < T
-    const float fin = (xlen >= 2 && xlen <= T) ? final_of(al + cur * sp, ylen)
-                                               : final0[row];
-    loss[row] = -fin;
-  }
-}
-
-// the backward's block: the first warps run the serial chain, as many as
-// hold a state a thread (at most MAX_CHAIN threads, K states a thread
-// beyond), the others produce
+// a kernel's block: the first warps run the serial chain, as many as hold
+// a state a thread (at most MAX_CHAIN threads, K states a thread beyond),
+// the others produce
 constexpr int MAX_CHAIN = 128;
 
 __host__ __device__ inline int chain_threads(int sp) {
@@ -173,7 +141,8 @@ __host__ __device__ inline int clamp_to(int v, int lo, int hi) {
 }
 
 // steps a chunk holds: two chunks of weights (a float4 a state) in the
-// adjoint; two of alpha and two of emissions in the recompute
+// adjoint; two of alpha and two of emissions in the recompute; two of
+// emissions in the forward
 __host__ __device__ inline int chunk_steps(int sp) {
   return clamp_to(RING_BYTES / (32 * sp), 1, 16);
 }
@@ -230,14 +199,174 @@ __device__ __forceinline__ float4 weights(float as, float a1, float a2,
                      has2 ? expf(__fsub_rn(rinf(a2), rm)) : 0.f);
 }
 
-// block 0's clock at stage boundary i: 0 start, 1 after the recompute, 2
-// after the adjoint, 3 after the epilogue (chip_smoke.py reads the shares)
+// block 0's clock at stage boundary i (chip_smoke.py reads the shares):
+// in the backward 0 start, 1 after the recompute, 2 after the adjoint, 3
+// after the epilogue; in the forward 0 start, 1 after the prologue, 2
+// after the chain, 3 after the loss
 __device__ __forceinline__ void stamp(long long* stamps, int i) {
   if (blockIdx.x == 0 && threadIdx.x == 0) stamps[i] = clock64();
 }
 
-// K states a chain thread (Sp up to K MAX_CHAIN), kept in registers; one
-// block an SM, so that every register a thread may hold is there
+// the forward's shared memory: two chunks of emissions, the exchange [2]
+// [sp], then sv, cs, alpha_0 and the extended labels
+inline size_t fwd_smem(int sp) {
+  return sizeof(float) * (2 * (size_t)chunk_steps(sp) + 6) * sp;
+}
+
+// the extended labels zs (blank, l_1, blank, ..., l_U, blank; blank in the
+// padding up to sp), the positions below 2U'+1 valid (reference
+// ctc_ops.py:48-55); then a label may skip the blank before it when it
+// differs from the label before that, and alpha_0 holds logp[0] at the
+// blank and the first label (reference :60-64). One block barrier between
+// the two; the caller syncs after.
+__device__ __forceinline__ void extended_labels(
+    int* zs, float* sv, float* cs, float* a0, const long long* lab,
+    const float* lp, int U, int ylen, int blank, int sp) {
+  const int last = 2 * ylen;
+  for (int s = threadIdx.x; s < sp; s += THREADS) {
+    zs[s] = (s & 1) && s < 2 * U + 1 ? (int)lab[s >> 1] : blank;
+    sv[s] = s <= last ? 1.f : 0.f;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < sp; s += THREADS) {
+    cs[s] = ((s & 1) && s >= 2 && zs[s] != zs[s - 2]) ? 1.f : 0.f;
+    a0[s] = (s == 0 || (s == 1 && ylen > 0)) ? lp[zs[s]] : NEG;
+  }
+}
+
+// the emissions of steps t0 .. t0 + n - 1 into dst [n][sp] (NEG where a
+// position is not valid), by producer ptid of prod, eight loads of a
+// thread in flight at once
+__device__ __forceinline__ void gather_emissions(
+    const float* lp, const int* zs, const float* sv, int t0, int n,
+    float* dst, int ptid, int prod, int sp, int C) {
+  for (int s = ptid; s < sp; s += prod) {
+    const float* lps = lp + (size_t)t0 * C + zs[s];
+    for (int k0 = 0; k0 < n; k0 += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = k0 + u < n && sv[s] > 0.f ? __ldg(lps + (k0 + u) * C) : NEG;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < n) dst[(k0 + u) * sp + s] = v[u];
+    }
+  }
+}
+
+// a chain thread's states s = tid + k chain, k < K: alpha_0 and the masks
+// into registers
+template <int K>
+__device__ __forceinline__ void chain_registers(
+    float (&av)[K], bool (&valid)[K], bool (&skip)[K], const float* a0,
+    const float* sv, const float* cs, int chain, int sp) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = min((int)threadIdx.x + k * chain, sp - 1);
+    av[k] = a0[s];
+    valid[k] = sv[s] > 0.f;
+    skip[k] = cs[s] > 0.f;
+  }
+}
+
+// one step of the chain: alpha_t at a chain thread's states (av, which
+// held alpha_{t-1}) from a, alpha_{t-1}'s row, and e, step t's emissions;
+// alpha_t goes to its row n for the neighbours, then the chain's barrier.
+// Before av moves on, with(s, skip, a[s], a[s-1], a[s-2], inner, merged)
+// sees the two logaddexp (the backward forms its weights there).
+template <int K, typename With>
+__device__ __forceinline__ void chain_step(float (&av)[K],
+                                           const bool (&valid)[K],
+                                           const bool (&skip)[K],
+                                           const float* a, const float* e,
+                                           float* n, int chain, int sp,
+                                           With with) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = threadIdx.x + k * chain;
+    if (s < sp) {
+      const float a1 = s >= 1 ? a[s - 1] : NEG;
+      const float a2 = skip[k] ? a[s - 2] : NEG;
+      const float inner = lae(av[k], a1);
+      const float merged = lae(inner, a2);
+      with(s, skip[k], av[k], a1, a2, inner, merged);
+      av[k] = valid[k] ? __fadd_rn(merged, e[s]) : NEG;
+      n[s] = av[k];
+    }
+  }
+  group_sync<1>(chain);
+}
+
+// the loss of each row, from logp, the labels and the lengths; K states a
+// chain thread (Sp up to K MAX_CHAIN), kept in registers
+template <int K>
+__global__ void __launch_bounds__(THREADS, 1)
+ctc_fwd_kernel(const float* __restrict__ logp,
+               const long long* __restrict__ labels,
+               const int* __restrict__ x_lens,
+               const int* __restrict__ y_lens, float* loss,
+               long long* stamps, int T, int sp, int C, int U, int blank) {
+  extern __shared__ float smem[];
+  const int kc = chunk_steps(sp);
+  float* ering = smem;                 // [2][kc][sp] emissions
+  float* ax = ering + 2 * kc * sp;     // [2][sp] alpha_t by step parity
+  float* sv = ax + 2 * sp;             // [sp] valid
+  float* cs = sv + sp;                 // [sp] the skip mask
+  float* a0 = cs + sp;                 // [sp] alpha_0
+  int* zs = reinterpret_cast<int*>(a0 + sp);   // [sp] extended labels
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int CHAIN = chain_threads(sp), PROD = THREADS - CHAIN;
+  const bool chain = tid < CHAIN;
+  const float* lp = logp + (size_t)row * T * C;
+  const int xlen = x_lens[row], ylen = y_lens[row];
+  stamp(stamps, 0);
+  // the scan selects its final at t = x_len - 1 where 1 <= x_len <= T
+  // (alpha_tr after tr steps), else none: the loss is then -NEG, and no
+  // step is taken
+  const bool final_on = xlen >= 1 && xlen <= T;
+  const int tr = final_on ? xlen - 1 : 0;
+  extended_labels(zs, sv, cs, a0, labels + (size_t)row * U, lp, U, ylen,
+                  blank, sp);
+  __syncthreads();
+  const int nch = (tr + kc - 1) / kc;
+  if (!chain && nch > 0)
+    gather_emissions(lp, zs, sv, 1, min(kc, tr), ering, tid - CHAIN, PROD,
+                     sp, C);
+  float av[K];
+  bool valid[K], skip[K];
+  chain_registers<K>(av, valid, skip, a0, sv, cs, CHAIN, sp);
+  __syncthreads();
+  stamp(stamps, 1);
+  // chunk j holds steps 1 + j kc ..; alpha_t lies in row t & 1 (alpha_0
+  // in a0): step t writes the row step t - 1 read, behind its barrier
+  for (int j = 0; j < nch; ++j) {
+    const int t0 = 1 + j * kc;
+    if (chain) {
+      const float* e = ering + (j & 1) * kc * sp;
+      for (int t = t0; t < min(t0 + kc, tr + 1); ++t) {
+        chain_step<K>(av, valid, skip, t == 1 ? a0 : ax + ((t - 1) & 1) * sp,
+                      e, ax + (t & 1) * sp, CHAIN, sp,
+                      [](int, bool, float, float, float, float, float) {});
+        e += sp;
+      }
+    } else if (j + 1 < nch) {
+      gather_emissions(lp, zs, sv, t0 + kc, min(kc, tr + 1 - t0 - kc),
+                       ering + ((j + 1) & 1) * kc * sp, tid - CHAIN, PROD,
+                       sp, C);
+    }
+    __syncthreads();
+  }
+  stamp(stamps, 2);
+  if (tid == 0)
+    loss[row] = final_on
+                    ? -final_of(tr == 0 ? a0 : ax + (tr & 1) * sp, ylen)
+                    : -NEG;
+  stamp(stamps, 3);
+}
+
+// the dlogits of each row; K states a chain thread (Sp up to K
+// MAX_CHAIN), kept in registers; one block an SM, so that every register a
+// thread may hold is there
 template <int K>
 __global__ void __launch_bounds__(THREADS, 1)
 ctc_bwd_kernel(const float* __restrict__ logp,
@@ -292,21 +421,9 @@ ctc_bwd_kernel(const float* __restrict__ logp,
        i += THREADS)
     out[i] = __fsub_rn(0.f, __fmul_rn(expf(__ldg(lp + i)), 0.f));
 
-  // the extended labels (blank, l_1, blank, ..., l_U, blank; blank in the
-  // padding up to sp), the positions below 2U'+1 valid (reference
-  // ctc_ops.py:48-55)
-  for (int s = tid; s < sp; s += THREADS) {
-    zs[s] = (s & 1) && s < 2 * U + 1 ? (int)lab[s >> 1] : blank;
-    sv[s] = s <= last ? 1.f : 0.f;
-  }
-  __syncthreads();
-  // a label may skip the blank before it when it differs from the label
-  // before that; alpha_0 holds logp[0] at the blank and the first label
-  // (reference :60-64); each class's label positions are counted
-  for (int s = tid; s < sp; s += THREADS) {
-    cs[s] = ((s & 1) && s >= 2 && zs[s] != zs[s - 2]) ? 1.f : 0.f;
-    a0[s] = (s == 0 || (s == 1 && ylen > 0)) ? lp[zs[s]] : NEG;
-  }
+  // the extended labels, the masks and alpha_0; each class's label
+  // positions are counted
+  extended_labels(zs, sv, cs, a0, lab, lp, U, ylen, blank, sp);
   for (int c = tid; c < C; c += THREADS) {
     int n = 0;
     for (int s = 0; s < sp; ++s) n += zs[s] == c;
@@ -345,21 +462,10 @@ ctc_bwd_kernel(const float* __restrict__ logp,
     return t == 0 ? a0
                   : aring + ((t - 1) / kc & 1) * kc * sp + (t - 1) % kc * sp;
   };
-  // steps t0 .. of one chunk, eight loads of a thread in flight at once
+  // steps t0 .. of one chunk
   auto gather = [=](int t0, float* dst) {
-    const int n = min(kc, tr + 1 - t0);
-    for (int s = ptid; s < sp; s += PROD) {
-      const float* lps = lp + (size_t)t0 * C + zs[s];
-      for (int k0 = 0; k0 < n; k0 += 8) {
-        float v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          v[u] = k0 + u < n && sv[s] > 0.f ? __ldg(lps + (k0 + u) * C) : NEG;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (k0 + u < n) dst[(k0 + u) * sp + s] = v[u];
-      }
-    }
+    gather_emissions(lp, zs, sv, t0, min(kc, tr + 1 - t0), dst, ptid, PROD,
+                     sp, C);
   };
   // the finals' weights of alpha_t, exp(a_t[x] - fin_t) for x = last,
   // last - 1, with +inf read as 0
@@ -371,17 +477,10 @@ ctc_bwd_kernel(const float* __restrict__ logp,
   };
   const int nch = (tr + kc - 1) / kc;
   if (!chain && nch > 0) gather(1, ering);
-  // a chain thread's states s = tid + k CHAIN, k < K: alpha_{t-1} and the
-  // masks in registers
+  // a chain thread's states: alpha_{t-1} and the masks in registers
   float av[K];
   bool valid[K], skip[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int s = min(tid + k * CHAIN, sp - 1);
-    av[k] = a0[s];
-    valid[k] = sv[s] > 0.f;
-    skip[k] = cs[s] > 0.f;
-  }
+  chain_registers<K>(av, valid, skip, a0, sv, cs, CHAIN, sp);
   __syncthreads();
   for (int j = 0; j < nch; ++j) {
     const int t0 = 1 + j * kc;
@@ -391,20 +490,12 @@ ctc_bwd_kernel(const float* __restrict__ logp,
       float* n = arow(t0);   // the chunk's rows follow it
       float4* w = W + (size_t)t0 * sp;
       for (int t = t0; t < min(t0 + kc, tr + 1); ++t) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int s = tid + k * CHAIN;
-          if (s < sp) {
-            const float a1 = s >= 1 ? a[s - 1] : NEG;
-            const float a2 = skip[k] ? a[s - 2] : NEG;
-            const float inner = lae(av[k], a1);
-            const float merged = lae(inner, a2);
-            w[s] = weights(av[k], a1, a2, inner, merged, s >= 1, skip[k]);
-            av[k] = valid[k] ? __fadd_rn(merged, e[s]) : NEG;
-            n[s] = av[k];
-          }
-        }
-        group_sync<1>(CHAIN);
+        chain_step<K>(av, valid, skip, a, e, n, CHAIN, sp,
+                      [=](int s, bool sk, float as, float a1, float a2,
+                          float inner, float merged) {
+                        w[s] = weights(as, a1, a2, inner, merged, s >= 1,
+                                       sk);
+                      });
         a = n;
         n += sp;
         e += sp;
@@ -608,16 +699,18 @@ ctc_bwd_kernel(const float* __restrict__ logp,
   stamp(stamps, 3);
 }
 
-// the backward's serial floor: one warp running 2 T dependent steps alone,
-// T of the recompute (two logaddexp, the emission's add) and T of the
-// adjoint (two products, a neighbour's product through a shuffle, two
-// adds); in holds (a, e, g, w), out the results
-__global__ void chain_floor_kernel(const float* in, float* out, int T) {
+// the serial floor: one warp running T dependent steps of the recurrence
+// alone (two logaddexp, the emission's add: the forward's), then, with
+// adjoint, T of the adjoint (two products, a neighbour's product through a
+// shuffle, two adds: the backward's 2 T); in holds (a, e, g, w), out the
+// results
+__global__ void chain_floor_kernel(const float* in, float* out, int T,
+                                   int adjoint) {
   float a = in[0];
   const float e = in[1], e1 = __fsub_rn(in[1], 1.f), w = in[3];
   for (int t = 0; t < T; ++t) a = __fadd_rn(lae(lae(a, e), e1), e);
   float g = in[2];
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < (adjoint ? T : 0); ++t) {
     const float gi = __fmul_rn(g, w);
     const float g1 = __shfl_down_sync(0xffffffffu, __fmul_rn(gi, w), 1);
     g = __fadd_rn(__fadd_rn(__fmul_rn(gi, w), g1), gi);
@@ -632,16 +725,26 @@ __global__ void chain_floor_kernel(const float* in, float* out, int T) {
 
 extern "C" {
 
-// e [b, T, sp], alpha0, can_skip, s_valid [b, sp], final0 [b, 1] float32
-// and x_lens, y_lens [b] int32 in; loss [b, 1] out.
-int ctc_alpha_fwd(const float* e, const float* alpha0, const float* final0,
-                  const float* can_skip, const float* s_valid,
-                  const int* x_lens, const int* y_lens, float* loss, int b,
-                  int T, int sp, void* stream) {
-  if (b < 1 || T < 1 || sp < 1) return (int)cudaErrorInvalidValue;
-  ctc_alpha_kernel<<<b, THREADS, 2 * sp * sizeof(float),
-                     static_cast<cudaStream_t>(stream)>>>(
-      e, alpha0, final0, can_skip, s_valid, x_lens, y_lens, loss, T, sp);
+// logp [b, T, C] float32, labels [b, U] int64, x_lens, y_lens [b] int32
+// in; loss [b, 1] out (sp >= 2U+1); stamps [4] (int64) out: block 0's
+// clock at the stage boundaries.
+int ctc_loss_fwd(const float* logp, const long long* labels,
+                 const int* x_lens, const int* y_lens, float* loss,
+                 long long* stamps, int b, int T, int sp, int C, int U,
+                 int blank, void* stream) {
+  if (b < 1 || T < 1 || C < 1 || U < 0 || sp < 2 * U + 1 || sp % 4 != 0 ||
+      sp > 8 * MAX_CHAIN)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(sp);
+  const auto kernel =
+      sp <= MAX_CHAIN ? ctc_fwd_kernel<1> : ctc_fwd_kernel<8>;
+  if (smem > 48 * 1024) {   // the default limit, which needs no attribute
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<b, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      logp, labels, x_lens, y_lens, loss, stamps, T, sp, C, U, blank);
   return (int)cudaGetLastError();
 }
 
@@ -673,11 +776,12 @@ int ctc_loss_bwd(const float* logp, const long long* labels,
   return (int)cudaGetLastError();
 }
 
-// one warp running the backward's serial chain of 2 T steps alone (its
-// floor); in [4], out [2] float32
-int ctc_chain_floor(const float* in, float* out, int T, void* stream) {
+// one warp running the forward's serial chain of T steps alone, or with
+// adjoint the backward's of 2 T (their floors); in [4], out [2] float32
+int ctc_chain_floor(const float* in, float* out, int T, int adjoint,
+                    void* stream) {
   chain_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, T);
+      in, out, T, adjoint);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,8 @@ edit_distance (counterpart of paddle_tpu/ops/ctc_ops.py: ``warpctc``
 
 warpctc runs over padded LoD logits [b, T, C] and padded LoD labels
 [b, U(, 1)]. Float32 with more than one frame takes the kernel route
-(``ops/cuda/ctc.py``: the log-softmax and the emit gather in torch, the
-alpha recurrence in one launch); everything else, and every call under
+(``ops/cuda/ctc.py``: the log-softmax in torch, then one launch from the
+log-probabilities and the labels); everything else, and every call under
 ``kernel_tier=torch``, the float32 scan. The grad op launches the
 backward kernel directly, without the forward; on the scan route it is
 autograd through the recomputed scan, as the reference's ``jax.vjp`` is.
@@ -67,11 +67,8 @@ def warpctc(ctx):
     blank = int(ctx.attr("blank", 0))
     logits, x_lens = lv.data, lv.lens
     if _on_kernel(logits, labels):
-        logp = torch.log_softmax(logits, dim=-1)
-        e, alpha0, final0, can_skip, s_valid = ctck.ctc_inputs(
-            logp, labels, y_lens, x_lens, blank)
-        loss = ctck.ctc_alpha(e, alpha0, final0, can_skip, s_valid, x_lens,
-                              y_lens)
+        loss = ctck.ctc_alpha(torch.log_softmax(logits, dim=-1), x_lens,
+                              labels, y_lens, blank)
     else:
         loss = _ctc_loss_scan(logits, x_lens, labels, y_lens, blank)
     # norm_by_times scales only the gradient (reference :190-193)

@@ -1,15 +1,19 @@
 """The CTC alpha recurrence and its backward, one launch each (counterpart
 of paddle_tpu/ops/pallas/ctc.py::ctc_alpha_pallas, kernel
-``_ctc_alpha_kernel`` :23, and of the backward the reference takes as
-``jax.vjp`` of its scan, ops/ctc_ops.py:155 ``_ctc_pallas_bwd``).
+``_ctc_alpha_kernel`` :23, with the XLA code around it in
+``_ctc_loss_pallas``, ops/ctc_ops.py:104, and of the backward the reference
+takes as ``jax.vjp`` of its scan, ops/ctc_ops.py:155 ``_ctc_pallas_bwd``).
 
-``ctc_alpha(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens)`` is the
-Pallas kernel's interface: e [b, T, Sp] are the log-probabilities at the
-blank-interleaved labels (Sp = 2U+1 padded to a multiple of 8, padding
--1e30), alpha0, can_skip and s_valid [b, Sp], final0 [b, 1], and the
-lengths [b] int32; it returns the loss [b, 1]. :func:`ctc_inputs` is the
-torch glue that forms them from log-probabilities, as the reference's XLA
-code does outside the Pallas kernel (ctc_ops.py:111-147).
+``ctc_alpha(logp, x_lens, labels, y_lens, blank)`` returns the loss [b, 1]
+of logp = log_softmax(logits) [b, T, C], labels [b, U] and the lengths [b]
+int32: the kernel forms the blank-interleaved labels (Sp = 2U+1 padded to
+a multiple of 8), the masks and alpha0 itself. Its plain version
+``ctc_loss_fwd_torch`` is :func:`ctc_inputs`, the glue that forms the
+Pallas kernel's inputs as the reference's XLA code does
+(ctc_ops.py:111-147), then ``ctc_alpha_torch``, the plain version of the
+Pallas kernel's interface (e [b, T, Sp] the log-probabilities at the
+labels, padding -1e30; alpha0, can_skip and s_valid [b, Sp]; final0
+[b, 1]).
 
 ``ctc_loss_bwd(logp, x_lens, labels, y_lens, blank, dloss)`` returns
 dlogits [b, T, C] for logp = log_softmax(logits): the vjp of the
@@ -23,12 +27,12 @@ short for its labels every state stays at -1e30, logaddexp's weights
 exp(x − out) are 1, and the reference's gradient grows threefold per step;
 the kernel follows the scan's arithmetic and gives the same.
 
-On CUDA tensors both launch ``csrc/ctc.cu`` (one block per batch row; the
-backward keeps only the recurrence and the cotangents' products on one
-warp's serial chain, the other warps gathering emissions and forming the
-adjoint's weights a chunk of steps ahead, and scatters the emissions'
-cotangents onto the classes after the chain); on CPU tensors they run
-``ctc_alpha_torch`` / ``ctc_loss_bwd_torch``.
+On CUDA tensors both launch ``csrc/ctc.cu`` (one block per batch row;
+both keep only the recurrence, and the backward the cotangents' products,
+on the first warps' serial chain, one named barrier a step, the other
+warps gathering emissions a chunk of steps ahead; the backward scatters
+the emissions' cotangents onto the classes after the chain); on CPU
+tensors they run ``ctc_loss_fwd_torch`` / ``ctc_loss_bwd_torch``.
 :class:`CtcLoss` is the ``torch.autograd.Function`` that pairs them.
 """
 
@@ -47,14 +51,15 @@ NEG = -1e30
 # kernel launches since the last reset; only a launch adds
 launches = {"ctc_alpha": 0, "ctc_loss_bwd": 0}
 
-# the backward's last launch's stage clocks: int64 [4] on the card, block
-# 0's clock64 at the start, after the recompute, after the adjoint and
-# after the emission epilogue (chip_smoke.py prints the stages' shares)
-stage_clocks = {"ctc_loss_bwd": None}
+# each kernel's last launch's stage clocks: int64 [4] on the card, block
+# 0's clock64 at the start, after the prologue (the forward) or the
+# recompute (the backward), after the chain or the adjoint, and after the
+# loss or the emission epilogue (chip_smoke.py prints the stages' shares)
+stage_clocks = {"ctc_alpha": None, "ctc_loss_bwd": None}
 
 # the kernels' limits (csrc/ctc.cu): one block per row holds nine [Sp]
 # vectors, the class lists and chunks of up to 96 KB in shared memory
-# (under 150 KB); the backward's chain keeps up to 8 states a thread
+# (under 150 KB); the chain keeps up to 8 states a thread
 MAX_S, MAX_CLASSES = 1024, 1024
 
 
@@ -65,7 +70,8 @@ def reset_launches():
 
 def supported(frames, sp, classes, dtype) -> bool:
     """Shapes the kernels take: float32, more than one frame (the
-    reference routes T == 1 to its scan), Sp and C up to 1024."""
+    reference routes T == 1 to its scan), Sp and C (the classes) up to
+    1024."""
     return (dtype == torch.float32 and frames > 1 and sp <= MAX_S
             and classes <= MAX_CLASSES)
 
@@ -188,8 +194,9 @@ def ctc_inputs(logp, labels, y_lens, x_lens, blank):
 
 
 def ctc_alpha_torch(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens):
-    """Plain version of the forward: ``_ctc_alpha_kernel``'s loop over
-    t = 1..T-1 for every row at once. Returns the loss [b, 1]."""
+    """Plain version of the Pallas kernel's interface:
+    ``_ctc_alpha_kernel``'s loop over t = 1..T-1 for every row at once.
+    Returns the loss [b, 1]."""
     b, T, sp = e.shape
     pos = torch.arange(sp, device=e.device)
     neg = torch.full_like(alpha0, NEG)
@@ -206,6 +213,13 @@ def ctc_alpha_torch(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens):
     return (-final)[:, None]
 
 
+def ctc_loss_fwd_torch(logp, x_lens, labels, y_lens, blank):
+    """Plain version of the forward: :func:`ctc_inputs`, then
+    :func:`ctc_alpha_torch`. Returns the loss [b, 1]."""
+    return ctc_alpha_torch(*ctc_inputs(logp, labels, y_lens, x_lens, blank),
+                           x_lens, y_lens)
+
+
 def ctc_loss_bwd_torch(logp, x_lens, labels, y_lens, blank, dloss):
     """Plain version of the backward: autograd through :func:`ctc_scan`
     with respect to logp, then through the log-softmax. Returns dlogits
@@ -217,35 +231,36 @@ def ctc_loss_bwd_torch(logp, x_lens, labels, y_lens, blank, dloss):
     return dlogp - torch.exp(logp) * dlogp.sum(-1, keepdim=True)
 
 
-def ctc_alpha(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens):
-    """The loss [b, 1]: the kernel on CUDA tensors, one block per row; the
-    plain version on CPU tensors."""
-    if e.device.type == "cpu":
-        return ctc_alpha_torch(e, alpha0, final0, can_skip, s_valid, x_lens,
-                               y_lens)
-    b, T, sp = e.shape
-    if not supported(T, sp, 1, e.dtype):
-        raise ValueError(f"ctc_alpha: e {tuple(e.shape)} {e.dtype} is "
-                         f"outside the kernel's shapes (float32, T > 1, Sp "
-                         f"up to {MAX_S})")
-    f32, i32 = torch.float32, torch.int32
-    _check("ctc_alpha", [("e", e, (b, T, sp), f32),
-                         ("alpha0", alpha0, (b, sp), f32),
-                         ("final0", final0, (b, 1), f32),
-                         ("can_skip", can_skip, (b, sp), f32),
-                         ("s_valid", s_valid, (b, sp), f32),
+def ctc_alpha(logp, x_lens, labels, y_lens, blank):
+    """The loss [b, 1]: the kernel on CUDA tensors (one block per row: the
+    extended labels, masks and alpha0 formed in the kernel, the
+    recurrence on the chain, the emissions gathered a chunk of steps
+    ahead); the plain version on CPU tensors."""
+    if logp.device.type == "cpu":
+        return ctc_loss_fwd_torch(logp, x_lens, labels, y_lens, blank)
+    b, T, C = logp.shape
+    U = labels.shape[1]
+    sp = label_positions(U)
+    if not supported(T, sp, C, logp.dtype):
+        raise ValueError(f"ctc_alpha: logp {tuple(logp.shape)} {logp.dtype} "
+                         f"with Sp {sp} is outside the kernel's shapes "
+                         f"(float32, T > 1, Sp and C up to {MAX_S})")
+    labels = labels.to(torch.int64).contiguous()
+    i32 = torch.int32
+    _check("ctc_alpha", [("logp", logp, (b, T, C)),
+                         ("labels", labels, (b, U), torch.int64),
                          ("x_lens", x_lens, (b,), i32),
-                         ("y_lens", y_lens, (b,), i32)], e.device)
-    loss = torch.empty((b, 1), device=e.device)
+                         ("y_lens", y_lens, (b,), i32)], logp.device)
+    loss = torch.empty((b, 1), device=logp.device)
+    clocks = torch.empty(4, dtype=torch.int64, device=logp.device)
     lib = _lib()
-    with torch.cuda.device(e.device):
-        err = lib.ctc_alpha_fwd(
-            e.data_ptr(), alpha0.data_ptr(), final0.data_ptr(),
-            can_skip.data_ptr(), s_valid.data_ptr(), x_lens.data_ptr(),
-            y_lens.data_ptr(), loss.data_ptr(), b, T, sp,
-            torch.cuda.current_stream().cuda_stream)
+    err = _build.call_on(
+        logp.device, lib.ctc_loss_fwd, logp.data_ptr(), labels.data_ptr(),
+        x_lens.data_ptr(), y_lens.data_ptr(), loss.data_ptr(),
+        clocks.data_ptr(), b, T, sp, C, U, blank)
     _raise_on(lib, err, "ctc_alpha")
     launches["ctc_alpha"] += 1
+    stage_clocks["ctc_alpha"] = clocks
     return loss
 
 
@@ -290,17 +305,18 @@ def ctc_loss_bwd(logp, x_lens, labels, y_lens, blank, dloss):
     return dlogits
 
 
-def chain_floor(frames, device):
-    """Launch one warp that runs the backward's serial chain alone: 2 ×
-    ``frames`` dependent steps (the recompute's two logaddexp and add, the
-    adjoint's products, a neighbour's value and adds), the floor of one
-    row's backward on this card (measured by chip_smoke.py; not on the
-    path)."""
+def chain_floor(frames, device, backward=True):
+    """Launch one warp that runs a kernel's serial chain alone: the
+    forward's ``frames`` dependent steps (two logaddexp and an add), and
+    with ``backward`` the adjoint's as many after them (products, a
+    neighbour's value and adds): the floor of one row's forward or
+    backward on this card (measured by chip_smoke.py; not on the path)."""
     vals = torch.tensor([-3.0, -1.5, 0.5, 0.75], device=device)
     out = torch.empty(2, device=device)
     lib = _lib()
     with torch.cuda.device(device):
         err = lib.ctc_chain_floor(vals.data_ptr(), out.data_ptr(), frames,
+                                  int(backward),
                                   torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "ctc_chain_floor")
     return out
@@ -315,11 +331,9 @@ class CtcLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, x_lens, labels, y_lens, blank):
         logp = torch.log_softmax(logits, dim=-1)
-        e, alpha0, final0, can_skip, s_valid = ctc_inputs(
-            logp, labels, y_lens, x_lens, blank)
         ctx.save_for_backward(logp, x_lens, labels, y_lens)
         ctx.blank = blank
-        return ctc_alpha(e, alpha0, final0, can_skip, s_valid, x_lens, y_lens)
+        return ctc_alpha(logp, x_lens, labels, y_lens, blank)
 
     @staticmethod
     def backward(ctx, dloss):
@@ -329,14 +343,18 @@ class CtcLoss(torch.autograd.Function):
 
 
 def _lib():
-    lib = _build.load("ctc")
-    if lib.ctc_alpha_fwd.argtypes is None:
+    return _bind(_build.load("ctc"))
+
+
+def _bind(lib):
+    """``lib`` (a build of csrc/ctc.cu) with its C entries' types set."""
+    if lib.ctc_loss_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ctc_alpha_fwd.argtypes = [p] * 8 + [i, i, i, p]
-        lib.ctc_alpha_fwd.restype = i
+        lib.ctc_loss_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.ctc_loss_fwd.restype = i
         lib.ctc_loss_bwd.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.ctc_loss_bwd.restype = i
-        lib.ctc_chain_floor.argtypes = [p, p, i, p]
+        lib.ctc_chain_floor.argtypes = [p, p, i, i, p]
         lib.ctc_chain_floor.restype = i
         lib.ctc_bwd_scratch.argtypes = [i, i]
         lib.ctc_bwd_scratch.restype = ctypes.c_longlong

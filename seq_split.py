@@ -4,6 +4,7 @@ recurrent and CTC kernels against this checkout's.
 
     python3 seq_split.py --tree DIR [--parts split,bwdsplit,exchange,
                                      compare,barrier,latency,steps]
+                                    [--phases 6,8,9] [--pairs 10]
 
 Run from the root of a checkout on a machine with the CUDA toolkit and a
 card; a measurement tool beside chip_smoke.py, not part of the port's
@@ -37,9 +38,14 @@ package. Prints the card's name and power limit, then, by part (default
   checkout's backward stage shares (prologue, chain, epilogue) from its
   kernels' clocks; then ``ctc_alpha`` and ``ctc_loss_bwd`` the same way at
   the CTC model's b 64, C 29 and T 100 and 200 (labels of
-  ⌈frames/8⌉..⌊frames/4⌋ characters), the loss and dlogits of the two
-  trees compared bitwise, and this checkout's backward stage shares
-  (recompute, adjoint, epilogue).
+  ⌈frames/8⌉..⌊frames/4⌋ characters), each tree's forward called through
+  its own interface from the same logp (a tree with ``ctc_alpha_fwd``
+  takes ``ctc_inputs``, this checkout's torch glue, then its kernel; one
+  with ``ctc_loss_fwd`` the labels), timed as a call and as the kernel's
+  device time (torch.profiler), the loss and dlogits of the two trees
+  compared bitwise, and this checkout's stage shares (the forward's
+  prologue, chain and loss, with the chain's cycles a step; the
+  backward's recompute, adjoint and epilogue).
 * ``barrier``: this checkout's GRU forward as it is (grid barriers)
   against a copy whose steps wait only for the blocks of their row group,
   in turns (grid, group, group, grid), the carries compared bitwise.
@@ -48,11 +54,13 @@ package. Prints the card's name and power limit, then, by part (default
   barrier, two logaddexp a step on one thread, on 128 threads a state a
   thread, and on one warp four states a lane.
 * ``steps``: chip_smoke.py's phases 6, 8 and 9 (the LSTM and GRU
-  classifiers and the CTC model, trained on both routes) run from
-  ``--tree`` and from this checkout, ten runs each in alternating pairs,
-  each in a process of its own; prints each run's steady ms a step, then
-  each phase's kernel-route times by pair and whether this checkout is
-  faster in every pair.
+  classifiers and the CTC model, trained on both routes; ``--phases``
+  picks some) run from ``--tree`` and from this checkout, ``--pairs``
+  runs each (10) in alternating pairs, each in a process of its own;
+  prints each run's steady ms a step, the profiled kernel-route step's
+  device-busy ms and its device kernels (launches and copies) a step,
+  then each phase's kernel-route times by pair and whether this checkout
+  is faster in every pair.
 
 Nothing runs at import.
 """
@@ -753,6 +761,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True, type=Path)
     ap.add_argument("--parts", default="split,compare")
+    ap.add_argument("--phases", default="6,8,9")
+    ap.add_argument("--pairs", type=int, default=PAIRS)
     args = ap.parse_args()
     parts = args.parts.split(",")
     import torch
@@ -766,7 +776,8 @@ def main():
     ghz = sm_clock_ghz(torch)
     L, b, H = 100, 64, 512
     if "steps" in parts:
-        steps(args.tree)
+        steps(args.tree, [int(v) for v in args.phases.split(",")],
+              args.pairs)
     if "split" in parts:
         fwd_split(torch, args.tree, ghz, L, b, H)
     if "bwdsplit" in parts:
@@ -775,7 +786,7 @@ def main():
         exchange(torch, L)
     if "compare" in parts:
         compare(torch, args.tree, b, H)
-        compare_ctc(torch, args.tree, b)
+        compare_ctc(torch, args.tree, b, ghz)
     if "barrier" in parts:
         barrier(torch, b, H)
     if "latency" in parts:
@@ -929,24 +940,49 @@ def ctc_operands(torch, T, seed, b=64, classes=29):
     return logp, labels, xl, yl, torch.randn(b, generator=gen, device=dev)
 
 
-def compare_ctc(torch, tree, b):
-    """The tree's ctc_alpha and ctc_loss_bwd against this checkout's,
-    launch for launch at b, C 29 and T 100 and 200, in turns (tree, this,
-    this, tree), the loss and dlogits compared bitwise; then this
-    checkout's backward stage shares. A tree whose backward takes no stage
-    clocks (before this checkout's redesign) is called without them."""
+def device_ms(torch, fn, names, reps=20):
+    """The device time a call of ``fn`` spends in kernels whose names
+    contain one of ``names``, from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages()
+             if any(n in ev.key for n in names))
+    return us / 1e3 / reps
+
+
+def compare_ctc(torch, tree, b, ghz):
+    """The tree's ctc_alpha and ctc_loss_bwd against this checkout's, call
+    for call at b, C 29 and T 100 and 200, in turns (tree, this, this,
+    tree): each forward through its own C interface from the same logp
+    (``ctc_alpha_fwd`` after ``ctc_inputs``, or ``ctc_loss_fwd``), timed
+    as a call and as its kernel's device time; the loss and dlogits
+    compared bitwise; then this checkout's stage shares. A tree whose
+    backward takes no stage clocks (before its redesign) is called without
+    them."""
     from paddle_tpu_torch.ops.cuda import ctc
 
     p, i = ctypes.c_void_p, ctypes.c_int
     here = Path.cwd()
-    lib, clocked = {}, {}
+    lib, clocked, from_logp = {}, {}, {}
     for who, root in (("tree", tree), ("this", here)):
         src = (root / "paddle_tpu_torch" / "csrc" / "ctc.cu").read_text()
         clocked[who] = "long long* stamps" in src
+        from_logp[who] = "int ctc_loss_fwd(" in src
     built = libs([(who, *prepared(root, "ctc", f"ctc_{who}"))
                   for who, root in (("tree", tree), ("this", here))])
     for who, lb in built.items():
-        lb.ctc_alpha_fwd.argtypes = [p] * 8 + [i, i, i, p]
+        if from_logp[who]:
+            lb.ctc_loss_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
+        else:
+            lb.ctc_alpha_fwd.argtypes = [p] * 8 + [i, i, i, p]
         if clocked[who]:
             lb.ctc_bwd_scratch.argtypes = [i, i]
             lb.ctc_bwd_scratch.restype = ctypes.c_longlong
@@ -958,25 +994,32 @@ def compare_ctc(torch, tree, b):
         logp, labels, xl, yl, dloss = ctc_operands(torch, T, 3, b)
         C, U = logp.shape[-1], labels.shape[1]
         sp = ctc.label_positions(U)
-        inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
         scratch = {who: torch.empty(
             b, lib[who].ctc_bwd_scratch(T, sp) if clocked[who] else T * sp,
             device=logp.device) for who in lib}
-        clocks = torch.empty(4, dtype=torch.int64, device=logp.device)
+        clocks = {k: torch.empty(4, dtype=torch.int64, device=logp.device)
+                  for k in ("fwd", "bwd")}
         outs = {}
 
         def fwd(who, loss):
-            err = lib[who].ctc_alpha_fwd(
-                *(t.data_ptr() for t in inputs + (xl, yl, loss)), b, T, sp,
-                stream)
+            if from_logp[who]:
+                err = lib[who].ctc_loss_fwd(
+                    *(t.data_ptr() for t in (logp, labels, xl, yl, loss,
+                                             clocks["fwd"])),
+                    b, T, sp, C, U, 0, stream)
+            else:
+                inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
+                err = lib[who].ctc_alpha_fwd(
+                    *(t.data_ptr() for t in inputs + (xl, yl, loss)), b, T,
+                    sp, stream)
             if err:
-                sys.exit(f"{who} ctc_alpha_fwd failed: {err}")
+                sys.exit(f"{who}'s CTC forward failed: {err}")
 
         def bwd(who, dlogits):
             ptrs = [t.data_ptr() for t in (logp, labels, xl, yl, dloss,
                                            scratch[who], dlogits)]
             if clocked[who]:
-                ptrs.append(clocks.data_ptr())
+                ptrs.append(clocks["bwd"].data_ptr())
             err = lib[who].ctc_loss_bwd(*ptrs, b, T, sp, C, U, 0, stream)
             if err:
                 sys.exit(f"{who} ctc_loss_bwd failed: {err}")
@@ -996,19 +1039,33 @@ def compare_ctc(torch, tree, b):
               f"{'bitwise equal' if same[0] else 'DIFFERS'}, dlogits "
               f"{'bitwise equal' if same[1] else f'DIFFER (max |Δ| {d:.3e})'}")
         for name, fn, k in (("ctc_alpha", fwd, 0), ("ctc_loss_bwd", bwd, 1)):
+            order = ("tree", "this", "this", "tree")
             t = [time_ms(torch, lambda who=who: fn(who, outs[who][k]))
-                 for who in ("tree", "this", "this", "tree")]
+                 for who in order]
+            dev = [device_ms(torch, lambda who=who: fn(who, outs[who][k]),
+                             ("ctc_",)) for who in order]
             line = (f"{name}: tree {t[0]:.4f} / {t[3]:.4f} ms, this "
-                    f"checkout {t[1]:.4f} / {t[2]:.4f} ms a launch")
+                    f"checkout {t[1]:.4f} / {t[2]:.4f} ms a call; kernel "
+                    f"device time tree {dev[0]:.4f} / {dev[3]:.4f}, this "
+                    f"{dev[1]:.4f} / {dev[2]:.4f} ms")
+            fn("this", outs["this"][k])
+            c = clocks["bwd" if k else "fwd"].cpu().double()
+            share = (c[1:] - c[:-1]) / (c[3] - c[0])
             if k == 1:
-                bwd("this", outs["this"][1])
-                c = clocks.cpu().double()
-                share = (c[1:] - c[:-1]) / (c[3] - c[0])
                 line += (f"; stages of this one: recompute "
                          f"{100 * share[0]:.1f}%, adjoint "
                          f"{100 * share[1]:.1f}%, epilogue "
                          f"{100 * share[2]:.1f}%")
+            elif from_logp["this"]:
+                step = (c[2] - c[1]).item() / (int(xl[0]) - 1)
+                line += (f"; stages of this one: prologue "
+                         f"{100 * share[0]:.1f}%, chain "
+                         f"{100 * share[1]:.1f}% ({step:.1f} cycles, "
+                         f"{step / ghz / 1e3:.3f} us a step at {ghz:.3f} "
+                         f"GHz), loss {100 * share[2]:.1f}%")
             print(line)
+        if not all(same):
+            sys.exit("the CTC kernels of the two trees differ")
 
 
 def latency(torch):
@@ -1069,17 +1126,46 @@ def barrier(torch, b, H):
 
 
 STEPS_SCRIPT = r"""
-import re, sys, torch
+import sys, time, torch
 import chip_smoke as cs
 import paddle_tpu_torch.fluid as fluid
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 lines = []
 cs.log = lambda m: lines.append(m)
+
+
+def profile(torch, fn, title, card, reps=3, groups=None):
+    # the tree's own profile() may print less: this one gives the
+    # device-busy ms and the device kernels (launches and copies) a call
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy = kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and "CUDA" in str(getattr(ev, "device_type", "")):
+            busy += us / 1e3 / reps
+            kernels += ev.count / reps
+    lines.append(f"wall {wall:.2f} ms per call, device busy {busy:.2f} ms, "
+                 f"{kernels:.0f} device kernels")
+
+
+cs.profile = profile
 card = cs.card_line()
-cs.phase_textcls(torch, fluid, 0, card)
-cs.phase_textcls(torch, fluid, 0, card, "gru")
-cs.phase_ctc(torch, fluid, 0, card)
+phases = {6: lambda: cs.phase_textcls(torch, fluid, 0, card),
+          8: lambda: cs.phase_textcls(torch, fluid, 0, card, "gru"),
+          9: lambda: cs.phase_ctc(torch, fluid, 0, card)}
+for k in map(int, sys.argv[1].split(",")):
+    phases[k]()
 for m in lines:
     if m.startswith(("kernel_tier=", "== phase", "wall ")):
         print(m.strip())
@@ -1089,36 +1175,38 @@ for m in lines:
 # runs of each tree in `steps`: a whole-process step time spreads by ~10%
 # from run to run on one host, so a claim needs most of ten pairs
 PAIRS = 10
+NAMES = {6: "phase 6 (LSTM)", 8: "phase 8 (GRU)", 9: "phase 9 (CTC)"}
 
 
-def steps(tree):
-    """chip_smoke.py's phases 6, 8, 9 from `tree` and from this checkout,
-    PAIRS runs each, a process a run, in alternating pairs (tree, this;
-    this, tree; ...); prints each run's steady ms a step and peak memory on
-    both routes and the profiled kernel-route step's device-busy ms, then
-    for each phase the kernel route's times by pair and the verdict: met
-    where this checkout is faster in every pair, not met where it is
-    faster in at most half of them, unresolved between; and the same for
-    the device-busy ms (the host sets the step time; the device time is
-    what the kernels move)."""
+def steps(tree, phases, pairs):
+    """chip_smoke.py's ``phases`` (of 6, 8, 9) from `tree` and from this
+    checkout, ``pairs`` runs each, a process a run, in alternating pairs
+    (tree, this; this, tree; ...); prints each run's steady ms a step and
+    peak memory on both routes and the profiled kernel-route step's
+    device-busy ms and device kernels, then for each phase the kernel
+    route's times by pair and the verdict: met where this checkout is
+    faster in every pair, not met where it is faster in at most half of
+    them, unresolved between; and the same for the device-busy ms (the
+    host sets the step time; the device time is what the kernels move)."""
     here = Path.cwd()
     order = []
-    for k in range(PAIRS):
+    for k in range(pairs):
         order += [("tree", tree), ("this", here)][::1 if k % 2 == 0 else -1]
     runs = {"tree": [], "this": []}
+    arg = ",".join(map(str, phases))
     for label, root in order:
-        res = subprocess.run([sys.executable, "-c", STEPS_SCRIPT],
+        res = subprocess.run([sys.executable, "-c", STEPS_SCRIPT, arg],
                              cwd=root, capture_output=True, text=True)
         if res.returncode != 0:
-            sys.exit(f"phases 6, 8, 9 failed in {root}:\n{res.stdout}"
+            sys.exit(f"phases {arg} failed in {root}:\n{res.stdout}"
                      f"{res.stderr[-4000:]}")
-        print(f"\nphases 6, 8, 9 from {label} ({root}):")
+        print(f"\nphases {arg} from {label} ({root}):")
         kernel_ms, busy_ms = [], []
         for line in res.stdout.splitlines():
             m = re.search(r"^kernel_tier=(\w+).*steady ([\d.]+) ms/step.*"
                           r"peak memory ([\d.]+) GiB", line)
             b = re.search(r"^wall ([\d.]+) ms per call, device busy "
-                          r"([\d.]+) ms", line)
+                          r"([\d.]+) ms, (\d+) device kernels", line)
             if line.startswith("=="):
                 print("  " + line)
             elif m:
@@ -1128,21 +1216,20 @@ def steps(tree):
                     kernel_ms.append(float(m[2]))
             elif b:
                 print(f"    profiled kernel-route step: wall {b[1]} ms, "
-                      f"device busy {b[2]} ms")
+                      f"device busy {b[2]} ms, {b[3]} device kernels")
                 busy_ms.append(float(b[2]))
         runs[label].append((kernel_ms, busy_ms))
     for what, i in (("ms a step", 0), ("device-busy ms a step", 1)):
-        print(f"\nkernel route, {what}, {PAIRS} pairs (tree / this):")
-        for k, phase in enumerate(("phase 6 (LSTM)", "phase 8 (GRU)",
-                                   "phase 9 (CTC)")):
+        print(f"\nkernel route, {what}, {pairs} pairs (tree / this):")
+        for k, phase in enumerate(phases):
             got = [(a[i][k], b[i][k])
                    for a, b in zip(runs["tree"], runs["this"])]
             wins = sum(b < a for a, b in got)
             verdict = ("met" if wins == len(got) else
                        "not met" if 2 * wins <= len(got) else "unresolved")
             med = [sorted(v)[len(v) // 2] for v in zip(*got)]
-            print(f"  {phase}: " + ", ".join(f"{a:.2f} / {b:.2f}"
-                                            for a, b in got)
+            print(f"  {NAMES[phase]}: " + ", ".join(f"{a:.2f} / {b:.2f}"
+                                                   for a, b in got)
                   + f"; medians {med[0]:.2f} / {med[1]:.2f}; this faster "
                   f"in {wins} of {len(got)}: {verdict}")
 

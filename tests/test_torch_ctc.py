@@ -1,6 +1,7 @@
 """The port's CTC against the reference's: the alpha-recurrence kernel
-module's plain versions against the Pallas kernel and the scan's vjp, the
-warpctc/warpctc_grad ops on both routes, and the greedy-decoding ops
+module's plain versions against the Pallas kernel (on its own interface
+and from the logits, as ``_ctc_loss_pallas`` runs it) and the scan's vjp,
+the warpctc/warpctc_grad ops on both routes, and the greedy-decoding ops
 (top_k, ctc_align, edit_distance).
 
 One batch of 6 rows covers the cases the recurrence treats apart: labels
@@ -34,6 +35,9 @@ LABELS = [[1, 2, 2], [3, 3], [1], [], [1, 2, 3, 4, 5], [4, 1, 5]]
 # losses: float32 sums of logaddexp terms; XLA's and PyTorch's exp and
 # log1p differ by a float32 step, measured within 2e-7 relative
 LOSS_TOL = dict(rtol=1e-5, atol=0)
+# the forward from logp against the reference's: chip_smoke.py's limit
+# for the kernel against its plain version, relative
+CTC_FWD_LIMIT = 1e-5
 # dlogits: the same differences carried back through up to 7 steps of
 # logaddexp weights and the log-softmax; measured within 6e-8 of the
 # largest element (~1)
@@ -75,6 +79,81 @@ def test_plain_alpha_matches_the_pallas_kernel():
     assert got[4, 0] == pytest.approx(1e30)      # too short for its labels
 
 
+def _edge_batch(blank, seed=7):
+    """Logits [8, 9, 6], labels and lengths with the rows the forward
+    treats apart: one frame, more frames than T, no label, labels too long
+    for their frames, repeated labels, a full row; labels avoid ``blank``."""
+    rng = np.random.RandomState(seed)
+    frames, classes = 9, 6
+    x_lens = np.array([9, 1, 12, 6, 2, 9, 5, 7], np.int32)
+    y_lens = np.array([3, 1, 2, 0, 3, 4, 2, 1], np.int32)
+    others = [c for c in range(classes) if c != blank]
+    labels = np.array(others, np.int64)[rng.randint(0, len(others), (8, 4))]
+    labels[5, :3] = labels[5, 0]            # a run of one label
+    labels[6, 1] = labels[6, 0]
+    logits = rng.normal(0, 1.5, (8, frames, classes)).astype("float32")
+    return logits, x_lens, labels, y_lens
+
+
+def _reference_loss(logits, x_lens, labels, y_lens, blank):
+    """The reference's ``_ctc_loss_pallas`` (its XLA glue, then
+    ``ctc_alpha_pallas`` in interpret mode on the CPU)."""
+    return np.asarray(jctc._ctc_loss_pallas(
+        jnp.asarray(logits), jnp.asarray(x_lens), jnp.asarray(labels),
+        jnp.asarray(y_lens), blank))
+
+
+def _port_loss(logits, x_lens, labels, y_lens, blank):
+    logp = torch.log_softmax(torch.from_numpy(logits), -1)
+    return ctc.ctc_loss_fwd_torch(logp, torch.from_numpy(x_lens),
+                                  torch.from_numpy(labels),
+                                  torch.from_numpy(y_lens), blank).numpy()
+
+
+@pytest.mark.parametrize("blank", [0, 4])
+def test_plain_forward_from_logp_matches_the_reference(blank):
+    """ctc_loss_fwd_torch, the plain version of the kernel that starts from
+    logp and the labels, against the reference's forward from the logits,
+    within CTC_FWD_LIMIT: one-frame rows, rows longer than T and rows too
+    short for their labels (1e30 in both), no label, repeats."""
+    args = _edge_batch(blank)
+    want = _reference_loss(*args, blank)
+    got = _port_loss(*args, blank)
+    assert got.shape == want.shape == (8, 1)
+    np.testing.assert_allclose(got, want, rtol=CTC_FWD_LIMIT, atol=0)
+    assert got[2, 0] == want[2, 0] == np.float32(1e30)     # x_len > T
+    assert got[4, 0] == pytest.approx(1e30)     # too short for its labels
+    assert np.isfinite(got[[0, 1, 3, 5, 6, 7]]).all()
+    assert got[1, 0] < 1e29                     # one frame, one label
+
+
+def test_plain_forward_propagates_nan_and_inf_as_the_reference():
+    """NaN and ±Inf planted in the logits give the reference's pattern of
+    NaN, +Inf and 1e30 in the loss: a NaN logit (its frame's log-softmax
+    is NaN) or +Inf (the same), -Inf at every class a row's path can take
+    at its last frame (+Inf; at an earlier frame the -1e30 of the states
+    no path reaches takes over, and the loss is 1e30), -Inf at one label's
+    class (finite; 1e30 in a one-frame row), NaN past a row's frames (not
+    read); the finite rest within CTC_FWD_LIMIT."""
+    logits, x_lens, labels, y_lens = _edge_batch(0, seed=9)
+    logits[0, 4, int(labels[0, 1])] = np.nan
+    logits[3, 2, 2] = np.inf
+    logits[5, 8, [0] + [int(v) for v in labels[5]]] = -np.inf
+    logits[1, 0, int(labels[1, 0])] = -np.inf   # one frame: 1e30
+    logits[6, 2, int(labels[6, 0])] = -np.inf
+    logits[7, 8, 0] = np.nan                    # past x_len 7
+    want = _reference_loss(logits, x_lens, labels, y_lens, 0)
+    got = _port_loss(logits, x_lens, labels, y_lens, 0)
+    nan = np.isnan(want)
+    assert nan[[0, 3], 0].all() and np.isposinf(want[5, 0])
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    fin = ~nan & ~np.isinf(want)
+    assert np.isfinite(got[fin]).all() and (want[fin] >= 1e29).any()
+    np.testing.assert_allclose(got[fin], want[fin], rtol=CTC_FWD_LIMIT,
+                               atol=0)
+
+
 def test_plain_backward_matches_the_scan_vjp():
     """ctc_loss_bwd_torch (autograd through the port of the scan, then the
     log-softmax) against jax.vjp of the reference's scan on logits."""
@@ -96,7 +175,7 @@ def test_plain_backward_matches_the_scan_vjp():
 
 
 def test_ctc_loss_function_pairs_the_wrappers():
-    """CtcLoss forward is ctc_alpha on ctc_inputs, its backward
+    """CtcLoss forward is ctc_alpha on the log-softmax, its backward
     ctc_loss_bwd; on CPU tensors both are the plain versions and launch
     nothing."""
     logits, labels, y_lens, dloss = _batch(2)
@@ -238,12 +317,16 @@ def _need_card():
 
 
 # (b, frames, classes, max label length) on the card: the test batch's
-# size, the CTC model's (b 64, T 200, Sp 104), and a long utterance whose
-# [T, Sp] (1000 x 408) is far beyond a block's shared memory
+# size, the CTC model's (b 64, T 200, Sp 104), a long utterance whose
+# [T, Sp] (1000 x 408) is far beyond a block's shared memory, and Sp 144,
+# just past one state a chain thread (K > 1)
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6, 7, 6, 3), (64, 200, 29, 50),
-                                   (4, 1000, 29, 200)])
+                                   (4, 1000, 29, 200), (16, 300, 29, 70)])
 def test_kernels_match_the_plain_versions_on_card(shape):
+    """The forward from logp bitwise the plain version's float32 loss where
+    it is finite (the same operations in the same order), the 1e30 rows
+    alike; dlogits within phase 7's 1e-4 of the largest."""
     _need_card()
     b, frames, classes, max_u = shape
     rng = np.random.RandomState(6)
@@ -261,16 +344,15 @@ def test_kernels_match_the_plain_versions_on_card(shape):
     dloss = torch.tensor(rng.normal(0, 1, b), dtype=torch.float32,
                          device=dev)
     logp = torch.log_softmax(logits, -1)
-    inputs = ctc.ctc_inputs(logp, labels, yl, xl, 0)
     ctc.reset_launches()
-    loss = ctc.ctc_alpha(*inputs, xl, yl)
+    loss = ctc.ctc_alpha(logp, xl, labels, yl, 0)
     dlogits = ctc.ctc_loss_bwd(logp, xl, labels, yl, 0, dloss)
     torch.cuda.synchronize()
     assert ctc.launches == {"ctc_alpha": 1, "ctc_loss_bwd": 1}
-    want = ctc.ctc_alpha_torch(*inputs, xl, yl)
+    want = ctc.ctc_loss_fwd_torch(logp, xl, labels, yl, 0)
     finite = want < 1e29
     assert torch.equal(finite, loss < 1e29)
-    assert ((loss - want).abs()[finite] / want.abs()[finite]).max() <= 1e-5
+    assert torch.equal(loss[finite], want[finite])
     want = ctc.ctc_loss_bwd_torch(logp, xl, labels, yl, 0, dloss)
     rows = finite[:, 0]
     err = (dlogits - want)[rows].abs().max() / want[rows].abs().max()
@@ -470,3 +552,18 @@ def test_loss_bwd_propagates_nan_and_inf_on_card():
     torch.cuda.synchronize()
     assert torch.isnan(want).any() and torch.isinf(want).any()
     _assert_same_pattern(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+def test_loss_fwd_propagates_nan_and_inf_on_card():
+    """NaN and ±Inf planted in logp (_planted_batch) reach the forward's
+    loss where they reach ctc_loss_fwd_torch's: NaN in the same rows, the
+    same infinities, the finite rest bitwise."""
+    _need_card()
+    dev = torch.device("cuda")
+    logp, xl, labels, yl, _ = (t.to(dev) for t in _planted_batch())
+    got = ctc.ctc_alpha(logp, xl, labels, yl, 0)
+    want = ctc.ctc_loss_fwd_torch(logp, xl, labels, yl, 0)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    _assert_same_pattern(got, want, 0.0)
