@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Serve and train ResNet-50, train the LSTM and GRU text classifiers, the
-CTC acoustic model and the word2vec N-gram model, and serve a decoder LM
-through the generation engine, with the PyTorch/CUDA port on one GPU, and
-hold every hand-written kernel against its plain PyTorch version.
+CTC acoustic model and the word2vec N-gram model, serve a decoder LM
+through the generation engine, and serve ResNet-50 and the LM over RPC
+through ModelServer, with the PyTorch/CUDA port on one GPU, and hold every
+hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -144,9 +145,33 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               prefix-cached and a chunked pass equal to cold. Tokens/s,
               decode ms per step, TTFT p50/p99, continuous vs gang, peak
               memory and a profile of one decode step for both routes.
+14. front door — phase 3's bundle behind ModelServer (batching on) on the
+              card: 8 InferClient threads x 6 requests of 1-8 images drawn
+              from the seed; conv_affine bitwise at each bucket against
+              the same rows inside the largest (a planted row shift must
+              be caught), and the ops where a request's rows start to
+              move between buckets (the bundle's forward with every op's
+              output fetched); every reply bitwise its coalesced
+              dispatch's rows and the in-process engine.infer of the same
+              rows (bitwise unless an op starts a drift between the two
+              buckets, then within SRV_REL_LIMIT), a reply with its rows
+              reversed must be caught; fewer dispatches than requests, 49
+              conv_affine launches a dispatch; health() and stats() plain
+              JSON; latency by request size under 8 clients (100
+              requests of each size: count, p50, p99, max); one client's
+              lone requests bitwise on their solo bucket, the wire's bytes
+              and seconds per call beside the in-process engine and phase
+              3; a server without warmup whose first dispatch runs on its
+              batcher's worker thread; images/s of 8 clients' batch-1
+              requests with batching on and off (3-s windows, in turns);
+              shutdown(drain=True) with 8 requests in flight answers all
+              8. Then phase 13's LM behind a generative
+              ModelServer: 8 GenClient threads x 3 greedy requests, the
+              tokens equal to phase 13's, 4 paged_attention launches a
+              decode dispatch, tokens/s and TTFT beside phase 13's.
 
-The last three lines of output are a JSON line listing each kernel's
-numbers, the card's name and power limit, and
+The last four lines of output are phase 14's summary, a JSON line
+listing each kernel's numbers, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -385,6 +410,31 @@ GEN_LOGIT_LIMIT = 1e-4
 # 16-token system prompt (2 blocks) and a 4-token user suffix, 6 new
 # tokens each, prefill buckets of 8 and 32; chunks of 4 tokens
 GEN_SYSTEM, GEN_SUFFIX, GEN_PREFIX_NEW, GEN_CHUNK = 16, 4, 6, 4
+# phase 14, the serving front door: phase 3's bundle behind ModelServer
+# (batching on, the default buckets and max delay) on the card. The
+# correctness run: SRV_CLIENTS client threads of SRV_PER_CLIENT requests,
+# each of 1 to SRV_MAX_ROWS images drawn from --seed. The latency window:
+# SRV_LAT_PER_SIZE requests of each size 1..SRV_MAX_ROWS, shuffled over
+# the same clients. The batch-1 throughput: SRV_THR_ROUNDS windows of
+# SRV_THR_WINDOW_S seconds for each mode, in turns. One client alone
+# times (and holds bitwise) requests of SRV_WIRE_SIZES images
+SRV_CLIENTS, SRV_PER_CLIENT, SRV_MAX_ROWS = 8, 6, 8
+SRV_LAT_PER_SIZE = 100
+SRV_THR_WINDOW_S, SRV_THR_ROUNDS = 3.0, 2
+SRV_WIRE_SIZES = (1, 3, 8)
+# a served reply against the in-process engine.infer of the same rows.
+# Where the dispatch's bucket is the solo request's, every op sees the
+# same shapes and the reply must be bitwise equal. conv_affine sums each
+# output in an order set by K alone (csrc/conv_mma.cuh), so its rows do
+# not depend on the bucket either: phase 14 holds that bitwise on every
+# kernel-routed conv (conv_bucket_check), and finds which ops do move a
+# request's rows between buckets (op_drift: on an H100 only the fc's
+# GEMM, at bucket 1, where cuBLAS takes another kernel for one row).
+# Across two buckets where no op starts a drift the reply must still be
+# bitwise; across a drift source the plain-routed op sums in another
+# float32 order, which moves a softmax reply by float32 roundings:
+# phase 3's kernel-vs-plain limit, REL_LIMIT["float32"] of the largest
+SRV_REL_LIMIT = REL_LIMIT["float32"]
 
 
 def fail(msg):
@@ -463,22 +513,34 @@ def build_resnet50(fluid, seed):
     return main, startup, prob
 
 
-def fused_conv_shapes(fluid, main, batch):
-    """{(x_shape, w_shape, strides, paddings, act): count per forward} over
-    the fused conv+bn ops of a fused program, at ``batch``."""
+def conv_key(block, op, batch):
+    """(x_shape, w_shape, strides, paddings, dilations, groups, act) of a
+    fused conv+bn op at ``batch``."""
     from paddle_tpu_torch.ops.conv_ops import conv_attrs
+    x = (batch,) + tuple(block.var(op.input("Input")[0]).shape[1:])
+    w = tuple(block.var(op.input("Filter")[0]).shape)
+    strides, paddings, dilations, groups = conv_attrs(op.attr)
+    return (x, w, strides, paddings, dilations, groups,
+            op.attr("act", "") or "")
+
+
+def fused_conv_shapes(fluid, main, batch):
+    """{conv_key: count per forward} over the fused conv+bn ops of a fused
+    program, at ``batch``."""
     block = main.global_block()
     shapes = {}
     for op in block.ops:
-        if op.type != "fused_conv2d_bn":
-            continue
-        x = (batch,) + tuple(block.var(op.input("Input")[0]).shape[1:])
-        w = tuple(block.var(op.input("Filter")[0]).shape)
-        strides, paddings, dilations, groups = conv_attrs(op.attr)
-        key = (x, w, strides, paddings, dilations, groups,
-               op.attr("act", "") or "")
-        shapes[key] = shapes.get(key, 0) + 1
+        if op.type == "fused_conv2d_bn":
+            key = conv_key(block, op, batch)
+            shapes[key] = shapes.get(key, 0) + 1
     return shapes
+
+
+def kernel_routed(cbk, key):
+    """Whether a fused conv of this conv_key launches conv_affine in a
+    float32 NHWC forward (else it takes the plain chain)."""
+    return cbk.supported(key[0], key[1], key[2], key[3], key[4], key[5],
+                         "NHWC", "float32")
 
 
 def conv_work(x, w, strides, paddings, itemsize):
@@ -523,8 +585,7 @@ def phase_kernels(torch, fluid, seed):
         return d / max(ref.abs().max().item(), 1e-30), d
 
     shapes8 = fused_conv_shapes(fluid, main, 8)
-    kernel_keys = [k for k in shapes8 if cbk.supported(
-        k[0], k[1], k[2], k[3], k[4], k[5], "NHWC", "float32")]
+    kernel_keys = [k for k in shapes8 if kernel_routed(cbk, k)]
     n_kernel = sum(shapes8[k] for k in kernel_keys)
     n_plain = sum(shapes8.values()) - n_kernel
     if (n_kernel, n_plain) != (KERNEL_CONVS, PLAIN_CONVS):
@@ -690,15 +751,16 @@ def phase_serving(torch, fluid, seed, card):
     n_fused = fluid.fuse_conv_bn(main)
     if n_fused != KERNEL_CONVS + PLAIN_CONVS:
         fail(f"fuse_conv_bn fused {n_fused} chains, want 53")
-    with tempfile.TemporaryDirectory() as d:
-        fluid.io.save_inference_model(d, ["img"], [prob], exe,
-                                      main_program=main, scope=scope)
-        engine = InferenceEngine(d)
-        ref_engine = InferenceEngine(d)
-        t0 = time.perf_counter()
-        engine.warmup()
-        log(f"warmup of buckets {engine.buckets}: "
-            f"{time.perf_counter() - t0:.2f} s")
+    # kept for phase 14, which serves the same bundle over RPC
+    d = tempfile.mkdtemp(prefix="chip-smoke-resnet-")
+    fluid.io.save_inference_model(d, ["img"], [prob], exe,
+                                  main_program=main, scope=scope)
+    engine = InferenceEngine(d)
+    ref_engine = InferenceEngine(d)
+    t0 = time.perf_counter()
+    engine.warmup()
+    log(f"warmup of buckets {engine.buckets}: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     rng = np.random.RandomState(seed)
     feeds = {n: rng.normal(0, 1, (n, IMAGE, IMAGE, 3)).astype("float32")
@@ -783,7 +845,8 @@ def phase_serving(torch, fluid, seed, card):
     log(f"engine stats: {json.dumps(engine.stats())}")
     profile(torch, lambda: engine.infer(x32), "bucket-32 request", card,
             groups=CONV_AFFINE_LAUNCHES)
-    return launches
+    medians = {n: sorted(lat[n, "auto"])[LAT_REPS // 2] for n in REQUESTS}
+    return launches, dict(dir=d, lat_ms=medians)
 
 
 # the launches of conv_affine's C entry (float32: phase 3's route): the
@@ -3254,7 +3317,627 @@ def phase_generation(torch, fluid, seed, card):
                         "cold ones (or nothing was attached)")
     if problems:
         fail("; ".join(problems))
-    return kc["launches"]
+    ttft = np.asarray(kc["ttft"]) * 1e3
+    return kc["launches"], dict(
+        dir=d, tokens=kc["tokens"], tokens_per_s=n_tokens / kc["elapsed"],
+        ttft_p50=float(np.percentile(ttft, 50)),
+        ttft_p99=float(np.percentile(ttft, 99)))
+
+
+def is_plain_json(obj):
+    """Builtins only, all the way down (dict keys str or int), and
+    json.dumps takes it: what a client of either package unpickles without
+    torch."""
+    if isinstance(obj, dict):
+        return all(type(k) in (str, int) and is_plain_json(v)
+                   for k, v in obj.items())
+    if isinstance(obj, list):
+        return all(is_plain_json(v) for v in obj)
+    return obj is None or type(obj) in (str, int, float, bool)
+
+
+def run_clients(address, client_cls, fn, n=SRV_CLIENTS):
+    """``fn(i, client)`` in ``n`` threads, each with its own client, all
+    released at once; returns the wall time from the release to the last
+    join."""
+    import threading
+    errs = []
+    barrier = threading.Barrier(n + 1)
+
+    def worker(i):
+        try:
+            with client_cls(address) as c:
+                barrier.wait(60)
+                fn(i, c)
+        except Exception as e:
+            errs.append(f"client {i}: {type(e).__name__}: {e}")
+            barrier.abort()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    try:
+        barrier.wait(60)
+    except threading.BrokenBarrierError:
+        pass
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(300)
+    elapsed = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        fail(f"serving clients failed: {errs[:3]}")
+    return elapsed
+
+
+def conv_bucket_check(torch, cbk, program, buckets, seed):
+    """conv_affine at each smaller bucket against the same rows inside the
+    largest bucket, on every distinct kernel-routed conv of the served
+    program (float32, the served dtype). Returns the (geometry, bucket)
+    pairs that were not bitwise equal, the number of pairs checked, and
+    whether a planted fault (the rows shifted by one) was caught."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 142)
+    top = buckets[-1]
+    keys = [k for k in fused_conv_shapes(None, program, top)
+            if kernel_routed(cbk, k)]
+    moved, checked, planted = [], 0, None
+    for x_shape, w_shape, strides, paddings, _, _, act in keys:
+        cout, cin, kh, kw = w_shape
+        x = torch.randn(x_shape, generator=gen, device=dev)
+        w = torch.randn(w_shape, generator=gen, device=dev) \
+            * (2.0 / (cin * kh * kw)) ** 0.5
+        a = torch.rand(cout, generator=gen, device=dev) + 0.5
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        y = cbk.conv_affine(x, w, a, b, strides, paddings, act)
+        for n in buckets[:-1]:
+            yn = cbk.conv_affine(x[:n], w, a, b, strides, paddings, act)
+            checked += 1
+            if not torch.equal(yn, y[:n]):
+                moved.append((x_shape[1:], w_shape, strides, n))
+            if planted is None:
+                planted = not torch.equal(yn, y[1:n + 1])
+    return moved, checked, planted
+
+
+def op_drift(torch, fluid, cbk, model_dir, buckets, seed):
+    """Which ops of the served forward move a request's rows when its
+    bucket grows. The bundle, loaded anew on the card, runs the largest
+    bucket's rows and, for each smaller bucket, its first rows alone,
+    fetching every op's outputs; an op whose output rows differ while all
+    its inputs' rows agree is where a drift starts. Returns {bucket:
+    (ops whose outputs moved, [sources as "label@op index"])} and the
+    number of ops."""
+    import numpy as np
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    program, feeds, _ = fluid.io.load_inference_model(model_dir, exe,
+                                                      scope=scope)
+    block = program.global_block()
+    names = list(dict.fromkeys(n for op in block.ops
+                               for n in op.output_arg_names()))
+    top = buckets[-1]
+    x = np.random.RandomState(seed + 141).normal(
+        0, 1, (top, IMAGE, IMAGE, 3)).astype("float32")
+
+    def run(rows):
+        outs = exe.run(program, feed={feeds[0]: rows}, fetch_list=names,
+                       scope=scope, return_numpy=False)
+        return dict(zip(names, outs))
+
+    def label(op):
+        if op.type != "fused_conv2d_bn":
+            return op.type
+        key = conv_key(block, op, top)
+        return "conv_affine" if kernel_routed(cbk, key) else \
+            f"plain conv {key[1][2]}x{key[1][3]}/{key[2][0]}"
+
+    big = run(x)
+    drift = {}
+    for b in buckets[:-1]:
+        small = run(x[:b])
+        agree = {}
+
+        def rows_agree(n):
+            if n not in agree:
+                s, t = small.get(n), big.get(n)
+                if not isinstance(s, torch.Tensor) \
+                        or not isinstance(t, torch.Tensor):
+                    agree[n] = True      # a feed or a parameter
+                elif s.dim() and s.shape[0] == b and t.shape[0] == top:
+                    agree[n] = torch.equal(s, t[:b])
+                else:
+                    agree[n] = s.shape != t.shape or torch.equal(s, t)
+            return agree[n]
+
+        moved, sources = 0, []
+        for k, op in enumerate(block.ops):
+            if all(rows_agree(n) for n in op.output_arg_names()):
+                continue
+            moved += 1
+            if all(rows_agree(n) for n in op.input_arg_names()):
+                sources.append(f"{label(op)}@{k}")
+        drift[b] = (moved, sources)
+        del small
+    return drift, len(block.ops)
+
+
+def phase_front_door(torch, fluid, seed, card, serving, gen):
+    """Serve phase 3's ResNet-50 bundle and phase 13's decoder LM through
+    ModelServer over the framed RPC codec on the card. Returns the
+    conv_affine and paged_attention launches of its main paths (the
+    8-client ResNet-50 run and the LM lane)."""
+    import hashlib
+    import shutil
+    import threading
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import GenClient, InferClient, ModelServer
+
+    log(f"\n== phase 14: serving over RPC: ResNet-50 (phase 3's bundle) "
+        f"behind ModelServer, {SRV_CLIENTS} InferClients x "
+        f"{SRV_PER_CLIENT} requests of 1-{SRV_MAX_ROWS} images; the LM "
+        f"lane (phase 13's bundle) behind a generative ModelServer, "
+        f"{GEN_CLIENTS} GenClients x {GEN_PER_CLIENT} | {card} ==")
+    problems = []
+    summary = {}
+    t_phase = t0 = time.perf_counter()
+    server = ModelServer(serving["dir"], batching=True)
+    server.start()
+    eng = server.engine
+    health = server.health()
+    log(f"ModelServer on {eng.device}, buckets {eng.buckets}: load and "
+        f"warmup {time.perf_counter() - t0:.2f} s; health "
+        f"{json.dumps(health)}")
+    if eng.device.type != "cuda" or not health["warmed"]:
+        fail(f"the ModelServer's engine runs on {eng.device}, warmed "
+             f"{health['warmed']}: want the card, warmed")
+
+    rng = np.random.RandomState(seed + 14)
+    sizes = rng.randint(1, SRV_MAX_ROWS + 1, (SRV_CLIENTS, SRV_PER_CLIENT))
+    feeds = [[rng.normal(0, 1, (n, IMAGE, IMAGE, 3)).astype("float32")
+              for n in row] for row in sizes]
+    n_req = SRV_CLIENTS * SRV_PER_CLIENT
+
+    # every coalesced dispatch the batcher makes, with the engine's reply
+    dispatches = []
+    real_infer = eng.infer
+
+    def spy(feed, fetch_list=None):
+        out = real_infer(feed, fetch_list)
+        dispatches.append((feed["img"], out[0]))
+        return out
+
+    eng.infer = spy
+    replies = [[None] * SRV_PER_CLIENT for _ in range(SRV_CLIENTS)]
+
+    def mixed(i, c):
+        for j in range(SRV_PER_CLIENT):
+            replies[i][j], = c.infer({"img": feeds[i][j]})
+
+    st0 = server.stats()
+    torch.cuda.synchronize()
+    cbk.reset_launches()
+    tier.reset_fallback_counts()
+    elapsed = run_clients(server.address, InferClient, mixed)
+    launches = cbk.launches["conv_affine"]
+    fallbacks = tier.fallback_counts().get("conv_bn", 0)
+    eng.infer = real_infer
+    st1 = server.stats()
+    n_disp = len(dispatches)
+    batches = st1["batcher"]["batches"] - st0["batcher"]["batches"]
+    engine_disp = st1["engine"]["dispatches"] - st0["engine"]["dispatches"]
+    hist = {k: v - st0["batcher"]["batch_size_hist"].get(k, 0)
+            for k, v in st1["batcher"]["batch_size_hist"].items()}
+    hist = {k: v for k, v in sorted(hist.items()) if v}
+    n_rows = int(sizes.sum())
+    log(f"main path: {n_req} requests ({n_rows} images) in "
+        f"{elapsed * 1e3:.1f} ms; {n_disp} engine dispatches (batcher "
+        f"batches {batches}, engine dispatches {engine_disp}), rows per "
+        f"dispatch {hist}; conv_affine launches {launches}, plain-routed "
+        f"fused convs {fallbacks}; hot recompiles "
+        f"{st1['engine']['hot_recompiles']}")
+    if not (n_disp == batches == engine_disp) or not n_disp < n_req:
+        problems.append(f"{n_disp} dispatches ({batches} batches, "
+                        f"{engine_disp} engine dispatches) for {n_req} "
+                        "requests: no coalescing")
+    if launches != KERNEL_CONVS * n_disp or fallbacks != PLAIN_CONVS * n_disp:
+        problems.append(f"conv_affine launched {launches} times and "
+                        f"{fallbacks} convs took the plain chain in {n_disp} "
+                        f"dispatches, want {KERNEL_CONVS} and {PLAIN_CONVS} "
+                        "each")
+    if st1["engine"]["hot_recompiles"]:
+        problems.append("the warmed engine counted hot recompiles")
+
+    # do a request's rows depend on the bucket? conv_affine alone, then
+    # every op of the served forward: the replies below must be bitwise
+    # wherever no op starts a drift between their two buckets
+    moved, checked, planted = conv_bucket_check(
+        torch, cbk, eng.program, eng.buckets, seed)
+    log(f"conv_affine across buckets: {checked - len(moved)} of {checked} "
+        f"(geometry, bucket) pairs bitwise the same rows inside bucket "
+        f"{eng.buckets[-1]}; planted fault (rows shifted by one) caught: "
+        f"{planted}")
+    if moved or not planted:
+        problems.append(f"conv_affine's rows depend on the bucket: "
+                        f"{moved[:3]} (planted caught {planted})")
+    drift, n_ops = op_drift(torch, fluid, cbk, serving["dir"], eng.buckets,
+                            seed)
+    log(f"ops whose outputs move a request's rows against bucket "
+        f"{eng.buckets[-1]} (of {n_ops}), and where each drift starts: "
+        + "; ".join(f"bucket {b}: {m}, {src or 'none'}"
+                    for b, (m, src) in drift.items()))
+    if any(src.startswith("conv_affine@")
+           for _, srcs in drift.values() for src in srcs):
+        problems.append("a kernel-routed conv starts a drift between "
+                        "buckets")
+    summary["conv_bucket_pairs"] = [checked - len(moved), checked]
+    summary["drift_sources"] = {b: src for b, (_, src) in drift.items()}
+
+    # each request's rows in the dispatch that carried them, and how many
+    # requests each dispatch carried
+    def key(row):
+        return hashlib.sha1(row).digest()
+
+    where = {}
+    for k, (x, _) in enumerate(dispatches):
+        for r in range(len(x)):
+            where[key(x[r])] = (k, r)
+    firsts = {key(f[0]) for row in feeds for f in row}
+    per_dispatch = [sum(key(r) in firsts for r in x) for x, _ in dispatches]
+    counts = {"same bucket": 0, "other bucket": 0, "drifting": 0,
+              "bitwise": 0}
+    loose = []    # (request size, dispatch rows) of the replies not bitwise
+    worst, planted_caught, planted_done = 0.0, None, False
+
+    def check(y, served, solo, exact):
+        """None, or what is wrong with reply ``y``: it must be bitwise the
+        engine's reply in the dispatch that served it, and the in-process
+        engine's solo reply for the same rows: bitwise where ``exact`` (the
+        same bucket, or two buckets between which no op starts a drift),
+        else within SRV_REL_LIMIT."""
+        if y.shape != solo.shape or not np.isfinite(y).all():
+            return f"shape {y.shape}, finite {np.isfinite(y).all()}"
+        if not np.array_equal(y, served):
+            return "differs from its dispatch's rows"
+        if exact:
+            return None if np.array_equal(y, solo) else \
+                "not bitwise the solo reply where no op drifts"
+        rel = float(np.abs(y - solo).max() / np.abs(solo).max())
+        return None if rel <= SRV_REL_LIMIT else f"rel err {rel:.3e}"
+
+    for i in range(SRV_CLIENTS):
+        for j in range(SRV_PER_CLIENT):
+            x, y = feeds[i][j], replies[i][j]
+            n = len(x)
+            k, o = where.get(key(x[0]), (None, None))
+            if k is None or not np.array_equal(dispatches[k][0][o:o + n], x):
+                problems.append(f"request ({i}, {j}): its rows are not in "
+                                "one dispatch")
+                continue
+            served = dispatches[k][1][o:o + n]
+            solo, = real_infer({"img": x})
+            pair = (eng.bucket_for(n), eng.bucket_for(len(dispatches[k][0])))
+            same = pair[0] == pair[1]
+            exact = same or not any(drift.get(b, (0, []))[1] for b in pair)
+            counts["same bucket" if same else "other bucket"] += 1
+            counts["drifting"] += int(not exact)
+            counts["bitwise"] += int(np.array_equal(y, solo))
+            if not np.array_equal(y, solo):
+                loose.append((n, len(dispatches[k][0])))
+            worst = max(worst, float(np.abs(y - solo).max()
+                                     / np.abs(solo).max()))
+            if np.abs(y.sum(axis=1) - 1).max() > 1e-4:
+                problems.append(f"request ({i}, {j}): softmax rows do not "
+                                "sum to 1")
+            bad = check(y, served, solo, exact)
+            if bad:
+                problems.append(f"request ({i}, {j}) of {n} images: {bad}")
+            if n >= 2 and not planted_done:
+                # planted fault: this reply's rows in reverse order
+                planted_done = True
+                planted_caught = check(y[::-1], served, solo, exact)
+    log(f"requests per dispatch: {per_dispatch}")
+    if max(per_dispatch, default=0) < 2:
+        problems.append("no dispatch carried two requests")
+    log(f"replies against the engine: {counts['same bucket']} on the solo "
+        f"request's bucket, {counts['other bucket']} on another, "
+        f"{counts['drifting']} of those across a drift source; "
+        f"{counts['bitwise']} of {n_req} bitwise the in-process "
+        f"engine.infer of the same rows (the others, as (request rows, "
+        f"dispatch rows): {loose}); largest |Δ| / max |reply| {worst:.3e} "
+        f"(limit {SRV_REL_LIMIT} across a drift source, 0 elsewhere); "
+        f"every reply bitwise its dispatch's rows; planted fault (a reply's "
+        f"rows reversed) caught: {planted_caught}")
+    if not planted_caught:
+        problems.append("a reply with its rows reversed passed the check")
+
+    summary.update(requests=n_req, images=n_rows, dispatches=n_disp,
+                   rows_per_dispatch=hist, bitwise=counts["bitwise"],
+                   drifting=counts["drifting"], rel_err=worst)
+
+    # latency by request size under 8 clients: SRV_LAT_PER_SIZE requests
+    # of each size, shuffled over the clients
+    lat_sizes = np.repeat(np.arange(1, SRV_MAX_ROWS + 1), SRV_LAT_PER_SIZE)
+    rng.shuffle(lat_sizes)
+    lat_sizes = np.array_split(lat_sizes, SRV_CLIENTS)
+    pool = rng.normal(0, 1, (SRV_MAX_ROWS, IMAGE, IMAGE, 3)).astype(
+        "float32")
+    lat = [[] for _ in range(SRV_CLIENTS)]
+
+    def timed(i, c):
+        for n in lat_sizes[i]:
+            t1 = time.perf_counter()
+            y, = c.infer({"img": pool[:n]})
+            lat[i].append((int(n), (time.perf_counter() - t1) * 1e3))
+            if y.shape != (n, CLASSES) or not np.isfinite(y).all():
+                raise ValueError(f"a reply of shape {y.shape} to {n} images")
+
+    b0 = server.stats()["batcher"]["batches"]
+    lat_s = run_clients(server.address, InferClient, timed)
+    lat_disp = server.stats()["batcher"]["batches"] - b0
+    by_n = {}
+    for n, ms in (p for per in lat for p in per):
+        by_n.setdefault(n, []).append(ms)
+    summary["load_latency_ms"] = {
+        n: dict(count=len(v), p50=float(np.percentile(v, 50)),
+                p99=float(np.percentile(v, 99)), max=float(max(v)))
+        for n, v in sorted(by_n.items())}
+    log(f"latency window: {sum(len(v) for v in by_n.values())} requests "
+        f"from {SRV_CLIENTS} clients in {lat_s:.2f} s, {lat_disp} "
+        f"dispatches; over the wire by request size (count, p50, p99, max "
+        f"ms): " + "; ".join(
+            f"{n}: {v['count']}, {v['p50']:.2f}, {v['p99']:.2f}, "
+            f"{v['max']:.2f}" for n, v in summary["load_latency_ms"].items())
+        + f" | {card}")
+    if any(len(v) < SRV_LAT_PER_SIZE for v in by_n.values()) \
+            or len(by_n) != SRV_MAX_ROWS:
+        problems.append("the latency window lost requests")
+
+    with InferClient(server.address) as c:
+        for name, obj in (("health", c.health()), ("stats", c.stats())):
+            if not is_plain_json(obj):
+                problems.append(f"{name}() is not plain JSON")
+            json.dumps(obj)
+
+    # one client, one request at a time: the wire's cost per call beside
+    # the in-process engine (this call) and phase 3's medians. Each
+    # request rides a dispatch of its own, so on its solo bucket: its
+    # reply must be bitwise the in-process engine's
+    wire, solo = {}, []
+    with InferClient(server.address) as c:
+        for n in SRV_WIRE_SIZES:
+            x = {"img": feeds[0][0][:1].repeat(n, axis=0)}
+            s0, c0 = server.stats()["wire"], c.wire_stats()
+            b0 = server.stats()["batcher"]["batches"]
+            over, local = [], []
+            for _ in range(LAT_REPS):
+                t1 = time.perf_counter()
+                y, = c.infer(x)
+                over.append((time.perf_counter() - t1) * 1e3)
+                t1 = time.perf_counter()
+                want, = real_infer(x)
+                local.append((time.perf_counter() - t1) * 1e3)
+                solo.append(check(y, y, want, True))
+            s1, c1 = server.stats()["wire"], c.wire_stats()
+            if server.stats()["batcher"]["batches"] - b0 != LAT_REPS:
+                problems.append(f"one client's requests of {n} images did "
+                                "not each ride a dispatch of their own")
+            calls = s1["calls"]["infer"]["count"] - \
+                s0["calls"]["infer"]["count"]
+            srv_s = s1["calls"]["infer"]["total_s"] - \
+                s0["calls"]["infer"]["total_s"]
+            cli_s = c1["calls"]["infer"]["total_s"] - \
+                c0["calls"].get("infer", {}).get("total_s", 0.0)
+            wire[n] = dict(
+                over_ms=sorted(over)[LAT_REPS // 2],
+                local_ms=sorted(local)[LAT_REPS // 2],
+                phase3_ms=serving["lat_ms"].get(n),
+                request_bytes=(s1["bytes_recv"] - s0["bytes_recv"]) / calls,
+                reply_bytes=(s1["bytes_sent"] - s0["bytes_sent"]) / calls,
+                client_ms=cli_s / calls * 1e3, server_ms=srv_s / calls * 1e3)
+            w = wire[n]
+            p3 = "n/a" if w["phase3_ms"] is None else \
+                f"{w['phase3_ms']:.2f}"
+            log(f"batch {n}: median of {LAT_REPS} over the wire "
+                f"{w['over_ms']:.2f} ms, in-process {w['local_ms']:.2f} ms "
+                f"(phase 3: {p3}); per call {w['request_bytes']:.0f} bytes "
+                f"in, {w['reply_bytes']:.0f} out, the client's "
+                f"{w['client_ms']:.2f} ms of which the server's handler "
+                f"{w['server_ms']:.2f} (WireStats) | {card}")
+    summary["wire"] = wire
+    bad = [b for b in solo if b]
+    log(f"one client alone: {len(solo) - len(bad)} of {len(solo)} replies, "
+        f"each on its solo bucket, bitwise the in-process engine.infer of "
+        f"the same rows")
+    if bad:
+        problems.append(f"on its solo bucket: {bad[0]}")
+    summary["solo_bitwise"] = [len(solo) - len(bad), len(solo)]
+
+    # a dispatch first made from a non-main thread: a server that skipped
+    # warmup makes each bucket's first dispatch on its batcher's worker
+    cold = ModelServer(serving["dir"], batching=True)
+    cold.start(warmup=False)
+    try:
+        cbk.reset_launches()
+        x3 = {"img": feeds[0][0][:1].repeat(3, axis=0)}
+        with InferClient(cold.address) as c:
+            y3, = c.infer(x3)
+        cold_launches = cbk.launches["conv_affine"]
+        cst = cold.stats()["engine"]
+        same = np.array_equal(y3, real_infer(x3)[0])
+        log(f"cold server (no warmup; first dispatch on the batcher's worker "
+            f"thread): bitwise the warm engine's reply {same}, conv_affine "
+            f"launches {cold_launches}, first dispatches {cst['compiles']}")
+        if not same or cold_launches != KERNEL_CONVS:
+            problems.append("a first dispatch on a worker thread differs "
+                            "from the main thread's")
+    finally:
+        cold.shutdown()
+        cold.engine.release()
+
+    # images/s, 8 clients of batch-1 requests, batching on and off in
+    # turns: windows of SRV_THR_WINDOW_S seconds, each client sending
+    # until its window closes
+    ones = rng.normal(0, 1, (64, IMAGE, IMAGE, 3)).astype("float32")
+    sent = [0] * SRV_CLIENTS
+
+    def batch1(i, c):
+        end, k = time.perf_counter() + SRV_THR_WINDOW_S, 0
+        while time.perf_counter() < end:
+            c.infer({"img": ones[(i * 8 + k) % len(ones)][None]})
+            k += 1
+        sent[i] = k
+
+    off = ModelServer(engine=eng, batching=False)
+    off.start(warmup=False)
+    thr = {"on": [], "off": []}
+    try:
+        for _ in range(SRV_THR_ROUNDS):
+            for mode, srv in (("on", server), ("off", off)):
+                b0 = srv.stats()["engine"]["dispatches"]
+                secs = run_clients(srv.address, InferClient, batch1)
+                disp = srv.stats()["engine"]["dispatches"] - b0
+                thr[mode].append((sum(sent) / secs, sum(sent), secs, disp))
+    finally:
+        off.shutdown()
+    log(f"batch-1 requests from {SRV_CLIENTS} clients in windows of "
+        f"{SRV_THR_WINDOW_S} s, images/s (requests, seconds, engine "
+        f"dispatches): batching on " + ", ".join(
+            f"{r:.1f} ({n}, {t:.2f}, {d})" for r, n, t, d in thr["on"])
+        + "; off " + ", ".join(
+            f"{r:.1f} ({n}, {t:.2f}, {d})" for r, n, t, d in thr["off"])
+        + f" | {card}")
+    summary["batch1_images_per_s"] = {m: [r for r, *_ in v]
+                                      for m, v in thr.items()}
+    summary["batch1_requests"] = {m: [n for _, n, *_ in v]
+                                  for m, v in thr.items()}
+
+    # drain: shutdown(drain=True) while every client has a request in flight
+    gate, held = threading.Event(), []
+
+    def gated(feed, fetch_list=None):
+        held.append(len(feed["img"]))
+        gate.wait(120)
+        return real_infer(feed, fetch_list)
+
+    eng.infer = gated
+    answers = {}
+    req0 = server.stats()["batcher"]["requests"]
+
+    def one(i):
+        with InferClient(server.address) as c:
+            answers[i], = c.infer({"img": feeds[i][0]})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(SRV_CLIENTS)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while (server.stats()["batcher"]["requests"] - req0 < SRV_CLIENTS
+           or not held) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    drained = []
+    sd = threading.Thread(target=lambda: drained.append(
+        server.shutdown(drain=True, timeout=120)))
+    sd.start()
+    while not server._rpc._draining.is_set() and time.monotonic() < deadline:
+        time.sleep(0.005)
+    answered_before = len(answers)
+    gate.set()
+    sd.join(180)
+    for t in threads:
+        t.join(60)
+    eng.infer = real_infer
+    ok = [i for i, y in answers.items()
+          if y.shape == replies[i][0].shape and np.isfinite(y).all()
+          and np.abs(y - replies[i][0]).max()
+          <= SRV_REL_LIMIT * np.abs(replies[i][0]).max()]
+    log(f"drain: shutdown(drain=True) with {SRV_CLIENTS} requests in "
+        f"flight ({answered_before} answered when it began): returned "
+        f"{drained}, {len(answers)} answered, {len(ok)} equal to their "
+        f"main-path replies")
+    if drained != [True] or len(ok) != SRV_CLIENTS or answered_before:
+        problems.append(f"drain: returned {drained}, answered "
+                        f"{len(answers)} of {SRV_CLIENTS} ({len(ok)} right, "
+                        f"{answered_before} before the drain)")
+
+    # the LM lane behind a generative ModelServer
+    gserver = ModelServer(gen["dir"], model_kind="generative", gen_opts=dict(
+        max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK, num_blocks=GEN_BLOCKS,
+        max_len=GEN_MAX_LEN, prefill_buckets=(8,)))
+    try:
+        t0 = time.perf_counter()
+        gserver.start()
+        geng = gserver.engine
+        log(f"generative ModelServer on {geng.device}: load and warmup "
+            f"{time.perf_counter() - t0:.2f} s")
+        if geng.device.type != "cuda":
+            fail(f"the generative engine runs on {geng.device}")
+        want = [[GEN_LENS[(3 * i + 5 * j) % len(GEN_LENS)]
+                 for j in range(GEN_PER_CLIENT)] for i in range(GEN_CLIENTS)]
+        toks = [[None] * GEN_PER_CLIENT for _ in range(GEN_CLIENTS)]
+        ttft = []
+
+        def lane(i, c):
+            for j, n in enumerate(want[i]):
+                t1 = time.perf_counter()
+                got = []
+                for t in c.generate([1 + i, 2 + j, 3], n):
+                    if not got:
+                        ttft.append((time.perf_counter() - t1) * 1e3)
+                    got.append(t)
+                toks[i][j] = got
+
+        decodes0 = geng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+            "dispatches"]
+        lat0 = gserver.stats()["latency"]["count"]
+        torch.cuda.synchronize()
+        pak.reset_launches()
+        tier.reset_fallback_counts()
+        gelapsed = run_clients(gserver.address, GenClient, lane,
+                               n=GEN_CLIENTS)
+        glaunches = pak.launches["paged_attention"]
+        gfall = tier.fallback_counts()
+        gst = gserver.stats()
+        decodes = gst["engine"]["phases"]["decode"][GEN_MAX_SEQS][
+            "dispatches"] - decodes0
+        n_tokens = sum(len(t) for per in toks for t in per)
+        same = toks == gen["tokens"]
+        log(f"LM lane over the wire: {n_tokens} tokens in "
+            f"{gelapsed * 1e3:.1f} ms, {n_tokens / gelapsed:.1f} tokens/s "
+            f"(phase 13 in-process: {gen['tokens_per_s']:.1f}); TTFT at the "
+            f"client p50 {np.percentile(ttft, 50):.2f} p99 "
+            f"{np.percentile(ttft, 99):.2f} ms (phase 13 in-process: "
+            f"{gen['ttft_p50']:.2f}, {gen['ttft_p99']:.2f}); the server's "
+            f"time to first frame p50 {gst['latency']['p50_ms']:.2f} p99 "
+            f"{gst['latency']['p99_ms']:.2f} ms over "
+            f"{gst['latency']['count'] - lat0} requests; {decodes} decode "
+            f"dispatches, paged_attention launches {glaunches}, fallbacks "
+            f"{gfall}; tokens = phase 13's {same} | {card}")
+        if not same:
+            problems.append("the LM lane's tokens over GenClient differ from "
+                            "phase 13's in-process tokens")
+        if glaunches != GEN_LAYERS * decodes or not decodes or gfall:
+            problems.append(f"{glaunches} paged_attention launches over "
+                            f"{decodes} decode dispatches (want {GEN_LAYERS} "
+                            f"each), fallbacks {gfall}")
+        summary["lm"] = dict(tokens=n_tokens,
+                             tokens_per_s=n_tokens / gelapsed,
+                             ttft_p50=float(np.percentile(ttft, 50)),
+                             ttft_p99=float(np.percentile(ttft, 99)),
+                             decodes=decodes, launches=glaunches)
+    finally:
+        gserver.shutdown()
+    shutil.rmtree(serving["dir"], ignore_errors=True)
+    shutil.rmtree(gen["dir"], ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 took {summary['phase_s']:.1f} s")
+    if problems:
+        fail("; ".join(problems))
+    return launches, glaunches, summary
 
 
 def start_planted_ctc(build):
@@ -3322,7 +4005,7 @@ def main():
 
     totals = phase_kernels(torch, fluid, args.seed)
     train_totals = phase_train_kernels(torch, fluid, args.seed)
-    launches = phase_serving(torch, fluid, args.seed, card)
+    launches, serving = phase_serving(torch, fluid, args.seed, card)
     train_launches = phase_training(torch, fluid, args.seed, card)
     rnn_totals = phase_rnn_kernels(torch, fluid, args.seed, card)
     rnn_launches = phase_textcls(torch, fluid, args.seed, card)
@@ -3332,7 +4015,9 @@ def main():
     sparse_totals = phase_sparse_kernels(torch, fluid, args.seed, card)
     w2v_launches = phase_word2vec(torch, fluid, args.seed, card)
     paged_totals = phase_paged_kernels(torch, fluid, args.seed, card)
-    gen_launches = phase_generation(torch, fluid, args.seed, card)
+    gen_launches, gen = phase_generation(torch, fluid, args.seed, card)
+    srv_launches, srv_gen_launches, srv_summary = phase_front_door(
+        torch, fluid, args.seed, card, serving, gen)
 
     def entry(name, source, replaces, n, t, extra=()):
         return {"name": name, "route": "cuda",
@@ -3345,7 +4030,7 @@ def main():
 
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
-              launches, totals),
+              launches + srv_launches, totals),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
               train_launches["conv_bn_train"], train_totals["conv_bn_train"]),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
@@ -3375,11 +4060,13 @@ def main():
         entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
               w2v_launches["embedding_sgd"], sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
-              "pallas/paged_attention.py:100", gen_launches,
+              "pallas/paged_attention.py:100",
+              gen_launches + srv_gen_launches,
               paged_totals["paged_attention"],
               ("llama_ms", "llama_bound_ms", "llama_4096_ms",
                "llama_4096_bound_ms")),
     ]
+    log("phase 14 summary: " + json.dumps(srv_summary))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

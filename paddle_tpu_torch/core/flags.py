@@ -1,8 +1,12 @@
 """Global flags registry (counterpart of paddle_tpu/core/flags.py), holding
 only the flags the ported paths read: ``kernel_tier``,
-``serving_batch_buckets`` and the generation-serving flags (reference
+``serving_batch_buckets``, the generation-serving flags (reference
 :216-330, without the KV spill tier's ``serving_kv_spill_dir`` and
-``serving_kv_spill_bytes``)."""
+``serving_kv_spill_bytes``), the serving front door's (``rpc_timeout_s``,
+``serving_max_delay_ms``, ``serving_max_models`` and the tenant quota
+flags) and the observability plane's (``obs_metrics_window``,
+``obs_slo_interval_s``, ``obs_flight_events``, ``obs_incident_dir``), each
+with the reference's default."""
 
 from __future__ import annotations
 
@@ -42,10 +46,82 @@ DEFINE_flag("serving_batch_buckets", "1,2,4,8,16,32",
             "incoming batches up to; batches beyond the largest bucket are "
             "chunked through it (serving/engine.py)")
 
+DEFINE_flag("rpc_timeout_s", 90.0,
+            "host-RPC response deadline in seconds: how long RpcClient "
+            "waits for a reply before declaring the call timed out "
+            "(timeouts are never retried — the call may have applied). "
+            "Overridable per client via RpcClient(timeout=)")
+
+DEFINE_flag("serving_max_delay_ms", 5.0,
+            "how long the serving DynamicBatcher holds an under-full "
+            "batch open for more concurrent requests before dispatching "
+            "it anyway — the latency bound a single quiet-traffic "
+            "request pays for batching (a full bucket dispatches "
+            "immediately)")
+
 DEFINE_flag("serving_queue_capacity", 256,
-            "bound on requests waiting in a serving queue (the generation "
-            "ContinuousBatcher's). When full, new requests are rejected fast "
-            "with a typed ServerOverloaded the client can back off on")
+            "bound on requests waiting in a serving queue (the "
+            "DynamicBatcher's and the generation ContinuousBatcher's). When "
+            "full, new requests are rejected fast with a typed "
+            "ServerOverloaded the client can back off on, instead of "
+            "stretching everyone's latency without bound")
+
+DEFINE_flag("serving_max_models", 4,
+            "bound on engines a multi-model ModelServer hosts at once: "
+            "adding a model past the budget evicts the least-recently-"
+            "used IDLE hosted model first (a model with in-flight "
+            "requests is never an eviction candidate, and the server's "
+            "default model never evicts); when every candidate is busy "
+            "the add fails typed instead of over-committing memory")
+
+DEFINE_flag("serving_tenant_rate", 0.0,
+            "default per-tenant request rate (tokens per second) for "
+            "serving TenantQuotas buckets. Each request spends one "
+            "token; an empty bucket rejects typed with QuotaExceeded "
+            "carrying the refill ETA. <= 0 (default) means unlimited "
+            "unless a tenant has an explicit override")
+
+DEFINE_flag("serving_tenant_burst", 0,
+            "default per-tenant token-bucket ceiling for serving "
+            "TenantQuotas: how many requests a tenant can burst above "
+            "its steady rate. 0 (default) derives ceil(rate) so a "
+            "configured rate always admits at least one request")
+
+DEFINE_flag("serving_tenant_label_cap", 16,
+            "bound on distinct tenant ids mirrored into the "
+            "paddle_tpu_tenant_* metric label set per TenantQuotas "
+            "instance: tenant ids arrive off the wire, so past the cap "
+            "(or for a non-identifier name) the label funnels into "
+            "__other__ exactly like RPC method names — quota "
+            "ENFORCEMENT stays exact per tenant either way")
+
+DEFINE_flag("obs_metrics_window", 2048,
+            "default sample-window capacity of obs.metrics Histogram "
+            "children (each wraps a core.profiler.LatencyWindow ring of "
+            "this many recent observations for p50/p99 readout); "
+            "families may override per-histogram via window=")
+
+DEFINE_flag("obs_slo_interval_s", 1.0,
+            "evaluation period of a background obs.slo.SloMonitor: how "
+            "often each declared SLO rule is reduced against a registry "
+            "snapshot, its burn rate updated "
+            "(paddle_tpu_slo_burn_rate) and its multi-window breach "
+            "state re-judged. Overridable per monitor via "
+            "SloMonitor(interval_s=)")
+
+DEFINE_flag("obs_flight_events", 2048,
+            "capacity of the per-process flight recorder ring "
+            "(obs.recorder): how many recent structured lifecycle "
+            "events (overload and quota rejects, model adds, evictions "
+            "and reloads, ...) each process retains for the built-in "
+            "flight_dump RPC and incident bundles. Oldest events are "
+            "overwritten (the dropped count is reported in dumps)")
+
+DEFINE_flag("obs_incident_dir", "",
+            "directory obs.recorder.IncidentCollector writes incident "
+            "bundles (one JSON file per trigger) into; empty (default) "
+            "keeps bundles in-memory only (IncidentCollector.bundles, "
+            "bounded)")
 
 DEFINE_flag("serving_kv_block_size", 16,
             "tokens per KV-cache block in the generation-serving paged arena "

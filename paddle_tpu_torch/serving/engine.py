@@ -6,8 +6,15 @@ buckets (the ``serving_batch_buckets`` flag), chunks batches beyond the
 largest bucket through it, and trims every fetch back to the true row count.
 Padding rows replicate the batch's last row, which is inert for any per-row
 model. The reference pads so each bucket compiles once; this port runs
-eagerly, so the same buckets bound the set of shapes the kernels see, and
-the engine counts dispatches per bucket where the reference counts compiles.
+eagerly, so the same buckets bound the set of shapes the kernels see.
+
+The counters keep the reference's meaning and names
+(``paddle_tpu_engine_compiles`` / ``_hits`` / ``_hot_recompiles``, per
+instance and bucket): the first dispatch of a (bucket, fetch list, feed
+signature) counts as a compile, later ones as hits, and a first dispatch
+after :meth:`InferenceEngine.warmup` as a hot recompile. On the card that
+first dispatch is the one that builds and loads the kernels and sizes the
+allocator's pools for the shape.
 """
 
 from __future__ import annotations
@@ -19,11 +26,29 @@ import numpy as np
 
 from ..core.executor import Executor
 from ..core.flags import get_flag
+from ..core.profiler import record_event
 from ..core.scope import Scope
 from ..core.types import convert_dtype
 from ..fluid import io as fluid_io
+from ..obs import perf as _perf
+from ..obs.metrics import REGISTRY as _METRICS, json_safe, next_instance
 from ..ops import cuda as kernel_tier
 from ..ops.cuda import conv_bn
+
+_M_COMPILES = _METRICS.counter(
+    "paddle_tpu_engine_compiles",
+    "InferenceEngine first dispatches of a (bucket, signature), per engine "
+    "instance and bucket",
+    labels=("instance", "bucket"))
+_M_HITS = _METRICS.counter(
+    "paddle_tpu_engine_hits",
+    "InferenceEngine repeat dispatches of a seen (bucket, signature), per "
+    "engine instance and bucket",
+    labels=("instance", "bucket"))
+_M_HOT = _METRICS.counter(
+    "paddle_tpu_engine_hot_recompiles",
+    "first dispatches of a (bucket, signature) AFTER warmup",
+    labels=("instance",))
 
 
 def parse_buckets(spec=None):
@@ -55,21 +80,33 @@ def _pad_rows(a, bucket):
 
 
 class InferenceEngine:
-    """Bucket-padded executor for one saved inference model::
+    """Bucket-padded executor for one saved inference model. Point it at a
+    ``save_inference_model`` directory::
 
         engine = InferenceEngine(model_dir)                 # on cuda:0
         engine = InferenceEngine(model_dir, place=fluid.CPUPlace())
 
-    The engine loads the bundle's persistables into its OWN private scope,
-    so many engines coexist in one process. :meth:`infer` serializes
-    dispatches with a lock.
+    or hand it an already-loaded bundle (``program``, ``feed_names``,
+    ``fetch_vars``, with the ``executor`` and ``scope`` it was loaded
+    with). A ``model_dir`` engine loads the bundle's persistables into its
+    OWN private scope, so many engines coexist in one process.
+    :meth:`infer` serializes dispatches with a lock, whichever thread calls
+    it: every tensor lives on the executor's explicit device, and each
+    kernel launches on the current stream of that device.
     """
 
-    def __init__(self, model_dir, place=None, buckets=None):
-        self._scope = Scope()
-        self._exe = Executor(place)
-        program, feed_names, fetch_vars = fluid_io.load_inference_model(
-            model_dir, self._exe, scope=self._scope)
+    def __init__(self, model_dir=None, place=None, buckets=None,
+                 program=None, feed_names=None, fetch_vars=None,
+                 executor=None, scope=None):
+        self._scope = scope or Scope()
+        self._exe = executor or Executor(place)
+        if model_dir is not None:
+            program, feed_names, fetch_vars = fluid_io.load_inference_model(
+                model_dir, self._exe, scope=self._scope)
+        if program is None or feed_names is None or fetch_vars is None:
+            raise ValueError(
+                "InferenceEngine needs model_dir= or all of program=/"
+                "feed_names=/fetch_vars=")
         self._program = program
         self._feed_names = list(feed_names)
         self._fetch_names = [v if isinstance(v, str) else v.name
@@ -77,7 +114,16 @@ class InferenceEngine:
         self.buckets = parse_buckets(buckets)
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
-        self._dispatches = {b: 0 for b in self.buckets}
+        # (bucket, fetch names, feed signature) dispatched so far
+        self._seen = set()
+        self.obs_instance = next_instance("engine")
+        self._m_compiles = {b: _M_COMPILES.labels(instance=self.obs_instance,
+                                                  bucket=str(b))
+                            for b in self.buckets}
+        self._m_hits = {b: _M_HITS.labels(instance=self.obs_instance,
+                                          bucket=str(b))
+                        for b in self.buckets}
+        self._m_hot = _M_HOT.labels(instance=self.obs_instance)
         self._warmed = False
 
     @property
@@ -87,6 +133,24 @@ class InferenceEngine:
     @property
     def device(self):
         return self._exe.device
+
+    @property
+    def feed_names(self):
+        return list(self._feed_names)
+
+    @property
+    def fetch_names(self):
+        return list(self._fetch_names)
+
+    @property
+    def warmed(self):
+        """Whether warmup() ran — the cheap liveness bit health() reads."""
+        return self._warmed
+
+    @property
+    def hot_recompiles(self):
+        """First dispatches of a (bucket, signature) after warmup."""
+        return int(self._m_hot.value)
 
     @property
     def max_batch(self):
@@ -128,17 +192,20 @@ class InferenceEngine:
     def warmup(self, sample_feed=None):
         """Dispatch a one-row template (from ``sample_feed`` or the feed-var
         metadata) padded to every bucket, so every kernel has been built and
-        run once before the first request. Returns the number of buckets
-        dispatched."""
+        run once before the first request. Returns the number of first
+        dispatches it made (the reference's compile count: one per bucket
+        on a fresh engine, 0 on a warmed one)."""
         if sample_feed is None:
             feed = self._template_feed()
         else:
             feed = self._normalize_dtypes(
                 {k: np.asarray(v)[:1] for k, v in sample_feed.items()})
-        for b in self.buckets:
-            self._dispatch(feed, 1, b)
+        before = sum(c.value for c in self._m_compiles.values())
+        with record_event("serving/warmup", kind="stage"):
+            for b in self.buckets:
+                self._dispatch(feed, 1, b)
         self._warmed = True
-        return len(self.buckets)
+        return int(sum(c.value for c in self._m_compiles.values()) - before)
 
     def infer(self, feed, fetch_list=None):
         """Run one batch; returns the fetch arrays trimmed to the true row
@@ -174,12 +241,22 @@ class InferenceEngine:
     def _dispatch(self, arrs, n, bucket, fetch_names=None):
         fetch_names = fetch_names or self._fetch_names
         padded = {k: _pad_rows(a, bucket) for k, a in arrs.items()}
+        sig = (bucket, tuple(fetch_names),
+               tuple(sorted((k, a.dtype.str, a.shape[1:])
+                            for k, a in padded.items())))
         with self._stats_lock:
-            self._dispatches[bucket] += 1
+            if sig in self._seen:
+                self._m_hits[bucket].inc()
+            else:
+                self._seen.add(sig)
+                self._m_compiles[bucket].inc()
+                if self._warmed:
+                    self._m_hot.inc()
         with self._lock:
-            outs = self._exe.run(self._program, feed=padded,
-                                 fetch_list=list(fetch_names),
-                                 scope=self._scope)
+            with record_event(f"serving/infer_b{bucket}", kind="stage"):
+                outs = self._exe.run(self._program, feed=padded,
+                                     fetch_list=list(fetch_names),
+                                     scope=self._scope)
         trimmed = []
         for name, o in zip(fetch_names, outs):
             if o.ndim >= 1 and o.shape[0] == bucket:
@@ -195,23 +272,63 @@ class InferenceEngine:
                 "aggregate metrics) cannot be padded or split per caller")
         return trimmed
 
+    def release(self):
+        """Drop this engine's parameters (its private scope), so a model
+        the ModelServer's LRU evicts gives its memory back with the last
+        reference. The engine is done serving afterwards: call only after
+        its final in-flight dispatch finished."""
+        with self._lock:
+            self._scope = Scope()
+            self._warmed = False
+
+    def _memory_section(self):
+        """Bytes this engine can explain (its scope's parameter tensors)
+        beside the live bytes of its device (obs.perf's sample: the CUDA
+        allocator's on a card, the process's resident set on the CPU)."""
+        param_bytes = 0
+        for name in self._scope.local_names():
+            v = self._scope.find_var(name)
+            if hasattr(v, "element_size"):
+                param_bytes += v.numel() * v.element_size()
+            elif hasattr(v, "nbytes"):
+                param_bytes += int(v.nbytes)
+        mem = _perf.sample_device_memory()
+        dev = self.device
+        label = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu:0"
+        live = mem["devices"].get(label)
+        return {"param_bytes": int(param_bytes),
+                "device_bytes_live": live,
+                "source": mem["sources"].get(label),
+                "unaccounted_bytes": None if live is None
+                else max(0, live - int(param_bytes))}
+
     def stats(self):
-        """Buckets, per-bucket dispatch counts, the kernel route this
-        engine's device resolves to, and the process-wide kernel launch and
-        fallback counts."""
+        """The reference's keys (buckets, per-bucket compiles and hits,
+        their totals, hot_recompiles, warmed, kernel_tier, memory) beside
+        the port's dispatch counts (compiles + hits), the process-wide
+        conv_affine launches and fallbacks. JSON-safe: it crosses the RPC
+        wire."""
         with self._stats_lock:
-            per_bucket = {b: {"dispatches": d}
-                          for b, d in self._dispatches.items()}
-        return {
+            per_bucket = {}
+            for b in self.buckets:
+                c = int(self._m_compiles[b].value)
+                h = int(self._m_hits[b].value)
+                per_bucket[b] = {"dispatches": c + h, "compiles": c,
+                                 "hits": h}
+        return json_safe({
             "buckets": list(self.buckets),
             "per_bucket": per_bucket,
             "dispatches": sum(s["dispatches"] for s in per_bucket.values()),
+            "compiles": sum(s["compiles"] for s in per_bucket.values()),
+            "hits": sum(s["hits"] for s in per_bucket.values()),
+            "hot_recompiles": self.hot_recompiles,
             "warmed": self._warmed,
             "kernel_tier": kernel_tier.resolve_tier(self.device),
             "kernel_launches": {
                 "conv_affine": conv_bn.launches["conv_affine"]},
             "fallbacks": kernel_tier.fallback_counts(),
-        }
+            "memory": self._memory_section(),
+        })
 
 
 def _np_dtype(name):

@@ -19,15 +19,16 @@ every in-flight sequence at its own length.
 * :class:`ContinuousBatcher` (scheduler.py) — sequences join the running
   batch at any step boundary and leave at EOS or max length; a bounded
   wait queue with the typed ``ServerOverloaded`` fast reject.
-
-The streaming RPC client (``GenClient``) is not ported yet.
+* :class:`GenClient` (client.py) — the streaming RPC client of a
+  generative ``ModelServer``: tokens arrive frame by frame as they decode.
 """
 
 from .kvcache import PagedKVCache, CacheExhausted
 from .decode_engine import (GenerationEngine, NoFreeSlots,
                             normalize_sampling)
 from .scheduler import ContinuousBatcher, TokenStream
+from .client import GenClient
 
 __all__ = ["PagedKVCache", "CacheExhausted", "GenerationEngine",
            "NoFreeSlots", "normalize_sampling", "ContinuousBatcher",
-           "TokenStream"]
+           "TokenStream", "GenClient"]

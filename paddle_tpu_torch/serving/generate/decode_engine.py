@@ -42,8 +42,10 @@ stream is the same whether it decodes alone or joins a running batch.
 Not ported (see ROADMAP): the compiled-executable cache (``execcache``),
 the KV spill tier (``kvstore``), the obs.perf compile sites, the
 autotuner's ``attach_for_bundle`` and the program verifier's check of
-each rewrite. The reference's obs.metrics counters and histograms are
-plain per-instance counters and sample lists.
+each rewrite. The hot-recompile alarm is the reference's registry
+counter; the per-phase dispatch counts and the TTFT/TPOT samples are
+plain per-instance counters and sample lists (their move onto the
+registry is listed in ROADMAP).
 """
 
 from __future__ import annotations
@@ -59,10 +61,16 @@ from ...core.scope import Scope
 from ...core.flags import get_flag
 from ...fluid import io as fluid_io
 from ...fluid.framework import Operator, Program
+from ...obs.metrics import REGISTRY as _METRICS, next_instance
 from ...ops import cuda as kernel_tier
 from ...ops.cuda import paged_attention as _pa
 from ..engine import parse_buckets
 from .kvcache import CacheExhausted, PagedKVCache
+
+_M_HOT = _METRICS.counter(
+    "paddle_tpu_genengine_hot_recompiles",
+    "generation compiles observed AFTER warmup (the no-recompile alarm)",
+    labels=("instance",))
 
 ATTENTION_OP = "causal_self_attention"
 _SLOTS = "__kv_slots__"
@@ -278,6 +286,8 @@ class GenerationEngine:
         self.ttft = Samples()
         self.tpot = Samples()
         self._warmed = False
+        self.obs_instance = next_instance("genengine")
+        self._m_hot = _M_HOT.labels(instance=self.obs_instance)
 
     @property
     def device(self):
@@ -372,6 +382,10 @@ class GenerationEngine:
     def _dispatch(self, program, feed, phase, bucket):
         with self._stats_lock:
             per = self._dispatches[phase]
+            if bucket not in per and self._warmed:
+                # a (phase, bucket) first dispatched after warmup: where
+                # the reference counts a hot recompile
+                self._m_hot.inc()
             per[bucket] = per.get(bucket, 0) + 1
         outs = self._exe.run(program, feed=feed, fetch_list=self._gen_fetch(),
                              scope=self._scope, return_numpy=False)
@@ -844,6 +858,11 @@ class GenerationEngine:
     def warmed(self):
         return self._warmed
 
+    @property
+    def hot_recompiles(self):
+        """(phase, bucket) pairs first dispatched after warmup."""
+        return int(self._m_hot.value)
+
     def _memory_section(self):
         """The arena's byte footprint (pre-allocated, live whatever the
         occupancy), the share its in-use blocks address, the scope's
@@ -879,6 +898,7 @@ class GenerationEngine:
             "dispatches": sum(s["dispatches"] for per in phases.values()
                               for s in per.values()),
             "warmed": self._warmed,
+            "hot_recompiles": self.hot_recompiles,
             "active_sequences": self.active_sequences,
             "prefilling": len(self._prefill_queue),
             "max_seqs": self.max_seqs,

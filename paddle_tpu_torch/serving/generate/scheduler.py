@@ -83,6 +83,31 @@ class TokenStream:
                 raise item
             yield item
 
+    def batches(self):
+        """Like iteration, but yields lists (reference :103): one blocking
+        wait for the next token, then everything else already queued rides
+        the same list — the frame-coalescing form the streaming RPC
+        handler uses, so a consumer slower than the decode loop gets fewer,
+        fuller frames instead of a backlog of one-token messages."""
+        while True:
+            item = self._q.get()
+            batch = []
+            while True:
+                if item is self._DONE:
+                    if batch:
+                        yield batch
+                    return
+                if isinstance(item, BaseException):
+                    if batch:
+                        yield batch
+                    raise item
+                batch.append(item)
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+            yield batch
+
     def close(self):
         if not self._closed:
             self._closed = True
@@ -283,6 +308,33 @@ class ContinuousBatcher:
                            "request was rejected without being served")
         while self._pending:
             self._pending.popleft().stream._finish(err)
+
+    def transfer_queued(self, other):
+        """Move every still-queued (unadmitted) request to ``other`` in FIFO
+        order (reference :358) — the generative reload's handoff: in-flight
+        sequences finish on the old engine, and the wait queue moves to the
+        new one instead of being rejected at close. Returns the number
+        moved; requests that cannot move (``other`` already closed) are
+        rejected typed, as close would have."""
+        with self._cv:
+            moved = list(self._pending)
+            self._pending.clear()
+        n = 0
+        for req in moved:
+            with other._cv:
+                if not other._closed:
+                    # rebind before the new worker can touch it: a
+                    # consumer-side close() must cancel against the
+                    # batcher that holds the request
+                    req.stream._batcher = other
+                    other._pending.append(req)
+                    other._cv.notify_all()
+                    n += 1
+                    continue
+            req.stream._finish(RuntimeError(
+                "ContinuousBatcher is closed; this queued request was "
+                "rejected without being served"))
+        return n
 
     def close(self, timeout=30.0):
         """Stop admitting, let in-flight sequences finish, reject

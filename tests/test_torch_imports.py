@@ -72,3 +72,32 @@ def test_every_kernel_source_is_bound_built_and_checked():
     for name in sources:
         assert f'"{name}"' in wrappers, name
         assert name in kernels, name
+
+
+_IMPORT_PROBE = r"""
+import sys
+before = set(sys.modules)
+sys.path.insert(0, sys.argv[1])
+import importlib
+for name in sys.argv[2:]:
+    importlib.import_module(name)
+new = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(",".join(new))
+"""
+
+
+@pytest.mark.parametrize("module", ["paddle_tpu_torch.serving",
+                                    "paddle_tpu_torch.distributed.rpc",
+                                    "paddle_tpu_torch.obs"])
+def test_import_loads_neither_jax_nor_the_reference(module):
+    """Imported in a fresh interpreter, the serving front door, the RPC
+    transport and the observability plane load no module of jax or of the
+    reference package."""
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "-c", _IMPORT_PROBE, str(REPO),
+                        module], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "", f"{module} loaded {r.stdout.strip()}"

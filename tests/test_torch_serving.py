@@ -95,9 +95,13 @@ def test_engines_agree_on_one_bundle(bundle, tier):
         np.testing.assert_allclose(got, want[n], **TOL, err_msg=f"batch {n}")
     stats = eng.stats()
     assert stats["kernel_tier"] == ("cuda" if tier == "cuda" else "torch")
-    assert stats["per_bucket"] == {1: {"dispatches": 1},
-                                   2: {"dispatches": 1},
-                                   4: {"dispatches": 2}}
+    # the first dispatch of a bucket counts as its compile, as the
+    # reference counts one; bucket 4's second dispatch is a hit
+    assert stats["per_bucket"] == {
+        1: {"dispatches": 1, "compiles": 1, "hits": 0},
+        2: {"dispatches": 1, "compiles": 1, "hits": 0},
+        4: {"dispatches": 2, "compiles": 1, "hits": 1}}
+    assert stats["hot_recompiles"] == 0 and not stats["warmed"]
 
 
 def test_kernel_routing_matches_reference_pallas_tier(bundle, monkeypatch):
@@ -177,3 +181,40 @@ def test_default_place_is_the_card(bundle):
         InferenceEngine(bundle)
     with pytest.raises(RuntimeError, match="CPUPlace"):
         tfluid.Executor()
+
+
+def test_engine_from_a_loaded_bundle_and_its_public_surface(bundle):
+    """The constructor's loaded-bundle form (program=, feed_names=,
+    fetch_vars=, executor=, scope=) serves as the model_dir form does;
+    feed_names/fetch_names copy, warmed and hot_recompiles count as the
+    reference's engine counts them, and release() drops the parameters."""
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    scope = tfluid.Scope()
+    program, feeds, fetches = tfluid.io.load_inference_model(
+        bundle, exe, scope=scope)
+    eng = InferenceEngine(program=program, feed_names=feeds,
+                          fetch_vars=fetches, executor=exe, scope=scope,
+                          buckets=BUCKETS)
+    ref = InferenceEngine(bundle, place=tfluid.CPUPlace(), buckets=BUCKETS)
+    x = _images(3, seed=7)
+    assert np.array_equal(eng.infer({"img": x})[0], ref.infer({"img": x})[0])
+    assert eng.feed_names == ["img"] and len(eng.fetch_names) == 1
+    eng.feed_names.append("junk")                  # a copy
+    assert eng.feed_names == ["img"]
+    assert not eng.warmed and eng.hot_recompiles == 0
+    assert eng.warmup() == 2          # buckets 1 and 2 first dispatched now
+    assert eng.warmed and eng.warmup() == 0
+    eng.infer({"img": x}, fetch_list=eng.fetch_names[::-1])
+    assert eng.hot_recompiles == 0    # the same (bucket, fetch, feed) seen
+    eng.infer({"img": x.astype("float64")})        # cast to float32 first
+    assert eng.hot_recompiles == 0
+    eng.infer({"img": _images(3)[:, :16]})         # another feed shape
+    assert eng.hot_recompiles == 1
+    st = eng.stats()
+    assert st["compiles"] == 4 and st["hot_recompiles"] == 1
+    assert st["memory"]["param_bytes"] > 0
+    assert st["memory"]["source"] == "process_rss"
+    eng.release()
+    assert not eng.warmed and eng.stats()["memory"]["param_bytes"] == 0
+    with pytest.raises(ValueError, match="model_dir= or all of"):
+        InferenceEngine(program=program, place=tfluid.CPUPlace())
