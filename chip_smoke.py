@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Serve and train ResNet-50, train the LSTM and GRU text classifiers, the
 CTC acoustic model and the word2vec N-gram model, serve a decoder LM
-through the generation engine, and serve ResNet-50 and the LM over RPC
-through ModelServer, with the PyTorch/CUDA port on one GPU, and hold every
-hand-written kernel against its plain PyTorch version.
+through the generation engine, serve ResNet-50 and the LM over RPC through
+ModelServer, and train three of those models with gradient clipping,
+weight decay and learning-rate schedules and the LSTM classifier with the
+six other optimizers, with the PyTorch/CUDA port on one GPU, and hold
+every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -169,6 +171,31 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               ModelServer: 8 GenClient threads x 3 greedy requests, the
               tokens equal to phase 13's, 4 paged_attention launches a
               decode dispatch, tokens/s and TTFT beside phase 13's.
+15. recipes — the training front end's knobs on phases 4, 6 and 11's
+              models at their widths, each on the kernel route and under
+              kernel_tier=torch. ResNet-50 (batch 32) with the ImageNet
+              recipe of PaddlePaddle's models repository: Momentum(0.9,
+              fused=True) with L2Decay(1e-4) and piecewise_decay (phase
+              4's rate, /10 at step 2, /100 at step 4): 49 + 49 + 1
+              launches a step, the fetched rate the closed form's, step 1
+              within float32 roundings of the recipe recomputed in
+              float64 from the fetched raw gradients, the same program
+              with the decay doubled caught, the loss falling. The LSTM
+              classifier with GradientClipByGlobalNorm(5) and Adam(
+              exponential_decay(2e-3, 2, 0.5), fused=True): 2 + 2 + 1
+              launches a step, the global norm the float64 norm of the
+              raw gradients, adam_arena's gradients g·min(1, 5/‖g‖).
+              word2vec with the same clip through SGD(fused=True): 1 + 1
+              launches, the clipped table gradient still SparseRows, rows
+              absent from the batch bitwise; then Adagrad on the sparse
+              table (the lazy row update, no kernel) against the same
+              steps on the CPU. Each recipe's clip, decay and schedule
+              ops run once more on device tensors under
+              set_sync_debug_mode("error"). The six per-parameter
+              optimizers 3 steps each on the LSTM classifier, step 1 of
+              each update op against the same op on the CPU. Prints ms a
+              step and peak memory with and without each recipe and the
+              ops each adds.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -3940,6 +3967,733 @@ def phase_front_door(torch, fluid, seed, card, serving, gen):
     return launches, glaunches, summary
 
 
+# phase 15: the training recipes. ResNet-50 with the ImageNet recipe of
+# PaddlePaddle's models repository (Momentum 0.9, L2Decay(1e-4), a
+# piecewise schedule falling tenfold at each boundary), its rate the
+# phase-4 rate and its boundaries cut to steps 2 and 4 so that 5 steps
+# cross both; the LSTM classifier with a global-norm clip of 5 and an
+# exponential schedule halving every 2 steps from phase 6's rate; word2vec
+# with the same clip through SGD(fused=True), then Adagrad on its sparse
+# table; each of the six per-parameter optimizers 3 steps on the LSTM
+# classifier
+RECIPE_STEPS, OPT_STEPS = 5, 3
+RESNET_DECAY = 1e-4
+RESNET_BOUNDARIES = (2, 4)
+RESNET_VALUES = (TRAIN_LR, TRAIN_LR / 10, TRAIN_LR / 100)
+TEXT_CLIP = 5.0
+TEXT_DECAY_STEPS, TEXT_DECAY_RATE = 2, 0.5
+W2V_CLIP = 5.0
+ADAGRAD_LR = 0.01
+# the fetched rate against the schedule's closed form, relative: the
+# schedules compute it in float32 through 2-4 roundings (scale, add, exp),
+# each within 2^-24 of its value
+LR_REL = 1e-6
+# ResNet-50's step 1 against the recipe recomputed in float64 from the
+# step's fetched raw gradients g, the fetched rate and p0: per element
+# |p1 − (p0 − lr·(g + c·p0))| ≤ UPDATE_ROUNDINGS · 2^-24 · (|p0| + |lr·v1|
+# + lr·c·|p0|). The float32 step rounds c·p0, g + c·p0, lr·v1 and p0 −
+# lr·v1 once each (and the coefficient c itself), each within 2^-24 of its
+# value: at most 2^-24·(|p1| + 2|lr·v1| + 2·lr·c·|p0|), which 4 covers
+# twice over. A decay of 2c moves p1 by lr·c·|p0|, ~5x that limit where
+# |p0| dominates: the planted fault
+UPDATE_ROUNDINGS = 4
+F32_U = 2.0 ** -24
+# the LSTM recipe's global norm against the float64 norm of the fetched raw
+# gradients, relative: a float32 sum of squares over 4.9 M elements in
+# blocks; the clipped gradients against g·min(1, clip/‖g‖₆₄) per element
+# within that plus 3 roundings (the factor's max and division, the product)
+NORM_REL = 1e-5
+# a per-parameter optimizer's step-1 update ops on the card against the
+# same ops run on the CPU from the same inputs (the startup state and the
+# card's step-1 gradients: the port's ops on the same float32 values; the
+# card's sqrt, pow and exp may differ by a rounding), and the Adagrad
+# word2vec run's losses on the card against the same steps on the CPU,
+# relative: 1e-5 (of the largest element), the CPU tests' tolerance
+# between the packages. The whole steps' states are printed, not held:
+# Adagrad divides each element by its own gradient, lr·g/(|g| + 1e-6),
+# so where |g| is near 1e-6 (a zero-initialized bias whose gradient
+# cancels) the card's and the CPU's GEMM rounding differences move the
+# step by up to lr/4 (H100 runs: 2.12e-4 of fc_0.w_1's largest after
+# step 1 at lr 0.01; 4.47e-4 of fc_0.w_0's after 3 steps at lr 0.1)
+CPU_REL = 1e-5
+# each per-parameter optimizer's rate, set so that its first step moves an
+# element by about SEQ_LR (Adagrad, Adamax and Ftrl step by lr·sign(g) at
+# first, DecayedAdagrad and RMSProp by lr/√0.05, Adadelta by √1e-6/√0.05
+# whatever the rate). Ftrl takes a small l2: with l2 = 0 (its default) an
+# element whose gradient is exactly 0, as the rows of the embedding table
+# no word of the batch looks up, becomes 0/0 (the reference's expression)
+OPT_RECIPES = {
+    "adagrad": lambda o: o.Adagrad(SEQ_LR),
+    "decayed_adagrad": lambda o: o.DecayedAdagrad(SEQ_LR * 0.05 ** 0.5),
+    "adadelta": lambda o: o.Adadelta(SEQ_LR),
+    "rmsprop": lambda o: o.RMSProp(SEQ_LR * 0.05 ** 0.5),
+    "adamax": lambda o: o.Adamax(SEQ_LR),
+    "ftrl": lambda o: o.Ftrl(SEQ_LR, l2=1e-4),
+}
+
+
+def build_resnet50_recipe(fluid, seed, decay=RESNET_DECAY):
+    """build_resnet50_train with the ImageNet recipe: the piecewise
+    schedule and Momentum(lr, 0.9, fused=True, L2Decay(decay)). Returns
+    (main, startup, loss, lr)."""
+    from paddle_tpu_torch.testing.models import resnet
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[IMAGE, IMAGE, 3])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            resnet(img, CLASSES), label))
+        if fluid.fuse_conv_bn(main) != KERNEL_CONVS + PLAIN_CONVS:
+            fail("fuse_conv_bn did not fuse ResNet-50's 53 chains")
+        lr = fluid.layers.piecewise_decay(list(RESNET_BOUNDARIES),
+                                          list(RESNET_VALUES))
+        fluid.optimizer.Momentum(
+            learning_rate=lr, momentum=0.9, fused=True,
+            regularization=fluid.regularizer.L2Decay(decay)).minimize(
+                loss, startup)
+    return main, startup, loss, lr
+
+
+def build_textcls_recipe(fluid, seed, opt=None):
+    """build_textcls's LSTM classifier with set_gradient_clip(
+    GradientClipByGlobalNorm(TEXT_CLIP)), exponential_decay and
+    Adam(fused=True); or, given ``opt`` (a key of OPT_RECIPES), that
+    optimizer at a constant rate and no clip. Returns (main, startup,
+    loss, lr var or None)."""
+    from paddle_tpu_torch.testing import models
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data("words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        prob = models.lstm_textcls(words, vocab=SEQ_VOCAB, emb=SEQ_EMB,
+                                   hidden=SEQ_HIDDEN)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(prob, label))
+        lr = None
+        if opt is None:
+            fluid.clip.set_gradient_clip(
+                fluid.clip.GradientClipByGlobalNorm(TEXT_CLIP))
+            lr = fluid.layers.exponential_decay(SEQ_LR, TEXT_DECAY_STEPS,
+                                                TEXT_DECAY_RATE)
+            fluid.optimizer.Adam(learning_rate=lr, fused=True).minimize(
+                loss, startup)
+        else:
+            OPT_RECIPES[opt](fluid.optimizer).minimize(loss, startup)
+    return main, startup, loss, lr
+
+
+def build_word2vec_recipe(fluid, seed, adagrad=False):
+    """build_word2vec with set_gradient_clip(GradientClipByGlobalNorm(
+    W2V_CLIP)) through SGD(W2V_LR, fused=True), or Adagrad(ADAGRAD_LR).
+    Returns (main, startup, loss)."""
+    from paddle_tpu_torch.testing.models import ngram_lm
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        words = [fluid.layers.data(f"w{i}", shape=[1], dtype="int64")
+                 for i in range(W2V_N - 1)]
+        nextw = fluid.layers.data("nextw", shape=[1], dtype="int64")
+        predict = ngram_lm(words, W2V_DICT, W2V_EMB, W2V_HIDDEN)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(predict, nextw))
+        fluid.clip.set_gradient_clip(
+            fluid.clip.GradientClipByGlobalNorm(W2V_CLIP))
+        opt = fluid.optimizer.Adagrad(ADAGRAD_LR) if adagrad else \
+            fluid.optimizer.SGD(learning_rate=W2V_LR, fused=True)
+        opt.minimize(loss, startup)
+    return main, startup, loss
+
+
+def recipe_op_indices(block, update, targets):
+    """Indices of the ops a recipe added in front of ``update``: those the
+    ``targets`` (the update's gradients and its learning rate) are computed
+    by, back to the raw gradients (names ending in @GRAD, which the
+    backward writes) and the parameters and step counter."""
+    end = block.ops.index(update)
+    needed, picked = set(targets), []
+    for i in reversed(range(end)):
+        op = block.ops[i]
+        outs = op.output_arg_names()
+        if not needed & set(outs) or any(
+                o.endswith("@GRAD") or "@RENAME" in o for o in outs):
+            continue
+        picked.append(i)
+        needed.update(op.input_arg_names())
+    return sorted(picked)
+
+
+def gnorm_var(block):
+    """The name of a global-norm clip's norm (the ``sqrt`` clip.py
+    appends)."""
+    return next(op.output("Out")[0] for op in block.ops
+                if op.type == "sqrt"
+                and op.output("Out")[0].startswith("gclip_gnorm"))
+
+
+def step_env(exe, main, feed, scope, raw):
+    """The scope's values and the raw gradients ``raw`` of one more step
+    of ``main``: the inputs of the recipe ops for no_host_sync."""
+    env = {n: scope.find_var(n) for n in scope.local_names()}
+    env.update(zip(raw, exe.run(main, feed=feed, fetch_list=raw, scope=scope,
+                                return_numpy=False)))
+    return env
+
+
+def no_host_sync(torch, block, indices, env, device, title):
+    """Run the ops at ``indices`` once more on device tensors (``env``:
+    their inputs, from a step of the program) under
+    torch.cuda.set_sync_debug_mode("error"), which raises at any call that
+    waits for the device (.item(), .cpu(), float() of a device tensor,
+    a nonzero). Prints the op types run."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.executor import ExecContext
+    env = dict(env)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for i in indices:
+                op = block.ops[i]
+                registry.get_op_info(op.type).forward(
+                    ExecContext(op, block, env, device))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    types = {}
+    for i in indices:
+        types[block.ops[i].type] = types.get(block.ops[i].type, 0) + 1
+    log(f"{title}: {len(indices)} clip, decay and schedule ops ("
+        + ", ".join(f"{k}x{v}" for k, v in sorted(types.items()))
+        + ") ran on device tensors under set_sync_debug_mode('error'): "
+        "no host sync")
+
+
+def recipe_run(torch, fluid, exe, spec, route):
+    """``spec["steps"]`` steps of ``spec["main"]`` on ``spec["feed"]`` from
+    a copy of ``spec["init"]`` under ``route``: each step's counters (reset
+    before it) against ``spec["want"]`` (zeros on the torch route), its
+    loss finite; ``spec["each"]`` fetched every step and ``spec["first"]``
+    at step 1 (device values); ``spec["keep"]`` copied from the scope
+    after step 1. Returns a dict of the readings."""
+    scope = copy_scope(fluid, torch, spec["init"])
+    labels = [c[0] for c in spec["counters"]]
+    want = spec["want"] if route == "auto" else (0,) * len(labels)
+    each, first = list(spec.get("each", ())), list(spec.get("first", ()))
+    out = dict(losses=[], ms=[], each=[], total=[0] * len(labels))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for step in range(spec["steps"]):
+        for reset in spec["resets"]:
+            reset()
+        fetch = [spec["loss"]] + each + (first if step == 0 else [])
+        fluid.set_flags({"kernel_tier": route})
+        t0 = time.perf_counter()
+        try:
+            vals = exe.run(spec["main"], feed=spec["feed"], fetch_list=fetch,
+                           scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        counts = tuple(get() for _, get in spec["counters"])
+        if counts != want:
+            fail(f"{spec['title']}, kernel_tier={route} step {step + 1}: "
+                 f"{'/'.join(labels)} {counts}, want {want}")
+        out["total"] = [a + c for a, c in zip(out["total"], counts)]
+        lv = vals[0]
+        if lv.shape != () or not torch.isfinite(lv).item():
+            fail(f"{spec['title']}, kernel_tier={route} step {step + 1}: "
+                 f"loss {lv}")
+        out["losses"].append(lv.item())
+        out["each"].append(vals[1:1 + len(each)])
+        if step == 0:
+            out["first"] = dict(zip(first, vals[1 + len(each):]))
+            out["kept"] = {n: scope.find_var(n).clone()
+                           for n in spec.get("keep", ())}
+    out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["work"] = out["peak"] - start / 2 ** 30
+    out["steady"] = sum(out["ms"][1:]) / max(len(out["ms"]) - 1, 1)
+    out["scope"] = scope
+    return out
+
+
+def recipe_line(title, route, res, card):
+    return (f"{title}, kernel_tier={route}: losses "
+            + " ".join(f"{v:.6f}" for v in res["losses"])
+            + " | ms/step " + " ".join(f"{v:.1f}" for v in res["ms"])
+            + f" | steady {res['steady']:.2f} ms/step | peak memory "
+            f"{res['peak']:.3f} GiB, {res['work']:.3f} above the start | "
+            f"{card}")
+
+
+def base_vs_recipe(torch, fluid, exe, title, base, recipe, card):
+    """Steady ms a step and a step's peak memory above its start of the
+    program without the recipe (``base``: main, startup, loss, feed) and
+    with it (``recipe``: its main and readings), both on the kernel
+    route; prints them with the ops the recipe adds."""
+    main, startup, loss, feed = base
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    res = recipe_run(torch, fluid, exe, dict(
+        title=title + " without the recipe", main=main, loss=loss,
+        feed=feed, init=init, steps=RECIPE_STEPS, counters=[], resets=[],
+        want=()), "auto")
+    n_base, n_recipe = len(main.global_block().ops), \
+        len(recipe["main"].global_block().ops)
+    added = {}
+    for op in recipe["main"].global_block().ops:
+        added[op.type] = added.get(op.type, 0) + 1
+    for op in main.global_block().ops:
+        added[op.type] = added.get(op.type, 0) - 1
+    log(f"{title}: without the recipe {res['steady']:.2f} ms/step, a step "
+        f"peaks {res['work']:.3f} GiB above its start; with it "
+        f"{recipe['steady']:.2f} ms/step, {recipe['work']:.3f} GiB (kernel "
+        f"route; the start holds the state and what earlier runs keep) | "
+        f"the recipe adds "
+        f"{n_recipe - n_base} ops a step ("
+        + ", ".join(f"{k}{v:+d}" for k, v in sorted(added.items()) if v)
+        + f") | {card}")
+    del res
+
+
+def resnet_step1(torch, init, first, kept, lr, params, coeff):
+    """Each parameter's step-1 value against the recipe in float64 from the
+    fetched raw gradients (v0 = 0): the largest |Δ| / limit over each
+    parameter's elements, {name: ratio}."""
+    ratios = {}
+    lr = float(lr)
+    for n in params:
+        p0 = init.find_var(n).double()
+        v1 = first[n + "@GRAD"].double() + RESNET_DECAY * p0
+        want = p0 - lr * v1
+        limit = UPDATE_ROUNDINGS * F32_U * (p0.abs() + (lr * v1).abs()
+                                            + lr * RESNET_DECAY * p0.abs())
+        d = (kept[n].double() - want).abs()
+        ratios[n] = (d / limit.clamp_min(1e-45)).max().item() \
+            if (d > 0).any().item() else 0.0
+    return ratios
+
+
+def replay_on_cpu(torch, block, updates, init, grads, kept):
+    """Run each update op of ``updates`` once more on the CPU from the
+    startup state ``init`` and the card's step-1 gradients ``grads`` (by
+    name; a SparseRows moved as one); returns the worst ‖Δ‖∞/‖ref‖∞ of the
+    card's step-1 outputs ``kept`` against them, and where."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.executor import ExecContext
+    from paddle_tpu_torch.core.sparse import SparseRows, is_sparse
+    cpu = torch.device("cpu")
+    names = set(init.local_names())
+    worst, at = 0.0, None
+    for op in updates:
+        env = {n: init.find_var(n).cpu() for n in op.input_arg_names()
+               if n in names}
+        g = op.input("Grad")[0]
+        v = grads[g]
+        env[g] = SparseRows(v.rows.cpu(), v.values.cpu(), v.nrows,
+                            v.merged) if is_sparse(v) else v.cpu()
+        with torch.no_grad():
+            registry.get_op_info(op.type).forward(
+                ExecContext(op, block, env, cpu))
+        for slot, out in op.outputs.items():
+            want = env[out[0]].double()
+            got = kept[out[0]].cpu().double()
+            rel = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            if rel >= worst:
+                worst, at = rel, f"{slot} of {op.input('Param')[0]}"
+    return worst, at
+
+
+def phase_resnet_recipe(torch, fluid, seed, card):
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    title = "ResNet-50 recipe"
+    log(f"\n-- {title}: batch {TRAIN_BATCH}, Momentum(piecewise_decay("
+        f"{list(RESNET_BOUNDARIES)}, {list(RESNET_VALUES)}), 0.9, "
+        f"fused=True, L2Decay({RESNET_DECAY})), {RECIPE_STEPS} steps --")
+    main, startup, loss, lr = build_resnet50_recipe(fluid, seed)
+    block = main.global_block()
+    update, = [op for op in block.ops if op.type == "fused_momentum"]
+    params = update.input("Params")
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    rng = np.random.RandomState(seed)
+    feed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
+            .astype("float32"),
+            "label": rng.randint(0, CLASSES, (TRAIN_BATCH, 1))
+            .astype("int64")}
+    raw = [n + "@GRAD" for n in params]
+    spec = dict(title=title, main=main, loss=loss, feed=feed, init=init,
+                steps=RECIPE_STEPS, each=[lr], first=raw, keep=params,
+                counters=[("conv_bn_train",
+                           lambda: cbk.launches["conv_bn_train"]),
+                          ("conv_bn_bwd",
+                           lambda: cbk.launches["conv_bn_bwd"]),
+                          ("momentum_arena",
+                           lambda: opk.launches["momentum_arena"]),
+                          ("plain-routed convs",
+                           lambda: tier.fallback_counts().get("conv_bn", 0))],
+                resets=[cbk.reset_launches, opk.reset_launches,
+                        tier.reset_fallback_counts],
+                want=(KERNEL_CONVS, KERNEL_CONVS, 1, 2 * PLAIN_CONVS))
+    problems, res = [], {}
+    for route in ("auto", "torch"):
+        r = recipe_run(torch, fluid, exe, spec, route)
+        log(recipe_line(title, route, r, card))
+        rates = [v[0].item() for v in r["each"]]
+        closed = [RESNET_VALUES[sum(s >= b for b in RESNET_BOUNDARIES)]
+                  for s in range(1, RECIPE_STEPS + 1)]
+        worst = max(abs(a - b) / b for a, b in zip(rates, closed))
+        log(f"  rates " + " ".join(f"{v:.9g}" for v in rates)
+            + f" against the closed form: worst {worst:.2e} (limit "
+            f"{LR_REL:.0e})")
+        if not worst <= LR_REL:
+            problems.append(f"{route}: the fetched rates {rates} are not "
+                            f"the schedule's {closed}")
+        ratios = resnet_step1(torch, init, r["first"], r["kept"], rates[0],
+                              params, RESNET_DECAY)
+        top = max(ratios, key=ratios.get)
+        log(f"  step 1 against p0 − lr·(g + {RESNET_DECAY}·p0) in float64 "
+            f"from the fetched raw gradients: worst |Δ|/limit "
+            f"{ratios[top]:.3f} at {top} (limit {UPDATE_ROUNDINGS} float32 "
+            "roundings of |p0| + |lr·v1| + lr·c·|p0|)")
+        if not ratios[top] <= 1.0:
+            problems.append(f"{route}: step 1 of {top} is "
+                            f"{ratios[top]:.3f}x its limit from the recipe")
+        if not r["losses"][-1] < r["losses"][0]:
+            problems.append(f"{route}: the loss did not fall over "
+                            f"{RECIPE_STEPS} steps: {r['losses']}")
+        r.pop("first")
+        r.pop("kept")
+        res[route] = r
+
+    # the planted fault: the same program with the decay doubled, one step
+    bad_main, bad_start, bad_loss, bad_lr = build_resnet50_recipe(
+        fluid, seed, 2 * RESNET_DECAY)
+    bad = recipe_run(torch, fluid, exe, dict(
+        spec, title=title + " (decay x2)", main=bad_main, loss=bad_loss,
+        each=[bad_lr], steps=1), "auto")
+    ratios = resnet_step1(torch, init, bad["first"], bad["kept"],
+                          bad["each"][0][0].item(), params, RESNET_DECAY)
+    caught = sum(v > 1.0 for v in ratios.values())
+    log(f"planted fault: L2Decay({2 * RESNET_DECAY}) in the same program: "
+        f"{caught} of {len(params)} parameters beyond their limit, worst "
+        f"{max(ratios.values()):.2f}x")
+    if caught == 0:
+        problems.append("the step-1 check does not see the decay doubled")
+    del bad, ratios
+
+    base = build_resnet50_train(fluid, seed) + (feed,)
+    base_vs_recipe(torch, fluid, exe, title, base, dict(
+        main=main, steady=res["auto"]["steady"], work=res["auto"]["work"]),
+        card)
+    if problems:
+        fail(f"{title}: " + "; ".join(problems))
+    no_host_sync(torch, block, recipe_op_indices(
+        block, update, update.input("Grads") + [lr.name]),
+        step_env(exe, main, feed, res["auto"]["scope"], raw), exe.device,
+        title)
+    return dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
+                    res["auto"]["total"]))
+
+
+def phase_textcls_recipe(torch, fluid, seed, card):
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    title = "LSTM classifier recipe"
+    log(f"\n-- {title}: batch {SEQ_BATCH}, length {SEQ_LEN}, hidden "
+        f"{SEQ_HIDDEN}, GradientClipByGlobalNorm({TEXT_CLIP}), Adam("
+        f"exponential_decay({SEQ_LR}, {TEXT_DECAY_STEPS}, "
+        f"{TEXT_DECAY_RATE}), fused=True), {RECIPE_STEPS} steps --")
+    main, startup, loss, lr = build_textcls_recipe(fluid, seed)
+    block = main.global_block()
+    update, = [op for op in block.ops if op.type == "fused_adam"]
+    params, clipped = update.input("Params"), update.input("Grads")
+    gnorm = gnorm_var(block)
+    raw = [n + "@GRAD" for n in params]
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = textcls_feeds(fluid, seed, ragged=False)
+    spec = dict(title=title, main=main, loss=loss, feed=feed, init=init,
+                steps=RECIPE_STEPS, each=[lr], first=raw + clipped + [gnorm],
+                counters=[("lstm_seq", lambda: rnn.launches["lstm_seq"]),
+                          ("lstm_seq_bwd",
+                           lambda: rnn.launches["lstm_seq_bwd"]),
+                          ("adam_arena", lambda: opk.launches["adam_arena"]),
+                          ("plain-routed LSTMs",
+                           lambda: tier.fallback_counts().get("lstm", 0))],
+                resets=[rnn.reset_launches, opk.reset_launches,
+                        tier.reset_fallback_counts],
+                want=(2, 2, 1, 0))
+    problems, res = [], {}
+    for route in ("auto", "torch"):
+        r = recipe_run(torch, fluid, exe, spec, route)
+        log(recipe_line(title, route, r, card))
+        rates = [v[0].item() for v in r["each"]]
+        closed = [SEQ_LR * TEXT_DECAY_RATE ** (s / TEXT_DECAY_STEPS)
+                  for s in range(1, RECIPE_STEPS + 1)]
+        worst = max(abs(a - b) / b for a, b in zip(rates, closed))
+        first = r.pop("first")
+        norm64 = sum(first[g].double().pow(2).sum() for g in raw).sqrt()
+        got = first[gnorm].double().reshape(())
+        dn = ((got - norm64).abs() / norm64).item()
+        factor = min(1.0, TEXT_CLIP / norm64.item())
+        worst_clip = 0.0
+        for g, c in zip(raw, clipped):
+            ref = first[g].double() * factor
+            d = (first[c].double() - ref).abs()
+            lim = (NORM_REL + 3 * F32_U) * ref.abs()
+            if (d > lim).any().item():
+                worst_clip = max(worst_clip,
+                                 (d / lim.clamp_min(1e-45)).max().item())
+        log(f"  rates: worst {worst:.2e} from the closed form (limit "
+            f"{LR_REL:.0e}) | global norm {got.item():.6g} against the "
+            f"float64 {norm64.item():.6g}: {dn:.2e} (limit {NORM_REL:.0e}); "
+            f"factor min(1, {TEXT_CLIP}/‖g‖) = {factor:.6g} (the clip "
+            f"{'bites' if factor < 1 else 'does not bite'}); the gradients "
+            f"adam_arena reads against g·factor: "
+            + ("within the limit" if worst_clip == 0 else
+               f"{worst_clip:.2f}x the limit"))
+        if not worst <= LR_REL:
+            problems.append(f"{route}: rates {rates}, want {closed}")
+        if not dn <= NORM_REL:
+            problems.append(f"{route}: global norm off by {dn:.2e}")
+        if worst_clip:
+            problems.append(f"{route}: clipped gradients {worst_clip:.2f}x "
+                            "their limit")
+        if not r["losses"][-1] < r["losses"][0]:
+            problems.append(f"{route}: the loss did not fall: "
+                            f"{r['losses']}")
+        res[route] = r
+    base = build_textcls(fluid, seed) + (feed,)
+    base_vs_recipe(torch, fluid, exe, title, base, dict(
+        main=main, steady=res["auto"]["steady"], work=res["auto"]["work"]),
+        card)
+    if problems:
+        fail(f"{title}: " + "; ".join(problems))
+    no_host_sync(torch, block, recipe_op_indices(block, update,
+                                                 clipped + [lr.name]),
+                 step_env(exe, main, feed, res["auto"]["scope"], raw),
+                 exe.device, title)
+    return dict(zip(("lstm_seq", "lstm_seq_bwd", "adam_arena"),
+                    res["auto"]["total"]))
+
+
+def phase_word2vec_recipe(torch, fluid, seed, card):
+    import numpy as np
+    from paddle_tpu_torch.core.sparse import is_sparse
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    title = "word2vec recipe"
+    log(f"\n-- {title}: dict {W2V_DICT}, batch {W2V_BATCH}, is_sparse, "
+        f"GradientClipByGlobalNorm({W2V_CLIP}) through SGD({W2V_LR}, "
+        f"fused=True), {RECIPE_STEPS} steps; then Adagrad({ADAGRAD_LR}) "
+        f"{OPT_STEPS} steps on the card and on the CPU --")
+    main, startup, loss = build_word2vec_recipe(fluid, seed)
+    block = main.global_block()
+    update, = [op for op in block.ops if op.type == "fused_sgd"]
+    params, clipped = update.input("Params"), update.input("Grads")
+    table = clipped[params.index("shared_w")]
+    raw = [n + "@GRAD" for n in params]
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = word2vec_feed(seed)
+    ids = np.unique(np.concatenate([feed[f"w{i}"].ravel()
+                                    for i in range(W2V_N - 1)]))
+    absent = np.setdiff1d(np.arange(W2V_DICT), ids)
+    counters = [("embedding_sgd", lambda: embk.launches["embedding_sgd"]),
+                ("sgd_arena", lambda: opk.launches["sgd_arena"]),
+                ("plain-routed updates",
+                 lambda: tier.fallback_counts().get("embedding_sgd", 0)
+                 + tier.fallback_counts().get("optimizer", 0))]
+    resets = [embk.reset_launches, opk.reset_launches,
+              tier.reset_fallback_counts]
+    gnorm = gnorm_var(block)
+    spec = dict(title=title, main=main, loss=loss, feed=feed, init=init,
+                steps=RECIPE_STEPS, first=[table, gnorm],
+                counters=counters, resets=resets, want=(1, 1, 0))
+    problems, res = [], {}
+    w0 = init.find_var("shared_w")
+    keep = torch.as_tensor(absent, device=w0.device)
+    for route in ("auto", "torch"):
+        r = recipe_run(torch, fluid, exe, spec, route)
+        log(recipe_line(title, route, r, card))
+        first = r.pop("first")
+        g = first[table]
+        w = r["scope"].find_var("shared_w")
+        same = torch.equal(w[keep], w0[keep])
+        norm = first[gnorm].reshape(()).item()
+        log(f"  global norm {norm:.6g} (the clip of {W2V_CLIP} "
+            f"{'bites' if norm > W2V_CLIP else 'does not bite'}); the "
+            "clipped shared_w gradient is "
+            f"{'a SparseRows' if is_sparse(g) else type(g).__name__}; "
+            f"{len(absent)} rows absent from the batch "
+            f"{'bitwise unchanged' if same else 'CHANGED'} after "
+            f"{RECIPE_STEPS} steps")
+        if not is_sparse(g):
+            problems.append(f"{route}: the clipped table gradient is dense")
+        if not same:
+            problems.append(f"{route}: rows absent from the batch moved")
+        if not r["losses"][-1] < r["losses"][0]:
+            problems.append(f"{route}: the loss did not fall: "
+                            f"{r['losses']}")
+        res[route] = r
+    base = build_word2vec(fluid, seed) + (feed,)
+    base_vs_recipe(torch, fluid, exe, title, base, dict(
+        main=main, steady=res["auto"]["steady"], work=res["auto"]["work"]),
+        card)
+    no_host_sync(torch, block, recipe_op_indices(block, update, clipped),
+                 step_env(exe, main, feed, res["auto"]["scope"], raw),
+                 exe.device, title)
+
+    # Adagrad on the same sparse table: the lazy row update, no kernel;
+    # its step-1 ops against the same ops on the CPU, the card's losses
+    # against the same steps on the CPU
+    amain, astart, aloss = build_word2vec_recipe(fluid, seed, adagrad=True)
+    ablock = amain.global_block()
+    updates = [op for op in ablock.ops if op.type == "adagrad"]
+    ainit = fluid.Scope()
+    exe.run(astart, scope=ainit)
+    states = [n for n in ainit.local_names()
+              if torch.is_tensor(ainit.find_var(n))
+              and ainit.find_var(n).is_floating_point()]
+    ar = recipe_run(torch, fluid, exe, dict(
+        title="word2vec Adagrad", main=amain, loss=aloss, feed=feed,
+        init=ainit, steps=OPT_STEPS, counters=counters, resets=resets,
+        first=[op.input("Grad")[0] for op in updates], keep=states,
+        want=(0, 0, 0)), "auto")
+    log(recipe_line("word2vec Adagrad", "auto", ar, card))
+    table_grad = ar["first"][updates[[op.input("Param")[0] for op in updates]
+                                     .index("shared_w")].input("Grad")[0]]
+    worst, at = replay_on_cpu(torch, ablock, updates, ainit, ar["first"],
+                              ar["kept"])
+    cpu = fluid.Executor(fluid.CPUPlace())
+    cscope = fluid.Scope()
+    for n in ainit.local_names():
+        v = ainit.find_var(n)
+        if torch.is_tensor(v):
+            cscope.set(n, v.cpu().clone())
+    closses, dist = [], []
+    for step in range(OPT_STEPS):
+        closses.append(float(cpu.run(amain, feed=feed, fetch_list=[aloss],
+                                     scope=cscope)[0]))
+        card_states = ar["kept"] if step == 0 else \
+            {n: ar["scope"].find_var(n) for n in states}
+        if step in (0, OPT_STEPS - 1):
+            dist.append(max(
+                ((card_states[n].cpu().double()
+                  - cscope.find_var(n).double()).abs().max()
+                 / cscope.find_var(n).double().abs().max()
+                 .clamp_min(1e-30)).item() for n in states))
+    dl = max(abs(a - b) / abs(b) for a, b in zip(ar["losses"], closses))
+    wa = ar["scope"].find_var("shared_w")
+    same = torch.equal(wa[keep], ainit.find_var("shared_w")[keep])
+    log(f"  Adagrad: the table's gradient is "
+        f"{'a SparseRows' if is_sparse(table_grad) else 'dense'}; step 1's "
+        f"{len(updates)} adagrad ops against the same ops on the CPU: "
+        f"worst ‖Δ‖∞/‖ref‖∞ {worst:.2e} ({at}; limit {CPU_REL:.0e}); losses "
+        f"on the CPU " + " ".join(f"{v:.6f}" for v in closses)
+        + f" ({dl:.2e} from the card's, limit {CPU_REL:.0e}); whole-step "
+        f"state against the CPU's (printed): {dist[0]:.2e} after step 1, "
+        f"{dist[-1]:.2e} after {OPT_STEPS}; absent rows "
+        f"{'bitwise unchanged' if same else 'CHANGED'}")
+    if not is_sparse(table_grad):
+        problems.append("Adagrad: the table's gradient is dense")
+    if not worst <= CPU_REL:
+        problems.append(f"Adagrad: {at} differs from the CPU's op by "
+                        f"{worst:.2e}")
+    if not dl <= CPU_REL:
+        problems.append(f"Adagrad: the losses differ from the CPU's by "
+                        f"{dl:.2e}")
+    if not same:
+        problems.append("Adagrad: rows absent from the batch moved")
+    if not ar["losses"][-1] < ar["losses"][0]:
+        problems.append(f"Adagrad: the loss did not fall: {ar['losses']}")
+    if problems:
+        fail(f"{title}: " + "; ".join(problems))
+    return dict(zip(("embedding_sgd", "sgd_arena"), res["auto"]["total"]))
+
+
+def phase_optimizers(torch, fluid, seed, card):
+    """The six per-parameter optimizers, each OPT_STEPS steps on the LSTM
+    classifier on the kernel route; step 1 of every update op against the
+    same op on the CPU from the same inputs."""
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    log(f"\n-- the six per-parameter optimizers, each {OPT_STEPS} steps on "
+        f"the LSTM classifier (batch {SEQ_BATCH}, length {SEQ_LEN}, hidden "
+        f"{SEQ_HIDDEN}) --")
+    feed = textcls_feeds(fluid, seed, ragged=False)
+    exe = fluid.Executor()
+    totals, problems = {"lstm_seq": 0, "lstm_seq_bwd": 0}, []
+    for name in OPT_RECIPES:
+        main, startup, loss, _ = build_textcls_recipe(fluid, seed, name)
+        block = main.global_block()
+        updates = [op for op in block.ops if op.type == name]
+        init = fluid.Scope()
+        exe.run(startup, scope=init)
+        outs = [n for op in updates for slot, names in op.outputs.items()
+                for n in names]
+        r = recipe_run(torch, fluid, exe, dict(
+            title=name, main=main, loss=loss, feed=feed, init=init,
+            steps=OPT_STEPS, first=[op.input("Grad")[0] for op in updates],
+            keep=outs,
+            counters=[("lstm_seq", lambda: rnn.launches["lstm_seq"]),
+                      ("lstm_seq_bwd", lambda: rnn.launches["lstm_seq_bwd"]),
+                      ("adam_arena", lambda: opk.launches["adam_arena"])],
+            resets=[rnn.reset_launches, opk.reset_launches],
+            want=(2, 2, 0)), "auto")
+        for k, v in zip(("lstm_seq", "lstm_seq_bwd"), r["total"]):
+            totals[k] += v
+        worst, at = replay_on_cpu(torch, block, updates, init, r["first"],
+                                  r["kept"])
+        log(f"{name}: losses " + " ".join(f"{v:.6f}" for v in r["losses"])
+            + f" | steady {r['steady']:.2f} ms/step | step 1 of its "
+            f"{len(updates)} update ops against the same ops on the CPU: "
+            f"worst ‖Δ‖∞/‖ref‖∞ {worst:.2e} ({at}; limit {CPU_REL:.0e}) | "
+            f"{card}")
+        if not worst <= CPU_REL:
+            problems.append(f"{name}: {at} differs from the CPU's by "
+                            f"{worst:.2e}")
+        if not r["losses"][-1] < r["losses"][0]:
+            problems.append(f"{name}: the loss did not fall: {r['losses']}")
+        del r
+    if problems:
+        fail("per-parameter optimizers: " + "; ".join(problems))
+    return totals
+
+
+def phase_recipes(torch, fluid, seed, card):
+    """Phase 15: ResNet-50, the LSTM classifier and word2vec trained with
+    their recipes' clip, decay and schedule on both routes, and the six
+    per-parameter optimizers; returns the kernel route's launches."""
+    log("\n== phase 15: training recipes (clip, decay, schedules, the six "
+        "other optimizers) ==")
+    launches = phase_resnet_recipe(torch, fluid, seed, card)
+    launches.update(phase_textcls_recipe(torch, fluid, seed, card))
+    launches.update(phase_word2vec_recipe(torch, fluid, seed, card))
+    for k, v in phase_optimizers(torch, fluid, seed, card).items():
+        launches[k] += v
+    return launches
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -4018,6 +4772,7 @@ def main():
     gen_launches, gen = phase_generation(torch, fluid, args.seed, card)
     srv_launches, srv_gen_launches, srv_summary = phase_front_door(
         torch, fluid, args.seed, card, serving, gen)
+    rec = phase_recipes(torch, fluid, args.seed, card)
 
     def entry(name, source, replaces, n, t, extra=()):
         return {"name": name, "route": "cuda",
@@ -4032,19 +4787,25 @@ def main():
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
               launches + srv_launches, totals),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
-              train_launches["conv_bn_train"], train_totals["conv_bn_train"]),
+              train_launches["conv_bn_train"] + rec["conv_bn_train"],
+              train_totals["conv_bn_train"]),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
-              train_launches["conv_bn_bwd"], train_totals["conv_bn_bwd"]),
+              train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"],
+              train_totals["conv_bn_bwd"]),
         entry("momentum_arena", "optimizer_arena.cu",
-              "pallas/optimizer.py:111", train_launches["momentum_arena"],
+              "pallas/optimizer.py:111",
+              train_launches["momentum_arena"] + rec["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
-              rnn_launches["lstm_seq"], rnn_totals["lstm_seq"]),
+              rnn_launches["lstm_seq"] + rec["lstm_seq"],
+              rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
-              rnn_launches["lstm_seq_bwd"], rnn_totals["lstm_seq_bwd"]),
+              rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"],
+              rnn_totals["lstm_seq_bwd"]),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
-              + ctc_launches["adam_arena"], rnn_totals["adam_arena"]),
+              + ctc_launches["adam_arena"] + rec["adam_arena"],
+              rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
               gru_launches["gru_seq"] + ctc_launches["gru_seq"],
               seq_totals["gru_seq"]),
@@ -4056,9 +4817,11 @@ def main():
         entry("ctc_loss_bwd", "ctc.cu", "ctc_ops.py:155",
               ctc_launches["ctc_loss_bwd"], seq_totals["ctc_loss_bwd"]),
         entry("sgd_arena", "optimizer_arena.cu", "pallas/optimizer.py:92",
-              w2v_launches["sgd_arena"], sparse_totals["sgd_arena"]),
+              w2v_launches["sgd_arena"] + rec["sgd_arena"],
+              sparse_totals["sgd_arena"]),
         entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
-              w2v_launches["embedding_sgd"], sparse_totals["embedding_sgd"]),
+              w2v_launches["embedding_sgd"] + rec["embedding_sgd"],
+              sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",
               gen_launches + srv_gen_launches,

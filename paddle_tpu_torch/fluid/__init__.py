@@ -1,7 +1,7 @@
 """paddle_tpu_torch.fluid — the user API ported so far (counterpart of
 paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
-initializer, io, fuse_conv_bn, backward, optimizer, places, Scope, flags
-and the LoD feed helpers."""
+initializer, io, fuse_conv_bn, backward, optimizer, regularizer, clip,
+DataFeeder, average, places, Scope, flags and the LoD feed helpers."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -20,7 +20,11 @@ from . import initializer
 from . import io
 from . import backward
 from . import optimizer
+from . import regularizer
+from . import clip
+from . import average
 from .backward import append_backward
+from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from .fusion import fuse_conv_bn
 
@@ -30,6 +34,7 @@ __all__ = [
     "switch_startup_program", "unique_name", "reset_unique_name",
     "Executor", "CPUPlace", "CUDAPlace", "Scope", "global_scope",
     "set_flags", "get_flag", "layers", "initializer", "io", "backward",
-    "optimizer", "append_backward", "ParamAttr", "fuse_conv_bn",
+    "optimizer", "regularizer", "clip", "average", "DataFeeder",
+    "append_backward", "ParamAttr", "fuse_conv_bn",
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
 ]

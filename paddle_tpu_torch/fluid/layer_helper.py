@@ -54,6 +54,14 @@ class LayerHelper:
             name=unique_name(f"{self.name}.tmp"), dtype=dtype, shape=shape,
             lod_level=lod_level, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, shape, dtype, persistable=False,
+                               name=None, stop_gradient=True):
+        """A variable of the main program's global block (reference
+        layer_helper.py:132)."""
+        return self.main_program.global_block().create_var(
+            name=name or unique_name(f"{self.name}.global"), shape=shape,
+            dtype=dtype, persistable=persistable, stop_gradient=stop_gradient)
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         op = self.block.append_op(type, inputs, outputs, attrs)
         info = registry.get_op_info(type)  # fail fast on unknown op types

@@ -1,12 +1,23 @@
-"""fluid.layers — the layer functions ported so far."""
+"""fluid.layers — the layer functions ported so far, in one namespace as
+the reference's layers/__init__.py gathers them."""
 
-from . import nn, io, sequence, tensor
+from . import (nn, io, sequence, tensor, ops, control_flow,  # noqa: F401
+               learning_rate_scheduler)
 from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
-                 elementwise_add, elementwise_sub, square, conv2d, pool2d,
-                 batch_norm, softmax_with_cross_entropy, mean, topk, warpctc,
+                 elementwise_add, elementwise_sub, elementwise_mul,
+                 elementwise_div, elementwise_max, elementwise_min,
+                 elementwise_pow, conv2d, pool2d, batch_norm,
+                 softmax_with_cross_entropy, mean, topk, warpctc,
                  ctc_greedy_decoder, edit_distance, layer_norm,
                  causal_self_attention)
 from .io import data  # noqa: F401
 from .sequence import (dynamic_lstm, dynamic_gru,  # noqa: F401
                        sequence_pool, sequence_last_step)
-from .tensor import concat  # noqa: F401
+from .tensor import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
+from .control_flow import less_than, equal  # noqa: F401
+from .learning_rate_scheduler import (  # noqa: F401
+    noam_decay, exponential_decay, natural_exp_decay, inverse_time_decay,
+    polynomial_decay, piecewise_decay, autoincreased_step_counter)
+
+sum = tensor.sums  # the reference's layers.sum spelling

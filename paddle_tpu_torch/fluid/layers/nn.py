@@ -1,11 +1,12 @@
 """Neural-network layer functions (counterpart of
 paddle_tpu/fluid/layers/nn.py), those ResNet training, the text
 classifiers, the CTC acoustic model and the word2vec N-gram model build:
-fc, embedding, softmax, cross_entropy, softmax_with_cross_entropy, mean,
-elementwise_add, elementwise_sub, square, conv2d, pool2d, batch_norm,
-topk, warpctc, ctc_greedy_decoder and edit_distance; and those the
-decoder LM of the generation slice builds: layer_norm and
-causal_self_attention.
+fc (over one input or several), embedding, softmax, cross_entropy,
+softmax_with_cross_entropy, mean, conv2d, pool2d, batch_norm, topk,
+warpctc, ctc_greedy_decoder and edit_distance; the elementwise
+add, sub, mul, div, max, min and pow that the schedules and the clips
+build; and those the decoder LM of the generation slice builds:
+layer_norm and causal_self_attention.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -20,8 +21,9 @@ from ..initializer import Constant, Normal, Xavier
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully connected layer (reference nn.py:20): mul per input + sum +
-    bias + activation."""
+    """Fully connected layer (reference nn.py:20): mul per input, a sum of
+    the products when there are several inputs (reference :46), bias,
+    activation."""
     helper = LayerHelper("fc", name=name, act=act, bias_attr=bias_attr)
     inputs = input if isinstance(input, (list, tuple)) else [input]
     mul_results = []
@@ -38,11 +40,15 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(out)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the sum op, which is not ported")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_tmp_variable(
+            mul_results[0].dtype, shape=mul_results[0].shape,
+            lod_level=mul_results[0].lod_level)
+        helper.append_op("sum", inputs={"X": [m.name for m in mul_results]},
+                         outputs={"Out": [pre_bias.name]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -128,15 +134,24 @@ def elementwise_sub(x, y, axis=-1, act=None):
     return _elementwise("elementwise_sub", x, y, axis, act)
 
 
-def square(x, name=None):
-    """x² elementwise (the reference's generated unary layer,
-    layers/ops.py)."""
-    helper = LayerHelper("square", name=name)
-    out = helper.create_tmp_variable(x.dtype, shape=x.shape,
-                                     lod_level=x.lod_level)
-    helper.append_op("square", inputs={"X": [x.name]},
-                     outputs={"Out": [out.name]})
-    return out
+def elementwise_mul(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_mul", x, y, axis, act)
+
+
+def elementwise_div(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_div", x, y, axis, act)
+
+
+def elementwise_max(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_max", x, y, axis, act)
+
+
+def elementwise_min(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_min", x, y, axis, act)
+
+
+def elementwise_pow(x, y, axis=-1, act=None):
+    return _elementwise("elementwise_pow", x, y, axis, act)
 
 
 def _pair(v):
@@ -352,6 +367,7 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None):
 
 __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "elementwise_add",
-           "elementwise_sub", "square", "conv2d",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "elementwise_min", "elementwise_pow", "conv2d",
            "pool2d", "batch_norm", "topk", "warpctc", "ctc_greedy_decoder",
            "edit_distance", "layer_norm", "causal_self_attention"]

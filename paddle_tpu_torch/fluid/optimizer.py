@@ -4,18 +4,25 @@ same program, with persistable accumulators initialized in the startup
 program. Learning-rate and accumulator variables take the reference's
 names, so state copied between the packages by name lines up.
 
-Ported: the ``Optimizer`` base, ``SGD``, ``Momentum`` and ``Adam``
+All nine of the reference's optimizers: ``SGD``, ``Momentum`` and ``Adam``
 (reference :119, :139, :172), each either one update op per parameter or,
 with ``fused=True``, ONE ``fused_*`` op whose dense float32 set runs as a
 single arena kernel launch on the card (a sparse gradient keeps its own
-update inside that op). Gradient clipping and
-regularization are not ported yet and raise when configured.
+update inside that op); and ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``,
+``RMSProp``, ``Adamax`` and ``Ftrl`` (reference :241-374), one op per
+parameter. ``minimize`` clips the gradients first
+(``clip.append_gradient_clip_ops``), then adds the weight decay
+(``regularizer.append_regularization_ops``), then appends the update over
+the new gradient names. A ``learning_rate`` that is a Variable (a
+schedule's output, ``layers.learning_rate_scheduler``) is the lr variable.
 """
 
 from __future__ import annotations
 
 from .framework import default_startup_program, unique_name
 from .backward import append_backward
+from . import clip as _clip
+from . import regularizer as _regularizer
 
 
 class Optimizer:
@@ -79,23 +86,16 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
-        """Append the backward and the update ops (reference
-        optimizer.py:98); returns [(param, grad_var)]."""
+        """Append the backward, the clip and decay ops and the update ops
+        (reference optimizer.py:98); returns [(param, grad_var)], each
+        grad_var the one the update reads."""
         startup = startup_program or default_startup_program()
         params_grads = append_backward(loss, parameter_list, no_grad_set)
         program = loss.block.program
         self._create_lr_var(program, startup)
-        if self.regularization is not None or any(
-                getattr(p, "regularizer", None) is not None
-                for p, _ in params_grads):
-            raise NotImplementedError(
-                "regularization is not ported yet (reference "
-                "fluid/regularizer.py)")
-        if any(getattr(p, "gradient_clip", None) is not None
-               for p, _ in params_grads):
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (reference "
-                "fluid/clip.py)")
+        params_grads = _clip.append_gradient_clip_ops(params_grads)
+        params_grads = _regularizer.append_regularization_ops(
+            params_grads, self.regularization)
         block = program.global_block()
         if self._fused and params_grads:
             self._append_fused_op(block, params_grads, startup)
@@ -232,5 +232,164 @@ class Adam(Optimizer):
 
 AdamOptimizer = Adam
 
+
+class Adagrad(Optimizer):
+    """m += g²; p -= lr·g / (√m + ε) (reference optimizer.py:241); a
+    sparse table updates only the rows the batch touched."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        m = self._add_accumulator("moment", p, startup)
+        block.append_op("adagrad",
+                        inputs={"Param": [p.name], "Grad": [g.name],
+                                "Moment": [m.name],
+                                "LearningRate": [self._lr_var.name]},
+                        outputs={"ParamOut": [p.name],
+                                 "MomentOut": [m.name]},
+                        attrs={"epsilon": self._epsilon})
+
+
+AdagradOptimizer = Adagrad
+
+
+class DecayedAdagrad(Optimizer):
+    """Adagrad with a decaying moment (reference optimizer.py:260)."""
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        m = self._add_accumulator("moment", p, startup)
+        block.append_op("decayed_adagrad",
+                        inputs={"Param": [p.name], "Grad": [g.name],
+                                "Moment": [m.name],
+                                "LearningRate": [self._lr_var.name]},
+                        outputs={"ParamOut": [p.name],
+                                 "MomentOut": [m.name]},
+                        attrs={"decay": self._decay,
+                               "epsilon": self._epsilon})
+
+
+DecayedAdagradOptimizer = DecayedAdagrad
+
+
+class Adadelta(Optimizer):
+    """Adadelta (reference optimizer.py:279)."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        asg = self._add_accumulator("avg_squared_grad", p, startup)
+        asu = self._add_accumulator("avg_squared_update", p, startup)
+        block.append_op(
+            "adadelta",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "AvgSquaredGrad": [asg.name],
+                    "AvgSquaredUpdate": [asu.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "AvgSquaredGradOut": [asg.name],
+                     "AvgSquaredUpdateOut": [asu.name]},
+            attrs={"rho": self._rho, "epsilon": self._epsilon})
+
+
+AdadeltaOptimizer = Adadelta
+
+
+class RMSProp(Optimizer):
+    """RMSProp (reference optimizer.py:301); the class's rho 0.95 and
+    epsilon 1e-6 are passed to the op, whose own defaults differ."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon, self._momentum = rho, epsilon, momentum
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        ms = self._add_accumulator("mean_square", p, startup)
+        mom = self._add_accumulator("momentum_acc", p, startup)
+        block.append_op(
+            "rmsprop",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "MeanSquare": [ms.name], "Moment": [mom.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MeanSquareOut": [ms.name],
+                     "MomentOut": [mom.name]},
+            attrs={"decay": self._rho, "epsilon": self._epsilon,
+                   "momentum": self._momentum})
+
+
+RMSPropOptimizer = RMSProp
+
+
+class Adamax(Optimizer):
+    """Adamax (reference optimizer.py:324): a per-parameter beta1_pow,
+    scaled by beta1 after the update."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        m = self._add_accumulator("moment", p, startup)
+        inf = self._add_accumulator("inf_norm", p, startup)
+        b1p = self._add_accumulator("beta1_pow", p, startup,
+                                    fill_value=self._beta1, shape=(1,))
+        block.append_op(
+            "adamax",
+            inputs={"Param": [p.name], "Grad": [g.name], "Moment": [m.name],
+                    "InfNorm": [inf.name], "Beta1Pow": [b1p.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "MomentOut": [m.name],
+                     "InfNormOut": [inf.name]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon})
+        block.append_op("scale", inputs={"X": [b1p.name]},
+                        outputs={"Out": [b1p.name]},
+                        attrs={"scale": self._beta1})
+
+
+AdamaxOptimizer = Adamax
+
+
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference optimizer.py:353)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _append_optimize_op(self, block, pg, startup):
+        p, g = pg
+        sq = self._add_accumulator("squared", p, startup)
+        lin = self._add_accumulator("linear", p, startup)
+        block.append_op(
+            "ftrl",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "SquaredAccumulator": [sq.name],
+                    "LinearAccumulator": [lin.name],
+                    "LearningRate": [self._lr_var.name]},
+            outputs={"ParamOut": [p.name], "SquaredAccumOut": [sq.name],
+                     "LinearAccumOut": [lin.name]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power})
+
+
+FtrlOptimizer = Ftrl
+
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
-           "MomentumOptimizer", "Adam", "AdamOptimizer"]
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "Adagrad",
+           "AdagradOptimizer", "DecayedAdagrad", "DecayedAdagradOptimizer",
+           "Adadelta", "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer",
+           "Adamax", "AdamaxOptimizer", "Ftrl", "FtrlOptimizer"]

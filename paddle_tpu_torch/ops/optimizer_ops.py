@@ -1,7 +1,9 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py):
-the per-parameter ``sgd`` (reference :108), ``momentum`` (:115) and
-``adam`` (:139) and the variadic ``fused_sgd``, ``fused_momentum`` and
-``fused_adam`` (:385, :399, :427).
+the per-parameter ``sgd`` (reference :108), ``momentum`` (:115), ``adam``
+(:139), ``adagrad`` (:168), ``decayed_adagrad`` (:189), ``adadelta``
+(:200), ``rmsprop`` (:215), ``adamax`` (:230) and ``ftrl`` (:246), and the
+variadic ``fused_sgd``, ``fused_momentum`` and ``fused_adam`` (:385, :399,
+:427). Each keeps the reference op's attribute defaults.
 
 The update ops write their outputs under the parameter's and the state's
 own names, so the executor writes the new values back to the scope. A
@@ -16,7 +18,8 @@ branch in every op, fused or not: SGD's runs the embedding kernel
 the unmerged scatter-add of ``−lr·vals`` on the plain route (reference
 :79-105); momentum's and Adam's merge the rows and update only the touched
 rows of the parameter and its state (``core/sparse.py::apply_rowwise``,
-reference :122-135, :149-165: the lazy update).
+reference :122-135, :149-165: the lazy update), and so does adagrad's
+(:174-182). The other five densify a sparse gradient (``_param_grad``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,16 @@ from .cuda.optimizer import _adam_dense, _momentum_dense, _sgd_dense, adam_lr
 
 def _lr(ctx):
     return ctx.input("LearningRate").reshape(())
+
+
+def _param_grad(ctx):
+    """Param and Grad, the gradient densified if sparse and cast to the
+    parameter's dtype (reference :37): the optimizers with no sparse
+    branch."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    if is_sparse(g):
+        g = g.to_dense()
+    return p, g.to(p.dtype)
 
 
 def _adam_attrs(ctx):
@@ -175,3 +188,110 @@ def fused_adam(ctx):
         lambda p, g, m1, m2: _adam_sparse(p, g, m1, m2, lr_eff, b1, b2, eps),
         lambda ps, gs, m1s, m2s: opk.adam_arena(
             ps, gs, m1s, m2s, lr, b1p, b2p, b1, b2, eps))
+
+
+@register_op("adagrad", in_place=True)
+def adagrad(ctx):
+    """m += g²; p -= lr·g / (√m + ε) (reference :168); a SparseRows
+    gradient updates only its merged rows (:174-182)."""
+    p, m = ctx.input("Param"), ctx.input("Moment")
+    eps, lr = ctx.attr("epsilon", 1e-6), _lr(ctx)
+
+    def upd(g, p_r, m_r):
+        m_new = m_r + g * g
+        return p_r - lr * g / (torch.sqrt(m_new) + eps), m_new
+
+    g = ctx.input("Grad")
+    if is_sparse(g):
+        p_new, m_new = apply_rowwise(g.astype(p.dtype), [p, m], upd)
+    else:
+        p_new, m_new = upd(g.to(p.dtype), p, m)
+    ctx.set_output("ParamOut", p_new)
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_op("decayed_adagrad", in_place=True)
+def decayed_adagrad(ctx):
+    """m = decay·m + (1 − decay)·g²; p -= lr·g / (√m + ε) (reference
+    :189)."""
+    p, g = _param_grad(ctx)
+    m = ctx.input("Moment")
+    decay, eps = ctx.attr("decay", 0.95), ctx.attr("epsilon", 1e-6)
+    m_new = decay * m + (1 - decay) * g * g
+    ctx.set_output("ParamOut", p - _lr(ctx) * g / (torch.sqrt(m_new) + eps))
+    ctx.set_output("MomentOut", m_new)
+
+
+@register_op("adadelta", in_place=True)
+def adadelta(ctx):
+    """Adadelta (reference :200); LearningRate is read by no expression, as
+    in the reference."""
+    p, g = _param_grad(ctx)
+    avg_sq_grad = ctx.input("AvgSquaredGrad")
+    avg_sq_upd = ctx.input("AvgSquaredUpdate")
+    rho, eps = ctx.attr("rho", 0.95), ctx.attr("epsilon", 1e-6)
+    asg = rho * avg_sq_grad + (1 - rho) * g * g
+    upd = -torch.sqrt((avg_sq_upd + eps) / (asg + eps)) * g
+    asu = rho * avg_sq_upd + (1 - rho) * upd * upd
+    ctx.set_output("ParamOut", p + upd)
+    ctx.set_output("AvgSquaredGradOut", asg)
+    ctx.set_output("AvgSquaredUpdateOut", asu)
+
+
+@register_op("rmsprop", in_place=True)
+def rmsprop(ctx):
+    """ms = ρ·ms + (1 − ρ)·g²; mom = μ·mom + lr·g / √(ms + ε); p -= mom
+    (reference :215). The op's defaults are decay 0.9 and epsilon 1e-10;
+    the RMSProp class passes its own."""
+    p, g = _param_grad(ctx)
+    ms, mom = ctx.input("MeanSquare"), ctx.input("Moment")
+    rho, eps = ctx.attr("decay", 0.9), ctx.attr("epsilon", 1e-10)
+    momentum_c = ctx.attr("momentum", 0.0)
+    ms_new = rho * ms + (1 - rho) * g * g
+    mom_new = momentum_c * mom + _lr(ctx) * g / torch.sqrt(ms_new + eps)
+    ctx.set_output("ParamOut", p - mom_new)
+    ctx.set_output("MeanSquareOut", ms_new)
+    ctx.set_output("MomentOut", mom_new)
+
+
+@register_op("adamax", in_place=True)
+def adamax(ctx):
+    """m = β1·m + (1 − β1)·g; u = max(β2·u, |g| + ε); p -= lr / (1 −
+    β1^t) · m / u (reference :230); Adamax appends the beta1_pow scale."""
+    p, g = _param_grad(ctx)
+    m, inf_norm = ctx.input("Moment"), ctx.input("InfNorm")
+    b1p = ctx.input("Beta1Pow").reshape(())
+    b1, b2 = ctx.attr("beta1", 0.9), ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_new = b1 * m + (1 - b1) * g
+    inf_new = torch.maximum(b2 * inf_norm, torch.abs(g) + eps)
+    lr = _lr(ctx) / (1 - b1p)
+    ctx.set_output("ParamOut", p - lr * m_new / inf_new)
+    ctx.set_output("MomentOut", m_new)
+    ctx.set_output("InfNormOut", inf_new)
+
+
+@register_op("ftrl", in_place=True)
+def ftrl(ctx):
+    """FTRL-proximal (reference :246), with its square-root branch for
+    ``lr_power`` −0.5 and the power branch otherwise."""
+    p, g = _param_grad(ctx)
+    sq, lin = ctx.input("SquaredAccumulator"), ctx.input("LinearAccumulator")
+    l1, l2 = ctx.attr("l1", 0.0), ctx.attr("l2", 0.0)
+    lr_power = ctx.attr("lr_power", -0.5)
+    lr = _lr(ctx)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+    else:
+        sigma = (torch.pow(new_sq, -lr_power)
+                 - torch.pow(sq, -lr_power)) / lr
+    new_lin = lin + g - sigma * p
+    x = torch.clamp(new_lin, -l1, l1) - new_lin
+    if lr_power == -0.5:
+        y = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        y = torch.pow(new_sq, -lr_power) / lr + 2 * l2
+    ctx.set_output("ParamOut", x / y)
+    ctx.set_output("SquaredAccumOut", new_sq)
+    ctx.set_output("LinearAccumOut", new_lin)

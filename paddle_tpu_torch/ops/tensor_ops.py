@@ -1,9 +1,17 @@
-"""Creation ops, concat, the variadic sum and top_k (counterpart of
-paddle_tpu/ops/tensor_ops.py): fill_constant, fill_zeros_like,
-uniform_random, gaussian_random, concat and its grad, sum, scale and
-top_k. fill_zeros_like, concat, sum, scale and top_k are LoD-transparent:
-a LoDArray input keeps its lengths, so the padded positions of a LoD
-gradient stay masked downstream. ``sum`` also adds SparseRows gradients.
+"""Creation ops, concat, the variadic sum, top_k and the ops of gradient
+clipping, weight decay and learning-rate schedules (counterpart of
+paddle_tpu/ops/tensor_ops.py): fill_constant,
+fill_constant_batch_size_like, fill_zeros_like, uniform_random,
+gaussian_random, cast, scale, assign, sign, clip, clip_by_norm,
+squared_l2_norm, increment, concat, sum, the comparison and logical ops,
+top_k and argmax, with the reference's grad makers. The LoD-transparent
+ones keep a LoDArray input's lengths, so the padded positions of a LoD
+gradient stay masked downstream. ``sum`` also adds SparseRows gradients;
+``clip``, ``clip_by_norm`` and ``squared_l2_norm`` merge a SparseRows input
+first (the clip of a sum is not the sum of the clips).
+
+None of them reads a device value on the host: a schedule, clip or decay
+op on the card queues its work and returns.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -16,7 +24,7 @@ import torch
 
 from ..core.lod import LoDArray
 from ..core.registry import register_op, same_shape, OpSpec, G
-from ..core.sparse import SparseRows, is_sparse
+from ..core.sparse import SparseRows, is_sparse, merge_rows
 from ..core.types import torch_dtype
 from .common import data_of, like
 
@@ -25,6 +33,19 @@ from .common import data_of, like
 def fill_constant(ctx):
     ctx.set_output("Out", torch.full(
         tuple(ctx.attr("shape", [])), ctx.attr("value", 0.0),
+        dtype=torch_dtype(ctx.attr("dtype", "float32")), device=ctx.device))
+
+
+@register_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(ctx):
+    """``shape`` with dim ``output_dim_idx`` taken from Input's dim
+    ``input_dim_idx`` (reference :39)."""
+    ref = data_of(ctx.input("Input"))
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ref.shape[ctx.attr("input_dim_idx", 0)]
+    ctx.set_output("Out", torch.full(
+        tuple(shape), ctx.attr("value", 0.0),
         dtype=torch_dtype(ctx.attr("dtype", "float32")), device=ctx.device))
 
 
@@ -89,14 +110,17 @@ def concat_grad(ctx):
                                for v, p in zip(vs, parts)])
 
 
-@register_op("sum")
+@register_op("sum", grad=lambda op: [OpSpec(
+    "assign", {"X": G(op.output("Out"))}, {"Out": [g]})
+    for g in G(op.input("X"))])
 def sum_op(ctx):
     """Variadic sum, added left to right (reference :298): the
-    backward's rename-and-sum of repeated gradients. All-SparseRows inputs
-    concatenate their entries in input order (the reference's sum over
-    SelectedRows appends rows); a mix of dense and sparse densifies the
-    sparse terms (reference :319-330). Its grad maker (an assign per input)
-    is not ported: no ported program differentiates a sum."""
+    backward's rename-and-sum of repeated gradients, a multi-input fc's
+    products and the decayed gradient. All-SparseRows inputs concatenate
+    their entries in input order (the reference's sum over SelectedRows
+    appends rows); a mix of dense and sparse densifies the sparse terms
+    (reference :319-330), so a decayed ``is_sparse`` table takes the dense
+    update. Its grad is an assign of Out@GRAD to each input's."""
     vs = ctx.inputs("X")
     if any(is_sparse(v) for v in vs):
         if all(is_sparse(v) for v in vs):
@@ -111,14 +135,129 @@ def sum_op(ctx):
     ctx.set_output("Out", like(vs[0], out))
 
 
-@register_op("scale", infer_shape=same_shape("X", "Out"))
+@register_op("scale", infer_shape=same_shape("X", "Out"),
+             grad=lambda op: [OpSpec(
+                 "scale", {"X": G(op.output("Out"))},
+                 {"Out": G(op.input("X"))},
+                 {"scale": op.attr("scale", 1.0)})])
 def scale(ctx):
     """Out = X·scale + bias (reference :108): the beta-power update that
-    Adam appends after its update op. Its grad maker (a scale of the output
-    grad) is not ported: no ported program differentiates a scale."""
+    Adam appends after its update op, the L2 decay term and every step of
+    a schedule. Its grad scales Out@GRAD by ``scale``."""
     x = ctx.input("X")
     ctx.set_output("Out", like(x, data_of(x) * ctx.attr("scale", 1.0)
                              + ctx.attr("bias", 0.0)))
+
+
+@register_op("cast", grad=lambda op: [OpSpec(
+    "cast", {"X": G(op.output("Out"))}, {"Out": G(op.input("X"))},
+    {"dtype": op.attr("in_dtype", "float32"), "in_dtype": op.attr("dtype")})])
+def cast(ctx):
+    """X in ``dtype`` (reference :100): the schedules' int64 step counter
+    to float32. Its grad casts Out@GRAD back to ``in_dtype``."""
+    x = ctx.input("X")
+    ctx.set_output("Out", like(x, data_of(x).to(torch_dtype(
+        ctx.attr("dtype")))))
+
+
+@register_op("assign", infer_shape=same_shape("X", "Out"),
+             grad=lambda op: [OpSpec(
+                 "assign", {"X": G(op.output("Out"))},
+                 {"Out": G(op.input("X"))})])
+def assign(ctx):
+    ctx.set_output("Out", ctx.input("X"))
+
+
+@register_op("sign", infer_shape=same_shape("X", "Out"))
+def sign(ctx):
+    """The L1 decay's sign(param) (reference :124); no grad."""
+    x = ctx.input("X")
+    ctx.set_output("Out", like(x, torch.sign(data_of(x))))
+
+
+def _clip_grad_maker(op):
+    return [OpSpec("clip_grad",
+                   {"Out@GRAD": G(op.output("Out")), "X": op.input("X")},
+                   {"X@GRAD": G(op.input("X"))}, dict(op.attrs))]
+
+
+@register_op("clip", infer_shape=same_shape("X", "Out"),
+             grad=_clip_grad_maker)
+def clip(ctx):
+    """X clamped to [min, max] (reference :130). A SparseRows X is merged
+    first and comes back merged."""
+    x = ctx.input("X")
+    lo, hi = ctx.attr("min"), ctx.attr("max")
+    if is_sparse(x):
+        m = merge_rows(x)
+        ctx.set_output("Out", SparseRows(m.rows, torch.clamp(m.values, lo, hi),
+                                         m.nrows, merged=True))
+        return
+    ctx.set_output("Out", like(x, torch.clamp(data_of(x), lo, hi)))
+
+
+@register_op("clip_grad")
+def clip_grad(ctx):
+    """Out@GRAD where min <= X <= max, else 0 (reference :147)."""
+    x = data_of(ctx.input("X"))
+    d = ctx.input("Out@GRAD")
+    mask = (x >= ctx.attr("min")) & (x <= ctx.attr("max"))
+    ctx.set_output("X@GRAD", like(d, data_of(d) * mask))
+
+
+def _norm_scale(x, max_norm):
+    """max_norm / ‖x‖₂ where ‖x‖₂ > max_norm, else 1, as a device scalar
+    (reference :165)."""
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return torch.where(norm > max_norm,
+                       max_norm / torch.clamp_min(norm, 1e-12),
+                       torch.ones_like(norm))
+
+
+@register_op("clip_by_norm", infer_shape=same_shape("X", "Out"))
+def clip_by_norm(ctx):
+    """X scaled down to an L2 norm of ``max_norm`` where it is longer
+    (reference :155). A SparseRows X is merged first and clipped by the
+    merged value block's norm, the dense gradient's."""
+    xv = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    if is_sparse(xv):
+        m = merge_rows(xv)
+        ctx.set_output("Out", SparseRows(
+            m.rows, m.values * _norm_scale(m.values, max_norm), m.nrows,
+            merged=True))
+        return
+    x = data_of(xv)
+    ctx.set_output("Out", like(xv, x * _norm_scale(x, max_norm)))
+
+
+@register_op("squared_l2_norm", grad=lambda op: [OpSpec(
+    "squared_l2_norm_grad",
+    {"X": op.input("X"), "Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))})])
+def squared_l2_norm(ctx):
+    """Σ X², shape [1] (reference :176). A SparseRows X is merged first:
+    duplicate rows are summed before squaring, and the sentinel segments
+    hold the zeroed padding gradients."""
+    xv = ctx.input("X")
+    x = merge_rows(xv).values if is_sparse(xv) else data_of(xv)
+    ctx.set_output("Out", torch.sum(torch.square(x)).reshape((1,)))
+
+
+@register_op("squared_l2_norm_grad")
+def squared_l2_norm_grad(ctx):
+    x = data_of(ctx.input("X"))
+    d = data_of(ctx.input("Out@GRAD")).reshape(())
+    ctx.set_output("X@GRAD", 2.0 * d * x)
+
+
+@register_op("increment")
+def increment(ctx):
+    """X + step in X's dtype (reference :201): the schedules' int64 step
+    counter."""
+    x = data_of(ctx.input("X"))
+    ctx.set_output("Out", x + torch.tensor(ctx.attr("step", 1.0)).to(
+        x.dtype))
 
 
 @register_op("top_k")
@@ -139,3 +278,36 @@ def top_k(ctx):
                      stable=True).indices[..., :ctx.attr("k", 1)]
     ctx.set_output("Out", like(xin, torch.gather(x, -1, idx)))
     ctx.set_output("Indices", like(xin, idx))
+
+
+def _cmp(name, fn):
+    """A comparison or logical op, Out = fn(X, Y), no grad (reference
+    :370)."""
+    @register_op(name)
+    def op(ctx):
+        ctx.set_output("Out", fn(data_of(ctx.input("X")),
+                                 data_of(ctx.input("Y"))))
+
+
+_cmp("less_than", lambda x, y: x < y)
+_cmp("less_equal", lambda x, y: x <= y)
+_cmp("greater_than", lambda x, y: x > y)
+_cmp("greater_equal", lambda x, y: x >= y)
+_cmp("equal", lambda x, y: x == y)
+_cmp("not_equal", lambda x, y: x != y)
+_cmp("logical_and", lambda x, y: x & y)
+_cmp("logical_or", lambda x, y: x | y)
+_cmp("logical_xor", lambda x, y: x ^ y)
+
+
+@register_op("logical_not")
+def logical_not(ctx):
+    ctx.set_output("Out", ~data_of(ctx.input("X")))
+
+
+@register_op("argmax")
+def argmax(ctx):
+    """The int64 index of the largest entry along ``axis`` (reference
+    :416)."""
+    x = data_of(ctx.input("X"))
+    ctx.set_output("Out", torch.argmax(x, dim=ctx.attr("axis", -1)))

@@ -38,6 +38,17 @@ def test_port_module_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_training_front_end_modules_are_checked():
+    """The training front end's modules (clip, decay, schedules, feeding)
+    are among the files the import check reads."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in ("fluid/clip.py", "fluid/regularizer.py",
+                 "fluid/data_feeder.py", "fluid/average.py",
+                 "fluid/layers/learning_rate_scheduler.py",
+                 "fluid/layers/ops.py", "fluid/layers/control_flow.py"):
+        assert "paddle_tpu_torch/" + name in checked, name
+
+
 def test_kernel_tier_has_no_silent_fallback():
     """No try statement anywhere in ops/cuda/: a failed build or launch
     reaches the caller."""
