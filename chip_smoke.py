@@ -4,8 +4,9 @@ CTC acoustic model and the word2vec N-gram model, serve a decoder LM
 through the generation engine, serve ResNet-50 and the LM over RPC through
 ModelServer, and train three of those models with gradient clipping,
 weight decay and learning-rate schedules and the LSTM classifier with the
-six other optimizers, with the PyTorch/CUDA port on one GPU, and hold
-every hand-written kernel against its plain PyTorch version.
+six other optimizers, train ResNet-50 and the LSTM classifier under AMP,
+with the PyTorch/CUDA port on one GPU, and hold every hand-written kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -15,7 +16,9 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
 1. build    — compile every csrc/*.cu with nvcc, all at once; print the
               card's name and power limit, the torch and nvcc versions, the
               TF32 switches (both off: every float32 reference is full
-              float32), and per kernel its registers and spills (all of the
+              float32) and cuBLAS's bf16 reduced-precision reduction
+              (AMP turns it off), and per kernel its registers and
+              spills (all of the
               conv kernels', the others' that spill).
 2. kernels  — every distinct fused conv shape of ResNet-50 at batch 8, in
               float32 and bfloat16, with and without relu: conv_affine,
@@ -197,6 +200,32 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               step and peak memory with and without each recipe and the
               ops each adds.
 
+16. amp     — Executor(amp=True), bench.py:3420-3439's flagship mode:
+              phase 4's ResNet-50 at batch 32 with its images staged on
+              the card in bfloat16, 5 steps on both routes: 49 + 49
+              conv_bn_train / conv_bn_bwd launches on bfloat16 x and 1
+              momentum_arena a step, every parameter, velocity and
+              running statistic float32 after each step; step 1 against
+              the plain route under AMP (limits from a bf16 floor of
+              permuted batches), and printed beside float32 at
+              tests/test_amp.py's rtol 0.05 / atol 1e-2 (a reading); every
+              conv kernel call of a step and of a test-clone forward
+              replayed through its plain version on the program's own
+              inputs (REL_LIMIT's bfloat16 limit; conv_bn_bwd's dy zeroed
+              within MASK_MARGIN of its relu); a float32 feed gives
+              the same launches and loss; a step with cast_compute off
+              must fail the launch check; the loss falls; the forward's
+              test clone launches conv_affine 49 times on bfloat16 and
+              agrees with the plain route. Then 5 kernel-route steps at
+              the flagship's batch 256 (loss finite and falling, the same
+              launches, ms a step, peak memory, a profiled step), phase
+              6's LSTM classifier under AMP through phase 6's checks (fc
+              GEMMs in bfloat16, float32 into the LSTM kernels), and
+              conv_bn_train, conv_bn_bwd and conv_affine in bfloat16 at
+              batches 32 and 256 against their plain versions, timed
+              beside cuDNN in bfloat16 and their bounds at the bfloat16
+              tensor-core rate.
+
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -205,6 +234,7 @@ listing each kernel's numbers, the card's name and power limit, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -750,7 +780,7 @@ def overwrite_bn_stats(main, scope, torch, seed):
     import numpy as np
     rng = np.random.RandomState(seed)
     for op in main.global_block().ops:
-        if op.type != "batch_norm":
+        if op.type not in ("batch_norm", "fused_conv2d_bn"):
             continue
         c = scope.find_var(op.input("Scale")[0]).shape[0]
         vals = {"Scale": rng.uniform(0.5, 1.0, c),
@@ -933,10 +963,12 @@ def profile(torch, fn, title, card, reps=3, groups=None):
 EPS = 1e-5
 
 
-def build_resnet50_train(fluid, seed):
+def build_resnet50_train(fluid, seed, lr=TRAIN_LR, with_test=False):
     """bench.py:217 build(fuse=True) at its published widths: ResNet-50,
     mean(softmax_with_cross_entropy), fuse_conv_bn, then
-    Momentum(TRAIN_LR, 0.9, fused=True).minimize."""
+    Momentum(lr, 0.9, fused=True).minimize. ``with_test`` also returns
+    the forward's ``clone(for_test=True)``, taken before minimize, and the
+    logits var."""
     from paddle_tpu_torch.testing.models import resnet
     fluid.reset_unique_name()
     main, startup = fluid.Program(), fluid.Program()
@@ -944,13 +976,17 @@ def build_resnet50_train(fluid, seed):
     with fluid.program_guard(main, startup):
         img = fluid.layers.data("img", shape=[IMAGE, IMAGE, 3])
         label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = resnet(img, CLASSES)
         loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
-            resnet(img, CLASSES), label))
+            logits, label))
         n_fused = fluid.fuse_conv_bn(main)
         if n_fused != KERNEL_CONVS + PLAIN_CONVS:
             fail(f"fuse_conv_bn fused {n_fused} chains, want 53")
-        fluid.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9,
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9,
                                  fused=True).minimize(loss, startup)
+    if with_test:
+        return main, startup, loss, test, logits
     return main, startup, loss
 
 
@@ -1378,7 +1414,8 @@ def phase_training(torch, fluid, seed, card):
                 step1 = readings(vals, scope)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steady = sum(ms[1:]) / len(ms[1:])
-        res[route] = dict(losses=losses, step1=step1, total=total)
+        res[route] = dict(losses=losses, step1=step1, total=total,
+                          stats=(steady, peak))
         log(f"kernel_tier={route}: losses "
             + " ".join(f"{v:.6f}" for v in losses)
             + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
@@ -1513,8 +1550,9 @@ def phase_training(torch, fluid, seed, card):
     profile(torch, lambda: run("auto", scope, feed),
             f"one training step, batch {TRAIN_BATCH}, kernel route", card,
             reps=2, groups=CONV_BN_LAUNCHES)
-    return dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
-                    res["auto"]["total"]))
+    return (dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
+                     res["auto"]["total"])),
+            {r: res[r]["stats"] for r in res})
 
 
 def build_textcls(fluid, seed, cell="lstm"):
@@ -1840,15 +1878,16 @@ def train_phase(torch, fluid, card, spec):
     wrappers swapped for their plain versions (``spec["swaps"]``) within
     ``spec["loss_limit"]`` and ``spec["grad_limit"]``; a planted fault
     (``spec["plant"]``) must break the gradient limit; the loss must fall on
-    both routes. Prints ms per step, sequences/s and peak memory of both
-    routes and a profile of a kernel-route step. Returns (the launch
+    both routes. ``spec["amp"]`` runs every step under
+    ``Executor(amp=True)``. Prints ms per step, sequences/s and peak memory
+    of both routes and a profile of a kernel-route step. Returns (the launch
     totals of the kernel route by counter, its trained scope, the
-    executor)."""
+    executor, {route: (steady ms a step, peak GiB)})."""
     import numpy as np
     title, main, loss = spec["title"], spec["main"], spec["loss"]
     block = main.global_block()
     log("program: " + op_counts(block))
-    exe = fluid.Executor()
+    exe = fluid.Executor(amp=spec.get("amp", False))
     init = fluid.Scope()
     exe.run(spec["startup"], scope=init)
     update, = [op for op in block.ops if op.type == "fused_adam"]
@@ -1900,7 +1939,7 @@ def train_phase(torch, fluid, card, spec):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steady = sum(ms[1:]) / len(ms[1:])
         res[route] = dict(losses=losses, step1=first, total=total,
-                          scope=scope)
+                          scope=scope, stats=(steady, peak))
         log(f"kernel_tier={route}: losses "
             + " ".join(f"{v:.6f}" for v in losses)
             + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
@@ -1999,14 +2038,15 @@ def train_phase(torch, fluid, card, spec):
     profile(torch, lambda: run("auto", scope, train_feed),
             f"{title}: one training step, batch {spec['batch']}, kernel "
             "route", card, reps=3)
-    return dict(zip(labels, res["auto"]["total"])), res["auto"]["scope"], exe
+    return (dict(zip(labels, res["auto"]["total"])), res["auto"]["scope"],
+            exe, {r: res[r]["stats"] for r in res})
 
 
 def phase_textcls(torch, fluid, seed, card, cell="lstm"):
     """Train the LSTM (phase 6) or GRU (phase 8) text classifier 5 steps on
     one feed under both routes and hold step 1 of the kernel route to the
-    plain-version route parameter by parameter; returns the launches of
-    each kernel on the kernel route."""
+    plain-version route parameter by parameter; returns (the launches of
+    each kernel on the kernel route, {route: (ms a step, peak GiB)})."""
     from paddle_tpu_torch.ops import cuda as tier
     from paddle_tpu_torch.ops.cuda import optimizer as opk
     from paddle_tpu_torch.ops.cuda import rnn
@@ -2022,7 +2062,7 @@ def phase_textcls(torch, fluid, seed, card, cell="lstm"):
     loss_limit, grad_limit = {
         "lstm": (TEXTCLS_LOSS_LIMIT, TEXTCLS_GRAD_LIMIT),
         "gru": (GRU_TRAIN_LOSS_LIMIT, GRU_TRAIN_GRAD_LIMIT)}[cell]
-    totals, _, _ = train_phase(torch, fluid, card, dict(
+    totals, _, _, stats = train_phase(torch, fluid, card, dict(
         title=f"{name} text classifier", main=main, startup=startup,
         loss=loss, batch=SEQ_BATCH,
         feeds=[("fixed", textcls_feeds(fluid, seed, ragged=False)),
@@ -2042,7 +2082,7 @@ def phase_textcls(torch, fluid, seed, card, cell="lstm"):
         plant=dict(module=rnn, attr=bwd, index=1, at=len(weights) - 1,
                    calls=len(weights), param=weights[-1], what="dW"),
         loss_limit=loss_limit, grad_limit=grad_limit))
-    return totals
+    return totals, stats
 
 
 def gru_operands(torch, gen, dev, lens, L=SEQ_LEN):
@@ -2372,7 +2412,7 @@ def phase_ctc(torch, fluid, seed, card):
     fd = ctc_feed(fluid, seed)
     gru_w, = [op.input("Weight")[0] for op in main.global_block().ops
               if op.type == "gru_grad"]
-    totals, trained, exe = train_phase(torch, fluid, card, dict(
+    totals, trained, exe, _ = train_phase(torch, fluid, card, dict(
         title="CTC acoustic model", main=main, startup=startup, loss=loss,
         batch=CTC_BATCH, feeds=[("utterances", fd)],
         counters=[("gru_seq", lambda: rnn.launches["gru_seq"]),
@@ -4694,6 +4734,752 @@ def phase_recipes(torch, fluid, seed, card):
     return launches
 
 
+# phase 16: AMP, the flagship's training mode (bench.py:3420-3439:
+# Executor(amp=True), images staged on the card in bfloat16), on phase 4's
+# ResNet-50 at batch 32 and at the flagship's batch 256 (bench.py:2949),
+# and on phase 6's LSTM classifier
+AMP_BIG_BATCH = 256
+# each step on the kernel route: the 49 supported conv+BN chains launch
+# both training kernels on bfloat16 x, the update one momentum_arena, and
+# the 4 + 4 others take the plain chain
+AMP_WANT = ({"bfloat16": KERNEL_CONVS}, {"bfloat16": KERNEL_CONVS}, 1,
+            2 * PLAIN_CONVS)
+# step 1, kernel route vs plain route, both under AMP. Every conv output
+# is rounded to bfloat16 on both routes, the kernels' sums and cuDNN's in
+# other orders: wherever the float32 sums straddle a bfloat16 rounding
+# boundary the two roundings land a step (2^-8 of the value) apart, and
+# batch statistics carry such moves through the 53 layers. Loss: the
+# logits come out of a bfloat16 GEMM, so the loss of either route is as
+# good as one step of the logits; within max(AMP_LOSS_MIN, FLOOR_FACTOR x
+# the loss's own floor), the floor measured as the parameters' is below.
+# Parameters: ‖Δ‖₂/‖ref‖₂ within FLOOR_FACTOR times the parameter's own
+# floor (plain-route AMP steps on the batch in FLOOR_ORDERS permuted
+# orders, as phase 4), and never below AMP_REL_MIN: the plain route's
+# filter gradients come back rounded to bfloat16 (the reference's jnp
+# vjp), the kernel's in float32, which alone puts each element up to half
+# a step apart (2^-9, ‖Δ‖₂/‖ref‖₂ ≈ 2^-9/√3 ≈ 1.1e-3), so a floor below
+# 2^-8 is no floor for this check. (On an NVIDIA H100 80GB HBM3 at 700.00
+# W, --seed 0: the conv filters' and BN scales' and biases' floors are
+# ~1.0, the step-1 gradient below the head being set by bfloat16 rounding
+# on either route; the running statistics' 4.5e-4-2.3e-3.)
+AMP_LOSS_MIN, AMP_REL_MIN = 2.0 ** -8, 2.0 ** -8
+# step 1's update under AMP against the same step in float32 (phase 4's
+# model and feed, each route against itself in float32), read at the
+# reference's own AMP tolerance, tests/test_amp.py:76-77, |Δ| ≤ AMP_ATOL +
+# AMP_RTOL·|x|, on every parameter and running statistic, and printed, not
+# held: the plain route's own AMP step is outside it at the stem and a few
+# other convs (the step-1 gradients below the head are bf16 rounding, above,
+# and no route can do better), so it decides nothing (ROADMAP §C)
+AMP_RTOL, AMP_ATOL = 0.05, 1e-2
+# the test clone's logits, kernel route (conv_affine in bfloat16) vs plain
+# route under AMP, max|Δ|/max|ref|: REL_LIMIT's bfloat16 reasoning per
+# layer; without batch statistics nothing amplifies a move, so the bound
+# of one conv holds the whole forward
+AMP_INFER_LIMIT = REL_LIMIT["bfloat16"]
+# the LSTM classifier's step 1 under AMP, the kernel route against the same
+# program with the LSTM wrappers swapped for their plain versions (phase
+# 6's check): float32 reaches the LSTM on both, so the two differ by the
+# LSTM kernels' rare bf16(h) moves, as in phase 6, and the loss keeps
+# phase 6's limit. But under AMP each fc's weight gradient comes back
+# rounded to bfloat16 (mul_grad's Y@GRAD, the reference's dtype), so a
+# float32 rounding of difference in its sum moves an element by a whole
+# step (2^-8 of itself) wherever the sum lies near a rounding boundary:
+# ‖Δ‖₂/‖ref‖₂ ≤ 2^-8 if every element moved. (On an NVIDIA H100 80GB HBM3
+# at 700.00 W, --seed 0: fc_2.w_0 1.81e-3 fixed and 2.26e-3 ragged, the
+# rest ≤ 1.57e-3.)
+AMP_TEXTCLS_LOSS_LIMIT = TEXTCLS_LOSS_LIMIT
+AMP_TEXTCLS_GRAD_LIMIT = max(TEXTCLS_GRAD_LIMIT, 2.0 ** -8)
+
+
+def amp_launches(cbk, opk, tier):
+    """(conv_bn_train and conv_bn_bwd launches by x's dtype, momentum_arena
+    launches, plain-routed conv+BN chains) since the last reset."""
+    return (dict(cbk.launches_by_dtype["conv_bn_train"]),
+            dict(cbk.launches_by_dtype["conv_bn_bwd"]),
+            opk.launches["momentum_arena"],
+            tier.fallback_counts().get("conv_bn", 0))
+
+
+@contextlib.contextmanager
+def replayed_through_plain(cbk, found):
+    """While on, each call the program makes to a conv kernel wrapper also
+    runs the wrapper's plain version (``*_torch``) on the same inputs, the
+    program's own tensors, and ``found[wrapper]`` gathers the calls, x's
+    dtypes and the worst max|kernel − plain|/max|plain| over the outputs
+    (inf where a dtype or shape differs), with the shapes it came at. A
+    conv_bn_bwd under a relu is held on dy zeroed where the pre-activation
+    lies within MASK_MARGIN of 0 (see MASK_MARGIN: the two versions round
+    the recomputed conv in other orders, and a flipped mask moves a whole
+    dy term), both versions run on that dy; its worst on the program's dy
+    itself is gathered as ``unmasked``. The program gets the kernel's
+    outputs on its own inputs, and its launches count as without this."""
+    names = ("conv_affine", "conv_bn_train", "conv_bn_bwd")
+    real = {n: getattr(cbk, n) for n in names}
+
+    def worst(got, ref):
+        out = 0.0
+        for g, r in zip(*(t if isinstance(t, tuple) else (t,)
+                          for t in (got, ref))):
+            if g.dtype != r.dtype or g.shape != r.shape:
+                return float("inf")
+            out = max(out, ((g.float() - r.float()).abs().max()
+                            / r.float().abs().max().clamp_min(1e-30)).item())
+        return out
+
+    def wrap(name):
+        kernel, plain = real[name], getattr(cbk, f"{name}_torch")
+
+        def call(*args):
+            got = kernel(*args)
+            rec = found.setdefault(name, dict(calls=0, dtypes=set(),
+                                              rel=0.0, at=None,
+                                              unmasked=0.0))
+            rec["calls"] += 1
+            rec["dtypes"].add(str(args[0].dtype).removeprefix("torch."))
+            held, kept = args, got
+            if name == "conv_bn_bwd" and args[-1] == "relu":
+                x, w, dy, scale, bias, mean, var, eps, strides, paddings, _ \
+                    = args
+                a, b, _ = cbk._fold(scale, bias, mean, var, eps)
+                pre = cbk.conv_affine_torch(x, w, a, b, strides, paddings,
+                                            "").float().abs()
+                held = (x, w, dy * (pre > MASK_MARGIN * pre.max())) \
+                    + args[3:]
+                rec["unmasked"] = max(rec["unmasked"],
+                                      worst(got, plain(*args)))
+                kept = kernel(*held)
+            rel = worst(kept, plain(*held))
+            if not rel <= rec["rel"]:
+                rec["rel"] = rel
+                rec["at"] = (tuple(args[0].shape), tuple(args[1].shape))
+            return got
+        return call
+
+    for n in names:
+        setattr(cbk, n, wrap(n))
+    try:
+        yield found
+    finally:
+        for n, fn in real.items():
+            setattr(cbk, n, fn)
+
+
+def non_float32_state(torch, main, scope):
+    """The persistable floating-point tensors of ``scope`` that are not
+    float32: AMP keeps parameters, optimizer state and running statistics
+    in float32."""
+    return sorted(v.name for v in main.global_block().vars.values()
+                  if v.persistable and scope.has_var(v.name)
+                  and hasattr(scope.find_var(v.name), "dtype")
+                  and scope.find_var(v.name).is_floating_point()
+                  and scope.find_var(v.name).dtype != torch.float32)
+
+
+def amp_kernel_times(torch, fluid, main, batch, seed):
+    """conv_bn_train, conv_bn_bwd (per training step) and conv_affine (per
+    forward) in bfloat16 at ``batch`` over ResNet-50's kernel-routed
+    shapes: each against its plain version (REL_LIMIT's bfloat16 limit),
+    then the kernel's, the plain version's and the library's times and
+    the bound (the GEMMs at the bfloat16 tensor-core rate, the rest at
+    float32's CUDA-core rate, against the bytes at 3.35 TB/s), summed over
+    the step. Returns {kernel: sums}."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    bf16 = torch.bfloat16
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    names = ("conv_bn_train", "conv_bn_bwd", "conv_affine")
+    out = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   gemm=0, elem=0, bytes=0, rel=0.0) for k in names}
+    log(f"\n== bf16 kernels at batch {batch}, per shape: kernel_ms "
+        "plain_ms library_ms bound_ms for conv_bn_train; conv_bn_bwd; "
+        "conv_affine ==")
+    for key, count in sorted(fused_conv_shapes(fluid, main, batch).items(),
+                             key=lambda kv: (-kv[0][0][1], kv[0][1][1],
+                                             kv[0][1][0], kv[0][2])):
+        x_shape, w_shape, strides, paddings, _, _, act = key
+        if not cbk.supported(x_shape, w_shape, strides, paddings, (1, 1), 1,
+                             "NHWC", "bfloat16"):
+            continue
+        cout, cin, kh, kw = w_shape
+        x = randn(x_shape).to(bf16)
+        w = randn(w_shape, (2.0 / (cin * kh * kw)) ** 0.5)
+        scale = torch.rand(cout, generator=gen, device=dev) + 0.5
+        bias = randn((cout,), 0.1)
+        args = (EPS, strides, paddings, act)
+        y, mean, var = cbk.conv_bn_train_torch(x, w, scale, bias, *args)
+        dy = randn(y.shape)
+        if act == "relu":
+            # see MASK_MARGIN
+            pre = cbk.conv_bn_train_torch(x, w, scale, bias, EPS, strides,
+                                          paddings, "")[0].float().abs()
+            dy = dy * (pre > MASK_MARGIN * pre.max())
+        dy = dy.to(bf16)
+        a, b, _ = cbk._fold(scale, bias, mean, var, EPS)
+        xn = x.permute(0, 3, 1, 2)
+        rm, rv = torch.zeros_like(scale), torch.ones_like(scale)
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (xn, w.to(bf16), scale, bias)]
+
+        def composite(xc, wc, sc, bi):
+            yc = F.batch_norm(F.conv2d(xc, wc, stride=strides,
+                                       padding=paddings),
+                              rm, rv, sc, bi, training=True, eps=EPS)
+            return F.relu(yc) if act == "relu" else yc
+
+        with torch.enable_grad():
+            y_lib = composite(*leaves)
+        dy_n = dy.permute(0, 3, 1, 2)
+        wa, ba = (w * a.view(-1, 1, 1, 1)).to(bf16), b.to(bf16)
+
+        def affine_lib():
+            yc = F.conv2d(xn, wa, ba, stride=strides, padding=paddings)
+            return torch.relu(yc) if act == "relu" else yc
+
+        calls = {
+            "conv_bn_train": (
+                lambda: cbk.conv_bn_train(x, w, scale, bias, *args),
+                lambda: cbk.conv_bn_train_torch(x, w, scale, bias, *args),
+                lambda: composite(*[t.detach() for t in leaves])),
+            "conv_bn_bwd": (
+                lambda: cbk.conv_bn_bwd(x, w, dy, scale, bias, mean, var,
+                                        *args),
+                lambda: cbk.conv_bn_bwd_torch(x, w, dy, scale, bias, mean,
+                                              var, *args),
+                lambda: torch.autograd.grad(y_lib, leaves, dy_n,
+                                            retain_graph=True)),
+            "conv_affine": (
+                lambda: cbk.conv_affine(x, w, a, b, strides, paddings, act),
+                lambda: cbk.conv_affine_torch(x, w, a, b, strides, paddings,
+                                              act),
+                affine_lib)}
+        row = []
+        for name in names:
+            kfn, pfn, lfn = calls[name]
+            got, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for g, r in zip(got, ref):
+                if g.dtype != r.dtype or g.shape != r.shape:
+                    fail(f"{name} bf16 x{x_shape} w{w_shape}: got "
+                         f"{g.dtype}{tuple(g.shape)}, want "
+                         f"{r.dtype}{tuple(r.shape)}")
+                rel = (g.float() - r.float()).abs().max().item() \
+                    / max(r.float().abs().max().item(), 1e-30)
+                out[name]["rel"] = max(out[name]["rel"], rel)
+                if not rel <= REL_LIMIT["bfloat16"]:
+                    fail(f"{name} bf16 x{x_shape} w{w_shape} s{strides} "
+                         f"act={act!r} at batch {batch}: rel err "
+                         f"{rel:.3e} > {REL_LIMIT['bfloat16']:.0e}")
+            del got, ref
+            if name == "conv_affine":
+                gemm, elem, nbytes = conv_work(x_shape, w_shape, strides,
+                                               paddings, 2)
+            else:
+                gemm, elem, nbytes = bn_work(x_shape, w_shape, strides,
+                                             paddings, 2,
+                                             name == "conv_bn_bwd")
+            bound, _by, _ = bn_bound_ms(gemm, elem, nbytes, "bfloat16")
+            times = (time_ms(kfn, torch), time_ms(pfn, torch),
+                     time_ms(lfn, torch), bound)
+            t = out[name]
+            for field, v in zip(("ms", "plain_ms", "library_ms",
+                                 "bound_ms"), times):
+                t[field] += count * v
+            for field, v in (("gemm", gemm), ("elem", elem),
+                             ("bytes", nbytes)):
+                t[field] += count * v
+            row.append(" ".join(f"{v:.4f}" for v in times))
+        del y_lib, leaves
+        log(f"  {list(x_shape)} {list(w_shape)} {strides[0]} "
+            f"{act or '-':4} {count} | " + "; ".join(row))
+    for name in names:
+        t = out[name]
+        t["bound_by"] = bn_bound_ms(t["gemm"], t["elem"], t["bytes"],
+                                    "bfloat16")[1]
+        per = "forward" if name == "conv_affine" else "step"
+        log(f"  per {per} at batch {batch}, {name} in bfloat16: kernel "
+            f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+            f"{t['library_ms']:.3f} ms ({t['ms'] / t['library_ms']:.2f}x), "
+            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}; "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it reached), "
+            f"{t['gemm'] / t['ms'] / 1e9:.1f} TFLOP/s of GEMM; max rel "
+            f"err {t['rel']:.3e} (limit {REL_LIMIT['bfloat16']:.0e})")
+    return out
+
+
+def phase_amp_resnet(torch, fluid, seed, card, problems, f32_stats):
+    """ResNet-50 under Executor(amp=True) at batch 32 on both routes, then
+    its test clone, then 5 steps at batch 256; adds what its checks find to
+    ``problems`` and returns the kernel launches of those main-path runs.
+    ``f32_stats``: phase 4's {route: (ms a step, peak GiB)}."""
+    import re
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops import conv_ops, fused_ops, matmul
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    log(f"\n== phase 16: ResNet-50 under AMP, batch {TRAIN_BATCH}, "
+        f"{TRAIN_STEPS} steps on one feed staged on the card in bfloat16 "
+        "==")
+    main, startup, loss, test, logits = build_resnet50_train(
+        fluid, seed, with_test=True)
+    block = main.global_block()
+    exe, exe32 = fluid.Executor(amp=True), fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    dev = torch.device("cuda", 0)
+
+    def fresh():
+        return copy_scope(fluid, torch, init)
+
+    rng = np.random.RandomState(seed)          # phase 4's feed
+    img = rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3)).astype("float32")
+    label = rng.randint(0, CLASSES, (TRAIN_BATCH, 1)).astype("int64")
+    feed32 = {"img": img, "label": label}
+    feed = {"img": torch.from_numpy(img).to(dev).to(torch.bfloat16),
+            "label": label}
+    update, = [op for op in block.ops if op.type == "fused_momentum"]
+    grads = dict(zip(update.input("Params"), update.input("Grads")))
+    stats = [p.name for p in block.all_parameters() if p.name not in grads]
+    params = list(grads) + stats
+
+    def run(route, scope, fd, fetch=(), executor=exe, program=main,
+            first=loss):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            return executor.run(program, feed=fd,
+                                fetch_list=[first] + list(fetch),
+                                scope=scope, return_numpy=False)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+
+    def reset():
+        cbk.reset_launches()
+        opk.reset_launches()
+        tier.reset_fallback_counts()
+
+    def readings(vals, scope):
+        out = dict(zip(grads, vals[1:]))
+        for n in stats:
+            out[n] = scope.find_var(n).double() - init.find_var(n).double()
+        return out
+
+    def launch_problem(counts, want=AMP_WANT):
+        if counts != want:
+            return (f"conv_bn_train/conv_bn_bwd launches by dtype, "
+                    f"momentum_arena launches and plain-routed convs "
+                    f"{counts}, want {want}")
+        return None
+
+    res = {}
+    for route in ("auto", "torch"):
+        scope = fresh()
+        losses, ms, total = [], [], [0, 0, 0]
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            reset()
+            t0 = time.perf_counter()
+            vals = run(route, scope, feed, grads.values() if step == 0
+                       else ())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = amp_launches(cbk, opk, tier)
+            bad = launch_problem(counts, AMP_WANT if route == "auto"
+                                 else ({}, {}, 0, 0))
+            if bad:
+                fail(f"AMP kernel_tier={route} step {step + 1}: {bad}")
+            total[0] += sum(counts[0].values())
+            total[1] += sum(counts[1].values())
+            total[2] += counts[2]
+            wrong = non_float32_state(torch, main, scope)
+            if wrong:
+                fail(f"AMP kernel_tier={route} step {step + 1}: state not "
+                     f"float32: {wrong[:5]} ({len(wrong)})")
+            lv = vals[0]
+            if lv.shape != () or lv.dtype != torch.float32 \
+                    or not torch.isfinite(lv).item():
+                fail(f"AMP kernel_tier={route} step {step + 1}: loss {lv}")
+            losses.append(lv.item())
+            if step == 0:
+                step1 = readings(vals, scope)
+                after1 = {n: scope.find_var(n).clone() for n in params}
+        peak = torch.cuda.max_memory_allocated()
+        steady = sum(ms[1:]) / len(ms[1:])
+        res[route] = dict(losses=losses, step1=step1, total=total,
+                          after1=after1)
+        f32 = f32_stats[route]
+        log(f"AMP kernel_tier={route}: losses "
+            + " ".join(f"{v:.6f}" for v in losses)
+            + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+            + f" | steady {steady:.2f} ms/step, "
+            f"{TRAIN_BATCH * 1e3 / steady:.1f} images/s | peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({(peak - start) / 2 ** 30:.3f} GiB "
+            "above the start)"
+            + f" | phase 4 (float32): {f32[0]:.2f} ms/step, peak "
+            f"{f32[1]:.2f} GiB | {card}")
+        log(f"  every parameter, velocity and running statistic float32 "
+            f"after each of the {TRAIN_STEPS} steps; state not float32: "
+            "none")
+
+    # the bf16 floor: plain-route AMP steps on the batch in other orders;
+    # the last order is held out and only printed against the limits
+    ref = res["torch"]["step1"]
+    ref_loss = res["torch"]["losses"][0]
+    floors, loss_floors = [], []
+    for j in range(FLOOR_ORDERS + 1):
+        perm = np.random.RandomState(seed + 1 + j).permutation(TRAIN_BATCH)
+        scope = fresh()
+        fd = {"img": feed["img"][torch.from_numpy(perm).to(dev)],
+              "label": label[perm]}
+        vals = run("torch", scope, fd, grads.values())
+        floors.append(spread(readings(vals, scope), ref))
+        loss_floors.append(abs(vals[0].item() - ref_loss) / abs(ref_loss))
+    held_out = floors.pop()
+    floor = {n: max(f[n] for f in floors) for n in ref}
+    limit = {n: max(AMP_REL_MIN, FLOOR_FACTOR * floor[n]) for n in ref}
+    loss_limit = max(AMP_LOSS_MIN, FLOOR_FACTOR * max(loss_floors[:-1]))
+    got = spread(res["auto"]["step1"], ref)
+    dl = abs(res["auto"]["losses"][0] - ref_loss) / abs(ref_loss)
+    log(f"step 1 under AMP, kernel vs plain route: loss rel diff {dl:.3e} "
+        f"(limit {loss_limit:.3e}; the plain route's in {FLOOR_ORDERS} "
+        f"other orders " + " ".join(f"{v:.3e}" for v in loss_floors[:-1])
+        + f", held out {loss_floors[-1]:.3e}); per parameter ‖Δ‖₂/‖ref‖₂ "
+        f"against max({AMP_REL_MIN:.2e}, {FLOOR_FACTOR}x its bf16 floor):")
+    log("  kind           n | kernel vs plain: median, worst/limit | "
+        "floor median | held-out order: worst/limit")
+    kinds = {}
+    for n in ref:
+        kinds.setdefault(re.sub(r"_\d+\.", ".", n), []).append(n)
+
+    def median(vals):
+        vals = sorted(vals)
+        return vals[len(vals) // 2]
+
+    for kind, names in sorted(kinds.items()):
+        log(f"  {kind:12} {len(names):3d} | "
+            f"{median(got[n] for n in names):.3e}, "
+            f"{max(got[n] / limit[n] for n in names):.3f} | "
+            f"{median(floor[n] for n in names):.3e} | "
+            f"{max(held_out[n] / limit[n] for n in names):.3f}")
+    worst = max(ref, key=lambda n: got[n] / limit[n])
+    log(f"  worst: {worst} {got[worst]:.3e} (limit {limit[worst]:.3e})")
+    if not dl <= loss_limit:
+        problems.append(f"AMP step-1 loss differs from the plain route by "
+                        f"{dl:.3e} > {loss_limit:.3e}")
+    over = [n for n in ref if not got[n] <= limit[n]]
+    if over:
+        problems.append(f"AMP: {len(over)} parameters differ from the "
+                        f"plain route at step 1 beyond their limits, worst "
+                        f"{worst} {got[worst]:.3e} > {limit[worst]:.3e}")
+
+    # against float32, a reading (see AMP_RTOL): each route's step 1
+    # against the same step in float32 on that route
+    ratio = {}
+    for route in ("auto", "torch"):
+        scope = fresh()
+        run(route, scope, feed32, executor=exe32)
+        ratio[route] = {}
+        for n in params:
+            a = res[route]["after1"][n].double()
+            b = scope.find_var(n).double()
+            ratio[route][n] = ((a - b).abs()
+                               / (AMP_ATOL + AMP_RTOL * b.abs())).max().item()
+        del scope
+    log(f"step 1's update under AMP against float32, |Δ|/(atol + "
+        f"rtol·|f32|) at rtol {AMP_RTOL}, atol {AMP_ATOL} "
+        "(tests/test_amp.py:76-77; a reading, not a limit), per kind: "
+        "within the tolerance, kernel route / plain route; worst, kernel / "
+        "plain")
+    for kind, names in sorted(kinds.items()):
+        log(f"  {kind:12} {len(names):3d} | "
+            f"{sum(ratio['auto'][n] <= 1 for n in names)} / "
+            f"{sum(ratio['torch'][n] <= 1 for n in names)} | "
+            f"{max(ratio['auto'][n] for n in names):.3f} / "
+            f"{max(ratio['torch'][n] for n in names):.3f}")
+    worst_n = max(params, key=lambda n: ratio["auto"][n])
+    log(f"  worst: {worst_n} {ratio['auto'][worst_n]:.3f} (plain route "
+        f"{ratio['torch'][worst_n]:.3f}); within the tolerance on both "
+        f"routes: {sum(max(ratio[r][n] for r in ratio) <= 1 for n in params)}"
+        f" of {len(params)}")
+
+    # each conv kernel launch of an AMP training step and of a test-clone
+    # forward, replayed through the kernel's plain version on the program's
+    # own inputs: a wrong bf16 kernel anywhere below the head shows here,
+    # where the step-1 checks above cannot see it for bf16 rounding
+    found = {}
+    with replayed_through_plain(cbk, found):
+        run("auto", fresh(), feed)
+        scope = fresh()
+        overwrite_bn_stats(test, scope, torch, seed)
+        run("auto", scope, feed, (), program=test, first=logits)
+    torch.cuda.synchronize()
+    del scope
+    for name in ("conv_bn_train", "conv_bn_bwd", "conv_affine"):
+        rec = found.get(name, dict(calls=0, dtypes=set(), rel=0.0, at=None,
+                                   unmasked=0.0))
+        log(f"{name} replayed through its plain version on the program's "
+            f"own inputs under AMP: {rec['calls']} calls on "
+            f"{sorted(rec['dtypes'])}, worst max|Δ|/max|ref| "
+            f"{rec['rel']:.3e} at x, w {rec['at']} (limit "
+            f"{REL_LIMIT['bfloat16']:.0e})"
+            + (f"; on the unmasked dy {rec['unmasked']:.3e}, relu masks "
+               "decided by a rounding" if name == "conv_bn_bwd" else ""))
+        if rec["calls"] != KERNEL_CONVS or rec["dtypes"] != {"bfloat16"} \
+                or not rec["rel"] <= REL_LIMIT["bfloat16"]:
+            problems.append(f"AMP {name} on the program's own inputs: "
+                            f"{rec['calls']} calls on {rec['dtypes']}, worst "
+                            f"{rec['rel']:.3e} at {rec['at']}, want "
+                            f"{KERNEL_CONVS} on bfloat16 within "
+                            f"{REL_LIMIT['bfloat16']:.0e}")
+
+    # a float32 feed: cast_compute rounds the images at the stem, so the
+    # same bf16 launches and bitwise the same loss as the staged bf16 feed
+    reset()
+    lv = run("auto", fresh(), feed32)[0].item()
+    counts = amp_launches(cbk, opk, tier)
+    bad = launch_problem(counts)
+    log(f"float32 numpy feed under AMP: {counts}, loss {lv:.6f} (staged "
+        f"bf16 feed {res['auto']['losses'][0]:.6f})")
+    if bad:
+        problems.append(f"AMP with a float32 feed: {bad}")
+    if lv != res["auto"]["losses"][0]:
+        problems.append(f"AMP with a float32 feed: loss {lv!r}, the bf16 "
+                        f"feed's {res['auto']['losses'][0]!r}")
+
+    # the check's own test: the same step with cast_compute disabled in
+    # the GEMM ops (a scratch swap of their module-level name) must fail
+    # the launch check
+    swapped = [conv_ops, fused_ops, matmul]
+    real = [m.cast_compute for m in swapped]
+    for m in swapped:
+        m.cast_compute = lambda *ts: ts if len(ts) > 1 else ts[0]
+    try:
+        reset()
+        run("auto", fresh(), feed32)
+        counts = amp_launches(cbk, opk, tier)
+    finally:
+        for m, fn in zip(swapped, real):
+            m.cast_compute = fn
+    bad = launch_problem(counts)
+    log(f"planted fault: cast_compute off in conv2d, fused_conv2d_bn and "
+        f"mul: {counts} -> "
+        + ("caught" if bad else "NOT caught"))
+    if not bad:
+        problems.append("the launch check does not see cast_compute off")
+
+    for route in ("auto", "torch"):
+        losses = res[route]["losses"]
+        if not losses[-1] < losses[0]:
+            problems.append(f"AMP kernel_tier={route}: loss did not fall "
+                            f"over {TRAIN_STEPS} steps: {losses}")
+
+    # the test clone: one forward, conv_affine on bf16, against the plain
+    # route; non-trivial BN statistics as phase 3's
+    scope = fresh()
+    overwrite_bn_stats(test, scope, torch, seed)
+    reset()
+    out_k = run("auto", scope, feed, (), program=test, first=logits)[0]
+    torch.cuda.synchronize()
+    affine = dict(cbk.launches_by_dtype["conv_affine"])
+    fallbacks = tier.fallback_counts().get("conv_bn", 0)
+    out_p = run("torch", scope, feed, (), program=test, first=logits)[0]
+    rel = ((out_k.float() - out_p.float()).abs().max()
+           / out_p.float().abs().max()).item()
+    log(f"test clone under AMP: conv_affine launches {affine}, "
+        f"{fallbacks} plain-routed convs; logits {out_k.dtype} "
+        f"{tuple(out_k.shape)}, max|Δ|/max|ref| against the plain route "
+        f"{rel:.3e} (limit {AMP_INFER_LIMIT:.0e})")
+    if affine != {"bfloat16": KERNEL_CONVS} or fallbacks != PLAIN_CONVS:
+        fail(f"AMP test clone: conv_affine launches {affine} and "
+             f"{fallbacks} plain-routed convs, want "
+             f"{{'bfloat16': {KERNEL_CONVS}}} and {PLAIN_CONVS}")
+    if not torch.isfinite(out_k).all().item() or not rel <= AMP_INFER_LIMIT:
+        problems.append(f"AMP test clone: logits {rel:.3e} from the plain "
+                        "route")
+    del scope, out_k, out_p
+
+    step_scope = fresh()
+    profile(torch, lambda: run("auto", step_scope, feed),
+            f"one AMP training step, batch {TRAIN_BATCH}, kernel route",
+            card, reps=2, groups=CONV_BN_LAUNCHES)
+    launches = dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
+                        res["auto"]["total"]),
+                    conv_affine=affine.get("bfloat16", 0))
+    del step_scope, init, res
+
+    for k, v in phase_amp_flagship(torch, fluid, seed, card,
+                                   problems).items():
+        launches[k] += v
+    return launches
+
+
+def phase_amp_flagship(torch, fluid, seed, card, problems):
+    """5 AMP steps of ResNet-50 at the flagship's batch (bench.py:2949) on
+    the kernel route, the images staged on the card in bfloat16, at phase
+    4's rate. Adds what its checks find to ``problems`` and returns the
+    launches of the run."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    log(f"\n== phase 16: ResNet-50 under AMP at the flagship's batch "
+        f"{AMP_BIG_BATCH}, lr {TRAIN_LR}, {TRAIN_STEPS} steps, kernel route "
+        "==")
+    main, startup, loss = build_resnet50_train(fluid, seed)
+    exe = fluid.Executor(amp=True)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 256)
+    feed = {"img": torch.randn((AMP_BIG_BATCH, IMAGE, IMAGE, 3),
+                               generator=gen, device=dev)
+            .to(torch.bfloat16),
+            "label": np.random.RandomState(seed + 256).randint(
+                0, CLASSES, (AMP_BIG_BATCH, 1)).astype("int64")}
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, total = [], [], [0, 0, 0]
+    for step in range(TRAIN_STEPS):
+        cbk.reset_launches()
+        opk.reset_launches()
+        tier.reset_fallback_counts()
+        t0 = time.perf_counter()
+        lv = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                     return_numpy=False)[0]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = amp_launches(cbk, opk, tier)
+        if counts != AMP_WANT:
+            fail(f"AMP batch {AMP_BIG_BATCH} step {step + 1}: launches "
+                 f"{counts}, want {AMP_WANT}")
+        total[0] += sum(counts[0].values())
+        total[1] += sum(counts[1].values())
+        total[2] += counts[2]
+        if not torch.isfinite(lv).item():
+            fail(f"AMP batch {AMP_BIG_BATCH} step {step + 1}: loss {lv}")
+        losses.append(lv.item())
+    peak = torch.cuda.max_memory_allocated()
+    wrong = non_float32_state(torch, main, scope)
+    steady = sum(ms[1:]) / len(ms[1:])
+    log(f"batch {AMP_BIG_BATCH} under AMP: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+        + f" | steady {steady:.2f} ms/step, "
+        f"{AMP_BIG_BATCH * 1e3 / steady:.1f} images/s | a step's peak "
+        f"memory {(peak - start) / 2 ** 30:.3f} GiB above its start "
+        f"({start / 2 ** 30:.3f} GiB), {peak / 2 ** 30:.2f} GiB in all | "
+        f"{card}")
+    if wrong:
+        problems.append(f"AMP batch {AMP_BIG_BATCH}: state not float32: "
+                        f"{wrong[:5]}")
+    if not losses[-1] < losses[0]:
+        problems.append(f"AMP batch {AMP_BIG_BATCH}: loss did not fall over "
+                        f"{TRAIN_STEPS} steps: {losses}")
+    profile(torch, lambda: exe.run(main, feed=feed, scope=scope),
+            f"one AMP training step, batch {AMP_BIG_BATCH}, kernel route",
+            card, reps=1, groups=CONV_BN_LAUNCHES)
+    return dict(zip(("conv_bn_train", "conv_bn_bwd", "momentum_arena"),
+                    total))
+
+
+def phase_amp_textcls(torch, fluid, seed, card, f32_stats):
+    """Phase 6's LSTM classifier under Executor(amp=True): train_phase on
+    both routes; the fc GEMMs' outputs must be bfloat16 and float32 must
+    reach the LSTM kernels. ``f32_stats``: phase 6's {route: (ms a step,
+    peak GiB)}. Returns the launches."""
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import rnn
+
+    log(f"\n== phase 16: LSTM text classifier under AMP, batch "
+        f"{SEQ_BATCH}, length {SEQ_LEN}, {SEQ_STEPS} steps on one feed ==")
+    main, startup, loss = build_textcls(fluid, seed)
+    block = main.global_block()
+    weights = [op.input("Weight")[0] for op in block.ops
+               if op.type == "lstm_grad"]
+    mul_outs = [op.output("Out")[0] for op in block.ops if op.type == "mul"]
+    dtypes = []
+    real = rnn.supported
+
+    def spy(batch, hidden, dtype, device=None):
+        dtypes.append(dtype)
+        return real(batch, hidden, dtype, device)
+
+    rnn.supported = spy
+    try:
+        totals, trained, exe, stats = train_phase(torch, fluid, card, dict(
+            title="LSTM text classifier under AMP", main=main,
+            startup=startup, loss=loss, batch=SEQ_BATCH, amp=True,
+            feeds=[("fixed", textcls_feeds(fluid, seed, ragged=False)),
+                   ("ragged", textcls_feeds(fluid, seed, ragged=True))],
+            counters=[("lstm_seq", lambda: rnn.launches["lstm_seq"]),
+                      ("lstm_seq_bwd", lambda: rnn.launches["lstm_seq_bwd"]),
+                      ("adam_arena", lambda: opk.launches["adam_arena"]),
+                      ("plain-routed LSTMs",
+                       lambda: tier.fallback_counts().get("lstm", 0))],
+            resets=[rnn.reset_launches, opk.reset_launches,
+                    tier.reset_fallback_counts],
+            want=(2, 2, 1, 0),
+            swaps=[(rnn, "lstm_seq", rnn.lstm_seq_torch),
+                   (rnn, "lstm_seq_bwd", rnn.lstm_seq_bwd_torch)],
+            plant=dict(module=rnn, attr="lstm_seq_bwd", index=1,
+                       at=len(weights) - 1, calls=len(weights),
+                       param=weights[-1], what="dW"),
+            loss_limit=AMP_TEXTCLS_LOSS_LIMIT,
+            grad_limit=AMP_TEXTCLS_GRAD_LIMIT))
+    finally:
+        rnn.supported = real
+    reached = sorted({str(d) for d in dtypes})
+    outs = exe.run(main, feed=textcls_feeds(fluid, seed, ragged=False),
+                   fetch_list=mul_outs, scope=trained, return_numpy=False)
+    got = sorted({str(getattr(v, "data", v).dtype) for v in outs})
+    log(f"under AMP: the {len(mul_outs)} fc GEMMs' outputs {got}; dtypes "
+        f"reaching the LSTM kernels' supported(): {reached}")
+    if got != ["torch.bfloat16"] or reached != ["torch.float32"]:
+        fail(f"LSTM classifier under AMP: fc outputs {got}, LSTM inputs "
+             f"{reached}, want bfloat16 and float32")
+    for route in ("auto", "torch"):
+        amp, f32 = stats[route], f32_stats[route]
+        log(f"kernel_tier={route}: {amp[0]:.2f} ms/step and peak "
+            f"{amp[1]:.2f} GiB under AMP against phase 6's {f32[0]:.2f} "
+            f"ms/step and {f32[1]:.2f} GiB | {card}")
+    return totals
+
+
+def phase_amp(torch, fluid, seed, card, f32_stats):
+    """Phase 16: AMP on ResNet-50 (batch 32 on both routes, the test clone,
+    batch 256) and on the LSTM classifier, then the bf16 conv kernels'
+    times at batches 32 and 256. ``f32_stats``: phases 4's and 6's
+    {route: (ms a step, peak GiB)} under "resnet" and "textcls". Returns
+    (the main path's launches, the bf16 kernel sums at batch 32)."""
+    log("\n== phase 16: automatic mixed precision (bf16 compute, float32 "
+        "master weights) ==")
+    problems = []
+    launches = phase_amp_resnet(torch, fluid, seed, card, problems,
+                                f32_stats["resnet"])
+    launches.update(phase_amp_textcls(torch, fluid, seed, card,
+                                      f32_stats["textcls"]))
+    main, _, _ = build_resnet50_train(fluid, seed)
+    sums = amp_kernel_times(torch, fluid, main, TRAIN_BATCH, seed)
+    amp_kernel_times(torch, fluid, main, AMP_BIG_BATCH, seed)
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    return launches, sums
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -4737,8 +5523,12 @@ def main():
         f"{torch.version.cuda}) | {nvcc[-1] if nvcc else 'nvcc ?'}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    mm = torch.backends.cuda.matmul
     log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+        f"cuda.matmul.allow_tf32={mm.allow_tf32} "
+        "cuda.matmul.allow_bf16_reduced_precision_reduction="
+        f"{mm.allow_bf16_reduced_precision_reduction} (paddle_tpu_torch "
+        "turns it off when imported: bf16 GEMMs accumulate in float32)")
     planted = start_planted_ctc(build)
     try:
         built = build.build(KERNELS)
@@ -4760,11 +5550,12 @@ def main():
     totals = phase_kernels(torch, fluid, args.seed)
     train_totals = phase_train_kernels(torch, fluid, args.seed)
     launches, serving = phase_serving(torch, fluid, args.seed, card)
-    train_launches = phase_training(torch, fluid, args.seed, card)
+    train_launches, resnet_f32 = phase_training(torch, fluid, args.seed,
+                                                card)
     rnn_totals = phase_rnn_kernels(torch, fluid, args.seed, card)
-    rnn_launches = phase_textcls(torch, fluid, args.seed, card)
+    rnn_launches, textcls_f32 = phase_textcls(torch, fluid, args.seed, card)
     seq_totals = phase_seq_kernels(torch, fluid, args.seed, card)
-    gru_launches = phase_textcls(torch, fluid, args.seed, card, "gru")
+    gru_launches, _ = phase_textcls(torch, fluid, args.seed, card, "gru")
     ctc_launches = phase_ctc(torch, fluid, args.seed, card)
     sparse_totals = phase_sparse_kernels(torch, fluid, args.seed, card)
     w2v_launches = phase_word2vec(torch, fluid, args.seed, card)
@@ -4773,6 +5564,8 @@ def main():
     srv_launches, srv_gen_launches, srv_summary = phase_front_door(
         torch, fluid, args.seed, card, serving, gen)
     rec = phase_recipes(torch, fluid, args.seed, card)
+    amp, amp_sums = phase_amp(torch, fluid, args.seed, card,
+                              dict(resnet=resnet_f32, textcls=textcls_f32))
 
     def entry(name, source, replaces, n, t, extra=()):
         return {"name": name, "route": "cuda",
@@ -4783,28 +5576,46 @@ def main():
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], **{k: t[k] for k in extra}}
 
+    def with_bf16(t, name):
+        """The float32 numbers with phase 16's bfloat16 ones at batch 32."""
+        b = amp_sums[name]
+        return {**t, "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"],
+                "bf16_library_ms": b["library_ms"],
+                "bf16_bound_ms": b["bound_ms"],
+                "bf16_bound_by": b["bound_by"]}
+
+    bf16_keys = ("bf16_ms", "bf16_plain_ms", "bf16_library_ms",
+                 "bf16_bound_ms", "bf16_bound_by")
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
-              launches + srv_launches, totals),
+              launches + srv_launches + amp["conv_affine"],
+              with_bf16(totals, "conv_affine"), bf16_keys),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
-              train_launches["conv_bn_train"] + rec["conv_bn_train"],
-              train_totals["conv_bn_train"]),
+              train_launches["conv_bn_train"] + rec["conv_bn_train"]
+              + amp["conv_bn_train"],
+              with_bf16(train_totals["conv_bn_train"], "conv_bn_train"),
+              bf16_keys),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
-              train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"],
-              train_totals["conv_bn_bwd"]),
+              train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"]
+              + amp["conv_bn_bwd"],
+              with_bf16(train_totals["conv_bn_bwd"], "conv_bn_bwd"),
+              bf16_keys),
         entry("momentum_arena", "optimizer_arena.cu",
               "pallas/optimizer.py:111",
-              train_launches["momentum_arena"] + rec["momentum_arena"],
+              train_launches["momentum_arena"] + rec["momentum_arena"]
+              + amp["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
-              rnn_launches["lstm_seq"] + rec["lstm_seq"],
+              rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"],
               rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
-              rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"],
+              rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
+              + amp["lstm_seq_bwd"],
               rnn_totals["lstm_seq_bwd"]),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
-              + ctc_launches["adam_arena"] + rec["adam_arena"],
+              + ctc_launches["adam_arena"] + rec["adam_arena"]
+              + amp["adam_arena"],
               rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
               gru_launches["gru_seq"] + ctc_launches["gru_seq"],

@@ -17,7 +17,9 @@ parameter replaces it in the scope.
 The op loop runs under ``torch.no_grad()``: gradients are ops of the
 program (``fluid.backward``), not autograd tape. A grad lowering that asks
 autograd for a vector-Jacobian product enables it locally
-(``ops/common.py::vjp``).
+(``ops/common.py::vjp``). With ``amp=True`` it also runs under
+``amp_guard`` (reference :610), so the GEMM ops compute in bfloat16
+(``core/amp.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from . import registry
+from .amp import amp_guard
 from .block_walk import free_reads, written_names
 from .lod import LoDArray, flat_to_lodarray, pack_sequences
 from .scope import global_scope
@@ -127,10 +130,12 @@ def _run_ops(block, env, device):
 
 class Executor:
     """User-facing executor. Runs on ``cuda:0`` unless ``place`` is
-    ``CPUPlace()``."""
+    ``CPUPlace()``; ``amp=True`` runs every program under AMP (bfloat16
+    compute, float32 master weights; reference :553-561)."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, amp=False):
         self.device = resolve_device(place)
+        self.amp = amp
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -152,7 +157,7 @@ class Executor:
                if n not in feed_vals and scope.has_var(n)}
         env.update(feed_vals)
         env[_RNG_KEY] = scope.find_var(_RNG_KEY)
-        with torch.no_grad():
+        with torch.no_grad(), amp_guard(self.amp):
             _run_ops(block, env, self.device)
         for n in written_names(program, 0):
             if n in env and (scope.has_var(n) or (
@@ -161,10 +166,15 @@ class Executor:
         return [self._fetch_value(env[n], return_numpy) for n in fetch_names]
 
     def _prepare_feed(self, block, feed):
-        """Feeds cast to the declared var dtype and moved to the executor's
-        device (reference :863-907). Dense: a numpy array or tensor. LoD: a
-        ``LoDArray``, the reference's ``(flat, lod offsets)`` tuple, or a
-        list of per-sequence arrays fed to a ``lod_level > 0`` var."""
+        """Feeds on the executor's device (reference :863-914). A dense
+        tensor already there passes through as it is, in its own dtype, as
+        the reference passes a ``jax.Array`` (:871-875): a bfloat16 image
+        batch staged on the card stays bfloat16. Any other dense feed
+        (numpy, a tensor on another device) is cast to the declared var
+        dtype and moved (:910-914), and so is a LoD feed's data. Dense: a
+        numpy array or tensor. LoD: a ``LoDArray``, the reference's ``(flat,
+        lod offsets)`` tuple, or a list of per-sequence arrays fed to a
+        ``lod_level > 0`` var."""
         out = {}
         for name, value in feed.items():
             var = block.var(name) if block.has_var(name) else None
@@ -179,6 +189,9 @@ class Executor:
                 out[name] = LoDArray(self._dense(value.data, var),
                                      self._to_device(value.lens)
                                      .to(torch.int32))
+            elif isinstance(value, torch.Tensor) \
+                    and value.device == self.device:
+                out[name] = value
             else:
                 out[name] = self._dense(value, var)
         return out

@@ -1,13 +1,15 @@
 """paddle_tpu_torch.fluid — the user API ported so far (counterpart of
 paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
 initializer, io, fuse_conv_bn, backward, optimizer, regularizer, clip,
-DataFeeder, average, places, Scope, flags and the LoD feed helpers."""
+DataFeeder, average, places, Scope, flags, amp_guard and the LoD feed
+helpers."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
                         default_startup_program, switch_main_program,
                         switch_startup_program, unique_name,
                         reset_unique_name)
+from ..core.amp import amp_guard
 from ..core.executor import Executor, CPUPlace, CUDAPlace
 from ..core.flags import set_flags, get_flag
 from ..core.scope import Scope, global_scope
@@ -37,4 +39,5 @@ __all__ = [
     "optimizer", "regularizer", "clip", "average", "DataFeeder",
     "append_backward", "ParamAttr", "fuse_conv_bn",
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
+    "amp_guard",
 ]

@@ -12,6 +12,11 @@ reference's are ``jax.vjp`` of its forwards (reference :175, :473): the
 conv's through autograd's conv backward, the pool's through autograd. A max
 pool sends each window's gradient to the window's first maximum, which is
 also what the reference's default ``select_and_scatter`` lowering does.
+
+Under AMP the conv casts x and w to bfloat16 (reference :99) and cuDNN
+accumulates in float32; Output and Input@GRAD come back in bfloat16
+(reference :191-197, :210), Filter@GRAD in the filter's float32, the
+optimizer's master gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.amp import cast_compute
 from ..core.registry import register_op, infer_output, OpSpec, G
 from .common import vjp
 
@@ -42,7 +48,9 @@ def conv_df(attr):
 
 
 def conv2d_compute(x, w, strides, paddings, dilations, groups, df="NCHW"):
-    """conv2d at layout ``df`` (reference conv_ops.py:92)."""
+    """conv2d at layout ``df`` (reference conv_ops.py:92), on bfloat16
+    operands under AMP."""
+    x, w = cast_compute(x, w)
     if df == "NHWC":
         y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=strides,
                      padding=paddings, dilation=dilations, groups=groups)
@@ -81,11 +89,14 @@ def conv2d_backward(x, w, dy, strides, paddings, dilations, groups,
     ``jax.vjp`` of its conv): the conv2d_grad op's arithmetic, shared with
     fused_conv2d_bn's plain route so the fused and unfused programs agree
     bitwise. It is autograd's own conv backward, called without the forward
-    autograd would run first. dx comes back in x's dtype, dw in w's."""
+    autograd would run first. dx comes back in the dtype the forward
+    computed in (x's, or bfloat16 under AMP: the reference's
+    ``cast_compute(dx)``), dw in w's."""
+    xc, wc = cast_compute(x, w)
     if df == "NHWC":
-        x, dy = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        xc, dy = xc.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        dy.to(x.dtype), x, w.to(x.dtype), None, list(strides),
+        dy.to(xc.dtype), xc, wc.to(xc.dtype), None, list(strides),
         list(paddings), list(dilations), False, [0, 0], groups,
         [True, True, False])
     if df == "NHWC":

@@ -14,8 +14,12 @@ PyTorch version.
   returns ``(dx, dw, dscale, dbias)``; ``csrc/conv_bn_bwd.cu``.
 
 ``round`` rounds the float32 conv sum to x's dtype, as the reference's
-kernels do. On a CUDA tensor a wrapper launches its kernel; on a CPU tensor
-it runs its plain version (``*_torch``), the same arithmetic.
+kernels do. ``w`` is the OIHW filter in float32 or in x's dtype: the
+kernels lay it out per tap in x's dtype, rounding a float32 filter to
+nearest even as a cast would, so under AMP the float32 master filter and
+its bfloat16 cast give the same launch. On a CUDA tensor a wrapper
+launches its kernel; on a CPU tensor it runs its plain version
+(``*_torch``), the same arithmetic.
 
 ``supported()`` keeps the reference's structural conditions and drops its
 TPU VMEM budget: NHWC, groups 1, no dilation, 1x1 or 3x3 at stride 1, or 1x1
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -36,12 +41,38 @@ from . import build as _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches per wrapper since the last reset; only a launch adds
-launches = {"conv_affine": 0, "conv_bn_train": 0, "conv_bn_bwd": 0}
+# kernel launches since the last reset, by wrapper and x's dtype:
+# {wrapper: {"float32": n, "bfloat16": n}}; only a launch adds
+launches_by_dtype = {"conv_affine": {}, "conv_bn_train": {},
+                     "conv_bn_bwd": {}}
+
+
+class _Totals(Mapping):
+    """``launches[wrapper]``: its launches in every dtype, read from
+    ``launches_by_dtype``."""
+
+    def __getitem__(self, name):
+        return sum(launches_by_dtype[name].values())
+
+    def __iter__(self):
+        return iter(launches_by_dtype)
+
+    def __len__(self):
+        return len(launches_by_dtype)
+
+
+launches = _Totals()
+
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for by in launches_by_dtype.values():
+        by.clear()
+
+
+def _count(name, dtype):
+    by = launches_by_dtype[name]
+    key = str(dtype).removeprefix("torch.")
+    by[key] = by.get(key, 0) + 1
 
 
 def supported(x_shape, w_shape, strides, paddings, dilations, groups,
@@ -238,7 +269,7 @@ def conv_affine(x, w, a, b, strides, paddings, act):
         a.data_ptr(), b.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], *g,
         int(act == "relu"))
     _raise_on(lib, "conv_affine", err)
-    launches["conv_affine"] += 1
+    _count("conv_affine", x.dtype)
     return y
 
 
@@ -272,7 +303,7 @@ def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act):
         stats.data_ptr(), ab, _DTYPE_CODES[x.dtype], *g,
         int(act == "relu"), ctypes.c_float(eps))
     _raise_on(lib, "conv_bn_train", err)
-    launches["conv_bn_train"] += 1
+    _count("conv_bn_train", x.dtype)
     return y, stats[0], stats[1]
 
 
@@ -370,7 +401,7 @@ def conv_bn_bwd(x, w, dy, scale, bias, mean, var, eps, strides, paddings,
         dw.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], *g,
         int(act == "relu"), ctypes.c_float(eps), sms)
     _raise_on(lib, "conv_bn_bwd", err)
-    launches["conv_bn_bwd"] += 1
+    _count("conv_bn_bwd", x.dtype)
     return dx, dw, grads[0], grads[1]
 
 

@@ -16,6 +16,15 @@ into this op, and each lowering picks the route per dispatch:
   program agrees bitwise with the unfused one under ``kernel_tier=torch``.
   An unsupported shape under a kernel tier counts a fallback.
 
+Under AMP x and w are cast to bfloat16 before the route is picked
+(reference :89, :166), so the bfloat16 builds of the kernels run. The
+kernel route hands the wrappers the float32 master filter, which they lay
+out per tap in x's dtype, rounding to nearest even as the cast would: the
+same bfloat16 filter without a cast and a bfloat16 copy of it per call.
+Filter@GRAD is the kernel's float32 dw on the kernel route (reference
+pallas/conv_bn.py:433) and, as in the reference's plain chain, the conv's
+dw in the cast filter's bfloat16 on the plain one.
+
 The op keeps batch_norm's output contract: MeanOut/VarianceOut carry the
 running statistics (passed through in inference), SavedMean/SavedVariance
 the batch statistics the grad reads.
@@ -25,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.amp import cast_compute
 from ..core.registry import register_op, infer_output, OpSpec, G
 from .conv_ops import (conv_attrs, conv_df, conv2d_compute, conv2d_backward,
                        conv2d_infer)
@@ -68,7 +78,8 @@ def _supported(x, w, strides, paddings, dilations, groups, df):
 @register_op("fused_conv2d_bn", infer_shape=_fused_conv_bn_infer,
              grad=_fused_conv_bn_grad_maker)
 def fused_conv2d_bn(ctx):
-    x, w = ctx.input("Input"), ctx.input("Filter")
+    w = ctx.input("Filter")
+    x, wc = cast_compute(ctx.input("Input"), w)
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     rm, rv = ctx.input("Mean"), ctx.input("Variance")
     strides, paddings, dilations, groups = conv_attrs(ctx.attr)
@@ -92,7 +103,7 @@ def fused_conv2d_bn(ctx):
             new_mean = momentum * rm + (1.0 - momentum) * sm
             new_var = momentum * rv + (1.0 - momentum) * sv
     else:
-        z = conv2d_compute(x, w, strides, paddings, dilations, groups, df)
+        z = conv2d_compute(x, wc, strides, paddings, dilations, groups, df)
         y, new_mean, new_var, sm, sv = bn_forward_math(
             z, scale, bias, rm, rv, eps, momentum, df, is_test)
         if act == "relu":
@@ -106,7 +117,8 @@ def fused_conv2d_bn(ctx):
 
 @register_op("fused_conv2d_bn_grad")
 def fused_conv2d_bn_grad(ctx):
-    x, w = ctx.input("Input"), ctx.input("Filter")
+    w = ctx.input("Filter")
+    x, wc = cast_compute(ctx.input("Input"), w)
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     sm, sv = ctx.input("SavedMean"), ctx.input("SavedVariance")
     dy = ctx.input("Output@GRAD")
@@ -124,13 +136,14 @@ def fused_conv2d_bn_grad(ctx):
             sm.float(), sv.float(), eps, strides, paddings, act)
     else:
         # the unfused chain's backward: relu_grad, batch_norm_grad, then
-        # conv2d_grad, on the conv output recomputed
+        # conv2d_grad, on the conv output recomputed; dx comes back in the
+        # compute dtype (the reference's cast_compute(dx), :193)
         if act == "relu":
             dy = dy * (ctx.input("Output") > 0)
-        z = conv2d_compute(x, w, strides, paddings, dilations, groups, df)
+        z = conv2d_compute(x, wc, strides, paddings, dilations, groups, df)
         dz, dscale, dbias = bn_backward_math(z, scale, sm, sv, dy, eps, df,
                                              is_test)
-        dx, dw = conv2d_backward(x, w, dz, strides, paddings, dilations,
+        dx, dw = conv2d_backward(x, wc, dz, strides, paddings, dilations,
                                  groups, df)
     ctx.set_output("Input@GRAD", dx)
     ctx.set_output("Filter@GRAD", dw)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.amp import upcast_f32
 from ..core.registry import register_op, same_shape, OpSpec, G
 from .common import data_of, like
 
@@ -35,11 +36,6 @@ def softmax_grad(ctx):
     ctx.set_output("X@GRAD", like(ctx.input("Out@GRAD"), dx))
 
 
-def _probs(xv):
-    x = data_of(xv)
-    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
-
-
 @register_op("cross_entropy", grad=lambda op: [OpSpec(
     "cross_entropy_grad",
     {"X": op.input("X"), "Label": op.input("Label"),
@@ -49,7 +45,7 @@ def cross_entropy(ctx):
     """−log p of the hard label (or −Σ label·log p with soft_label) per
     row, on probabilities clamped below at 1e-8."""
     xv = ctx.input("X")
-    x = _probs(xv)
+    x = upcast_f32(data_of(xv))
     label = data_of(ctx.input("Label"))
     if ctx.attr("soft_label", False):
         y = -torch.sum(label * torch.log(x.clamp_min(_CE_EPS)), dim=-1,
@@ -88,9 +84,7 @@ def _label_index(label, lead_shape):
 def softmax_with_cross_entropy(ctx):
     """The stable log-sum-exp form, in float32 (bfloat16 logits are cast
     up first, the reference's stability island)."""
-    logits = ctx.input("Logits")
-    if logits.dtype in (torch.bfloat16, torch.float16):
-        logits = logits.float()
+    logits = upcast_f32(ctx.input("Logits"))
     label = ctx.input("Label")
     log_probs = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
     if ctx.attr("soft_label", False):
