@@ -5,8 +5,9 @@ through the generation engine, serve ResNet-50 and the LM over RPC through
 ModelServer, and train three of those models with gradient clipping,
 weight decay and learning-rate schedules and the LSTM classifier with the
 six other optimizers, train ResNet-50 and the LSTM classifier under AMP,
-with the PyTorch/CUDA port on one GPU, and hold every hand-written kernel
-against its plain PyTorch version.
+run the program verifier and the Executor's run_steps and per-op hooks
+on them, with the PyTorch/CUDA port on one GPU, and hold every
+hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -225,6 +226,29 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               batches 32 and 256 against their plain versions, timed
               beside cuDNN in bfloat16 and their bounds at the bfloat16
               tensor-core rate.
+17. runtime — the program verifier and the rest of the Executor, with
+              verify_passes and executor_verify on: phase 4's ResNet-50
+              training program (fused), phase 6's LSTM classifier and
+              phase 11's word2vec rebuilt, each verified clean (with
+              verify_program's and lint_program's host ms on ResNet-50);
+              phase 3's bundle loaded, saved, loaded again and served
+              (49 conv_affine launches, bitwise the original) and linted
+              by python -m paddle_tpu_torch.tools.lint_program (exit 0);
+              phase 13's LM lane served again (its tokens, 4
+              paged_attention launches a decode dispatch). Under
+              cudnn.deterministic, run_steps(K=5) against 5 run() calls
+              from a copy of the same state, bitwise, on ResNet-50 (batch
+              32), the LSTM classifier (two LoD feeds of batch 64,
+              length 100) and word2vec, with phases 4, 6 and 11's
+              launches a step and one verify_program call over the 5
+              runs (where two run() sequences differ on the card, the
+              first differing op is printed and run_steps is held to 2x
+              that spread); prepare_steps + 2 run_prepared against 10
+              run() calls. check_nan_inf names the fused_conv2d_bn whose
+              filter holds a planted NaN (and costs this much a step);
+              benchmark prints one line per op; obs_op_metrics counts 3
+              steps of dispatches without a rebuild; one run()'s host time
+              with a warm and a cold analysis cache.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -238,6 +262,7 @@ import contextlib
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3535,7 +3560,6 @@ def phase_front_door(torch, fluid, seed, card, serving, gen):
     conv_affine and paged_attention launches of its main paths (the
     8-client ResNet-50 run and the LM lane)."""
     import hashlib
-    import shutil
     import threading
     import numpy as np
     from paddle_tpu_torch.ops import cuda as tier
@@ -3998,8 +4022,6 @@ def phase_front_door(torch, fluid, seed, card, serving, gen):
                              decodes=decodes, launches=glaunches)
     finally:
         gserver.shutdown()
-    shutil.rmtree(serving["dir"], ignore_errors=True)
-    shutil.rmtree(gen["dir"], ignore_errors=True)
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 14 took {summary['phase_s']:.1f} s")
     if problems:
@@ -5480,6 +5502,477 @@ def phase_amp(torch, fluid, seed, card, f32_stats):
     return launches, sums
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the runtime — the program verifier and lint, the Executor's
+# run_steps / prepare_steps / run_prepared, its per-op hooks and the
+# per-version analysis cache, on phases 3, 4, 6, 11 and 13's models
+# ---------------------------------------------------------------------------
+
+RT_STEPS = 5           # run_steps K, and the run() calls it is held to
+RT_REPS = 5            # timing repetitions of the host readings
+RT_SPREAD_FACTOR = 2.0  # run_steps within 2x the run-to-run spread, if any
+RT_FLAGS = ("verify_passes", "executor_verify", "check_nan_inf",
+            "benchmark", "obs_op_metrics")
+
+
+def median_ms(fn, reps=RT_REPS):
+    """Median host milliseconds of ``fn()`` over ``reps`` calls."""
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ms)[len(ms) // 2]
+
+
+def scope_tensors(torch, scope):
+    return {n: scope.find_var(n) for n in scope.local_names()
+            if torch.is_tensor(scope.find_var(n))}
+
+
+def scope_spread(torch, a, b):
+    """(tensors that differ, worst ‖a − b‖₂ / ‖b‖₂) over two scopes."""
+    ta, tb = scope_tensors(torch, a), scope_tensors(torch, b)
+    if sorted(ta) != sorted(tb):
+        fail(f"scopes hold different names: {sorted(set(ta) ^ set(tb))}")
+    diff = [n for n in tb if not torch.equal(ta[n], tb[n])]
+    worst = max((((ta[n].double() - tb[n].double()).norm()
+                  / tb[n].double().norm().clamp_min(1e-30)).item()
+                 for n in diff), default=0.0)
+    return diff, worst
+
+
+def first_differing_op(torch, exe, main, feed, sa, sb):
+    """The first op of one step whose output differs between two runs from
+    the scopes ``sa`` and ``sb`` (every op output fetched)."""
+    block = main.global_block()
+    names = list(dict.fromkeys(n for op in block.ops
+                               for n in op.output_arg_names()))
+    va = exe.run(main, feed=feed, fetch_list=names, scope=sa,
+                 return_numpy=False)
+    vb = exe.run(main, feed=feed, fetch_list=names, scope=sb,
+                 return_numpy=False)
+    got = dict(zip(names, zip(va, vb)))
+    for i, op in enumerate(block.ops):
+        for n in op.output_arg_names():
+            a, b = got[n]
+            if torch.is_tensor(a) and not torch.equal(a, b):
+                return f"op#{i} {op.type} output {n}"
+    return "none (the outputs of one step agree bitwise)"
+
+
+def rt_counts(cbk, opk, rnn, emb, pak):
+    return {"conv_affine": cbk.launches["conv_affine"],
+            "conv_bn_train": cbk.launches["conv_bn_train"],
+            "conv_bn_bwd": cbk.launches["conv_bn_bwd"],
+            "momentum_arena": opk.launches["momentum_arena"],
+            "adam_arena": opk.launches["adam_arena"],
+            "sgd_arena": opk.launches["sgd_arena"],
+            "lstm_seq": rnn.launches["lstm_seq"],
+            "lstm_seq_bwd": rnn.launches["lstm_seq_bwd"],
+            "embedding_sgd": emb.launches["embedding_sgd"],
+            "paged_attention": pak.launches["paged_attention"]}
+
+
+def phase_runtime(torch, fluid, seed, card, serving, gen):
+    """Phase 17. Returns each kernel's launches on this phase's path."""
+    import io
+    import numpy as np
+    from paddle_tpu_torch.core import executor as texec
+    from paddle_tpu_torch.core.block_walk import free_reads, written_names
+    from paddle_tpu_torch.fluid.analysis import (ERROR, lint_program,
+                                                 verify_calls,
+                                                 verify_program)
+    from paddle_tpu_torch.obs.metrics import REGISTRY
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import embedding as emb
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.ops.conv_ops import conv_attrs
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.serving import GenerationEngine, InferenceEngine
+
+    log(f"\n== phase 17: runtime — verifier and lint, run_steps, the "
+        f"executor's hooks and analysis cache | {card} ==")
+    mods = (cbk, opk, rnn, emb, pak)
+    total = dict.fromkeys(rt_counts(*mods), 0)
+    problems = []
+
+    def reset():
+        """Zero the launch counters, dropping what they hold."""
+        for m in mods:
+            m.reset_launches()
+        tier.reset_fallback_counts()
+
+    def count():
+        """Add the launches since the last count() to the phase's total,
+        zero the counters and return those launches: every launch of the
+        phase is added once."""
+        c = rt_counts(*mods)
+        for k, v in c.items():
+            total[k] += v
+        reset()
+        return c
+
+    def errors(diags):
+        return [str(d) for d in diags if d.severity == ERROR]
+
+    reset()  # the earlier phases' launches are theirs
+    # ---- the verifier on every model, both flags on ----
+    fluid.set_flags({"verify_passes": True, "executor_verify": True})
+    prev_det = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        exe = fluid.Executor()
+        built = {}
+        for name, build in (
+                ("resnet50", lambda: build_resnet50_train(fluid, seed)),
+                ("lstm_textcls", lambda: build_textcls(fluid, seed)),
+                ("word2vec", lambda: build_word2vec(fluid, seed))):
+            v0 = verify_calls()
+            main, startup, loss = build()
+            passes = verify_calls() - v0
+            diags = verify_program(main, startup_program=startup,
+                                   fetch_names=[loss.name],
+                                   raise_on_error=False)
+            lints = lint_program(main, fetch_names=[loss.name])
+            log(f"{name}: {len(main.global_block().ops)} ops, "
+                f"{passes} pass outputs verified while building, "
+                f"verify_program {len(errors(diags))} errors, "
+                f"{len(diags)} findings; lint {len(lints)} warnings "
+                f"({sorted({d.code for d in lints})})")
+            if errors(diags) or passes < 1:
+                problems.append(f"{name} does not verify clean: "
+                                f"{errors(diags)[:3]} ({passes} passes)")
+            built[name] = (main, startup, loss)
+
+        main, startup, loss = built["resnet50"]
+        block = main.global_block()
+        v_ms = median_ms(lambda: verify_program(
+            main, startup_program=startup, fetch_names=[loss.name],
+            raise_on_error=False))
+        l_ms = median_ms(lambda: lint_program(main, fetch_names=[loss.name]))
+        walk_ms = median_ms(lambda: (free_reads(main, 0),
+                                     written_names(main, 0)), reps=20)
+        log(f"ResNet-50 training program ({len(block.ops)} ops): "
+            f"verify_program {v_ms:.3f} ms, lint_program {l_ms:.3f} ms, "
+            f"free_reads + written_names {walk_ms:.3f} ms (host, median "
+            f"of {RT_REPS}/20 calls; the analysis cache takes the walks "
+            f"off every run()) | {card}")
+
+        # phase 3's served bundle: load (verified), save under
+        # verify_passes, load the copy, serve one image from it
+        v0 = verify_calls()
+        scope3 = fluid.Scope()
+        prog3, feeds3, fetch3 = fluid.io.load_inference_model(
+            serving["dir"], exe, scope=scope3)
+        d2 = tempfile.mkdtemp(prefix="chip-smoke-resaved-")
+        fluid.io.save_inference_model(d2, feeds3, fetch3, exe,
+                                      main_program=prog3, scope=scope3)
+        eng2, eng3 = InferenceEngine(d2), InferenceEngine(serving["dir"])
+        shutil.rmtree(d2)
+        x = np.random.RandomState(seed + 17).normal(
+            0, 1, (1, IMAGE, IMAGE, 3)).astype("float32")
+        count()
+        got = eng2.infer({"img": x})
+        c = rt_counts(*mods)
+        want = eng3.infer({"img": x})
+        count()
+        same = all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(got, want))
+        log(f"phase 3's bundle: loaded, saved under verify_passes, loaded "
+            f"again and served: {verify_calls() - v0} verify_program "
+            f"calls, conv_affine launches for one image "
+            f"{c['conv_affine']} (want {KERNEL_CONVS}), reply bitwise the "
+            f"original bundle's {same}")
+        if c["conv_affine"] != KERNEL_CONVS or not same:
+            problems.append("the re-saved bundle does not serve as phase "
+                            "3's does")
+        lint = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.tools.lint_program",
+             serving["dir"]], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        log(f"lint CLI on phase 3's bundle: exit {lint.returncode}, "
+            f"{(lint.stdout.strip().splitlines() or ['?'])[-1]}")
+        if lint.returncode != 0:
+            problems.append(f"the lint CLI exits {lint.returncode} on "
+                            f"phase 3's bundle: {lint.stderr[-400:]}")
+
+        # the LM lane through GenerationEngine under both flags
+        v0 = verify_calls()
+        geom = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                    num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN,
+                    prefill_buckets=(8,))
+        count()
+        eng = GenerationEngine(gen["dir"], **geom)
+        eng.warmup()
+        calls = verify_calls() - v0
+        lane = gen_lane(eng, True)
+        c = count()
+        decodes = eng.stats()["phases"]["decode"][GEN_MAX_SEQS]["dispatches"]
+        log(f"LM lane under verify_passes + executor_verify: "
+            f"{calls} verify_program calls (load, 2 phase rewrites, the "
+            f"first dispatch of each phase), tokens equal phase 13's "
+            f"{lane['tokens'] == gen['tokens']}, paged_attention launches "
+            f"{c['paged_attention']} over {decodes} decode dispatches "
+            "(warmup's included)")
+        if lane["tokens"] != gen["tokens"] \
+                or c["paged_attention"] != GEN_LAYERS * decodes \
+                or calls != 5:
+            problems.append("the LM lane under the verifier flags differs "
+                            "from phase 13")
+
+        # ---- run_steps against run() ----
+        def hold(name, main, startup, loss, feeds, want):
+            """K run() calls (twice) against run_steps(K), launches per
+            step; returns the startup state and the run-to-run spread."""
+            init = fluid.Scope()
+            exe.run(startup, scope=init)
+            sa, sa2 = copy_scope(fluid, torch, init), \
+                copy_scope(fluid, torch, init)
+            sb = copy_scope(fluid, torch, init)
+            v0 = verify_calls()
+            count()
+            seq = [exe.run(main, feed=feeds[i % len(feeds)],
+                           fetch_list=[loss], scope=sa,
+                           return_numpy=False)[0]
+                   for i in range(RT_STEPS)]
+            c_run = count()
+            verified = verify_calls() - v0
+            seq2 = [exe.run(main, feed=feeds[i % len(feeds)],
+                            fetch_list=[loss], scope=sa2,
+                            return_numpy=False)[0]
+                    for i in range(RT_STEPS)]
+            count()
+            multi = exe.run_steps(main, feeds, fetch_list=[loss], scope=sb,
+                                  steps=RT_STEPS, return_numpy=False)[0]
+            c_steps = count()
+            torch.cuda.synchronize()
+            rr_diff, rr = scope_spread(torch, sa2, sa)
+            rs_diff, rs = scope_spread(torch, sb, sa)
+            loss_rr = torch.equal(torch.stack(seq2), torch.stack(seq))
+            loss_rs = torch.equal(multi, torch.stack(seq))
+            per_step = {k: v // RT_STEPS for k, v in c_steps.items() if v}
+            log(f"{name}: {RT_STEPS} run() calls vs run_steps(K="
+                f"{RT_STEPS}, {len(feeds)} feeds): losses bitwise "
+                f"{loss_rs}, {len(rs_diff)} state tensors differ (worst "
+                f"{rs:.3e}); two run() sequences: losses bitwise "
+                f"{loss_rr}, {len(rr_diff)} differ (worst {rr:.3e}); "
+                f"launches a step {per_step} (want {want}); "
+                f"verify_program calls over the {RT_STEPS} runs "
+                f"{verified}; losses "
+                + " ".join(f"{v.item():.5f}" for v in seq))
+            if rr_diff or not loss_rr:
+                where = first_differing_op(
+                    torch, exe, main, feeds[0], copy_scope(fluid, torch, init),
+                    copy_scope(fluid, torch, init))
+                log(f"  run-to-run spread on the card: first differing op "
+                    f"of a step: {where}; run_steps held to "
+                    f"{RT_SPREAD_FACTOR}x the spread")
+                if not rs <= RT_SPREAD_FACTOR * rr:
+                    problems.append(f"{name}: run_steps differs from run() "
+                                    f"by {rs:.3e}, beyond {RT_SPREAD_FACTOR}"
+                                    f"x the run-to-run spread {rr:.3e}")
+            elif rs_diff or not loss_rs:
+                problems.append(f"{name}: run_steps is not bitwise "
+                                f"{RT_STEPS} run() calls ({rs_diff[:3]})")
+            for counts in (c_run, c_steps):
+                got = {k: v // RT_STEPS for k, v in counts.items()
+                       if k in want}
+                if got != want or any(counts[k] % RT_STEPS for k in want):
+                    problems.append(f"{name}: launches {counts} over "
+                                    f"{RT_STEPS} steps, want {want} a step")
+            if verified != 1:
+                problems.append(f"{name}: executor_verify ran "
+                                f"{verified} times over {RT_STEPS} steady "
+                                "steps, want 1")
+            return init, rr
+
+        rng = np.random.RandomState(seed)
+        rfeed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
+                 .astype("float32"),
+                 "label": rng.randint(0, CLASSES, (TRAIN_BATCH, 1))
+                 .astype("int64")}
+        want_r = {"conv_bn_train": KERNEL_CONVS, "conv_bn_bwd": KERNEL_CONVS,
+                  "momentum_arena": 1}
+        rinit, rr = hold("ResNet-50, batch 32", main, startup, loss,
+                            [rfeed], want_r)
+        # prepare_steps + two run_prepared = 2K run() calls
+        sa, sb = copy_scope(fluid, torch, rinit), \
+            copy_scope(fluid, torch, rinit)
+        for i in range(2 * RT_STEPS):
+            exe.run(main, feed=rfeed, fetch_list=[loss], scope=sa,
+                    return_numpy=False)
+        v0 = verify_calls()
+        h = exe.prepare_steps(main, [rfeed], fetch_list=[loss], scope=sb,
+                              steps=RT_STEPS)
+        count()
+        l1 = exe.run_prepared(h, return_numpy=False)[0]
+        l2 = exe.run_prepared(h, return_numpy=False)[0]
+        c = count()
+        diff, worst = scope_spread(torch, sb, sa)
+        log(f"ResNet-50: prepare_steps + 2 x run_prepared(K={RT_STEPS}) vs "
+            f"{2 * RT_STEPS} run() calls: {len(diff)} state tensors differ "
+            f"(worst {worst:.3e}), losses {l1[0].item():.5f} -> "
+            f"{l2[-1].item():.5f}, conv_bn_train launches "
+            f"{c['conv_bn_train']}, verify_program calls "
+            f"{verify_calls() - v0} (the surface was verified)")
+        if (diff and not worst <= RT_SPREAD_FACTOR * rr) \
+                or c["conv_bn_train"] != 2 * RT_STEPS * KERNEL_CONVS \
+                or verify_calls() != v0:
+            problems.append("prepare_steps + run_prepared does not continue "
+                            "the training as run() does")
+
+        lmain, lstart, lloss = built["lstm_textcls"]
+        hold(f"LSTM classifier (b {SEQ_BATCH}, L {SEQ_LEN}, H "
+             f"{SEQ_HIDDEN}, LoD)", lmain, lstart, lloss,
+             [textcls_feeds(fluid, seed, False),
+              textcls_feeds(fluid, seed, True)],
+             {"lstm_seq": 2, "lstm_seq_bwd": 2, "adam_arena": 1})
+        wmain, wstart, wloss = built["word2vec"]
+        hold("word2vec (is_sparse)", wmain, wstart, wloss,
+             [word2vec_feed(seed)], {"embedding_sgd": 1, "sgd_arena": 1})
+
+        # ---- check_nan_inf on ResNet-50 ----
+        def step_ms(scope, n=3):
+            ms = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=rfeed, fetch_list=[loss], scope=scope,
+                        return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return sorted(ms)[len(ms) // 2]
+
+        clean = copy_scope(fluid, torch, rinit)
+        step_ms(clean, 1)
+        off_ms = step_ms(clean)
+        fluid.set_flags({"check_nan_inf": True})
+        on_ms = step_ms(clean)
+        fluid.set_flags({"check_nan_inf": False})
+        log(f"check_nan_inf: a ResNet-50 step {on_ms:.2f} ms with the flag, "
+            f"{off_ms:.2f} ms without (+{on_ms - off_ms:.2f} ms: one "
+            f"isfinite reduction per output and one sync per op) | {card}")
+        # the first conv that launches conv_bn_train
+        target = next(op for op in block.ops
+                      if op.type == "fused_conv2d_bn"
+                      and cbk.supported((TRAIN_BATCH,) + tuple(
+                          block.var(op.input("Input")[0]).shape[1:]),
+                          tuple(block.var(op.input("Filter")[0]).shape),
+                          *conv_attrs(op.attr), "NHWC", "float32"))
+        filt = target.input("Filter")[0]
+        readers = [op for op in block.ops if filt in op.input_arg_names()]
+        planted = copy_scope(fluid, torch, rinit)
+        planted.find_var(filt).view(-1)[7] = float("nan")
+        want_msg = (f"NaN in output {target.output('Output')[0]!r} of op "
+                    f"'fused_conv2d_bn' (check_nan_inf flag)")
+        fluid.set_flags({"check_nan_inf": True})
+        try:
+            exe.run(main, feed=rfeed, fetch_list=[loss], scope=planted)
+            msg = "no error"
+        except FloatingPointError as e:
+            msg = str(e)
+        finally:
+            fluid.set_flags({"check_nan_inf": False})
+        log(f"check_nan_inf with one NaN in {filt} (read first by "
+            f"{readers[0].type}): {msg!r}")
+        if msg != want_msg or readers[0] is not target:
+            problems.append(f"check_nan_inf said {msg!r}, want {want_msg!r}")
+        planted = copy_scope(fluid, torch, rinit)
+        planted.find_var(filt).view(-1)[7] = float("nan")
+        count()
+        lv = exe.run(main, feed=rfeed, fetch_list=[loss], scope=planted,
+                     return_numpy=False)[0]
+        c = count()
+        got = {k: c[k] for k in want_r}
+        log(f"the flag off, the same step: loss {lv.item()}, launches {got}")
+        if got != want_r:
+            problems.append(f"with check_nan_inf off the planted step "
+                            f"launched {got}, want {want_r}")
+
+        # ---- benchmark and obs_op_metrics ----
+        buf = io.StringIO()
+        fluid.set_flags({"benchmark": True})
+        count()
+        try:
+            with contextlib.redirect_stdout(buf):
+                exe.run(main, feed=rfeed, fetch_list=[loss], scope=clean,
+                        return_numpy=False)
+        finally:
+            fluid.set_flags({"benchmark": False})
+        count()
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("[benchmark] ")]
+        per_op = {}
+        for ln in lines:
+            op, ms = ln[len("[benchmark] "):].rsplit(": ", 1)
+            per_op[op] = per_op.get(op, 0.0) + float(ms.split()[0])
+        top = sorted(per_op.items(), key=lambda kv: -kv[1])[:4]
+        log(f"benchmark: one ResNet-50 step printed {len(lines)} lines for "
+            f"{len(block.ops)} ops; most time by op type (synchronised per "
+            "op): " + ", ".join(f"{k} {v:.1f} ms" for k, v in top))
+        if len(lines) != len(block.ops):
+            problems.append(f"benchmark printed {len(lines)} lines for "
+                            f"{len(block.ops)} ops")
+        t0 = REGISTRY.totals()
+        fluid.set_flags({"obs_op_metrics": True})
+        count()
+        try:
+            for _ in range(3):
+                exe.run(main, feed=rfeed, fetch_list=[loss], scope=clean,
+                        return_numpy=False)
+        finally:
+            fluid.set_flags({"obs_op_metrics": False})
+        count()
+        t1 = REGISTRY.totals()
+
+        def delta(k):
+            return t1.get(k, 0) - t0.get(k, 0)
+
+        log(f"obs_op_metrics over 3 steps: op_dispatches "
+            f"{delta('paddle_tpu_executor_op_dispatches')} (3 x "
+            f"{len(block.ops)} ops), steps "
+            f"{delta('paddle_tpu_executor_steps')}, retraces "
+            f"{delta('paddle_tpu_executor_retraces')}, op_seconds "
+            f"{delta('paddle_tpu_executor_op_seconds') * 1e3 / 3:.2f} ms a "
+            "step (dispatch time)")
+        if delta("paddle_tpu_executor_op_dispatches") != 3 * len(block.ops) \
+                or delta("paddle_tpu_executor_retraces") != 0 \
+                or delta("paddle_tpu_executor_steps") != 3:
+            problems.append("obs_op_metrics counts are off")
+
+        # ---- the analysis cache: a run() with a warm and a cold cache ----
+        fluid.set_flags({"executor_verify": False})
+        warm, cold = [], []
+        for _ in range(RT_REPS):
+            for ms, drop in ((warm, False), (cold, True)):
+                if drop:
+                    texec._ANALYSIS_CACHE.pop(main, None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exe.run(main, feed=rfeed, fetch_list=[loss], scope=clean,
+                        return_numpy=False)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+        log(f"one ResNet-50 run() call's host time (enqueue, median of "
+            f"{RT_REPS}): warm analysis cache {sorted(warm)[RT_REPS // 2]:.2f}"
+            f" ms, cold {sorted(cold)[RT_REPS // 2]:.2f} ms (a reading) | "
+            f"{card}")
+        count()
+    finally:
+        fluid.set_flags({f: False for f in RT_FLAGS})
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev_det
+    if problems:
+        fail("; ".join(problems))
+    log("phase 17 launches: " + json.dumps(total))
+    return total
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -5566,6 +6059,9 @@ def main():
     rec = phase_recipes(torch, fluid, args.seed, card)
     amp, amp_sums = phase_amp(torch, fluid, args.seed, card,
                               dict(resnet=resnet_f32, textcls=textcls_f32))
+    rt = phase_runtime(torch, fluid, args.seed, card, serving, gen)
+    for d in (serving["dir"], gen["dir"]):
+        shutil.rmtree(d, ignore_errors=True)
 
     def entry(name, source, replaces, n, t, extra=()):
         return {"name": name, "route": "cuda",
@@ -5588,34 +6084,36 @@ def main():
                  "bf16_bound_ms", "bf16_bound_by")
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
-              launches + srv_launches + amp["conv_affine"],
+              launches + srv_launches + amp["conv_affine"]
+              + rt["conv_affine"],
               with_bf16(totals, "conv_affine"), bf16_keys),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
               train_launches["conv_bn_train"] + rec["conv_bn_train"]
-              + amp["conv_bn_train"],
+              + amp["conv_bn_train"] + rt["conv_bn_train"],
               with_bf16(train_totals["conv_bn_train"], "conv_bn_train"),
               bf16_keys),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
               train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"]
-              + amp["conv_bn_bwd"],
+              + amp["conv_bn_bwd"] + rt["conv_bn_bwd"],
               with_bf16(train_totals["conv_bn_bwd"], "conv_bn_bwd"),
               bf16_keys),
         entry("momentum_arena", "optimizer_arena.cu",
               "pallas/optimizer.py:111",
               train_launches["momentum_arena"] + rec["momentum_arena"]
-              + amp["momentum_arena"],
+              + amp["momentum_arena"] + rt["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
-              rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"],
+              rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
+              + rt["lstm_seq"],
               rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
-              + amp["lstm_seq_bwd"],
+              + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"],
               rnn_totals["lstm_seq_bwd"]),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
               + ctc_launches["adam_arena"] + rec["adam_arena"]
-              + amp["adam_arena"],
+              + amp["adam_arena"] + rt["adam_arena"],
               rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
               gru_launches["gru_seq"] + ctc_launches["gru_seq"],
@@ -5628,14 +6126,16 @@ def main():
         entry("ctc_loss_bwd", "ctc.cu", "ctc_ops.py:155",
               ctc_launches["ctc_loss_bwd"], seq_totals["ctc_loss_bwd"]),
         entry("sgd_arena", "optimizer_arena.cu", "pallas/optimizer.py:92",
-              w2v_launches["sgd_arena"] + rec["sgd_arena"],
+              w2v_launches["sgd_arena"] + rec["sgd_arena"]
+              + rt["sgd_arena"],
               sparse_totals["sgd_arena"]),
         entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
-              w2v_launches["embedding_sgd"] + rec["embedding_sgd"],
+              w2v_launches["embedding_sgd"] + rec["embedding_sgd"]
+              + rt["embedding_sgd"],
               sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",
-              gen_launches + srv_gen_launches,
+              gen_launches + srv_gen_launches + rt["paged_attention"],
               paged_totals["paged_attention"],
               ("llama_ms", "llama_bound_ms", "llama_4096_ms",
                "llama_4096_bound_ms")),

@@ -4,7 +4,9 @@ paddle_tpu/core/executor.py, eager path only).
 The reference's jit path traces the whole block into one XLA computation;
 PyTorch runs eagerly, so this executor is the reference's eager interpreter
 (``ExecContext`` :134, ``_run_ops`` :227, the eager branch of
-``Executor.run`` :568/:607-614) and nothing else.
+``Executor.run`` :568/:607-614) and nothing else. ``run_steps`` /
+``prepare_steps`` / ``run_prepared`` (reference :665-764) are an eager
+loop of K such steps over feeds staged on the device once.
 
 State contract: persistable variables live in a Scope between runs as torch
 tensors on the executor's device. Temporaries live in a per-run dict; one
@@ -20,23 +22,75 @@ autograd for a vector-Jacobian product enables it locally
 (``ops/common.py::vjp``). With ``amp=True`` it also runs under
 ``amp_guard`` (reference :610), so the GEMM ops compute in bfloat16
 (``core/amp.py``).
+
+Per-program work (the free-read and written-name walks, the op
+inventory, the ``executor_verify`` memo) is cached per program version in
+``_ProgramAnalysis`` (reference :299-356), so a steady ``run()`` walks no
+block. The op loop reads the debug flags (``check_nan_inf``,
+``benchmark``, ``obs_op_metrics``) once per block, never per op.
 """
 
 from __future__ import annotations
 
+import time
+import weakref
+
 import numpy as np
 import torch
 
+from . import flags as _flags
 from . import registry
 from .amp import amp_guard
 from .block_walk import free_reads, written_names
 from .lod import LoDArray, flat_to_lodarray, pack_sequences
+from .profiler import profiler_enabled, record_event
 from .scope import global_scope
 from .sparse import SparseRows
 from .types import torch_dtype
+from ..obs.metrics import REGISTRY as _METRICS
 
 # scope slot of the startup initializers' torch.Generator
 _RNG_KEY = "__rng__"
+
+# ---------------------------------------------------------------------------
+# obs_op_metrics: the reference's four executor families (:40-66). The port
+# compiles nothing, so "retraces" counts rebuilds of the per-version
+# _ProgramAnalysis; like the reference's it is counted whatever the flag
+# and stays flat in steady state.
+# ---------------------------------------------------------------------------
+
+_M_OP_DISPATCHES = _METRICS.counter(
+    "paddle_tpu_executor_op_dispatches",
+    "op dispatches by op type (obs_op_metrics flag)",
+    labels=("op_type",))
+_M_OP_SECONDS = _METRICS.counter(
+    "paddle_tpu_executor_op_seconds",
+    "cumulative per-op-type eager DISPATCH wall time in seconds: timed "
+    "around the op forward only, independent of co-enabled debug flags; "
+    "the device's async tail is not awaited (obs_op_metrics flag)",
+    labels=("op_type",))
+_M_STEPS = _METRICS.counter(
+    "paddle_tpu_executor_steps",
+    "Executor steps (run() calls and run_prepared steps), by executor "
+    "mode (obs_op_metrics flag)", labels=("mode",))
+_M_RETRACES = _METRICS.counter(
+    "paddle_tpu_executor_retraces",
+    "per-program-version preparations: rebuilds of the executor's "
+    "_ProgramAnalysis (the port compiles nothing, so this stands where "
+    "the reference counts its jit traces); flat in steady state",
+    labels=("kind",))
+
+# op_type -> (dispatch child, seconds child), made on first dispatch
+_OP_CHILDREN: dict = {}
+
+
+def _op_children(op_type):
+    mc = _OP_CHILDREN.get(op_type)
+    if mc is None:
+        mc = _OP_CHILDREN[op_type] = (
+            _M_OP_DISPATCHES.labels(op_type=op_type),
+            _M_OP_SECONDS.labels(op_type=op_type))
+    return mc
 
 
 class Place:
@@ -97,7 +151,12 @@ class ExecContext:
         return self.env[name]
 
     def has_input(self, slot):
-        return bool(self.op.input(slot))
+        """Whether the slot names a variable that holds a value (reference
+        :147-149): a named slot whose variable is neither fed, in the
+        scope, nor written yet counts as absent, as an optional input
+        left unset does."""
+        names = self.op.input(slot)
+        return bool(names) and names[0] in self.env
 
     def inputs(self, slot):
         """Every value of a variadic slot (sum, fused_momentum), in order."""
@@ -115,17 +174,212 @@ class ExecContext:
     def attr(self, name, default=None):
         return self.op.attrs.get(name, default)
 
+    def var(self, name):
+        """The block's declaration of ``name`` (parent blocks included)."""
+        return self.block.var(name)
+
+    def out_dtype(self, slot="Out"):
+        """Declared torch dtype of the slot's (first) output var, or None
+        where it is not annotated."""
+        names = self.op.output(slot)
+        if names and self.block.has_var(names[0]):
+            d = self.block.var(names[0]).dtype
+            if d is not None:
+                return torch_dtype(d)
+        return None
+
     def generator(self) -> torch.Generator:
         """The run's generator for random ops (seeded once per scope from
         ``program.random_seed``)."""
         return self.env[_RNG_KEY]
 
+    # ---- control flow: run a sub-block over the current env ----
+    def run_sub_block(self, block_idx):
+        """Run block ``block_idx`` of this op's program over this op's env
+        (reference :199-201): the sub-block reads the parent's names and
+        its writes stay visible after it."""
+        _run_ops(self.block.program.blocks[block_idx], self.env,
+                 self.device)
+
+    def sub_block(self, attr_name="sub_block"):
+        return self.block.program.blocks[self.attr(attr_name)]
+
+
+def _float_leaves(value):
+    """The floating tensors an op output holds: a tensor itself, a
+    LoDArray's data (its lens are int32), a SparseRows' values (its rows
+    are int64)."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    elif isinstance(value, LoDArray):
+        t = value.data
+    elif isinstance(value, SparseRows):
+        t = value.values
+    else:
+        return ()
+    return (t,) if t.is_floating_point() and t.numel() else ()
+
+
+def _check_op_outputs_finite(op, env):
+    """check_nan_inf sweep after one op (reference :207-224, executor.cc
+    CheckTensorNANOrInf): one reduction per output and one host sync per
+    op; only a failing op pays the second pass that names the output."""
+    named = [(n, t) for n in op.output_arg_names()
+             for t in _float_leaves(env.get(n))]
+    if not named:
+        return
+    if bool(torch.stack([torch.isfinite(t).all() for _, t in named]).all()):
+        return
+    for name, t in named:
+        if not bool(torch.isfinite(t).all()):
+            kind = "NaN" if bool(torch.isnan(t).any()) else "Inf"
+            raise FloatingPointError(
+                f"{kind} in output {name!r} of op {op.type!r} "
+                "(check_nan_inf flag)")
+
 
 def _run_ops(block, env, device):
-    """Run every op of a block over ``env`` in order."""
+    """Run every op of a block over ``env`` in order. The flags are read
+    here once per block: with ``check_nan_inf``, ``benchmark`` and
+    ``obs_op_metrics`` off, the profiler idle and ``PDTPU_OP_COVERAGE``
+    unset the loop is the plain one."""
+    check = _flags.get_flag("check_nan_inf")
+    bench = _flags.get_flag("benchmark")
+    opm = _flags.get_flag("obs_op_metrics")
+    prof = profiler_enabled()
+    record = registry.dispatch_coverage_enabled()
+    if check or bench or opm or prof or record:
+        _run_ops_hooked(block, env, device, check, bench, opm, prof, record)
+    else:
+        for op in block.ops:
+            registry.get_op_info(op.type).forward(
+                ExecContext(op, block, env, device))
+
+
+def _run_ops_hooked(block, env, device, check, bench, opm, prof, record):
+    """The op loop with the per-op hooks (reference :237-286): a profiler
+    span per op, the coverage record after the forward returns, the
+    obs_op_metrics counters (the forward's dispatch time, taken before
+    the check and the benchmark sync, so it means the same whatever rides
+    along), the NaN/Inf sweep, and the benchmark line, timed after the
+    device is synchronised."""
+    sync = device.type == "cuda"
     for op in block.ops:
-        registry.get_op_info(op.type).forward(
-            ExecContext(op, block, env, device))
+        t0 = time.perf_counter() if (bench or opm) else 0.0
+        ctx = ExecContext(op, block, env, device)
+        info = registry.get_op_info(op.type)
+        if prof:
+            with record_event(op.type, kind="op"):
+                info.forward(ctx)
+        else:
+            info.forward(ctx)
+        if record:
+            registry.record_dispatch(op.type)
+        if opm:
+            disp, secs = _op_children(op.type)
+            disp.inc()
+            secs.inc(time.perf_counter() - t0)
+        if check:
+            _check_op_outputs_finite(op, env)
+        if bench:
+            if sync:
+                torch.cuda.synchronize(device)
+            print(f"[benchmark] {op.type}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+
+
+class _ProgramAnalysis:
+    """Per-(program, version) results for block 0 (reference :299-339):
+    the free reads and written names, the persistable subset of the
+    writes, and the executor_verify memo (the (feed names, fetch names)
+    surfaces this version has verified under)."""
+
+    __slots__ = ("version", "free", "written", "persistable_written",
+                 "verified")
+
+    def __init__(self, version, free, written, persistable_written):
+        self.version = version
+        self.free = free
+        self.written = written
+        self.persistable_written = persistable_written
+        self.verified = set()
+
+
+# program -> its _ProgramAnalysis, keyed by the program object (weakly, so
+# a dropped program takes its entry along) and revalidated by its version
+_ANALYSIS_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _analyze_program(program):
+    cached = _ANALYSIS_CACHE.get(program)
+    if cached is not None and cached.version == program._version:
+        return cached
+    _M_RETRACES.labels(kind="analysis").inc()
+    free = free_reads(program, 0)
+    written = written_names(program, 0)
+    block = program.global_block()
+    persistable = frozenset(
+        n for n in written if block.has_var(n) and block.var(n).persistable)
+    cached = _ProgramAnalysis(program._version, free, written, persistable)
+    _ANALYSIS_CACHE[program] = cached
+    return cached
+
+
+def _maybe_verify(program, analysis, feed_names, fetch_names=(), scope=None):
+    """executor_verify (reference :368-396): verify once per (program
+    version, feed/fetch surface). Names the scope binds are dataflow roots
+    like feeds. With the flag off and nothing memoised this costs one
+    attribute read and one flag lookup. Raises ProgramVerifyError naming
+    the executor."""
+    verified = analysis.verified
+    if not verified and not _flags.get_flag("executor_verify"):
+        return
+    key = (frozenset(feed_names), frozenset(fetch_names))
+    if key in verified or not _flags.get_flag("executor_verify"):
+        return
+    roots = set(feed_names)
+    if scope is not None:
+        roots.update(n for n in analysis.free if scope.has_var(n))
+    from ..fluid.analysis import verify_program
+    verify_program(program, feed_names=roots, fetch_names=fetch_names,
+                   pass_name="executor")
+    verified.add(key)
+
+
+class _PreparedSteps:
+    """Handle from :meth:`Executor.prepare_steps` (reference :120): the
+    program and its fetches bound to the feeds stacked on the device."""
+
+    __slots__ = ("program", "stacked", "fetch_names", "steps", "n_feeds",
+                 "scope")
+
+    def __init__(self, program, stacked, fetch_names, steps, n_feeds, scope):
+        self.program = program
+        self.stacked = stacked
+        self.fetch_names = fetch_names
+        self.steps = steps
+        self.n_feeds = n_feeds
+        self.scope = scope
+
+
+def _feed_slice(value, i):
+    if isinstance(value, LoDArray):
+        return LoDArray(value.data[i], value.lens[i])
+    return value[i]
+
+
+def _stack_fetches(values, return_numpy):
+    """One fetch over the steps: tensors (and a LoDArray's leaves) stacked
+    on axis 0; any other value (a SparseRows) as the list of its steps."""
+    first = values[0]
+    if isinstance(first, torch.Tensor):
+        stacked = torch.stack(values)
+    elif isinstance(first, LoDArray):
+        stacked = LoDArray(torch.stack([v.data for v in values]),
+                           torch.stack([v.lens for v in values]))
+    else:
+        return values
+    return Executor._fetch_value(stacked, return_numpy)
 
 
 class Executor:
@@ -143,27 +397,123 @@ class Executor:
 
         program = program or default_main_program()
         scope = scope or global_scope()
-        fetch_names = [f if isinstance(f, str) else f.name
-                       for f in (fetch_list or [])]
-        block = program.global_block()
-        feed_vals = self._prepare_feed(block, dict(feed or {}))
+        fetch_names = _fetch_names(fetch_list)
+        feed_vals = self._prepare_feed(program.global_block(),
+                                       dict(feed or {}))
+        self._seed_scope(program, scope)
+        analysis = _analyze_program(program)
+        _maybe_verify(program, analysis, tuple(feed_vals), tuple(fetch_names),
+                      scope=scope)
+        with torch.no_grad(), amp_guard(self.amp):
+            fetches = self._step(program, analysis, feed_vals, fetch_names,
+                                 scope)
+        return [self._fetch_value(v, return_numpy) for v in fetches]
 
+    def _seed_scope(self, program, scope):
         if scope.find_var(_RNG_KEY) is None:
             g = torch.Generator(device=self.device)
             g.manual_seed(int(program.random_seed or 0))
             scope.set(_RNG_KEY, g)
 
-        env = {n: scope.find_var(n) for n in free_reads(program, 0)
+    def _step(self, program, analysis, feed_vals, fetch_names, scope):
+        """One eager step: bind the scope's free reads and the feeds, run
+        block 0, write the scope's names and the persistables back, and
+        return the raw fetch values."""
+        if _flags.get_flag("obs_op_metrics"):
+            _M_STEPS.labels(mode="eager").inc()
+        env = {n: scope.find_var(n) for n in analysis.free
                if n not in feed_vals and scope.has_var(n)}
         env.update(feed_vals)
         env[_RNG_KEY] = scope.find_var(_RNG_KEY)
-        with torch.no_grad(), amp_guard(self.amp):
-            _run_ops(block, env, self.device)
-        for n in written_names(program, 0):
-            if n in env and (scope.has_var(n) or (
-                    block.has_var(n) and block.var(n).persistable)):
+        _run_ops(program.global_block(), env, self.device)
+        persistable = analysis.persistable_written
+        for n in analysis.written:
+            if n in env and (n in persistable or scope.has_var(n)):
                 scope.set(n, env[n])
-        return [self._fetch_value(env[n], return_numpy) for n in fetch_names]
+        return [env[n] for n in fetch_names]
+
+    # ------------------------------------------------------------------
+    def prepare_steps(self, program=None, feeds=(), fetch_list=None,
+                      scope=None, steps=None):
+        """Stage a K-step loop (reference :665): every feed leaf (a LoD
+        feed's data and lens too) is stacked over the ``feeds`` list and
+        put on the executor's device once, with one host-to-device copy
+        per leaf; :meth:`run_prepared` then runs the steps. The feed dicts
+        must agree in names and shapes. ``steps`` defaults to
+        ``len(feeds)``."""
+        from ..fluid.framework import default_main_program
+
+        program = program or default_main_program()
+        feeds = [dict(f) for f in feeds]
+        if not feeds:
+            raise ValueError("prepare_steps needs at least one feed dict")
+        names = list(feeds[0])
+        if any(sorted(f) != sorted(names) for f in feeds):
+            raise ValueError("prepare_steps: every feed dict must hold the "
+                             "same names")
+        steps = int(steps or len(feeds))
+        scope = scope or global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        block = program.global_block()
+        stacked = {n: self._stack_feed(block, n, [f[n] for f in feeds])
+                   for n in names}
+        self._seed_scope(program, scope)
+        analysis = _analyze_program(program)
+        _maybe_verify(program, analysis, tuple(stacked), tuple(fetch_names),
+                      scope=scope)
+        return _PreparedSteps(program, stacked, fetch_names, steps,
+                              len(feeds), scope)
+
+    def run_prepared(self, prepared, return_numpy=True):
+        """Run a :meth:`prepare_steps` handle's K steps (reference :728),
+        step ``i`` on staged feed ``i % len(feeds)``: each step is the
+        eager step of :meth:`run`, so persistables carry from step to step
+        and the scope's generator advances as K ``run()`` calls advance it.
+        Returns each fetch stacked over the steps on axis 0."""
+        program, scope = prepared.program, prepared.scope
+        analysis = _analyze_program(program)
+        per_step = []
+        with torch.no_grad(), amp_guard(self.amp):
+            for i in range(prepared.steps):
+                j = i % prepared.n_feeds
+                feed_vals = {n: _feed_slice(v, j)
+                             for n, v in prepared.stacked.items()}
+                per_step.append(self._step(program, analysis, feed_vals,
+                                           prepared.fetch_names, scope))
+        return [_stack_fetches(list(vals), return_numpy)
+                for vals in zip(*per_step)]
+
+    def run_steps(self, program=None, feeds=(), fetch_list=None, scope=None,
+                  steps=None, return_numpy=True):
+        """``steps`` training steps cycling through ``feeds`` (reference
+        :748): :meth:`prepare_steps` then :meth:`run_prepared`. The steps
+        equal as many :meth:`run` calls on the same feeds bitwise; the
+        feeds cross to the device once."""
+        prepared = self.prepare_steps(program, feeds, fetch_list, scope,
+                                      steps)
+        return self.run_prepared(prepared, return_numpy=return_numpy)
+
+    def _stack_feed(self, block, name, values):
+        """One feed name over every staged step, on the device. Dense
+        tensors already on the device stack there in their own dtype (as
+        :meth:`_prepare_feed` passes them through); everything else stacks
+        on the host, is cast to the declared dtype and crosses once."""
+        var = block.var(name) if block.has_var(name) else None
+        values = [self._as_lod(v, var) for v in values]
+        if isinstance(values[0], LoDArray):
+            return LoDArray(
+                self._stack_leaf([v.data for v in values], var),
+                self._stack_leaf([v.lens for v in values], None)
+                .to(torch.int32))
+        return self._stack_leaf(values, var)
+
+    def _stack_leaf(self, leaves, var):
+        if all(isinstance(t, torch.Tensor) and t.device == self.device
+               for t in leaves):
+            return torch.stack(leaves)
+        host = np.stack([t.cpu().numpy() if isinstance(t, torch.Tensor)
+                         else np.asarray(t) for t in leaves])
+        return self._dense(host, var)
 
     def _prepare_feed(self, block, feed):
         """Feeds on the executor's device (reference :863-914). A dense
@@ -178,13 +528,7 @@ class Executor:
         out = {}
         for name, value in feed.items():
             var = block.var(name) if block.has_var(name) else None
-            if isinstance(value, tuple) and len(value) == 2 \
-                    and not np.isscalar(value[0]):
-                value = flat_to_lodarray(value[0], value[1])
-            elif isinstance(value, list) and value and var is not None \
-                    and var.lod_level > 0 \
-                    and isinstance(value[0], (np.ndarray, list)):
-                value = pack_sequences([np.asarray(s) for s in value])
+            value = self._as_lod(value, var)
             if isinstance(value, LoDArray):
                 out[name] = LoDArray(self._dense(value.data, var),
                                      self._to_device(value.lens)
@@ -195,6 +539,19 @@ class Executor:
             else:
                 out[name] = self._dense(value, var)
         return out
+
+    @staticmethod
+    def _as_lod(value, var):
+        """A LoD feed in any of its forms as a LoDArray; anything else as
+        it is."""
+        if isinstance(value, tuple) and len(value) == 2 \
+                and not np.isscalar(value[0]):
+            return flat_to_lodarray(value[0], value[1])
+        if isinstance(value, list) and value and var is not None \
+                and var.lod_level > 0 \
+                and isinstance(value[0], (np.ndarray, list)):
+            return pack_sequences([np.asarray(s) for s in value])
+        return value
 
     def _to_device(self, value):
         t = value if isinstance(value, torch.Tensor) \
@@ -223,6 +580,10 @@ class Executor:
         if v.dtype == torch.bfloat16:
             v = v.float()  # numpy has no bfloat16 without ml_dtypes
         return v.cpu().numpy()
+
+
+def _fetch_names(fetch_list):
+    return [f if isinstance(f, str) else f.name for f in (fetch_list or [])]
 
 
 __all__ = ["Executor", "CPUPlace", "CUDAPlace", "resolve_device"]

@@ -1,5 +1,7 @@
 """Global flags registry (counterpart of paddle_tpu/core/flags.py), holding
-only the flags the ported paths read: ``kernel_tier``,
+only the flags the ported paths read: the executor's debug and metering
+flags (``check_nan_inf``, ``benchmark``, ``obs_op_metrics``), the program
+verifier's (``verify_passes``, ``executor_verify``), ``kernel_tier``,
 ``serving_batch_buckets``, the generation-serving flags (reference
 :216-330, without the KV spill tier's ``serving_kv_spill_dir`` and
 ``serving_kv_spill_bytes``), the serving front door's (``rpc_timeout_s``,
@@ -31,6 +33,39 @@ def set_flags(flags: dict):
             raise KeyError(f"unknown flag {name!r}; known: {sorted(_FLAGS)}")
         _FLAGS[name]["value"] = _FLAGS[name]["type"](value)
 
+
+DEFINE_flag("check_nan_inf", False,
+            "sweep every op's floating outputs for NaN/Inf after the op "
+            "runs and raise FloatingPointError naming the op and the "
+            "output — reference --check_nan_inf "
+            "(framework/executor.cc:325-333). On the card each op then "
+            "waits for its own result (one sync per op)")
+
+DEFINE_flag("benchmark", False,
+            "print each op's wall time after the op, its device "
+            "synchronised first — reference --benchmark "
+            "(executor.cc:321-324)")
+
+DEFINE_flag("verify_passes", False,
+            "make every program-transforming pass (append_backward, "
+            "fuse_conv_bn, the GenerationEngine phase rewrite, "
+            "save_inference_model's prune) run fluid.analysis."
+            "verify_program over its OUTPUT program and raise a typed "
+            "ProgramVerifyError naming the pass on structural damage — "
+            "the reference's build-time InferShape/arity net "
+            "(op_registry.h), applied at every IR rewrite")
+
+DEFINE_flag("executor_verify", False,
+            "verify each program at Executor.run dispatch, once per "
+            "(program version, feed/fetch surface), memoized through the "
+            "_ProgramAnalysis cache so the steady-state run pays one set "
+            "lookup; scope-bound free reads count as dataflow roots")
+
+DEFINE_flag("obs_op_metrics", False,
+            "executor observability hooks: per-op-type dispatch and "
+            "dispatch-time counters and per-step counters in the "
+            "obs.metrics registry. Host-side only; with the flag off the "
+            "op loop reads no flag per op")
 
 DEFINE_flag("kernel_tier", "auto",
             "which lowering the hot-op dispatch sites use: 'auto' (the "

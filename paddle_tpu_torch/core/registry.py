@@ -4,12 +4,15 @@ grad maker (counterpart of paddle_tpu/core/registry.py).
 Every op has ONE ``forward(ctx)`` written on torch tensors. Hot ops route
 through the kernel tier (``ops/cuda``) inside their forward. A grad maker
 turns a forward op into the grad op specs ``fluid.backward.append_backward``
-appends, the contract of the reference's GradOpDescMaker.
+appends, the contract of the reference's GradOpDescMaker. An op may also
+carry a declared slot arity (``SlotSpec``), which the program verifier
+(``fluid/analysis``) checks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 
@@ -34,6 +37,17 @@ class OpSpec:
 
 
 @dataclasses.dataclass
+class SlotSpec:
+    """Declared slot arity of an op type (reference :45), the analog of
+    the OpProto input/output declarations. ``inputs``/``outputs`` map slot
+    name -> arity marker: "1" exactly one var, "?" zero or one, "+" one or
+    more, "*" any number. A slot not listed is an unknown name; an op
+    without a SlotSpec is not arity-checked."""
+    inputs: dict
+    outputs: dict
+
+
+@dataclasses.dataclass
 class OpInfo:
     type: str
     # forward(ctx) -> None; reads ctx.input/attr, writes ctx.set_output
@@ -42,14 +56,19 @@ class OpInfo:
     infer_shape: Optional[Callable] = None
     # grad(op) -> list[OpSpec]; None means the op has no gradient
     grad: Optional[Callable] = None
+    # control-flow ops (they run sub-blocks through ExecContext)
+    is_control_flow: bool = False
     # outputs alias an input (optimizer ops write ParamOut == Param)
     in_place: bool = False
+    # declared slot arity, set by register_slots (fluid/analysis/slots.py)
+    slots: Optional[SlotSpec] = None
 
 
 _REGISTRY: dict[str, OpInfo] = {}
 
 
-def register_op(type, *, infer_shape=None, grad=None, in_place=False):
+def register_op(type, *, infer_shape=None, grad=None, is_control_flow=False,
+                in_place=False):
     """Decorator registering ``forward`` for an op type::
 
         @register_op("relu", infer_shape=same_shape("X", "Out"),
@@ -62,9 +81,19 @@ def register_op(type, *, infer_shape=None, grad=None, in_place=False):
             raise KeyError(f"op {type!r} registered twice")
         _REGISTRY[type] = OpInfo(type=type, forward=fn,
                                  infer_shape=infer_shape, grad=grad,
+                                 is_control_flow=is_control_flow,
                                  in_place=in_place)
         return fn
     return deco
+
+
+def register_slots(type, inputs=None, outputs=None):
+    """Attach a declared SlotSpec to a registered op type (reference
+    :100); a second call replaces the first."""
+    info = get_op_info(type)
+    info.slots = SlotSpec(inputs=dict(inputs or {}),
+                          outputs=dict(outputs or {}))
+    return info.slots
 
 
 def get_op_info(type) -> OpInfo:
@@ -73,6 +102,39 @@ def get_op_info(type) -> OpInfo:
         raise KeyError(f"op {type!r} is not registered "
                        f"({len(_REGISTRY)} ops available)")
     return info
+
+
+def has_op(type) -> bool:
+    return type in _REGISTRY
+
+
+def registered_ops():
+    return sorted(_REGISTRY)
+
+
+# ---- dispatch coverage (PDTPU_OP_COVERAGE=/path, reference :129-146) ----
+# Op types that reach execution (the executor's op loop), appended one name
+# per line; append mode merges processes. The executor records an op after
+# its forward returns: graph building and append_backward look ops up too,
+# so recording in get_op_info would overstate coverage.
+
+_COVERAGE_PATH = os.environ.get("PDTPU_OP_COVERAGE")
+_SEEN: set = set()
+
+
+def dispatch_coverage_enabled():
+    return bool(_COVERAGE_PATH)
+
+
+def record_dispatch(type):
+    if type in _SEEN:
+        return
+    try:
+        with open(_COVERAGE_PATH, "a") as f:
+            f.write(type + "\n")
+    except OSError:
+        return  # retried on the next dispatch: _SEEN only after success
+    _SEEN.add(type)
 
 
 # ---- common infer_shape helpers ----

@@ -1,8 +1,8 @@
 """paddle_tpu_torch.fluid — the user API ported so far (counterpart of
 paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
 initializer, io, fuse_conv_bn, backward, optimizer, regularizer, clip,
-DataFeeder, average, places, Scope, flags, amp_guard and the LoD feed
-helpers."""
+DataFeeder, average, places, Scope, flags, amp_guard, the program verifier
+and lint (``analysis``) and the LoD feed helpers."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -16,6 +16,9 @@ from ..core.scope import Scope, global_scope
 from ..core.lod import (LoDArray, pack_sequences, flat_to_lodarray,
                         lodarray_to_flat)
 from .. import ops as _ops  # noqa: F401  (registers all op lowerings)
+
+from . import analysis  # static analysis (also installs the SlotSpec catalogue)
+from .analysis import ProgramVerifyError, lint_program, verify_program
 
 from . import layers
 from . import initializer
@@ -39,5 +42,6 @@ __all__ = [
     "optimizer", "regularizer", "clip", "average", "DataFeeder",
     "append_backward", "ParamAttr", "fuse_conv_bn",
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
-    "amp_guard",
+    "amp_guard", "analysis", "ProgramVerifyError", "lint_program",
+    "verify_program",
 ]

@@ -6,10 +6,8 @@ grad op specs (``core.registry.OpInfo.grad``), zero-fill output grads a grad
 op reads but nothing produced (``fill_zeros_like``), rename-and-sum repeated
 grads, and prune ops that do not reach the loss. The grad ops are appended
 to the same block, so one ``Executor.run`` runs forward, backward and the
-optimizer ops after them.
-
-The reference re-verifies the program with its verifier (fluid/analysis,
-backward.py:185-186); the verifier is not ported yet.
+optimizer ops after them. Under the ``verify_passes`` flag the result is
+re-verified (fluid/analysis, as reference backward.py:185-186).
 """
 
 from __future__ import annotations
@@ -140,8 +138,14 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
     else:
         params = [p for p in program.global_block().all_parameters()
                   if p.trainable]
-    return [(p, block.var(grad_var_name(p.name))) for p in params
-            if grad_var_name(p.name) in produced]
+    result = [(p, block.var(grad_var_name(p.name))) for p in params
+              if grad_var_name(p.name) in produced]
+
+    # verify_passes: the appended-grad program must still be structurally
+    # valid (raises ProgramVerifyError naming this pass)
+    from .analysis import verify_pass_output
+    verify_pass_output(program, "append_backward")
+    return result
 
 
 __all__ = ["append_backward"]

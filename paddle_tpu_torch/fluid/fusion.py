@@ -6,10 +6,9 @@ chain in a program's global block into ONE ``fused_conv2d_bn`` op
 chain per dispatch. Eligibility is purely structural: the conv feeds the
 batch_norm's X directly, the intermediate has no other consumer, and conv
 ``data_format`` equals bn ``data_layout``. Kernel-size/stride eligibility is
-decided at dispatch by the kernel's ``supported()``.
-
-The reference re-verifies the rewritten program with its program verifier
-(fluid/analysis); the verifier is not ported yet.
+decided at dispatch by the kernel's ``supported()``. Under the
+``verify_passes`` flag the rewritten program is re-verified
+(fluid/analysis, as reference fusion.py:91-92).
 """
 
 from __future__ import annotations
@@ -77,6 +76,10 @@ def fuse_conv_bn(program):
     if fused:
         block.ops[:] = new_ops
         program._bump_version()
+        # verify_passes: some op still reading the removed conv
+        # intermediate is a PTL003/PTL004 find here
+        from .analysis import verify_pass_output
+        verify_pass_output(program, "fuse_conv_bn")
     return fused
 
 

@@ -6,8 +6,9 @@ form plus the feed/fetch names, each persistable is one ``.npy`` file, and
 ``MANIFEST.json`` (written last, atomically) names every saved var with its
 shape and dtype. A bundle written by either package loads in the other.
 
-The reference also runs its program verifier (fluid/analysis) on save and
-load; the verifier is not ported yet.
+The program verifier (fluid/analysis) checks the pruned program on save
+under the ``verify_passes`` flag, and every loaded ``__model__``
+unconditionally, before any persistable is read.
 """
 
 from __future__ import annotations
@@ -162,6 +163,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     program = main_program or default_main_program()
     fetch_names = [v if isinstance(v, str) else v.name for v in target_vars]
     pruned = _prune_program(program, feeded_var_names, fetch_names)
+    # verify_passes: the pruned program must still compute the fetches from
+    # the feeds (an over-eager prune is a PTL004/PTL010 find here, not a
+    # corrupt bundle found at serving load)
+    from .analysis import verify_pass_output
+    verify_pass_output(pruned, "save_inference_model",
+                       feed_names=feeded_var_names, fetch_names=fetch_names)
     os.makedirs(dirname, exist_ok=True)
     meta = pruned.to_dict()
     meta["feed_var_names"] = list(feeded_var_names)
@@ -174,7 +181,8 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
 
 def load_inference_model(dirname, executor, scope=None):
     """Load a ``save_inference_model`` bundle (reference io.py:191). A
-    missing or corrupt model dir raises a ValueError naming the dirname."""
+    missing, unreadable or structurally invalid ``__model__`` raises a
+    ValueError naming the dirname, before any persistable is read."""
     path = os.path.join(dirname, MODEL_FILENAME)
     try:
         with open(path) as f:
@@ -189,6 +197,20 @@ def load_inference_model(dirname, executor, scope=None):
             f"{MODEL_FILENAME!r} ({type(e).__name__}: {e}); re-export the "
             "model with save_inference_model") from e
     program = Program.from_dict(meta)
+    # unconditional: a bundle passes through filesystems and registries
+    # between export and load; the verifier catches a __model__ that is
+    # valid JSON but not a valid program (a hand edit, an op this package
+    # does not know, a truncated var list). Once per load.
+    from .analysis import ProgramVerifyError, verify_program
+    try:
+        verify_program(program, feed_names=meta["feed_var_names"],
+                       fetch_names=meta["fetch_var_names"],
+                       pass_name="load_inference_model")
+    except ProgramVerifyError as e:
+        raise ValueError(
+            f"load_inference_model: {dirname!r} holds a structurally "
+            f"invalid {MODEL_FILENAME!r} (re-export the model with "
+            f"save_inference_model):\n{e}") from e
     load_persistables(executor, dirname, program, scope=scope)
     feed_names = meta["feed_var_names"]
     fetch_vars = [program.global_block().var(n)

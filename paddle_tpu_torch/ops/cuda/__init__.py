@@ -24,7 +24,9 @@ backwards), ``ctc`` (``ctc.py``: ctc_alpha and ctc_loss_bwd) and
 ragged attention through the paged KV arena).
 
 Routing contract: a shape outside a kernel's ``supported()`` set is routed
-to the plain op chain by design and counted in :func:`fallback_counts`. A
+to the plain op chain by design and counted in :func:`fallback_counts`, on
+the obs.metrics family the reference counts its Pallas fallbacks in
+(``paddle_tpu_pallas_fallbacks``; the name kept for scrape parity). A
 supported shape on a CUDA tensor launches the kernel or raises — there is no
 silent fallback after a failed build or launch.
 """
@@ -32,12 +34,17 @@ silent fallback after a failed build or launch.
 from __future__ import annotations
 
 from ...core.flags import get_flag
+from ...obs.metrics import REGISTRY as _METRICS
 
 _TIERS = ("auto", "cuda", "torch")
 
-# kernel family -> number of supported=False dispatches routed to the plain
-# op chain under a tier that wanted the kernel
-_FALLBACKS: dict[str, int] = {}
+# per kernel family: supported=False dispatches routed to the plain op chain
+# under a tier that wanted the kernel
+_M_FALLBACKS = _METRICS.counter(
+    "paddle_tpu_pallas_fallbacks",
+    "unsupported shapes routed from the kernel tier to the plain op chain, "
+    "per kernel family (the reference's family name)",
+    labels=("kernel",))
 
 
 def _tier():
@@ -63,7 +70,7 @@ def use_kernel(kernel, supported, device):
     if resolve_tier(device) != "cuda":
         return False
     if not supported:
-        _FALLBACKS[kernel] = _FALLBACKS.get(kernel, 0) + 1
+        _M_FALLBACKS.labels(kernel=kernel).inc()
         return False
     return True
 
@@ -71,11 +78,16 @@ def use_kernel(kernel, supported, device):
 def fallback_counts():
     """{kernel: unsupported shapes routed to the plain op chain}; kernels
     with zero fallbacks are omitted."""
-    return {k: n for k, n in _FALLBACKS.items() if n}
+    out = {}
+    for key, child in _M_FALLBACKS.children().items():
+        n = int(child.value)
+        if n:
+            out[key[0]] = n
+    return out
 
 
 def reset_fallback_counts():
-    _FALLBACKS.clear()
+    _M_FALLBACKS.reset()
 
 
 __all__ = ["resolve_tier", "use_kernel", "fallback_counts",

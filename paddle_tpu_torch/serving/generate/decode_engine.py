@@ -24,13 +24,15 @@ its serving phases, each a clone with every attention site rewritten:
   in-flight sequences share it through their block tables and context
   lengths; idle slots ride along masked (sentinel slot, length 0).
 
-PyTorch runs the phase programs eagerly, so nothing compiles: where the
-reference counts jit compiles and trace-cache hits per (phase, bucket),
-this engine counts dispatches, and :meth:`warmup` runs each (phase,
-bucket) once with inert feeds (every kernel built and launched before
-the first request). The phase ops update the arena in place; with
-``donate_arena=False`` the engine feeds clones of the arena instead and
-keeps the updated clones, which gives the same token streams.
+PyTorch runs the phase programs eagerly, so nothing compiles: the
+reference's per-(phase, bucket) compile and trace-cache-hit counters
+(``paddle_tpu_genengine_compiles`` / ``_hits`` on obs.metrics) count a
+(phase, bucket)'s first dispatch and its later ones here, and
+:meth:`warmup` runs each (phase, bucket) once with inert feeds (every
+kernel built and launched before the first request). The phase ops
+update the arena in place; with ``donate_arena=False`` the engine feeds
+clones of the arena instead and keeps the updated clones, which gives the
+same token streams.
 
 Sampling is host-side and per sequence — greedy argmax, top-k (own
 ``numpy.RandomState`` seeded per request), or beam search riding the
@@ -40,12 +42,10 @@ row-independent and sampling state is per sequence, a sequence's token
 stream is the same whether it decodes alone or joins a running batch.
 
 Not ported (see ROADMAP): the compiled-executable cache (``execcache``),
-the KV spill tier (``kvstore``), the obs.perf compile sites, the
-autotuner's ``attach_for_bundle`` and the program verifier's check of
-each rewrite. The hot-recompile alarm is the reference's registry
-counter; the per-phase dispatch counts and the TTFT/TPOT samples are
-plain per-instance counters and sample lists (their move onto the
-registry is listed in ROADMAP).
+the KV spill tier (``kvstore``), the obs.perf compile sites and the
+autotuner's ``attach_for_bundle``. Telemetry lives on the obs.metrics
+registry, as the reference's does: the compile/hit counters, the
+hot-recompile alarm and the per-request TTFT/TPOT histograms.
 """
 
 from __future__ import annotations
@@ -67,10 +67,35 @@ from ...ops.cuda import paged_attention as _pa
 from ..engine import parse_buckets
 from .kvcache import CacheExhausted, PagedKVCache
 
+_M_COMPILES = _METRICS.counter(
+    "paddle_tpu_genengine_compiles",
+    "GenerationEngine first dispatches of a (phase, bucket): where the "
+    "reference compiles an executable, per instance/phase/bucket",
+    labels=("instance", "phase", "bucket"))
+_M_HITS = _METRICS.counter(
+    "paddle_tpu_genengine_hits",
+    "GenerationEngine later dispatches of a (phase, bucket): the "
+    "reference's trace-cache hits, per instance/phase/bucket",
+    labels=("instance", "phase", "bucket"))
 _M_HOT = _METRICS.counter(
     "paddle_tpu_genengine_hot_recompiles",
     "generation compiles observed AFTER warmup (the no-recompile alarm)",
     labels=("instance",))
+# per-request serving quantities: TTFT (submit -> first actual token,
+# stamped by the scheduler, which owns the submit clock; a request aborted
+# before its first token discards its probe) and TPOT (mean time per
+# output token after the first, recorded once at stream end for requests
+# that emitted >= 2 tokens)
+_M_TTFT = _METRICS.histogram(
+    "paddle_tpu_genengine_ttft_seconds",
+    "time to first token per generation request (submit -> first actual "
+    "token), per engine instance", labels=("instance",),
+    span_name="serving/ttft", span_kind="stage")
+_M_TPOT = _METRICS.histogram(
+    "paddle_tpu_genengine_tpot_seconds",
+    "mean time per output token after the first, recorded once per "
+    "finished stream that emitted >= 2 tokens, per engine instance",
+    labels=("instance",), span_name="serving/tpot", span_kind="stage")
 
 ATTENTION_OP = "causal_self_attention"
 _SLOTS = "__kv_slots__"
@@ -83,30 +108,6 @@ class NoFreeSlots(RuntimeError):
     """All ``max_seqs`` decode slots are occupied: the admission-control
     twin of :class:`CacheExhausted` for the slot dimension. The scheduler
     keeps the request queued until a sequence finishes."""
-
-
-class Samples:
-    """Per-request latency samples (seconds) with the reference
-    histogram's snapshot keys: count, p50_ms, p99_ms, max_ms."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.values = []
-
-    def observe(self, seconds):
-        with self._lock:
-            self.values.append(float(seconds))
-
-    def snapshot(self):
-        with self._lock:
-            v = np.asarray(self.values, np.float64) * 1e3
-        out = {"count": int(v.size), "p50_ms": 0.0, "p99_ms": 0.0,
-               "max_ms": 0.0}
-        if v.size:
-            out.update(p50_ms=float(np.percentile(v, 50)),
-                       p99_ms=float(np.percentile(v, 99)),
-                       max_ms=float(v.max()))
-        return out
 
 
 def _kv_name(kind, layer):
@@ -279,15 +280,18 @@ class GenerationEngine:
         self._next_seq_id = 0
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
-        self._dispatches = {"prefill": {}, "chunk": {}, "decode": {}}
         self._beam_programs = {}
-        # per-request TTFT/TPOT samples: the scheduler (which owns the
-        # submit clock) records into these
-        self.ttft = Samples()
-        self.tpot = Samples()
         self._warmed = False
+        # per-(phase, bucket) (compiles, hits) children on obs.metrics
+        # under this engine's instance label; stats() derives its phases
+        # dict from them
         self.obs_instance = next_instance("genengine")
+        self._phase = {"prefill": {}, "chunk": {}, "decode": {}}
         self._m_hot = _M_HOT.labels(instance=self.obs_instance)
+        # per-request TTFT/TPOT histograms: the scheduler (which owns the
+        # submit clock) records into these; stats() snapshots them
+        self.ttft = _M_TTFT.labels(instance=self.obs_instance)
+        self.tpot = _M_TPOT.labels(instance=self.obs_instance)
 
     @property
     def device(self):
@@ -358,6 +362,12 @@ class GenerationEngine:
             block.ops[i] = Operator(block, phase_op, inputs, outputs,
                                     dict(op.attrs))
             layer += 1
+        # verify_passes: the per-phase rewrite is a transform pass like any
+        # other; a mis-wired arena var fails here naming the phase
+        from ...fluid.analysis import verify_pass_output
+        verify_pass_output(
+            p, f"GenerationEngine._rewrite({phase_op})",
+            feed_names=list(self._feed_names))
         return p
 
     # ------------------------------------------------------------------
@@ -381,12 +391,20 @@ class GenerationEngine:
 
     def _dispatch(self, program, feed, phase, bucket):
         with self._stats_lock:
-            per = self._dispatches[phase]
-            if bucket not in per and self._warmed:
-                # a (phase, bucket) first dispatched after warmup: where
-                # the reference counts a hot recompile
-                self._m_hot.inc()
-            per[bucket] = per.get(bucket, 0) + 1
+            per = self._phase[phase].get(bucket)
+            if per is None:
+                per = self._phase[phase][bucket] = (
+                    _M_COMPILES.labels(instance=self.obs_instance,
+                                       phase=phase, bucket=str(bucket)),
+                    _M_HITS.labels(instance=self.obs_instance,
+                                   phase=phase, bucket=str(bucket)))
+                per[0].inc()
+                if self._warmed:
+                    # a (phase, bucket) first dispatched after warmup:
+                    # where the reference counts a hot recompile
+                    self._m_hot.inc()
+            else:
+                per[1].inc()
         outs = self._exe.run(program, feed=feed, fetch_list=self._gen_fetch(),
                              scope=self._scope, return_numpy=False)
         for l in range(self.num_layers):
@@ -891,8 +909,9 @@ class GenerationEngine:
         paged-attention launches and fallbacks, TTFT/TPOT summaries and
         the memory section."""
         with self._stats_lock:
-            phases = {ph: {b: {"dispatches": n} for b, n in per.items()}
-                      for ph, per in self._dispatches.items()}
+            phases = {ph: {b: {"dispatches": int(c.value) + int(h.value)}
+                           for b, (c, h) in per.items()}
+                      for ph, per in self._phase.items()}
         return {
             "phases": phases,
             "dispatches": sum(s["dispatches"] for per in phases.values()
@@ -915,5 +934,4 @@ class GenerationEngine:
         }
 
 
-__all__ = ["GenerationEngine", "NoFreeSlots", "normalize_sampling",
-           "Samples"]
+__all__ = ["GenerationEngine", "NoFreeSlots", "normalize_sampling"]

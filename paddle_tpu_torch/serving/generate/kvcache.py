@@ -40,7 +40,9 @@ The arena tensors (``self.k[l]`` / ``self.v[l]``) are written in place by
 the phase ops (ops/attention_ops.py) the engine dispatches; this class
 owns the host-side accounting (free list, refcounts, tables,
 reservations, the prefix-hash index) and the device block copies COW
-needs. The reference's obs.metrics counters are plain integers here.
+needs. Its counters and gauges are the reference's obs.metrics families
+(``paddle_tpu_kvcache_*``, per cache instance); the attributes and
+``stats()`` read them.
 """
 
 from __future__ import annotations
@@ -53,6 +55,38 @@ import torch
 
 from ...core.executor import resolve_device
 from ...core.flags import get_flag
+from ...obs.metrics import REGISTRY as _METRICS, next_instance
+
+_M_BLOCKS_IN_USE = _METRICS.gauge(
+    "paddle_tpu_kvcache_blocks_in_use",
+    "KV arena blocks currently allocated, per cache instance",
+    labels=("instance",))
+_M_REJECTS = _METRICS.counter(
+    "paddle_tpu_kvcache_rejects",
+    "CacheExhausted rejections (admission, budget, COW overdraw), "
+    "per cache instance", labels=("instance",))
+_M_COW = _METRICS.counter(
+    "paddle_tpu_kvcache_cow_copies",
+    "copy-on-write block copies taken by beam forks, per cache instance",
+    labels=("instance",))
+_M_PREFIX_HITS = _METRICS.counter(
+    "paddle_tpu_kvcache_prefix_hits",
+    "prompt blocks attached from the shared-prefix cache instead of "
+    "being re-prefilled, per cache instance", labels=("instance",))
+_M_PREFIX_MISSES = _METRICS.counter(
+    "paddle_tpu_kvcache_prefix_misses",
+    "admissions whose prompt had cacheable full blocks beyond the "
+    "matched chain (the walk stopped on an unregistered hash), per "
+    "cache instance", labels=("instance",))
+_M_PREFIX_EVICTIONS = _METRICS.counter(
+    "paddle_tpu_kvcache_prefix_evictions",
+    "cached prefix blocks evicted (LRU: pool over budget or admission "
+    "pressure), per cache instance", labels=("instance",))
+_M_BLOCKS_CACHED = _METRICS.gauge(
+    "paddle_tpu_kvcache_blocks_cached",
+    "blocks currently registered in the shared-prefix hash index "
+    "(live-referenced + evictable), per cache instance",
+    labels=("instance",))
 
 
 class CacheExhausted(RuntimeError):
@@ -105,11 +139,17 @@ class PagedKVCache:
         # refcount-0 registered blocks, insertion order = LRU (oldest
         # first)
         self._evictable = OrderedDict()
-        self.cow_copies = 0
-        self.exhausted_rejects = 0
-        self.prefix_hits = 0
-        self.prefix_misses = 0
-        self.prefix_evictions = 0
+        self.obs_instance = next_instance("kvcache")
+        labels = dict(instance=self.obs_instance)
+        self._m_in_use = _M_BLOCKS_IN_USE.labels(**labels)
+        self._m_rejects = _M_REJECTS.labels(**labels)
+        self._m_cow = _M_COW.labels(**labels)
+        self._m_prefix_hits = _M_PREFIX_HITS.labels(**labels)
+        self._m_prefix_misses = _M_PREFIX_MISSES.labels(**labels)
+        self._m_prefix_evictions = _M_PREFIX_EVICTIONS.labels(**labels)
+        self._m_blocks_cached = _M_BLOCKS_CACHED.labels(**labels)
+        self._m_in_use.set(0)
+        self._m_blocks_cached.set(0)
 
     # ------------------------------------------------------------------
     @property
@@ -138,7 +178,7 @@ class PagedKVCache:
         need = self.blocks_for(max_total_len) + int(cow_headroom)
         free_uncommitted = self.available_blocks()
         if need > free_uncommitted:
-            self.exhausted_rejects += 1
+            self._m_rejects.inc()
             raise CacheExhausted(
                 f"KV arena exhausted: sequence needs {need} blocks "
                 f"(max_total_len={max_total_len}, block_size="
@@ -162,12 +202,13 @@ class PagedKVCache:
             # block (refcount 0: live blocks are never in the pool)
             self._evict_lru()
         if not self._free:
-            self.exhausted_rejects += 1
+            self._m_rejects.inc()
             raise CacheExhausted(
                 "KV arena free list empty (copy-on-write overdraw?); "
                 "admit beam sequences with cow_headroom >= 1")
         b = self._free.pop()
         self._ref[b] = 1
+        self._m_in_use.set(self.num_blocks - len(self._free))
         return b
 
     # ------------------------------------------------------------------
@@ -206,14 +247,14 @@ class PagedKVCache:
         for h in self._chain_hashes(tokens, n):
             b = self._hash_to_block.get(h)
             if b is None:
-                self.prefix_misses += 1
+                self._m_prefix_misses.inc()
                 break
             if self._ref[b] == 0:
                 self._evictable.pop(b)
             self._ref[b] += 1
             table.append(b)
             matched += 1
-            self.prefix_hits += 1
+            self._m_prefix_hits.inc()
         self._lens[seq_id] = matched * self.block_size
         return matched * self.block_size
 
@@ -238,6 +279,8 @@ class PagedKVCache:
             self._hash_to_block[h] = b
             self._block_hash[b] = h
             new += 1
+        if new:
+            self._m_blocks_cached.set(len(self._block_hash))
         return new
 
     def _evict_lru(self):
@@ -245,7 +288,8 @@ class PagedKVCache:
         h = self._block_hash.pop(b)
         del self._hash_to_block[h]
         self._free.append(b)
-        self.prefix_evictions += 1
+        self._m_prefix_evictions.inc()
+        self._m_blocks_cached.set(len(self._block_hash))
 
     # ------------------------------------------------------------------
     def append_slots(self, seq_id, n=1):
@@ -256,7 +300,7 @@ class PagedKVCache:
         table = self._tables[seq_id]
         pos = self._lens[seq_id]
         if pos + n > self._promised[seq_id] * self.block_size:
-            self.exhausted_rejects += 1
+            self._m_rejects.inc()
             raise CacheExhausted(
                 f"sequence {seq_id!r} exceeds its admitted budget "
                 f"({self._promised[seq_id]} blocks) at position {pos + n}")
@@ -281,7 +325,7 @@ class PagedKVCache:
             for a in arena:
                 a[nb].copy_(a[block])
         self._ref[block] -= 1
-        self.cow_copies += 1
+        self._m_cow.inc()
         return nb
 
     # ------------------------------------------------------------------
@@ -340,6 +384,7 @@ class PagedKVCache:
             self._evictable.move_to_end(b)
         while len(self._evictable) > self.prefix_cache_blocks:
             self._evict_lru()
+        self._m_in_use.set(self.num_blocks - len(self._free))
 
     def release(self, seq_id):
         """Finish a sequence: recycle its blocks (refcounted) and return
@@ -351,6 +396,28 @@ class PagedKVCache:
         self._promised_total -= self._promised.pop(seq_id)
 
     # ------------------------------------------------------------------
+    @property
+    def cow_copies(self):
+        return int(self._m_cow.value)
+
+    @property
+    def exhausted_rejects(self):
+        """CacheExhausted rejections: admission, per-sequence budget and
+        COW overdraw alike."""
+        return int(self._m_rejects.value)
+
+    @property
+    def prefix_hits(self):
+        return int(self._m_prefix_hits.value)
+
+    @property
+    def prefix_misses(self):
+        return int(self._m_prefix_misses.value)
+
+    @property
+    def prefix_evictions(self):
+        return int(self._m_prefix_evictions.value)
+
     def stats(self):
         return {
             "num_blocks": self.num_blocks,

@@ -27,8 +27,9 @@ submit to the first actual token, stamped once into ``engine.ttft`` (a
 request that ends before its first token discards its probe and is
 counted); TPOT, the mean time per token after the first, is recorded once
 at stream end into ``engine.tpot`` for streams of at least 2 tokens. The
-reference's obs.metrics counters and flight-recorder events are plain
-counters here.
+request and overload counters are the reference's obs.metrics families
+(``paddle_tpu_genbatcher_requests`` / ``_rejected``), and an overload
+reject and every stream's end write flight-recorder events.
 """
 
 from __future__ import annotations
@@ -39,8 +40,19 @@ import time
 from collections import deque
 
 from ...core.flags import get_flag
+from ...obs.metrics import REGISTRY as _METRICS, next_instance
+from ...obs.recorder import record as _flight_record
 from ..batcher import ServerOverloaded
 from .decode_engine import CacheExhausted, NoFreeSlots, normalize_sampling
+
+_GEN_REQUESTS = _METRICS.counter(
+    "paddle_tpu_genbatcher_requests",
+    "generation requests submitted to a ContinuousBatcher, per instance",
+    labels=("instance",))
+_GEN_REJECTED = _METRICS.counter(
+    "paddle_tpu_genbatcher_rejected",
+    "generation requests rejected with ServerOverloaded (wait queue "
+    "full), per instance", labels=("instance",))
 
 
 class _Cancelled(Exception):
@@ -149,8 +161,11 @@ class ContinuousBatcher:
         self._cv = threading.Condition()
         self._closed = False
         self._handles = {}            # stream -> engine handle
-        self._n_requests = 0
-        self._n_rejected = 0
+        # request/overload counters on obs.metrics (stats() derives from
+        # them); step/token counts stay local (under _cv)
+        self.obs_instance = next_instance("genbatcher")
+        self._m_requests = _GEN_REQUESTS.labels(instance=self.obs_instance)
+        self._m_rejected = _GEN_REJECTED.labels(instance=self.obs_instance)
         self._n_steps = 0
         self._n_tokens = 0
         self._n_ttft_discarded = 0
@@ -169,9 +184,13 @@ class ContinuousBatcher:
         with self._cv:
             if self._closed:
                 raise RuntimeError("ContinuousBatcher is closed")
-            self._n_requests += 1
+            self._m_requests.inc()
             if len(self._pending) >= self.capacity:
-                self._n_rejected += 1
+                self._m_rejected.inc()
+                _flight_record("overload_reject",
+                               component=self.obs_instance,
+                               queue_depth=len(self._pending),
+                               capacity=self.capacity)
                 raise ServerOverloaded(
                     f"generation queue full ({self.capacity} requests "
                     "waiting); back off and retry")
@@ -202,19 +221,26 @@ class ContinuousBatcher:
         stream._ntokens += len(tokens)
         self._n_tokens += len(tokens)
 
-    def _finalize_stream_locked(self, stream):
-        """Resolve a stream's probes once, however it ends: an unstamped
-        TTFT probe is discarded (counted, never recorded); TPOT records
-        once for streams that emitted >= 2 tokens."""
+    def _finalize_stream_locked(self, stream, reason):
+        """Resolve a stream's probes once, however it ends (``reason``:
+        finished, cancelled, worker_error): an unstamped TTFT probe is
+        discarded (counted, never recorded); TPOT records once for streams
+        that emitted >= 2 tokens. Either way a ``gen_finish`` flight event
+        is written."""
         if not stream._resolved:
             stream._resolved = True
             self._n_ttft_discarded += 1
+            _flight_record("gen_finish", component=self.obs_instance,
+                           reason=reason, tokens=0, ttft_discarded=True)
             return
         if not stream._tpot_done and stream._ntokens >= 2:
             stream._tpot_done = True
             self.engine.tpot.observe(
                 (stream._last_emit_t - stream._first_emit_t)
                 / (stream._ntokens - 1))
+        _flight_record("gen_finish", component=self.obs_instance,
+                       reason=reason, tokens=stream._ntokens,
+                       ttft_ms=round(stream.first_token_s * 1e3, 3))
 
     # ------------------------------------------------------------------
     def _run(self):
@@ -236,7 +262,7 @@ class ContinuousBatcher:
                 with self._cv:
                     for stream, handle in list(self._handles.items()):
                         self.engine.abort(handle)
-                        self._finalize_stream_locked(stream)
+                        self._finalize_stream_locked(stream, "worker_error")
                         stream._finish(e)
                     self._handles.clear()
                 continue
@@ -249,7 +275,7 @@ class ContinuousBatcher:
             handle = self._handles.pop(stream, None)
             if handle is not None:
                 self.engine.abort(handle)
-                self._finalize_stream_locked(stream)
+                self._finalize_stream_locked(stream, "cancelled")
             else:
                 # not started yet: drop it from the wait queue
                 for req in list(self._pending):
@@ -282,7 +308,7 @@ class ContinuousBatcher:
             self._note_emit_locked(req.stream, first)
             req.stream._emit(first)
             if finished:
-                self._finalize_stream_locked(req.stream)
+                self._finalize_stream_locked(req.stream, "finished")
                 req.stream._finish()
             else:
                 handle.user_data = req.stream
@@ -299,7 +325,7 @@ class ContinuousBatcher:
             stream._emit(tokens)
             if finished:
                 del self._handles[stream]
-                self._finalize_stream_locked(stream)
+                self._finalize_stream_locked(stream, "finished")
                 stream._finish()
 
     # ------------------------------------------------------------------
@@ -357,8 +383,8 @@ class ContinuousBatcher:
                 "capacity": self.capacity,
                 "continuous": self.continuous,
                 "in_flight": len(self._handles),
-                "requests": self._n_requests,
-                "rejected": self._n_rejected,
+                "requests": int(self._m_requests.value),
+                "rejected": int(self._m_rejected.value),
                 "steps": self._n_steps,
                 "tokens_emitted": self._n_tokens,
                 "ttft_discarded": self._n_ttft_discarded,

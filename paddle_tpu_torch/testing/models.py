@@ -13,6 +13,10 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``ngram_lm``: the word2vec N-gram language model of
   tests/book/test_word2vec.py (context words looking up one shared table
   -> concat -> fc(sigmoid) -> fc(softmax over the vocabulary)).
+* ``build_mlp`` / ``build_convnet_slice`` (with ``mlp_feed`` /
+  ``convnet_feed``): the reference's small training programs
+  (paddle_tpu/testing/models.py:18, :52), an fc stack and a conv+BN
+  residual slice, each with softmax_with_cross_entropy and an optimizer;
 * ``build_tiny_lm`` / ``export_tiny_lm``: the decoder-only LM the
   generation engine serves (paddle_tpu/testing/models.py:129, :165), with
   the reference's defaults, op order and parameter names.
@@ -23,6 +27,8 @@ is how the tests build the reference package's twin of a port program.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def _conv_bn_layer(layers, input, num_filters, filter_size, stride=1,
@@ -128,6 +134,98 @@ def ngram_lm(words, dict_size, emb=32, hidden=256, is_sparse=True,
     concat = layers.concat(input=embs, axis=1)
     hidden1 = layers.fc(input=concat, size=hidden, act="sigmoid")
     return layers.fc(input=hidden1, size=dict_size, act="softmax")
+
+
+def build_mlp(dim=16, classes=4, hidden=32, opt="momentum", lr=0.1, seed=7,
+              depth=1, return_logits=False):
+    """``depth`` relu fcs of width ``hidden`` over an ``img`` [dim] feed,
+    an fc to ``classes`` logits, mean softmax_with_cross_entropy against
+    an int64 ``label`` [1], and Momentum(lr, 0.9) (``opt="momentum"``) or
+    Adam(min(lr, 1e-2)). Returns (main, startup, loss) and the logits too
+    with ``return_logits``."""
+    from .. import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[dim])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        h = img
+        for _ in range(depth):
+            h = fluid.layers.fc(h, size=hidden, act="relu")
+        logits = fluid.layers.fc(h, size=classes, act=None)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        if opt == "momentum":
+            fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(
+                loss, startup)
+        else:
+            fluid.optimizer.Adam(learning_rate=min(lr, 1e-2)).minimize(
+                loss, startup)
+    if return_logits:
+        return main, startup, loss, logits
+    return main, startup, loss
+
+
+def mlp_feed(batch, dim=16, classes=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return {
+        "img": rng.normal(0, 1, (batch, dim)).astype("float32"),
+        "label": rng.randint(0, classes, (batch, 1)).astype("int64"),
+    }
+
+
+def build_convnet_slice(size=8, classes=4, nf=8, lr=0.05, seed=7,
+                        bottleneck=False):
+    """conv+BN NHWC + residual + pools + fc + momentum over an ``img``
+    [size, size, 3] feed. With ``bottleneck``, the stem / 1x1-3x3-1x1 /
+    projection structure of ``resnet``. Returns (main, startup, loss)."""
+    from .. import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+
+    def conv_bn(x, filters, k, stride=1, act="relu"):
+        c = fluid.layers.conv2d(x, num_filters=filters, filter_size=k,
+                                stride=stride, padding=(k - 1) // 2,
+                                bias_attr=False, data_format="NHWC")
+        return fluid.layers.batch_norm(c, act=act, data_layout="NHWC")
+
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[size, size, 3])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        if bottleneck:
+            stem = conv_bn(img, nf, 3, stride=2)
+            pool = fluid.layers.pool2d(stem, pool_size=3, pool_stride=2,
+                                       pool_padding=1, pool_type="max",
+                                       data_format="NHWC")
+            b = conv_bn(pool, nf // 2, 1)
+            b = conv_bn(b, nf // 2, 3)
+            b = conv_bn(b, nf * 2, 1, act=None)
+            short = conv_bn(pool, nf * 2, 1, act=None)
+            x = fluid.layers.elementwise_add(x=b, y=short, act="relu")
+        else:
+            c = conv_bn(img, nf, 3)
+            c2 = conv_bn(c, nf, 3, act=None)
+            x = fluid.layers.elementwise_add(x=c2, y=c, act="relu")
+            x = fluid.layers.pool2d(x, pool_size=2, pool_stride=2,
+                                    pool_type="avg", data_format="NHWC")
+        x = fluid.layers.pool2d(x, pool_size=2, global_pooling=True,
+                                pool_type="avg", data_format="NHWC")
+        logits = fluid.layers.fc(x, size=classes, act=None)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(
+            loss, startup)
+    return main, startup, loss
+
+
+def convnet_feed(batch, size=8, classes=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return {
+        "img": rng.normal(0, 1, (batch, size, size, 3)).astype("float32"),
+        "label": rng.randint(0, classes, (batch, 1)).astype("int64"),
+    }
 
 
 def build_tiny_lm(vocab=32, emb=16, heads=2, n_layers=2, max_pos=256,

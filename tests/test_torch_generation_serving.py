@@ -232,12 +232,17 @@ def test_reload_hands_the_wait_queue_to_the_new_engine(lm_bundle, tmp_path):
     finally:
         assert plain.shutdown()
     server = _gen_server(lm_bundle, gen_opts=dict(GEN_OPTS, max_seqs=1))
+    # the in-flight request must outlast the reload: each old-engine step
+    # waits 50 ms first, so its 12 tokens take >= 0.6 s however busy the
+    # host is (on a loaded host the reload lost that race now and then)
+    old_engine = server.engine
+    step = old_engine.step
+    old_engine.step = lambda: (time.sleep(0.05), step())[1]
     c1, c2 = GenClient(server.address), GenClient(server.address)
     out2 = []
     t2 = threading.Thread(target=lambda: out2.extend(c2.generate([4], 5)))
     g1 = c1.generate([1, 2], 12)
     try:
-        old_engine = server.engine
         first = next(g1)
         t2.start()
         assert _wait_until(
