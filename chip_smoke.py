@@ -6,7 +6,8 @@ ModelServer, and train three of those models with gradient clipping,
 weight decay and learning-rate schedules and the LSTM classifier with the
 six other optimizers, train ResNet-50 and the LSTM classifier under AMP,
 run the program verifier and the Executor's run_steps and per-op hooks
-on them, with the PyTorch/CUDA port on one GPU, and hold every
+on them, train and beam-decode the Seq2Seq NMT model through While and
+tensor arrays, with the PyTorch/CUDA port on one GPU, and hold every
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -249,6 +250,27 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               benchmark prints one line per op; obs_op_metrics counts 3
               steps of dispatches without a rebuild; one run()'s host time
               with a warm and a cold analysis cache.
+18. seq2seq — tests/book/test_machine_translation.py's encoder-decoder at
+              the book's chapter-8 widths (word vectors, encoder and
+              decoder 512, dictionaries of 30000), batch 64, sources of
+              10-50 words: 10 Adam steps on one batch on both routes, 1
+              launch each of lstm_seq, lstm_seq_bwd, gru_seq and
+              gru_seq_bwd a step and no LSTM or GRU fallback; each step's
+              loss against kernel_tier=torch within phase 8's limit, the
+              loss falling, the decoder's H0@GRAD (nonzero) against the
+              plain route; ms a step, peak memory and a profiled step.
+              Then a beam-3 decode of the 64 sources with the trained
+              weights through While, gru_unit, topk, beam_search,
+              batch_gather and beam_search_decode (max_length 50, cut
+              from the book's 250) on both routes: a 2-level LoD of 64
+              groups of 3 rows, every row starting with <s>, scores
+              falling within a group, the encoder output within the
+              recurrent forward's limits between the routes, the same ids
+              bitwise in two runs; the best beams' agreement between the
+              routes, ms a decode step and host syncs a loop iteration.
+              Then tests/test_recurrent_grad.py's While training loop and
+              DynamicRNN model, 3 steps on the card and on the CPU from one
+              state: losses and final state within 1e-5 relative.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -5973,6 +5995,480 @@ def phase_runtime(torch, fluid, seed, card, serving, gen):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: control flow and the Seq2Seq NMT model
+# ---------------------------------------------------------------------------
+
+# tests/book/test_machine_translation.py's attention-free encoder-decoder
+# at the widths of the PaddlePaddle book's chapter 8 (08.machine_translation,
+# v2 train.py): word vectors, encoder and decoder 512, source and target
+# dictionaries of 30000 (paddle_tpu/dataset/wmt14.py:132), beam 3; batch
+# 64, the recurrent kernels' supported() limit and the LSTM lane's batch.
+# Sources of 10-50 words drawn from the seed (12-52 tokens with <s>/<e>),
+# targets the same length plus <s>/<e>. One cut: the decoder's max_length
+# goes from the book's 250 to 50, to bound the phase's time. Adam at the
+# lanes' 2e-3 (phase 9's reasoning: at the book test's 0.01, which it takes
+# at hidden 48, a fixed batch's loss swings at these widths)
+NMT_DICT, NMT_EMB, NMT_HID, NMT_BEAM = 30000, 512, 512, 3
+NMT_BATCH, NMT_SRC, NMT_MAX_LEN, NMT_BOOK_MAX_LEN = 64, (10, 50), 50, 250
+NMT_STEPS, NMT_LR = 10, SEQ_LR
+# each step's loss, kernel route against kernel_tier=torch: the tolerance
+# phase 8 holds the GRU classifier's loss to (the decoder is a GRU); the
+# decoder's H0@GRAD against the plain route by phase 8's gradient limit in
+# ‖Δ‖₂ and gru_seq_bwd's ‖Δ‖∞ limit (phase 7), both relative to the plain
+# route's
+NMT_LOSS_LIMIT = GRU_TRAIN_LOSS_LIMIT
+NMT_DH0_LIMIT, NMT_DH0_L2_LIMIT = GRU_BWD_LIMIT, GRU_TRAIN_GRAD_LIMIT
+# the encoder's output between the routes: the recurrent forward's limits
+# (ROADMAP §C, phase 5)
+NMT_ENC_LIMIT, NMT_ENC_L2_LIMIT = LSTM_FWD_LIMIT, LSTM_FWD_L2_LIMIT
+# the While training loop and DynamicRNN model of tests/test_recurrent_grad
+# run on the card against the CPU from one state: float32 with TF32 off,
+# sums in other orders
+CF_STEPS, CF_REL = 3, 1e-5
+
+
+def nmt_triples(seed):
+    """NMT_BATCH synthetic triples at phase 18's widths: cores of
+    NMT_SRC[0]..NMT_SRC[1] words over the NMT_DICT-word dictionary."""
+    from paddle_tpu_torch.testing.models import nmt_pairs
+    return nmt_pairs(NMT_BATCH, seed + 18, NMT_DICT, min_len=NMT_SRC[0],
+                     max_len=NMT_SRC[1] + 1)
+
+
+def nmt_decode_feed(fluid, triples):
+    import numpy as np
+    init_scores = np.zeros((NMT_BATCH, NMT_BEAM), "float32")
+    init_scores[:, 1:] = -1e9
+    return {"src": fluid.pack_sequences([np.asarray(t[0], "int64")
+                                         .reshape(-1, 1) for t in triples]),
+            "init_ids": np.zeros((NMT_BATCH, NMT_BEAM), "int64"),
+            "init_scores": init_scores,
+            "state_seed": np.zeros((NMT_BATCH, NMT_BEAM, NMT_HID),
+                                   "float32")}
+
+
+def sync_counter(torch):
+    """A context counting the host syncs torch reports (sync debug mode
+    "warn") per tag: ``count[tag]`` for the tag set in ``where[0]``."""
+    import warnings
+    count, where = {}, [None]
+
+    @contextlib.contextmanager
+    def ctx():
+        shown = warnings.showwarning
+
+        def show(message, category, *a, **k):
+            if "synchroniz" in str(message):
+                count[where[0]] = count.get(where[0], 0) + 1
+            else:
+                shown(message, category, *a, **k)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                warnings.showwarning = shown
+
+    return ctx, count, where
+
+
+def phase_nmt_decode(torch, fluid, exe, trained, triples, card, problems):
+    """Beam-decode NMT_BATCH sources with the trained weights on both
+    routes through While, gru_unit, topk, beam_search, batch_gather and
+    beam_search_decode. Returns the decode's kernel launches."""
+    import numpy as np
+    from paddle_tpu_torch.ops import control_flow_ops as cfo
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing.models import (NMT_BOS,
+                                                 nmt_decode_program)
+
+    fluid.reset_unique_name()
+    main, _, sent_ids, sent_scores, enc = nmt_decode_program(
+        fluid, NMT_BATCH, NMT_DICT, NMT_DICT, NMT_EMB, NMT_HID, NMT_BEAM,
+        NMT_MAX_LEN)
+    feed = nmt_decode_feed(fluid, triples)
+    fetch = [enc, sent_ids, sent_scores]
+
+    def run(route, scope):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+
+    rnn.reset_launches()
+    tier.reset_fallback_counts()
+    (enc_k, ids_k, sc_k), ms_k = run("auto", copy_scope(fluid, torch,
+                                                       trained))
+    launches = dict(rnn.launches)
+    if (launches["lstm_seq"], launches["gru_seq"],
+            tier.fallback_counts().get("lstm", 0)) != (1, 0, 0):
+        problems.append(f"NMT decode, kernel route: launches {launches}, "
+                        f"fallbacks {tier.fallback_counts()}; want 1 "
+                        "lstm_seq (the encoder) and no GRU kernel (the "
+                        "decoder loop runs gru_unit)")
+    (enc_k2, ids_k2, sc_k2), ms_k2 = run("auto", copy_scope(fluid, torch,
+                                                           trained))
+    (enc_t, ids_t, sc_t), ms_t = run("torch", copy_scope(fluid, torch,
+                                                        trained))
+
+    flat, lod = fluid.lodarray_to_flat(ids_k)
+    scores = sc_k.cpu().numpy().reshape(NMT_BATCH, NMT_BEAM)
+    want_outer = list(range(0, NMT_BATCH * NMT_BEAM + 1, NMT_BEAM))
+    starts = [flat[a, 0] for a in lod[-1][:-1]] if len(lod) == 2 else []
+    if len(lod) != 2 or lod[0] != want_outer \
+            or len(lod[1]) != NMT_BATCH * NMT_BEAM + 1:
+        problems.append(f"NMT decode: the output is not a 2-level LoD of "
+                        f"{NMT_BATCH} groups of {NMT_BEAM} rows: "
+                        f"{[len(v) for v in lod]} levels' offsets")
+    if any(s != NMT_BOS for s in starts):
+        problems.append("NMT decode: a row does not start with <s>")
+    if not (np.isfinite(scores).all()
+            and (np.diff(scores, axis=1) <= 0).all()):
+        problems.append(f"NMT decode: scores do not fall within a group "
+                        f"(or are not finite): {scores[:2]}")
+    ek = enc_k.double()
+    et = enc_t.double()
+    d = ek - et
+    e_inf = (d.abs().max() / et.abs().max()).item()
+    e_l2 = (d.norm() / et.norm()).item()
+    log(f"encoder output (b {NMT_BATCH}, H {NMT_HID}), kernel route vs "
+        f"kernel_tier=torch: ‖Δ‖∞/‖ref‖∞ {e_inf:.3e} (limit "
+        f"{NMT_ENC_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {e_l2:.3e} (limit "
+        f"{NMT_ENC_L2_LIMIT:.0e})")
+    if not (e_inf <= NMT_ENC_LIMIT and e_l2 <= NMT_ENC_L2_LIMIT):
+        problems.append(f"NMT decode: the encoder outputs differ between "
+                        f"the routes by {e_inf:.3e} / {e_l2:.3e}")
+    same_enc = torch.equal(enc_k, enc_k2)
+    same_ids = torch.equal(ids_k.data, ids_k2.data) \
+        and torch.equal(ids_k.lens, ids_k2.lens) \
+        and torch.equal(sc_k, sc_k2)
+    log(f"two kernel-route decodes: encoder output bitwise {same_enc}, "
+        f"ids, lengths and scores bitwise {same_ids}")
+    if not same_enc:
+        problems.append("NMT decode: the encoder's output differs between "
+                        "two runs on the kernel route")
+    elif not same_ids:
+        problems.append("NMT decode: the same encoder output gave other "
+                        "ids or scores on a second run")
+    flat_t, lod_t = fluid.lodarray_to_flat(ids_t)
+
+    def best(fl, lo, i):
+        return fl[lo[-1][i * NMT_BEAM]:lo[-1][i * NMT_BEAM + 1], 0].tolist()
+
+    agree = sum(best(flat, lod, i) == best(flat_t, lod_t, i)
+                for i in range(NMT_BATCH)) if len(lod_t) == 2 else 0
+    lens = np.diff(lod[-1])
+    log(f"best beams equal between the routes: {agree}/{NMT_BATCH} "
+        f"({100 * agree / NMT_BATCH:.1f}%); kernel-route sentence lengths "
+        f"{int(lens.min())}..{int(lens.max())} tokens (max_length "
+        f"{NMT_MAX_LEN}, cut from the book's {NMT_BOOK_MAX_LEN})")
+
+    # host syncs a loop iteration makes: sync debug mode while the loop
+    # runs, counted inside and outside the while op
+    ctx, syncs, where = sync_counter(torch)
+    iters = [0]
+    real_loop = cfo._while_loop
+
+    def tagged_loop(sub, env_base, pre, carried, cond_name, max_iters,
+                    device):
+        where[0] = "loop"
+        try:
+            out = real_loop(sub, env_base, pre, carried, cond_name,
+                            max_iters, device)
+        finally:
+            where[0] = "outside"
+        return out
+
+    real_cond = cfo._cond_true
+
+    def counted_cond(v):
+        if where[0] == "loop":
+            iters[0] += 1
+        return real_cond(v)
+
+    cfo._while_loop, cfo._cond_true = tagged_loop, counted_cond
+    where[0] = "outside"
+    try:
+        with ctx():
+            run("auto", copy_scope(fluid, torch, trained))
+    finally:
+        cfo._while_loop, cfo._cond_true = real_loop, real_cond
+    n_iter = iters[0] - 1          # the last read ends the loop
+    per_iter = syncs.get("loop", 0) / max(n_iter, 1)
+    log(f"host syncs: {syncs.get('loop', 0)} inside the While over "
+        f"{n_iter} iterations ({per_iter:.2f} an iteration; the condition "
+        f"read is one by design: the loop decides on the host whether to "
+        f"run its block again), {syncs.get('outside', 0)} outside it")
+    log(f"decode of {NMT_BATCH} sources, {n_iter} steps: kernel route "
+        f"{ms_k:.1f} ms (again {ms_k2:.1f} ms), {ms_k2 / n_iter:.3f} ms a "
+        f"decode step; kernel_tier=torch {ms_t:.1f} ms, "
+        f"{ms_t / n_iter:.3f} ms a step | {card}")
+    return launches
+
+
+def cf_models(fluid, which):
+    """tests/test_recurrent_grad.py's While training loop (``while``) and
+    DynamicRNN model (``dynamic_rnn``) at that file's sizes, with their
+    feeds: (main, startup, loss, feed)."""
+    import numpy as np
+    layers = fluid.layers
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    if which == "while":
+        batch, T, feat, hid = 6, 4, 5, 3
+        main.random_seed = startup.random_seed = 11
+        with fluid.program_guard(main, startup):
+            x = layers.data("x", shape=[T, feat])
+            y = layers.data("y", shape=[hid])
+            pieces = layers.split(x, T, dim=1)
+            arr = None
+            for t in range(T):
+                it = layers.fill_constant(shape=[1], dtype="int64", value=t)
+                arr = layers.array_write(
+                    layers.reshape(pieces[t], [batch, feat]), it, array=arr,
+                    cap=T)
+            i = layers.fill_constant(shape=[1], dtype="int64", value=0)
+            limit = layers.fill_constant(shape=[1], dtype="int64", value=T)
+            acc = layers.fill_constant(shape=[batch, hid], dtype="float32",
+                                       value=0.0)
+            cond = layers.less_than(i, limit)
+            w = layers.While(cond, max_iters=T)
+            with w.block():
+                h = layers.fc(layers.array_read(arr, i), size=hid,
+                              act="tanh",
+                              param_attr=fluid.ParamAttr(name="ww"),
+                              bias_attr=fluid.ParamAttr(name="wb"))
+                layers.assign(layers.elementwise_add(acc, h), output=acc)
+                layers.increment(i, value=1)
+                layers.less_than(i, limit, cond=cond)
+            loss = layers.mean(layers.square(layers.elementwise_sub(acc,
+                                                                    y)))
+            fluid.optimizer.SGD(learning_rate=0.05).minimize(loss, startup)
+        rng = np.random.RandomState(7)
+        feed = {"x": rng.normal(0, 1, (batch, T, feat)).astype("float32"),
+                "y": rng.normal(0, 1, (batch, hid)).astype("float32")}
+        return main, startup, loss, feed
+    vocab, emb, hid = 12, 6, 5
+    main.random_seed = startup.random_seed = 9
+    with fluid.program_guard(main, startup):
+        words = layers.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = layers.data("label", shape=[1])
+        e = layers.embedding(words, size=[vocab, emb],
+                             param_attr=fluid.ParamAttr(name="empar"))
+        drnn = layers.DynamicRNN()
+        with drnn.block():
+            xt = drnn.step_input(e)
+            h = drnn.memory(shape=[6, hid], value=0.0)
+            nh = layers.fc(xt, size=hid, act="tanh",
+                           param_attr=fluid.ParamAttr(name="dw"),
+                           bias_attr=fluid.ParamAttr(name="db"))
+            h2 = layers.fc(h, size=hid, act=None, bias_attr=False,
+                           param_attr=fluid.ParamAttr(name="dh"))
+            nh = layers.tanh(layers.elementwise_add(nh, h2))
+            drnn.update_memory(h, nh)
+            drnn.output(nh)
+        pred = layers.fc(layers.sequence_pool(drnn(), pool_type="last"),
+                         size=1, act=None)
+        loss = layers.mean(layers.square(layers.elementwise_sub(pred,
+                                                                label)))
+        fluid.optimizer.Adam(learning_rate=0.02).minimize(loss, startup)
+    rng = np.random.RandomState(2)
+    seqs = [rng.randint(0, vocab, (int(rng.randint(2, 6)), 1)).astype(
+        "int64") for _ in range(6)]
+    return main, startup, loss, {
+        "words": seqs, "label": rng.normal(0, 1, (6, 1)).astype("float32")}
+
+
+def phase_control_flow(torch, fluid, card, problems):
+    """The While loop and DynamicRNN model, CF_STEPS steps on the card and
+    on the CPU from one startup state: the losses and the final state
+    within CF_REL relative."""
+    for which in ("while", "dynamic_rnn"):
+        main, startup, loss, feed = cf_models(fluid, which)
+        cpu = fluid.Executor(fluid.CPUPlace())
+        init = fluid.Scope()
+        cpu.run(startup, scope=init)
+        names = [n for n in init.local_names()
+                 if torch.is_tensor(init.find_var(n))]
+        gpu = fluid.Executor()
+        scopes = {}
+        for dev, device in (("cuda", gpu.device), ("cpu", cpu.device)):
+            s = fluid.Scope()
+            for n in names:
+                s.set(n, init.find_var(n).to(device))
+            scopes[dev] = s
+        losses = {}
+        for dev, exe in (("cuda", gpu), ("cpu", cpu)):
+            losses[dev] = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                         scope=scopes[dev])[0])
+                           for _ in range(CF_STEPS)]
+        dl = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                     losses["cpu"]))
+        worst, wname = 0.0, None
+        for n in names:
+            a = scopes["cuda"].find_var(n)
+            b = scopes["cpu"].find_var(n)
+            if not (torch.is_tensor(a) and a.is_floating_point()):
+                continue
+            if a.device != gpu.device:
+                problems.append(f"{which}: {n} left the card "
+                                f"({a.device})")
+            r = ((a.cpu().double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30)).item()
+            if r > worst:
+                worst, wname = r, n
+        log(f"{which} ({op_counts(main.global_block())}): "
+            f"{CF_STEPS} steps, card vs CPU from one state: losses "
+            + " ".join(f"{v:.6f}" for v in losses["cuda"])
+            + f", worst relative difference {dl:.3e}; final state worst "
+            f"{worst:.3e} ({wname}); limit {CF_REL:.0e} | {card}")
+        if not (dl <= CF_REL and worst <= CF_REL):
+            problems.append(f"{which}: the card and the CPU differ by "
+                            f"{dl:.3e} (losses) / {worst:.3e} ({wname})")
+
+
+def phase_seq2seq(torch, fluid, seed, card):
+    """Phase 18. Returns the launches of the four recurrent kernels on
+    this phase's path (training on the kernel route and the decode)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing.models import nmt_feed, nmt_train_program
+
+    log(f"\n== phase 18: Seq2Seq NMT (tests/book/test_machine_translation.py"
+        f" at the book's chapter-8 widths: word vectors {NMT_EMB}, encoder "
+        f"and decoder {NMT_HID}, dictionaries {NMT_DICT}, beam {NMT_BEAM}), "
+        f"batch {NMT_BATCH}, sources of {NMT_SRC[0]}-{NMT_SRC[1]} words, "
+        f"{NMT_STEPS} Adam({NMT_LR}) steps on one batch; control flow on "
+        f"the card | {card} ==")
+    fluid.reset_unique_name()
+    main, startup, loss, v = nmt_train_program(
+        fluid, NMT_DICT, NMT_DICT, NMT_EMB, NMT_HID, NMT_LR)
+    block = main.global_block()
+    log("program: " + op_counts(block))
+    dh0_name = v["boot"].name + "@GRAD"
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    triples = nmt_triples(seed)
+    feed = nmt_feed(triples)
+    src_lens = [len(t[0]) for t in triples]
+    trg_lens = [len(t[1]) for t in triples]
+    log(f"feed: source lengths {min(src_lens)}..{max(src_lens)} tokens, "
+        f"target lengths {min(trg_lens)}..{max(trg_lens)} ({sum(trg_lens)} "
+        "target tokens)")
+    counters = (("lstm_seq", lambda: rnn.launches["lstm_seq"]),
+                ("lstm_seq_bwd", lambda: rnn.launches["lstm_seq_bwd"]),
+                ("gru_seq", lambda: rnn.launches["gru_seq"]),
+                ("gru_seq_bwd", lambda: rnn.launches["gru_seq_bwd"]),
+                ("plain-routed LSTMs",
+                 lambda: tier.fallback_counts().get("lstm", 0)),
+                ("plain-routed GRUs",
+                 lambda: tier.fallback_counts().get("gru", 0)))
+    labels = [c[0] for c in counters]
+    want = {"auto": (1, 1, 1, 1, 0, 0), "torch": (0,) * 6}
+    problems, res = [], {}
+    for route in ("auto", "torch"):
+        scope = copy_scope(fluid, torch, init)
+        losses, ms, total = [], [], [0] * len(labels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            for step in range(NMT_STEPS):
+                rnn.reset_launches()
+                tier.reset_fallback_counts()
+                t0 = time.perf_counter()
+                vals = exe.run(main, feed=feed, fetch_list=[loss] + (
+                    [dh0_name] if step == 0 else []), scope=scope,
+                    return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = tuple(get() for _, get in counters)
+                if counts != want[route]:
+                    fail(f"NMT, kernel_tier={route} step {step + 1}: "
+                         f"{'/'.join(labels)} {counts}, want {want[route]}")
+                total = [a + c for a, c in zip(total, counts)]
+                if not torch.isfinite(vals[0]).item():
+                    fail(f"NMT, kernel_tier={route} step {step + 1}: loss "
+                         f"{vals[0]}")
+                losses.append(vals[0].item())
+                if step == 0:
+                    dh0 = vals[1]
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady = sum(ms[1:]) / len(ms[1:])
+        res[route] = dict(losses=losses, dh0=dh0, total=total, scope=scope)
+        log(f"kernel_tier={route}: losses "
+            + " ".join(f"{x:.6f}" for x in losses)
+            + " | ms/step " + " ".join(f"{x:.1f}" for x in ms)
+            + f" | steady {steady:.2f} ms/step, "
+            f"{sum(trg_lens) * 1e3 / steady:.0f} target tokens/s | peak "
+            f"memory {peak:.2f} GiB | {card}")
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(res["auto"]["losses"],
+                                               res["torch"]["losses"])]
+    log("loss per step, kernel route vs kernel_tier=torch, relative: "
+        + " ".join(f"{x:.2e}" for x in rel)
+        + f" (limit {NMT_LOSS_LIMIT:.0e})")
+    if not max(rel) <= NMT_LOSS_LIMIT:
+        problems.append(f"NMT: the routes' losses differ by {max(rel):.3e} "
+                        f"at step {rel.index(max(rel)) + 1}")
+    for route in ("auto", "torch"):
+        losses = res[route]["losses"]
+        if not losses[-1] < losses[0]:
+            problems.append(f"NMT, kernel_tier={route}: the loss did not "
+                            f"fall over {NMT_STEPS} steps: {losses}")
+    gk = res["auto"]["dh0"].double()
+    gt = res["torch"]["dh0"].double()
+    d = gk - gt
+    g_inf = (d.abs().max() / gt.abs().max().clamp_min(1e-30)).item()
+    g_l2 = (d.norm() / gt.norm().clamp_min(1e-30)).item()
+    log(f"step 1 {dh0_name} (the gru op's H0@GRAD, [{NMT_BATCH}, "
+        f"{NMT_HID}]), kernel route vs kernel_tier=torch: ‖Δ‖∞/‖ref‖∞ "
+        f"{g_inf:.3e} (limit {NMT_DH0_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {g_l2:.3e} "
+        f"(limit {NMT_DH0_L2_LIMIT:.0e}); ‖ref‖∞ {gt.abs().max().item():.3e}")
+    if gk.abs().max().item() == 0:
+        problems.append(f"NMT: {dh0_name} is all zeros")
+    if not (g_inf <= NMT_DH0_LIMIT and g_l2 <= NMT_DH0_L2_LIMIT):
+        problems.append(f"NMT: {dh0_name} differs between the routes by "
+                        f"{g_inf:.3e} / {g_l2:.3e}")
+    scope = copy_scope(fluid, torch, init)
+    profile(torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope),
+            f"NMT: one training step, batch {NMT_BATCH}, kernel route", card,
+            reps=3, groups={"lstm_seq + lstm_seq_bwd": [
+                "lstm_fwd_kernel", "lstm_bwd_kernel"],
+                "gru_seq + gru_seq_bwd": ["gru_fwd_kernel",
+                                          "gru_bwd_kernel"]})
+
+    dec = phase_nmt_decode(torch, fluid, exe, res["auto"]["scope"], triples,
+                           card, problems)
+    phase_control_flow(torch, fluid, card, problems)
+    if problems:
+        fail("; ".join(problems))
+    out = dict(zip(labels, res["auto"]["total"]))
+    for k in ("lstm_seq", "lstm_seq_bwd", "gru_seq", "gru_seq_bwd"):
+        out[k] += dec[k]
+    log("phase 18 launches: " + json.dumps(
+        {k: out[k] for k in ("lstm_seq", "lstm_seq_bwd", "gru_seq",
+                             "gru_seq_bwd")}))
+    return out
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -6060,6 +6556,7 @@ def main():
     amp, amp_sums = phase_amp(torch, fluid, args.seed, card,
                               dict(resnet=resnet_f32, textcls=textcls_f32))
     rt = phase_runtime(torch, fluid, args.seed, card, serving, gen)
+    s2s = phase_seq2seq(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -6104,11 +6601,12 @@ def main():
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
-              + rt["lstm_seq"],
+              + rt["lstm_seq"] + s2s["lstm_seq"],
               rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
-              + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"],
+              + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"]
+              + s2s["lstm_seq_bwd"],
               rnn_totals["lstm_seq_bwd"]),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
@@ -6116,10 +6614,12 @@ def main():
               + amp["adam_arena"] + rt["adam_arena"],
               rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
-              gru_launches["gru_seq"] + ctc_launches["gru_seq"],
+              gru_launches["gru_seq"] + ctc_launches["gru_seq"]
+              + s2s["gru_seq"],
               seq_totals["gru_seq"]),
         entry("gru_seq_bwd", "gru_seq.cu", "pallas/rnn.py:242",
-              gru_launches["gru_seq_bwd"] + ctc_launches["gru_seq_bwd"],
+              gru_launches["gru_seq_bwd"] + ctc_launches["gru_seq_bwd"]
+              + s2s["gru_seq_bwd"],
               seq_totals["gru_seq_bwd"]),
         entry("ctc_alpha", "ctc.cu", "pallas/ctc.py:66",
               ctc_launches["ctc_alpha"], seq_totals["ctc_alpha"]),

@@ -364,7 +364,8 @@ class _PreparedSteps:
 
 def _feed_slice(value, i):
     if isinstance(value, LoDArray):
-        return LoDArray(value.data[i], value.lens[i])
+        return LoDArray(value.data[i], value.lens[i],
+                        tuple(o[i] for o in value.outer_levels) or None)
     return value[i]
 
 
@@ -375,8 +376,11 @@ def _stack_fetches(values, return_numpy):
     if isinstance(first, torch.Tensor):
         stacked = torch.stack(values)
     elif isinstance(first, LoDArray):
-        stacked = LoDArray(torch.stack([v.data for v in values]),
-                           torch.stack([v.lens for v in values]))
+        stacked = LoDArray(
+            torch.stack([v.data for v in values]),
+            torch.stack([v.lens for v in values]),
+            tuple(torch.stack(level) for level in
+                  zip(*(v.outer_levels for v in values))) or None)
     else:
         return values
     return Executor._fetch_value(stacked, return_numpy)
@@ -504,7 +508,10 @@ class Executor:
             return LoDArray(
                 self._stack_leaf([v.data for v in values], var),
                 self._stack_leaf([v.lens for v in values], None)
-                .to(torch.int32))
+                .to(torch.int32),
+                tuple(self._stack_leaf(list(level), None).to(torch.int32)
+                      for level in zip(*(v.outer_levels for v in values)))
+                or None)
         return self._stack_leaf(values, var)
 
     def _stack_leaf(self, leaves, var):
@@ -530,9 +537,11 @@ class Executor:
             var = block.var(name) if block.has_var(name) else None
             value = self._as_lod(value, var)
             if isinstance(value, LoDArray):
-                out[name] = LoDArray(self._dense(value.data, var),
-                                     self._to_device(value.lens)
-                                     .to(torch.int32))
+                out[name] = LoDArray(
+                    self._dense(value.data, var),
+                    self._to_device(value.lens).to(torch.int32),
+                    tuple(self._to_device(o).to(torch.int32)
+                          for o in value.outer_levels) or None)
             elif isinstance(value, torch.Tensor) \
                     and value.device == self.device:
                 out[name] = value
@@ -543,14 +552,26 @@ class Executor:
     @staticmethod
     def _as_lod(value, var):
         """A LoD feed in any of its forms as a LoDArray; anything else as
-        it is."""
+        it is. A nested list fed to a var of ``lod_level`` L >= 2 is peeled
+        exactly L - 1 outer levels deep (reference :884-903), so an empty
+        outer group packs as a zero-length entry."""
         if isinstance(value, tuple) and len(value) == 2 \
                 and not np.isscalar(value[0]):
             return flat_to_lodarray(value[0], value[1])
         if isinstance(value, list) and value and var is not None \
                 and var.lod_level > 0 \
                 and isinstance(value[0], (np.ndarray, list)):
-            return pack_sequences([np.asarray(s) for s in value])
+            levels, cur = [], value
+            if var.lod_level >= 2 and isinstance(value[0], list):
+                for _ in range(var.lod_level - 1):
+                    if not all(isinstance(g, list) for g in cur):
+                        break
+                    levels.append(torch.tensor([len(g) for g in cur],
+                                               dtype=torch.int32))
+                    cur = [s for g in cur for s in g]
+            arr = pack_sequences([np.asarray(s) for s in cur])
+            arr.outer_lens = tuple(levels) or None
+            return arr
         return value
 
     def _to_device(self, value):
@@ -575,7 +596,9 @@ class Executor:
             return v
         if isinstance(v, LoDArray):
             return LoDArray(Executor._fetch_value(v.data, True),
-                            v.lens.cpu().numpy())
+                            v.lens.cpu().numpy(),
+                            tuple(o.cpu().numpy() for o in v.outer_levels)
+                            or None)
         v = v.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()  # numpy has no bfloat16 without ml_dtypes

@@ -29,11 +29,20 @@ def G(names):
 
 @dataclasses.dataclass
 class OpSpec:
-    """A to-be-appended op description returned by grad makers."""
+    """A to-be-appended op description returned by grad makers.
+
+    ``overwrite_slots`` (reference :30-41): output slots whose gradients
+    REPLACE an already-produced gradient of the same name instead of being
+    renamed and summed into it. This is the in-place loop-state contract:
+    a while op rebinds its carried names, so once its grad op has consumed
+    the post-loop cotangent, the gradient with respect to the pre-loop
+    value supersedes it. Slots not listed accumulate as usual (a weight
+    read both inside and outside a loop sums both contributions)."""
     type: str
     inputs: dict
     outputs: dict
     attrs: dict = dataclasses.field(default_factory=dict)
+    overwrite_slots: frozenset = frozenset()
 
 
 @dataclasses.dataclass

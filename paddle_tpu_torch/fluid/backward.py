@@ -4,7 +4,10 @@ paddle_tpu/fluid/backward.py:48-187).
 Walk the block's ops in reverse from the loss, ask each op's grad maker for
 grad op specs (``core.registry.OpInfo.grad``), zero-fill output grads a grad
 op reads but nothing produced (``fill_zeros_like``), rename-and-sum repeated
-grads, and prune ops that do not reach the loss. The grad ops are appended
+grads (an ``overwrite_slots`` slot replaces the earlier grad instead, the
+in-place loop-state contract of ``while_grad`` and
+``write_to_array_grad``), and prune ops that do not reach the loss. The
+grad ops are appended
 to the same block, so one ``Executor.run`` runs forward, backward and the
 optimizer ops after them. Under the ``verify_passes`` flag the result is
 re-verified (fluid/analysis, as reference backward.py:185-186).
@@ -107,7 +110,8 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                     produced.add(g)
 
         for spec in specs:
-            # rename-and-sum for a grad produced twice, also within one spec
+            # rename-and-sum for a grad produced twice, also within one
+            # spec; an overwrite slot (reference :137-151) replaces instead
             renames = []
             spec_seen = set()
             for slot, names in spec.outputs.items():
@@ -115,7 +119,8 @@ def append_backward(loss, parameter_list=None, no_grad_set=None):
                 for n in names:
                     fwd = n[:-len(registry.GRAD_SUFFIX)] \
                         if n.endswith(registry.GRAD_SUFFIX) else n
-                    if n in produced or n in spec_seen:
+                    if (n in produced or n in spec_seen) \
+                            and slot not in spec.overwrite_slots:
                         tmp = unique_name(n + "@RENAME")
                         _create_grad_var(block, fwd, tmp)
                         renames.append((n, tmp))

@@ -11,11 +11,13 @@ from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  ctc_greedy_decoder, edit_distance, layer_norm,
                  causal_self_attention)
 from .io import data  # noqa: F401
-from .sequence import (dynamic_lstm, dynamic_gru,  # noqa: F401
-                       sequence_pool, sequence_last_step)
+from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
-from .control_flow import less_than, equal  # noqa: F401
+from .control_flow import (  # noqa: F401
+    increment, less_than, equal, create_array, array_write, array_read,
+    array_length, While, Switch, StaticRNN, DynamicRNN, beam_search,
+    batch_gather, beam_search_decode, IfElse)
 from .learning_rate_scheduler import (  # noqa: F401
     noam_decay, exponential_decay, natural_exp_decay, inverse_time_decay,
     polynomial_decay, piecewise_decay, autoincreased_step_counter)

@@ -348,13 +348,21 @@ def ctc_greedy_decoder(input, blank):
 
 def edit_distance(input, label, normalized=False, ignored_tokens=None):
     """Levenshtein distance of each decoded sequence to its label
-    (reference nn.py edit_distance); returns (distances [b, 1], the
-    sequence count)."""
-    if ignored_tokens:
-        raise NotImplementedError(
-            "edit_distance(ignored_tokens=...) needs sequence_erase, which "
-            "is not ported")
+    (reference nn.py:508); ``ignored_tokens`` are erased from both first
+    (``sequence_erase``). Returns (distances [b, 1], the sequence
+    count)."""
     helper = LayerHelper("edit_distance")
+    if ignored_tokens:
+        erased = helper.create_tmp_variable(input.dtype, lod_level=1)
+        helper.append_op("sequence_erase", inputs={"X": [input.name]},
+                         outputs={"Out": [erased.name]},
+                         attrs={"tokens": list(ignored_tokens)})
+        input = erased
+        erased_l = helper.create_tmp_variable(label.dtype, lod_level=1)
+        helper.append_op("sequence_erase", inputs={"X": [label.name]},
+                         outputs={"Out": [erased_l.name]},
+                         attrs={"tokens": list(ignored_tokens)})
+        label = erased_l
     out = helper.create_tmp_variable("float32")
     seq_num = helper.create_tmp_variable("int64")
     helper.append_op("edit_distance",

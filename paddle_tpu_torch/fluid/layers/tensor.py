@@ -1,8 +1,7 @@
 """Tensor layer functions (counterpart of paddle_tpu/fluid/layers/
 tensor.py): create_tensor, create_global_var, cast,
 concat, sums, scale, assign, fill_constant, fill_constant_batch_size_like,
-ones, zeros and argmax, those the learning-rate schedules and the training
-recipes build. reshape, transpose and split wait for their ops."""
+ones, zeros, reshape, transpose, split and argmax."""
 
 from __future__ import annotations
 
@@ -115,6 +114,63 @@ def zeros(shape, dtype):
     return fill_constant(shape, dtype, 0.0)
 
 
+def reshape(x, shape, act=None):
+    """x under ``shape`` (reference :107): 0 copies x's dim, -1 is
+    inferred, at build time too when every dim of x is static."""
+    helper = LayerHelper("reshape", act=act)
+    known = [s if s != 0 else x.shape[i] for i, s in enumerate(shape)]
+    if -1 in known and x.shape is not None \
+            and all(s is not None and s > 0 for s in x.shape):
+        total = 1
+        for s in x.shape:
+            total *= s
+        rest = 1
+        for s in known:
+            if s != -1:
+                rest *= s
+        known[known.index(-1)] = total // rest if rest else -1
+    out = helper.create_tmp_variable(x.dtype, shape=tuple(known))
+    helper.append_op("reshape", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"shape": list(shape)})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm):
+    """x's dims permuted by ``perm`` (reference :129)."""
+    helper = LayerHelper("transpose")
+    out_shape = tuple(x.shape[p] for p in perm) if x.shape else None
+    out = helper.create_tmp_variable(x.dtype, shape=out_shape)
+    helper.append_op("transpose", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": list(perm)})
+    return out
+
+
+def split(x, num_or_sections, dim=-1):
+    """x cut along ``dim`` into ``num_or_sections`` equal parts, or into
+    parts of the listed widths (reference :138)."""
+    helper = LayerHelper("split")
+    axis = dim if dim >= 0 else len(x.shape) + dim
+    if isinstance(num_or_sections, int):
+        sections = []
+        sizes = [x.shape[axis] // num_or_sections] * num_or_sections
+    else:
+        sections = list(num_or_sections)
+        sizes = sections
+    outs = []
+    for size in sizes:
+        shp = list(x.shape)
+        shp[axis] = size
+        outs.append(helper.create_tmp_variable(x.dtype, shape=tuple(shp)))
+    helper.append_op("split", inputs={"X": [x.name]},
+                     outputs={"Out": [o.name for o in outs]},
+                     attrs={"axis": axis, "sections": sections,
+                            "num": (num_or_sections
+                                    if isinstance(num_or_sections, int)
+                                    else 0)})
+    return outs
+
+
 def argmax(x, axis=-1):
     """The int64 index of the largest entry along ``axis`` (reference
     :163)."""
@@ -142,4 +198,4 @@ def create_global_var(shape, value, dtype, persistable=False,
 
 __all__ = ["create_tensor", "cast", "concat", "sums", "scale", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
-           "argmax", "create_global_var"]
+           "reshape", "transpose", "split", "argmax", "create_global_var"]

@@ -15,9 +15,9 @@ def data_of(v):
 
 
 def like(ref, value):
-    """``value`` with ``ref``'s lengths when ``ref`` is a LoDArray, else
-    ``value`` (reference common.py ``like``)."""
-    return LoDArray(value, ref.lens) if isinstance(ref, LoDArray) else value
+    """``value`` with ``ref``'s lengths (every level) when ``ref`` is a
+    LoDArray, else ``value`` (reference common.py ``like``)."""
+    return ref.with_data(value) if isinstance(ref, LoDArray) else value
 
 
 def collapse_to(v, target_shape, lead_axis):

@@ -1,7 +1,10 @@
-"""The dynamic LSTM and GRU ops and their grads (counterpart of
-paddle_tpu/ops/rnn_ops.py: ``lstm`` :187, ``lstm_grad`` :205, ``gru`` :320
-and ``gru_grad`` :334, with ``_reverse_padded`` :47, ``_lstm_scan`` :60,
-``_lstm_compute`` :128 and ``_gru_compute`` :251).
+"""The recurrent ops and their grads (counterpart of
+paddle_tpu/ops/rnn_ops.py): the dynamic LSTM and GRU (``lstm`` :187,
+``lstm_grad`` :205, ``gru`` :320 and ``gru_grad`` :334, with
+``_reverse_padded`` :47, ``_lstm_scan`` :60, ``_lstm_compute`` :128 and
+``_gru_compute`` :251), and the single-step ``lstm_unit`` and ``gru_unit``,
+the projected ``lstmp`` and the vanilla ``simple_rnn`` (:367-717), which
+the reference runs as plain jnp and this port as plain torch.
 
 Each op runs over a padded LoDArray [b, L, gH] (the projected inputs; gate
 columns [i, f, c, o] for the LSTM, [u, r, c] for the GRU) with a length
@@ -334,3 +337,301 @@ def gru_grad(ctx):
         ctx.set_output("Bias@GRAD", grads["Bias"].reshape(1, -1))
     if "H0" in grads:
         ctx.set_output("H0@GRAD", grads["H0"])
+
+
+# ---------------------------------------------------------------------------
+# single-step units and the other recurrences (reference :367-717). The
+# reference runs all four as plain jnp (no pallas_call); so do these, and
+# their grads are autograd vjps of the same functions.
+# ---------------------------------------------------------------------------
+
+def _lstm_unit_fwd(x, c_prev, fb):
+    """One LSTM cell step (reference :372): x [b, 4H] pre-activations in
+    gate order [i, f, c, o], forget_bias added into the forget gate."""
+    hdim = c_prev.shape[-1]
+    i = torch.sigmoid(x[:, :hdim])
+    f = torch.sigmoid(x[:, hdim:2 * hdim] + fb)
+    cand = torch.tanh(x[:, 2 * hdim:3 * hdim])
+    o = torch.sigmoid(x[:, 3 * hdim:])
+    c = f * c_prev + i * cand
+    return c, o * torch.tanh(c)
+
+
+@register_op("lstm_unit", grad=lambda op: [OpSpec(
+    "lstm_unit_grad",
+    {"X": op.input("X"), "C_prev": op.input("C_prev"),
+     "C@GRAD": G(op.output("C")), "H@GRAD": G(op.output("H"))},
+    {"X@GRAD": G(op.input("X")), "C_prev@GRAD": G(op.input("C_prev"))},
+    dict(op.attrs))])
+def lstm_unit(ctx):
+    c, h = _lstm_unit_fwd(data_of(ctx.input("X")),
+                          data_of(ctx.input("C_prev")),
+                          ctx.attr("forget_bias", 0.0))
+    ctx.set_output("C", c)
+    ctx.set_output("H", h)
+
+
+@register_op("lstm_unit_grad")
+def lstm_unit_grad(ctx):
+    fb = ctx.attr("forget_bias", 0.0)
+    dx, dcp = vjp(lambda a, b: _lstm_unit_fwd(a, b, fb),
+                  [data_of(ctx.input("X")), data_of(ctx.input("C_prev"))],
+                  (data_of(ctx.input("C@GRAD")),
+                   data_of(ctx.input("H@GRAD"))))
+    ctx.set_output("X@GRAD", dx)
+    ctx.set_output("C_prev@GRAD", dcp)
+
+
+def _gru_unit_fwd(x, h_prev, w, bias, gate_act, cand_act):
+    """One GRU step (reference :455): x [b, 3H] in gate order [u, r, c],
+    W [H, 3H]. Returns (u, r, c, h)."""
+    hdim = h_prev.shape[-1]
+    if bias is not None:
+        x = x + bias.reshape(1, -1)
+    u = gate_act(x[:, :hdim] + torch.matmul(h_prev, w[:, :hdim]))
+    r = gate_act(x[:, hdim:2 * hdim]
+                 + torch.matmul(h_prev, w[:, hdim:2 * hdim]))
+    c = cand_act(x[:, 2 * hdim:] + torch.matmul(r * h_prev, w[:, 2 * hdim:]))
+    return u, r, c, u * c + (1.0 - u) * h_prev
+
+
+def _gru_unit_grad_maker(op):
+    inputs = {"Input": op.input("Input"), "HiddenPrev": op.input("HiddenPrev"),
+              "Weight": op.input("Weight"),
+              "Hidden@GRAD": G(op.output("Hidden"))}
+    outputs = {"Input@GRAD": G(op.input("Input")),
+               "HiddenPrev@GRAD": G(op.input("HiddenPrev")),
+               "Weight@GRAD": G(op.input("Weight"))}
+    if op.input("Bias"):
+        inputs["Bias"] = op.input("Bias")
+        outputs["Bias@GRAD"] = G(op.input("Bias"))
+    return [OpSpec("gru_unit_grad", inputs, outputs, dict(op.attrs))]
+
+
+def _gru_unit_acts(ctx):
+    """The gate and candidate activations: the upstream op's enum ints (0
+    identity, 1 sigmoid, 2 tanh, 3 relu) or the layer's strings."""
+    codes = {0: "identity", 1: "sigmoid", 2: "tanh", 3: "relu"}
+
+    def resolve(attr, default):
+        v = ctx.attr(attr, default)
+        return _act(codes[v] if isinstance(v, int) else v)
+
+    return resolve("gate_activation", "sigmoid"), resolve("activation", "tanh")
+
+
+@register_op("gru_unit", grad=_gru_unit_grad_maker)
+def gru_unit(ctx):
+    h_prev = data_of(ctx.input("HiddenPrev"))
+    bias = _optional(ctx, "Bias")
+    u, r, c, h = _gru_unit_fwd(data_of(ctx.input("Input")), h_prev,
+                               data_of(ctx.input("Weight")),
+                               None if bias is None else data_of(bias),
+                               *_gru_unit_acts(ctx))
+    ctx.set_output("Gate", torch.cat([u, r, c], dim=-1))
+    ctx.set_output("ResetHiddenPrev", r * h_prev)
+    ctx.set_output("Hidden", h)
+
+
+@register_op("gru_unit_grad")
+def gru_unit_grad(ctx):
+    ga, ca = _gru_unit_acts(ctx)
+    operands = [data_of(ctx.input("Input")),
+                data_of(ctx.input("HiddenPrev")),
+                data_of(ctx.input("Weight"))]
+    has_bias = ctx.has_input("Bias")
+    if has_bias:
+        operands.append(data_of(ctx.input("Bias")))
+    grads = vjp(lambda x, h, w, *b: _gru_unit_fwd(
+        x, h, w, b[0] if b else None, ga, ca)[3], operands,
+        data_of(ctx.input("Hidden@GRAD")))
+    ctx.set_output("Input@GRAD", grads[0])
+    ctx.set_output("HiddenPrev@GRAD", grads[1])
+    ctx.set_output("Weight@GRAD", grads[2])
+    if has_bias:
+        ctx.set_output("Bias@GRAD", grads[3])
+
+
+def _lstmp_compute(x, lens, w, proj_w, bias, h0, c0, attrs):
+    """LSTM with a recurrent projection (reference :571): the recurrence
+    runs over r_t = proj_act(h_t @ ProjWeight); Weight [P, 4H],
+    ProjWeight [H, P]. Returns (projections [b, L, P], cells [b, L, H]),
+    zero past each row's length."""
+    b, L, h4 = x.shape
+    hdim = h4 // 4
+    p = proj_w.shape[1]
+    if bias is not None:
+        x = x + bias[None, None, :h4]
+    ga = _act(attrs.get("gate_activation", "sigmoid"))
+    ca = _act(attrs.get("cell_activation", "tanh"))
+    cda = _act(attrs.get("candidate_activation", "tanh"))
+    pa = _act(attrs.get("proj_activation", "tanh"))
+    r_prev = torch.zeros((b, p), dtype=x.dtype, device=x.device) \
+        if h0 is None else torch.matmul(h0, proj_w)
+    c_prev = torch.zeros((b, hdim), dtype=x.dtype, device=x.device) \
+        if c0 is None else c0
+    rev = attrs.get("is_reverse", False)
+    if rev:
+        x = _reverse_padded(x, lens)
+    rs, cs = [], []
+    for t in range(L):
+        gates = x[:, t] + torch.matmul(r_prev, w)
+        i = ga(gates[:, :hdim])
+        f = ga(gates[:, hdim:2 * hdim])
+        cand = cda(gates[:, 2 * hdim:3 * hdim])
+        o = ga(gates[:, 3 * hdim:])
+        c = f * c_prev + i * cand
+        r = pa(torch.matmul(o * ca(c), proj_w))
+        alive = (t < lens)[:, None].to(x.dtype)
+        r_prev = alive * r + (1 - alive) * r_prev
+        c_prev = alive * c + (1 - alive) * c_prev
+        rs.append(r_prev * alive)
+        cs.append(c_prev * alive)
+    rs, cs = torch.stack(rs, 1), torch.stack(cs, 1)
+    if rev:
+        rs, cs = _reverse_padded(rs, lens), _reverse_padded(cs, lens)
+    return rs, cs
+
+
+def _lstmp_grad_maker(op):
+    inputs = {"Input": op.input("Input"), "Weight": op.input("Weight"),
+              "ProjWeight": op.input("ProjWeight"),
+              "Projection@GRAD": G(op.output("Projection")),
+              "Cell@GRAD": G(op.output("Cell"))}
+    outputs = {"Input@GRAD": G(op.input("Input")),
+               "Weight@GRAD": G(op.input("Weight")),
+               "ProjWeight@GRAD": G(op.input("ProjWeight"))}
+    for slot in ("Bias", "H0", "C0"):
+        if op.input(slot):
+            inputs[slot] = op.input(slot)
+            outputs[slot + "@GRAD"] = G(op.input(slot))
+    return [OpSpec("lstmp_grad", inputs, outputs, dict(op.attrs))]
+
+
+def _lstmp_infer(op, block):
+    x = block.var(op.input("Input")[0])
+    w = block.var(op.input("Weight")[0])
+    pw = block.var(op.input("ProjWeight")[0])
+    if x.shape is None or w.shape is None or pw.shape is None:
+        return
+    hdim, p = pw.shape
+    for slot, width in (("Projection", p), ("Cell", hdim)):
+        for name in op.output(slot):
+            v = block.var(name)
+            v.shape = tuple(x.shape[:-1]) + (width,)
+            v.dtype = x.dtype
+            v.lod_level = x.lod_level
+
+
+def _operands(ctx, slots):
+    """{slot: tensor} of the optional slots that hold a value (a Bias
+    flattened)."""
+    out = {}
+    for slot in slots:
+        v = _optional(ctx, slot)
+        if v is not None:
+            out[slot] = data_of(v).reshape(-1) if slot == "Bias" \
+                else data_of(v)
+    return out
+
+
+@register_op("lstmp", infer_shape=_lstmp_infer, grad=_lstmp_grad_maker)
+def lstmp(ctx):
+    _, x, lens = _seq_input(ctx)
+    kw = _operands(ctx, ("Bias", "H0", "C0"))
+    rs, cs = _lstmp_compute(x, lens, data_of(ctx.input("Weight")),
+                            data_of(ctx.input("ProjWeight")), kw.get("Bias"),
+                            kw.get("H0"), kw.get("C0"), ctx.op.attrs)
+    ctx.set_output("Projection", LoDArray(rs, lens))
+    ctx.set_output("Cell", LoDArray(cs, lens))
+
+
+@register_op("lstmp_grad")
+def lstmp_grad(ctx):
+    xv, x, lens = _seq_input(ctx)
+    operands = {"Input": x, "Weight": data_of(ctx.input("Weight")),
+                "ProjWeight": data_of(ctx.input("ProjWeight")),
+                **_operands(ctx, ("Bias", "H0", "C0"))}
+    names = list(operands)
+    attrs = dict(ctx.op.attrs)
+
+    def f(*args):
+        kw = dict(zip(names, args))
+        return _lstmp_compute(kw["Input"], lens, kw["Weight"],
+                              kw["ProjWeight"], kw.get("Bias"),
+                              kw.get("H0"), kw.get("C0"), attrs)
+
+    grads = vjp(f, list(operands.values()),
+                (data_of(ctx.input("Projection@GRAD")),
+                 data_of(ctx.input("Cell@GRAD"))))
+    for n, g in zip(names, grads):
+        if n == "Input":
+            ctx.set_output("Input@GRAD", LoDArray(g, lens)
+                           if isinstance(xv, LoDArray) else g)
+        elif n == "Bias":
+            ctx.set_output("Bias@GRAD", g.reshape(1, -1))
+        else:
+            ctx.set_output(n + "@GRAD", g)
+
+
+def _simple_rnn_compute(x, lens, w, bias, attrs):
+    """h_t = act(x_t + h_{t-1} W + b) (reference :678), zero past each
+    row's length; is_reverse runs each row's valid prefix backwards."""
+    b, L, hdim = x.shape
+    act = _act(attrs.get("activation", "tanh"))
+    rev = bool(attrs.get("is_reverse", False))
+    if bias is not None:
+        x = x + bias[None, None, :]
+    if rev:
+        x = _reverse_padded(x, lens)
+    h_prev = torch.zeros((b, hdim), dtype=x.dtype, device=x.device)
+    hs = []
+    for t in range(L):
+        h = act(x[:, t] + torch.matmul(h_prev, w))
+        alive = (t < lens)[:, None].to(x.dtype)
+        h_prev = alive * h + (1 - alive) * h_prev
+        hs.append(h_prev * alive)
+    hs = torch.stack(hs, 1)
+    return _reverse_padded(hs, lens) if rev else hs
+
+
+def _simple_rnn_grad_maker(op):
+    inputs = {"Input": op.input("Input"), "Weight": op.input("Weight"),
+              "Out@GRAD": G(op.output("Out"))}
+    outputs = {"Input@GRAD": G(op.input("Input")),
+               "Weight@GRAD": G(op.input("Weight"))}
+    if op.input("Bias"):
+        inputs["Bias"] = op.input("Bias")
+        outputs["Bias@GRAD"] = G(op.input("Bias"))
+    return [OpSpec("simple_rnn_grad", inputs, outputs, dict(op.attrs))]
+
+
+@register_op("simple_rnn", infer_shape=_rnn_infer(("Out",)),
+             grad=_simple_rnn_grad_maker)
+def simple_rnn(ctx):
+    _, x, lens = _seq_input(ctx)
+    hs = _simple_rnn_compute(x, lens, data_of(ctx.input("Weight")),
+                             _operands(ctx, ("Bias",)).get("Bias"),
+                             ctx.op.attrs)
+    ctx.set_output("Out", LoDArray(hs, lens))
+
+
+@register_op("simple_rnn_grad")
+def simple_rnn_grad(ctx):
+    _, x, lens = _seq_input(ctx)
+    operands = {"Input": x, "Weight": data_of(ctx.input("Weight")),
+                **_operands(ctx, ("Bias",))}
+    names = list(operands)
+    attrs = dict(ctx.op.attrs)
+
+    def f(*args):
+        kw = dict(zip(names, args))
+        return _simple_rnn_compute(kw["Input"], lens, kw["Weight"],
+                                   kw.get("Bias"), attrs)
+
+    grads = dict(zip(names, vjp(f, list(operands.values()),
+                                data_of(ctx.input("Out@GRAD")))))
+    ctx.set_output("Input@GRAD", LoDArray(grads["Input"], lens))
+    ctx.set_output("Weight@GRAD", grads["Weight"])
+    if "Bias" in grads:
+        ctx.set_output("Bias@GRAD", grads["Bias"].reshape(1, -1))

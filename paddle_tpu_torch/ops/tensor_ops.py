@@ -3,10 +3,12 @@ clipping, weight decay and learning-rate schedules (counterpart of
 paddle_tpu/ops/tensor_ops.py): fill_constant,
 fill_constant_batch_size_like, fill_zeros_like, uniform_random,
 gaussian_random, cast, scale, assign, sign, clip, clip_by_norm,
-squared_l2_norm, increment, concat, sum, the comparison and logical ops,
-top_k and argmax, with the reference's grad makers. The LoD-transparent
-ones keep a LoDArray input's lengths, so the padded positions of a LoD
-gradient stay masked downstream. ``sum`` also adds SparseRows gradients;
+squared_l2_norm, increment, reshape, transpose, concat, split, sum, the
+comparison and logical ops, top_k and argmax, with the reference's grad
+makers. The LoD-transparent ones keep a LoDArray input's lengths, so the
+padded positions of a LoD gradient stay masked downstream. ``sum`` also
+adds SparseRows gradients and tensor-array gradients (a ``TensorArrayVal``
+read twice); ``fill_zeros_like`` zero-fills either;
 ``clip``, ``clip_by_norm`` and ``squared_l2_norm`` merge a SparseRows input
 first (the clip of a sum is not the sum of the clips).
 
@@ -27,6 +29,7 @@ from ..core.registry import register_op, same_shape, OpSpec, G
 from ..core.sparse import SparseRows, is_sparse, merge_rows
 from ..core.types import torch_dtype
 from .common import data_of, like
+from .control_flow_ops import TensorArrayVal
 
 
 @register_op("fill_constant")
@@ -52,8 +55,12 @@ def fill_constant_batch_size_like(ctx):
 @register_op("fill_zeros_like", infer_shape=same_shape("X", "Out"))
 def fill_zeros_like(ctx):
     """Zeros shaped like X (reference :52): the grad of a forward output no
-    grad op produced."""
+    grad op produced; a tensor array's is an array of zeros."""
     x = ctx.input("X")
+    if isinstance(x, TensorArrayVal):
+        ctx.set_output("Out", TensorArrayVal(torch.zeros_like(x.data),
+                                             x.length))
+        return
     ctx.set_output("Out", like(x, torch.zeros_like(data_of(x))))
 
 
@@ -73,6 +80,43 @@ def gaussian_random(ctx):
                       dtype=torch.float32, device=ctx.device)
     ctx.set_output("Out", (mean + std * out).to(
         torch_dtype(ctx.attr("dtype", "float32"))))
+
+
+@register_op("reshape", grad=lambda op: [OpSpec(
+    "reshape_grad", {"X": op.input("X"), "Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))})])
+def reshape(ctx):
+    """X's data under ``shape`` (reference :215): 0 copies the input's
+    dim, -1 is inferred."""
+    x = data_of(ctx.input("X"))
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(ctx.attr("shape"))]
+    ctx.set_output("Out", torch.reshape(x, shape))
+
+
+@register_op("reshape_grad")
+def reshape_grad(ctx):
+    x = data_of(ctx.input("X"))
+    ctx.set_output("X@GRAD", torch.reshape(
+        data_of(ctx.input("Out@GRAD")), x.shape))
+
+
+@register_op("transpose", grad=lambda op: [OpSpec(
+    "transpose_grad", {"Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))}, dict(op.attrs))])
+def transpose(ctx):
+    """X's dims permuted by ``axis`` (reference :236)."""
+    ctx.set_output("Out", data_of(ctx.input("X")).permute(
+        *ctx.attr("axis")).contiguous())
+
+
+@register_op("transpose_grad")
+def transpose_grad(ctx):
+    inv = [0] * len(ctx.attr("axis"))
+    for i, a in enumerate(ctx.attr("axis")):
+        inv[a] = i
+    ctx.set_output("X@GRAD", data_of(ctx.input("Out@GRAD")).permute(
+        *inv).contiguous())
 
 
 def _concat_axis(ctx, vs):
@@ -110,6 +154,23 @@ def concat_grad(ctx):
                                for v, p in zip(vs, parts)])
 
 
+@register_op("split", grad=lambda op: [OpSpec(
+    "concat", {"X": G(op.output("Out"))}, {"Out": G(op.input("X"))},
+    {"axis": op.attr("axis", 0)})])
+def split(ctx):
+    """X cut along ``axis`` into ``sections`` widths, or into ``num`` equal
+    parts (reference :288); its grad is the concat of the parts' grads."""
+    x = data_of(ctx.input("X"))
+    axis = ctx.attr("axis", 0)
+    if ctx.attr("sections"):
+        sizes = list(ctx.attr("sections"))
+    else:
+        n = ctx.attr("num", 0) or len(ctx.op.output("Out"))
+        sizes = [x.shape[axis] // n] * n
+    ctx.set_outputs("Out", [p.contiguous()
+                            for p in torch.split(x, sizes, dim=axis)])
+
+
 @register_op("sum", grad=lambda op: [OpSpec(
     "assign", {"X": G(op.output("Out"))}, {"Out": [g]})
     for g in G(op.input("X"))])
@@ -122,6 +183,14 @@ def sum_op(ctx):
     (reference :319-330), so a decayed ``is_sparse`` table takes the dense
     update. Its grad is an assign of Out@GRAD to each input's."""
     vs = ctx.inputs("X")
+    if isinstance(vs[0], TensorArrayVal):
+        # tensor-array gradients (reference :309-318): the float buffers
+        # add, the first input's length stays
+        out = vs[0].data
+        for v in vs[1:]:
+            out = out + v.data
+        ctx.set_output("Out", TensorArrayVal(out, vs[0].length))
+        return
     if any(is_sparse(v) for v in vs):
         if all(is_sparse(v) for v in vs):
             ctx.set_output("Out", SparseRows(

@@ -17,6 +17,12 @@ tests can build a narrow net and chip_smoke.py the published one:
   ``convnet_feed``): the reference's small training programs
   (paddle_tpu/testing/models.py:18, :52), an fc stack and a conv+BN
   residual slice, each with softmax_with_cross_entropy and an optimizer;
+* ``nmt_train_program`` / ``nmt_decode_program`` (with ``nmt_pairs`` and
+  ``nmt_feed``): the attention-free Seq2Seq NMT model of
+  tests/book/test_machine_translation.py:31-147, encoder embedding -> fc
+  -> dynamic_lstm -> last step, a dynamic_gru decoder started from the
+  encoder's ``boot`` state and trained per token, and a While-loop beam
+  search (gru_unit, topk, beam_search, batch_gather, beam_search_decode);
 * ``build_tiny_lm`` / ``export_tiny_lm``: the decoder-only LM the
   generation engine serves (paddle_tpu/testing/models.py:129, :165), with
   the reference's defaults, op order and parameter names.
@@ -276,3 +282,166 @@ def export_tiny_lm(dirname, scope=None, place=None, **kw):
     fluid.io.save_inference_model(dirname, ["tokens", "positions"],
                                   [logits], exe, main, scope=scope)
     return main, scope, logits
+
+
+# ---------------------------------------------------------------------------
+# Seq2Seq NMT (tests/book/test_machine_translation.py:31-147)
+# ---------------------------------------------------------------------------
+
+NMT_BOS, NMT_EOS = 0, 1
+
+
+def nmt_encoder(fluid, src_word, src_dict, emb, hid):
+    """embedding(src_dict, emb) -> fc(4·hid, tanh) -> dynamic_lstm(hid) ->
+    last step: [b, hid]. Every parameter is named, so the train and decode
+    programs share them through one scope."""
+    layers = fluid.layers
+    e = layers.embedding(src_word, size=[src_dict, emb],
+                         param_attr=fluid.ParamAttr(name="src_emb_w"))
+    fc1 = layers.fc(e, size=hid * 4, act="tanh",
+                    param_attr=fluid.ParamAttr(name="enc_fc_w"),
+                    bias_attr=fluid.ParamAttr(name="enc_fc_b"))
+    lstm_h, _ = layers.dynamic_lstm(
+        fc1, size=hid * 4, param_attr=fluid.ParamAttr(name="enc_lstm_w"),
+        bias_attr=fluid.ParamAttr(name="enc_lstm_b"))
+    return layers.sequence_last_step(lstm_h)
+
+
+def _nmt_boot(fluid, enc, hid):
+    return fluid.layers.fc(enc, size=hid, act="tanh",
+                           param_attr=fluid.ParamAttr(name="boot_w"),
+                           bias_attr=fluid.ParamAttr(name="boot_b"))
+
+
+def nmt_train_program(fluid, src_dict=24, trg_dict=24, emb=24, hid=48,
+                      lr=0.01):
+    """The training program (book test :61): the decoder is a dynamic_gru
+    over the embedded target prefix started from ``boot`` (its H0),
+    softmax over ``trg_dict``, mean cross entropy against the next token,
+    Adam(lr). Feeds int64 LoD ``src``, ``trg``, ``trg_next``. Returns
+    (main, startup, avg_cost, {"enc": encoder state var, "boot": the
+    decoder's H0 var})."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = layers.data("src", shape=[1], dtype="int64", lod_level=1)
+        trg = layers.data("trg", shape=[1], dtype="int64", lod_level=1)
+        trg_next = layers.data("trg_next", shape=[1], dtype="int64",
+                               lod_level=1)
+        enc = nmt_encoder(fluid, src, src_dict, emb, hid)
+        boot = _nmt_boot(fluid, enc, hid)
+        trg_emb = layers.embedding(
+            trg, size=[trg_dict, emb],
+            param_attr=fluid.ParamAttr(name="trg_emb_w"))
+        dec_in = layers.fc(trg_emb, size=hid * 3,
+                           param_attr=fluid.ParamAttr(name="dec_in_w"),
+                           bias_attr=fluid.ParamAttr(name="dec_in_b"))
+        dec_h = layers.dynamic_gru(
+            dec_in, size=hid, h_0=boot,
+            param_attr=fluid.ParamAttr(name="gru_w"),
+            bias_attr=fluid.ParamAttr(name="gru_b"))
+        logits = layers.fc(dec_h, size=trg_dict,
+                           param_attr=fluid.ParamAttr(name="out_w"),
+                           bias_attr=fluid.ParamAttr(name="out_b"),
+                           act="softmax")
+        avg_cost = layers.mean(layers.cross_entropy(input=logits,
+                                                    label=trg_next))
+        fluid.optimizer.Adam(learning_rate=lr).minimize(avg_cost, startup)
+    return main, startup, avg_cost, {"enc": enc, "boot": boot}
+
+
+def nmt_decode_program(fluid, batch, src_dict=24, trg_dict=24, emb=24,
+                       hid=48, beam=3, max_len=8):
+    """The beam-search decoder (book test :86) over the trained parameter
+    names: ``batch`` sources, ``beam`` beams of dense [batch, beam] state,
+    ``max_len`` steps of a While loop (counter and limit fill_constants,
+    tensor arrays of ids and parents), then beam_search_decode. Feeds
+    ``src`` (int64 LoD), ``init_ids`` [batch, beam] int64 (<s>),
+    ``init_scores`` [batch, beam] (0 for beam 0, -1e9 for the rest) and
+    ``state_seed`` [batch, beam, hid] zeros. Returns (main, startup,
+    sentence ids (2-level LoD), sentence scores, the encoder state var)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = layers.data("src", shape=[1], dtype="int64", lod_level=1)
+        enc = nmt_encoder(fluid, src, src_dict, emb, hid)
+        boot = _nmt_boot(fluid, enc, hid)
+        init_ids = layers.data("init_ids", shape=[beam], dtype="int64")
+        init_scores = layers.data("init_scores", shape=[beam],
+                                  dtype="float32")
+        state = layers.data("state_seed", shape=[beam, hid],
+                            dtype="float32")
+        state = layers.elementwise_add(
+            state, layers.reshape(boot, [batch, 1, hid]))
+        counter = layers.fill_constant(shape=(), dtype="int64", value=0)
+        limit = layers.fill_constant(shape=(), dtype="int64", value=max_len)
+        ids_arr = layers.array_write(init_ids, counter, cap=max_len + 1)
+        parents_arr = layers.array_write(
+            layers.cast(init_scores, "int64"), counter, cap=max_len + 1)
+        scores_var = init_scores
+        cond = layers.less_than(counter, limit)
+        w = layers.While(cond)
+        with w.block():
+            pre_ids = layers.array_read(ids_arr, counter)   # [b, beam]
+            e = layers.embedding(
+                pre_ids, size=[trg_dict, emb],
+                param_attr=fluid.ParamAttr(name="trg_emb_w"))
+            flat_emb = layers.reshape(e, [batch * beam, emb])
+            flat_state = layers.reshape(state, [batch * beam, hid])
+            gin = layers.fc(flat_emb, size=hid * 3,
+                            param_attr=fluid.ParamAttr(name="dec_in_w"),
+                            bias_attr=fluid.ParamAttr(name="dec_in_b"))
+            new_h, _, _ = layers.gru_unit(
+                gin, flat_state, size=hid * 3,
+                param_attr=fluid.ParamAttr(name="gru_w"),
+                bias_attr=fluid.ParamAttr(name="gru_b"))
+            prob = layers.fc(new_h, size=trg_dict,
+                             param_attr=fluid.ParamAttr(name="out_w"),
+                             bias_attr=fluid.ParamAttr(name="out_b"),
+                             act="softmax")
+            topk_scores, topk_ids = layers.topk(layers.log(prob), k=beam)
+            sel_ids, sel_scores, parents = layers.beam_search(
+                pre_ids, scores_var,
+                layers.reshape(topk_ids, [batch, beam, beam]),
+                layers.reshape(topk_scores, [batch, beam, beam]),
+                beam_size=beam, end_id=NMT_EOS)
+            # the state reordered by parent beam, then advanced
+            layers.assign(layers.batch_gather(
+                layers.reshape(new_h, [batch, beam, hid]), parents), state)
+            layers.assign(sel_scores, scores_var)
+            layers.increment(counter, 1)
+            layers.array_write(sel_ids, counter, array=ids_arr)
+            layers.array_write(parents, counter, array=parents_arr)
+            layers.less_than(counter, limit, cond=cond)
+        sent_ids, sent_scores = layers.beam_search_decode(
+            ids_arr, parents_arr, scores_var, end_id=NMT_EOS)
+    return main, startup, sent_ids, sent_scores, enc
+
+
+def nmt_pairs(n, seed, dict_size, min_len=2, max_len=8, vocab=None):
+    """``n`` synthetic translation triples (src, [<s>] + trg, trg + [<e>])
+    with the reference dataset's ids (<s> 0, <e> 1, <unk> 2; the reference
+    package's paddle_tpu/dataset/wmt14.py:63 task): the source core is
+    ``min_len``..``max_len - 1`` tokens drawn from the seed, wrapped in
+    <s>/<e>, and the target is the core reversed through a fixed token
+    permutation. ``vocab`` caps the dictionary the task uses (the
+    reference's synthetic task uses 33 ids; default all of
+    ``dict_size``)."""
+    rng = np.random.RandomState(seed)
+    usable = min(dict_size, vocab or dict_size) - 3
+    perm = np.random.RandomState(77).permutation(usable)
+    out = []
+    for _ in range(n):
+        ln = int(rng.randint(min_len, max_len))
+        core = rng.randint(0, usable, ln)
+        trg = [int(t) + 3 for t in perm[core[::-1]]]
+        out.append(([0] + [int(t) + 3 for t in core] + [1], [0] + trg,
+                    trg + [1]))
+    return out
+
+
+def nmt_feed(triples):
+    """The training feed of a list of triples: per-sequence [len, 1] int64
+    arrays for ``src``, ``trg`` and ``trg_next``."""
+    return {k: [np.asarray(t[i], "int64").reshape(-1, 1) for t in triples]
+            for i, k in enumerate(("src", "trg", "trg_next"))}

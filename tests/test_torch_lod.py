@@ -126,8 +126,14 @@ def test_flat_and_lodarray_round_trip():
     back, back_lod = tlod.lodarray_to_flat(got)
     np.testing.assert_array_equal(back, flat)
     assert back_lod == lod
-    with pytest.raises(NotImplementedError, match="nested"):
-        tlod.flat_to_lodarray(flat, [[0, 2, 4], lod[0]])
+    # a nested (2-level) table packs as the reference packs it
+    nested = [[0, 2, 4], lod[0]]
+    got = tlod.flat_to_lodarray(flat, nested)
+    want = jlod.flat_to_lodarray(flat, nested)
+    np.testing.assert_array_equal(got.data.numpy(), want.data)
+    np.testing.assert_array_equal(got.outer_lens.numpy(),
+                                  np.asarray(want.outer_lens))
+    assert tlod.lodarray_to_flat(got)[1] == nested
 
 
 @pytest.mark.parametrize("form", ["lodarray", "flat_and_lod", "list"])

@@ -11,12 +11,15 @@ into the reference's ``Program.from_dict``, and both packages'
 ``verify_program(..., raise_on_error=False)`` and ``lint_program`` must
 give the same (code, severity, block, op index, op type, var) lists.
 
+The tensor-array arena case runs without its ``accuracy`` op, and While
+programs (the sub-block, its grad, a var dropped inside the block) and the
+Seq2Seq NMT train and decode programs are held the same way.
+
 Left out, with the module that brings each (ROADMAP §A): the transpiled
 trainer and pserver startup (the DistributeTranspiler, A12), the
-memory-optimized program (memory_optimization_transpiler, A12), accuracy
-and the tensor-array arena (``accuracy``, ``write_to_array``: A1/A9), the
-OpTest harness (A8) and ``create_var``'s redefinition checks (framework,
-not the verifier).
+memory-optimized program (memory_optimization_transpiler, A12),
+``accuracy`` (A9), the OpTest harness (A8) and ``create_var``'s
+redefinition checks (framework, not the verifier).
 """
 
 import json
@@ -130,6 +133,133 @@ def test_clean_decode_engine_clones(tmp_path):
     for p in (eng._prefill_program, eng._decode_program,
               eng._chunk_program):
         assert _verify_errors(p, feed_names=feeds) == []
+
+
+def test_clean_tensor_array_arena():
+    """write_to_array's lazy-allocating Array read is an arena allocation
+    site, not a use before definition, but only while the op rebinds the
+    same name as its output (tests/test_program_verify.py:123, without its
+    accuracy op)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4])
+        pred = fluid.layers.fc(x, size=3, act="softmax")
+        i = fluid.layers.fill_constant(shape=(), dtype="int64", value=0)
+        arr = fluid.layers.array_write(pred, i, cap=4)
+        fluid.layers.array_read(arr, i)
+    assert _verify_errors(main, startup=startup) == []
+    block = main.global_block()
+    wop = next(op for op in block.ops if op.type == "write_to_array")
+    block.create_var(name="arr_detached", dtype=pred.dtype)
+    wop.outputs["Out"] = ["arr_detached"]
+    main._bump_version()
+    d = _find(_verify_errors(main, startup=startup), D.USE_BEFORE_DEF)
+    assert d.op_type == "write_to_array"
+
+
+def _while_program(max_iters):
+    """An fc accumulated in a While over slices staged in a tensor array,
+    with its backward and SGD."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[3, 5])
+        y = fluid.layers.data("y", shape=[2])
+        pieces = fluid.layers.split(x, 3, dim=1)
+        arr = None
+        for t in range(3):
+            it = fluid.layers.fill_constant(shape=[1], dtype="int64", value=t)
+            arr = fluid.layers.array_write(
+                fluid.layers.reshape(pieces[t], [4, 5]), it, array=arr,
+                cap=3)
+        i = fluid.layers.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = fluid.layers.fill_constant(shape=[1], dtype="int64", value=3)
+        acc = fluid.layers.fill_constant(shape=[4, 2], dtype="float32",
+                                         value=0.0)
+        cond = fluid.layers.less_than(i, limit)
+        w = fluid.layers.While(cond, max_iters=max_iters)
+        with w.block():
+            h = fluid.layers.fc(fluid.layers.array_read(arr, i), size=2,
+                                act="tanh")
+            fluid.layers.assign(fluid.layers.elementwise_add(acc, h),
+                                output=acc)
+            fluid.layers.increment(i, value=1)
+            fluid.layers.less_than(i, limit, cond=cond)
+        loss = fluid.layers.mean(fluid.layers.square(
+            fluid.layers.elementwise_sub(acc, y)))
+        fluid.optimizer.SGD(0.1).minimize(loss, startup)
+    return main, startup, loss
+
+
+@pytest.mark.parametrize("max_iters", [3, None], ids=["max_iters",
+                                                      "derived"])
+def test_while_program_verifies_clean_and_runs(max_iters):
+    fluid.set_flags({"verify_passes": True})
+    base = verify_calls()
+    main, startup, loss = _while_program(max_iters)
+    assert verify_calls() > base            # append_backward verified
+    assert len(main.blocks) == 2
+    assert _verify_errors(main, startup=startup, feed_names=["x", "y"],
+                          fetch_names=[loss.name]) == []
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.normal(0, 1, (4, 3, 5)).astype("float32"),
+            "y": rng.normal(0, 1, (4, 2)).astype("float32")}
+    loss_v, = _run_verified(main, startup, feed, [loss], False)
+    assert np.isfinite(loss_v).all()
+
+
+def test_mutation_var_dropped_inside_while_block_PTL003():
+    """A var the loop body reads, dropped from every block: caught at the
+    while op that lists it (block 0) and inside the sub-block (block 1) at
+    the reading op, as the reference's."""
+    main, startup, loss = _while_program(3)
+    sub = main.blocks[1]
+    op_idx, op = next((k, o) for k, o in enumerate(sub.ops)
+                      if o.type == "mul")
+    victim = op.input("Y")[0]
+    for b in main.blocks:
+        b.vars.pop(victim, None)
+    main._bump_version()
+    found = {(d.block_idx, d.op_type, d.op_idx)
+             for d in _verify_errors(main, startup=startup,
+                                     feed_names=["x", "y"],
+                                     fetch_names=[loss.name])
+             if d.code == D.UNDEFINED_VAR and d.var == victim}
+    assert (1, "mul", op_idx) in found
+    assert any(b == 0 and t == "while" for b, t, _ in found), found
+
+
+def test_nmt_programs_verify_clean():
+    """The Seq2Seq NMT model's train program (verified by append_backward
+    under verify_passes) and its beam-search decode program (While,
+    tensor arrays, beam_search_decode)."""
+    fluid.set_flags({"verify_passes": True})
+    base = verify_calls()
+    main, startup, loss, _ = M.nmt_train_program(fluid)
+    assert verify_calls() > base
+    assert _verify_errors(main, startup=startup,
+                          feed_names=["src", "trg", "trg_next"],
+                          fetch_names=[loss.name]) == []
+    dmain, dstartup, sent_ids, sent_scores, _ = M.nmt_decode_program(
+        fluid, 4)
+    assert _verify_errors(
+        dmain, startup=dstartup,
+        feed_names=["src", "init_ids", "init_scores", "state_seed"],
+        fetch_names=[sent_ids.name, sent_scores.name]) == []
+    assert _verify_errors(startup) == [] and _verify_errors(dstartup) == []
+
+
+def test_slot_catalogue_installs_35_of_39_specs():
+    """The catalogue installs a spec for every op type the port registers:
+    reshape's now too; dropout, matmul, accuracy and delete_var wait for
+    their ops."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.fluid.analysis import slots
+    installed = [t for t in slots._SPECS if registry.has_op(t)
+                 and registry.get_op_info(t).slots is not None]
+    assert len(slots._SPECS) == 39 and len(installed) == 35
+    assert sorted(set(slots._SPECS) - set(installed)) == [
+        "accuracy", "delete_var", "dropout", "matmul"]
+    assert registry.get_op_info("reshape").slots.inputs == {"X": "1"}
 
 
 # ---------------------------------------------------------------------------
@@ -329,18 +459,18 @@ def test_lint_retrace_hazard_PTL106():
     block.create_var(name="x", shape=(-1, 784), dtype="float32",
                      is_data=True)
     block.create_var(name="y", shape=(32, 784), dtype="float32")
-    # a concrete batch size baked into the attr over a -1-batch input.
-    # ``reshape`` is not a port op yet (A7): lint reads attrs, not the
-    # registry, so the lint lists are held across packages; the port's
-    # verifier names the op it does not know (PTL001), the reference's
-    # registers it
+    # a concrete batch size baked into the attr over a -1-batch input;
+    # both packages register reshape, so the verifier's lists are held
+    # across packages as the lint's are
     block.append_op("reshape", {"X": ["x"]}, {"Out": ["y"]},
                     {"shape": [32, 784]})
     jprog = JProgram.from_dict(main.to_dict())
     assert _key(lint_program(main, fetch_names=["y"])) == \
         _key(jfluid.lint_program(jprog, fetch_names=["y"]))
-    assert _codes(verify_program(main, raise_on_error=False)) == \
-        {D.UNKNOWN_OP}
+    got = verify_program(main, raise_on_error=False)
+    assert _key(got) == _key(jfluid.verify_program(jprog,
+                                                    raise_on_error=False))
+    assert D.UNKNOWN_OP not in _codes(got)
     d = _find(lint_program(main, fetch_names=["y"]), D.RETRACE_HAZARD)
     assert d.op_idx == 0 and "32" in d.message
 
