@@ -7,8 +7,10 @@ weight decay and learning-rate schedules and the LSTM classifier with the
 six other optimizers, train ResNet-50 and the LSTM classifier under AMP,
 run the program verifier and the Executor's run_steps and per-op hooks
 on them, train and beam-decode the Seq2Seq NMT model through While and
-tensor arrays, with the PyTorch/CUDA port on one GPU, and hold every
-hand-written kernel against its plain PyTorch version.
+tensor arrays, train the models of the book chapters (digits, CIFAR,
+sentiment, SRL with its CRF, the recommender), with the PyTorch/CUDA port
+on one GPU, and hold every hand-written kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -271,6 +273,30 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               Then tests/test_recurrent_grad.py's While training loop and
               DynamicRNN model, 3 steps on the card and on the CPU from one
               state: losses and final state within 1e-5 relative.
+19. book    — the models of tests/book/'s chapters at the book's widths
+              (paddle_tpu_torch.testing.models): MNIST's MLP and conv net,
+              CIFAR's resnet_cifar10 (depth 32) and vgg16_bn_drop (dropout
+              on), the sentiment chapter's convolution_net and
+              stacked_lstm_net, SRL's db_lstm with its CRF (assumed
+              conll05 dictionaries) and the recommender; 5 Adam steps on
+              one synthetic batch each, on the kernel route and on
+              kernel_tier=torch, under cudnn.deterministic: ms a step,
+              peak memory, launches and plain-routed ops a step; then,
+              with cuDNN's default algorithms, one profiled step (its busy
+              share) and ms a step over 3 more. Before stacked_lstm_net trains, lstm_seq and
+              lstm_seq_bwd against their plain versions (and the forward
+              against float64) at its shapes: H 128, batch 64, its feed's
+              lengths, each layer's startup W, at phase 5's limits.
+              Checks: the loss falls; the routes within 1e-3 at every
+              step; stacked_lstm_net 3 + 3 lstm_seq launches a step and
+              no fallback; SRL's 8 LSTMs plain-routed (16 fallbacks a
+              step: each lstm_grad replays its forward) and no launch;
+              step 1 against the port on the CPU from one state (digits,
+              ResNet, SRL with its CRF cost, crfw@GRAD and Viterbi paths,
+              the recommender); accuracy's and chunk_eval's counts against
+              numpy recounts written apart from the port, chunk_eval's run
+              at one host sync; dropout on the card bitwise X * Mask with its
+              keep share within 4 sigma.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -970,7 +996,9 @@ CONV_BN_LAUNCHES = {
 def profile(torch, fn, title, card, reps=3, groups=None):
     """Where the time of ``fn`` goes: device time by kernel from
     torch.profiler over ``reps`` calls, the device's busy share of the
-    host wall time, and the device kernels (launches and copies) a call."""
+    host wall time, and the device kernels (launches and copies) a call.
+    Returns (wall ms, device-busy ms) a call, or None without device
+    time."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -991,7 +1019,7 @@ def profile(torch, fn, title, card, reps=3, groups=None):
     if not rows:
         log("profile: torch.profiler recorded no device time "
             "(device breakdown not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"\n== profile: {title}, {reps} calls | {card} ==")
@@ -1005,6 +1033,7 @@ def profile(torch, fn, title, card, reps=3, groups=None):
         ms = sum(r[0] for r in rows if any(n in r[2] for n in names))
         log(f"  {label}: {ms:.3f} ms of device time per call, "
             f"{100 * ms / busy:.1f}% of busy")
+    return wall_ms, busy
 
 
 EPS = 1e-5
@@ -1646,11 +1675,11 @@ def kernel_stages(torch, module, name, fn, ms,
             stages, share)))
 
 
-def lstm_operands(torch, gen, dev, lens, L=SEQ_LEN):
-    """x, alive, w, h0, c0, dhs, dcs at phase 5's shape (L steps); w at the
-    scale of the model's Xavier init, the cotangents zero where alive is
-    0."""
-    b, H = SEQ_BATCH, SEQ_HIDDEN
+def lstm_operands(torch, gen, dev, lens, L=SEQ_LEN, H=SEQ_HIDDEN):
+    """x, alive, w, h0, c0, dhs, dcs for len(lens) rows of L steps at
+    hidden H (phase 5's shape by default); w at the scale of the model's
+    Xavier init, the cotangents zero where alive is 0."""
+    b = len(lens)
     alive = (torch.arange(L, device=dev)[:, None] < lens[None, :]) \
         .float()[..., None].contiguous()
 
@@ -1719,6 +1748,26 @@ def lstm_fwd_check(torch, got, ref, exact, what, hold=True):
     return worst if hold else ok
 
 
+def lstm_bwd_check(torch, rnn, args):
+    """lstm_seq_bwd against lstm_seq_bwd_torch on ``args`` (the forward's
+    operands and plain carries, then the cotangents): fail where dx, dw,
+    dh0 or dc0 is outside LSTM_BWD_LIMIT; return the largest ‖Δ‖∞."""
+    got = rnn.lstm_seq_bwd(*args)
+    torch.cuda.synchronize()
+    want = rnn.lstm_seq_bwd_torch(*args)
+    worst = 0.0
+    for name, g, r in zip(("dx", "dw", "dh0", "dc0"), got, want):
+        inf, l2, d = rel_errs(g, r)
+        worst = max(worst, d)
+        log(f"  lstm_seq_bwd {name}: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
+            f"{LSTM_BWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e} (limit "
+            f"{LSTM_BWD_L2_LIMIT:.0e})")
+        if not (inf <= LSTM_BWD_LIMIT and l2 <= LSTM_BWD_L2_LIMIT):
+            fail(f"lstm_seq_bwd {name} differs from lstm_seq_bwd_torch: "
+                 f"{inf:.3e} / {l2:.3e}")
+    return worst
+
+
 def phase_rnn_kernels(torch, fluid, seed, card):
     """lstm_seq, lstm_seq_bwd and adam_arena against their plain versions
     at the lane's shapes, then their times. Returns {kernel: numbers for
@@ -1754,19 +1803,8 @@ def phase_rnn_kernels(torch, fluid, seed, card):
         fail(f"lstm_seq's check does not see W's forget columns "
              f"x{PLANTED}")
     # the backward from the plain carries, so that it is held alone
-    got = rnn.lstm_seq_bwd(x, alive, w, h0, c0, *ref, dhs, dcs)
-    torch.cuda.synchronize()
-    want = rnn.lstm_seq_bwd_torch(x, alive, w, h0, c0, *ref, dhs, dcs)
-    worst = 0.0
-    for name, g, r in zip(("dx", "dw", "dh0", "dc0"), got, want):
-        inf, l2, d = rel_errs(g, r)
-        worst = max(worst, d)
-        log(f"  lstm_seq_bwd {name}: ‖Δ‖∞/‖ref‖∞ {inf:.3e} (limit "
-            f"{LSTM_BWD_LIMIT:.0e}), ‖Δ‖₂/‖ref‖₂ {l2:.3e} (limit "
-            f"{LSTM_BWD_L2_LIMIT:.0e})")
-        if not (inf <= LSTM_BWD_LIMIT and l2 <= LSTM_BWD_L2_LIMIT):
-            fail(f"lstm_seq_bwd {name} differs from lstm_seq_bwd_torch: "
-                 f"{inf:.3e} / {l2:.3e}")
+    worst = lstm_bwd_check(torch, rnn, (x, alive, w, h0, c0, *ref, dhs,
+                                        dcs))
     out["lstm_seq_bwd"] = {"max_abs_err": worst}
 
     main, _, _ = build_textcls(fluid, seed)
@@ -5583,17 +5621,19 @@ def first_differing_op(torch, exe, main, feed, sa, sb):
     return "none (the outputs of one step agree bitwise)"
 
 
-def rt_counts(cbk, opk, rnn, emb, pak):
-    return {"conv_affine": cbk.launches["conv_affine"],
-            "conv_bn_train": cbk.launches["conv_bn_train"],
-            "conv_bn_bwd": cbk.launches["conv_bn_bwd"],
-            "momentum_arena": opk.launches["momentum_arena"],
-            "adam_arena": opk.launches["adam_arena"],
-            "sgd_arena": opk.launches["sgd_arena"],
-            "lstm_seq": rnn.launches["lstm_seq"],
-            "lstm_seq_bwd": rnn.launches["lstm_seq_bwd"],
-            "embedding_sgd": emb.launches["embedding_sgd"],
-            "paged_attention": pak.launches["paged_attention"]}
+def kernel_counters():
+    """Every kernel wrapper's launch counter, and their reset."""
+    from paddle_tpu_torch.ops.cuda import (conv_bn, ctc, embedding,
+                                           optimizer, paged_attention, rnn)
+    mods = (conv_bn, ctc, embedding, optimizer, paged_attention, rnn)
+
+    def read():
+        return {k: int(v) for m in mods for k, v in dict(m.launches).items()}
+
+    def reset():
+        for m in mods:
+            m.reset_launches()
+    return read, reset
 
 
 def phase_runtime(torch, fluid, seed, card, serving, gen):
@@ -5608,30 +5648,25 @@ def phase_runtime(torch, fluid, seed, card, serving, gen):
     from paddle_tpu_torch.obs.metrics import REGISTRY
     from paddle_tpu_torch.ops import cuda as tier
     from paddle_tpu_torch.ops.cuda import conv_bn as cbk
-    from paddle_tpu_torch.ops.cuda import embedding as emb
-    from paddle_tpu_torch.ops.cuda import optimizer as opk
-    from paddle_tpu_torch.ops.cuda import paged_attention as pak
     from paddle_tpu_torch.ops.conv_ops import conv_attrs
-    from paddle_tpu_torch.ops.cuda import rnn
     from paddle_tpu_torch.serving import GenerationEngine, InferenceEngine
 
     log(f"\n== phase 17: runtime — verifier and lint, run_steps, the "
         f"executor's hooks and analysis cache | {card} ==")
-    mods = (cbk, opk, rnn, emb, pak)
-    total = dict.fromkeys(rt_counts(*mods), 0)
+    read, reset_launches = kernel_counters()
+    total = dict.fromkeys(read(), 0)
     problems = []
 
     def reset():
         """Zero the launch counters, dropping what they hold."""
-        for m in mods:
-            m.reset_launches()
+        reset_launches()
         tier.reset_fallback_counts()
 
     def count():
         """Add the launches since the last count() to the phase's total,
         zero the counters and return those launches: every launch of the
         phase is added once."""
-        c = rt_counts(*mods)
+        c = read()
         for k, v in c.items():
             total[k] += v
         reset()
@@ -5700,7 +5735,7 @@ def phase_runtime(torch, fluid, seed, card, serving, gen):
             0, 1, (1, IMAGE, IMAGE, 3)).astype("float32")
         count()
         got = eng2.infer({"img": x})
-        c = rt_counts(*mods)
+        c = read()
         want = eng3.infer({"img": x})
         count()
         same = all(np.array_equal(np.asarray(a), np.asarray(b))
@@ -6050,7 +6085,9 @@ def nmt_decode_feed(fluid, triples):
 
 def sync_counter(torch):
     """A context counting the host syncs torch reports (sync debug mode
-    "warn") per tag: ``count[tag]`` for the tag set in ``where[0]``."""
+    "warn") per tag: ``count[tag]`` for the tag set in ``where[0]``. Only
+    the "called a synchronizing CUDA operation" warnings count, not the
+    notice torch gives once a process when the mode is first set."""
     import warnings
     count, where = {}, [None]
 
@@ -6059,7 +6096,7 @@ def sync_counter(torch):
         shown = warnings.showwarning
 
         def show(message, category, *a, **k):
-            if "synchroniz" in str(message):
+            if "synchronizing CUDA operation" in str(message):
                 count[where[0]] = count.get(where[0], 0) + 1
             else:
                 shown(message, category, *a, **k)
@@ -6469,6 +6506,428 @@ def phase_seq2seq(torch, fluid, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+
+# The book chapters of tests/book/ at the book's widths (the builders of
+# paddle_tpu_torch/testing/models.py, their defaults): recognize_digits'
+# MLP (784-128-64-10) and conv net (20 and 50 filters, 5x5, pool 2/2);
+# image_classification's resnet_cifar10 at depth 32 (16/32/64) and
+# vgg16_bn_drop with its dropouts on, 32x32x3, 10 classes; the sentiment
+# chapter's stacked_lstm_net (emb 128, hid 512: LSTMs of 128, 3 layers)
+# and convolution_net (the book function's emb 32, hid 32, sqrt pooling)
+# over a dictionary of 5000 (the repo test's cap) and reviews of 10-100
+# tokens, batch 64 (the recurrent kernels' supported() limit); SRL's
+# db_lstm (word_dim 32, mark_dim 5, hidden 512: LSTMs of 128, depth 8,
+# eight features, CRF "crfw") over ASSUMED dictionaries of 30000 words,
+# 3000 predicates and 59 tags (conll05's are not in the repo), the book's
+# batch of 10 sentences of 10-50 words; the recommender at the repo test's
+# widths over MovieLens-1M's id ranges (6041 users, 21 jobs, 3953 movies,
+# 18 categories, a title dictionary of 5175, assumed), batch 64. Digits
+# and CIFAR at batch 128. Synthetic data from the seed. Adam at the
+# builders' rates (the book's 0.002, SRL 1e-4, the recommender 0.01). The
+# phase's counted steps run under cudnn.deterministic, so the routes'
+# plain ops give the same bits and their losses differ only where a kernel
+# runs; each route's profiled step and the BOOK_DEFAULT_STEPS after it
+# run with cuDNN's defaults.
+BOOK_STEPS = 5
+# steps timed after the profiled one, with cuDNN's default algorithms
+BOOK_DEFAULT_STEPS = 3
+BOOK_BATCH = 128
+BOOK_SENT = dict(dict_dim=5000, lens=(10, 100))
+BOOK_SENT_BATCH = 64
+BOOK_SRL = dict(word_dict=30000, pred_dict=3000, label_dict=59,
+                lens=(10, 50))
+BOOK_SRL_BATCH = 10
+BOOK_REC = dict(users=6041, jobs=21, movies=3953, categories=18,
+                title_dict=5175)
+BOOK_REC_BATCH = 64
+# each step's loss, kernel route against kernel_tier=torch: lstm_seq keeps
+# W in bf16 (phase 5), so the stacked LSTM's loss moves by a few 1e-4;
+# the other chapters run the same plain ops on both routes
+BOOK_ROUTE_REL = 1e-3
+# step 1 on the card against the port on the CPU from one state, TF32 off:
+# float32 sums in other orders
+BOOK_CPU_REL = 1e-4
+# dropout's keep share within this many binomial sigmas of 1 - p
+DROPOUT_SIGMAS = 4.0
+
+
+def book_chapters():
+    """(name, builder, book_feed chapter, batch, feed sizes) of phase 19."""
+    from paddle_tpu_torch.testing import models as M
+    return [
+        ("digits_mlp", M.digits_mlp, "digits_mlp", BOOK_BATCH, {}),
+        ("digits_conv", M.digits_conv, "digits_conv", BOOK_BATCH, {}),
+        ("cifar_resnet32", lambda f: M.cifar_resnet(f, depth=32), "cifar",
+         BOOK_BATCH, {}),
+        ("cifar_vgg16", M.cifar_vgg, "cifar", BOOK_BATCH, {}),
+        ("sentiment_conv",
+         lambda f: M.sentiment_conv(f, BOOK_SENT["dict_dim"]), "sentiment",
+         BOOK_SENT_BATCH, BOOK_SENT),
+        ("sentiment_lstm",
+         lambda f: M.sentiment_lstm(f, BOOK_SENT["dict_dim"]), "sentiment",
+         BOOK_SENT_BATCH, BOOK_SENT),
+        ("srl", lambda f: M.srl_db_lstm(
+            f, BOOK_SRL["word_dict"], BOOK_SRL["pred_dict"],
+            BOOK_SRL["label_dict"]), "srl", BOOK_SRL_BATCH, BOOK_SRL),
+        ("recommender", lambda f: M.recommender(f, **BOOK_REC),
+         "recommender", BOOK_REC_BATCH, BOOK_REC),
+    ]
+
+
+def accuracy_vars(block):
+    """The (Correct, Total) names of the block's accuracy op."""
+    op = next(op for op in block.ops if op.type == "accuracy")
+    return op.output("Correct")[0], op.output("Total")[0]
+
+
+def book_lstm_kernels(torch, seed, ch, card):
+    """lstm_seq and lstm_seq_bwd against their plain versions, and the
+    forward against the float64 recipe, at phase 5's limits and at the
+    shapes stacked_lstm_net gives them: each lstm op's hidden width and
+    startup weight, the chapter's batch and its feed's ragged lengths. A
+    reversed layer hands the kernels its rows' valid prefixes reversed
+    (ops/rnn_ops.py), so their operands have the same shape and mask in
+    both directions. Runs before the chapter trains; its launches are
+    not counted."""
+    from paddle_tpu_torch.ops.cuda import rnn
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 19)
+    block = ch["main"].global_block()
+    lens = torch.tensor([len(s) for s in ch["raw"]["words"]], device=dev)
+    L = int(lens.max())
+    for i, op in enumerate(op for op in block.ops if op.type == "lstm"):
+        w = ch["init"].find_var(op.input("Weight")[0])
+        x, alive, _, h0, c0, dhs, dcs = lstm_operands(
+            torch, gen, dev, lens, L, w.shape[0])
+        log(f"{ch['name']} lstm #{i + 1} (is_reverse "
+            f"{op.attr('is_reverse')}): lstm_seq / lstm_seq_bwd vs their "
+            f"plain versions at b {len(lens)}, L {L}, H {w.shape[0]}, "
+            f"lengths {int(lens.min())}..{L}, the startup W | {card}")
+        hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
+        torch.cuda.synchronize()
+        ref = rnn.lstm_seq_torch(x, alive, w, h0, c0)
+        lstm_fwd_check(torch, (hs, cs), ref,
+                       lstm_float64(torch, x, alive, w, h0, c0), "lstm_seq")
+        lstm_bwd_check(torch, rnn, (x, alive, w, h0, c0, *ref, dhs, dcs))
+
+
+def book_route(torch, fluid, exe, ch, route, counters):
+    """BOOK_STEPS steps of chapter ``ch`` on ``route`` from a copy of its
+    startup state (each copy seeds its own generator from the program's
+    random_seed, so both routes draw the same dropout masks): losses,
+    step-1 extra fetches, ms a step, peak memory, kernel launches and
+    plain-routed ops a step."""
+    from paddle_tpu_torch.ops import cuda as tier
+    read, reset = counters
+    scope = copy_scope(fluid, torch, ch["init"])
+    losses, ms, per_step, first = [], [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fluid.set_flags({"kernel_tier": route})
+    try:
+        for step in range(BOOK_STEPS):
+            reset()
+            tier.reset_fallback_counts()
+            t0 = time.perf_counter()
+            vals = exe.run(ch["main"], feed=ch["feed"],
+                           fetch_list=[ch["loss"]] + (
+                               ch["extra"] if step == 0 else []),
+                           scope=scope, return_numpy=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_step.append((read(), dict(tier.fallback_counts())))
+            loss = float(vals[0])
+            if loss != loss or abs(loss) == float("inf"):
+                fail(f"{ch['name']}, kernel_tier={route} step {step + 1}: "
+                     f"loss {loss}")
+            losses.append(loss)
+            if step == 0:
+                first = vals[1:]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        fluid.set_flags({"kernel_tier": "auto"})
+    return dict(losses=losses, ms=ms, first=first, peak=peak,
+                per_step=per_step, scope=scope)
+
+
+def dropout_on_card(torch, fluid, card, problems):
+    """The dropout op on the card at vgg16's first dropout (batch x 64 x
+    32 x 32, p 0.3): Out == X * Mask bitwise, Mask 0/1, and the keep
+    share within DROPOUT_SIGMAS sigmas of 1 - p."""
+    import numpy as np
+    p = 0.3
+    fluid.reset_unique_name()
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.data("x", shape=[64, 32, 32])
+        out = fluid.layers.dropout(x, dropout_prob=p)
+    mask = next(op for op in main.global_block().ops
+                if op.type == "dropout").output("Mask")[0]
+    xs = torch.randn((BOOK_BATCH, 64, 32, 32), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(5))
+    o, m = fluid.Executor().run(main, feed={"x": xs},
+                                fetch_list=[out, mask], scope=fluid.Scope(),
+                                return_numpy=False)
+    exact = bool(torch.equal(o, xs * m))
+    binary = bool(((m == 0) | (m == 1)).all())
+    keep = float(m.double().mean())
+    sigma = float(np.sqrt(p * (1 - p) / m.numel()))
+    log(f"dropout on the card ({m.numel()} elements, p {p}): Out == X*Mask "
+        f"bitwise {exact}, Mask 0/1 {binary}, keep share {keep:.6f} "
+        f"against {1 - p} (|Δ| {abs(keep - (1 - p)) / sigma:.2f} sigma, "
+        f"limit {DROPOUT_SIGMAS}) | {card}")
+    if not (exact and binary
+            and abs(keep - (1 - p)) <= DROPOUT_SIGMAS * sigma):
+        problems.append(f"dropout on the card: bitwise {exact}, 0/1 "
+                        f"{binary}, keep share {keep}")
+
+
+def recount_metrics(ch, first, problems):
+    """accuracy's Correct/Total of step 1 against a numpy recount of the
+    predictions fetched in the same run."""
+    import numpy as np
+    pred = np.asarray(first[0].cpu())
+    correct, total = (int(t.item()) for t in first[1:3])
+    label = np.asarray(ch["feed"]["label"]).reshape(-1)
+    want = int((pred.argmax(1) == label).sum())
+    log(f"{ch['name']}: accuracy's Correct/Total {correct}/{total}, numpy "
+        f"recount {want}/{len(label)}")
+    if (correct, total) != (want, len(label)):
+        problems.append(f"{ch['name']}: accuracy counts {correct}/{total}, "
+                        f"recount {want}/{len(label)}")
+
+
+def iob_chunks(tags, types):
+    """The (begin, end, type) chunks of one IOB tag sequence, in numpy and
+    apart from the port's chunk extraction: tag 2k begins a chunk of type
+    k; 2k+1 continues the open chunk of type k, or begins one after an
+    Outside tag or a chunk of another type; tags >= 2 * types are
+    Outside. A chunk ends before the next begin or Outside tag."""
+    import numpy as np
+    tags = np.asarray(tags, np.int64).reshape(-1)
+    inside = (tags >= 0) & (tags < 2 * types)
+    kind = tags // 2
+    after = np.r_[False, inside[:-1]] & (np.r_[-1, kind[:-1]] == kind)
+    begins = inside & ((tags % 2 == 0) | ~after)
+    starts = np.flatnonzero(begins)
+    breaks = np.r_[np.flatnonzero(begins | ~inside), len(tags)]
+    ends = breaks[np.searchsorted(breaks, starts, side="right")] - 1
+    return {(int(a), int(e), int(kind[a])) for a, e in zip(starts, ends)}
+
+
+def srl_chunk_eval(torch, fluid, ch, first, card, problems):
+    """chunk_eval (IOB, 29 types) of SRL's fetched Viterbi paths against
+    the targets, in a program of its own on the card fed both on the
+    card: its three counts against iob_chunks' recount in numpy, and the
+    host syncs of the run (the op's one read)."""
+    types = (BOOK_SRL["label_dict"] - 1) // 2
+    fluid.reset_unique_name()
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        inf = fluid.layers.data("inf", shape=[1], dtype="int64",
+                                lod_level=1)
+        lab = fluid.layers.data("lab", shape=[1], dtype="int64",
+                                lod_level=1)
+        outs = fluid.layers.chunk_eval(inf, lab, "IOB", types)
+    path = first[2]
+    lens = path.lens.cpu().numpy()
+    paths = [path.data[i, :n].cpu().numpy() for i, n in enumerate(lens)]
+    targets = ch["raw"]["target"]
+    exe = fluid.Executor()
+    staged = {}
+    for key, seqs in (("inf", paths), ("lab", targets)):
+        packed = fluid.pack_sequences(seqs)
+        staged[key] = fluid.LoDArray(packed.data.to(exe.device),
+                                     packed.lens.to(exe.device))
+    counting, count, where = sync_counter(torch)
+    where[0] = "chunk_eval"
+    with counting():
+        got = exe.run(prog, feed=staged, fetch_list=list(outs[3:]),
+                      return_numpy=False)
+    syncs = count.get("chunk_eval", 0)
+    got = [int(g.reshape(-1)[0].item()) for g in got]
+    n_inf = n_lab = n_cor = 0
+    for a, b in zip(paths, targets):
+        ia, ib = (iob_chunks(s, types) for s in (a, b))
+        n_inf, n_lab, n_cor = n_inf + len(ia), n_lab + len(ib), \
+            n_cor + len(ia & ib)
+    log(f"srl chunk_eval (IOB, {types} types): inferred/label/correct "
+        f"chunks {got}, numpy recount {[n_inf, n_lab, n_cor]}; host syncs "
+        f"in the run {syncs} | {card}")
+    if got != [n_inf, n_lab, n_cor]:
+        problems.append(f"srl: chunk_eval counts {got}, recount "
+                        f"{[n_inf, n_lab, n_cor]}")
+    if syncs != 1:
+        problems.append(f"srl: chunk_eval's run made {syncs} host syncs, "
+                        f"want its one read")
+
+
+def card_vs_cpu(torch, fluid, ch, first, card, problems):
+    """Step 1 of the chapter on the port's CPU from the card's startup
+    state and feed: the loss within BOOK_CPU_REL relative; for SRL also
+    the per-sentence CRF cost and crfw@GRAD (relative to its largest
+    element), and the Viterbi paths equal."""
+    cpu = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    for n in ch["init"].local_names():
+        v = ch["init"].find_var(n)
+        if torch.is_tensor(v):
+            scope.set(n, v.cpu().clone())
+    vals = cpu.run(ch["main"], feed=ch["feed"],
+                   fetch_list=[ch["loss"]] + ch["extra"], scope=scope,
+                   return_numpy=False)
+    card_loss = ch["routes"]["auto"]["losses"][0]
+    rel = abs(card_loss - float(vals[0])) / abs(float(vals[0]))
+    line = (f"{ch['name']}: step 1 on the card {card_loss:.7f}, on the CPU "
+            f"{float(vals[0]):.7f} (relative {rel:.2e}, limit "
+            f"{BOOK_CPU_REL:.0e})")
+    ok = rel <= BOOK_CPU_REL
+    if ch["name"] == "srl":
+        cost_g, cost_c = first[0].double().cpu(), vals[1].double()
+        crel = ((cost_g - cost_c).abs() / cost_c.abs()).max().item()
+        dw_g, dw_c = first[1].double().cpu(), vals[2].double()
+        wrel = ((dw_g - dw_c).abs().max()
+                / dw_c.abs().max().clamp_min(1e-30)).item()
+        pg, pc = first[2], vals[3]
+        same = bool(torch.equal(pg.lens.cpu(), pc.lens)) and all(
+            torch.equal(pg.data[i, :n].cpu(), pc.data[i, :n])
+            for i, n in enumerate(pc.lens.tolist()))
+        line += (f"; CRF cost per sentence worst {crel:.2e}, crfw@GRAD "
+                 f"{wrel:.2e} of its largest, Viterbi paths equal {same}")
+        ok = ok and crel <= BOOK_CPU_REL and wrel <= BOOK_CPU_REL and same
+    log(line + f" | {card}")
+    if not ok:
+        problems.append(f"{ch['name']}: the card and the CPU differ at "
+                        f"step 1: {line}")
+
+
+def phase_book(torch, fluid, seed, card):
+    """Phase 19. Returns lstm_seq's and lstm_seq_bwd's launches in the
+    kernel route's counted steps."""
+    counters = kernel_counters()
+
+    log(f"\n== phase 19: the book chapters (tests/book/) at the book's "
+        f"widths, {BOOK_STEPS} Adam steps on one synthetic batch each, on "
+        f"the kernel route and on kernel_tier=torch | {card} ==")
+    exe = fluid.Executor()
+    problems, launched = [], {"lstm_seq": 0, "lstm_seq_bwd": 0}
+    dropout_on_card(torch, fluid, card, problems)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for chapter in book_chapters():
+            book_chapter(torch, fluid, exe, seed, card, chapter, counters,
+                         problems, launched)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if problems:
+        fail("; ".join(problems))
+    log("phase 19 launches: " + json.dumps(launched))
+    return launched
+
+
+def book_chapter(torch, fluid, exe, seed, card, chapter, counters, problems,
+                 launched):
+    """One chapter of phase 19: both routes, their readings and checks;
+    problems appended, lstm_seq launches added to ``launched``."""
+    from paddle_tpu_torch.testing import models as M
+    name, build, kind, batch, sizes = chapter
+    fluid.reset_unique_name()
+    main, startup, v = build(fluid)
+    main.random_seed = startup.random_seed = seed
+    block = main.global_block()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = M.book_feed(kind, batch, seed, **sizes)
+    ch = dict(name=name, main=main, loss=v["loss"], init=init, raw=feed,
+              feed={n: fluid.pack_sequences(x) if isinstance(x, list)
+                    else x for n, x in feed.items()}, extra=[])
+    if "acc" in v:
+        ch["extra"] = [v["predict"], *accuracy_vars(block)]
+    if name == "srl":
+        ch["extra"] = [v["crf_cost"], "crfw@GRAD", v["decode"]]
+    log(f"\n{name}: batch {batch}, program: {op_counts(block)}")
+    if name == "sentiment_lstm":
+        book_lstm_kernels(torch, seed, ch, card)
+    ch["routes"] = {r: book_route(torch, fluid, exe, ch, r, counters)
+                    for r in ("auto", "torch")}
+    for route, res in ch["routes"].items():
+        launches, falls = res["per_step"][-1]
+        ran = {k: n for k, n in launches.items() if n}
+        steady = sum(res["ms"][1:]) / len(res["ms"][1:])
+        # the profiled step and BOOK_DEFAULT_STEPS timed ones run with
+        # cuDNN's default algorithms, as a user's run does; the counted
+        # steps above are deterministic
+
+        def step():
+            return float(exe.run(main, feed=ch["feed"],
+                                 fetch_list=[ch["loss"]], scope=res["scope"],
+                                 return_numpy=False)[0])
+
+        fluid.set_flags({"kernel_tier": route})
+        torch.backends.cudnn.deterministic = False
+        try:
+            prof = profile(torch, step, f"{name}, one step, "
+                           f"kernel_tier={route}, cuDNN default", card,
+                           reps=1)
+            t0 = time.perf_counter()
+            for _ in range(BOOK_DEFAULT_STEPS):
+                step()
+            default_ms = (time.perf_counter() - t0) * 1e3 \
+                / BOOK_DEFAULT_STEPS
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+            torch.backends.cudnn.deterministic = True
+        busy = (f"cuDNN default: {default_ms:.2f} ms/step; profiled step "
+                f"{prof[0]:.2f} ms, device busy {prof[1]:.2f} ms "
+                f"({100 * prof[1] / prof[0]:.1f}%)" if prof
+                else f"cuDNN default: {default_ms:.2f} ms/step; device "
+                "busy not measured")
+        log(f"{name}, kernel_tier={route}: losses "
+            + " ".join(f"{x:.6f}" for x in res["losses"])
+            + " | ms/step " + " ".join(f"{x:.1f}" for x in res["ms"])
+            + f" | steady {steady:.2f} ms/step (cudnn.deterministic) | "
+            f"{busy} | peak memory "
+            f"{res['peak']:.2f} GiB | kernel launches a step {ran} | "
+            f"plain-routed a step {falls} | {card}")
+    auto, plain = ch["routes"]["auto"], ch["routes"]["torch"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(auto["losses"],
+                                               plain["losses"])]
+    log(f"{name}: loss per step, kernel route vs kernel_tier=torch, "
+        "relative: " + " ".join(f"{x:.2e}" for x in rel)
+        + f" (limit {BOOK_ROUTE_REL:.0e})")
+    if not max(rel) <= BOOK_ROUTE_REL:
+        problems.append(f"{name}: the routes' losses differ by "
+                        f"{max(rel):.3e}")
+    if not auto["losses"][-1] < auto["losses"][0]:
+        problems.append(f"{name}: the loss did not fall on the kernel "
+                        f"route: {auto['losses']}")
+    for step, (launches, falls) in enumerate(auto["per_step"]):
+        ran = {k: n for k, n in launches.items() if n}
+        if name == "sentiment_lstm":
+            want = ({"lstm_seq": 3, "lstm_seq_bwd": 3}, {})
+        elif name == "srl":
+            # 8 lstm forwards, and each lstm_grad replays its forward
+            # under autograd through the same route choice: 8 more
+            want = ({}, {"lstm": 16})
+        else:
+            want = ({}, {})
+        if (ran, falls) != want:
+            problems.append(f"{name} step {step + 1}: launches {ran}, "
+                            f"plain-routed {falls}; want {want}")
+        for k in launched:
+            launched[k] += launches.get(k, 0)
+    if "acc" in v:
+        recount_metrics(ch, auto["first"], problems)
+    if name == "srl":
+        srl_chunk_eval(torch, fluid, ch, auto["first"], card, problems)
+    if name in ("digits_mlp", "digits_conv", "cifar_resnet32", "srl",
+                "recommender"):
+        card_vs_cpu(torch, fluid, ch, auto["first"], card, problems)
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -6557,6 +7016,7 @@ def main():
                               dict(resnet=resnet_f32, textcls=textcls_f32))
     rt = phase_runtime(torch, fluid, args.seed, card, serving, gen)
     s2s = phase_seq2seq(torch, fluid, args.seed, card)
+    book = phase_book(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -6601,12 +7061,12 @@ def main():
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
-              + rt["lstm_seq"] + s2s["lstm_seq"],
+              + rt["lstm_seq"] + s2s["lstm_seq"] + book["lstm_seq"],
               rnn_totals["lstm_seq"]),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
               + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"]
-              + s2s["lstm_seq_bwd"],
+              + s2s["lstm_seq_bwd"] + book["lstm_seq_bwd"],
               rnn_totals["lstm_seq_bwd"]),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]

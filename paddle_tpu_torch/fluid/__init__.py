@@ -1,8 +1,8 @@
 """paddle_tpu_torch.fluid — the user API ported so far (counterpart of
-paddle_tpu/fluid/__init__.py): layers, Program/program_guard, Executor,
-initializer, io, fuse_conv_bn, backward, optimizer, regularizer, clip,
-DataFeeder, average, places, Scope, flags, amp_guard, the program verifier
-and lint (``analysis``) and the LoD feed helpers."""
+paddle_tpu/fluid/__init__.py): layers, nets, Program/program_guard,
+Executor, initializer, io, fuse_conv_bn, backward, optimizer, regularizer,
+clip, evaluator, DataFeeder, average, places, Scope, flags, amp_guard, the
+program verifier and lint (``analysis``) and the LoD feed helpers."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -21,6 +21,7 @@ from . import analysis  # static analysis (also installs the SlotSpec catalogue)
 from .analysis import ProgramVerifyError, lint_program, verify_program
 
 from . import layers
+from . import nets
 from . import initializer
 from . import io
 from . import backward
@@ -28,6 +29,7 @@ from . import optimizer
 from . import regularizer
 from . import clip
 from . import average
+from . import evaluator
 from .backward import append_backward
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
@@ -43,5 +45,5 @@ __all__ = [
     "append_backward", "ParamAttr", "fuse_conv_bn",
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
     "amp_guard", "analysis", "ProgramVerifyError", "lint_program",
-    "verify_program",
+    "verify_program", "nets", "evaluator",
 ]

@@ -9,9 +9,8 @@ create, rewire, or strip — the op set where a pass bug actually lands.
 Ops without a spec are not arity-checked (the shadow infer_shape pass
 still catches most slot damage for them); add a spec here when an op
 joins a transform's rewrite surface. ``register_all`` skips the op types
-this package does not register (today ``dropout``, ``matmul``,
-``accuracy`` and ``delete_var``, so 35 of the 39 are installed); each
-takes its spec the moment its op is ported. The op modules register
+this package does not register (today ``delete_var`` alone, so 38 of the
+39 are installed); it takes its spec the moment its op is ported. The op modules register
 before this one runs (``fluid/__init__`` imports ``ops`` first), so
 ``reshape``'s spec is installed.
 

@@ -3,8 +3,9 @@ control_flow.py): increment, the comparisons, tensor arrays
 (create_array, array_write, array_read, array_length), While (with
 ``max_iters``), Switch, StaticRNN and DynamicRNN (one ``recurrent`` /
 ``dynamic_recurrent`` op over a step block), the beam-search layers
-(beam_search, batch_gather, beam_search_decode) and IfElse. The ops they
-build run as loops over their sub-blocks (ops/control_flow_ops.py)."""
+(beam_search, batch_gather, beam_search_decode), IfElse and the debug
+Print. The ops they build run as loops over their sub-blocks
+(ops/control_flow_ops.py)."""
 
 from __future__ import annotations
 
@@ -540,7 +541,29 @@ def equal(x, y, cond=None):
     return cond
 
 
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """Print a variable as the program runs and pass it through (reference
+    :471): ``print_phase`` "forward", "backward" (its gradient) or
+    "both". Each print copies the tensor to the host."""
+    helper = LayerHelper("print")
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape,
+                                     lod_level=input.lod_level)
+    helper.append_op(
+        "print", inputs={"In": [input.name]}, outputs={"Out": [out.name]},
+        attrs={"first_n": first_n, "message": message or "",
+               "summarize": summarize,
+               "print_tensor_name": print_tensor_name,
+               "print_tensor_type": print_tensor_type,
+               "print_tensor_shape": print_tensor_shape,
+               "print_tensor_lod": print_tensor_lod,
+               "print_phase": print_phase})
+    return out
+
+
 __all__ = ["increment", "less_than", "equal", "create_array", "array_write",
            "array_read", "array_length", "While", "Switch", "StaticRNN",
            "DynamicRNN", "beam_search", "batch_gather", "beam_search_decode",
-           "IfElse"]
+           "IfElse", "Print"]

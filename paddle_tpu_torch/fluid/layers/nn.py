@@ -5,8 +5,11 @@ fc (over one input or several), embedding, softmax, cross_entropy,
 softmax_with_cross_entropy, mean, conv2d, pool2d, batch_norm, topk,
 warpctc, ctc_greedy_decoder and edit_distance; the elementwise
 add, sub, mul, div, max, min and pow that the schedules and the clips
-build; and those the decoder LM of the generation slice builds:
-layer_norm and causal_self_attention.
+build; those the decoder LM of the generation slice builds:
+layer_norm and causal_self_attention; and those the book chapters build:
+dropout, square_error_cost, sigmoid_cross_entropy_with_logits, accuracy,
+mul, linear_chain_crf, crf_decoding, cos_sim, matmul, l2_normalize,
+multiplex, one_hot and smooth_l1.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -70,6 +73,216 @@ def embedding(input, size, is_sparse=False, padding_idx=None,
                      attrs={"is_sparse": is_sparse,
                             "padding_idx": padding_idx})
     return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """Paddle's 2018 dropout (reference nn.py:71): Out = X * Mask in
+    training, X * (1 - p) under ``is_test``; Mask is an output too."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    mask = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                      lod_level=x.lod_level,
+                                      stop_gradient=True)
+    helper.append_op("dropout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "seed": seed or 0})
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)² as an elementwise_sub and a square op (reference
+    nn.py:119)."""
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("elementwise_sub",
+                     inputs={"X": [input.name], "Y": [label.name]},
+                     outputs={"Out": [minus_out.name]})
+    sq = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("square", inputs={"X": [minus_out.name]},
+                     outputs={"Out": [sq.name]})
+    return sq
+
+
+def sigmoid_cross_entropy_with_logits(x, label):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits")
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy of a batch (reference nn.py:150): a top_k op, then
+    an accuracy op with its int32 Correct and Total counts."""
+    helper = LayerHelper("accuracy")
+    topk_shape = tuple(input.shape[:-1]) + (k,)
+    topk_out = helper.create_tmp_variable(input.dtype, shape=topk_shape,
+                                          stop_gradient=True)
+    topk_indices = helper.create_tmp_variable("int64", shape=topk_shape,
+                                              stop_gradient=True)
+    helper.append_op("top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [topk_out.name],
+                              "Indices": [topk_indices.name]},
+                     attrs={"k": k})
+    acc_out = helper.create_tmp_variable("float32", shape=(),
+                                         stop_gradient=True)
+    correct = correct or helper.create_tmp_variable("int32", shape=(),
+                                                    stop_gradient=True)
+    total = total or helper.create_tmp_variable("int32", shape=(),
+                                                stop_gradient=True)
+    helper.append_op("accuracy",
+                     inputs={"Out": [topk_out.name],
+                             "Indices": [topk_indices.name],
+                             "Label": [label.name]},
+                     outputs={"Accuracy": [acc_out.name],
+                              "Correct": [correct.name],
+                              "Total": [total.name]})
+    return acc_out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1):
+    """The flatten-to-2D product (reference nn.py:262)."""
+    helper = LayerHelper("mul")
+    out = helper.create_tmp_variable(
+        x.dtype, shape=tuple(x.shape[:x_num_col_dims])
+        + tuple(y.shape[y_num_col_dims:]))
+    helper.append_op("mul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    """Batched X @ Y with transpose flags (reference nn.py:541)."""
+    helper = LayerHelper("matmul", name=name)
+    xs, ys = list(x.shape), list(y.shape)
+    if transpose_x:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    out = helper.create_tmp_variable(x.dtype, shape=tuple(xs[:-1] + ys[-1:]))
+    helper.append_op("matmul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [N, 1] (reference nn.py:531); the op also
+    keeps both rows' norms for its grad, as cos_sim_op.cc does."""
+    helper = LayerHelper("cos_sim")
+    out = helper.create_tmp_variable(X.dtype, shape=tuple(X.shape[:-1]) + (1,))
+    xnorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    ynorm = helper.create_tmp_variable(X.dtype, stop_gradient=True)
+    helper.append_op("cos_sim", inputs={"X": [X.name], "Y": [Y.name]},
+                     outputs={"Out": [out.name], "XNorm": [xnorm.name],
+                              "YNorm": [ynorm.name]})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """The CRF's negative log-likelihood [b, 1] (reference nn.py:452) over
+    a [num_tags + 2, num_tags] Transition parameter."""
+    helper = LayerHelper("linear_chain_crf")
+    size = input.shape[-1]
+    transition = helper.create_parameter(param_attr, shape=(size + 2, size),
+                                         dtype=input.dtype)
+    log_likelihood = helper.create_tmp_variable(input.dtype)
+    helper.append_op("linear_chain_crf",
+                     inputs={"Emission": [input.name],
+                             "Transition": [transition.name],
+                             "Label": [label.name]},
+                     outputs={"LogLikelihood": [log_likelihood.name]})
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi paths (reference nn.py:469) over the Transition parameter
+    that ``param_attr`` names (the CRF's, shared by name)."""
+    helper = LayerHelper("crf_decoding")
+    transition = helper.create_parameter(
+        ParamAttr.to_attr(param_attr),
+        shape=(input.shape[-1] + 2, input.shape[-1]), dtype=input.dtype)
+    path = helper.create_tmp_variable("int64", lod_level=1)
+    inputs = {"Emission": [input.name], "Transition": [transition.name]}
+    if label is not None:
+        inputs["Label"] = [label.name]
+    helper.append_op("crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path.name]})
+    return path
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(max(Σ x² along ``axis``, epsilon)) as square, reduce_sum,
+    clip, sqrt, reciprocal and elementwise_mul ops (reference
+    nn.py:787)."""
+    helper = LayerHelper("l2_normalize", name=name)
+    if len(x.shape) == 1:
+        axis = 0
+    rshape = tuple(1 if i == axis % len(x.shape) else s
+                   for i, s in enumerate(x.shape))
+
+    def unary(op_type, src, shape, attrs=None):
+        out = helper.create_tmp_variable(x.dtype, shape=shape)
+        helper.append_op(op_type, inputs={"X": [src.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+
+    square = unary("square", x, x.shape)
+    reduced = unary("reduce_sum", square, rshape,
+                    {"dim": axis, "keep_dim": True, "reduce_all": False})
+    clipped = unary("clip", reduced, rshape,
+                    {"min": float(epsilon), "max": 3.4e38})
+    rsq = unary("reciprocal", unary("sqrt", clipped, rshape), rshape)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    helper.append_op("elementwise_mul",
+                     inputs={"X": [x.name], "Y": [rsq.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": -1})
+    return out
+
+
+def multiplex(inputs, index):
+    """Row i from candidate ``inputs[index[i]]`` (reference nn.py:821)."""
+    if not isinstance(inputs, (list, tuple)) or len(inputs) < 2:
+        raise ValueError("multiplex needs at least 2 input tensors")
+    helper = LayerHelper("multiplex")
+    out = helper.create_tmp_variable(inputs[0].dtype, shape=inputs[0].shape)
+    helper.append_op("multiplex",
+                     inputs={"X": [i.name for i in inputs],
+                             "Ids": [index.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def one_hot(input, depth):
+    """Int ids as float32 one-hot rows (reference nn.py:835)."""
+    helper = LayerHelper("one_hot")
+    shape = tuple(input.shape[:-1]) + (depth,) if input.shape else None
+    out = helper.create_tmp_variable("float32", shape=shape)
+    helper.append_op("one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"depth": depth})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    """Smooth-L1 loss rows [N, 1] (reference nn.py:845)."""
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    loss = helper.create_tmp_variable(x.dtype, shape=(x.shape[0], 1))
+    inputs = {"X": [x.name], "Y": [y.name]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight.name]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight.name]
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff.name], "Out": [loss.name]},
+                     attrs={"sigma": 1.0 if sigma is None else float(sigma)})
+    return loss
 
 
 def cross_entropy(input, label, soft_label=False):
@@ -378,4 +591,8 @@ __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_pow", "conv2d",
            "pool2d", "batch_norm", "topk", "warpctc", "ctc_greedy_decoder",
-           "edit_distance", "layer_norm", "causal_self_attention"]
+           "edit_distance", "layer_norm", "causal_self_attention", "dropout",
+           "square_error_cost", "sigmoid_cross_entropy_with_logits",
+           "accuracy", "mul", "matmul", "cos_sim", "linear_chain_crf",
+           "crf_decoding", "l2_normalize", "multiplex", "one_hot",
+           "smooth_l1"]

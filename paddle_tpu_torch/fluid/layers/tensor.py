@@ -1,7 +1,7 @@
 """Tensor layer functions (counterpart of paddle_tpu/fluid/layers/
 tensor.py): create_tensor, create_global_var, cast,
 concat, sums, scale, assign, fill_constant, fill_constant_batch_size_like,
-ones, zeros, reshape, transpose, split and argmax."""
+ones, zeros, reshape, transpose, split, argmax and create_parameter."""
 
 from __future__ import annotations
 
@@ -196,6 +196,20 @@ def create_global_var(shape, value, dtype, persistable=False,
     return var
 
 
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A trainable parameter outside any layer (reference :172)."""
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter")
+    attr = ParamAttr.to_attr(attr)
+    if name is not None and attr.name is None:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
 __all__ = ["create_tensor", "cast", "concat", "sums", "scale", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones", "zeros",
-           "reshape", "transpose", "split", "argmax", "create_global_var"]
+           "reshape", "transpose", "split", "argmax", "create_global_var",
+           "create_parameter"]

@@ -1,17 +1,50 @@
-"""The embedding lookup (counterpart of paddle_tpu/ops/nn_ops.py):
-``lookup_table`` (reference :47) and its gradient (reference :65), dense,
-or with ``is_sparse`` a ``SparseRows`` (``core/sparse.py``) that the
-optimizers' sparse branches consume without forming the [vocab, dim]
-gradient."""
+"""Dropout and the embedding lookup (counterpart of
+paddle_tpu/ops/nn_ops.py): ``dropout`` (reference :21) and its gradient
+(reference :40); ``lookup_table`` (reference :47) and its gradient
+(reference :65), dense, or with ``is_sparse`` a ``SparseRows``
+(``core/sparse.py``) that the optimizers' sparse branches consume without
+forming the [vocab, dim] gradient."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.lod import LoDArray
-from ..core.registry import register_op, OpSpec, G
+from ..core.registry import register_op, same_shape, OpSpec, G
 from ..core.sparse import add_rows, sparse_rows_from_grad
 from .common import data_of, like
+
+
+@register_op("dropout", infer_shape=same_shape("X", "Out"),
+             grad=lambda op: [OpSpec(
+                 "dropout_grad",
+                 {"Mask": op.output("Mask"), "Out@GRAD": G(op.output("Out"))},
+                 {"X@GRAD": G(op.input("X"))}, dict(op.attrs))])
+def dropout(ctx):
+    """Paddle's 2018 dropout (dropout_op.h), not the inverted one of
+    ``torch.nn.functional.dropout``: training gives Out = X * Mask with
+    Mask ~ Bernoulli(1 - dropout_prob) and no 1/(1-p) upscale; ``is_test``
+    gives X * (1 - p) and an all-ones Mask. The mask is a uniform draw
+    from the executor's generator kept where it is below 1 - p (the
+    reference's ``jax.random.bernoulli`` rule, not its bits)."""
+    x = ctx.input("X")
+    xd = data_of(x)
+    prob = ctx.attr("dropout_prob", 0.5)
+    if ctx.attr("is_test", False):
+        ctx.set_output("Out", like(x, xd * (1.0 - prob)))
+        ctx.set_output("Mask", like(x, torch.ones_like(xd)))
+        return
+    u = torch.rand(xd.shape, generator=ctx.generator(), dtype=torch.float32,
+                   device=xd.device)
+    mask = (u < 1.0 - prob).to(xd.dtype)
+    ctx.set_output("Out", like(x, xd * mask))
+    ctx.set_output("Mask", like(x, mask))
+
+
+@register_op("dropout_grad")
+def dropout_grad(ctx):
+    d = ctx.input("Out@GRAD")
+    ctx.set_output("X@GRAD", like(d, data_of(d) * data_of(ctx.input("Mask"))))
 
 
 def _ids(v):

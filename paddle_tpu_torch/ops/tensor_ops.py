@@ -4,16 +4,18 @@ paddle_tpu/ops/tensor_ops.py): fill_constant,
 fill_constant_batch_size_like, fill_zeros_like, uniform_random,
 gaussian_random, cast, scale, assign, sign, clip, clip_by_norm,
 squared_l2_norm, increment, reshape, transpose, concat, split, sum, the
-comparison and logical ops, top_k and argmax, with the reference's grad
-makers. The LoD-transparent ones keep a LoDArray input's lengths, so the
+comparison and logical ops, top_k and argmax, assign_value, shape,
+gather, scatter, one_hot, multiplex and the debug print, with the
+reference's grad makers. The LoD-transparent ones keep a LoDArray input's lengths, so the
 padded positions of a LoD gradient stay masked downstream. ``sum`` also
 adds SparseRows gradients and tensor-array gradients (a ``TensorArrayVal``
 read twice); ``fill_zeros_like`` zero-fills either;
 ``clip``, ``clip_by_norm`` and ``squared_l2_norm`` merge a SparseRows input
 first (the clip of a sum is not the sum of the clips).
 
-None of them reads a device value on the host: a schedule, clip or decay
-op on the card queues its work and returns.
+None of them but ``print`` reads a device value on the host: a schedule,
+clip or decay op on the card queues its work and returns. ``print`` is a
+debug op that copies its tensor to the host, one sync a call.
 
 Random ops draw from the executor's ``torch.Generator``, seeded once per
 scope from ``Program.random_seed``. They do not reproduce the reference's
@@ -22,11 +24,13 @@ jax.random draws; cross-package tests copy parameters instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.lod import LoDArray
 from ..core.registry import register_op, same_shape, OpSpec, G
-from ..core.sparse import SparseRows, is_sparse, merge_rows
+from ..core.sparse import SparseRows, add_rows, is_sparse, merge_rows
 from ..core.types import torch_dtype
 from .common import data_of, like
 from .control_flow_ops import TensorArrayVal
@@ -380,3 +384,133 @@ def argmax(ctx):
     :416)."""
     x = data_of(ctx.input("X"))
     ctx.set_output("Out", torch.argmax(x, dim=ctx.attr("axis", -1)))
+
+
+@register_op("assign_value")
+def assign_value(ctx):
+    """The ``values`` attribute as a tensor of ``shape`` (reference :81)
+    in the attribute ``dtype`` where given, else float32 for floats and
+    int32 for integers, as the reference gives them."""
+    values = np.asarray(ctx.attr("values"))
+    dtype = ctx.attr("dtype")
+    if dtype is not None:
+        t = torch_dtype(dtype)
+    else:
+        t = torch.float32 if values.dtype.kind == "f" else (
+            torch.bool if values.dtype.kind == "b" else torch.int32)
+    ctx.set_output("Out", torch.tensor(
+        values.reshape(tuple(ctx.attr("shape", values.shape))), dtype=t,
+        device=ctx.device))
+
+
+@register_op("shape")
+def shape_op(ctx):
+    """Input's dims as an int64 vector (reference :207): the padded dims of
+    a LoDArray."""
+    x = data_of(ctx.input("Input"))
+    ctx.set_output("Out", torch.tensor(list(x.shape), dtype=torch.int64,
+                                       device=ctx.device))
+
+
+@register_op("gather", grad=lambda op: [OpSpec(
+    "gather_grad",
+    {"X": op.input("X"), "Index": op.input("Index"),
+     "Out@GRAD": G(op.output("Out"))},
+    {"X@GRAD": G(op.input("X"))})])
+def gather(ctx):
+    """Rows of X at Index (reference :340): Out's shape is Index's shape
+    followed by X's row shape."""
+    x = data_of(ctx.input("X"))
+    ctx.set_output("Out", x[data_of(ctx.input("Index")).long()])
+
+
+@register_op("gather_grad")
+def gather_grad(ctx):
+    """Out@GRAD's rows added into zeros at their indices, duplicates summed
+    in order (``core/sparse.py::add_rows``)."""
+    x = data_of(ctx.input("X"))
+    idx = data_of(ctx.input("Index")).long().reshape(-1)
+    d = data_of(ctx.input("Out@GRAD")).reshape((-1,) + tuple(x.shape[1:]))
+    ctx.set_output("X@GRAD", add_rows(torch.zeros_like(x), idx,
+                                      d.to(x.dtype)))
+
+
+@register_op("scatter")
+def scatter(ctx):
+    """X with its rows at Ids overwritten by Updates (reference :359); no
+    grad, as the reference's."""
+    out = data_of(ctx.input("X")).clone()
+    out[data_of(ctx.input("Ids")).long()] = data_of(ctx.input("Updates")) \
+        .to(out.dtype)
+    ctx.set_output("Out", out)
+
+
+@register_op("one_hot")
+def one_hot(ctx):
+    """Int ids (a trailing dim of 1 dropped) as float32 one-hot rows of
+    ``depth`` (reference :407)."""
+    x = data_of(ctx.input("X"))
+    flat = x.reshape(x.shape[:-1]) if x.ndim and x.shape[-1] == 1 else x
+    ctx.set_output("Out", F.one_hot(flat.long(), int(ctx.attr("depth")))
+                   .to(torch.float32))
+
+
+@register_op("multiplex")
+def multiplex(ctx):
+    """Row i of Out is row i of the candidate X[Ids[i]] (reference
+    :424)."""
+    ids = data_of(ctx.input("Ids")).reshape(-1).long()
+    xs = torch.stack([data_of(v) for v in ctx.inputs("X")])
+    ctx.set_output("Out", xs[ids, torch.arange(ids.shape[0],
+                                                device=ids.device)])
+
+
+_PRINT_COUNTS: dict = {}
+
+
+def _print_grad_maker(op):
+    """The backward phases print the gradient (a print op on Out@GRAD);
+    print_phase="forward" passes it through with an assign (reference
+    :439)."""
+    if op.attr("print_phase", "both") in ("backward", "both"):
+        return [OpSpec("print", {"In": G(op.output("Out"))},
+                       {"Out": G(op.input("In"))},
+                       {**dict(op.attrs),
+                        "message": (op.attr("message", "") or "") + " @GRAD",
+                        "print_phase": "forward",
+                        "is_backward_print": True})]
+    return [OpSpec("assign", {"X": G(op.output("Out"))},
+                   {"Out": G(op.input("In"))})]
+
+
+@register_op("print", infer_shape=same_shape("In", "Out"),
+             grad=_print_grad_maker)
+def print_op(ctx):
+    """Debug print (print_op.cc): the message, the tensor's name, dtype and
+    shape and its first ``summarize`` values on one line for the first
+    ``first_n`` runs of the op (every run when negative), then the value
+    passed through unchanged. Printing copies the tensor to the host."""
+    xv = ctx.input("In")
+    x = data_of(xv)
+    if ctx.attr("print_phase", "both") in ("forward", "both") \
+            or ctx.attr("is_backward_print", False):
+        key = id(ctx.op)
+        count = _PRINT_COUNTS.get(key, 0)
+        first_n = int(ctx.attr("first_n", -1))
+        if first_n < 0 or count < first_n:
+            _PRINT_COUNTS[key] = count + 1
+            message = ctx.attr("message", "") or ""
+            parts = [message] if message else []
+            if ctx.attr("print_tensor_name", True):
+                parts.append(f"name={ctx.op.input('In')[0]}")
+            if ctx.attr("print_tensor_type", True):
+                parts.append(f"dtype={str(x.dtype).replace('torch.', '')}")
+            if ctx.attr("print_tensor_shape", True):
+                parts.append(f"shape={tuple(x.shape)}")
+            flat = x.detach().reshape(-1)
+            summarize = int(ctx.attr("summarize", 20))
+            k = flat.numel() if summarize < 0 else min(summarize,
+                                                       flat.numel())
+            parts.append(f"data={flat[:k].cpu().tolist()}")
+            print("[print op] " + "  ".join(parts), flush=True)
+    ctx.set_output("Out", like(xv, x))

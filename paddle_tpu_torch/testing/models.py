@@ -26,6 +26,13 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``build_tiny_lm`` / ``export_tiny_lm``: the decoder-only LM the
   generation engine serves (paddle_tpu/testing/models.py:129, :165), with
   the reference's defaults, op order and parameter names.
+* the book chapters of tests/book/, each taking ``fluid``: ``digits_mlp``
+  and ``digits_conv`` (recognize_digits), ``cifar_resnet`` and
+  ``cifar_vgg`` (image_classification's resnet_cifar10 and
+  vgg16_bn_drop), ``sentiment_conv`` and ``sentiment_lstm``
+  (understand_sentiment's convolution_net and stacked_lstm_net),
+  ``srl_db_lstm`` (label_semantic_roles) and ``recommender``, with
+  ``book_feed`` for their synthetic batches.
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -445,3 +452,366 @@ def nmt_feed(triples):
     arrays for ``src``, ``trg`` and ``trg_next``."""
     return {k: [np.asarray(t[i], "int64").reshape(-1, 1) for t in triples]
             for i, k in enumerate(("src", "trg", "trg_next"))}
+
+
+# ---------------------------------------------------------------------------
+# The book chapters (tests/book/). Each builder takes the fluid module to
+# build with and the chapter's widths (the book's by default), and returns
+# (main, startup, v): v["loss"] the mean cost, v["feeds"] the data names in
+# feed order and, where the chapter has them, v["predict"], v["acc"],
+# v["decode"] (SRL's Viterbi paths) and v["target"]. ``book_feed`` makes a
+# chapter's synthetic batch from a seed. The default optimizer is Adam at
+# the book's rate (0.002; SRL 1e-4, its SGD rate: db_lstm diverges under
+# Adam at 2e-3 at the book's widths) or the repo test's (the recommender's
+# 0.01); ``opt`` (fluid -> optimizer) replaces it.
+# ---------------------------------------------------------------------------
+
+# vgg16_bn_drop's conv blocks (book chapter 3): (filters, convs, dropout
+# rate after each conv's batch norm)
+VGG16_BLOCKS = ((64, 2, (0.3, 0.0)), (128, 2, (0.4, 0.0)),
+                (256, 3, (0.4, 0.4, 0.0)), (512, 3, (0.4, 0.4, 0.0)),
+                (512, 3, (0.4, 0.4, 0.0)))
+
+
+def _classifier_head(fluid, predict, label, v):
+    """Mean cross entropy and accuracy of a softmax ``predict``, recorded
+    in ``v``; returns the mean."""
+    layers = fluid.layers
+    avg = layers.mean(layers.cross_entropy(input=predict, label=label))
+    v.update(loss=avg, predict=predict,
+             acc=layers.accuracy(input=predict, label=label))
+    return avg
+
+
+def _build(fluid, body, opt, lr):
+    """Run ``body(v)`` under a fresh program pair; it returns the loss,
+    which the optimizer (``opt(fluid)`` or Adam(lr)) minimizes."""
+    main, startup = fluid.Program(), fluid.Program()
+    v = {}
+    with fluid.program_guard(main, startup):
+        loss = body(v)
+        optimizer = opt(fluid) if opt else fluid.optimizer.Adam(
+            learning_rate=lr)
+        optimizer.minimize(loss, startup)
+    return main, startup, v
+
+
+def digits_mlp(fluid, hidden=(128, 64), lr=0.002, opt=None):
+    """recognize_digits' MLP (tests/book/test_recognize_digits.py:30):
+    784 -> 128 -> 64 relu -> 10 softmax."""
+    layers = fluid.layers
+
+    def body(v):
+        img = layers.data("img", shape=[784])
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = img
+        for size in hidden:
+            h = layers.fc(input=h, size=size, act="relu")
+        v["feeds"] = ["img", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=h, size=10, act="softmax"), label, v)
+    return _build(fluid, body, opt, lr)
+
+
+def digits_conv(fluid, filters=(20, 50), lr=0.002, opt=None):
+    """The book's conv net for MNIST (chapter 2, conv_net): two
+    simple_img_conv_pool (5x5, pool 2/2, relu) with a batch_norm between,
+    then fc(10, softmax), on 1x28x28 images."""
+    layers, nets = fluid.layers, fluid.nets
+
+    def body(v):
+        img = layers.data("img", shape=[1, 28, 28])
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = nets.simple_img_conv_pool(input=img, filter_size=5,
+                                      num_filters=filters[0], pool_size=2,
+                                      pool_stride=2, act="relu")
+        h = layers.batch_norm(h)
+        h = nets.simple_img_conv_pool(input=h, filter_size=5,
+                                      num_filters=filters[1], pool_size=2,
+                                      pool_stride=2, act="relu")
+        v["feeds"] = ["img", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=h, size=10, act="softmax"), label, v)
+    return _build(fluid, body, opt, lr)
+
+
+def cifar_resnet(fluid, depth=32, widths=(16, 32, 64), classes=10,
+                 lr=0.002, opt=None):
+    """image_classification's resnet_cifar10 (book chapter 3;
+    tests/book/test_image_classification.py:59 at depth 8, widths 8/16/32):
+    conv_bn stem, three stages of (depth - 2) / 6 basic blocks, global
+    average pool, fc(classes, softmax), on 3x32x32 images."""
+    layers = fluid.layers
+
+    def conv_bn(x, ch_out, size, stride, padding, act="relu"):
+        tmp = layers.conv2d(input=x, filter_size=size, num_filters=ch_out,
+                            stride=stride, padding=padding, act=None,
+                            bias_attr=False)
+        return layers.batch_norm(input=tmp, act=act)
+
+    def basicblock(x, ch_in, ch_out, stride):
+        tmp = conv_bn(x, ch_out, 3, stride, 1)
+        tmp = conv_bn(tmp, ch_out, 3, 1, 1, act=None)
+        short = conv_bn(x, ch_out, 1, stride, 0, None) \
+            if ch_in != ch_out else x
+        return layers.elementwise_add(x=tmp, y=short, act="relu")
+
+    def body(v):
+        assert (depth - 2) % 6 == 0
+        n = (depth - 2) // 6
+        images = layers.data("pixel", shape=[3, 32, 32])
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = conv_bn(images, widths[0], 3, 1, 1)
+        ch = widths[0]
+        for i, w in enumerate(widths):
+            for j in range(n):
+                h = basicblock(h, ch, w, 2 if i and not j else 1)
+                ch = w
+        pool = layers.pool2d(input=h, pool_size=8, pool_type="avg",
+                             pool_stride=1, global_pooling=True)
+        v["feeds"] = ["pixel", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=pool, size=classes, act="softmax"),
+            label, v)
+    return _build(fluid, body, opt, lr)
+
+
+def cifar_vgg(fluid, blocks=VGG16_BLOCKS, fc=512, classes=10, drop=1.0,
+              lr=0.002, opt=None):
+    """image_classification's vgg16_bn_drop (book chapter 3;
+    tests/book/test_image_classification.py:44 with blocks of 16 and 32):
+    img_conv_group blocks (conv, batch_norm + relu, dropout), dropout 0.5,
+    fc, batch_norm + relu, dropout 0.5, fc, fc(classes, softmax). Every
+    dropout rate is multiplied by ``drop``."""
+    layers, nets = fluid.layers, fluid.nets
+
+    def body(v):
+        images = layers.data("pixel", shape=[3, 32, 32])
+        label = layers.data("label", shape=[1], dtype="int64")
+        h = images
+        for filters, convs, rates in blocks:
+            h = nets.img_conv_group(
+                input=h, pool_size=2, pool_stride=2,
+                conv_num_filter=[filters] * convs, conv_filter_size=3,
+                conv_act="relu", conv_with_batchnorm=True,
+                conv_batchnorm_drop_rate=[r * drop for r in rates],
+                pool_type="max")
+        h = layers.dropout(x=h, dropout_prob=0.5 * drop)
+        h = layers.fc(input=h, size=fc, act=None)
+        h = layers.batch_norm(input=h, act="relu")
+        h = layers.dropout(x=h, dropout_prob=0.5 * drop)
+        h = layers.fc(input=h, size=fc, act=None)
+        v["feeds"] = ["pixel", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=h, size=classes, act="softmax"), label, v)
+    return _build(fluid, body, opt, lr)
+
+
+def sentiment_conv(fluid, dict_dim, emb=32, hid=32, classes=2, lr=0.002,
+                   pool_type="sqrt", opt=None):
+    """understand_sentiment's convolution_net (book chapter 6, at the book
+    function's defaults): an embedding, two sequence_conv_pool towers
+    (windows 3 and 4, tanh), fc(classes, softmax) over both."""
+    layers, nets = fluid.layers, fluid.nets
+
+    def body(v):
+        words = layers.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = layers.data("label", shape=[1], dtype="int64")
+        e = layers.embedding(input=words, size=[dict_dim, emb])
+        towers = [nets.sequence_conv_pool(input=e, num_filters=hid,
+                                          filter_size=k, act="tanh",
+                                          pool_type=pool_type)
+                  for k in (3, 4)]
+        v["feeds"] = ["words", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=towers, size=classes, act="softmax"),
+            label, v)
+    return _build(fluid, body, opt, lr)
+
+
+def sentiment_lstm(fluid, dict_dim, emb=128, hid=512, stacked=3, classes=2,
+                   lr=0.002, opt=None):
+    """understand_sentiment's stacked_lstm_net (book chapter 6): embedding,
+    fc(hid) -> dynamic_lstm(hid, an LSTM of hid / 4 units), then
+    ``stacked - 1`` more fc + dynamic_lstm over the previous pair,
+    alternating direction; max-pooled last fc and LSTM into
+    fc(classes, softmax)."""
+    layers = fluid.layers
+
+    def body(v):
+        assert stacked % 2 == 1
+        words = layers.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = layers.data("label", shape=[1], dtype="int64")
+        e = layers.embedding(input=words, size=[dict_dim, emb])
+        fc1 = layers.fc(input=e, size=hid)
+        lstm1, _ = layers.dynamic_lstm(input=fc1, size=hid)
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked + 1):
+            fc = layers.fc(input=inputs, size=hid)
+            lstm, _ = layers.dynamic_lstm(input=fc, size=hid,
+                                          is_reverse=i % 2 == 0)
+            inputs = [fc, lstm]
+        pooled = [layers.sequence_pool(input=x, pool_type="max")
+                  for x in inputs]
+        v["feeds"] = ["words", "label"]
+        return _classifier_head(
+            fluid, layers.fc(input=pooled, size=classes, act="softmax"),
+            label, v)
+    return _build(fluid, body, opt, lr)
+
+
+SRL_FEEDS = ("word", "predicate", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+             "ctx_p2", "mark")
+
+
+def srl_db_lstm(fluid, word_dict, pred_dict, label_dict, mark_dict=2,
+                word_dim=32, mark_dim=5, hidden=512, depth=8,
+                is_sparse=True, lr=1e-4, opt=None):
+    """label_semantic_roles' db_lstm (book chapter 7): the eight features
+    (the word, the predicate, five context words, the mark), the word
+    ones through one frozen table "emb", each into fc(hidden), summed;
+    ``depth`` dynamic_lstm layers of hidden / 4 units (candidate relu,
+    cell sigmoid), alternating direction, each over the sum of two fcs of
+    the previous pair; the sum of two fcs to ``label_dict`` tags as the
+    emission of a linear-chain CRF ("crfw") and its Viterbi decode. The
+    predicate and mark tables take ``is_sparse``. Feeds SRL_FEEDS and
+    ``target``, all int64 LoD; v adds ``crf_cost`` (per sequence),
+    ``feature``, ``target`` and ``decode``."""
+    layers = fluid.layers
+    param = fluid.ParamAttr
+
+    def body(v):
+        data = {n: layers.data(n, shape=[1], dtype="int64", lod_level=1)
+                for n in SRL_FEEDS}
+        target = layers.data("target", shape=[1], dtype="int64",
+                             lod_level=1)
+        embs = [layers.embedding(
+            input=data[n], size=[word_dict, word_dim],
+            param_attr=param(name="emb", trainable=False))
+            for n in ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1",
+                      "ctx_p2")]
+        embs.append(layers.embedding(input=data["predicate"],
+                                     size=[pred_dict, word_dim],
+                                     is_sparse=is_sparse,
+                                     param_attr=param(name="vemb")))
+        embs.append(layers.embedding(input=data["mark"],
+                                     size=[mark_dict, mark_dim],
+                                     is_sparse=is_sparse))
+        hidden_0 = layers.sums([layers.fc(input=e, size=hidden)
+                                for e in embs])
+        lstm_kw = dict(size=hidden, candidate_activation="relu",
+                       gate_activation="sigmoid", cell_activation="sigmoid")
+        pair = [hidden_0, layers.dynamic_lstm(input=hidden_0, **lstm_kw)[0]]
+        for i in range(1, depth):
+            mix = layers.sums([layers.fc(input=x, size=hidden)
+                               for x in pair])
+            pair = [mix, layers.dynamic_lstm(input=mix, is_reverse=i % 2 == 1,
+                                             **lstm_kw)[0]]
+        feature = layers.sums([layers.fc(input=x, size=label_dict)
+                               for x in pair])
+        crf_cost = layers.linear_chain_crf(input=feature, label=target,
+                                           param_attr=param(name="crfw"))
+        avg = layers.mean(crf_cost)
+        v.update(loss=avg, crf_cost=crf_cost, feature=feature,
+                 target=target, feeds=list(SRL_FEEDS) + ["target"],
+                 decode=layers.crf_decoding(input=feature,
+                                            param_attr=param(name="crfw")))
+        return avg
+    return _build(fluid, body, opt, lr)
+
+
+def recommender(fluid, users, jobs, movies, categories, title_dict,
+                lr=0.01, opt=None):
+    """recommender_system's two towers (tests/book/
+    test_recommender_system.py:24-66): user id, gender, age and job
+    embeddings through fcs into fc(32, tanh); movie id, its categories
+    (sum-pooled) and its title (sequence_conv_pool) into fc(32, tanh);
+    cos_sim scaled by 5 against the rating by square_error_cost."""
+    layers, nets = fluid.layers, fluid.nets
+
+    def emb_fc(name, count, width, lod_level=0):
+        ids = layers.data(name, shape=[1], dtype="int64",
+                          lod_level=lod_level)
+        return layers.embedding(ids, size=[count, width])
+
+    def body(v):
+        usr = [layers.fc(emb_fc("user_id", users, 16), size=16)] + [
+            layers.fc(emb_fc(n, c, 8), size=8)
+            for n, c in (("gender_id", 2), ("age_id", 7), ("job_id", jobs))]
+        usr = layers.fc(layers.concat(usr, axis=1), size=32, act="tanh")
+        mov = [layers.fc(emb_fc("movie_id", movies, 16), size=16),
+               layers.sequence_pool(
+                   emb_fc("category_id", categories, 8, 1), pool_type="sum"),
+               nets.sequence_conv_pool(
+                   input=emb_fc("movie_title", title_dict, 16, 1),
+                   num_filters=16, filter_size=3, act="tanh",
+                   pool_type="sum")]
+        mov = layers.fc(layers.concat(mov, axis=1), size=32, act="tanh")
+        predict = layers.scale(x=layers.cos_sim(X=usr, Y=mov), scale=5.0)
+        score = layers.data("score", shape=[1], dtype="float32")
+        avg = layers.mean(layers.square_error_cost(input=predict,
+                                                   label=score))
+        v.update(loss=avg, predict=predict, feeds=list(RECOMMENDER_FEEDS))
+        return avg
+    return _build(fluid, body, opt, lr)
+
+
+RECOMMENDER_FEEDS = ("user_id", "gender_id", "age_id", "job_id", "movie_id",
+                     "category_id", "movie_title", "score")
+
+
+def _seqs(rng, n, lens, high):
+    return [rng.randint(0, high, (int(rng.randint(lens[0], lens[1] + 1)),
+                                  1)).astype("int64") for _ in range(n)]
+
+
+def book_feed(chapter, batch, seed, **sizes):
+    """A synthetic batch of ``chapter`` ("digits_mlp", "digits_conv",
+    "cifar", "sentiment", "srl", "recommender") from ``seed``: images
+    uniform in [0, 1), ids uniform over each dictionary, labels uniform.
+    Sizes: ``classes`` (cifar, default 10); ``dict_dim`` and ``lens``
+    (sentiment: sequences of lens[0]..lens[1] tokens); ``word_dict``,
+    ``pred_dict``, ``label_dict`` and ``lens`` (srl); ``users``,
+    ``jobs``, ``movies``, ``categories``, ``title_dict`` (recommender)."""
+    rng = np.random.RandomState(seed)
+
+    def labels(classes):
+        return rng.randint(0, classes, (batch, 1)).astype("int64")
+
+    if chapter == "digits_mlp":
+        return {"img": rng.rand(batch, 784).astype("float32"),
+                "label": labels(10)}
+    if chapter == "digits_conv":
+        return {"img": rng.rand(batch, 1, 28, 28).astype("float32"),
+                "label": labels(10)}
+    if chapter == "cifar":
+        return {"pixel": rng.rand(batch, 3, 32, 32).astype("float32"),
+                "label": labels(sizes.get("classes", 10))}
+    if chapter == "sentiment":
+        return {"words": _seqs(rng, batch, sizes["lens"], sizes["dict_dim"]),
+                "label": labels(2)}
+    if chapter == "srl":
+        lens = [int(rng.randint(sizes["lens"][0], sizes["lens"][1] + 1))
+                for _ in range(batch)]
+        feed = {}
+        for name in SRL_FEEDS + ("target",):
+            high = {"predicate": sizes["pred_dict"], "mark": 2,
+                    "target": sizes["label_dict"]}.get(name,
+                                                       sizes["word_dict"])
+            feed[name] = [rng.randint(0, high, (n, 1)).astype("int64")
+                          for n in lens]
+        for i, n in enumerate(lens):       # one predicate a sentence
+            feed["predicate"][i][:] = feed["predicate"][i][0]
+        return feed
+    if chapter == "recommender":
+        def ids(high):
+            return rng.randint(0, high, (batch, 1)).astype("int64")
+        return {"user_id": ids(sizes["users"]), "gender_id": ids(2),
+                "age_id": ids(7), "job_id": ids(sizes["jobs"]),
+                "movie_id": ids(sizes["movies"]),
+                "category_id": _seqs(rng, batch, (1, 3),
+                                     sizes["categories"]),
+                "movie_title": _seqs(rng, batch, (1, 5),
+                                     sizes["title_dict"]),
+                "score": rng.randint(1, 6, (batch, 1)).astype("float32")}
+    raise ValueError(f"unknown book chapter {chapter!r}")

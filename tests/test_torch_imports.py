@@ -39,13 +39,16 @@ def test_port_module_imports_no_jax_and_no_reference(path):
 
 
 def test_training_front_end_modules_are_checked():
-    """The training front end's modules (clip, decay, schedules, feeding)
-    are among the files the import check reads."""
+    """The training front end's modules (clip, decay, schedules, feeding,
+    the metrics, the CRF, nets and evaluators) are among the files the
+    import check reads."""
     checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
     for name in ("fluid/clip.py", "fluid/regularizer.py",
                  "fluid/data_feeder.py", "fluid/average.py",
                  "fluid/layers/learning_rate_scheduler.py",
-                 "fluid/layers/ops.py", "fluid/layers/control_flow.py"):
+                 "fluid/layers/ops.py", "fluid/layers/control_flow.py",
+                 "ops/metrics.py", "ops/crf_ops.py", "fluid/nets.py",
+                 "fluid/evaluator.py", "fluid/layers/metric.py"):
         assert "paddle_tpu_torch/" + name in checked, name
 
 
@@ -100,11 +103,13 @@ print(",".join(new))
 
 @pytest.mark.parametrize("module", ["paddle_tpu_torch.serving",
                                     "paddle_tpu_torch.distributed.rpc",
-                                    "paddle_tpu_torch.obs"])
+                                    "paddle_tpu_torch.obs",
+                                    "paddle_tpu_torch.fluid.nets",
+                                    "paddle_tpu_torch.fluid.evaluator"])
 def test_import_loads_neither_jax_nor_the_reference(module):
     """Imported in a fresh interpreter, the serving front door, the RPC
-    transport and the observability plane load no module of jax or of the
-    reference package."""
+    transport, the observability plane, the composite nets and the
+    evaluators load no module of jax or of the reference package."""
     import subprocess
     import sys
     r = subprocess.run([sys.executable, "-c", _IMPORT_PROBE, str(REPO),

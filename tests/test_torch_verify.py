@@ -11,15 +11,17 @@ into the reference's ``Program.from_dict``, and both packages'
 ``verify_program(..., raise_on_error=False)`` and ``lint_program`` must
 give the same (code, severity, block, op index, op type, var) lists.
 
-The tensor-array arena case runs without its ``accuracy`` op, and While
-programs (the sub-block, its grad, a var dropped inside the block) and the
-Seq2Seq NMT train and decode programs are held the same way.
+The tensor-array arena case runs with and without its ``accuracy`` op
+(its reference-mandated ``Out`` slot), and While programs (the sub-block,
+its grad, a var dropped inside the block), the Seq2Seq NMT train and
+decode programs and the book chapters' training programs are held the
+same way.
 
 Left out, with the module that brings each (ROADMAP §A): the transpiled
 trainer and pserver startup (the DistributeTranspiler, A12), the
-memory-optimized program (memory_optimization_transpiler, A12),
-``accuracy`` (A9), the OpTest harness (A8) and ``create_var``'s
-redefinition checks (framework, not the verifier).
+memory-optimized program (memory_optimization_transpiler, A12), the
+OpTest harness (A8) and ``create_var``'s redefinition checks (framework,
+not the verifier).
 """
 
 import json
@@ -157,6 +159,70 @@ def test_clean_tensor_array_arena():
     assert d.op_type == "write_to_array"
 
 
+def test_clean_accuracy_and_tensor_array_arena():
+    """tests/test_program_verify.py:123 in full: accuracy's
+    reference-mandated 'Out' input slot verifies clean beside the lazy
+    arena; the rebinding broken, the uninitialized read is PTL004."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        pred = fluid.layers.fc(x, size=3, act="softmax")
+        fluid.layers.accuracy(input=pred, label=label)
+        i = fluid.layers.fill_constant(shape=(), dtype="int64", value=0)
+        arr = fluid.layers.array_write(pred, i, cap=4)
+        fluid.layers.array_read(arr, i)
+    assert _verify_errors(main, startup=startup) == []
+    block = main.global_block()
+    wop = next(op for op in block.ops if op.type == "write_to_array")
+    block.create_var(name="arr_detached", dtype=pred.dtype)
+    wop.outputs["Out"] = ["arr_detached"]
+    main._bump_version()
+    d = _find(_verify_errors(main, startup=startup), D.USE_BEFORE_DEF)
+    assert d.op_type == "write_to_array"
+
+
+def test_accuracy_slot_arity_is_checked():
+    """accuracy's spec (installed now that the op is ported): a second
+    Label var is a PTL002 arity error in both packages."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("x", shape=[4])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        fluid.layers.accuracy(input=fluid.layers.fc(x, 3, act="softmax"),
+                              label=label)
+    block = main.global_block()
+    acc = next(op for op in block.ops if op.type == "accuracy")
+    acc.inputs["Label"] = [label.name, label.name]
+    main._bump_version()
+    d = _find(_verify_errors(main, startup=startup), D.SLOT_ARITY)
+    assert d.op_type == "accuracy"
+
+
+@pytest.mark.parametrize("chapter", ["digits_conv", "cifar_vgg",
+                                     "sentiment_conv", "sentiment_lstm",
+                                     "srl", "recommender"])
+def test_clean_book_chapter_programs(chapter):
+    """The book chapters' training programs (dropout, the sequence convs,
+    the CRF, cos_sim, the metric ops) verify and lint as the reference
+    does, their startups too."""
+    build = {
+        "digits_conv": lambda: M.digits_conv(fluid, filters=(4, 8)),
+        "cifar_vgg": lambda: M.cifar_vgg(
+            fluid, blocks=((4, 2, (0.3, 0.0)),), fc=8),
+        "sentiment_conv": lambda: M.sentiment_conv(fluid, 30, emb=4, hid=4),
+        "sentiment_lstm": lambda: M.sentiment_lstm(fluid, 30, emb=4,
+                                                   hid=16),
+        "srl": lambda: M.srl_db_lstm(fluid, 20, 5, 7, word_dim=4,
+                                     mark_dim=2, hidden=16, depth=2),
+        "recommender": lambda: M.recommender(fluid, 10, 4, 12, 5, 20),
+    }[chapter]
+    main, startup, v = build()
+    assert _verify_errors(main, startup=startup,
+                          fetch_names=[v["loss"].name]) == []
+    assert _verify_errors(startup) == []
+
+
 def _while_program(max_iters):
     """An fc accumulated in a While over slices staged in a tensor array,
     with its backward and SGD."""
@@ -250,16 +316,17 @@ def test_nmt_programs_verify_clean():
 
 def test_slot_catalogue_installs_35_of_39_specs():
     """The catalogue installs a spec for every op type the port registers:
-    reshape's now too; dropout, matmul, accuracy and delete_var wait for
-    their ops."""
+    38 of the 39 since dropout, matmul and accuracy were ported (35
+    before); delete_var waits for its op."""
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.fluid.analysis import slots
     installed = [t for t in slots._SPECS if registry.has_op(t)
                  and registry.get_op_info(t).slots is not None]
-    assert len(slots._SPECS) == 39 and len(installed) == 35
-    assert sorted(set(slots._SPECS) - set(installed)) == [
-        "accuracy", "delete_var", "dropout", "matmul"]
+    assert len(slots._SPECS) == 39 and len(installed) == 38
+    assert sorted(set(slots._SPECS) - set(installed)) == ["delete_var"]
     assert registry.get_op_info("reshape").slots.inputs == {"X": "1"}
+    assert registry.get_op_info("accuracy").slots.inputs == {
+        "Out": "1", "Indices": "1", "Label": "1"}
 
 
 # ---------------------------------------------------------------------------

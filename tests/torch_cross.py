@@ -86,3 +86,60 @@ def cross_run(build, feed, fetch, steps=1, mode="jit"):
     got = run_steps(tfluid.Executor(tfluid.CPUPlace()), tmain,
                     port_scope(state), feed, fetch, steps)
     return got, want, progs
+
+
+# float32 op outputs: rtol 1e-5 and atol 1e-6 of the largest element (sums
+# in another order); integer and bool outputs exactly
+OP_RTOL, OP_ATOL_REL = 1e-5, 1e-6
+
+
+def run_op(fluid, op_type, inputs, outputs, attrs, feeds, lod=()):
+    """One op as a one-op program of ``fluid``'s package over ``feeds``
+    (the reference's eager executor); the names in ``lod`` are fed as
+    lists of sequences to lod_level-1 vars. Returns every output, in slot
+    order, as ``host`` gives it."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    for name, arr in feeds.items():
+        if name in lod:
+            block.create_var(name=name, dtype=str(np.asarray(arr[0]).dtype),
+                             lod_level=1)
+        else:
+            block.create_var(name=name, shape=np.shape(arr),
+                             dtype=str(np.asarray(arr).dtype))
+    fetch = [n for names in outputs.values() for n in names]
+    for n in fetch:
+        if not block.has_var(n):
+            block.create_var(name=n)
+    block.append_op(op_type, inputs=inputs, outputs=outputs, attrs=attrs)
+    exe = jfluid.Executor(jfluid.CPUPlace(), mode="eager") \
+        if fluid is jfluid else fluid.Executor(fluid.CPUPlace())
+    return [host(v) for v in exe.run(prog, feed=feeds, fetch_list=fetch,
+                                     scope=fluid.Scope())]
+
+
+def assert_op_close(got, want, what=""):
+    """``got`` against ``want`` at the op tolerance: floats within rtol
+    1e-5 / atol 1e-6 of want's largest element, anything else exact."""
+    if isinstance(want, tuple):
+        assert got[1] == want[1], (what, got[1], want[1])
+        got, want = got[0], want[0]
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if np.issubdtype(want.dtype, np.floating):
+        scale = float(np.max(np.abs(want))) if want.size else 0.0
+        np.testing.assert_allclose(got, want, rtol=OP_RTOL,
+                                   atol=OP_ATOL_REL * scale, err_msg=what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def op_both(op_type, inputs, outputs, attrs, feeds, lod=()):
+    """``run_op`` in both packages, every output held by
+    ``assert_op_close``; returns the port's outputs."""
+    want = run_op(jfluid, op_type, inputs, outputs, attrs, feeds, lod)
+    got = run_op(tfluid, op_type, inputs, outputs, attrs, feeds, lod)
+    names = [n for ns in outputs.values() for n in ns]
+    for name, g, w in zip(names, got, want):
+        assert_op_close(g, w, f"{op_type} {name}")
+    return got
