@@ -8,9 +8,10 @@ six other optimizers, train ResNet-50 and the LSTM classifier under AMP,
 run the program verifier and the Executor's run_steps and per-op hooks
 on them, train and beam-decode the Seq2Seq NMT model through While and
 tensor arrays, train the models of the book chapters (digits, CIFAR,
-sentiment, SRL with its CRF, the recommender), with the PyTorch/CUDA port
-on one GPU, and hold every hand-written kernel against its plain PyTorch
-version.
+sentiment, SRL with its CRF, the recommender), train the decoder LM and
+serve what it learned, with the PyTorch/CUDA port on one GPU, run the
+data-parallel steps over NCCL and the multi-device lanes on gloo ranks,
+and hold every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -297,6 +298,30 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               numpy recounts written apart from the port, chunk_eval's run
               at one host sync; dropout on the card bitwise X * Mask with its
               keep share within 4 sigma.
+20. LM train — phase 13's decoder LM (vocab 64, emb 128, 4 heads, 4
+              layers) trained with next-token labels, softmax_with_cross_
+              entropy and Adam(1e-3, fused=True) on 32 sequences of 128
+              tokens of a noisy periodic corpus, 5 steps on both routes:
+              1 adam_arena launch a step and no fallback; step-1
+              gradients equal between the routes (no kernel before the
+              update), the losses within 1e-4 at every step, the loss
+              falling; ms a step, tokens/s, peak memory and the busy
+              share of a profiled step. Then the trained test clone,
+              saved with save_inference_model, served through
+              GenerationEngine + ContinuousBatcher as phase 13's lane on
+              both routes: 4 paged_attention launches a decode dispatch,
+              the same greedy tokens on both routes.
+21. multichip — through paddle_tpu_torch.parallel.launch.RankPool: the
+              LM's dp step (phase 20's feed) and the reference dryrun's
+              ResNet slice under dp+ZeRO-1, 2 steps each, on NCCL ranks
+              over every visible card, against the same steps on one
+              device (losses within 1e-5 relative, parameters within the
+              limits beside DP_STEPS); 1 adam_arena launch a step on
+              the LM. Then the reference's eight dryrun_multichip lanes
+              (dp+ZeRO-1, dp×tp, LoD dp, ring attention, MoE, pipeline,
+              dp×pp×tp, dp×sp) on 8 gloo ranks of the CPU, each line
+              printed as the reference prints it, every error within
+              1e-5. Every rank is joined with a timeout.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -6928,6 +6953,348 @@ def book_chapter(torch, fluid, exe, seed, card, chapter, counters, problems,
         card_vs_cpu(torch, fluid, ch, auto["first"], card, problems)
 
 
+# phase 20: the decoder LM of phase 13's lane (GEN_* widths) trained with
+# next-token labels, reshape to [b·T, vocab], softmax_with_cross_entropy,
+# mean and Adam(LM_LR, fused=True) on LM_BATCH sequences of LM_SEQ tokens
+# of a noisy periodic corpus (a stride of 1-3 through the vocabulary from
+# a random start, LM_NOISE of the tokens replaced at random)
+LM_BATCH, LM_SEQ, LM_STEPS, LM_LR, LM_NOISE = 32, 128, 5, 1e-3, 0.1
+# the routes run the same ops up to the update (no kernel in the LM's
+# forward or backward): step 1's gradients must agree to float32 noise,
+# max |Δ| within 1e-6 of the largest gradient element; after it the
+# routes differ by adam_arena's float32 roundings, which 5 steps carry into
+# the losses far below 1e-4 relative
+LM_GRAD_LIMIT, LM_ROUTE_REL = 1e-6, 1e-4
+# phase 21: the NCCL dp steps against one device (float32 sums of the
+# mean and the gradients in another order): losses within the dryrun's
+# LANE_LIMIT (paddle_tpu_torch/testing/multichip.py); the ResNet slice's
+# parameters (momentum) within its PARAM_LIMIT of each one's largest
+# element. Adam moves an element whose gradient is float32 noise near 0 by
+# up to lr a step whatever the noise's size (m̂/√v̂ is its sign at step
+# 1), so the LM's parameters are held to a tenth of what DP_STEPS steps
+# at LM_LR could move them (measured on 2 gloo ranks: 1.5e-5). The
+# ResNet slice at the dryrun's widths and batch, the LM at phase 20's
+DP_STEPS, DP_SLICE_BATCH = 2, 8
+DP_LM_PARAM_ABS = 0.1 * LM_LR * DP_STEPS
+
+
+def lm_corpus(np, batch, seq, vocab, seed, noise=LM_NOISE):
+    """(tokens, positions, labels) [batch, seq, 1] int64: noisy periodic
+    rows, the labels the next tokens."""
+    rng = np.random.RandomState(seed)
+    start = rng.randint(0, vocab, (batch, 1))
+    stride = rng.randint(1, 4, (batch, 1))
+    seqs = (start + stride * np.arange(seq + 1)[None]) % vocab
+    flip = rng.rand(batch, seq + 1) < noise
+    seqs = np.where(flip, rng.randint(0, vocab, seqs.shape), seqs)
+    seqs = seqs.astype(np.int64)[..., None]
+    pos = np.broadcast_to(np.arange(seq, dtype=np.int64)[None, :, None],
+                          (batch, seq, 1)).copy()
+    return seqs[:, :-1].copy(), pos, seqs[:, 1:].copy()
+
+
+def lm_train_program(fluid, seed):
+    """The lane's LM with the loss layers and Adam(LM_LR, fused=True):
+    (main, startup, test clone, logits, loss)."""
+    from paddle_tpu_torch.testing.models import build_tiny_lm
+    main, startup, logits = build_tiny_lm(
+        vocab=GEN_VOCAB, emb=GEN_EMB, heads=GEN_HEADS, n_layers=GEN_LAYERS,
+        max_pos=GEN_MAX_POS, seed=GEN_SEED + seed)
+    with fluid.program_guard(main, startup):
+        labels = fluid.layers.data("labels", shape=[-1, 1], dtype="int64")
+        flat = fluid.layers.reshape(logits, [-1, GEN_VOCAB])
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            flat, fluid.layers.reshape(labels, [-1, 1])))
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(LM_LR, fused=True).minimize(loss, startup)
+    return main, startup, test, logits, loss
+
+
+def lm_feed(seed):
+    import numpy as np
+    tokens, pos, labels = lm_corpus(np, LM_BATCH, LM_SEQ, GEN_VOCAB, seed)
+    return {"tokens": tokens, "positions": pos, "labels": labels}
+
+
+def phase_lm_train(torch, fluid, seed, card):
+    """Phase 20: train the LM LM_STEPS steps on both routes, then serve the
+    trained test clone through GenerationEngine + ContinuousBatcher on
+    both routes. Returns adam_arena's and paged_attention's launches."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    log(f"\n== phase 20: train the decoder LM (vocab {GEN_VOCAB}, emb "
+        f"{GEN_EMB}, {GEN_HEADS} heads, {GEN_LAYERS} layers), "
+        f"{LM_BATCH} x {LM_SEQ} tokens, Adam({LM_LR}, fused=True), "
+        f"{LM_STEPS} steps on both routes, then serve it | {card} ==")
+    fluid.reset_unique_name()
+    main, startup, test, logits, loss = lm_train_program(fluid, seed)
+    log("program: " + op_counts(main.global_block()))
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    update, = [op for op in main.global_block().ops
+               if op.type == "fused_adam"]
+    grads = update.input("Grads")
+    feed = lm_feed(seed)
+    problems, res = [], {}
+    for route in ("auto", "torch"):
+        scope = copy_scope(fluid, torch, init)
+        fluid.set_flags({"kernel_tier": route})
+        losses, ms, launched = [], [], 0
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for step in range(LM_STEPS):
+                opk.reset_launches()
+                tier.reset_fallback_counts()
+                t0 = time.perf_counter()
+                vals = exe.run(main, feed=feed, scope=scope,
+                               fetch_list=[loss] + (grads if step == 0
+                                                    else []),
+                               return_numpy=False)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                n = opk.launches["adam_arena"]
+                want = 1 if route == "auto" else 0
+                if n != want or tier.fallback_counts():
+                    problems.append(
+                        f"LM kernel_tier={route} step {step + 1}: "
+                        f"adam_arena {n} (want {want}), fallbacks "
+                        f"{tier.fallback_counts()}")
+                launched += n
+                if not torch.isfinite(vals[0]).item():
+                    fail(f"LM kernel_tier={route} step {step + 1}: loss "
+                         f"{vals[0]}")
+                losses.append(vals[0].item())
+                if step == 0:
+                    first = dict(zip(grads, vals[1:]))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            pscope = copy_scope(fluid, torch, init)
+            prof = profile(torch, lambda: exe.run(
+                main, feed=feed, scope=pscope, fetch_list=[loss],
+                return_numpy=False),
+                f"LM training step, kernel_tier={route}", card, reps=3)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+        steady = sum(ms[1:]) / len(ms[1:])
+        busy = (f"device busy {prof[1]:.2f} of {prof[0]:.2f} ms "
+                f"({100 * prof[1] / prof[0]:.1f}%)" if prof
+                else "device busy not measured")
+        res[route] = dict(losses=losses, first=first, scope=scope,
+                          launched=launched)
+        log(f"LM kernel_tier={route}: losses "
+            + " ".join(f"{v:.6f}" for v in losses)
+            + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+            + f" | steady {steady:.2f} ms/step, "
+            f"{LM_BATCH * LM_SEQ * 1e3 / steady:.0f} tokens/s | {busy} | "
+            f"peak memory {peak:.2f} GiB | adam_arena launches {launched} "
+            f"| {card}")
+    auto, plain = res["auto"], res["torch"]
+    top = max(g.abs().max().item() for g in plain["first"].values())
+    dg = max((auto["first"][n] - plain["first"][n]).abs().max().item()
+             for n in grads) / top
+    rel = [abs(a - b) / abs(b) for a, b in zip(auto["losses"],
+                                               plain["losses"])]
+    log(f"LM step 1, kernel route vs kernel_tier=torch: max |Δ gradient| "
+        f"{dg:.3e} of the largest (limit {LM_GRAD_LIMIT:.0e}); losses per "
+        "step relative " + " ".join(f"{x:.2e}" for x in rel)
+        + f" (limit {LM_ROUTE_REL:.0e})")
+    if not dg <= LM_GRAD_LIMIT:
+        problems.append(f"LM step-1 gradients differ by {dg:.3e}")
+    if not max(rel) <= LM_ROUTE_REL:
+        problems.append(f"LM losses differ between routes by {max(rel):.3e}")
+    for route in ("auto", "torch"):
+        if not res[route]["losses"][-1] < res[route]["losses"][0]:
+            problems.append(f"LM kernel_tier={route}: the loss did not "
+                            f"fall: {res[route]['losses']}")
+    if problems:
+        fail("; ".join(problems))
+
+    d = tempfile.mkdtemp(prefix="chip-smoke-lm-trained-")
+    fluid.io.save_inference_model(d, ["tokens", "positions"], [logits], exe,
+                                  test, scope=auto["scope"])
+    geom = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN,
+                prefill_buckets=(8,))
+    served = {}
+    for route in ("auto", "torch"):
+        fluid.set_flags({"kernel_tier": route})
+        try:
+            eng = GenerationEngine(d, **geom)
+            eng.warmup()
+            if eng.device.type != "cuda":
+                fail(f"GenerationEngine runs on {eng.device}, want the card")
+            decodes0 = eng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+                "dispatches"]
+            pak.reset_launches()
+            tier.reset_fallback_counts()
+            lane = gen_lane(eng, True)
+            decodes = eng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+                "dispatches"] - decodes0
+            launches = pak.launches["paged_attention"]
+            want = (GEN_LAYERS if route == "auto" else 0) * decodes
+            n_tok = sum(len(t) for per in lane["tokens"] for t in per)
+            log(f"trained LM served, kernel_tier={route}: {n_tok} tokens in "
+                f"{lane['elapsed'] * 1e3:.1f} ms "
+                f"({n_tok / lane['elapsed']:.1f} tokens/s), {decodes} "
+                f"decode dispatches, paged_attention launches {launches} "
+                f"(want {want}), fallbacks {tier.fallback_counts()}")
+            if launches != want or tier.fallback_counts():
+                problems.append(f"trained LM kernel_tier={route}: "
+                                f"{launches} paged_attention launches over "
+                                f"{decodes} decode dispatches")
+            served[route] = (lane["tokens"], launches)
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+    shutil.rmtree(d, ignore_errors=True)
+    same = served["auto"][0] == served["torch"][0]
+    log(f"trained LM greedy tokens: kernel route = kernel_tier=torch {same}")
+    if not same:
+        problems.append("the trained LM's greedy tokens differ between "
+                        "the routes")
+    if problems:
+        fail("; ".join(problems))
+    return {"adam_arena": auto["launched"],
+            "paged_attention": served["auto"][1]}
+
+
+def lm_dp_program(seed):
+    """The LM's training program for the sharded step: (main, startup,
+    loss)."""
+    import paddle_tpu_torch.fluid as fluid
+    main, startup, _, _, loss = lm_train_program(fluid, seed)
+    return main, startup, loss
+
+
+def key_biases(main):
+    """The biases added into a causal_self_attention's K input: a shift of
+    every key adds one constant to a query's scores, which the softmax
+    ignores, so their gradient is 0 in exact arithmetic and what Adam makes
+    of its rounding noise is no measure of the step."""
+    ops = main.global_block().ops
+    keys = {op.input("K")[0] for op in ops
+            if op.type == "causal_self_attention"}
+    return {op.input("Y")[0] for op in ops
+            if op.type == "elementwise_add" and op.output("Out")[0] in keys}
+
+
+def nccl_dp_rank(kind, seed):
+    """One NCCL rank of phase 21 (every rank of the pool runs it): the
+    sharded step of ``kind`` ("lm": phase 20's LM under dp; "slice": the
+    dryrun's ResNet slice under dp+ZeRO-1) on this rank's card, with the
+    launches of adam_arena and momentum_arena it made."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.testing import models, multichip
+
+    # as main() sets them: every float32 conv and GEMM in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "lm":
+        build, kw, feed, plan_kw = (lm_dp_program, dict(seed=seed),
+                                    lm_feed(seed), None)
+    else:
+        build, kw, plan_kw = (models.build_convnet_slice,
+                              dict(size=16, classes=8, nf=8, seed=3,
+                                   bottleneck=True),
+                              {"shard_opt_state": True})
+        feed = models.convnet_feed(DP_SLICE_BATCH, size=16, classes=8,
+                                   seed=1)
+    # the pool's backend sets the device: NCCL ranks run on their cards
+    dev = f"cuda:{dist.get_rank()}" if dist.get_backend() == "nccl" \
+        else "cpu"
+    opk.reset_launches()
+    out = multichip.sharded_run(build, kw, [feed] * DP_STEPS, ("dp",),
+                                plan_kw, device=dev)
+    out["launches"] = dict(opk.launches)
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def phase_multichip(torch, fluid, seed, card):
+    """Phase 21: the LM's dp step and the ResNet slice's dp+ZeRO-1 step
+    over NCCL on every visible card against one device, then the eight
+    lanes of the reference's dryrun_multichip on 8 gloo ranks of the CPU.
+    Returns adam_arena's launches in the NCCL LM step."""
+    import numpy as np
+    import chip_smoke
+    from paddle_tpu_torch.parallel.launch import RankPool
+    from paddle_tpu_torch.testing import models, multichip
+
+    world = torch.cuda.device_count()
+    log(f"\n== phase 21: multi-device: dp over NCCL on {world} card(s), "
+        f"then the reference's eight multichip lanes on 8 gloo ranks of the "
+        f"CPU | {card} ==")
+    problems = []
+    t0 = time.perf_counter()
+    with RankPool(world, "nccl", timeout=300) as pool:
+        start_s = time.perf_counter() - t0
+        ranks = {kind: pool.run(chip_smoke.nccl_dp_rank, kind, seed)
+                 for kind in ("lm", "slice")}
+    log(f"NCCL pool of {world} rank(s) started in {start_s:.1f} s")
+    singles = {
+        "lm": multichip.single_run(chip_smoke.lm_dp_program,
+                                   dict(seed=seed),
+                                   [lm_feed(seed)] * DP_STEPS,
+                                   device="cuda:0"),
+        "slice": multichip.single_run(
+            models.build_convnet_slice,
+            dict(size=16, classes=8, nf=8, seed=3, bottleneck=True),
+            [models.convnet_feed(DP_SLICE_BATCH, size=16, classes=8,
+                                 seed=1)] * DP_STEPS, device="cuda:0")}
+    fluid.reset_unique_name()
+    noise = key_biases(lm_dp_program(seed)[0])
+    for kind, title in (("lm", "LM dp"), ("slice", "resnet_slice dp+zero1")):
+        got, single = ranks[kind][0], singles[kind]
+        kept = {n: w for n, w in single["params"].items() if n not in noise}
+        shift = max([float(np.max(np.abs(got["params"][n]
+                                         - single["params"][n])))
+                     for n in single["params"] if n in noise] or [0.0])
+        if any(r["losses"] != got["losses"] for r in ranks[kind][1:]):
+            problems.append(f"{title}: the ranks' losses differ")
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       single["losses"]))
+        scale = {n: 1.0 if kind == "lm" else max(float(np.max(np.abs(w))),
+                                                  1e-30)
+                 for n, w in kept.items()}
+        limit = DP_LM_PARAM_ABS if kind == "lm" else multichip.PARAM_LIMIT
+        perr = max(float(np.max(np.abs(got["params"][n] - w))) / scale[n]
+                   for n, w in kept.items())
+        log(f"{title} over {got['backend']} on mesh {got['mesh']}: losses "
+            + " ".join(f"{v:.6f}" for v in got["losses"])
+            + f", one device " + " ".join(f"{v:.6f}"
+                                           for v in single["losses"])
+            + f"; loss rel err {lerr:.2e} (limit {multichip.LANE_LIMIT:.0e})"
+            f", params max |Δ| {perr:.2e}"
+            + (" (limit " if kind == "lm" else " of each one's largest "
+               "(limit ") + f"{limit:.0e}; the K biases, whose gradient is "
+            f"noise, apart: max |Δ| {shift:.2e}); launches "
+            f"{got['launches']}")
+        if got["backend"] != "nccl":
+            problems.append(f"{title}: backend {got['backend']}")
+        if not (lerr <= multichip.LANE_LIMIT and perr <= limit):
+            problems.append(f"{title}: sharded step differs from one "
+                            "device")
+    lm_adam = ranks["lm"][0]["launches"]["adam_arena"]
+    if lm_adam != DP_STEPS:
+        problems.append(f"LM dp: adam_arena launched {lm_adam} times in "
+                        f"{DP_STEPS} steps")
+    t0 = time.perf_counter()
+    lines, ok = multichip.dryrun_multichip(8, timeout=300)
+    log(f"8 gloo ranks: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        problems.append("a gloo multichip lane failed: " + "; ".join(lines))
+    if problems:
+        fail("; ".join(problems))
+    return {"adam_arena": sum(r["launches"]["adam_arena"]
+                              for r in ranks["lm"])}
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -7017,6 +7384,8 @@ def main():
     rt = phase_runtime(torch, fluid, args.seed, card, serving, gen)
     s2s = phase_seq2seq(torch, fluid, args.seed, card)
     book = phase_book(torch, fluid, args.seed, card)
+    lm = phase_lm_train(torch, fluid, args.seed, card)
+    multi = phase_multichip(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -7071,7 +7440,8 @@ def main():
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
               + ctc_launches["adam_arena"] + rec["adam_arena"]
-              + amp["adam_arena"] + rt["adam_arena"],
+              + amp["adam_arena"] + rt["adam_arena"] + lm["adam_arena"]
+              + multi["adam_arena"],
               rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
               gru_launches["gru_seq"] + ctc_launches["gru_seq"]
@@ -7095,7 +7465,8 @@ def main():
               sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",
-              gen_launches + srv_gen_launches + rt["paged_attention"],
+              gen_launches + srv_gen_launches + rt["paged_attention"]
+              + lm["paged_attention"],
               paged_totals["paged_attention"],
               ("llama_ms", "llama_bound_ms", "llama_4096_ms",
                "llama_4096_bound_ms")),

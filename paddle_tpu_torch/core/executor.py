@@ -238,25 +238,37 @@ def _check_op_outputs_finite(op, env):
                 "(check_nan_inf flag)")
 
 
-def _run_ops(block, env, device):
+def _run_ops(block, env, device, override=None, after=None):
     """Run every op of a block over ``env`` in order. The flags are read
     here once per block: with ``check_nan_inf``, ``benchmark`` and
     ``obs_op_metrics`` off, the profiler idle and ``PDTPU_OP_COVERAGE``
-    unset the loop is the plain one."""
+    unset the loop is the plain one.
+
+    ``override`` (one entry per op) runs ``override[i](ctx)`` in place of
+    op i's registered forward where the entry is not None, and
+    ``after[i](env)`` runs where ``after`` (a dict by op index) has op i,
+    right after its forward: the sharded step's collective forms and
+    gradient sums (``parallel/step.py``). The hooks see both as the op."""
     check = _flags.get_flag("check_nan_inf")
     bench = _flags.get_flag("benchmark")
     opm = _flags.get_flag("obs_op_metrics")
     prof = profiler_enabled()
     record = registry.dispatch_coverage_enabled()
     if check or bench or opm or prof or record:
-        _run_ops_hooked(block, env, device, check, bench, opm, prof, record)
-    else:
-        for op in block.ops:
-            registry.get_op_info(op.type).forward(
-                ExecContext(op, block, env, device))
+        _run_ops_hooked(block, env, device, check, bench, opm, prof, record,
+                        override, after)
+        return
+    for i, op in enumerate(block.ops):
+        fn = override[i] if override else None
+        if fn is None:
+            fn = registry.get_op_info(op.type).forward
+        fn(ExecContext(op, block, env, device))
+        if after and i in after:
+            after[i](env)
 
 
-def _run_ops_hooked(block, env, device, check, bench, opm, prof, record):
+def _run_ops_hooked(block, env, device, check, bench, opm, prof, record,
+                    override, after):
     """The op loop with the per-op hooks (reference :237-286): a profiler
     span per op, the coverage record after the forward returns, the
     obs_op_metrics counters (the forward's dispatch time, taken before
@@ -264,15 +276,22 @@ def _run_ops_hooked(block, env, device, check, bench, opm, prof, record):
     along), the NaN/Inf sweep, and the benchmark line, timed after the
     device is synchronised."""
     sync = device.type == "cuda"
-    for op in block.ops:
+    for i, op in enumerate(block.ops):
         t0 = time.perf_counter() if (bench or opm) else 0.0
         ctx = ExecContext(op, block, env, device)
-        info = registry.get_op_info(op.type)
+        fn = override[i] if override else None
+        if fn is None:
+            fn = registry.get_op_info(op.type).forward
+        post = after.get(i) if after else None
         if prof:
             with record_event(op.type, kind="op"):
-                info.forward(ctx)
+                fn(ctx)
+                if post is not None:
+                    post(env)
         else:
-            info.forward(ctx)
+            fn(ctx)
+            if post is not None:
+                post(env)
         if record:
             registry.record_dispatch(op.type)
         if opm:

@@ -13,7 +13,7 @@ from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  sigmoid_cross_entropy_with_logits, accuracy, mul, matmul,
                  cos_sim, linear_chain_crf, crf_decoding, l2_normalize,
                  multiplex, one_hot, smooth_l1)
-from .io import data  # noqa: F401
+from .io import data, get_places  # noqa: F401
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

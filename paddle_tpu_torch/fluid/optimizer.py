@@ -68,6 +68,9 @@ class Optimizer:
         dtype = dtype or param.dtype
         v = param.block.program.global_block().create_var(
             name=vname, shape=shape, dtype=dtype, persistable=True)
+        # the parameter this state belongs to: the sharding plan reads it
+        # (parallel/sharding.py), so a new accumulator name needs no rule
+        v.optimizer_accumulator_for = param.name
         sb = startup.global_block()
         sb.create_var(name=vname, shape=shape, dtype=dtype, persistable=True)
         sb.append_op("fill_constant", outputs={"Out": [vname]},

@@ -2,6 +2,7 @@
 this package registers every ported op."""
 
 from . import (activation, attention_ops, control_flow_ops,  # noqa: F401
-               conv_ops, crf_ops, ctc_ops, elementwise, fused_ops, loss,
+               conv_ops, crf_ops, ctc_ops, elementwise, fused_ops, io_ops,
+               loss,
                matmul, metrics, nn_ops, norm_ops, optimizer_ops, reduce,
                rnn_ops, sequence_ops, tensor_ops)

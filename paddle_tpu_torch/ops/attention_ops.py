@@ -1,9 +1,12 @@
-"""Attention ops, forward only (counterpart of
-paddle_tpu/ops/attention_ops.py:49-257): causal self-attention and its
-serving-time split over a paged KV arena.
+"""Attention ops (counterpart of paddle_tpu/ops/attention_ops.py:49-257):
+causal self-attention with its grad, and its serving-time split over a
+paged KV arena.
 
 ``causal_self_attention`` is the model-authoring op: one op per
-transformer layer, Q/K/V already projected by ``fc`` layers. The
+transformer layer, Q/K/V already projected by ``fc`` layers. Its grad
+(reference :83-106) is the vector-Jacobian product of the same plain
+attention: a masked score is -1e9, whose softmax weight is exactly 0.0,
+so the masked positions get exactly zero gradient, as in the reference. The
 generation engine (serving/generate/decode_engine.py) clones the saved
 program and rewrites every site into one of three phase ops:
 
@@ -48,8 +51,9 @@ import torch
 
 from ..core.registry import register_op
 from . import cuda as _tier
-from .common import data_of
+from .common import data_of, vjp
 from .cuda import paged_attention as _pa
+from .sequence_ops import _vjp_grad
 
 # the masked-score value of the reference (-1e9): a masked slot
 # contributes exp(-1e9 - max) == 0.0 exactly
@@ -83,14 +87,27 @@ def _causal_mha(q, k, v, num_heads):
     return out.reshape(q.shape)
 
 
-@register_op("causal_self_attention")
+@register_op("causal_self_attention",
+             grad=_vjp_grad("causal_self_attention",
+                            in_slots=("Q", "K", "V")))
 def causal_self_attention(ctx):
-    """Causal MHA over a [b, T, E] window: the export form the generation
-    engine rewrites per phase."""
+    """Causal MHA over a [b, T, E] window: the training form, and the
+    export form the generation engine rewrites per phase."""
     q = data_of(ctx.input("Q"))
     k = data_of(ctx.input("K"))
     v = data_of(ctx.input("V"))
     ctx.set_output("Out", _causal_mha(q, k, v, int(ctx.attr("num_heads"))))
+
+
+@register_op("causal_self_attention_grad")
+def causal_self_attention_grad(ctx):
+    h = int(ctx.attr("num_heads"))
+    dq, dk, dv = vjp(lambda a, b, c: _causal_mha(a, b, c, h),
+                     [data_of(ctx.input(s)) for s in ("Q", "K", "V")],
+                     data_of(ctx.input("Out@GRAD")))
+    ctx.set_output("Q@GRAD", dq)
+    ctx.set_output("K@GRAD", dk)
+    ctx.set_output("V@GRAD", dv)
 
 
 def _scatter_rows(caches, slots, rows):

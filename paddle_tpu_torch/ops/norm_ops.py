@@ -1,7 +1,7 @@
 """batch_norm and its grad (counterpart of paddle_tpu/ops/norm_ops.py
 :118, with ``bn_forward_math`` :71 and ``bn_backward_math`` :144), and the
-layer_norm forward (reference :193 ``_ln_compute``, :235; its grad is not
-ported yet).
+layer_norm forward and its grad (reference :193 ``_ln_compute``, :223
+grad maker, :235, :248).
 
 ``bn_forward_math`` and ``bn_backward_math`` are shared with
 fused_conv2d_bn's plain route (ops/fused_ops.py), so a fused program and the
@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op, infer_output, OpSpec, G
-from .common import data_of
+from .common import data_of, vjp
 
 
 def _bn_infer(op, block):
@@ -167,7 +167,19 @@ def _ln_infer(op, block):
             infer_output(op, block, slot, (lead,), dtype=x.dtype)
 
 
-@register_op("layer_norm", infer_shape=_ln_infer)
+def _ln_grad_maker(op):
+    """layer_norm_grad over X and dY, with the Scale and Bias slots (and
+    their grads) only where the forward has them (reference :223)."""
+    inputs = {"X": op.input("X"), "Y@GRAD": G(op.output("Y"))}
+    outputs = {"X@GRAD": G(op.input("X"))}
+    for slot in ("Scale", "Bias"):
+        if op.input(slot):
+            inputs[slot] = op.input(slot)
+            outputs[slot + "@GRAD"] = G(op.input(slot))
+    return [OpSpec("layer_norm_grad", inputs, outputs, dict(op.attrs))]
+
+
+@register_op("layer_norm", infer_shape=_ln_infer, grad=_ln_grad_maker)
 def layer_norm(ctx):
     x = data_of(ctx.input("X"))
     scale = data_of(ctx.input("Scale")) if ctx.has_input("Scale") else None
@@ -178,3 +190,29 @@ def layer_norm(ctx):
     ctx.set_output("Y", y)
     ctx.set_output("Mean", mean)
     ctx.set_output("Variance", var)
+
+
+@register_op("layer_norm_grad")
+def layer_norm_grad(ctx):
+    """The vector-Jacobian product of ``_ln_compute``'s Y against Y@GRAD,
+    for X and for each of Scale and Bias the forward was given (reference
+    :248)."""
+    x = data_of(ctx.input("X"))
+    scale = data_of(ctx.input("Scale")) if ctx.has_input("Scale") else None
+    bias = data_of(ctx.input("Bias")) if ctx.has_input("Bias") else None
+    bna = ctx.attr("begin_norm_axis", 1)
+    eps = ctx.attr("epsilon", 1e-5)
+    primals = [t for t in (x, scale, bias) if t is not None]
+
+    def f(a, *rest):
+        rest = list(rest)
+        s = rest.pop(0) if scale is not None else None
+        b = rest.pop(0) if bias is not None else None
+        return _ln_compute(a, s, b, bna, eps)[0]
+
+    grads = list(vjp(f, primals, data_of(ctx.input("Y@GRAD"))))
+    ctx.set_output("X@GRAD", grads.pop(0))
+    if scale is not None:
+        ctx.set_output("Scale@GRAD", grads.pop(0))
+    if bias is not None:
+        ctx.set_output("Bias@GRAD", grads.pop(0))

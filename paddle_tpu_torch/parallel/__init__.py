@@ -1,0 +1,20 @@
+"""Multi-device execution over ``torch.distributed`` (counterpart of
+paddle_tpu/parallel/, without its planner): named meshes over the ranks
+of a process group, the sharding plan and the sharded program step
+(dp, dp×tp, ZeRO-1), ring attention (sp), the expert-parallel MoE FFN
+(ep), the microbatch pipeline (pp), multi-host start-up, and a spawner
+of local ranks (``launch``)."""
+
+from .sharding import (Mesh, PartitionSpec, ShardingPlan, make_mesh,
+                       place_feed, shard_program_step)
+from .ring_attention import ring_attention
+from .moe import moe_ffn, init_moe_params, shard_moe_params
+from .pipeline import (pipeline_apply, shard_pipeline_params,
+                       pipeline_stack_reference)
+from .multihost import init_multihost, global_mesh
+
+__all__ = ["ShardingPlan", "make_mesh", "shard_program_step", "place_feed",
+           "ring_attention", "init_multihost", "global_mesh",
+           "moe_ffn", "init_moe_params", "shard_moe_params",
+           "pipeline_apply", "shard_pipeline_params",
+           "pipeline_stack_reference", "Mesh", "PartitionSpec"]

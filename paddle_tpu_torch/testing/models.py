@@ -13,10 +13,11 @@ tests can build a narrow net and chip_smoke.py the published one:
 * ``ngram_lm``: the word2vec N-gram language model of
   tests/book/test_word2vec.py (context words looking up one shared table
   -> concat -> fc(sigmoid) -> fc(softmax over the vocabulary)).
-* ``build_mlp`` / ``build_convnet_slice`` (with ``mlp_feed`` /
-  ``convnet_feed``): the reference's small training programs
-  (paddle_tpu/testing/models.py:18, :52), an fc stack and a conv+BN
-  residual slice, each with softmax_with_cross_entropy and an optimizer;
+* ``build_mlp`` / ``build_convnet_slice`` / ``build_seq_slice`` (with
+  ``mlp_feed`` / ``convnet_feed`` / ``seq_feed``): the reference's small
+  training programs (paddle_tpu/testing/models.py:18, :52, :104), an fc
+  stack and a conv+BN residual slice, each with softmax_with_cross_entropy
+  and an optimizer, and a LoD embedding + GRU step with Adam;
 * ``nmt_train_program`` / ``nmt_decode_program`` (with ``nmt_pairs`` and
   ``nmt_feed``): the attention-free Seq2Seq NMT model of
   tests/book/test_machine_translation.py:31-147, encoder embedding -> fc
@@ -239,6 +240,37 @@ def convnet_feed(batch, size=8, classes=4, seed=0):
         "img": rng.normal(0, 1, (batch, size, size, 3)).astype("float32"),
         "label": rng.randint(0, classes, (batch, 1)).astype("int64"),
     }
+
+
+def build_seq_slice(vocab=12, emb=8, hid=8, lr=1e-2, seed=7):
+    """A LoD training step (reference testing/models.py:104): int64
+    ``src`` and ``tgt`` sequences (lod_level 1) through embedding -> fc ->
+    dynamic_gru -> fc(softmax) -> per-token cross_entropy -> mean, and
+    Adam(lr). Returns (main, startup, loss)."""
+    from .. import fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        src = fluid.layers.data("src", shape=[1], dtype="int64", lod_level=1)
+        tgt = fluid.layers.data("tgt", shape=[1], dtype="int64", lod_level=1)
+        e = fluid.layers.embedding(src, size=[vocab, emb])
+        h = fluid.layers.fc(e, size=hid * 3)
+        h = fluid.layers.dynamic_gru(h, size=hid)
+        logits = fluid.layers.fc(h, size=vocab, act="softmax")
+        loss = fluid.layers.mean(
+            fluid.layers.cross_entropy(input=logits, label=tgt))
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss, startup)
+    return main, startup, loss
+
+
+def seq_feed(batch, vocab=12, min_len=2, max_len=7, seed=0):
+    """``batch`` random sequences of min_len..max_len-1 tokens, fed as both
+    ``src`` and ``tgt`` (reference testing/models.py:122)."""
+    rng = np.random.RandomState(seed)
+    lens = [int(rng.randint(min_len, max_len)) for _ in range(batch)]
+    seqs = [rng.randint(0, vocab, (ln, 1)).astype("int64") for ln in lens]
+    return {"src": list(seqs), "tgt": list(seqs)}
 
 
 def build_tiny_lm(vocab=32, emb=16, heads=2, n_layers=2, max_pos=256,

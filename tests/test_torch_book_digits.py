@@ -1,0 +1,22 @@
+"""The book chapter MNIST (recognize_digits): the MLP and the conv net against
+the reference, and the book's MLP contract, on the port. The shared parity
+check and contract runner are ``book_parity`` and ``book_contract`` in
+torch_cross.py, which says what they hold."""
+
+import pytest
+
+from torch_cross import (book_contract, book_parity, contract_cases,
+                         port_book)  # noqa: F401
+
+CONTRACTS, IDS = contract_cases("test_recognize_digits_mlp_converges")
+
+
+@pytest.mark.parametrize("chapter", ["digits_mlp", "digits_conv"])
+def test_chapter_trains_like_the_reference(chapter):
+    book_parity(chapter)
+
+
+@pytest.mark.parametrize("module,test,kwargs", CONTRACTS, ids=IDS)
+def test_book_contract_on_the_port(port_book, tmp_path, module, test,
+                                   kwargs):
+    book_contract(port_book, tmp_path, module, test, kwargs)

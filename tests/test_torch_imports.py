@@ -52,6 +52,20 @@ def test_training_front_end_modules_are_checked():
         assert "paddle_tpu_torch/" + name in checked, name
 
 
+def test_parallel_modules_are_checked():
+    """The multi-device package (meshes, the sharded step, ring attention,
+    MoE, the pipeline, multi-host start-up, the rank spawner) and its
+    lanes are among the files the import check reads: the spawned ranks
+    import none of the reference either."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in ("__init__.py", "collectives.py", "sharding.py", "step.py",
+                 "ring_attention.py", "moe.py", "pipeline.py",
+                 "multihost.py", "launch.py"):
+        assert "paddle_tpu_torch/parallel/" + name in checked, name
+    assert "paddle_tpu_torch/testing/multichip.py" in checked
+    assert "paddle_tpu_torch/ops/io_ops.py" in checked
+
+
 def test_kernel_tier_has_no_silent_fallback():
     """No try statement anywhere in ops/cuda/: a failed build or launch
     reaches the caller."""

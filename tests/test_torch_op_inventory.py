@@ -70,12 +70,8 @@ _BREADTH = (
 # reference op type -> the ROADMAP.md item (queue A) that ports it
 PENDING = {
     **{t: "A12" for t in _BREADTH},
-    # training the decoder LM that PR 6 serves
-    "layer_norm_grad": "A7", "causal_self_attention_grad": "A7",
     # the sparse/CTR slice
     "split_ids": "A11", "split_selected_rows": "A11",
-    # multi-device
-    "get_places": "A13",
     # the input pipeline
     "create_double_buffer_reader": "A16", "create_multi_pass_reader": "A16",
     "create_recordio_file_reader": "A16", "create_shuffle_reader": "A16",
