@@ -11,7 +11,9 @@ tensor arrays, train the models of the book chapters (digits, CIFAR,
 sentiment, SRL with its CRF, the recommender), train the decoder LM and
 serve what it learned, with the PyTorch/CUDA port on one GPU, run the
 data-parallel steps over NCCL and the multi-device lanes on gloo ranks,
-and hold every hand-written kernel against its plain PyTorch version.
+train Wide&Deep CTR locally, through parameter-server shard processes
+and with its table sharded over NCCL ranks, and hold every hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -322,6 +324,24 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               dp×pp×tp, dp×sp) on 8 gloo ranks of the CPU, each line
               printed as the reference prints it, every error within
               1e-5. Every rank is joined with a timeout.
+22. ctr      — Wide&Deep CTR (Cheng et al. 2016's hidden 1024/512/256)
+              over phase 10's Criteo batch: is_sparse tables of
+              1 000 000 x 64 (deep) and 1 000 000 x 1 (wide),
+              SGD(0.05, fused=True), batch 4096, 5 steps on one batch on
+              both routes: 2 embedding_sgd and 1 sgd_arena launches a step
+              and no fallback, step-1 gradients equal between the routes
+              within 1e-6 of the largest, the loss falling; ms a step,
+              busy share, peak memory. Then the same program through
+              DistributeTranspiler onto 2 pserver shard processes under
+              PserverSupervisor (sync, one trainer on the card): step 1
+              the local loss bitwise, 5 steps within 1e-5 relative; ms a
+              step split into pull, install, step, fetch and push, and
+              the bytes pushed and pulled. Then 4 async steps through
+              OverlappedRemoteUpdater (the loss falls); the sharded step
+              (deep_emb's columns over tp, the sparse gradients gathered
+              over dp) on NCCL ranks over every visible card against one
+              device; split_ids and split_selected_rows on the card
+              bitwise the CPU's, at 1 host sync and 0.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -2726,9 +2746,12 @@ def phase_sparse_kernels(torch, fluid, seed, card):
     n_w2v = (W2V_N - 1) * W2V_BATCH
     w2v_rows = zipf_ids(rng, W2V_DICT, n_w2v)
     w2v_rows[rng.choice(n_w2v, W2V_SENTINELS, replace=False)] = W2V_DICT
+    # "CTR wide" is phase 22's wide table, width 1: the kernel's scalar
+    # instantiation (one float a lane) on the sort path
     cases = [("word2vec", W2V_DICT, W2V_EMB, w2v_rows),
              ("CTR", CTR_ROWS, CTR_DIM, ctr_ids(rng)),
-             ("hot run", CTR_ROWS, CTR_DIM, hot_ids(rng))]
+             ("hot run", CTR_ROWS, CTR_DIM, hot_ids(rng)),
+             ("CTR wide", CTR_ROWS, 1, ctr_ids(rng))]
     for name, v, d, rows_np in cases:
         rows = torch.from_numpy(rows_np.astype("int64")).to(dev)
         real = rows_np[(rows_np >= 0) & (rows_np < v)]
@@ -7295,6 +7318,580 @@ def phase_multichip(torch, fluid, seed, card):
                               for r in ranks["lm"])}
 
 
+# phase 22: Wide&Deep CTR (Cheng et al., "Wide & Deep Learning for
+# Recommender Systems", 2016, §5.1: hidden 1024, 512, 256) over phase 10's
+# Criteo batch. Deep: the 26 categorical fields hashed into one is_sparse
+# table of CTR_ROWS x CTR_DIM, reshaped to [batch, 26 * 64], concatenated
+# with the 13 integer fields (log1p'd float32), relu fcs 1024, 512, 256
+# and an fc to 1. Wide: an is_sparse table of CTR_ROWS x 1 on the same
+# ids, summed over the fields, plus fc(dense, 1). mean sigmoid
+# cross-entropy against the click; SGD(lr, fused=True); batch CTR_BATCH.
+# Assumptions: the paper's embedding width was 32 (64 keeps phase 10's
+# table), its optimizers FTRL and AdaGrad (SGD is the server rule the
+# transpiler lifts), and the clicks come from a seeded logistic model of
+# the ids hashed into WD["click_buckets"] buckets and of the dense
+# features, so that the loss can fall. The sizes sit in a dict so the
+# NCCL ranks get them as an argument
+WD = dict(rows=CTR_ROWS, dim=CTR_DIM, fields=len(CRITEO_VOCABS), dense=13,
+          hidden=(1024, 512, 256), batch=CTR_BATCH, lr=0.05,
+          click_buckets=1024)
+WD_STEPS, WD_ASYNC_STEPS, WD_SHARDS = 5, 4, 2
+# the routes run the same ops up to the update (the kernels are the
+# update): step-1 gradients within 1e-6 of the largest element. The
+# kernel route's step-1 update is held bitwise against the kernels' plain
+# versions (embedding_sgd_torch, sgd_arena_torch) on the same inputs. The
+# plain route's is another function: the dense set's update is the same
+# expression (bitwise), but a table's is the reference's unmerged
+# scatter-add, whose sum of a row's k entries rounds differently from the
+# merged one: each side rounds k + 1 times (k adds and the product, or
+# k - 1 adds, the product and the difference), so they part by at most
+# 2k + 2 float32 roundings of |w| + lr·Σ|v| an element (WD_ROUND_UNIT
+# each, to first order), held elementwise after step 1 (the phase
+# prints how far they part). So the losses may part too: 1e-6 relative
+# in 5 steps
+WD_GRAD_LIMIT, WD_ROUTE_REL, WD_ROUND_UNIT = 1e-6, 1e-6, 2.0 ** -24
+# through the pservers: step 1 the local step's loss bitwise (the same
+# forward from the same parameters); the server's numpy SGD against the
+# kernels' update, a float32 rounding a step, within 1e-5 relative
+WD_PS_REL = 1e-5
+
+
+def wd_program(fluid, wd, seed):
+    """Phase 22's Wide&Deep training program: (main, startup, loss)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7 + seed
+    with fluid.program_guard(main, startup):
+        ids = L.data("ids", shape=[wd["fields"], 1], dtype="int64")
+        dense = L.data("dense", shape=[wd["dense"]])
+        click = L.data("click", shape=[1])
+        deep = L.reshape(L.embedding(
+            ids, size=[wd["rows"], wd["dim"]], is_sparse=True,
+            param_attr=fluid.ParamAttr(name="deep_emb")),
+            [-1, wd["fields"] * wd["dim"]])
+        h = L.concat([deep, dense], axis=1)
+        for width in wd["hidden"]:
+            h = L.fc(h, size=width, act="relu")
+        wide = L.reshape(L.embedding(
+            ids, size=[wd["rows"], 1], is_sparse=True,
+            param_attr=fluid.ParamAttr(name="wide_emb")), [-1, wd["fields"]])
+        logit = L.elementwise_add(
+            L.elementwise_add(L.fc(h, size=1),
+                              L.reduce_sum(wide, dim=1, keep_dim=True)),
+            L.fc(dense, size=1))
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, click))
+        fluid.optimizer.SGD(wd["lr"], fused=True).minimize(loss, startup)
+    return main, startup, loss
+
+
+def wd_dp_program(wd, seed):
+    """The Wide&Deep program for the sharded step (ranks import this)."""
+    import paddle_tpu_torch.fluid as fluid
+    fluid.reset_unique_name()
+    return wd_program(fluid, wd, seed)
+
+
+def wd_feed(np, wd, seed):
+    """One batch: ids [batch, fields, 1] (phase 10's Criteo hashing at
+    full size, else uniform), the dense fields as log1p of Poisson counts
+    of field-wise exponential means, clicks from the logistic model."""
+    rng = np.random.RandomState(seed)
+    full = (wd["rows"], wd["batch"], wd["fields"]) == \
+        (CTR_ROWS, CTR_BATCH, len(CRITEO_VOCABS))
+    ids = ctr_ids(rng).reshape(wd["fields"], wd["batch"]).T if full \
+        else rng.randint(0, wd["rows"], (wd["batch"], wd["fields"]))
+    lam = rng.exponential(5.0, wd["dense"])
+    dense = np.log1p(rng.poisson(lam, (wd["batch"], wd["dense"])))
+    w = np.random.RandomState(seed + 1).normal(0, 1, wd["click_buckets"])
+    v = np.random.RandomState(seed + 2).normal(0, 0.5, wd["dense"])
+    score = 1.5 * w[ids % wd["click_buckets"]].sum(1) \
+        / np.sqrt(wd["fields"]) + (dense - dense.mean(0)) @ v - 1.0
+    click = rng.rand(wd["batch"]) < 1.0 / (1.0 + np.exp(-score))
+    return {"ids": np.ascontiguousarray(ids, dtype=np.int64)[..., None],
+            "dense": dense.astype(np.float32),
+            "click": click.astype(np.float32)[:, None]}
+
+
+def wd_plan_kw():
+    """The sharded step's plan: deep_emb's columns over tp whatever the
+    mesh's tp size (a one-card mesh runs the column path on a one-rank
+    group); the fcs follow the default policy."""
+    from paddle_tpu_torch.parallel.sharding import P
+    return {"rules": [("^deep_emb$", P(None, "tp"))]}
+
+
+def nccl_ctr_rank(wd, seed):
+    """One NCCL rank of phase 22's sharded step: the Wide&Deep step over a
+    dp x tp mesh of every rank, deep_emb's columns sharded over tp and
+    both tables' sparse gradients gathered over dp; with the launches of
+    embedding_sgd and sgd_arena it made."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.testing import multichip
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{dist.get_rank()}" if dist.get_backend() == "nccl" \
+        else "cpu"
+    embk.reset_launches()
+    opk.reset_launches()
+    out = multichip.sharded_run(wd_dp_program, dict(wd=wd, seed=seed),
+                                [wd_feed(np, wd, seed)] * DP_STEPS,
+                                ("dp", "tp"), wd_plan_kw(), device=dev)
+    out["launches"] = {"embedding_sgd": embk.launches["embedding_sgd"],
+                       "sgd_arena": opk.launches["sgd_arena"]}
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def wd_grads_host(grads):
+    """A step's gradients as the trainer pushes them: the sparse ones as
+    rpc.SparseGrad (ids + touched rows), the dense ones as numpy."""
+    from paddle_tpu_torch.core.sparse import SparseRows
+    from paddle_tpu_torch.distributed import SparseGrad
+    return {n: SparseGrad.from_sparse_rows(g) if isinstance(g, SparseRows)
+            else g.cpu().numpy() for n, g in grads.items()}
+
+
+def wd_grad_diff(torch, a, b):
+    """(max |a - b|, max |b|) over one gradient, dense or SparseRows (the
+    rows must be equal)."""
+    from paddle_tpu_torch.core.sparse import SparseRows
+    if isinstance(b, SparseRows):
+        if not torch.equal(a.rows, b.rows):
+            return float("inf"), 1.0
+        a, b = a.values, b.values
+    return (a - b).abs().max().item(), b.abs().max().item()
+
+
+def wd_plain_update(torch, init, params, grads, first, lr_name):
+    """Every parameter after step 1 by the kernels' plain versions, from
+    the startup values and the step-1 gradients: embedding_sgd_torch for a
+    table (a SparseRows gradient), sgd_arena_torch for the rest."""
+    from paddle_tpu_torch.core.sparse import SparseRows
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    lr = init.find_var(lr_name).reshape(())
+    out = {}
+    for p, g in zip(params, grads):
+        w, gv = init.find_var(p), first[g]
+        if isinstance(gv, SparseRows):
+            out[p] = embk.embedding_sgd_torch(
+                w, gv.rows, gv.values.to(w.dtype).contiguous(), lr)
+        else:
+            out[p], = opk.sgd_arena_torch([w], [gv.float().contiguous()],
+                                          lr)
+    return out
+
+
+def wd_route_bound(torch, w, g, lr):
+    """The elementwise bound on |merged − unmerged| of a table's step-1
+    update (see WD_ROUTE_REL): 2k + 2 roundings of |w| + lr·Σ|v| for a row
+    of k entries (with the second-order term), 0 for an untouched row."""
+    keep = (g.rows >= 0) & (g.rows < w.shape[0])
+    rows, vals = g.rows[keep], g.values[keep].to(w.dtype).abs()
+    k = torch.zeros(w.shape[0], device=w.device).index_add_(
+        0, rows, torch.ones(rows.shape[0], device=w.device))
+    mag = torch.zeros_like(w).index_add_(0, rows, vals)
+    n = ((2 * k + 2) * (k > 0))[:, None] * WD_ROUND_UNIT
+    return n * (1 + n) * (w.abs() + lr.reshape(()) * mag)
+
+
+def wd_local(torch, fluid, exe, main, loss, params, grads, lr_name, init,
+             feed, card, route, problems):
+    """WD_STEPS local steps on ``route``: losses, step-1 gradients and
+    parameters, ms, peak GiB, the profile, and the launches. On the kernel
+    route the step-1 update is held bitwise against the kernels' plain
+    versions."""
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import embedding as embk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+
+    scope = copy_scope(fluid, torch, init)
+    fluid.set_flags({"kernel_tier": route})
+    losses, ms = [], []
+    launched = {"embedding_sgd": 0, "sgd_arena": 0}
+    want = (2, 1) if route == "auto" else (0, 0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(WD_STEPS):
+            embk.reset_launches()
+            opk.reset_launches()
+            tier.reset_fallback_counts()
+            t0 = time.perf_counter()
+            vals = exe.run(main, feed=feed, scope=scope,
+                           fetch_list=[loss] + (grads if step == 0
+                                                else []),
+                           return_numpy=False)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            n = (embk.launches["embedding_sgd"], opk.launches["sgd_arena"])
+            if n != want or tier.fallback_counts():
+                problems.append(
+                    f"Wide&Deep kernel_tier={route} step {step + 1}: "
+                    f"embedding_sgd {n[0]}, sgd_arena {n[1]} (want "
+                    f"{want}), fallbacks {tier.fallback_counts()}")
+            launched["embedding_sgd"] += n[0]
+            launched["sgd_arena"] += n[1]
+            if not torch.isfinite(vals[0]).item():
+                fail(f"Wide&Deep kernel_tier={route} step {step + 1}: "
+                     f"loss {vals[0]}")
+            losses.append(vals[0].item())
+            if step == 0:
+                first = dict(zip(grads, vals[1:]))
+                after = {p: scope.find_var(p).clone() for p in params}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        pscope = copy_scope(fluid, torch, init)
+        prof = profile(torch, lambda: exe.run(
+            main, feed=feed, scope=pscope, fetch_list=[loss],
+            return_numpy=False),
+            f"Wide&Deep training step, kernel_tier={route}", card, reps=3)
+    finally:
+        fluid.set_flags({"kernel_tier": "auto"})
+    steady = sum(ms[1:]) / len(ms[1:])
+    busy = (f"device busy {prof[1]:.2f} of {prof[0]:.2f} ms "
+            f"({100 * prof[1] / prof[0]:.1f}%)" if prof
+            else "device busy not measured")
+    log(f"Wide&Deep local, kernel_tier={route}: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + " | ms/step " + " ".join(f"{v:.1f}" for v in ms)
+        + f" | steady {steady:.2f} ms/step, "
+        f"{WD['batch'] * 1e3 / steady:.0f} examples/s | {busy} | peak "
+        f"memory {peak:.2f} GiB | launches {launched} | {card}")
+    if route == "auto":
+        want = wd_plain_update(torch, init, params, grads, first, lr_name)
+        bad = [p for p in params if not torch.equal(after[p], want[p])]
+        log(f"Wide&Deep step-1 update on the kernel route against "
+            f"embedding_sgd_torch (deep_emb, wide_emb) and sgd_arena_torch "
+            f"({len(params) - 2} dense): bitwise for "
+            f"{len(params) - len(bad)} of {len(params)}")
+        if bad:
+            diff = max((after[p] - want[p]).abs().max().item() for p in bad)
+            problems.append(f"Wide&Deep step-1 update differs from the "
+                            f"plain versions in {bad}: max abs {diff:.3e}, "
+                            f"want bitwise")
+        del want
+    return dict(losses=losses, first=first, after=after, launched=launched,
+                ms=steady)
+
+
+def wd_pserver(torch, fluid, exe, t, loss, feed, init, card, mode, steps,
+               problems):
+    """``steps`` steps of the transpiled trainer through WD_SHARDS shard
+    processes (``mode`` "sync": pull, install, step, fetch, push in turn;
+    "async": through OverlappedRemoteUpdater). Returns the losses and, in
+    sync mode, the per-step times and wire bytes."""
+    from paddle_tpu_torch.distributed import (OverlappedRemoteUpdater,
+                                              PserverSupervisor,
+                                              install_params)
+    trainer = t.get_trainer_program()
+    names = [p for p, _ in t.params_grads]
+    grads = [g for _, g in t.params_grads]
+    scope = copy_scope(fluid, torch, init)
+    held = {n: scope.find_var(n) for n in names}
+    t0 = time.perf_counter()
+    # checkpoint_every=0: no per-update checkpoint of the 256 MB table
+    with PserverSupervisor(n_servers=WD_SHARDS, optimizer=t.optimizer,
+                           opt_kwargs=t.opt_kwargs, mode=mode, fan_in=1,
+                           checkpoint_every=0) as sup:
+        if not sup.wait_ready(120.0):
+            fail(f"pserver shards ({mode}) did not answer in 120 s: "
+                 f"{sup.child_stats()}")
+        start_s = time.perf_counter() - t0
+        client = t.trainer_client(
+            endpoints=[f"{h}:{p}" for h, p in sup.addresses])
+        t0 = time.perf_counter()
+        client.init_params({n: init.find_var(n).cpu().numpy()
+                            for n in names})
+        init_s = time.perf_counter() - t0
+        losses, split, wire = [], [], []
+        upd = OverlappedRemoteUpdater(client, scope, names,
+                                      device=exe.device) \
+            if mode == "async" else None
+        for _ in range(steps):
+            w0 = client.wire_stats()
+            c0 = time.perf_counter()
+            if upd is not None:
+                upd.sync_in()
+                torch.cuda.synchronize()
+                c1 = c2 = time.perf_counter()
+            else:
+                pulled = client.pull()
+                c1 = time.perf_counter()
+                install_params(scope, pulled, device=exe.device)
+                torch.cuda.synchronize()
+                c2 = time.perf_counter()
+            vals = exe.run(trainer, feed=feed, scope=scope,
+                           fetch_list=[loss] + grads,
+                           return_numpy=False)
+            losses.append(vals[0].item())
+            c3 = time.perf_counter()
+            step_grads = dict(zip(names, vals[1:]))
+            if upd is not None:
+                upd.submit(step_grads)
+                c4 = c5 = time.perf_counter()
+            else:
+                host = wd_grads_host(step_grads)
+                c4 = time.perf_counter()
+                client.push(host)
+                c5 = time.perf_counter()
+            w1 = client.wire_stats()
+            split.append(((c1 - c0) * 1e3, (c2 - c1) * 1e3,
+                          (c3 - c2) * 1e3, (c4 - c3) * 1e3,
+                          (c5 - c4) * 1e3))
+            wire.append((w1["bytes_sent"] - w0["bytes_sent"],
+                         w1["bytes_recv"] - w0["bytes_recv"]))
+        if upd is not None:
+            upd.finish()
+        client.close()
+        alive = sup.child_stats()
+    if not all(c["alive"] and c["restart_count"] == 0 for c in alive):
+        problems.append(f"pserver shards ({mode}) died or restarted: "
+                        f"{alive}")
+    moved = [n for n in names if scope.find_var(n) is not held[n]
+             or scope.find_var(n).device.type != "cuda"]
+    if moved:
+        problems.append(f"pulled params not installed into the scope's "
+                        f"tensors on the card: {moved}")
+    return dict(losses=losses, split=split, wire=wire, start_s=start_s,
+                init_s=init_s)
+
+
+def wd_split_ops(torch, fluid, feed, sr, card, problems):
+    """split_ids over the batch's ids and split_selected_rows over the
+    step-1 deep_emb gradient, on the card and on the CPU: bitwise equal,
+    split_ids at one host sync a call, split_selected_rows at none."""
+    from paddle_tpu_torch.core.sparse import SparseRows
+    from paddle_tpu_torch.ops import nn_ops
+
+    n_ids = 4
+    halves = [WD["rows"] // 2, WD["rows"] - WD["rows"] // 2]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data("ids", shape=[1], dtype="int64")
+        block = main.global_block()
+        outs = [block.create_var(name=f"ids_shard{i}", dtype="int64")
+                for i in range(n_ids)]
+        block.append_op("split_ids", inputs={"Ids": [ids.name]},
+                        outputs={"Out": [o.name for o in outs]})
+        x = block.create_var(name="deep_grad")
+        parts = [block.create_var(name=f"grad_part{i}") for i in range(2)]
+        block.append_op("split_selected_rows", inputs={"X": [x.name]},
+                        outputs={"Out": [p.name for p in parts]},
+                        attrs={"height_sections": halves})
+    fetch = [o.name for o in outs] + [p.name for p in parts]
+    flat = torch.from_numpy(feed["ids"].reshape(-1, 1))
+    got = {}
+    ctx, syncs, where = sync_counter(torch)
+    for dev in ("cuda", "cpu"):
+        exe = fluid.Executor(fluid.CUDAPlace(0) if dev == "cuda"
+                             else fluid.CPUPlace())
+        scope = fluid.Scope()
+        scope.set("deep_grad", SparseRows(sr.rows.to(exe.device),
+                                          sr.values.to(exe.device),
+                                          sr.nrows))
+        ids_in = flat.to(exe.device)
+        before = nn_ops.host_syncs()["split_ids"]
+        torch.cuda.synchronize()
+        where[0] = dev
+        with ctx():
+            vals = exe.run(main, feed={"ids": ids_in}, fetch_list=fetch,
+                           scope=scope, return_numpy=False)
+        counted = nn_ops.host_syncs()["split_ids"] - before
+        got[dev] = (vals, counted)
+    (cv, ccount), (hv, hcount) = got["cuda"], got["cpu"]
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(cv[:n_ids],
+                                                       hv[:n_ids]))
+    same_rows = all(torch.equal(a.rows.cpu(), b.rows)
+                    and torch.equal(a.values.cpu(), b.values)
+                    and a.nrows == b.nrows for a, b in zip(cv[n_ids:],
+                                                           hv[n_ids:]))
+    log(f"split_ids ({flat.shape[0]} ids into {n_ids} shards: "
+        + ", ".join(str(v.shape[0]) for v in cv[:n_ids])
+        + f") and split_selected_rows (the step-1 deep_emb gradient, "
+        f"{sr.rows.shape[0]} entries, sections {halves}) on the card: "
+        f"bitwise the CPU's {same} / {same_rows}; host syncs torch reports "
+        f"in the run {syncs.get('cuda', 0)}, split_ids' own count "
+        f"{ccount} (CPU {hcount}) | {card}")
+    if not (same and same_rows):
+        problems.append("split_ids / split_selected_rows differ between "
+                        "the card and the CPU")
+    if ccount != 1 or hcount != 0 or syncs.get("cuda", 0) != 1:
+        problems.append(f"split ops: {syncs.get('cuda', 0)} host syncs on "
+                        f"the card (want 1, split_ids' count read), "
+                        f"counted {ccount}/{hcount}")
+
+
+def phase_ctr(torch, fluid, seed, card):
+    """Phase 22: Wide&Deep CTR trained locally on both routes, then the
+    same program through transpiled pserver shard processes (sync, then
+    async through OverlappedRemoteUpdater), then the sharded step over
+    NCCL on every visible card, then the sharded table's routing ops.
+    Returns embedding_sgd's and sgd_arena's launches."""
+    import numpy as np
+    import chip_smoke
+    from paddle_tpu_torch.core.sparse import SparseRows
+    from paddle_tpu_torch.parallel.launch import RankPool
+    from paddle_tpu_torch.testing import multichip
+
+    wd = WD
+    log(f"\n== phase 22: Wide&Deep CTR ({wd['fields']} hashed fields into "
+        f"is_sparse tables of {wd['rows']} x {wd['dim']} and "
+        f"{wd['rows']} x 1, {wd['dense']} dense, hidden {wd['hidden']}), "
+        f"batch {wd['batch']}, SGD({wd['lr']}, fused=True): {WD_STEPS} "
+        f"local steps on both routes, through {WD_SHARDS} pserver shards "
+        f"(sync, async), the sharded step over NCCL, the routing ops "
+        f"| {card} ==")
+    t_phase = time.perf_counter()
+    fluid.reset_unique_name()
+    main, startup, loss = wd_program(fluid, wd, seed)
+    block = main.global_block()
+    log("program: " + op_counts(block))
+    update, = [op for op in block.ops if op.type == "fused_sgd"]
+    params, grads = update.input("Params"), update.input("Grads")
+    lr_name, = update.input("LearningRate")
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = wd_feed(np, wd, seed)
+    uniq = np.unique(feed["ids"])
+    log(f"batch: {feed['ids'].size} ids, {uniq.size} distinct rows, click "
+        f"rate {feed['click'].mean():.3f}")
+    problems = []
+    res = {route: wd_local(torch, fluid, exe, main, loss, params, grads,
+                           lr_name, init, feed, card, route, problems)
+           for route in ("auto", "torch")}
+    auto, plain = res["auto"], res["torch"]
+    diffs = [wd_grad_diff(torch, auto["first"][n], plain["first"][n])
+             for n in grads]
+    dg = max(d for d, _ in diffs) / max(m for _, m in diffs)
+    rel = [abs(a - b) / abs(b) for a, b in zip(auto["losses"],
+                                               plain["losses"])]
+    log(f"Wide&Deep step 1, kernel route vs kernel_tier=torch: max |Δ "
+        f"gradient| {dg:.3e} of the largest (limit {WD_GRAD_LIMIT:.0e}); "
+        "losses per step relative " + " ".join(f"{x:.2e}" for x in rel)
+        + f" (limit {WD_ROUTE_REL:.0e})")
+    if not dg <= WD_GRAD_LIMIT:
+        problems.append(f"Wide&Deep step-1 gradients differ by {dg:.3e}")
+    lr = init.find_var(lr_name)
+    for p, g in zip(params, grads):
+        a, b = auto["after"][p], plain["after"][p]
+        if not isinstance(plain["first"][g], SparseRows):
+            if not torch.equal(a, b):
+                problems.append(f"Wide&Deep step-1 {p}: the routes' dense "
+                                f"updates differ, want bitwise")
+            continue
+        d = (a - b).abs()
+        bound = wd_route_bound(torch, init.find_var(p), plain["first"][g],
+                               lr)
+        log(f"Wide&Deep step-1 {p}, kernel route vs kernel_tier=torch: "
+            f"{int((d > 0).sum().item())} of {d.numel()} elements differ, "
+            f"max |Δ| {d.max().item():.3e}, at most "
+            f"{(d / bound.clamp_min(1e-45)).max().item():.3f} of the "
+            f"elementwise rounding bound")
+        if not bool((d <= bound).all().item()):
+            problems.append(f"Wide&Deep step-1 {p}: the routes' tables "
+                            f"differ beyond the rounding bound")
+        del d, bound
+    if not max(rel) <= WD_ROUTE_REL:
+        problems.append(f"Wide&Deep losses differ between routes by "
+                        f"{max(rel):.3e}")
+    for route in ("auto", "torch"):
+        if not res[route]["losses"][-1] < res[route]["losses"][0]:
+            problems.append(f"Wide&Deep kernel_tier={route}: the loss did "
+                            f"not fall: {res[route]['losses']}")
+    if problems:
+        fail("; ".join(problems))
+
+    t = fluid.DistributeTranspiler().transpile(
+        0, program=main, pservers="127.0.0.1:6170,127.0.0.1:6171",
+        trainers=1, startup_program=startup)
+    log(f"transpiled: rule {t.optimizer} {t.opt_kwargs}, sparse "
+        f"{t.sparse_param_names}, trainer program "
+        + op_counts(t.get_trainer_program().global_block()))
+    ps = wd_pserver(torch, fluid, exe, t, loss, feed, init, card, "sync",
+                    WD_STEPS, problems)
+    prel = [abs(a - b) / abs(b) for a, b in zip(ps["losses"],
+                                               auto["losses"])]
+    names = ("pull", "install", "step", "fetch", "push")
+    mean = [sum(s[i] for s in ps["split"][1:]) / (WD_STEPS - 1)
+            for i in range(5)]
+    log(f"Wide&Deep through {WD_SHARDS} pserver shards (sync, 1 trainer): "
+        f"shards up in {ps['start_s']:.2f} s, init_params "
+        f"{ps['init_s']:.2f} s; losses "
+        + " ".join(f"{v:.6f}" for v in ps["losses"])
+        + "; against the local kernel route: step 1 bitwise "
+        f"{ps['losses'][0] == auto['losses'][0]}, relative "
+        + " ".join(f"{x:.2e}" for x in prel)
+        + f" (limit {WD_PS_REL:.0e}) | per step (mean of steps 2-"
+        f"{WD_STEPS}): " + ", ".join(f"{k} {v:.1f} ms"
+                                     for k, v in zip(names, mean))
+        + f", {sum(mean):.1f} ms in all against {auto['ms']:.1f} ms local"
+        f" | bytes a step: pushed "
+        + " ".join(str(w[0]) for w in ps["wire"]) + ", pulled "
+        + " ".join(str(w[1]) for w in ps["wire"]) + f" | {card}")
+    if ps["losses"][0] != auto["losses"][0]:
+        problems.append(f"pserver step 1 loss {ps['losses'][0]!r} is not "
+                        f"the local one {auto['losses'][0]!r}")
+    if not max(prel) <= WD_PS_REL:
+        problems.append(f"pserver losses differ from local by "
+                        f"{max(prel):.3e}")
+    asy = wd_pserver(torch, fluid, exe, t, loss, feed, init, card, "async",
+                     WD_ASYNC_STEPS, problems)
+    log(f"Wide&Deep async through OverlappedRemoteUpdater: losses "
+        + " ".join(f"{v:.6f}" for v in asy["losses"])
+        + f" | ms a step (sync_in, -, step, -, submit) "
+        + "; ".join(" ".join(f"{x:.1f}" for x in s) for s in asy["split"]))
+    if not asy["losses"][-1] < asy["losses"][0]:
+        problems.append(f"async pserver: the loss did not fall: "
+                        f"{asy['losses']}")
+    if problems:
+        fail("; ".join(problems))
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with RankPool(world, "nccl", timeout=300) as pool:
+        start_s = time.perf_counter() - t0
+        ranks = pool.run(chip_smoke.nccl_ctr_rank, wd, seed)
+    single = multichip.single_run(wd_dp_program, dict(wd=wd, seed=seed),
+                                  [feed] * DP_STEPS, device="cuda:0")
+    got = ranks[0]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   single["losses"]))
+    perr = max(float(np.max(np.abs(got["params"][n] - w)))
+               / max(float(np.max(np.abs(w))), 1e-30)
+               for n, w in single["params"].items())
+    log(f"Wide&Deep sharded step over {got['backend']} on mesh "
+        f"{got['mesh']} (pool up in {start_s:.1f} s): deep_emb "
+        f"{got['specs'].get('deep_emb')}; losses "
+        + " ".join(f"{v:.6f}" for v in got["losses"]) + ", one device "
+        + " ".join(f"{v:.6f}" for v in single["losses"])
+        + f"; loss rel err {lerr:.2e} (limit {multichip.LANE_LIMIT:.0e}), "
+        f"params max |Δ| {perr:.2e} of each one's largest (limit "
+        f"{multichip.PARAM_LIMIT:.0e}); launches per rank "
+        + str([r["launches"] for r in ranks]))
+    if any(r["losses"] != got["losses"] for r in ranks[1:]):
+        problems.append("Wide&Deep sharded: the ranks' losses differ")
+    if got["backend"] != "nccl" or got["specs"].get("deep_emb") != \
+            [None, "tp"]:
+        problems.append(f"Wide&Deep sharded: backend {got['backend']}, "
+                        f"deep_emb spec {got['specs'].get('deep_emb')}")
+    if not (lerr <= multichip.LANE_LIMIT and perr <= multichip.PARAM_LIMIT):
+        problems.append("Wide&Deep sharded step differs from one device")
+    wd_split_ops(torch, fluid, feed, plain["first"]["deep_emb@GRAD"], card,
+                 problems)
+    if problems:
+        fail("; ".join(problems))
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {k: auto["launched"][k] + sum(r["launches"][k] for r in ranks)
+            for k in ("embedding_sgd", "sgd_arena")}
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -7386,6 +7983,7 @@ def main():
     book = phase_book(torch, fluid, args.seed, card)
     lm = phase_lm_train(torch, fluid, args.seed, card)
     multi = phase_multichip(torch, fluid, args.seed, card)
+    ctr = phase_ctr(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -7457,11 +8055,11 @@ def main():
               ctc_launches["ctc_loss_bwd"], seq_totals["ctc_loss_bwd"]),
         entry("sgd_arena", "optimizer_arena.cu", "pallas/optimizer.py:92",
               w2v_launches["sgd_arena"] + rec["sgd_arena"]
-              + rt["sgd_arena"],
+              + rt["sgd_arena"] + ctr["sgd_arena"],
               sparse_totals["sgd_arena"]),
         entry("embedding_sgd", "embedding_sgd.cu", "pallas/embedding.py:40",
               w2v_launches["embedding_sgd"] + rec["embedding_sgd"]
-              + rt["embedding_sgd"],
+              + rt["embedding_sgd"] + ctr["embedding_sgd"],
               sparse_totals["embedding_sgd"]),
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",

@@ -6,9 +6,11 @@ verifier's (``verify_passes``, ``executor_verify``), ``kernel_tier``,
 :216-330, without the KV spill tier's ``serving_kv_spill_dir`` and
 ``serving_kv_spill_bytes``), the serving front door's (``rpc_timeout_s``,
 ``serving_max_delay_ms``, ``serving_max_models`` and the tenant quota
-flags) and the observability plane's (``obs_metrics_window``,
-``obs_slo_interval_s``, ``obs_flight_events``, ``obs_incident_dir``), each
-with the reference's default."""
+flags), the parameter server's (``pserver_barrier_timeout_s``,
+``pserver_trainer_lease_s``, ``pserver_wire_dtype``) and the observability
+plane's (``obs_metrics_window``, ``obs_slo_interval_s``,
+``obs_flight_events``, ``obs_incident_dir``), each with the reference's
+default."""
 
 from __future__ import annotations
 
@@ -80,6 +82,32 @@ DEFINE_flag("serving_batch_buckets", "1,2,4,8,16,32",
             "comma-separated batch buckets the serving InferenceEngine pads "
             "incoming batches up to; batches beyond the largest bucket are "
             "chunked through it (serving/engine.py)")
+
+DEFINE_flag("pserver_barrier_timeout_s", 60.0,
+            "parameter-server wait bound in seconds: how long a sync-mode "
+            "push waits at the fan-in barrier (and an async push waits on "
+            "bounded staleness) before declaring the round broken by a dead "
+            "peer and raising TimeoutError. Overridable per server via "
+            "ParameterServer(barrier_timeout_s=...)/serve(); the flag is "
+            "the process-wide default (was a hardcoded 60.0)")
+
+DEFINE_flag("pserver_trainer_lease_s", 10.0,
+            "heartbeat-lease duration in seconds for sync-mode trainer "
+            "membership on a parameter-server shard. A trainer that calls "
+            "register_trainer joins the shard's lease set (pushes and "
+            "further registrations renew it); a sync round's barrier waits "
+            "on the lease set snapshotted at round-open, and a member "
+            "whose lease expires mid-round SHRINKS the barrier instead of "
+            "timing it out. 0 disables lease bookkeeping entirely "
+            "(count-based fan_in barriers only). Overridable per server "
+            "via ParameterServer(trainer_lease_s=...)/serve()")
+
+DEFINE_flag("pserver_wire_dtype", "fp32",
+            "dtype dense gradients travel in on the trainer->pserver push "
+            "wire: fp32 (exact, default) or fp16 (half the push bytes; "
+            "the server upcasts and accumulates in fp32, the reference's "
+            "half-precision parameter-server transfer). Pulled params "
+            "always return fp32")
 
 DEFINE_flag("rpc_timeout_s", 90.0,
             "host-RPC response deadline in seconds: how long RpcClient "

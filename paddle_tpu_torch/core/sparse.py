@@ -74,10 +74,19 @@ def add_rows(dense, rows, values):
     on every run. On the CPU ``index_add_`` does so (``index_put_`` with
     ``accumulate=True`` adds duplicates from several threads there); on
     CUDA ``index_put_`` with ``accumulate=True`` does (a stable sort of the
-    rows, then each run summed in order; ``index_add_`` uses atomics).
+    rows, then each run summed in order; ``index_add_`` uses atomics), but
+    for rows one element wide, where its kernel sums a run across a warp's
+    lanes: those go through rows two wide, the second column zeros.
     Returns ``dense``."""
     if dense.device.type == "cpu":
         return dense.index_add_(0, rows, values)
+    if dense.dim() >= 1 and dense.numel() == dense.shape[0]:
+        pair = dense.new_zeros((dense.shape[0], 2))
+        pair[:, 0] = dense.reshape(-1)
+        vals = dense.new_zeros((values.shape[0], 2))
+        vals[:, 0] = values.reshape(-1)
+        pair.index_put_((rows,), vals, accumulate=True)
+        return dense.copy_(pair[:, 0].reshape(dense.shape))
     return dense.index_put_((rows,), values, accumulate=True)
 
 

@@ -625,6 +625,10 @@ class RpcServer:
         self._active = 0
         self._active_cv = threading.Condition()
         self._drain_finalized = False
+        # the accept loop's thread, and its exit: closing the listener
+        # waits for it (see _wake_and_close_listener)
+        self._accept_thread = None
+        self._accept_done = threading.Event()
         self.wire_stats = WireStats(role="server")
 
     @property
@@ -632,6 +636,13 @@ class RpcServer:
         return self._address
 
     def serve_forever(self):
+        self._accept_thread = threading.current_thread()
+        try:
+            self._accept_loop()
+        finally:
+            self._accept_done.set()
+
+    def _accept_loop(self):
         while not self._stop.is_set():
             try:
                 conn, _peer = self._listener.accept()
@@ -819,7 +830,11 @@ class RpcServer:
         port stays in LISTEN, and a restarted server can't rebind the
         address (the failover contract requires the SAME address). The
         throwaway connection completes the accept; the loop sees
-        _stop/_draining and exits."""
+        _stop/_draining and exits. The connect returns before the accept
+        does, so the close can still land while accept(2) pins the
+        socket: this returns only once the loop has left accept (bounded),
+        so the port is free when ``kill``/``shutdown`` return and a
+        restart on the same address binds at once."""
         try:
             s = socket.create_connection(self.address, timeout=0.5)
             s.close()
@@ -829,6 +844,9 @@ class RpcServer:
             self._listener.close()
         except OSError:
             pass
+        t = self._accept_thread
+        if t is not None and t is not threading.current_thread():
+            self._accept_done.wait(_HANDSHAKE_TIMEOUT_S)
 
     def shutdown(self):
         self._stop.set()

@@ -2,7 +2,9 @@
 paddle_tpu/fluid/__init__.py): layers, nets, Program/program_guard,
 Executor, initializer, io, fuse_conv_bn, backward, optimizer, regularizer,
 clip, evaluator, DataFeeder, average, places, Scope, flags, amp_guard, the
-program verifier and lint (``analysis``) and the LoD feed helpers."""
+program verifier and lint (``analysis``), the LoD feed helpers and the
+pserver transpilers (``DistributeTranspiler``,
+``SimpleDistributeTranspiler``)."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -34,6 +36,8 @@ from .backward import append_backward
 from .data_feeder import DataFeeder
 from .param_attr import ParamAttr
 from .fusion import fuse_conv_bn
+from .distribute_transpiler import (DistributeTranspiler,
+                                    SimpleDistributeTranspiler)
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -45,5 +49,6 @@ __all__ = [
     "append_backward", "ParamAttr", "fuse_conv_bn",
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
     "amp_guard", "analysis", "ProgramVerifyError", "lint_program",
-    "verify_program", "nets", "evaluator",
+    "verify_program", "nets", "evaluator", "DistributeTranspiler",
+    "SimpleDistributeTranspiler",
 ]

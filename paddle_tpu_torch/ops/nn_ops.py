@@ -1,9 +1,14 @@
-"""Dropout and the embedding lookup (counterpart of
-paddle_tpu/ops/nn_ops.py): ``dropout`` (reference :21) and its gradient
-(reference :40); ``lookup_table`` (reference :47) and its gradient
-(reference :65), dense, or with ``is_sparse`` a ``SparseRows``
+"""Dropout, the embedding lookup and the sharded-table routing ops
+(counterpart of paddle_tpu/ops/nn_ops.py): ``dropout`` (reference :21)
+and its gradient (reference :40); ``lookup_table`` (reference :47) and its
+gradient (reference :65), dense, or with ``is_sparse`` a ``SparseRows``
 (``core/sparse.py``) that the optimizers' sparse branches consume without
-forming the [vocab, dim] gradient."""
+forming the [vocab, dim] gradient; ``split_ids`` (reference :95) and
+``split_selected_rows`` (reference :119).
+
+``split_ids``'s output sizes depend on the ids, so on a CUDA tensor it
+waits for the device once a call (one read of the per-shard counts, not
+one a shard); ``host_syncs()`` counts those waits."""
 
 from __future__ import annotations
 
@@ -11,7 +16,7 @@ import torch
 
 from ..core.lod import LoDArray
 from ..core.registry import register_op, same_shape, OpSpec, G
-from ..core.sparse import add_rows, sparse_rows_from_grad
+from ..core.sparse import SparseRows, add_rows, sparse_rows_from_grad
 from .common import data_of, like
 
 
@@ -96,3 +101,52 @@ def lookup_table_grad(ctx):
                        sparse_rows_from_grad(flat_ids, flat_d, w.shape[0]))
         return
     ctx.set_output("W@GRAD", add_rows(torch.zeros_like(w), flat_ids, flat_d))
+
+
+# device waits made by the data-dependent ops here (split_ids)
+_SYNCS = {"split_ids": 0}
+
+
+def host_syncs():
+    """Device waits made by ``split_ids`` on CUDA tensors so far."""
+    return dict(_SYNCS)
+
+
+@register_op("split_ids")
+def split_ids(ctx):
+    """Route ids to N shard outputs by id % N, each [k, 1] in the ids'
+    order (reference split_ids_op.cc, the trainer-side prep for a sharded
+    lookup table). A stable sort by shard and one read of the counts: on
+    a CUDA tensor that is one device wait a call, counted in
+    ``host_syncs()``."""
+    ids = data_of(ctx.input("Ids")).reshape(-1, 1)
+    n = len(ctx.op.output("Out"))
+    shard = ids.reshape(-1) % n
+    order = torch.sort(shard, stable=True)[1]
+    # not bincount: on CUDA it reads the max id back first (a second wait)
+    counts = torch.zeros(n, dtype=shard.dtype, device=shard.device) \
+        .scatter_add_(0, shard, torch.ones_like(shard))
+    if counts.device.type == "cuda":
+        _SYNCS["split_ids"] += 1
+    ctx.set_outputs("Out", list(torch.split(ids[order], counts.tolist())))
+
+
+@register_op("split_selected_rows")
+def split_selected_rows(ctx):
+    """Split a SparseRows by row ranges (reference
+    split_selected_rows_op.cc height_sections: rows [0,h0) to output 0
+    as-is, [h0,h0+h1) to output 1 rebased, ...). Every output keeps the
+    input's entry count; an entry outside an output's range becomes the
+    sentinel row (that section's height) with zero values, which every
+    consumer drops. Nothing waits on the device."""
+    x = ctx.input("X")
+    outs, start = [], 0
+    for h in (int(s) for s in ctx.attr("height_sections")):
+        in_range = (x.rows >= start) & (x.rows < start + h)
+        rows = torch.where(in_range, x.rows - start,
+                           torch.full_like(x.rows, h))
+        mask = in_range.reshape((-1,) + (1,) * (x.values.ndim - 1))
+        vals = torch.where(mask, x.values, torch.zeros_like(x.values))
+        outs.append(SparseRows(rows, vals, h))
+        start += h
+    ctx.set_outputs("Out", outs)

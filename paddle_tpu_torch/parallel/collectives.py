@@ -49,6 +49,14 @@ def all_reduce(t, group):
     return out
 
 
+def all_max(t, group):
+    """The elementwise max of ``t`` over the group's ranks (a new tensor)."""
+    out = t.contiguous().clone()
+    if _live(group):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def all_gather(t, dim, group, size):
     """The group's ``t`` joined along ``dim`` in rank order."""
     if not _live(group):

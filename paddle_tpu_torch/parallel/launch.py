@@ -1,12 +1,9 @@
-"""Starting N ranks of one ``torch.distributed`` process group on this
-host, each a fresh interpreter that imports nothing of the JAX package.
-
-* ``launch(target, nproc, args)``: run ``target(*args)`` on every rank
-  once; returns the ranks' exit codes (0 where it returned, 1 where it
-  raised, -9 where the timeout killed it).
-* ``RankPool(nproc)``: keep the ranks up and run several calls on them
-  (``pool.run(target, *args)`` returns every rank's result); the process
-  group is made once, so a test file pays the start-up once.
+"""A pool of N ranks of one ``torch.distributed`` process group on this
+host, each a fresh interpreter that imports nothing of the JAX package:
+``RankPool(nproc)`` keeps the ranks up and runs several calls on them
+(``pool.run(target, *args)`` returns every rank's result); the process
+group is made once, so a test file pays the start-up once. Starting N
+copies of a script as the ranks is ``distributed.launch.launch``.
 
 ``target`` is a module-level function (pickled by reference). Every wait
 is bounded: a rank that does not answer in time, or that raised while its
@@ -24,12 +21,13 @@ from __future__ import annotations
 import os
 import pickle
 import secrets
-import socket
 import subprocess
 import sys
 import threading
 import time
 from multiprocessing.connection import Client, Listener
+
+from ..distributed.launch import free_port
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -41,12 +39,6 @@ _STOP_TIMEOUT = 30.0
 _BOOT = ("import sys; sys.path.insert(0, sys.argv[1]); "
          "from paddle_tpu_torch.parallel.launch import _rank_main; "
          "_rank_main()")
-
-
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank_main():
@@ -79,8 +71,6 @@ def _rank_main():
             except BaseException:
                 reply = ("err", traceback.format_exc())
             conn.send(reply)
-            if reply[0] == "err" and msg[0] == "once":
-                break
     finally:
         dist.destroy_process_group()
         conn.close()
@@ -207,29 +197,3 @@ class RankPool:
             self.kill()
         return False
 
-
-def launch(target, nproc=2, args=(), backend="gloo", timeout=120.0):
-    """``target(*args)`` once on each of ``nproc`` new ranks; returns their
-    exit codes (a rank that raised prints its traceback and exits 1; ranks
-    still running ``timeout`` seconds after the call started are killed).
-    """
-    try:
-        pool = RankPool(nproc, backend, timeout)
-    except RankError as e:
-        print(e, file=sys.stderr)
-        return [1] * nproc
-    blob = pickle.dumps((target, tuple(args), {}))
-    for conn in pool.conns:
-        conn.send(("once", blob))
-    deadline = time.monotonic() + timeout
-    for rank, conn in enumerate(pool.conns):
-        try:
-            if conn.poll(max(0.0, deadline - time.monotonic())):
-                status, value = conn.recv()
-                if status == "err":
-                    print(f"[rank {rank}] {value}", file=sys.stderr)
-                else:
-                    conn.send(("stop", None))
-        except (EOFError, OSError):
-            pass
-    return pool._join(max(1.0, deadline - time.monotonic()))

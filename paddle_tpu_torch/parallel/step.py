@@ -19,6 +19,7 @@ from ..core import registry
 from ..core.amp import amp_guard
 from ..core.executor import _RNG_KEY, _analyze_program, _run_ops
 from ..core.lod import LoDArray
+from ..core.sparse import SparseRows
 from ..ops.common import data_of, like
 from ..ops.norm_ops import _bn_axes, _bn_bshape
 from ..ops.reduce import _axes, _lod_mask_count
@@ -126,6 +127,9 @@ class ShardedStep:
                     n, tuple(data_of(v).shape))[:1] == (self.dp,)
                 and self.dp is not None}
         ops = block.ops
+        sparse_tables = {op.input("W")[0] for op in ops
+                         if op.type == "lookup_table"
+                         and op.attrs.get("is_sparse", False)}
         params, grad_last = set(), {}
         for op in ops:
             slots = _opt_slots(op)
@@ -180,7 +184,16 @@ class ShardedStep:
                 act = self._col_lookup if t == "lookup_table" \
                     else self._col_lookup_grad
             elif _opt_slots(op):
-                if self._zero_indices(op, dp_vars):
+                zero = self._zero_indices(op, dp_vars)
+                sparse = {op.input(_opt_slots(op)[0])[i] for i in zero} \
+                    & sparse_tables
+                if sparse:
+                    raise NotImplementedError(
+                        f"{t}: is_sparse table(s) {sorted(sparse)} with "
+                        f"optimizer state sharded over {self.dp!r} (ZeRO-1); "
+                        "the sharded step updates a sparse table's rows on "
+                        "whole accumulators only (shard_opt_state=False)")
+                if zero:
                     act = self._zero_update
             elif any(n in tp_vars for n in ins):
                 raise NotImplementedError(
@@ -216,15 +229,39 @@ class ShardedStep:
 
     def _sum_grads(self, names, env):
         """The parameter gradients ``names``, summed over dp after the
-        backward's last write of them."""
+        backward's last write of them: a dense one all-reduced, an
+        ``is_sparse`` table's SparseRows gathered (the SelectedRows sum)."""
         dp = self.mesh.group(self.dp) if self.dp else None
         for g in names:
             v = env[g]
+            if isinstance(v, SparseRows):
+                env[g] = self._gather_rows(v, dp)
+                continue
             if not isinstance(v, torch.Tensor):
                 raise NotImplementedError(
-                    f"{g}: only a dense gradient is summed over "
-                    f"{self.dp!r} (an is_sparse table is not)")
+                    f"{g}: a {type(v).__name__} gradient has no sum over "
+                    f"{self.dp!r}")
             env[g] = C.all_reduce(v, dp)
+
+    def _gather_rows(self, sr, group):
+        """The SelectedRows sum over dp: every rank's entries, joined in
+        rank order. Ranks whose entry counts differ (a LoD feed) pad to the
+        largest with sentinel rows of zero values, which the sparse update
+        drops; one all-reduce of the counts settles the largest (a device
+        wait). Under tp each rank's values are its columns of the table."""
+        if group is None:
+            return sr
+        n = self.mesh.size(self.dp)
+        k = sr.rows.shape[0]
+        kmax = int(C.all_max(torch.tensor([k], device=sr.rows.device),
+                             group)[0])
+        rows, vals = sr.rows, sr.values
+        if kmax > k:
+            rows = torch.cat([rows, rows.new_full((kmax - k,), sr.nrows)])
+            vals = torch.cat([vals, vals.new_zeros((kmax - k,)
+                                                   + vals.shape[1:])])
+        return SparseRows(C.all_gather(rows, 0, group, n),
+                          C.all_gather(vals, 0, group, n), sr.nrows)
 
     def _forward(self, ctx):
         registry.get_op_info(ctx.op.type).forward(ctx)

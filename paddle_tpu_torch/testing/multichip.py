@@ -79,9 +79,12 @@ def single_run(build, build_kw, feeds, state=None, device=None):
 
 
 def sharded_run(build, build_kw, feeds, mesh_axes, plan_kw=None,
-                state=None, shape=None, device=None):
+                state=None, shape=None, device=None, local_feeds=False):
     """``shard_program_step`` over a mesh of every rank, one step a feed:
-    {"losses", "params" (whole, gathered), "specs"}."""
+    {"losses", "params" (whole, gathered), "specs"}. With ``local_feeds``
+    each rank prepares its own slice of every feed's rows, as a rank
+    reading its own data shard does (a LoD feed then takes the rank's own
+    padded length), in place of ``place_feed``'s split of the whole."""
     from ..parallel import (ShardingPlan, make_mesh, place_feed,
                             shard_program_step)
     from ..parallel.sharding import unshard
@@ -97,8 +100,14 @@ def sharded_run(build, build_kw, feeds, mesh_axes, plan_kw=None,
     block = main.global_block()
     losses = []
     for f in feeds:
-        fd = exe._prepare_feed(block, dict(f))
-        fd = {n: place_feed(v, plan, n) for n, v in fd.items()}
+        if local_feeds:
+            n, i = mesh.size(plan.data_axis), mesh.index(plan.data_axis)
+            fd = exe._prepare_feed(block, {
+                k: v[i * len(v) // n:(i + 1) * len(v) // n]
+                for k, v in f.items()})
+        else:
+            fd = exe._prepare_feed(block, dict(f))
+            fd = {k: place_feed(v, plan, k) for k, v in fd.items()}
         st, fetches = fn(st, fd)
         losses.append(float(fetches[0]))
     return {"losses": losses,
@@ -141,11 +150,54 @@ def build_mlp_reduced(loss="reduce_mean", batch=16, fluid=None):
     return main, startup, out
 
 
-def sharded_error(build, build_kw, feed, mesh_axes):
+def build_sparse_embedding(vocab=12, emb=16, opt="sgd", lod=False,
+                           seed=11, fluid=None):
+    """tests/test_sparse.py's ``_embedding_program``: an ``is_sparse``
+    embedding of ``vocab`` x ``emb`` over ``ids``, an fc to 4, the mean
+    square error against ``y`` [4]; with ``lod`` the ids are a LoD
+    sequence a row, summed by sequence_pool before the fc. ``opt`` "sgd"
+    (0.1) or "momentum" (0.1, 0.9). ``fluid`` is this package's by
+    default (the tests pass the reference's)."""
+    fluid = fluid or _fluid()
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        ids = layers.data("ids", shape=[1], dtype="int64",
+                          lod_level=1 if lod else 0)
+        label = layers.data("y", shape=[4])
+        e = layers.embedding(ids, size=[vocab, emb], is_sparse=True)
+        e = layers.sequence_pool(e, pool_type="sum") if lod \
+            else layers.reshape(e, [-1, emb])
+        pred = layers.fc(e, size=4, act=None)
+        loss = layers.mean(layers.square(layers.elementwise_sub(pred,
+                                                                 label)))
+        if opt == "sgd":
+            fluid.optimizer.SGD(learning_rate=0.1).minimize(loss, startup)
+        else:
+            fluid.optimizer.Momentum(learning_rate=0.1,
+                                     momentum=0.9).minimize(loss, startup)
+    return main, startup, loss
+
+
+def sparse_embedding_feed(vocab=12, batch=8, lod=False, seed=0):
+    """tests/test_sparse.py's ``_feeds`` (one feed); with ``lod`` the ids
+    are ``batch`` sequences of 1..5 ids each."""
+    rng = np.random.RandomState(seed)
+    if lod:
+        ids = [rng.randint(0, vocab, (int(rng.randint(1, 6)), 1))
+               .astype("int64") for _ in range(batch)]
+    else:
+        ids = rng.randint(0, vocab, (batch, 1)).astype("int64")
+    return {"ids": ids,
+            "y": rng.normal(0, 1, (batch, 4)).astype("float32")}
+
+
+def sharded_error(build, build_kw, feed, mesh_axes, plan_kw=None):
     """The error ``shard_program_step`` raises for this program over a
     mesh of every rank (None where it builds)."""
     try:
-        sharded_run(build, build_kw, [feed], mesh_axes)
+        sharded_run(build, build_kw, [feed], mesh_axes, plan_kw)
     except NotImplementedError as e:
         return str(e)
     return None

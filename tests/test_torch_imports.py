@@ -66,6 +66,46 @@ def test_parallel_modules_are_checked():
     assert "paddle_tpu_torch/ops/io_ops.py" in checked
 
 
+# modules a parameter-server shard, master or elastic worker process
+# loads: numpy and the standard library only at import (torch inside
+# functions, where a trainer-side helper needs it)
+TORCH_FREE = ("distributed/__init__.py", "distributed/param_server.py",
+              "distributed/master.py", "distributed/launch.py",
+              "distributed/rpc.py", "distributed/fault.py",
+              "testing/elastic.py", "core/flags.py", "core/profiler.py",
+              "obs/metrics.py", "obs/recorder.py")
+
+
+def _module_level_imports(path):
+    """Imports outside any function body."""
+    tree = ast.parse(path.read_text(), str(path))
+    funcs = [n for n in ast.walk(tree)
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+    inner = {id(m) for f in funcs for m in ast.walk(f)}
+    for node in ast.walk(tree):
+        if id(node) in inner:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_distributed_modules_are_checked_and_import_no_torch():
+    """The parameter server, master, launcher and transpiler are among the
+    files the import check reads, and what a shard process loads imports
+    no torch at module level (launch.py starts shards without the
+    package's __init__)."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "paddle_tpu_torch/fluid/distribute_transpiler.py" in checked
+    for name in TORCH_FREE:
+        path = REPO / "paddle_tpu_torch" / name
+        assert "paddle_tpu_torch/" + name in checked, name
+        bad = [m for m in _module_level_imports(path)
+               if m.split(".")[0] == "torch"]
+        assert not bad, f"{name} imports {bad} at module level"
+
+
 def test_kernel_tier_has_no_silent_fallback():
     """No try statement anywhere in ops/cuda/: a failed build or launch
     reaches the caller."""
@@ -117,12 +157,14 @@ print(",".join(new))
 
 @pytest.mark.parametrize("module", ["paddle_tpu_torch.serving",
                                     "paddle_tpu_torch.distributed.rpc",
+                                    "paddle_tpu_torch.distributed",
                                     "paddle_tpu_torch.obs",
                                     "paddle_tpu_torch.fluid.nets",
                                     "paddle_tpu_torch.fluid.evaluator"])
 def test_import_loads_neither_jax_nor_the_reference(module):
-    """Imported in a fresh interpreter, the serving front door, the RPC
-    transport, the observability plane, the composite nets and the
+    """Imported in a fresh interpreter, the serving front door, the
+    distributed services (RPC, parameter server, master, launcher), the
+    observability plane, the composite nets and the
     evaluators load no module of jax or of the reference package."""
     import subprocess
     import sys

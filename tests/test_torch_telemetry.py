@@ -57,9 +57,6 @@ NOT_PORTED = {
     "paddle_tpu_kvcache_spill_restores":
         "serving/generate/kvstore.py (A15)",
     "paddle_tpu_kvcache_spill_writes": "serving/generate/kvstore.py (A15)",
-    "paddle_tpu_pserver_round_broken": "distributed/param_server.py (A14)",
-    "paddle_tpu_pserver_round_shrunk": "distributed/param_server.py (A14)",
-    "paddle_tpu_supervisor_restarts": "distributed/launch.py (A14)",
 }
 
 FAMILIES = r'''
@@ -233,3 +230,27 @@ def test_fallback_counts_read_the_registry():
     tier.reset_fallback_counts()
     assert tier.fallback_counts() == {}
     assert np.isfinite(fam.total())
+
+
+@pytest.mark.parametrize("family", ["paddle_tpu_pserver_round_broken",
+                                    "paddle_tpu_pserver_round_shrunk",
+                                    "paddle_tpu_supervisor_restarts"])
+def test_pserver_families_equal_the_reference(family):
+    """The parameter server's and the supervisors' families: the
+    reference's kind, help text and labels; a broken round counts on the
+    shard instance's child, which the server's stats() reads."""
+    import paddle_tpu.distributed  # noqa: F401  (registers its families)
+    from paddle_tpu.obs.metrics import REGISTRY as JREGISTRY
+    import paddle_tpu_torch.distributed  # noqa: F401
+    from paddle_tpu_torch.distributed import ParameterServer
+
+    port, ref = obsm.REGISTRY.get(family), JREGISTRY.get(family)
+    assert type(port).__name__ == type(ref).__name__
+    assert (port.help, port.label_names) == (ref.help, ref.label_names)
+    if family == "paddle_tpu_pserver_round_broken":
+        ps = ParameterServer(mode="sync", fan_in=2, barrier_timeout_s=0.05)
+        ps.init_params({"w": np.zeros(2, np.float32)})
+        with pytest.raises(TimeoutError):
+            ps.push({"w": np.ones(2, np.float32)}, trainer_id=1, seq=1)
+        assert port.labels(instance=ps.obs_instance).value == 1
+        assert ps.stats()["rounds_broken"] == 1

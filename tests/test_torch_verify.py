@@ -17,8 +17,11 @@ its grad, a var dropped inside the block), the Seq2Seq NMT train and
 decode programs and the book chapters' training programs are held the
 same way.
 
-Left out, with the module that brings each (ROADMAP §A): the transpiled
-trainer and pserver startup (the DistributeTranspiler, A12), the
+The transpiled trainer and pserver startup programs (the
+DistributeTranspiler's output, verified by the transpiler itself under
+verify_passes) are held the same way, per-parameter and fused.
+
+Left out, with the module that brings each (ROADMAP §A): the
 memory-optimized program (memory_optimization_transpiler, A12), the
 OpTest harness (A8) and ``create_var``'s redefinition checks (framework,
 not the verifier).
@@ -197,6 +200,36 @@ def test_accuracy_slot_arity_is_checked():
     main._bump_version()
     d = _find(_verify_errors(main, startup=startup), D.SLOT_ARITY)
     assert d.op_type == "accuracy"
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_clean_transpiled_trainer_and_pserver_startup(fused):
+    """tests/test_program_verify.py's transpiled case: the trainer
+    program (optimize and accumulator ops stripped) and each endpoint's
+    pruned startup verify clean, under verify_passes, in both packages;
+    also from the fused_momentum form of the same model."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data("img", shape=[16])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = fluid.layers.fc(fluid.layers.fc(x, 32, act="relu"), 4)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.Momentum(0.1, 0.9, fused=fused).minimize(
+            loss, startup)
+    eps = "127.0.0.1:6174,127.0.0.1:6175"
+    t = fluid.DistributeTranspiler()
+    fluid.set_flags({"verify_passes": True})
+    try:
+        t.transpile(0, program=main, startup_program=startup, pservers=eps,
+                    trainers=1)
+        trainer = t.get_trainer_program()
+        pstartups = [t.get_startup_program(e) for e in eps.split(",")]
+    finally:
+        fluid.set_flags({"verify_passes": False})
+    assert _verify_errors(trainer, startup=startup) == []
+    for pstartup in pstartups:
+        assert _verify_errors(pstartup) == []
 
 
 @pytest.mark.parametrize("chapter", ["digits_conv", "cifar_vgg",
