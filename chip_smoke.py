@@ -12,8 +12,10 @@ sentiment, SRL with its CRF, the recommender), train the decoder LM and
 serve what it learned, with the PyTorch/CUDA port on one GPU, run the
 data-parallel steps over NCCL and the multi-device lanes on gloo ranks,
 train Wide&Deep CTR locally, through parameter-server shard processes
-and with its table sharded over NCCL ranks, and hold every hand-written
-kernel against its plain PyTorch version.
+and with its table sharded over NCCL ranks, feed bench.py's ragged LSTM
+lane and an MNIST reader graph through recordio, the readers and the
+double buffer, and hold every hand-written kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -342,6 +344,32 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               over dp) on NCCL ranks over every visible card against one
               device; split_ids and split_selected_rows on the card
               bitwise the CPU's, at 1 host sync and 0.
+23. input   — the input pipeline (paddle_tpu_torch/reader, recordio,
+              dataset; the recordio backend printed). (a) bench.py:352's
+              ragged LSTM lane: bench.py:238's IMDB-width classifier
+              (vocab 30000, emb 128, two LSTMs of 512, batch 64, unfused
+              Adam 2e-3) over 4608 sequences from RandomState(0), half
+              10-12 and half 96-100 long; flat (padded to 100) against
+              bucketed (written with convert_reader_to_recordio_file, read
+              with creator.recordio, bucket_by_length to [12, 100], padded
+              with bucket_bound_for); each bound's batches staged with
+              prepare_steps and run with run_prepared; best of 3 epochs
+              after a warm-up epoch, ms a sample on the kernel route and
+              under kernel_tier=torch, the flat/bucketed ratio, the busy
+              share of a profiled bucketed epoch; 2 + 2 lstm_seq /
+              lstm_seq_bwd launches a step, no other kernel and no lstm
+              fallback; the routes' epoch mean losses within 1e-2; before
+              that, lstm_seq and lstm_seq_bwd against their plain versions
+              at L 12 (phase 5's limits) and timed there. (b) the bucketed
+              epoch one exe.run a batch, fed from host numpy and through
+              reader.double_buffer onto the card: the losses bitwise, ms a
+              step and busy share of each. (c) dataset.mnist.train()
+              written through fluid.recordio_writer into 4 shards;
+              open_files(thread_num=4) -> create_shuffle_reader ->
+              create_double_buffer_reader(CUDAPlace(0)) ->
+              create_multi_pass_reader(2) -> read_file trains digits_mlp
+              until StopIteration: the popped tensors on the card, every
+              record once a pass, the loss falling.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -7892,6 +7920,417 @@ def phase_ctr(torch, fluid, seed, card):
             for k in ("embedding_sgd", "sgd_arena")}
 
 
+# phase 23: bench.py:352's ragged LSTM lane (run_lstm_ragged_lane) through
+# the port's input pipeline (paddle_tpu_torch/testing/ragged_lane.py holds
+# its widths: batch 64, bounds [12, 100], 4608 sequences half of length
+# 10-12 and half 96-100, vocab 30000, emb 128, hidden 512, unfused Adam
+# 2e-3), best of RAGGED_EPOCHS timed epochs after a warm-up epoch per path
+# and route, as bench.py times it
+RAGGED_EPOCHS = 3
+# the two routes' epoch losses: the kernel route's LSTMs round their
+# products to bf16 (phase 5), the torch route's scans do not, so each
+# step's loss moves by the carries' rare bf16 moves, and 72 Adam steps
+# carry them on; the epoch's mean loss within phase 5's recurrent
+# tolerance, LSTM_FWD_LIMIT relative
+RAGGED_LOSS_LIMIT = LSTM_FWD_LIMIT
+# phase 23(c): dataset.mnist.train() in batches of MNIST_BATCH written to
+# MNIST_SHARDS recordio shards, read back through open_files(thread_num=4)
+# -> create_shuffle_reader(MNIST_SHUFFLE records) -> the double buffer ->
+# create_multi_pass_reader(MNIST_PASSES) -> read_file into digits_mlp
+MNIST_BATCH, MNIST_SHARDS, MNIST_SHUFFLE, MNIST_PASSES = 64, 4, 8, 2
+
+
+def ragged_lstm_kernels(torch, rnn, init, main, lengths, card):
+    """lstm_seq and lstm_seq_bwd against their plain versions (and the
+    forward against the float64 recipe) at phase 5's limits, at the
+    short bucket's shape (b 64, L 12, H 512, the batch's lengths, each
+    layer's startup W); then their times there. Returns
+    {kernel: {"l12_ms", "l12_plain_ms", "l12_bound_ms"}}."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    lens = torch.tensor(lengths, device=dev)
+    L, b = int(lens.max()), len(lens)
+    out = {}
+    for i, op in enumerate(op for op in main.global_block().ops
+                           if op.type == "lstm"):
+        w = init.find_var(op.input("Weight")[0])
+        H = w.shape[0]
+        x, alive, _, h0, c0, dhs, dcs = lstm_operands(torch, gen, dev, lens,
+                                                      L, H)
+        log(f"lstm #{i + 1}: lstm_seq / lstm_seq_bwd vs their plain "
+            f"versions at b {b}, L {L}, H {H}, lengths "
+            f"{int(lens.min())}..{L}, the startup W | {card}")
+        hs, cs = rnn.lstm_seq(x, alive, w, h0, c0)
+        torch.cuda.synchronize()
+        ref = rnn.lstm_seq_torch(x, alive, w, h0, c0)
+        lstm_fwd_check(torch, (hs, cs), ref,
+                       lstm_float64(torch, x, alive, w, h0, c0), "lstm_seq")
+        lstm_bwd_check(torch, rnn, (x, alive, w, h0, c0, *ref, dhs, dcs))
+    gemm = 2 * L * b * H * 4 * H
+    fwd_bytes = 4 * (L * b * 4 * H + L * b + 4 * H * H + 2 * b * H
+                     + 2 * L * b * H)
+    bwd_bytes = 4 * (2 * L * b * 4 * H + L * b + 2 * 4 * H * H + 4 * b * H
+                     + 4 * L * b * H)
+    t_bwd, _ = bwd_ops_ms(gemm)
+    out["lstm_seq"] = dict(
+        l12_ms=time_ms(lambda: rnn.lstm_seq(x, alive, w, h0, c0), torch),
+        l12_plain_ms=time_ms(lambda: rnn.lstm_seq_torch(x, alive, w, h0, c0),
+                             torch),
+        l12_bound_ms=max(gemm / PEAK_FLOPS["bfloat16"] * 1e3,
+                         fwd_bytes / PEAK_BYTES * 1e3))
+    args = (x, alive, w, h0, c0, *ref, dhs, dcs)
+    out["lstm_seq_bwd"] = dict(
+        l12_ms=time_ms(lambda: rnn.lstm_seq_bwd(*args), torch),
+        l12_plain_ms=time_ms(lambda: rnn.lstm_seq_bwd_torch(*args), torch),
+        l12_bound_ms=max(t_bwd, bwd_bytes / PEAK_BYTES * 1e3))
+    for k, t in out.items():
+        log(f"{k} per launch at L {L}: kernel {t['l12_ms']:.4f} ms, plain "
+            f"{t['l12_plain_ms']:.4f} ms, bound {t['l12_bound_ms']:.4f} ms "
+            f"| {card}")
+    return out
+
+
+def ragged_route(torch, fluid, exe, lane, main, loss, init, batches, route,
+                 counters, problems):
+    """One path's epochs on ``route`` from a copy of the startup state:
+    each bound's batches staged with prepare_steps (untimed), a warm-up
+    epoch (its per-step losses, its launches checked: 2 lstm_seq and 2
+    lstm_seq_bwd a step, no other kernel and no lstm fallback on the
+    kernel route, none on the torch route), then the best of
+    RAGGED_EPOCHS timed epochs. Returns (losses, ms a sample, the
+    handles, the kernel launches of those epochs, steps)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+    read, reset = counters
+    fluid.set_flags({"kernel_tier": route})
+    try:
+        scope = copy_scope(fluid, torch, init)
+        grouped, n_samples = lane.groups(batches)
+        steps = sum(len(v) for v in grouped.values())
+        handles = lane.prepare(exe, main, loss, scope, grouped)
+        reset()
+        tier.reset_fallback_counts()
+        losses = lane.epoch(exe, handles)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in read().items() if v}
+        want = {"lstm_seq": 2 * steps, "lstm_seq_bwd": 2 * steps} \
+            if route == "auto" else {}
+        falls = tier.fallback_counts().get("lstm", 0)
+        if got != want or falls:
+            problems.append(f"ragged lane, kernel_tier={route}: launches "
+                            f"{got} and {falls} lstm fallbacks in {steps} "
+                            f"steps, want {want} and none")
+        if losses.shape != (steps,) or not np.isfinite(losses).all():
+            fail(f"ragged lane, kernel_tier={route}: losses {losses}")
+        best = float("inf")
+        for _ in range(RAGGED_EPOCHS):
+            t0 = time.perf_counter()
+            for h in handles:
+                last = exe.run_prepared(h, return_numpy=False)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        if not bool(torch.isfinite(last[0]).all()):
+            fail(f"ragged lane, kernel_tier={route}: non-finite loss")
+        total = {k: v for k, v in read().items() if v}
+        if total != {k: v * (1 + RAGGED_EPOCHS) for k, v in want.items()}:
+            problems.append(f"ragged lane, kernel_tier={route}: {total} "
+                            f"launches in {1 + RAGGED_EPOCHS} epochs")
+        return losses, best / n_samples * 1e3, handles, total, steps
+    finally:
+        fluid.set_flags({"kernel_tier": "auto"})
+
+
+def ragged_double_buffer(torch, fluid, exe, lane, reader, main, loss, init,
+                         batches, counters, card, problems):
+    """Phase 23(b): the bucketed epoch fed one exe.run a batch, from host
+    numpy and through reader.double_buffer onto the card (the feeder as
+    ``convert``), each from a copy of the startup state: the per-batch
+    losses bitwise equal; ms a step of each and the busy share of a
+    profiled epoch of each. Returns the kernel launches made."""
+    from paddle_tpu_torch.reader import prefetch
+    read, reset = counters
+    res, launched = {}, {"lstm_seq": 0, "lstm_seq_bwd": 0}
+
+    def host_feeds():
+        return (lane.feed_of(c, b) for c, b in batches)
+
+    staged = reader.double_buffer(lambda: iter(batches),
+                                  place=fluid.CUDAPlace(0),
+                                  convert=lambda cb: lane.feed_of(*cb))
+    for how, feeds in (("host numpy", host_feeds), ("double buffer",
+                                                    staged)):
+        scope = copy_scope(fluid, torch, init)
+        reset()
+        prefetch.reset_staged()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+                  for f in feeds()]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+        counts = read()
+        for k in launched:
+            launched[k] += counts[k]
+        if counts["lstm_seq"] != 2 * len(batches):
+            problems.append(f"double buffer, {how}: {counts['lstm_seq']} "
+                            f"lstm_seq launches in {len(batches)} steps")
+        res[how] = (losses, ms, dict(prefetch.staged))
+
+        def epoch(feeds=feeds, scope=scope):
+            for f in feeds():
+                exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+
+        reset()
+        prof = profile(torch, epoch, f"the bucketed epoch, one exe.run a "
+                       f"batch, fed from {how}", card, reps=1)
+        counts = read()
+        for k in launched:
+            launched[k] += counts[k]
+        busy = f"{100 * prof[1] / prof[0]:.1f}%" if prof else "not measured"
+        log(f"phase 23(b) {how}: {ms:.3f} ms a step over {len(losses)} "
+            f"steps, busy {busy} of a profiled epoch; staged onto the card "
+            f"{res[how][2]['batches']} batches, {res[how][2]['bytes']} bytes "
+            f"| {card}")
+    a, b = res["host numpy"][0], res["double buffer"][0]
+    same = len(a) == len(b) == len(batches) and all(
+        x.tobytes() == y.tobytes() for x, y in zip(a, b))
+    log(f"phase 23(b): {len(b)} per-batch losses through the double buffer "
+        f"{'bitwise' if same else 'NOT bitwise'} those of the host feed "
+        f"(first {float(a[0]):.6f}, last {float(a[-1]):.6f})")
+    if not same:
+        problems.append("double buffer: the staged epoch's losses differ "
+                        "from the host feed's")
+    if res["double buffer"][2]["batches"] != len(batches):
+        problems.append(f"double buffer staged "
+                        f"{res['double buffer'][2]['batches']} batches, "
+                        f"want {len(batches)}")
+    return launched
+
+
+def reader_graph_mnist(torch, fluid, work, card, problems):
+    """Phase 23(c): dataset.mnist.train() batched and written through
+    fluid.recordio_writer into MNIST_SHARDS shards; the Fluid reader graph
+    open_files(thread_num=4) -> create_shuffle_reader ->
+    create_double_buffer_reader(CUDAPlace(0)) -> create_multi_pass_reader
+    -> read_file feeds digits_mlp until StopIteration. The popped tensors
+    lie on the card, each pass pops every record once, the loss falls."""
+    import collections
+    import hashlib
+    import numpy as np
+    from paddle_tpu_torch import dataset, reader
+    from paddle_tpu_torch.reader import prefetch
+    from paddle_tpu_torch.testing import models
+
+    scratch, scratch_start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(scratch, scratch_start):
+        img_v = fluid.layers.data("img", shape=[784])
+        lbl_v = fluid.layers.data("label", shape=[1], dtype="int64")
+    feeder = fluid.DataFeeder([img_v, lbl_v], fluid.CUDAPlace(0))
+    batches = list(reader.batch(dataset.mnist.train(), MNIST_BATCH,
+                                drop_last=True)())
+    paths = [os.path.join(work, f"mnist-{i:05d}.recordio")
+             for i in range(MNIST_SHARDS)]
+    t0 = time.perf_counter()
+    for i, p in enumerate(paths):
+        fluid.recordio_writer.convert_reader_to_recordio_file(
+            p, lambda i=i: iter(batches[i::MNIST_SHARDS]), feeder)
+    write_ms = (time.perf_counter() - t0) * 1e3
+
+    def key(img, lbl):
+        return hashlib.sha1(np.ascontiguousarray(img).tobytes()
+                            + np.ascontiguousarray(lbl).tobytes()).hexdigest()
+
+    written = collections.Counter()
+    for b in batches:
+        f = feeder.feed(b)
+        written[key(f["img"], f["label"])] += 1
+    log(f"\n== phase 23(c): mnist ({len(batches)} batches of {MNIST_BATCH}) "
+        f"written to {MNIST_SHARDS} recordio shards in {write_ms:.1f} ms; "
+        f"open_files(thread_num=4) -> shuffle({MNIST_SHUFFLE}) -> double "
+        f"buffer on CUDAPlace(0) -> multi_pass({MNIST_PASSES}) -> read_file "
+        f"-> digits_mlp | {card} ==")
+    popped = []
+
+    def inputs(layers):
+        r = layers.open_files(paths, thread_num=4,
+                              shapes=[[-1, 784], [-1, 1]],
+                              lod_levels=[0, 0], dtypes=["float32", "int64"])
+        r = layers.create_shuffle_reader(r, buffer_size=MNIST_SHUFFLE)
+        r = layers.create_double_buffer_reader(r, place=fluid.CUDAPlace(0))
+        r = layers.create_multi_pass_reader(r, pass_num=MNIST_PASSES)
+        popped[:] = layers.read_file(r)
+        return popped
+
+    fluid.reset_unique_name()
+    main, startup, v = models.digits_mlp(fluid, inputs=inputs)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    prefetch.reset_staged()
+    losses, keys, devices = [], [], set()
+    t0 = time.perf_counter()
+    while True:
+        try:
+            img, lbl, lv = exe.run(main, fetch_list=popped + [v["loss"]],
+                                   scope=scope, return_numpy=False)
+        except StopIteration:
+            break
+        devices.update((img.device.type, lbl.device.type))
+        keys.append(key(img.cpu().numpy(), lbl.cpu().numpy()))
+        losses.append(float(lv))
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(losses), 1)
+    n = len(batches)
+    passes = [collections.Counter(keys[i * n:(i + 1) * n])
+              for i in range(MNIST_PASSES)]
+    once = len(keys) == MNIST_PASSES * n and all(p == written
+                                                 for p in passes)
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"reader graph: {len(losses)} steps until StopIteration "
+        f"({MNIST_PASSES} passes of {n} records), popped tensors on "
+        f"{sorted(devices)}, every record once a pass: {once}; "
+        f"{prefetch.staged['batches']} batches ({prefetch.staged['bytes']} "
+        f"bytes) staged onto the card by the double buffer; loss "
+        f"{head:.4f} (first 5 steps) -> {tail:.4f} (last 5); {ms:.3f} ms "
+        f"a step | {card}")
+    if devices != {"cuda"}:
+        problems.append(f"reader graph: popped tensors on {devices}")
+    if not once:
+        problems.append("reader graph: a pass did not pop every record "
+                        "exactly once")
+    if prefetch.staged["batches"] != MNIST_PASSES * n:
+        problems.append(f"reader graph: the double buffer staged "
+                        f"{prefetch.staged['batches']} batches, want "
+                        f"{MNIST_PASSES * n}")
+    if not (np.isfinite(losses).all() and tail < head):
+        problems.append(f"reader graph: the loss did not fall "
+                        f"({head:.4f} -> {tail:.4f})")
+    iv, = exe.run(main, fetch_list=popped[:1], scope=scope,
+                  return_numpy=False)
+    if tuple(iv.shape) != (MNIST_BATCH, 784):
+        problems.append(f"reader graph: the pass after StopIteration "
+                        f"popped {tuple(iv.shape)}")
+
+
+def phase_input_pipeline(torch, fluid, seed, card):
+    """Phase 23: bench.py:352's ragged LSTM lane through recordio and
+    bucket_by_length on both routes, the same epoch through the double
+    buffer, and a Fluid reader graph over MNIST shards. Returns the
+    lstm_seq / lstm_seq_bwd launches, and their times at L 12."""
+    from paddle_tpu_torch import reader, recordio
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing import ragged_lane as lane
+
+    t_phase = time.perf_counter()
+    native = recordio.backend()
+    log(f"\n== phase 23: input pipeline — bench.py:352's ragged LSTM lane "
+        f"(batch {lane.BATCH}, {lane.N_SEQS} sequences, half "
+        f"{lane.SHORT[0]}-{lane.SHORT[1]} and half "
+        f"{lane.LONG[0]}-{lane.LONG[1]} long, bounds {list(lane.BOUNDS)}, "
+        f"hidden {lane.HIDDEN}), the double buffer, a Fluid reader graph; "
+        f"recordio backend {native}"
+        + ("" if native == "native" else
+           f" (the native library is unavailable here: "
+           f"{recordio.native_error()})") + f" | {card} ==")
+    work = tempfile.mkdtemp(prefix="chip-smoke-input-")
+    try:
+        samples = lane.corpus(lane.N_SEQS, lane.VOCAB, lane.SHORT,
+                              lane.LONG)
+        path = os.path.join(work, "corpus.recordio")
+        t0 = time.perf_counter()
+        n = reader.creator.convert_reader_to_recordio_file(
+            path, lambda: iter(samples))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        bucketed = lane.bucketed_batches(path, lane.BOUNDS, lane.BATCH)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        flat = lane.flat_batches(samples, lane.BATCH, lane.BOUNDS[-1])
+        bounds = sorted({b for _, b in bucketed})
+        log(f"corpus: {n} records, {os.path.getsize(path)} bytes written in "
+            f"{write_ms:.1f} ms, read and bucketed in {read_ms:.1f} ms: "
+            f"{len(flat)} flat batches at {lane.BOUNDS[-1]}, "
+            f"{len(bucketed)} bucketed ("
+            + ", ".join(f"{sum(1 for _, b in bucketed if b == x)} at {x}"
+                        for x in bounds) + ")")
+        if n != lane.N_SEQS or bounds != list(lane.BOUNDS):
+            fail(f"ragged lane: {n} records, bounds {bounds}")
+
+        fluid.reset_unique_name()
+        main, startup, loss = lane.build(fluid, lane.VOCAB, lane.EMB,
+                                         lane.HIDDEN, lane.LR, seed)
+        log("program: " + op_counts(main.global_block()))
+        exe = fluid.Executor()
+        init = fluid.Scope()
+        exe.run(startup, scope=init)
+        short = next(c for c, b in bucketed if b == lane.BOUNDS[0])
+        l12 = ragged_lstm_kernels(
+            torch, rnn, init, main, [len(s) for s, _ in short], card)
+
+        counters = kernel_counters()
+        problems = []
+        launches = {"lstm_seq": 0, "lstm_seq_bwd": 0}
+        res = {}
+        for route in ("auto", "torch"):
+            for name, batches in (("flat", flat), ("bucketed", bucketed)):
+                losses, ms, handles, total, steps = ragged_route(
+                    torch, fluid, exe, lane, main, loss, init, batches,
+                    route, counters, problems)
+                for k in launches:
+                    launches[k] += total.get(k, 0)
+                res[route, name] = (losses, ms)
+                log(f"kernel_tier={route}, {name}: {steps} steps, epoch "
+                    f"mean loss {losses.mean():.6f} ({losses[0]:.6f} -> "
+                    f"{losses[-1]:.6f}); best of {RAGGED_EPOCHS} epochs "
+                    f"{ms:.5f} ms a sample | {card}")
+                if (route, name) == ("auto", "bucketed"):
+                    read_counts, reset = counters
+                    reset()
+
+                    def epoch():
+                        for h in handles:
+                            exe.run_prepared(h, return_numpy=False)
+
+                    prof = profile(torch, epoch, "one bucketed epoch of the "
+                                   "ragged lane, kernel route", card, reps=1)
+                    for k in launches:
+                        launches[k] += read_counts()[k]
+                    log("busy share of a profiled bucketed epoch: "
+                        + (f"{100 * prof[1] / prof[0]:.1f}%" if prof
+                           else "not measured"))
+        for route in ("auto", "torch"):
+            ratio = res[route, "flat"][1] / res[route, "bucketed"][1]
+            log(f"kernel_tier={route}: flat {res[route, 'flat'][1]:.5f} / "
+                f"bucketed {res[route, 'bucketed'][1]:.5f} ms a sample = "
+                f"{ratio:.3f}x for bucketing | {card}")
+        for name in ("flat", "bucketed"):
+            a, b = res["auto", name][0], res["torch", name][0]
+            rel = abs(a.mean() - b.mean()) / abs(b.mean())
+            step = float((abs(a - b) / abs(b)).max())
+            log(f"{name} epoch, kernel route vs torch route: mean loss "
+                f"rel diff {rel:.3e} (limit {RAGGED_LOSS_LIMIT:.0e}), "
+                f"largest step rel diff {step:.3e}")
+            if not rel <= RAGGED_LOSS_LIMIT:
+                problems.append(f"ragged lane, {name}: the routes' epoch "
+                                f"losses differ by {rel:.3e}")
+
+        log(f"\n== phase 23(b): the bucketed epoch fed one exe.run a batch, "
+            f"from host numpy and through reader.double_buffer | {card} ==")
+        db = ragged_double_buffer(torch, fluid, exe, lane, reader, main,
+                                  loss, init, bucketed, counters, card,
+                                  problems)
+        for k in launches:
+            launches[k] += db[k]
+        reader_graph_mnist(torch, fluid, work, card, problems)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        fail("; ".join(problems))
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s; lstm_seq "
+        f"{launches['lstm_seq']} and lstm_seq_bwd {launches['lstm_seq_bwd']} "
+        f"launches")
+    return launches, l12
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -7984,6 +8423,7 @@ def main():
     lm = phase_lm_train(torch, fluid, args.seed, card)
     multi = phase_multichip(torch, fluid, args.seed, card)
     ctr = phase_ctr(torch, fluid, args.seed, card)
+    inp, l12 = phase_input_pipeline(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -8006,6 +8446,7 @@ def main():
 
     bf16_keys = ("bf16_ms", "bf16_plain_ms", "bf16_library_ms",
                  "bf16_bound_ms", "bf16_bound_by")
+    l12_keys = ("l12_ms", "l12_plain_ms", "l12_bound_ms")
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
               launches + srv_launches + amp["conv_affine"]
@@ -8028,13 +8469,16 @@ def main():
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
-              + rt["lstm_seq"] + s2s["lstm_seq"] + book["lstm_seq"],
-              rnn_totals["lstm_seq"]),
+              + rt["lstm_seq"] + s2s["lstm_seq"] + book["lstm_seq"]
+              + inp["lstm_seq"],
+              {**rnn_totals["lstm_seq"], **l12["lstm_seq"]}, l12_keys),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
               + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"]
-              + s2s["lstm_seq_bwd"] + book["lstm_seq_bwd"],
-              rnn_totals["lstm_seq_bwd"]),
+              + s2s["lstm_seq_bwd"] + book["lstm_seq_bwd"]
+              + inp["lstm_seq_bwd"],
+              {**rnn_totals["lstm_seq_bwd"], **l12["lstm_seq_bwd"]},
+              l12_keys),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
               + ctc_launches["adam_arena"] + rec["adam_arena"]

@@ -11,10 +11,16 @@ loop of K such steps over feeds staged on the device once.
 State contract: persistable variables live in a Scope between runs as torch
 tensors on the executor's device. Temporaries live in a per-run dict; one
 may also be a LoDArray or a SparseRows (an ``is_sparse`` embedding's
-gradient), and the scope holds either as it is. Every op output whose name
-the scope holds, or that the program declares persistable, is written back
-after the run: an optimizer op's ParamOut names its Param, so the updated
-parameter replaces it in the scope.
+gradient), and the scope holds either as it is. A reader graph's READER
+var (reference :367-378) is a reader-creator callable that the startup
+program's reader ops place in the scope: the executor binds it as a free
+read like any scope value and never moves, casts or stacks it, the
+verifier takes it as a dataflow root, and a ``read`` op's StopIteration
+at the end of data leaves ``run`` before the write-back, so the scope is
+as it was before that step. Every op output whose name the scope holds,
+or that the program declares persistable, is written back after the run:
+an optimizer op's ParamOut names its Param, so the updated parameter
+replaces it in the scope.
 
 The op loop runs under ``torch.no_grad()``: gradients are ops of the
 program (``fluid.backward``), not autograd tape. A grad lowering that asks

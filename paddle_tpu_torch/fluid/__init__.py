@@ -4,7 +4,7 @@ Executor, initializer, io, fuse_conv_bn, backward, optimizer, regularizer,
 clip, evaluator, DataFeeder, average, places, Scope, flags, amp_guard, the
 program verifier and lint (``analysis``), the LoD feed helpers and the
 pserver transpilers (``DistributeTranspiler``,
-``SimpleDistributeTranspiler``)."""
+``SimpleDistributeTranspiler``) and ``recordio_writer``."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -38,6 +38,7 @@ from .param_attr import ParamAttr
 from .fusion import fuse_conv_bn
 from .distribute_transpiler import (DistributeTranspiler,
                                     SimpleDistributeTranspiler)
+from . import recordio_writer
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -50,5 +51,5 @@ __all__ = [
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
     "amp_guard", "analysis", "ProgramVerifyError", "lint_program",
     "verify_program", "nets", "evaluator", "DistributeTranspiler",
-    "SimpleDistributeTranspiler",
+    "SimpleDistributeTranspiler", "recordio_writer",
 ]

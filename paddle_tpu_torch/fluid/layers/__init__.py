@@ -13,7 +13,10 @@ from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  sigmoid_cross_entropy_with_logits, accuracy, mul, matmul,
                  cos_sim, linear_chain_crf, crf_decoding, l2_normalize,
                  multiplex, one_hot, smooth_l1)
-from .io import data, get_places  # noqa: F401
+from .io import (data, get_places, open_recordio_file,  # noqa: F401
+                 open_files, create_shuffle_reader,
+                 create_double_buffer_reader, create_multi_pass_reader,
+                 read_file)
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

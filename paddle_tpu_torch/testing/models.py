@@ -528,14 +528,19 @@ def _build(fluid, body, opt, lr):
     return main, startup, v
 
 
-def digits_mlp(fluid, hidden=(128, 64), lr=0.002, opt=None):
+def digits_mlp(fluid, hidden=(128, 64), lr=0.002, opt=None, inputs=None):
     """recognize_digits' MLP (tests/book/test_recognize_digits.py:30):
-    784 -> 128 -> 64 relu -> 10 softmax."""
+    784 -> 128 -> 64 relu -> 10 softmax. ``inputs(layers)``, where given,
+    makes the (img, label) vars in the programs' guard (a reader graph's
+    ``read_file``) in place of the two data layers."""
     layers = fluid.layers
 
     def body(v):
-        img = layers.data("img", shape=[784])
-        label = layers.data("label", shape=[1], dtype="int64")
+        if inputs is not None:
+            img, label = inputs(layers)
+        else:
+            img = layers.data("img", shape=[784])
+            label = layers.data("label", shape=[1], dtype="int64")
         h = img
         for size in hidden:
             h = layers.fc(input=h, size=size, act="relu")

@@ -66,6 +66,25 @@ def test_parallel_modules_are_checked():
     assert "paddle_tpu_torch/ops/io_ops.py" in checked
 
 
+def test_input_pipeline_modules_are_checked():
+    """The input pipeline (the recordio codec, the readers and their
+    double buffer, the dataset parsers, fluid.recordio_writer and the
+    ragged lane) is among the files the import check reads: it keeps its
+    own copy of the JAX package's 13 pure-numpy parsers, common.py and
+    __init__.py."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in ("recordio/__init__.py", "reader/__init__.py",
+                 "reader/creator.py", "reader/decorator.py",
+                 "reader/minibatch.py", "reader/pool.py",
+                 "reader/prefetch.py", "dataset/__init__.py",
+                 "dataset/common.py", "dataset/mnist.py",
+                 "dataset/flowers.py", "fluid/recordio_writer.py",
+                 "fluid/layers/io.py", "testing/ragged_lane.py"):
+        assert "paddle_tpu_torch/" + name in checked, name
+    assert len([p for p in checked
+                if p.startswith("paddle_tpu_torch/dataset/")]) == 15
+
+
 # modules a parameter-server shard, master or elastic worker process
 # loads: numpy and the standard library only at import (torch inside
 # functions, where a trainer-side helper needs it)
@@ -160,12 +179,18 @@ print(",".join(new))
                                     "paddle_tpu_torch.distributed",
                                     "paddle_tpu_torch.obs",
                                     "paddle_tpu_torch.fluid.nets",
-                                    "paddle_tpu_torch.fluid.evaluator"])
+                                    "paddle_tpu_torch.fluid.evaluator",
+                                    "paddle_tpu_torch.reader",
+                                    "paddle_tpu_torch.recordio",
+                                    "paddle_tpu_torch.dataset",
+                                    "paddle_tpu_torch.fluid.recordio_writer"])
 def test_import_loads_neither_jax_nor_the_reference(module):
     """Imported in a fresh interpreter, the serving front door, the
     distributed services (RPC, parameter server, master, launcher), the
-    observability plane, the composite nets and the
-    evaluators load no module of jax or of the reference package."""
+    observability plane, the composite nets, the
+    evaluators and the input pipeline (readers, recordio, the datasets,
+    fluid.recordio_writer) load no module of jax or of the reference
+    package."""
     import subprocess
     import sys
     r = subprocess.run([sys.executable, "-c", _IMPORT_PROBE, str(REPO),

@@ -70,10 +70,6 @@ _BREADTH = (
 # reference op type -> the ROADMAP.md item (queue A) that ports it
 PENDING = {
     **{t: "A12" for t in _BREADTH},
-    # the input pipeline
-    "create_double_buffer_reader": "A16", "create_multi_pass_reader": "A16",
-    "create_recordio_file_reader": "A16", "create_shuffle_reader": "A16",
-    "read": "A16",
 }
 
 
