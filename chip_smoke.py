@@ -14,8 +14,9 @@ data-parallel steps over NCCL and the multi-device lanes on gloo ranks,
 train Wide&Deep CTR locally, through parameter-server shard processes
 and with its table sharded over NCCL ranks, feed bench.py's ragged LSTM
 lane and an MNIST reader graph through recordio, the readers and the
-double buffer, and hold every hand-written kernel against its plain
-PyTorch version.
+double buffer, train the reference's RNN benchmark config through
+paddle_trainer and the paddle.v2 spelling, and hold every hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -353,9 +354,10 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               bucketed (written with convert_reader_to_recordio_file, read
               with creator.recordio, bucket_by_length to [12, 100], padded
               with bucket_bound_for); each bound's batches staged with
-              prepare_steps and run with run_prepared; best of 3 epochs
-              after a warm-up epoch, ms a sample on the kernel route and
-              under kernel_tier=torch, the flat/bucketed ratio, the busy
+              prepare_steps and run with run_prepared; after a warm-up
+              epoch, the best of 3 epochs on the kernel route and one
+              under kernel_tier=torch, ms a sample on each, the
+              flat/bucketed ratio, the busy
               share of a profiled bucketed epoch; 2 + 2 lstm_seq /
               lstm_seq_bwd launches a step, no other kernel and no lstm
               fallback; the routes' epoch mean losses within 1e-2; before
@@ -370,6 +372,29 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               create_multi_pass_reader(2) -> read_file trains digits_mlp
               until StopIteration: the popped tensors on the card, every
               record once a pass, the loss falling.
+24. legacy  — the legacy surfaces (paddle_tpu_torch/v2, trainer,
+              trainer_config_helpers). (a) benchmark/paddle/rnn/rnn.py
+              (testing/legacy_lane.py) through paddle_trainer's main(argv)
+              at bench.py:238's widths (vocab 30000, emb 128, two LSTMs of
+              512, batch 64) over 8 batches of 100-long sequences from
+              RandomState(seed), labelled by the last token's parity: the
+              train job (2 passes) on both routes, the pass cost falling
+              and the routes' pass costs within LEGACY_PASS_LIMIT; the
+              time job (ms a batch, the busy share of a profiled step),
+              the test job, checkgrad over the fc config (the 1% check),
+              and the train job once as a python -m subprocess: 2 + 2
+              lstm_seq / lstm_seq_bwd launches a step, no other kernel,
+              no fallback. Step 1's gradients against kernel_tier=torch
+              and against the plain LSTM versions within phase 5's
+              limits. Readings: rnn.py's defaults (batch 128, hidden 128)
+              through the time job with their fallbacks, checkgrad over
+              the RNN config. (b) the same topology in the paddle.v2
+              spelling through v2.SGD and an event handler, one pass:
+              v2.infer on 64 samples, Parameters.to_tar -> from_tar_file
+              -> Inference, and serialize_for_inference -> Inference(
+              fileobj=), each bitwise the trained scope's forward. (c) the
+              slice's 15 op types (lrn at AlexNet's first layer) on the
+              card against the CPU, forward and grad.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -7925,8 +7950,11 @@ def phase_ctr(torch, fluid, seed, card):
 # its widths: batch 64, bounds [12, 100], 4608 sequences half of length
 # 10-12 and half 96-100, vocab 30000, emb 128, hidden 512, unfused Adam
 # 2e-3), best of RAGGED_EPOCHS timed epochs after a warm-up epoch per path
-# and route, as bench.py times it
-RAGGED_EPOCHS = 3
+# on the kernel route, as bench.py times it. The torch route, a yardstick
+# whose plain LSTM backward sets its step (~0.3 s at L 100), times one
+# epoch after its warm-up, which keeps the whole script within half its
+# time limit
+RAGGED_EPOCHS, RAGGED_TORCH_EPOCHS = 3, 1
 # the two routes' epoch losses: the kernel route's LSTMs round their
 # products to bf16 (phase 5), the torch route's scans do not, so each
 # step's loss moves by the carries' rare bf16 moves, and 72 Adam steps
@@ -7998,8 +8026,9 @@ def ragged_route(torch, fluid, exe, lane, main, loss, init, batches, route,
     epoch (its per-step losses, its launches checked: 2 lstm_seq and 2
     lstm_seq_bwd a step, no other kernel and no lstm fallback on the
     kernel route, none on the torch route), then the best of
-    RAGGED_EPOCHS timed epochs. Returns (losses, ms a sample, the
-    handles, the kernel launches of those epochs, steps)."""
+    RAGGED_EPOCHS timed epochs (RAGGED_TORCH_EPOCHS on the torch route).
+    Returns (losses, ms a sample, the handles, the kernel launches of
+    those epochs, steps)."""
     import numpy as np
     from paddle_tpu_torch.ops import cuda as tier
     read, reset = counters
@@ -8024,7 +8053,8 @@ def ragged_route(torch, fluid, exe, lane, main, loss, init, batches, route,
         if losses.shape != (steps,) or not np.isfinite(losses).all():
             fail(f"ragged lane, kernel_tier={route}: losses {losses}")
         best = float("inf")
-        for _ in range(RAGGED_EPOCHS):
+        epochs = RAGGED_EPOCHS if route == "auto" else RAGGED_TORCH_EPOCHS
+        for _ in range(epochs):
             t0 = time.perf_counter()
             for h in handles:
                 last = exe.run_prepared(h, return_numpy=False)
@@ -8033,9 +8063,9 @@ def ragged_route(torch, fluid, exe, lane, main, loss, init, batches, route,
         if not bool(torch.isfinite(last[0]).all()):
             fail(f"ragged lane, kernel_tier={route}: non-finite loss")
         total = {k: v for k, v in read().items() if v}
-        if total != {k: v * (1 + RAGGED_EPOCHS) for k, v in want.items()}:
+        if total != {k: v * (1 + epochs) for k, v in want.items()}:
             problems.append(f"ragged lane, kernel_tier={route}: {total} "
-                            f"launches in {1 + RAGGED_EPOCHS} epochs")
+                            f"launches in {1 + epochs} epochs")
         return losses, best / n_samples * 1e3, handles, total, steps
     finally:
         fluid.set_flags({"kernel_tier": "auto"})
@@ -8280,7 +8310,9 @@ def phase_input_pipeline(torch, fluid, seed, card):
                 res[route, name] = (losses, ms)
                 log(f"kernel_tier={route}, {name}: {steps} steps, epoch "
                     f"mean loss {losses.mean():.6f} ({losses[0]:.6f} -> "
-                    f"{losses[-1]:.6f}); best of {RAGGED_EPOCHS} epochs "
+                    f"{losses[-1]:.6f}); best of "
+                    f"{RAGGED_EPOCHS if route == 'auto' else RAGGED_TORCH_EPOCHS}"
+                    " epochs "
                     f"{ms:.5f} ms a sample | {card}")
                 if (route, name) == ("auto", "bucketed"):
                     read_counts, reset = counters
@@ -8329,6 +8361,551 @@ def phase_input_pipeline(torch, fluid, seed, card):
         f"{launches['lstm_seq']} and lstm_seq_bwd {launches['lstm_seq_bwd']} "
         f"launches")
     return launches, l12
+
+
+# phase 24: the reference's RNN benchmark config (benchmark/paddle/rnn/
+# rnn.py, testing/legacy_lane.py) through paddle_trainer at bench.py:238's
+# widths (lane.RNN_ARGS): 2 passes of 8 batches of 64 100-long sequences
+LEGACY_PASSES = 2
+# the routes' pass costs, relative: the kernel route's bf16 recurrent
+# products against the torch route's float32 scans over 16 Adam steps
+# (the ragged lane's epoch limit, RAGGED_LOSS_LIMIT)
+LEGACY_PASS_LIMIT = LSTM_FWD_LIMIT
+# step 1's gradients, per parameter. Against the same program with the
+# LSTM wrappers swapped for their plain versions (the same bf16 recipe):
+# phase 5's backward limits, ‖Δ‖∞/‖ref‖∞ ≤ LSTM_BWD_LIMIT and ‖Δ‖₂/‖ref‖₂
+# ≤ LSTM_BWD_L2_LIMIT. Against kernel_tier=torch (the float32 scans, no
+# bf16 rounding of W or h) every element carries its own bf16 rounding, so
+# the moves are not rare and only the ‖Δ‖∞ limit (a few bf16 steps of the
+# largest element) applies; ‖Δ‖₂ is printed (a CPU rehearsal at H 16, b 8:
+# lstm W 2.3e-3 of ‖ref‖₂, ‖Δ‖∞ 3.5e-3). A bias's gradient is a sum over
+# the batch and the steps (of its gates' gradients, or of an fc's output
+# gradient); at initialization the net predicts nearly alike for every
+# sequence, so with labels of both kinds those terms nearly cancel and the
+# sum is a small remainder of large terms: its ‖Δ‖∞ is held relative to
+# the largest element of Σ|terms|, the scale a sum's rounding has (an
+# H100 run of this phase held the LSTM biases to their own largest
+# element: 1.26e-2 against the plain versions, 1.43e-1 against the torch
+# route, while every weight's stayed under 2.5e-3)
+LEGACY_GRAD_LIMITS = {"kernel_tier=torch": (LSTM_BWD_LIMIT, None),
+                      "the plain versions": (LSTM_BWD_LIMIT,
+                                             LSTM_BWD_L2_LIMIT)}
+# the 15 op types on the card against the same op on the CPU from the same
+# inputs: floats within 1e-5 of the largest element (CPU_REL), integers
+# exact; lrn at AlexNet's first layer (batch 64, 96 channels, 55x55)
+LEGACY_LRN_SHAPE = (64, 96, 55, 55)
+
+
+def legacy_cli(trainer_cli, argv):
+    """paddle_trainer's main(argv) in-process: (exit code, stdout), the
+    output echoed to the log."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trainer_cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log("  | " + line)
+    return rc, out
+
+
+def legacy_op_cases(np, rng):
+    """{name: (op, inputs, outputs, attrs, feeds, grad inputs, grad
+    outputs, the cotangent's output)} for the slice's 15 op types."""
+    f32 = lambda *s: rng.normal(0, 1, s).astype("float32")  # noqa: E731
+    return {
+        "lrn": ("lrn", {"X": ["x"]}, {"Out": ["out"], "MidOut": ["mid"]},
+                {"n": 5, "k": 1.0, "alpha": 1e-4 / 5, "beta": 0.75},
+                {"x": f32(*LEGACY_LRN_SHAPE)}, {"X": ["x"]},
+                {"X@GRAD": ["dx"]}, "Out"),
+        "maxout": ("maxout", {"X": ["x"]}, {"Out": ["out"]}, {"groups": 2},
+                   {"x": f32(8, 16, 12, 12)}, {"X": ["x"]},
+                   {"X@GRAD": ["dx"]}, "Out"),
+        "im2sequence": ("im2sequence", {"X": ["x"]}, {"Out": ["out"]},
+                        {"kernels": [3, 3], "strides": [2, 2],
+                         "paddings": [1, 1, 1, 1]},
+                        {"x": f32(4, 8, 16, 16)}, {"X": ["x"]},
+                        {"X@GRAD": ["dx"]}, "Out"),
+        "rank_loss": ("rank_loss", {"Label": ["y"], "Left": ["l"],
+                                    "Right": ["r"]}, {"Out": ["out"]}, {},
+                      {"y": rng.randint(0, 2, (256, 1)).astype("float32"),
+                       "l": f32(256, 1), "r": f32(256, 1)},
+                      {"Label": ["y"], "Left": ["l"], "Right": ["r"]},
+                      {"Left@GRAD": ["dl"], "Right@GRAD": ["dr"]}, "Out"),
+        "nce": ("nce", {"Input": ["x"], "Label": ["y"], "Weight": ["w"],
+                        "Bias": ["b"]},
+                {"Cost": ["cost"], "SampleLabels": ["s"]},
+                {"num_total_classes": 1000, "num_neg_samples": 5,
+                 "custom_neg_classes": [3, 141, 592, 653, 999]},
+                {"x": f32(64, 128), "y": rng.randint(0, 1000, (64, 1))
+                 .astype("int64"), "w": f32(1000, 128), "b": f32(1000)},
+                {"Input": ["x"], "Weight": ["w"], "Bias": ["b"],
+                 "SampleLabels": ["s"]},
+                {"Input@GRAD": ["dx"], "Weight@GRAD": ["dw"],
+                 "Bias@GRAD": ["db"]}, "Cost"),
+        "pad": ("pad", {"X": ["x"]}, {"Out": ["out"]},
+                {"paddings": [0, 0, 1, 2, 3, 0, 0, 1], "pad_value": 0.25},
+                {"x": f32(4, 8, 9, 9)}, {"X": ["x"]}, {"X@GRAD": ["dx"]},
+                "Out"),
+        "crop": ("crop", {"X": ["x"]}, {"Out": ["out"]},
+                 {"shape": [-1, 6, 5, 5], "offsets": [0, 1, 2, 3]},
+                 {"x": f32(4, 8, 9, 9)}, {"X": ["x"]}, {"X@GRAD": ["dx"]},
+                 "Out"),
+        "positive_negative_pair": (
+            "positive_negative_pair",
+            {"Score": ["s"], "Label": ["y"], "QueryID": ["q"],
+             "Weight": ["w"]},
+            {"PositivePair": ["pos"], "NegativePair": ["neg"],
+             "NeutralPair": ["neu"]}, {"column": 0},
+            {"s": np.round(rng.uniform(0, 1, (512, 1)), 2)
+             .astype("float32"), "y": rng.randint(0, 3, (512, 1))
+             .astype("int64"), "q": rng.randint(0, 16, (512, 1))
+             .astype("int64"), "w": rng.uniform(0.5, 2, (512, 1))
+             .astype("float32")}, None, None, None),
+    }
+
+
+def legacy_ops_on_card(torch, fluid, seed, card):
+    """Each of the slice's op types once on the card against its CPU
+    result, forward and grad (15 op types). Returns the problems."""
+    import numpy as np
+
+    def run(place, op, ins, outs, attrs, feeds):
+        prog = fluid.Program()
+        block = prog.global_block()
+        for name, arr in feeds.items():
+            block.create_var(name=name, shape=arr.shape, dtype=str(arr.dtype))
+        fetch = [n for names in outs.values() for n in names]
+        for n in fetch:
+            block.create_var(name=n)
+        block.append_op(op, inputs=ins, outputs=outs, attrs=attrs)
+        vals = fluid.Executor(place).run(prog, feed=feeds, fetch_list=fetch,
+                                         scope=fluid.Scope())
+        return [np.asarray(v.data if hasattr(v, "lens") else v)
+                for v in vals]
+
+    def held(what, got, want):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            return f"{what}: {got.shape}/{got.dtype} against " \
+                   f"{want.shape}/{want.dtype}", None
+        if not np.issubdtype(want.dtype, np.floating):
+            return (None if np.array_equal(got, want)
+                    else f"{what}: integers differ"), 0.0
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(got.astype(np.float64) - want).max()) / scale
+        return (None if err <= CPU_REL else f"{what}: {err:.2e} of the "
+                f"largest (limit {CPU_REL:.0e})"), err
+
+    rng = np.random.RandomState(seed + 24)
+    problems, rows, types = [], [], set()
+    for name, (op, ins, outs, attrs, feeds, gins, gouts, cot) in \
+            legacy_op_cases(np, rng).items():
+        t0 = time.perf_counter()
+        card_out = run(fluid.CUDAPlace(0), op, ins, outs, attrs, feeds)
+        cpu_out = run(fluid.CPUPlace(), op, ins, outs, attrs, feeds)
+        types.add(op)
+        worst = 0.0
+        names = [n for ns in outs.values() for n in ns]
+        for n, g, w in zip(names, card_out, cpu_out):
+            bad, err = held(f"{op} {n}", g, w)
+            if bad:
+                problems.append(bad)
+            worst = max(worst, err or 0.0)
+        if gins is not None:
+            vals = dict(zip(names, cpu_out))
+            gfeeds = {k: v for k, v in {**feeds, **vals}.items()
+                      if any(k in ns for ns in gins.values())}
+            d = vals[outs[cot][0]]
+            if op == "im2sequence":      # the padded [b, steps, d] layout
+                d = d.reshape(feeds["x"].shape[0], -1, d.shape[-1])
+            gfeeds["d"] = rng.normal(0, 1, d.shape).astype("float32")
+            gargs = (op + "_grad", {**gins, cot + "@GRAD": ["d"]}, gouts,
+                     attrs, gfeeds)
+            gnames = [n for ns in gouts.values() for n in ns]
+            for n, g, w in zip(gnames, run(fluid.CUDAPlace(0), *gargs),
+                               run(fluid.CPUPlace(), *gargs)):
+                bad, err = held(f"{op}_grad {n}", g, w)
+                if bad:
+                    problems.append(bad)
+                worst = max(worst, err or 0.0)
+            types.add(op + "_grad")
+        rows.append(f"{name} {worst:.2e} ({(time.perf_counter() - t0):.2f} "
+                    "s)")
+    # nce's own draw on the card: the labels, then ids in range
+    x = rng.normal(0, 1, (64, 16)).astype("float32")
+    y = rng.randint(0, 50, (64, 1)).astype("int64")
+    cost, s = run(fluid.CUDAPlace(0), "nce",
+                  {"Input": ["x"], "Label": ["y"], "Weight": ["w"]},
+                  {"Cost": ["cost"], "SampleLabels": ["s"]},
+                  {"num_total_classes": 50, "num_neg_samples": 7},
+                  {"x": x, "y": y, "w": rng.normal(0, 1, (50, 16))
+                   .astype("float32")})
+    if not (s.shape == (64, 8) and (s[:, :1] == y).all()
+            and 0 <= s[:, 1:].min() and s[:, 1:].max() < 50
+            and np.isfinite(cost).all()):
+        problems.append("nce's drawn SampleLabels on the card break their "
+                        "rule")
+    log(f"the slice's {len(types)} op types on the card against the CPU, "
+        f"worst ‖Δ‖∞/‖ref‖∞ (limit {CPU_REL:.0e}, integers exact): "
+        + "; ".join(rows) + f" | {card}")
+    if len(types) != 15:
+        problems.append(f"{len(types)} op types checked, not 15")
+    return problems
+
+
+def bias_terms(block):
+    """{bias: the gradient it sums}: an elementwise_add's bias (Y) sums its
+    Out@GRAD over the rows, an lstm's Bias sums its Input@GRAD (the gates'
+    gradients) over the batch and the steps."""
+    from paddle_tpu_torch.fluid.framework import grad_var_name
+    params = {p.name for p in block.all_parameters()}
+    terms = {}
+    for op in block.ops:
+        if op.type == "elementwise_add" and op.input("Y")[0] in params:
+            terms[op.input("Y")[0]] = grad_var_name(op.output("Out")[0])
+        elif op.type == "lstm":
+            terms[op.input("Bias")[0]] = grad_var_name(op.input("Input")[0])
+    return terms
+
+
+def grads_of(torch, fluid, exe, main, cost, feed, scope):
+    """(loss, {param: gradient}, {bias: Σ|terms| per element}) of one step
+    of ``main`` from ``scope``: each bias's terms (``bias_terms``) summed
+    in absolute value over the rows they add (the valid steps of a LoD
+    gradient), the scale a sum's rounding is relative to."""
+    from paddle_tpu_torch.fluid.framework import grad_var_name
+    params = [p.name for p in main.all_parameters()]
+    terms = bias_terms(main.global_block())
+    vals = exe.run(main, feed=feed, scope=scope, return_numpy=False,
+                   fetch_list=[cost] + [grad_var_name(p) for p in params]
+                   + list(terms.values()))
+    sums = {}
+    for b, v in zip(terms, vals[1 + len(params):]):
+        data = v.data if hasattr(v, "lens") else v
+        if hasattr(v, "lens"):
+            steps = torch.arange(data.shape[1], device=data.device)
+            data = data * (steps[None, :] < v.lens[:, None]).to(
+                data.dtype)[..., None]
+        sums[b] = data.abs().reshape(-1, data.shape[-1]).sum(0)
+    return vals[0].item(), dict(zip(params, vals[1:len(params) + 1])), sums
+
+
+def phase_legacy(torch, fluid, seed, card):
+    """Phase 24: paddle_trainer's jobs over rnn.py at bench.py:238's widths
+    on the card (launches, step-1 gradients against the plain routes, the
+    routes' pass costs), the same topology through the paddle.v2 spelling
+    (infer, the tar and the serialized topology bitwise), and the slice's
+    op types against the CPU. Returns the lstm_seq / lstm_seq_bwd
+    launches."""
+    import numpy as np
+    import paddle_tpu_torch.v2 as v2
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing import legacy_lane as lane
+    from paddle_tpu_torch.v2 import trainer_cli
+    from paddle_tpu_torch.v2.config_helpers import parse_config
+    from paddle_tpu_torch.v2.inference import build_feed
+
+    t_phase = time.perf_counter()
+    a = lane.RNN_ARGS
+    log(f"\n== phase 24: paddle_trainer over benchmark/paddle/rnn/rnn.py "
+        f"(vocab {a['vocab_size']}, emb {a['emb_size']}, {a['lstm_num']} "
+        f"LSTMs of {a['hidden_size']}, batch {a['batch_size']}, "
+        f"{lane.LENGTH}-long sequences, {LEGACY_PASSES} passes of "
+        f"{lane.BATCHES} batches), the v2 spelling, the slice's op types | "
+        f"{card} ==")
+    lane.SEED, lane.BATCH = seed, a["batch_size"]
+    work = tempfile.mkdtemp(prefix="chip-smoke-legacy-")
+    problems = []
+    launches = {"lstm_seq": 0, "lstm_seq_bwd": 0}
+    read, reset = kernel_counters()
+    try:
+        cfg = os.path.join(work, "rnn.py")
+        fc_cfg = os.path.join(work, "fc.py")
+        with open(cfg, "w") as f:
+            f.write(lane.RNN_CONFIG)
+        with open(fc_cfg, "w") as f:
+            f.write(lane.CLI_CONFIG)
+        base = [f"--config={cfg}", "--config_args=" + ",".join(
+            f"{k}={v}" for k, v in a.items()),
+            "--reader=paddle_tpu_torch.testing.legacy_lane:reader"]
+
+        def job(what, argv, fwd, bwd, route="auto"):
+            """One job in-process with its launches held: ``fwd`` and
+            ``bwd`` LSTM launches, no other kernel, no fallback."""
+            reset()
+            tier.reset_fallback_counts()
+            fluid.set_flags({"kernel_tier": route})
+            t0 = time.perf_counter()
+            try:
+                rc, out = legacy_cli(trainer_cli, base + argv)
+            finally:
+                fluid.set_flags({"kernel_tier": "auto"})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got, fb = read(), tier.fallback_counts()
+            want = ({"lstm_seq": fwd, "lstm_seq_bwd": bwd} if route == "auto"
+                    else {})
+            other = {k: v for k, v in got.items() if v and k not in want}
+            log(f"{what} (kernel_tier={route}): exit {rc} in {secs:.2f} s; "
+                f"lstm_seq {got['lstm_seq']}, lstm_seq_bwd "
+                f"{got['lstm_seq_bwd']} launches, other kernels {other}, "
+                f"fallbacks {fb}")
+            if rc != 0:
+                problems.append(f"{what}: exit {rc}")
+            if route != "auto" and any(got.values()):
+                problems.append(f"{what} (kernel_tier={route}): kernel "
+                                f"launches {got}")
+            if route == "auto":
+                if (got["lstm_seq"], got["lstm_seq_bwd"]) != (fwd, bwd) \
+                        or other or fb:
+                    problems.append(
+                        f"{what}: lstm_seq {got['lstm_seq']} / lstm_seq_bwd "
+                        f"{got['lstm_seq_bwd']} launches (want {fwd} / "
+                        f"{bwd}), other kernels {other}, fallbacks {fb}")
+                for k in launches:
+                    launches[k] += got[k]
+            return out
+
+        steps = LEGACY_PASSES * lane.BATCHES
+        costs = {}
+        for route in ("auto", "torch"):
+            out = job("--job=train", ["--job=train",
+                                      f"--num_passes={LEGACY_PASSES}"],
+                      2 * steps, 2 * steps, route)
+            costs[route] = [float(ln.split("cost=")[1])
+                            for ln in out.splitlines()
+                            if ln.startswith("Pass")]
+        for route, c in costs.items():
+            if len(c) != LEGACY_PASSES or not c[-1] < c[0]:
+                problems.append(f"train, kernel_tier={route}: pass costs "
+                                f"{c} do not fall")
+        rel = [abs(x - y) / abs(y) for x, y in zip(costs["auto"],
+                                                   costs["torch"])]
+        log(f"pass costs, kernel route {costs['auto']} against torch route "
+            f"{costs['torch']}: rel diff "
+            + ", ".join(f"{r:.3e}" for r in rel)
+            + f" (limit {LEGACY_PASS_LIMIT:.0e})")
+        if not rel or max(rel) > LEGACY_PASS_LIMIT:
+            problems.append(f"the routes' pass costs differ by {rel}")
+        out = job("--job=time", ["--job=time"], 2 * lane.BATCHES + 2,
+                  2 * lane.BATCHES + 2)
+        timing = [ln for ln in out.splitlines() if ln.startswith("time:")]
+        job("--job=test", ["--job=test"], 2 * lane.BATCHES, 0)
+        reset()
+        rc, out = legacy_cli(trainer_cli, [f"--config={fc_cfg}",
+                                           "--job=checkgrad"])
+        if rc != 0 or "***" in out:
+            problems.append(f"checkgrad over the fc config: exit {rc}")
+
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__)),
+             os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.v2.trainer_cli",
+             *base, "--job=train", "--num_passes=1"], env=env,
+            capture_output=True, text=True, timeout=300)
+        log(f"python -m paddle_tpu_torch.v2.trainer_cli --job=train: exit "
+            f"{r.returncode} in {time.perf_counter() - t0:.1f} s: "
+            + " | ".join(r.stdout.strip().splitlines()[-2:]))
+        if r.returncode != 0:
+            problems.append(f"the trainer_cli subprocess exited "
+                            f"{r.returncode}: {r.stderr[-1500:]}")
+
+        # step 1's gradients on the kernel route against kernel_tier=torch
+        # and against the LSTM wrappers' plain versions
+        fluid.reset_unique_name()
+        topo, main, startup = parse_config(lane.RNN_CONFIG, config_args=a)
+        with fluid.program_guard(main, startup):
+            topo.create_optimizer().minimize(topo.cost, startup)
+        exe = fluid.Executor()
+        init = fluid.Scope()
+        exe.run(startup, scope=init)
+        feed = build_feed(main.global_block(), topo.feed_order,
+                          lane.parity_batches()[0])
+        reset()
+        got = grads_of(torch, fluid, exe, main, topo.cost, feed,
+                       copy_scope(fluid, torch, init))
+        n = read()
+        if (n["lstm_seq"], n["lstm_seq_bwd"]) != (2, 2):
+            problems.append(f"step 1: {n['lstm_seq']} / {n['lstm_seq_bwd']} "
+                            "LSTM launches, want 2 / 2")
+        for k in launches:
+            launches[k] += n[k]
+        refs = {}
+        fluid.set_flags({"kernel_tier": "torch"})
+        try:
+            refs["kernel_tier=torch"] = grads_of(
+                torch, fluid, exe, main, topo.cost, feed,
+                copy_scope(fluid, torch, init))
+        finally:
+            fluid.set_flags({"kernel_tier": "auto"})
+        real = rnn.lstm_seq, rnn.lstm_seq_bwd
+        rnn.lstm_seq, rnn.lstm_seq_bwd = (rnn.lstm_seq_torch,
+                                          rnn.lstm_seq_bwd_torch)
+        try:
+            refs["the plain versions"] = grads_of(
+                torch, fluid, exe, main, topo.cost, feed,
+                copy_scope(fluid, torch, init))
+        finally:
+            rnn.lstm_seq, rnn.lstm_seq_bwd = real
+        for what, (ref_loss, ref, ref_sums) in refs.items():
+            inf_limit, l2_limit = LEGACY_GRAD_LIMITS[what]
+            dl = abs(got[0] - ref_loss) / abs(ref_loss)
+            rows, over = [], []
+            for p, g in got[1].items():
+                d = (g.double() - ref[p].double())
+                if p in ref_sums:       # a bias: against its terms' size
+                    inf = (d.abs().max() / ref_sums[p].double().max()
+                           .clamp_min(1e-30)).item()
+                    l2 = None
+                else:
+                    inf = (d.abs().max() / ref[p].double().abs().max()
+                           .clamp_min(1e-30)).item()
+                    l2 = (d.norm() / ref[p].double().norm()
+                          .clamp_min(1e-30)).item()
+                own = (d.abs().max() / ref[p].double().abs().max()
+                       .clamp_min(1e-30)).item()
+                rows.append(f"{p} {inf:.2e}/"
+                            + (f"{l2:.2e}" if l2 is not None else
+                               f"(sum; of its own ‖ref‖∞ {own:.2e})"))
+                if not (inf <= inf_limit and (l2_limit is None or l2 is None
+                                              or l2 <= l2_limit)):
+                    over.append(p)
+            log(f"step 1, kernel route against {what}: loss rel diff "
+                f"{dl:.3e}; gradients ‖Δ‖∞/‖ref‖∞ / ‖Δ‖₂/‖ref‖₂ (limits "
+                f"{inf_limit:.0e} / "
+                + ("printed" if l2_limit is None else f"{l2_limit:.0e}")
+                + "; a bias's ‖Δ‖∞ over its terms' Σ|·|): "
+                + ", ".join(rows))
+            if over:
+                problems.append(f"step 1 against {what}: {over} beyond "
+                                "phase 5's limits")
+
+        # readings: rnn.py's own defaults through the time job, checkgrad
+        # over the RNN config
+        lane.BATCH = 128
+        reset()
+        tier.reset_fallback_counts()
+        legacy_cli(trainer_cli, [f"--config={cfg}",
+                                 "--reader=paddle_tpu_torch.testing."
+                                 "legacy_lane:reader", "--job=time"])
+        log(f"reading: rnn.py's defaults (batch 128, hidden 128, 1 LSTM) "
+            f"through --job=time: launches {read()}, fallbacks "
+            f"{tier.fallback_counts()} (batch 128 lies outside "
+            f"lstm_seq's supported())")
+        lane.BATCH = a["batch_size"]
+        reset()
+        rc, out = legacy_cli(trainer_cli, base + ["--job=checkgrad"])
+        for k in launches:
+            launches[k] += read()[k]
+        log(f"reading: checkgrad over rnn.py at the lane's widths exits "
+            f"{rc} (the recurrent kernels' bf16 W products may move a "
+            f"directional difference past 1%)")
+
+        problems += legacy_v2(torch, fluid, v2, lane, build_feed, read,
+                              reset, launches, card)
+        problems += legacy_ops_on_card(torch, fluid, seed, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        fail("; ".join(problems))
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s; "
+        + "; ".join(timing) + f"; lstm_seq {launches['lstm_seq']} and "
+        f"lstm_seq_bwd {launches['lstm_seq_bwd']} launches")
+    return launches
+
+
+def legacy_v2(torch, fluid, v2, lane, build_feed, read, reset, launches,
+              card):
+    """Phase 24(b): rnn.py's topology in the paddle.v2 spelling, one pass
+    through v2.SGD with an event handler, then v2.infer, the
+    Parameters tar and the serialized topology, each bitwise the trained
+    scope's forward. Returns the problems."""
+    import io
+    import numpy as np
+
+    a = lane.RNN_ARGS
+    log(f"\n== phase 24(b): the same topology through paddle.v2 (layer.data"
+        f" with integer_value_sequence({a['vocab_size']}), SGD with "
+        f"optimizer.Adam) | {card} ==")
+    problems = []
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = v2.layer.data("data", v2.data_type.integer_value_sequence(
+            a["vocab_size"]))
+        net = v2.layer.embedding(data, size=a["emb_size"])
+        for _ in range(a["lstm_num"]):
+            net = v2.networks.simple_lstm(net, size=a["hidden_size"])
+        pred = v2.layer.fc(v2.layer.last_seq(net), size=2,
+                           act=v2.activation.Softmax())
+        label = v2.layer.data("label", v2.data_type.integer_value(2))
+        cost = v2.layer.classification_cost(input=pred, label=label)
+        params = v2.parameters.create(cost)
+        trainer = v2.SGD(cost=cost, parameters=params,
+                         update_equation=v2.optimizer.Adam(
+                             learning_rate=2e-3,
+                             regularization=v2.optimizer.L2Regularization(
+                                 8e-4)),
+                         main_program=main, startup_program=startup)
+    batches = lane.parity_batches()
+    seen = []
+
+    def handler(evt):
+        if isinstance(evt, v2.event.EndIteration):
+            n = read()
+            seen.append((evt.cost, n["lstm_seq"], n["lstm_seq_bwd"]))
+            for k in launches:
+                launches[k] += n[k]
+            reset()
+
+    reset()
+    t0 = time.perf_counter()
+    trainer.train(lambda: iter(batches), num_passes=1, event_handler=handler)
+    torch.cuda.synchronize()
+    log(f"v2.SGD: {len(seen)} steps in {time.perf_counter() - t0:.2f} s, "
+        f"costs {seen[0][0]:.6f} -> {seen[-1][0]:.6f}, launches a step "
+        f"{sorted({(f, b) for _, f, b in seen})}")
+    if len(seen) != len(batches) or any((f, b) != (2, 2)
+                                        for _, f, b in seen):
+        problems.append(f"v2.SGD: launches a step {[s[1:] for s in seen]}")
+    if not all(np.isfinite(c) for c, _, _ in seen):
+        problems.append("v2.SGD: a cost is not finite")
+
+    samples = [(ids,) for ids, _ in batches[0]]
+    feed = build_feed(trainer._test_program.global_block(), ["data", "label"],
+                      batches[0])
+    direct = trainer._exe.run(trainer._test_program, feed=feed,
+                              fetch_list=[pred.var], scope=trainer.scope)[0]
+    reset()
+    outs = {"v2.infer": v2.infer(output_layer=pred, parameters=params,
+                                 input=samples)}
+    tar, topo_buf = io.BytesIO(), io.BytesIO()
+    params.to_tar(tar)
+    v2.Topology(pred).serialize_for_inference(topo_buf)
+    loaded = v2.parameters.Parameters.from_tar_file(
+        io.BytesIO(tar.getvalue()))
+    outs["Parameters.to_tar -> from_tar_file -> Inference"] = v2.Inference(
+        loaded, output_layer=pred).infer(input=samples)
+    outs["serialize_for_inference -> Inference(fileobj=)"] = v2.Inference(
+        loaded, fileobj=io.BytesIO(topo_buf.getvalue())).infer(
+        input=samples)
+    n = read()
+    for k in launches:
+        launches[k] += n[k]
+    for what, got in outs.items():
+        same = got.shape == direct.shape and np.array_equal(got, direct)
+        log(f"{what}: {got.shape}, bitwise the trained scope's forward: "
+            f"{same}")
+        if not same:
+            problems.append(f"{what} differs from the trained scope's "
+                            "forward")
+    if n["lstm_seq"] != 2 * len(outs):
+        problems.append(f"inference: {n['lstm_seq']} lstm_seq launches, "
+                        f"want {2 * len(outs)}")
+    return problems
 
 
 def start_planted_ctc(build):
@@ -8424,6 +9001,7 @@ def main():
     multi = phase_multichip(torch, fluid, args.seed, card)
     ctr = phase_ctr(torch, fluid, args.seed, card)
     inp, l12 = phase_input_pipeline(torch, fluid, args.seed, card)
+    leg = phase_legacy(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -8470,13 +9048,13 @@ def main():
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
               + rt["lstm_seq"] + s2s["lstm_seq"] + book["lstm_seq"]
-              + inp["lstm_seq"],
+              + inp["lstm_seq"] + leg["lstm_seq"],
               {**rnn_totals["lstm_seq"], **l12["lstm_seq"]}, l12_keys),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]
               + amp["lstm_seq_bwd"] + rt["lstm_seq_bwd"]
               + s2s["lstm_seq_bwd"] + book["lstm_seq_bwd"]
-              + inp["lstm_seq_bwd"],
+              + inp["lstm_seq_bwd"] + leg["lstm_seq_bwd"],
               {**rnn_totals["lstm_seq_bwd"], **l12["lstm_seq_bwd"]},
               l12_keys),
         entry("adam_arena", "optimizer_arena.cu", "pallas/optimizer.py:129",

@@ -62,6 +62,9 @@ def _real_reader(split):
         # more than train data") and TEST_FLAG='trnid'
         ids = setid[{"train": "tstid", "test": "trnid",
                      "valid": "valid"}[split]].ravel()
+        from ..v2 import image as v2_image
+
+        del Image  # decoding goes through v2.image (same Pillow backend)
         with tarfile.open(os.path.join(base, DATA_URL.split("/")[-1])) as tf:
             members = {m.name: m for m in tf.getmembers()}
             for i in ids:
@@ -69,32 +72,13 @@ def _real_reader(split):
                 # the reference pipeline: decode -> simple_transform
                 # (resize_short 256, center-crop 224, CHW float32) — then
                 # scaled to [0,1], this module's pinned schema
-                im = _eval_transform(Image, tf.extractfile(members[name])
-                                     .read(), 256, 224) / 255.0
-                yield im.astype(np.float32), int(labels[int(i) - 1]) - 1
+                im = v2_image.load_image_bytes(
+                    tf.extractfile(members[name]).read())
+                arr = v2_image.simple_transform(im, 256, 224,
+                                                is_train=False) / 255.0
+                yield arr.astype(np.float32), int(labels[int(i) - 1]) - 1
 
     return reader
-
-
-def _eval_transform(Image, encoded, resize_size, crop_size):
-    """paddle_tpu/v2/image.py's decode + ``simple_transform(...,
-    is_train=False)`` for colour images: decode to RGB, resize the shorter
-    edge to ``resize_size`` (bicubic), crop the centre ``crop_size``
-    square, HWC -> CHW float32."""
-    import io
-
-    im = np.asarray(Image.open(io.BytesIO(encoded)).convert("RGB"))
-    h, w = im.shape[:2]
-    if h > w:
-        h_new, w_new = resize_size * h // w, resize_size
-    else:
-        h_new, w_new = resize_size, resize_size * w // h
-    pil = Image.fromarray(im.astype(np.uint8), mode="RGB")
-    im = np.asarray(pil.resize((w_new, h_new), Image.BICUBIC))
-    h, w = im.shape[:2]
-    h0, w0 = (h - crop_size) // 2, (w - crop_size) // 2
-    im = im[h0:h0 + crop_size, w0:w0 + crop_size, :]
-    return im.transpose((2, 0, 1)).astype("float32")
 
 
 def _have_real():

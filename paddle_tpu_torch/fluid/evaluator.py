@@ -1,6 +1,7 @@
 """Evaluators that accumulate a metric over batches (counterpart of
 paddle_tpu/fluid/evaluator.py): ``Evaluator`` (reference :21), ``Accuracy``
-(:44), ``ChunkEvaluator`` (:73) and ``Auc`` (:102).
+(:44), ``ChunkEvaluator`` (:73), ``Auc`` (:102) and ``DetectionMAP``
+(:130).
 
 Each builds its metric ops into the program and keeps the batch's counts
 in two places. The program adds them into persistable state variables
@@ -8,7 +9,8 @@ in two places. The program adds them into persistable state variables
 evaluator's reset program set to zero, so ``eval(executor)`` reads the
 pass's totals from the scope without any fetch. The reference's host
 pattern works too: fetch ``metrics`` each run, ``update`` with the fetched
-values and ``eval()``. ``DetectionMAP`` waits for the detection ops."""
+values and ``eval()``. ``DetectionMAP`` is the reference's host-side
+evaluator: it keeps its detections in Python and builds no ops."""
 
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from . import layers
 from .framework import Program, program_guard, unique_name
 from ..ops.metrics import auc_from_stats
 
-__all__ = ["Evaluator", "Accuracy", "ChunkEvaluator", "Auc"]
+__all__ = ["Evaluator", "Accuracy", "ChunkEvaluator", "Auc",
+           "DetectionMAP"]
 
 
 class Evaluator:
@@ -143,3 +146,85 @@ class Auc(Evaluator):
         tp, fn, tn, fp = (torch.tensor(np.asarray(t), dtype=torch.float32)
                           for t in totals)
         return float(auc_from_stats(tp, fn, tn, fp, self._curve))
+
+
+class DetectionMAP:
+    """Mean average precision over accumulated detections, on the host
+    (reference :130). ``update(detections, gt_boxes)`` takes a batch's
+    multiclass_nms output (a LoDArray of [b, K, 6] rows: label, score,
+    box) and each image's ground truth as (label, x1, y1, x2, y2) tuples;
+    ``eval()`` averages the 11-point interpolated AP over the classes that
+    have ground truth."""
+
+    def __init__(self, overlap_threshold=0.5, name=None):
+        self._name = name or type(self).__name__
+        self._thresh = overlap_threshold
+        self._metrics = []
+        self.reset()
+
+    @property
+    def metrics(self):
+        return self._metrics
+
+    def reset(self):
+        self._dets = {}     # class -> list of (score, is_tp)
+        self._n_gt = {}     # class -> count
+
+    @staticmethod
+    def _iou(a, b):
+        ix1, iy1 = max(a[0], b[0]), max(a[1], b[1])
+        ix2, iy2 = min(a[2], b[2]), min(a[3], b[3])
+        iw, ih = max(ix2 - ix1, 0.0), max(iy2 - iy1, 0.0)
+        inter = iw * ih
+        ua = ((a[2] - a[0]) * (a[3] - a[1])
+              + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+        return inter / ua if ua > 0 else 0.0
+
+    def update(self, detections, gt_boxes):
+        rows = np.asarray(torch.as_tensor(detections.data).cpu())
+        lens = np.asarray(torch.as_tensor(detections.lens).cpu())
+        for img, gts in enumerate(gt_boxes):
+            for lbl, *_ in gts:
+                self._n_gt[int(lbl)] = self._n_gt.get(int(lbl), 0) + 1
+            matched = set()
+            dets = sorted((rows[img][k] for k in range(int(lens[img]))),
+                          key=lambda r: -r[1])
+            for r in dets:
+                lbl, score, box = int(r[0]), float(r[1]), r[2:6]
+                # VOC's rule: match the one gt of the class with the most
+                # overlap; a second detection of a matched gt is a false
+                # positive
+                best, best_j = 0.0, -1
+                for j, (glbl, *gbox) in enumerate(gts):
+                    if int(glbl) != lbl:
+                        continue
+                    ov = self._iou(box, gbox)
+                    if ov > best:
+                        best, best_j = ov, j
+                tp = (best > self._thresh and best_j >= 0
+                      and best_j not in matched)
+                if tp:
+                    matched.add(best_j)
+                self._dets.setdefault(lbl, []).append((score, tp))
+
+    def eval(self):
+        """11-point interpolated mAP; a class with ground truth and no
+        detection counts AP 0."""
+        aps = []
+        for lbl, n_gt in self._n_gt.items():
+            dets = self._dets.get(lbl, [])
+            if not dets:
+                aps.append(0.0)
+                continue
+            dets = sorted(dets, key=lambda d: -d[0])
+            tps = np.cumsum([1 if tp else 0 for _, tp in dets])
+            fps = np.cumsum([0 if tp else 1 for _, tp in dets])
+            recall = tps / n_gt
+            precision = tps / np.maximum(tps + fps, 1)
+            ap = 0.0
+            for t in np.linspace(0, 1, 11):
+                p = precision[recall >= t].max() if (recall >= t).any() \
+                    else 0.0
+                ap += p / 11.0
+            aps.append(ap)
+        return float(np.mean(aps)) if aps else 0.0

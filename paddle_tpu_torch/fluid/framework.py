@@ -369,6 +369,68 @@ class Program:
         p._current_block_idx = 0
         return p
 
+    def to_graphviz(self, block_idx=0):
+        """DOT-language dataflow graph of one block (reference
+        framework.py:376): op nodes (boxes) wired through var nodes
+        (ellipses; parameters double-ringed)."""
+        block = self.blocks[block_idx]
+        lines = ["digraph G {", "  rankdir=TB;"]
+        var_nodes = set()
+
+        def vnode(name):
+            if name in var_nodes:
+                return
+            var_nodes.add(name)
+            shape = "doublecircle" if (
+                block.has_var(name)
+                and isinstance(block.var(name), Parameter)) else "ellipse"
+            lines.append(f'  "{name}" [shape={shape}];')
+
+        for i, op in enumerate(block.ops):
+            op_id = f"op_{i}_{op.type}"
+            lines.append(f'  "{op_id}" [shape=box, style=rounded, '
+                         f'label="{op.type}"];')
+            for n in op.input_arg_names():
+                vnode(n)
+                lines.append(f'  "{n}" -> "{op_id}";')
+            for n in op.output_arg_names():
+                vnode(n)
+                lines.append(f'  "{op_id}" -> "{n}";')
+        lines.append("}")
+        return "\n".join(lines)
+
+    def to_debug_string(self, with_vars=True):
+        """Readable IR dump (reference framework.py:406): per block, its
+        vars (name, shape, dtype, persistable) and ops (type, inputs ->
+        outputs, attrs)."""
+        lines = []
+        for block in self.blocks:
+            parent = f" parent={block.parent_idx}" \
+                if block.parent_idx >= 0 else ""
+            lines.append(f"block {block.idx}{parent} {{")
+            if with_vars:
+                for name in sorted(block.vars):
+                    v = block.vars[name]
+                    tags = []
+                    if v.persistable:
+                        tags.append("persistable")
+                    if isinstance(v, Parameter):
+                        tags.append("param")
+                    if v.lod_level:
+                        tags.append(f"lod={v.lod_level}")
+                    tag = (" [" + ",".join(tags) + "]") if tags else ""
+                    lines.append(f"  var {name}: shape={v.shape} "
+                                 f"dtype={v.dtype}{tag}")
+            for op in block.ops:
+                ins = ", ".join(f"{k}={v}" for k, v in op.inputs.items()
+                                if v)
+                outs = ", ".join(f"{k}={v}" for k, v in op.outputs.items()
+                                 if v)
+                lines.append(f"  op {op.type}({ins}) -> ({outs})"
+                             + (f"  attrs={op.attrs}" if op.attrs else ""))
+            lines.append("}")
+        return "\n".join(lines)
+
     # ---- serialization (the __model__ analog) ----
     def to_dict(self):
         return {"version": 1, "random_seed": self.random_seed,

@@ -80,6 +80,13 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
     os.replace(mtmp, os.path.join(dirname, MANIFEST_FILENAME))
 
 
+def save_params(executor, dirname, main_program=None, scope=None):
+    """Save every parameter of the program (reference io.py:74)."""
+    program = main_program or default_main_program()
+    save_vars(executor, dirname, program,
+              vars=[p for p in program.all_parameters()], scope=scope)
+
+
 def save_persistables(executor, dirname, main_program=None, scope=None):
     save_vars(executor, dirname, main_program, scope=scope)
 
@@ -118,6 +125,13 @@ def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
                 f"checkpoint {dirname!r} is torn: manifest lists "
                 f"{v.name!r} but {path!r} is missing")
     scope_from_numpy(arrays, executor.device, scope=scope or global_scope())
+
+
+def load_params(executor, dirname, main_program=None, scope=None):
+    """Load every parameter of the program (reference io.py:120)."""
+    program = main_program or default_main_program()
+    load_vars(executor, dirname, program,
+              vars=[p for p in program.all_parameters()], scope=scope)
 
 
 def load_persistables(executor, dirname, main_program=None, scope=None):

@@ -12,7 +12,8 @@ from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  causal_self_attention, dropout, square_error_cost,
                  sigmoid_cross_entropy_with_logits, accuracy, mul, matmul,
                  cos_sim, linear_chain_crf, crf_decoding, l2_normalize,
-                 multiplex, one_hot, smooth_l1)
+                 multiplex, one_hot, smooth_l1, lrn, maxout, im2sequence,
+                 rank_loss, nce, pad, crop)
 from .io import (data, get_places, open_recordio_file,  # noqa: F401
                  open_files, create_shuffle_reader,
                  create_double_buffer_reader, create_multi_pass_reader,

@@ -9,7 +9,9 @@ build; those the decoder LM of the generation slice builds:
 layer_norm and causal_self_attention; and those the book chapters build:
 dropout, square_error_cost, sigmoid_cross_entropy_with_logits, accuracy,
 mul, linear_chain_crf, crf_decoding, cos_sim, matmul, l2_normalize,
-multiplex, one_hot and smooth_l1.
+multiplex, one_hot and smooth_l1; and those the legacy layer DSL
+(v2/config_helpers.py) builds: lrn, maxout, im2sequence, rank_loss, nce,
+pad and crop.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..initializer import Constant, Normal, Xavier
@@ -586,6 +589,123 @@ def edit_distance(input, label, normalized=False, ignored_tokens=None):
     return out, seq_num
 
 
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Cross-channel local response normalization (reference nn.py:441)."""
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    mid = helper.create_tmp_variable(input.dtype, shape=input.shape,
+                                     stop_gradient=True)
+    helper.append_op("lrn", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "MidOut": [mid.name]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def maxout(x, groups, name=None):
+    """The max over each group of ``groups`` channels (reference
+    nn.py:585)."""
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_tmp_variable(x.dtype)
+    helper.append_op("maxout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, attrs={"groups": groups})
+    return out
+
+
+def im2sequence(input, filter_size, stride=1, padding=0, name=None):
+    """Each image as a sequence of its flattened patches (reference
+    nn.py:642); the output's rows are [-1, c * kh * kw]."""
+    helper = LayerHelper("im2sequence", name=name)
+    ks = [filter_size, filter_size] if isinstance(filter_size, int) \
+        else list(filter_size)
+    st = [stride, stride] if isinstance(stride, int) else list(stride)
+    pd = [padding] * 4 if isinstance(padding, int) else list(padding)
+    if len(pd) == 2:
+        pd = [pd[0], pd[1], pd[0], pd[1]]
+    shape = None
+    if input.shape is not None:
+        shape = (-1, input.shape[1] * ks[0] * ks[1])
+    out = helper.create_tmp_variable(input.dtype, shape=shape, lod_level=1)
+    helper.append_op("im2sequence", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"kernels": ks, "strides": st, "paddings": pd})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's pairwise loss (reference nn.py:661)."""
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_tmp_variable(left.dtype, shape=left.shape)
+    helper.append_op("rank_loss",
+                     inputs={"Label": [label.name], "Left": [left.name],
+                             "Right": [right.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def nce(input, label, num_total_classes, num_neg_samples=10,
+        sample_weight=None, param_attr=None, bias_attr=None,
+        custom_neg_classes=None, name=None):
+    """Noise-contrastive estimation cost per sample over [true | sampled
+    negative] classes (reference nn.py:709)."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(ParamAttr.to_attr(param_attr),
+                                shape=(num_total_classes, dim),
+                                dtype=input.dtype,
+                                default_initializer=Xavier())
+    b = helper.create_parameter(ParamAttr.to_attr(bias_attr),
+                                shape=(num_total_classes,),
+                                dtype=input.dtype,
+                                default_initializer=Constant(0.0))
+    cost = helper.create_tmp_variable(input.dtype)
+    sample_labels = helper.create_tmp_variable("int32", stop_gradient=True)
+    inputs = {"Input": [input.name], "Label": [label.name],
+              "Weight": [w.name], "Bias": [b.name]}
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight.name]
+    helper.append_op(
+        "nce", inputs=inputs,
+        outputs={"Cost": [cost.name],
+                 "SampleLabels": [sample_labels.name]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples,
+               "custom_neg_classes": list(custom_neg_classes or [])})
+    return cost
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    """Widen each dim by its (before, after) pair (reference nn.py:874)."""
+    helper = LayerHelper("pad", name=name)
+    shape = tuple(int(s + paddings[2 * i] + paddings[2 * i + 1])
+                  for i, s in enumerate(x.shape)) if x.shape else None
+    out = helper.create_tmp_variable(x.dtype, shape=shape)
+    helper.append_op("pad", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    """A window of x at ``offsets``, its shape given or borrowed from a
+    Variable (reference nn.py:888)."""
+    helper = LayerHelper("crop", name=name)
+    inputs = {"X": [x.name]}
+    attrs = {}
+    if isinstance(shape, Variable):
+        inputs["Y"] = [shape.name]
+        out_shape = shape.shape
+    else:
+        attrs["shape"] = list(shape)
+        out_shape = tuple(shape)
+    attrs["offsets"] = list(offsets) if offsets is not None \
+        else [0] * len(x.shape)
+    out = helper.create_tmp_variable(x.dtype, shape=out_shape)
+    helper.append_op("crop", inputs=inputs, outputs={"Out": [out.name]},
+                     attrs=attrs)
+    return out
+
+
 __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
@@ -595,4 +715,5 @@ __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "square_error_cost", "sigmoid_cross_entropy_with_logits",
            "accuracy", "mul", "matmul", "cos_sim", "linear_chain_crf",
            "crf_decoding", "l2_normalize", "multiplex", "one_hot",
-           "smooth_l1"]
+           "smooth_l1", "lrn", "maxout", "im2sequence", "rank_loss", "nce",
+           "pad", "crop"]

@@ -1,7 +1,7 @@
 """batch_norm and its grad (counterpart of paddle_tpu/ops/norm_ops.py
 :118, with ``bn_forward_math`` :71 and ``bn_backward_math`` :144), and the
 layer_norm forward and its grad (reference :193 ``_ln_compute``, :223
-grad maker, :235, :248).
+grad maker, :235, :248), and lrn and its grad (reference :294).
 
 ``bn_forward_math`` and ``bn_backward_math`` are shared with
 fused_conv2d_bn's plain route (ops/fused_ops.py), so a fused program and the
@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op, infer_output, OpSpec, G
+from ..core.registry import (register_op, infer_output, same_shape,
+                             OpSpec, G)
 from .common import data_of, vjp
 
 
@@ -216,3 +217,42 @@ def layer_norm_grad(ctx):
         ctx.set_output("Scale@GRAD", grads.pop(0))
     if bias is not None:
         ctx.set_output("Bias@GRAD", grads.pop(0))
+
+
+# ---------------------------------------------------------------------------
+# lrn (cross-channel local response normalization)
+# ---------------------------------------------------------------------------
+
+def _lrn_compute(x, n, k, alpha, beta):
+    """lrn_op.cc: MidOut = k + alpha * (the sum of x^2 over a window of
+    ``n`` channels, centred), Out = x * MidOut^-beta."""
+    sq = x * x
+    half = n // 2
+    padded = torch.nn.functional.pad(sq, (0, 0, 0, 0, half, n - 1 - half))
+    windows = sum(padded[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * windows
+    return x * mid ** (-beta), mid
+
+
+def _lrn_args(ctx):
+    return (int(ctx.attr("n", 5)), ctx.attr("k", 2.0),
+            ctx.attr("alpha", 1e-4), ctx.attr("beta", 0.75))
+
+
+@register_op("lrn", infer_shape=same_shape("X", "Out"),
+             grad=lambda op: [OpSpec(
+                 "lrn_grad",
+                 {"X": op.input("X"), "Out@GRAD": G(op.output("Out"))},
+                 {"X@GRAD": G(op.input("X"))}, dict(op.attrs))])
+def lrn(ctx):
+    out, mid = _lrn_compute(data_of(ctx.input("X")), *_lrn_args(ctx))
+    ctx.set_output("Out", out)
+    ctx.set_output("MidOut", mid)
+
+
+@register_op("lrn_grad")
+def lrn_grad(ctx):
+    args = _lrn_args(ctx)
+    ctx.set_output("X@GRAD", vjp(lambda a: _lrn_compute(a, *args)[0],
+                                 [data_of(ctx.input("X"))],
+                                 data_of(ctx.input("Out@GRAD")))[0])

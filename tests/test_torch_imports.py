@@ -85,6 +85,27 @@ def test_input_pipeline_modules_are_checked():
                 if p.startswith("paddle_tpu_torch/dataset/")]) == 15
 
 
+LEGACY = ("v2", "trainer", "trainer_config_helpers", "utils")
+
+
+def test_legacy_surface_modules_are_checked():
+    """The legacy surfaces (v2/ with master/ and plot/, trainer/,
+    trainer_config_helpers/, utils/: the JAX package's 32 module names)
+    are among the files the import check reads, and the op modules the
+    layer DSL reaches too."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    want = sorted(str(p.relative_to(REPO / "paddle_tpu"))
+                  for d in LEGACY
+                  for p in (REPO / "paddle_tpu" / d).rglob("*.py"))
+    have = sorted(p[len("paddle_tpu_torch/"):] for p in checked
+                  if p.startswith("paddle_tpu_torch/")
+                  and p.split("/")[1] in LEGACY)
+    assert len(want) == 32 and have == want, (want, have)
+    for name in ("ops/misc_ops.py", "ops/breadth_ops.py", "ops/norm_ops.py",
+                 "fluid/io.py", "fluid/evaluator.py"):
+        assert "paddle_tpu_torch/" + name in checked, name
+
+
 # modules a parameter-server shard, master or elastic worker process
 # loads: numpy and the standard library only at import (torch inside
 # functions, where a trainer-side helper needs it)
@@ -183,14 +204,20 @@ print(",".join(new))
                                     "paddle_tpu_torch.reader",
                                     "paddle_tpu_torch.recordio",
                                     "paddle_tpu_torch.dataset",
-                                    "paddle_tpu_torch.fluid.recordio_writer"])
+                                    "paddle_tpu_torch.fluid.recordio_writer",
+                                    "paddle_tpu_torch.v2",
+                                    "paddle_tpu_torch.v2.trainer_cli",
+                                    "paddle_tpu_torch.trainer",
+                                    "paddle_tpu_torch.trainer_config_helpers",
+                                    "paddle_tpu_torch.utils"])
 def test_import_loads_neither_jax_nor_the_reference(module):
     """Imported in a fresh interpreter, the serving front door, the
     distributed services (RPC, parameter server, master, launcher), the
     observability plane, the composite nets, the
-    evaluators and the input pipeline (readers, recordio, the datasets,
-    fluid.recordio_writer) load no module of jax or of the reference
-    package."""
+    evaluators, the input pipeline (readers, recordio, the datasets,
+    fluid.recordio_writer) and the legacy surfaces (v2, paddle_trainer,
+    the provider protocol, the config helpers, utils) load no module of
+    jax or of the reference package."""
     import subprocess
     import sys
     r = subprocess.run([sys.executable, "-c", _IMPORT_PROBE, str(REPO),
@@ -198,3 +225,40 @@ def test_import_loads_neither_jax_nor_the_reference(module):
                        timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "", f"{module} loaded {r.stdout.strip()}"
+
+
+_CONFIG_PROBE = r"""
+import sys
+before = set(sys.modules)
+sys.path.insert(0, sys.argv[1])
+from paddle_tpu_torch.v2.config_helpers import parse_config
+topo, main, startup = parse_config(sys.argv[2])
+assert topo.feed_order == ["data", "label"], topo.feed_order
+new = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(",".join(new))
+"""
+
+
+@pytest.mark.parametrize("spelling", ["paddle", "paddle_tpu"])
+def test_parsed_config_loads_neither_jax_nor_the_reference(spelling):
+    """A config that imports ``paddle.trainer_config_helpers`` or the JAX
+    package's ``paddle_tpu.trainer_config_helpers`` (the AST check cannot
+    see into the string parse_config executes) parses in a fresh
+    interpreter through the port alone: neither jax nor paddle_tpu enters
+    sys.modules."""
+    import subprocess
+    import sys
+    config = (f"from {spelling}.trainer_config_helpers import *\n"
+              f"import {spelling}.trainer_config_helpers as tch\n"
+              "settings(batch_size=8, learning_rate=0.05,\n"
+              "         learning_method=tch.MomentumOptimizer(0.9))\n"
+              "net = data_layer('data', size=12)\n"
+              "net = fc_layer(input=net, size=4, act=SoftmaxActivation())\n"
+              "outputs(classification_cost(input=net,\n"
+              "                            label=data_layer('label', 4)))\n")
+    r = subprocess.run([sys.executable, "-c", _CONFIG_PROBE, str(REPO),
+                        config], capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "", f"the config loaded {r.stdout.strip()}"

@@ -41,19 +41,17 @@ def registries():
 _BREADTH = (
     # paddle_tpu/ops/breadth_ops.py
     "average_accumulates", "conv3d_transpose", "conv3d_transpose_grad",
-    "conv_shift", "conv_shift_grad", "crop", "crop_grad", "detection_map",
+    "conv_shift", "conv_shift_grad", "detection_map",
     "expand", "expand_grad", "gaussian_random_batch_size_like", "l1_norm",
     "l1_norm_grad", "label_smooth", "label_smooth_grad",
     "max_pool3d_with_index", "minus", "modified_huber_loss",
-    "modified_huber_loss_grad", "pad", "pad_grad", "positive_negative_pair",
-    "uniform_random_batch_size_like",
+    "modified_huber_loss_grad", "uniform_random_batch_size_like",
     # paddle_tpu/ops/misc_ops.py
     "bilinear_tensor_product", "bilinear_tensor_product_grad", "conv3d",
-    "conv3d_grad", "cumsum", "im2sequence", "im2sequence_grad", "is_empty",
+    "conv3d_grad", "cumsum", "is_empty",
     "margin_rank_loss", "margin_rank_loss_grad", "max_pool2d_with_index",
-    "maxout", "maxout_grad", "nce", "nce_grad", "norm", "norm_grad",
-    "pool3d", "pool3d_grad", "prelu", "prelu_grad", "rank_loss",
-    "rank_loss_grad", "spp", "spp_grad", "unpool", "unpool_grad",
+    "norm", "norm_grad", "pool3d", "pool3d_grad", "prelu", "prelu_grad",
+    "spp", "spp_grad", "unpool", "unpool_grad",
     # paddle_tpu/ops/detection_ops.py
     "bipartite_match", "box_coder", "iou_similarity", "mine_hard_examples",
     "multiclass_nms", "prior_box", "roi_pool", "target_assign",
@@ -63,8 +61,7 @@ _BREADTH = (
     "fill", "lod_array_length",
     # the rest of conv_ops.py, norm_ops.py and optimizer_ops.py
     "conv2d_transpose", "conv2d_transpose_grad", "depthwise_conv2d",
-    "depthwise_conv2d_grad", "lrn", "lrn_grad", "proximal_adagrad",
-    "proximal_gd",
+    "depthwise_conv2d_grad", "proximal_adagrad", "proximal_gd",
 )
 
 # reference op type -> the ROADMAP.md item (queue A) that ports it

@@ -93,6 +93,42 @@ def cross_run(build, feed, fetch, steps=1, mode="jit"):
     return got, want, progs
 
 
+# input slots the port's recurrent grads add: they read their forward's
+# outputs, whose carries the kernel route replays (ops/rnn_ops.py)
+PORT_GRAD_READS = {"lstm_grad": ("Hidden", "Cell"), "gru_grad": ("Hidden",)}
+
+
+def assert_same_program(port, ref):
+    """The two programs op for op and variable for variable alike: op
+    types, slots, attrs, and every variable's name, dtype, shape and LoD
+    level (their ``to_dict()`` forms equal), but for the forward outputs
+    the port's lstm_grad and gru_grad read besides (PORT_GRAD_READS)."""
+    tdict, jdict = port.to_dict(), ref.to_dict()
+    for tb, jb in zip(tdict["blocks"], jdict["blocks"]):
+        assert [o["type"] for o in tb["ops"]] == \
+            [o["type"] for o in jb["ops"]]
+        for op in tb["ops"]:
+            for slot in PORT_GRAD_READS.get(op["type"], ()):
+                op["inputs"].pop(slot)
+    assert tdict == jdict
+
+
+def cross_losses(progs, feed, steps=5, rtol=1e-5, mode="jit"):
+    """``build_both``'s (main, startup, loss) pair run ``steps`` times on
+    one feed, the port from the reference's startup state: the losses
+    within ``rtol`` at every step. Returns (port, reference) losses."""
+    jmain, jstartup, jloss = progs["ref"][:3]
+    tmain, tloss = progs["port"][0], progs["port"][2]
+    jexe, jscope, state = ref_state(jmain, jstartup, mode)
+    want = run_steps(jexe, jmain, jscope, feed, [jloss.name], steps)
+    got = run_steps(tfluid.Executor(tfluid.CPUPlace()), tmain,
+                    port_scope(state), feed, [tloss.name], steps)
+    got = np.array([g[0] for g in got], np.float64).reshape(steps, -1)
+    want = np.array([w[0] for w in want], np.float64).reshape(steps, -1)
+    np.testing.assert_allclose(got, want, rtol=rtol)
+    return got, want
+
+
 # float32 op outputs: rtol 1e-5 and atol 1e-6 of the largest element (sums
 # in another order); integer and bool outputs exactly
 OP_RTOL, OP_ATOL_REL = 1e-5, 1e-6
