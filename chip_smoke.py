@@ -15,8 +15,9 @@ train Wide&Deep CTR locally, through parameter-server shard processes
 and with its table sharded over NCCL ranks, feed bench.py's ragged LSTM
 lane and an MNIST reader graph through recordio, the readers and the
 double buffer, train the reference's RNN benchmark config through
-paddle_trainer and the paddle.v2 spelling, and hold every hand-written
-kernel against its plain PyTorch version.
+paddle_trainer and the paddle.v2 spelling, serve ResNet-50 and the LSTM
+classifier from torch.export artifacts in Python and from C, and hold
+every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -395,6 +396,33 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               fileobj=), each bitwise the trained scope's forward. (c) the
               slice's 15 op types (lrn at AlexNet's first layer) on the
               card against the CPU, forward and grad.
+25. deploy  — the deployment slice. (a) phase 3's ResNet-50 (fused,
+              seeded, BN statistics overwritten) exported on the card with
+              fluid.aot.export_inference_artifact (torch.export, the
+              kernels as torch.library operators), loaded in a fresh
+              python that imports only torch and paddle_tpu_torch, and
+              served at batches 1, 8 and 32 against InferenceEngine over
+              the same bundle (phase 3's limit): 49 conv_affine launches
+              a forward, the graph holding 49 conv_affine calls and the 4
+              plain convolutions; export s, load s, the artifact's bytes,
+              latency (median of 7) beside the engine's. (b) bench.py:239's
+              LSTM classifier exported with dynamic batch and length: batch
+              64 at length 100 and batch 8 at length 37 through the loader
+              against the Executor on the pruned program (phase 5's limit),
+              2 lstm_seq launches a forward, no plain scan, a batch of 65
+              refused. (c) the C examples built with gcc into build/capi:
+              seq_infer's 3 rows within 1e-6 of the in-process run,
+              dense_infer and multi_thread_infer (4 threads ok=1) over the
+              book's digits MLP. (d) paddle_trainer --job=merge over phase
+              24's rnn.py config on the card: the artifact loads, 2
+              lstm_seq launches a forward. (e) memory_optimize +
+              release_memory on phase 4's ResNet-50 training program at
+              batch 32 under cudnn.deterministic: 3 steps bitwise the
+              unoptimized program's losses, the same conv kernel launches,
+              each run's peak max_memory_allocated. (f)
+              fluid.profiler.cuda_profiler around one more artifact
+              forward in the fresh interpreter: the chrome trace names
+              conv_affine_kernel 49 times.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -8908,6 +8936,510 @@ def legacy_v2(torch, fluid, v2, lane, build_feed, read, reset, launches,
     return problems
 
 
+# phase 25: deployment through fluid/aot.py, capi/ and --job=merge; the
+# ResNet-50 artifact serves these batches
+DEPLOY_BATCHES = (1, 8, 32)
+# the LSTM classifier through the loader: bench.py:239's batch at its
+# length, and a smaller batch at another padded length (one artifact)
+DEPLOY_SEQ = ((SEQ_BATCH, SEQ_LEN), (8, 37))
+MEMOPT_STEPS = 3
+# seq_infer's rows against the in-process run of the same artifact: the
+# same operators on the same inputs, so float32 printing (6 decimals) is
+# the only difference
+CAPI_ROW_LIMIT = 1e-6
+
+# the fresh interpreter that serves phase 25's ResNet-50 artifact: it
+# imports torch and paddle_tpu_torch only, serves every batch it finds in
+# the work dir (saving the replies), traces one more forward of the
+# largest with fluid.profiler.cuda_profiler (a process whose CUPTI has
+# traced nothing before: in a long process torch.profiler was seen to
+# drop a few records a call), and prints one JSON line
+DEPLOY_LOADER = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from paddle_tpu_torch.fluid import aot, profiler
+from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+# phase 1's switches: every float32 conv and GEMM in full float32
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t1 = time.perf_counter()
+art = aot.load_inference_artifact(sys.argv[1])
+if art.device.startswith("cuda"):
+    torch.cuda.synchronize()
+t2 = time.perf_counter()
+work = sys.argv[2]
+res = {"import_s": t1 - t0, "load_s": t2 - t1, "launches": {},
+       "modules": sorted(m for m in ("jax", "paddle_tpu")
+                         if m in sys.modules)}
+for name in sorted(os.listdir(work)):
+    if not name.startswith("x"):
+        continue
+    n = int(name[1:-4])
+    x = np.load(os.path.join(work, name))
+    cbk.reset_launches()
+    y, = art.run({"img": x})
+    res["launches"][n] = cbk.launches["conv_affine"]
+    np.save(os.path.join(work, f"y{n}.npy"), y)
+cbk.reset_launches()
+with profiler.cuda_profiler(sys.argv[3]):
+    art.run({"img": x})
+res["trace_launches"] = cbk.launches["conv_affine"]
+print(json.dumps(res))
+"""
+
+
+def graph_calls(art):
+    """{operator: calls} of a loaded artifact's graph: the kernels'
+    operators, the plain scans and the convolutions it holds."""
+    code = art._exported.graph_module.code
+    names = ("paddle_tpu_torch.conv_affine", "paddle_tpu_torch.lstm_seq",
+             "paddle_tpu_torch.lstm_scan", "paddle_tpu_torch.gru_seq",
+             "aten.convolution", "aten.conv2d")
+    return {n: code.count(n + ".default") for n in names}
+
+
+def artifact_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def finish(procs, problems, timeout=300):
+    """Wait for each (name, Popen) in turn: {name: stdout}; a non-zero
+    exit is a problem. Kills whatever still runs on the way out."""
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                problems.append(f"{name}: exit {proc.returncode}: "
+                                f"{stderr.strip()[-1500:]}")
+            out[name] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def deploy_resnet_export(torch, fluid, seed, work):
+    """Phase 25(a), first half: ResNet-50 built as phase 3 builds it,
+    saved as a bundle and exported on the card; the loader started on it
+    in a fresh interpreter. Returns (bundle, artifact dir, feeds, inputs
+    dir, the loader's Popen)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.ops import cuda as tier
+
+    main, startup, prob = build_resnet50(fluid, seed)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    overwrite_bn_stats(main, scope, torch, seed)
+    fluid.fuse_conv_bn(main)
+    bundle, art_dir = os.path.join(work, "bundle"), os.path.join(work, "rn50")
+    fluid.io.save_inference_model(bundle, ["img"], [prob], exe,
+                                  main_program=main, scope=scope)
+    tier.reset_fallback_counts()
+    t0 = time.perf_counter()
+    manifest = aot.export_inference_artifact(art_dir, ["img"], [prob], exe,
+                                             main_program=main, scope=scope)
+    export_s = time.perf_counter() - t0
+    traced = tier.fallback_counts()
+    nbytes = artifact_bytes(art_dir)
+    log(f"ResNet-50: export {export_s:.2f} s, {nbytes} bytes "
+        f"({nbytes / 2**20:.1f} MiB), device {manifest['device']}, dims "
+        f"{manifest['dims']}, plain-routed fused convs at the trace "
+        f"{traced}")
+    rng = np.random.RandomState(seed + 25)
+    feeds = {n: rng.normal(0, 1, (n, IMAGE, IMAGE, 3)).astype("float32")
+             for n in DEPLOY_BATCHES}
+    inputs = os.path.join(work, "inputs")
+    os.makedirs(inputs)
+    for n, x in feeds.items():
+        np.save(os.path.join(inputs, f"x{n}.npy"), x)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", DEPLOY_LOADER, art_dir,
+                             inputs, os.path.join(work, "trace.json")],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return bundle, art_dir, feeds, inputs, traced, proc
+
+
+def deploy_resnet_check(torch, card, exported, fresh_out, problems,
+                        launches):
+    """Phase 25(a), second half: the fresh interpreter's replies against
+    InferenceEngine over the same bundle, then the artifact in this
+    process in turns with the engine (latency), a profile of each at batch
+    32, and the graph's operators. Returns the fresh interpreter's
+    record."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    bundle, art_dir, feeds, inputs, traced, _ = exported
+    if fresh_out is None:
+        return None
+    fresh = json.loads(fresh_out.strip().splitlines()[-1])
+    log(f"fresh interpreter (torch + paddle_tpu_torch only; jax/paddle_tpu "
+        f"imported: {fresh['modules'] or 'neither'}): imports "
+        f"{fresh['import_s']:.2f} s, load_inference_artifact "
+        f"{fresh['load_s']:.2f} s | {card}")
+    if fresh["modules"]:
+        problems.append(f"the loader imported {fresh['modules']}")
+    launches["conv_affine"] += fresh["trace_launches"]
+    engine = InferenceEngine(bundle)
+    engine.warmup()
+    t0 = time.perf_counter()
+    art = aot.load_inference_artifact(art_dir)
+    log(f"load_inference_artifact in this process: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for n in DEPLOY_BATCHES:
+        want, = engine.infer({"img": feeds[n]})
+        got = np.load(os.path.join(inputs, f"y{n}.npy"))
+        k = fresh["launches"][str(n)]
+        launches["conv_affine"] += k
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        same = bool((got.argmax(1) == want.argmax(1)).all())
+        art.run({"img": feeds[n]})
+        lat = {"artifact": [], "engine": []}
+        for _ in range(LAT_REPS):
+            for what, fn in (("artifact", art.run),
+                             ("engine", engine.infer)):
+                t0 = time.perf_counter()
+                fn({"img": feeds[n]})
+                lat[what].append((time.perf_counter() - t0) * 1e3)
+        med = {w: sorted(v)[LAT_REPS // 2] for w, v in lat.items()}
+        log(f"batch {n:2d}: artifact {med['artifact']:.2f} ms, "
+            f"InferenceEngine {med['engine']:.2f} ms (medians of "
+            f"{LAT_REPS}, in turns); the fresh interpreter's reply: "
+            f"conv_affine launches {k}, rel err vs the engine {rel:.2e}, "
+            f"argmax equal {same} | {card}")
+        if got.shape != (n, CLASSES) or not np.isfinite(got).all():
+            problems.append(f"artifact batch {n}: reply {got.shape}")
+        if not rel <= REL_LIMIT["float32"] or not same:
+            problems.append(f"artifact batch {n}: rel {rel:.3e} against "
+                            f"the engine, argmax equal {same}")
+        if k != KERNEL_CONVS:
+            problems.append(f"artifact batch {n}: {k} conv_affine "
+                            f"launches a forward, want {KERNEL_CONVS}")
+    for what, fn in (("artifact", art.run), ("InferenceEngine",
+                                             engine.infer)):
+        profile(torch, lambda: fn({"img": feeds[32]}),
+                f"{what} forward, batch 32", card,
+                groups=CONV_AFFINE_LAUNCHES)
+    calls = graph_calls(art)
+    plain = calls["aten.convolution"] + calls["aten.conv2d"]
+    log(f"the artifact's graph: {calls['paddle_tpu_torch.conv_affine']} "
+        f"conv_affine calls, {plain} plain convolutions")
+    if calls["paddle_tpu_torch.conv_affine"] != KERNEL_CONVS \
+            or plain != PLAIN_CONVS or traced.get("conv_bn") != PLAIN_CONVS:
+        problems.append(f"the artifact's graph holds {calls}, want "
+                        f"{KERNEL_CONVS} conv_affine and {PLAIN_CONVS} "
+                        "plain convolutions")
+    return fresh
+
+
+def deploy_textcls(fluid, seed, card, work, problems, launches):
+    """Phase 25(b): bench.py:239's LSTM classifier exported with dynamic
+    batch and length, served through the loader against the Executor on
+    the pruned program. Returns (artifact dir, the in-process run of
+    seq_infer's three sequences)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.fluid.io import _prune_program
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing import models
+
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data("words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        prob = models.lstm_textcls(words, vocab=SEQ_VOCAB, emb=SEQ_EMB,
+                                   hidden=SEQ_HIDDEN)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    d = os.path.join(work, "textcls")
+    tier.reset_fallback_counts()
+    t0 = time.perf_counter()
+    manifest = aot.export_inference_artifact(d, ["words"], [prob], exe,
+                                             main_program=main, scope=scope)
+    export_s = time.perf_counter() - t0
+    traced = tier.fallback_counts()
+    t0 = time.perf_counter()
+    art = aot.load_inference_artifact(d)
+    load_s = time.perf_counter() - t0
+    calls = graph_calls(art)
+    log(f"LSTM classifier: export {export_s:.2f} s, load {load_s:.2f} s, "
+        f"{artifact_bytes(d)} bytes, dims {manifest['dims']}; graph "
+        f"{calls['paddle_tpu_torch.lstm_seq']} lstm_seq, "
+        f"{calls['paddle_tpu_torch.lstm_scan']} plain scans; fallbacks at "
+        f"the trace {traced}")
+    if calls["paddle_tpu_torch.lstm_seq"] != 2 or \
+            calls["paddle_tpu_torch.lstm_scan"] or traced:
+        problems.append(f"LSTM artifact: graph {calls}, fallbacks {traced}")
+    infer = _prune_program(main, ["words"], [prob.name])
+    rng = np.random.RandomState(seed + 26)
+    for b, length in DEPLOY_SEQ:
+        lens = rng.randint(1, length + 1, b)
+        lens[0] = length
+        seqs = [rng.randint(0, SEQ_VOCAB, (int(n), 1)).astype("int64")
+                for n in lens]
+        want = exe.run(infer, feed={"words": seqs}, fetch_list=[prob.name],
+                       scope=scope)[0]
+        rnn.reset_launches()
+        got, = art.run({"words": seqs})
+        n = rnn.launches["lstm_seq"]
+        launches["lstm_seq"] += n
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        log(f"batch {b}, padded length {length}: lstm_seq launches {n}, "
+            f"rel err vs the Executor {rel:.2e} | {card}")
+        if n != 2 or got.shape != (b, 2) or not rel <= LSTM_FWD_LIMIT:
+            problems.append(f"LSTM artifact batch {b} length {length}: "
+                            f"{n} launches, {got.shape}, rel {rel:.3e}")
+    try:
+        art.run({"words": [np.ones((3, 1), "int64")] * (rnn.MAX_BATCH + 1)})
+        problems.append("LSTM artifact served a batch over the kernel's "
+                        "range")
+    except ValueError as e:
+        log(f"batch {rnn.MAX_BATCH + 1} refused: {str(e)[:80]}...")
+    seqs = [np.array(s, "int64").reshape(-1, 1)
+            for s in ([1, 2, 3, 4], [5, 6], [7, 8, 9])]
+    return d, art.run({"words": seqs})[0]
+
+
+def deploy_capi_start(fluid, work, seq_dir, problems):
+    """Phase 25(c), first half: the three C examples built with gcc into
+    build/capi, the book's digits MLP exported, and the three binaries
+    started (each starts an embedded interpreter and its own CUDA
+    context). Returns their Popens."""
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.testing import models
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(repo, "build", "capi")
+    t0 = time.perf_counter()
+    r = subprocess.run(["make", "-s", "-C",
+                        os.path.join(repo, "paddle_tpu_torch", "capi"),
+                        f"BUILD={out}"], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        problems.append(f"the C examples did not build: {r.stderr[-2000:]}")
+        return {}
+    log(f"built dense_infer, seq_infer, multi_thread_infer with gcc in "
+        f"{time.perf_counter() - t0:.2f} s")
+    fluid.reset_unique_name()
+    main, startup, v = models.digits_mlp(fluid)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    digits = os.path.join(work, "digits")
+    aot.export_inference_artifact(digits, ["img"], [v["predict"]], exe,
+                                  main_program=main, scope=scope)
+    env = dict(os.environ, PYTHONPATH=repo)
+    return {b: subprocess.Popen([os.path.join(out, b), *argv], env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for b, argv in (("seq_infer", [seq_dir]),
+                            ("dense_infer", [digits, "784"]),
+                            ("multi_thread_infer", [digits, "784"]))}
+
+
+def deploy_capi_check(texts, seq_rows, problems):
+    """Phase 25(c), second half: seq_infer's rows against the in-process
+    run, dense_infer's row sum, multi_thread_infer's 4 threads."""
+    import numpy as np
+
+    for b, text in texts.items():
+        log(f"{b}:")
+        for line in text.splitlines():
+            log("  | " + line)
+    rows = [ln for ln in texts.get("seq_infer", "").splitlines()
+            if ln.startswith("seq ")]
+    got = np.array([[float(x) for x in ln.split(":")[1].split("(")[0]
+                     .split()] for ln in rows])
+    err = np.abs(got - seq_rows).max() if got.shape == seq_rows.shape \
+        else float("inf")
+    log(f"seq_infer: {len(rows)} rows, max |C - in-process| {err:.2e} "
+        f"(limit {CAPI_ROW_LIMIT})")
+    if len(rows) != 3 or not err <= CAPI_ROW_LIMIT:
+        problems.append(f"seq_infer: rows {got.tolist()} against "
+                        f"{seq_rows.tolist()}")
+    text = texts.get("dense_infer", "")
+    sums = [float(ln.split()[1]) for ln in text.splitlines()
+            if ln.startswith("sum:")]
+    if not sums or abs(sums[0] - 1) > 1e-4 or "DENSE_INFER_OK" not in text:
+        problems.append(f"dense_infer: sums {sums}")
+    text = texts.get("multi_thread_infer", "")
+    if text.count("ok=1") != 4 or "MULTI_THREAD_INFER_OK" not in text:
+        problems.append("multi_thread_infer: not 4 threads ok=1")
+
+
+def deploy_merge(seed, work, problems, launches):
+    """Phase 25(d): paddle_trainer --job=merge over phase 24's rnn.py
+    config on the card; the artifact loads and launches lstm_seq twice a
+    forward."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.ops.cuda import rnn
+    from paddle_tpu_torch.testing import legacy_lane as lane
+    from paddle_tpu_torch.v2 import trainer_cli
+
+    a = lane.RNN_ARGS
+    cfg, d = os.path.join(work, "rnn.py"), os.path.join(work, "merged")
+    with open(cfg, "w") as f:
+        f.write(lane.RNN_CONFIG)
+    t0 = time.perf_counter()
+    rc, _ = legacy_cli(trainer_cli, [
+        f"--config={cfg}", "--config_args=" + ",".join(
+            f"{k}={v}" for k, v in a.items()), "--job=merge",
+        f"--model_dir={d}"])
+    log(f"--job=merge: exit {rc} in {time.perf_counter() - t0:.2f} s")
+    if rc != 0:
+        problems.append(f"--job=merge: exit {rc}")
+        return
+    art = aot.load_inference_artifact(d)
+    batch = lane.parity_batches(seed, 1)[0]
+    feed = {"data": [ids for ids, _ in batch],
+            "label": np.array([[lab] for _, (lab,) in batch], "int64")}
+    rnn.reset_launches()
+    cost, = art.run(feed)
+    n = rnn.launches["lstm_seq"]
+    launches["lstm_seq"] += n
+    log(f"merged artifact (device {art.device}, feeds {art.feed_names}): "
+        f"cost {float(np.asarray(cost).reshape(-1)[0]):.6f}, lstm_seq "
+        f"launches {n}")
+    if n != 2 or not np.isfinite(cost).all():
+        problems.append(f"merged artifact: {n} lstm_seq launches, cost "
+                        f"{cost}")
+
+
+def deploy_memopt(torch, fluid, seed, card, problems, launches):
+    """Phase 25(e): memory_optimize + release_memory on phase 4's ResNet-50
+    training program at batch 32: MEMOPT_STEPS steps with and without the
+    passes from one state, under cudnn.deterministic."""
+    import numpy as np
+
+    read, reset = kernel_counters()
+    rng = np.random.RandomState(seed + 27)
+    feed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
+            .astype("float32"),
+            "label": rng.randint(0, CLASSES, (TRAIN_BATCH, 1))
+            .astype("int64")}
+    exe = fluid.Executor()
+    init = None
+    runs = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for passes in (False, True):
+            main, startup, loss = build_resnet50_train(fluid, seed)
+            note = ""
+            if passes:
+                n_ops = len(main.global_block().ops)
+                renames = fluid.memory_optimize(main, fetch_list=[loss])
+                deletes = fluid.release_memory(main, fetch_list=[loss])
+                note = (f": {renames} renames, {deletes} delete_var ops "
+                        f"({n_ops} -> {len(main.global_block().ops)} ops)")
+            if init is None:
+                init = fluid.Scope()
+                exe.run(startup, scope=init)
+            scope = copy_scope(fluid, torch, init)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope)[0] for _ in range(MEMOPT_STEPS)]
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = {k: v for k, v in read().items() if v}
+            runs[passes] = (losses, got)
+            for k in ("conv_bn_train", "conv_bn_bwd", "momentum_arena"):
+                launches[k] += got.get(k, 0)
+            log(f"{'with' if passes else 'without'} the passes{note}: "
+                f"losses {[float(x) for x in losses]}, peak "
+                f"max_memory_allocated {peak:.3f} GiB, launches {got} | "
+                f"{card}")
+            del scope, main
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (l0, k0), (l1, k1) = runs[False], runs[True]
+    if not all(np.array_equal(a, b) for a, b in zip(l0, l1)):
+        problems.append("memory_optimize: the losses are not bitwise equal")
+    if k0 != k1 or k0.get("conv_bn_train") != KERNEL_CONVS * MEMOPT_STEPS:
+        problems.append(f"memory_optimize: launches {k1} against {k0}")
+
+
+def deploy_trace(work, card, fresh, problems):
+    """Phase 25(f): the chrome trace fluid.profiler.cuda_profiler wrote
+    around one artifact forward in the fresh interpreter names
+    conv_affine's kernel KERNEL_CONVS times, one a launch."""
+    path = os.path.join(work, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    n = sum("conv_affine_kernel" in e.get("name", "") for e in kernels)
+    log(f"cuda_profiler (the fresh interpreter): {len(events)} events, "
+        f"{len(kernels)} device kernels, conv_affine_kernel {n} times for "
+        f"{fresh['trace_launches']} launches, {os.path.getsize(path)} "
+        f"bytes of chrome JSON | {card}")
+    if n != KERNEL_CONVS or fresh["trace_launches"] != KERNEL_CONVS:
+        problems.append(f"cuda_profiler: conv_affine_kernel {n} times in "
+                        f"the trace for {fresh['trace_launches']} launches, "
+                        f"want {KERNEL_CONVS}")
+
+
+def phase_deploy(torch, fluid, seed, card):
+    """Phase 25: deployment (fluid/aot.py, capi/, --job=merge, the memory
+    passes, fluid.profiler). The fresh interpreter and the C examples run
+    while this process exports and serves the LSTM classifier and runs the
+    merge job; the latencies are taken after they end. Returns the
+    kernels' launches on its paths."""
+    t_phase = time.perf_counter()
+    log(f"\n== phase 25: deploy — ResNet-50 and the LSTM classifier served "
+        f"from torch.export artifacts, the C API, --job=merge, the memory "
+        f"passes, cuda_profiler | {card} ==")
+    launches = {"conv_affine": 0, "lstm_seq": 0, "conv_bn_train": 0,
+                "conv_bn_bwd": 0, "momentum_arena": 0}
+    problems = []
+    work = tempfile.mkdtemp(prefix="chip-smoke-deploy-")
+    procs = {}
+    try:
+        exported = deploy_resnet_export(torch, fluid, seed, work)
+        procs["the fresh interpreter"] = exported[-1]
+        t0 = time.perf_counter()
+        seq_dir, seq_rows = deploy_textcls(fluid, seed, card, work,
+                                           problems, launches)
+        procs.update(deploy_capi_start(fluid, work, seq_dir, problems))
+        deploy_merge(seed, work, problems, launches)
+        texts = finish(procs, problems)
+        log(f"the fresh interpreter and the C examples done "
+            f"{time.perf_counter() - t0:.2f} s after the first started")
+        deploy_capi_check({k: v for k, v in texts.items()
+                           if k != "the fresh interpreter"}, seq_rows,
+                          problems)
+        fresh = deploy_resnet_check(torch, card, exported,
+                                    texts.get("the fresh interpreter"),
+                                    problems, launches)
+        if fresh is not None:
+            deploy_trace(work, card, fresh, problems)
+        deploy_memopt(torch, fluid, seed, card, problems, launches)
+    finally:
+        finish(procs, [])
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{launches}")
+    if problems:
+        fail("phase 25: " + "; ".join(problems))
+    return launches
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -9002,6 +9534,7 @@ def main():
     ctr = phase_ctr(torch, fluid, args.seed, card)
     inp, l12 = phase_input_pipeline(torch, fluid, args.seed, card)
     leg = phase_legacy(torch, fluid, args.seed, card)
+    dep = phase_deploy(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -9028,27 +9561,30 @@ def main():
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
               launches + srv_launches + amp["conv_affine"]
-              + rt["conv_affine"],
+              + rt["conv_affine"] + dep["conv_affine"],
               with_bf16(totals, "conv_affine"), bf16_keys),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
               train_launches["conv_bn_train"] + rec["conv_bn_train"]
-              + amp["conv_bn_train"] + rt["conv_bn_train"],
+              + amp["conv_bn_train"] + rt["conv_bn_train"]
+              + dep["conv_bn_train"],
               with_bf16(train_totals["conv_bn_train"], "conv_bn_train"),
               bf16_keys),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
               train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"]
-              + amp["conv_bn_bwd"] + rt["conv_bn_bwd"],
+              + amp["conv_bn_bwd"] + rt["conv_bn_bwd"]
+              + dep["conv_bn_bwd"],
               with_bf16(train_totals["conv_bn_bwd"], "conv_bn_bwd"),
               bf16_keys),
         entry("momentum_arena", "optimizer_arena.cu",
               "pallas/optimizer.py:111",
               train_launches["momentum_arena"] + rec["momentum_arena"]
-              + amp["momentum_arena"] + rt["momentum_arena"],
+              + amp["momentum_arena"] + rt["momentum_arena"]
+              + dep["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
               + rt["lstm_seq"] + s2s["lstm_seq"] + book["lstm_seq"]
-              + inp["lstm_seq"] + leg["lstm_seq"],
+              + inp["lstm_seq"] + leg["lstm_seq"] + dep["lstm_seq"],
               {**rnn_totals["lstm_seq"], **l12["lstm_seq"]}, l12_keys),
         entry("lstm_seq_bwd", "lstm_seq.cu", "pallas/rnn.py:133",
               rnn_launches["lstm_seq_bwd"] + rec["lstm_seq_bwd"]

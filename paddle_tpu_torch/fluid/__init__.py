@@ -4,7 +4,10 @@ Executor, initializer, io, fuse_conv_bn, backward, optimizer, regularizer,
 clip, evaluator, DataFeeder, average, places, Scope, flags, amp_guard, the
 program verifier and lint (``analysis``), the LoD feed helpers and the
 pserver transpilers (``DistributeTranspiler``,
-``SimpleDistributeTranspiler``) and ``recordio_writer``."""
+``SimpleDistributeTranspiler``), ``recordio_writer``, the memory passes
+(``memory_optimize``, ``release_memory``) and ``profiler``. The
+ahead-of-time export is ``fluid.aot``, imported by name as in the
+reference."""
 
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         program_guard, default_main_program,
@@ -39,6 +42,8 @@ from .fusion import fuse_conv_bn
 from .distribute_transpiler import (DistributeTranspiler,
                                     SimpleDistributeTranspiler)
 from . import recordio_writer
+from . import profiler
+from .memory_optimization_transpiler import memory_optimize, release_memory
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter", "program_guard",
@@ -51,5 +56,6 @@ __all__ = [
     "LoDArray", "pack_sequences", "flat_to_lodarray", "lodarray_to_flat",
     "amp_guard", "analysis", "ProgramVerifyError", "lint_program",
     "verify_program", "nets", "evaluator", "DistributeTranspiler",
-    "SimpleDistributeTranspiler", "recordio_writer",
+    "SimpleDistributeTranspiler", "recordio_writer", "profiler",
+    "memory_optimize", "release_memory",
 ]

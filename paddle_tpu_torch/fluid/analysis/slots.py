@@ -8,11 +8,11 @@ Here the specs are registered post-hoc onto the OpInfo records
 create, rewire, or strip — the op set where a pass bug actually lands.
 Ops without a spec are not arity-checked (the shadow infer_shape pass
 still catches most slot damage for them); add a spec here when an op
-joins a transform's rewrite surface. ``register_all`` skips the op types
-this package does not register (today ``delete_var`` alone, so 38 of the
-39 are installed); it takes its spec the moment its op is ported. The op modules register
-before this one runs (``fluid/__init__`` imports ``ops`` first), so
-``reshape``'s spec is installed.
+joins a transform's rewrite surface. ``register_all`` skips an op type
+this package does not register; every one of the 39 is registered, so
+all 39 specs are installed. The op modules register before this one runs
+(``fluid/__init__`` imports ``ops`` first), so ``reshape``'s spec is
+installed.
 
 Markers: "1" exactly one var, "?" zero or one, "+" one or more, "*" any.
 """

@@ -92,3 +92,7 @@ def reset_fallback_counts():
 
 __all__ = ["resolve_tier", "use_kernel", "fallback_counts",
            "reset_fallback_counts"]
+
+# the kernels' torch.library operators (torch.ops.paddle_tpu_torch.*),
+# which an exported artifact calls (fluid/aot.py)
+from . import conv_bn, rnn  # noqa: E402,F401

@@ -25,6 +25,11 @@ launches its kernel; on a CPU tensor it runs its plain version
 TPU VMEM budget: NHWC, groups 1, no dilation, 1x1 or 3x3 at stride 1, or 1x1
 at stride 2 with no padding, float32 or bfloat16. On ResNet-50 that admits
 the same 49 of 53 conv+bn chains as the reference, in both directions.
+
+The inference op calls ``conv_affine`` as the ``torch.library`` operator
+``torch.ops.paddle_tpu_torch.conv_affine`` (:func:`conv_affine_op`), so
+that ``torch.export`` keeps the launch in an exported graph
+(``fluid/aot.py``).
 """
 
 from __future__ import annotations
@@ -85,7 +90,7 @@ def supported(x_shape, w_shape, strides, paddings, dilations, groups,
         return False
     if tuple(dilations) != (1, 1):
         return False
-    if len(x_shape) != 4 or any(d is None or int(d) < 0 for d in x_shape):
+    if len(x_shape) != 4 or any(d is None or d < 0 for d in x_shape):
         return False
     kh, kw = int(w_shape[2]), int(w_shape[3])
     if (kh, kw) not in ((1, 1), (3, 3)) or int(w_shape[1]) != int(x_shape[3]):
@@ -271,6 +276,26 @@ def conv_affine(x, w, a, b, strides, paddings, act):
     _raise_on(lib, "conv_affine", err)
     _count("conv_affine", x.dtype)
     return y
+
+
+@torch.library.custom_op("paddle_tpu_torch::conv_affine", mutates_args=())
+def conv_affine_op(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, strides: list[int], paddings: list[int],
+                   act: str) -> torch.Tensor:
+    """``torch.ops.paddle_tpu_torch.conv_affine``: :func:`conv_affine` as
+    an operator that ``torch.export`` keeps whole in a graph, so that an
+    exported inference program (``fluid/aot.py``) still launches the
+    kernel. On CUDA tensors it launches the kernel, on CPU tensors it runs
+    the plain version (the wrapper's own dispatch); its fake
+    implementation gives the output's shape."""
+    return conv_affine(x, w, a, b, strides, paddings, act)
+
+
+@conv_affine_op.register_fake
+def _conv_affine_fake(x, w, a, b, strides, paddings, act):
+    ho, wo = _out_hw(x.shape, int(w.shape[2]), int(w.shape[3]),
+                     int(strides[0]), paddings)
+    return x.new_empty((x.shape[0], ho, wo, w.shape[0]))
 
 
 def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act):

@@ -40,6 +40,12 @@ forms its gates on batch-row groups with ``mma.sync``, the backward as the
 LSTM's) and run
 ``gru_seq_torch`` / ``gru_seq_bwd_torch`` on CPU tensors; :class:`GruSeq`
 pairs them with the residuals ``(x, alive, w, h0, hs)``.
+
+The forwards are also ``torch.library`` operators,
+``torch.ops.paddle_tpu_torch.lstm_seq`` and ``::gru_seq``
+(:func:`lstm_seq_op`, :func:`gru_seq_op`), which ``LstmSeq``/``GruSeq``
+and the recurrent ops outside autograd call, so that ``torch.export``
+keeps the launch, with the padded length symbolic (``fluid/aot.py``).
 """
 
 from __future__ import annotations
@@ -366,6 +372,36 @@ def gru_seq_bwd(x, alive, w, h0, hs, dhs):
     return dx, dw, dh0
 
 
+@torch.library.custom_op("paddle_tpu_torch::lstm_seq", mutates_args=())
+def lstm_seq_op(x: torch.Tensor, alive: torch.Tensor, w: torch.Tensor,
+                h0: torch.Tensor, c0: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``torch.ops.paddle_tpu_torch.lstm_seq``: :func:`lstm_seq` as an
+    operator that ``torch.export`` keeps whole, the padded length
+    symbolic, so that an exported program launches the kernel. CUDA
+    tensors launch it, CPU tensors run the plain version."""
+    return lstm_seq(x, alive, w, h0, c0)
+
+
+@lstm_seq_op.register_fake
+def _lstm_seq_fake(x, alive, w, h0, c0):
+    shape = (x.shape[0], x.shape[1], w.shape[0])
+    return x.new_empty(shape), x.new_empty(shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::gru_seq", mutates_args=())
+def gru_seq_op(x: torch.Tensor, alive: torch.Tensor, w: torch.Tensor,
+               h0: torch.Tensor) -> torch.Tensor:
+    """``torch.ops.paddle_tpu_torch.gru_seq``: :func:`gru_seq` as an
+    operator, as :func:`lstm_seq_op`."""
+    return gru_seq(x, alive, w, h0)
+
+
+@gru_seq_op.register_fake
+def _gru_seq_fake(x, alive, w, h0):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[0]))
+
+
 class GruSeq(torch.autograd.Function):
     """``gru_seq`` with ``gru_seq_bwd`` as its backward: the reference's
     ``jax.custom_vjp`` pair (rnn.py:232-260). Given the carries ``hs`` of a
@@ -376,7 +412,7 @@ class GruSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alive, w, h0, hs=None):
         if hs is None:
-            hs = gru_seq(x, alive, w, h0)
+            hs = torch.ops.paddle_tpu_torch.gru_seq(x, alive, w, h0)
         ctx.save_for_backward(x, alive, w, h0, hs)
         return hs
 
@@ -397,7 +433,8 @@ class LstmSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, alive, w, h0, c0, hs=None, cs=None):
         if hs is None:
-            hs, cs = lstm_seq(x, alive, w, h0, c0)
+            hs, cs = torch.ops.paddle_tpu_torch.lstm_seq(x, alive, w, h0,
+                                                         c0)
         ctx.save_for_backward(x, alive, w, h0, c0, hs, cs)
         return hs, cs
 

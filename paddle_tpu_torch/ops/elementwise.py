@@ -25,9 +25,11 @@ def _align(x, y, axis, x_is_lod=False, y_is_lod=False):
     dims line up with x's starting at ``axis``; -1 aligns trailing dims. The
     reference's axis counts in a LoD tensor's flat [total_rows, *feat]
     layout, so against a padded LoDArray x (one more leading dim) and a
-    dense y a positive axis moves one further. Returns (y reshaped, the
-    axis used)."""
-    if x.shape == y.shape:
+    dense y a positive axis moves one further. Operands of one rank
+    broadcast as they are. The rule reads ranks and ``axis`` only, never a
+    dim's size, so a traced batch dim stays symbolic. Returns (y reshaped,
+    the axis used)."""
+    if x.ndim == y.ndim:
         return y, 0
     if axis is None or axis == -1:
         axis = x.ndim - y.ndim

@@ -95,7 +95,9 @@ def fused_conv2d_bn(ctx):
         if is_test:
             a = scale.float() * torch.rsqrt(rv.float() + eps)
             b = bias.float() - rm.float() * a
-            y = cbk.conv_affine(x, w, a, b, strides, paddings, act)
+            y = torch.ops.paddle_tpu_torch.conv_affine(
+                x, w, a, b, [int(v) for v in strides],
+                [int(v) for v in paddings], act)
             new_mean, new_var, sm, sv = rm, rv, rm, rv
         else:
             y, sm, sv = cbk.conv_bn_train(x, w, scale.float(), bias.float(),

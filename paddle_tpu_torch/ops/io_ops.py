@@ -1,21 +1,133 @@
-"""Device listing and the reader graph (counterpart of
-paddle_tpu/ops/io_ops.py:75, :178-290): ``get_places``, the op behind
-``fluid.layers.get_places``; the reader creation and decoration ops that a
-startup program runs (``create_recordio_file_reader``,
+"""IO and runtime ops (counterpart of paddle_tpu/ops/io_ops.py): ``fill``,
+``delete_var``, ``save``, ``load``, ``save_combine``, ``load_combine`` and
+``lod_array_length`` (reference :59-176); ``get_places``, the op behind
+``fluid.layers.get_places`` (:75); the reader creation and decoration ops
+that a startup program runs (``create_recordio_file_reader``,
 ``create_shuffle_reader``, ``create_double_buffer_reader``,
 ``create_multi_pass_reader``) and ``read``, which pops a batch from the
-reader in the scope."""
+reader in the scope (:178-290).
+
+The persistence ops keep the reference's file format, so a file either
+package writes, the other loads: ``save`` is one ``np.save`` (pickle
+allowed) of a host copy, a LoD value as its ``{"data", "lens", "outer"}``
+dict of arrays; ``save_combine`` writes one object array holding the
+values in order (built element by element, so that same-shaped tensors
+stay separate entries) and ``load_combine`` restores them by position.
+They are host ops: they run in the eager Executor, like the reference's
+save/load programs (python/paddle/fluid/io.py)."""
 
 from __future__ import annotations
 
+import os
 import weakref
 
 import numpy as np
 import torch
 
+from ..core.executor import Executor
 from ..core.lod import LoDArray
 from ..core.registry import register_op
-from ..core.types import torch_dtype
+from ..core.types import convert_dtype, torch_dtype
+
+
+# ---------------------------------------------------------------------------
+# fill / delete_var / lod_array_length (reference :59-73, :164-169)
+# ---------------------------------------------------------------------------
+
+@register_op("fill")
+def fill(ctx):
+    """fill_op.cc: the flat "data" attr reshaped to "shape", in "dtype", on
+    the executor's device."""
+    data = np.asarray(ctx.attr("data"), dtype=np.dtype(convert_dtype(
+        ctx.attr("dtype", "float32")))).reshape(tuple(ctx.attr("shape")))
+    ctx.set_output("Out", torch.from_numpy(data).to(ctx.device))
+
+
+@register_op("delete_var")
+def delete_var(ctx):
+    """delete_var_op.cc: drop the variables from the run's environment;
+    the last reference gone, the caching allocator takes the memory back
+    (``memory_optimization_transpiler.release_memory`` places these)."""
+    for name in ctx.op.input("X"):
+        ctx.env.pop(name, None)
+
+
+@register_op("lod_array_length")
+def lod_array_length(ctx):
+    """lod_array_length_op.cc: a tensor array's length as int64 [1]."""
+    ctx.set_output("Out", ctx.input("X").length.reshape(1).to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# save / load (one variable) and save_combine / load_combine (reference
+# :85-158)
+# ---------------------------------------------------------------------------
+
+def _to_numpy(v):
+    """A host copy (bfloat16 as float32), a LoD value as its dict."""
+    if not isinstance(v, (torch.Tensor, LoDArray)):
+        return np.asarray(v)
+    v = Executor._fetch_value(v, True)
+    if isinstance(v, LoDArray):
+        return {"data": v.data, "lens": v.lens, "outer": list(v.outer_levels)}
+    return v
+
+
+def _from_numpy(v, device):
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a))) \
+            .to(device)
+
+    if isinstance(v, dict):
+        return LoDArray(leaf(v["data"]), leaf(v["lens"]),
+                        tuple(leaf(o) for o in v["outer"]) or None)
+    return leaf(v)
+
+
+def _write(op_type, ctx, value):
+    """np.save of ``value`` to the op's file_path through a temporary
+    file (an atomic rename), refusing to overwrite where overwrite is
+    False (save_op.cc's check)."""
+    path = ctx.attr("file_path")
+    if not ctx.attr("overwrite", True) and os.path.exists(path):
+        raise FileExistsError(f"{op_type}: {path} exists and "
+                              "overwrite=False (save_op.cc overwrite check)")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.save(f, value, allow_pickle=True)
+    os.replace(tmp, path)
+
+
+def _read(ctx):
+    with open(ctx.attr("file_path"), "rb") as f:
+        return np.load(f, allow_pickle=True)
+
+
+@register_op("save")
+def save(ctx):
+    _write("save", ctx, _to_numpy(ctx.input("X")))
+
+
+@register_op("load")
+def load(ctx):
+    v = _read(ctx)
+    if v.dtype == object:
+        v = v.item()
+    ctx.set_output("Out", _from_numpy(v, ctx.device))
+
+
+@register_op("save_combine")
+def save_combine(ctx):
+    vs = ctx.inputs("X")
+    container = np.empty(len(vs), dtype=object)
+    container[:] = [_to_numpy(v) for v in vs]
+    _write("save_combine", ctx, container)
+
+
+@register_op("load_combine")
+def load_combine(ctx):
+    ctx.set_outputs("Out", [_from_numpy(v, ctx.device) for v in _read(ctx)])
 
 
 @register_op("get_places")

@@ -25,7 +25,7 @@ import torch
 from ..core.lod import LoDArray
 from ..core.registry import register_op, OpSpec, G
 from .common import data_of, vjp
-from .cuda import use_kernel
+from .cuda import resolve_tier, use_kernel
 from .cuda import rnn as rnnk
 
 
@@ -66,10 +66,13 @@ def _lstm_scan(x, lens, w, h0, c0, gate_act, cell_act, cand_act,
     (w_ic, w_fc, w_oc), each [H]. Returns hidden, cell [b, L, H], zero past
     each row's length. ``masked``: the (hidden, cell) this forward already
     produced, in scan order, which the kernel route replays instead of
-    launching again."""
+    launching again. Outside autograd both routes run as operators
+    (``torch.ops.paddle_tpu_torch``), so that ``torch.export`` keeps the
+    padded length symbolic."""
     b, L, h4 = x.shape
     hdim = h4 // 4
-    supported = (peepholes is None
+    supported = (resolve_tier(x.device) == "cuda"
+                 and peepholes is None
                  and (gate_act, cell_act, cand_act)
                  == ("sigmoid", "tanh", "tanh")
                  and rnnk.supported(b, hdim, x.dtype, x.device))
@@ -77,33 +80,47 @@ def _lstm_scan(x, lens, w, h0, c0, gate_act, cell_act, cand_act,
         xt = x.transpose(0, 1).contiguous()                  # [L, b, 4H]
         pos = torch.arange(L, device=x.device)
         alive = (pos[:, None] < lens[None, :]).to(x.dtype)[..., None]
+        args = (xt, alive, w.contiguous(), h0.contiguous(), c0.contiguous())
         carries = () if masked is None else (
             _raw_carries(masked[0], lens, h0),
             _raw_carries(masked[1], lens, c0))
-        hs, cs = rnnk.LstmSeq.apply(xt, alive, w.contiguous(),
-                                    h0.contiguous(), c0.contiguous(),
-                                    *carries)
+        if carries or torch.is_grad_enabled():
+            hs, cs = rnnk.LstmSeq.apply(*args, *carries)
+        else:
+            hs, cs = torch.ops.paddle_tpu_torch.lstm_seq(*args)
         return (hs * alive).transpose(0, 1), (cs * alive).transpose(0, 1)
+    peep = None if peepholes is None else torch.cat(peepholes)
+    if torch.is_grad_enabled():
+        return _lstm_scan_plain(x, lens, w, h0, c0, peep, gate_act, cell_act,
+                                cand_act)
+    return torch.ops.paddle_tpu_torch.lstm_scan(
+        x, lens, w, h0, c0, peep, gate_act or "identity",
+        cell_act or "identity", cand_act or "identity")
 
+
+def _lstm_scan_plain(x, lens, w, h0, c0, peep, gate_act, cell_act,
+                     cand_act):
+    """The float32 scan, one step at a time; ``peep`` is [W_ic | W_fc |
+    W_oc] or None."""
+    hdim = x.shape[-1] // 4
     ga, ca, cda = _act(gate_act), _act(cell_act), _act(cand_act)
     h_prev, c_prev = h0, c0
     hs, cs = [], []
-    for t in range(L):
+    for t in range(x.shape[1]):
         gates = x[:, t] + torch.matmul(h_prev, w)
         alive = (t < lens)[:, None].to(x.dtype)
         gi = gates[:, :hdim]
         gf = gates[:, hdim:2 * hdim]
         go = gates[:, 3 * hdim:]
-        if peepholes is not None:
-            w_ic, w_fc, w_oc = peepholes
-            gi = gi + c_prev * w_ic[None, :]
-            gf = gf + c_prev * w_fc[None, :]
+        if peep is not None:
+            gi = gi + c_prev * peep[None, :hdim]
+            gf = gf + c_prev * peep[None, hdim:2 * hdim]
         i = ga(gi)
         f = ga(gf)
         cand = cda(gates[:, 2 * hdim:3 * hdim])
         c = f * c_prev + i * cand
-        if peepholes is not None:
-            go = go + c * w_oc[None, :]
+        if peep is not None:
+            go = go + c * peep[None, 2 * hdim:]
         o = ga(go)
         h = o * ca(c)
         h_prev = alive * h + (1 - alive) * h_prev
@@ -111,6 +128,24 @@ def _lstm_scan(x, lens, w, h0, c0, gate_act, cell_act, cand_act,
         hs.append(h_prev * alive)
         cs.append(c_prev * alive)
     return torch.stack(hs, 1), torch.stack(cs, 1)
+
+
+@torch.library.custom_op("paddle_tpu_torch::lstm_scan", mutates_args=())
+def lstm_scan_op(x: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                 h0: torch.Tensor, c0: torch.Tensor,
+                 peep: torch.Tensor | None, gate_act: str, cell_act: str,
+                 cand_act: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain route's scan as one operator (no kernel: the loop over
+    the padded length, which ``torch.export`` would otherwise unroll at the
+    example's length)."""
+    return _lstm_scan_plain(x, lens, w, h0, c0, peep, gate_act, cell_act,
+                            cand_act)
+
+
+@lstm_scan_op.register_fake
+def _lstm_scan_fake(x, lens, w, h0, c0, peep, gate_act, cell_act, cand_act):
+    shape = (x.shape[0], x.shape[1], w.shape[0])
+    return x.new_empty(shape), x.new_empty(shape)
 
 
 def _lstm_compute(x, lens, w, bias, h0, c0, attrs, outputs=None):
@@ -253,34 +288,60 @@ def _gru_compute(x, lens, w, bias, h0, attrs, hidden=None):
         x = _reverse_padded(x, lens)
         if hidden is not None:
             hidden = _reverse_padded(hidden, lens)
-    supported = ((gate_act, cand_act) == ("sigmoid", "tanh")
+    supported = (resolve_tier(x.device) == "cuda"
+                 and (gate_act, cand_act) == ("sigmoid", "tanh")
                  and rnnk.supported(b, hdim, x.dtype, x.device))
     if use_kernel("gru", supported, x.device):
         xt = x.transpose(0, 1).contiguous()                  # [L, b, 3H]
         pos = torch.arange(L, device=x.device)
         alive = (pos[:, None] < lens[None, :]).to(x.dtype)[..., None]
+        args = (xt, alive, w.contiguous(), h0.contiguous())
         carries = () if hidden is None else (
             _raw_carries(hidden, lens, h0),)
-        hs = rnnk.GruSeq.apply(xt, alive, w.contiguous(), h0.contiguous(),
-                               *carries)
+        if carries or torch.is_grad_enabled():
+            hs = rnnk.GruSeq.apply(*args, *carries)
+        else:
+            hs = torch.ops.paddle_tpu_torch.gru_seq(*args)
         hs = (hs * alive).transpose(0, 1)
+    elif torch.is_grad_enabled():
+        hs = _gru_scan_plain(x, lens, w, h0, gate_act, cand_act)
     else:
-        ga, ca = _act(gate_act), _act(cand_act)
-        wu, wr, wc = w[:, :hdim], w[:, hdim:2 * hdim], w[:, 2 * hdim:]
-        h_prev = h0
-        out = []
-        for t in range(L):
-            xt = x[:, t]
-            alive = (t < lens)[:, None].to(x.dtype)
-            r = ga(xt[:, hdim:2 * hdim] + torch.matmul(h_prev, wr))
-            rc = torch.matmul(r * h_prev, wc)
-            u = ga(xt[:, :hdim] + torch.matmul(h_prev, wu))
-            c = ca(xt[:, 2 * hdim:] + rc)
-            h = u * c + (1.0 - u) * h_prev
-            h_prev = alive * h + (1 - alive) * h_prev
-            out.append(h_prev * alive)
-        hs = torch.stack(out, 1)
+        hs = torch.ops.paddle_tpu_torch.gru_scan(
+            x, lens, w, h0, gate_act or "identity", cand_act or "identity")
     return _reverse_padded(hs, lens) if rev else hs
+
+
+def _gru_scan_plain(x, lens, w, h0, gate_act, cand_act):
+    """The GRU's float32 scan, one step at a time."""
+    hdim = h0.shape[-1]
+    ga, ca = _act(gate_act), _act(cand_act)
+    wu, wr, wc = w[:, :hdim], w[:, hdim:2 * hdim], w[:, 2 * hdim:]
+    h_prev = h0
+    out = []
+    for t in range(x.shape[1]):
+        xt = x[:, t]
+        alive = (t < lens)[:, None].to(x.dtype)
+        r = ga(xt[:, hdim:2 * hdim] + torch.matmul(h_prev, wr))
+        rc = torch.matmul(r * h_prev, wc)
+        u = ga(xt[:, :hdim] + torch.matmul(h_prev, wu))
+        c = ca(xt[:, 2 * hdim:] + rc)
+        h = u * c + (1.0 - u) * h_prev
+        h_prev = alive * h + (1 - alive) * h_prev
+        out.append(h_prev * alive)
+    return torch.stack(out, 1)
+
+
+@torch.library.custom_op("paddle_tpu_torch::gru_scan", mutates_args=())
+def gru_scan_op(x: torch.Tensor, lens: torch.Tensor, w: torch.Tensor,
+                h0: torch.Tensor, gate_act: str,
+                cand_act: str) -> torch.Tensor:
+    """The GRU's plain scan as one operator, as :func:`lstm_scan_op`."""
+    return _gru_scan_plain(x, lens, w, h0, gate_act, cand_act)
+
+
+@gru_scan_op.register_fake
+def _gru_scan_fake(x, lens, w, h0, gate_act, cand_act):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[0]))
 
 
 def _gru_grad_maker(op):

@@ -14,9 +14,11 @@ CPU:
 
 The ``time`` job prints ms a batch and, on the card, the device's busy
 share of one profiled step. ``--job=merge`` (the reference's MergeModel)
-exits with status 2: its artifact is the JAX package's serialized
-executable (paddle_tpu/fluid/aot.py), which the port has no counterpart
-of yet.
+writes one self-contained deployable artifact to ``--model_dir``: the
+config's last output pruned from its data layers, the startup state baked
+in, exported with ``fluid.aot.export_inference_artifact`` on the job's
+device (the card, or the CPU under ``--use_gpu=false``), which
+``paddle_tpu_torch/capi`` serves from C.
 
 Data comes from ``--reader module:callable`` (a reader creator returning
 batches of per-layer tuples) or, absent that, a deterministic synthetic
@@ -215,13 +217,34 @@ def _place(args):
     return None if args.use_gpu else fluid.CPUPlace()
 
 
-MERGE_REFUSAL = (
-    "paddle_trainer --job=merge is not ported: its artifact is the JAX "
-    "package's ahead-of-time compiled executable (paddle_tpu/fluid/aot.py, "
-    "export_inference_artifact), which the port has no counterpart of yet; "
-    "it waits with capi/ at the head of ROADMAP.md's A12 fluid items. "
-    "Save an inference bundle with fluid.io.save_inference_model or "
-    "utils.merge_model.merge_v2_model instead.")
+def job_merge(topo, main_prog, startup, args):
+    """The MergeModel analog (reference trainer_cli.py:237-266): run
+    startup, keep only the data layers the pruned output reads (an
+    inference config, ``outputs(net)``, needs no label feed), and export
+    the artifact to ``--model_dir``."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.core.block_walk import free_reads
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.fluid.io import _prune_program
+
+    exe = fluid.Executor(_place(args))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    out_var = topo.outputs[-1]
+    out_name = out_var.var.name if hasattr(out_var, "var") else out_var
+    declared = topo.feed_order
+    free = free_reads(_prune_program(main_prog, declared, [out_name]), 0)
+    feeds = [n for n in declared if n in free]
+    if set(declared) - set(feeds):
+        print("note: data layers not reachable from the merged output "
+              f"were dropped from the feed list: "
+              f"{sorted(set(declared) - set(feeds))}")
+    model_dir = args.model_dir or "merged_model"
+    aot.export_inference_artifact(model_dir, feeds, [out_name], exe,
+                                  main_program=main_prog, scope=scope)
+    print(f"merged model -> {model_dir} (output {out_name!r}, feeds "
+          f"{feeds}, device {exe.device})")
+    return 0
 
 
 def _busy_share(exe, step):
@@ -251,7 +274,7 @@ def main(argv=None):
     ap.add_argument("--job", default="train",
                     choices=["train", "test", "checkgrad", "time", "merge"])
     ap.add_argument("--model_dir", default=None,
-                    help="merge job (not ported; the job refuses)")
+                    help="merge job: the artifact's directory")
     ap.add_argument("--num_passes", type=int, default=1)
     ap.add_argument("--batches_per_pass", type=int, default=8)
     ap.add_argument("--reader", default=None,
@@ -266,10 +289,6 @@ def main(argv=None):
                          "reference supplies at runtime)")
     args = ap.parse_args(argv)
 
-    if args.job == "merge":
-        print(MERGE_REFUSAL, file=sys.stderr)
-        return 2
-
     from .config_helpers import parse_config
     topo, main_prog, startup = parse_config(
         args.config, config_args=_parse_config_args(args.config_args),
@@ -278,6 +297,8 @@ def main(argv=None):
 
     if args.job == "checkgrad":
         return job_checkgrad(topo, main_prog, startup, args)
+    if args.job == "merge":
+        return job_merge(topo, main_prog, startup, args)
 
     import paddle_tpu_torch.fluid as fluid
     import paddle_tpu_torch.v2 as v2

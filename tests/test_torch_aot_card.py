@@ -1,0 +1,74 @@
+"""The port's ahead-of-time export on the card (``-m cuda``; JAX-free, so
+that it runs where there is none): an artifact exported by an Executor on
+the card loads there and launches the kernels through their operators.
+On the GPU machine: ``python -m pytest --noconftest -m cuda
+tests/test_torch_aot_card.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.fluid import aot
+from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+from paddle_tpu_torch.ops.cuda import rnn
+from paddle_tpu_torch.testing.models import lstm_textcls, resnet
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_aot_card.py on the GPU "
+                    "machine)")
+
+
+def _export(tmp_path, build, feed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1
+    with fluid.program_guard(main, startup):
+        out = build()
+    fluid.fuse_conv_bn(main)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    manifest = aot.export_inference_artifact(str(tmp_path), [feed], [out],
+                                             exe, main_program=main,
+                                             scope=scope)
+    return aot.load_inference_artifact(str(tmp_path)), manifest
+
+
+@pytest.mark.cuda
+def test_fused_convnet_artifact_launches_conv_affine(tmp_path):
+    _need_card()
+
+    def build():
+        img = fluid.layers.data("img", shape=[32, 32, 3])
+        return fluid.layers.softmax(resnet(img, 10, counts=(1, 1, 1, 1),
+                                           base=8))
+    art, manifest = _export(tmp_path, build, "img")
+    assert manifest["device"] == "cuda:0"
+    x = np.random.RandomState(0).normal(0, 1, (4, 32, 32, 3)) \
+        .astype("float32")
+    cbk.reset_launches()
+    out, = art.run({"img": x})
+    assert cbk.launches["conv_affine"] == 13
+    np.testing.assert_allclose(out.sum(1), 1.0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lstm_artifact_launches_lstm_seq_at_two_lengths(tmp_path):
+    _need_card()
+
+    def build():
+        words = fluid.layers.data("words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        return lstm_textcls(words, vocab=50, emb=8, hidden=32)
+    art, manifest = _export(tmp_path, build, "words")
+    assert manifest["dims"]["b"] == [1, rnn.MAX_BATCH]
+    rng = np.random.RandomState(1)
+    for lens in ((4, 9, 2), (17,)):
+        seqs = [rng.randint(0, 50, (n, 1)).astype("int64") for n in lens]
+        rnn.reset_launches()
+        out, = art.run({"words": seqs})
+        assert rnn.launches["lstm_seq"] == 2
+        assert out.shape == (len(lens), 2)

@@ -55,10 +55,8 @@ _BREADTH = (
     # paddle_tpu/ops/detection_ops.py
     "bipartite_match", "box_coder", "iou_similarity", "mine_hard_examples",
     "multiclass_nms", "prior_box", "roi_pool", "target_assign",
-    # paddle_tpu/ops/io_ops.py: persistence, concurrency, memory passes
-    "load", "load_combine", "save", "save_combine", "channel_close",
-    "channel_create", "channel_recv", "channel_send", "go", "delete_var",
-    "fill", "lod_array_length",
+    # paddle_tpu/ops/io_ops.py: concurrency
+    "channel_close", "channel_create", "channel_recv", "channel_send", "go",
     # the rest of conv_ops.py, norm_ops.py and optimizer_ops.py
     "conv2d_transpose", "conv2d_transpose_grad", "depthwise_conv2d",
     "depthwise_conv2d_grad", "proximal_adagrad", "proximal_gd",

@@ -2,9 +2,9 @@
 train, test, checkgrad and time jobs over the reference's fc CLI config
 as subprocesses with ``--use_gpu=false``, the reference RNN benchmark
 config in-process through ``--reader``, checkgrad catching a planted
-gradient fault, ``--job=merge`` refusing with its reason, and (``-m
-cuda``) every job on the card. This file imports no JAX, so that the card
-case runs where there is none."""
+gradient fault, ``--job=merge`` writing an artifact of an inference
+config, and (``-m cuda``) every job on the card. This file imports no
+JAX, so that the card case runs where there is none."""
 
 import os
 import subprocess
@@ -91,11 +91,58 @@ def test_job_time(tmp_path, device):
         (device == "cuda"), r.stdout
 
 
-def test_job_merge_refuses_with_its_reason(tmp_path):
-    r = _run_cli(tmp_path, "--job=merge", f"--model_dir={tmp_path / 'm'}")
-    assert r.returncode == 2, r.stdout + r.stderr
-    assert "paddle_tpu/fluid/aot.py" in r.stderr and "A12" in r.stderr
-    assert not (tmp_path / "m").exists()
+INFER_CONFIG = """
+from paddle.trainer_config_helpers import *
+settings(batch_size=4, learning_rate=0.01,
+         learning_method=MomentumOptimizer(0.9))
+net = data_layer('data', size=12)
+net = fc_layer(input=net, size=4, act=SoftmaxActivation())
+outputs(net)
+"""
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_job_merge_inference_config(tmp_path, device):
+    """merge (the MergeModel analog, tests/test_trainer_cli.py:76) on an
+    inference config: a self-contained artifact with only the real input
+    as a feed, on the job's device; its rows sum to 1 and equal the
+    Executor's run of the pruned program from the same startup state."""
+    _need(device)
+    cfg = tmp_path / "icfg.py"
+    cfg.write_text(INFER_CONFIG)
+    md = tmp_path / "merged"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    use = [] if device == "cuda" else ["--use_gpu=false"]
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.v2.trainer_cli",
+         f"--config={cfg}", "--job=merge", f"--model_dir={md}", *use],
+        env=env, capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "refus" not in (r.stdout + r.stderr).lower()
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import aot
+    from paddle_tpu_torch.fluid.io import _prune_program
+    from paddle_tpu_torch.v2.config_helpers import parse_config
+    art = aot.load_inference_artifact(str(md))
+    assert art.feed_names == ["data"]
+    assert art.device == ("cuda:0" if device == "cuda" else "cpu")
+    x = np.random.RandomState(0).rand(3, 12).astype("float32")
+    out, = art.run({"data": x})
+    assert out.shape == (3, 4)
+    np.testing.assert_allclose(out.sum(1), 1.0, atol=1e-5)
+
+    topo, main, startup = parse_config(str(cfg))
+    exe = fluid.Executor(None if device == "cuda" else fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    # this process's names may differ from the job's (other programs were
+    # built here before): take the output by the config's own handle
+    out_var = topo.outputs[-1]
+    name = out_var.var.name if hasattr(out_var, "var") else out_var
+    want, = exe.run(_prune_program(main, ["data"], [name]),
+                    feed={"data": x}, fetch_list=[name], scope=scope)
+    np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-7)
 
 
 def test_rnn_config_trains_in_process_through_a_reader(tmp_path, capsys,

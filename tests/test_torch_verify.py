@@ -349,14 +349,14 @@ def test_nmt_programs_verify_clean():
 
 def test_slot_catalogue_installs_35_of_39_specs():
     """The catalogue installs a spec for every op type the port registers:
-    38 of the 39 since dropout, matmul and accuracy were ported (35
-    before); delete_var waits for its op."""
+    all 39 since delete_var was ported (35 before dropout, matmul and
+    accuracy were, 38 until delete_var was)."""
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.fluid.analysis import slots
     installed = [t for t in slots._SPECS if registry.has_op(t)
                  and registry.get_op_info(t).slots is not None]
-    assert len(slots._SPECS) == 39 and len(installed) == 38
-    assert sorted(set(slots._SPECS) - set(installed)) == ["delete_var"]
+    assert len(slots._SPECS) == 39 and len(installed) == 39
+    assert registry.get_op_info("delete_var").slots.inputs == {"X": "+"}
     assert registry.get_op_info("reshape").slots.inputs == {"X": "1"}
     assert registry.get_op_info("accuracy").slots.inputs == {
         "Out": "1", "Indices": "1", "Label": "1"}
