@@ -16,8 +16,9 @@ and with its table sharded over NCCL ranks, feed bench.py's ragged LSTM
 lane and an MNIST reader graph through recordio, the readers and the
 double buffer, train the reference's RNN benchmark config through
 paddle_trainer and the paddle.v2 spelling, serve ResNet-50 and the LSTM
-classifier from torch.export artifacts in Python and from C, and hold
-every hand-written kernel against its plain PyTorch version.
+classifier from torch.export artifacts in Python and from C, train
+MobileNet-SSD and serve its detections, and hold every hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -423,6 +424,32 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               fluid.profiler.cuda_profiler around one more artifact
               forward in the fresh interpreter: the chrome trace names
               conv_affine_kernel 49 times.
+26. detection — MobileNet-SSD (PaddlePaddle/models fluid/object_detection/
+              mobilenet_ssd.py: MobileNet v1 at scale 1.0, 300x300x3, 21
+              classes, multi_box_head on six maps, 2278 priors) built with
+              the port's fluid.layers. (a) 5 steps of reduce_sum(ssd_loss)
+              at batch 32 with Momentum(1e-3, 0.9, fused=True) on images
+              and 1-4 ground-truth boxes an image from the seed: finite
+              losses, one momentum_arena launch a step; step 1's loss
+              within SSD_LOSS_REL of the same program on the CPU (TF32
+              off), each gradient within SSD_HEAD_REL (the head's) or
+              SSD_BACK_REL (the backbone's, median SSD_BACK_MEDIAN: relu
+              inputs near 0 flip with the float32 rounding) of the CPU's,
+              and the float64 build's gradients on the card within
+              SSD_F64_REL of the CPU's; ms a step, the busy share of a
+              profiled step, peak max_memory_allocated.
+              (b) the test program (softmax, detection_output with
+              nms_threshold 0.45), its batch norm statistics set from one
+              training-mode pass, saved with save_inference_model and
+              served by InferenceEngine at batches 1 and 8: replies
+              bitwise the Executor's, finite; ms a served batch (median
+              of SSD_SERVE_REPS), multiclass_nms's share of it and its
+              fixed-point iterations; then multiclass_nms alone at the
+              batch-8 shape with the top SSD_NMS_K boxes of every class a
+              staircase (each overlapping the next: the longest
+              suppression chain), its ms and iterations, every other box
+              of each chain kept. (c) DetectionMAP over the batch-8
+              replies against the ground truth.
 
 The last four lines of output are phase 14's summary, a JSON line
 listing each kernel's numbers, the card's name and power limit, and
@@ -9440,6 +9467,340 @@ def phase_deploy(torch, fluid, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 26: detection — MobileNet-SSD trained and served
+# ---------------------------------------------------------------------------
+
+# PaddlePaddle/models fluid/object_detection/mobilenet_ssd.py at its
+# published width: 300x300x3, 21 classes, 2278 priors
+SSD = dict(scale=1.0, image=300)
+SSD_PRIORS = 19 * 19 * 4 + (10 * 10 + 5 * 5 + 3 * 3 + 2 * 2 + 1) * 6
+SSD_BATCH = 32
+SSD_STEPS = 5
+SSD_SERVE_BATCHES = (1, 8)
+SSD_SERVE_REPS = 5
+# step 1 on the card against the CPU, TF32 off: the loss within 1e-4
+# relative, each gradient (L2, relative to the CPU's) within SSD_HEAD_REL
+# for the 24 head ones (the loc/conf filters and biases) and SSD_BACK_REL
+# for the 105 of the backbone, whose median within SSD_BACK_MEDIAN; the
+# float64 build of the program on both, each gradient within SSD_F64_REL.
+# The backbone's limits are wide because the float32 forwards part by ~1e-4
+# at the deep layers, so a few relu inputs near 0 take the other side and
+# pass or stop a whole element's gradient (read on the H100: median
+# 2.97e-2, worst 1.20e-1; the float64 build, whose forwards agree to 1e-9,
+# 4.3e-12 at worst: PERF.md)
+SSD_LOSS_REL = 1e-4
+SSD_HEAD_REL, SSD_F64_REL = 2e-3, 1e-9
+SSD_BACK_REL, SSD_BACK_MEDIAN = 0.3, 0.06
+# the longest suppression chain multiclass_nms can meet at the served
+# shape: in each (image, class) the top SSD_NMS_K boxes a staircase
+SSD_NMS_K = 400
+
+
+def ssd_step_one(torch, fluid, exe, main, init, feed, fetch, first, seed,
+                 card, problems):
+    """Phase 26(a)'s step-1 check: the same program on the CPU from the
+    same state and feed, and its float64 build on the card and the CPU."""
+    import numpy as np
+    from paddle_tpu_torch.testing import models as M
+
+    state = {n: v.cpu().numpy()
+             for n, v in scope_tensors(torch, init).items()}
+    wide = {n: v.astype(np.float64) if v.dtype == np.float32 else v
+            for n, v in state.items()}
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch,
+        scope=fluid.io.scope_from_numpy(state, "cpu"), return_numpy=False)
+    fluid.reset_unique_name()
+    main64 = M.mobilenet_ssd(fluid, **SSD, seed=seed, dtype="float64")[0]
+    feed64 = dict(feed, img=feed["img"].astype(np.float64),
+                  gt_box=[b.astype(np.float64) for b in feed["gt_box"]])
+    card64 = exe.run(main64, feed=feed64, fetch_list=fetch,
+                     scope=fluid.io.scope_from_numpy(wide, exe.device),
+                     return_numpy=False)
+    cpu64 = fluid.Executor(fluid.CPUPlace()).run(
+        main64, feed=feed64, fetch_list=fetch,
+        scope=fluid.io.scope_from_numpy(wide, "cpu"), return_numpy=False)
+    loss_card, loss_cpu = float(first[0]), float(cpu[0])
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    rel64 = abs(float(card64[0]) - float(cpu64[0])) / abs(float(cpu64[0]))
+    ops = main.global_block().ops
+    params = {p.name for p in main.global_block().all_parameters()}
+    biased = {op.input("X")[0]: op.input("Y")[0] for op in ops
+              if op.type == "elementwise_add" and op.input("Y")[0] in params}
+    head = {n + "@GRAD" for op in ops if op.type == "conv2d"
+            and op.output("Output")[0] in biased
+            for n in (op.input("Filter")[0], biased[op.output("Output")[0]])}
+
+    def dist(got, want):
+        return {n: float((g.double().cpu() - w.double().cpu()).norm()
+                         / max(float(w.double().norm()), 1e-300))
+                for n, g, w in zip(fetch[1:], got[1:], want[1:])}
+
+    d32, d64 = dist(first, cpu), dist(card64, cpu64)
+    groups = (("head", [n for n in d32 if n in head], d32, SSD_HEAD_REL,
+               None),
+              ("backbone", [n for n in d32 if n not in head], d32,
+               SSD_BACK_REL, SSD_BACK_MEDIAN),
+              ("float64", list(d64), d64, SSD_F64_REL, None))
+    parts = []
+    for what, names, d, limit, median_limit in groups:
+        top = sorted(names, key=d.get, reverse=True)
+        median = d[top[len(top) // 2]]
+        parts.append(f"{what}: {len(names)}, median {median:.2e}, worst "
+                     + ", ".join(f"{n[:-len('@GRAD')]} {d[n]:.2e}"
+                                 for n in top[:3])
+                     + f" (limit {limit:.0e})")
+        bad = [n for n in top if d[n] > limit]
+        if bad:
+            problems.append(f"step-1 {what} gradients from the CPU's beyond "
+                            f"{limit:.0e}: {bad[:5]} ({len(bad)})")
+        if median_limit is not None and median > median_limit:
+            problems.append(f"step-1 {what} gradients' median distance "
+                            f"from the CPU's {median:.2e}")
+    log(f"step 1: loss on the card {loss_card:.7f}, on the CPU "
+        f"{loss_cpu:.7f} (relative {rel:.2e}, limit {SSD_LOSS_REL:.0e}); "
+        f"float64 {float(card64[0]):.12f} / {float(cpu64[0]):.12f}; "
+        f"gradients from the CPU's (L2 relative) " + "; ".join(parts)
+        + f" | {card}")
+    if rel > SSD_LOSS_REL or rel64 > SSD_F64_REL:
+        problems.append(f"step-1 loss on the card {loss_card} against the "
+                        f"CPU's {loss_cpu} (relative {rel:.2e}; float64 "
+                        f"{rel64:.2e})")
+    if len(head) != 24:
+        problems.append(f"{len(head)} head gradients, want 24")
+
+
+def calibrate_bn(fluid, exe, test, imgs, scope):
+    """Set the running statistics of every batch norm of ``test`` in
+    ``scope`` to the batch statistics of one training-mode pass over
+    ``imgs`` (the test program with is_test off and momentum 0): after a
+    handful of steps the running averages still hold most of their
+    startup values, which the trained weights no longer match."""
+    calib = test.clone()
+    for op in calib.global_block().ops:
+        if op.type == "batch_norm":
+            op.attrs["is_test"] = False
+            op.attrs["momentum"] = 0.0
+    exe.run(calib, feed={"img": imgs}, fetch_list=[], scope=scope)
+
+
+def ssd_serve(torch, fluid, exe, test, nmsed, scope, feed, work, card,
+              problems):
+    """Phase 26(b)-(c): the test program served by InferenceEngine at
+    SSD_SERVE_BATCHES (buckets of those sizes, so nothing is padded),
+    each reply bitwise the Executor's; ms a batch and multiclass_nms's
+    share; DetectionMAP over the largest batch's replies."""
+    import numpy as np
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    fluid.io.save_inference_model(work, ["img"], [nmsed], exe,
+                                  main_program=test, scope=scope)
+    eng = InferenceEngine(work, buckets=list(SSD_SERVE_BATCHES))
+    nms = registry.get_op_info("multiclass_nms")
+    forward = nms.forward
+    nms_ms, iters = [], []
+
+    def timed_nms(ctx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward(ctx)
+        torch.cuda.synchronize()
+        nms_ms.append((time.perf_counter() - t0) * 1e3)
+
+    reply = None
+    for b in SSD_SERVE_BATCHES:
+        imgs = feed["img"][:b]
+        reply = eng.infer({"img": imgs})[0]
+        want = exe.run(test, feed={"img": imgs}, fetch_list=[nmsed],
+                       scope=scope)[0]
+        same = np.array_equal(reply.data, want.data) and \
+            np.array_equal(reply.lens, want.lens)
+        ms = median_ms(lambda: eng.infer({"img": imgs}), SSD_SERVE_REPS)
+        nms_ms.clear()
+        nms.forward = timed_nms
+        try:
+            with counted_nms(iters):
+                for _ in range(SSD_SERVE_REPS):
+                    eng.infer({"img": imgs})
+        finally:
+            nms.forward = forward
+        share = sorted(nms_ms)[len(nms_ms) // 2] / ms
+        finite = bool(np.isfinite(reply.data).all())
+        log(f"served batch {b}: {ms:.3f} ms a batch (median of "
+            f"{SSD_SERVE_REPS}), multiclass_nms {100 * share:.1f}% of it "
+            f"({sorted(nms_ms)[len(nms_ms) // 2]:.3f} ms, synchronized "
+            f"around the op; fixed-point iterations {iters[-SSD_SERVE_REPS:]}"
+            f"); detections per image "
+            f"{reply.lens.tolist()}, rows {tuple(reply.data.shape)}, equal "
+            f"to the Executor's {same}, finite {finite} | {card}")
+        if not same:
+            problems.append(f"served batch {b} differs from the Executor")
+        if not finite or reply.data.shape != (b, 200, 6) \
+                or int(reply.lens.min()) <= 0:
+            problems.append(f"served batch {b}: rows "
+                            f"{tuple(reply.data.shape)}, counts "
+                            f"{reply.lens.tolist()}, finite {finite}")
+    b = SSD_SERVE_BATCHES[-1]
+    ev = fluid.evaluator.DetectionMAP(overlap_threshold=0.5)
+    ev.update(reply, [[(int(l[0]),) + tuple(float(x) for x in box)
+                       for l, box in zip(labels, boxes)]
+                      for labels, boxes in zip(feed["gt_label"][:b],
+                                               feed["gt_box"][:b])])
+    m_ap = ev.eval()
+    log(f"DetectionMAP over the {b} served images' detections: mAP "
+        f"{m_ap:.4f} (random weights, 5 steps: no accuracy is claimed)")
+    if not 0.0 <= m_ap <= 1.0:
+        problems.append(f"DetectionMAP gave {m_ap}")
+
+
+@contextlib.contextmanager
+def counted_nms(iters):
+    """Append the fixed-point iterations of each multiclass_nms call to
+    ``iters`` while the block runs."""
+    from paddle_tpu_torch.ops import detection_ops as D
+    keep = D.nms_keep
+
+    def counted(*args):
+        out = keep(*args)
+        iters.append(out[1])
+        return out
+    D.nms_keep = counted
+    try:
+        yield
+    finally:
+        D.nms_keep = keep
+
+
+def ssd_nms_chain(torch, fluid, exe, card, problems):
+    """Phase 26(b)'s worst case for multiclass_nms at the batch-8 serving
+    shape: in every (image, class) the top SSD_NMS_K boxes form a
+    staircase along x, each at IoU 0.5 with the next and 0.2 with the one
+    after, the rest score below them. The greedy walk keeps every other
+    box of each chain; the fixed point takes SSD_NMS_K iterations."""
+    import numpy as np
+    from paddle_tpu_torch.testing import models as M
+
+    b, c, p, k = SSD_SERVE_BATCHES[-1], M.SSD_CLASSES, SSD_PRIORS, SSD_NMS_K
+    step = 0.002
+    rng = np.random.RandomState(26)
+    boxes = np.tile(np.array([0.0, 0.6, 0.05, 0.7], np.float32), (b, p, 1))
+    boxes[:, :, 0] += rng.rand(b, p).astype(np.float32) * 0.9
+    boxes[:, :, 2] += boxes[:, :, 0]
+    boxes[:, :k] = np.stack([np.arange(k) * step, np.zeros(k),
+                             np.arange(k) * step + 3 * step,
+                             np.full(k, 0.5)], 1)
+    scores = rng.rand(b, c, p).astype(np.float32) * 0.3
+    scores[:, :, :k] = np.linspace(0.9, 0.5, k, dtype=np.float32)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        bb = fluid.layers.data("bb", shape=[p, 4], dtype="float32")
+        sc = fluid.layers.data("sc", shape=[c, p], dtype="float32")
+        out = fluid.layers.multiclass_nms(bb, sc, score_threshold=0.01,
+                                          nms_top_k=k, keep_top_k=-1,
+                                          nms_threshold=0.45)
+    feed = {"bb": boxes, "sc": scores}
+    iters = []
+    with counted_nms(iters):
+        got = exe.run(prog, feed=feed, fetch_list=[out])[0]
+        ms = median_ms(lambda: exe.run(prog, feed=feed, fetch_list=[out]),
+                       SSD_SERVE_REPS)
+    rows = np.asarray(got.data)
+    idx = np.rint(rows[..., 2] / step).astype(np.int64)
+    want = (c - 1) * k // 2
+    chain = all(int(n) == want and np.all(idx[i, :n] % 2 == 0)
+                and np.all(rows[i, :n, 3] == 0)
+                for i, n in enumerate(np.asarray(got.lens)))
+    log(f"multiclass_nms on the longest suppression chain (batch {b}, "
+        f"{c - 1} classes, {p} boxes, top {k} a staircase): {ms:.3f} ms "
+        f"(median of {SSD_SERVE_REPS}, fed from the host), fixed-point "
+        f"iterations {iters}, every other chain box kept {chain} | {card}")
+    if not chain or iters[0] != k:
+        problems.append(f"the NMS chain: {np.asarray(got.lens).tolist()} "
+                        f"kept, want {want} an image of even chain boxes; "
+                        f"iterations {iters}, want {k}")
+
+
+def phase_detection(torch, fluid, seed, card):
+    """Phase 26: MobileNet-SSD trained at batch 32 and served
+    (module docstring). Returns the kernels' launches on its path."""
+    import numpy as np
+    from paddle_tpu_torch.testing import models as M
+
+    t_phase = time.perf_counter()
+    log(f"\n== phase 26: detection — MobileNet-SSD at {SSD['image']}x"
+        f"{SSD['image']}x3, {M.SSD_CLASSES} classes, trained at batch "
+        f"{SSD_BATCH} and served | {card} ==")
+    read, reset = kernel_counters()
+    problems = []
+    work = tempfile.mkdtemp(prefix="chip-smoke-ssd-")
+    fluid.reset_unique_name()
+    main, startup, test, v = M.mobilenet_ssd(fluid, **SSD, seed=seed)
+    priors = int(v["locs"].shape[1])
+    block = main.global_block()
+    grads = [p.name + "@GRAD" for p in block.all_parameters()
+             if p.trainable and block.has_var(p.name + "@GRAD")]
+    log(f"program: {len(block.ops)} ops, {len(grads)} trainable "
+        f"parameters, {priors} priors")
+    if priors != SSD_PRIORS:
+        problems.append(f"{priors} priors, want {SSD_PRIORS}")
+    feed = M.ssd_feed(SSD_BATCH, SSD["image"], seed + 26)
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    scope = copy_scope(fluid, torch, init)
+    fetch = [v["loss"].name] + grads
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        first = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+        losses, step_ms = [float(first[0])], []
+        for _ in range(SSD_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[v["loss"]],
+                                        scope=scope)[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: n for k, n in read().items() if n}
+        launches = {"momentum_arena": got.get("momentum_arena", 0)}
+        log(f"{SSD_STEPS} steps: losses {losses}; "
+            f"{sorted(step_ms)[len(step_ms) // 2]:.3f} ms a step (median "
+            f"of {len(step_ms)}, the feed staged from the "
+            f"host in each), peak max_memory_allocated {peak:.3f} GiB, "
+            f"launches {got} | {card}")
+        if not all(np.isfinite(losses)):
+            problems.append(f"losses {losses}")
+        if got != {"momentum_arena": SSD_STEPS}:
+            problems.append(f"launches {got}, want momentum_arena "
+                            f"{SSD_STEPS} (one a step)")
+        ssd_step_one(torch, fluid, exe, main, init, feed, fetch, first,
+                     seed, card, problems)
+        prof = profile(torch, lambda: exe.run(main, feed=feed,
+                                              fetch_list=[v["loss"]],
+                                              scope=scope),
+                       "MobileNet-SSD training step at batch 32", card,
+                       reps=2)
+        if prof is not None:
+            log(f"training step busy share {100 * prof[1] / prof[0]:.1f}% "
+                f"| {card}")
+        calibrate_bn(fluid, exe, test, feed["img"], scope)
+        ssd_serve(torch, fluid, exe, test, v["nmsed"], scope, feed, work,
+                  card, problems)
+        ssd_nms_chain(torch, fluid, exe, card, problems)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{launches}")
+    if problems:
+        fail("phase 26: " + "; ".join(problems))
+    return launches
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -9535,6 +9896,7 @@ def main():
     inp, l12 = phase_input_pipeline(torch, fluid, args.seed, card)
     leg = phase_legacy(torch, fluid, args.seed, card)
     dep = phase_deploy(torch, fluid, args.seed, card)
+    det = phase_detection(torch, fluid, args.seed, card)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -9579,7 +9941,7 @@ def main():
               "pallas/optimizer.py:111",
               train_launches["momentum_arena"] + rec["momentum_arena"]
               + amp["momentum_arena"] + rt["momentum_arena"]
-              + dep["momentum_arena"],
+              + dep["momentum_arena"] + det["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]

@@ -15,12 +15,25 @@ default."""
 from __future__ import annotations
 
 _FLAGS: dict[str, dict] = {}
+_FLAGS_VERSION = 0
+
+
+def flags_version():
+    """A counter of the registry's changes (DEFINE_flag, set_flags;
+    reference :23)."""
+    return _FLAGS_VERSION
+
+
+def _bump_version():
+    global _FLAGS_VERSION
+    _FLAGS_VERSION += 1
 
 
 def DEFINE_flag(name, default, help_str=""):
     if name not in _FLAGS:
         _FLAGS[name] = {"value": default, "default": default,
                         "help": help_str, "type": type(default)}
+        _bump_version()
     return _FLAGS[name]["value"]
 
 
@@ -29,11 +42,36 @@ def get_flag(name):
 
 
 def set_flags(flags: dict):
-    """fluid.set_flags({'kernel_tier': 'torch'}) — unknown flags raise."""
+    """fluid.set_flags({'kernel_tier': 'torch'}) — unknown flags raise; a
+    bool flag takes "1"/"true"/"yes"/"on" (any case) as true."""
     for name, value in flags.items():
         if name not in _FLAGS:
             raise KeyError(f"unknown flag {name!r}; known: {sorted(_FLAGS)}")
-        _FLAGS[name]["value"] = _FLAGS[name]["type"](value)
+        ty = _FLAGS[name]["type"]
+        if ty is bool and isinstance(value, str):
+            value = value.lower() in ("1", "true", "yes", "on")
+        _FLAGS[name]["value"] = ty(value)
+        _bump_version()
+
+
+def flags():
+    """Every flag's value, by name (reference :58)."""
+    return {n: f["value"] for n, f in _FLAGS.items()}
+
+
+def init_flags(argv):
+    """Set each ``--name=value`` entry of ``argv`` that names a flag (the
+    reference's core.init_gflags(argv) contract); returns the entries it
+    did not consume."""
+    rest = []
+    for a in argv:
+        if a.startswith("--") and "=" in a:
+            name, value = a[2:].split("=", 1)
+            if name in _FLAGS:
+                set_flags({name: value})
+                continue
+        rest.append(a)
+    return rest
 
 
 DEFINE_flag("check_nan_inf", False,

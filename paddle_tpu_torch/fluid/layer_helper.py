@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from .framework import (default_main_program, default_startup_program,
                         unique_name)
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from .initializer import Xavier, Constant
 from ..core import registry
 
@@ -36,6 +36,8 @@ class LayerHelper:
         init = attr.initializer or default_initializer
         if init is None:
             init = Constant(0.0) if is_bias else Xavier()
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normalized(attr, shape, dtype, init)
         param = self.block.create_parameter(
             attr.name, shape, dtype, trainable=attr.trainable,
             regularizer=attr.regularizer, gradient_clip=attr.gradient_clip)
@@ -47,6 +49,72 @@ class LayerHelper:
                                  trainable=attr.trainable)
         init(sp, sb)
         return param
+
+    def _create_weight_normalized(self, attr, shape, dtype, init):
+        """Weight normalization (reference :43-110): the trainable
+        direction v and keep-dim magnitude g; the startup program sets v by
+        ``init`` and g to ||v||, so training starts at w == v, and the main
+        program recomputes w = v · g / ||v|| by ops, so the gradients reach
+        v and g and every update renormalizes."""
+        dim = attr.dim
+        if dim is not None:
+            if not -len(shape) <= dim < len(shape):
+                raise ValueError(
+                    f"WeightNormParamAttr dim={dim} out of range for a "
+                    f"rank-{len(shape)} weight")
+            dim %= len(shape)
+        axes = [i for i in range(len(shape)) if i != dim]
+        g_shape = tuple(1 if i in axes else s for i, s in enumerate(shape))
+
+        base = dict(trainable=attr.trainable, regularizer=attr.regularizer,
+                    gradient_clip=attr.gradient_clip)
+        v = self.block.create_parameter(f"{attr.name}.wn_v", shape, dtype,
+                                        **base)
+        g = self.block.create_parameter(f"{attr.name}.wn_g", g_shape, dtype,
+                                        **base)
+        for p in (v, g):
+            p.optimize_attr = {"learning_rate": attr.learning_rate}
+        v.initializer = init
+
+        sb = self.startup_program.global_block()
+        sv = sb.create_parameter(f"{attr.name}.wn_v", shape, dtype,
+                                 trainable=attr.trainable)
+        init(sv, sb)
+        sb.create_parameter(f"{attr.name}.wn_g", g_shape, dtype,
+                            trainable=attr.trainable)
+        self._append_norm_ops(sb, sv.name, g.name, axes, dtype, g_shape)
+
+        norm = self.block.create_var(name=unique_name(f"{attr.name}.wn_norm"),
+                                     dtype=dtype, shape=g_shape)
+        self._append_norm_ops(self.block, v.name, norm.name, axes, dtype,
+                              g_shape)
+        scaled = self.block.create_var(
+            name=unique_name(f"{attr.name}.wn_scaled"), dtype=dtype,
+            shape=shape)
+        self.append_op("elementwise_mul", inputs={"X": [v.name],
+                                                  "Y": [g.name]},
+                       outputs={"Out": [scaled.name]})
+        w = self.block.create_var(name=unique_name(f"{attr.name}.wn_w"),
+                                  dtype=dtype, shape=shape)
+        self.append_op("elementwise_div", inputs={"X": [scaled.name],
+                                                  "Y": [norm.name]},
+                       outputs={"Out": [w.name]})
+        return w
+
+    @staticmethod
+    def _append_norm_ops(block, src, dst, axes, dtype, g_shape):
+        """dst = sqrt(sum(src², axes, keep_dim)), appended to ``block``."""
+        sq = block.create_var(name=unique_name(f"{src}.sq"), dtype=dtype)
+        block.append_op("square", inputs={"X": [src]},
+                        outputs={"Out": [sq.name]})
+        ssum = block.create_var(name=unique_name(f"{src}.ssum"), dtype=dtype,
+                                shape=g_shape)
+        block.append_op("reduce_sum", inputs={"X": [sq.name]},
+                        outputs={"Out": [ssum.name]},
+                        attrs={"dim": axes, "keep_dim": True,
+                               "reduce_all": False})
+        block.append_op("sqrt", inputs={"X": [ssum.name]},
+                        outputs={"Out": [dst]})
 
     def create_tmp_variable(self, dtype, shape=None, lod_level=0,
                             stop_gradient=False):

@@ -1,8 +1,10 @@
-"""fluid.layers — the layer functions ported so far, in one namespace as
-the reference's layers/__init__.py gathers them."""
+"""fluid.layers — the layer functions, in one namespace as the
+reference's layers/__init__.py gathers them, with the names it re-exports
+(``Constant``, ``Normal``, ``Xavier``, ``ParamAttr``, ``Variable``,
+``LayerHelper``, ``unique_name``, ``monkey_patch_variable``)."""
 
 from . import (nn, io, sequence, tensor, ops, control_flow,  # noqa: F401
-               learning_rate_scheduler, metric)
+               learning_rate_scheduler, metric, detection)
 from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  elementwise_add, elementwise_sub, elementwise_mul,
                  elementwise_div, elementwise_max, elementwise_min,
@@ -13,7 +15,19 @@ from .nn import (fc, embedding, softmax, cross_entropy,  # noqa: F401
                  sigmoid_cross_entropy_with_logits, accuracy, mul, matmul,
                  cos_sim, linear_chain_crf, crf_decoding, l2_normalize,
                  multiplex, one_hot, smooth_l1, lrn, maxout, im2sequence,
-                 rank_loss, nce, pad, crop)
+                 rank_loss, nce, pad, crop, conv2d_transpose, conv3d,
+                 conv3d_transpose, pool3d, max_pool2d_with_index,
+                 max_pool3d_with_index, unpool, spp, norm, prelu, cumsum,
+                 expand, label_smooth, margin_rank_loss,
+                 bilinear_tensor_product, is_empty)
+from .detection import (prior_box, iou_similarity, box_coder,  # noqa: F401
+                        bipartite_match, target_assign, mine_hard_examples,
+                        multiclass_nms, detection_output, roi_pool,
+                        ssd_loss, multi_box_head, detection_map)
+from ..framework import Variable, unique_name  # noqa: F401
+from ..initializer import Constant, Normal, Xavier  # noqa: F401
+from ..layer_helper import LayerHelper  # noqa: F401
+from ..param_attr import ParamAttr  # noqa: F401
 from .io import (data, get_places, open_recordio_file,  # noqa: F401
                  open_files, create_shuffle_reader,
                  create_double_buffer_reader, create_multi_pass_reader,
@@ -31,3 +45,10 @@ from .learning_rate_scheduler import (  # noqa: F401
     polynomial_decay, piecewise_decay, autoincreased_step_counter)
 
 sum = tensor.sums  # the reference's layers.sum spelling
+
+
+def monkey_patch_variable():
+    """The reference's layers/math_op_patch.py installs +, -, *, / on
+    Variable; here Variable has them built in, so this does nothing (as
+    in the reference)."""
+    return None

@@ -11,7 +11,10 @@ dropout, square_error_cost, sigmoid_cross_entropy_with_logits, accuracy,
 mul, linear_chain_crf, crf_decoding, cos_sim, matmul, l2_normalize,
 multiplex, one_hot and smooth_l1; and those the legacy layer DSL
 (v2/config_helpers.py) builds: lrn, maxout, im2sequence, rank_loss, nce,
-pad and crop.
+pad and crop; and the conv family and the rest of the breadth layers:
+conv2d_transpose, conv3d, conv3d_transpose, pool3d, max_pool2d_with_index,
+max_pool3d_with_index, unpool, spp, norm, prelu, cumsum, expand,
+label_smooth, margin_rank_loss, bilinear_tensor_product and is_empty.
 Each appends the same ops, with the same attrs and names, as its reference
 counterpart."""
 
@@ -717,3 +720,263 @@ __all__ = ["fc", "embedding", "softmax", "cross_entropy",
            "crf_decoding", "l2_normalize", "multiplex", "one_hot",
            "smooth_l1", "lrn", "maxout", "im2sequence", "rank_loss", "nce",
            "pad", "crop"]
+
+
+# ---------------------------------------------------------------------------
+# the conv family and the rest of the breadth layers (reference nn.py:305,
+# :562-785, :862-966)
+# ---------------------------------------------------------------------------
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    """Transposed conv layer (reference nn.py:305): a conv2d_transpose op,
+    the filter [C_in, num_filters, kh, kw] (conv_transpose_op.cc); without
+    ``filter_size`` the filter is sized to give ``output_size``."""
+    helper = LayerHelper("conv2d_transpose", name=name, act=act,
+                         bias_attr=bias_attr)
+    c_in = input.shape[1]
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    if filter_size is None:
+        h, w_ = input.shape[2], input.shape[3]
+        oh, ow = _pair(output_size)
+        filter_size = [oh - (h - 1) * stride[0] + 2 * padding[0],
+                       ow - (w_ - 1) * stride[1] + 2 * padding[1]]
+    fs = _pair(filter_size)
+    w = helper.create_parameter(param_attr,
+                                shape=(c_in, num_filters, fs[0], fs[1]),
+                                dtype=input.dtype)
+    pre_bias = helper.create_tmp_variable(input.dtype)
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [pre_bias.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation})
+    pre_act = _append_channel_bias(helper, pre_bias, num_filters, bias_attr)
+    return helper.append_activation(pre_act)
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                     lod_level=x.lod_level)
+    helper.append_op("cumsum", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out
+
+
+def prelu(x, param_attr=None, name=None):
+    """Scalar-alpha PReLU (reference prelu_op.cc requires numel(Alpha)==1)."""
+    helper = LayerHelper("prelu", name=name)
+    alpha = helper.create_parameter(ParamAttr.to_attr(param_attr),
+                                    shape=(1,), dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_tmp_variable(x.dtype, shape=x.shape)
+    helper.append_op("prelu", inputs={"X": [x.name], "Alpha": [alpha.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def spp(input, pyramid_height, pool_type="max", name=None):
+    helper = LayerHelper("spp", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("spp", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pyramid_height": pyramid_height,
+                            "pooling_type": pool_type})
+    return out
+
+
+def max_pool2d_with_index(input, pool_size, pool_stride=None, name=None):
+    helper = LayerHelper("max_pool2d_with_index", name=name)
+    ks = [pool_size, pool_size] if isinstance(pool_size, int) else pool_size
+    st = pool_stride or ks
+    st = [st, st] if isinstance(st, int) else st
+    out = helper.create_tmp_variable(input.dtype)
+    mask = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("max_pool2d_with_index", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"ksize": list(ks), "strides": list(st)})
+    return out, mask
+
+
+def unpool(input, indices, unpooled_size, name=None):
+    helper = LayerHelper("unpool", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op("unpool",
+                     inputs={"X": [input.name], "Indices": [indices.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"unpooled_size": list(unpooled_size)})
+    return out
+
+
+def norm(input, param_attr=None, epsilon=1e-10, name=None):
+    """Cross-channel L2 normalization with a learned per-channel scale
+    (reference norm_op.h, the SSD conv4_3 normalize layer)."""
+    helper = LayerHelper("norm", name=name)
+    channels = input.shape[1]
+    scale = helper.create_parameter(ParamAttr.to_attr(param_attr),
+                                    shape=(channels,), dtype=input.dtype,
+                                    default_initializer=Constant(1.0))
+    out = helper.create_tmp_variable(input.dtype, shape=input.shape)
+    helper.append_op("norm",
+                     inputs={"X": [input.name], "Scale": [scale.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"epsilon": epsilon})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_tmp_variable(left.dtype, shape=left.shape)
+    helper.append_op("margin_rank_loss",
+                     inputs={"Label": [label.name], "X1": [left.name],
+                             "X2": [right.name]},
+                     outputs={"Out": [out.name]}, attrs={"margin": margin})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, param_attr=None, bias_attr=None,
+                            name=None):
+    helper = LayerHelper("bilinear_tensor_product", name=name,
+                         bias_attr=bias_attr)
+    w = helper.create_parameter(
+        ParamAttr.to_attr(param_attr),
+        shape=(size, x.shape[-1], y.shape[-1]), dtype=x.dtype,
+        default_initializer=Xavier())
+    out = helper.create_tmp_variable(x.dtype, shape=(x.shape[0], size))
+    inputs = {"X": [x.name], "Y": [y.name], "Weight": [w.name]}
+    if bias_attr is not False:
+        b = helper.create_parameter(ParamAttr.to_attr(bias_attr),
+                                    shape=(size,), dtype=x.dtype,
+                                    default_initializer=Constant(0.0))
+        inputs["Bias"] = [b.name]
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def is_empty(x, name=None):
+    helper = LayerHelper("is_empty", name=name)
+    out = helper.create_tmp_variable("bool", shape=(1,), stop_gradient=True)
+    helper.append_op("is_empty", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]})
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None):
+    helper = LayerHelper("conv3d", name=name, act=act, bias_attr=bias_attr)
+    ks = [filter_size] * 3 if isinstance(filter_size, int) \
+        else list(filter_size)
+    c_in = input.shape[1]
+    w = helper.create_parameter(
+        ParamAttr.to_attr(param_attr),
+        shape=(num_filters, c_in // groups, ks[0], ks[1], ks[2]),
+        dtype=input.dtype, default_initializer=Xavier())
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "conv3d", inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [out.name]},
+        attrs={"strides": [stride] * 3 if isinstance(stride, int)
+               else list(stride),
+               "paddings": [padding] * 3 if isinstance(padding, int)
+               else list(padding),
+               "dilations": [dilation] * 3 if isinstance(dilation, int)
+               else list(dilation),
+               "groups": groups})
+    out = _append_channel_bias(helper, out, num_filters, bias_attr)
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    helper = LayerHelper("pool3d", name=name)
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "pool3d", inputs={"X": [input.name]},
+        outputs={"Out": [out.name]},
+        attrs={"ksize": [pool_size] * 3 if isinstance(pool_size, int)
+               else list(pool_size),
+               "strides": [pool_stride] * 3 if isinstance(pool_stride, int)
+               else list(pool_stride),
+               "paddings": [pool_padding] * 3
+               if isinstance(pool_padding, int) else list(pool_padding),
+               "pooling_type": pool_type,
+               "global_pooling": global_pooling})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    """Tile x by expand_times per dim (reference nn.py:862)."""
+    helper = LayerHelper("expand", name=name)
+    shape = tuple(int(s * t) for s, t in zip(x.shape, expand_times)) \
+        if x.shape else None
+    out = helper.create_tmp_variable(x.dtype, shape=shape)
+    helper.append_op("expand", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """(1-eps)*label + eps*prior (reference label_smooth_op.h)."""
+    helper = LayerHelper("label_smooth", name=name)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    out = helper.create_tmp_variable(label.dtype, shape=label.shape)
+    helper.append_op("label_smooth", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, act=None, name=None):
+    """3-D transposed convolution (reference conv_transpose_op.cc 3-D maker,
+    filter layout [C_in, C_out, kd, kh, kw])."""
+    helper = LayerHelper("conv3d_transpose", name=name, act=act)
+    c_in = input.shape[1]
+    st = [stride] * 3 if isinstance(stride, int) else list(stride)
+    pd = [padding] * 3 if isinstance(padding, int) else list(padding)
+    dl = [dilation] * 3 if isinstance(dilation, int) else list(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is None")
+        osize = [output_size] * 3 if isinstance(output_size, int) \
+            else list(output_size)
+        ks = [osize[i] - (input.shape[2 + i] - 1) * st[i] + 2 * pd[i]
+              for i in range(3)]
+    else:
+        ks = [filter_size] * 3 if isinstance(filter_size, int) \
+            else list(filter_size)
+    w = helper.create_parameter(
+        ParamAttr.to_attr(param_attr),
+        shape=(c_in, num_filters, ks[0], ks[1], ks[2]), dtype=input.dtype,
+        default_initializer=Xavier())
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(
+        "conv3d_transpose",
+        inputs={"Input": [input.name], "Filter": [w.name]},
+        outputs={"Output": [out.name]},
+        attrs={"strides": st, "paddings": pd, "dilations": dl})
+    out = _append_channel_bias(helper, out, num_filters, bias_attr)
+    return helper.append_activation(out)
+
+
+def max_pool3d_with_index(input, pool_size, pool_stride=None, name=None):
+    helper = LayerHelper("max_pool3d_with_index", name=name)
+    ks = [pool_size] * 3 if isinstance(pool_size, int) else list(pool_size)
+    st = pool_stride or ks
+    st = [st] * 3 if isinstance(st, int) else list(st)
+    out = helper.create_tmp_variable(input.dtype)
+    mask = helper.create_tmp_variable("int32", stop_gradient=True)
+    helper.append_op("max_pool3d_with_index", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"ksize": ks, "strides": st})
+    return out, mask
+

@@ -132,6 +132,27 @@ def gaussian_random(shape, dtype="float32", mean=0.0, std=1.0, seed=0):
     return out
 
 
+def _make_random_batch_size_like(op_type):
+    def layer(input, shape, dtype="float32", input_dim_idx=0,
+              output_dim_idx=0, **attrs):
+        helper = LayerHelper(op_type)
+        out = helper.create_tmp_variable(dtype, stop_gradient=True)
+        helper.append_op(op_type, inputs={"Input": [input.name]},
+                         outputs={"Out": [out.name]},
+                         attrs={"shape": list(shape), "dtype": dtype,
+                                "input_dim_idx": input_dim_idx,
+                                "output_dim_idx": output_dim_idx, **attrs})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+uniform_random_batch_size_like = _make_random_batch_size_like(
+    "uniform_random_batch_size_like")
+gaussian_random_batch_size_like = _make_random_batch_size_like(
+    "gaussian_random_batch_size_like")
+
+
 def scatter(input, index, updates, name=None):
     helper = LayerHelper("scatter", name=name)
     out = helper.create_tmp_variable(input.dtype, shape=input.shape)
@@ -144,4 +165,6 @@ def scatter(input, index, updates, name=None):
 
 __all__ = _UNARY_OPS + _REDUCE_OPS + [
     "clip", "clip_by_norm", "logical_and", "logical_or", "logical_xor",
-    "logical_not", "uniform_random", "gaussian_random", "scatter"]
+    "logical_not", "uniform_random", "gaussian_random",
+    "uniform_random_batch_size_like", "gaussian_random_batch_size_like",
+    "scatter"]

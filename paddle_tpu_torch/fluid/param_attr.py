@@ -1,5 +1,5 @@
-"""ParamAttr — per-parameter configuration (counterpart of
-paddle_tpu/fluid/param_attr.py)."""
+"""ParamAttr and WeightNormParamAttr — per-parameter configuration
+(counterpart of paddle_tpu/fluid/param_attr.py)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,18 @@ class ParamAttr:
             a.trainable = arg
             return a
         raise TypeError(f"cannot convert {arg!r} to ParamAttr")
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight normalization (reference :39): the layer's weight becomes
+    w = g · v / ||v||, the direction ``v`` and the magnitude ``g`` the
+    trainable parameters (``LayerHelper.create_parameter`` builds them).
+    ``dim`` is the dimension the norm keeps (None: the norm of the whole
+    tensor); ``g`` is stored keep-dim shaped, so w's ops broadcast without
+    reshapes. v and g are the persistable parameters and w an ordinary
+    temporary recomputed each run, so saving and loading need nothing
+    special."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -1,5 +1,5 @@
-"""Convolution and pooling ops and their grads (counterpart of
-paddle_tpu/ops/conv_ops.py).
+"""Convolution and pooling ops and their grads: conv2d, depthwise_conv2d,
+conv2d_transpose and pool2d (counterpart of paddle_tpu/ops/conv_ops.py).
 
 A conv is ``torch.nn.functional.conv2d`` at the program's layout: NHWC
 tensors are viewed as channels-last NCHW, so no copy is made on the way in
@@ -129,6 +129,95 @@ def conv2d_grad(ctx):
                              dilations, groups, conv_df(ctx.attr))
     ctx.set_output("Input@GRAD", dx)
     ctx.set_output("Filter@GRAD", dw)
+
+
+# ---------------------------------------------------------------------------
+# depthwise_conv2d, conv2d_transpose
+# ---------------------------------------------------------------------------
+
+def _depthwise_grad_maker(op):
+    spec = _conv2d_grad_maker(op)[0]
+    spec.type = "depthwise_conv2d_grad"
+    return [spec]
+
+
+def _depthwise_args(ctx):
+    """conv2d's attrs with one group per input channel (reference :220:
+    conv_op.cc registers depthwise_conv2d as conv2d with groups =
+    channels)."""
+    strides, paddings, dilations, _ = conv_attrs(ctx.attr)
+    df = conv_df(ctx.attr)
+    x = ctx.input("Input")
+    return strides, paddings, dilations, x.shape[3 if df == "NHWC" else 1], df
+
+
+@register_op("depthwise_conv2d", infer_shape=conv2d_infer,
+             grad=_depthwise_grad_maker)
+def depthwise_conv2d(ctx):
+    ctx.set_output("Output", conv2d_compute(
+        ctx.input("Input"), ctx.input("Filter"), *_depthwise_args(ctx)))
+
+
+@register_op("depthwise_conv2d_grad")
+def depthwise_conv2d_grad(ctx):
+    """dx in the forward's compute dtype (the reference's
+    ``cast_compute(dx)``, :247), dw in the filter's."""
+    dx, dw = conv2d_backward(ctx.input("Input"), ctx.input("Filter"),
+                             ctx.input("Output@GRAD"), *_depthwise_args(ctx))
+    ctx.set_output("Input@GRAD", dx)
+    ctx.set_output("Filter@GRAD", dw)
+
+
+def conv2d_transpose_compute(x, w, strides, paddings, dilations):
+    """conv_transpose_op.cc: the gradient of conv2d with respect to its
+    input, the filter [C_in, C_out, kh, kw]; an output of (H - 1)·stride -
+    2·pad + dilation·(k - 1) + 1. bfloat16 operands under AMP (reference
+    :264)."""
+    x, w = cast_compute(x, w)
+    return F.conv_transpose2d(x, w.to(x.dtype), stride=strides,
+                              padding=paddings, dilation=dilations)
+
+
+def _conv2d_transpose_infer(op, block):
+    x = block.var(op.input("Input")[0])
+    w = block.var(op.input("Filter")[0])
+    if x.shape is None or w.shape is None:
+        return
+    s = _pair(op.attrs.get("strides", [1, 1]))
+    p = _pair(op.attrs.get("paddings", [0, 0]))
+    d = _pair(op.attrs.get("dilations", [1, 1]))
+    n, _, h, wd = x.shape
+    _, m, kh, kw = w.shape
+    ho = (h - 1) * s[0] - 2 * p[0] + (d[0] * (kh - 1) + 1)
+    wo = (wd - 1) * s[1] - 2 * p[1] + (d[1] * (kw - 1) + 1)
+    infer_output(op, block, "Output", (n, m, ho, wo), dtype=x.dtype)
+
+
+@register_op("conv2d_transpose", infer_shape=_conv2d_transpose_infer,
+             grad=lambda op: [OpSpec(
+                 "conv2d_transpose_grad",
+                 {"Input": op.input("Input"), "Filter": op.input("Filter"),
+                  "Output@GRAD": G(op.output("Output"))},
+                 {"Input@GRAD": G(op.input("Input")),
+                  "Filter@GRAD": G(op.input("Filter"))},
+                 dict(op.attrs))])
+def conv2d_transpose(ctx):
+    strides, paddings, dilations, _ = conv_attrs(ctx.attr)
+    ctx.set_output("Output", conv2d_transpose_compute(
+        ctx.input("Input"), ctx.input("Filter"), strides, paddings,
+        dilations))
+
+
+@register_op("conv2d_transpose_grad")
+def conv2d_transpose_grad(ctx):
+    """dx in the compute dtype (reference :317), dw in the filter's."""
+    strides, paddings, dilations, _ = conv_attrs(ctx.attr)
+    w = ctx.input("Filter")
+    dx, dw = vjp(lambda a, b: conv2d_transpose_compute(
+        a, b, strides, paddings, dilations), (ctx.input("Input"), w),
+        ctx.input("Output@GRAD"))
+    ctx.set_output("Input@GRAD", cast_compute(dx))
+    ctx.set_output("Filter@GRAD", dw.to(w.dtype))
 
 
 # ---------------------------------------------------------------------------

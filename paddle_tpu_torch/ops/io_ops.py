@@ -5,7 +5,10 @@
 that a startup program runs (``create_recordio_file_reader``,
 ``create_shuffle_reader``, ``create_double_buffer_reader``,
 ``create_multi_pass_reader``) and ``read``, which pops a batch from the
-reader in the scope (:178-290).
+reader in the scope (:178-290); the CSP ops ``channel_create``,
+``channel_send``, ``channel_recv``, ``channel_close`` and ``go``
+(:299-330), which keep a ``fluid.concurrency.Channel`` in the scope and
+run a sub-block on a thread.
 
 The persistence ops keep the reference's file format, so a file either
 package writes, the other loads: ``save`` is one ``np.save`` (pickle
@@ -19,12 +22,13 @@ save/load programs (python/paddle/fluid/io.py)."""
 from __future__ import annotations
 
 import os
+import threading
 import weakref
 
 import numpy as np
 import torch
 
-from ..core.executor import Executor
+from ..core.executor import Executor, _run_ops
 from ..core.lod import LoDArray
 from ..core.registry import register_op
 from ..core.types import convert_dtype, torch_dtype
@@ -289,3 +293,43 @@ def read(ctx):
         batch = (batch,)
     ctx.set_outputs("Out", [_on_device(ctx, b, n)
                             for b, n in zip(batch, outs)])
+
+
+# ---------------------------------------------------------------------------
+# CSP channel ops and go (host concurrency through the scope, :299-330)
+# ---------------------------------------------------------------------------
+
+@register_op("channel_create")
+def channel_create(ctx):
+    from ..fluid.concurrency import Channel
+    ctx.set_output("Out", Channel(dtype=ctx.attr("data_type", "float32"),
+                                  capacity=int(ctx.attr("capacity", 0))))
+
+
+@register_op("channel_send")
+def channel_send(ctx):
+    ctx.input("Channel").send(ctx.input("X"))
+
+
+@register_op("channel_recv")
+def channel_recv(ctx):
+    v, ok = ctx.input("Channel").recv()
+    ctx.set_output("Out", v)
+    ctx.set_output("Status", torch.tensor(ok))
+
+
+@register_op("channel_close")
+def channel_close(ctx):
+    ctx.input("Channel").close()
+
+
+@register_op("go", is_control_flow=True)
+def go(ctx):
+    """go_op.cc: the sub-block runs on a daemon thread over a copy of the
+    environment's bindings; a channel in it is the shared object both
+    sides talk through. Out is the thread."""
+    t = threading.Thread(target=_run_ops,
+                         args=(ctx.sub_block(), dict(ctx.env), ctx.device),
+                         daemon=True)
+    t.start()
+    ctx.set_output("Out", t)

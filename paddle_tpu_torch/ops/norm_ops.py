@@ -6,8 +6,9 @@ grad maker, :235, :248), and lrn and its grad (reference :294).
 ``bn_forward_math`` and ``bn_backward_math`` are shared with
 fused_conv2d_bn's plain route (ops/fused_ops.py), so a fused program and the
 unfused conv2d/batch_norm/relu chain agree bitwise under
-``kernel_tier=torch``. Statistics are float32 whatever the activation
-dtype; the output returns in the activation dtype.
+``kernel_tier=torch``. Statistics are float32 for float32, bfloat16 and
+float16 activations and float64 for float64 ones (the reference computes
+those in float32 too); the output returns in the activation dtype.
 """
 
 from __future__ import annotations
@@ -61,11 +62,18 @@ def _bn_bshape(x, layout):
     return tuple(x.shape[c] if i == c else 1 for i in range(x.ndim))
 
 
+def _wide(x):
+    """x in the dtype batch norm computes in: float32, or float64 where x
+    is float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def bn_forward_math(x, scale, bias, running_mean, running_var, eps,
                     momentum, layout, is_test):
     """The batch_norm forward. Returns (y, new_mean, new_var, saved_mean,
-    saved_var). In training the batch statistics are float32: the centered
-    two-pass variance for float32 activations, the single-pass
+    saved_var). In training the batch statistics are float32 (float64 for
+    float64 activations): the centered two-pass variance for float32 and
+    float64 activations, the single-pass
     E[x²]−E[x]² (clamped at 0) for bfloat16 ones, as the reference
     (:93-110); the running statistics blend as
     ``momentum·running + (1−momentum)·batch``."""
@@ -75,7 +83,7 @@ def bn_forward_math(x, scale, bias, running_mean, running_var, eps,
         mean, var = running_mean, running_var
         new_mean, new_var = running_mean, running_var
     else:
-        xf = x.float()
+        xf = _wide(x)
         mean = torch.mean(xf, dim=axes)
         if x.dtype == torch.bfloat16:
             var = torch.clamp_min(torch.mean(xf * xf, dim=axes)
@@ -86,7 +94,7 @@ def bn_forward_math(x, scale, bias, running_mean, running_var, eps,
         new_mean = momentum * running_mean + (1.0 - momentum) * mean
         new_var = momentum * running_var + (1.0 - momentum) * var
     inv_std = torch.rsqrt(var + eps)
-    y = (x.float() * (scale * inv_std).reshape(bshape)
+    y = (_wide(x) * (scale * inv_std).reshape(bshape)
          + (bias - mean * scale * inv_std).reshape(bshape))
     return y.to(x.dtype), new_mean, new_var, mean, var
 
@@ -107,11 +115,12 @@ def batch_norm(ctx):
 
 def bn_backward_math(x, scale, mean, var, dy, eps, layout, is_test):
     """The batch_norm_grad closed form over the saved statistics, in
-    float32. Returns (dx, dscale, dbias); dx in x's dtype."""
+    float32 (float64 for float64 activations). Returns (dx, dscale,
+    dbias); dx in x's dtype."""
     axes = _bn_axes(x, layout)
     bshape = _bn_bshape(x, layout)
     m = x.numel() // x.shape[_bn_channel_axis(x, layout)]
-    xf, dyf = x.float(), dy.float()
+    xf, dyf = _wide(x), _wide(dy)
     inv_std = torch.rsqrt(var + eps).reshape(bshape)
     xhat = (xf - mean.reshape(bshape)) * inv_std
     dbias = torch.sum(dyf, dim=axes)

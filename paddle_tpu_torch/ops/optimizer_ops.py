@@ -1,7 +1,8 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py):
 the per-parameter ``sgd`` (reference :108), ``momentum`` (:115), ``adam``
 (:139), ``adagrad`` (:168), ``decayed_adagrad`` (:189), ``adadelta``
-(:200), ``rmsprop`` (:215), ``adamax`` (:230) and ``ftrl`` (:246), and the
+(:200), ``rmsprop`` (:215), ``adamax`` (:230), ``ftrl`` (:246),
+``proximal_gd`` (:271) and ``proximal_adagrad`` (:283), and the
 variadic ``fused_sgd``, ``fused_momentum`` and ``fused_adam`` (:385, :399,
 :427). Each keeps the reference op's attribute defaults.
 
@@ -19,7 +20,7 @@ the unmerged scatter-add of ``−lr·vals`` on the plain route (reference
 :79-105); momentum's and Adam's merge the rows and update only the touched
 rows of the parameter and its state (``core/sparse.py::apply_rowwise``,
 reference :122-135, :149-165: the lazy update), and so does adagrad's
-(:174-182). The other five densify a sparse gradient (``_param_grad``).
+(:174-182). The other seven densify a sparse gradient (``_param_grad``).
 """
 
 from __future__ import annotations
@@ -295,3 +296,31 @@ def ftrl(ctx):
     ctx.set_output("ParamOut", x / y)
     ctx.set_output("SquaredAccumOut", new_sq)
     ctx.set_output("LinearAccumOut", new_lin)
+
+
+def _proximal(p, g, lr, l1, l2):
+    """The proximal step: p - lr·g shrunk by lr·l1 towards 0 and divided
+    by 1 + lr·l2 (proximal_gd_op.h, proximal_adagrad_op.h)."""
+    prox = p - lr * g
+    return torch.sign(prox) * torch.clamp_min(torch.abs(prox) - lr * l1,
+                                              0.0) / (1.0 + lr * l2)
+
+
+@register_op("proximal_gd", in_place=True)
+def proximal_gd(ctx):
+    p, g = _param_grad(ctx)
+    ctx.set_output("ParamOut", _proximal(p, g, _lr(ctx),
+                                         ctx.attr("l1", 0.0),
+                                         ctx.attr("l2", 0.0)))
+
+
+@register_op("proximal_adagrad", in_place=True)
+def proximal_adagrad(ctx):
+    """proximal_gd with the rate divided by sqrt of the summed squared
+    gradients."""
+    p, g = _param_grad(ctx)
+    m_new = ctx.input("Moment") + g * g
+    ctx.set_output("ParamOut", _proximal(p, g, _lr(ctx) / torch.sqrt(m_new),
+                                         ctx.attr("l1", 0.0),
+                                         ctx.attr("l2", 0.0)))
+    ctx.set_output("MomentOut", m_new)

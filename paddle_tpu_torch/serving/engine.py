@@ -5,7 +5,9 @@ The engine pads each incoming batch up to a small fixed set of batch
 buckets (the ``serving_batch_buckets`` flag), chunks batches beyond the
 largest bucket through it, and trims every fetch back to the true row count.
 Padding rows replicate the batch's last row, which is inert for any per-row
-model. The reference pads so each bucket compiles once; this port runs
+model. A one-level LoD fetch with a row per image (multiclass_nms's
+detections) is trimmed as a ``LoDArray`` of its padded rows and lengths; the
+reference rejects it as not per-row. The reference pads so each bucket compiles once; this port runs
 eagerly, so the same buckets bound the set of shapes the kernels see.
 
 The counters keep the reference's meaning and names
@@ -26,6 +28,7 @@ import numpy as np
 
 from ..core.executor import Executor
 from ..core.flags import get_flag
+from ..core.lod import LoDArray
 from ..core.profiler import record_event
 from ..core.scope import Scope
 from ..core.types import convert_dtype
@@ -67,6 +70,15 @@ def parse_buckets(spec=None):
         raise ValueError(f"serving batch buckets must be positive ints, "
                          f"got {spec!r}")
     return sorted(set(vals))
+
+
+def _concat_rows(parts):
+    """The chunks' fetches of one name joined along the rows; LoD fetches
+    (padded alike, to one width) by their data and lengths."""
+    if isinstance(parts[0], LoDArray):
+        return LoDArray(np.concatenate([p.data for p in parts], axis=0),
+                        np.concatenate([p.lens for p in parts], axis=0))
+    return np.concatenate(parts, axis=0)
 
 
 def _pad_rows(a, bucket):
@@ -235,7 +247,7 @@ class InferenceEngine:
             cn = min(self.max_batch, n - lo)
             parts.append(self._dispatch(chunk, cn, self.bucket_for(cn),
                                         fetch_names))
-        return [np.concatenate([p[i] for p in parts], axis=0)
+        return [_concat_rows([p[i] for p in parts])
                 for i in range(len(fetch_names))]
 
     def _dispatch(self, arrs, n, bucket, fetch_names=None):
@@ -259,14 +271,20 @@ class InferenceEngine:
                                      scope=self._scope)
         trimmed = []
         for name, o in zip(fetch_names, outs):
-            if o.ndim >= 1 and o.shape[0] == bucket:
+            if isinstance(o, LoDArray) and o.lod_level == 1 \
+                    and o.data.shape[0] == bucket:
+                trimmed.append(LoDArray(o.data[:n], o.lens[:n]))
+                continue
+            if not isinstance(o, LoDArray) and o.ndim >= 1 \
+                    and o.shape[0] == bucket:
                 trimmed.append(o[:n])
                 continue
             # a fetch without a leading batch dim was computed over the
             # padding rows: reject the model configuration loudly instead of
             # serving wrong answers (reference engine.py:433)
             raise ValueError(
-                f"fetch {name!r} is not per-row (shape {o.shape}, bucket "
+                f"fetch {name!r} is not per-row (shape "
+                f"{getattr(o, 'shape', None)}, bucket "
                 f"{bucket}): serving requires every fetch to carry a "
                 "leading batch dimension — batch-reduced outputs (means, "
                 "aggregate metrics) cannot be padded or split per caller")

@@ -34,6 +34,11 @@ tests can build a narrow net and chip_smoke.py the published one:
   (understand_sentiment's convolution_net and stacked_lstm_net),
   ``srl_db_lstm`` (label_semantic_roles) and ``recommender``, with
   ``book_feed`` for their synthetic batches.
+* ``mobilenet_ssd`` (with ``ssd_feed``): MobileNet-SSD of
+  PaddlePaddle/models fluid/object_detection/mobilenet_ssd.py, a MobileNet
+  v1 backbone (``scale`` 1.0 is the published width) in NCHW with
+  ``multi_box_head`` over six maps, ``ssd_loss`` and Momentum, and a test
+  clone ending in ``detection_output``.
 
 ``layers`` is the fluid.layers namespace to build with: this package's by
 default. Any module with the same layer API builds the same program, which
@@ -852,3 +857,127 @@ def book_feed(chapter, batch, seed, **sizes):
                                      sizes["title_dict"]),
                 "score": rng.randint(1, 6, (batch, 1)).astype("float32")}
     raise ValueError(f"unknown book chapter {chapter!r}")
+
+
+# ---------------------------------------------------------------------------
+# MobileNet-SSD (PaddlePaddle/models fluid/object_detection/mobilenet_ssd.py)
+# ---------------------------------------------------------------------------
+
+SSD_ASPECT_RATIOS = [[2.0]] + [[2.0, 3.0]] * 5
+SSD_CLASSES = 21            # Pascal VOC's 20 and the background
+SSD_LR = 1e-3
+SSD_NMS_THRESHOLD = 0.45
+
+
+def _ssd_conv_bn(layers, x, filter_size, num_filters, stride, padding,
+                 groups=1, act="relu"):
+    conv = layers.conv2d(input=x, num_filters=num_filters,
+                         filter_size=filter_size, stride=stride,
+                         padding=padding, groups=groups, act=None,
+                         bias_attr=False)
+    return layers.batch_norm(input=conv, act=act)
+
+
+def _ssd_separable(layers, x, f1, f2, groups, stride, scale):
+    dw = _ssd_conv_bn(layers, x, 3, int(f1 * scale), stride, 1,
+                      groups=int(groups * scale))
+    return _ssd_conv_bn(layers, dw, 1, int(f2 * scale), 1, 0)
+
+
+def _ssd_extra(layers, x, f1, f2, groups, stride, scale):
+    pw = _ssd_conv_bn(layers, x, 1, int(f1 * scale), 1, 0,
+                      groups=int(groups * scale) or 1)
+    return _ssd_conv_bn(layers, pw, 3, int(f2 * scale), stride, 1,
+                        groups=int(groups * scale) or 1)
+
+
+def mobilenet_ssd_head(layers, img, scale=1.0):
+    """The MobileNet v1 backbone and the SSD head over six maps (19, 10,
+    5, 3, 2 and 1 cells a side at 300x300): (locs [b, P, 4], confs [b, P,
+    SSD_CLASSES], prior boxes [P, 4], variances [P, 4])."""
+    x = _ssd_conv_bn(layers, img, 3, int(32 * scale), 2, 1)
+    for f1, f2, g, s in ((32, 64, 32, 1), (64, 128, 64, 2),
+                         (128, 128, 128, 1), (128, 256, 128, 2),
+                         (256, 256, 256, 1), (256, 512, 256, 2)):
+        x = _ssd_separable(layers, x, f1, f2, g, s, scale)
+    for _ in range(5):
+        x = _ssd_separable(layers, x, 512, 512, 512, 1, scale)
+    module11 = x
+    x = _ssd_separable(layers, x, 512, 1024, 512, 2, scale)
+    module13 = _ssd_separable(layers, x, 1024, 1024, 1024, 1, scale)
+    module14 = _ssd_extra(layers, module13, 256, 512, 1, 2, scale)
+    module15 = _ssd_extra(layers, module14, 128, 256, 1, 2, scale)
+    module16 = _ssd_extra(layers, module15, 128, 256, 1, 2, scale)
+    module17 = _ssd_extra(layers, module16, 64, 128, 1, 2, scale)
+    return layers.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16, module17],
+        image=img, num_classes=SSD_CLASSES, min_ratio=20, max_ratio=90,
+        aspect_ratios=SSD_ASPECT_RATIOS, base_size=int(img.shape[2]),
+        offset=0.5, flip=True, clip=True)
+
+
+def mobilenet_ssd(fluid, scale=1.0, image=300, seed=None, dtype="float32"):
+    """MobileNet-SSD's training program and its test program: (main,
+    startup, test, v). ``main`` trains reduce_sum(ssd_loss) with
+    Momentum(SSD_LR, 0.9, fused=True); ``test`` is the head's for-test
+    clone ending in softmax over the classes and
+    ``detection_output(nms_threshold=SSD_NMS_THRESHOLD)``, as the
+    published model's detection_output does. ``dtype`` is the
+    images', boxes' and parameters' float type. v holds "img",
+    "gt_box", "gt_label", "locs", "confs", "box", "var", "loss" (main's)
+    and "nmsed" (test's)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    if seed is not None:
+        main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = layers.data("img", shape=[3, image, image], dtype=dtype)
+        gt_box = layers.data("gt_box", shape=[4], dtype=dtype, lod_level=1)
+        gt_label = layers.data("gt_label", shape=[1], dtype="int64",
+                               lod_level=1)
+        locs, confs, box, var = mobilenet_ssd_head(layers, img, scale)
+        test = main.clone(for_test=True)
+        loss = layers.reduce_sum(layers.ssd_loss(locs, confs, gt_box,
+                                                 gt_label, box, var))
+        fluid.optimizer.Momentum(learning_rate=SSD_LR, momentum=0.9,
+                                 fused=True).minimize(loss, startup)
+    with fluid.program_guard(test, fluid.Program()):
+        tb = test.global_block()
+        n_priors = int(locs.shape[1])
+        probs = layers.reshape(layers.softmax(layers.reshape(
+            tb.var(confs.name), shape=[-1, SSD_CLASSES])),
+            shape=[-1, n_priors, SSD_CLASSES])
+        nmsed = layers.detection_output(
+            tb.var(locs.name), layers.transpose(probs, perm=[0, 2, 1]),
+            tb.var(box.name), tb.var(var.name),
+            nms_threshold=SSD_NMS_THRESHOLD)
+    return main, startup, test, dict(img=img, gt_box=gt_box,
+                                     gt_label=gt_label, locs=locs,
+                                     confs=confs, box=box, var=var,
+                                     loss=loss, nmsed=nmsed)
+
+
+def ssd_feed(batch, image, seed):
+    """A synthetic detection batch from ``seed``: per image, an 8x8 grid
+    of random colours scaled up to ``image`` pixels plus uniform noise of
+    a quarter of that range, so that images differ at every scale, as
+    photographs do (images of noise alone all look alike to the 1x1 maps,
+    whose training-mode batch norm then divides near-zero differences);
+    and 1-4 ground-truth boxes (normalized corners, each side 0.1-0.6 of
+    the image) with labels uniform over 1..SSD_CLASSES-1 (0 is the
+    background)."""
+    rng = np.random.RandomState(seed)
+    cells = rng.rand(batch, 3, 8, 8)
+    idx = np.arange(image) * 8 // image
+    img = cells[:, :, idx][:, :, :, idx] \
+        + 0.25 * rng.rand(batch, 3, image, image)
+    feed = {"img": img.astype("float32"), "gt_box": [], "gt_label": []}
+    for _ in range(batch):
+        n = int(rng.randint(1, 5))
+        lo = rng.rand(n, 2) * 0.4
+        wh = rng.rand(n, 2) * 0.5 + 0.1
+        feed["gt_box"].append(np.concatenate([lo, lo + wh], axis=1)
+                              .astype("float32"))
+        feed["gt_label"].append(rng.randint(1, SSD_CLASSES, (n, 1))
+                                .astype("int64"))
+    return feed

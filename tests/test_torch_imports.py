@@ -15,7 +15,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "paddle_tpu_torch").rglob("*.py")) \
     + [REPO / name for name in ("chip_smoke.py", "loop_stats.py",
                                 "conv_bn_accuracy.py", "seq_split.py",
-                                "decode_arena.py")]
+                                "decode_arena.py", "ssd_divergence.py")]
 
 
 def _imported_modules(path):

@@ -11,32 +11,8 @@ import numpy as np
 import pytest
 
 from torch_cross import (op_both, run_op, build_both, assert_same_program,
-                         cross_losses)
+                         cross_losses, f32 as _f32, fwd_grad as _fwd_grad)
 import paddle_tpu_torch.fluid as tfluid
-
-
-def _f32(rng, *shape, scale=1.0):
-    return rng.normal(0, scale, shape).astype("float32")
-
-
-def _fwd_grad(op_type, ins, outs, attrs, feeds, grad_ins, grad_outs, rng,
-              cot="Out"):
-    """The forward op, then its grad op fed the forward's outputs and a
-    seeded cotangent of the ``cot`` output."""
-    got = op_both(op_type, ins, outs, attrs, feeds)
-    out_vals = dict(zip([n for ns in outs.values() for n in ns], got))
-    d = outs[cot][0]
-    gfeeds = {n: v for n, v in {**feeds, **out_vals}.items()
-              if any(n in ns for ns in grad_ins.values())}
-    dshape = np.shape(out_vals[d][0] if isinstance(out_vals[d], tuple)
-                      else out_vals[d])
-    if op_type == "im2sequence":      # the padded [b, steps, d] cotangent
-        dshape = (feeds["x"].shape[0], dshape[0] // feeds["x"].shape[0],
-                  dshape[1])
-    gfeeds["d"] = _f32(rng, *dshape)
-    op_both(op_type + "_grad", {**grad_ins, cot + "@GRAD": ["d"]},
-            grad_outs, attrs, gfeeds)
-    return got
 
 
 CASES = {

@@ -21,10 +21,11 @@ The transpiled trainer and pserver startup programs (the
 DistributeTranspiler's output, verified by the transpiler itself under
 verify_passes) are held the same way, per-parameter and fused.
 
-Left out, with the module that brings each (ROADMAP §A): the
-memory-optimized program (memory_optimization_transpiler, A12), the
-OpTest harness (A8) and ``create_var``'s redefinition checks (framework,
-not the verifier).
+The memory-optimized program is held in
+tests/test_torch_memory_optimization.py
+(``test_memory_optimized_program_verifies_clean``). Left out, with the
+module that brings each (ROADMAP §A): the OpTest harness (A8) and
+``create_var``'s redefinition checks (framework, not the verifier).
 """
 
 import json
@@ -347,7 +348,7 @@ def test_nmt_programs_verify_clean():
     assert _verify_errors(startup) == [] and _verify_errors(dstartup) == []
 
 
-def test_slot_catalogue_installs_35_of_39_specs():
+def test_slot_catalogue_installs_39_of_39_specs():
     """The catalogue installs a spec for every op type the port registers:
     all 39 since delete_var was ported (35 before dropout, matmul and
     accuracy were, 38 until delete_var was)."""

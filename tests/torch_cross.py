@@ -39,6 +39,24 @@ def ref_state(main, startup, mode="jit"):
     return exe, scope, state
 
 
+def ssd_state(main, startup, mode="jit"):
+    """``ref_state`` of a detection model (MobileNet-SSD), checked whole:
+    every persistable the training program declares (the conv filters, the
+    depthwise [C, 1, 3, 3] ones among them, the batch-norm scales, biases,
+    means and variances, the head's loc/conf filters and biases, the
+    momentum velocities and the learning rate) is in the state, at its
+    declared shape."""
+    exe, scope, state = ref_state(main, startup, mode)
+    for v in main.global_block().vars.values():
+        if not v.persistable or v.is_data:
+            continue
+        assert v.name in state, f"{v.name} is not carried across"
+        if v.shape is not None and all(s > 0 for s in v.shape):
+            assert state[v.name].shape == tuple(v.shape), (
+                v.name, state[v.name].shape, v.shape)
+    return exe, scope, state
+
+
 def port_scope(state):
     """A port scope holding ``state`` on the CPU."""
     return tfluid.io.scope_from_numpy(state, "cpu")
@@ -183,6 +201,31 @@ def op_both(op_type, inputs, outputs, attrs, feeds, lod=()):
     names = [n for ns in outputs.values() for n in ns]
     for name, g, w in zip(names, got, want):
         assert_op_close(g, w, f"{op_type} {name}")
+    return got
+
+
+def f32(rng, *shape, scale=1.0):
+    return rng.normal(0, scale, shape).astype("float32")
+
+
+def fwd_grad(op_type, ins, outs, attrs, feeds, grad_ins, grad_outs, rng,
+              cot="Out"):
+    """``op_both`` of the forward op, then of its grad op fed the
+    forward's outputs and a seeded cotangent of the ``cot`` output; returns
+    the port's forward outputs."""
+    got = op_both(op_type, ins, outs, attrs, feeds)
+    out_vals = dict(zip([n for ns in outs.values() for n in ns], got))
+    d = outs[cot][0]
+    gfeeds = {n: v for n, v in {**feeds, **out_vals}.items()
+              if any(n in ns for ns in grad_ins.values())}
+    dshape = np.shape(out_vals[d][0] if isinstance(out_vals[d], tuple)
+                      else out_vals[d])
+    if op_type == "im2sequence":      # the padded [b, steps, d] cotangent
+        dshape = (feeds["x"].shape[0], dshape[0] // feeds["x"].shape[0],
+                  dshape[1])
+    gfeeds["d"] = f32(rng, *dshape)
+    op_both(op_type + "_grad", {**grad_ins, cot + "@GRAD": ["d"]},
+            grad_outs, attrs, gfeeds)
     return got
 
 
