@@ -462,11 +462,13 @@ import argparse
 import contextlib
 import ctypes
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA
@@ -5039,7 +5041,9 @@ def amp_launches(cbk, opk, tier):
 
 
 @contextlib.contextmanager
-def replayed_through_plain(cbk, found):
+def replayed_through_plain(cbk, found,
+                           names=("conv_affine", "conv_bn_train",
+                                  "conv_bn_bwd")):
     """While on, each call the program makes to a conv kernel wrapper also
     runs the wrapper's plain version (``*_torch``) on the same inputs, the
     program's own tensors, and ``found[wrapper]`` gathers the calls, x's
@@ -5050,8 +5054,9 @@ def replayed_through_plain(cbk, found):
     the recomputed conv in other orders, and a flipped mask moves a whole
     dy term), both versions run on that dy; its worst on the program's dy
     itself is gathered as ``unmasked``. The program gets the kernel's
-    outputs on its own inputs, and its launches count as without this."""
-    names = ("conv_affine", "conv_bn_train", "conv_bn_bwd")
+    outputs on its own inputs. ``names``: the wrappers replayed. A keyword
+    argument (the tile) goes to the kernel alone: the plain version has
+    no tile."""
     real = {n: getattr(cbk, n) for n in names}
 
     def worst(got, ref):
@@ -5067,8 +5072,8 @@ def replayed_through_plain(cbk, found):
     def wrap(name):
         kernel, plain = real[name], getattr(cbk, f"{name}_torch")
 
-        def call(*args):
-            got = kernel(*args)
+        def call(*args, **kw):
+            got = kernel(*args, **kw)
             rec = found.setdefault(name, dict(calls=0, dtypes=set(),
                                               rel=0.0, at=None,
                                               unmasked=0.0))
@@ -5085,7 +5090,7 @@ def replayed_through_plain(cbk, found):
                     + args[3:]
                 rec["unmasked"] = max(rec["unmasked"],
                                       worst(got, plain(*args)))
-                kept = kernel(*held)
+                kept = kernel(*held, **kw)
             rel = worst(kept, plain(*held))
             if not rel <= rec["rel"]:
                 rec["rel"] = rel
@@ -9801,6 +9806,877 @@ def phase_detection(torch, fluid, seed, card):
     return launches
 
 
+# phase 27: the serving fleet and the perf plane (A15) with conv_bn's tile
+# and bf16 variants (B.1). ResNet-50's phase-3 bundle is published to a
+# ModelRegistry (v1 with its warm executables and a tuning table measured
+# on its own conv_bn keys; v2 a copy whose fc bias is shifted; v3 a corrupt
+# copy) and served by FLEET_REPLICAS spawned replicas on the card, routed by
+# FleetClient, at the buckets of FLEET_BUCKETS: a batch-1 and a batch-8
+# request FLEET_REQUESTS times each
+FLEET_BUCKETS = (1, 8)
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 3
+FLEET_READY_S = 300.0
+FLEET_V2_SHIFT = 0.5
+# the tuner's windows (ops/autotune.py measure): interleaved best of
+# TUNE_REPEATS windows of TUNE_INNER calls, CUDA events after a sync
+TUNE_REPEATS, TUNE_INNER = 3, 2
+# (batch, is_test) of the conv_bn keys the tuner times: serving at 1 and 8,
+# training at 32
+TUNE_KEYS = ((1, True), (8, True), (TRAIN_BATCH, False))
+# pallas_bf16 against float32's default kernel on the same inputs: the AMP
+# phase's bfloat16 limit, REL_LIMIT["bfloat16"] of the largest element.
+# tests/test_amp.py's elementwise AMP_RTOL/AMP_ATOL is printed beside it as
+# a reading: a bf16 z of magnitude ~8 rounds by up to 2^-5, so where the
+# affine cancels it near 0 (a relu's edge) a few elements in 10^5 move by
+# ~0.02 > AMP_ATOL (an NVIDIA H100 80GB HBM3 at 700.00 W, --seed 0)
+# pallas_bf16 against its plain twin (the same bf16 x and w, products exact
+# in float32, summed in another order): z rounds to bf16 the same way but
+# where the float32 sums' difference moves it across a rounding boundary,
+# so few elements differ, each by a step or two at its magnitude. Held:
+# max|Δ| within BF16_TWIN_STEPS bf16 steps (2^-7 of the binade) of the
+# largest |twin|, and at most BF16_TWIN_SHARE of the elements differing.
+# (The earlier max|Δ|/max|twin| read 4.4e-4 to 6.7e-3, max|Δ| one step of
+# the largest element, on the same card at --seed 0.) The check's own
+# test, made on every shape: the float32 kernel's y rounded to bf16 (a
+# path that skips the cast of x and w) must break it
+BF16_TWIN_STEPS, BF16_TWIN_SHARE = 2, 1e-2
+# ResNet-50's multiply-adds a 224x224 image: ~4.1 G (He et al. 2016,
+# Table 1: 3.8 G for the convs as they count them); FlopCounterMode
+# counts two operations a multiply-add
+RESNET50_GMACS = 4.1
+# the LM lane's KV prompts: phase 13's shared system prompt of GEN_SYSTEM
+# tokens (2 blocks) with a GEN_SUFFIX-token user suffix, GEN_PREFIX_NEW
+# new tokens greedy, for FLEET_KV_REQUESTS users
+FLEET_KV_REQUESTS = 4
+
+
+def fleet_feed(np, seed, n):
+    rng = np.random.RandomState(seed + 27 + n)
+    return {"img": rng.normal(0, 1, (n, IMAGE, IMAGE, 3)).astype("float32")}
+
+
+def first_replies(sup, t0, feed, deadline_s=FLEET_READY_S):
+    """Seconds from ``t0`` to each replica's first answered request, sent
+    to it directly (the router aside); None where none came in time."""
+    from paddle_tpu_torch.serving import InferClient
+    out = [None] * len(sup.addresses)
+    deadline = t0 + deadline_s
+    while None in out and time.monotonic() < deadline:
+        for i, addr in enumerate(sup.addresses):
+            if out[i] is not None:
+                continue
+            try:
+                with InferClient(addr, timeout=60.0, retry=None) as c:
+                    c.infer(feed)
+                out[i] = time.monotonic() - t0
+            except Exception:
+                pass
+        time.sleep(0.2)
+    return out
+
+
+def variant_keys(fluid, cbk, at, main):
+    """The conv_bn keys ResNet-50 dispatches at each TUNE_KEYS batch, with
+    the variants each supports, as ops/fused_ops.py builds them:
+    [(kernel, key, supported names)], and {(batch, is_test): {conv_key:
+    kernel-routed convs of that shape a forward}}."""
+    captured, by_batch = [], {}
+    for batch, is_test in TUNE_KEYS:
+        shapes = fused_conv_shapes(fluid, main, batch)
+        for key in sorted(shapes, key=lambda k: (-k[0][1], k[1][1],
+                                                 k[1][0], k[2])):
+            x, w, strides, paddings, dilations, groups, act = key
+            sup = cbk.supported(x, w, strides, paddings, dilations, groups,
+                                "NHWC", "float32")
+            names = ["jnp"]
+            if sup:
+                names.append("pallas")
+                by_batch.setdefault((batch, is_test), {})[key] = shapes[key]
+                if cbk.db_supported(x, w, strides, paddings, "float32"):
+                    names.append("pallas_db")
+            if cbk.supported(x, w, strides, paddings, dilations, groups,
+                             "NHWC", "bfloat16"):
+                names.append("pallas_bf16")
+            captured.append(("conv_bn", at.make_key(
+                x=x, w=w, dtype="float32", strides=tuple(strides),
+                paddings=tuple(paddings), dilations=tuple(dilations),
+                groups=groups, df="NHWC", act=act, is_test=is_test),
+                tuple(sorted(names))))
+    return captured, by_batch
+
+
+def variant_checks(torch, cbk, by_batch, seed, card):
+    """B.1's variants against their plain twins and the default variant on
+    ResNet-50's shapes: conv_affine at 1 and 8, conv_bn_train (and
+    conv_bn_bwd from its statistics) at TRAIN_BATCH. The 128-row tile
+    bitwise the default (output, statistics, gradients) and within
+    REL_LIMIT of its twin; bf16 within BF16_TWIN_STEPS/BF16_TWIN_SHARE of
+    its twin (and float32's y rounded to bf16 outside them) and within
+    REL_LIMIT["bfloat16"] of float32's default kernel (the AMP phase's
+    limit; elements outside tests/test_amp.py's AMP_RTOL/AMP_ATOL printed
+    as a reading).
+    Then the times per forward (step) over the shapes each variant takes,
+    with their
+    plain, cuDNN and bound. These launches compare; they are not the
+    main path's."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 27)
+
+    def operands(x_shape, w_shape):
+        cout, cin, kh, kw = w_shape
+        return (torch.randn(x_shape, generator=gen, device=dev),
+                torch.randn(w_shape, generator=gen, device=dev)
+                * (2.0 / (cin * kh * kw)) ** 0.5,
+                torch.rand(cout, generator=gen, device=dev) + 0.5,
+                torch.randn(cout, generator=gen, device=dev) * 0.1)
+
+    def rel(y, ref):
+        y, ref = y.float(), ref.float()
+        d = (y - ref).abs().max().item()
+        return d / max(ref.abs().max().item(), 1e-30), d
+
+    def amp_ok(y, ref):
+        return rel(y, ref)[0] <= REL_LIMIT["bfloat16"]
+
+    def bf16_steps(y, ref):
+        """(max|y − ref| in bf16 steps at the largest |ref|, the share of
+        elements that differ)."""
+        y, ref = y.float(), ref.float()
+        top = ref.abs().max().item()
+        step = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 1.0
+        return ((y - ref).abs().max().item() / step,
+                (y != ref).float().mean().item())
+
+    def twin_ok(steps, share):
+        return steps <= BF16_TWIN_STEPS and share <= BF16_TWIN_SHARE
+
+    def amp_outside(y, ref):
+        """Elements outside tests/test_amp.py's rtol/atol (a reading)."""
+        y, ref = y.float(), ref.float()
+        return int(((y - ref).abs() > AMP_ATOL + AMP_RTOL * ref.abs())
+                   .sum().item())
+
+    def same(a, b):
+        return bool(torch.equal(a, b))
+
+    keys = ("ms", "default_ms", "plain_ms", "library_ms", "bound_ms",
+            "gemm", "elem", "bytes")
+    sums = {}
+    # (variant, batch): [max steps, max share differing against the twin,
+    # and the float32-rounded path's least share and steps]
+    bf16_read = {}
+
+    def add(name, batch, count, vals):
+        t = sums.setdefault((name, batch), {k: 0.0 for k in keys}
+                            | {"max_abs_err": 0.0, "shapes": 0,
+                               "convs": 0, "dtype": vals["dtype"]})
+        for k in keys:
+            t[k] += count * vals[k]
+        t["max_abs_err"] = max(t["max_abs_err"], vals["err"])
+        t["shapes"] += 1
+        t["convs"] += count
+
+    for (batch, is_test), counts in sorted(by_batch.items()):
+        kind = "conv_affine" if is_test else "conv_bn_train"
+        log(f"\n  {kind} variants at batch {batch}: x w s act xN (convs "
+            "of the shape a forward) | db: "
+            "bitwise, rel vs twin, ms (default ms) | bf16: rel, bf16 "
+            "steps of the largest and share differing vs twin (float32's "
+            "y rounded: steps, share), within the AMP limit of float32 "
+            "(elements outside "
+            "test_amp's rtol/atol), ms | plain, cuDNN ms (float32, bf16)")
+        for key, count in counts.items():
+            x_shape, w_shape, strides, paddings, _, _, act = key
+            x, w, a, b = operands(x_shape, w_shape)
+            xb = x.to(torch.bfloat16)
+            db = cbk.db_supported(x_shape, w_shape, strides, paddings,
+                                  "float32")
+            xn, xbn = x.permute(0, 3, 1, 2), xb.permute(0, 3, 1, 2)
+            if is_test:
+                def run(xx, tile=0):
+                    return cbk.conv_affine(xx, w, a, b, strides, paddings,
+                                           act, tile)
+
+                def plain(xx):
+                    return cbk.conv_affine_torch(xx, w, a, b, strides,
+                                                 paddings, act)
+
+                def library(xx):
+                    wf = (w * a.view(-1, 1, 1, 1)).to(xx.dtype)
+                    y = F.conv2d(xx, wf, b.to(xx.dtype), stride=strides,
+                                 padding=paddings)
+                    return torch.relu(y) if act == "relu" else y
+                work = conv_work
+            else:
+                def run(xx, tile=0):
+                    return cbk.conv_bn_train(xx, w, a, b, EPS, strides,
+                                             paddings, act, tile)
+
+                def plain(xx):
+                    return cbk.conv_bn_train_torch(xx, w, a, b, EPS,
+                                                   strides, paddings, act)
+                rm, rv = torch.zeros_like(a), torch.ones_like(a)
+
+                def library(xx):
+                    y = F.batch_norm(F.conv2d(xx, w.to(xx.dtype),
+                                              stride=strides,
+                                              padding=paddings),
+                                     rm, rv, a.to(xx.dtype),
+                                     b.to(xx.dtype), training=True, eps=EPS)
+                    return F.relu(y) if act == "relu" else y
+
+                def work(x_, w_, s_, p_, item):
+                    return bn_work(x_, w_, s_, p_, item, backward=False)
+            first = lambda y: y[0] if isinstance(y, tuple) else y  # noqa
+            y0 = run(x)
+            line = f"  {list(x_shape)} {list(w_shape)} {strides[0]} " \
+                f"{act or '-':4} x{count} |"
+            d_ms = time_ms(lambda: run(x), torch, target_ms=10.0)
+            p32 = time_ms(lambda: plain(x), torch, target_ms=10.0)
+            l32 = time_ms(lambda: library(xn), torch, target_ms=10.0)
+            if db:
+                y1 = run(x, cbk.DB_TILE)
+                if is_test:
+                    bit = same(y1, y0)
+                else:
+                    bit = all(same(p, q) for p, q in zip(y1, y0))
+                    dy = torch.randn(y0[0].shape, generator=gen,
+                                     device=dev)
+                    g0 = cbk.conv_bn_bwd(x, w, dy, a, b, y0[1], y0[2], EPS,
+                                         strides, paddings, act)
+                    g1 = cbk.conv_bn_bwd(x, w, dy, a, b, y1[1], y1[2], EPS,
+                                         strides, paddings, act)
+                    bit = bit and all(same(p, q) for p, q in zip(g1, g0))
+                r, d = rel(first(y1), first(plain(x)))
+                if not bit:
+                    fail(f"{kind} pallas_db x{x_shape} w{w_shape}: output, "
+                         "statistics or gradients not bitwise the default "
+                         "tile's")
+                if not r <= REL_LIMIT["float32"]:
+                    fail(f"{kind} pallas_db x{x_shape} w{w_shape}: rel err "
+                         f"{r:.3e} vs its plain twin > "
+                         f"{REL_LIMIT['float32']:.0e}")
+                k_ms = time_ms(lambda: run(x, cbk.DB_TILE), torch,
+                               target_ms=10.0)
+                gemm, elem, nbytes = work(x_shape, w_shape, strides,
+                                          paddings, 4)
+                bound = bn_bound_ms(gemm, elem, nbytes)[0]
+                add(f"{kind}_db", batch, count, dict(
+                    ms=k_ms, default_ms=d_ms, plain_ms=p32, library_ms=l32,
+                    bound_ms=bound, gemm=gemm, elem=elem, bytes=nbytes,
+                    err=d, dtype="float32"))
+                line += f" {bit} {r:.1e} {k_ms:.4f} ({d_ms:.4f}) |"
+            else:
+                line += f" - (default {d_ms:.4f}) |"
+            yb = run(xb)
+            twin = first(plain(xb))
+            rb, db_abs = rel(first(yb), twin)
+            steps, share = bf16_steps(first(yb), twin)
+            skip = bf16_steps(first(y0).to(torch.bfloat16), twin)
+            amp = amp_ok(first(yb), first(y0))
+            if not is_test:
+                amp = amp and amp_ok(yb[1], y0[1]) and amp_ok(yb[2], y0[2])
+            outside = amp_outside(first(yb), first(y0))
+            if not twin_ok(steps, share) or not amp:
+                fail(f"{kind} pallas_bf16 x{x_shape} w{w_shape}: vs its "
+                     f"twin {steps:.2f} bf16 steps of the largest, "
+                     f"{share:.2e} of the elements differ (limits "
+                     f"{BF16_TWIN_STEPS}, {BF16_TWIN_SHARE:.0e}); within "
+                     f"{REL_LIMIT['bfloat16']:.0e} of float32's largest "
+                     f"(output and statistics): {amp}")
+            if twin_ok(*skip):
+                fail(f"{kind} pallas_bf16 x{x_shape} w{w_shape}: float32's "
+                     f"y rounded to bf16 reads {skip[0]:.2f} steps, "
+                     f"{skip[1]:.2e} differing against the bf16 twin, "
+                     "within the limits: they cannot tell a path that "
+                     "skips the cast")
+            rd = bf16_read.setdefault((f"{kind}_bf16", batch),
+                                      [0.0, 0.0, 1.0, 1e30])
+            rd[:] = [max(rd[0], steps), max(rd[1], share),
+                     min(rd[2], skip[1]), min(rd[3], skip[0])]
+            kb_ms = time_ms(lambda: run(xb), torch, target_ms=10.0)
+            pb_ms = time_ms(lambda: plain(xb), torch, target_ms=10.0)
+            lb_ms = time_ms(lambda: library(xbn), torch, target_ms=10.0)
+            gemm, elem, nbytes = work(x_shape, w_shape, strides, paddings, 2)
+            bound = bn_bound_ms(gemm, elem, nbytes, "bfloat16")[0]
+            add(f"{kind}_bf16", batch, count, dict(
+                ms=kb_ms, default_ms=d_ms, plain_ms=pb_ms, library_ms=lb_ms,
+                bound_ms=bound, gemm=gemm, elem=elem, bytes=nbytes,
+                err=db_abs, dtype="bfloat16"))
+            log(line + f" {rb:.1e} {steps:.2f} {share:.1e} (cast "
+                f"skipped: {skip[0]:.2f} {skip[1]:.1e}) {amp} "
+                f"({outside} of {first(yb).numel()}"
+                f" outside rtol {AMP_RTOL}/atol {AMP_ATOL}) {kb_ms:.4f} | "
+                f"{p32:.4f} {l32:.4f} {pb_ms:.4f} {lb_ms:.4f}")
+    for (name, batch), (st, sh, skip_sh, skip_st) in sorted(
+            bf16_read.items()):
+        log(f"  {name} at batch {batch} against its twin: at most "
+            f"{st:.2f} bf16 steps of the largest, {sh:.2e} of the elements "
+            f"differing (limits {BF16_TWIN_STEPS}, {BF16_TWIN_SHARE:.0e}); "
+            f"float32's y rounded to bf16: at least {skip_sh:.2e} "
+            f"differing, {skip_st:.2f} steps | {card}")
+    for (name, batch), t in sorted(sums.items()):
+        t["bound_ms"], t["bound_by"], _ = bn_bound_ms(
+            t["gemm"], t["elem"], t["bytes"], t["dtype"])
+        log(f"  {name} at batch {batch}: {t['shapes']} shapes "
+            f"({t['convs']} convs a forward), "
+            f"{t['ms']:.3f} ms per {'forward' if 'affine' in name else 'step'}"
+            f" (the default kernel {t['default_ms']:.3f}), plain "
+            f"{t['plain_ms']:.3f}, cuDNN {t['library_ms']:.3f}, bound "
+            f"{t['bound_ms']:.3f} ({t['bound_by']}), max abs err vs twin "
+            f"{t['max_abs_err']:.3e} | {card}")
+    return sums
+
+
+def variant_tables(at, keys):
+    """Two routing tables over the conv_bn dispatches ``keys`` (a
+    ``capture()``): every key that offers pallas_db routed to it, and every
+    key that offers pallas_bf16 routed to it."""
+    db, bf = at.TuneTable(), at.TuneTable()
+    for kernel, key, names in keys:
+        if kernel == "conv_bn" and "pallas_db" in names:
+            db.set(kernel, key, "pallas_db")
+        if kernel == "conv_bn" and "pallas_bf16" in names:
+            bf.set(kernel, key, "pallas_bf16")
+    return db, bf
+
+
+def offering(keys, variant, batch=None):
+    """The conv_bn dispatches in ``keys`` that offer ``variant`` (at x's
+    ``batch``, where given)."""
+    return sum(1 for kernel, key, names in keys
+               if kernel == "conv_bn" and variant in names
+               and (batch is None or dict(key)["x"][0] == batch))
+
+
+@contextlib.contextmanager
+def routed_by(fluid, at, table, bf16=False):
+    """Route by ``table``, attached process-wide (an engine without a
+    table of its own follows it), with the bf16 opt-in as given; None
+    routes statically."""
+    if table is None:
+        yield
+        return
+    at.attach_table(table, merge=False)
+    fluid.set_flags({"kernel_autotune_bf16": bf16})
+    try:
+        yield
+    finally:
+        at.detach_table()
+        fluid.set_flags({"kernel_autotune_bf16": False})
+
+
+def phase_fleet(torch, fluid, seed, card, serving, gen):
+    """Phase 27 (see FLEET_*, TUNE_*): publish, tune and warm ResNet-50 in
+    a ModelRegistry; first replies of a spawned replica with the warm cache
+    off, on a fill and on a hit; FLEET_REPLICAS replicas through
+    FleetClient bitwise the in-process engine, a rolling reload, a failed
+    canary's rollback and a FaultPlan kill and rejoin; B.1's variants on
+    the main path (ResNet-50 served at FLEET_BUCKETS and trained a step at
+    TRAIN_BATCH under a table of pallas_db, bitwise the default, and of
+    pallas_bf16, each bf16 launch replayed through its plain version);
+    the LM lane published with its KV prompts and decoded after a
+    spill-hit attach; obs.perf.attribute of ResNet-50 at batch 1. Before
+    the main path's counts start, the tuner times ResNet-50's conv_bn keys
+    at TUNE_KEYS; after they are read, B.1's variants are held against
+    their twins and timed. Returns {kernel: launches on the main path} and
+    the variants' sums."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import FaultPlan
+    from paddle_tpu_torch.obs import perf
+    from paddle_tpu_torch.ops import autotune as at
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import build
+    from paddle_tpu_torch.ops.cuda import conv_bn as cbk
+    from paddle_tpu_torch.ops.cuda import optimizer as opk
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import (CanaryFailed, FleetClient,
+                                          FleetSupervisor, GenClient,
+                                          GenerationEngine, InferenceEngine,
+                                          ModelRegistry, ModelServer)
+
+    log(f"\n== phase 27: fleet — ResNet-50 through a ModelRegistry and "
+        f"{FLEET_REPLICAS} spawned replicas, the tuner's conv_bn variants, "
+        f"the LM lane's KV spill tier | {card} ==")
+    t_phase = time.perf_counter()
+    missing = [n for n in KERNELS if not build.library_path(n).exists()]
+    if missing:
+        fail(f"phase 27 spawns replicas that must find every kernel built "
+             f"in the parent; missing {missing}")
+    log(f"every kernel library built once in the parent (phase 1): "
+        f"{len(KERNELS)} under {build.BUILD_DIR}")
+    work = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    buckets = ",".join(str(b) for b in FLEET_BUCKETS)
+    v1_dir = serving["dir"]
+    v2_dir = os.path.join(work, "v2")
+    shutil.copytree(v1_dir, v2_dir)
+    bias = [n for n in os.listdir(v2_dir)
+            if n.startswith("fc_") and n.endswith(".w_1.npy")]
+    if len(bias) != 1:
+        fail(f"the ResNet-50 bundle holds fc biases {bias}, want one")
+    arr = np.load(os.path.join(v2_dir, bias[0]))
+    np.save(os.path.join(v2_dir, bias[0]), arr + np.float32(FLEET_V2_SHIFT))
+    v3_dir = os.path.join(work, "v3")
+    shutil.copytree(v1_dir, v3_dir)
+    with open(os.path.join(v3_dir, "__model__"), "w") as f:
+        f.write("not a model")
+    feeds = {n: fleet_feed(np, seed, n) for n in FLEET_BUCKETS}
+
+    # ---- set-up: v1 published with its tuning table (the tuner's
+    # launches time variants, off the main path's counts) ----
+    perf.COMPILE_LOG.clear()
+    reg = ModelRegistry(os.path.join(work, "registry"))
+    t0 = time.perf_counter()
+    v1 = reg.publish("resnet50", v1_dir, warm_cache=True,
+                     tune={"repeats": TUNE_REPEATS, "inner": TUNE_INNER},
+                     warm_kwargs={"buckets": buckets})
+    publish_s = time.perf_counter() - t0
+    m1 = reg.manifest("resnet50", v1)
+    table = at.resolve_store(reg.resolve("resnet50", v1)[0]).load()
+    if table is None or not m1.get("warm_files") or not m1.get("tune_files"):
+        fail(f"v1 published without its sidecars: warm {m1.get('warm_files')}"
+             f", tune {m1.get('tune_files')}")
+    chosen = {}
+    for (kernel, _ks), e in table.entries.items():
+        chosen[e["variant"]] = chosen.get(e["variant"], 0) + 1
+    log(f"published v{v1} in {publish_s:.2f} s (tune + warm of buckets "
+        f"{buckets}): {len(m1['warm_files'])} warm executables, "
+        f"{len(table.entries)} tuned conv_bn keys, winners {chosen}; "
+        f"manifest kernel_tier {m1['kernel_tier']}; compile log "
+        f"{json.dumps(perf.COMPILE_LOG.stats()['by_site'])}")
+    reg.verify("resnet50", v1)
+    v2 = reg.publish("resnet50", v2_dir)
+    v3 = reg.publish("resnet50", v3_dir)
+    path1, _ = reg.resolve("resnet50", v1)
+    path2, _ = reg.resolve("resnet50", v2)
+
+    # ---- the tuner over ResNet-50's conv_bn keys (B.1) ----
+    main_t, startup_t, loss_t = build_resnet50_train(fluid, seed)
+    captured, by_batch = variant_keys(fluid, cbk, at, main_t)
+    fluid.set_flags({"kernel_autotune_bf16": True})
+    try:
+        t1 = time.perf_counter()
+        tuned = at.Tuner(repeats=TUNE_REPEATS, inner=TUNE_INNER).tune(
+            captured)
+        tune_s = time.perf_counter() - t1
+    finally:
+        fluid.set_flags({"kernel_autotune_bf16": False})
+    log(f"\n  the tuner over {len(tuned.entries)} conv_bn keys at "
+        f"(batch, is_test) {list(TUNE_KEYS)} in {tune_s:.2f} s (bf16 "
+        "opted in); key: winner, ms by variant")
+    wins = {}
+    for (kernel, ks), e in sorted(tuned.entries.items()):
+        k = dict(json.loads(ks))
+        wins[e["variant"]] = wins.get(e["variant"], 0) + 1
+        log(f"  x{k['x']} w{k['w']} s{k['strides'][0]} test={k['is_test']}"
+            f": {e['variant']} " + " ".join(
+                f"{v}={ms:.4f}" for v, ms in sorted(e["timings_ms"].items())))
+    log(f"  winners {wins} | {card}")
+    plain = [k for k, key, names in captured
+             if "pallas" in names and tuned.lookup(k, key) == "jnp"]
+    if plain:
+        fail(f"the tuner chose the plain chain for {len(plain)} keys the "
+             "kernel runs")
+
+    # ---- the main path: counts from 0 ----
+    cbk.reset_launches()
+    opk.reset_launches()
+    pak.reset_launches()
+    tier.reset_fallback_counts()
+    eng1 = InferenceEngine(path1, buckets=buckets, exec_cache=False)
+    with at.capture() as served_keys:
+        eng1.warmup()
+    want1 = {n: eng1.infer(feeds[n])[0] for n in FLEET_BUCKETS}
+    # v1's table holds every key served, and names the plain chain only
+    # where the kernel cannot run
+    bad = [(dict(key)["x"], dict(key)["w"], table.lookup(kernel, key))
+           for kernel, key, names in served_keys if kernel == "conv_bn"
+           and (table.lookup(kernel, key) is None
+                or ("pallas" in names
+                    and table.lookup(kernel, key) == "jnp"))]
+    if bad:
+        fail(f"v1's tuning table on the served keys: {bad[:3]} "
+             f"({len(bad)} keys missing or routed to the plain chain)")
+    eng2 = InferenceEngine(path2, buckets=buckets, exec_cache=False)
+    eng2.warmup()
+    want2 = {n: eng2.infer(feeds[n])[0] for n in FLEET_BUCKETS}
+    if eng1.stats()["tune_digest"] != table.digest():
+        fail("the in-process engine did not attach v1's tuning table")
+    if any(np.array_equal(want1[n], want2[n]) for n in FLEET_BUCKETS):
+        fail("v2 replies as v1 does: the shifted bias did not reach it")
+
+    # ---- first replies: cache off, a fill, a hit ----
+    firsts = {}
+    fluid.set_flags({"serving_exec_cache": False})
+    try:
+        t0 = time.monotonic()
+        with FleetSupervisor(reg, "resnet50", version=v1, n_replicas=1,
+                             buckets=buckets) as sup:
+            firsts["off"] = first_replies(sup, t0, feeds[1])
+            st = sup.replica_stats()[0]
+            if st is None or st["engine"]["exec_cache"] is not None:
+                fail(f"cache-off replica: stats {st and st['engine']}")
+    finally:
+        fluid.set_flags({"serving_exec_cache": True})
+    fluid.set_flags({"serving_exec_cache_dir": os.path.join(work, "local")})
+    try:
+        t0 = time.monotonic()
+        with FleetSupervisor(reg, "resnet50", version=v2, n_replicas=1,
+                             buckets=buckets) as sup:
+            firsts["fill"] = first_replies(sup, t0, feeds[1])
+            st = sup.replica_stats()[0]
+            ec = st and st["engine"]["exec_cache"]
+            if not ec or ec["saves"] != len(FLEET_BUCKETS):
+                fail(f"fill replica: exec cache {ec}")
+    finally:
+        fluid.set_flags({"serving_exec_cache_dir": ""})
+
+    # ---- the fleet: warm replicas, the router, reload, canary, kill ----
+    problems = []
+    t0 = time.monotonic()
+    with FleetSupervisor(reg, "resnet50", version=v1,
+                         n_replicas=FLEET_REPLICAS, buckets=buckets,
+                         fault_plans={1: FaultPlan().die("stats", 2)}) \
+            as sup:
+        firsts["hit"] = first_replies(sup, t0, feeds[1])
+        log(f"first reply of a spawned replica (spawn, torch import, "
+            f"bundle load, warmup, bind, one batch-1 request), s: cache off "
+            f"{firsts['off']}, fill {firsts['fill']}, hit "
+            f"{firsts['hit']} ({FLEET_REPLICAS} replicas started together)"
+            f" | {card}")
+        if None in firsts["off"] + firsts["fill"] + firsts["hit"]:
+            fail(f"a replica never answered: {firsts}")
+        with FleetClient(sup.addresses, probe_interval_ms=100) as fc:
+            lat = {}
+            for n in FLEET_BUCKETS:
+                for _ in range(FLEET_REQUESTS):
+                    t1 = time.perf_counter()
+                    got = fc.infer(feeds[n])[0]
+                    lat.setdefault(n, []).append(
+                        (time.perf_counter() - t1) * 1e3)
+                    if not np.array_equal(got, want1[n]):
+                        fail(f"fleet reply at batch {n} differs from the "
+                             f"in-process engine's (max "
+                             f"{np.abs(got - want1[n]).max():.3e})")
+            stats = sup.replica_stats()                  # stats call 0
+            replica_launches = {}
+            for i, st in stats.items():
+                e = st and st["engine"]
+                kl = e and e["kernel_launches"]
+                n = kl and kl["conv_affine"] + kl["conv_affine_db"]
+                replica_launches[i] = kl
+                # every dispatch of a replica is one forward at its bucket
+                if not n or n != KERNEL_CONVS * e["dispatches"] \
+                        or e["warm_loaded"] != len(FLEET_BUCKETS) \
+                        or e["tune_digest"] != table.digest():
+                    fail(f"replica {i}: conv_affine launches {kl} in "
+                         f"{e and e['dispatches']} forwards (want "
+                         f"{KERNEL_CONVS} a forward), warm loaded "
+                         f"{e and e['warm_loaded']}, tune digest "
+                         f"{e and e['tune_digest']}")
+            log(f"fleet replies at batches {list(FLEET_BUCKETS)} bitwise the "
+                f"in-process engine's; client latency ms "
+                f"{ {n: [round(v, 2) for v in lat[n]] for n in lat} }; "
+                f"kernel launches in the replicas {replica_launches}")
+            errs, stop = [], threading.Event()
+
+            def hammer():
+                while not stop.is_set():
+                    try:
+                        y = fc.infer(feeds[1])[0]
+                        if not (np.array_equal(y, want1[1])
+                                or np.array_equal(y, want2[1])):
+                            errs.append("a reply of neither version")
+                    except Exception as e:
+                        errs.append(f"{type(e).__name__}: {e}")
+            th = threading.Thread(target=hammer)
+            th.start()
+            t1 = time.perf_counter()
+            try:
+                sup.rolling_reload(v2, wait_timeout=FLEET_READY_S)
+            finally:
+                stop.set()
+                th.join()
+            reload_s = time.perf_counter() - t1
+            if errs:
+                fail(f"requests failed during the rolling reload: {errs[:3]}")
+            for n in FLEET_BUCKETS:
+                if not np.array_equal(fc.infer(feeds[n])[0], want2[n]):
+                    fail(f"after the reload the batch-{n} reply is not v2's")
+            versions = {i: st and st["version"]
+                        for i, st in sup.replica_stats().items()}  # call 1
+            if set(versions.values()) != {v2}:
+                fail(f"replica versions after the reload: {versions}")
+            try:
+                sup.rolling_reload(v3, wait_timeout=FLEET_READY_S)
+                fail("the corrupt v3's canary passed")
+            except CanaryFailed as e:
+                if e.rolled_back_to != v2 or sup.version != v2:
+                    fail(f"canary rollback to {e.rolled_back_to}, fleet on "
+                         f"{sup.version}")
+            log(f"rolling reload v{v1} -> v{v2} in {reload_s:.2f} s under "
+                f"traffic, no request failed; the corrupt v{v3}'s canary "
+                f"failed and rolled back to v{v2}")
+            t1 = time.monotonic()
+            sup.replica_stats()                          # call 2: dies
+            deadline = t1 + FLEET_READY_S
+            while time.monotonic() < deadline and not (
+                    sup.restarts[1] >= 1 and sup.ready_count() == 2):
+                time.sleep(0.2)
+            rejoin_s = time.monotonic() - t1
+            h = sup.replica_health(1)
+            if sup.restarts != [0, 1] or h is None or h["version"] != v2:
+                fail(f"FaultPlan kill of replica 1: restarts {sup.restarts},"
+                     f" health {h}")
+            for n in FLEET_BUCKETS:
+                if not np.array_equal(fc.infer(feeds[n])[0], want2[n]):
+                    fail(f"after the rejoin the batch-{n} reply is not v2's")
+            log(f"replica 1 killed by its FaultPlan (3rd stats call) and "
+                f"back on v{v2} in {rejoin_s:.2f} s; fleet stats "
+                f"{json.dumps(fc.fleet_stats(include_server_stats=False))}")
+
+    # ---- B.1's variants on the main path: served and trained under a
+    # table that routes every key offering the variant to it ----
+    eng_v = InferenceEngine(v1_dir, buckets=buckets, exec_cache=False)
+    eng_v.warmup()
+    s_db, s_bf = variant_tables(at, served_keys)
+    c0 = cbk.launches["conv_affine_db"]
+    with routed_by(fluid, at, s_db):
+        got = {n: eng_v.infer(feeds[n])[0] for n in FLEET_BUCKETS}
+    n_db = cbk.launches["conv_affine_db"] - c0
+    if not n_db or n_db != offering(served_keys, "pallas_db") or any(
+            not np.array_equal(got[n], want1[n]) for n in FLEET_BUCKETS):
+        fail(f"served under the pallas_db table: {n_db} conv_affine_db "
+             f"launches, want {offering(served_keys, 'pallas_db')}; replies "
+             f"bitwise v1's: "
+             f"{[np.array_equal(got[n], want1[n]) for n in FLEET_BUCKETS]}")
+    found = {}
+    c0 = cbk.launches_by_dtype["conv_affine"].get("bfloat16", 0)
+    with routed_by(fluid, at, s_bf, True), \
+            replayed_through_plain(cbk, found, ("conv_affine",)):
+        yb = eng_v.infer(feeds[8])[0]
+    n_bf = cbk.launches_by_dtype["conv_affine"].get("bfloat16", 0) - c0
+    rec = found.get("conv_affine", dict(calls=0, dtypes=set(), rel=0.0,
+                                        at=None))
+    rows = np.abs(yb.sum(1) - 1).max() if yb.ndim == 2 else np.inf
+    vs32 = np.abs(yb - want1[8]).max() / np.abs(want1[8]).max()
+    log(f"B.1 served: ResNet-50 at batches {list(FLEET_BUCKETS)} under a "
+        f"table of pallas_db: {n_db} conv_affine_db launches, replies "
+        f"bitwise v1's; at batch 8 under a table of pallas_bf16: {n_bf} "
+        f"bf16 conv_affine launches, each on the program's own inputs "
+        f"within {rec['rel']:.3e} of its plain version (limit "
+        f"{REL_LIMIT['bfloat16']:.0e}), rows sum to 1 within {rows:.1e}, "
+        f"max|Δ|/max|ref| {vs32:.3e} from the float32 reply (a reading)")
+    if n_bf != KERNEL_CONVS \
+            or n_bf != offering(served_keys, "pallas_bf16", 8) \
+            or rec["calls"] != KERNEL_CONVS \
+            or rec["dtypes"] != {"bfloat16"} \
+            or not rec["rel"] <= REL_LIMIT["bfloat16"] \
+            or yb.shape != want1[8].shape or not np.isfinite(yb).all() \
+            or not rows <= 1e-4:
+        fail(f"served under the pallas_bf16 table: {n_bf} bf16 launches, "
+             f"replayed {rec['calls']} on {rec['dtypes']} worst "
+             f"{rec['rel']:.3e} at {rec['at']}, reply {yb.shape} rows "
+             f"{rows:.1e}")
+    exe_t = fluid.Executor()
+    init = fluid.Scope()
+    exe_t.run(startup_t, scope=init)
+    rng = np.random.RandomState(seed)              # phase 4's feed
+    tfeed = {"img": rng.normal(0, 1, (TRAIN_BATCH, IMAGE, IMAGE, 3))
+             .astype("float32"),
+             "label": rng.randint(0, CLASSES, (TRAIN_BATCH, 1))
+             .astype("int64")}
+    tblock = main_t.global_block()
+    update, = [op for op in tblock.ops if op.type == "fused_momentum"]
+    gnames = list(update.input("Grads"))
+    pnames = [p.name for p in tblock.all_parameters()]
+
+    def train_step(table=None, bf16=False):
+        """One step from the same initial scope: the loss and gradients,
+        then every parameter and running statistic after it."""
+        scope = copy_scope(fluid, torch, init)
+        with routed_by(fluid, at, table, bf16):
+            vals = exe_t.run(main_t, feed=tfeed,
+                             fetch_list=[loss_t] + gnames, scope=scope,
+                             return_numpy=False)
+        return list(vals) + [scope.find_var(n) for n in pnames]
+
+    # the default step twice and the pallas_db step, with cuDNN's
+    # deterministic algorithms for the plain convs: the db step must equal
+    # the default step on every tensor that the default step reproduces
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with at.capture() as train_keys:
+            base = train_step()
+        again = train_step()
+        t_db, t_bf = variant_tables(at, train_keys)
+        c0 = cbk.launches["conv_bn_train_db"]
+        dbs = train_step(t_db)
+        n_tdb = cbk.launches["conv_bn_train_db"] - c0
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    repro = [torch.equal(a, b) for a, b in zip(base, again)]
+    same = repro[0] and all(torch.equal(a, b)
+                            for a, b, r in zip(base, dbs, repro) if r)
+    unrepro = [n for n, r in zip(["loss"] + gnames + pnames, repro)
+               if not r]
+    log(f"B.1 trained: the default step at batch {TRAIN_BATCH} reproduces "
+        f"{sum(repro)} of its {len(repro)} tensors (loss, gradients, "
+        f"parameters after the step) bitwise under cudnn.deterministic; "
+        f"not: {unrepro[:6]}")
+    found = {}
+    c0 = cbk.launches_by_dtype["conv_bn_train"].get("bfloat16", 0)
+    with replayed_through_plain(cbk, found, ("conv_bn_train",)):
+        bfs = train_step(t_bf, True)
+    n_tbf = cbk.launches_by_dtype["conv_bn_train"].get("bfloat16", 0) - c0
+    rec = found.get("conv_bn_train", dict(calls=0, dtypes=set(), rel=0.0,
+                                          at=None))
+    loss0, lossb = base[0].item(), bfs[0].item()
+    finite = all(torch.isfinite(t).all().item() for t in bfs)
+    log(f"B.1 trained: a ResNet-50 step at batch {TRAIN_BATCH} under a "
+        f"table of pallas_db: {n_tdb} conv_bn_train_db launches, bitwise "
+        f"the default step on every tensor it reproduces: {same}; under a "
+        f"table of pallas_bf16: {n_tbf} bf16 conv_bn_train "
+        f"launches, each on the program's own inputs within "
+        f"{rec['rel']:.3e} of its plain version, loss {lossb:.6f} against "
+        f"{loss0:.6f}, all finite: {finite}")
+    if not n_tdb or n_tdb != offering(train_keys, "pallas_db") or not same:
+        fail(f"trained under the pallas_db table: {n_tdb} conv_bn_train_db "
+             f"launches (want {offering(train_keys, 'pallas_db')}), bitwise "
+             f"the default step: {same}")
+    if n_tbf != KERNEL_CONVS \
+            or n_tbf != offering(train_keys, "pallas_bf16") \
+            or rec["calls"] != KERNEL_CONVS \
+            or rec["dtypes"] != {"bfloat16"} \
+            or not rec["rel"] <= REL_LIMIT["bfloat16"] or not finite \
+            or not abs(lossb - loss0) <= REL_LIMIT["bfloat16"] * abs(loss0):
+        fail(f"trained under the pallas_bf16 table: {n_tbf} bf16 launches, "
+             f"replayed {rec['calls']} on {rec['dtypes']} worst "
+             f"{rec['rel']:.3e} at {rec['at']}, loss {lossb} against "
+             f"{loss0}, finite {finite}")
+    del base, again, dbs, bfs, init
+
+    # ---- the LM lane: KV prompts published, a spill-hit attach ----
+    system = list(range(1, GEN_SYSTEM + 1))
+    prompts = [system + [20 + j, 21 + j, 22 + j, 23 + j][:GEN_SUFFIX]
+               for j in range(FLEET_KV_REQUESTS)]
+    gopts = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                 num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN,
+                 prefill_buckets=(8, 32), prefix_cache_blocks=16)
+    lv = reg.publish("lm", gen["dir"], model_kind="generative",
+                     kv_prompts=[prompts[0]],
+                     warm_kwargs={"gen_opts": gopts})
+    lpath, _ = reg.resolve("lm", lv)
+    kv_files = reg.manifest("lm", lv).get("kv_files", {})
+    if len(kv_files) != GEN_SYSTEM // GEN_BLOCK:
+        fail(f"the LM's published kv/ holds {len(kv_files)} chain blocks, "
+             f"want {GEN_SYSTEM // GEN_BLOCK}")
+    hot = GenerationEngine(gen["dir"], kv_store=False, **gopts)
+    hot.warmup()
+    gen_drain(hot, prompts[0], GEN_PREFIX_NEW)
+    hot_toks = [gen_drain(hot, p, GEN_PREFIX_NEW) for p in prompts]
+    server = ModelServer(lpath, model_kind="generative", gen_opts=gopts)
+    server.start()
+    try:
+        eng = server.engine
+
+        def prefills():
+            return sum(s["dispatches"] for s in
+                       eng.stats()["phases"]["prefill"].values())
+        before, pa0 = prefills(), pak.launches["paged_attention"]
+        with GenClient(server.address) as gc:
+            spill_toks = [list(gc.generate(p, GEN_PREFIX_NEW))
+                          for p in prompts]
+        st = eng.stats()
+    finally:
+        server.shutdown()
+    kv = st["kv_store"]
+    pa_spill = pak.launches["paged_attention"] - pa0
+    if spill_toks != hot_toks or prefills() != before or \
+            kv["restores"] != GEN_SYSTEM // GEN_BLOCK or \
+            sum(kv["rejects"].values()) or not pa_spill:
+        fail(f"LM spill-hit attach: tokens equal the hot attach's "
+             f"{spill_toks == hot_toks}, prefill dispatches "
+             f"{prefills() - before}, restores {kv['restores']}, rejects "
+             f"{kv['rejects']}, paged_attention launches {pa_spill}")
+    log(f"LM lane v{lv} published with {len(kv_files)} KV chain blocks; a "
+        f"generative replica decoded {FLEET_KV_REQUESTS} prompts after a "
+        f"spill-hit attach: 0 prefill dispatches, {kv['restores']} blocks "
+        f"restored, {pa_spill} paged_attention launches, tokens bitwise the "
+        f"hot attach's")
+
+    def in_replicas(name):
+        return sum((kl or {}).get(name, 0)
+                   for kl in replica_launches.values())
+    launches = {
+        "conv_affine": cbk.launches["conv_affine"]
+        + in_replicas("conv_affine"),
+        "conv_affine_db": cbk.launches["conv_affine_db"]
+        + in_replicas("conv_affine_db"),
+        "conv_affine_bf16": cbk.launches_by_dtype["conv_affine"].get(
+            "bfloat16", 0),
+        "conv_bn_train": cbk.launches["conv_bn_train"],
+        "conv_bn_train_db": cbk.launches["conv_bn_train_db"],
+        "conv_bn_train_bf16": cbk.launches_by_dtype["conv_bn_train"].get(
+            "bfloat16", 0),
+        "conv_bn_bwd": cbk.launches["conv_bn_bwd"],
+        "momentum_arena": opk.launches["momentum_arena"],
+        "paged_attention": pak.launches["paged_attention"],
+        "replicas": replica_launches,
+    }
+    log(f"phase 27 main path launches: {json.dumps(launches)}")
+    for name in ("conv_affine", "conv_affine_db", "conv_affine_bf16",
+                 "conv_bn_train", "conv_bn_train_db", "conv_bn_train_bf16",
+                 "conv_bn_bwd", "momentum_arena", "paged_attention"):
+        if not launches[name]:
+            fail(f"phase 27's main path launched {name} no time")
+
+    # ---- attribute: ResNet-50's FLOPs at batch 1 ----
+    res = perf.attribute(eng1, batch=1, per_op=True)
+    gflop = res["cost"]["flops"] / 1e9
+    block = eng1.program.global_block()
+    analytic = 0
+    for op in block.ops:
+        if op.type in ("fused_conv2d_bn", "conv2d"):
+            w = block.var(op.input("Filter")[0]).shape
+            o = block.var(op.output("Output")[0]).shape
+            analytic += 2 * o[1] * o[2] * w[0] * w[1] * w[2] * w[3]
+        elif op.type == "mul":
+            k, n = block.var(op.input("Y")[0]).shape
+            analytic += 2 * k * n
+    top = sorted(res["kind_totals"].items(), key=lambda kv: -kv[1])[:3]
+    mb = res["cost"]["bytes_accessed"] / 1e6
+    log(f"obs.perf.attribute(ResNet-50, batch 1): {gflop:.3f} GFLOP over "
+        f"{res['instructions']} ops (analytic {analytic / 1e9:.3f}: convs "
+        f"and the fc at 2 a multiply-add; ~{2 * RESNET50_GMACS:.1f} from "
+        f"~{RESNET50_GMACS} G multiply-adds), {mb:.1f} MB of operands and "
+        f"results, the most by kind {top}, "
+        f"{res['compile_seconds'] * 1e3:.2f} ms")
+    if res["cost"]["flops"] != analytic:
+        fail(f"attribute counted {res['cost']['flops']} FLOPs, the analytic "
+             f"count is {analytic}")
+    prof = perf.profile(lambda: eng1.infer(feeds[8]), steps=3, warmup=1)
+    top3 = [(t["name"][:40], round(t["us_per_step"], 1))
+            for t in prof["top"][:3]]
+    log(f"obs.perf.profile(a batch-8 request, 3 steps): "
+        f"{prof['busy_us_per_step'] / 1e3:.3f} ms of device time a step in "
+        f"{prof['wall_s_per_step'] * 1e3:.3f}; launches {prof['launches']}"
+        f", their kernels' trace events {prof['kernel_events']}, complete "
+        f"{prof['complete']}; top (name, us a step) {top3}")
+
+    log("\n  B.1's variants against their twins (comparison launches, off "
+        "the main path's counts):")
+    sums = variant_checks(torch, cbk, by_batch, seed, card)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s | {card}")
+    return launches, sums
+
+
 def start_planted_ctc(build):
     """Start nvcc on a copy of csrc/ctc.cu with CTC_PLANT applied, under
     the build directory; records (source, library) in PLANTED_CTC and
@@ -9897,6 +10773,8 @@ def main():
     leg = phase_legacy(torch, fluid, args.seed, card)
     dep = phase_deploy(torch, fluid, args.seed, card)
     det = phase_detection(torch, fluid, args.seed, card)
+    fleet, variants = phase_fleet(torch, fluid, args.seed, card, serving,
+                                  gen)
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -9919,29 +10797,44 @@ def main():
 
     bf16_keys = ("bf16_ms", "bf16_plain_ms", "bf16_library_ms",
                  "bf16_bound_ms", "bf16_bound_by")
+
+    def variant(name, batch, other=None):
+        """Phase 27's sums of a B.1 variant at ``batch`` (and, with
+        ``other``, that batch's under a ``b<other>_`` prefix)."""
+        t = dict(variants[name, batch])
+        if other is not None:
+            o = variants[name, other]
+            for k in ("ms", "default_ms", "plain_ms", "library_ms",
+                      "bound_ms", "bound_by"):
+                t[f"b{other}_{k}"] = o[k]
+        return t
+    variant_keys_ = ("default_ms", "b1_ms", "b1_default_ms", "b1_plain_ms",
+                     "b1_library_ms", "b1_bound_ms", "b1_bound_by")
     l12_keys = ("l12_ms", "l12_plain_ms", "l12_bound_ms")
     kernels = [
         entry("conv_affine", "conv_affine.cu", "pallas/conv_bn.py:261",
               launches + srv_launches + amp["conv_affine"]
-              + rt["conv_affine"] + dep["conv_affine"],
+              + rt["conv_affine"] + dep["conv_affine"]
+              + fleet["conv_affine"],
               with_bf16(totals, "conv_affine"), bf16_keys),
         entry("conv_bn_train", "conv_bn_train.cu", "pallas/conv_bn.py:191",
               train_launches["conv_bn_train"] + rec["conv_bn_train"]
               + amp["conv_bn_train"] + rt["conv_bn_train"]
-              + dep["conv_bn_train"],
+              + dep["conv_bn_train"] + fleet["conv_bn_train"],
               with_bf16(train_totals["conv_bn_train"], "conv_bn_train"),
               bf16_keys),
         entry("conv_bn_bwd", "conv_bn_bwd.cu", "pallas/conv_bn.py:379",
               train_launches["conv_bn_bwd"] + rec["conv_bn_bwd"]
               + amp["conv_bn_bwd"] + rt["conv_bn_bwd"]
-              + dep["conv_bn_bwd"],
+              + dep["conv_bn_bwd"] + fleet["conv_bn_bwd"],
               with_bf16(train_totals["conv_bn_bwd"], "conv_bn_bwd"),
               bf16_keys),
         entry("momentum_arena", "optimizer_arena.cu",
               "pallas/optimizer.py:111",
               train_launches["momentum_arena"] + rec["momentum_arena"]
               + amp["momentum_arena"] + rt["momentum_arena"]
-              + dep["momentum_arena"] + det["momentum_arena"],
+              + dep["momentum_arena"] + det["momentum_arena"]
+              + fleet["momentum_arena"],
               train_totals["momentum_arena"], ("kernel_device_ms",)),
         entry("lstm_seq", "lstm_seq.cu", "pallas/rnn.py:124",
               rnn_launches["lstm_seq"] + rec["lstm_seq"] + amp["lstm_seq"]
@@ -9984,10 +10877,22 @@ def main():
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",
               gen_launches + srv_gen_launches + rt["paged_attention"]
-              + lm["paged_attention"],
+              + lm["paged_attention"] + fleet["paged_attention"],
               paged_totals["paged_attention"],
               ("llama_ms", "llama_bound_ms", "llama_4096_ms",
                "llama_4096_bound_ms")),
+        entry("conv_affine_db", "conv_affine.cu", "pallas/conv_bn.py:261",
+              fleet["conv_affine_db"], variant("conv_affine_db", 8, 1),
+              variant_keys_),
+        entry("conv_affine_bf16", "conv_affine.cu", "pallas/conv_bn.py:261",
+              fleet["conv_affine_bf16"], variant("conv_affine_bf16", 8, 1),
+              variant_keys_),
+        entry("conv_bn_train_db", "conv_bn_train.cu",
+              "pallas/conv_bn.py:191", fleet["conv_bn_train_db"],
+              variant("conv_bn_train_db", TRAIN_BATCH), ("default_ms",)),
+        entry("conv_bn_train_bf16", "conv_bn_train.cu",
+              "pallas/conv_bn.py:191", fleet["conv_bn_train_bf16"],
+              variant("conv_bn_train_bf16", TRAIN_BATCH), ("default_ms",)),
     ]
     log("phase 14 summary: " + json.dumps(srv_summary))
     print(json.dumps({"kernels": kernels}))

@@ -3,14 +3,16 @@ only the flags the ported paths read: the executor's debug and metering
 flags (``check_nan_inf``, ``benchmark``, ``obs_op_metrics``), the program
 verifier's (``verify_passes``, ``executor_verify``), ``kernel_tier``,
 ``serving_batch_buckets``, the generation-serving flags (reference
-:216-330, without the KV spill tier's ``serving_kv_spill_dir`` and
-``serving_kv_spill_bytes``), the serving front door's (``rpc_timeout_s``,
+:216-330), the serving front door's (``rpc_timeout_s``,
 ``serving_max_delay_ms``, ``serving_max_models`` and the tenant quota
 flags), the parameter server's (``pserver_barrier_timeout_s``,
 ``pserver_trainer_lease_s``, ``pserver_wire_dtype``) and the observability
 plane's (``obs_metrics_window``, ``obs_slo_interval_s``,
-``obs_flight_events``, ``obs_incident_dir``), each with the reference's
-default."""
+``obs_flight_events``, ``obs_incident_dir``), the serving fleet's and
+the perf plane's (``serving_fleet_replicas``, ``serving_probe_interval_ms``,
+``serving_probation_probes``, ``serving_exec_cache*``,
+``serving_kv_spill_*``, ``serving_autoscale_*``, ``obs_compile_*``,
+``kernel_autotune*``), each with the reference's default."""
 
 from __future__ import annotations
 
@@ -256,3 +258,132 @@ DEFINE_flag("serving_max_seqs", 8,
             "decode slots in the generation engine's one fixed-shape "
             "[max_seqs, 1] decode dispatch: the bound on concurrent "
             "in-flight sequences")
+
+DEFINE_flag("serving_fleet_replicas", 2,
+            "default replica count for serving.FleetSupervisor: how many "
+            "supervised ModelServer child processes serve one registry "
+            "model (each on a fixed address, restarted from the "
+            "registry's current version on crash)")
+
+DEFINE_flag("serving_probe_interval_ms", 100.0,
+            "how often the serving FleetClient's background prober "
+            "health-checks EJECTED replicas (healthy replicas are not "
+            "probed — real traffic is their probe)")
+
+DEFINE_flag("serving_probation_probes", 2,
+            "consecutive successful health probes an ejected replica "
+            "must pass before the FleetClient re-admits it to the "
+            "routing set — one lucky probe doesn't un-eject a flapping "
+            "replica")
+
+DEFINE_flag("serving_exec_cache", True,
+            "whether serving engines LOAD persisted warm executables "
+            "(serving/execcache.py: a torch.export program of one bucket "
+            "and fetch list, the kernels kept as torch.library operators): "
+            "a bundle's published warm/ artifacts (read-only) or the "
+            "serving_exec_cache_dir local cache. Every artifact is "
+            "fingerprint-checked (bundle content hash, feed shapes/dtypes, "
+            "kernel_tier and the autotune flags, torch and CUDA versions, "
+            "device name and capability, the TF32 switches, the kernel "
+            "sources' hashes) — any mismatch is a silent miss followed by "
+            "the eager path. False = always run eagerly, the pre-cache "
+            "behavior even on warmed bundles")
+
+DEFINE_flag("serving_exec_cache_dir", "",
+            "per-process READ-WRITE warm-executable cache directory for "
+            "bundles without published warm/ artifacts: engine warmup "
+            "exports and saves each executable there and later engines on "
+            "the same bundle bytes load instead. Empty (default) disables "
+            "the local cache; published registry versions use their own "
+            "<version>/warm/ dir regardless (see ModelRegistry.warm / "
+            "publish(warm_cache=True))")
+
+DEFINE_flag("serving_kv_spill_dir", "",
+            "per-process READ-WRITE persistent KV-prefix spill directory "
+            "(serving/generate/kvstore.py): when set, the paged arena's "
+            "LRU eviction DEMOTES refcount-0 registered prefix blocks to "
+            "this host-RAM/disk tier instead of discarding them, and "
+            "attach_prefix restores spilled blocks into the arena with "
+            "zero prefill steps on a hash-chain hit. Every artifact is "
+            "fingerprint-checked (bundle content hash, arena geometry, "
+            "kernel_tier, torch and CUDA versions, device) — any mismatch "
+            "is a silent miss followed by a normal prefill. Empty "
+            "(default) disables spilling; published registry versions use "
+            "their own <version>/kv/ dir regardless (see "
+            "ModelRegistry.warm / publish(kv_prompts=...))")
+
+DEFINE_flag("serving_kv_spill_bytes", 0,
+            "byte budget for the serving_kv_spill_dir tier: when > 0, "
+            "writing a KV artifact that would push the directory past the "
+            "budget first evicts the oldest artifacts (mtime order) until "
+            "the new one fits; an artifact bigger than the whole budget "
+            "is not written at all. 0 (default) = unbounded. Published "
+            "<version>/kv/ dirs are read-only and never evict")
+
+DEFINE_flag("serving_autoscale_min_replicas", 1,
+            "floor the serving FleetAutoscaler never scales below: "
+            "idle polls retire replicas one at a time down to this "
+            "count and no further")
+
+DEFINE_flag("serving_autoscale_max_replicas", 4,
+            "ceiling the serving FleetAutoscaler never scales above: "
+            "a burning SLO rule spawns replicas one canary-gated step "
+            "at a time up to this count and no further")
+
+DEFINE_flag("serving_autoscale_queue_depth", 8.0,
+            "objective for the FleetAutoscaler's default SLO rule: the "
+            "fleet-summed paddle_tpu_server_queue_depth a replica set "
+            "should stay under. Sustained burn over the rule's windows "
+            "triggers a warm scale-out; zero depth with zero burn "
+            "counts toward scale-in idle polls")
+
+DEFINE_flag("serving_autoscale_idle_polls", 3,
+            "consecutive idle FleetAutoscaler polls (no burning rule, "
+            "empty fleet queues) before ONE replica is retired — "
+            "scale-in damping so a burst lull doesn't thrash the fleet")
+
+DEFINE_flag("obs_compile_log", 256,
+            "capacity of the per-process obs.perf CompileLog ring: how "
+            "many recent CompileRecords (site, wall seconds, executable "
+            "identity) are retained for stats(); 0 disables compile "
+            "telemetry entirely (no histogram observations, no records, "
+            "no 'compile' flight events). The port's compiles are a "
+            "signature's first eager dispatch, a torch.export trace, an "
+            "artifact load and an nvcc kernel build")
+
+DEFINE_flag("obs_compile_cost", False,
+            "harvest FLOPs into each CompileRecord: the port counts them "
+            "with torch.utils.flop_counter.FlopCounterMode over the "
+            "compiled dispatch (obs.perf.attribute), which runs it a "
+            "second time — a profiling-session switch, off by default")
+
+DEFINE_flag("kernel_autotune", True,
+            "consult the attached kernel-tuning table (ops.autotune) "
+            "when routing tunable kernels under kernel_tier=auto; off "
+            "means pure static routing even with a table attached")
+
+DEFINE_flag("kernel_autotune_dir", "",
+            "local directory of kernel-tuning-table artifacts "
+            "(.jtune) consulted read-only when an engine's bundle has "
+            "no published tune/ dir; empty (default) disables the "
+            "local-dir fallback. The attached table's identity is "
+            "carried by kernel_autotune_digest")
+
+DEFINE_flag("kernel_autotune_digest", "",
+            "content digest of the process-wide ATTACHED kernel-tuning "
+            "table; set and cleared by ops.autotune.attach_table/"
+            "detach_table, not by hand. An engine routing by its own "
+            "bundle's table carries that table's digest instead; either "
+            "flows into execcache fingerprints (a warm executable "
+            "exported under table X never loads where table Y routes)")
+
+DEFINE_flag("kernel_autotune_bf16", False,
+            "allow the tuner to consider, and tuned dispatch to "
+            "select, bf16-flagged kernel variants (value-changing "
+            "reduced-precision activations, e.g. conv_bn pallas_bf16). "
+            "Off (default) keeps every tunable selection bitwise "
+            "against static routing: a table then picks among the "
+            "float32 kernel variants (pallas, pallas_db, bitwise the "
+            "same) where the kernel runs, and the plain chain only "
+            "where it cannot; a table entry naming a bf16 variant is "
+            "ignored without this opt-in")

@@ -160,13 +160,16 @@ conv_affine_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
 template <typename T>
 int launch(const void* x, const float* w, void* wt, const float* a,
-           const float* b, void* y, const ConvGeom& g, int relu,
+           const float* b, void* y, const ConvGeom& g, int relu, int tile_arg,
            cudaStream_t st) {
+  const long long M = (long long)g.N * g.Ho * g.Wo;
+  const bool vec = vec_ok<T>(g.Cin, g.Cout);
+  if (tile_arg != 0 && !(tile_arg == 128 && db_ok(M, g.Cout, vec)))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e0 =
       launch_taps<T, false>(w, static_cast<T*>(wt), nullptr, g, st);
   if (e0 != cudaSuccess) return (int)e0;
-  const long long M = (long long)g.N * g.Ho * g.Wo;
-  const TilePick tile = pick_tile(M, g.Cout, vec_ok<T>(g.Cin, g.Cout));
+  const TilePick tile = pick_tile_arg(M, g.Cout, vec, tile_arg);
   return with_tile<T, true>(tile, [&](auto tl) -> int {
     using TL = decltype(tl);
     constexpr int smem = conv_smem_bytes<TL>();
@@ -186,18 +189,32 @@ int launch(const void* x, const float* w, void* wt, const float* a,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. w is the OIHW float32 filter; wt
-// [kh*kw, Cin, Cout] in x's dtype (16-byte aligned) is scratch. Returns
-// the first launch error (0 = success).
+// [kh*kw, Cin, Cout] in x's dtype (16-byte aligned) is scratch. tile: 0 =
+// pick_tile's, 128 = the 128-row tile where pick_tile takes 64 (db_ok;
+// otherwise an error). The output is bitwise the same on either tile: a
+// block sums each element's K walk in one order, whatever its rows.
+// Returns the first launch error (0 = success).
 int conv_affine(const void* x, const float* w, void* wt, const float* a,
                 const float* b, void* y, int dtype, int N, int H, int W,
                 int Cin, int Cout, int kh, int kw, int stride, int ph,
-                int pw, int Ho, int Wo, int relu, void* stream) {
+                int pw, int Ho, int Wo, int relu, int tile, void* stream) {
   const ConvGeom g{N, H, W, Cin, Cout, kh, kw, stride, ph, pw, Ho, Wo};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, wt, a, b, y, g, relu, st);
+  if (dtype == 0)
+    return launch<float>(x, w, wt, a, b, y, g, relu, tile, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, wt, a, b, y, g, relu, st);
+    return launch<__nv_bfloat16>(x, w, wt, a, b, y, g, relu, tile, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 where tile 128 runs another tile than pick_tile's for this conv (db_ok),
+// in conv_affine and conv_bn_train alike: where the tuner's "pallas_db"
+// variant is offered. M = N * Ho * Wo output rows.
+int conv_db_ok(int dtype, int N, int Ho, int Wo, int Cin, int Cout) {
+  const long long M = (long long)N * Ho * Wo;
+  if (dtype == 0) return db_ok(M, Cout, vec_ok<float>(Cin, Cout));
+  if (dtype == 1) return db_ok(M, Cout, vec_ok<__nv_bfloat16>(Cin, Cout));
+  return 0;
 }
 
 }  // extern "C"

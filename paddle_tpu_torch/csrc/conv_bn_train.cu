@@ -43,6 +43,7 @@
 // allocates every buffer and passes its stream.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "conv_mma.cuh"
 
@@ -61,11 +62,19 @@ using namespace convmma;
 
 // z of the tile into y (x's dtype) and, per channel, the tile's mean and
 // its sum of squared deviations from it over the valid rows into part
-// [2, blocks_m, Cout]: rows in (mt, half) order, then lanes, then warps
-template <typename T, class TL>
+// [2, blocks_m, Cout]: rows in (mt, half) order, then lanes, then warps.
+// SPLIT (the two-image variant's 128-row tile, 4 x 2 warps of 32 rows):
+// the tile's two halves are two statistics blocks of 64 rows, each summed
+// in the order a 64-row tile (2 warps of 32 rows) sums it, so the partials,
+// and the statistics merged from them, are bitwise the default tile's.
+template <typename T, class TL, bool SPLIT>
 __global__ void __launch_bounds__(TL::THREADS, MIN_BLOCKS)
 conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
                   T* __restrict__ z, float* __restrict__ part, ConvGeom g) {
+  constexpr int NB = SPLIT ? 2 : 1;  // statistics blocks in the tile
+  constexpr int SB = TL::BM / NB;    // rows of a statistics block
+  static_assert(!SPLIT || (TL::BM == 128 && TL::WM == 32),
+                "a split tile's warps hold the 64-row tile's warp rows");
   extern __shared__ __align__(16) unsigned char smem[];
   const long long m0 = (long long)blockIdx.x * TL::BM;
   const int n0 = blockIdx.y * TL::BN;
@@ -75,7 +84,7 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
   const Frag<TL> f;
   float* red = reinterpret_cast<float*>(smem);  // WARPS_M x BN
-  float* bmean = red + TL::WARPS_M * TL::BN;     // BN
+  float* bmean = red + TL::WARPS_M * TL::BN;     // NB x BN
   const bool even = g.Cout % 2 == 0;
   float s[TL::NT][2] = {};
 #pragma unroll
@@ -93,11 +102,15 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
         s[nt][1] = __fadd_rn(s[nt][1], round_to<T>(acc[mt][nt][2 * h + 1]));
       }
     }
-  const long long left = M - m0;
-  const float rows = (float)(left < TL::BM ? left : TL::BM);
-  const float tot = column_sum<TL>(s, f, red);
-  if (threadIdx.x < TL::BN) bmean[threadIdx.x] = __fdiv_rn(tot, rows);
+  // this thread's statistics block (threads tid < NB * BN) and its rows
+  const int sb = threadIdx.x / TL::BN;
+  const long long left = M - m0 - (long long)sb * SB;
+  const float rows = (float)(left < SB ? left : SB);
+  const float tot = column_sum<TL, NB>(s, f, red);
+  if (threadIdx.x < NB * TL::BN)
+    bmean[threadIdx.x] = left > 0 ? __fdiv_rn(tot, rows) : 0.f;
   __syncthreads();
+  const float* my_mean = bmean + (f.wm0 / SB) * TL::BN;
   float q[TL::NT][2] = {};
 #pragma unroll
   for (int mt = 0; mt < TL::MT; ++mt)
@@ -109,16 +122,17 @@ conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const float d = __fsub_rn(round_to<T>(acc[mt][nt][2 * h + j]),
-                                    bmean[f.col(nt, j)]);
+                                    my_mean[f.col(nt, j)]);
           q[nt][j] = __fadd_rn(q[nt][j], __fmul_rn(d, d));
         }
     }
-  const float m2 = column_sum<TL>(q, f, red);
-  const int n = n0 + threadIdx.x;
-  if (threadIdx.x < TL::BN && n < g.Cout) {
-    const long long blocks_m = gridDim.x;
-    part[(long long)blockIdx.x * g.Cout + n] = bmean[threadIdx.x];
-    part[(blocks_m + blockIdx.x) * g.Cout + n] = m2;
+  const float m2 = column_sum<TL, NB>(q, f, red);
+  const int n = n0 + threadIdx.x % TL::BN;
+  if (threadIdx.x < NB * TL::BN && n < g.Cout && left > 0) {
+    const long long blocks_m = SPLIT ? (M + SB - 1) / SB : gridDim.x;
+    const long long b = (long long)blockIdx.x * NB + sb;
+    part[b * g.Cout + n] = bmean[threadIdx.x];
+    part[(blocks_m + b) * g.Cout + n] = m2;
   }
 }
 
@@ -211,26 +225,41 @@ bn_apply_kernel(T* __restrict__ y, const float* __restrict__ ab,
 template <typename T>
 int launch(const void* x, const float* w, void* wt, const float* scale,
            const float* bias, void* y, float* part, float* stats, float* ab,
-           const ConvGeom& g, int relu, float eps, cudaStream_t st) {
+           const ConvGeom& g, int relu, float eps, int tile_arg,
+           cudaStream_t st) {
   const long long M = (long long)g.N * g.Ho * g.Wo;
+  const bool vec = vec_ok<T>(g.Cin, g.Cout);
+  if (tile_arg != 0 && !(tile_arg == 128 && db_ok(M, g.Cout, vec)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e0 =
       launch_taps<T, false>(w, static_cast<T*>(wt), nullptr, g, st);
   if (e0 != cudaSuccess) return (int)e0;
-  const TilePick tile = pick_tile(M, g.Cout, vec_ok<T>(g.Cin, g.Cout));
+  // the statistics' row blocks are pick_tile's whatever the compute tile
+  const TilePick tile = pick_tile(M, g.Cout, vec);
   int blocks_m = 0;
-  int err = with_tile<T, true>(tile, [&](auto tl) -> int {
+  auto run = [&](auto tl, auto split) -> int {
     using TL = decltype(tl);
+    constexpr bool SPLIT = decltype(split)::value;
     constexpr int smem = conv_smem_bytes<TL>();
-    const cudaError_t e = allow_smem(conv_stats_kernel<T, TL>, smem);
+    const cudaError_t e = allow_smem(conv_stats_kernel<T, TL, SPLIT>, smem);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((unsigned)((M + TL::BM - 1) / TL::BM),
                     (unsigned)((g.Cout + TL::BN - 1) / TL::BN));
-    blocks_m = (int)grid.x;
-    conv_stats_kernel<T, TL><<<grid, TL::THREADS, smem, st>>>(
+    blocks_m = SPLIT ? (int)((M + 63) / 64) : (int)grid.x;
+    conv_stats_kernel<T, TL, SPLIT><<<grid, TL::THREADS, smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(wt),
         static_cast<T*>(y), part, g);
     return (int)cudaGetLastError();
-  });
+  };
+  int err;
+  if (tile_arg == 128) {
+    err = tile.bn == 128
+              ? run(Tile<T, 128, 128, true, true, 4>{}, std::true_type{})
+              : run(Tile<T, 128, 64, true, true>{}, std::true_type{});
+  } else {
+    err = with_tile<T, true>(
+        tile, [&](auto tl) -> int { return run(tl, std::false_type{}); });
+  }
   if (err != 0) return err;
   stats_finalize_kernel<<<(g.Cout + 31) / 32, 32 * LANES, 0, st>>>(
       part, blocks_m, tile.bm, M, g.Cout, scale, bias, eps, stats, ab);
@@ -265,21 +294,24 @@ int conv_bn_train_scratch(int dtype, int N, int H, int W, int Cin, int Cout,
 // dtype: 0 = float32, 1 = bfloat16. w is the OIHW float32 filter; wt
 // [kh*kw, Cin, Cout] in x's dtype (16-byte aligned) and part (float32,
 // conv_bn_train_scratch's size) are scratch; stats [2, Cout] (mean, var)
-// and ab [2, Cout] (the folded affine) are float32 outputs. Returns the
-// first launch error (0 = success).
+// and ab [2, Cout] (the folded affine) are float32 outputs. tile: 0 =
+// pick_tile's, 128 = the 128-row tile where pick_tile takes 64 (db_ok;
+// otherwise an error), whose statistics are bitwise the default's (the
+// SPLIT kernel). Returns the first launch error (0 = success).
 int conv_bn_train(const void* x, const float* w, void* wt, const float* scale,
                   const float* bias, void* y, float* part, float* stats,
                   float* ab, int dtype, int N, int H, int W, int Cin,
                   int Cout, int kh, int kw, int stride, int ph, int pw,
-                  int Ho, int Wo, int relu, float eps, void* stream) {
+                  int Ho, int Wo, int relu, float eps, int tile,
+                  void* stream) {
   const ConvGeom g{N, H, W, Cin, Cout, kh, kw, stride, ph, pw, Ho, Wo};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, w, wt, scale, bias, y, part, stats, ab, g, relu,
-                         eps, st);
+                         eps, tile, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, wt, scale, bias, y, part, stats, ab,
-                                 g, relu, eps, st);
+                                 g, relu, eps, tile, st);
   return (int)cudaErrorInvalidValue;
 }
 

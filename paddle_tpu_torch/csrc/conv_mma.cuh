@@ -155,12 +155,15 @@ __device__ __forceinline__ uint32_t pack2(unsigned short lo,
 
 // A GEMM tile: BM x BN outputs, 8 warps of WM x WN, each holding MT x NT
 // mma fragments. AK: A is K-contiguous in shared memory ([BM][BK], the
-// conv), else M-contiguous ([BK][BM], dw). VEC: 16-byte copies.
-template <typename T, int BM_, int BN_, bool AK, bool VEC_>
+// conv), else M-contiguous ([BK][BM], dw). VEC: 16-byte copies. WMF, where
+// not 0, sets the warps along M (conv_bn_train's two-image variant runs a
+// 128 x 128 tile as 4 x 2 warps of 32 rows, the 64-row tile's warp rows).
+template <typename T, int BM_, int BN_, bool AK, bool VEC_, int WMF = 0>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_;
   static constexpr bool VEC = VEC_;
-  static constexpr int WARPS_M = (BM == 128 && BN == 64) ? 4 : 2;
+  static constexpr int WARPS_M =
+      WMF ? WMF : ((BM == 128 && BN == 64) ? 4 : 2);
   static constexpr int WARPS_N = 8 / WARPS_M;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
@@ -193,6 +196,21 @@ inline TilePick pick_tile(long long M, int N, bool vec) {
   const int bn = N <= 64 ? 64 : 128;
   const long long tiles = (M + 127) / 128 * ((N + bn - 1) / bn);
   return {tiles < 132 ? 64 : 128, bn, true};
+}
+
+// The C entries' tile argument: 0 takes pick_tile's choice; 128 takes the
+// 128-row tile where pick_tile would take 64 rows, the counterpart of the
+// reference's two-image grid step (conv_bn.py block_n=2, the tuner's
+// "pallas_db" variant). db_ok says where the two differ; elsewhere the
+// variant is not offered (its C entries refuse the argument).
+inline bool db_ok(long long M, int N, bool vec) {
+  return vec && pick_tile(M, N, vec).bm == 64;
+}
+
+inline TilePick pick_tile_arg(long long M, int N, bool vec, int tile) {
+  TilePick p = pick_tile(M, N, vec);
+  if (tile == 128) p.bm = 128;
+  return p;
 }
 
 // The dw GEMM's tile (M = Cin, N = Cout): 64 along a side of at most 64
@@ -566,10 +584,15 @@ struct Frag {
 // (added in (mt, half) order by the caller) of column col(nt, j). The 8
 // lanes sharing a column add by shuffles, then the WARPS_M warps sharing it
 // in order through red (WARPS_M x BN floats of shared memory). Returns the
-// column tid's sum in threads tid < BN.
-template <class TL>
+// column tid's sum in threads tid < BN. With NB > 1 the tile's rows are NB
+// blocks of BM / NB rows (WARPS_M / NB warps each), summed apart: thread
+// tid < NB * BN gets block tid / BN's sum of column tid % BN, in the same
+// order a tile of BM / NB rows and WARPS_M / NB warps sums it.
+template <class TL, int NB = 1>
 __device__ __forceinline__ float column_sum(float (&s)[TL::NT][2],
                                             const Frag<TL>& f, float* red) {
+  static_assert(TL::WARPS_M % NB == 0, "whole warps per row block");
+  constexpr int WPB = TL::WARPS_M / NB;
 #pragma unroll
   for (int nt = 0; nt < TL::NT; ++nt)
 #pragma unroll
@@ -583,9 +606,11 @@ __device__ __forceinline__ float column_sum(float (&s)[TL::NT][2],
     }
   __syncthreads();
   float r = 0.f;
-  if (threadIdx.x < TL::BN)
-    for (int w = 0; w < TL::WARPS_M; ++w)
-      r = __fadd_rn(r, red[w * TL::BN + threadIdx.x]);
+  if (threadIdx.x < NB * TL::BN) {
+    const int b = threadIdx.x / TL::BN, c = threadIdx.x % TL::BN;
+    for (int w = b * WPB; w < (b + 1) * WPB; ++w)
+      r = __fadd_rn(r, red[w * TL::BN + c]);
+  }
   __syncthreads();
   return r;
 }

@@ -237,8 +237,9 @@ class ChildSupervisor:
       their checkpoints (heartbeat method ``stats``; the pserver path is
       numpy-only in-child, and the trainer that starts it may hold a CUDA
       context and running threads).
-    * the reference's serving fleet supervisor (inference replicas
-      restarting from a model registry), which is not ported yet.
+    * :class:`~..serving.fleet.FleetSupervisor` — inference replicas
+      restarting from a model registry (heartbeat method ``health``; each
+      replica imports torch and runs on the device its config names).
 
     ``startup_grace_s`` suppresses heartbeat-miss COUNTING for that long
     after each (re)spawn — a spawned replica pays a full interpreter +

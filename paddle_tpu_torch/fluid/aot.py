@@ -32,11 +32,19 @@ design (ROADMAP §C):
   device is absent raises, and nothing moves it to the CPU;
 * an LSTM or GRU exported on the kernel route serves a batch only inside
   the kernel's ``supported()`` range (``ops/cuda/rnn.py`` MAX_BATCH); the
-  reference serves any batch. ``run`` refuses a batch outside the range.
+  reference serves any batch. ``run`` refuses a batch outside the range;
+* the artifact carries the exporting process's TF32 switches
+  (``torch.backends.cuda.matmul.allow_tf32``,
+  ``torch.backends.cudnn.allow_tf32``; manifest key ``tf32``), which
+  change the traced plain matmuls' and cuDNN convs' bits on the card, and
+  ``run`` applies them around each call (restoring the caller's after),
+  so an artifact's replies do not depend on the loading process's
+  switches. An artifact without the key runs under the caller's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 
@@ -151,6 +159,7 @@ def export_inference_artifact(dirname, feeded_var_names, target_vars,
     torch.export.save(exported, tmp)
     os.replace(tmp, os.path.join(dirname, ARTIFACT_FILENAME))
     manifest = {
+        "tf32": _tf32(),
         "feeds": feed_meta,
         "fetches": fetch,
         "batch_symbol": batch_symbol,
@@ -249,13 +258,36 @@ class InferenceArtifact:
                 if -1 in spec["shape"] or None in spec["shape"]:
                     self._check_batch(int(t.shape[0]))
                 args.append(t.to(dev, torch_dtype(spec["dtype"])))
-        with torch.no_grad():
+        with torch.no_grad(), _tf32_as(self.manifest.get("tf32")):
             flat = list(self._module(*args))
         out = []
         for is_lod in self.manifest["fetch_lod"]:
             v = LoDArray(flat.pop(0), flat.pop(0)) if is_lod else flat.pop(0)
             out.append(Executor._fetch_value(v, True))
         return out
+
+
+def _tf32():
+    """The process's TF32 switches, as the manifest records them."""
+    return {"matmul": bool(torch.backends.cuda.matmul.allow_tf32),
+            "cudnn": bool(torch.backends.cudnn.allow_tf32)}
+
+
+@contextlib.contextmanager
+def _tf32_as(switches):
+    """Run under ``switches`` (a manifest's ``tf32``), restoring the
+    caller's after; None leaves the caller's in place."""
+    if not switches:
+        yield
+        return
+    before = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = bool(switches["matmul"])
+    torch.backends.cudnn.allow_tf32 = bool(switches["cudnn"])
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before["matmul"]
+        torch.backends.cudnn.allow_tf32 = before["cudnn"]
 
 
 def _tensor(v, dtype):

@@ -12,16 +12,19 @@ paddle_tpu/obs/).
   ``SloMonitor``; breach verdicts surface in ``ModelServer.health()``.
 * :mod:`.recorder` — the per-process flight recorder (the built-in
   ``flight_dump`` RPC) and incident bundles.
-* :mod:`.perf` — device-memory watermarks only
-  (:func:`~.perf.sample_device_memory`, :func:`~.perf.memory_section`).
-  The reference's compile telemetry and cost attribution are not ported.
+* :mod:`.perf` — compile telemetry (:data:`~.perf.COMPILE_LOG`,
+  :func:`~.perf.note_compile`), device-memory watermarks
+  (:func:`~.perf.sample_device_memory`, :class:`~.perf.MemorySampler`),
+  cost attribution of one dispatch (:func:`~.perf.attribute`) and device
+  traces (:func:`~.perf.profile`).
 """
 
 from . import metrics, perf, recorder, slo, trace
 from .metrics import (Counter, Gauge, Histogram, REGISTRY, json_safe,
                       merge_snapshots, next_instance, prometheus_text,
                       scrape)
-from .perf import memory_section, sample_device_memory
+from .perf import (COMPILE_LOG, MemorySampler, attribute, memory_section,
+                   note_compile, profile, sample_device_memory)
 from .recorder import (FlightRecorder, IncidentCollector, RECORDER,
                        capture_bundle, record)
 from .slo import SloBreach, SloMonitor, SloRule
@@ -35,5 +38,6 @@ __all__ = [
     "set_trace_id", "reset_trace_id", "trace_context", "SloRule",
     "SloMonitor", "SloBreach", "FlightRecorder", "IncidentCollector",
     "RECORDER", "record", "capture_bundle", "sample_device_memory",
-    "memory_section",
+    "memory_section", "COMPILE_LOG", "MemorySampler", "attribute",
+    "note_compile", "profile",
 ]

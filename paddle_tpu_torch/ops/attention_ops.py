@@ -50,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
-from . import cuda as _tier
+from .autotune import dispatch_variant, dtype_str, make_key
 from .common import data_of, vjp
 from .cuda import paged_attention as _pa
 from .sequence_ops import _vjp_grad
@@ -173,6 +173,13 @@ def chunked_prefill_attention(ctx):
     q, _, _, h, kc, vc = _phase_inputs(ctx)
     bt = data_of(ctx.input("BlockTables"))                       # [b, P]
     start = data_of(ctx.input("ChunkStart")).long().reshape(-1)  # [b]
+    # one lowering, but the dispatch still keys the shape (and capture
+    # records it), as the reference's does
+    dispatch_variant(
+        "chunked_prefill_attention",
+        make_key(q=tuple(q.shape), kc=tuple(kc.shape),
+                 tables=int(bt.shape[1]), heads=h, dtype=dtype_str(q.dtype)),
+        {"jnp": True}, device=q.device)
     kctx = _gather_context(kc, bt)                               # [b, C, H, D]
     vctx = _gather_context(vc, bt)
     qh = _split_heads(q, h)                                      # [b, T, H, D]
@@ -204,9 +211,13 @@ def paged_attention(ctx):
     ctx_lens = data_of(ctx.input("ContextLens")).to(torch.int32) \
         .reshape(-1)                                             # [b]
     qh = _split_heads(q, h)[:, 0]                                # [b, H, D]
-    if _tier.use_kernel("paged_attention",
-                        _pa.paged_attention_supported(qh, kc, bt),
-                        qh.device):
+    key = make_key(q=tuple(qh.shape), kc=tuple(kc.shape),
+                   tables=int(bt.shape[1]), dtype=dtype_str(qh.dtype))
+    choice = dispatch_variant("paged_attention", key, {
+        "jnp": True,
+        "pallas": _pa.paged_attention_supported(qh, kc, bt),
+    }, device=qh.device)
+    if choice == "pallas":
         out = _pa.paged_attention_cuda(qh.contiguous(), kc, vc,
                                        bt.contiguous(), ctx_lens.contiguous())
     else:

@@ -70,9 +70,15 @@ def use_kernel(kernel, supported, device):
     if resolve_tier(device) != "cuda":
         return False
     if not supported:
-        _M_FALLBACKS.labels(kernel=kernel).inc()
+        record_fallback(kernel)
         return False
     return True
+
+
+def record_fallback(kernel):
+    """Count one dispatch of ``kernel`` that a tier or a pinned variant
+    wanted on the kernel route and that took the plain chain."""
+    _M_FALLBACKS.labels(kernel=kernel).inc()
 
 
 def fallback_counts():
@@ -90,8 +96,20 @@ def reset_fallback_counts():
     _M_FALLBACKS.reset()
 
 
-__all__ = ["resolve_tier", "use_kernel", "fallback_counts",
-           "reset_fallback_counts"]
+def launch_counts():
+    """{wrapper: kernel launches since its module's last reset}, over every
+    kernel module (each wrapper counts its own launches; a tile variant
+    counts under its own name, ``conv_affine_db``)."""
+    from . import ctc, embedding, optimizer, paged_attention
+    out = {}
+    for mod in (conv_bn, optimizer, embedding, rnn, ctc, paged_attention):
+        for name in mod.launches:
+            out[name] = int(mod.launches[name])
+    return out
+
+
+__all__ = ["resolve_tier", "use_kernel", "record_fallback",
+           "fallback_counts", "reset_fallback_counts", "launch_counts"]
 
 # the kernels' torch.library operators (torch.ops.paddle_tpu_torch.*),
 # which an exported artifact calls (fluid/aot.py)

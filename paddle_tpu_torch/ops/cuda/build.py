@@ -37,14 +37,26 @@ def _nvcc():
     return path
 
 
-def library_path(name) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by a hash of the source,
-    every header in ``csrc/`` and the compiler flags."""
+def source_hash(name) -> str:
+    """sha256 of ``csrc/<name>.cu``, every header in ``csrc/`` and the
+    compiler flags: what the library's file name is keyed by, and what the
+    warm-executable and tuning-table fingerprints carry (an edited ``.cu``
+    misses)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()
+
+
+def kernel_libraries():
+    """The kernel libraries' names: one per ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: keyed by :func:`source_hash`."""
+    return BUILD_DIR / f"lib{name}-{source_hash(name)[:16]}.so"
 
 
 def build(names):
@@ -71,6 +83,10 @@ def build(names):
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
         results[name] = (time.perf_counter() - t0, log)
+    if results:
+        from ...obs.perf import note_compile
+        for name, (seconds, _log) in results.items():
+            note_compile("nvcc_build", seconds, identity={"kernel": name})
     return results
 
 
@@ -105,3 +121,29 @@ def call_on(dev, fn, *args):
         return fn(*args, _raw_stream(cur))
     with torch.cuda.device(dev.index):
         return fn(*args, _raw_stream(dev.index))
+
+
+def device_identity(device=None):
+    """What a fingerprint keys a device and its toolchain by: the torch
+    and CUDA versions, the device's name and compute capability (the card
+    ``device`` names, ``cuda:0`` where a card is in use and ``device`` is
+    None, else the CPU), and :func:`source_hash` of every kernel library.
+    Reads the sources, initialises no CUDA context that is not there."""
+    import torch
+    if device is None:
+        device = torch.device("cuda", 0) if torch.cuda.is_available() \
+            else torch.device("cpu")
+    device = torch.device(device)
+    if device.type == "cuda":
+        idx = device.index or 0
+        name = torch.cuda.get_device_name(idx)
+        cap = list(torch.cuda.get_device_capability(idx))
+    else:
+        name, cap = device.type, None
+    return {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": name,
+        "capability": cap,
+        "kernel_sources": {n: source_hash(n) for n in kernel_libraries()},
+    }

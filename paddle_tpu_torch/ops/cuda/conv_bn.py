@@ -21,6 +21,13 @@ its bfloat16 cast give the same launch. On a CUDA tensor a wrapper
 launches its kernel; on a CPU tensor it runs its plain version
 (``*_torch``), the same arithmetic.
 
+The tuner's variants of the reference's ``conv_bn`` (``ops/autotune.py``):
+``pallas`` is these kernels on ``pick_tile``'s tile; ``pallas_db`` (the
+reference's ``block_n=2``) passes ``tile=DB_TILE``, the 128-row tile where
+``pick_tile`` takes 64 rows (:func:`db_supported`), bitwise the default's
+output and statistics; ``pallas_bf16`` casts float32 x and w to bfloat16
+before the same kernels and y back, in ``ops/fused_ops.py``.
+
 ``supported()`` keeps the reference's structural conditions and drops its
 TPU VMEM budget: NHWC, groups 1, no dilation, 1x1 or 3x3 at stride 1, or 1x1
 at stride 2 with no padding, float32 or bfloat16. On ResNet-50 that admits
@@ -40,6 +47,7 @@ from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ...core.types import torch_dtype
 from . import build as _build
@@ -47,9 +55,16 @@ from . import build as _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset, by wrapper and x's dtype:
-# {wrapper: {"float32": n, "bfloat16": n}}; only a launch adds
+# {wrapper: {"float32": n, "bfloat16": n}}; only a launch adds. A launch on
+# the 128-row tile (``tile=DB_TILE``, the tuner's "pallas_db" variant)
+# counts under ``<wrapper>_db``
 launches_by_dtype = {"conv_affine": {}, "conv_bn_train": {},
-                     "conv_bn_bwd": {}}
+                     "conv_bn_bwd": {}, "conv_affine_db": {},
+                     "conv_bn_train_db": {}}
+
+# the tile argument of the two-image variant: the 128-row tile where
+# pick_tile (csrc/conv_mma.cuh) takes 64 rows
+DB_TILE = 128
 
 
 class _Totals(Mapping):
@@ -74,8 +89,8 @@ def reset_launches():
         by.clear()
 
 
-def _count(name, dtype):
-    by = launches_by_dtype[name]
+def _count(name, dtype, tile=0):
+    by = launches_by_dtype[name + ("_db" if tile else "")]
     key = str(dtype).removeprefix("torch.")
     by[key] = by.get(key, 0) + 1
 
@@ -105,6 +120,37 @@ def supported(x_shape, w_shape, strides, paddings, dilations, groups,
         return False
     ho, wo = _out_hw(x_shape, kh, kw, s[0], paddings)
     return ho > 0 and wo > 0
+
+
+def db_supported(x_shape, w_shape, strides, paddings, x_dtype,
+                 device="cuda"):
+    """Is the two-image variant (``tile=DB_TILE``) offered here: where
+    ``supported()`` holds and, on a card, the kernel library's ``db_ok``
+    (csrc/conv_mma.cuh) finds that it runs another tile than the
+    default's, the reference's ``_fused_supported(..., block_n=2)``
+    counterpart. On a CPU tensor the variant runs the plain version, which
+    has no tile, so it is offered wherever ``supported()`` holds. Under
+    ``kernel_tier=torch`` and for a symbolic batch (a ``torch.export``
+    trace, whose tile would depend on the batch) it is not offered."""
+    if not supported(x_shape, w_shape, strides, paddings, (1, 1), 1, "NHWC",
+                     x_dtype):
+        return False
+    from . import resolve_tier
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    # no kernel runs on the plain tier; a symbolic batch keys no tile
+    if resolve_tier(device) != "cuda" or \
+            not all(isinstance(d, int) for d in x_shape):
+        return False
+    kh, kw = int(w_shape[2]), int(w_shape[3])
+    ho, wo = _out_hw(x_shape, kh, kw, int(strides[0]), paddings)
+    lib = _build.load("conv_affine")
+    fn = lib.conv_db_ok
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [_I] * 6, _I
+    return bool(fn(_DTYPE_CODES[torch_dtype(x_dtype)], int(x_shape[0]), ho,
+                   wo, int(w_shape[1]), int(w_shape[0])))
 
 
 def _out_hw(x_shape, kh, kw, stride, paddings):
@@ -254,13 +300,21 @@ def _raise_on(lib, name, err):
             f"({lib.kernel_error_string(err).decode()})")
 
 
-def conv_affine(x, w, a, b, strides, paddings, act):
+def _check_tile(name, tile):
+    # where the 128-row tile is the default's, the C entry refuses it
+    if tile not in (0, DB_TILE):
+        raise ValueError(f"{name}: tile must be 0 or {DB_TILE}, got {tile}")
+
+
+def conv_affine(x, w, a, b, strides, paddings, act, tile=0):
     """The fused conv+affine(+relu). CPU tensors run the plain version; CUDA
     tensors launch the kernel, and anything the kernel does not take
-    raises."""
+    raises. ``tile=DB_TILE`` runs the 128-row tile (where
+    :func:`db_supported`); its output is bitwise the default's."""
     if x.device.type == "cpu":
         return conv_affine_torch(x, w, a, b, strides, paddings, act)
     _check("conv_affine", x, w, strides, paddings, act, {"a": a, "b": b})
+    _check_tile("conv_affine", tile)
     a, b = a.contiguous(), b.contiguous()
     x, w32 = _aligned(x), _filter32(w)
     g = _geometry(x, w, strides, paddings)
@@ -272,42 +326,57 @@ def conv_affine(x, w, a, b, strides, paddings, act):
     err = _build.call_on(
         x.device, lib.conv_affine, x.data_ptr(), w32.data_ptr(), wt,
         a.data_ptr(), b.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], *g,
-        int(act == "relu"))
+        int(act == "relu"), int(tile))
     _raise_on(lib, "conv_affine", err)
-    _count("conv_affine", x.dtype)
+    _count("conv_affine", x.dtype, tile)
     return y
 
 
 @torch.library.custom_op("paddle_tpu_torch::conv_affine", mutates_args=())
 def conv_affine_op(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, strides: list[int], paddings: list[int],
-                   act: str) -> torch.Tensor:
+                   act: str, tile: int = 0) -> torch.Tensor:
     """``torch.ops.paddle_tpu_torch.conv_affine``: :func:`conv_affine` as
     an operator that ``torch.export`` keeps whole in a graph, so that an
     exported inference program (``fluid/aot.py``) still launches the
     kernel. On CUDA tensors it launches the kernel, on CPU tensors it runs
     the plain version (the wrapper's own dispatch); its fake
     implementation gives the output's shape."""
-    return conv_affine(x, w, a, b, strides, paddings, act)
+    return conv_affine(x, w, a, b, strides, paddings, act,
+                       **({"tile": tile} if tile else {}))
 
 
 @conv_affine_op.register_fake
-def _conv_affine_fake(x, w, a, b, strides, paddings, act):
+def _conv_affine_fake(x, w, a, b, strides, paddings, act, tile=0):
     ho, wo = _out_hw(x.shape, int(w.shape[2]), int(w.shape[3]),
                      int(strides[0]), paddings)
     return x.new_empty((x.shape[0], ho, wo, w.shape[0]))
 
 
-def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act):
+@register_flop_formula(torch.ops.paddle_tpu_torch.conv_affine)
+def _conv_affine_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    """FlopCounterMode's count of the operator (obs.perf.attribute): the
+    conv's multiply-adds, two operations each, as aten.convolution counts
+    them; the affine epilogue is not counted, as batch_norm is not."""
+    n, ho, wo, cout = (int(d) for d in out_shape)
+    cin, kh, kw = int(w_shape[1]), int(w_shape[2]), int(w_shape[3])
+    return 2 * n * ho * wo * cout * cin * kh * kw
+
+
+def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act, tile=0):
     """Training-mode conv + batch statistics + normalize (+relu). Returns
     ``(y, mean, var)``: y in x's dtype, the batch mean and biased variance
     float32 [Cout]. CPU tensors run the plain version; CUDA tensors launch
-    the kernel, and anything the kernel does not take raises."""
+    the kernel, and anything the kernel does not take raises.
+    ``tile=DB_TILE`` runs the 128-row tile (where :func:`db_supported`),
+    whose y and statistics are bitwise the default's: it sums each half
+    of its tile as a 64-row statistics block, in the 64-row tile's order."""
     if x.device.type == "cpu":
         return conv_bn_train_torch(x, w, scale, bias, eps, strides,
                                    paddings, act)
     _check("conv_bn_train", x, w, strides, paddings, act,
            {"scale": scale, "bias": bias})
+    _check_tile("conv_bn_train", tile)
     scale, bias = scale.contiguous(), bias.contiguous()
     x, w32 = _aligned(x), _filter32(w)
     g = _geometry(x, w, strides, paddings)
@@ -326,9 +395,9 @@ def conv_bn_train(x, w, scale, bias, eps, strides, paddings, act):
         x.device, lib.conv_bn_train, x.data_ptr(), w32.data_ptr(), wt,
         scale.data_ptr(), bias.data_ptr(), y.data_ptr(), part,
         stats.data_ptr(), ab, _DTYPE_CODES[x.dtype], *g,
-        int(act == "relu"), ctypes.c_float(eps))
+        int(act == "relu"), ctypes.c_float(eps), int(tile))
     _raise_on(lib, "conv_bn_train", err)
-    _count("conv_bn_train", x.dtype)
+    _count("conv_bn_train", x.dtype, tile)
     return y, stats[0], stats[1]
 
 
@@ -436,13 +505,14 @@ def _sm_count(dev):
 
 
 # C signatures: pointers, then the dtype code, the 12 geometry ints and the
-# relu flag, then (for the training kernels) eps and the SM count, then the
-# stream; the training kernels' scratch functions take the dtype code, the
-# geometry, the SM count (the backward) and an array for the sizes
+# relu flag, then conv_affine's tile, conv_bn_train's eps and tile,
+# conv_bn_bwd's eps and SM count, then the stream; the training kernels'
+# scratch functions take the dtype code, the geometry, the SM count (the
+# backward) and an array for the sizes
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "conv_affine": [_P] * 6 + [_I] * 14 + [_P],
-    "conv_bn_train": [_P] * 9 + [_I] * 14 + [_F, _P],
+    "conv_affine": [_P] * 6 + [_I] * 15 + [_P],
+    "conv_bn_train": [_P] * 9 + [_I] * 14 + [_F, _I, _P],
     "conv_bn_bwd": [_P] * 16 + [_I] * 14 + [_F, _I, _P],
     "conv_bn_train_scratch": [_I] * 13 + [_P],
     "conv_bn_bwd_scratch": [_I] * 14 + [_P],

@@ -4,8 +4,13 @@ grad (counterpart of paddle_tpu/ops/fused_ops.py).
 ``fluid.fuse_conv_bn`` rewrites eligible conv2d→batch_norm(→relu) chains
 into this op, and each lowering picks the route per dispatch:
 
-* **kernel** — the tier wants the kernel and ``supported()`` admits the
-  shape. Inference folds ``a = scale·rsqrt(var+eps)``,
+* **kernel** — the variant ``ops/autotune.py``'s ``dispatch_variant``
+  picks (a pinned variant, the engine's or the attached tuning table under
+  ``kernel_tier=auto``, else the tier's static route) is ``pallas``: the
+  tier wants the kernel and ``supported()`` admits the shape;
+  ``pallas_db``: the same kernels on the 128-row tile (bitwise the same
+  results); ``pallas_bf16``: x cast to bfloat16 before them and y cast
+  back (reference :96-135). Inference folds ``a = scale·rsqrt(var+eps)``,
   ``b = bias − mean·a`` and runs ``conv_affine`` (reference :119-126);
   training runs ``conv_bn_train`` and blends the running statistics here
   (reference :127-133); the grad runs ``conv_bn_bwd``.
@@ -38,6 +43,7 @@ from ..core.amp import cast_compute
 from ..core.registry import register_op, infer_output, OpSpec, G
 from .conv_ops import (conv_attrs, conv_df, conv2d_compute, conv2d_backward,
                        conv2d_infer)
+from .autotune import dispatch_variant, dtype_str, make_key
 from .cuda import use_kernel
 from .cuda import conv_bn as cbk
 from .norm_ops import bn_forward_math, bn_backward_math
@@ -70,9 +76,9 @@ def _fused_conv_bn_grad_maker(op):
         dict(op.attrs))]
 
 
-def _supported(x, w, strides, paddings, dilations, groups, df):
+def _supported(x, w, strides, paddings, dilations, groups, df, dtype=None):
     return cbk.supported(tuple(x.shape), tuple(w.shape), strides, paddings,
-                         dilations, groups, df, x.dtype)
+                         dilations, groups, df, dtype or x.dtype)
 
 
 @register_op("fused_conv2d_bn", infer_shape=_fused_conv_bn_infer,
@@ -90,20 +96,47 @@ def fused_conv2d_bn(ctx):
     is_test = bool(ctx.attr("is_test", False))
 
     sup = _supported(x, w, strides, paddings, dilations, groups, df)
-    if use_kernel("conv_bn", sup, x.device):
+    key = make_key(x=tuple(x.shape), w=tuple(w.shape),
+                   dtype=dtype_str(x.dtype),
+                   strides=tuple(strides), paddings=tuple(paddings),
+                   dilations=tuple(dilations), groups=groups, df=df,
+                   act=act, is_test=is_test)
+    choice = dispatch_variant("conv_bn", key, {
+        "jnp": True,
+        "pallas": sup,
+        "pallas_db": sup and cbk.db_supported(
+            tuple(x.shape), tuple(w.shape), strides, paddings, x.dtype,
+            x.device),
+        # bf16 activations (value-changing, tuner opt-in): only a cast
+        # away from float32 is a distinct variant
+        "pallas_bf16": (x.dtype == torch.float32 and _supported(
+            x, w, strides, paddings, dilations, groups, df,
+            dtype=torch.bfloat16)),
+    }, device=x.device)
+    if choice != "jnp":
+        out_dtype = x.dtype
+        # the tile goes by keyword, and only where it is not the default
+        tile = {"tile": cbk.DB_TILE} if choice == "pallas_db" else {}
+        if choice == "pallas_bf16":
+            # the wrappers lay the float32 filter out per tap in x's dtype,
+            # rounding to nearest even: the reference's w.astype(bf16)
+            x = x.to(torch.bfloat16)
         x = x.contiguous()
         if is_test:
             a = scale.float() * torch.rsqrt(rv.float() + eps)
             b = bias.float() - rm.float() * a
             y = torch.ops.paddle_tpu_torch.conv_affine(
                 x, w, a, b, [int(v) for v in strides],
-                [int(v) for v in paddings], act)
+                [int(v) for v in paddings], act, **tile)
             new_mean, new_var, sm, sv = rm, rv, rm, rv
         else:
             y, sm, sv = cbk.conv_bn_train(x, w, scale.float(), bias.float(),
-                                          eps, strides, paddings, act)
+                                          eps, strides, paddings, act,
+                                          **tile)
             new_mean = momentum * rm + (1.0 - momentum) * sm
             new_var = momentum * rv + (1.0 - momentum) * sv
+        if choice == "pallas_bf16":
+            y = y.to(out_dtype)
     else:
         z = conv2d_compute(x, wc, strides, paddings, dilations, groups, df)
         y, new_mean, new_var, sm, sv = bn_forward_math(

@@ -29,7 +29,7 @@ import torch
 
 from ..core.registry import register_op
 from ..core.sparse import apply_rowwise, is_sparse
-from .cuda import use_kernel
+from .autotune import dispatch_variant, dtype_str, make_key
 from .cuda import embedding as embk
 from .cuda import optimizer as opk
 from .cuda.optimizer import _adam_dense, _momentum_dense, _sgd_dense, adam_lr
@@ -62,7 +62,14 @@ def _sgd_apply(p, g, lr):
     update is linear, so duplicates accumulate)."""
     if is_sparse(g):
         vals = g.values.to(p.dtype)
-        if use_kernel("embedding_sgd", embk.supported(p, vals), p.device):
+        key = make_key(rows=int(p.shape[0]),
+                       dim=int(p.shape[1]) if p.ndim == 2 else 0,
+                       nnz=int(g.values.shape[0]), dtype=dtype_str(p.dtype))
+        choice = dispatch_variant(
+            "embedding", key, {"jnp": True,
+                               "pallas": embk.supported(p, vals)},
+            tier_kernel="embedding_sgd", device=p.device)
+        if choice == "pallas":
             return embk.embedding_sgd(p, g.rows, vals.contiguous(), lr)
         return embk.embedding_sgd_scatter(p, g.rows, vals, lr)
     return _sgd_dense(p, g.to(p.dtype), lr)
@@ -132,7 +139,14 @@ def _fused_apply(ctx, state_slots, out_slots, dense_fn, sparse_fn, arena_fn):
                if not is_sparse(e[1]) and e[0].dtype == torch.float32]
     device = entries[0][0].device if entries else torch.device("cpu")
     rest = range(len(entries))
-    if use_kernel("optimizer", bool(fusable), device):
+    # the dispatch runs even with no fusable params, so that an all-sparse
+    # op under a kernel tier is a counted fallback, as the reference's is
+    kind = {0: "sgd", 1: "momentum"}.get(len(state_slots), "adam")
+    elems = sum(int(entries[i][0].numel()) for i in fusable)
+    choice = dispatch_variant(
+        "optimizer", make_key(kind=kind, tensors=len(fusable), elems=elems),
+        {"jnp": True, "pallas": bool(fusable)}, device=device)
+    if choice == "pallas":
         results = arena_fn(*[[entries[i][j].float().contiguous() if j == 1
                               else entries[i][j] for i in fusable]
                              for j in range(len(slots))])

@@ -25,7 +25,8 @@ import torch
 from ..core.lod import LoDArray
 from ..core.registry import register_op, OpSpec, G
 from .common import data_of, vjp
-from .cuda import resolve_tier, use_kernel
+from .autotune import dispatch_variant, dtype_str, make_key
+from .cuda import resolve_tier
 from .cuda import rnn as rnnk
 
 
@@ -76,7 +77,12 @@ def _lstm_scan(x, lens, w, h0, c0, gate_act, cell_act, cand_act,
                  and (gate_act, cell_act, cand_act)
                  == ("sigmoid", "tanh", "tanh")
                  and rnnk.supported(b, hdim, x.dtype, x.device))
-    if use_kernel("lstm", supported, x.device):
+    choice = dispatch_variant(
+        "rnn", make_key(cell="lstm", x=tuple(x.shape),
+                        dtype=dtype_str(x.dtype)),
+        {"jnp": True, "pallas": supported}, tier_kernel="lstm",
+        device=x.device)
+    if choice == "pallas":
         xt = x.transpose(0, 1).contiguous()                  # [L, b, 4H]
         pos = torch.arange(L, device=x.device)
         alive = (pos[:, None] < lens[None, :]).to(x.dtype)[..., None]
@@ -291,7 +297,12 @@ def _gru_compute(x, lens, w, bias, h0, attrs, hidden=None):
     supported = (resolve_tier(x.device) == "cuda"
                  and (gate_act, cand_act) == ("sigmoid", "tanh")
                  and rnnk.supported(b, hdim, x.dtype, x.device))
-    if use_kernel("gru", supported, x.device):
+    choice = dispatch_variant(
+        "rnn", make_key(cell="gru", x=tuple(x.shape),
+                        dtype=dtype_str(x.dtype)),
+        {"jnp": True, "pallas": supported}, tier_kernel="gru",
+        device=x.device)
+    if choice == "pallas":
         xt = x.transpose(0, 1).contiguous()                  # [L, b, 3H]
         pos = torch.arange(L, device=x.device)
         alive = (pos[:, None] < lens[None, :]).to(x.dtype)[..., None]

@@ -16,13 +16,29 @@ instance and bucket): the first dispatch of a (bucket, fetch list, feed
 signature) counts as a compile, later ones as hits, and a first dispatch
 after :meth:`InferenceEngine.warmup` as a hot recompile. On the card that
 first dispatch is the one that builds and loads the kernels and sizes the
-allocator's pools for the shape.
+allocator's pools for the shape; it lands in obs.perf's compile log
+(sites ``engine_warmup`` / ``engine_infer``).
+
+``exec_cache=`` (or the ``serving_exec_cache*`` flags, or a registry
+version's ``warm/`` dir) gives each bucket a warm executable
+(serving/execcache.py): warmup loads the ``torch.export`` program of the
+bucket where a fingerprint-matched artifact exists, or exports and saves
+it into a writable cache, and dispatches then run it in place of the op
+loop. A dispatch through a loaded executable counts as a hit (nothing was
+built), so a fully warm engine's warmup reports 0. An executable that
+fails to run is rejected (``run_failed``) and the dispatch falls back to
+the op loop on the same device and route. Warmup loads the bundle's
+tuning table first (``ops.autotune.load_for_bundle``) and the engine's
+dispatches route by it (``ops.autotune.routing``), not by another
+engine's, so every artifact's fingerprint carries the routing it was
+exported under.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 
 import numpy as np
 
@@ -35,8 +51,10 @@ from ..core.types import convert_dtype
 from ..fluid import io as fluid_io
 from ..obs import perf as _perf
 from ..obs.metrics import REGISTRY as _METRICS, json_safe, next_instance
+from ..ops import autotune as _autotune
 from ..ops import cuda as kernel_tier
 from ..ops.cuda import conv_bn
+from . import execcache as _execcache
 
 _M_COMPILES = _METRICS.counter(
     "paddle_tpu_engine_compiles",
@@ -109,7 +127,7 @@ class InferenceEngine:
 
     def __init__(self, model_dir=None, place=None, buckets=None,
                  program=None, feed_names=None, fetch_vars=None,
-                 executor=None, scope=None):
+                 executor=None, scope=None, exec_cache=None):
         self._scope = scope or Scope()
         self._exe = executor or Executor(place)
         if model_dir is not None:
@@ -119,6 +137,18 @@ class InferenceEngine:
             raise ValueError(
                 "InferenceEngine needs model_dir= or all of program=/"
                 "feed_names=/fetch_vars=")
+        # the warm-executable cache (serving/execcache.py); None = the op
+        # loop always, the pre-cache behavior. Without bundle bytes there
+        # is no content identity to key artifacts on
+        self._model_dir = str(model_dir) if model_dir is not None else None
+        self._tune_table = None        # the bundle's, loaded by warmup
+        self._exec_cache = _execcache.resolve_cache(model_dir, exec_cache)
+        self._bundle_hash = _execcache.bundle_content_hash(model_dir) \
+            if self._exec_cache is not None and model_dir else None
+        if self._bundle_hash is None:
+            self._exec_cache = None
+        self._warm_execs = {}          # dispatch sig -> WarmExecutable
+        self._warm_loaded = set()      # sigs whose executable was LOADED
         self._program = program
         self._feed_names = list(feed_names)
         self._fetch_names = [v if isinstance(v, str) else v.name
@@ -213,11 +243,45 @@ class InferenceEngine:
             feed = self._normalize_dtypes(
                 {k: np.asarray(v)[:1] for k, v in sample_feed.items()})
         before = sum(c.value for c in self._m_compiles.values())
-        with record_event("serving/warmup", kind="stage"):
+        # the bundle's published tuning table loads BEFORE the first
+        # dispatch: every warm executable's fingerprint carries its digest
+        self._tune_table = _autotune.load_for_bundle(self._model_dir)
+        with record_event("serving/warmup", kind="stage"), \
+                _autotune.routing(self._tune_table):
             for b in self.buckets:
+                if self._exec_cache is not None:
+                    self._warm_bucket(feed, b)
                 self._dispatch(feed, 1, b)
         self._warmed = True
         return int(sum(c.value for c in self._m_compiles.values()) - before)
+
+    @staticmethod
+    def _sig(padded, bucket, fetch_names):
+        # the fetch names stay in order: a reordered fetch list is another
+        # executable
+        return (bucket, tuple(fetch_names),
+                tuple(sorted((k, a.dtype.str, a.shape[1:])
+                             for k, a in padded.items())))
+
+    def _warm_bucket(self, feed, bucket):
+        """Register one bucket's warm executable: load the artifact whose
+        fingerprint matches this exact dispatch, or (writable caches)
+        export and persist it. Every failure is silent: the bucket runs
+        the op loop."""
+        padded = {k: _pad_rows(np.asarray(a), bucket)
+                  for k, a in feed.items()}
+        sig = self._sig(padded, bucket, self._fetch_names)
+        if sig in self._warm_execs:
+            return
+        entry = _execcache.acquire(
+            self._exec_cache, self._bundle_hash, f"infer_b{bucket}",
+            self._program, padded, self._fetch_names, self._exe,
+            self._scope,
+            identity={"instance": self.obs_instance, "bucket": bucket})
+        if entry is not None:
+            self._warm_execs[sig] = entry
+            if entry.source == "cache":
+                self._warm_loaded.add(sig)
 
     def infer(self, feed, fetch_list=None):
         """Run one batch; returns the fetch arrays trimmed to the true row
@@ -253,22 +317,57 @@ class InferenceEngine:
     def _dispatch(self, arrs, n, bucket, fetch_names=None):
         fetch_names = fetch_names or self._fetch_names
         padded = {k: _pad_rows(a, bucket) for k, a in arrs.items()}
-        sig = (bucket, tuple(fetch_names),
-               tuple(sorted((k, a.dtype.str, a.shape[1:])
-                            for k, a in padded.items())))
+        sig = self._sig(padded, bucket, fetch_names)
+        warm = self._warm_execs.get(sig)
+        # accounting before the dispatch: a first dispatch through a
+        # LOADED executable builds nothing and counts as a hit
+        first = False
         with self._stats_lock:
             if sig in self._seen:
                 self._m_hits[bucket].inc()
             else:
                 self._seen.add(sig)
-                self._m_compiles[bucket].inc()
-                if self._warmed:
-                    self._m_hot.inc()
-        with self._lock:
-            with record_event(f"serving/infer_b{bucket}", kind="stage"):
-                outs = self._exe.run(self._program, feed=padded,
-                                     fetch_list=list(fetch_names),
-                                     scope=self._scope)
+                if warm is not None and sig in self._warm_loaded:
+                    self._m_hits[bucket].inc()
+                else:
+                    first = True
+                    self._m_compiles[bucket].inc()
+                    if self._warmed:
+                        self._m_hot.inc()
+        with self._lock, _autotune.routing(self._tune_table):
+            outs = None
+            if warm is not None:
+                try:
+                    with record_event(f"serving/infer_b{bucket}",
+                                      kind="stage"):
+                        outs = warm.run(self._exe, self._program, padded)
+                except Exception as e:
+                    # an executable that loaded but will not run: reject
+                    # it and run the op loop, on this device and route
+                    self._warm_execs.pop(sig, None)
+                    loaded = sig in self._warm_loaded
+                    self._warm_loaded.discard(sig)
+                    self._exec_cache.note_reject(f"infer_b{bucket}",
+                                                 "run_failed", error=e)
+                    if loaded:
+                        with self._stats_lock:
+                            first = True
+                            self._m_compiles[bucket].inc()
+                            if self._warmed:
+                                self._m_hot.inc()
+            if outs is None:
+                t0 = time.perf_counter()
+                with record_event(f"serving/infer_b{bucket}", kind="stage"):
+                    outs = self._exe.run(self._program, feed=padded,
+                                         fetch_list=list(fetch_names),
+                                         scope=self._scope)
+                if first:
+                    detail = dict(instance=self.obs_instance, bucket=bucket)
+                    if self._exec_cache is not None:
+                        detail["cache_hit"] = False
+                    _perf.note_compile(
+                        "engine_infer" if self._warmed else "engine_warmup",
+                        time.perf_counter() - t0, identity=detail)
         trimmed = []
         for name, o in zip(fetch_names, outs):
             if isinstance(o, LoDArray) and o.lod_level == 1 \
@@ -296,6 +395,8 @@ class InferenceEngine:
         reference. The engine is done serving afterwards: call only after
         its final in-flight dispatch finished."""
         with self._lock:
+            self._warm_execs.clear()
+            self._warm_loaded.clear()
             self._scope = Scope()
             self._warmed = False
 
@@ -320,9 +421,16 @@ class InferenceEngine:
                 "unaccounted_bytes": None if live is None
                 else max(0, live - int(param_bytes))}
 
+    def tune_digest(self):
+        """Digest of the tuning table this engine's dispatches route by
+        (its bundle's, else the one attached process-wide), or None."""
+        with _autotune.routing(self._tune_table):
+            return _autotune.active_digest()
+
     def stats(self):
         """The reference's keys (buckets, per-bucket compiles and hits,
-        their totals, hot_recompiles, warmed, kernel_tier, memory) beside
+        their totals, hot_recompiles, warmed, kernel_tier, tune_digest,
+        exec_cache, warm_loaded, memory) beside
         the port's dispatch counts (compiles + hits), the process-wide
         conv_affine launches and fallbacks. JSON-safe: it crosses the RPC
         wire."""
@@ -342,8 +450,13 @@ class InferenceEngine:
             "hot_recompiles": self.hot_recompiles,
             "warmed": self._warmed,
             "kernel_tier": kernel_tier.resolve_tier(self.device),
+            "tune_digest": self.tune_digest(),
+            "exec_cache": self._exec_cache.stats()
+            if self._exec_cache is not None else None,
+            "warm_loaded": len(self._warm_loaded),
             "kernel_launches": {
-                "conv_affine": conv_bn.launches["conv_affine"]},
+                "conv_affine": conv_bn.launches["conv_affine"],
+                "conv_affine_db": conv_bn.launches["conv_affine_db"]},
             "fallbacks": kernel_tier.fallback_counts(),
             "memory": self._memory_section(),
         })

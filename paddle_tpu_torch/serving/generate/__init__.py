@@ -9,7 +9,8 @@ every in-flight sequence at its own length.
 * :class:`PagedKVCache` (kvcache.py) — the paged KV arena on the card:
   fixed-size blocks, per-sequence block tables, typed
   :class:`CacheExhausted` admission control, block recycling,
-  copy-on-write beam forks and the shared-prefix cache.
+  copy-on-write beam forks and the shared-prefix cache, with its
+  persistent spill tier (kvstore.py, :class:`KVStore`).
 * :class:`GenerationEngine` (decode_engine.py) — splits the saved program
   into a per-bucket prefill phase, a chunked-prefill phase (cached-prefix
   tails, bounded chunks interleaved with decode) and one fixed-shape
@@ -24,11 +25,12 @@ every in-flight sequence at its own length.
 """
 
 from .kvcache import PagedKVCache, CacheExhausted
+from .kvstore import KVStore
 from .decode_engine import (GenerationEngine, NoFreeSlots,
                             normalize_sampling)
 from .scheduler import ContinuousBatcher, TokenStream
 from .client import GenClient
 
-__all__ = ["PagedKVCache", "CacheExhausted", "GenerationEngine",
+__all__ = ["PagedKVCache", "CacheExhausted", "KVStore", "GenerationEngine",
            "NoFreeSlots", "normalize_sampling", "ContinuousBatcher",
            "TokenStream", "GenClient"]

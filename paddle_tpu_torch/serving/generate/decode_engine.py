@@ -41,17 +41,27 @@ block-table forks for hypothesis reordering. Because the phase ops are
 row-independent and sampling state is per sequence, a sequence's token
 stream is the same whether it decodes alone or joins a running batch.
 
-Not ported (see ROADMAP): the compiled-executable cache (``execcache``),
-the KV spill tier (``kvstore``), the obs.perf compile sites and the
-autotuner's ``attach_for_bundle``. Telemetry lives on the obs.metrics
-registry, as the reference's does: the compile/hit counters, the
-hot-recompile alarm and the per-request TTFT/TPOT histograms.
+The KV spill tier (``kvstore.py``): a bundle's published ``kv/`` dir
+(read-only, manifest-pinned) or the ``serving_kv_spill_dir`` flag's local
+tier is attached to the arena, so evicted prefix blocks demote to it and a
+later attach restores them with zero prefill dispatches. Warmup loads
+the bundle's tuning table (``ops.autotune.load_for_bundle``) first and
+every dispatch routes by it (``ops.autotune.routing``), and
+each (phase, bucket)'s first dispatch lands in obs.perf's compile log
+(``genengine_warmup`` / ``genengine_<phase>``). Not ported (see ROADMAP):
+the warm-executable cache (``exec_cache=``): the phase programs write the
+arena in place through the paged-attention wrapper, which is not a
+``torch.library`` operator, so they are not exported; passing a cache
+raises NotImplementedError. Telemetry lives on the obs.metrics registry,
+as the reference's does: the compile/hit counters, the hot-recompile
+alarm and the per-request TTFT/TPOT histograms.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 
 import numpy as np
 import torch
@@ -61,10 +71,14 @@ from ...core.scope import Scope
 from ...core.flags import get_flag
 from ...fluid import io as fluid_io
 from ...fluid.framework import Operator, Program
+from ...obs import perf as _perf
 from ...obs.metrics import REGISTRY as _METRICS, next_instance
+from ...ops import autotune as _autotune
 from ...ops import cuda as kernel_tier
 from ...ops.cuda import paged_attention as _pa
 from ..engine import parse_buckets
+from .. import execcache as _execcache
+from . import kvstore as _kvstore
 from .kvcache import CacheExhausted, PagedKVCache
 
 _M_COMPILES = _METRICS.counter(
@@ -213,7 +227,12 @@ class GenerationEngine:
                  fetch_vars=None, executor=None, scope=None, place=None,
                  max_seqs=None, block_size=None, num_blocks=None,
                  max_len=128, prefill_buckets=None, prefix_cache_blocks=None,
-                 prefill_chunk=None, donate_arena=True):
+                 prefill_chunk=None, donate_arena=True, exec_cache=None,
+                 kv_store=None):
+        if exec_cache not in (None, False):
+            raise NotImplementedError(
+                "GenerationEngine(exec_cache=...): the phase programs are "
+                "not exported (see the module docstring)")
         self._scope = scope or Scope()
         self._exe = executor or Executor(place)
         if model_dir is not None:
@@ -252,6 +271,19 @@ class GenerationEngine:
                                   block_size=block_size,
                                   prefix_cache_blocks=prefix_cache_blocks,
                                   device=self._exe.device)
+        # the persistent KV-prefix spill tier, keyed by the bundle's
+        # content hash and the arena geometry: no bundle bytes, no tier
+        self._model_dir = str(model_dir) if model_dir is not None else None
+        self._tune_table = None        # the bundle's, loaded by warmup
+        self._kv_store = None
+        if model_dir is not None and kv_store is not False:
+            kv_fp = _kvstore.kv_fingerprint(
+                _execcache.bundle_content_hash(model_dir), layers, heads,
+                head_dim, self.cache.block_size, self.cache.k[0].dtype,
+                self._exe.device)
+            self._kv_store = _kvstore.resolve_store(model_dir, kv_store,
+                                                    kv_fp)
+        self.cache.attach_spill(self._kv_store)
         self.donate_arena = bool(donate_arena)
         self.prefill_chunk = int(prefill_chunk if prefill_chunk is not None
                                  else get_flag("serving_prefill_chunk"))
@@ -399,14 +431,25 @@ class GenerationEngine:
                     _M_HITS.labels(instance=self.obs_instance,
                                    phase=phase, bucket=str(bucket)))
                 per[0].inc()
+                first = True
                 if self._warmed:
                     # a (phase, bucket) first dispatched after warmup:
                     # where the reference counts a hot recompile
                     self._m_hot.inc()
             else:
+                first = False
                 per[1].inc()
-        outs = self._exe.run(program, feed=feed, fetch_list=self._gen_fetch(),
-                             scope=self._scope, return_numpy=False)
+        t0 = time.perf_counter()
+        with _autotune.routing(self._tune_table):
+            outs = self._exe.run(program, feed=feed,
+                                 fetch_list=self._gen_fetch(),
+                                 scope=self._scope, return_numpy=False)
+        if first:
+            _perf.note_compile(
+                f"genengine_{phase}" if self._warmed else "genengine_warmup",
+                time.perf_counter() - t0,
+                identity=dict(instance=self.obs_instance, phase=phase,
+                              bucket=bucket))
         for l in range(self.num_layers):
             self.cache.k[l] = outs[1 + 2 * l]
             self.cache.v[l] = outs[2 + 2 * l]
@@ -510,6 +553,9 @@ class GenerationEngine:
         warmed."""
         del sample_feed                            # the engine derives its own
         with self._lock:
+            # the bundle's published tuning table loads before the first
+            # dispatch
+            self._tune_table = _autotune.load_for_bundle(self._model_dir)
             n = 1
             self._dispatch(self._decode_program, self._decode_feed([]),
                            "decode", self.max_seqs)
@@ -903,6 +949,12 @@ class GenerationEngine:
                 "param_bytes": param_bytes,
                 "device_bytes_live": live}
 
+    def tune_digest(self):
+        """Digest of the tuning table this engine's dispatches route by
+        (its bundle's, else the one attached process-wide), or None."""
+        with _autotune.routing(self._tune_table):
+            return _autotune.active_digest()
+
     def stats(self):
         """Per-phase dispatch counts ({phase: {bucket: {"dispatches":
         n}}}), slot and arena occupancy, the kernel route, the process-wide
@@ -928,6 +980,10 @@ class GenerationEngine:
             "kernel_launches": dict(_pa.launches),
             "fallbacks": kernel_tier.fallback_counts(),
             "donate_arena": self.donate_arena,
+            "tune_digest": self.tune_digest(),
+            "exec_cache": None,
+            "kv_store": None if self._kv_store is None
+            else self._kv_store.stats(),
             "ttft": self.ttft.snapshot(),
             "tpot": self.tpot.snapshot(),
             "memory": self._memory_section(),

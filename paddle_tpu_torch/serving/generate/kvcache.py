@@ -32,9 +32,15 @@ retention) and are evicted oldest first, their hash unregistered, when
 the pool overflows or an admission needs the block. Blocks a live
 sequence holds are never candidates.
 
-Not ported: the reference's persistent spill tier (``attach_spill``,
-``_block_kv``, ``_try_restore``, ``spill_registered`` over
-``serving/generate/kvstore.py``) — eviction here discards.
+Persistent spill tier (serving/generate/kvstore.py): when a
+:class:`~.kvstore.KVStore` is attached (``attach_spill``: a published
+``<version>/kv/`` dir or the ``serving_kv_spill_dir`` flag), LRU eviction
+demotes a registered block's bytes to the store before recycling it, and
+``attach_prefix`` on an in-arena miss restores the chain's blocks from the
+store (arena write, hash re-registration, refcount bump: zero prefill
+dispatches, bitwise a hot attach). A block leaves the arena as one
+``[layers, block_size, heads, head_dim]`` stack of K and one of V (one copy
+to the host) and comes back the same way, with no host sync per layer.
 
 The arena tensors (``self.k[l]`` / ``self.v[l]``) are written in place by
 the phase ops (ops/attention_ops.py) the engine dispatches; this class
@@ -148,6 +154,9 @@ class PagedKVCache:
         self._m_prefix_misses = _M_PREFIX_MISSES.labels(**labels)
         self._m_prefix_evictions = _M_PREFIX_EVICTIONS.labels(**labels)
         self._m_blocks_cached = _M_BLOCKS_CACHED.labels(**labels)
+        # persistent spill tier (kvstore.KVStore): None until the engine
+        # attaches one; eviction demotes into it, attach_prefix restores
+        self._spill = None
         self._m_in_use.set(0)
         self._m_blocks_cached.set(0)
 
@@ -246,16 +255,23 @@ class PagedKVCache:
         matched = 0
         for h in self._chain_hashes(tokens, n):
             b = self._hash_to_block.get(h)
-            if b is None:
-                self._m_prefix_misses.inc()
-                break
-            if self._ref[b] == 0:
-                self._evictable.pop(b)
-            self._ref[b] += 1
+            if b is not None:
+                if self._ref[b] == 0:
+                    self._evictable.pop(b)
+                self._ref[b] += 1
+            else:
+                # in-arena miss: a block restored from the spill tier
+                # arrives registered and held by this attach, so the walk
+                # goes on as if it had never been evicted
+                b = self._try_restore(h)
+                if b is None:
+                    self._m_prefix_misses.inc()
+                    break
             table.append(b)
             matched += 1
             self._m_prefix_hits.inc()
         self._lens[seq_id] = matched * self.block_size
+        self._m_in_use.set(self.num_blocks - len(self._free))
         return matched * self.block_size
 
     def register_prefix(self, seq_id, tokens):
@@ -287,9 +303,79 @@ class PagedKVCache:
         b, _ = self._evictable.popitem(last=False)
         h = self._block_hash.pop(b)
         del self._hash_to_block[h]
+        if self._spill is not None and not self._spill.readonly:
+            # demote instead of discard (content-addressed and
+            # idempotent: a chain already spilled writes nothing)
+            self._spill.save(h, *self._block_kv(b))
         self._free.append(b)
         self._m_prefix_evictions.inc()
         self._m_blocks_cached.set(len(self._block_hash))
+
+    # ------------------------------------------------------------------
+    # persistent spill tier
+    # ------------------------------------------------------------------
+    def attach_spill(self, store):
+        """Attach a :class:`~.kvstore.KVStore` (or None to detach):
+        eviction demotes registered blocks into it, ``attach_prefix``
+        restores chains from it."""
+        self._spill = store
+
+    @property
+    def spill_store(self):
+        return self._spill
+
+    def _block_kv(self, b):
+        """Block ``b``'s bytes across every layer as two host tensors,
+        K and V, each ``[num_layers, block_size, heads, head_dim]``: one
+        stack on the device and one copy to the host each."""
+        k = torch.stack([self.k[l][b] for l in range(self.num_layers)])
+        v = torch.stack([self.v[l][b] for l in range(self.num_layers)])
+        return k.cpu(), v.cpu()
+
+    def _try_restore(self, h):
+        """Restore chain hash ``h``'s block from the spill tier into a free
+        arena block: one copy of each stack to the device, then each
+        layer's block written from it on the device; the hash re-registered
+        and the block held once (by the attaching sequence). Returns the
+        block id, or None (no store, miss, reject, no room): the caller
+        prefills."""
+        if self._spill is None:
+            return None
+        if not (self._free or self._evictable):
+            return None
+        loaded = self._spill.load(h)
+        if loaded is None:
+            return None
+        if not self._free:
+            # admission promised this sequence its prompt blocks, so the
+            # draw is within budget; this eviction may itself demote
+            self._evict_lru()
+        if not self._free:
+            return None
+        k_blk, v_blk = (t.to(self.device, non_blocking=True)
+                        for t in loaded)
+        b = self._free.pop()
+        self._ref[b] = 1
+        for l in range(self.num_layers):
+            self.k[l][b].copy_(k_blk[l])
+            self.v[l][b].copy_(v_blk[l])
+        self._hash_to_block[h] = b
+        self._block_hash[b] = h
+        self._m_blocks_cached.set(len(self._block_hash))
+        return b
+
+    def spill_registered(self):
+        """Persist EVERY registered prefix block to the spill tier (the
+        publish-time precompute: ``ModelRegistry.warm`` prefills the
+        kv_prompts, then calls this). Returns the number of blocks now on
+        disk; 0 with no writable store."""
+        if self._spill is None or self._spill.readonly:
+            return 0
+        n = 0
+        for b, h in self._block_hash.items():
+            if self._spill.save(h, *self._block_kv(b)) is not None:
+                n += 1
+        return n
 
     # ------------------------------------------------------------------
     def append_slots(self, seq_id, n=1):
@@ -434,6 +520,7 @@ class PagedKVCache:
             "prefix_hits": self.prefix_hits,
             "prefix_misses": self.prefix_misses,
             "prefix_evictions": self.prefix_evictions,
+            "spill": None if self._spill is None else self._spill.stats(),
         }
 
 

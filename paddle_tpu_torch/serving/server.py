@@ -1,6 +1,5 @@
 """ModelServer: a multi-threaded dynamic-batching server, one endpoint,
-N hosted models (counterpart of paddle_tpu/serving/server.py, ported
-whole but for the warm-executable cache).
+N hosted models (counterpart of paddle_tpu/serving/server.py).
 
 The server always has a DEFAULT model (the constructor's) and can host
 further engines keyed by name via :meth:`ModelServer.add_model` —
@@ -45,9 +44,11 @@ Shutdown is a graceful DRAIN by default: stop accepting, let every
 in-flight request finish and be answered, then close —
 ``shutdown(drain=False)`` and ``kill()`` keep the abrupt forms.
 
-The reference's persistent warm-executable cache (``exec_cache=``,
-serving/execcache.py) has no counterpart yet: passing one raises
-``NotImplementedError``.
+``exec_cache=`` reaches every feed-forward engine the server builds
+(the default one, ``add_model``'s and ``reload``'s): an ExecCache, a
+directory, or False (serving/execcache.py); left None, each engine
+resolves its bundle's ``warm/`` dir or the ``serving_exec_cache_dir``
+flag. Generative engines run their phases eagerly.
 """
 
 from __future__ import annotations
@@ -180,10 +181,9 @@ class ModelServer:
                  slo_rules=None, exec_cache=None, tenant_quotas=None,
                  max_models=None):
         from .generate import ContinuousBatcher, GenerationEngine
-        if exec_cache is not None:
-            raise NotImplementedError(
-                "the warm-executable cache is not ported yet (reference "
-                "serving/execcache.py); leave exec_cache unset")
+        # the feed-forward engines' warm-executable cache
+        # (serving/execcache.py): an ExecCache, a directory, or False
+        self._exec_cache = exec_cache
         # multi-model hosting state: named engines keyed by model name,
         # bounded by max_models (default serving_max_models) with a
         # refcount-aware LRU evictor; the DEFAULT model lives in the
@@ -209,7 +209,8 @@ class ModelServer:
             if model_kind == "generative":
                 engine = GenerationEngine(model_dir, **self._gen_opts)
             else:
-                engine = InferenceEngine(model_dir, buckets=buckets)
+                engine = InferenceEngine(model_dir, buckets=buckets,
+                                         exec_cache=exec_cache)
         self.engine = engine
         self.model_dir = model_dir
         # the reload path rebuilds engines with the SAME bucket set, so
@@ -392,7 +393,8 @@ class ModelServer:
                                           **gen_opts)
             else:
                 engine = InferenceEngine(model_dir, place=self._place(),
-                                         buckets=buckets)
+                                         buckets=buckets,
+                                         exec_cache=self._exec_cache)
         if warmup:
             engine.warmup()
         hosted = _HostedModel(
@@ -671,7 +673,8 @@ class ModelServer:
                     return {"version": version, "compiles": compiled,
                             "requeued": requeued, "model": name}
                 new = InferenceEngine(model_dir, place=self._place(),
-                                      buckets=hosted.buckets)
+                                      buckets=hosted.buckets,
+                                      exec_cache=self._exec_cache)
                 compiled = new.warmup()  # off the hot path, like default
                 with self._models_lock:
                     hosted.engine = new
@@ -718,7 +721,8 @@ class ModelServer:
                 return {"version": version, "compiles": compiled,
                         "requeued": requeued}
             new = InferenceEngine(model_dir, place=self._place(),
-                                  buckets=self._buckets)
+                                  buckets=self._buckets,
+                                  exec_cache=self._exec_cache)
             compiled = new.warmup()          # off the hot path: old engine
             with self._engine_lock:          # still answers during this
                 self.engine = new

@@ -72,3 +72,45 @@ def test_lstm_artifact_launches_lstm_seq_at_two_lengths(tmp_path):
         out, = art.run({"words": seqs})
         assert rnn.launches["lstm_seq"] == 2
         assert out.shape == (len(lens), 2)
+
+
+@pytest.mark.cuda
+def test_artifact_runs_under_the_exporting_tf32_switches(tmp_path):
+    """The artifact records the exporting process's TF32 switches and runs
+    under them: exported with TF32 off, it replies bitwise what the
+    Executor replies with TF32 off, in a process that has TF32 on (the
+    plain stem conv is cuDNN's, whose bits TF32 moves)."""
+    _need_card()
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 1
+        with fluid.program_guard(main, startup):
+            img = fluid.layers.data("img", shape=[32, 32, 3])
+            out = fluid.layers.softmax(resnet(img, 10, counts=(1, 1, 1, 1),
+                                              base=8))
+        test = main.clone(for_test=True)
+        fluid.fuse_conv_bn(test)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        x = np.random.RandomState(0).normal(0, 1, (4, 32, 32, 3)) \
+            .astype("float32")
+        want, = exe.run(test, feed={"img": x}, fetch_list=[out],
+                        scope=scope)
+        manifest = aot.export_inference_artifact(
+            str(tmp_path), ["img"], [out], exe, main_program=test,
+            scope=scope)
+        assert manifest["tf32"] == {"matmul": False, "cudnn": False}
+        art = aot.load_inference_artifact(str(tmp_path))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        got, = art.run({"img": x})
+        assert np.array_equal(got, want)
+        assert torch.backends.cudnn.allow_tf32      # the caller's, restored
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = saved

@@ -262,3 +262,15 @@ def test_parsed_config_loads_neither_jax_nor_the_reference(spelling):
                        timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "", f"the config loaded {r.stdout.strip()}"
+
+
+def test_fleet_and_perf_plane_modules_are_checked():
+    """The serving fleet (registry, router, fleet, autoscaler, the warm-
+    executable cache, the KV spill tier), the kernel autotuner and the
+    perf plane are among the files the import check reads."""
+    checked = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for name in ("serving/registry.py", "serving/router.py",
+                 "serving/fleet.py", "serving/autoscale.py",
+                 "serving/execcache.py", "serving/generate/kvstore.py",
+                 "ops/autotune.py", "obs/perf.py"):
+        assert "paddle_tpu_torch/" + name in checked, name

@@ -148,7 +148,8 @@ def test_bucket_padding_trim_and_warmup(bundle):
     assert stats["buckets"] == BUCKETS and stats["warmed"]
     assert stats["per_bucket"][4]["dispatches"] == 1 + 3
     assert stats["dispatches"] == 3 + 4
-    assert set(stats["kernel_launches"]) == {"conv_affine"}
+    assert set(stats["kernel_launches"]) == {"conv_affine",
+                                             "conv_affine_db"}
 
 
 def test_fetch_that_is_not_per_row_is_rejected(bundle):

@@ -324,10 +324,23 @@ def test_kill_mid_request_client_retries_restarted_server(mlps):
             s.shutdown()
 
 
-def test_exec_cache_is_not_ported_and_says_so(mlps):
-    with pytest.raises(NotImplementedError, match="execcache"):
-        _server(mlps["a"][0], exec_cache="/tmp/nowhere")
-    assert sniff_model_kind(mlps["a"][0]) == "feedforward"
+def test_exec_cache_is_not_ported_and_says_so(mlps, tmp_path):
+    # the warm-executable cache is ported (serving/execcache.py):
+    # exec_cache= reaches the engines the server builds
+    d, xs, want = mlps["a"]
+    server = _server(d, buckets="1,2", exec_cache=str(tmp_path / "cache"))
+    try:
+        assert server._exec_cache == str(tmp_path / "cache")
+        server.start()
+        server.add_model("m", d, buckets="1,2")
+        with InferClient(server.address) as c:
+            got = c.infer({"x": xs[:2]}, model="m")
+        np.testing.assert_allclose(got[0], want[:2], **TOL)
+        st = server.stats()["models"]["m"]["engine"]["exec_cache"]
+        assert st["saves"] == 2 and not st["readonly"]
+    finally:
+        server.shutdown()
+    assert sniff_model_kind(d) == "feedforward"
 
 
 def test_slo_rules_surface_in_health(mlps):

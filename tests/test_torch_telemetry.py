@@ -3,9 +3,9 @@ reference keeps it: one store, which ``stats()`` reads.
 
 * A process of each package that builds a ModelServer, an InferenceEngine
   and a GenerationEngine and runs one step with ``obs_op_metrics`` on
-  registers the same metric families, but for the families of reference
-  modules the port has not ported yet (each named below with the ROADMAP
-  item that brings it).
+  registers the same metric families (``NOT_PORTED`` names any family of
+  a reference module the port does not have yet, with the ROADMAP item
+  that brings it: none today).
 * GenerationEngine's compile/hit counters and TTFT/TPOT histograms,
   ContinuousBatcher's request/overload counters and flight events, the KV
   cache's counters and gauges and the kernel tier's fallback counter are
@@ -33,31 +33,10 @@ CPU = fluid.CPUPlace()
 GEN = dict(max_seqs=2, block_size=4, num_blocks=32, max_len=32,
            prefill_buckets=(8,))
 
-# reference families whose modules the port does not have yet
-NOT_PORTED = {
-    "paddle_tpu_compile_seconds": "obs/perf.py's compile log (A15)",
-    "paddle_tpu_exec_cache_hits": "serving/execcache.py (A15)",
-    "paddle_tpu_exec_cache_misses": "serving/execcache.py (A15)",
-    "paddle_tpu_exec_cache_rejects": "serving/execcache.py (A15)",
-    "paddle_tpu_exec_cache_save_seconds": "serving/execcache.py (A15)",
-    "paddle_tpu_fleet_replicas": "serving/fleet.py (A15)",
-    "paddle_tpu_fleet_request_seconds": "serving/fleet.py (A15)",
-    "paddle_tpu_fleet_scale_events": "serving/autoscale.py (A15)",
-    "paddle_tpu_router_ejections": "serving/router.py (A15)",
-    "paddle_tpu_router_failovers": "serving/router.py (A15)",
-    "paddle_tpu_router_quota_rejects": "serving/router.py (A15)",
-    "paddle_tpu_router_requests": "serving/router.py (A15)",
-    "paddle_tpu_router_spillovers": "serving/router.py (A15)",
-    "paddle_tpu_kernel_autotune_rejects": "ops/autotune.py (A15)",
-    "paddle_tpu_kernel_autotune_selections": "ops/autotune.py (A15)",
-    "paddle_tpu_kernel_autotune_tunes": "ops/autotune.py (A15)",
-    "paddle_tpu_kernel_variant_selected": "ops/autotune.py (A15)",
-    "paddle_tpu_kvcache_spill_bytes": "serving/generate/kvstore.py (A15)",
-    "paddle_tpu_kvcache_spill_rejects": "serving/generate/kvstore.py (A15)",
-    "paddle_tpu_kvcache_spill_restores":
-        "serving/generate/kvstore.py (A15)",
-    "paddle_tpu_kvcache_spill_writes": "serving/generate/kvstore.py (A15)",
-}
+# reference families whose modules the port does not have yet: none since
+# the fleet, the warm cache, the tuner, the KV spill tier and the compile
+# log were ported (ROADMAP A15)
+NOT_PORTED = {}
 
 FAMILIES = r'''
 import json, sys, tempfile
