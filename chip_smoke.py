@@ -17,8 +17,10 @@ lane and an MNIST reader graph through recordio, the readers and the
 double buffer, train the reference's RNN benchmark config through
 paddle_trainer and the paddle.v2 spelling, serve ResNet-50 and the LSTM
 classifier from torch.export artifacts in Python and from C, train
-MobileNet-SSD and serve its detections, and hold every hand-written
-kernel against its plain PyTorch version.
+MobileNet-SSD and serve its detections, serve ResNet-50 from a fleet of
+spawned replicas, serve the LM from exported phase programs, plan the
+LM's placement, learn Wide&Deep online while its fleet serves, and hold
+every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
@@ -351,8 +353,8 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               dataset; the recordio backend printed). (a) bench.py:352's
               ragged LSTM lane: bench.py:238's IMDB-width classifier
               (vocab 30000, emb 128, two LSTMs of 512, batch 64, unfused
-              Adam 2e-3) over 4608 sequences from RandomState(0), half
-              10-12 and half 96-100 long; flat (padded to 100) against
+              Adam 2e-3) over RAGGED_SEQS (1152) of its 4608 sequences
+              from RandomState(0), half 10-12 and half 96-100 long; flat (padded to 100) against
               bucketed (written with convert_reader_to_recordio_file, read
               with creator.recordio, bucket_by_length to [12, 100], padded
               with bucket_bound_for); each bound's batches staged with
@@ -450,9 +452,37 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               suppression chain), its ms and iterations, every other box
               of each chain kept. (c) DetectionMAP over the batch-8
               replies against the ground truth.
+27. fleet   — phase 3's ResNet-50 through a ModelRegistry and spawned
+              replicas, the warm cache, the tuner's conv_bn variants, the
+              LM lane's KV spill tier (see phase_fleet).
+28. planner, online — (a) phase 13's lane from exported phase programs:
+              a first engine exports each (phase, bucket) into a cache; a
+              fresh interpreter loads them (0 op-loop warmup dispatches)
+              and serves the lane on the continuous and the gang route,
+              tokens bitwise phase 13's, GEN_LAYERS paged_attention
+              launches a decode dispatch from inside the exported decode
+              program; a bit-flipped artifact is a typed reject, an
+              executable swapped for one that refuses the decode feeds a
+              run_failed reject and one hot recompile, both with the same
+              tokens; the time to the first token of a fresh interpreter
+              with and without the cache. (b) the placement planner over
+              phase 20's LM step for 1 and 8 devices (FLOPs measured on
+              the card), the 1-device choice applied over a one-rank NCCL
+              group (3 steps bitwise the hand-built step, one adam_arena
+              a step), a bundle published with plan=True whose plan a
+              fresh interpreter resolves without a search. (c)
+              OnlineLearningLoop over phase 22's Wide&Deep at full width
+              (2 pserver shards, 2 replicas on the card, a client thread
+              throughout; a shard and then a replica SIGKILLed): 0 failed
+              requests, the served version never going back over 3
+              versions, every freeze bitwise both shards' checkpoints at
+              its round, the final version's replies against the
+              trainer-side forward on its frozen parameters; steps/s, s a
+              freeze, s from publish to served.
 
-The last four lines of output are phase 14's summary, a JSON line
-listing each kernel's numbers, the card's name and power limit, and
+Each phase's header carries the seconds since the script started. The
+last four lines of output are phase 14's summary, a JSON line listing
+each kernel's numbers, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -470,6 +500,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): float32 on the CUDA
 # cores, bfloat16 and TF32 on the tensor cores, and device memory
@@ -704,8 +735,9 @@ GEN_SYSTEM, GEN_SUFFIX, GEN_PREFIX_NEW, GEN_CHUNK = 16, 4, 6, 4
 # SRV_THR_WINDOW_S seconds for each mode, in turns. One client alone
 # times (and holds bitwise) requests of SRV_WIRE_SIZES images
 SRV_CLIENTS, SRV_PER_CLIENT, SRV_MAX_ROWS = 8, 6, 8
-SRV_LAT_PER_SIZE = 100
-SRV_THR_WINDOW_S, SRV_THR_ROUNDS = 3.0, 2
+# (50 requests a size and 2-s windows: the script's time limit)
+SRV_LAT_PER_SIZE = 50
+SRV_THR_WINDOW_S, SRV_THR_ROUNDS = 2.0, 2
 SRV_WIRE_SIZES = (1, 3, 8)
 # a served reply against the in-process engine.infer of the same rows.
 # Where the dispatch's bucket is the solo request's, every op sees the
@@ -727,7 +759,14 @@ def fail(msg):
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    if msg.lstrip("\n").startswith("== phase"):
+        # each phase's header carries the script's elapsed seconds
+        msg = msg.replace("== phase",
+                          f"[{time.perf_counter() - _T0:.1f} s] == phase", 1)
     print(msg, flush=True)
 
 
@@ -6690,9 +6729,11 @@ def phase_seq2seq(torch, fluid, seed, card):
 # plain ops give the same bits and their losses differ only where a kernel
 # runs; each route's profiled step and the BOOK_DEFAULT_STEPS after it
 # run with cuDNN's defaults.
-BOOK_STEPS = 5
+# counted steps a route (3 of the book tests' 5: the script's time limit)
+BOOK_STEPS = 3
 # steps timed after the profiled one, with cuDNN's default algorithms
-BOOK_DEFAULT_STEPS = 3
+# (one: the script's time limit)
+BOOK_DEFAULT_STEPS = 1
 BOOK_BATCH = 128
 BOOK_SENT = dict(dict_dim=5000, lens=(10, 100))
 BOOK_SENT_BATCH = 64
@@ -7469,8 +7510,10 @@ WD_GRAD_LIMIT, WD_ROUTE_REL, WD_ROUND_UNIT = 1e-6, 1e-6, 2.0 ** -24
 WD_PS_REL = 1e-5
 
 
-def wd_program(fluid, wd, seed):
-    """Phase 22's Wide&Deep training program: (main, startup, loss)."""
+def wd_program(fluid, wd, seed, with_prob=False):
+    """Phase 22's Wide&Deep training program: (main, startup, loss), and
+    with ``with_prob`` the click probability sigmoid(logit) the served
+    bundle fetches (phase 28)."""
     L = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 7 + seed
@@ -7493,8 +7536,10 @@ def wd_program(fluid, wd, seed):
                               L.reduce_sum(wide, dim=1, keep_dim=True)),
             L.fc(dense, size=1))
         loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, click))
+        prob = L.sigmoid(logit) if with_prob else None
         fluid.optimizer.SGD(wd["lr"], fused=True).minimize(loss, startup)
-    return main, startup, loss
+    return (main, startup, loss, prob) if with_prob else (main, startup,
+                                                          loss)
 
 
 def wd_dp_program(wd, seed):
@@ -8015,6 +8060,10 @@ def phase_ctr(torch, fluid, seed, card):
 # epoch after its warm-up, which keeps the whole script within half its
 # time limit
 RAGGED_EPOCHS, RAGGED_TORCH_EPOCHS = 3, 1
+# the epoch's depth: a quarter of the lane's 4608 sequences (its widths,
+# bounds and half-short, half-long mix kept), which keeps the whole
+# script within its time limit since phase 28 joined it
+RAGGED_SEQS = 1152
 # the two routes' epoch losses: the kernel route's LSTMs round their
 # products to bf16 (phase 5), the torch route's scans do not, so each
 # step's loss moves by the carries' rare bf16 moves, and 72 Adam steps
@@ -8314,7 +8363,8 @@ def phase_input_pipeline(torch, fluid, seed, card):
     t_phase = time.perf_counter()
     native = recordio.backend()
     log(f"\n== phase 23: input pipeline — bench.py:352's ragged LSTM lane "
-        f"(batch {lane.BATCH}, {lane.N_SEQS} sequences, half "
+        f"(batch {lane.BATCH}, {RAGGED_SEQS} of its {lane.N_SEQS} "
+        f"sequences, half "
         f"{lane.SHORT[0]}-{lane.SHORT[1]} and half "
         f"{lane.LONG[0]}-{lane.LONG[1]} long, bounds {list(lane.BOUNDS)}, "
         f"hidden {lane.HIDDEN}), the double buffer, a Fluid reader graph; "
@@ -8324,7 +8374,7 @@ def phase_input_pipeline(torch, fluid, seed, card):
            f"{recordio.native_error()})") + f" | {card} ==")
     work = tempfile.mkdtemp(prefix="chip-smoke-input-")
     try:
-        samples = lane.corpus(lane.N_SEQS, lane.VOCAB, lane.SHORT,
+        samples = lane.corpus(RAGGED_SEQS, lane.VOCAB, lane.SHORT,
                               lane.LONG)
         path = os.path.join(work, "corpus.recordio")
         t0 = time.perf_counter()
@@ -8342,7 +8392,7 @@ def phase_input_pipeline(torch, fluid, seed, card):
             f"{len(bucketed)} bucketed ("
             + ", ".join(f"{sum(1 for _, b in bucketed if b == x)} at {x}"
                         for x in bounds) + ")")
-        if n != lane.N_SEQS or bounds != list(lane.BOUNDS):
+        if n != RAGGED_SEQS or bounds != list(lane.BOUNDS):
             fail(f"ragged lane: {n} records, bounds {bounds}")
 
         fluid.reset_unique_name()
@@ -10308,31 +10358,37 @@ def phase_fleet(torch, fluid, seed, card, serving, gen):
     if any(np.array_equal(want1[n], want2[n]) for n in FLEET_BUCKETS):
         fail("v2 replies as v1 does: the shifted bias did not reach it")
 
-    # ---- first replies: cache off, a fill, a hit ----
+    # ---- first replies: cache off and a fill, started together (as the
+    # hit's replicas are; a supervisor takes the flags when it is built
+    # and spawns its replica there), then a hit ----
     firsts = {}
+    t0 = time.monotonic()
     fluid.set_flags({"serving_exec_cache": False})
     try:
-        t0 = time.monotonic()
-        with FleetSupervisor(reg, "resnet50", version=v1, n_replicas=1,
-                             buckets=buckets) as sup:
-            firsts["off"] = first_replies(sup, t0, feeds[1])
-            st = sup.replica_stats()[0]
-            if st is None or st["engine"]["exec_cache"] is not None:
-                fail(f"cache-off replica: stats {st and st['engine']}")
+        off = FleetSupervisor(reg, "resnet50", version=v1, n_replicas=1,
+                              buckets=buckets)
     finally:
         fluid.set_flags({"serving_exec_cache": True})
     fluid.set_flags({"serving_exec_cache_dir": os.path.join(work, "local")})
     try:
-        t0 = time.monotonic()
-        with FleetSupervisor(reg, "resnet50", version=v2, n_replicas=1,
-                             buckets=buckets) as sup:
-            firsts["fill"] = first_replies(sup, t0, feeds[1])
-            st = sup.replica_stats()[0]
-            ec = st and st["engine"]["exec_cache"]
-            if not ec or ec["saves"] != len(FLEET_BUCKETS):
-                fail(f"fill replica: exec cache {ec}")
+        fill = FleetSupervisor(reg, "resnet50", version=v2, n_replicas=1,
+                               buckets=buckets)
+    except BaseException:
+        off.stop()
+        raise
     finally:
         fluid.set_flags({"serving_exec_cache_dir": ""})
+    with off, fill:
+        both = first_replies(types.SimpleNamespace(
+            addresses=off.addresses + fill.addresses), t0, feeds[1])
+        firsts["off"], firsts["fill"] = both[:1], both[1:]
+        st = off.replica_stats()[0]
+        if st is None or st["engine"]["exec_cache"] is not None:
+            fail(f"cache-off replica: stats {st and st['engine']}")
+        st = fill.replica_stats()[0]
+        ec = st and st["engine"]["exec_cache"]
+        if not ec or ec["saves"] != len(FLEET_BUCKETS):
+            fail(f"fill replica: exec cache {ec}")
 
     # ---- the fleet: warm replicas, the router, reload, canary, kill ----
     problems = []
@@ -10344,9 +10400,9 @@ def phase_fleet(torch, fluid, seed, card, serving, gen):
         firsts["hit"] = first_replies(sup, t0, feeds[1])
         log(f"first reply of a spawned replica (spawn, torch import, "
             f"bundle load, warmup, bind, one batch-1 request), s: cache off "
-            f"{firsts['off']}, fill {firsts['fill']}, hit "
-            f"{firsts['hit']} ({FLEET_REPLICAS} replicas started together)"
-            f" | {card}")
+            f"{firsts['off']} and fill {firsts['fill']} (started together), "
+            f"hit {firsts['hit']} ({FLEET_REPLICAS} replicas started "
+            f"together) | {card}")
         if None in firsts["off"] + firsts["fill"] + firsts["hit"]:
             fail(f"a replica never answered: {firsts}")
         with FleetClient(sup.addresses, probe_interval_ms=100) as fc:
@@ -10696,6 +10752,698 @@ def start_planted_ctc(build):
         stderr=subprocess.STDOUT, text=True)
 
 
+# phase 28: the placement planner (A13), online learning (A14) and the
+# generation engine's warm executables (A15's rest).
+# (a) phase 13's lane (the GEN_* geometry, prefill bucket 8, 252 tokens)
+# served from exported phase programs: a first engine exports each
+# (phase, bucket) into a cache directory; a fresh interpreter loads them
+# (its warmup runs no op loop) and serves the lane on both routes, its
+# tokens bitwise phase 13's eager engine's, GEN_LAYERS paged_attention
+# launches a decode dispatch from inside the exported decode program; a
+# bit-flipped artifact rejects typed, and an executable swapped for one
+# that refuses the decode feeds is a run_failed reject and one hot
+# recompile; the time to the first token of a fresh interpreter with and
+# without the cache
+GW_PROMPT, GW_NEW = [1, 2, 3], 4
+# (b) the planner over phase 20's LM training program (LM_BATCH x LM_SEQ,
+# Adam): reports for 1 and 8 devices with the FLOPs measured on the card;
+# the 1-device choice applied over a one-rank NCCL group, PLAN_STEPS steps
+# bitwise the hand-built step, one adam_arena a step; a bundle published
+# with plan=True, whose plan a fresh interpreter resolves with no search.
+# The published bundle is the book's digits MLP (tests/book/
+# test_recognize_digits.py's widths): publishing runs the warm pass too,
+# which exports the bundle per bucket
+PLAN_DEVICES, PLAN_STEPS, PLAN_BUCKETS = (1, 8), 3, "1,8"
+# (c) OnlineLearningLoop over phase 22's Wide&Deep at full width (WD:
+# 1 000 000 x 64 and 1 000 000 x 1 tables, batch 4096): 2 pserver shards in
+# sync mode (checkpointing every update, the loop's default), a freeze
+# every ONLINE_PUBLISH_STEPS steps, 2 replicas on the card (buckets
+# ONLINE_BUCKETS) answering a client thread throughout; one pserver shard
+# and then one replica SIGKILLed once a rollout has landed; the stream
+# cycles ONLINE_FEEDS seeded Criteo batches. The loop runs until
+# ONLINE_VERSIONS versions have been served and a rollout has landed after
+# both kills, within ONLINE_DEADLINE_S. The final version's replies
+# against the trainer-side forward on its frozen parameters: bitwise at
+# requests that fill a bucket (8, 64 rows), within ONLINE_PAD_LIMIT of the
+# largest element at 5 rows (padded to 8: the fc GEMMs run at another M)
+ONLINE_PUBLISH_STEPS, ONLINE_MIN_SERVE_S, ONLINE_VERSIONS = 4, 1.0, 3
+ONLINE_BUCKETS, ONLINE_ROWS, ONLINE_PAD_LIMIT = (8, 64), (8, 5, 64), 1e-5
+ONLINE_FEEDS, ONLINE_DEADLINE_S, ONLINE_READY_S = 4, 300.0, 300.0
+# the registry keeps the newest ONLINE_KEEP versions (and the served one
+# and its rollback target): a version is about 260 MB of tables
+ONLINE_KEEP = 3
+
+
+def gen_warm_child(lm_dir, cache, mode, kernel_tier, plan_dir=""):
+    """Phase 28(a)'s fresh interpreter (``mode`` cold: no cache; warm: the
+    cache read-only), under the parent's ``kernel_tier`` (a spawned process
+    starts with default flags; the flag keys the artifacts). Prints one
+    JSON line: the imports' and the time to the first token (engine built,
+    warmed, one request's first token), the warmup's op-loop first
+    dispatches and, warm, both routes' lanes with their launches, decode
+    dispatches and dispatches through the loaded decode program, then the
+    two planted faults. Given ``plan_dir`` (phase 28(b)'s published
+    bundle), it then resolves that bundle's plan as a replica would
+    (resolve_published_plan)."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.fluid  # noqa: F401  (registers the ops)
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import ExecCache, GenerationEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle_tpu_torch.fluid.set_flags({"kernel_tier": kernel_tier})
+    geom = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN,
+                prefill_buckets=(8,))
+
+    def engine(path):
+        return GenerationEngine(
+            lm_dir, exec_cache=ExecCache(path, readonly=True)
+            if path else False, **geom)
+
+    out = {"import_s": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    eng = engine(cache if mode == "warm" else None)
+    compiles = eng.warmup()
+    _h, first, _fin = eng.start(GW_PROMPT, GW_NEW)
+    out["ttft_s"] = time.perf_counter() - t1
+    out["warmup_compiles"] = compiles
+    for h in list(eng._slots):
+        if h is not None:
+            eng.abort(h)
+    if mode == "warm":
+        runs = {}
+
+        class Counted:
+            """A loaded executable that counts its dispatches."""
+
+            def __init__(self, entry, key):
+                self.entry, self.key, self.source = entry, key, entry.source
+
+            def run(self, *a, **k):
+                runs[self.key] = runs.get(self.key, 0) + 1
+                return self.entry.run(*a, **k)
+
+        for key in list(eng._warm_execs):
+            eng._warm_execs[key] = Counted(eng._warm_execs[key], key)
+        for continuous in (True, False):
+            d0 = eng.stats()["phases"]["decode"][GEN_MAX_SEQS]["dispatches"]
+            r0 = runs.get(("decode", GEN_MAX_SEQS), 0)
+            pak.reset_launches()
+            lane = gen_lane(eng, continuous)
+            torch.cuda.synchronize()
+            out["continuous" if continuous else "gang"] = {
+                "tokens": lane["tokens"], "elapsed": lane["elapsed"],
+                "launches": pak.launches["paged_attention"],
+                "decodes": eng.stats()["phases"]["decode"][GEN_MAX_SEQS][
+                    "dispatches"] - d0,
+                "exported_decodes": runs.get(("decode", GEN_MAX_SEQS), 0)
+                - r0}
+        st = eng.stats()
+        out["stats"] = {"exec_cache": st["exec_cache"],
+                        "warm_loaded": st["warm_loaded"],
+                        "hot_recompiles": st["hot_recompiles"]}
+        # planted 1: one artifact's payload bit-flipped in a copy of the
+        # cache: a typed reject at load, that (phase, bucket) through the
+        # op loop at warmup
+        bad = cache + "-flipped"
+        shutil.copytree(cache, bad)
+        name = [n for n in ExecCache(bad).artifacts()
+                if n.startswith("gen_decode")][0]
+        with open(os.path.join(bad, name), "r+b") as f:
+            f.seek(os.path.getsize(os.path.join(bad, name)) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x40]))
+        flipped = engine(bad)
+        c = flipped.warmup()
+        lane = gen_lane(flipped, True)
+        out["flipped"] = {"warmup_compiles": c, "tokens": lane["tokens"],
+                          "rejects": flipped.stats()["exec_cache"]["rejects"],
+                          "hot_recompiles": flipped.hot_recompiles}
+        # planted 2: the decode executable swapped after warmup for the
+        # prefill program (a real artifact that loads and refuses the
+        # decode feeds): run_failed, one hot recompile, the op loop answers
+        swapped = engine(cache)
+        swapped.warmup()
+        swapped._warm_execs[("decode", GEN_MAX_SEQS)] = \
+            swapped._warm_execs[("prefill", 8)]
+        lane = gen_lane(swapped, True)
+        out["swapped"] = {"tokens": lane["tokens"],
+                          "rejects": swapped.stats()["exec_cache"]["rejects"],
+                          "hot_recompiles": swapped.hot_recompiles}
+    if plan_dir:
+        t2 = time.perf_counter()
+        out["plan"] = resolve_published_plan(plan_dir)
+        out["plan"]["seconds"] = time.perf_counter() - t2
+    print(json.dumps(out), flush=True)
+
+
+def resolve_published_plan(path):
+    """What a replica does with a published bundle's plan: load the bundle
+    on the card and plan it with ``model_dir``. Returns the planner's
+    counters in this process (searches, cache hits, rejects) and the
+    choice."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.obs import REGISTRY, perf
+    from paddle_tpu_torch.parallel import planner as pl
+
+    exe = fluid.Executor()
+    prog, feeds, fetches = fluid.io.load_inference_model(
+        path, exe, scope=fluid.Scope())
+    n = pl._device_count(exe.device)
+    rep = pl.plan(prog, feed_example=perf.template_feed(prog, feeds,
+                                                        batch=n),
+                  fetch_list=fetches, model_dir=path, measure=False,
+                  executor=exe)
+    t = REGISTRY.totals()
+    return {"searches": t.get("paddle_tpu_plan_searches", 0),
+            "hits": t.get("paddle_tpu_plan_cache_hits", 0),
+            "rejects": t.get("paddle_tpu_plan_rejects", 0),
+            "from_cache": rep.from_cache,
+            "chosen": rep.chosen.describe(), "n_devices": n,
+            "device": rep.fingerprint["device"]}
+
+
+def run_children(code, arg_lists, timeout):
+    """Fresh interpreters at the repository root, started together, each
+    running ``code`` (which prints one JSON line last) with its
+    arguments: their last lines, parsed. Every one is killed if they are
+    not done within ``timeout`` seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable, "-c", code]
+                              + [str(a) for a in args], env=env, cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args in arg_lists]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode != 0:
+                fail(f"child {code.splitlines()[0][:60]!r} exited "
+                     f"{p.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+GEN_WARM_CHILD = ("import sys, chip_smoke; "
+                  "chip_smoke.gen_warm_child(*sys.argv[1:])")
+
+def planned_lm_rank(seed, sizes, plan_kw):
+    """One NCCL rank of phase 28(b): phase 20's LM step through the
+    planner's candidate with these ``sizes`` and ``plan_kw`` and through
+    the same mesh and plan built by hand, PLAN_STEPS steps each
+    (multichip.planned_run), on this rank's card."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.testing import multichip
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = f"cuda:{dist.get_rank()}" if dist.get_backend() == "nccl" \
+        else "cpu"
+    out = multichip.planned_run(lm_dp_program, dict(seed=seed),
+                                [lm_feed(seed)] * PLAN_STEPS,
+                                dist.get_world_size(), sizes, plan_kw,
+                                device=dev)
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def phase_gen_warm(torch, fluid, seed, card, gen, problems, plan_path):
+    """Phase 28(a) (GW_*): returns paged_attention's launches in the fresh
+    interpreter's lanes, the times to the first token, and what the cold
+    interpreter made of the plan published at ``plan_path``."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-genwarm-")
+    cache = os.path.join(work, "cache")
+    geom = dict(max_seqs=GEN_MAX_SEQS, block_size=GEN_BLOCK,
+                num_blocks=GEN_BLOCKS, max_len=GEN_MAX_LEN,
+                prefill_buckets=(8,))
+    t0 = time.perf_counter()
+    fill = GenerationEngine(gen["dir"], exec_cache=cache, **geom)
+    compiles = fill.warmup()
+    _h, _first, _fin = fill.start(GW_PROMPT, GW_NEW)
+    fill_ttft = time.perf_counter() - t0
+    st = fill.stats()["exec_cache"]
+    log(f"fill: {compiles} (phase, bucket) programs exported and "
+        f"dispatched ({st['saves']} saved, "
+        f"{sorted(os.listdir(cache))}), first token {fill_ttft:.2f} s from "
+        f"the engine's construction")
+    if st["saves"] != 2:
+        problems.append(f"(a) the fill saved {st['saves']} programs, want 2 "
+                        "(decode, prefill 8)")
+    for h in list(fill._slots):
+        if h is not None:
+            fill.abort(h)
+    pak.reset_launches()
+    lane = gen_lane(fill, True)
+    if lane["tokens"] != gen["tokens"]:
+        problems.append("(a) the filling engine's tokens differ from phase "
+                        "13's eager engine's")
+    route = fluid.get_flag("kernel_tier")
+    cold, warm = run_children(
+        GEN_WARM_CHILD, [[gen["dir"], cache, "cold", route, plan_path],
+                         [gen["dir"], cache, "warm", route]], 300)
+    log(f"time to the first token of a fresh interpreter (engine built, "
+        f"warmed, one request's first token; imports apart; the cold and "
+        f"the warm one started together): cold "
+        f"{cold['ttft_s']:.3f} s ({cold['warmup_compiles']} op-loop first "
+        f"dispatches), warm {warm['ttft_s']:.3f} s "
+        f"({warm['warmup_compiles']}); imports {cold['import_s']:.2f} / "
+        f"{warm['import_s']:.2f} s | {card}")
+    if warm["warmup_compiles"] != 0 or warm["stats"]["warm_loaded"] != 2:
+        problems.append(f"(a) the warm engine's warmup ran "
+                        f"{warm['warmup_compiles']} op-loop dispatches and "
+                        f"loaded {warm['stats']['warm_loaded']} programs, "
+                        "want 0 and 2")
+    launches = 0
+    for mode in ("continuous", "gang"):
+        lane = warm[mode]
+        launches += lane["launches"]
+        same = lane["tokens"] == gen["tokens"]
+        log(f"warm {mode}: 252 tokens in {lane['elapsed'] * 1e3:.1f} ms, "
+            f"{lane['decodes']} decode dispatches, "
+            f"{lane['exported_decodes']} through the loaded decode program, "
+            f"paged_attention launches {lane['launches']}; tokens "
+            f"{'bitwise' if same else 'DIFFERENT from'} phase 13's eager "
+            "engine's")
+        if not same:
+            problems.append(f"(a) warm {mode} tokens differ from the eager "
+                            "engine's")
+        if lane["launches"] != GEN_LAYERS * lane["decodes"] \
+                or lane["exported_decodes"] != lane["decodes"]:
+            problems.append(
+                f"(a) warm {mode}: {lane['launches']} launches over "
+                f"{lane['decodes']} decode dispatches "
+                f"({lane['exported_decodes']} exported), want "
+                f"{GEN_LAYERS} each, every one exported")
+    rej = warm["stats"]["exec_cache"]["rejects"]
+    if any(rej.values()) or warm["stats"]["hot_recompiles"]:
+        problems.append(f"(a) rejects {rej} or hot recompiles "
+                        f"{warm['stats']['hot_recompiles']} on the "
+                        "unplanted runs")
+    fl, sw = warm["flipped"], warm["swapped"]
+    log(f"planted: a bit-flipped decode artifact: rejects {fl['rejects']}, "
+        f"{fl['warmup_compiles']} op-loop warmup dispatch, tokens "
+        f"{'bitwise' if fl['tokens'] == gen['tokens'] else 'DIFFERENT'}; "
+        f"the decode program swapped for the prefill one: rejects "
+        f"{sw['rejects']}, hot recompiles {sw['hot_recompiles']}, tokens "
+        f"{'bitwise' if sw['tokens'] == gen['tokens'] else 'DIFFERENT'}")
+    if fl["rejects"]["format"] != 1 or fl["warmup_compiles"] != 1 \
+            or fl["tokens"] != gen["tokens"]:
+        problems.append("(a) the bit-flipped artifact was not one typed "
+                        "format reject with the same tokens")
+    if sw["rejects"]["run_failed"] != 1 or sw["hot_recompiles"] != 1 \
+            or sw["tokens"] != gen["tokens"]:
+        problems.append("(a) the swapped executable was not one run_failed "
+                        "reject and one hot recompile with the same tokens")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, {"cold_ttft_s": cold["ttft_s"],
+                      "warm_ttft_s": warm["ttft_s"]}, cold["plan"]
+
+
+def phase_planner(torch, fluid, seed, card, problems, work):
+    """Phase 28(b) (PLAN_*): returns adam_arena's launches in the planned
+    steps and the version directory of the bundle published under ``work``
+    with plan=True (phase 28(a)'s cold interpreter resolves its plan)."""
+    import numpy as np
+    import chip_smoke
+    from paddle_tpu_torch.obs import REGISTRY
+    from paddle_tpu_torch.parallel import planner as pl
+    from paddle_tpu_torch.parallel.launch import RankPool
+    from paddle_tpu_torch.serving import ModelRegistry
+    from paddle_tpu_torch.testing import models
+
+    fluid.reset_unique_name()
+    main, startup, loss = lm_dp_program(seed)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = lm_feed(seed)
+    reports = {}
+    for n in PLAN_DEVICES:
+        t0 = time.perf_counter()
+        rep = pl.plan(main, feed_example=feed, n_devices=n,
+                      fetch_list=[loss], executor=exe, scope=scope,
+                      max_candidates=0)
+        reports[n] = rep
+        log(f"plan of phase 20's LM step (batch {LM_BATCH} x {LM_SEQ} "
+            f"tokens) over {n} device(s) in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms: chosen "
+            f"{rep.chosen.describe()} | {card}\n{rep.render()}")
+    feats = pl.extract_features(main, feed_example=feed, fetch_list=[loss],
+                                executor=exe, scope=scope)
+    log(f"FLOPs of one step measured on the card (FlopCounterMode over the "
+        f"op loop): {feats.flops:.6e}; the static estimate 6 x batch x "
+        f"parameters: {6.0 * feats.batch * sum(int(np.prod(s)) for s in feats.param_shapes.values()):.6e}; "
+        f"fingerprint device {reports[1].fingerprint['device']}")
+    if not feats.flops or reports[1].fingerprint["device"] != \
+            torch.cuda.get_device_name(0):
+        problems.append("(b) no FLOPs measured on the card")
+    chosen = reports[1].chosen
+    with RankPool(1, "nccl", timeout=300) as pool:
+        [rank] = pool.run(chip_smoke.planned_lm_rank, seed, chosen.sizes,
+                          chosen.plan_kw)
+    adam = rank["launches"]["planned"].get("adam_arena", 0)
+    same = rank["planned"] == rank["hand"]
+    log(f"the 1-device choice {chosen.describe()} applied over a one-rank "
+        f"{rank['backend']} group, {PLAN_STEPS} steps: losses "
+        + " ".join(f"{v:.6f}" for v in rank["losses"])
+        + f", {'bitwise' if same else 'NOT bitwise'} the hand-built "
+        f"make_mesh(1) + ShardingPlan step; launches planned "
+        f"{rank['launches']['planned']}, hand-built "
+        f"{rank['launches']['hand']}")
+    if not same or rank["backend"] != "nccl" or adam != PLAN_STEPS:
+        problems.append(f"(b) the planned step: bitwise {same}, backend "
+                        f"{rank['backend']}, adam_arena {adam} in "
+                        f"{PLAN_STEPS} steps")
+    # a bundle published with plan=True, resolved by a fresh interpreter
+    fluid.reset_unique_name()
+    dmain, dstartup, v = models.digits_mlp(fluid)
+    dscope = fluid.Scope()
+    exe.run(dstartup, scope=dscope)
+    bundle = os.path.join(work, "digits")
+    fluid.io.save_inference_model(bundle, ["img"], [v["predict"]], exe,
+                                  main_program=dmain, scope=dscope)
+    reg = ModelRegistry(os.path.join(work, "registry"))
+    before = REGISTRY.totals().get("paddle_tpu_plan_searches", 0)
+    t0 = time.perf_counter()
+    ver = reg.publish("digits", bundle, plan=True,
+                      warm_kwargs={"buckets": PLAN_BUCKETS})
+    pub_s = time.perf_counter() - t0
+    m = reg.verify("digits", ver)
+    path, _ = reg.resolve("digits", ver)
+    log(f"publish(plan=True) of the digits MLP in {pub_s:.2f} s "
+        f"({REGISTRY.totals().get('paddle_tpu_plan_searches', 0) - before} "
+        f"search, plan_files {sorted(m.get('plan_files', {}))}, warm_files "
+        f"{len(m.get('warm_files', {}))})")
+    if not m.get("plan_files"):
+        problems.append("(b) publish(plan=True) certified no plan")
+    return adam, path
+
+
+def _load_ckpt_params(paths):
+    import pickle
+
+    params, rounds = {}, set()
+    for p in paths:
+        with open(p, "rb") as f:
+            st = pickle.load(f)
+        params.update(st["params"])
+        rounds.add(int(st["round"]))
+    return params, rounds
+
+
+def phase_online(torch, fluid, seed, card, problems):
+    """Phase 28(c) (ONLINE_*): returns the loop's readings."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import RetryPolicy
+    from paddle_tpu_torch.online import OnlineLearningLoop
+    from paddle_tpu_torch.serving import FleetClient, InferClient
+
+    fluid.reset_unique_name()
+    main, startup, loss, prob = wd_program(fluid, WD, seed, with_prob=True)
+    feeds = [wd_feed(np, WD, seed + 280 + i) for i in range(ONLINE_FEEDS)]
+
+    def reader():
+        i = 0
+        while True:
+            yield feeds[i % len(feeds)]
+            i += 1
+
+    work = tempfile.mkdtemp(prefix="chip-smoke-online-")
+    loop = OnlineLearningLoop(
+        main, startup, reader, ["ids", "dense"], [prob],
+        registry_root=os.path.join(work, "registry"), model="wd",
+        n_pservers=WD_SHARDS, n_replicas=2,
+        publish_every_steps=ONLINE_PUBLISH_STEPS,
+        min_serve_s=ONLINE_MIN_SERVE_S, rollout_poll_s=0.2,
+        buckets=",".join(str(b) for b in ONLINE_BUCKETS), max_delay_ms=1.0,
+        checkpoint_dir=os.path.join(work, "ckpt"), extra_fetch=[loss],
+        registry_keep=ONLINE_KEEP)
+    rows = {n: {"ids": feeds[0]["ids"][:n], "dense": feeds[0]["dense"][:n]}
+            for n in ONLINE_ROWS}
+    errs, infers, served_seen, checked = [], [0], [], {}
+    stop = threading.Event()
+    copies = {}
+
+    def hammer(addresses):
+        fc = FleetClient(addresses, retry=RetryPolicy(
+            max_retries=20, backoff_base_s=0.05, backoff_max_s=1.0))
+        try:
+            while not stop.is_set():
+                try:
+                    out = fc.infer(rows[8])
+                    infers[0] += 1
+                    if np.asarray(out[0]).shape != (8, 1):
+                        errs.append(f"reply shape {np.asarray(out[0]).shape}")
+                except Exception as e:
+                    errs.append(repr(e))
+        finally:
+            fc.close()
+
+    def check_version(v):
+        """A freeze's bundle against both shards' checkpoints copied at
+        its cut: bitwise, the same round."""
+        man = loop.registry.manifest("wd", v)
+        lin = man.get("lineage", {})
+        step = lin.get("global_step")
+        if step == 0:
+            checked[v] = "initial parameters (no update: no checkpoint)"
+            return
+        paths = copies.pop(step, None)
+        if paths is None:
+            problems.append(f"(c) v{v} (step {step}): no checkpoint copy "
+                            "taken at its cut")
+            return
+        params, rounds = _load_ckpt_params(paths)
+        path, _ = loop.registry.resolve("wd", v)
+        bad = [n for n, w in params.items()
+               if not os.path.exists(os.path.join(path, n + ".npy"))
+               or not (lambda g: g.dtype == w.dtype and np.array_equal(
+                   g, w))(np.load(os.path.join(path, n + ".npy")))]
+        if rounds != {lin.get("freeze_round")} or bad:
+            problems.append(f"(c) v{v}: checkpoint rounds {rounds} against "
+                            f"the freeze's {lin.get('freeze_round')}, "
+                            f"params not bitwise {bad}")
+        checked[v] = f"round {lin.get('freeze_round')}: " + (
+            "bitwise" if not bad else f"differs in {bad}")
+        for p in paths:
+            os.unlink(p)
+
+    ht = None
+    t_start = time.perf_counter()
+    try:
+        v0 = loop.start(wait_ready_s=ONLINE_READY_S)
+        ready_s = time.perf_counter() - t_start
+        orig = loop.freezer.request_freeze
+
+        def request_freeze(step, wait=False, timeout=None):
+            # at the trainer's step boundary both shards' checkpoints hold
+            # this round (a push is acked after its checkpoint is written)
+            d = os.path.join(work, f"cut-{step}")
+            os.makedirs(d, exist_ok=True)
+            paths = []
+            for i in range(WD_SHARDS):
+                paths.append(os.path.join(d, f"{i}.ckpt"))
+                shutil.copyfile(loop.pservers.checkpoint_path(i), paths[-1])
+            job = orig(step, wait=wait, timeout=timeout)
+            if job is None:
+                shutil.rmtree(d, ignore_errors=True)
+            else:
+                copies[step] = paths
+            return job
+
+        loop.freezer.request_freeze = request_freeze
+        ht = threading.Thread(target=hammer,
+                              args=(list(loop.fleet.addresses),), daemon=True)
+        ht.start()
+        log(f"loop up in {ready_s:.1f} s (2 pserver shards, v{v0} frozen from "
+            f"the initial parameters and published, {2} replicas serving "
+            f"it) | {card}")
+        kills, t_train0, step0 = {}, time.perf_counter(), 0
+        served_versions = {v0}
+        deadline = time.monotonic() + ONLINE_DEADLINE_S
+        while True:
+            if time.monotonic() > deadline:
+                fail(f"phase 28(c): the loop did not reach its end within "
+                     f"{ONLINE_DEADLINE_S:.0f} s: "
+                     + json.dumps(loop.stats(fleet_metrics=False))[:2000])
+            st = loop.stats(fleet_metrics=False)
+            served_seen.append(st["served_version"])
+            served_versions.add(st["served_version"])
+            for v in st["published_versions"]:
+                if v not in checked and v not in st["rollout"]["bad_versions"]:
+                    check_version(v)
+            step = st["trainer"]["global_step"]
+            ro = st["rollout"]["rollouts"]
+            if "pserver" not in kills and ro >= 1:
+                loop.pservers.kill(1)
+                kills["pserver"] = (step, ro, time.perf_counter())
+                log(f"SIGKILL pserver shard 1 at step {step}, after {ro} "
+                    "rollout(s)")
+            if "replica" not in kills and "pserver" in kills:
+                loop.fleet.kill(1)
+                kills["replica"] = (step, ro, time.perf_counter())
+                log(f"SIGKILL replica 1 at step {step}, after {ro} "
+                    "rollout(s)")
+            restarted = (
+                sum(c["restart_count"] for c in st["pserver_children"]) >= 1
+                and sum(c["restart_count"] for c in st["fleet_children"]) >= 1)
+            if "replica" in kills and ro > kills["replica"][1] and restarted \
+                    and len(served_versions) >= ONLINE_VERSIONS \
+                    and all(loop.fleet.replica_health(i) for i in range(2)):
+                break
+            time.sleep(0.5)
+        train_s = time.perf_counter() - t_train0
+        loop.trainer.stop()
+        final_steps = loop.trainer.global_step
+        # let the last accepted freeze publish and roll out
+        conv_deadline = time.monotonic() + 120.0
+        while True:
+            st = loop.stats(fleet_metrics=False)
+            latest = [v for v in st["published_versions"]
+                      if v not in st["rollout"]["bad_versions"]][-1]
+            health = [loop.fleet.replica_health(i) for i in range(2)]
+            if st["served_version"] == latest and all(
+                    h and h.get("version") == latest for h in health) \
+                    and loop.freezer._jobs.empty():
+                break
+            if time.monotonic() > conv_deadline:
+                fail(f"phase 28(c): the fleet did not converge on v{latest}: "
+                     f"{health}")
+            time.sleep(0.5)
+        for v in st["published_versions"]:
+            if v not in checked:
+                check_version(v)
+        stop.set()
+        ht.join(30.0)
+        st = loop.stats()
+        fr = loop.freezer.stats()["freeze_latency"]
+        p2s = st["rollout"]["publish_to_served"]
+        log(f"{final_steps} steps in {train_s:.1f} s "
+            f"({final_steps / train_s:.3f} steps/s, the trainer's last loss "
+            f"{st['trainer']['last_extra']}); freezes "
+            f"{loop.freezer.stats()['published']} published, "
+            f"{loop.freezer.stats()['skipped_busy']} skipped busy, "
+            f"{json.dumps(loop.freezer.stats()['failures'])} failed, "
+            f"{fr.get('p50_ms', 0) / 1e3:.3f} s a freeze (p50, max "
+            f"{fr.get('max_ms', 0) / 1e3:.3f}); publish to served p50 "
+            f"{p2s.get('p50_ms', 0) / 1e3:.3f} s (max "
+            f"{p2s.get('max_ms', 0) / 1e3:.3f}, {p2s.get('count')} "
+            f"rollouts); {infers[0]} infer requests, {len(errs)} failed; "
+            f"served versions {sorted(served_versions)}; restarts pserver "
+            f"{[c['restart_count'] for c in st['pserver_children']]}, "
+            f"replicas {[c['restart_count'] for c in st['fleet_children']]}"
+            f" | {card}")
+        log("freezes against the pserver checkpoints at their rounds: "
+            + json.dumps(checked))
+        if errs:
+            problems.append(f"(c) {len(errs)} infer requests failed: "
+                            f"{errs[:3]}")
+        if any(b < a for a, b in zip(served_seen, served_seen[1:])):
+            problems.append(f"(c) the served version went back: "
+                            f"{served_seen}")
+        if len(served_versions) < ONLINE_VERSIONS or infers[0] == 0:
+            problems.append(f"(c) served {sorted(served_versions)}, "
+                            f"{infers[0]} requests")
+        # the final version's replies against the trainer-side forward on
+        # its frozen parameters
+        final = st["served_version"]
+        path, _ = loop.registry.resolve("wd", final)
+        exe = fluid.Executor()
+        fscope = fluid.Scope()
+        prog, feed_names, fetches = fluid.io.load_inference_model(
+            path, exe, scope=fscope)
+        readings = []
+        for i, addr in enumerate(loop.fleet.addresses):
+            with InferClient(tuple(addr)) as c:
+                for n in ONLINE_ROWS:
+                    got = np.asarray(c.infer(rows[n])[0])
+                    want = np.asarray(exe.run(prog, feed=rows[n],
+                                              fetch_list=fetches,
+                                              scope=fscope)[0])
+                    fills = n in ONLINE_BUCKETS
+                    err = float(np.max(np.abs(got - want)))
+                    scale = float(np.max(np.abs(want)))
+                    ok = np.array_equal(got, want) if fills \
+                        else err <= ONLINE_PAD_LIMIT * scale
+                    readings.append(f"replica {i} {n} rows: "
+                                    + ("bitwise" if np.array_equal(got, want)
+                                       else f"max |Δ| {err:.3e} of "
+                                            f"{scale:.3e}"))
+                    if not ok:
+                        problems.append(f"(c) replica {i}, {n} rows: "
+                                        f"max |Δ| {err:.3e} of {scale:.3e}")
+        log(f"v{final}'s replies against the trainer-side forward on its "
+            "frozen parameters (bitwise where the request fills a bucket, "
+            f"else within {ONLINE_PAD_LIMIT} of the largest): "
+            + "; ".join(readings))
+        return {"steps_per_s": final_steps / train_s,
+                "freeze_s": fr.get("p50_ms", 0) / 1e3,
+                "publish_to_served_s": p2s.get("p50_ms", 0) / 1e3}
+    finally:
+        stop.set()
+        if ht is not None:
+            ht.join(30.0)
+        loop.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_online_planner(torch, fluid, seed, card, gen):
+    """Phase 28: the generation engine's warm executables (a), the
+    placement planner (b) and online learning at full width (c). Returns
+    the main path's launches of paged_attention (inside the exported
+    decode programs) and adam_arena (the planned step), and the readings."""
+    from paddle_tpu_torch.ops import cuda as tier
+
+    log(f"\n== phase 28: the LM lane from exported phase programs, the "
+        f"placement planner over phase 20's LM, online learning over "
+        f"Wide&Deep at full width | {card} ==")
+    t_phase = time.perf_counter()
+    problems = []
+    work = tempfile.mkdtemp(prefix="chip-smoke-plan-")
+    log("-- (b) the placement planner --")
+    adam, plan_path = phase_planner(torch, fluid, seed, card, problems, work)
+    log("-- (a) warm executables --")
+    pa, ttft, child = phase_gen_warm(torch, fluid, seed, card, gen,
+                                     problems, plan_path)
+    log(f"(b) the published plan resolved by (a)'s cold interpreter, as a "
+        f"replica resolves it, in {child['seconds']:.2f} s: "
+        f"{json.dumps(child)}")
+    if child["searches"] != 0 or child["hits"] != 1 \
+            or not child["from_cache"]:
+        problems.append(f"(b) the replica's plan: {child['searches']} "
+                        f"searches, {child['hits']} cache hits")
+    shutil.rmtree(work, ignore_errors=True)
+    log("-- (c) online learning --")
+    c0 = tier.launch_counts()
+    online = phase_online(torch, fluid, seed, card, problems)
+    online_launches = {k: v - c0.get(k, 0)
+                       for k, v in tier.launch_counts().items()
+                       if v - c0.get(k, 0)}
+    log(f"(c)'s launches in this process (the trainer and the freezes): "
+        f"{online_launches} (the update runs in the numpy shards)")
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s | {card}")
+    if problems:
+        fail("phase 28: " + "; ".join(problems))
+    return {"paged_attention": pa, "adam_arena": adam}, {**ttft, **online}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10775,6 +11523,9 @@ def main():
     det = phase_detection(torch, fluid, args.seed, card)
     fleet, variants = phase_fleet(torch, fluid, args.seed, card, serving,
                                   gen)
+    p28, p28_readings = phase_online_planner(torch, fluid, args.seed, card,
+                                             gen)
+    log("phase 28 readings: " + json.dumps(p28_readings))
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
 
@@ -10852,7 +11603,7 @@ def main():
               rnn_launches["adam_arena"] + gru_launches["adam_arena"]
               + ctc_launches["adam_arena"] + rec["adam_arena"]
               + amp["adam_arena"] + rt["adam_arena"] + lm["adam_arena"]
-              + multi["adam_arena"],
+              + multi["adam_arena"] + p28["adam_arena"],
               rnn_totals["adam_arena"]),
         entry("gru_seq", "gru_seq.cu", "pallas/rnn.py:233",
               gru_launches["gru_seq"] + ctc_launches["gru_seq"]
@@ -10877,7 +11628,8 @@ def main():
         entry("paged_attention", "paged_attention.cu",
               "pallas/paged_attention.py:100",
               gen_launches + srv_gen_launches + rt["paged_attention"]
-              + lm["paged_attention"] + fleet["paged_attention"],
+              + lm["paged_attention"] + fleet["paged_attention"]
+              + p28["paged_attention"],
               paged_totals["paged_attention"],
               ("llama_ms", "llama_bound_ms", "llama_4096_ms",
                "llama_4096_bound_ms")),

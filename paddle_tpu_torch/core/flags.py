@@ -12,7 +12,8 @@ plane's (``obs_metrics_window``, ``obs_slo_interval_s``,
 the perf plane's (``serving_fleet_replicas``, ``serving_probe_interval_ms``,
 ``serving_probation_probes``, ``serving_exec_cache*``,
 ``serving_kv_spill_*``, ``serving_autoscale_*``, ``obs_compile_*``,
-``kernel_autotune*``), each with the reference's default."""
+``kernel_autotune*``), the online-learning loop's (``online_*``) and the
+placement planner's (``plan_*``), each with the reference's default."""
 
 from __future__ import annotations
 
@@ -387,3 +388,76 @@ DEFINE_flag("kernel_autotune_bf16", False,
             "same) where the kernel runs, and the plain chain only "
             "where it cannot; a table entry naming a bf16 variant is "
             "ignored without this opt-in")
+
+DEFINE_flag("online_publish_every_steps", 100,
+            "how many global steps the online StreamingTrainer trains "
+            "between freeze/publish triggers (online/trainer.py). 0 "
+            "disables the step trigger; the time trigger "
+            "(online_publish_every_s) still applies. The trigger fires at "
+            "a step BOUNDARY (after the push acked on every shard), which "
+            "is what makes the freezer's cut barrier-consistent")
+
+DEFINE_flag("online_publish_every_s", 0.0,
+            "wall-clock publish trigger for the online StreamingTrainer: "
+            "freeze/publish when this many seconds elapsed since the last "
+            "successful freeze request, checked at step boundaries. 0.0 "
+            "(default) disables the time trigger — step cadence "
+            "(online_publish_every_steps) drives publishes alone")
+
+DEFINE_flag("online_trainers_min", 1,
+            "lower bound on the online TrainerPool's worker count: the "
+            "backlog-driven autoscaler never retires below this many "
+            "StreamingTrainer workers, and the pool hot-joins "
+            "replacements for crashed workers back up to it "
+            "(online/pool.py)")
+
+DEFINE_flag("online_trainers_max", 4,
+            "upper bound on the online TrainerPool's worker count: a "
+            "Master-backlog spike grows the pool (one hot-join per "
+            "autoscaler poll while the scale-up SloRule burns) up to "
+            "this many StreamingTrainer workers, never past it")
+
+DEFINE_flag("online_min_serve_s", 2.0,
+            "rollout hysteresis: the RolloutController will not start a "
+            "new rolling_reload until the currently served version has "
+            "been serving this long — a flapping trainer publishing "
+            "every few steps cannot churn the fleet; intermediate "
+            "versions are skipped (the controller always rolls to the "
+            "newest published version)")
+
+DEFINE_flag("online_rollout_poll_ms", 250.0,
+            "how often the online RolloutController polls the "
+            "ModelRegistry for a newer published version than the fleet "
+            "is serving")
+
+DEFINE_flag("online_registry_keep", 0,
+            "when > 0, the RolloutController garbage-collects the "
+            "registry after each successful rollout via "
+            "ModelRegistry.gc(keep_latest=N) — old version dirs are "
+            "pruned, but never the currently-served, pinned, latest, or "
+            "rollback-target (previous) versions. 0 (default) disables "
+            "gc: every published version is retained")
+
+DEFINE_flag("plan_memory_budget_bytes", 0,
+            "per-device memory budget the placement planner "
+            "(parallel.planner) prunes mesh candidates against — a "
+            "candidate whose modeled per-device bytes (params + grads + "
+            "optimizer state + activations) exceed the budget is marked "
+            "pruned with a why-note and never ranked; 0 (default) "
+            "disables the budget. Part of the plan fingerprint")
+
+DEFINE_flag("plan_max_candidates", 16,
+            "maximum ranked candidates a PlacementReport keeps; the "
+            "search still costs every legal mesh, then drops the tail "
+            "past this cap (the report records how many were dropped). "
+            "0 keeps everything. Part of the plan fingerprint")
+
+DEFINE_flag("plan_cache_dir", "",
+            "local directory of placement-plan artifacts (.jplan) "
+            "consulted read-write by parallel.planner.plan() when no "
+            "published bundle plan/ dir applies: a fingerprint-matching "
+            "artifact skips the search (paddle_tpu_plan_cache_hits), a "
+            "fresh search persists its report there; empty (default) "
+            "disables the local cache. The plan only chooses the mesh "
+            "and ShardingPlan arguments; the sharded step's identity is "
+            "theirs")

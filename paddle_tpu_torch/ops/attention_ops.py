@@ -40,6 +40,13 @@ live slots' positions come from one ``nonzero`` per phase op, which costs
 one device-to-host sync (their count sets the index's length); K and V
 share it.
 
+Export. The write is the operator ``torch.ops.paddle_tpu_torch.paged_kv_write``
+(``mutates_args`` the two arenas) and the decode attend the operator
+``torch.ops.paddle_tpu_torch.paged_attention``: a ``torch.export`` trace of a
+phase program keeps both whole, at static shapes (the ``nonzero`` runs
+inside the write, never in the graph), and the exported program writes the
+fed arena back (``serving/execcache.py``).
+
 All phase ops are row-independent: a row's output depends only on its own
 tokens, table and arena rows, which is what makes continuous batching
 give the same token streams as one sequence at a time.
@@ -123,6 +130,23 @@ def _scatter_rows(caches, slots, rows):
         flat.index_copy_(0, idx, r.index_select(0, live).to(cache.dtype))
 
 
+@torch.library.custom_op("paddle_tpu_torch::paged_kv_write",
+                         mutates_args=("kc", "vc"))
+def paged_kv_write(kc: torch.Tensor, vc: torch.Tensor, slots: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor) -> None:
+    """``torch.ops.paddle_tpu_torch.paged_kv_write``: :func:`_scatter_rows`
+    of the rows k, v [n, H, D] into the arenas kc, vc at the flat slots
+    [n], in place, the sentinel rule kept. As an operator, a
+    ``torch.export`` trace keeps the write whole (its live-slot count is
+    data-dependent) and records the arenas as mutated inputs."""
+    _scatter_rows((kc, vc), slots, (k, v))
+
+
+@paged_kv_write.register_fake
+def _paged_kv_write_fake(kc, vc, slots, k, v):
+    return None
+
+
 def _phase_inputs(ctx):
     """Q, K, V, heads, the arenas and the slot mapping of a phase op, with
     the window's K/V rows scattered into the arenas (in place)."""
@@ -135,7 +159,7 @@ def _phase_inputs(ctx):
     slots = data_of(ctx.input("SlotMapping")).reshape(-1)
     kh = _split_heads(k, h).reshape((-1,) + kc.shape[2:])
     vh = _split_heads(v, h).reshape((-1,) + vc.shape[2:])
-    _scatter_rows((kc, vc), slots, (kh, vh))
+    paged_kv_write(kc, vc, slots, kh, vh)
     ctx.set_output("KCacheOut", kc)
     ctx.set_output("VCacheOut", vc)
     return q, k, v, h, kc, vc
@@ -218,8 +242,8 @@ def paged_attention(ctx):
         "pallas": _pa.paged_attention_supported(qh, kc, bt),
     }, device=qh.device)
     if choice == "pallas":
-        out = _pa.paged_attention_cuda(qh.contiguous(), kc, vc,
-                                       bt.contiguous(), ctx_lens.contiguous())
+        out = _pa.paged_attention_op(qh.contiguous(), kc, vc,
+                                     bt.contiguous(), ctx_lens.contiguous())
     else:
         out = _pa.paged_attention_torch(qh, kc, vc, bt, ctx_lens)
     ctx.set_output("Out", out.reshape(bt.shape[0], 1, -1))

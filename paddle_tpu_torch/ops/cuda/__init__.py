@@ -113,4 +113,4 @@ __all__ = ["resolve_tier", "use_kernel", "record_fallback",
 
 # the kernels' torch.library operators (torch.ops.paddle_tpu_torch.*),
 # which an exported artifact calls (fluid/aot.py)
-from . import conv_bn, rnn  # noqa: E402,F401
+from . import conv_bn, paged_attention, rnn  # noqa: E402,F401

@@ -19,6 +19,12 @@ of the [S, P * block_size, H, D] context, a softmax masked at -1e9 past
 each slot's length, and inactive rows zeroed.
 ``paged_attention_split_torch`` models the kernel's decomposition (the
 partitions' states, then the merge) on the CPU for the tests.
+
+``paged_attention_op`` (``torch.ops.paddle_tpu_torch.paged_attention``) is
+the wrapper as a ``torch.library`` operator, which the decode op calls: a
+``torch.export`` trace of the decode program keeps it whole, so an
+exported decode program (``serving/execcache.py``) still launches the
+kernel.
 """
 
 from __future__ import annotations
@@ -177,6 +183,24 @@ def paged_attention_cuda(qh, kc, vc, bt, ctx_lens):
                            f"{err} ({lib.kernel_error_string(err).decode()})")
     launches["paged_attention"] += 1
     return out
+
+
+@torch.library.custom_op("paddle_tpu_torch::paged_attention",
+                         mutates_args=())
+def paged_attention_op(qh: torch.Tensor, kc: torch.Tensor,
+                       vc: torch.Tensor, bt: torch.Tensor,
+                       ctx_lens: torch.Tensor) -> torch.Tensor:
+    """``torch.ops.paddle_tpu_torch.paged_attention``: :func:`paged_attention_cuda`
+    as an operator that ``torch.export`` keeps whole in a graph. On CUDA
+    tensors it launches the kernel, on CPU tensors it runs the plain
+    version (the wrapper's own dispatch); its fake implementation gives
+    the output's shape, q's [S, H, D]."""
+    return paged_attention_cuda(qh, kc, vc, bt, ctx_lens)
+
+
+@paged_attention_op.register_fake
+def _paged_attention_fake(qh, kc, vc, bt, ctx_lens):
+    return torch.empty_like(qh)
 
 
 def _lib():

@@ -44,9 +44,17 @@ True)``; listed with per-file sha256 in ``VERSION.json``, covered by
 ``verify()``, deleted by ``gc()``; engines open it read-only); the
 ``serving_exec_cache_dir`` flag names a per-process read-write local cache
 for unpublished bundles. The ``serving_exec_cache`` flag is the kill
-switch. Feed-forward engines only: the generation engine's phase programs
-write the KV arena in place through a wrapper that is not a
-``torch.library`` operator, so they are not exported (ROADMAP §C).
+switch.
+
+Both engines use it. An ``InferenceEngine`` keys one executable per
+bucket (``infer_b<bucket>``); a ``GenerationEngine`` one per (phase,
+bucket) (``gen_<phase>_b<bucket>``, the reference's identity), whose
+feeds include the per-layer KV arenas. A phase program writes its arenas
+through the ``torch.ops.paddle_tpu_torch.paged_kv_write`` operator, which
+``torch.export`` records as a mutation of those inputs, so the exported
+program's module writes the fed arena back as the op loop does in place;
+its decode attend stays the ``torch.ops.paddle_tpu_torch.paged_attention``
+operator, which launches the paged-attention kernel on the card.
 """
 
 from __future__ import annotations

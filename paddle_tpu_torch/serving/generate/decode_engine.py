@@ -48,13 +48,22 @@ later attach restores them with zero prefill dispatches. Warmup loads
 the bundle's tuning table (``ops.autotune.load_for_bundle``) first and
 every dispatch routes by it (``ops.autotune.routing``), and
 each (phase, bucket)'s first dispatch lands in obs.perf's compile log
-(``genengine_warmup`` / ``genengine_<phase>``). Not ported (see ROADMAP):
-the warm-executable cache (``exec_cache=``): the phase programs write the
-arena in place through the paged-attention wrapper, which is not a
-``torch.library`` operator, so they are not exported; passing a cache
-raises NotImplementedError. Telemetry lives on the obs.metrics registry,
-as the reference's does: the compile/hit counters, the hot-recompile
-alarm and the per-request TTFT/TPOT histograms.
+(``genengine_warmup`` / ``genengine_<phase>``).
+
+The warm-executable cache (``exec_cache=``, or the ``serving_exec_cache*``
+flags, or a registry version's ``warm/`` dir; serving/execcache.py): at
+warmup each (phase, bucket) loads its ``torch.export`` program, or (a
+writable cache) exports and persists it, keyed ``gen_<phase>_b<bucket>``.
+The phase programs export whole: the arena write and the decode attend are
+``torch.library`` operators (ops/attention_ops.py), and the exported
+program writes the fed arena back, so a warm dispatch updates the arena as
+the op loop does and the decode attend still launches the paged-attention
+kernel. A loaded (phase, bucket)'s first dispatch counts as a hit, so a
+warm engine's :meth:`warmup` reports 0; an executable that loads but fails
+to run is a ``run_failed`` reject, counts as a hot recompile and reruns on
+the op loop (the same kernels). Telemetry lives on the obs.metrics
+registry, as the reference's does: the compile/hit counters, the
+hot-recompile alarm and the per-request TTFT/TPOT histograms.
 """
 
 from __future__ import annotations
@@ -229,10 +238,6 @@ class GenerationEngine:
                  max_len=128, prefill_buckets=None, prefix_cache_blocks=None,
                  prefill_chunk=None, donate_arena=True, exec_cache=None,
                  kv_store=None):
-        if exec_cache not in (None, False):
-            raise NotImplementedError(
-                "GenerationEngine(exec_cache=...): the phase programs are "
-                "not exported (see the module docstring)")
         self._scope = scope or Scope()
         self._exe = executor or Executor(place)
         if model_dir is not None:
@@ -275,10 +280,22 @@ class GenerationEngine:
         # content hash and the arena geometry: no bundle bytes, no tier
         self._model_dir = str(model_dir) if model_dir is not None else None
         self._tune_table = None        # the bundle's, loaded by warmup
+        self._bundle_hash = _execcache.bundle_content_hash(model_dir) \
+            if model_dir is not None else None
+        # the warm-executable cache: each (phase, bucket) loads its
+        # exported program at warmup instead of running its first
+        # dispatch through the op loop. The engine's geometry (max_seqs,
+        # max_len, the arena, chunking) needs no key of its own: the
+        # warmup feeds' shapes, which the fingerprint holds, fix it
+        self._exec_cache = _execcache.resolve_cache(model_dir, exec_cache) \
+            if self._bundle_hash is not None else None
+        self._warm_execs = {}          # (phase, bucket) -> WarmExecutable
+        self._warm_loaded = set()      # keys whose executable was LOADED
+        self._seen = set()             # (phase, bucket) dispatched so far
         self._kv_store = None
         if model_dir is not None and kv_store is not False:
             kv_fp = _kvstore.kv_fingerprint(
-                _execcache.bundle_content_hash(model_dir), layers, heads,
+                self._bundle_hash, layers, heads,
                 head_dim, self.cache.block_size, self.cache.k[0].dtype,
                 self._exe.device)
             self._kv_store = _kvstore.resolve_store(model_dir, kv_store,
@@ -421,7 +438,32 @@ class GenerationEngine:
                                       for l in range(self.num_layers)
                                       for k in ("k", "v")]
 
+    def _warm_phase(self, program, feed, phase, bucket):
+        """Register one (phase, bucket)'s warm executable: load the
+        artifact whose fingerprint matches this exact dispatch, or
+        (writable caches) export and persist it. Every failure is silent:
+        the (phase, bucket) runs the op loop."""
+        key = (phase, bucket)
+        if self._exec_cache is None or key in self._warm_execs:
+            return
+        with _autotune.routing(self._tune_table):
+            entry = _execcache.acquire(
+                self._exec_cache, self._bundle_hash, f"gen_{phase}_b{bucket}",
+                program, feed, self._gen_fetch(), self._exe, self._scope,
+                identity={"instance": self.obs_instance, "phase": phase,
+                          "bucket": bucket})
+        if entry is not None:
+            self._warm_execs[key] = entry
+            if entry.source == "cache":
+                self._warm_loaded.add(key)
+
     def _dispatch(self, program, feed, phase, bucket):
+        key = (phase, bucket)
+        warm = self._warm_execs.get(key)
+        # accounting before the dispatch (mark-then-dispatch): a first
+        # dispatch through a LOADED executable runs no op loop and counts
+        # as a hit, so a warm warmup() reports 0
+        first = False
         with self._stats_lock:
             per = self._phase[phase].get(bucket)
             if per is None:
@@ -430,26 +472,56 @@ class GenerationEngine:
                                        phase=phase, bucket=str(bucket)),
                     _M_HITS.labels(instance=self.obs_instance,
                                    phase=phase, bucket=str(bucket)))
-                per[0].inc()
-                first = True
-                if self._warmed:
-                    # a (phase, bucket) first dispatched after warmup:
-                    # where the reference counts a hot recompile
-                    self._m_hot.inc()
-            else:
-                first = False
+            if key in self._seen:
                 per[1].inc()
-        t0 = time.perf_counter()
-        with _autotune.routing(self._tune_table):
-            outs = self._exe.run(program, feed=feed,
-                                 fetch_list=self._gen_fetch(),
-                                 scope=self._scope, return_numpy=False)
-        if first:
-            _perf.note_compile(
-                f"genengine_{phase}" if self._warmed else "genengine_warmup",
-                time.perf_counter() - t0,
-                identity=dict(instance=self.obs_instance, phase=phase,
-                              bucket=bucket))
+            else:
+                self._seen.add(key)
+                if warm is not None and key in self._warm_loaded:
+                    per[1].inc()
+                else:
+                    first = True
+                    per[0].inc()
+                    if self._warmed:
+                        # a (phase, bucket) first dispatched after warmup:
+                        # where the reference counts a hot recompile
+                        self._m_hot.inc()
+        outs = None
+        if warm is not None:
+            # the exported program dispatched directly: the same op loop
+            # traced, so its outputs are the op loop's bitwise; one that
+            # loaded but will not run rejects and the op loop runs it
+            try:
+                outs = warm.run(self._exe, program, feed, self._scope,
+                                return_numpy=False)
+            except Exception as e:
+                self._warm_execs.pop(key, None)
+                loaded = key in self._warm_loaded
+                self._warm_loaded.discard(key)
+                self._exec_cache.note_reject(f"gen_{phase}_b{bucket}",
+                                             "run_failed", error=e)
+                if loaded:
+                    with self._stats_lock:
+                        # the op loop below is the real first dispatch
+                        # that the accounting booked as a hit
+                        first = True
+                        per[0].inc()
+                        if self._warmed:
+                            self._m_hot.inc()
+        if outs is None:
+            t0 = time.perf_counter()
+            with _autotune.routing(self._tune_table):
+                outs = self._exe.run(program, feed=feed,
+                                     fetch_list=self._gen_fetch(),
+                                     scope=self._scope, return_numpy=False)
+            if first:
+                detail = dict(instance=self.obs_instance, phase=phase,
+                              bucket=bucket)
+                if self._exec_cache is not None:
+                    detail["cache_hit"] = False
+                _perf.note_compile(
+                    f"genengine_{phase}" if self._warmed
+                    else "genengine_warmup",
+                    time.perf_counter() - t0, identity=detail)
         for l in range(self.num_layers):
             self.cache.k[l] = outs[1 + 2 * l]
             self.cache.v[l] = outs[2 + 2 * l]
@@ -549,29 +621,39 @@ class GenerationEngine:
         """Run the decode phase and every prefill bucket (and its chunked
         twin, when partial prefill is on) once with inert feeds: sentinel
         slots write nothing, so every kernel is built and launched before
-        the first request. Returns the number of (phase, bucket) pairs
-        warmed."""
+        the first request. With a warm-executable cache each (phase,
+        bucket) first loads (or exports) its program. Returns the number
+        of first dispatches that ran the op loop: one per (phase, bucket)
+        on a fresh engine, 0 on one whose cache held every program."""
         del sample_feed                            # the engine derives its own
         with self._lock:
+            before = self._compiles()
             # the bundle's published tuning table loads before the first
-            # dispatch
+            # dispatch: every warm executable's fingerprint carries it
             self._tune_table = _autotune.load_for_bundle(self._model_dir)
-            n = 1
-            self._dispatch(self._decode_program, self._decode_feed([]),
-                           "decode", self.max_seqs)
+            feed = self._decode_feed([])
+            self._warm_phase(self._decode_program, feed, "decode",
+                             self.max_seqs)
+            self._dispatch(self._decode_program, feed, "decode",
+                           self.max_seqs)
             for b in self.prefill_buckets:
                 feed, _ = self._window_feed(None, [0] * b, 0)
+                self._warm_phase(self._prefill_program, feed, "prefill", b)
                 self._dispatch(self._prefill_program, feed, "prefill", b)
-                n += 1
                 if self._partial_enabled:
                     feed, _ = self._window_feed(None, [0] * b, 0)
                     feed[_TABLES] = np.zeros((1, self._table_width),
                                              np.int32)
                     feed[_CHUNKSTART] = np.zeros(1, np.int32)
+                    self._warm_phase(self._chunk_program, feed, "chunk", b)
                     self._dispatch(self._chunk_program, feed, "chunk", b)
-                    n += 1
             self._warmed = True
-            return n
+            return self._compiles() - before
+
+    def _compiles(self):
+        with self._stats_lock:
+            return int(sum(c.value for per in self._phase.values()
+                           for c, _h in per.values()))
 
     # ------------------------------------------------------------------
     # sampling
@@ -958,8 +1040,9 @@ class GenerationEngine:
     def stats(self):
         """Per-phase dispatch counts ({phase: {bucket: {"dispatches":
         n}}}), slot and arena occupancy, the kernel route, the process-wide
-        paged-attention launches and fallbacks, TTFT/TPOT summaries and
-        the memory section."""
+        paged-attention launches and fallbacks, the warm-executable cache's
+        counters and loaded executables, TTFT/TPOT summaries and the memory
+        section."""
         with self._stats_lock:
             phases = {ph: {b: {"dispatches": int(c.value) + int(h.value)}
                            for b, (c, h) in per.items()}
@@ -981,7 +1064,9 @@ class GenerationEngine:
             "fallbacks": kernel_tier.fallback_counts(),
             "donate_arena": self.donate_arena,
             "tune_digest": self.tune_digest(),
-            "exec_cache": None,
+            "exec_cache": None if self._exec_cache is None
+            else self._exec_cache.stats(),
+            "warm_loaded": len(self._warm_loaded),
             "kv_store": None if self._kv_store is None
             else self._kv_store.stats(),
             "ttft": self.ttft.snapshot(),

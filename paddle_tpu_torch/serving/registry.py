@@ -1,6 +1,5 @@
 """ModelRegistry: a versioned store of ``save_inference_model`` bundles
-(counterpart of paddle_tpu/serving/registry.py, ported whole but for the
-publish-time placement plan, whose planner is not ported yet).
+(counterpart of paddle_tpu/serving/registry.py).
 
 The missing link between "a model was exported somewhere in /tmp" and "a
 fleet of replicas serves version N and can roll to N+1": versions live
@@ -175,13 +174,13 @@ class ModelRegistry:
         kernels by measurement with zero in-band tuning work. Implies a
         warm pass.
 
-        ``plan=True`` (the reference's publish-time placement plan) raises
-        NotImplementedError before anything is written: the planner
-        (parallel/planner.py) is not ported yet."""
-        if plan:
-            raise NotImplementedError(
-                "publish(plan=True): the placement planner "
-                "(parallel/planner.py) is not ported yet")
+        ``plan=True`` additionally runs the auto-parallelism placement
+        planner (parallel/planner.py) at publish time and ships the
+        searched PlacementReport under ``<version>/plan/``,
+        manifest-pinned as ``plan_files`` — replicas that serve this
+        version resolve the certified plan
+        (``parallel.planner.resolve_store``) without re-searching.
+        Implies a warm pass."""
         if not os.path.exists(os.path.join(src_dir, MODEL_FILENAME)):
             raise ValueError(
                 f"publish: {src_dir!r} is not a save_inference_model "
@@ -257,12 +256,14 @@ class ModelRegistry:
         with open(tmp, "w") as f:
             json.dump(manifest, f, indent=1, sort_keys=True)
         os.replace(tmp, os.path.join(dst, VERSION_MANIFEST))
-        if warm_cache or kv_prompts or tune:
+        if warm_cache or kv_prompts or tune or plan:
             wk = dict(warm_kwargs or {})
             if kv_prompts is not None:
                 wk.setdefault("kv_prompts", kv_prompts)
             if tune:
                 wk.setdefault("tune", tune)
+            if plan:
+                wk.setdefault("plan", plan)
             if place is not None:
                 wk.setdefault("place", place)
             self.warm(model, version, **wk)
@@ -324,15 +325,24 @@ class ModelRegistry:
         loading mismatched routing). When ``tune`` is falsy an existing
         ``tune/`` dir is left untouched, like ``kv/``.
 
-        Generative bundles get no ``warm/`` artifacts here: their phase
-        programs write the KV arena in place and are not exported
-        (serving/execcache.py), so ``warm_files`` stays empty for them.
-        ``plan=True`` raises NotImplementedError (the planner is not
-        ported yet); ``place`` is the engines' device."""
-        if plan:
-            raise NotImplementedError(
-                "warm(plan=True): the placement planner "
-                "(parallel/planner.py) is not ported yet")
+        A generative bundle's ``warm/`` holds one exported program per
+        (phase, bucket) of the engine ``gen_opts`` configures.
+
+        ``plan=True`` runs the publish-time placement search
+        (parallel/planner.py): the bundle is loaded into a throwaway
+        scope, the planner enumerates and cost-models the legal meshes
+        for THIS host's device count (the process group's, else the
+        visible cards), and the ranked PlacementReport lands under
+        ``<version>/plan/`` with ``plan_files`` certified into the
+        manifest — replicas resolve the certified plan
+        (``parallel.planner.resolve_store``) and place without
+        re-searching. Re-warming is idempotent (the fingerprint-matching
+        artifact is a cache hit, nothing is rewritten); a plan pass that
+        fails (e.g. a bundle whose feeds the planner cannot synthesize)
+        records a flight event and certifies nothing — plans are an
+        additive sidecar, never a publish failure. When ``plan`` is
+        falsy an existing ``plan/`` dir is left untouched. ``place`` is
+        the engines' and the planner's device."""
         path, v = self.resolve(model, version)
         m = self.manifest(model, v)
         from .execcache import ARTIFACT_SUFFIX, ExecCache, WARM_DIRNAME
@@ -345,6 +355,14 @@ class ModelRegistry:
                                     else None, place=place)
             if m.get("tune_files") != tune_files:
                 m["tune_files"] = tune_files
+                tmp = os.path.join(path, VERSION_MANIFEST + ".tmp")
+                with open(tmp, "w") as f:
+                    json.dump(m, f, indent=1, sort_keys=True)
+                os.replace(tmp, os.path.join(path, VERSION_MANIFEST))
+        if plan:
+            plan_files = self._plan(path, m, place=place)
+            if m.get("plan_files") != plan_files:
+                m["plan_files"] = plan_files
                 tmp = os.path.join(path, VERSION_MANIFEST + ".tmp")
                 with open(tmp, "w") as f:
                     json.dump(m, f, indent=1, sort_keys=True)
@@ -366,7 +384,8 @@ class ModelRegistry:
                 gopts.setdefault("prefix_cache_blocks", 4096)
                 gopts.setdefault("kv_store",
                                  os.path.join(path, _kvs.KV_DIRNAME))
-            engine = GenerationEngine(path, place=place, **gopts)
+            engine = GenerationEngine(path, place=place, exec_cache=cache,
+                                      **gopts)
             engine.warmup()
             if kv_prompts:
                 kv_files = self._precompute_kv(engine, path, kv_prompts)
@@ -406,7 +425,8 @@ class ModelRegistry:
                 json.dump(m, f, indent=1, sort_keys=True)
             os.replace(tmp, os.path.join(path, VERSION_MANIFEST))
         return sorted(warm_files) + sorted(kv_files or {}) \
-            + sorted(m.get("tune_files", {}) if tune else {})
+            + sorted(m.get("tune_files", {}) if tune else {}) \
+            + sorted(m.get("plan_files", {}) if plan else {})
 
     def _tune(self, path, m, buckets=None, sample_feed=None, gen_opts=None,
               tune_opts=None, place=None):
@@ -422,6 +442,7 @@ class ModelRegistry:
         if m.get("model_kind", "feedforward") == "generative":
             from .generate import GenerationEngine
             engine = GenerationEngine(path, place=place, kv_store=False,
+                                      exec_cache=False,
                                       **dict(gen_opts or {}))
             with _at.capture() as keys:
                 engine.warmup()
@@ -459,6 +480,58 @@ class ModelRegistry:
                 except OSError:
                     pass
         return tune_files
+
+    def _plan(self, path, m, place=None):
+        """Run the publish-time placement search: load the bundle into a
+        throwaway scope on ``place`` (the card unless the caller asks for
+        the CPU), synthesize a template feed at one row per device (so
+        every data-parallel degree divides), and let
+        ``parallel.planner.plan`` search + persist into ``<version>/
+        plan/``. A fingerprint-matching existing artifact is a cache hit
+        (re-warming is idempotent: same bytes, same digest). The search
+        failing — a bundle whose free dims ``template_feed`` cannot
+        synthesize, a program the lowering rejects — records a flight
+        event and certifies nothing: plans are an additive sidecar.
+        Returns the ``plan_files`` digest map."""
+        from ..core.executor import Executor
+        from ..core.scope import Scope
+        from ..fluid import io as fluid_io
+        from ..obs import perf as _perf
+        from ..parallel import planner as _pl
+        plan_dir = os.path.join(path, _pl.PLAN_DIRNAME)
+        store = _pl.PlanStore(plan_dir)
+        try:
+            scope = Scope()
+            exe = Executor(place)
+            program, feed_names, fetch_vars = \
+                fluid_io.load_inference_model(path, exe, scope=scope)
+            feed = _perf.template_feed(
+                program, feed_names,
+                batch=_pl._device_count(exe.device))
+            _pl.plan(program, feed_example=feed, fetch_list=fetch_vars,
+                     executor=exe, scope=scope, store=store)
+        except Exception as e:
+            from ..obs.recorder import record
+            record("plan_publish_failed", component="serving.registry",
+                   model=m.get("model"), version=m.get("version"),
+                   error=f"{type(e).__name__}: {e}")
+        plan_files = {}
+        touched = set(store.touched())
+        for name in sorted(os.listdir(plan_dir)):
+            fpath = os.path.join(plan_dir, name)
+            if not os.path.isfile(fpath) or name.endswith(".tmp"):
+                continue
+            if name in touched:
+                plan_files[f"{_pl.PLAN_DIRNAME}/{name}"] = \
+                    _sha256_file(fpath)
+            elif name.endswith(_pl.ARTIFACT_SUFFIX):
+                # a plan another toolchain/device-count searched: its
+                # filename fingerprint can never match here — prune
+                try:
+                    os.unlink(fpath)
+                except OSError:
+                    pass
+        return plan_files
 
     def _precompute_kv(self, engine, path, kv_prompts):
         """Prefill each prompt on the warm engine (chains that already
@@ -659,6 +732,9 @@ class ModelRegistry:
         # tune_files (publish-time kernel-tuning tables, tune/) too:
         # ops.autotune.TuneStore pins loads to these digests at runtime
         listed.update(m.get("tune_files", {}))
+        # plan_files (publish-time placement plans, plan/) the same:
+        # parallel.planner.PlanStore pins loads to these digests
+        listed.update(m.get("plan_files", {}))
         for name, want in listed.items():
             fpath = os.path.join(path, name)
             if not os.path.exists(fpath):

@@ -44,11 +44,11 @@ Shutdown is a graceful DRAIN by default: stop accepting, let every
 in-flight request finish and be answered, then close —
 ``shutdown(drain=False)`` and ``kill()`` keep the abrupt forms.
 
-``exec_cache=`` reaches every feed-forward engine the server builds
-(the default one, ``add_model``'s and ``reload``'s): an ExecCache, a
-directory, or False (serving/execcache.py); left None, each engine
-resolves its bundle's ``warm/`` dir or the ``serving_exec_cache_dir``
-flag. Generative engines run their phases eagerly.
+``exec_cache=`` reaches every engine the server builds, feed-forward
+and generative (the default one, ``add_model``'s and ``reload``'s): an
+ExecCache, a directory, or False (serving/execcache.py); left None, each
+engine resolves its bundle's ``warm/`` dir or the
+``serving_exec_cache_dir`` flag.
 """
 
 from __future__ import annotations
@@ -207,7 +207,8 @@ class ModelServer:
         self._continuous = bool(continuous)
         if engine is None:
             if model_kind == "generative":
-                engine = GenerationEngine(model_dir, **self._gen_opts)
+                engine = GenerationEngine(model_dir, exec_cache=exec_cache,
+                                          **self._gen_opts)
             else:
                 engine = InferenceEngine(model_dir, buckets=buckets,
                                          exec_cache=exec_cache)
@@ -390,6 +391,7 @@ class ModelServer:
         if engine is None:
             if model_kind == "generative":
                 engine = GenerationEngine(model_dir, place=self._place(),
+                                          exec_cache=self._exec_cache,
                                           **gen_opts)
             else:
                 engine = InferenceEngine(model_dir, place=self._place(),
@@ -655,6 +657,7 @@ class ModelServer:
                             f"cannot reload a {new_kind!r} bundle into "
                             f"the generative hosted model {name!r}")
                     new = GenerationEngine(model_dir, place=self._place(),
+                                           exec_cache=self._exec_cache,
                                            **hosted.gen_opts)
                     compiled = new.warmup()
                     new_batcher = ContinuousBatcher(
@@ -697,6 +700,7 @@ class ModelServer:
                         "generative server (engine classes differ); "
                         "roll a fresh replica instead")
                 new = GenerationEngine(model_dir, place=self._place(),
+                                       exec_cache=self._exec_cache,
                                        **self._gen_opts)
                 compiled = new.warmup()
                 new_batcher = ContinuousBatcher(

@@ -126,3 +126,15 @@ def elastic_sync_victim(master_addr, ps_addrs, tid, gate=None):
             pc.push({"a": z, "b": z}, seq=pc.allocate_seq())
         except Exception:
             time.sleep(0.02)
+
+
+def echo_child(address, token):
+    """A supervised child that answers ``stats`` with its token and pid
+    (the child-supervisor restart tests)."""
+    from ..distributed.rpc import RpcServer
+
+    class _Echo:
+        def stats(self):
+            return {"token": token, "pid": os.getpid()}
+
+    RpcServer(_Echo(), tuple(address)).serve_forever()

@@ -13,7 +13,11 @@ arrays, the same on every rank):
 * ``ring_lane``, ``moe_lane``, ``pipeline_lane``, ``composed_lane``,
   ``dp_sp_lane``: ring attention, the MoE FFN, the pipeline, dp×pp×tp and
   dp×sp against their single-device folds, forward and gradient;
-* ``moe_train`` / ``pipeline_train``: the reference tests' training loops.
+* ``moe_train`` / ``pipeline_train``: the reference tests' training loops;
+* ``planned_run``: a candidate of the placement planner's report applied
+  through ``apply_candidate`` beside the same mesh and ``ShardingPlan``
+  built by hand, step for step (the loss bytes of both, and the plain
+  Executor's losses on the whole batch).
 
 ``dryrun_multichip(n)`` runs the eight lanes on ``n`` gloo ranks of the
 CPU and prints each lane's line as the reference does. The inputs come
@@ -115,6 +119,98 @@ def sharded_run(build, build_kw, feeds, mesh_axes, plan_kw=None,
                        for n in _params(main)},
             "specs": {n: list(s) for n, s in specs.items()},
             "mesh": dict(mesh.shape)}
+
+
+def build_lm_train(vocab=32, emb=16, heads=2, n_layers=2, max_pos=64,
+                   lr=1e-3, seed=7):
+    """The decoder LM (``models.build_tiny_lm``) with next-token labels
+    [b, T, 1], reshape to [b·T, vocab], mean softmax_with_cross_entropy
+    and Adam(lr, fused=True): (main, startup, loss)."""
+    from . import models
+
+    fluid = _fluid()
+    main, startup, logits = models.build_tiny_lm(
+        vocab=vocab, emb=emb, heads=heads, n_layers=n_layers,
+        max_pos=max_pos, seed=seed)
+    with fluid.program_guard(main, startup):
+        labels = fluid.layers.data("labels", shape=[-1, 1], dtype="int64")
+        flat = fluid.layers.reshape(logits, [-1, vocab])
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            flat, fluid.layers.reshape(labels, [-1, 1])))
+        fluid.optimizer.Adam(lr, fused=True).minimize(loss, startup)
+    return main, startup, loss
+
+
+def lm_train_feed(batch, seq, vocab=32, seed=0):
+    """Random ``tokens``, ``positions`` and next-token ``labels`` [batch,
+    seq, 1] int64 for :func:`build_lm_train`."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, vocab, (batch, seq + 1, 1)).astype(np.int64)
+    pos = np.broadcast_to(np.arange(seq, dtype=np.int64)[None, :, None],
+                          (batch, seq, 1)).copy()
+    return {"tokens": toks[:, :-1].copy(), "positions": pos,
+            "labels": toks[:, 1:].copy()}
+
+
+def _steps(exe, fn, state, block, plan, feeds):
+    from ..parallel import place_feed
+
+    out = []
+    for f in feeds:
+        fd = exe._prepare_feed(block, dict(f))
+        state, fetches = fn(state, {k: place_feed(v, plan, k)
+                                    for k, v in fd.items()})
+        out.append(fetches[0].detach().cpu().numpy().tobytes())
+    return out
+
+
+def planned_run(build, build_kw, feeds, n, sizes, plan_kw=None,
+                device=None):
+    """On every rank of an ``n``-rank group: plan ``build``'s program for
+    ``n`` devices (``measure=False``, no cap), take the ranked candidate
+    with these axis ``sizes`` and ``plan_kw``, and run ``feeds`` through
+    ``planner.apply_candidate``; then the same mesh and plan built by hand
+    (``make_mesh(n, axes, shape)`` + ``ShardingPlan(mesh, **plan_kw)``)
+    through ``shard_program_step`` from the same start. Returns {"planned",
+    "hand": each step's loss bytes, "losses": the planned floats,
+    "chosen": the report's choice, "mesh": the candidate's, "launches":
+    {"planned", "hand": the kernel launches each made}}."""
+    from ..ops.cuda import launch_counts
+    from ..parallel import ShardingPlan, make_mesh, shard_program_step
+    from ..parallel import planner as pl
+
+    def delta(before):
+        now = launch_counts()
+        return {k: v - before.get(k, 0) for k, v in now.items()
+                if v - before.get(k, 0)}
+
+    fluid = _fluid()
+    plan_kw = dict(plan_kw or {})
+    exe = fluid.Executor(_place(device))
+    main, _, loss, scope = _start(build, build_kw, exe, None)
+    rep = pl.plan(main, feed_example=feeds[0], n_devices=n,
+                  fetch_list=[loss], measure=False, max_candidates=0)
+    want = {a: int(sizes.get(a, 1)) for a in ("dp", "ep", "pp", "tp", "sp")}
+    cand = next(c for c in rep.ranked()
+                if c.sizes == want and c.plan_kw == plan_kw)
+    c0 = launch_counts()
+    fn, state, _, splan = pl.apply_candidate(cand, exe, main, feeds[0],
+                                             [loss], scope=scope)
+    planned = _steps(exe, fn, state, main.global_block(), splan, feeds)
+    planned_launches = delta(c0)
+    exe2 = fluid.Executor(_place(device))
+    main2, _, loss2, scope2 = _start(build, build_kw, exe2, None)
+    hand_plan = ShardingPlan(make_mesh(n, axes=cand.axes, shape=cand.shape),
+                             **plan_kw)
+    c0 = launch_counts()
+    fn2, state2, _ = shard_program_step(exe2, main2, feeds[0], [loss2],
+                                        hand_plan, scope=scope2)
+    hand = _steps(exe2, fn2, state2, main2.global_block(), hand_plan, feeds)
+    return {"planned": planned, "hand": hand,
+            "losses": [float(np.frombuffer(b, np.float32)[0])
+                       for b in planned],
+            "chosen": rep.chosen.describe(), "mesh": cand.describe(),
+            "launches": {"planned": planned_launches, "hand": delta(c0)}}
 
 
 def build_mlp_reduced(loss="reduce_mean", batch=16, fluid=None):

@@ -114,3 +114,49 @@ def test_artifact_runs_under_the_exporting_tf32_switches(tmp_path):
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_generation_phase_programs_launch_paged_attention(tmp_path):
+    """The generation engine's exported phase programs on the card: a
+    second engine loads every (phase, bucket) (its warmup runs no op
+    loop), its greedy tokens are bitwise the op loop's, and every decode
+    dispatch launches paged_attention once a layer from inside the
+    exported decode program."""
+    _need_card()
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.testing.models import export_tiny_lm
+
+    d = str(tmp_path / "lm")
+    export_tiny_lm(d, vocab=17, emb=32, heads=2, n_layers=2, max_pos=64,
+                   seed=3)
+    geom = dict(max_seqs=2, block_size=4, num_blocks=32, max_len=32,
+                prefill_buckets=(8,))
+    cache = str(tmp_path / "cache")
+
+    def tokens(eng):
+        out = []
+        for prompt in ([3, 5, 7], [1, 2, 3, 4, 5]):
+            h, toks, fin = eng.start(prompt, 10)
+            got = list(toks)
+            while not fin:
+                for hh, tt, ff in eng.step():
+                    if hh is h:
+                        got += tt
+                        fin = ff
+            out.append(got)
+        return out
+
+    eager = GenerationEngine(d, exec_cache=False, **geom)
+    eager.warmup()
+    want = tokens(eager)
+    GenerationEngine(d, exec_cache=cache, **geom).warmup()
+    warm = GenerationEngine(d, exec_cache=cache, **geom)
+    assert warm.warmup() == 0 and warm.stats()["warm_loaded"] == 2
+    d0 = warm.stats()["phases"]["decode"][2]["dispatches"]
+    pak.reset_launches()
+    assert tokens(warm) == want
+    decodes = warm.stats()["phases"]["decode"][2]["dispatches"] - d0
+    assert decodes > 0 and pak.launches["paged_attention"] == 2 * decodes
+    assert warm.stats()["exec_cache"]["rejects"]["run_failed"] == 0

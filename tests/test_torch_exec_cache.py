@@ -339,3 +339,153 @@ def test_aot_manifest_records_tf32_and_runs_under_it(tmp_path, mlp):
     assert seen == [(False, True)]
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == (True, False)
+
+
+# ---------------------------------------------------------------------------
+# the generation engine's phase programs
+# ---------------------------------------------------------------------------
+
+GEN_OPTS = dict(max_seqs=2, block_size=4, num_blocks=32, max_len=32,
+                prefill_buckets=(8, 16))
+PROMPTS = ([3, 5, 7], [3, 5, 7, 9, 11, 2], [1, 2, 3, 4, 5, 6, 7, 8, 9])
+
+
+@pytest.fixture(scope="module")
+def lm(tmp_path_factory):
+    from paddle_tpu_torch.testing.models import export_tiny_lm
+
+    d = str(tmp_path_factory.mktemp("gen") / "lm")
+    export_tiny_lm(d, place=fluid.CPUPlace(), vocab=17, emb=8, heads=2,
+                   n_layers=2, max_pos=64, seed=13)
+    return d
+
+
+def _gen(d, cache, **kw):
+    from paddle_tpu_torch.serving.generate import GenerationEngine
+
+    opts = dict(GEN_OPTS)
+    opts.update(kw)
+    return GenerationEngine(d, place=fluid.CPUPlace(), exec_cache=cache,
+                            **opts)
+
+
+def _streams(eng, sampling, prompts=PROMPTS, max_new=8):
+    """Every prompt's token stream, the requests joining one running
+    batch as slots free up (the continuous route)."""
+    out = {i: [] for i in range(len(prompts))}
+    pending = list(enumerate(prompts))
+    live = {}
+    while pending or live:
+        while pending and eng.active_sequences < eng.max_seqs:
+            i, p = pending.pop(0)
+            h, toks, fin = eng.start(p, max_new, sampling)
+            out[i] += toks
+            if not fin:
+                live[h] = i
+        for h, toks, fin in eng.step():
+            out[live[h]] += toks
+            if fin:
+                del live[h]
+    return [out[i] for i in range(len(prompts))]
+
+
+def test_generation_warm_parity_and_zero_records(tmp_path, lm):
+    """A registry version warmed with gen_opts holds one exported program
+    per (phase, bucket); an engine on it loads them all (warmup reports 0
+    and adds no compile record but the loads'), and its token streams
+    equal the op loop's and the reference engine's."""
+    from paddle_tpu.serving.generate import GenerationEngine as JEngine
+
+    reg = ModelRegistry(str(tmp_path / "registry"))
+    v = reg.publish("lm", lm, model_kind="generative")
+    path, v = reg.resolve("lm", v)
+    cold = _gen(path, None)
+    assert cold.warmup() == 3                  # nothing published yet
+    files = reg.warm("lm", v, gen_opts=GEN_OPTS, place=fluid.CPUPlace())
+    tags = sorted(f.split("/")[1].split("-")[0] for f in files)
+    assert tags == ["gen_decode_b2", "gen_prefill_b16", "gen_prefill_b8"]
+    reg.verify("lm", v)
+    before = perf.COMPILE_LOG.stats()["count"]
+    warm = _gen(path, None)
+    assert warm.warmup() == 0
+    st = warm.stats()
+    assert st["exec_cache"]["readonly"] and st["warm_loaded"] == 3
+    assert perf.COMPILE_LOG.stats()["count"] - before == 3
+    assert len([r for r in perf.COMPILE_LOG.records()
+                if r.seq > before and r.site != "exec_cache_load"]) == 0
+    ref = JEngine(lm, **GEN_OPTS)
+    ref.warmup()
+    for sampling in ({"mode": "greedy"},
+                     {"mode": "topk", "seed": 3, "top_k": 4}):
+        want = _streams(cold, sampling)
+        assert _streams(warm, sampling) == want
+        assert _streams(ref, sampling) == want
+    assert warm.hot_recompiles == 0
+    assert warm.stats()["exec_cache"]["rejects"]["run_failed"] == 0
+
+
+def test_generation_run_failed_counts_as_hot_recompile(tmp_path, lm):
+    """A loaded phase program that raises at dispatch after warmup: a
+    ``run_failed`` reject, one hot recompile, and the op loop answers with
+    the same tokens."""
+    cache = str(tmp_path / "cache")
+    _gen(lm, cache).warmup()
+    eng = _gen(lm, cache)
+    assert eng.warmup() == 0 and eng.stats()["warm_loaded"] == 3
+
+    class _Boom:
+        source = "cache"
+
+        def run(self, *a, **k):
+            raise RuntimeError("deserialized but unrunnable")
+
+    eng._warm_execs[("decode", GEN_OPTS["max_seqs"])] = _Boom()
+    want = _streams(_gen(lm, False), {"mode": "greedy"})
+    assert _streams(eng, {"mode": "greedy"}) == want
+    st = eng.stats()
+    assert st["exec_cache"]["rejects"]["run_failed"] == 1
+    assert eng.hot_recompiles == 1
+    assert st["warm_loaded"] == 2
+
+
+@pytest.mark.parametrize("tier,donate,partial", [
+    ("auto", True, False), ("cuda", True, False), ("cuda", False, True)],
+    ids=["plain-donated", "kernel-donated", "kernel-cloned-chunked"])
+def test_exported_phase_programs_match_the_op_loop(tmp_path, lm, tier,
+                                                   donate, partial):
+    """Every phase program exported, then loaded by a fresh engine: token
+    streams bitwise the op loop's, on both routes (under ``cuda`` the
+    decode program keeps the paged-attention operator, whose plain version
+    runs on the CPU), with the arena donated or cloned, and with the
+    prefix cache and chunked prefill on (the chunked phase exported
+    too)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    set_flags({"kernel_tier": tier})
+    kw = dict(donate_arena=donate)
+    prompts = PROMPTS
+    if partial:
+        kw.update(prefix_cache_blocks=16, prefill_chunk=4)
+        prompts = PROMPTS + ([3, 5, 7, 9, 11, 2, 4, 6],)
+    cache = str(tmp_path / "cache")
+    fill = _gen(lm, cache, **kw)
+    assert fill.warmup() == (5 if partial else 3)
+    warm = _gen(lm, cache, **kw)
+    assert warm.warmup() == 0
+    eager = _gen(lm, False, **kw)
+    eager.warmup()
+    for sampling in ({"mode": "greedy"},
+                     {"mode": "topk", "seed": 5, "top_k": 3}):
+        want = _streams(eager, sampling, prompts)
+        assert _streams(warm, sampling, prompts) == want
+        assert _streams(fill, sampling, prompts) == want
+    assert warm.stats()["exec_cache"]["rejects"]["run_failed"] == 0
+    assert warm.hot_recompiles == 0
+    decode = [n for n in ExecCache(cache).artifacts()
+              if n.startswith("gen_decode")]
+    with open(os.path.join(cache, decode[0]), "rb") as f:
+        raw = f.read()
+    assert b"paged_kv_write" in raw
+    assert (b"paddle_tpu_torch.paged_attention" in raw) == (tier == "cuda")
+    # the operator's CPU path is the plain version, counted as no launch
+    assert pa.launches["paged_attention"] == 0

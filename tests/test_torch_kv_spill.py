@@ -255,7 +255,12 @@ def test_resolve_store_precedence_and_manifest_pinning(lm_bundle, tmp_path,
                     warm_kwargs={"gen_opts": dict(ENGINE)})
     path, _ = reg.resolve("lm", v)
     m = reg.manifest("lm", v)
-    assert len(m["kv_files"]) == 2 and m["warm_files"] == {}
+    # the warm pass also exported the engine's phase programs (the prefix
+    # cache on: the chunked phase too)
+    tags = sorted(f.split("/")[1].split("-")[0] for f in m["warm_files"])
+    assert len(m["kv_files"]) == 2 and tags == [
+        "gen_chunk_b16", "gen_chunk_b8", "gen_decode_b4", "gen_prefill_b16",
+        "gen_prefill_b8"]
     reg.verify("lm", v)
     eng = _engine(path, prefix_cache_blocks=16)
     assert eng.stats()["kv_store"]["readonly"]

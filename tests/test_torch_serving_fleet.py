@@ -110,8 +110,8 @@ def test_registry_publish_resolve_immutability_and_errors(tmp_path, models):
         reg.resolve("a/b")
     with pytest.raises(ValueError, match="'cuda' or 'torch'"):
         reg.publish("mlp", d, kernel_tier="pallas")
-    with pytest.raises(NotImplementedError, match="planner"):
-        reg.publish("mlp", d, plan=True)
+    with pytest.raises(ValueError, match="lineage must be a dict"):
+        reg.publish("mlp", d, lineage=["not", "a", "dict"])
     assert reg.versions("mlp") == [1, 2]      # nothing written by either
     # a torn (manifest-less) dir is invisible and never reused
     os.makedirs(os.path.join(reg.model_dir("mlp"), "3"))
