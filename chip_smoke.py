@@ -19,7 +19,9 @@ paddle_trainer and the paddle.v2 spelling, serve ResNet-50 and the LSTM
 classifier from torch.export artifacts in Python and from C, train
 MobileNet-SSD and serve its detections, serve ResNet-50 from a fleet of
 spawned replicas, serve the LM from exported phase programs, plan the
-LM's placement, learn Wide&Deep online while its fleet serves, and hold
+LM's placement, learn Wide&Deep online while its fleet serves, train
+ResNet-50 with its stem through the space-to-depth rewrite and check the
+last core flags, run the reference's OpTest classes on the card, and hold
 every hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -479,6 +481,23 @@ CUDA toolkit. Phases, each of which exits non-zero on a failed check:
               its round, the final version's replies against the
               trainer-side forward on its frozen parameters; steps/s, s a
               freeze, s from publish to served.
+29. flags, OpTest — (a) conv_space_to_depth: the stem conv through the
+              rewrite against the direct conv (rtol 1e-5, atol 1e-4),
+              then phase 4's program 3 steps from one state with the flag
+              off and on: losses within 1e-4, conv_bn_train/conv_bn_bwd/
+              momentum_arena launches and fallbacks equal, ms a step both
+              ways. (b) the unfused program's one step with
+              conv_1x1_grad_as_dot against the flag off (rtol 1e-5, atol
+              1e-6 on the loss and every gradient). (c) each batch-norm
+              barrier flag's step bitwise the step without it. (d)
+              kernel_tier=torch with use_pallas_rnn (the LSTM classifier)
+              and use_pallas_ctc (the CTC model): their kernels launched,
+              the step within phases 6 and 9's limits of the torch route.
+              (e) the reference's OpTest classes whose op reaches a kernel
+              (TestLstm, TestLstmReverse, TestGru, TestWarpCTC*,
+              TestFusedConvBnOp, TestPagedAttention*) through
+              tests/torch_op_test.py on CUDAPlace(0) at their own
+              tolerances, launches and plain-routed calls counted.
 
 Each phase's header carries the seconds since the script started. The
 last four lines of output are phase 14's summary, a JSON line listing
@@ -11444,6 +11463,676 @@ def phase_online_planner(torch, fluid, seed, card, gen):
     return {"paged_attention": pa, "adam_arena": adam}, {**ttft, **online}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 29: the last core flags, and the reference's OpTest classes on the
+# card
+# ---------------------------------------------------------------------------
+# (a) tests/test_conv_s2d.py's tolerances: the rewritten stem against the
+# direct conv at rtol 1e-5 / atol 1e-4, the flag's training run against the
+# flag off at rtol 1e-4 on the losses; from step 2 on, within FLOOR_FACTOR
+# of the flag-off run's own spread on the batch in other orders where that
+# is larger: ResNet-50 on one fixed batch carries a rounding into later
+# losses (the first H100 run: step 1 1.3e-7 apart, step 2 1.0e-5, step 3
+# 1.3e-2). (b) test_conv_1x1_grad_as_dot_parity's rtol 1e-5 / atol 1e-6
+# on the losses of P29_STEPS steps (or FLOOR_FACTOR of the float32 floor,
+# as in (a)); the step-1 gradients are held as phase 4 holds its routes'
+# (each within FLOOR_FACTOR of its own float32 floor): elementwise, rtol
+# 1e-5 / atol 1e-6 is below a float32 rounding of ResNet-50's larger
+# gradients (the 112x112, batch-8 CPU rehearsal moved the stem filter's by
+# 20x that with the flag, 3e-6 in ‖Δ‖₂/‖ref‖₂).
+S2D_RTOL, S2D_ATOL, S2D_LOSS_RTOL = 1e-5, 1e-4, 1e-4
+DOT_RTOL, DOT_ATOL = 1e-5, 1e-6
+P29_STEPS = 3
+# (e): the reference test files' OpTest classes whose op reaches a kernel,
+# and the methods run. TestWarpCTCNormByTimes.test_grad_is_scaled builds its
+# programs with the JAX package inside its body, and TestFusedConvBnOp's
+# grad method takes its expected gradients from jax.grad: the first is not
+# run here, the second runs with the plain route's analytic gradients as
+# the expected ones (what its docstring pins: the kernel backward against
+# the unfused chain's, through the same harness)
+P29_OPTESTS = (
+    ("test_rnn_ops", "TestLstm", ("test_output", "test_grad")),
+    ("test_rnn_ops", "TestLstmReverse", ("test_output",)),
+    ("test_rnn_ops", "TestGru", ("test_output", "test_grad")),
+    ("test_ctc_ops", "TestWarpCTC",
+     ("test_output", "test_output_matches_brute_force", "test_grad")),
+    ("test_ctc_ops", "TestWarpCTCNormByTimes", ("test_output_unscaled",)),
+    ("test_fused_conv_bn", "TestFusedConvBnOp",
+     ("test_forward_pallas_tier", "test_forward_jnp_tier",
+      "test_grad_parity_pallas_vs_jnp_twin")),
+    ("test_paged_attention_pallas", "TestPagedAttentionPallasParity",
+     ("test_output",)),
+    ("test_paged_attention_pallas", "TestPagedAttentionFallback",
+     ("test_fallback",)),
+)
+# the helpers of those files that compute expected values with jax.numpy,
+# each replaced by reference_optests with the same computation in torch
+P29_PATCHED = (("test_fused_conv_bn", "_unfused_reference"),
+               ("test_paged_attention_pallas", "_case"))
+P29_TIERS = {"pallas": "cuda", "jnp": "torch"}
+
+
+def launch_delta(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def build_resnet50_unfused(fluid, seed):
+    """Phase 4's program without fuse_conv_bn: conv2d, batch_norm and their
+    grads as separate ops, Momentum(fused=True)."""
+    from paddle_tpu_torch.testing.models import resnet
+    fluid.reset_unique_name()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data("img", shape=[IMAGE, IMAGE, 3])
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+            resnet(img, CLASSES), label))
+        fluid.optimizer.Momentum(learning_rate=TRAIN_LR, momentum=0.9,
+                                 fused=True).minimize(loss, startup)
+    return main, startup, loss
+
+
+def fused_grads(main):
+    """The gradient names the program's fused optimizer op reads."""
+    op, = [op for op in main.global_block().ops
+           if op.type.startswith("fused_") and op.input("Grads")]
+    return list(op.input("Grads"))
+
+
+def resnet_feed(seed, batch=TRAIN_BATCH):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"img": rng.normal(0, 1, (batch, IMAGE, IMAGE, 3))
+            .astype("float32"),
+            "label": rng.randint(0, CLASSES, (batch, 1)).astype("int64")}
+
+
+def phase29_stem(torch, fluid, seed, card):
+    """(a) conv_space_to_depth on phase 4's program. Returns the kernel
+    launches of both runs and the readings."""
+    from paddle_tpu_torch.ops import conv_ops
+    from paddle_tpu_torch.ops import cuda as tier
+
+    log(f"\n== phase 29(a): the space-to-depth stem on phase 4's ResNet-50 "
+        f"(batch {TRAIN_BATCH}, fused, Momentum(fused=True)), "
+        f"{P29_STEPS} steps with conv_space_to_depth off and on | {card} ==")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((TRAIN_BATCH, IMAGE, IMAGE, 3), generator=gen,
+                    device=dev)
+    w = torch.randn((64, 3, 7, 7), generator=gen, device=dev) \
+        * (2.0 / (3 * 49)) ** 0.5
+    args = ((2, 2), (3, 3), (1, 1), 1, "NHWC")
+    direct = conv_ops.conv2d_compute(x, w, *args)
+    s2d = conv_ops._s2d_stem_conv(x, w, (3, 3))
+    err = (s2d - direct).abs().max().item()
+    ms_direct = time_ms(lambda: conv_ops.conv2d_compute(x, w, *args), torch)
+    ms_s2d = time_ms(lambda: conv_ops._s2d_stem_conv(x, w, (3, 3)), torch)
+    log(f"stem conv 7x7/s2 over [{TRAIN_BATCH}, {IMAGE}, {IMAGE}, 3] -> 64: "
+        f"s2d vs direct max |Δ| {err:.3e}; direct {ms_direct:.4f} ms, s2d "
+        f"{ms_s2d:.4f} ms (the rewrite's regroup included)")
+    if not torch.allclose(s2d, direct, rtol=S2D_RTOL, atol=S2D_ATOL):
+        fail(f"phase 29(a): the s2d stem differs from the direct conv by "
+             f"{err:.3e} (rtol {S2D_RTOL}, atol {S2D_ATOL})")
+
+    main, startup, loss = build_resnet50_train(fluid, seed)
+    stem = [op for op in main.global_block().ops
+            if op.type == "fused_conv2d_bn"][0]
+    filt = main.global_block().var(stem.input("Filter")[0])
+    if tuple(filt.shape) != (64, 3, 7, 7):
+        fail(f"phase 29(a): the stem filter is {filt.shape}, want OIHW 7x7")
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = resnet_feed(seed)
+    runs = []
+
+    def train(flag, fd, label):
+        fluid.set_flags({"conv_space_to_depth": flag})
+        try:
+            scope = copy_scope(fluid, torch, init)
+            tier.reset_fallback_counts()
+            before = tier.launch_counts()
+            losses, ms = [], []
+            for _ in range(P29_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, = exe.run(main, feed=fd, fetch_list=[loss],
+                               scope=scope)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(out))
+            r = dict(losses=losses, ms=ms,
+                     launches=launch_delta(before, tier.launch_counts()),
+                     fallbacks=tier.fallback_counts())
+        finally:
+            fluid.set_flags({"conv_space_to_depth": False})
+        runs.append(r)
+        log(f"{label}: losses " + ", ".join(f"{v:.6f}" for v in losses)
+            + "; ms a step " + ", ".join(f"{v:.1f}" for v in ms)
+            + f"; launches {r['launches']}; fallbacks {r['fallbacks']}")
+        return r
+
+    # in turns (off, on, on, off), so that neither owns the warm-up
+    off = train(False, feed, "conv_space_to_depth=False")
+    on = train(True, feed, "conv_space_to_depth=True")
+    on2 = train(True, feed, "conv_space_to_depth=True, again")
+    off2 = train(False, feed, "conv_space_to_depth=False, again")
+    # the loss's float32 floor: the flag-off program on the batch in other
+    # orders (the same function summed in another order)
+    import numpy as np
+    rng = np.random.RandomState(seed + 29)
+    floor = [0.0] * P29_STEPS
+    for i in range(FLOOR_ORDERS - 1):
+        perm = rng.permutation(TRAIN_BATCH)
+        p = train(False, {k: v[perm] for k, v in feed.items()},
+                  f"conv_space_to_depth=False, batch order {i + 1}")
+        floor = [max(f, abs(a - b) / abs(b))
+                 for f, a, b in zip(floor, p["losses"], off["losses"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"])]
+    limit = [max(S2D_LOSS_RTOL, FLOOR_FACTOR * f) for f in floor]
+    ms_off = sum(off["ms"][1:] + off2["ms"][1:]) / (2 * P29_STEPS - 2)
+    ms_on = sum(on["ms"][1:] + on2["ms"][1:]) / (2 * P29_STEPS - 2)
+    log("losses on vs off, rel diff by step: " + ", ".join(
+        f"{r:.3e} (limit {m:.3e}, floor {f:.3e})"
+        for r, m, f in zip(rel, limit, floor))
+        + f"; ms a step (steps 2-{P29_STEPS}, both runs of each) off "
+        f"{ms_off:.2f}, on {ms_on:.2f}")
+    if not (rel[0] <= S2D_LOSS_RTOL
+            and all(r <= m for r, m in zip(rel, limit))):
+        fail(f"phase 29(a): losses with s2d on differ by {rel} (limits "
+             f"{limit})")
+    want = {k: P29_STEPS * n for k, n in (("conv_bn_train", KERNEL_CONVS),
+                                          ("conv_bn_bwd", KERNEL_CONVS),
+                                          ("momentum_arena", 1))}
+    for name, n in want.items():
+        if off["launches"].get(name) != n or on["launches"].get(name) != n:
+            fail(f"phase 29(a): {name} launched {off['launches'].get(name)}"
+                 f" times with s2d off and {on['launches'].get(name)} with "
+                 f"it on, want {n} each")
+    if on["launches"] != off["launches"] \
+            or on["fallbacks"] != off["fallbacks"]:
+        fail(f"phase 29(a): the routes moved: launches {off['launches']} vs "
+             f"{on['launches']}, fallbacks {off['fallbacks']} vs "
+             f"{on['fallbacks']}")
+    # each run against its repeat, for the record (cudnn picks its
+    # algorithms per run here, so the two need not agree bitwise)
+    again = {"off": [abs(a - b) / abs(b) for a, b in
+                     zip(off2["losses"], off["losses"])],
+             "on": [abs(a - b) / abs(b) for a, b in
+                    zip(on2["losses"], on["losses"])]}
+    log("losses against the same run repeated, rel diff by step: off "
+        + ", ".join(f"{v:.3e}" for v in again["off"]) + "; on "
+        + ", ".join(f"{v:.3e}" for v in again["on"]))
+    g_rel, g_floor, g_worst, stem_grad = stem_grads(torch, fluid, exe, main,
+                                                    init, feed, stem, seed)
+    total = {}
+    for r in runs:
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total, dict(
+        stem_max_abs_err=err, stem_direct_ms=ms_direct, stem_s2d_ms=ms_s2d,
+        loss_rel=rel, loss_floor=floor, loss_rel_repeat=again,
+        grad_rel_max=max(g_rel.values()), grad_worst=g_worst,
+        stem_grad_rel=g_rel[stem_grad], stem_grad_floor=g_floor[stem_grad],
+        off_ms=ms_off, on_ms=ms_on,
+        ms_a_step={"off": off["ms"], "on": on["ms"], "on2": on2["ms"],
+                   "off2": off2["ms"]},
+        launches_each=off["launches"], fallbacks_each=off["fallbacks"])
+
+
+def stem_grads(torch, fluid, exe, main, init, feed, stem, seed):
+    """(a)'s gradients: one step from ``init`` under cudnn.deterministic
+    with conv_space_to_depth on against off, every gradient the fused
+    optimizer reads within FLOOR_FACTOR of its own float32 floor (the
+    flag-off step on the batch in other orders), as (b) holds its flag's;
+    the stem filter's gradient goes through the rewrite's backward. Returns
+    ({name: ‖Δ‖₂/‖ref‖₂}, {name: floor}, the name nearest its limit, the
+    stem filter's gradient name)."""
+    import numpy as np
+
+    grads = fused_grads(main)
+    stem_grad, = [n for n in grads
+                  if n.split("@")[0] == stem.input("Filter")[0]]
+
+    def step(flag, fd):
+        fluid.set_flags({"conv_space_to_depth": flag})
+        try:
+            out = exe.run(main, feed=fd, fetch_list=grads,
+                          scope=copy_scope(fluid, torch, init),
+                          return_numpy=False)
+        finally:
+            fluid.set_flags({"conv_space_to_depth": False})
+        return dict(zip(grads, out))
+
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref = step(False, feed)
+        got = spread(step(True, feed), ref)
+        floor = dict.fromkeys(grads, 0.0)
+        rng = np.random.RandomState(seed + 29)
+        for _ in range(FLOOR_ORDERS - 1):
+            perm = rng.permutation(TRAIN_BATCH)
+            sp = spread(step(False, {k: v[perm] for k, v in feed.items()}),
+                        ref)
+            floor = {n: max(floor[n], sp[n]) for n in grads}
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+    limit = {n: max(REL_MIN, FLOOR_FACTOR * floor[n]) for n in grads}
+    worst = max(grads, key=lambda n: got[n] / limit[n])
+    log(f"step 1 gradients, s2d on vs off under cudnn.deterministic, "
+        f"‖Δ‖₂/‖ref‖₂: the stem filter's {stem_grad} {got[stem_grad]:.3e} "
+        f"(floor {floor[stem_grad]:.3e}); largest {max(got.values()):.3e}; "
+        f"nearest its limit {worst} {got[worst]:.3e} (floor "
+        f"{floor[worst]:.3e} from {FLOOR_ORDERS - 1} permuted orders, limit "
+        f"max({REL_MIN:.0e}, {FLOOR_FACTOR} x floor))")
+    over = {n: (got[n], floor[n]) for n in grads if not got[n] <= limit[n]}
+    if over:
+        fail(f"phase 29(a): gradients with s2d on past their float32 floor: "
+             f"{over}")
+    return got, floor, worst, stem_grad
+
+
+def phase29_unfused(torch, fluid, seed, card):
+    """(b) conv_1x1_grad_as_dot and (c) the three barrier flags on the
+    unfused program from one state, under cudnn.deterministic. Returns the
+    launches and the readings."""
+    import numpy as np
+    from paddle_tpu_torch.ops import cuda as tier
+
+    log(f"\n== phase 29(b, c): phase 4's ResNet-50 unfused: "
+        f"conv_1x1_grad_as_dot {P29_STEPS} steps against the flag off, "
+        f"then one step with each batch-norm barrier flag | {card} ==")
+    main, startup, loss = build_resnet50_unfused(fluid, seed)
+    block = main.global_block()
+    n_1x1 = sum(1 for op in block.ops if op.type == "conv2d_grad"
+                and tuple(block.var(op.input("Filter")[0]).shape[2:])
+                == (1, 1) and list(op.attr("strides")) == [1, 1])
+    grads = fused_grads(main)
+    exe = fluid.Executor()
+    init = fluid.Scope()
+    exe.run(startup, scope=init)
+    feed = resnet_feed(seed)
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    before = tier.launch_counts()
+
+    def run(flags, steps=1, fd=feed):
+        """Per step: the loss and every gradient, from a copy of init."""
+        fluid.set_flags(flags)
+        scope = copy_scope(fluid, torch, init)
+        try:
+            return [exe.run(main, feed=fd, fetch_list=[loss] + grads,
+                            scope=scope, return_numpy=False)
+                    for _ in range(steps)]
+        finally:
+            fluid.set_flags({k: False for k in flags})
+
+    try:
+        off = run({}, P29_STEPS)
+        dot = run({"conv_1x1_grad_as_dot": True}, P29_STEPS)
+        l_off = [v[0].item() for v in off]
+        l_dot = [v[0].item() for v in dot]
+        # the float32 floors: the flag-off program on the batch in other
+        # orders (the same function summed in another order; the flag
+        # changes only the order of the 1x1 grads' sums): per step its
+        # loss's spread, and step 1's spread of each gradient
+        ref = dict(zip(grads, off[0][1:]))
+        got = spread(dict(zip(grads, dot[0][1:])), ref)
+        floor = dict.fromkeys(grads, 0.0)
+        l_floor = [0.0] * P29_STEPS
+        rng = np.random.RandomState(seed + 29)
+        for _ in range(FLOOR_ORDERS - 1):
+            perm = rng.permutation(TRAIN_BATCH)
+            p = run({}, P29_STEPS, {k: v[perm] for k, v in feed.items()})
+            sp = spread(dict(zip(grads, p[0][1:])), ref)
+            floor = {n: max(floor[n], sp[n]) for n in grads}
+            l_floor = [max(f, abs(v[0].item() - b) / abs(b))
+                       for f, v, b in zip(l_floor, p, l_off)]
+        l_lim = [max(DOT_RTOL + DOT_ATOL / abs(b), FLOOR_FACTOR * f)
+                 for f, b in zip(l_floor, l_off)]
+        l_rel = [abs(a - b) / abs(b) for a, b in zip(l_dot, l_off)]
+        log(f"conv_1x1_grad_as_dot: {n_1x1} conv2d_grad ops take the "
+            f"channel products; losses off " + ", ".join(
+                f"{v:.7f}" for v in l_off) + ", on " + ", ".join(
+                f"{v:.7f}" for v in l_dot) + "; rel diff by step "
+            + ", ".join(f"{r:.3e} (limit {m:.3e})"
+                        for r, m in zip(l_rel, l_lim)))
+        # step 1's forward is the flag's too: its loss bitwise
+        if not (l_dot[0] == l_off[0]
+                and all(r <= m for r, m in zip(l_rel, l_lim))):
+            fail(f"phase 29(b): losses with conv_1x1_grad_as_dot {l_dot} "
+                 f"against {l_off}")
+        over = {n: (got[n], floor[n]) for n in grads
+                if not got[n] <= max(REL_MIN, FLOOR_FACTOR * floor[n])}
+        worst = max(grads, key=lambda n: got[n] / max(
+            REL_MIN, FLOOR_FACTOR * floor[n]))
+        log(f"step 1 gradients, ‖Δ‖₂/‖ref‖₂: largest {max(got.values()):.3e}"
+            f"; nearest its limit {worst} {got[worst]:.3e} (floor "
+            f"{floor[worst]:.3e} from {FLOOR_ORDERS - 1} permuted orders, "
+            f"limit max({REL_MIN:.0e}, {FLOOR_FACTOR} x floor))")
+        if over:
+            fail(f"phase 29(b): gradients past their float32 floor: {over}")
+        base = off[0]
+        again = run({})[0]
+        if not all(torch.equal(a, b) for a, b in zip(again, base)):
+            fail("phase 29(c): two steps with every flag off are not "
+                 "bitwise the same under cudnn.deterministic")
+        for flag in ("bn_fusion_barrier", "bn_fusion_barrier_fwd",
+                     "bn_fusion_barrier_bwd"):
+            same = all(torch.equal(a, b)
+                       for a, b in zip(run({flag: True})[0], base))
+            log(f"{flag}=True: the loss and every gradient bitwise the "
+                f"step without it: {same}")
+            if not same:
+                fail(f"phase 29(c): {flag} changed the step")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+    return launch_delta(before, tier.launch_counts()), dict(
+        dot_convs=n_1x1, dot_losses=l_dot, off_losses=l_off,
+        dot_grad_spread_max=max(got.values()), dot_worst=worst)
+
+
+def phase29_legacy(torch, fluid, seed, card):
+    """(d) use_pallas_rnn and use_pallas_ctc under kernel_tier=torch.
+    Returns the launches and the readings."""
+    import warnings
+    from paddle_tpu_torch.ops import cuda as tier
+
+    log(f"\n== phase 29(d): the deprecated use_pallas_rnn / use_pallas_ctc "
+        f"under kernel_tier=torch: phase 6's LSTM classifier (batch "
+        f"{SEQ_BATCH}, ragged) and phase 9's CTC model (batch {CTC_BATCH}), "
+        f"one step each with the flag on and off | {card} ==")
+    cases = (
+        ("use_pallas_rnn", "LSTM classifier", build_textcls(fluid, seed),
+         textcls_feeds(fluid, seed, ragged=True), ("lstm_seq",
+                                                   "lstm_seq_bwd"),
+         TEXTCLS_LOSS_LIMIT, TEXTCLS_GRAD_LIMIT),
+        ("use_pallas_ctc", "CTC model", build_ctc_acoustic(fluid, seed)[:3],
+         ctc_feed(fluid, seed), ("ctc_alpha", "ctc_loss_bwd"),
+         CTC_FWD_LIMIT, CTC_BWD_LIMIT))
+    total, readings = {}, {}
+    exe = fluid.Executor()
+    for flag, title, (main, startup, loss), feed, kernels, lim_l, lim_g \
+            in cases:
+        grads = fused_grads(main)
+        init = fluid.Scope()
+        exe.run(startup, scope=init)
+        out = {}
+        for on in (False, True):
+            fluid.set_flags({"kernel_tier": "torch", flag: on})
+            before = tier.launch_counts()
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", DeprecationWarning)
+                    vals = exe.run(main, feed=feed,
+                                   fetch_list=[loss] + grads,
+                                   scope=copy_scope(fluid, torch, init),
+                                   return_numpy=False)
+            finally:
+                fluid.set_flags({"kernel_tier": "auto", flag: False})
+            out[on] = (vals, launch_delta(before, tier.launch_counts()))
+        (ref, l_off), (got, l_on) = out[False], out[True]
+        dl = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+        sp = max(((g.double() - r.double()).norm()
+                  / r.double().norm().clamp_min(1e-30)).item()
+                 for g, r in zip(got[1:], ref[1:]))
+        log(f"{title}: {flag}=True launches {l_on}, off {l_off}; loss rel "
+            f"diff {dl:.3e} (limit {lim_l:.0e}), largest gradient "
+            f"‖Δ‖₂/‖ref‖₂ {sp:.3e} (limit {lim_g:.0e})")
+        for k in kernels:
+            if not l_on.get(k, 0) > 0:
+                fail(f"phase 29(d): {flag}=True launched no {k}")
+        if any(l_off.get(k, 0) for k in kernels):
+            fail(f"phase 29(d): kernel_tier=torch launched {l_off}")
+        if not (dl <= lim_l and sp <= lim_g):
+            fail(f"phase 29(d): {title} with {flag} is off the torch route "
+                 f"by loss {dl:.3e}, gradient {sp:.3e}")
+        for k, n in l_on.items():
+            total[k] = total.get(k, 0) + n
+        readings[flag] = dict(launches=l_on, loss_rel=dl, grad_spread=sp)
+    return total, readings
+
+
+@contextlib.contextmanager
+def reference_optests(repo):
+    """The reference test modules of P29_OPTESTS, loaded with the port in
+    the reference's place and nothing of the JAX package imported: their
+    ``from op_test import OpTest`` gets tests/torch_op_test.py, and the
+    ``paddle_tpu`` names two of them import at the top are stand-in modules
+    holding the port's (fluid, whose set_flags takes the reference's tier
+    names; fluid.framework; ops.pallas, the port's kernel tier; and its
+    paged_attention twins). The helpers of P29_PATCHED, which compute
+    expected values with jax.numpy, are replaced by the same computations
+    in torch on the CPU. Yields (harness, modules) with the stand-ins in
+    ``sys.modules``; on exit ``sys.modules`` is as it was before, so no
+    stand-in outlives the block. Fails if loading the files imported jax
+    or a patched helper is missing."""
+    import importlib.util
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch.fluid as pfluid
+    from paddle_tpu_torch.fluid import framework
+    from paddle_tpu_torch.ops import cuda as tier
+    from paddle_tpu_torch.ops.cuda import paged_attention as pak
+
+    tests = os.path.join(repo, "tests")
+    saved = dict(sys.modules)
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        return mod
+
+    class RefFluid(types.ModuleType):
+        def __getattr__(self, name):
+            return getattr(pfluid, name)
+
+        def set_flags(self, flags):
+            pfluid.set_flags({k: P29_TIERS.get(v, v) if k == "kernel_tier"
+                              else v for k, v in flags.items()})
+
+    def stand_in(name, **attrs):
+        mod = types.ModuleType(name)
+        mod.__path__ = []
+        mod.__dict__.update(attrs)
+        sys.modules[name] = mod
+        return mod
+
+    def restore():
+        for name in [n for n in sys.modules if n not in saved]:
+            del sys.modules[name]
+        sys.modules.update(saved)
+
+    def unfused_reference(x, w, scale, bias, rm, rv, eps, momentum, act):
+        """test_fused_conv_bn.py's _unfused_reference in float64."""
+        d = [torch.from_numpy(np.asarray(a, np.float64))
+             for a in (x, w, scale, bias, rm, rv)]
+        x, w, scale, bias, rm, rv = d
+        z = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+        m = z.mean(dim=(0, 1, 2))
+        v = z.var(dim=(0, 1, 2), correction=0)
+        inv = torch.rsqrt(v + eps)
+        y = z * (scale * inv) + (bias - m * scale * inv)
+        if act == "relu":
+            y = torch.clamp_min(y, 0)
+        return tuple(t.float().numpy() for t in (
+            y, momentum * rm + (1 - momentum) * m,
+            momentum * rv + (1 - momentum) * v, m, v))
+
+    def paged_case(seed=0, s=4, h=2, d=8, nb=8, bs=4, p=2, dtype=np.float32,
+                   ctx_lens=(7, 0, 8, 1)):
+        """test_paged_attention_pallas.py's _case, its expected output from
+        the port's plain version in float32 on the CPU."""
+        rng = np.random.RandomState(seed)
+        e = h * d
+        q, k, v = (rng.normal(0, 1, (s, 1, e)).astype(dtype)
+                   for _ in range(3))
+        kc = rng.normal(0, 1, (nb, bs, h, d)).astype(dtype)
+        vc = rng.normal(0, 1, (nb, bs, h, d)).astype(dtype)
+        bt = rng.randint(0, nb, (s, p)).astype(np.int32)
+        cl = np.asarray(ctx_lens, np.int32)
+        sentinel = nb * bs
+        slots = np.where(cl > 0, bt[np.arange(s), (cl - 1) // bs] * bs
+                         + (cl - 1) % bs, sentinel).astype(np.int32)
+
+        def scatter(cache, rows):
+            flat = cache.reshape(nb * bs, h, d).copy()
+            live = slots < sentinel
+            flat[slots[live]] = rows[live]
+            return flat.reshape(cache.shape)
+
+        kc_out, vc_out = scatter(kc, k.reshape(s, h, d)), scatter(
+            vc, v.reshape(s, h, d))
+        out = pak.paged_attention_torch(*(
+            torch.from_numpy(np.asarray(a, np.float32)) for a in (
+                q.reshape(s, h, d), kc_out, vc_out)),
+            torch.from_numpy(bt.astype(np.int64)),
+            torch.from_numpy(cl.astype(np.int64))).numpy()
+        inputs = {"Q": q, "K": k, "V": v, "KCache": kc, "VCache": vc,
+                  "SlotMapping": slots, "BlockTables": bt, "ContextLens": cl}
+        outputs = {"Out": out.reshape(s, 1, e).astype(dtype),
+                   "KCacheOut": kc_out, "VCacheOut": vc_out}
+        return inputs, outputs, h
+
+    try:
+        harness = load("op_test", os.path.join(tests, "torch_op_test.py"))
+        paged = stand_in(
+            "paddle_tpu.ops.pallas.paged_attention",
+            paged_attention_jnp=pak.paged_attention_torch,
+            paged_attention_pallas=pak.paged_attention_cuda,
+            paged_attention_supported=pak.paged_attention_supported)
+        pallas = stand_in("paddle_tpu.ops.pallas",
+                          fallback_counts=tier.fallback_counts,
+                          reset_fallback_counts=tier.reset_fallback_counts,
+                          paged_attention=paged)
+        ref_fluid = RefFluid("paddle_tpu.fluid")
+        sys.modules["paddle_tpu.fluid"] = ref_fluid
+        sys.modules["paddle_tpu.fluid.framework"] = framework
+        stand_in("paddle_tpu", fluid=ref_fluid,
+                 ops=stand_in("paddle_tpu.ops", pallas=pallas))
+
+        mods = {}
+        for name, _, _ in P29_OPTESTS:
+            if name not in mods:
+                mods[name] = load(f"_p29_{name}",
+                                  os.path.join(tests, f"{name}.py"))
+        torch_twins = {"_unfused_reference": unfused_reference,
+                       "_case": paged_case}
+        for mod_name, helper in P29_PATCHED:
+            if not callable(getattr(mods[mod_name], helper, None)):
+                fail(f"phase 29(e): {mod_name}.py has no {helper} to "
+                     f"replace")
+            setattr(mods[mod_name], helper, torch_twins[helper])
+        jax = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax."))
+        if jax:
+            fail(f"phase 29(e): loading the reference test files imported "
+                 f"{jax[:3]}")
+        yield harness, mods
+    finally:
+        restore()
+
+
+def phase29_optests(torch, fluid, card, repo):
+    """(e) the reference's OpTest classes on CUDAPlace(0) through the port's
+    harness. Returns the launches and the readings."""
+    from paddle_tpu_torch.ops import cuda as tier
+
+    log(f"\n== phase 29(e): the reference's OpTest classes whose op reaches "
+        f"a kernel, through tests/torch_op_test.py on CUDAPlace(0), at "
+        f"each class's tolerance | {card} ==")
+    total, readings = {}, {}
+    with reference_optests(repo) as (harness, mods):
+        for mod_name, cls_name, methods in P29_OPTESTS:
+            cls = getattr(mods[mod_name], cls_name)
+            for meth in methods:
+                inst = cls()
+                inst.place = fluid.CUDAPlace(0)
+                if hasattr(inst, "setup_method"):
+                    inst.setup_method(None)
+                tier.reset_fallback_counts()
+                before = tier.launch_counts()
+                t0 = time.perf_counter()
+                try:
+                    if meth == "test_grad_parity_pallas_vs_jnp_twin":
+                        x, w, scale, bias, *_ = inst._setup()
+                        names = ["Input", "Filter", "Scale", "Bias"]
+                        fluid.set_flags({"kernel_tier": "torch"})
+                        want = inst._analytic_grads(names, ["Output"])
+                        fluid.set_flags({"kernel_tier": "cuda"})
+                        inst.check_grad(names, ["Output"],
+                                        user_defined_grads=want,
+                                        max_relative_error=5e-3)
+                    elif meth in ("test_output", "test_fallback") \
+                            and mod_name == "test_paged_attention_pallas":
+                        # the pallas_tier fixture's setting
+                        fluid.set_flags({"kernel_tier": "cuda"})
+                        getattr(inst, meth)(None)
+                    else:
+                        getattr(inst, meth)()
+                except Exception as e:
+                    fail(f"phase 29(e): {mod_name}.{cls_name}.{meth} on "
+                         f"the card: {type(e).__name__}: {e}")
+                finally:
+                    fluid.set_flags({"kernel_tier": "auto"})
+                got = launch_delta(before, tier.launch_counts())
+                fb = tier.fallback_counts()
+                secs = time.perf_counter() - t0
+                log(f"{cls_name}.{meth}: passed in {secs:.2f} s; launches "
+                    f"{got}; plain-routed {fb}")
+                readings[f"{cls_name}.{meth}"] = dict(launches=got,
+                                                      fallbacks=fb)
+                for k, n in got.items():
+                    total[k] = total.get(k, 0) + n
+    for k in ("conv_bn_train", "conv_bn_bwd", "ctc_alpha", "ctc_loss_bwd",
+              "paged_attention"):
+        if not total.get(k, 0) > 0:
+            fail(f"phase 29(e): the OpTest classes launched no {k}")
+    return total, readings
+
+
+def phase_flags_optests(torch, fluid, seed, card):
+    """Phase 29: (a) the space-to-depth stem, (b) the 1x1 grads as dot
+    products, (c) the batch-norm barriers, (d) the deprecated kernel flags,
+    (e) the reference's OpTest classes on the card. Returns the kernel
+    launches of (a)-(d), the models' steps at their own shapes, and the
+    readings; (e)'s launches, at the OpTest classes' toy shapes and mostly
+    central differences, stay in its readings and out of the kernels
+    line."""
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    total, readings = {}, {}
+    for part, (launched, read) in (
+            ("a", phase29_stem(torch, fluid, seed, card)),
+            ("b_c", phase29_unfused(torch, fluid, seed, card)),
+            ("d", phase29_legacy(torch, fluid, seed, card)),
+            ("e", phase29_optests(torch, fluid, card, repo))):
+        readings[part] = dict(launches=launched, **read)
+        if part != "e":
+            for k, n in launched.items():
+                total[k] = total.get(k, 0) + n
+    readings["seconds"] = time.perf_counter() - t0
+    log(f"phase 29: {readings['seconds']:.1f} s; launches of (a)-(d) "
+        f"{total}; of (e) {readings['e']['launches']}")
+    return total, readings
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -11528,12 +12217,16 @@ def main():
     log("phase 28 readings: " + json.dumps(p28_readings))
     for d in (serving["dir"], gen["dir"]):
         shutil.rmtree(d, ignore_errors=True)
+    p29, p29_readings = phase_flags_optests(torch, fluid, args.seed, card)
+    log("phase 29 readings: " + json.dumps(p29_readings))
 
     def entry(name, source, replaces, n, t, extra=()):
+        # phase 29's launches of this wrapper join every earlier phase's
         return {"name": name, "route": "cuda",
                 "source": f"paddle_tpu_torch/csrc/{source}",
                 "replaces": f"paddle_tpu/ops/{replaces}",
-                "launches": n, "max_abs_err": t["max_abs_err"],
+                "launches": n + p29.get(name, 0),
+                "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], **{k: t[k] for k in extra}}
@@ -11647,6 +12340,7 @@ def main():
               variant("conv_bn_train_bf16", TRAIN_BATCH), ("default_ms",)),
     ]
     log("phase 14 summary: " + json.dumps(srv_summary))
+    log(f"chip_smoke.py: {time.perf_counter() - _T0:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

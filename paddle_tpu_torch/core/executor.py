@@ -254,7 +254,11 @@ def _run_ops(block, env, device, override=None, after=None):
     op i's registered forward where the entry is not None, and
     ``after[i](env)`` runs where ``after`` (a dict by op index) has op i,
     right after its forward: the sharded step's collective forms and
-    gradient sums (``parallel/step.py``). The hooks see both as the op."""
+    gradient sums (``parallel/step.py``). The hooks see both as the op.
+    Every path that runs a block (the Executor, the sharded step, the
+    exported program, the perf plane) comes here, so a set
+    ``xla_compiler_options`` is refused on each of them."""
+    _check_compiler_options()
     check = _flags.get_flag("check_nan_inf")
     bench = _flags.get_flag("benchmark")
     opm = _flags.get_flag("obs_op_metrics")
@@ -411,12 +415,29 @@ def _stack_fetches(values, return_numpy):
     return Executor._fetch_value(stacked, return_numpy)
 
 
+def _check_compiler_options():
+    """The reference forwards ``xla_compiler_options`` to its XLA compiler;
+    the port runs its ops eagerly and has none, so a value is refused
+    rather than dropped."""
+    opts = _flags.get_flag("xla_compiler_options")
+    if opts:
+        raise ValueError(
+            f"flag 'xla_compiler_options' is set ({opts!r}), but the port "
+            "runs its programs eagerly and has no XLA compiler to forward "
+            "it to; set it to '' (the default)")
+
+
 class Executor:
     """User-facing executor. Runs on ``cuda:0`` unless ``place`` is
     ``CPUPlace()``; ``amp=True`` runs every program under AMP (bfloat16
-    compute, float32 master weights; reference :553-561)."""
+    compute, float32 master weights; reference :553-561). ``mode`` takes
+    the reference's "jit" and "eager": the port has one mode, the eager op
+    loop, for both."""
 
-    def __init__(self, place=None, amp=False):
+    def __init__(self, place=None, mode="jit", amp=False):
+        if mode not in ("jit", "eager"):
+            raise ValueError(f"Executor mode must be 'jit' or 'eager', got "
+                             f"{mode!r}")
         self.device = resolve_device(place)
         self.amp = amp
 

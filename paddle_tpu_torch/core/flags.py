@@ -1,19 +1,24 @@
-"""Global flags registry (counterpart of paddle_tpu/core/flags.py), holding
-only the flags the ported paths read: the executor's debug and metering
-flags (``check_nan_inf``, ``benchmark``, ``obs_op_metrics``), the program
-verifier's (``verify_passes``, ``executor_verify``), ``kernel_tier``,
-``serving_batch_buckets``, the generation-serving flags (reference
-:216-330), the serving front door's (``rpc_timeout_s``,
-``serving_max_delay_ms``, ``serving_max_models`` and the tenant quota
-flags), the parameter server's (``pserver_barrier_timeout_s``,
-``pserver_trainer_lease_s``, ``pserver_wire_dtype``) and the observability
-plane's (``obs_metrics_window``, ``obs_slo_interval_s``,
-``obs_flight_events``, ``obs_incident_dir``), the serving fleet's and
-the perf plane's (``serving_fleet_replicas``, ``serving_probe_interval_ms``,
+"""Global flags registry (counterpart of paddle_tpu/core/flags.py): every
+flag of the reference but ``bn_bf16_stats``, each with the reference's
+name and default. The executor's debug and metering flags
+(``check_nan_inf``, ``benchmark``, ``obs_op_metrics``), the program
+verifier's (``verify_passes``, ``executor_verify``), the kernel tier's
+(``kernel_tier`` and the deprecated ``use_pallas_rnn``/``use_pallas_ctc``),
+the op lowerings' (``conv_space_to_depth``, ``conv_1x1_grad_as_dot``, the
+``bn_fusion_barrier*`` flags), ``xla_compiler_options`` (kept so that
+configs load; every path that runs a block refuses a value), ``serving_batch_buckets``,
+the generation-serving flags (reference :216-330), the serving front
+door's (``rpc_timeout_s``, ``serving_max_delay_ms``,
+``serving_max_models`` and the tenant quota flags), the parameter
+server's (``pserver_barrier_timeout_s``, ``pserver_trainer_lease_s``,
+``pserver_wire_dtype``) and the observability plane's
+(``obs_metrics_window``, ``obs_slo_interval_s``, ``obs_flight_events``,
+``obs_incident_dir``), the serving fleet's and the perf plane's
+(``serving_fleet_replicas``, ``serving_probe_interval_ms``,
 ``serving_probation_probes``, ``serving_exec_cache*``,
 ``serving_kv_spill_*``, ``serving_autoscale_*``, ``obs_compile_*``,
 ``kernel_autotune*``), the online-learning loop's (``online_*``) and the
-placement planner's (``plan_*``), each with the reference's default."""
+placement planner's (``plan_*``)."""
 
 from __future__ import annotations
 
@@ -123,6 +128,64 @@ DEFINE_flag("serving_batch_buckets", "1,2,4,8,16,32",
             "comma-separated batch buckets the serving InferenceEngine pads "
             "incoming batches up to; batches beyond the largest bucket are "
             "chunked through it (serving/engine.py)")
+
+DEFINE_flag("use_pallas_rnn", False,
+            "DEPRECATED (use kernel_tier; still honored): True sends the "
+            "lstm and gru ops of CUDA tensors to their recurrence kernels "
+            "(lstm_seq, gru_seq and their backwards) whatever kernel_tier "
+            "says, with a one-time DeprecationWarning. An unsupported "
+            "shape still takes the plain chain and is counted; CPU "
+            "tensors always run the plain version (ops/cuda/__init__.py)")
+
+DEFINE_flag("use_pallas_ctc", False,
+            "DEPRECATED (use kernel_tier; still honored): True sends "
+            "warpctc on CUDA tensors to the CTC kernels (ctc_alpha, "
+            "ctc_loss_bwd) whatever kernel_tier says, with a one-time "
+            "DeprecationWarning; CPU tensors always run the plain version")
+
+DEFINE_flag("xla_compiler_options", "",
+            "the reference's comma-separated k=v options for its XLA "
+            "compiler. The port runs its programs eagerly and has no such "
+            "compiler: the flag exists so that configs which set it load, "
+            "and every path that runs a block (the Executor, the sharded "
+            "step, the exported program) raises ValueError naming it when "
+            "its value is not empty (a setting is never dropped silently)")
+
+DEFINE_flag("conv_space_to_depth", False,
+            "rewrite eligible stem convs (NHWC, stride 2, ungrouped, "
+            "undilated, C_in <= 4, k > 1, even H and W: the ResNet 7x7/s2 "
+            "stem over HxWx3 images) as a stride-1 conv over the 2x2 "
+            "space-to-depth transform of the input, the filter regrouped "
+            "to [O, 4C, Kh2, Kw2] at each call. Exact up to float "
+            "reassociation; the stored filter stays OIHW 7x7, and the "
+            "conv's gradients go through the rewritten forward. Such a "
+            "conv is never on a kernel route (conv_bn takes stride 2 only "
+            "at k = 1), so kernel launches and fallbacks do not change")
+
+DEFINE_flag("bn_fusion_barrier", False,
+            "the reference's A/B probe: a barrier between a conv output "
+            "and batch_norm's statistics (forward) and its grad's "
+            "reductions (backward). The port's barrier is the identity: "
+            "an eager op loop fuses nothing across ops, so outputs are "
+            "bitwise those with the flag off. batch_norm and "
+            "batch_norm_grad OR this flag with the one-sided flags below")
+
+DEFINE_flag("bn_fusion_barrier_fwd", False,
+            "the barrier in batch_norm's forward only (the identity here; "
+            "see bn_fusion_barrier)")
+
+DEFINE_flag("bn_fusion_barrier_bwd", False,
+            "the barrier in batch_norm_grad only (the identity here; see "
+            "bn_fusion_barrier)")
+
+DEFINE_flag("conv_1x1_grad_as_dot", False,
+            "compute the input and filter gradients of an NHWC 1x1 conv "
+            "(stride 1, no padding, no dilation, one group) in "
+            "conv2d_grad as channel products (torch.matmul) instead of "
+            "the conv backward: dx in the compute dtype, dw accumulated "
+            "and returned in float32. The fused program's 1x1 convs take "
+            "fused_conv2d_bn_grad (conv_bn_bwd on the kernel route) and "
+            "never reach this branch")
 
 DEFINE_flag("pserver_barrier_timeout_s", 60.0,
             "parameter-server wait bound in seconds: how long a sync-mode "

@@ -78,6 +78,33 @@ class Variable:
             self._persistable = value
             self.block.program._bump_version()
 
+    # the reference's Variable operator overloads (reference :103-126,
+    # python/paddle/fluid/layers/math_op_patch.py)
+    def _binary(self, other, op_type, reverse=False):
+        from .layers import nn as _nn  # a local import: layers imports this
+        return _nn._elementwise_binary(self, other, op_type, reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
+
+    def __radd__(self, other):
+        return self._binary(other, "elementwise_add", reverse=True)
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    def __rmul__(self, other):
+        return self._binary(other, "elementwise_mul", reverse=True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "
                 f"dtype={self.dtype}, lod_level={self.lod_level}, "

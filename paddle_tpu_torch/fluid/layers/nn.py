@@ -345,6 +345,36 @@ def _elementwise(op_type, x, y, axis, act):
     return helper.append_activation(out)
 
 
+def _elementwise_binary(x, other, op_type, reverse=False):
+    """Variable's + - * / (reference nn.py:191, math_op_patch.py): a scalar
+    added or multiplied becomes a scale op, any other scalar a
+    fill_constant_batch_size_like operand."""
+    helper = LayerHelper(op_type)
+    if isinstance(other, (int, float)):
+        if op_type in ("elementwise_add", "elementwise_mul"):
+            out = helper.create_tmp_variable(x.dtype, shape=x.shape,
+                                             lod_level=x.lod_level)
+            attrs = ({"scale": 1.0, "bias": float(other)}
+                     if op_type == "elementwise_add"
+                     else {"scale": float(other)})
+            helper.append_op("scale", inputs={"X": [x.name]},
+                             outputs={"Out": [out.name]}, attrs=attrs)
+            return out
+        const = helper.create_tmp_variable(x.dtype, shape=x.shape)
+        helper.append_op("fill_constant_batch_size_like",
+                         inputs={"Input": [x.name]},
+                         outputs={"Out": [const.name]},
+                         attrs={"shape": list(x.shape or (1,)),
+                                "value": float(other), "dtype": x.dtype})
+        other = const
+    a, b = (other, x) if reverse else (x, other)
+    out = helper.create_tmp_variable(a.dtype, shape=a.shape,
+                                     lod_level=a.lod_level)
+    helper.append_op(op_type, inputs={"X": [a.name], "Y": [b.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": -1})
+    return out
+
+
 def elementwise_add(x, y, axis=-1, act=None):
     return _elementwise("elementwise_add", x, y, axis, act)
 

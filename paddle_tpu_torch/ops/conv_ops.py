@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.amp import cast_compute
+from ..core.flags import get_flag
 from ..core.registry import register_op, infer_output, OpSpec, G
 from .common import vjp
 
@@ -47,10 +48,75 @@ def conv_df(attr):
     return attr("data_format", "NCHW") or "NCHW"
 
 
+def _s2d_stem_eligible(x, w, strides, paddings, dilations, groups, df):
+    """Whether the space-to-depth stem rewrite applies exactly (reference
+    :35): an NHWC stride-2 ungrouped undilated conv over at most 4 input
+    channels with a filter wider than 1 (the ResNet/VGG stem, 7x7/s2 over
+    HxWx3), on even spatial dims."""
+    return (df == "NHWC" and tuple(strides) == (2, 2)
+            and tuple(dilations) == (1, 1) and groups == 1 and x.dim() == 4
+            and x.shape[3] <= 4 and x.shape[1] % 2 == 0
+            and x.shape[2] % 2 == 0 and w.shape[2] > 1 and w.shape[3] > 1)
+
+
+def _s2d_geom(k, p, size):
+    """One spatial dim of the rewrite: (taps of the stride-1 filter, its
+    left and right padding, the offset of the filter in the (2Kh, 2Kw)
+    grid)."""
+    m_min = -((p + 1) // 2)
+    m_max = (k - 1 - p) // 2
+    out = (size + 2 * p - k) // 2 + 1
+    return (m_max - m_min + 1, -m_min, out - 1 + m_max - (size // 2 - 1),
+            2 * (-m_min) - p)
+
+
+def _s2d_stem_conv(x, w, paddings):
+    """conv2d(k, stride 2, pad) over NHWC ``x`` as a stride-1 conv over the
+    2x2 space-to-depth transform of ``x`` (reference :50-86), or None when
+    a padding of the rewrite comes out negative.
+
+    y[i, j] = sum_{p, q, c} x[2i + p - ph, 2j + q - pw, c] W[o, c, p, q];
+    writing each input row as u = 2(i + m) + a (block row i + m, parity a)
+    gives p = 2m + a + ph, so the filter embeds in a zero-padded (2Kh, 2Kw)
+    grid whose (parity, block) regrouping is the stride-1 filter over the
+    (a, b, c)-packed channels."""
+    n, h, wd, c = x.shape
+    o, _, kh, kw = w.shape
+    kh2, pl_h, pr_h, off_h = _s2d_geom(kh, paddings[0], h)
+    kw2, pl_w, pr_w, off_w = _s2d_geom(kw, paddings[1], wd)
+    if min(pl_h, pr_h, pl_w, pr_w) < 0:
+        return None
+    # x: [N, H, W, C] -> [N, H/2, 2, W/2, 2, C] -> [N, H/2, W/2, (a, b, c)]
+    x2 = x.reshape(n, h // 2, 2, wd // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    x2 = x2.reshape(n, h // 2, wd // 2, 4 * c).permute(0, 3, 1, 2)
+    # the filter at (off_h, off_w) in the (2Kh, 2Kw) grid, regrouped
+    # [o, c, m, a, n, b] -> [o, (a, b, c), m, n]
+    wp = F.pad(w.to(x.dtype), (off_w, 2 * kw2 - kw - off_w,
+                               off_h, 2 * kh2 - kh - off_h))
+    w2 = wp.reshape(o, c, kh2, 2, kw2, 2).permute(0, 3, 5, 1, 2, 4)
+    w2 = w2.reshape(o, 4 * c, kh2, kw2)
+    y = F.conv2d(F.pad(x2, (pl_w, pr_w, pl_h, pr_h)), w2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _use_s2d(x, w, strides, paddings, dilations, groups, df):
+    """The conv_space_to_depth flag is on and the rewrite applies to this
+    conv, its paddings included (reference :101-105)."""
+    if not (get_flag("conv_space_to_depth") and _s2d_stem_eligible(
+            x, w, strides, paddings, dilations, groups, df)):
+        return False
+    pads = [_s2d_geom(w.shape[2 + i], paddings[i], x.shape[1 + i])[1:3]
+            for i in (0, 1)]
+    return min(min(p) for p in pads) >= 0
+
+
 def conv2d_compute(x, w, strides, paddings, dilations, groups, df="NCHW"):
     """conv2d at layout ``df`` (reference conv_ops.py:92), on bfloat16
-    operands under AMP."""
+    operands under AMP; an eligible stem conv through the space-to-depth
+    rewrite under ``conv_space_to_depth``."""
     x, w = cast_compute(x, w)
+    if _use_s2d(x, w, strides, paddings, dilations, groups, df):
+        return _s2d_stem_conv(x, w, paddings)
     if df == "NHWC":
         y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=strides,
                      padding=paddings, dilation=dilations, groups=groups)
@@ -93,6 +159,12 @@ def conv2d_backward(x, w, dy, strides, paddings, dilations, groups,
     computed in (x's, or bfloat16 under AMP: the reference's
     ``cast_compute(dx)``), dw in w's."""
     xc, wc = cast_compute(x, w)
+    if _use_s2d(xc, wc, strides, paddings, dilations, groups, df):
+        # through the rewritten forward, as the reference's vjp of its
+        # _conv2d_compute is
+        dx, dw = vjp(lambda a, b: _s2d_stem_conv(a, b, paddings),
+                     (xc, wc.to(xc.dtype)), dy)
+        return dx, dw.to(w.dtype)
     if df == "NHWC":
         xc, dy = xc.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
     dx, dw, _ = torch.ops.aten.convolution_backward(
@@ -121,12 +193,36 @@ def conv2d(ctx):
         dilations, groups, conv_df(ctx.attr)))
 
 
+def _grad_1x1_as_dot(x, w, dy):
+    """(dx, dw) of an NHWC 1x1 stride-1 conv as channel products
+    (reference :183-199): dx = dy·W in the compute dtype, dw = dyᵀ·x
+    accumulated and returned in float32 (float64 for float64 tensors)."""
+    xc, wc = cast_compute(x, w)
+    dyc = dy.to(xc.dtype)
+    w2 = wc.to(xc.dtype).reshape(wc.shape[0], wc.shape[1])     # [O, I]
+    dx = torch.matmul(dyc, w2)
+    acc = torch.promote_types(xc.dtype, torch.float32)
+    dw = torch.matmul(dyc.reshape(-1, w2.shape[0]).to(acc).t(),
+                      xc.reshape(-1, w2.shape[1]).to(acc))
+    return cast_compute(dx), dw.reshape(w.shape)
+
+
 @register_op("conv2d_grad")
 def conv2d_grad(ctx):
     strides, paddings, dilations, groups = conv_attrs(ctx.attr)
-    dx, dw = conv2d_backward(ctx.input("Input"), ctx.input("Filter"),
+    df = conv_df(ctx.attr)
+    w = ctx.input("Filter")
+    if (get_flag("conv_1x1_grad_as_dot") and df == "NHWC"
+            and tuple(w.shape[2:]) == (1, 1) and strides == (1, 1)
+            and paddings == (0, 0) and dilations == (1, 1) and groups == 1):
+        dx, dw = _grad_1x1_as_dot(ctx.input("Input"), w,
+                                  ctx.input("Output@GRAD"))
+        ctx.set_output("Input@GRAD", dx)
+        ctx.set_output("Filter@GRAD", dw)
+        return
+    dx, dw = conv2d_backward(ctx.input("Input"), w,
                              ctx.input("Output@GRAD"), strides, paddings,
-                             dilations, groups, conv_df(ctx.attr))
+                             dilations, groups, df)
     ctx.set_output("Input@GRAD", dx)
     ctx.set_output("Filter@GRAD", dw)
 

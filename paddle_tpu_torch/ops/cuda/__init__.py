@@ -23,6 +23,10 @@ backwards), ``ctc`` (``ctc.py``: ctc_alpha and ctc_loss_bwd) and
 ``paged_attention`` (``paged_attention.py``: the generation decode step's
 ragged attention through the paged KV arena).
 
+The deprecated flags ``use_pallas_rnn`` (``lstm``, ``gru``) and
+``use_pallas_ctc`` (``ctc``) still force their families' kernel route on
+CUDA tensors under any tier, with a one-time DeprecationWarning each.
+
 Routing contract: a shape outside a kernel's ``supported()`` set is routed
 to the plain op chain by design and counted in :func:`fallback_counts`, on
 the obs.metrics family the reference counts its Pallas fallbacks in
@@ -33,10 +37,22 @@ silent fallback after a failed build or launch.
 
 from __future__ import annotations
 
+import warnings
+
 from ...core.flags import get_flag
 from ...obs.metrics import REGISTRY as _METRICS
 
 _TIERS = ("auto", "cuda", "torch")
+
+# kernel family -> the deprecated flag that used to gate it (reference
+# pallas/__init__.py:50)
+_LEGACY_FLAGS = {
+    "lstm": "use_pallas_rnn",
+    "gru": "use_pallas_rnn",
+    "ctc": "use_pallas_ctc",
+}
+
+_warned_legacy: set = set()
 
 # per kernel family: supported=False dispatches routed to the plain op chain
 # under a tier that wanted the kernel
@@ -63,11 +79,36 @@ def resolve_tier(device):
     return t
 
 
+def _legacy_forced(kernel):
+    """Whether the kernel family's deprecated flag is set (reference
+    pallas/__init__.py:62); warns once per flag."""
+    name = _LEGACY_FLAGS.get(kernel)
+    if name is None or not get_flag(name):
+        return False
+    if name not in _warned_legacy:
+        _warned_legacy.add(name)
+        warnings.warn(
+            f"flag {name!r} is deprecated: use kernel_tier='cuda' (or "
+            "'auto', which picks the kernels for CUDA tensors) instead; the "
+            "old flag is still honored and forces the kernel route for its "
+            "kernels on CUDA tensors", DeprecationWarning, stacklevel=3)
+    return True
+
+
+def wants_kernel(kernel, device):
+    """Does the tier, or the family's deprecated flag, want the kernel
+    route for tensors on ``device``? A deprecated flag wins over
+    ``kernel_tier`` on CUDA tensors only: it never moves work off the
+    device it is on, and CPU tensors keep their tier's route."""
+    forced = _legacy_forced(kernel) and device.type == "cuda"
+    return forced or resolve_tier(device) == "cuda"
+
+
 def use_kernel(kernel, supported, device):
     """Should this dispatch take the kernel route? ``supported`` is the call
     site's shape/config predicate; an unsupported shape under a tier that
     wants the kernel routes to the plain op chain with a counter bump."""
-    if resolve_tier(device) != "cuda":
+    if not wants_kernel(kernel, device):
         return False
     if not supported:
         record_fallback(kernel)
@@ -108,7 +149,7 @@ def launch_counts():
     return out
 
 
-__all__ = ["resolve_tier", "use_kernel", "record_fallback",
+__all__ = ["resolve_tier", "wants_kernel", "use_kernel", "record_fallback",
            "fallback_counts", "reset_fallback_counts", "launch_counts"]
 
 # the kernels' torch.library operators (torch.ops.paddle_tpu_torch.*),

@@ -98,7 +98,10 @@ def paged_attention_torch(qh, kc, vc, bt, ctx_lens):
     cl = ctx_lens.long()
     live = torch.arange(idx.shape[1], device=bt.device)[None, :] \
         < cl[:, None]                                        # [b, C]
-    scores = torch.where(live[:, None, :], scores, -1e9)
+    # -1e9 in the scores' dtype: -inf in float16, as the reference's
+    # jnp.where casts it (a CUDA where refuses the overflowing scalar)
+    masked = torch.full((), -1e9, device=scores.device).to(scores.dtype)
+    scores = torch.where(live[:, None, :], scores, masked)
     pw = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhc,bchd->bhd", pw, vctx)
     return torch.where((cl > 0)[:, None, None], out, 0.0)

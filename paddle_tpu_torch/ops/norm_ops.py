@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.flags import get_flag
 from ..core.registry import (register_op, infer_output, same_shape,
                              OpSpec, G)
 from .common import data_of, vjp
@@ -99,10 +100,29 @@ def bn_forward_math(x, scale, bias, running_mean, running_var, eps,
     return y.to(x.dtype), new_mean, new_var, mean, var
 
 
+def _fusion_barrier(side):
+    """Whether the reference's conv/statistics fusion barrier is asked for
+    on ``side`` ("fwd" or "bwd"): ``bn_fusion_barrier`` OR the one-sided
+    flag (reference :130, :179)."""
+    return get_flag("bn_fusion_barrier") or get_flag(
+        "bn_fusion_barrier_" + side)
+
+
+def optimization_barrier(x):
+    """The identity. The reference's ``lax.optimization_barrier`` stops XLA
+    fusing batch_norm's reductions into the conv that produces their
+    input; an eager op loop fuses nothing across ops, so there is nothing
+    to stop and the outputs are bitwise those without the barrier."""
+    return x
+
+
 @register_op("batch_norm", infer_shape=_bn_infer, grad=_bn_grad_maker)
 def batch_norm(ctx):
+    x = ctx.input("X")
+    if _fusion_barrier("fwd"):
+        x = optimization_barrier(x)
     y, new_mean, new_var, mean, var = bn_forward_math(
-        ctx.input("X"), ctx.input("Scale"), ctx.input("Bias"),
+        x, ctx.input("Scale"), ctx.input("Bias"),
         ctx.input("Mean"), ctx.input("Variance"), ctx.attr("epsilon", 1e-5),
         ctx.attr("momentum", 0.9), ctx.attr("data_layout", "NCHW"),
         bool(ctx.attr("is_test", False)))
@@ -135,9 +155,12 @@ def bn_backward_math(x, scale, mean, var, dy, eps, layout, is_test):
 
 @register_op("batch_norm_grad")
 def batch_norm_grad(ctx):
+    x, dy = ctx.input("X"), ctx.input("Y@GRAD")
+    if _fusion_barrier("bwd"):
+        x, dy = optimization_barrier(x), optimization_barrier(dy)
     dx, dscale, dbias = bn_backward_math(
-        ctx.input("X"), ctx.input("Scale"), ctx.input("SavedMean"),
-        ctx.input("SavedVariance"), ctx.input("Y@GRAD"),
+        x, ctx.input("Scale"), ctx.input("SavedMean"),
+        ctx.input("SavedVariance"), dy,
         ctx.attr("epsilon", 1e-5), ctx.attr("data_layout", "NCHW"),
         bool(ctx.attr("is_test", False)))
     ctx.set_output("X@GRAD", dx)

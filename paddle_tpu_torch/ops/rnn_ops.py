@@ -26,7 +26,7 @@ from ..core.lod import LoDArray
 from ..core.registry import register_op, OpSpec, G
 from .common import data_of, vjp
 from .autotune import dispatch_variant, dtype_str, make_key
-from .cuda import resolve_tier
+from .cuda import wants_kernel
 from .cuda import rnn as rnnk
 
 
@@ -72,7 +72,7 @@ def _lstm_scan(x, lens, w, h0, c0, gate_act, cell_act, cand_act,
     padded length symbolic."""
     b, L, h4 = x.shape
     hdim = h4 // 4
-    supported = (resolve_tier(x.device) == "cuda"
+    supported = (wants_kernel("lstm", x.device)
                  and peepholes is None
                  and (gate_act, cell_act, cand_act)
                  == ("sigmoid", "tanh", "tanh")
@@ -294,7 +294,7 @@ def _gru_compute(x, lens, w, bias, h0, attrs, hidden=None):
         x = _reverse_padded(x, lens)
         if hidden is not None:
             hidden = _reverse_padded(hidden, lens)
-    supported = (resolve_tier(x.device) == "cuda"
+    supported = (wants_kernel("gru", x.device)
                  and (gate_act, cand_act) == ("sigmoid", "tanh")
                  and rnnk.supported(b, hdim, x.dtype, x.device))
     choice = dispatch_variant(

@@ -15,9 +15,10 @@ computes on the whole batch:
   batch gets the global token count, not an average of per-rank means;
 * ``reduce_sum`` and ``reduce_mean`` whose axes take in dim 0 of a
   batch-sharded value sum over "dp", ``reduce_mean`` and its grad over
-  the global count; the other ops that reduce over the batch
-  (``reduce_max|min|prod`` there, ``accuracy``, ``auc``,
-  ``precision_recall``, ``chunk_eval``, ``fused_conv2d_bn``) raise;
+  the global count; ``accuracy`` sums its Correct and Total over "dp";
+  the other ops that reduce over the batch (``reduce_max|min|prod``
+  there, ``auc``, ``precision_recall``, ``chunk_eval``,
+  ``fused_conv2d_bn``) raise;
 * ``batch_norm`` in training takes the global batch's statistics (sums
   and counts all-reduced), and ``batch_norm_grad`` the global sums of dY
   and dY·x̂; its Scale/Bias grads stay this rank's share;
@@ -105,6 +106,15 @@ class Mesh:
         """The global ranks of this rank's group along ``axis``, in axis
         order."""
         return self._ranks.get(axis, [self.rank])
+
+    # ``with mesh:`` (the reference's jax Mesh is a context that sets the
+    # ambient mesh); the port's collectives name their groups, so entering
+    # sets nothing
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
     def index(self, axis):
         """This rank's coordinate along ``axis`` (0 for an absent axis)."""
@@ -375,8 +385,13 @@ def shard_program_step(executor, program, feed_example, fetch_list, plan,
     ``feed_example``. Run it in a loop, carrying state. A replicated fetch
     (the loss) is the whole batch's; a batch-row fetch is this rank's
     rows. ``donate`` is accepted for the reference's signature: the step
-    updates the state's tensors in place whatever it says."""
+    updates the state's tensors in place whatever it says. A set
+    ``xla_compiler_options``, which the reference forwards to its
+    compiler here, raises when the step is built."""
+    from ..core.executor import _check_compiler_options
     from .step import ShardedStep
+
+    _check_compiler_options()
 
     return ShardedStep(executor, program, feed_example, fetch_list, plan,
                        scope).build()

@@ -31,8 +31,8 @@ from .sharding import P, local_shard, place_feed
 _OPT_SLOTS = (("Param", "Grad", "ParamOut"), ("Params", "Grads", "ParamsOut"))
 _NOT_STATE = {"Param", "Grad", "Params", "Grads", "LearningRate"}
 # ops whose statistics span the batch and that have no collective form here
-_BATCH_COUPLED = {"fused_conv2d_bn", "fused_conv2d_bn_grad", "accuracy",
-                  "auc", "precision_recall", "chunk_eval"}
+_BATCH_COUPLED = {"fused_conv2d_bn", "fused_conv2d_bn_grad", "auc",
+                  "precision_recall", "chunk_eval"}
 # reductions with a global form when their axes take in the rows (dim 0)
 _GLOBAL_REDUCE = ("reduce_sum", "reduce_mean")
 _REDUCE = _GLOBAL_REDUCE + ("reduce_max", "reduce_min", "reduce_prod")
@@ -170,6 +170,9 @@ class ShardedStep:
                     and op.input("X")[0] in rows \
                     and not op.attrs.get("is_test", False):
                 act = self._bn if t == "batch_norm" else self._bn_grad
+            elif t == "accuracy" and sharded_in and live:
+                act = self._accuracy
+                replicated = True
             elif t in _BATCH_COUPLED and sharded_in and live:
                 raise NotImplementedError(
                     f"{t}: it reduces over the batch sharded over "
@@ -302,6 +305,18 @@ class ShardedStep:
             return
         ctx.set_output("X@GRAD", (d / count).expand(x.shape)
                        .to(x.dtype).contiguous())
+
+    def _accuracy(self, ctx):
+        """The whole batch's accuracy: this rank's Correct and Total
+        summed over dp, then their quotient (what the reference's step
+        computes over the global batch)."""
+        self._forward(ctx)
+        local = torch.stack([ctx.env[ctx.op.output("Correct")[0]],
+                             ctx.env[ctx.op.output("Total")[0]]]).long()
+        correct, total = C.all_reduce(local, self.mesh.group(self.dp))
+        ctx.set_output("Accuracy", (correct.float() / total).reshape(()))
+        ctx.set_output("Correct", correct.to(torch.int32).reshape(()))
+        ctx.set_output("Total", total.to(torch.int32).reshape(()))
 
     # reduce_sum / reduce_mean over the rows: the global sum, over the
     # global count of the reduced elements

@@ -84,9 +84,13 @@ _MAGIC = b"PDTPUTORCHEXEC1\n"
 REJECT_REASONS = ("format", "manifest", "fingerprint", "deserialize",
                   "run_failed")
 
-# the flags that change what an exported program routes to
+# the flags that change what an exported program computes or routes to,
+# and the batch-norm barriers (the reference's _JIT_KEY_FLAGS keys them)
 KEY_FLAGS = ("kernel_tier", "kernel_autotune", "kernel_autotune_digest",
-             "kernel_autotune_bf16")
+             "kernel_autotune_bf16", "conv_space_to_depth",
+             "conv_1x1_grad_as_dot", "use_pallas_rnn", "use_pallas_ctc",
+             "bn_fusion_barrier", "bn_fusion_barrier_fwd",
+             "bn_fusion_barrier_bwd")
 
 _M_HITS = _METRICS.counter(
     "paddle_tpu_exec_cache_hits",

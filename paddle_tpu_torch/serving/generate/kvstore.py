@@ -101,13 +101,15 @@ _M_BYTES = _METRICS.gauge(
 def kv_fingerprint(content_hash, num_layers, num_heads, head_dim,
                    block_size, dtype, device=None):
     """The full identity of ONE arena's KV bytes, as a JSON-safe dict: the
-    bundle content hash, the arena geometry, ``kernel_tier`` (another
-    attention route may round differently), and the torch/CUDA/device and
-    kernel-source fields of ``ops/cuda/build.py``'s ``device_identity``
-    (``device`` the arena's). ANY mismatch is a silent miss followed by a
-    normal prefill."""
+    bundle content hash, the arena geometry, the flags of
+    ``serving.execcache.KEY_FLAGS`` (``kernel_tier`` among them: another
+    attention route may round differently; reference :112-123), and the
+    torch/CUDA/device and kernel-source fields of ``ops/cuda/build.py``'s
+    ``device_identity`` (``device`` the arena's). ANY mismatch is a silent
+    miss followed by a normal prefill."""
     from ...ops.autotune import dtype_str
     from ...ops.cuda.build import device_identity
+    from ..execcache import KEY_FLAGS
 
     fp = {
         "format": 1,
@@ -117,7 +119,7 @@ def kv_fingerprint(content_hash, num_layers, num_heads, head_dim,
         "head_dim": int(head_dim),
         "block_size": int(block_size),
         "dtype": dtype_str(dtype),
-        "flags": {"kernel_tier": get_flag("kernel_tier")},
+        "flags": {n: get_flag(n) for n in KEY_FLAGS},
     }
     fp.update(device_identity(device))
     return fp

@@ -218,9 +218,10 @@ def build_mlp_reduced(loss="reduce_mean", batch=16, fluid=None):
     the reduce ops: ``"reduce_mean"`` over every element, ``"sum_rows"``
     reduce_sum over dim 0 (scaled by 1/batch, then ``mean`` of the one
     element), ``"mean_rows_keep"`` reduce_mean over [0] with keep_dim
-    (then reduce_sum of the [1, 1]); ``"reduce_max"`` and ``"accuracy"``
-    add an op the sharded step has no collective form for. ``fluid`` is
-    this package's by default (the tests pass the reference's)."""
+    (then reduce_sum of the [1, 1]); ``"accuracy"`` adds an accuracy op
+    (the sharded step sums its counts over dp), ``"reduce_max"`` and
+    ``"auc"`` an op the sharded step has no collective form for. ``fluid``
+    is this package's by default (the tests pass the reference's)."""
     fluid = fluid or _fluid()
     layers = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
@@ -236,9 +237,9 @@ def build_mlp_reduced(loss="reduce_mean", batch=16, fluid=None):
         elif loss == "mean_rows_keep":
             out = layers.reduce_sum(layers.reduce_mean(ce, dim=[0],
                                                        keep_dim=True))
-        elif loss == "accuracy":
+        elif loss in ("accuracy", "auc"):
             out = layers.mean(ce)
-            layers.accuracy(layers.softmax(logits), label)
+            getattr(layers, loss)(layers.softmax(logits), label)
         else:
             out = getattr(layers, loss)(ce)
         fluid.optimizer.Momentum(learning_rate=0.1, momentum=0.9).minimize(
@@ -287,6 +288,36 @@ def sparse_embedding_feed(vocab=12, batch=8, lod=False, seed=0):
         ids = rng.randint(0, vocab, (batch, 1)).astype("int64")
     return {"ids": ids,
             "y": rng.normal(0, 1, (batch, 4)).astype("float32")}
+
+
+def accuracy_run(feed, mesh_axes=("dp",), state=None):
+    """``build_mlp_reduced(loss="accuracy")``'s accuracy op fetched from one
+    step of the sharded step over every rank and from the plain Executor
+    on the whole batch, from one state (``state``, numpy by name, or this
+    package's startup): {"sharded": [accuracy, correct, total],
+    "single": [...]}."""
+    from ..parallel import (ShardingPlan, make_mesh, place_feed,
+                            shard_program_step)
+
+    fluid = _fluid()
+    exe = fluid.Executor(fluid.CPUPlace())
+    kw = dict(loss="accuracy", batch=len(next(iter(feed.values()))))
+    main, startup, _, scope = _start(build_mlp_reduced, kw, exe, state)
+    if state is None:
+        state = {v.name: scope.find_var(v.name).numpy()
+                 for v in main.global_block().vars.values()
+                 if v.persistable and scope.find_var(v.name) is not None}
+    acc_op, = [op for op in main.global_block().ops if op.type == "accuracy"]
+    fetch = [acc_op.output(s)[0] for s in ("Accuracy", "Correct", "Total")]
+    single = exe.run(main, feed=feed, fetch_list=fetch,
+                     scope=fluid.io.scope_from_numpy(state, exe.device))
+    main, _, _, scope = _start(build_mlp_reduced, kw, exe, state)
+    plan = ShardingPlan(make_mesh(axes=mesh_axes))
+    fn, st, _ = shard_program_step(exe, main, feed, fetch, plan, scope=scope)
+    fd = exe._prepare_feed(main.global_block(), dict(feed))
+    _, got = fn(st, {k: place_feed(v, plan, k) for k, v in fd.items()})
+    return {"sharded": [float(v) for v in got],
+            "single": [float(v) for v in single]}
 
 
 def sharded_error(build, build_kw, feed, mesh_axes, plan_kw=None):

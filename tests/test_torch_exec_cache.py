@@ -151,16 +151,22 @@ def test_fingerprint_misses_on_every_field(monkeypatch):
         feeds={"x": torch.zeros((4, 7))})))
     keys.add(execcache.fingerprint_key(_fp(fetch_names=["b", "a"])))
     n = len(keys)
-    for flag, value in [("kernel_tier", "torch"), ("kernel_autotune", False),
-                        ("kernel_autotune_digest", "abc"),
-                        ("kernel_autotune_bf16", True)]:
+    toggles = [("kernel_tier", "torch"), ("kernel_autotune", False),
+               ("kernel_autotune_digest", "abc"),
+               ("kernel_autotune_bf16", True),
+               ("conv_space_to_depth", True), ("conv_1x1_grad_as_dot", True),
+               ("use_pallas_rnn", True), ("use_pallas_ctc", True),
+               ("bn_fusion_barrier", True), ("bn_fusion_barrier_fwd", True),
+               ("bn_fusion_barrier_bwd", True)]
+    assert [f for f, _ in toggles] == list(execcache.KEY_FLAGS)
+    for flag, value in toggles:
         old = get_flag(flag)
         set_flags({flag: value})
         try:
             keys.add(execcache.fingerprint_key(_fp()))
         finally:
             set_flags({flag: old})
-    assert len(keys) == n + 4
+    assert len(keys) == n + len(toggles)
     torch.backends.cuda.matmul.allow_tf32 = \
         not torch.backends.cuda.matmul.allow_tf32
     keys.add(execcache.fingerprint_key(_fp()))
@@ -175,7 +181,7 @@ def test_fingerprint_misses_on_every_field(monkeypatch):
                         lambda name: real(name) + ("!" if name == "conv_bn_bwd"
                                                    else ""))
     keys.add(execcache.fingerprint_key(_fp()))
-    assert len(keys) == n + 9
+    assert len(keys) == n + len(toggles) + 5
     fp = _fp()
     assert fp["feeds"] == {"x": ["float32", [4, 6]]}
     assert set(fp["kernel_sources"]) == set(kbuild.kernel_libraries())

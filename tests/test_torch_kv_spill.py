@@ -235,6 +235,25 @@ def test_fingerprint_covers_every_identity_axis(monkeypatch):
     assert fp["dtype"] == "float32" and fp["torch"] == torch.__version__
 
 
+def test_fingerprint_keys_every_executable_flag():
+    """The spill fingerprint keys the warm cache's flag tuple (the
+    reference's kvstore.py:112-123 keys its executor's): toggling any of
+    them misses."""
+    from paddle_tpu_torch.serving.execcache import KEY_FLAGS
+    from paddle_tpu_torch.core.flags import get_flag
+    base = ("h", 2, 2, 4, 4, torch.float32, torch.device("cpu"))
+    keys = {kvstore.fingerprint_key(kv_fingerprint(*base))}
+    for flag in KEY_FLAGS:
+        old = get_flag(flag)
+        new = {bool: lambda v: not v, str: lambda v: v + "x"}[type(old)](old)
+        set_flags({flag: new})
+        try:
+            keys.add(kvstore.fingerprint_key(kv_fingerprint(*base)))
+        finally:
+            set_flags({flag: old})
+    assert len(keys) == 1 + len(KEY_FLAGS)
+
+
 def test_resolve_store_precedence_and_manifest_pinning(lm_bundle, tmp_path,
                                                        flags_guard):
     fp = kv_fingerprint("h", 2, 2, 4, 4, torch.float32)

@@ -156,13 +156,37 @@ def test_dp_reduce_loss_matches_single_device(pool, loss):
     _check(ref, single, got)
 
 
-@pytest.mark.parametrize("loss", ["reduce_max", "accuracy"])
+@pytest.mark.parametrize("loss", ["reduce_max", "auc"])
 def test_batch_reductions_without_a_collective_form_raise(pool, loss):
     """An op that reduces over the rows and that the step has no
     collective form for raises when the step is built, on every rank."""
     errs = pool.run(multichip.sharded_error, multichip.build_mlp_reduced,
                     dict(loss=loss), _mlp_feeds(1)[0], ("dp",))
     assert all(e and "sharded over 'dp'" in e for e in errs), errs
+
+
+def test_accuracy_over_dp_is_the_whole_batchs(pool):
+    """accuracy over a batch sharded over dp: each rank's Correct and
+    Total summed over the ranks, then their quotient, the plain
+    Executor's numbers on the whole batch, on every rank; and both the
+    reference's accuracy on the whole batch (its step computes over the
+    global batch) from the same startup state."""
+    feed = _mlp_feeds(1)[0]
+    jfluid.framework.reset_unique_name()
+    jmain, jstart, _ = multichip.build_mlp_reduced(loss="accuracy",
+                                                   fluid=jfluid)
+    jexe, jscope, state = ref_state(jmain, jstart)
+    acc_op, = [op for op in jmain.global_block().ops
+               if op.type == "accuracy"]
+    fetch = [acc_op.output(s)[0] for s in ("Accuracy", "Correct", "Total")]
+    ref = [float(np.asarray(v)) for v in
+           jexe.run(jmain, feed=feed, fetch_list=fetch, scope=jscope)]
+    runs = pool.run(multichip.accuracy_run, feed, ("dp",), state)
+    for r in runs:
+        assert r["sharded"] == r["single"], r
+    np.testing.assert_allclose(runs[0]["single"], ref, rtol=CROSS_RTOL)
+    assert runs[0]["single"][1:] == ref[1:]     # the counts exactly
+    assert runs[0]["single"][2] == 16
 
 
 def test_lod_dp_needs_the_global_count(pool):

@@ -3,8 +3,10 @@ build one program with each package's front end, give the port the
 reference's startup state by name, run both on the same numpy feeds on the
 CPU and compare."""
 
+import importlib
 import importlib.util
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -369,6 +371,13 @@ def _book_module(name):
     return mod
 
 
+# reference modules the contracts import inside their bodies -> the port's
+# (the parallel contract runs on ranks: tests/torch_book_ranks.py maps
+# paddle_tpu.parallel there)
+BOOK_BODY_MODULES = {"v2": "paddle_tpu_torch.v2",
+                     "reader": "paddle_tpu_torch.reader"}
+
+
 @pytest.fixture
 def port_book(monkeypatch):
     """Load a tests/book module with the port's fluid in its ``fluid``
@@ -386,6 +395,15 @@ def port_book(monkeypatch):
         monkeypatch.setattr(mod, "fluid", tfluid)
         if hasattr(mod, "layers"):
             monkeypatch.setattr(mod, "layers", tfluid.layers)
+        # the reference modules a contract imports inside its body: the
+        # port's in their place, for the test (as the module and as the
+        # package's attribute, which ``import a.b as c`` reads)
+        import paddle_tpu
+        for sub, port_mod in BOOK_BODY_MODULES.items():
+            monkeypatch.setitem(sys.modules, f"paddle_tpu.{sub}",
+                                importlib.import_module(port_mod))
+            monkeypatch.setattr(paddle_tpu, sub, sys.modules[
+                f"paddle_tpu.{sub}"], raising=False)
         return mod
     yield load
     tfluid.set_flags(old)
@@ -407,6 +425,17 @@ CONTRACTS = [
     ("test_label_semantic_roles",
      "test_label_semantic_roles_converges_and_decodes", {}),
     ("test_recommender_system", "test_recommender_converges", {}),
+    ("test_fit_a_line", "test_fit_a_line_converges", {}),
+    ("test_machine_translation",
+     "test_machine_translation_train_and_beam_decode", {}),
+    ("test_memopt_book", "test_memopt_fit_a_line_matches_unoptimized", {}),
+    ("test_memopt_book", "test_memopt_conv_classifier_converges", {}),
+    ("test_recognize_digits",
+     "test_recognize_digits_parallel_matches_reference_variant", {}),
+    ("test_recognize_digits", "test_recognize_digits_v2_style_with_infer",
+     {}),
+    ("test_word2vec", "test_word2vec_converges", {"is_sparse": False}),
+    ("test_word2vec", "test_word2vec_converges", {"is_sparse": True}),
 ]
 
 
@@ -415,7 +444,7 @@ def contract_cases(*which):
     ``which``, with the ids the one-file suite gave them."""
     cases = [c for c in CONTRACTS
              if c[1] in which or c[2].get("net") in which]
-    return cases, [f"{t}-{k.get('net', '')}".rstrip("-")
+    return cases, [f"{t}-{k.get('net', k.get('is_sparse', ''))}".rstrip("-")
                    for _, t, k in cases]
 
 
@@ -465,3 +494,120 @@ if __name__ == "__main__":
     for rate in BOOK_RATES:
         ref_losses, port_losses = book_rate_losses(rate)
         print(f"{rate}: reference {ref_losses}\n  port {port_losses}")
+
+
+# ---------------------------------------------------------------------------
+# the reference's OpTest classes on the port (tests/test_torch_op_harness_*)
+# ---------------------------------------------------------------------------
+# Each OpTest subclass of a reference test file is mixed with the port's
+# harness (tests/torch_op_test.py): the class's own setup data and test_*
+# methods run on the port at the class's own tolerances. Its checks run
+# under the port's copy of the reference's flags (kernel_tier's "pallas"
+# naming the port's "cuda" route and "jnp" its "torch" one) and of its
+# pinned kernel variants (ops.autotune.force_variant), and every
+# check_output also runs the reference's executor on the same feed and
+# holds the port's fetches against it at that tolerance.
+
+import contextlib
+
+import op_test as ref_op_test
+import torch_op_test
+
+TIER_NAMES = {"pallas": "cuda", "jnp": "torch", "auto": "auto"}
+
+# test methods that reach the reference's JAX-only internals, with why
+OPTEST_SKIPS = {
+    "test_ctc_ops.TestWarpCTCNormByTimes.test_grad_is_scaled":
+        "builds and runs its programs with paddle_tpu.fluid inside its body "
+        "(no check_* call); test_torch_op_harness_ctc_ops.py holds the "
+        "port's counterpart",
+}
+
+
+@contextlib.contextmanager
+def mirrored_flags():
+    """The port's flags set to the reference's current values for the
+    flags both define (kernel_tier's names mapped), and the variants the
+    reference's ``ops.autotune.force_variant`` pins pinned in the port's
+    (the two share variant names), restored after."""
+    from paddle_tpu.ops import autotune as ref_at
+    from paddle_tpu_torch.ops import autotune as port_at
+    ref, port = jfluid.flags(), tfluid.flags()
+    want = {n: TIER_NAMES[v] if n == "kernel_tier" else v
+            for n, v in ref.items() if n in port}
+    old = {n: port[n] for n in want}
+    tfluid.set_flags(want)
+    try:
+        with contextlib.ExitStack() as pins:
+            for kernel, variant in dict(ref_at._FORCED).items():
+                pins.enter_context(port_at.force_variant(kernel, variant))
+            yield
+    finally:
+        tfluid.set_flags(old)
+
+
+def _cross_check_output(self, atol=1e-5, rtol=1e-4, no_check_set=None):
+    with mirrored_flags():
+        names, got = torch_op_test.OpTest.check_output(self, atol, rtol,
+                                                       no_check_set)
+    main, _, feed = ref_op_test.OpTest._build(self)
+    want = jfluid.Executor(jfluid.CPUPlace(), mode="eager").run(
+        main, feed=feed, fetch_list=names)
+    for name, g, w in zip(names, got, want):
+        if no_check_set and name in no_check_set:
+            continue
+        g, w = host(g), host(w)
+        if isinstance(w, tuple):
+            assert g[1] == w[1], (f"{self.op_type} {name}: LoD", g[1], w[1])
+            g, w = g[0], w[0]
+        g = torch_op_test.host_flat(g)
+        assert g.shape == w.shape, (f"{self.op_type} {name}", g.shape,
+                                    w.shape)
+        np.testing.assert_allclose(
+            g.astype(np.float64), w.astype(np.float64), atol=atol, rtol=rtol,
+            err_msg=f"{self.op_type} {name}: port against the reference's "
+                    "executor")
+    return names, got
+
+
+def _cross_check_grad(self, *args, **kwargs):
+    with mirrored_flags():
+        return torch_op_test.OpTest.check_grad(self, *args, **kwargs)
+
+
+def _skipper(reason):
+    def skipped(self, *args, **kwargs):
+        pytest.skip(reason)
+    return skipped
+
+
+def port_optests(module_name, namespace):
+    """Define, in ``namespace``, ``TestPort<Name>`` for every OpTest
+    subclass ``Test<Name>`` of the reference test module
+    ``module_name``: the class with the port's harness in place of the
+    reference's (and the OPTEST_SKIPS entries skipped). Returns the
+    names."""
+    mod = importlib.import_module(module_name)
+    # the module's fixtures (a test method may take one, by name)
+    for name, obj in vars(mod).items():
+        if hasattr(obj, "_fixture_function_marker"):
+            namespace.setdefault(name, obj)
+    harness = {k: v for k, v in vars(torch_op_test.OpTest).items()
+               if callable(v) and not k.startswith("__")}
+    harness.update(check_output=_cross_check_output,
+                   check_grad=_cross_check_grad, place=None)
+    made = []
+    for name, cls in sorted(vars(mod).items()):
+        if not (isinstance(cls, type) and issubclass(cls, ref_op_test.OpTest)
+                and cls is not ref_op_test.OpTest
+                and cls.__module__ == mod.__name__):
+            continue
+        body = dict(harness, __module__=namespace["__name__"])
+        for meth in dir(cls):
+            key = f"{module_name}.{name}.{meth}"
+            if meth.startswith("test") and key in OPTEST_SKIPS:
+                body[meth] = _skipper(OPTEST_SKIPS[key])
+        port_name = "TestPort" + name[len("Test"):]
+        namespace[port_name] = type(port_name, (cls,), body)
+        made.append(port_name)
+    return made
